@@ -1,0 +1,39 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Every wrapper launches its CUDA kernel for CUDA tensors (building it from
+``tpudist_torch/csrc`` at first use) and runs its plain PyTorch version for
+CPU tensors; each counts its kernel launches in a ``launches`` attribute.
+"""
+
+from tpudist_torch.ops.fused_sample import (fused_sample_prep,
+                                            fused_sample_reference)
+from tpudist_torch.ops.paged_attention import (paged_attention,
+                                               paged_attention_reference)
+from tpudist_torch.ops.paged_prefill import (paged_prefill_attention,
+                                             paged_prefill_reference)
+
+#: the kernel wrappers of the serving slice, by kernel name
+KERNEL_WRAPPERS = {
+    "paged_attention": paged_attention,
+    "paged_prefill": paged_prefill_attention,
+    "fused_sample": fused_sample_prep,
+}
+
+
+def launch_counts() -> dict:
+    """``kernel name → launches`` since the last
+    :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "KERNEL_WRAPPERS", "fused_sample_prep", "fused_sample_reference",
+    "launch_counts", "paged_attention", "paged_attention_reference",
+    "paged_prefill_attention", "paged_prefill_reference",
+    "reset_launch_counts",
+]

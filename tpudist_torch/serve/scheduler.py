@@ -1,0 +1,267 @@
+"""Iteration-level request scheduler — the host half of continuous
+batching, ported from ``tpudist/serve/scheduler.py`` for the serving slice.
+
+Admission control at submit (budget rule and queue bound, rejected
+synchronously with a machine-readable reason), a priority-ordered FIFO
+(higher priority first, arrival order within a class) and deadline
+enforcement for queued requests.  Thread contract: ``submit`` from any
+number of threads; ``take``/``expire_queued`` from the single engine thread.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import threading
+import time
+import warnings
+from typing import Callable, List, Optional
+
+import numpy as np
+
+#: every reason a handle can finish with in this slice (name → contract)
+FINISH_REASONS = {
+    "length": "completed its max_new output-token budget",
+    "eos": "emitted its per-request stop token",
+    "deadline": "missed its relative deadline (queued or mid-decode)",
+    "shutdown": "cut off by a non-graceful server stop (dead engine loop, "
+                "hard drain, never-started server)",
+    "cache_full": "hit a full KV cache with budget unspent — only reachable "
+                  "when the admission budget rule is bypassed",
+}
+
+
+def new_trace_id() -> str:
+    """A fresh 16-hex-digit request trace id."""
+    return os.urandom(8).hex()
+
+
+class AdmissionError(RuntimeError):
+    """A request the scheduler refused; ``reason`` is machine-readable
+    (``queue_full``, ``draining``, ``budget_exceeded: ...``,
+    ``empty_prompt``, ``max_new_must_be_positive``, ``kv_exhausted: ...``)."""
+
+    def __init__(self, reason: str):
+        super().__init__(f"request rejected: {reason}")
+        self.reason = reason
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request in token-id space."""
+
+    prompt: np.ndarray  # [plen] int32
+    max_new: int
+    temperature: float = 0.0  # 0 = greedy
+    deadline_s: Optional[float] = None  # relative to submit; None = none
+    seed: int = 0  # per-request sampling stream (temperature > 0)
+    eos_id: Optional[int] = None  # stop token: finish "eos" on emission
+    on_token: Optional[Callable[[int, int], None]] = None  # (token, index)
+    #: prompt prefix hash chain, stamped once at submit (shared-prefix
+    #: block reuse keys on it)
+    prefix_hashes: tuple = ()
+    priority: int = 0  # higher first; FIFO within a class
+
+
+class RequestHandle:
+    """The caller's view of an in-flight request: streamed tokens, a
+    ``done`` event, the finish reason and the latency stamps."""
+
+    def __init__(self, request: Request, req_id: int):
+        self.request = request
+        self.id = req_id
+        self.tokens: List[int] = []
+        self.finish_reason: Optional[str] = None
+        self._done = threading.Event()
+        self.t_submit = time.monotonic()
+        self.t_admitted: Optional[float] = None
+        self.t_first_token: Optional[float] = None
+        self.t_done: Optional[float] = None
+        self.slot: Optional[int] = None
+        self.trace_id: str = new_trace_id()
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the request finishes; True iff it did."""
+        return self._done.wait(timeout)
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Time to first token, queue wait included."""
+        if self.t_first_token is None:
+            return None
+        return self.t_first_token - self.t_submit
+
+    @property
+    def tpot_s(self) -> Optional[float]:
+        """Time per output token after the first; None below two tokens."""
+        if (self.t_done is None or self.t_first_token is None
+                or len(self.tokens) < 2):
+            return None
+        return (self.t_done - self.t_first_token) / (len(self.tokens) - 1)
+
+    @property
+    def queue_wait_s(self) -> Optional[float]:
+        if self.t_admitted is None:
+            return None
+        return self.t_admitted - self.t_submit
+
+    # -- engine side --------------------------------------------------------
+
+    def _expired(self, now: float) -> bool:
+        d = self.request.deadline_s
+        return d is not None and (now - self.t_submit) > d
+
+    def _deliver(self, token: int) -> None:
+        if self.t_first_token is None:
+            self.t_first_token = time.monotonic()
+        self.tokens.append(int(token))
+        cb = self.request.on_token
+        if cb is not None:
+            try:
+                cb(int(token), len(self.tokens) - 1)
+            except Exception as e:  # a user callback must not kill the loop
+                warnings.warn(f"on_token callback raised: {e!r}",
+                              RuntimeWarning, stacklevel=2)
+
+    def _finish(self, reason: str) -> None:
+        if self._done.is_set():
+            return
+        self.finish_reason = reason
+        self.t_done = time.monotonic()
+        self._done.set()
+
+
+class Scheduler:
+    """Bounded priority FIFO + admission control (module doc)."""
+
+    def __init__(self, *, queue_limit: int,
+                 check_budget: Callable[[int, int], Optional[str]],
+                 default_max_new: int = 64,
+                 default_deadline_s: Optional[float] = None,
+                 prefix_hasher: Optional[Callable] = None):
+        if queue_limit < 1:
+            raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
+        self.queue_limit = queue_limit
+        self.check_budget = check_budget
+        self.default_max_new = default_max_new
+        self.default_deadline_s = default_deadline_s
+        self.prefix_hasher = prefix_hasher
+        self._q: "collections.deque[RequestHandle]" = collections.deque()
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._refuse_reason: Optional[str] = None
+        self._next_id = 0
+        self.rejected = 0
+
+    def submit(self, prompt, *, max_new: Optional[int] = None,
+               temperature: float = 0.0, deadline_s: Optional[float] = None,
+               seed: Optional[int] = None, eos_id: Optional[int] = None,
+               on_token: Optional[Callable[[int, int], None]] = None,
+               priority: int = 0) -> RequestHandle:
+        """Admit a request or raise :class:`AdmissionError`.  ``deadline_s``
+        None inherits the default; ``<= 0`` means no deadline."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if deadline_s is None:
+            deadline = self.default_deadline_s
+        else:
+            deadline = float(deadline_s) if deadline_s > 0 else None
+        resolved_max_new = (self.default_max_new if max_new is None
+                            else int(max_new))
+        hashes: tuple = ()
+        # hashed outside the lock, and only for a request that stands a
+        # chance (racy by design: a miss just means no prefix sharing)
+        if (self.prefix_hasher is not None
+                and self._refuse_reason is None
+                and len(self._q) < self.queue_limit
+                and self.check_budget(len(prompt), resolved_max_new) is None):
+            hashes = tuple(self.prefix_hasher(prompt))
+        req = Request(prompt=prompt, max_new=resolved_max_new,
+                      temperature=float(temperature), deadline_s=deadline,
+                      seed=0 if seed is None else int(seed),
+                      eos_id=None if eos_id is None else int(eos_id),
+                      on_token=on_token, prefix_hashes=hashes,
+                      priority=int(priority))
+        with self._lock:
+            reason = self._refuse_reason
+            if reason is None and len(self._q) >= self.queue_limit:
+                reason = "queue_full"
+            if reason is None:
+                reason = self.check_budget(len(prompt), req.max_new)
+            if reason is not None:
+                self.rejected += 1
+                raise AdmissionError(reason)
+            handle = RequestHandle(req, self._next_id)
+            self._next_id += 1
+            if self._q and self._q[-1].request.priority < req.priority:
+                for i, other in enumerate(self._q):
+                    if other.request.priority < req.priority:
+                        self._q.insert(i, handle)
+                        break
+            else:
+                self._q.append(handle)
+            self._work.notify_all()
+            return handle
+
+    def take(self, k: int, now: Optional[float] = None,
+             admit: Optional[Callable[[RequestHandle], bool]] = None
+             ) -> List[RequestHandle]:
+        """Pop up to ``k`` admissible requests.  Requests already past
+        their deadline finish ``"deadline"`` and are returned (done) without
+        using a slot.  ``admit`` is an extra gate (the KV pool budget); its
+        first refusal stops the take and leaves that request at the head."""
+        if k <= 0:
+            return []
+        now = time.monotonic() if now is None else now
+        out: List[RequestHandle] = []
+        alive = 0
+        with self._lock:
+            while self._q and alive < k:
+                h = self._q.popleft()
+                if h._expired(now):
+                    h._finish("deadline")
+                    out.append(h)
+                    continue
+                if admit is not None and not admit(h):
+                    self._q.appendleft(h)
+                    break
+                alive += 1
+                out.append(h)
+        return out
+
+    def expire_queued(self, now: Optional[float] = None
+                      ) -> List[RequestHandle]:
+        """Finish and remove every queued request past its deadline."""
+        now = time.monotonic() if now is None else now
+        out: List[RequestHandle] = []
+        with self._lock:
+            keep: "collections.deque[RequestHandle]" = collections.deque()
+            while self._q:
+                h = self._q.popleft()
+                if h._expired(now):
+                    h._finish("deadline")
+                    out.append(h)
+                else:
+                    keep.append(h)
+            self._q = keep
+        return out
+
+    def pending(self) -> int:
+        with self._lock:
+            return len(self._q)
+
+    def wait_for_work(self, timeout: float) -> None:
+        """Park the engine thread until a submit lands (or timeout)."""
+        with self._lock:
+            if not self._q:
+                self._work.wait(timeout)
+
+    def refuse_new(self, reason: Optional[str]) -> None:
+        """Turn admission off (``reason``) or back on (``None``)."""
+        with self._lock:
+            self._refuse_reason = reason
+            self._work.notify_all()

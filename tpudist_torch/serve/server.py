@@ -1,0 +1,304 @@
+"""Threaded serving front-end — the PyTorch port of
+``tpudist/serve/server.py`` for the serving slice: ingestion, the engine
+loop and graceful drain (telemetry, the host KV tier, preemption, load
+shedding, adapters and structured output are later slices).
+
+One background thread drives the engine; any number of caller threads
+submit.  Each loop iteration admits queued requests into free slots (one
+batched prefill), feeds one chunk to every still-prefilling slot, then runs
+one fused decode block and streams its tokens.  ``close()`` stops admitting,
+finishes everything admitted, and stops the loop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+from tpudist_torch.serve.engine import SlotEngine
+from tpudist_torch.serve.scheduler import RequestHandle, Scheduler
+
+#: poll interval of an idle engine loop (host-side only)
+_IDLE_WAIT_S = 0.01
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Serving knobs; :meth:`from_env` reads the ``TPUDIST_SERVE_*``
+    family.  The port's engine runs the kernel configuration only, so
+    ``paged``, ``attn_kernel="paged"``, ``prefill_kernel`` and
+    ``sample_kernel`` default on; another value raises
+    ``NotImplementedError`` at engine construction."""
+
+    num_slots: int = 4
+    queue_limit: int = 64
+    max_new: int = 64  # default per-request token budget
+    prefill_pad: Optional[int] = None  # chunk size; None: min(max_len, 64)
+    deadline_s: Optional[float] = None  # default per-request deadline
+    decode_block: int = 8  # max fused decode tokens per dispatch (K)
+    paged: bool = True
+    kv_block: int = 16  # tokens per KV block (must divide max_len)
+    kv_blocks: Optional[int] = None  # None = num_slots * max_len / kv_block
+    kv_int8: bool = False  # int8 KV storage + per-block scales
+    prefix_cache_blocks: int = 0  # shared-prefix LRU cache bound (blocks)
+    attn_kernel: str = "paged"
+    prefill_kernel: bool = True
+    sample_kernel: bool = True
+    fused_rope: bool = False
+
+    @classmethod
+    def from_env(cls) -> "ServeConfig":
+        import os
+
+        from tpudist_torch.utils.envutil import (env_flag, env_int,
+                                                 env_positive_float)
+
+        return cls(
+            num_slots=env_int("TPUDIST_SERVE_SLOTS", 4) or 4,
+            queue_limit=env_int("TPUDIST_SERVE_QUEUE", 64) or 64,
+            max_new=env_int("TPUDIST_SERVE_MAX_NEW", 64) or 64,
+            prefill_pad=env_int("TPUDIST_SERVE_PREFILL_PAD", None),
+            deadline_s=env_positive_float("TPUDIST_SERVE_DEADLINE_S", None),
+            decode_block=env_int("TPUDIST_SERVE_DECODE_BLOCK", 8) or 8,
+            paged=env_flag("TPUDIST_SERVE_PAGED", True),
+            kv_block=env_int("TPUDIST_SERVE_KV_BLOCK", 16) or 16,
+            kv_blocks=env_int("TPUDIST_SERVE_KV_BLOCKS", None),
+            kv_int8=env_flag("TPUDIST_SERVE_KV_INT8", False),
+            prefix_cache_blocks=env_int(
+                "TPUDIST_SERVE_PREFIX_CACHE", 0) or 0,
+            attn_kernel=os.environ.get(
+                "TPUDIST_SERVE_ATTN_KERNEL", "").strip() or "paged",
+            prefill_kernel=env_flag("TPUDIST_SERVE_PREFILL_KERNEL", True),
+            sample_kernel=env_flag("TPUDIST_SERVE_SAMPLE_KERNEL", True),
+            fused_rope=env_flag("TPUDIST_SERVE_FUSED_ROPE", False),
+        )
+
+
+class InferenceServer:
+    """Continuous-batching server over a :class:`TransformerLM`.
+
+    Usage::
+
+        server = InferenceServer(model, ServeConfig(num_slots=8)).start()
+        h = server.submit(prompt_ids, max_new=32, on_token=stream_cb)
+        h.wait(); print(h.tokens, h.finish_reason)
+        server.close()          # graceful drain
+
+    ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
+    unless ``device="cpu"`` is passed."""
+
+    def __init__(self, model, config: Optional[ServeConfig] = None, *,
+                 device="cuda"):
+        self.config = config or ServeConfig.from_env()
+        cfg = self.config
+        self.engine = SlotEngine(
+            model, num_slots=cfg.num_slots, prefill_pad=cfg.prefill_pad,
+            decode_block=cfg.decode_block, paged=cfg.paged,
+            kv_block=cfg.kv_block, kv_blocks=cfg.kv_blocks,
+            kv_int8=cfg.kv_int8, prefix_cache_blocks=cfg.prefix_cache_blocks,
+            attn_kernel=cfg.attn_kernel, prefill_kernel=cfg.prefill_kernel,
+            sample_kernel=cfg.sample_kernel, fused_rope=cfg.fused_rope,
+            device=device)
+        hasher = None
+        if cfg.prefix_cache_blocks > 0:
+            from tpudist_torch.serve.paged_alloc import hash_chain
+
+            bs = self.engine.paged_cfg.block_size
+            hasher = lambda prompt: hash_chain(prompt, bs)  # noqa: E731
+        self.scheduler = Scheduler(
+            queue_limit=cfg.queue_limit,
+            check_budget=self.engine.check_budget,
+            default_max_new=cfg.max_new,
+            default_deadline_s=cfg.deadline_s,
+            prefix_hasher=hasher)
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._draining = False
+        self._slot_handles: Dict[int, RequestHandle] = {}
+        self.loop_error: Optional[str] = None
+        # counters (engine thread writes, stats() reads)
+        self.completed = 0
+        self.tokens_out = 0
+        self._occupancy_sum = 0.0
+        self._steps = 0
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "InferenceServer":
+        if self._thread is not None:
+            raise RuntimeError("server already started")
+        self._thread = threading.Thread(
+            target=self._loop, name="tpudist-torch-serve", daemon=True)
+        self._thread.start()
+        return self
+
+    def submit(self, prompt, *, max_new: Optional[int] = None,
+               temperature: float = 0.0, deadline_s: Optional[float] = None,
+               seed: Optional[int] = None, eos_id: Optional[int] = None,
+               on_token: Optional[Callable[[int, int], None]] = None,
+               priority: int = 0) -> RequestHandle:
+        """Thread-safe ingestion; raises
+        :class:`~tpudist_torch.serve.scheduler.AdmissionError` on
+        backpressure or budget rejection."""
+        return self.scheduler.submit(
+            prompt, max_new=max_new, temperature=temperature,
+            deadline_s=deadline_s, seed=seed, eos_id=eos_id,
+            on_token=on_token, priority=priority)
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Stop admitting, finish everything admitted, stop the loop.
+        True once the engine thread exited (or never ran); with no live
+        loop, queued requests finish ``"shutdown"``."""
+        self._stop.set()
+        t = self._thread
+        ok = True
+        if t is not None:
+            t.join(timeout)
+            ok = not t.is_alive()
+        if ok:
+            self.scheduler.refuse_new("draining")
+            self._abort_outstanding()
+        return ok
+
+    def close(self, timeout: Optional[float] = None) -> bool:
+        """Graceful shutdown (drain)."""
+        return self.drain(timeout)
+
+    def stats(self) -> dict:
+        return {
+            "completed": self.completed,
+            "rejected": self.scheduler.rejected,
+            "tokens_out": self.tokens_out,
+            "pending": self.scheduler.pending(),
+            "active": self.engine.num_active,
+            "prefilling": len(self.engine.prefilling_slots()),
+            "occupancy_mean": (self._occupancy_sum / self._steps
+                               if self._steps else 0.0),
+            "launch_counts": self.engine.launch_counts(),
+            "decode": self.engine.decode_stats(),
+            "kv": self.engine.kv_stats(),
+            "loop_error": self.loop_error,
+        }
+
+    # -- the engine loop ----------------------------------------------------
+
+    def _abort_outstanding(self) -> None:
+        for slot in list(self._slot_handles):
+            h = self._slot_handles.pop(slot)
+            h._finish("shutdown")
+            self._note_finished(h)
+        for h in self.scheduler.take(1 << 30):
+            if not h.done:
+                h._finish("shutdown")
+            self._note_finished(h)
+
+    def _loop(self) -> None:
+        try:
+            self._run_loop()
+        except BaseException as e:
+            # the loop must not die silently: every waiter would hang
+            self.loop_error = repr(e)
+            raise
+        finally:
+            self.scheduler.refuse_new("draining")
+            self._abort_outstanding()
+
+    def _admit(self, now: float) -> None:
+        eng, sched = self.engine, self.scheduler
+        free = eng.free_slots()
+        if not free:
+            return
+        reserved, pinned = [0], []
+
+        def _gate(h):
+            # one KV-pool gate per candidate within ONE take: ``reserved``
+            # and ``pinned`` carry what earlier candidates were promised
+            req = h.request
+            got = eng.kv_admission_probe(
+                len(req.prompt), req.max_new, req.prefix_hashes,
+                reserve=reserved[0], protect=pinned)
+            if got is None:
+                return False
+            reserved[0] += got[0]
+            pinned.extend(got[1])
+            return True
+
+        alive = []
+        for h in sched.take(len(free), now, admit=_gate):
+            if h.done:  # finished in-queue (deadline expired)
+                self._note_finished(h)
+            else:
+                alive.append(h)
+        if not alive:
+            return
+        items, t0 = [], time.monotonic()
+        for h, slot in zip(alive, free):
+            h.slot = slot
+            h.t_admitted = t0
+            r = h.request
+            items.append((slot, r.prompt, r.temperature, r.seed, r.max_new,
+                          r.prefix_hashes))
+            self._slot_handles[slot] = h
+        for slot, tok in eng.start_batch(items).items():
+            if tok is not None:
+                self._deliver_block(slot, [tok])
+
+    def _run_loop(self) -> None:
+        eng, sched = self.engine, self.scheduler
+        while True:
+            if not self._draining and self._stop.is_set():
+                self._draining = True
+                sched.refuse_new("draining")
+            now = time.monotonic()
+            for slot, h in list(self._slot_handles.items()):
+                if h._expired(now):
+                    self._finish_slot(slot, "deadline")
+            for slot in eng.cache_full_slots():
+                if slot in self._slot_handles:
+                    self._finish_slot(slot, "cache_full")
+            for h in sched.expire_queued(now):
+                self._note_finished(h)
+            self._admit(now)
+            # chunked prefill: one chunk per prefilling slot per iteration
+            if eng.prefilling_slots():
+                for slot, tok in eng.advance_prefill().items():
+                    self._deliver_block(slot, [tok])
+            if eng.num_active:
+                self._occupancy_sum += eng.occupancy
+                self._steps += 1
+                _, blocks = eng.decode_auto()
+                for slot, toks in blocks.items():
+                    self._deliver_block(slot, toks)
+            elif eng.prefilling_slots():
+                pass  # prefill work continues next iteration
+            elif self._draining and sched.pending() == 0:
+                break
+            else:
+                sched.wait_for_work(_IDLE_WAIT_S)
+
+    def _deliver_block(self, slot: int, toks: List[int]) -> None:
+        """Stream a token block to the slot's request, truncating at its
+        stop token or length budget (the device block runs past either by
+        at most the block size)."""
+        h = self._slot_handles[slot]
+        eos = h.request.eos_id
+        for tok in toks:
+            h._deliver(tok)
+            self.tokens_out += 1
+            if eos is not None and tok == eos:
+                self._finish_slot(slot, "eos")
+                return
+            if len(h.tokens) >= h.request.max_new:
+                self._finish_slot(slot, "length")
+                return
+
+    def _finish_slot(self, slot: int, reason: str) -> None:
+        h = self._slot_handles.pop(slot)
+        self.engine.evict(slot)
+        h._finish(reason)
+        self._note_finished(h)
+
+    def _note_finished(self, h: RequestHandle) -> None:
+        self.completed += 1
