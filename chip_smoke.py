@@ -5,16 +5,25 @@ Run from the repository root: ``python3 chip_smoke.py``.  Phases, in
 order; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving path from ``tpudist_torch/csrc``
-   (one ``nvcc`` per source, all at once);
-3. each kernel against its plain PyTorch version at the serving slice's
-   shapes (8 slots, dh 128, KV block 16, 128 blocks per lane, window 8,
-   chunk 64, vocab 256): bf16 and int8 pools, ragged cursors with partial
+2. build every CUDA kernel of the serving and training paths from
+   ``tpudist_torch/csrc`` (one ``nvcc`` per source, all at once);
+3. each serving kernel against its plain PyTorch version at the serving
+   slice's shapes (8 slots, dh 128, KV block 16, 128 blocks per lane, window
+   8, chunk 64, vocab 256): bf16 and int8 pools, ragged cursors with partial
    blocks, sentinel table tails, ragged chunk lengths, a sliding window;
-   written int8 blocks must be byte-identical.  Each kernel is timed with
-   CUDA events (median of 30 after warm-up, L2 flushed between launches)
-   beside its plain version, its bound and, where one PyTorch call computes
-   the same function, that call;
+   written int8 blocks must be byte-identical; the sampling filters top-k 5,
+   top-p 0.9, both, and ties (top-k exact, top-p within the stated margin).
+   Each kernel is timed with CUDA events (median of 30 after warm-up, L2
+   flushed between launches) beside its plain version, its bound and, where
+   one PyTorch call computes the same function, that call;
+3b. the flash forward, dq and dk/dv kernels against their plain versions at
+   the training path's shapes (b 8, h 8, s 2048, dh 128, bf16, causal), a
+   GQA sliding-window case (h_kv 2, window 512), a non-causal ragged length
+   (s 1000), an f32 case and head dims 32 and 16 (bf16 and f32), elementwise,
+   per row and over the whole tensor (:func:`flash_agreement`), timed as in
+   phase 3; the yardstick is
+   ``scaled_dot_product_attention(is_causal=True)``, forward alone and
+   forward + backward beside FlashAttention's forward + dq + dk/dv;
 4. the main path: ``InferenceServer`` on the d1024 / 8-layer / 8-head /
    ff4096 / vocab-256 / max_len-2048 RoPE TransformerLM in bf16 (random
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
@@ -24,7 +33,17 @@ order; any failure exits non-zero:
    same model under ``torch.profiler`` (device busy time, idle share, the
    heaviest kernels);
 6. one prompt's logits through the paged prefill path on the card (bf16,
-   kernels) against the port's CPU plain path (f32, same weights).
+   kernels) against the port's CPU plain path (f32, same weights);
+7. the training main path: ``tpudist_torch.train``'s step on the d1024 /
+   8-layer / 8-head / ff4096 / vocab-256 / seq-2048 LM with learned
+   positions, batch 8, bf16 compute over f32 masters, Adam lr 3e-4, on
+   increment-chain tokens, for 30 steps: losses, median step ms after 3
+   warm-up steps, tokens/s, MFU, peak memory; the loss must fall and every
+   flash kernel (counts zeroed just before) must launch 8 times a step;
+8. where the training time goes: one step under ``torch.profiler``;
+9. gradients at batch 2, same weights: the bf16 kernel path against the
+   card's f32 plain path (dense attention, no kernel): the loss and every
+   parameter's gradient by cosine similarity.
 
 It prints the kernels' JSON record and the ``nvidia-smi`` line before the
 last line, which is the contract line ``{"ok": true, "device": ...}``.
@@ -35,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,6 +68,33 @@ H100_F32_FLOPS = 67e12  # CUDA-core f32 peak
 SLOTS, HEADS, DH, BS, M, W, P, V, LAYERS = 8, 8, 128, 16, 128, 8, 64, 256, 8
 MODEL = dict(vocab=256, d_model=1024, n_layers=8, n_heads=8, d_ff=4096,
              max_len=2048, rope=True)
+# the training main path: benchmarks/mfu_hunt.py GEOM as bench.py bench_lm
+# trains it (learned positions, max_len = seq_len, batch 8, Adam 3e-4)
+TRAIN_ARGS = ["--device", "cuda", "--seq_len", "2048", "--d_model", "1024",
+              "--n_layers", "8", "--n_heads", "8", "--d_ff", "4096",
+              "--vocab", "256", "--batch_size", "8", "--precision", "bf16",
+              "--lr", "3e-4", "--seed", "0"]
+TRAIN_STEPS, TRAIN_WARMUP = 30, 3
+# phase 3b's cases: (name, b, h, h_kv, s, head dim, dtype, band); head dim
+# 32 is ``python -m tpudist_torch.train``'s default model (d 128, 4 heads)
+FLASH_CASES = (("main path", 8, 8, 8, 2048, DH, "bf16", (0, None)),
+               ("GQA + window 512", 2, 8, 2, 2048, DH, "bf16", (0, 512)),
+               ("non-causal, s 1000", 2, 8, 8, 1000, DH, "bf16",
+                (None, None)),
+               ("f32 causal", 1, 4, 4, 512, DH, "f32", (0, None)),
+               ("dh 32 causal", 8, 4, 4, 512, 32, "bf16", (0, None)),
+               ("dh 16 GQA band", 2, 4, 2, 300, 16, "bf16", (-20, 64)),
+               ("dh 32 f32 window", 2, 4, 2, 300, 32, "f32", (0, 40)))
+SERVE_KERNELS = ("paged_attention", "paged_prefill", "fused_sample")
+TRAIN_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+# gradient agreement, bf16 kernel path vs f32 plain path on the same batch
+# (phase 9).  Readings on the H100 (tests/torch_flash_faults.py): the sound
+# kernels leave 1 - cosine at 6.2e-5 at worst over the 52 parameters and the
+# loss 1.1e-4 apart; a bf16 plain path (dense attention, no kernel) reads
+# 6.3e-5 and 1.4e-4, so that is bf16's own rounding.  Dropping the last
+# dk/dv step of every KV tile reads 5.2e-4, the diagonal dS·K tile of every
+# Q tile 7.4e-3.  The bounds sit 4.8 and 9 times above the sound readings.
+GRAD_COS_MIN, LOSS_REL_MAX = 0.9997, 1e-3
 
 
 def log(msg: str) -> None:
@@ -323,6 +370,14 @@ def check_kernels(torch, dev):
                                      "plain version")
     if int(out[2][1]) != 0 or int(fused_sample_prep(lg, temps)[2][0]) != 3:
         raise AssertionError("arg-max ties must pick the lowest index")
+    lgf = lg.clone()
+    lgf[2, :12] = 3.0  # ties straddling the k-th value
+    lgf[3] = 0.5  # a flat row
+    for tk, tp in ((5, 0.0), (0, 0.9), (5, 0.9), (12, 0.0)):
+        for a in ((lgf, temps), (lgf, temps, gallow, gidx, gstate)):
+            check_filters(torch, fused_sample_prep(*a, top_k=tk, top_p=tp),
+                          fused_sample_reference(*a, top_k=tk, top_p=tp),
+                          fused_sample_reference(*a, top_k=tk)[1], tp)
     nbytes = SLOTS * V * 4 * 3 + SLOTS * 4 * 2
     rec["fused_sample"] = dict(
         route="cuda", source="tpudist_torch/csrc/fused_sample.cu",
@@ -339,6 +394,232 @@ def check_kernels(torch, dev):
     del flush
     ops.reset_launch_counts()
     return rec
+
+
+def check_filters(torch, out, ref, topk_row, top_p: float) -> None:
+    """Sampling outputs with top-k / top-p on: masked, greedy and top-k
+    exact.  A top-p kept set may differ from the plain version's only where
+    the softmax mass before a value lies within ``V * 2**-23`` of
+    ``top_p``: the kernel sums the sorted row's probabilities in another
+    order than a sequential cumsum, each of V additions rounding by at most
+    2**-24 relative on either side."""
+    import numpy as np
+
+    for x, y in ((out[0], ref[0]), (out[2], ref[2])):
+        if not torch.equal(x, y):
+            raise AssertionError("fused_sample_prep differs from its plain "
+                                 "version")
+    if top_p == 0.0:
+        if not torch.equal(out[1], ref[1]):
+            raise AssertionError("top-k filtered logits differ")
+        return
+    neg = torch.finfo(torch.float32).min
+    o, r, t = (x.cpu().numpy() for x in (out[1], ref[1], topk_row))
+    n_vocab = o.shape[1]
+    for row in range(o.shape[0]):
+        diff = np.flatnonzero((o[row] == neg) != (r[row] == neg))
+        srt = np.sort(t[row].astype(np.float64))[::-1]
+        p = np.exp(srt - srt[0])
+        before = np.concatenate([[0.0], np.cumsum(p / p.sum())[:-1]])
+        for pos in diff:
+            first = int(np.flatnonzero(srt == float(t[row, pos]))[0])
+            if abs(before[first] - top_p) > n_vocab * 2.0 ** -23:
+                raise AssertionError(
+                    f"top-p kept sets differ at mass {before[first]} "
+                    f"(top_p {top_p})")
+    kept = out[1] > neg
+    if not torch.equal(out[1][kept], ref[1][kept]):
+        raise AssertionError("top-p kept values differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the flash kernels against their plain versions
+
+
+def flash_agreement(torch, out, ref, dtype, grad: bool = True,
+                    vmax: float = 0.0) -> dict:
+    """How a flash output or gradient agrees with its plain version, against
+    the stated bounds.
+
+    Elementwise: f32 sums in another order only (``1e-4 * max|ref| + 1e-4 *
+    |ref|``).  bf16 gradients round ds and p to bf16 before their products
+    on both sides, and a value on a rounding boundary can land one bf16 step
+    (2**-8) apart: ``2**-7 * max|ref| + 2**-7 * |ref|``.  The bf16 output
+    takes :func:`close_bf16`'s bound over ``vmax`` = max|V|.
+
+    Per row (the last axis) and over the whole tensor, since an elementwise
+    bound scaled by the largest value cannot see a fault confined to rows
+    whose values are small (a causal row over n keys has |out| ~ n**-0.5):
+    ``|err_row| <= row * |ref_row| + floor * mean_rows |ref_row|`` and
+    ``|err| / |ref| <= rms``.  Readings of the sound kernels on the H100 over
+    the phase's cases (tests/torch_flash_faults.py): bf16 outputs at most
+    5.7e-3 per row and 2.3e-3 overall; bf16 gradients, whose rows can
+    cancel to nearly nothing, at most 0.025 of the mean row per row and
+    1.8e-4 overall; f32 below 6e-7 per row and 5e-6 of the mean row.  So
+    bf16 takes ``row = 2**-6``, ``rms = 2**-7`` and for gradients ``floor =
+    2**-4``; f32 takes ``row = rms = 1e-5`` and for gradients ``floor =
+    1e-4``.  Half of one KV tile's P·V dropped in one head's last Q tile
+    reads 0.26 per row at the main-path shapes and passes the elementwise
+    bound alone."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    top = float(ref.abs().max())
+    if dtype == torch.float32:
+        ok = bool((err <= 1e-4 * top + 1e-4 * ref.abs()).all())
+        row, floor, rms = 1e-5, (1e-4 if grad else 0.0), 1e-5
+    elif grad:
+        ok = bool((err <= 2 ** -7 * top + 2 ** -7 * ref.abs()).all())
+        row, floor, rms = 2 ** -6, 2 ** -4, 2 ** -7
+    else:
+        ok = bool((err <= 2 ** -7 * vmax + 2 ** -8 * ref.abs()).all())
+        row, floor, rms = 2 ** -6, 0.0, 2 ** -7
+    ref_rows, err_rows = ref.norm(dim=-1), (out - ref).norm(dim=-1)
+    rel = float((out - ref).norm() / ref.norm().clamp(min=1e-30))
+    return dict(
+        max_abs_err=float(err.max()), max_ref=top, elementwise_ok=ok,
+        rows_ok=bool((err_rows <= row * ref_rows
+                      + floor * float(ref_rows.mean())).all()),
+        worst_row=float((err_rows / ref_rows.clamp(min=1e-30)).max()),
+        worst_row_of_mean=float(err_rows.max() / ref_rows.mean()),
+        rel_rms=rel, rms_ok=rel <= rms)
+
+
+def flash_close(torch, out, ref, dtype, what: str, grad: bool = True,
+                vmax: float = 0.0) -> float:
+    """Max |out - ref|, raising unless :func:`flash_agreement` holds."""
+    r = flash_agreement(torch, out, ref, dtype, grad, vmax)
+    if not (r["elementwise_ok"] and r["rows_ok"] and r["rms_ok"]):
+        raise AssertionError(f"{what} disagrees with its plain version: {r}")
+    return r["max_abs_err"]
+
+
+def check_flash(torch, dev):
+    """Phase 3b: forward, dq and dk/dv kernels against their plain versions
+    on ``FLASH_CASES``, then timed at the training path's shapes."""
+    import torch.nn.functional as F
+
+    from tpudist_torch import ops
+    from tpudist_torch.ops.flash_attention import (
+        FlashAttention, band_live_pairs, flash_backward_dkv,
+        flash_backward_dq, flash_backward_reference, flash_forward,
+        flash_forward_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(b, h, h_kv, s, dtype, d=DH):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        return (r(b, h, s, d), r(b, h_kv, s, d), r(b, h_kv, s, d),
+                r(b, h, s, d))
+
+    err = {"flash_forward": 0.0, "flash_backward_dq": 0.0,
+           "flash_backward_dkv": 0.0}
+    for name, b, h, h_kv, s, d, dt, band in FLASH_CASES:
+        dtype = bf16 if dt == "bf16" else f32
+        q, k, v, g = inputs(b, h, h_kv, s, dtype, d)
+        out, lse = flash_forward(q, k, v, band)
+        ref, rlse = flash_forward_reference(q, k, v, band)
+        torch.cuda.synchronize()
+        e = flash_close(torch, out, ref, dtype, f"flash_forward ({name})",
+                        grad=False, vmax=float(v.float().abs().max()))
+        if not bool(((lse - rlse).abs() <= 1e-4 + 1e-5 * rlse.abs()).all()):
+            raise AssertionError(f"flash lse disagrees ({name})")
+        err["flash_forward"] = max(err["flash_forward"], e)
+        delta = (ref.float() * g.float()).sum(-1).contiguous()
+        dq = flash_backward_dq(q, k, v, g, rlse, delta, band)
+        dk, dv = flash_backward_dkv(q, k, v, g, rlse, delta, band)
+        rq, rk, rv = flash_backward_reference(q, k, v, g, rlse, delta, band)
+        torch.cuda.synchronize()
+        err["flash_backward_dq"] = max(err["flash_backward_dq"], flash_close(
+            torch, dq, rq, dtype, f"flash dq ({name})"))
+        err["flash_backward_dkv"] = max(
+            err["flash_backward_dkv"],
+            flash_close(torch, dk, rk, dtype, f"flash dk ({name})"),
+            flash_close(torch, dv, rv, dtype, f"flash dv ({name})"))
+        log(f"flash {name}: b {b} h {h}/{h_kv} s {s} dh {d} {dtype}: "
+            f"agrees")
+        del q, k, v, g, out, ref, dq, dk, dv, rq, rk, rv
+
+    # timing at the main path's shapes (b 8, h 8, s 2048, dh 128, causal)
+    b, h, s, band = 8, 8, 2048, (0, None)
+    q, k, v, g = inputs(b, h, h, s, bf16)
+    out, lse = flash_forward(q, k, v, band)
+    delta = (out.float() * g.float()).sum(-1).contiguous()
+    work = b * h * band_live_pairs(s, s, band)
+    elt = q.numel()
+    io = 4 * elt * 2  # q, k, v, do (or out) in bf16
+    rows = b * h * s * 4  # one f32 per query row (lse, delta)
+    shapes = dict(
+        flash_forward=(io + rows, 4 * work * DH,
+                       lambda: flash_forward(q, k, v, band),
+                       lambda: flash_forward_reference(q, k, v, band),
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True),
+                       "tpudist/ops/flash_attention.py:283",
+                       "tpudist_torch/csrc/flash_attention.cu"),
+        flash_backward_dq=(io + 2 * rows + elt * 2, 6 * work * DH,
+                           lambda: flash_backward_dq(q, k, v, g, lse, delta,
+                                                     band),
+                           lambda: flash_backward_reference(
+                               q, k, v, g, lse, delta, band), None,
+                           "tpudist/ops/flash_attention.py:622",
+                           "tpudist_torch/csrc/flash_backward.cu"),
+        flash_backward_dkv=(io + 2 * rows + 2 * elt * 2, 8 * work * DH,
+                            lambda: flash_backward_dkv(q, k, v, g, lse,
+                                                       delta, band),
+                            lambda: flash_backward_reference(
+                                q, k, v, g, lse, delta, band), None,
+                            "tpudist/ops/flash_attention.py:669",
+                            "tpudist_torch/csrc/flash_backward.cu"),
+    )
+    rec = {}
+    for name, (nbytes, flops, kern, plain, lib, replaces, src) in \
+            shapes.items():
+        rec[name] = dict(
+            route="cuda", source=src, replaces=replaces,
+            max_abs_err=err[name], ms=time_ms(torch, kern, flush),
+            plain_ms=time_ms(torch, plain, flush, n=5, warmup=1),
+            library_ms=time_ms(torch, lib, flush) if lib else None,
+            bound=bound(nbytes, flops, H100_BF16_FLOPS))
+    # forward + backward: FlashAttention (fwd, delta, dq, dk/dv) against
+    # one scaled_dot_product_attention forward + backward
+    qa, ka, va = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def ours():
+        o, _ = FlashAttention.apply(qa, ka, va, True)
+        o.backward(g)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qa, ka, va, is_causal=True)
+        o.backward(g)
+
+    # the backward alone (delta, dq, dk/dv against SDPA's backward), over
+    # one forward graph kept alive between the timed calls
+    o_ours, _ = FlashAttention.apply(qa, ka, va, True)
+    o_sdpa = F.scaled_dot_product_attention(qa, ka, va, is_causal=True)
+    fwd_bwd = dict(ms=time_ms(torch, ours, flush),
+                   library_ms=time_ms(torch, sdpa, flush),
+                   bwd_ms=time_ms(torch, lambda: torch.autograd.grad(
+                       o_ours, (qa, ka, va), g, retain_graph=True), flush),
+                   library_bwd_ms=time_ms(torch, lambda: torch.autograd.grad(
+                       o_sdpa, (qa, ka, va), g, retain_graph=True), flush),
+                   bound_ms=bound(io + 2 * rows + 3 * elt * 2,
+                                  18 * work * DH, H100_BF16_FLOPS)[0])
+    for name, r in rec.items():
+        log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3g}, "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, bound {r['bound'][0]:.5f} ms by "
+            f"{r['bound'][1]})")
+    log(f"flash fwd+bwd (FlashAttention): {fwd_bwd['ms']:.4f} ms, SDPA "
+        f"fwd+bwd {fwd_bwd['library_ms']:.4f} ms, bound "
+        f"{fwd_bwd['bound_ms']:.5f} ms; backward alone "
+        f"{fwd_bwd['bwd_ms']:.4f} ms, SDPA backward "
+        f"{fwd_bwd['library_bwd_ms']:.4f} ms")
+    del flush, q, k, v, g, qa, ka, va, o_ours, o_sdpa
+    ops.reset_launch_counts()
+    return rec, fwd_bwd
 
 
 # ---------------------------------------------------------------------------
@@ -380,9 +661,9 @@ def serve_main_path(torch, model, gen_seed: int):
                                  f"{len(h.tokens)}/{n} tokens")
     if stats["kv"]["blocks_in_use"] != 0:
         raise AssertionError("KV pool did not drain")
-    if not all(v > 0 for v in counts.values()):
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{counts}")
+    if not all(counts[name] > 0 for name in SERVE_KERNELS):
+        raise AssertionError(f"a kernel was not launched on the serving "
+                             f"path: {counts}")
     tokens = sum(len(h.tokens) for h in handles)
     return dict(
         requests=len(handles), tokens=tokens, wall_s=wall,
@@ -393,14 +674,55 @@ def serve_main_path(torch, model, gen_seed: int):
         decode=stats["decode"], launches=counts)
 
 
-def profile_engine(torch, model):
-    """Where the time goes: one admission prefill (8 lanes x 60 tokens) and
-    one K=8 decode block over 8 busy lanes, each timed plain (host clock to
-    a synchronize) and once under ``torch.profiler`` for the device's kernel
-    time; the idle share is 1 - kernel time / profiled wall time."""
-    import numpy as np
+def device_profile(torch, fn, prep):
+    """``fn`` timed plain (host clock to a synchronize, after ``prep``) and
+    once under ``torch.profiler`` for the device's kernel time; the idle
+    share is 1 - kernel time / profiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    prep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    prep()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    return dict(
+        wall_ms=wall, profiled_wall_ms=prof_wall,
+        device_busy_ms=busy if kern else None,
+        idle_share=(1 - busy / prof_wall) if kern else None,
+        device_events=len(kern),
+        top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+
+def log_profile(prof: dict) -> None:
+    for name, r in prof.items():
+        log(f"profile {name}: wall {r['wall_ms']:.3f} ms (profiled "
+            f"{r['profiled_wall_ms']:.3f} ms), device busy "
+            f"{r['device_busy_ms']} ms, idle share {r['idle_share']} "
+            f"({r['device_events']} device events)")
+        for kname, ms in r["top"]:
+            log(f"  {ms:9.4f} ms  {kname[:110]}")
+
+
+def profile_engine(torch, model):
+    """Where the time goes: one admission prefill (8 lanes x 60 tokens) and
+    one K=8 decode block over 8 busy lanes (:func:`device_profile`)."""
+    import numpy as np
 
     from tpudist_torch.serve import SlotEngine
 
@@ -417,38 +739,11 @@ def profile_engine(torch, model):
         eng.start_batch([(s, rng.integers(0, V, size=60), 0.0, 0, 200)
                          for s in range(SLOTS)])
 
-    def measure(fn, prep):
-        prep()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        prep()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            prof_wall = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-        busy = sum(by_name.values())
-        return dict(
-            wall_ms=wall, profiled_wall_ms=prof_wall,
-            device_busy_ms=busy if kern else None,
-            idle_share=(1 - busy / prof_wall) if kern else None,
-            device_events=len(kern),
-            top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-
     admit()  # warm both programs
     eng.decode_block()
-    out = {"prefill": measure(admit, clear)}
-    out["decode_block"] = measure(eng.decode_block, lambda: None)
+    out = {"prefill": device_profile(torch, admit, clear)}
+    out["decode_block"] = device_profile(torch, eng.decode_block,
+                                         lambda: None)
     clear()
     return out
 
@@ -474,6 +769,131 @@ def prompt_logits(torch, model, prompt):
             torch.ones(1, dtype=torch.bool, device=dev))
         out.append(lg[0, :len(chunk)].float().cpu())
     return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
+# phases 7-9: the training main path, its profile, gradients vs plain f32
+
+
+def train_main_path(torch):
+    """Phase 7: ``TRAIN_STEPS`` steps of ``tpudist_torch.train`` on the
+    training geometry, every kernel count zeroed just before."""
+    from tpudist_torch import ops
+    from tpudist_torch.train.__main__ import build_training, get_args
+    from tpudist_torch.utils.flops import (mfu, transformer_param_count,
+                                           transformer_train_flops)
+
+    args = get_args(TRAIN_ARGS + ["--total_iterations", str(TRAIN_STEPS)])
+    model, step, next_batch = build_training(args)
+    batches = [torch.from_numpy(next_batch()).cuda()
+               for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[TRAIN_WARMUP:])
+    geom = dict(d_model=args.d_model, n_layers=args.n_layers,
+                d_ff=args.d_ff, vocab=args.vocab)
+    flops = transformer_train_flops(batch=args.batch_size,
+                                    seq_len=args.seq_len, **geom)
+    res = dict(
+        steps=TRAIN_STEPS, first_loss=losses[0], last_loss=losses[-1],
+        last5_mean=statistics.mean(losses[-5:]), losses=losses,
+        step_ms_p50=step_s * 1e3, step_ms=[t * 1e3 for t in times],
+        tokens_per_s=args.batch_size * args.seq_len / step_s,
+        flops_per_step=flops,
+        mfu=mfu(flops, step_s, 1, peak_per_chip=H100_BF16_FLOPS),
+        params=transformer_param_count(max_len=args.seq_len, **geom),
+        peak_mem_gb=peak / 1e9, launches=counts)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if res["last5_mean"] > losses[0] - 0.1:
+        raise AssertionError(
+            f"loss did not fall 0.1 nat: first {losses[0]:.4f}, mean of the "
+            f"last 5 {res['last5_mean']:.4f}")
+    per_step = args.n_layers * TRAIN_STEPS
+    for name in TRAIN_KERNELS:
+        if counts[name] != per_step:
+            raise AssertionError(f"{name} launched {counts[name]} times, not "
+                                 f"{per_step} (8 layers x {TRAIN_STEPS})")
+    return res, step, batches[0]
+
+
+class PlainCausal:
+    """The training attention arm without kernels, for the card's f32 plain
+    path: dense causal softmax with K/V broadcast to every q head."""
+
+    def positions(self, batch, seq, device):
+        import torch
+
+        return torch.arange(seq, device=device)[None].expand(batch, seq)
+
+    def attend(self, layer, q, k, v):
+        from tpudist_torch.models.transformer import attention_reference
+
+        group = q.shape[1] // k.shape[1]
+        if group > 1:
+            k = k.repeat_interleave(group, dim=1)
+            v = v.repeat_interleave(group, dim=1)
+        return attention_reference(q, k, v)
+
+
+def grad_readings(torch, bf16_ctx=None) -> dict:
+    """Loss and gradients at batch 2 of the training geometry, the bf16 path
+    (the kernels, or ``bf16_ctx``'s attention) against the f32 plain path,
+    same weights (seed 0): the loss's relative difference and the worst
+    cosine over the parameters."""
+    import numpy as np
+
+    from tpudist_torch.models import create_transformer, lm_loss
+    from tpudist_torch.train.__main__ import make_batch
+
+    cfg = dict(vocab=256, d_model=1024, n_layers=8, n_heads=8, d_ff=4096,
+               max_len=2048)
+    tokens = torch.from_numpy(make_batch(np.random.default_rng(5), 2, 2048,
+                                         256)).cuda()
+    res = {}
+    for label, dtype, ctx in (("bf16", torch.bfloat16, bf16_ctx),
+                              ("f32_plain", torch.float32, PlainCausal())):
+        model = create_transformer(0, device="cuda", dtype=dtype,
+                                   param_dtype=torch.float32,
+                                   trainable=True, **cfg)
+        loss = lm_loss(model(tokens, ctx), tokens)
+        loss.backward()
+        res[label] = (loss.item(), {n: p.grad.detach().float()
+                                    for n, p in model.named_parameters()})
+        del model, loss
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = res["bf16"], res["f32_plain"]
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        gk[n].flatten(), gp[n].flatten(), dim=0)) for n in gp}
+    worst = min(cos, key=cos.get)
+    return dict(loss_bf16_kernels=lk, loss_f32_plain=lp,
+                loss_rel_diff=abs(lk - lp) / abs(lp), min_cos=cos[worst],
+                min_cos_param=worst, params=len(cos))
+
+
+def grads_agree(out: dict) -> bool:
+    return out["loss_rel_diff"] <= LOSS_REL_MAX and \
+        out["min_cos"] >= GRAD_COS_MIN
+
+
+def grad_check(torch):
+    """Phase 9: :func:`grad_readings` of the kernels, held to
+    ``GRAD_COS_MIN`` and ``LOSS_REL_MAX``."""
+    out = grad_readings(torch)
+    if not grads_agree(out):
+        raise AssertionError(f"bf16 kernel gradients disagree with the f32 "
+                             f"plain path: {out}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -515,6 +935,7 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     rec = check_kernels(torch, dev)
+    flash_rec, flash_fwd_bwd = check_flash(torch, dev)
 
     cpu_model = create_transformer(0, device="cpu", dtype=torch.float32,
                                    **MODEL)
@@ -531,13 +952,7 @@ def main(argv=None) -> int:
         f"{main_path['launches']}")
 
     prof = profile_engine(torch, model)
-    for name, r in prof.items():
-        log(f"profile {name}: wall {r['wall_ms']:.3f} ms (profiled "
-            f"{r['profiled_wall_ms']:.3f} ms), device busy "
-            f"{r['device_busy_ms']} ms, idle share {r['idle_share']} "
-            f"({r['device_events']} device events)")
-        for kname, ms in r["top"]:
-            log(f"  {ms:9.4f} ms  {kname[:110]}")
+    log_profile(prof)
 
     import numpy as np
 
@@ -556,18 +971,43 @@ def main(argv=None) -> int:
     # steps (2**-8 relative each) of a ~1-magnitude logit
     if not (rel_rms <= 0.05 and float(diff.max()) <= 0.25):
         raise AssertionError("card logits disagree with the CPU plain path")
+    del model, cpu_model
+
+    train, step, tokens = train_main_path(torch)
+    log(f"training main path: {train['steps']} steps, loss "
+        f"{train['first_loss']:.4f} -> {train['last_loss']:.4f} (mean of the "
+        f"last 5 {train['last5_mean']:.4f}); step p50 "
+        f"{train['step_ms_p50']:.2f} ms = {train['tokens_per_s']:.0f} "
+        f"tokens/s, MFU {train['mfu']:.4f} of 989 TFLOP/s "
+        f"({train['flops_per_step'] / 1e12:.2f} TFLOP/step), peak memory "
+        f"{train['peak_mem_gb']:.2f} GB ({card}); launches "
+        f"{train['launches']}")
+    train_prof = {"train_step": device_profile(torch, lambda: step(tokens),
+                                               lambda: None)}
+    log_profile(train_prof)
+    del step
+    torch.cuda.empty_cache()
+    grads = grad_check(torch)
+    log(f"gradients, batch 2, bf16 kernels vs f32 plain on the card: loss "
+        f"{grads['loss_bf16_kernels']:.5f} vs {grads['loss_f32_plain']:.5f} "
+        f"(rel {grads['loss_rel_diff']:.2e} <= {LOSS_REL_MAX}), min cosine "
+        f"{grads['min_cos']:.5f} ({grads['min_cos_param']}, >= "
+        f"{GRAD_COS_MIN}) over {grads['params']} parameters")
 
     kernels = []
-    for name, r in rec.items():
+    launches = dict(main_path["launches"])
+    launches.update({n: train["launches"][n] for n in flash_rec})
+    for name, r in list(rec.items()) + list(flash_rec.items()):
         kernels.append(dict(
             name=name, route=r["route"], source=r["source"],
             replaces=r["replaces"],
-            launches=int(main_path["launches"][name]),
+            launches=int(launches[name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))
     result = dict(card=card, kernels=kernels, main_path=main_path,
-                  profile=prof,
+                  profile=prof, flash_fwd_bwd=flash_fwd_bwd, train=train,
+                  train_profile=train_prof, grads=grads,
                   logits=dict(max_abs_err=float(diff.max()),
                               rel_rms=rel_rms, top1=top1))
     if args.out:

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips where ``torch.cuda`` has no
-device.  The module imports no JAX (only torch, numpy and tpudist_torch), so
-it also runs on the GPU machine, which has none:
+device.  The module imports no JAX (only torch, numpy, tpudist_torch and
+chip_smoke), so it also runs on the GPU machine, which has none:
 ``python -m pytest tests/test_torch_cuda.py --noconftest`` (the suite's
 conftest imports JAX).
 
@@ -10,19 +10,34 @@ Tolerance: in bf16 the kernel rounds the unnormalized softmax
 probabilities (online softmax) where the plain version rounds the
 normalized weights, a 2**-9 relative step of each weight; both then round
 the output.  Outputs agree within ``2**-7 * max|V| + 2**-8 * |out|``.
-Written KV blocks, their scales and the sampling outputs are exact.
+Written KV blocks, their scales and the sampling outputs are exact, top-k
+included; a top-p kept set may differ only where the softmax mass before a
+value lies within ``V * 2**-23`` of ``top_p`` (the kernel sums the sorted
+row's probabilities in another order than a sequential cumsum; each of V
+additions rounds by at most 2**-24 relative on either side).
+
+Flash kernels (forward, dq, dk/dv) against their plain versions: the
+bounds of ``chip_smoke.flash_agreement``, elementwise, per row and in
+relative RMS, each stated and derived there.  lse is f32 on both sides:
+``1e-4 + 1e-5 * |ref|``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from torch_cases import decode_case, prefill_case, sample_case
-from tpudist_torch.ops import (fused_sample_prep, fused_sample_reference,
+from chip_smoke import flash_agreement
+from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
+                         sample_case, top_p_boundary_gap)
+from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
+                               flash_backward_dq, flash_backward_reference,
+                               flash_forward, flash_forward_reference,
+                               fused_sample_prep, fused_sample_reference,
                                launch_counts, paged_attention,
                                paged_attention_reference,
                                paged_prefill_attention,
                                paged_prefill_reference, reset_launch_counts)
+from tpudist_torch.train.__main__ import main as train_main
 
 pytestmark = pytest.mark.cuda
 
@@ -88,11 +103,122 @@ def test_fused_sample_matches_plain(cuda):
             torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("tk,tp", [(5, 0.0), (0, 0.9), (5, 0.9), (12, 0.0),
+                                   (0, 0.5)])
+def test_fused_sample_filters_match_plain(cuda, tk, tp):
+    """top-k exact (ties at the k-th value survive); top-p within the
+    stated margin of the threshold; masked and greedy outputs exact."""
+    args = _on(cuda, filter_case(seed=tk + int(tp * 10)))
+    out = fused_sample_prep(*args, top_k=tk, top_p=tp)
+    ref = fused_sample_reference(*args, top_k=tk, top_p=tp)
+    torch.testing.assert_close(out[0], ref[0], atol=0, rtol=0)
+    torch.testing.assert_close(out[2], ref[2], atol=0, rtol=0)
+    if tp == 0.0:
+        torch.testing.assert_close(out[1], ref[1], atol=0, rtol=0)
+        return
+    topk_row = fused_sample_reference(*args, top_k=tk)[1].cpu().numpy()
+    masses = top_p_boundary_gap(out[1].cpu().numpy(), ref[1].cpu().numpy(),
+                                topk_row)
+    V = args[0].shape[1]
+    assert np.all(np.abs(masses - tp) <= V * 2.0 ** -23), masses
+    kept = out[1] > torch.finfo(torch.float32).min
+    torch.testing.assert_close(out[1][kept], ref[1][kept], atol=0, rtol=0)
+
+
 def test_cuda_tensor_never_falls_back(cuda):
     """A CUDA tensor the kernel does not take raises; it never runs the
     plain version instead."""
-    logits = torch.zeros(2, 8, device=cuda)
-    with pytest.raises(NotImplementedError):
+    logits = torch.zeros(2, 5000, device=cuda)
+    with pytest.raises(ValueError):
         fused_sample_prep(logits, torch.zeros(2, device=cuda), top_k=2)
     with pytest.raises(TypeError):
         fused_sample_prep(logits.double(), torch.zeros(2, device=cuda))
+    q = torch.zeros(1, 2, 16, 48, device=cuda)  # head_dim 48: no kernel
+    with pytest.raises(ValueError):
+        flash_forward(q, q, q, (0, None))
+    with pytest.raises(TypeError):
+        flash_forward(q.half(), q.half(), q.half(), (0, None))
+
+
+# (dtype, heads, kv heads, seq, head dim, band)
+FLASH_CASES = {
+    "causal_bf16_d128": (torch.bfloat16, 4, 4, 256, 128, (0, None)),
+    "window_gqa_bf16_d64": (torch.bfloat16, 4, 2, 300, 64, (0, 48)),
+    "band_gqa_bf16_d128": (torch.bfloat16, 4, 1, 200, 128, (-40, 70)),
+    "ragged_full_bf16_d128": (torch.bfloat16, 2, 2, 100, 128, (None, None)),
+    "dead_rows_bf16_d64": (torch.bfloat16, 2, 2, 130, 64, (10, 40)),
+    "causal_gqa_f32_d64": (torch.float32, 4, 2, 150, 64, (0, None)),
+    "window_f32_d128": (torch.float32, 2, 2, 130, 128, (0, 32)),
+    "causal_bf16_d32": (torch.bfloat16, 4, 4, 200, 32, (0, None)),
+    "band_gqa_bf16_d16": (torch.bfloat16, 4, 2, 150, 16, (-20, 30)),
+    "window_gqa_f32_d32": (torch.float32, 4, 2, 140, 32, (0, 40)),
+    "ragged_full_f32_d16": (torch.float32, 2, 2, 90, 16, (None, None)),
+}
+
+
+def _flash_close(out, ref, dtype, grad=True, vmax=0.0):
+    r = flash_agreement(torch, out, ref, dtype, grad, vmax)
+    assert r["elementwise_ok"] and r["rows_ok"] and r["rms_ok"], r
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, case):
+    """Forward, dq and dk/dv kernels against the plain versions on the card:
+    causal, window, band, GQA, ragged lengths, dead rows, head dims 16 to
+    128, bf16 and f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype, h, h_kv, s, d, band = FLASH_CASES[case]
+    q, k, v, g = [t.to(dtype) for t in _on(cuda, flash_case(
+        h, h_kv, s, d, seed=len(case)))]
+    reset_launch_counts()
+    out, lse = flash_forward(q, k, v, band)
+    ref, ref_lse = flash_forward_reference(q, k, v, band)
+    torch.cuda.synchronize()
+    _flash_close(out, ref, dtype, grad=False,
+                 vmax=float(v.float().abs().max()))
+    assert bool(((lse - ref_lse).abs() <= 1e-4 + 1e-5 * ref_lse.abs())
+                .all())
+    delta = (ref.float() * g.float()).sum(-1).contiguous()
+    dq = flash_backward_dq(q, k, v, g, ref_lse, delta, band)
+    dk, dv = flash_backward_dkv(q, k, v, g, ref_lse, delta, band)
+    rq, rk, rv = flash_backward_reference(q, k, v, g, ref_lse, delta, band)
+    torch.cuda.synchronize()
+    for a, b in ((dq, rq), (dk, rk), (dv, rv)):
+        assert a.dtype == dtype and a.shape == b.shape
+        _flash_close(a, b, dtype)
+    assert launch_counts()["flash_forward"] == 1
+    assert launch_counts()["flash_backward_dq"] == 1
+    assert launch_counts()["flash_backward_dkv"] == 1
+
+
+def test_flash_autograd_matches_dense_autograd(cuda):
+    """FlashAttention (kernels both ways, lse cotangent included) against
+    autograd through the plain dense forward, f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = _on(cuda, flash_case(4, 2, 192, 64, seed=9))
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = FlashAttention.apply(*a, True, 64)
+    ((out ** 2).sum() + lse.sum()).backward()
+    b = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    rout, rlse = flash_forward_reference(*b, (0, 64))
+    ((rout ** 2).sum() + rlse.sum()).backward()
+    for x, y in zip(a, b):
+        _flash_close(x.grad, y.grad, torch.float32)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--n_kv_heads", "2", "--sliding_window", "128", "--rope",
+         "--precision", "bf16"]], ids=["defaults", "gqa_window_rope_bf16"])
+def test_entry_point_trains_on_the_card(cuda, capsys, extra):
+    """``python -m tpudist_torch.train`` with its own defaults (d_model 128,
+    4 heads: head dim 32, seq 512, 2 layers) trains through the flash
+    kernels: the loss falls (4.8 -> 0.6 in 30 steps on the CPU's plain
+    path) and each kernel launches once per layer and step."""
+    reset_launch_counts()
+    final = train_main(extra + ["--total_iterations", "30",
+                                "--log_every", "10"])
+    out = capsys.readouterr().out
+    first = float(out.split("iteration 0: loss/lm ")[1].split()[0])
+    assert np.isfinite(final) and final < first - 1.0
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        assert launch_counts()[name] == 2 * 30

@@ -188,7 +188,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     paged_attention(*_torch(args), layer=0)
     fused_sample_prep(torch.zeros(2, 8), torch.zeros(2))
     assert launch_counts() == {"paged_attention": 0, "paged_prefill": 0,
-                               "fused_sample": 0}
+                               "fused_sample": 0, "flash_forward": 0,
+                               "flash_backward_dq": 0,
+                               "flash_backward_dkv": 0}
 
 
 def test_build_plumbing():
@@ -204,7 +206,8 @@ def test_build_plumbing():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
-    assert len({_build.source_hash(n) for n in _build.KERNELS}) == 3
+    assert len({_build.source_hash(n) for n in _build.KERNELS}) == \
+        len(_build.KERNELS) == 5
     assert [_build.dtype_code(d) for d in (torch.float32, torch.bfloat16,
                                            torch.int8)] == [0, 1, 2]
     with pytest.raises(TypeError):
@@ -223,10 +226,12 @@ def _imports(path: Path):
 
 
 def test_port_imports_no_jax():
-    """Nothing under tpudist_torch/ nor chip_smoke.py imports jax, flax or
-    the JAX package."""
+    """Nothing under tpudist_torch/ nor chip_smoke.py (nor the scripts and
+    tests that run on the GPU machine) imports jax, flax or the JAX
+    package."""
     files = sorted((REPO / "tpudist_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
+              REPO / "tests" / "torch_flash_faults.py"]
     assert len(files) > 10
     bad = []
     for path in files:

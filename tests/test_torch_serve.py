@@ -450,8 +450,10 @@ def test_server_end_to_end_on_cpu(rope_models, jax_streams):
         st = server.stats()
         assert st["completed"] == len(reqs)
         assert st["kv"]["blocks_in_use"] == 0
-        assert st["launch_counts"] == {"paged_attention": 0,
-                                       "paged_prefill": 0, "fused_sample": 0}
+        assert st["launch_counts"] == {
+            "paged_attention": 0, "paged_prefill": 0, "fused_sample": 0,
+            "flash_forward": 0, "flash_backward_dq": 0,
+            "flash_backward_dkv": 0}
     finally:
         assert server.close(30)
 

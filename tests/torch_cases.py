@@ -86,3 +86,50 @@ def sample_case(seed=0, S=3, V=33):
     gidx = np.asarray([0, 2, 1], np.int32)
     gstate = np.asarray([1, 0, 3], np.int32)
     return [logits, temps, gallow, gidx, gstate]
+
+
+def flash_case(h, h_kv, s, d, b=2, seed=0, s_k=None):
+    """q [b, h, s, d], k/v [b, h_kv, s_k, d] and an output cotangent, f32."""
+    r = np.random.default_rng(seed)
+    s_k = s if s_k is None else s_k
+    q = r.normal(size=(b, h, s, d)).astype(np.float32)
+    k = r.normal(size=(b, h_kv, s_k, d)).astype(np.float32)
+    v = r.normal(size=(b, h_kv, s_k, d)).astype(np.float32)
+    do = r.normal(size=(b, h, s, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def filter_case(seed=0, S=6, V=256):
+    """Logits for the top-k / top-p filters: distinct values, a row of ties
+    at the k-th value, a flat row and a grammar-masked row."""
+    r = np.random.default_rng(seed)
+    logits = (r.normal(size=(S, V)) * 2).astype(np.float32)
+    logits[1, :12] = 3.0  # ties straddling the top-k threshold
+    logits[2] = 0.5  # flat row: every value ties
+    temps = np.asarray([1.0, 0.7, 1.3, 0.0, 2.0, 0.5][:S], np.float32)
+    gallow = r.random((2, 3, V)) > 0.5
+    gallow[1] = True
+    gidx = np.asarray([1, 0, 1, 0, 1, 0][:S], np.int32)
+    gstate = np.asarray([0, 1, 2, 0, 1, 2][:S], np.int32)
+    return [logits, temps, gallow, gidx, gstate]
+
+
+def top_p_boundary_gap(out, ref, topk_row):
+    """How far from the top-p threshold the disagreements of two filtered
+    rows lie: for every position kept by one side and dropped by the other,
+    the softmax mass (f64) of the sorted top-k-filtered row before that
+    value, minus ``top_p`` in the caller.  Returns the masses (empty when
+    the kept sets agree)."""
+    neg = np.finfo(np.float32).min
+    masses = []
+    for row in range(out.shape[0]):
+        diff = np.flatnonzero((out[row] == neg) != (ref[row] == neg))
+        if not len(diff):
+            continue
+        srt = np.sort(topk_row[row].astype(np.float64))[::-1]
+        p = np.exp(srt - srt[0])
+        cum_before = np.concatenate([[0.0], np.cumsum(p / p.sum())[:-1]])
+        for pos in diff:
+            first = int(np.flatnonzero(srt == float(topk_row[row, pos]))[0])
+            masses.append(cum_before[first])
+    return np.asarray(masses)

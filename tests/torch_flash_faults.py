@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Planted-fault readings of the flash kernels' checks, on one NVIDIA card.
+
+Run from the repository root on the GPU machine::
+
+    python3 tests/torch_flash_faults.py [--out FILE]
+
+For the sound kernels and for each fault in ``FAULTS``, copies
+``tpudist_torch/`` and ``chip_smoke.py`` into a fresh temporary directory,
+plants the fault there (a textual edit of the copy's kernel source; the
+checkout is never touched), and measures in a child process run in that
+copy, which builds its own kernels:
+
+- every phase-3b case of ``chip_smoke.py`` (``FLASH_CASES``): for the
+  forward output, dq, dk and dv, ``chip_smoke.flash_agreement`` (worst row,
+  relative RMS, the elementwise bound alone and the full check);
+- phase 9's comparison (``chip_smoke.grad_readings``: batch 2 of the
+  training geometry, bf16 kernels against the f32 plain path), held to
+  ``GRAD_COS_MIN`` and ``LOSS_REL_MAX``; for the sound kernels also a bf16
+  plain path (dense attention, no kernel), the lower-precision control.
+
+Prints one JSON line per variant (and writes them all to ``--out``).
+Exits non-zero unless the sound kernels pass every check and each fault
+fails every phase listed for it.  Not collected by pytest: it needs the
+card and a few minutes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+FWD = "tpudist_torch/csrc/flash_attention.cu"
+BWD = "tpudist_torch/csrc/flash_backward.cu"
+_PV = "    mma_pt<DN, kBK / 16>(o, s, Vs, LD, lane);"
+_DSK = "    mma_pt<DN, kBK / 16>(acc, s, ks, LD, lane);"
+_DV = "    mma_pt<DN, kQB / 16>(dv, s, dos, LD, lane);  // dv += bf(pᵀ)·do"
+_DK = "    mma_pt<DN, kQB / 16>(dk, s, qs, LD, lane);  // dk += bf(dsᵀ)·q"
+# zero the second half (32 columns) of the warp's score / ds tile
+_HALF = ("      for (int n = NT / 2; n < NT; ++n)\n"
+         "        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;\n")
+
+# name -> (edits (file, text, replacement), phases that must catch it)
+FAULTS = {
+    # 32 keys of one KV tile left out of P·V, in one head's last Q tile
+    "fwd_half_tile_one_head": ([(FWD, _PV, "    if (j == (first + last) / 2 "
+                                 "&& blockIdx.x == 0 && blockIdx.y == 0)\n"
+                                 + _HALF + _PV)], ("3b",)),
+    # the same in dS·K of the dq pass
+    "dq_half_tile_one_head": ([(BWD, _DSK, "    if (j == (first + last) / 2 "
+                                "&& blockIdx.x == 0 && blockIdx.y == 0)\n"
+                                + _HALF + _DSK)], ("3b",)),
+    # 16 queries of one (member, Q tile) step of the dk/dv pass left out,
+    # in one KV head's first KV tile
+    "dkv_half_step_one_head": ([(BWD, _DV, "    if (it == steps / 2 && "
+                                 "blockIdx.x == 0 && blockIdx.y == 0)\n"
+                                 + _HALF + _DV)], ("3b",)),
+    # the diagonal dS·K tile of every Q tile left out
+    "dq_skip_diag_all": ([(BWD, _DSK, "    if (j != last)\n  " + _DSK)],
+                         ("3b", "9")),
+    # the last (member, Q tile) step of every KV tile left out
+    "dkv_skip_last_all": ([(BWD, _DV, "    if (it != steps - 1)\n  " + _DV),
+                           (BWD, _DK, "    if (it != steps - 1)\n  " + _DK)],
+                          ("3b", "9")),
+    # dq scaled by 0.97 everywhere (phase 9's cosine cannot see a scale)
+    "dq_scaled_097": ([(BWD, "__floats2bfloat162_rn(acc[dn][2 * r], "
+                        "acc[dn][2 * r + 1]);",
+                        "__floats2bfloat162_rn(0.97f * acc[dn][2 * r], "
+                        "0.97f * acc[dn][2 * r + 1]);")], ("3b",)),
+}
+
+
+def plant(dst: Path, edits) -> None:
+    shutil.copytree(ROOT / "tpudist_torch", dst / "tpudist_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
+    for rel, text, repl in edits:
+        path = dst / rel
+        src = path.read_text()
+        if src.count(text) != 1:
+            raise RuntimeError(f"{rel}: the text to edit is not there once")
+        path.write_text(src.replace(text, repl))
+
+
+def measure(name: str) -> dict:
+    """One variant's readings, in the current directory's copy."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+    from tpudist_torch.ops import _build
+    from tpudist_torch.ops.flash_attention import (
+        flash_backward_dkv, flash_backward_dq, flash_backward_reference,
+        flash_forward, flash_forward_reference)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build(["flash_attention", "flash_backward"])
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    out = {"variant": name, "3b": {}}
+    caught_3b = False
+    for case, b, h, h_kv, s, d, dt, band in cs.FLASH_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
+                      .to(dtype) for shape in ((b, h, s, d), (b, h_kv, s, d),
+                                               (b, h_kv, s, d), (b, h, s, d)))
+        o, lse = flash_forward(q, k, v, band)
+        ref, rlse = flash_forward_reference(q, k, v, band)
+        delta = (ref.float() * g.float()).sum(-1).contiguous()
+        dq = flash_backward_dq(q, k, v, g, rlse, delta, band)
+        dk, dv = flash_backward_dkv(q, k, v, g, rlse, delta, band)
+        rq, rk, rv = flash_backward_reference(q, k, v, g, rlse, delta, band)
+        torch.cuda.synchronize()
+        row = {"lse_ok": bool(((lse - rlse).abs()
+                               <= 1e-4 + 1e-5 * rlse.abs()).all())}
+        for t, a, r, grad in (("out", o, ref, False), ("dq", dq, rq, True),
+                              ("dk", dk, rk, True), ("dv", dv, rv, True)):
+            row[t] = cs.flash_agreement(torch, a, r, dtype, grad,
+                                        float(v.float().abs().max()))
+            caught_3b |= not (row[t]["elementwise_ok"] and row[t]["rows_ok"]
+                              and row[t]["rms_ok"])
+        caught_3b |= not row["lse_ok"]
+        out["3b"][case] = row
+        del q, k, v, g, o, ref, dq, dk, dv, rq, rk, rv
+    torch.cuda.empty_cache()
+    out["9"] = cs.grad_readings(torch)
+    out["caught"] = [p for p, hit in (("3b", caught_3b),
+                                      ("9", not cs.grads_agree(out["9"])))
+                     if hit]
+    if name == "sound":
+        out["9_bf16_plain_control"] = cs.grad_readings(torch,
+                                                       cs.PlainCausal())
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="write every line here too")
+    ap.add_argument("--measure", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.measure:
+        print(json.dumps(measure(args.measure)))
+        return 0
+    lines, ok = [], True
+    for name, (edits, expect) in [("sound", ([], ()))] + list(FAULTS.items()):
+        with tempfile.TemporaryDirectory() as tmp:
+            plant(Path(tmp), edits)
+            run = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--measure",
+                 name], cwd=tmp, capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            print(run.stderr[-4000:], file=sys.stderr)
+            return 1
+        res = json.loads(run.stdout.strip().splitlines()[-1])
+        res["expected"] = list(expect)
+        res["as_expected"] = sorted(res["caught"]) == sorted(expect) \
+            if name == "sound" else set(expect) <= set(res["caught"])
+        ok &= res["as_expected"]
+        lines.append(res)
+        print(json.dumps(res), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("".join(json.dumps(r) + "\n" for r in lines))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

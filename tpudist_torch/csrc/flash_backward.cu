@@ -1,0 +1,552 @@
+// FlashAttention-2 backward for Hopper (sm_90a): the dq pass and the dk/dv
+// pass.
+//
+// Replaces the Pallas TPU kernels of tpudist/ops/flash_attention.py
+// _flash_backward: _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel.  Inputs
+// are the forward's q, k, v, the output cotangent do (in q's dtype), the
+// forward's row logsumexp lse and delta = rowsum(out·dout) - dlse, both
+// [b, h, Sq] f32.  Both passes rebuild the softmax tile from lse, with the
+// Pallas kernels' formulas and cast points:
+//
+//   p  = exp(s - lse) · live           (s masked to -1e30; live = lse > -5e29)
+//   dp = do · vᵀ                       (f32 from input-dtype operands)
+//   ds = p · (dp - delta) · dh^-0.5
+//   dq = bf(ds) · k,   dk = bf(ds)ᵀ · q,   dv = bf(p)ᵀ · do
+//
+// where bf() rounds to the input dtype; every product accumulates in f32.
+//
+// Design.  dq: one CTA per (b·h, 64-row Q tile), a loop over the live KV
+// tiles accumulating dq in f32 registers (the TPU kernel's KV-innermost
+// sweep).  dk/dv: one CTA per (b·h_kv, 64-row KV tile), a loop over every
+// (group member, live 32-row Q tile) accumulating dk and dv in f32
+// registers: the TPU's sequential "arbitrary" grid axis becomes a loop
+// inside the CTA, so a GQA group sums into its KV head without atomics and
+// the result is deterministic.  Query rows past Sq carry lse = +inf (p = 0)
+// and delta 0; keys past Sk are masked in the dq pass and never stored by
+// the dk/dv pass.
+//
+// bf16 runs on the tensor cores (mma.sync m16n8k16, double-buffered
+// cp.async tiles); f32 on CUDA-core FMAs in full f32, never TF32.
+//
+// Bound on the H100: operations (6·pairs·D flops for dq and 8·pairs·D for
+// dk/dv against a few MB of operands at the training shapes).  Like the
+// forward, this first version runs well below that bound.
+#include "flash_common.cuh"
+
+namespace tpd_flash {
+namespace {
+
+// bf16, 4 warps of 16 rows, the streamed tiles double-buffered: dq walks
+// 64-key tiles for 64 query rows, dk/dv 32-row Q tiles for 64 keys.  Head
+// dims 16, 32, 64 and 128, as in the forward.
+constexpr int kBQ = 64, kBK = 64;
+constexpr int kKB = 64, kQB = 32;
+constexpr int kSQ = 16, kSK = 32;  // f32 tiles
+
+__device__ __forceinline__ float live_of(float lse) {
+  return lse > kMask * 0.5f ? 1.f : 0.f;
+}
+
+// ------------------------------------------------------------------ dq, bf16
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dq_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+            const bf16* __restrict__ V, const bf16* __restrict__ dO,
+            const float* __restrict__ Lse, const float* __restrict__ Delta,
+            bf16* __restrict__ dQ, int H, int Hkv, int Sq, int Sk, int lo,
+            int hi, float scale) {
+  static_assert(D % 16 == 0, "bf16 tiles take head dims in steps of 16");
+  constexpr int LD = D + 8, DN = D / 8, KD = D / 16, NT = kBK / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kBQ][LD]
+  bf16* dOs = Qs + kBQ * LD;                  // [kBQ][LD]
+  bf16* Ks = dOs + kBQ * LD;                  // [2][kBK][LD]
+  bf16* Vs = Ks + 2 * kBK * LD;               // [2][kBK][LD]
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = b * Hkv + h / (H / Hkv);
+  const bf16* k = K + (size_t)hk * Sk * D;
+  const bf16* v = V + (size_t)hk * Sk * D;
+  // longest CTAs first, as in the forward (last Q tiles, b·h fastest)
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  int first, last;
+  kv_tiles(q0, min(q0 + kBQ, Sq) - 1, lo, hi, Sk, kBK, first, last);
+
+  load_tile_async<kBQ, D>(Qs, Q + (size_t)bh * Sq * D, q0, Sq);
+  load_tile_async<kBQ, D>(dOs, dO + (size_t)bh * Sq * D, q0, Sq);
+  if (first <= last) {
+    load_tile_async<kBK, D>(Ks, k, first * kBK, Sk);
+    load_tile_async<kBK, D>(Vs, v, first * kBK, Sk);
+  }
+  cp_commit();
+  float lse[2], live[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + r * 8;
+    const bool ok = row < Sq;
+    lse[r] = ok ? Lse[(size_t)bh * Sq + row] : INFINITY;
+    live[r] = ok ? live_of(lse[r]) : 0.f;
+    delta[r] = ok ? Delta[(size_t)bh * Sq + row] : 0.f;
+  }
+
+  float acc[DN][4] = {};
+  for (int j = first; j <= last; ++j) {
+    const int buf = (j - first) & 1;
+    if (j < last) {
+      load_tile_async<kBK, D>(Ks + (buf ^ 1) * kBK * LD, k, (j + 1) * kBK, Sk);
+      load_tile_async<kBK, D>(Vs + (buf ^ 1) * kBK * LD, v, (j + 1) * kBK, Sk);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = Ks + buf * kBK * LD;
+    const bf16* vs = Vs + buf * kBK * LD;
+    uint32_t a[KD][4];
+
+    float s[NT][4] = {};
+    for (int kk = 0; kk < KD; ++kk)
+      load_a(a[kk], Qs, LD, warp * 16, kk * 16, lane);
+    mma_abt<NT, KD>(s, a, ks, LD, lane);
+    float dp[NT][4] = {};
+    for (int kk = 0; kk < KD; ++kk)
+      load_a(a[kk], dOs, LD, warp * 16, kk * 16, lane);
+    mma_abt<NT, KD>(dp, a, vs, LD, lane);
+
+    const int k0 = j * kBK;
+    const bool interior = tile_interior(q0, kBQ, k0, kBK, lo, hi, Sk);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[n][e] * scale;
+        if (!interior) {
+          const int qp = q0 + warp * 16 + g + r * 8;
+          const int kp = k0 + n * 8 + tq * 2 + (e & 1);
+          if (!(kp < Sk && in_band(qp, kp, lo, hi))) x = kMask;
+        }
+        const float p = exp_row(x, lse[r]) * live[r];
+        s[n][e] = p * (dp[n][e] - delta[r]) * scale;  // ds
+      }
+    mma_pt<DN, kBK / 16>(acc, s, ks, LD, lane);
+    __syncthreads();
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (row >= Sq) continue;
+    const size_t base = ((size_t)bh * Sq + row) * D + tq * 2;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(dQ + base + dn * 8) =
+          __floats2bfloat162_rn(acc[dn][2 * r], acc[dn][2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------- dk/dv, bf16
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dkv_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+             const bf16* __restrict__ V, const bf16* __restrict__ dO,
+             const float* __restrict__ Lse, const float* __restrict__ Delta,
+             bf16* __restrict__ dK, bf16* __restrict__ dV, int H, int Hkv,
+             int Sq, int Sk, int lo, int hi, float scale) {
+  static_assert(D % 16 == 0, "bf16 tiles take head dims in steps of 16");
+  constexpr int LD = D + 8, DN = D / 8, KD = D / 16, NT = kQB / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kKB][LD]
+  bf16* Vs = Ks + kKB * LD;                   // [kKB][LD]
+  bf16* Qs = Vs + kKB * LD;                   // [2][kQB][LD]
+  bf16* dOs = Qs + 2 * kQB * LD;              // [2][kQB][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kQB * LD);  // [2][kQB]
+  float* delta_s = lse_s + 2 * kQB;                              // [2][kQB]
+  const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv % Hkv;
+  const int group = H / Hkv;
+  // b·h_kv fastest; under a causal band the first KV tiles see the most
+  // Q tiles, so the longest CTAs start first
+  const int k0 = blockIdx.y * kKB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  int qfirst, qlast;
+  q_tiles(k0, min(k0 + kKB, Sk) - 1, lo, hi, Sq, kQB, qfirst, qlast);
+  const int per_head = qlast - qfirst + 1;
+  const int steps = per_head > 0 ? group * per_head : 0;
+
+  // (group member gi, Q tile) of step `it`: rows of q head b·H + hk·group + gi
+  auto prefetch = [&](int it, int buf) {
+    const int gi = it / per_head, qt = qfirst + it % per_head;
+    const size_t bh = (size_t)b * H + hk * group + gi;
+    load_tile_async<kQB, D>(Qs + buf * kQB * LD, Q + bh * Sq * D, qt * kQB, Sq);
+    load_tile_async<kQB, D>(dOs + buf * kQB * LD, dO + bh * Sq * D, qt * kQB,
+                            Sq);
+    if (threadIdx.x < kQB) {
+      const int row = qt * kQB + threadIdx.x;
+      const bool ok = row < Sq;
+      lse_s[buf * kQB + threadIdx.x] = ok ? Lse[bh * Sq + row] : INFINITY;
+      delta_s[buf * kQB + threadIdx.x] = ok ? Delta[bh * Sq + row] : 0.f;
+    }
+  };
+  if (steps > 0) {
+    load_tile_async<kKB, D>(Ks, K + (size_t)bkv * Sk * D, k0, Sk);
+    load_tile_async<kKB, D>(Vs, V + (size_t)bkv * Sk * D, k0, Sk);
+    prefetch(0, 0);
+  }
+  cp_commit();
+
+  float dk[DN][4] = {}, dv[DN][4] = {};
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < steps) {
+      prefetch(it + 1, buf ^ 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (qfirst + it % per_head) * kQB;
+    const bf16* qs = Qs + buf * kQB * LD;
+    const bf16* dos = dOs + buf * kQB * LD;
+    const float* ls = lse_s + buf * kQB;
+    const float* ds_ = delta_s + buf * kQB;
+    uint32_t a[KD][4];
+
+    // sᵀ = k·qᵀ (rows: this warp's 16 keys; columns: the tile's 32 queries)
+    float s[NT][4] = {};
+    for (int kk = 0; kk < KD; ++kk)
+      load_a(a[kk], Ks, LD, warp * 16, kk * 16, lane);
+    mma_abt<NT, KD>(s, a, qs, LD, lane);
+    const bool interior = tile_interior(q0, kQB, k0, kKB, lo, hi, 1 << 30);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + tq * 2 + (e & 1);
+        float x = s[n][e] * scale;
+        if (!interior) {
+          const int kp = k0 + warp * 16 + g + (e >> 1) * 8;
+          if (!in_band(q0 + c, kp, lo, hi)) x = kMask;
+        }
+        s[n][e] = exp_row(x, ls[c]) * live_of(ls[c]);  // pᵀ
+      }
+    mma_pt<DN, kQB / 16>(dv, s, dos, LD, lane);  // dv += bf(pᵀ)·do
+
+    float dp[NT][4] = {};  // dpᵀ = v·doᵀ
+    for (int kk = 0; kk < KD; ++kk)
+      load_a(a[kk], Vs, LD, warp * 16, kk * 16, lane);
+    mma_abt<NT, KD>(dp, a, dos, LD, lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + tq * 2 + (e & 1);
+        s[n][e] = s[n][e] * (dp[n][e] - ds_[c]) * scale;  // dsᵀ
+      }
+    mma_pt<DN, kQB / 16>(dk, s, qs, LD, lane);  // dk += bf(dsᵀ)·q
+    __syncthreads();
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + warp * 16 + g + r * 8;
+    if (row >= Sk) continue;
+    const size_t base = ((size_t)bkv * Sk + row) * D + tq * 2;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      *reinterpret_cast<__nv_bfloat162*>(dK + base + dn * 8) =
+          __floats2bfloat162_rn(dk[dn][2 * r], dk[dn][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dV + base + dn * 8) =
+          __floats2bfloat162_rn(dv[dn][2 * r], dv[dn][2 * r + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- f32
+
+// dq: 16 query rows per CTA, 32-key tiles; a warp holds one row's tile
+// (a lane per key), each thread one dq column of its rows.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dq_f32(const float* __restrict__ Q, const float* __restrict__ K,
+           const float* __restrict__ V, const float* __restrict__ dO,
+           const float* __restrict__ Lse, const float* __restrict__ Delta,
+           float* __restrict__ dQ, int H, int Hkv, int Sq, int Sk, int lo,
+           int hi, float scale) {
+  static_assert(kThreads % D == 0, "a thread owns one column");
+  constexpr int LDK = D + 1, RPT = kSQ * D / kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [kSQ][D]
+  float* dOs = Qs + kSQ * D;                    // [kSQ][D]
+  float* Ks = dOs + kSQ * D;                    // [kSK][LDK]
+  float* Vs = Ks + kSK * LDK;                   // [kSK][LDK]
+  float* dSs = Vs + kSK * LDK;                  // [kSQ][kSK]
+  float* ls = dSs + kSQ * kSK;                  // [kSQ]
+  float* dl = ls + kSQ;                         // [kSQ]
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = b * Hkv + h / (H / Hkv);
+  const float* k = K + (size_t)hk * Sk * D;
+  const float* v = V + (size_t)hk * Sk * D;
+  const int q0 = blockIdx.x * kSQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = threadIdx.x % D, rb = (threadIdx.x / D) * RPT;
+  int first, last;
+  kv_tiles(q0, min(q0 + kSQ, Sq) - 1, lo, hi, Sk, kSK, first, last);
+  load_tile_f32<kSQ, D>(Qs, D, Q + (size_t)bh * Sq * D, q0, Sq);
+  load_tile_f32<kSQ, D>(dOs, D, dO + (size_t)bh * Sq * D, q0, Sq);
+  if (threadIdx.x < kSQ) {
+    const int row = q0 + threadIdx.x;
+    ls[threadIdx.x] = row < Sq ? Lse[(size_t)bh * Sq + row] : INFINITY;
+    dl[threadIdx.x] = row < Sq ? Delta[(size_t)bh * Sq + row] : 0.f;
+  }
+  float acc[RPT] = {};
+  for (int j = first; j <= last; ++j) {
+    const int k0 = j * kSK;
+    __syncthreads();
+    load_tile_f32<kSK, D>(Ks, LDK, k, k0, Sk);
+    load_tile_f32<kSK, D>(Vs, LDK, v, k0, Sk);
+    __syncthreads();
+    const bool interior = tile_interior(q0, kSQ, k0, kSK, lo, hi, Sk);
+    for (int r = warp; r < kSQ; r += kThreads / 32) {
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < D; ++d) {
+        s += Qs[r * D + d] * Ks[lane * LDK + d];
+        dp += dOs[r * D + d] * Vs[lane * LDK + d];
+      }
+      s *= scale;
+      if (!interior && !(k0 + lane < Sk && in_band(q0 + r, k0 + lane, lo, hi)))
+        s = kMask;
+      const float p = expf(s - ls[r]) * live_of(ls[r]);
+      dSs[r * kSK + lane] = p * (dp - dl[r]) * scale;
+    }
+    __syncthreads();
+    for (int i = 0; i < RPT; ++i) {
+      const int r = rb + i;
+      float x = 0.f;
+      for (int c = 0; c < kSK; ++c) x += dSs[r * kSK + c] * Ks[c * LDK + col];
+      acc[i] += x;
+    }
+  }
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + rb + i;
+    if (row < Sq) dQ[((size_t)bh * Sq + row) * D + col] = acc[i];
+  }
+}
+
+// dk/dv: 32 keys per CTA, a loop over (group member, 16-row Q tile); each
+// thread owns one dk/dv column of its keys.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dkv_f32(const float* __restrict__ Q, const float* __restrict__ K,
+            const float* __restrict__ V, const float* __restrict__ dO,
+            const float* __restrict__ Lse, const float* __restrict__ Delta,
+            float* __restrict__ dK, float* __restrict__ dV, int H, int Hkv,
+            int Sq, int Sk, int lo, int hi, float scale) {
+  static_assert(kThreads % D == 0, "a thread owns one column");
+  constexpr int LD = D + 1, KPT = kSK * D / kThreads, LP = kSQ + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);  // [kSK][LD]
+  float* Vs = Ks + kSK * LD;                    // [kSK][LD]
+  float* Qs = Vs + kSK * LD;                    // [kSQ][LD]
+  float* dOs = Qs + kSQ * LD;                   // [kSQ][LD]
+  float* Ps = dOs + kSQ * LD;                   // [kSK][LP]
+  float* dSs = Ps + kSK * LP;                   // [kSK][LP]
+  float* ls = dSs + kSK * LP;                   // [kSQ]
+  float* dl = ls + kSQ;                         // [kSQ]
+  const int bkv = blockIdx.y, b = bkv / Hkv, hk = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.x * kSK;
+  const int col = threadIdx.x % D, kb = (threadIdx.x / D) * KPT;
+  int qfirst, qlast;
+  q_tiles(k0, min(k0 + kSK, Sk) - 1, lo, hi, Sq, kSQ, qfirst, qlast);
+  load_tile_f32<kSK, D>(Ks, LD, K + (size_t)bkv * Sk * D, k0, Sk);
+  load_tile_f32<kSK, D>(Vs, LD, V + (size_t)bkv * Sk * D, k0, Sk);
+  float dk[KPT] = {}, dv[KPT] = {};
+  for (int gi = 0; gi < group; ++gi) {
+    const size_t bh = (size_t)b * H + hk * group + gi;
+    for (int qt = qfirst; qt <= qlast; ++qt) {
+      const int q0 = qt * kSQ;
+      __syncthreads();
+      load_tile_f32<kSQ, D>(Qs, LD, Q + bh * Sq * D, q0, Sq);
+      load_tile_f32<kSQ, D>(dOs, LD, dO + bh * Sq * D, q0, Sq);
+      if (threadIdx.x < kSQ) {
+        const int row = q0 + threadIdx.x;
+        ls[threadIdx.x] = row < Sq ? Lse[bh * Sq + row] : INFINITY;
+        dl[threadIdx.x] = row < Sq ? Delta[bh * Sq + row] : 0.f;
+      }
+      __syncthreads();
+      const bool interior = tile_interior(q0, kSQ, k0, kSK, lo, hi, 1 << 30);
+      const int r = threadIdx.x % kSQ;
+      for (int c = threadIdx.x / kSQ; c < kSK; c += kThreads / kSQ) {
+        float s = 0.f, dp = 0.f;
+        for (int d = 0; d < D; ++d) {
+          s += Ks[c * LD + d] * Qs[r * LD + d];
+          dp += Vs[c * LD + d] * dOs[r * LD + d];
+        }
+        s *= scale;
+        if (!interior && !in_band(q0 + r, k0 + c, lo, hi)) s = kMask;
+        const float p = expf(s - ls[r]) * live_of(ls[r]);
+        Ps[c * LP + r] = p;
+        dSs[c * LP + r] = p * (dp - dl[r]) * scale;
+      }
+      __syncthreads();
+      for (int i = 0; i < KPT; ++i) {
+        const int c = kb + i;
+        float xv = 0.f, xk = 0.f;
+        for (int rr = 0; rr < kSQ; ++rr) {
+          xv += Ps[c * LP + rr] * dOs[rr * LD + col];
+          xk += dSs[c * LP + rr] * Qs[rr * LD + col];
+        }
+        dv[i] += xv;
+        dk[i] += xk;
+      }
+    }
+  }
+  for (int i = 0; i < KPT; ++i) {
+    const int row = k0 + kb + i;
+    if (row >= Sk) continue;
+    dK[((size_t)bkv * Sk + row) * D + col] = dk[i];
+    dV[((size_t)bkv * Sk + row) * D + col] = dv[i];
+  }
+}
+
+}  // namespace
+}  // namespace tpd_flash
+
+using namespace tpd_flash;
+
+#define TPD_LAUNCH(KERN, GRID, THREADS, SMEM, ...)                            \
+  {                                                                           \
+    auto kern = KERN;                                                         \
+    cudaError_t e = cudaFuncSetAttribute(                                     \
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(SMEM));      \
+    if (e != cudaSuccess) return (int)e;                                      \
+    kern<<<GRID, THREADS, SMEM, st>>>(__VA_ARGS__);                           \
+    return (int)cudaGetLastError();                                           \
+  }
+
+// all of q, k, v, do, dq alike (kBF16 or kF32), contiguous; lse/delta f32
+extern "C" int tpd_flash_backward_dq(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, int B, int H, int Hkv, int Sq,
+                                     int Sk, int D, int lo, int hi, int dtype,
+                                     float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Sq <= 0 || B * H <= 0) return 0;
+  const float* L = static_cast<const float*>(lse);
+  const float* Dl = static_cast<const float*>(delta);
+  if (dtype == kBF16) {
+    const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+    const size_t smem = (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
+    const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
+               *V = static_cast<const bf16*>(v),
+               *dO = static_cast<const bf16*>(dout);
+    bf16* dQ = static_cast<bf16*>(dq);
+    if (D == 16)
+      TPD_LAUNCH(dq_bf16<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 32)
+      TPD_LAUNCH(dq_bf16<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 64)
+      TPD_LAUNCH(dq_bf16<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 128)
+      TPD_LAUNCH(dq_bf16<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
+  } else if (dtype == kF32) {
+    const dim3 grid((Sq + kSQ - 1) / kSQ, B * H);
+    const size_t smem =
+        ((size_t)2 * kSQ * D + 2 * kSK * (D + 1) + kSQ * kSK + 2 * kSQ) *
+        sizeof(float);
+    const float *Q = static_cast<const float*>(q),
+                *K = static_cast<const float*>(k),
+                *V = static_cast<const float*>(v),
+                *dO = static_cast<const float*>(dout);
+    float* dQ = static_cast<float*>(dq);
+    if (D == 16)
+      TPD_LAUNCH(dq_f32<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
+                 Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 32)
+      TPD_LAUNCH(dq_f32<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
+                 Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 64)
+      TPD_LAUNCH(dq_f32<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
+                 Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 128)
+      TPD_LAUNCH(dq_f32<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
+                 Hkv, Sq, Sk, lo, hi, scale)
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int tpd_flash_backward_dkv(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dk, void* dv, int B, int H,
+                                      int Hkv, int Sq, int Sk, int D, int lo,
+                                      int hi, int dtype, float scale,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Sk <= 0 || B * Hkv <= 0) return 0;
+  const float* L = static_cast<const float*>(lse);
+  const float* Dl = static_cast<const float*>(delta);
+  if (dtype == kBF16) {
+    const dim3 grid(B * Hkv, (Sk + kKB - 1) / kKB);
+    const size_t smem = (size_t)(2 * kKB + 4 * kQB) * (D + 8) * sizeof(bf16) +
+                        4 * kQB * sizeof(float);
+    const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
+               *V = static_cast<const bf16*>(v),
+               *dO = static_cast<const bf16*>(dout);
+    bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
+    if (D == 16)
+      TPD_LAUNCH(dkv_bf16<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 32)
+      TPD_LAUNCH(dkv_bf16<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 64)
+      TPD_LAUNCH(dkv_bf16<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 128)
+      TPD_LAUNCH(dkv_bf16<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
+                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
+  } else if (dtype == kF32) {
+    const dim3 grid((Sk + kSK - 1) / kSK, B * Hkv);
+    const size_t smem = ((size_t)2 * kSK * (D + 1) + 2 * kSQ * (D + 1) +
+                         2 * kSK * (kSQ + 1) + 2 * kSQ) *
+                        sizeof(float);
+    const float *Q = static_cast<const float*>(q),
+                *K = static_cast<const float*>(k),
+                *V = static_cast<const float*>(v),
+                *dO = static_cast<const float*>(dout);
+    float *dK = static_cast<float*>(dk), *dV = static_cast<float*>(dv);
+    if (D == 16)
+      TPD_LAUNCH(dkv_f32<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
+                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 32)
+      TPD_LAUNCH(dkv_f32<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
+                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 64)
+      TPD_LAUNCH(dkv_f32<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
+                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 128)
+      TPD_LAUNCH(dkv_f32<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
+                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+#undef TPD_LAUNCH
+
+extern "C" const char* tpd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

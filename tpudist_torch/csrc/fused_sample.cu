@@ -1,16 +1,31 @@
 // Fused sampling prep for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tpudist/ops/fused_sample.py
-// (fused_sample_prep, body _sample_kernel) for top_k = 0 and top_p = 0:
-// per slot, the grammar allow-row mask (finfo(f32).min where disallowed),
-// the greedy arg-max of the masked logits (lowest index on ties, a NaN
-// counts as the largest value, as jnp.argmax), and the temperature scale
-// lg / max(temp, 1e-6) as a true IEEE division.
+// (fused_sample_prep, body _sample_kernel): per slot, the grammar allow-row
+// mask (finfo(f32).min where disallowed), the greedy arg-max of the masked
+// logits (lowest index on ties, a NaN counts as the largest value, as
+// jnp.argmax), the temperature scale lg / max(temp, 1e-6) as a true IEEE
+// division, then the value-space filters of the scaled row:
+//
+// - top_k > 0: every value below the k-th largest (duplicates counted, as
+//   lax.top_k) becomes finfo(f32).min, so ties at the threshold survive;
+// - 0 < top_p < 1: the nucleus.  Over the row sorted in descending order,
+//   position i is kept when the softmax mass of positions [0, i) is below
+//   top_p (the top token always stays); values below the last kept one
+//   become finfo(f32).min.
+//
+// The filters sort the row in shared memory (bitonic, padded to a power of
+// two with -inf), so a row of up to kMaxSortV values fits one CTA; the
+// wrapper raises above it.  The softmax mass is a block prefix sum of
+// exp(x - max) over the sorted row divided by the total, which rounds in
+// another order than a sequential cumsum: a kept set can differ only where
+// the mass sits within float rounding of top_p.
 //
 // Bound on the H100: bytes.  Each logit is read once and written twice with
 // a handful of flops, so the time is the [S, V] traffic (plus launch
 // latency at serving widths).  One CTA per slot row makes the elementwise
-// pass and the arg-max reduction in one read of the row.
+// pass and the arg-max reduction in one read of the row; the sort touches
+// shared memory only.
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -19,6 +34,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxSortV = 4096;
 
 // (value, index) order of jnp.argmax: NaN first, then larger, then lower index
 __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
@@ -28,16 +44,36 @@ __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   return ia < ib;
 }
 
+// block-wide sum / count over kThreads threads (red: kThreads/32 floats)
+__device__ float block_sum(float x, float* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float total = 0.f;
+  for (int w = 0; w < kThreads / 32; ++w) total += red[w];
+  return total;
+}
+
 __global__ void __launch_bounds__(kThreads)
     fused_sample_kernel(const float* logits, const float* temps,
                         const uint8_t* gallow, const int* gidx,
                         const int* gstate, float* masked, float* scaled,
-                        int* greedy, int V, int G1, int n_states) {
+                        int* greedy, int V, int G1, int n_states, int top_k,
+                        float top_p) {
   __shared__ float red_v[kThreads / 32];
   __shared__ int red_i[kThreads / 32];
+  extern __shared__ float srt[];  // [Vp] sorted row, then [Vp] prefix sums
   const int s = blockIdx.x;
   const float t = fmaxf(temps[s], 1e-6f);
   const float* row = logits + (size_t)s * V;
+  const bool use_k = top_k > 0 && top_k < V;
+  const bool use_p = top_p > 0.f && top_p < 1.f;
+  const bool filter = use_k || use_p;
+  int Vp = 1;
+  while (Vp < V) Vp <<= 1;
   const uint8_t* allow = nullptr;
   if (gallow) {
     const int gi = min(gidx[s], G1 - 1), gs = min(gstate[s], n_states - 1);
@@ -45,11 +81,17 @@ __global__ void __launch_bounds__(kThreads)
   }
   float best = -INFINITY;
   int bidx = V;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) {
+  for (int v = threadIdx.x; v < Vp; v += blockDim.x) {
+    if (v >= V) {
+      if (filter) srt[v] = -INFINITY;
+      continue;
+    }
     float lg = row[v];
     if (allow && !allow[v]) lg = -FLT_MAX;
     masked[(size_t)s * V + v] = lg;
-    scaled[(size_t)s * V + v] = lg / t;
+    const float sc = lg / t;
+    scaled[(size_t)s * V + v] = sc;
+    if (filter) srt[v] = sc;
     if (better(lg, v, best, bidx)) {
       best = lg;
       bidx = v;
@@ -77,6 +119,67 @@ __global__ void __launch_bounds__(kThreads)
       }
     greedy[s] = bidx;
   }
+  if (!filter) return;
+
+  // bitonic sort of srt[0, Vp) into descending order
+  for (int k = 2; k <= Vp; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < Vp; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const float a = srt[i], b = srt[ixj];
+          if ((i & k) == 0 ? (a < b) : (a > b)) {
+            srt[i] = b;
+            srt[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const float neg = -FLT_MAX;
+  const float kth = use_k ? srt[top_k - 1] : -INFINITY;
+  float cutoff = -INFINITY;
+  if (use_p) {
+    // the sorted row after the top-k filter stays sorted; its softmax mass
+    float* pre = srt + Vp;
+    const float top = srt[0] < kth ? neg : srt[0];
+    const int per = Vp / kThreads > 0 ? Vp / kThreads : 1;
+    const int lo = threadIdx.x * per;
+    float run = 0.f;
+    for (int i = lo; i < lo + per && i < Vp; ++i) {
+      const float x = srt[i] < kth ? neg : srt[i];
+      run += i < V ? expf(x - top) : 0.f;
+      pre[i] = run;
+    }
+    // exclusive scan of the per-thread totals
+    float incl = run;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    __syncthreads();
+    if (lane == 31) red_v[warp] = incl;
+    __syncthreads();
+    float base = incl - run;
+    for (int w = 0; w < warp; ++w) base += red_v[w];
+    for (int i = lo; i < lo + per && i < Vp; ++i) pre[i] += base;
+    __syncthreads();
+    const float total = pre[V - 1];
+    // kept = 1 + #{j < V - 1 : mass(0..j) < top_p}; the mass is monotone
+    float n = 0.f;
+    for (int j = threadIdx.x; j < V - 1; j += blockDim.x)
+      n += (pre[j] / total < top_p) ? 1.f : 0.f;
+    const int keep = 1 + (int)block_sum(n, red_v);
+    const float c = srt[keep - 1];
+    cutoff = c < kth ? neg : c;
+  }
+  for (int v = threadIdx.x; v < V; v += blockDim.x) {
+    float sc = scaled[(size_t)s * V + v];
+    if (sc < kth) sc = neg;
+    if (sc < cutoff) sc = neg;
+    scaled[(size_t)s * V + v] = sc;
+  }
 }
 
 }  // namespace
@@ -85,13 +188,20 @@ extern "C" int tpd_fused_sample(const void* logits, const void* temps,
                                 const void* gallow, const void* gidx,
                                 const void* gstate, void* masked,
                                 void* scaled, void* greedy, int S, int V,
-                                int G1, int n_states, void* stream) {
-  fused_sample_kernel<<<S, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                int G1, int n_states, int top_k, float top_p,
+                                void* stream) {
+  const bool filter = (top_k > 0 && top_k < V) || (top_p > 0.f && top_p < 1.f);
+  int Vp = 1;
+  while (Vp < V) Vp <<= 1;
+  if (filter && V > kMaxSortV) return (int)cudaErrorInvalidValue;
+  const size_t smem = filter ? 2 * (size_t)Vp * sizeof(float) : 0;
+  fused_sample_kernel<<<S, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(logits), static_cast<const float*>(temps),
       static_cast<const uint8_t*>(gallow), static_cast<const int*>(gidx),
       static_cast<const int*>(gstate), static_cast<float*>(masked),
       static_cast<float*>(scaled), static_cast<int*>(greedy), V, G1,
-      n_states);
+      n_states, top_k, top_p);
   return (int)cudaGetLastError();
 }
 

@@ -1,16 +1,18 @@
-"""The port's model family: :class:`TransformerLM`, its paged KV storage
-and the slot-decode programs of the serving engine."""
+"""The port's model family: :class:`TransformerLM` and its LM losses, its
+paged KV storage and the slot-decode programs of the serving engine."""
 
 from tpudist_torch.models.convert import params_from_flax
 from tpudist_torch.models.generate import (SlotDecode, SlotState,
                                            make_slot_decode)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig
 from tpudist_torch.models.transformer import (TransformerLM,
-                                              create_transformer,
+                                              create_transformer, lm_loss,
+                                              lm_loss_with_targets,
                                               resolve_device, rope_rotate)
 
 __all__ = [
     "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "TransformerLM",
-    "create_transformer", "make_slot_decode", "params_from_flax",
+    "create_transformer", "lm_loss", "lm_loss_with_targets",
+    "make_slot_decode", "params_from_flax",
     "resolve_device", "rope_rotate",
 ]

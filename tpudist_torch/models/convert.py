@@ -4,8 +4,11 @@
 (nested dicts of numpy arrays, with or without the top ``"params"`` level)
 onto the state dict of :class:`tpudist_torch.models.TransformerLM`.  flax
 ``Dense`` kernels are ``[in, out]``; the port's linear weights are
-``[out, in]``.  ``load_state_dict`` then casts to the model's compute dtype
-(round to nearest even — the cast flax applies to its f32 masters)."""
+``[out, in]``.  The tensors are f32, flax's master dtype: a model built with
+``param_dtype=float32`` (training) loads them without a cast, so the same
+weights start both frameworks; a model whose parameters live in its compute
+dtype (serving) gets them rounded to nearest even by ``load_state_dict`` —
+the cast flax applies to its f32 masters at apply."""
 
 from __future__ import annotations
 

@@ -6,8 +6,11 @@ epsilon 1e-6, variance ``E[x²] − E[x]²``; tanh-approximate GELU; rotary
 GPT-NeoX half-split positions or a learned table) over three attention arms,
 chosen by the attention context the caller passes:
 
-- ``None`` — the plain training-mode forward: dense causal softmax over the
-  whole sequence (:func:`attention_reference`);
+- ``None`` — the training-mode forward over the whole sequence: on CUDA the
+  hand-written flash kernels (:class:`tpudist_torch.ops.FlashAttention`,
+  forward and backward, native GQA, the model's sliding window); on the CPU
+  the dense causal softmax (:func:`attention_reference`, K/V broadcast to
+  every q head);
 - :class:`PagedDecode` — the serving decode arm: this call's K/V go to a
   small per-layer window buffer and attention runs through the paged decode
   kernel (:func:`tpudist_torch.ops.paged_attention`), which walks the block
@@ -17,8 +20,12 @@ chosen by the attention context the caller passes:
   prefill kernel, which also returns the touched KV blocks (kept on the
   context for the caller to commit).
 
-Weights live in the compute dtype (``dtype``), LayerNorm scales in f32 —
-the values flax computes with when it casts f32 masters at apply.
+Weights live in ``param_dtype`` (default: the compute dtype ``dtype``) and
+are cast to ``dtype`` where they are used, as flax's ``nn.Dense(dtype=...)``
+and ``nn.Embed(dtype=...)`` cast their f32 masters at apply; LayerNorm scales
+stay f32.  Serving builds the model in its compute dtype (the casts are
+no-ops); training keeps f32 masters under bf16 compute
+(``param_dtype=float32, dtype=bfloat16``), so gradients land in f32.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudist_torch.ops import paged_attention, paged_prefill_attention
+from tpudist_torch.ops import (FlashAttention, paged_attention,
+                               paged_prefill_attention)
 
 _MASK_VALUE = -1e30
 
@@ -86,8 +94,9 @@ def attention_reference(q, k, v, *, window: Optional[int] = None):
 
 
 class _Causal:
-    """Training-mode attention arm: dense causal softmax at positions
-    ``0..T-1``."""
+    """Training-mode attention arm at positions ``0..T-1``: the flash
+    kernels on CUDA (grouped K/V consumed natively), the dense causal
+    softmax with K/V broadcast to every q head on the CPU."""
 
     def __init__(self, rope: bool, window: Optional[int]):
         self.rope = rope
@@ -99,6 +108,10 @@ class _Causal:
     def attend(self, layer: int, q, k, v):
         if self.rope:
             q, k = rope_rotate(q), rope_rotate(k)
+        if q.device.type == "cuda":
+            out, _ = FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), True, self.window)
+            return out
         group = q.shape[1] // k.shape[1]
         if group > 1:
             k = k.repeat_interleave(group, dim=1)
@@ -196,7 +209,7 @@ class Block(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: Optional[int], layer_idx: int,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, param_dtype: torch.dtype):
         super().__init__()
         n_kv = n_heads if n_kv_heads is None else n_kv_heads
         if not 1 <= n_kv <= n_heads or n_heads % n_kv:
@@ -205,21 +218,22 @@ class Block(nn.Module):
         self.d_model, self.n_heads, self.n_kv = d_model, n_heads, n_kv
         self.dh = d_model // n_heads
         self.layer_idx = layer_idx
+        self.dtype = dtype
         kv_dim = n_kv * self.dh
-        f32 = torch.float32
+        f32, pd = torch.float32, param_dtype
         self.ln1 = nn.Parameter(torch.ones(d_model, dtype=f32))
         self.qkv = nn.Parameter(torch.empty(d_model + 2 * kv_dim, d_model,
-                                            dtype=dtype))
-        self.proj = nn.Parameter(torch.empty(d_model, d_model, dtype=dtype))
+                                            dtype=pd))
+        self.proj = nn.Parameter(torch.empty(d_model, d_model, dtype=pd))
         self.ln2 = nn.Parameter(torch.ones(d_model, dtype=f32))
-        self.wi = nn.Parameter(torch.empty(d_ff, d_model, dtype=dtype))
-        self.wo = nn.Parameter(torch.empty(d_model, d_ff, dtype=dtype))
+        self.wi = nn.Parameter(torch.empty(d_ff, d_model, dtype=pd))
+        self.wo = nn.Parameter(torch.empty(d_model, d_ff, dtype=pd))
 
     def forward(self, x: torch.Tensor, ctx) -> torch.Tensor:
-        dtype = self.qkv.dtype
+        dtype = self.dtype
         b, s, _ = x.shape
         h = layer_norm(x, self.ln1)
-        qkv = F.linear(h.to(dtype), self.qkv)
+        qkv = F.linear(h.to(dtype), self.qkv.to(dtype))
         kv_dim = self.n_kv * self.dh
         q = qkv[..., :self.d_model]
         k = qkv[..., self.d_model:self.d_model + kv_dim]
@@ -231,10 +245,10 @@ class Block(nn.Module):
         attn = ctx.attend(self.layer_idx, heads(q, self.n_heads),
                           heads(k, self.n_kv), heads(v, self.n_kv))
         attn = attn.transpose(1, 2).reshape(b, s, self.d_model)
-        x = x + F.linear(attn.to(dtype), self.proj)
+        x = x + F.linear(attn.to(dtype), self.proj.to(dtype))
         h = layer_norm(x, self.ln2).to(dtype)
-        h = F.gelu(F.linear(h, self.wi), approximate="tanh")
-        return x + F.linear(h, self.wo)
+        h = F.gelu(F.linear(h, self.wi.to(dtype)), approximate="tanh")
+        return x + F.linear(h, self.wo.to(dtype))
 
 
 class TransformerLM(nn.Module):
@@ -247,25 +261,32 @@ class TransformerLM(nn.Module):
                  max_len: int = 2048, rope: bool = False,
                  n_kv_heads: Optional[int] = None,
                  sliding_window: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         if sliding_window is not None and sliding_window < 1:
             raise ValueError(
                 f"sliding_window must be >= 1, got {sliding_window}")
+        if remat:
+            raise NotImplementedError(
+                "remat (rematerialized blocks) is not ported yet: ROADMAP "
+                "queue A, item 6a")
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
         self.n_heads, self.d_ff, self.max_len = n_heads, d_ff, max_len
         self.rope, self.sliding_window = rope, sliding_window
         self.n_kv_heads = n_kv_heads
         self.dtype = dtype
-        self.tok_embed = nn.Parameter(torch.empty(vocab, d_model,
-                                                  dtype=dtype))
+        pd = dtype if param_dtype is None else param_dtype
+        self.param_dtype = pd
+        self.tok_embed = nn.Parameter(torch.empty(vocab, d_model, dtype=pd))
         self.pos_embed = (None if rope else nn.Parameter(
-            torch.empty(max_len, d_model, dtype=dtype)))
+            torch.empty(max_len, d_model, dtype=pd)))
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, d_ff, n_kv_heads, i, dtype)
+            Block(d_model, n_heads, d_ff, n_kv_heads, i, dtype, pd)
             for i in range(n_layers))
         self.ln_f = nn.Parameter(torch.ones(d_model, dtype=torch.float32))
-        self.head = nn.Parameter(torch.empty(vocab, d_model, dtype=dtype))
+        self.head = nn.Parameter(torch.empty(vocab, d_model, dtype=pd))
 
     @property
     def n_kv(self) -> int:
@@ -281,16 +302,16 @@ class TransformerLM(nn.Module):
         if ctx is None:
             ctx = _Causal(self.rope, self.sliding_window)
         b, s = tokens.shape
-        x = self.tok_embed[tokens.long()]
+        x = self.tok_embed[tokens.long()].to(self.dtype)
         if not self.rope:
             # padded chunk rows and idle lanes may sit past the table; their
             # outputs are never read, so clamping keeps them finite
             pos = ctx.positions(b, s, tokens.device).clamp(0, self.max_len - 1)
-            x = x + self.pos_embed[pos]
+            x = x + self.pos_embed[pos].to(self.dtype)
         for block in self.blocks:
             x = block(x, ctx)
         x = layer_norm(x, self.ln_f)
-        return F.linear(x.to(self.dtype), self.head)
+        return F.linear(x.to(self.dtype), self.head.to(self.dtype))
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
@@ -305,13 +326,15 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 def create_transformer(seed: int = 0, *, device="cuda",
                        dtype: torch.dtype = torch.float32,
-                       **cfg) -> TransformerLM:
+                       param_dtype: Optional[torch.dtype] = None,
+                       trainable: bool = False, **cfg) -> TransformerLM:
     """A :class:`TransformerLM` with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` (on the CPU, so every device
-    and dtype gets the same values), moved to ``device``.  Raises on a box
-    without CUDA unless ``device="cpu"``."""
+    and dtype gets the same values), moved to ``device``.  Frozen
+    (``requires_grad`` off) for serving unless ``trainable``.  Raises on a
+    box without CUDA unless ``device="cpu"``."""
     device = resolve_device(device)
-    model = TransformerLM(dtype=dtype, **cfg)
+    model = TransformerLM(dtype=dtype, param_dtype=param_dtype, **cfg)
     gen = torch.Generator().manual_seed(int(seed))
     d = model.d_model
     _lecun_normal_(model.tok_embed, d, gen)
@@ -323,7 +346,7 @@ def create_transformer(seed: int = 0, *, device="cuda",
         _lecun_normal_(blk.wi, d, gen)
         _lecun_normal_(blk.wo, model.d_ff, gen)
     _lecun_normal_(model.head, d, gen)
-    return model.to(device).requires_grad_(False)
+    return model.to(device).requires_grad_(trainable)
 
 
 def resolve_device(device) -> torch.device:
@@ -337,3 +360,23 @@ def resolve_device(device) -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy (mean over all predicted positions), in
+    f32 whatever the logits' dtype."""
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def lm_loss_with_targets(logits: torch.Tensor,
+                         targets: torch.Tensor) -> torch.Tensor:
+    """Cross entropy against explicit per-position targets; ``-1`` masks a
+    position out (mean over the unmasked ones)."""
+    valid = targets >= 0
+    safe = torch.where(valid, targets, torch.zeros_like(targets)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, safe[..., None])[..., 0]
+    return -torch.where(valid, ll, torch.zeros_like(ll)).sum() / torch.clamp(
+        valid.sum(), min=1)

@@ -5,6 +5,14 @@ Every wrapper launches its CUDA kernel for CUDA tensors (building it from
 CPU tensors; each counts its kernel launches in a ``launches`` attribute.
 """
 
+from tpudist_torch.ops.flash_attention import (FlashAttention,
+                                               flash_attention,
+                                               flash_attention_with_lse,
+                                               flash_backward_dkv,
+                                               flash_backward_dq,
+                                               flash_backward_reference,
+                                               flash_forward,
+                                               flash_forward_reference)
 from tpudist_torch.ops.fused_sample import (fused_sample_prep,
                                             fused_sample_reference)
 from tpudist_torch.ops.paged_attention import (paged_attention,
@@ -12,11 +20,15 @@ from tpudist_torch.ops.paged_attention import (paged_attention,
 from tpudist_torch.ops.paged_prefill import (paged_prefill_attention,
                                              paged_prefill_reference)
 
-#: the kernel wrappers of the serving slice, by kernel name
+#: every kernel wrapper of the port (serving and training slices), by
+#: kernel name
 KERNEL_WRAPPERS = {
     "paged_attention": paged_attention,
     "paged_prefill": paged_prefill_attention,
     "fused_sample": fused_sample_prep,
+    "flash_forward": flash_forward,
+    "flash_backward_dq": flash_backward_dq,
+    "flash_backward_dkv": flash_backward_dkv,
 }
 
 
@@ -32,7 +44,10 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "fused_sample_prep", "fused_sample_reference",
+    "FlashAttention", "KERNEL_WRAPPERS", "flash_attention",
+    "flash_attention_with_lse", "flash_backward_dkv", "flash_backward_dq",
+    "flash_backward_reference", "flash_forward", "flash_forward_reference",
+    "fused_sample_prep", "fused_sample_reference",
     "launch_counts", "paged_attention", "paged_attention_reference",
     "paged_prefill_attention", "paged_prefill_reference",
     "reset_launch_counts",

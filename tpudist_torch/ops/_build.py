@@ -10,7 +10,8 @@ wrapper passes every pointer and the CUDA stream as ``c_void_p``.
 Kernels are built at first use (:func:`load`) or all at once, one ``nvcc``
 process per source started together (:func:`build`).  ``--use_fast_math`` is
 deliberately absent: the int8 requantization and the temperature scale need
-IEEE division and round-half-to-even to match the plain versions bit for bit.
+IEEE division and round-half-to-even to match the plain versions bit for bit,
+and the flash kernels' exp/log and softmax divisions follow JAX's f32 math.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpudist_torch"
-KERNELS = ("paged_attention", "paged_prefill", "fused_sample")
+KERNELS = ("paged_attention", "paged_prefill", "fused_sample",
+           "flash_attention", "flash_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -136,7 +138,8 @@ def ptr(t) -> Optional[ctypes.c_void_p]:
 
 
 def dtype_code(dtype) -> int:
-    """The C side's dtype enum (``paged_common.cuh``: kF32, kBF16, kI8)."""
+    """The C side's dtype enum (``paged_common.cuh``: kF32, kBF16, kI8;
+    ``flash_common.cuh`` uses the same kF32 and kBF16)."""
     import torch
 
     codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

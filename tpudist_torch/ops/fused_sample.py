@@ -3,9 +3,10 @@
 The PyTorch/CUDA counterpart of :func:`tpudist.ops.fused_sample.
 fused_sample_prep`.  On a CUDA tensor :func:`fused_sample_prep` launches the
 hand-written kernel ``csrc/fused_sample.cu`` (grammar mask, greedy arg-max,
-temperature scale); on a CPU tensor it runs :func:`fused_sample_reference`.
-The top-k / top-p filters live in the plain version only: the kernel raises
-``NotImplementedError`` for them (the serving path passes neither).
+temperature scale, top-k / top-p filters); on a CPU tensor it runs
+:func:`fused_sample_reference`.  The filters sort each row in one CTA's
+shared memory, so with a filter on the kernel takes rows of at most
+:data:`MAX_SORT_V` values and raises above.
 """
 
 from __future__ import annotations
@@ -16,10 +17,15 @@ import torch
 
 from tpudist_torch.ops import _build
 
+#: the longest row the kernel's shared-memory sort takes (top-k / top-p);
+#: ``kMaxSortV`` in ``csrc/fused_sample.cu``
+MAX_SORT_V = 4096
+
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpd_fused_sample.argtypes = [p] * 8 + [i] * 4 + [p]
+    lib.tpd_fused_sample.argtypes = ([p] * 8 + [i] * 5 + [ctypes.c_float]
+                                     + [p])
     lib.tpd_fused_sample.restype = i
 
 
@@ -39,12 +45,12 @@ def fused_sample_prep(logits, temps, gallow=None, gidx=None, gstate=None, *,
     if logits.device.type != "cuda":
         raise ValueError(f"fused_sample_prep runs on cuda or cpu, not "
                          f"{logits.device}")
-    if top_k > 0 or 0.0 < top_p < 1.0:
-        raise NotImplementedError(
-            "top_k / top_p filtering is not in the CUDA kernel yet "
-            "(ROADMAP queue B, row 3); the plain version has it")
     grammar = gallow is not None
     S, V = logits.shape
+    if (0 < top_k < V or 0.0 < top_p < 1.0) and V > MAX_SORT_V:
+        raise ValueError(
+            f"top_k / top_p filtering sorts a row in one CTA's shared memory: "
+            f"vocab {V} exceeds the kernel's limit of {MAX_SORT_V}")
     tensors = [logits, temps] + ([gallow, gidx, gstate] if grammar else [])
     for t in tensors:
         if t.device != logits.device or not t.is_contiguous():
@@ -70,7 +76,7 @@ def fused_sample_prep(logits, temps, gallow=None, gidx=None, gstate=None, *,
     rc = lib.tpd_fused_sample(
         ptr(logits), ptr(temps), ptr(gallow), ptr(gidx), ptr(gstate),
         ptr(masked), ptr(scaled), ptr(greedy), S, V, G1, n_states,
-        _build.stream_of(logits.device))
+        int(top_k), float(top_p), _build.stream_of(logits.device))
     _build.check(lib, rc, "fused_sample_prep")
     fused_sample_prep.launches += 1
     return masked, scaled, greedy
