@@ -24,16 +24,29 @@ order; any failure exits non-zero:
    phase 3; the yardstick is
    ``scaled_dot_product_attention(is_causal=True)``, forward alone and
    forward + backward beside FlashAttention's forward + dq + dk/dv;
+3c. the fused RoPE+QKV and LoRA gather-matmul kernels against their plain
+   versions at the adapter path's shapes (8 slots, d 1024, decode T 1 and
+   prefill T 64, rank 8, lane ids mixing adapters, base lanes and the
+   sentinel), a GQA case, a rope-off ragged case and f32 cases
+   (:func:`linear_agreement`: elementwise, per row and over the tensor),
+   timed as in phase 3 beside the unfused chain ``fused_rope=False`` runs;
 4. the main path: ``InferenceServer`` on the d1024 / 8-layer / 8-head /
    ff4096 / vocab-256 / max_len-2048 RoPE TransformerLM in bf16 (random
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
    (chunked prefill) and 16-64 new tokens; every request must finish
    "length" and every kernel's launch count (zeroed just before) must grow;
+4b. the adapter path: the same model and server geometry with
+   ``fused_rope``, ``adapters`` and ``lora_kernel`` on, 4 adapters of rank
+   8 loaded, 16 greedy requests of which a third are base lanes;
+   ``fused_rope_qkv`` must launch once and ``lora_delta`` three times per
+   layer and forward, every base lane must equal the same request on the
+   server without adapters and every adapter lane must differ from it;
 5. where the time goes: one admission prefill and one decode block of the
    same model under ``torch.profiler`` (device busy time, idle share, the
-   heaviest kernels);
+   heaviest kernels), on phase 4's engine and on phase 4b's;
 6. one prompt's logits through the paged prefill path on the card (bf16,
-   kernels) against the port's CPU plain path (f32, same weights);
+   kernels) against the port's CPU plain path (f32, same weights); 5b: the
+   same for one adapter lane through the fused RoPE+QKV arm;
 7. the training main path: ``tpudist_torch.train``'s step on the d1024 /
    8-layer / 8-head / ff4096 / vocab-256 / seq-2048 LM with learned
    positions, batch 8, bf16 compute over f32 masters, Adam lr 3e-4, on
@@ -87,6 +100,28 @@ FLASH_CASES = (("main path", 8, 8, 8, 2048, DH, "bf16", (0, None)),
                ("dh 32 f32 window", 2, 4, 2, 300, 32, "f32", (0, 40)))
 SERVE_KERNELS = ("paged_attention", "paged_prefill", "fused_sample")
 TRAIN_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+ADAPTER_KERNELS = ("fused_rope_qkv", "lora_delta")
+# the adapter-serving path (phases 3c, 4b, 5b): ServeConfig's pool (8 blocks
+# of rank 8), 4 adapters loaded, names cycling so a third of the lanes are
+# base lanes; ragged decode cursors and prefill chunk starts of the main
+# path, and which lanes carry an adapter
+RANK, N_ADAPTERS = 8, 4
+ADAPTER_NAMES = ("a0", None, "a1", "a2", None, "a3")
+DECODE_OFFS = [37, 364, 120, 250, 5, 300, 180, 64]
+PREFILL_OFFS = [0, 64, 128, 0, 192, 64, 256, 0]
+LANE_ON = [1, 0, 1, 1, 0, 1, 1, 0]
+LORA_IDS = [0, 8, 1, 8, 2, 3, 8, 0]  # 8 = the sentinel of an 8-block pool
+# agreement of the fused linear kernels with their plain versions (phase
+# 3c): (elementwise against |ref| + the row's largest |ref|, per row, over
+# the tensor) by dtype
+# the bounds sit above the H100's readings over the phase's cases: bf16
+# 3.6e-3, 4.2e-3 and 2.4e-4 (the LoRA prefill products: the plain version's
+# cuBLAS sums the 4096-deep intermediate in another order and rounds it to
+# bf16 one step apart; fused_rope_qkv reads 0 — bit for bit), f32 1.3e-6,
+# 1.6e-6 and 3.2e-7.  A missed delta or a wrong rotation angle moves whole
+# rows by 0.1 or more.
+LINEAR_BOUNDS = {"bf16": (2 ** -7, 2 ** -7, 2 ** -10),
+                 "f32": (1e-5, 1e-5, 2e-6)}
 # gradient agreement, bf16 kernel path vs f32 plain path on the same batch
 # (phase 9).  Readings on the H100 (tests/torch_flash_faults.py): the sound
 # kernels leave 1 - cosine at 6.2e-5 at worst over the 52 parameters and the
@@ -109,15 +144,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, flush, n: int = 30, warmup: int = 5) -> float:
+# a ~2 ms spin the device runs ahead of each timed call (cycles at the H100's
+# ~1.98 GHz boost clock)
+SPIN_CYCLES = 4_000_000
+
+
+def time_ms(torch, fn, flush, n: int = 30, warmup: int = 5,
+            spin: bool = True) -> float:
     """Median device time of ``fn`` over ``n`` launches (CUDA events), the
-    L2 cache flushed before each."""
+    L2 cache flushed before each.  With ``spin`` the device runs a ~2 ms
+    spin kernel before the start event, so the host has queued ``fn``'s
+    launches by the time the device reaches them and the events see the
+    device work alone; without it (as PRs 1-2 timed) the events also see
+    the host's wrapper and launch overhead, which dominates a kernel of a
+    few microseconds."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -623,6 +671,211 @@ def check_flash(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the fused RoPE+QKV and LoRA gather-matmul kernels
+
+
+def linear_agreement(torch, out, ref, dtype: str) -> dict:
+    """How a fused linear kernel's output agrees with its plain version:
+    elementwise against ``|ref|`` plus the largest ``|ref|`` of its row (a
+    rotated pair mixes two values of a row), per row (the last axis) and
+    over the whole tensor, against ``LINEAR_BOUNDS[dtype]``."""
+    out, ref = out.float(), ref.float()
+    diff = out - ref
+    scale = ref.abs() + ref.abs().amax(dim=-1, keepdim=True)
+    elem, row, rms = LINEAR_BOUNDS[dtype]
+    r = dict(
+        max_abs_err=float(diff.abs().max()),
+        worst_elem=float((diff.abs() / scale.clamp(min=1e-30)).max()),
+        worst_row=float((diff.norm(dim=-1)
+                         / ref.norm(dim=-1).clamp(min=1e-30)).max()),
+        rel_rms=float(diff.norm() / ref.norm().clamp(min=1e-30)))
+    r["ok"] = (r["worst_elem"] <= elem and r["worst_row"] <= row
+               and r["rel_rms"] <= rms)
+    return r
+
+
+def linear_close(torch, out, ref, dtype: str, what: str) -> dict:
+    r = linear_agreement(torch, out, ref, dtype)
+    if not r["ok"]:
+        raise AssertionError(f"{what} disagrees with its plain version: {r}")
+    return r
+
+
+def qkv_inputs(torch, dev, gen, S, T, nh, n_kv, dh, dtype, offs,
+               extra=True, on_bool=False):
+    """``fused_rope_qkv`` arguments: h, the qkv weight as the port stores it
+    (``[dtot, d]``, passed as its transposed view), offsets, the delta and
+    the lane mask."""
+    d, dtot = nh * dh, (nh + 2 * n_kv) * dh
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    on = torch.tensor((LANE_ON * S)[:S], device=dev,
+                      dtype=torch.bool if on_bool else torch.int32)
+    return (r(S, T, d), r(dtot, d, scale=d ** -0.5).t(),
+            torch.tensor(offs, dtype=torch.int32, device=dev),
+            r(S, T, dtot, scale=0.1) if extra else None,
+            on if extra else None)
+
+
+def lora_inputs(torch, dev, gen, S, T, d_in, d_out, dtype, rank, ids,
+                blocks=8):
+    """``lora_delta`` arguments over an ``[LAYERS, blocks, ...]`` pool
+    (factors scaled as ``make_adapter_factors`` scales them)."""
+    x = torch.randn(S, T, d_in, generator=gen, device=dev).to(dtype)
+    a = torch.randn(LAYERS, blocks, d_in, rank, generator=gen,
+                    device=dev) * d_in ** -0.5
+    b = torch.randn(LAYERS, blocks, rank, d_out, generator=gen,
+                    device=dev) * 0.05
+    return x, a, b, torch.tensor(ids, dtype=torch.int32, device=dev)
+
+
+def unfused_qkv(torch, h, w, offsets, extra, on, nh, n_kv, dh):
+    """The chain ``fused_rope=False`` runs for one layer: ``F.linear``, the
+    adapter select, the head split and two ``rope_rotate``."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.models.transformer import rope_rotate
+
+    S, T, _ = h.shape
+    qkv = F.linear(h, w.t())
+    if extra is not None:
+        qkv = torch.where(on[:, None, None] != 0, qkv + extra, qkv)
+    q = qkv[..., :nh * dh].reshape(S, T, nh, dh).transpose(1, 2)
+    k = qkv[..., nh * dh:(nh + n_kv) * dh].reshape(S, T, n_kv,
+                                                   dh).transpose(1, 2)
+    v = qkv[..., (nh + n_kv) * dh:].reshape(S, T, n_kv, dh).transpose(1, 2)
+    return rope_rotate(q, offset=offsets), rope_rotate(k, offset=offsets), v
+
+
+def check_fused_linear(torch, dev):
+    """Phase 3c: both kernels against their plain versions at the main
+    path's shapes (decode T 1, prefill T 64, 8 slots, d 1024, rank 8), a GQA
+    case, a rope-off ragged case and f32 cases; then timed as in phase 3."""
+    from tpudist_torch import ops
+    from tpudist_torch.ops.fused_linear import (fused_rope_qkv,
+                                                fused_rope_qkv_reference,
+                                                lora_delta,
+                                                lora_delta_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    readings = {}
+    # (name, S, T, nh, n_kv, dh, dtype, rope, extra, offsets)
+    qkv_cases = (
+        ("decode", SLOTS, 1, HEADS, HEADS, DH, bf16, True, True,
+         DECODE_OFFS),
+        ("prefill", SLOTS, P, HEADS, HEADS, DH, bf16, True, True,
+         PREFILL_OFFS),
+        ("GQA n_kv 2, T 16", SLOTS, 16, HEADS, 2, DH, bf16, True, True,
+         DECODE_OFFS),
+        ("rope off, ragged T 37, dh 64", 3, 37, 4, 4, 64, bf16, False,
+         False, [0, 5, 9]),
+        ("f32 GQA, bool mask", 5, 9, 4, 2, 64, f32, True, True,
+         [0, 3, 11, 100, 2000]))
+    worst = {"fused_rope_qkv": 0.0, "lora_delta": 0.0}
+    for name, S, T, nh, n_kv, dh, dtype, rope, extra, offs in qkv_cases:
+        dt = "bf16" if dtype == bf16 else "f32"
+        args = qkv_inputs(torch, dev, gen, S, T, nh, n_kv, dh, dtype, offs,
+                          extra, on_bool=dtype == f32)
+        kw = dict(n_heads=nh, n_kv=n_kv, dh=dh, rope=rope)
+        out = fused_rope_qkv(*args, **kw)
+        ref = fused_rope_qkv_reference(*args, **kw)
+        torch.cuda.synchronize()
+        for part, a, b in zip("qkv", out, ref):
+            r = linear_close(torch, a, b, dt, f"fused_rope_qkv {name} {part}")
+            readings[f"fused_rope_qkv {name} {part}"] = r
+            worst["fused_rope_qkv"] = max(worst["fused_rope_qkv"],
+                                          r["max_abs_err"])
+        log(f"fused_rope_qkv {name}: agrees")
+    # (name, S, T, d_in, d_out, dtype, rank, ids)
+    lora_cases = (
+        ("qkv decode", SLOTS, 1, 1024, 3072, bf16, RANK, LORA_IDS),
+        ("wi decode", SLOTS, 1, 1024, 4096, bf16, RANK, LORA_IDS),
+        ("wo prefill", SLOTS, P, 4096, 1024, bf16, RANK, LORA_IDS),
+        ("qkv prefill", SLOTS, P, 1024, 3072, bf16, RANK, LORA_IDS),
+        ("f32 rank 2, ragged", 3, 37, 256, 200, f32, 2, [1, 8, 7]),
+        ("rank 64, sentinel only", 2, 5, 512, 300, bf16, 64, [8, 8]))
+    for name, S, T, d_in, d_out, dtype, rank, ids in lora_cases:
+        dt = "bf16" if dtype == bf16 else "f32"
+        args = lora_inputs(torch, dev, gen, S, T, d_in, d_out, dtype, rank,
+                           ids)
+        for layer in (0, LAYERS - 1):
+            out = lora_delta(*args, layer=layer)
+            ref = lora_delta_reference(*args, layer=layer)
+            torch.cuda.synchronize()
+            r = linear_close(torch, out, ref, dt,
+                             f"lora_delta {name} layer {layer}")
+            readings[f"lora_delta {name} layer {layer}"] = r
+            worst["lora_delta"] = max(worst["lora_delta"], r["max_abs_err"])
+        log(f"lora_delta {name}: agrees")
+
+    for kname in ADAPTER_KERNELS:
+        rs = [r for k, r in readings.items() if k.startswith(kname)]
+        log(f"{kname} readings, worst over {len(rs)} outputs: "
+            + ", ".join(f"{m} {max(r[m] for r in rs):.3g}"
+                        for m in ("worst_elem", "worst_row", "rel_rms")))
+    rec, timings = {}, {}
+    for label, T, offs in (("decode", 1, DECODE_OFFS),
+                           ("prefill", P, PREFILL_OFFS)):
+        args = qkv_inputs(torch, dev, gen, SLOTS, T, HEADS, HEADS, DH, bf16,
+                          offs)
+        kw = dict(n_heads=HEADS, n_kv=HEADS, dh=DH)
+        d, dtot = HEADS * DH, 3 * HEADS * DH
+        rows = SLOTS * T
+        nbytes = 2 * (d * dtot + rows * d + 2 * rows * dtot) + SLOTS * 8
+        timings[f"fused_rope_qkv {label}"] = dict(
+            ms=time_ms(torch, lambda: fused_rope_qkv(*args, **kw), flush),
+            host_ms=time_ms(torch, lambda: fused_rope_qkv(*args, **kw),
+                            flush, spin=False),
+            plain_ms=time_ms(torch, lambda: fused_rope_qkv_reference(
+                *args, **kw), flush),
+            unfused_ms=time_ms(torch, lambda: unfused_qkv(
+                torch, *args, HEADS, HEADS, DH), flush),
+            bound=bound(nbytes, 2 * rows * d * dtot, H100_BF16_FLOPS))
+    for label, T, d_in, d_out in (("qkv decode", 1, 1024, 3072),
+                                  ("wi decode", 1, 1024, 4096),
+                                  ("wo decode", 1, 4096, 1024),
+                                  ("wi prefill", P, 1024, 4096)):
+        args = lora_inputs(torch, dev, gen, SLOTS, T, d_in, d_out, bf16,
+                           RANK, LORA_IDS)
+        blocks = len({min(i, 7) for i in LORA_IDS})
+        rows = SLOTS * T
+        nbytes = (2 * rows * (d_in + d_out) + SLOTS * 4
+                  + blocks * RANK * (d_in + d_out) * 4)
+        timings[f"lora_delta {label}"] = dict(
+            ms=time_ms(torch, lambda: lora_delta(*args, layer=3), flush),
+            host_ms=time_ms(torch, lambda: lora_delta(*args, layer=3),
+                            flush, spin=False),
+            plain_ms=time_ms(torch, lambda: lora_delta_reference(
+                *args, layer=3), flush),
+            bound=bound(nbytes, 2 * rows * RANK * (d_in + d_out),
+                        H100_BF16_FLOPS))
+    for name, t in timings.items():
+        log(f"kernel {name}: {t['ms']:.4f} ms (with host launch "
+            f"{t['host_ms']:.4f} ms; plain {t['plain_ms']:.4f} "
+            f"ms" + (f", unfused chain {t['unfused_ms']:.4f} ms"
+                     if "unfused_ms" in t else "")
+            + f", bound {t['bound'][0]:.5f} ms by {t['bound'][1]})")
+    for name, src, replaces, key in (
+            ("fused_rope_qkv", "tpudist_torch/csrc/fused_rope_qkv.cu",
+             "tpudist/ops/fused_linear.py:86", "fused_rope_qkv decode"),
+            ("lora_delta", "tpudist_torch/csrc/lora_delta.cu",
+             "tpudist/ops/fused_linear.py:214", "lora_delta wi decode")):
+        t = timings[key]
+        rec[name] = dict(route="cuda", source=src, replaces=replaces,
+                         max_abs_err=worst[name], ms=t["ms"],
+                         plain_ms=t["plain_ms"], library_ms=None,
+                         bound=t["bound"])
+    del flush
+    ops.reset_launch_counts()
+    return rec, dict(timings=timings, readings=readings)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path; phase 5: prompt logits on the card vs the CPU
 
 
@@ -674,6 +927,116 @@ def serve_main_path(torch, model, gen_seed: int):
         decode=stats["decode"], launches=counts)
 
 
+def adapter_factors(torch, model) -> dict:
+    """The ``N_ADAPTERS`` seeded factor sets of phases 4b and 5b (CPU
+    generators, so every run loads the same adapters)."""
+    from tpudist_torch.models.lora import make_adapter_factors
+
+    return {f"a{i}": make_adapter_factors(
+        torch.Generator().manual_seed(100 + i), model, RANK)
+        for i in range(N_ADAPTERS)}
+
+
+def serve_adapter_path(torch, model, gen_seed: int) -> dict:
+    """Phase 4b: ``InferenceServer`` with ``fused_rope``, ``adapters`` and
+    ``lora_kernel`` on, over phase 4's model and geometry; 16 greedy
+    requests (prompts 1-300 tokens, 16-64 new tokens) naming
+    ``ADAPTER_NAMES`` in turn.  The same requests then run on a server that
+    differs only by ``adapters=False`` (each base lane must match it token
+    for token, each adapter lane must differ) and on phase 4's unfused arm
+    (base-lane agreement reported only: bf16 rounds in another order).
+    Every request is queued before its server starts, so the three servers
+    run the same schedule."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    rng = np.random.default_rng(gen_seed)
+    reqs = [(rng.integers(0, V, size=int(rng.integers(1, 301))),
+             int(rng.integers(16, 65))) for _ in range(16)]
+    names = [ADAPTER_NAMES[i % len(ADAPTER_NAMES)] for i in range(16)]
+    factors = adapter_factors(torch, model)
+
+    def run(fused: bool, adapters: bool):
+        cfg = ServeConfig(num_slots=SLOTS, queue_limit=64, max_new=64,
+                          prefill_pad=P, decode_block=8, kv_block=BS,
+                          fused_rope=fused, adapters=adapters,
+                          lora_kernel=adapters)
+        server = InferenceServer(model, cfg, device="cuda")
+        try:
+            if adapters:
+                for name, f in factors.items():
+                    server.load_adapter(name, f)
+            handles = [server.submit(p, max_new=n,
+                                     adapter=a if adapters else None)
+                       for (p, n), a in zip(reqs, names)]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            fw0 = server.engine.n_forwards
+            t0 = time.perf_counter()
+            server.start()
+            for h in handles:
+                if not h.wait(900):
+                    raise AssertionError("request timed out")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            forwards = server.engine.n_forwards - fw0
+            stats = server.stats()
+        finally:
+            server.close(60)
+        for h, (_, n) in zip(handles, reqs):
+            if h.finish_reason != "length" or len(h.tokens) != n:
+                raise AssertionError(f"request {h.id}: {h.finish_reason}, "
+                                     f"{len(h.tokens)}/{n} tokens")
+        if stats["kv"]["blocks_in_use"] != 0:
+            raise AssertionError("KV pool did not drain")
+        tokens = sum(len(h.tokens) for h in handles)
+        return dict(
+            streams=[h.tokens for h in handles], requests=len(handles),
+            tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+            ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
+            tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
+            forwards=forwards, launches=counts, decode=stats["decode"],
+            adapters=stats["adapters"])
+
+    main = run(fused=True, adapters=True)
+    L, fw, c = LAYERS, main["forwards"], main["launches"]
+    if c["fused_rope_qkv"] != L * fw or c["lora_delta"] != 3 * L * fw:
+        raise AssertionError(
+            f"{fw} forwards of {L} layers launched fused_rope_qkv "
+            f"{c['fused_rope_qkv']} and lora_delta {c['lora_delta']} times "
+            f"(want {L * fw} and {3 * L * fw})")
+    if not all(c[name] > 0 for name in SERVE_KERNELS):
+        raise AssertionError(f"a serving kernel was not launched: {c}")
+    base = run(fused=True, adapters=False)
+    for i, name in enumerate(names):
+        same = main["streams"][i] == base["streams"][i]
+        if name is None and not same:
+            raise AssertionError(f"base lane {i} differs from the same "
+                                 "request on the engine without adapters")
+        if name is not None and same:
+            raise AssertionError(f"adapter lane {i} ({name}) equals its "
+                                 "base stream")
+    unfused = run(fused=False, adapters=False)
+    lanes = [i for i, n in enumerate(names) if n is None]
+    agree = sum(main["streams"][i] == unfused["streams"][i] for i in lanes)
+    first_diff = [next((t for t, (a, b) in enumerate(zip(
+        main["streams"][i], unfused["streams"][i])) if a != b), None)
+        for i in lanes]
+    main.update(prompt_lens=[len(p) for p, _ in reqs], names=names,
+                base_lanes_equal_no_adapter_engine=len(lanes),
+                adapter_lanes_differ=len(names) - len(lanes),
+                base_lanes_equal_unfused=f"{agree}/{len(lanes)}",
+                first_divergence_vs_unfused=first_diff,
+                no_adapter_run={k: base[k] for k in (
+                    "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms")},
+                unfused_run={k: unfused[k] for k in (
+                    "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms")})
+    return main
+
+
 def device_profile(torch, fn, prep):
     """``fn`` timed plain (host clock to a synchronize, after ``prep``) and
     once under ``torch.profiler`` for the device's kernel time; the idle
@@ -719,15 +1082,21 @@ def log_profile(prof: dict) -> None:
             log(f"  {ms:9.4f} ms  {kname[:110]}")
 
 
-def profile_engine(torch, model):
+def profile_engine(torch, model, factors=None):
     """Where the time goes: one admission prefill (8 lanes x 60 tokens) and
-    one K=8 decode block over 8 busy lanes (:func:`device_profile`)."""
+    one K=8 decode block over 8 busy lanes (:func:`device_profile`).  With
+    ``factors`` (name → factor set), the adapter path: ``fused_rope``,
+    ``adapters`` and ``lora_kernel`` on, lanes naming ``ADAPTER_NAMES``."""
     import numpy as np
 
     from tpudist_torch.serve import SlotEngine
 
+    on = factors is not None
     eng = SlotEngine(model, num_slots=SLOTS, prefill_pad=P, decode_block=8,
-                     kv_block=BS, device="cuda")
+                     kv_block=BS, fused_rope=on, adapters=on,
+                     lora_kernel=on, device="cuda")
+    for name, f in (factors or {}).items():
+        eng.load_adapter(name, f)
     rng = np.random.default_rng(3)
 
     def clear():
@@ -736,8 +1105,9 @@ def profile_engine(torch, model):
                 eng.evict(s)
 
     def admit():
-        eng.start_batch([(s, rng.integers(0, V, size=60), 0.0, 0, 200)
-                         for s in range(SLOTS)])
+        eng.start_batch([(s, rng.integers(0, V, size=60), 0.0, 0, 200, (),
+                          None, ADAPTER_NAMES[s % len(ADAPTER_NAMES)]
+                          if on else None) for s in range(SLOTS)])
 
     admit()  # warm both programs
     eng.decode_block()
@@ -748,13 +1118,22 @@ def profile_engine(torch, model):
     return out
 
 
-def prompt_logits(torch, model, prompt):
+def prompt_logits(torch, model, prompt, factors=None):
     """All of ``prompt``'s logits through the paged prefill path (two
-    chunks: the second walks the first one's committed blocks)."""
-    from tpudist_torch.models import PagedKVConfig, make_slot_decode
+    chunks: the second walks the first one's committed blocks).  With
+    ``factors``, one adapter lane through the fused RoPE+QKV arm."""
+    from tpudist_torch.models import PagedKVConfig, lora, make_slot_decode
 
     dev = model.tok_embed.device
-    fns = make_slot_decode(model, 1, P, PagedKVConfig(16, BS, False))
+    ads, acfg = None, None
+    if factors is not None:
+        acfg = lora.AdapterPoolConfig(1, RANK)
+        pool = lora.load_factors(lora.init_adapter_pool(model, acfg), 0,
+                                 factors)
+        ads = lora.pool_collection(pool, torch.zeros(1, dtype=torch.int32,
+                                                     device=dev))
+    fns = make_slot_decode(model, 1, P, PagedKVConfig(16, BS, False),
+                           fused_rope=factors is not None, adapters=acfg)
     pkv = fns.init_slots()
     rows = torch.full((1, M), 16, dtype=torch.int32, device=dev)
     rows[0, :16] = torch.arange(16, device=dev)
@@ -766,7 +1145,7 @@ def prompt_logits(torch, model, prompt):
         pkv, lg = fns.prefill_chunk(
             pkv, rows, torch.tensor([start], dtype=torch.int32, device=dev),
             torch.tensor([len(chunk)], dtype=torch.int32, device=dev), toks,
-            torch.ones(1, dtype=torch.bool, device=dev))
+            torch.ones(1, dtype=torch.bool, device=dev), ads)
         out.append(lg[0, :len(chunk)].float().cpu())
     return torch.cat(out)
 
@@ -936,6 +1315,7 @@ def main(argv=None) -> int:
 
     rec = check_kernels(torch, dev)
     flash_rec, flash_fwd_bwd = check_flash(torch, dev)
+    lin_rec, lin_info = check_fused_linear(torch, dev)
 
     cpu_model = create_transformer(0, device="cpu", dtype=torch.float32,
                                    **MODEL)
@@ -951,7 +1331,26 @@ def main(argv=None) -> int:
         f"{main_path['tpot_p50_ms']:.3f} ms ({card}); launches "
         f"{main_path['launches']}")
 
+    t0 = time.perf_counter()
+    ad_path = serve_adapter_path(torch, model, gen_seed=7)
+    log(f"adapter path (fused_rope, 4 adapters, rank {RANK}): "
+        f"{ad_path['requests']} requests, {ad_path['tokens']} tokens in "
+        f"{ad_path['wall_s']:.3f} s = {ad_path['tokens_per_s']:.1f} "
+        f"tokens/s, TTFT p50 {ad_path['ttft_p50_ms']:.2f} ms, TPOT p50 "
+        f"{ad_path['tpot_p50_ms']:.3f} ms ({card}); {ad_path['forwards']} "
+        f"forwards, launches {ad_path['launches']}; base lanes equal the "
+        f"server without adapters "
+        f"({ad_path['base_lanes_equal_no_adapter_engine']}), adapter lanes "
+        f"differ ({ad_path['adapter_lanes_differ']}); base "
+        f"lanes equal to the unfused arm: "
+        f"{ad_path['base_lanes_equal_unfused']} (first divergence "
+        f"{ad_path['first_divergence_vs_unfused']}); without adapters "
+        f"{ad_path['no_adapter_run']}, unfused {ad_path['unfused_run']}")
+    ad_streams = ad_path.pop("streams")
+
     prof = profile_engine(torch, model)
+    prof.update({f"adapter {k}": v for k, v in profile_engine(
+        torch, model, adapter_factors(torch, model)).items()})
     log_profile(prof)
 
     import numpy as np
@@ -971,6 +1370,21 @@ def main(argv=None) -> int:
     # steps (2**-8 relative each) of a ~1-magnitude logit
     if not (rel_rms <= 0.05 and float(diff.max()) <= 0.25):
         raise AssertionError("card logits disagree with the CPU plain path")
+    factors = adapter_factors(torch, cpu_model)["a0"]
+    gpu_ad = prompt_logits(torch, model, prompt, factors)
+    with torch.no_grad():
+        cpu_ad = prompt_logits(torch, cpu_model, prompt, factors)
+    ad_diff = (gpu_ad - cpu_ad).abs()
+    ad_rel_rms = float((gpu_ad - cpu_ad).norm() / cpu_ad.norm())
+    ad_top1 = float((gpu_ad.argmax(-1) == cpu_ad.argmax(-1)).float().mean())
+    ad_moved = float((cpu_ad - cpu).norm() / cpu.norm())
+    log(f"adapter lane prompt logits (fused RoPE+QKV, LoRA kernel), card "
+        f"bf16 vs CPU f32: max abs err {float(ad_diff.max()):.4f}, rel RMS "
+        f"{ad_rel_rms:.5f}, top-1 agreement {ad_top1:.3f}; the adapter moves "
+        f"the CPU logits by {ad_moved:.4f} rel RMS")
+    if not (ad_rel_rms <= 0.05 and float(ad_diff.max()) <= 0.25):
+        raise AssertionError("adapter-lane card logits disagree with the "
+                             "CPU plain path")
     del model, cpu_model
 
     train, step, tokens = train_main_path(torch)
@@ -997,7 +1411,9 @@ def main(argv=None) -> int:
     kernels = []
     launches = dict(main_path["launches"])
     launches.update({n: train["launches"][n] for n in flash_rec})
-    for name, r in list(rec.items()) + list(flash_rec.items()):
+    launches.update({n: ad_path["launches"][n] for n in lin_rec})
+    for name, r in (list(rec.items()) + list(flash_rec.items())
+                    + list(lin_rec.items())):
         kernels.append(dict(
             name=name, route=r["route"], source=r["source"],
             replaces=r["replaces"],
@@ -1006,10 +1422,15 @@ def main(argv=None) -> int:
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))
     result = dict(card=card, kernels=kernels, main_path=main_path,
+                  adapter_path=dict(ad_path, streams=ad_streams),
+                  fused_linear=lin_info,
                   profile=prof, flash_fwd_bwd=flash_fwd_bwd, train=train,
                   train_profile=train_prof, grads=grads,
                   logits=dict(max_abs_err=float(diff.max()),
-                              rel_rms=rel_rms, top1=top1))
+                              rel_rms=rel_rms, top1=top1),
+                  adapter_logits=dict(max_abs_err=float(ad_diff.max()),
+                                      rel_rms=ad_rel_rms, top1=ad_top1,
+                                      adapter_moves=ad_moved))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

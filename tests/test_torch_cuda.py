@@ -20,20 +20,27 @@ Flash kernels (forward, dq, dk/dv) against their plain versions: the
 bounds of ``chip_smoke.flash_agreement``, elementwise, per row and in
 relative RMS, each stated and derived there.  lse is f32 on both sides:
 ``1e-4 + 1e-5 * |ref|``.
+
+The fused RoPE+QKV and LoRA gather-matmul kernels: the bounds of
+``chip_smoke.linear_agreement`` (``LINEAR_BOUNDS``, derived there from
+readings on the card).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import flash_agreement
+from chip_smoke import (flash_agreement, linear_agreement, lora_inputs,
+                        qkv_inputs)
 from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
                          sample_case, top_p_boundary_gap)
 from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                flash_backward_dq, flash_backward_reference,
                                flash_forward, flash_forward_reference,
+                               fused_rope_qkv, fused_rope_qkv_reference,
                                fused_sample_prep, fused_sample_reference,
-                               launch_counts, paged_attention,
+                               launch_counts, lora_delta,
+                               lora_delta_reference, paged_attention,
                                paged_attention_reference,
                                paged_prefill_attention,
                                paged_prefill_reference, reset_launch_counts)
@@ -222,3 +229,167 @@ def test_entry_point_trains_on_the_card(cuda, capsys, extra):
     assert np.isfinite(final) and final < first - 1.0
     for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
         assert launch_counts()[name] == 2 * 30
+
+
+# (S, T, heads, kv heads, head dim, dtype, rope, delta, bool mask)
+QKV_CASES = {
+    "decode_bf16_d128": (8, 1, 8, 8, 128, torch.bfloat16, True, True, False),
+    "prefill_gqa_bf16": (4, 64, 8, 2, 128, torch.bfloat16, True, True, True),
+    "ragged_bf16_d64": (3, 37, 4, 2, 64, torch.bfloat16, True, True, False),
+    "norope_bf16_d64": (5, 3, 4, 4, 64, torch.bfloat16, False, False,
+                        False),
+    "norope_delta_bf16": (2, 70, 2, 1, 128, torch.bfloat16, False, True,
+                          True),
+    "gqa_f32_d64": (3, 5, 4, 2, 64, torch.float32, True, True, True),
+    "ragged_f32_d128": (2, 66, 2, 2, 128, torch.float32, True, False,
+                        False),
+}
+
+
+@pytest.mark.parametrize("case", list(QKV_CASES))
+def test_fused_rope_qkv_matches_plain(cuda, case):
+    """Ragged S and T (row tiles cut mid-slot), GQA, rope off, with and
+    without the masked delta, int32 and bool masks, bf16 and f32."""
+    S, T, nh, n_kv, dh, dtype, rope, extra, on_bool = QKV_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    offs = [int(x) for x in np.random.default_rng(len(case)).integers(
+        0, 2000, size=S)]
+    args = qkv_inputs(torch, cuda, gen, S, T, nh, n_kv, dh, dtype, offs,
+                      extra, on_bool)
+    kw = dict(n_heads=nh, n_kv=n_kv, dh=dh, rope=rope)
+    reset_launch_counts()
+    out = fused_rope_qkv(*args, **kw)
+    ref = fused_rope_qkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_rope_qkv"] == 1
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    for a, b in zip(out, ref):
+        assert a.dtype == dtype and a.shape == b.shape and a.is_contiguous()
+        r = linear_agreement(torch, a, b, dt)
+        assert r["ok"], r
+
+
+# (S, T, d_in, d_out, dtype, rank, ids) over an 8-block pool: 8 = sentinel
+LORA_CASES = {
+    "decode_bf16_r8": (8, 1, 1024, 4096, torch.bfloat16, 8,
+                       [0, 8, 1, 8, 2, 3, 8, 0]),
+    "prefill_bf16_r8": (3, 64, 4096, 1024, torch.bfloat16, 8, [7, 8, 7]),
+    "ragged_bf16_r16": (2, 19, 300, 333, torch.bfloat16, 16, [5, 2]),
+    "ragged_f32_r2": (3, 37, 256, 200, torch.float32, 2, [1, 8, 7]),
+    "sentinel_f32_r64": (2, 5, 512, 260, torch.float32, 64, [8, 8]),
+}
+
+
+@pytest.mark.parametrize("case", list(LORA_CASES))
+def test_lora_delta_matches_plain(cuda, case):
+    """Ragged T and widths, sentinel and repeated ids, ranks 2 to 64, bf16
+    and f32, first and last layer."""
+    S, T, d_in, d_out, dtype, rank, ids = LORA_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    args = lora_inputs(torch, cuda, gen, S, T, d_in, d_out, dtype, rank,
+                       ids)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    reset_launch_counts()
+    for layer in (0, 7):
+        out = lora_delta(*args, layer=layer)
+        ref = lora_delta_reference(*args, layer=layer)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == (S, T, d_out)
+        r = linear_agreement(torch, out, ref, dt)
+        assert r["ok"], r
+    assert launch_counts()["lora_delta"] == 2
+
+
+def test_fused_linear_wrong_inputs_raise(cuda):
+    """What the kernels do not take raises; nothing falls back to the plain
+    versions."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h, w, offs, e, on = qkv_inputs(torch, cuda, gen, 2, 3, 4, 4, 64,
+                                   torch.bfloat16, [0, 1])
+    kw = dict(n_heads=4, n_kv=4, dh=64)
+    with pytest.raises(TypeError):
+        fused_rope_qkv(h.half(), w.half(), offs, **kw)
+    with pytest.raises(TypeError):
+        fused_rope_qkv(h, w, offs.long(), **kw)
+    with pytest.raises(TypeError):
+        fused_rope_qkv(h, w.float(), offs, **kw)
+    with pytest.raises(ValueError):
+        fused_rope_qkv(h, w, offs.cpu(), **kw)
+    h48, w48, offs48, _, _ = qkv_inputs(torch, cuda, gen, 2, 3, 4, 4, 48,
+                                        torch.bfloat16, [0, 1])
+    with pytest.raises(ValueError, match="multiples of 32"):
+        fused_rope_qkv(h48, w48, offs48, n_heads=4, n_kv=4, dh=48)
+    x, a, b, ids = lora_inputs(torch, cuda, gen, 2, 3, 64, 32,
+                               torch.bfloat16, 8, [0, 8])
+    with pytest.raises(TypeError):
+        lora_delta(x.half(), a, b, ids, layer=0)
+    with pytest.raises(TypeError):
+        lora_delta(x, a.bfloat16(), b, ids, layer=0)
+    with pytest.raises(TypeError):
+        lora_delta(x, a, b, ids.long(), layer=0)
+    with pytest.raises(ValueError):
+        lora_delta(x, a.cpu(), b, ids, layer=0)
+    x3, a3, b3, ids3 = lora_inputs(torch, cuda, gen, 2, 3, 64, 32,
+                                   torch.bfloat16, 3, [0, 8])
+    with pytest.raises(ValueError, match="ranks"):
+        lora_delta(x3, a3, b3, ids3, layer=0)
+
+
+def test_adapter_engine_on_the_card(cuda):
+    """A small bf16 LM served with fused RoPE+QKV and two adapters on the
+    card: base lanes equal the engine without adapters token for token,
+    and the two kernels launch once / three times per layer and forward."""
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.models.lora import make_adapter_factors
+    from tpudist_torch.serve import SlotEngine
+
+    model = create_transformer(0, device=cuda, dtype=torch.bfloat16,
+                               vocab=64, d_model=128, n_layers=2, n_heads=2,
+                               d_ff=256, max_len=128, rope=True)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, 64, size=int(rng.integers(1, 40))), 12)
+            for _ in range(6)]
+    names = ["a", None, "b", None, "a", "b"]
+    streams = {}
+    for adapters in (True, False):
+        eng = SlotEngine(model, num_slots=4, prefill_pad=16, kv_block=16,
+                         fused_rope=True, adapters=adapters,
+                         lora_kernel=adapters, device=cuda)
+        if adapters:
+            for i, name in enumerate(("a", "b")):
+                eng.load_adapter(name, make_adapter_factors(
+                    torch.Generator().manual_seed(i), model, 8, scale=0.5))
+        reset_launch_counts()
+        out = {}
+        pending = list(enumerate(reqs))
+        slot_rid = {}
+        while pending or eng.num_occupied:
+            items = []
+            for slot in eng.free_slots():
+                if not pending:
+                    break
+                rid, (p, n) = pending.pop(0)
+                slot_rid[slot] = rid
+                out[rid] = []
+                items.append((slot, p, 0.0, 0, n, (), None,
+                              names[rid] if adapters else None))
+            got = dict(eng.start_batch(items))
+            got.update(eng.advance_prefill())
+            for slot, tok in got.items():
+                if tok is not None:
+                    out[slot_rid[slot]].append(tok)
+            if eng.num_active:
+                for slot, toks in eng.decode_auto()[1].items():
+                    out[slot_rid[slot]].extend(toks)
+            for slot in list(slot_rid):
+                if len(out[slot_rid[slot]]) >= 12:
+                    eng.evict(slot)
+                    del slot_rid[slot]
+        counts = launch_counts()
+        fw = eng.n_forwards
+        assert counts["fused_rope_qkv"] == 2 * fw
+        assert counts["lora_delta"] == (6 * fw if adapters else 0)
+        streams[adapters] = [out[i][:12] for i in range(len(reqs))]
+    for i, name in enumerate(names):
+        if name is None:
+            assert streams[True][i] == streams[False][i]

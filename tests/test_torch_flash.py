@@ -20,6 +20,7 @@ from tpudist.ops.flash_attention import (
     flash_attention_with_lse as jax_flash_lse)
 from tpudist.parallel.ring_attention import (
     attention_reference as jax_attention_reference)
+from torch_cases import settled_torch_cpu
 from tpudist_torch.ops import (FlashAttention, flash_attention,
                                flash_attention_with_lse, flash_backward_dkv,
                                flash_backward_dq, flash_forward,
@@ -44,11 +45,11 @@ CASES = {
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+def _settled_torch_cpu():
+    """Two intra-op threads, torch's CPU kernels warmed up first
+    (``torch_cases.settled_torch_cpu``)."""
+    with settled_torch_cpu(torch):
+        yield
 
 
 def _inputs(h, h_kv, sq, sk, seed=0, b=2, d=64):

@@ -1,0 +1,197 @@
+"""The port's fused linear ops (tpudist_torch/ops/fused_linear.py) against
+the JAX package's Pallas kernels in interpret mode and their references.
+
+The same numpy inputs (seeded, built as tests/test_kernel_family.py builds
+them: S 3, T 4, 4 q heads, head dim 8, per-slot offsets 0 / 3 / 11, the
+delta on lanes 0 and 2) go through ``tpudist.ops.fused_linear`` and through
+the port's CPU path (the plain versions the wrappers run for CPU tensors).
+
+Tolerances:
+
+- ``fused_rope_qkv``: the JAX suite's own, ``atol = rtol = 1e-6`` (f32;
+  the product, the delta and the rotation differ only in the order of the
+  f32 sums);
+- ``lora_delta``: ``atol = rtol = 2e-6``.  JAX pins its kernel to its
+  reference exactly, since both run the same XLA dot; across frameworks the
+  two f32 contractions (depth 32, then rank 2, of unit-normal values, so
+  outputs up to ~30) sum in another order, a few units in the last place
+  of the larger intermediate.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpudist.ops.fused_linear import fused_rope_qkv as jax_rope_qkv
+from tpudist.ops.fused_linear import \
+    fused_rope_qkv_reference as jax_rope_qkv_reference
+from tpudist.ops.fused_linear import lora_delta as jax_lora_delta
+from tpudist.ops.fused_linear import \
+    lora_delta_reference as jax_lora_delta_reference
+from torch_cases import settled_torch_cpu
+from tpudist_torch.ops import (fused_rope_qkv, fused_rope_qkv_reference,
+                               launch_counts, lora_delta,
+                               lora_delta_reference, reset_launch_counts)
+
+QKV_TOL = dict(atol=1e-6, rtol=1e-6)
+LORA_TOL = dict(atol=2e-6, rtol=2e-6)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _settled_torch_cpu():
+    """Two intra-op threads, torch's CPU kernels warmed up first
+    (``torch_cases.settled_torch_cpu``)."""
+    with settled_torch_cpu(torch):
+        yield
+
+
+def _case(seed, S=3, T=4, nh=4, n_kv=2, dh=8):
+    r = np.random.default_rng(seed)
+    d, kv = nh * dh, n_kv * dh
+    h = r.normal(size=(S, T, d)).astype(np.float32)
+    w = (r.normal(size=(d, d + 2 * kv)) * 0.05).astype(np.float32)
+    offs = np.asarray([0, 3, 11], np.int32)[:S]
+    extra = (r.normal(size=(S, T, d + 2 * kv)) * 0.1).astype(np.float32)
+    on = np.asarray([1, 0, 1], np.int32)[:S]
+    return h, w, offs, extra, on, dict(n_heads=nh, n_kv=n_kv, dh=dh)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "norope"])
+@pytest.mark.parametrize("with_extra", [False, True],
+                         ids=["base", "lora-extra"])
+def test_rope_qkv_matches_jax(rope, with_extra, n_kv):
+    """Projection, the masked pre-rotation delta and the per-slot-offset
+    rotation agree with the interpreted Pallas kernel and the JAX
+    reference, with the weight given in the JAX layout and as the
+    transposed view of the port's ``[dtot, d]`` parameter."""
+    h, w, offs, extra, on, kw = _case(rope + 2 * with_extra + 4 * n_kv,
+                                      n_kv=n_kv)
+    e, o = (extra, on) if with_extra else (None, None)
+    jargs = [jnp.asarray(a) if a is not None else None
+             for a in (h, w, offs, e, o)]
+    refs = (jax_rope_qkv(*jargs, rope=rope, interpret=True, **kw),
+            jax_rope_qkv_reference(*jargs, rope=rope, **kw))
+    w_port = torch.from_numpy(np.ascontiguousarray(w.T)).t()
+    for weight in (_t(w), w_port):
+        out = fused_rope_qkv(_t(h), weight, _t(offs), _t(e), _t(o),
+                             rope=rope, **kw)
+        assert [tuple(x.shape) for x in out] == [
+            (3, 4, 4, 8), (3, n_kv, 4, 8), (3, n_kv, 4, 8)]
+        for ref in refs:
+            for a, b in zip(out, ref):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                           **QKV_TOL)
+
+
+def test_rope_qkv_bool_mask_and_no_mask():
+    """``on`` as bool equals ``on`` as int32; ``on=None`` applies the delta
+    to every lane, as the JAX kernel's all-ones default."""
+    h, w, offs, extra, on, kw = _case(11)
+    a = fused_rope_qkv(_t(h), _t(w), _t(offs), _t(extra), _t(on), **kw)
+    b = fused_rope_qkv(_t(h), _t(w), _t(offs), _t(extra),
+                       _t(on).bool(), **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    c = fused_rope_qkv(_t(h), _t(w), _t(offs), _t(extra), None, **kw)
+    ref = jax_rope_qkv(*map(jnp.asarray, (h, w, offs, extra)), None,
+                       interpret=True, **kw)
+    for x, y in zip(c, ref):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), **QKV_TOL)
+
+
+def test_rope_qkv_bf16_rounds_like_the_unfused_arm():
+    """bf16: the plain version rounds the product, the delta sum and the
+    rotation where the port's unfused arm rounds them (F.linear in bf16,
+    the select, rope_rotate), so the two agree bit for bit."""
+    from tpudist_torch.models.transformer import rope_rotate
+
+    h, w, offs, extra, on, kw = _case(12)
+    hb, wb, eb = (_t(a).bfloat16() for a in (h, w, extra))
+    q, k, v = fused_rope_qkv(hb, wb, _t(offs), eb, _t(on), **kw)
+    qkv = torch.nn.functional.linear(hb, wb.t())
+    qkv = torch.where(_t(on).bool()[:, None, None], qkv + eb, qkv)
+    S, T = h.shape[:2]
+    q2 = qkv[..., :32].reshape(S, T, 4, 8).transpose(1, 2)
+    v2 = qkv[..., 48:].reshape(S, T, 2, 8).transpose(1, 2)
+    assert q.dtype == torch.bfloat16
+    assert torch.equal(q, rope_rotate(q2, offset=_t(offs)))
+    assert torch.equal(v, v2)
+
+
+@pytest.mark.parametrize("ids", [[0, 5, 3], [5, 5, 5], [4, 0, 4]],
+                         ids=["mixed", "all-sentinel", "repeat"])
+def test_lora_delta_matches_jax_every_layer(ids):
+    """The gather-matmul against the interpreted Pallas kernel and the JAX
+    reference on every layer, sentinel ids (B = 5) clamping to block 4."""
+    h = _case(5)[0]
+    r = np.random.default_rng(6)
+    L, B, rank, dout = 2, 5, 2, 12
+    pa = r.normal(size=(L, B, 32, rank)).astype(np.float32)
+    pb = r.normal(size=(L, B, rank, dout)).astype(np.float32)
+    ids = np.asarray(ids, np.int32)
+    for layer in range(L):
+        out = lora_delta(_t(h), _t(pa), _t(pb), _t(ids), layer=layer)
+        assert out.shape == (3, 4, dout) and out.dtype == torch.float32
+        for ref in (jax_lora_delta(*map(jnp.asarray, (h, pa, pb, ids)),
+                                   layer=layer, interpret=True),
+                    jax_lora_delta_reference(*map(jnp.asarray,
+                                                  (h, pa, pb, ids)),
+                                             layer=layer)):
+            np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                       **LORA_TOL)
+    # a sentinel lane reads the clamped block: it equals a lane bound to
+    # block B - 1 exactly
+    clamped = lora_delta(_t(h), _t(pa), _t(pb),
+                         _t(np.minimum(ids, B - 1)), layer=1)
+    assert torch.equal(clamped, lora_delta(_t(h), _t(pa), _t(pb), _t(ids),
+                                           layer=1))
+
+
+def test_lora_delta_bf16_rounds_factors_and_intermediate():
+    """bf16: the factors round as they load and the [T, r] intermediate
+    rounds before the second product."""
+    h = torch.from_numpy(_case(7)[0]).bfloat16()
+    r = np.random.default_rng(8)
+    pa = torch.from_numpy(r.normal(size=(1, 2, 32, 4)).astype(np.float32))
+    pb = torch.from_numpy(r.normal(size=(1, 2, 4, 6)).astype(np.float32))
+    ids = torch.tensor([1, 0, 2], dtype=torch.int32)
+    out = lora_delta(h, pa, pb, ids, layer=0)
+    rows = torch.tensor([1, 0, 1])
+    mid = torch.bmm(h, pa[0][rows].bfloat16())
+    assert mid.dtype == torch.bfloat16
+    assert torch.equal(out, torch.bmm(mid, pb[0][rows].bfloat16()))
+
+
+def test_cpu_wrappers_count_nothing_and_check_shapes():
+    """CPU tensors take the plain versions (no launch counted); shapes are
+    checked before either path, and another device raises."""
+    h, w, offs, extra, on, kw = _case(3)
+    reset_launch_counts()
+    fused_rope_qkv(_t(h), _t(w), _t(offs), **kw)
+    fused_rope_qkv_reference(_t(h), _t(w), _t(offs), **kw)
+    pa, pb = torch.zeros(1, 2, 32, 4), torch.zeros(1, 2, 4, 6)
+    ids = torch.zeros(3, dtype=torch.int32)
+    lora_delta(_t(h), pa, pb, ids, layer=0)
+    lora_delta_reference(_t(h), pa, pb, ids, layer=0)
+    counts = launch_counts()
+    assert counts["fused_rope_qkv"] == counts["lora_delta"] == 0
+    with pytest.raises(ValueError, match="does not match"):
+        fused_rope_qkv(_t(h), _t(w)[:, :-1], _t(offs), **kw)
+    with pytest.raises(ValueError):
+        fused_rope_qkv(_t(h), _t(w), _t(offs), _t(extra)[:, :2], **kw)
+    with pytest.raises(ValueError, match="out of range"):
+        lora_delta(_t(h), pa, pb, ids, layer=1)
+    with pytest.raises(ValueError):
+        lora_delta(_t(h), pa, pb, ids[:2], layer=0)
+    with pytest.raises(ValueError):
+        fused_rope_qkv(*(t.to("meta") for t in (_t(h), _t(w), _t(offs))),
+                       **kw)
+    with pytest.raises(ValueError):
+        lora_delta(_t(h).to("meta"), pa.to("meta"), pb.to("meta"),
+                   ids.to("meta"), layer=0)

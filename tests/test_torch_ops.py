@@ -35,7 +35,7 @@ from tpudist.ops.paged_prefill import (paged_prefill_attention as
                                        jax_prefill_reference)
 from torch_cases import decode_case as _decode_case
 from torch_cases import prefill_case as _prefill_case
-from torch_cases import sample_case
+from torch_cases import sample_case, settled_torch_cpu
 from tpudist_torch.ops import (_build, fused_sample_prep, launch_counts,
                                paged_attention, paged_attention_reference,
                                paged_prefill_attention, reset_launch_counts)
@@ -45,13 +45,11 @@ TOL = {"f32": dict(atol=5e-6, rtol=1e-5), "int8": dict(atol=5e-5, rtol=1e-5)}
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_torch_threads():
-    """Tiny CPU tensors gain nothing from torch's all-core thread pool, and
-    the suite runs several workers at once: keep this module to 2 threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+def _settled_torch_cpu():
+    """Two intra-op threads, torch's CPU kernels warmed up first
+    (``torch_cases.settled_torch_cpu``)."""
+    with settled_torch_cpu(torch):
+        yield
 
 
 def _np(x):
@@ -190,7 +188,8 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     assert launch_counts() == {"paged_attention": 0, "paged_prefill": 0,
                                "fused_sample": 0, "flash_forward": 0,
                                "flash_backward_dq": 0,
-                               "flash_backward_dkv": 0}
+                               "flash_backward_dkv": 0, "fused_rope_qkv": 0,
+                               "lora_delta": 0}
 
 
 def test_build_plumbing():
@@ -207,7 +206,7 @@ def test_build_plumbing():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert len({_build.source_hash(n) for n in _build.KERNELS}) == \
-        len(_build.KERNELS) == 5
+        len(_build.KERNELS) == 7
     assert [_build.dtype_code(d) for d in (torch.float32, torch.bfloat16,
                                            torch.int8)] == [0, 1, 2]
     with pytest.raises(TypeError):

@@ -30,6 +30,7 @@ from tpudist.models.paged import _Paged as JaxPaged
 from tpudist.serve import SlotEngine as JaxSlotEngine
 from tpudist.serve.paged_alloc import BlockAllocator as JaxAllocator
 from tpudist.serve.paged_alloc import hash_chain as jax_hash_chain
+from torch_cases import settled_torch_cpu
 from tpudist_torch.models import (PagedKVConfig, TransformerLM,
                                   create_transformer, params_from_flax)
 from tpudist_torch.models.generate import philox_uniform
@@ -46,13 +47,11 @@ ENGINE_KW = dict(num_slots=2, prefill_pad=8, kv_block=4, decode_block=2)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_torch_threads():
-    """Tiny CPU tensors gain nothing from torch's all-core thread pool, and
-    the suite runs several workers at once: keep this module to 2 threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+def _settled_torch_cpu():
+    """Two intra-op threads, torch's CPU kernels warmed up first
+    (``torch_cases.settled_torch_cpu``)."""
+    with settled_torch_cpu(torch):
+        yield
 
 
 def _models(**extra):
@@ -388,14 +387,18 @@ def _drive_items(eng, items):
 
 
 def test_engine_knob_validation(rope_models):
-    """Every engine path outside this slice raises NotImplementedError
-    naming its ROADMAP item."""
+    """Every engine path outside the ported slices raises
+    NotImplementedError naming its ROADMAP item; the fused RoPE+QKV arm
+    (the adapter-serving slice) builds."""
     _, model = rope_models
     for kw in (dict(paged=False), dict(attn_kernel="gather"),
                dict(prefill_kernel=False), dict(sample_kernel=False),
-               dict(fused_rope=True)):
+               dict(mesh="1x2"), dict(spec_draft=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SlotEngine(model, num_slots=2, kv_block=4, device="cpu", **kw)
+    eng = SlotEngine(model, num_slots=2, kv_block=4, device="cpu",
+                     fused_rope=True)
+    assert eng.kv_stats()["fused_rope"] is True
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +456,7 @@ def test_server_end_to_end_on_cpu(rope_models, jax_streams):
         assert st["launch_counts"] == {
             "paged_attention": 0, "paged_prefill": 0, "fused_sample": 0,
             "flash_forward": 0, "flash_backward_dq": 0,
-            "flash_backward_dkv": 0}
+            "flash_backward_dkv": 0, "fused_rope_qkv": 0, "lora_delta": 0}
     finally:
         assert server.close(30)
 

@@ -37,6 +37,7 @@ from tpudist.ops.flash_attention import flash_attention as jax_flash
 from tpudist.train.lm import init_lm_state, make_lm_train_step as jax_step
 from tpudist.train.optim import build_schedule as jax_schedule
 from tpudist.utils import flops as jax_flops
+from torch_cases import settled_torch_cpu
 from tpudist_torch.data import make_lm_loader
 from tpudist_torch.models import (TransformerLM, create_transformer,
                                   lm_loss, lm_loss_with_targets,
@@ -52,11 +53,11 @@ SEQ, BATCH, STEPS, LR = 128, 4, 3, 1e-3
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _few_torch_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
+def _settled_torch_cpu():
+    """Two intra-op threads, torch's CPU kernels warmed up first
+    (``torch_cases.settled_torch_cpu``)."""
+    with settled_torch_cpu(torch):
+        yield
 
 
 def _interpreted_flash(q, k, v):

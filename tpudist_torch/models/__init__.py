@@ -1,7 +1,9 @@
 """The port's model family: :class:`TransformerLM` and its LM losses, its
-paged KV storage and the slot-decode programs of the serving engine."""
+paged KV storage, the adapter pool and the slot-decode programs of the
+serving engine."""
 
-from tpudist_torch.models.convert import params_from_flax
+from tpudist_torch.models.convert import (adapter_factors_from_jax,
+                                          params_from_flax)
 from tpudist_torch.models.generate import (SlotDecode, SlotState,
                                            make_slot_decode)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig
@@ -12,7 +14,7 @@ from tpudist_torch.models.transformer import (TransformerLM,
 
 __all__ = [
     "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "TransformerLM",
-    "create_transformer", "lm_loss", "lm_loss_with_targets",
-    "make_slot_decode", "params_from_flax",
+    "adapter_factors_from_jax", "create_transformer", "lm_loss",
+    "lm_loss_with_targets", "make_slot_decode", "params_from_flax",
     "resolve_device", "rope_rotate",
 ]

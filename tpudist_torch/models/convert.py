@@ -1,4 +1,4 @@
-"""Weights from the JAX package's flax parameter tree.
+"""Weights and adapter factors from the JAX package.
 
 :func:`params_from_flax` maps a ``tpudist.models.TransformerLM`` param tree
 (nested dicts of numpy arrays, with or without the top ``"params"`` level)
@@ -16,6 +16,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from tpudist_torch.models.lora import FACTOR_KEYS
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -41,3 +43,18 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             out[pre + name] = t(blk[name]["kernel"], transpose=True)
         i += 1
     return out
+
+
+def adapter_factors_from_jax(factors: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's adapter factors (f32 tensors) from a JAX factor dict
+    (``tpudist.models.lora.make_adapter_factors``: numpy or JAX arrays
+    ``a_* [L, d_in, r]``, ``b_* [L, r, d_out]``).  The layouts agree — the
+    qkv output columns are q | k | v in both packages, the order of the
+    port's ``[out, in]`` qkv weight rows — so the arrays carry over as they
+    are."""
+    missing = [k for k in FACTOR_KEYS if k not in factors]
+    if missing:
+        raise ValueError(f"adapter factors missing {missing}")
+    return {k: torch.from_numpy(np.array(np.asarray(factors[k]),
+                                         dtype=np.float32))
+            for k in FACTOR_KEYS}

@@ -8,7 +8,10 @@ advancing or writing.  The attention arms are the paged decode kernel (a
 K-step decode block with in-loop token feedback, its tokens held in window
 buffers and committed once per block) and the paged prefill kernel (one
 batched call per admission batch; a chunk extend runs the same program
-with a one-hot batch).  Sampling goes through the fused sampling kernel:
+with a one-hot batch).  With ``fused_rope`` the QKV projection and the
+rotation run as one kernel; with ``adapters`` every forward reads each
+lane's LoRA factors from the adapter pool through its ``SlotState.
+adapter_id``.  Sampling goes through the fused sampling kernel:
 greedy arg-max where ``temp <= 0``, else a categorical draw from a
 per-request stream keyed by ``(seed, count)`` — independent of the slot,
 the neighbours and the block size.
@@ -20,6 +23,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from tpudist_torch.models.lora import (AdapterPool, AdapterPoolConfig,
+                                      pool_collection)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig, _Paged
 from tpudist_torch.models.transformer import PagedDecode, PagedPrefill
 from tpudist_torch.ops import fused_sample_prep
@@ -86,7 +91,9 @@ class SlotState(NamedTuple):
     """Per-slot decode state on the device, each ``[num_slots]``:
     ``last_tok`` (the token the next step consumes), ``active`` (decoding),
     ``pos`` (filled positions), ``counts`` (tokens emitted — the sampling
-    stream index), ``temps`` f32 and ``seeds`` int64."""
+    stream index), ``temps`` f32, ``seeds`` int64 and ``adapter_id`` int32
+    — the lane's block in the adapter pool, the pool's ``num_blocks``
+    sentinel for a base-only lane (zeros on an engine without adapters)."""
 
     last_tok: torch.Tensor
     active: torch.Tensor
@@ -94,6 +101,7 @@ class SlotState(NamedTuple):
     counts: torch.Tensor
     temps: torch.Tensor
     seeds: torch.Tensor
+    adapter_id: torch.Tensor
 
 
 class SlotDecode(NamedTuple):
@@ -114,29 +122,44 @@ class SlotDecode(NamedTuple):
 def make_slot_decode(model, num_slots: int, prefill_pad: int,
                      paged: PagedKVConfig, *, attn_kernel: str = "paged",
                      prefill_kernel: bool = True,
-                     sample_kernel: bool = True) -> SlotDecode:
+                     sample_kernel: bool = True, fused_rope: bool = False,
+                     lora_kernel: bool = False,
+                     adapters: Optional[AdapterPoolConfig] = None
+                     ) -> SlotDecode:
     """Build the slot programs over ``model`` (a
     :class:`~tpudist_torch.models.TransformerLM` on its serving device):
 
     - ``init_state()`` / ``init_slots()`` — zero state / empty pool;
     - ``insert_batch(state, pkv, tables [S, M], poss [S], prompts [S, pad],
-      clens [S], dsts [S], seeds [S], temps [S], last [S], sampled=None)``
-      → ``(state, pkv, firsts [S])``: prefill lane ``j``'s chunk at
-      ``poss[j]`` through its table row, install it in slot ``dsts[j]``
-      (``num_slots`` = unused lane), and where ``last[j]`` sample the
-      first token and arm the slot;
+      clens [S], dsts [S], seeds [S], temps [S], last [S], sampled=None,
+      aids=None, apool=None)`` → ``(state, pkv, firsts [S])``: prefill lane
+      ``j``'s chunk at ``poss[j]`` through its table row (with adapter
+      block ``aids[j]``), install it in slot ``dsts[j]`` (``num_slots`` =
+      unused lane), and where ``last[j]`` sample the first token and arm
+      the slot;
     - ``prefill_extend(state, pkv, slot, chunk [pad], clen, is_last,
-      sampled=None)`` → ``(state, pkv, first)``: append one prompt chunk at
-      the slot's cursor (the batched prefill with a one-hot batch);
-    - ``decode_block(state, pkv, k, sampled=None)`` → ``(state, pkv, toks
-      [k, S])``: ``k`` decode steps with in-loop token feedback;
+      sampled=None, apool=None)`` → ``(state, pkv, first)``: append one
+      prompt chunk at the slot's cursor (the batched prefill with a one-hot
+      batch);
+    - ``decode_block(state, pkv, k, sampled=None, apool=None)`` →
+      ``(state, pkv, toks [k, S])``: ``k`` decode steps with in-loop token
+      feedback;
     - ``evict(state, pkv, slot, free_ids [M])`` — free a lane, zero the
-      blocks whose refcount hit zero;
-    - ``prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask)`` →
-      ``(pkv, logits [S, pad, V] f32)`` — the model-level prefill.
+      blocks whose refcount hit zero, reset its adapter to the sentinel;
+    - ``prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask,
+      ads=None)`` → ``(pkv, logits [S, pad, V] f32)`` — the model-level
+      prefill.
 
-    Only the kernel configuration is ported; other engine paths raise
-    ``NotImplementedError``.  Pools update in place (see
+    ``fused_rope`` runs both arms' QKV projection and rotation through the
+    fused RoPE+QKV kernel.  ``adapters`` (an :class:`~tpudist_torch.
+    models.lora.AdapterPoolConfig`) turns on the per-tenant adapter seam:
+    every forward program takes the pool (``apool``, an :class:`~
+    tpudist_torch.models.lora.AdapterPool`) and reads each lane's factors
+    from its ``SlotState.adapter_id`` through the LoRA gather-matmul
+    kernel.  ``lora_kernel`` is validated as the JAX package validates it;
+    the port always takes the pool form, so either value runs the same
+    kernel path.  Only the kernel configuration is ported; other engine
+    paths raise ``NotImplementedError``.  Pools update in place (see
     :mod:`tpudist_torch.models.paged`)."""
     if attn_kernel != "paged":
         raise NotImplementedError(
@@ -150,6 +173,10 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         raise NotImplementedError(
             "sample_kernel=False: the unfused sampling tail waits for "
             "ROADMAP.md queue A item 5")
+    if lora_kernel and adapters is None:
+        raise ValueError(
+            "lora_kernel=True is the in-kernel adapter gather-matmul — "
+            "it requires the adapter seam (pass adapters=...)")
     if num_slots < 1:
         raise ValueError(f"num_slots must be >= 1, got {num_slots}")
     if not 1 <= prefill_pad <= model.max_len:
@@ -159,6 +186,16 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
     pg = _Paged(model, num_slots, paged, device)
     S = num_slots
     lanes = torch.arange(S, device=device)
+    #: the sentinel adapter id = base-only (also what evict resets to)
+    aid_empty = int(adapters.num_blocks) if adapters is not None else 0
+
+    def _ads(apool: Optional[AdapterPool], ids):
+        if adapters is None:
+            return None
+        if apool is None:
+            raise ValueError("an adapter engine's programs take the adapter "
+                             "pool (apool=...)")
+        return pool_collection(apool, ids)
 
     def init_state() -> SlotState:
         z = torch.zeros(S, dtype=torch.int32, device=device)
@@ -168,7 +205,10 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                          pos=z.clone(), counts=z.clone(),
                          temps=torch.zeros(S, device=device),
                          seeds=torch.zeros(S, dtype=torch.int64,
-                                           device=device))
+                                           device=device),
+                         adapter_id=torch.full((S,), aid_empty,
+                                               dtype=torch.int32,
+                                               device=device))
 
     def _pool(pkv: PagedKV, table, pos0) -> dict:
         return dict(pool_k=pkv.pool_k, pool_v=pkv.pool_v,
@@ -177,12 +217,13 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                     pos0=pos0.to(torch.int32).contiguous())
 
     @torch.no_grad()
-    def prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask):
+    def prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask, ads=None):
         wtables = pg.write_tables(rows, poss, clens, prefill_pad, lane_mask)
         pool = _pool(pkv, rows, poss)
         pool.update(clen=clens.to(torch.int32).contiguous(),
                     wtable=wtables.contiguous())
-        ctx = PagedPrefill(pool, model.rope, model.sliding_window)
+        ctx = PagedPrefill(pool, model.rope, model.sliding_window,
+                           fused_rope=fused_rope, adapters=ads)
         logits = model(prompts, ctx).float()
         n = wtables.numel()
 
@@ -200,9 +241,13 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
 
     @torch.no_grad()
     def insert_batch(state, pkv, tables, poss, prompts, clens, dsts, seeds,
-                     temps, last, sampled=None):
+                     temps, last, sampled=None, aids=None, apool=None):
         keep = dsts < S
-        pkv, logits = prefill_chunk(pkv, tables, poss, clens, prompts, keep)
+        if aids is None:
+            aids = torch.full((S,), aid_empty, dtype=torch.int32,
+                              device=device)
+        pkv, logits = prefill_chunk(pkv, tables, poss, clens, prompts, keep,
+                                    _ads(apool, aids))
         new_cur = (poss + clens).to(torch.int32)
         zero = torch.zeros(S, dtype=torch.int32, device=device)
         firsts = sample_tail(_last(logits, clens), seeds, temps, zero,
@@ -216,11 +261,12 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         state.counts[d] = last.to(torch.int32)[keep]
         state.temps[d] = temps[keep].float()
         state.seeds[d] = seeds[keep].long()
+        state.adapter_id[d] = aids[keep].to(torch.int32)
         return state, pkv, firsts
 
     @torch.no_grad()
     def prefill_extend(state, pkv, slot: int, chunk, clen: int,
-                       is_last: bool, sampled=None):
+                       is_last: bool, sampled=None, apool=None):
         onehot = lanes == slot
         poss = pkv.cursor.clone()
         prompts = torch.zeros((S, prefill_pad), dtype=torch.int32,
@@ -228,7 +274,7 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         prompts[slot] = chunk.to(torch.int32)
         clens = torch.where(onehot, int(clen), 0).to(torch.int32)
         pkv, logits = prefill_chunk(pkv, pkv.table, poss, clens, prompts,
-                                    onehot)
+                                    onehot, _ads(apool, state.adapter_id))
         pkv.cursor[slot] += int(clen)
         row = logits[slot, max(0, min(int(clen), prefill_pad) - 1)][None]
         first = sample_tail(row, state.seeds[slot:slot + 1],
@@ -242,7 +288,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         return state, pkv, first
 
     @torch.no_grad()
-    def decode_block(state, pkv, k: int, sampled=None):
+    def decode_block(state, pkv, k: int, sampled=None, apool=None):
+        ads = _ads(apool, state.adapter_id)
         pos0 = pkv.cursor.clone()
         active = state.active.clone()
         inc = active.to(torch.int32)
@@ -255,7 +302,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         toks_all = []
         for _ in range(k):
             ctx = PagedDecode(pool, wk, wv, cursor, active, model.rope,
-                              model.sliding_window)
+                              model.sliding_window, fused_rope=fused_rope,
+                              adapters=ads)
             logits = model(last_tok[:, None], ctx)[:, -1].float()
             toks = sample_tail(logits, state.seeds, state.temps, counts,
                                sampled)
@@ -276,6 +324,7 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         pg.release(pkv, slot, free_ids)
         for leaf in state:
             leaf[slot] = 0
+        state.adapter_id[slot] = aid_empty
         return state, pkv
 
     return SlotDecode(num_slots=S, prefill_pad=prefill_pad,

@@ -20,6 +20,19 @@ chosen by the attention context the caller passes:
   prefill kernel, which also returns the touched KV blocks (kept on the
   context for the caller to commit).
 
+The two serving arms carry two more seams:
+
+- ``fused_rope`` — the QKV projection, the head split and the rotation run
+  as one kernel (:func:`tpudist_torch.ops.fused_rope_qkv`) at the arm's
+  per-slot offsets (the decode cursors, the prefill chunk starts), and the
+  arm skips its own rotation.  The training arm keeps the unfused
+  projection and raises for it, as the JAX package does;
+- ``adapters`` — per-tenant LoRA (:func:`tpudist_torch.models.lora.
+  pool_collection`): the qkv, wi and wo outputs become ``where(on, y +
+  (x·A)·B, y)`` with the delta from the LoRA gather-matmul kernel
+  (:func:`tpudist_torch.ops.lora_delta`); an off lane is the base tensor
+  bit for bit.
+
 Weights live in ``param_dtype`` (default: the compute dtype ``dtype``) and
 are cast to ``dtype`` where they are used, as flax's ``nn.Dense(dtype=...)``
 and ``nn.Embed(dtype=...)`` cast their f32 masters at apply; LayerNorm scales
@@ -37,8 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudist_torch.ops import (FlashAttention, paged_attention,
-                               paged_prefill_attention)
+from tpudist_torch.ops import (FlashAttention, fused_rope_qkv, lora_delta,
+                               paged_attention, paged_prefill_attention)
 
 _MASK_VALUE = -1e30
 
@@ -96,7 +109,12 @@ def attention_reference(q, k, v, *, window: Optional[int] = None):
 class _Causal:
     """Training-mode attention arm at positions ``0..T-1``: the flash
     kernels on CUDA (grouped K/V consumed natively), the dense causal
-    softmax with K/V broadcast to every q head on the CPU."""
+    softmax with K/V broadcast to every q head on the CPU.  No adapters;
+    the fused RoPE+QKV projection is a serving-arm seam (``fused_rope``
+    set here raises in :meth:`rope_offsets`)."""
+
+    fused_rope = False
+    adapters = None
 
     def __init__(self, rope: bool, window: Optional[int]):
         self.rope = rope
@@ -105,8 +123,14 @@ class _Causal:
     def positions(self, batch: int, seq: int, device) -> torch.Tensor:
         return torch.arange(seq, device=device)[None].expand(batch, seq)
 
-    def attend(self, layer: int, q, k, v):
-        if self.rope:
+    def rope_offsets(self) -> torch.Tensor:
+        raise ValueError(
+            "fused_rope fuses the QKV projection with the per-slot rope "
+            "offsets of the paged decode/prefill arms — training keeps the "
+            "unfused projection")
+
+    def attend(self, layer: int, q, k, v, rotated: bool = False):
+        if self.rope and not rotated:
             q, k = rope_rotate(q), rope_rotate(k)
         if q.device.type == "cuda":
             out, _ = FlashAttention.apply(q.contiguous(), k.contiguous(),
@@ -128,12 +152,14 @@ class PagedDecode:
     ``window_k``/``window_v`` are per-layer ``[S, n_kv, W, dh]`` buffers of
     this dispatch's uncommitted tokens; ``cursor [S]`` is each lane's
     absolute position.  Lanes with ``active`` False keep their buffers and
-    cursor (their outputs are discarded by the caller)."""
+    cursor (their outputs are discarded by the caller).  ``fused_rope`` and
+    ``adapters`` are the module doc's seams."""
 
     def __init__(self, pool: Dict[str, torch.Tensor],
                  window_k: List[torch.Tensor], window_v: List[torch.Tensor],
                  cursor: torch.Tensor, active: torch.Tensor, rope: bool,
-                 window: Optional[int]):
+                 window: Optional[int], fused_rope: bool = False,
+                 adapters: Optional[dict] = None):
         self.pool = pool
         self.window_k = window_k
         self.window_v = window_v
@@ -141,15 +167,21 @@ class PagedDecode:
         self.active = active
         self.rope = rope
         self.window = window
+        self.fused_rope = fused_rope
+        self.adapters = adapters
 
     def positions(self, batch: int, seq: int, device) -> torch.Tensor:
         return self.cursor.long()[:, None] + torch.arange(seq, device=device)
 
-    def attend(self, layer: int, q, k, v):
+    def rope_offsets(self) -> torch.Tensor:
+        """Each lane's absolute position of this call's first token."""
+        return self.cursor
+
+    def attend(self, layer: int, q, k, v, rotated: bool = False):
         pool = self.pool
         pos = self.cursor
         fill = (pos - pool["pos0"]).to(torch.int32)
-        if self.rope:
+        if self.rope and not rotated:
             q = rope_rotate(q, offset=pos)
             k = rope_rotate(k, offset=pos)
         wk, wv = self.window_k[layer], self.window_v[layer]
@@ -176,22 +208,30 @@ class PagedPrefill:
     over its pool prefix plus itself.  ``pool`` is as for
     :class:`PagedDecode` plus ``clen [S]`` and ``wtable [S, Mw]``; the
     touched blocks each layer emits collect in ``writes`` (per layer
-    ``(qk, qv, sk, sv)``) for the caller to commit after the forward."""
+    ``(qk, qv, sk, sv)``) for the caller to commit after the forward.
+    ``fused_rope`` and ``adapters`` are the module doc's seams."""
 
     def __init__(self, pool: Dict[str, torch.Tensor], rope: bool,
-                 window: Optional[int]):
+                 window: Optional[int], fused_rope: bool = False,
+                 adapters: Optional[dict] = None):
         self.pool = pool
         self.rope = rope
         self.window = window
+        self.fused_rope = fused_rope
+        self.adapters = adapters
         self.writes: List[tuple] = []
 
     def positions(self, batch: int, seq: int, device) -> torch.Tensor:
         return self.pool["pos0"].long()[:, None] + torch.arange(
             seq, device=device)
 
-    def attend(self, layer: int, q, k, v):
+    def rope_offsets(self) -> torch.Tensor:
+        """Each lane's chunk start: its first row's absolute position."""
+        return self.pool["pos0"]
+
+    def attend(self, layer: int, q, k, v, rotated: bool = False):
         pool = self.pool
-        if self.rope:
+        if self.rope and not rotated:
             q = rope_rotate(q, offset=pool["pos0"])
             k = rope_rotate(k, offset=pool["pos0"])
         o, qk, qv, sk, sv = paged_prefill_attention(
@@ -229,26 +269,56 @@ class Block(nn.Module):
         self.wi = nn.Parameter(torch.empty(d_ff, d_model, dtype=pd))
         self.wo = nn.Parameter(torch.empty(d_model, d_ff, dtype=pd))
 
+    def _delta(self, ads: dict, h_in: torch.Tensor, proj: str):
+        """The raw adapter delta ``(h·A)·B`` of one projection through the
+        LoRA gather-matmul kernel (each lane's own factor block)."""
+        return lora_delta(h_in.to(self.dtype).contiguous(), ads[f"a_{proj}"],
+                          ads[f"b_{proj}"], ads["ids"], layer=self.layer_idx)
+
+    def _ad(self, ads: Optional[dict], y: torch.Tensor, h_in: torch.Tensor,
+            proj: str) -> torch.Tensor:
+        """``where(on, y + (h·A)·B, y)`` — a select, so an off lane's
+        output is the base tensor bit for bit."""
+        if ads is None:
+            return y
+        delta = self._delta(ads, h_in, proj)
+        return torch.where(ads["on"][:, None, None], y + delta, y)
+
     def forward(self, x: torch.Tensor, ctx) -> torch.Tensor:
         dtype = self.dtype
         b, s, _ = x.shape
+        ads = getattr(ctx, "adapters", None)
         h = layer_norm(x, self.ln1)
-        qkv = F.linear(h.to(dtype), self.qkv.to(dtype))
         kv_dim = self.n_kv * self.dh
-        q = qkv[..., :self.d_model]
-        k = qkv[..., self.d_model:self.d_model + kv_dim]
-        v = qkv[..., self.d_model + kv_dim:]
+        if getattr(ctx, "fused_rope", False):
+            offsets = ctx.rope_offsets().to(torch.int32)
+            extra = on = None
+            if ads is not None:
+                extra, on = self._delta(ads, h, "qkv"), ads["on"]
+            # the [dtot, d] weight's transposed view: read in place
+            q, k, v = fused_rope_qkv(
+                h.to(dtype), self.qkv.to(dtype).t(), offsets, extra, on,
+                n_heads=self.n_heads, n_kv=self.n_kv, dh=self.dh,
+                rope=ctx.rope)
+            attn = ctx.attend(self.layer_idx, q, k, v, rotated=True)
+        else:
+            qkv = self._ad(ads, F.linear(h.to(dtype), self.qkv.to(dtype)),
+                           h, "qkv")
+            q = qkv[..., :self.d_model]
+            k = qkv[..., self.d_model:self.d_model + kv_dim]
+            v = qkv[..., self.d_model + kv_dim:]
 
-        def heads(t, n):  # [b, s, n·dh] -> [b, n, s, dh]
-            return t.reshape(b, s, n, self.dh).transpose(1, 2)
+            def heads(t, n):  # [b, s, n·dh] -> [b, n, s, dh]
+                return t.reshape(b, s, n, self.dh).transpose(1, 2)
 
-        attn = ctx.attend(self.layer_idx, heads(q, self.n_heads),
-                          heads(k, self.n_kv), heads(v, self.n_kv))
+            attn = ctx.attend(self.layer_idx, heads(q, self.n_heads),
+                              heads(k, self.n_kv), heads(v, self.n_kv))
         attn = attn.transpose(1, 2).reshape(b, s, self.d_model)
         x = x + F.linear(attn.to(dtype), self.proj.to(dtype))
-        h = layer_norm(x, self.ln2).to(dtype)
-        h = F.gelu(F.linear(h, self.wi.to(dtype)), approximate="tanh")
-        return x + F.linear(h, self.wo.to(dtype))
+        h = layer_norm(x, self.ln2)
+        y = self._ad(ads, F.linear(h.to(dtype), self.wi.to(dtype)), h, "wi")
+        y = F.gelu(y, approximate="tanh")
+        return x + self._ad(ads, F.linear(y, self.wo.to(dtype)), y, "wo")
 
 
 class TransformerLM(nn.Module):

@@ -13,6 +13,9 @@ from tpudist_torch.ops.flash_attention import (FlashAttention,
                                                flash_backward_reference,
                                                flash_forward,
                                                flash_forward_reference)
+from tpudist_torch.ops.fused_linear import (fused_rope_qkv,
+                                            fused_rope_qkv_reference,
+                                            lora_delta, lora_delta_reference)
 from tpudist_torch.ops.fused_sample import (fused_sample_prep,
                                             fused_sample_reference)
 from tpudist_torch.ops.paged_attention import (paged_attention,
@@ -20,8 +23,8 @@ from tpudist_torch.ops.paged_attention import (paged_attention,
 from tpudist_torch.ops.paged_prefill import (paged_prefill_attention,
                                              paged_prefill_reference)
 
-#: every kernel wrapper of the port (serving and training slices), by
-#: kernel name
+#: every kernel wrapper of the port (serving, training and adapter-serving
+#: slices), by kernel name
 KERNEL_WRAPPERS = {
     "paged_attention": paged_attention,
     "paged_prefill": paged_prefill_attention,
@@ -29,6 +32,8 @@ KERNEL_WRAPPERS = {
     "flash_forward": flash_forward,
     "flash_backward_dq": flash_backward_dq,
     "flash_backward_dkv": flash_backward_dkv,
+    "fused_rope_qkv": fused_rope_qkv,
+    "lora_delta": lora_delta,
 }
 
 
@@ -47,7 +52,8 @@ __all__ = [
     "FlashAttention", "KERNEL_WRAPPERS", "flash_attention",
     "flash_attention_with_lse", "flash_backward_dkv", "flash_backward_dq",
     "flash_backward_reference", "flash_forward", "flash_forward_reference",
-    "fused_sample_prep", "fused_sample_reference",
+    "fused_rope_qkv", "fused_rope_qkv_reference", "fused_sample_prep",
+    "fused_sample_reference", "lora_delta", "lora_delta_reference",
     "launch_counts", "paged_attention", "paged_attention_reference",
     "paged_prefill_attention", "paged_prefill_reference",
     "reset_launch_counts",

@@ -1,7 +1,11 @@
 """Slot-based continuous-batching decode engine — the PyTorch port of
-``tpudist/serve/engine.py`` for the serving slice's configuration: a paged
-KV pool (native or int8) with the paged decode kernel, the paged prefill
-kernel and the fused sampling kernel, with or without a prefix cache.
+``tpudist/serve/engine.py`` for the kernel configuration: a paged KV pool
+(native or int8) with the paged decode kernel, the paged prefill kernel and
+the fused sampling kernel, with or without a prefix cache, optionally the
+fused RoPE+QKV kernel (``fused_rope``) and per-tenant LoRA adapters
+(``adapters``: a factor pool beside the KV pool, named adapters bound to
+lanes by the host registry of :mod:`tpudist_torch.serve.adapters`, each
+lane's delta from the LoRA gather-matmul kernel).
 
 The engine is the device half: ``num_slots`` KV lanes over the slot
 programs of :func:`tpudist_torch.models.make_slot_decode`, plus host shadow
@@ -21,13 +25,21 @@ import numpy as np
 import torch
 
 from tpudist_torch import ops
+from tpudist_torch.models import lora as _lora
 from tpudist_torch.models.generate import make_slot_decode
 from tpudist_torch.models.paged import PagedKVConfig
 from tpudist_torch.models.transformer import resolve_device
+from tpudist_torch.serve.adapters import (AdapterMissingError,
+                                          AdapterRegistry)
 from tpudist_torch.serve.paged_alloc import BlockAllocator
 
 #: ``start_batch`` item: (slot, prompt_1d_int32, temperature, seed, max_new)
-#: plus an optional 6th element — the prompt's prefix hash chain
+#: plus an optional 6th element — the prompt's prefix hash chain — an
+#: optional 7th — the speculative-decoding opt (speculation is not ported;
+#: the flag is accepted and ignored, as a non-speculative JAX engine
+#: ignores it) — an optional 8th — the lane's adapter NAME (None =
+#: base-only) — and an optional 9th — a grammar (structured output is not
+#: ported: anything but None raises)
 InsertItem = Tuple[int, np.ndarray, float, int, int]
 
 
@@ -62,7 +74,31 @@ class SlotEngine:
                  prefill_kernel: bool = True,
                  sample_kernel: bool = True,
                  fused_rope: bool = False,
+                 lora_kernel: bool = False,
+                 adapters: bool = False, adapter_blocks: int = 8,
+                 adapter_rank: int = 8,
+                 mesh=None, spec_draft=None,
                  device="cuda"):
+        # the JAX engine's rules for the kernel family's knobs (env-free
+        # here; ServeConfig.from_env parses TPUDIST_SERVE_* once)
+        if fused_rope and attn_kernel != "paged" and not prefill_kernel:
+            raise ValueError(
+                "fused_rope=True fuses RoPE+QKV on the kernel arms only "
+                "— enable attn_kernel='paged' and/or prefill_kernel=True "
+                "(TPUDIST_SERVE_FUSED_ROPE)")
+        if lora_kernel and not adapters:
+            raise ValueError(
+                "lora_kernel=True is the in-kernel adapter gather-matmul "
+                "— it requires adapters=True (TPUDIST_SERVE_LORA_KERNEL)")
+        if lora_kernel and attn_kernel != "paged" and not prefill_kernel:
+            raise ValueError(
+                "lora_kernel=True rides the slot-batched kernel programs "
+                "only — enable attn_kernel='paged' and/or "
+                "prefill_kernel=True (TPUDIST_SERVE_LORA_KERNEL)")
+        if mesh is not None:
+            raise _unported("mesh (the SPMD serving mesh)", "8")
+        if spec_draft is not None:
+            raise _unported("spec_draft (speculative decoding)", "3")
         if not paged:
             raise _unported("paged=False (the dense slot cache)", "5")
         if attn_kernel != "paged":
@@ -71,12 +107,25 @@ class SlotEngine:
             raise _unported("prefill_kernel=False", "5")
         if not sample_kernel:
             raise _unported("sample_kernel=False", "5")
-        if fused_rope:
-            raise _unported("fused_rope=True (the fused RoPE+QKV kernel)",
-                            "2")
         self.device = resolve_device(device)
         model = model.to(self.device)
         self.model = model
+        self.fused_rope = bool(fused_rope)
+        self.lora_kernel = bool(lora_kernel)
+        # -- per-tenant adapters: the factor pool, the host registry, and
+        # the host shadow slot → bound ``(name, block_id)`` (None =
+        # base-only; the bid pins the factor generation the lane bound)
+        self.adapters: Optional[AdapterRegistry] = None
+        self.adapter_cfg: Optional[_lora.AdapterPoolConfig] = None
+        self.apool: Optional[_lora.AdapterPool] = None
+        self.slot_adapter: List[Optional[Tuple[str, int]]] = \
+            [None] * num_slots
+        if adapters:
+            self.adapter_cfg = _lora.AdapterPoolConfig(
+                num_blocks=max(1, int(adapter_blocks)),
+                rank=max(1, int(adapter_rank)))
+            self.apool = _lora.init_adapter_pool(model, self.adapter_cfg)
+            self.adapters = AdapterRegistry(self.adapter_cfg.num_blocks)
         self.max_len = int(model.max_len)
         if prefill_pad is None:
             prefill_pad = min(self.max_len, 64)
@@ -91,7 +140,10 @@ class SlotEngine:
                                        block_size=kv_block,
                                        quantized=bool(kv_int8))
         self.fns = make_slot_decode(model, num_slots, prefill_pad,
-                                    self.paged_cfg)
+                                    self.paged_cfg,
+                                    fused_rope=self.fused_rope,
+                                    lora_kernel=self.lora_kernel,
+                                    adapters=self.adapter_cfg)
         self.alloc = BlockAllocator(self.paged_cfg.num_blocks, kv_block,
                                     self.max_len,
                                     prefix_cache_blocks=prefix_cache_blocks)
@@ -110,6 +162,9 @@ class SlotEngine:
         #: one prefill chunk
         self._prefill_rest: Dict[int, Tuple[np.ndarray, int]] = {}
         self.peak_occupied = 0
+        #: model forward passes run (one per prefill call, one per decode
+        #: step): each runs every layer once
+        self.n_forwards = 0
         self.n_decode_blocks = 0
         self.n_decode_tokens = 0
         self.n_decode_steps = 0
@@ -153,6 +208,7 @@ class SlotEngine:
         return {
             "blocks": self.n_decode_blocks,
             "tokens": self.n_decode_tokens,
+            "forwards": self.n_forwards,
             "steps": self.n_decode_steps,
             "dispatch_s": self.t_decode_dispatch_s,
             "sync_s": self.t_decode_sync_s,
@@ -191,7 +247,8 @@ class SlotEngine:
         pg, al = self.fns.paged, self.alloc
         return {
             "paged": True, "attn_kernel": "paged", "prefill_kernel": True,
-            "sample_kernel": True, "fused_rope": False,
+            "sample_kernel": True, "fused_rope": self.fused_rope,
+            "lora_kernel": self.lora_kernel,
             "prefill_read_bytes": self.prefill_read_bytes_total,
             "prefill_write_bytes": self.prefill_write_bytes_total,
             "quantized": self.paged_cfg.quantized,
@@ -211,6 +268,99 @@ class SlotEngine:
             "blocks_admitted_total": al.blocks_admitted_total,
             "blocks_released_total": al.blocks_released_total,
         }
+
+    # -- per-tenant adapters ------------------------------------------------
+
+    def has_adapter(self, name: Optional[str]) -> bool:
+        """Would a NEW request naming ``name`` bind right now?  (None =
+        base-only, always true; a named adapter needs an adapter pool
+        holding it and not marked for unload.)"""
+        if name is None:
+            return True
+        return self.adapters is not None and self.adapters.has(name)
+
+    def load_adapter(self, name: str, factors) -> Dict[str, object]:
+        """Load ``factors`` (:func:`tpudist_torch.models.lora.
+        make_adapter_factors`-shaped: ``a_* [L, d_in, r]``, ``b_* [L, r,
+        d_out]``) under ``name``: reserves a pool block (LRU-evicting a
+        cold adapter if full — its block is zeroed first), writes the
+        factors and returns ``{"block", "evicted", "resident"}``.  Safe
+        beside the engine thread: only a block no lane is bound to is
+        written, and the name stays unbindable until its factors are in."""
+        if self.adapters is None:
+            raise RuntimeError("engine built without adapters=True")
+        _lora.check_factors(self.model, self.adapter_cfg, factors)
+        bid, evicted = self.adapters.load(name)
+        if evicted is not None:
+            _lora.zero_block(self.apool, evicted[1])
+        _lora.load_factors(self.apool, bid, factors)
+        self.adapters.activate(name)
+        return {"block": bid,
+                "evicted": None if evicted is None else evicted[0],
+                "resident": self.adapters.resident}
+
+    def unload_adapter(self, name: str) -> Dict[str, object]:
+        """Unload ``name``: frees (and zeroes) its block now when no lane
+        holds it, else defers — new requests reject ``adapter_missing`` at
+        once, the block frees when the last bound lane evicts.  Returns
+        ``{"freed", "resident", "known"}``."""
+        if self.adapters is None:
+            raise RuntimeError("engine built without adapters=True")
+        res = self.adapters.unload(name)
+        if res is None:
+            return {"freed": False, "resident": self.adapters.resident,
+                    "known": False}
+        freed_now, bid = res
+        if freed_now:
+            _lora.zero_block(self.apool, bid)
+        return {"freed": freed_now, "resident": self.adapters.resident,
+                "known": True}
+
+    def adapter_stats(self) -> Dict[str, object]:
+        """Adapter-pool accounting: registry counters plus pool geometry
+        and bytes (``{"enabled": False}`` without adapters)."""
+        if self.adapters is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "rank": self.adapter_cfg.rank,
+            "block_bytes": _lora.adapter_block_bytes(self.model,
+                                                     self.adapter_cfg),
+            "pool_bytes": _lora.pool_bytes(self.apool),
+            "slots_bound": sum(1 for a in self.slot_adapter
+                               if a is not None),
+            **self.adapters.stats(),
+        }
+
+    def _aid_sentinel(self) -> int:
+        return (self.adapter_cfg.num_blocks
+                if self.adapter_cfg is not None else 0)
+
+    def _acquire_adapter(self, slot: int, name: Optional[str]) -> int:
+        """Bind ``name`` to ``slot`` (refcount pin) and return its pool
+        block id — the sentinel for a base-only lane.  Raises
+        :class:`~tpudist_torch.serve.adapters.AdapterMissingError` when the
+        name is not bindable."""
+        if name is None:
+            return self._aid_sentinel()
+        if self.adapters is None:
+            raise AdapterMissingError(name)
+        bid = self.adapters.acquire(name)
+        if bid is None:
+            raise AdapterMissingError(name)
+        self.slot_adapter[slot] = (name, bid)
+        return bid
+
+    def _release_adapter(self, slot: int) -> None:
+        bound = self.slot_adapter[slot]
+        if self.adapters is None or bound is None:
+            return
+        self.slot_adapter[slot] = None
+        freed = self.adapters.release(*bound)
+        if freed is not None:
+            # a deferred unload / retired generation just completed: zero
+            # the block before the free list hands it on
+            _lora.zero_block(self.apool, freed)
 
     # -- admission ----------------------------------------------------------
 
@@ -276,9 +426,21 @@ class SlotEngine:
         # validate the whole batch before touching any state
         norm = []
         taken = set()
+        adapter_names: Dict[int, Optional[str]] = {}
         for item in items:
             slot, prompt, temperature, seed, max_new = item[:5]
             hashes = tuple(item[5]) if len(item) > 5 else ()
+            adapter = item[7] if len(item) > 7 else None
+            if adapter is not None and not self.has_adapter(adapter):
+                # a vanished adapter must not leak half-admitted
+                # neighbours: the server finishes it "adapter_missing"
+                raise AdapterMissingError(str(adapter))
+            adapter_names[int(slot)] = adapter
+            if len(item) > 8 and item[8] is not None:
+                raise ValueError(
+                    "constrained request on an engine built without "
+                    "constrain= (structured output is not ported: ROADMAP.md "
+                    "queue A item 5)")
             if self.occupied[slot] or slot in taken:
                 raise ValueError(f"slot {slot} is occupied")
             taken.add(slot)
@@ -288,6 +450,19 @@ class SlotEngine:
                 raise ValueError(reason)
             norm.append((int(slot), prompt, float(temperature), int(seed),
                          int(max_new), hashes))
+        # bind each lane's adapter first, transactionally: a mid-batch
+        # AdapterMissingError (an unload raced the validation) rolls every
+        # earlier pin back
+        aids = np.full(S, self._aid_sentinel(), np.int32)
+        bound: List[int] = []
+        try:
+            for j, (slot, *_rest) in enumerate(norm):
+                aids[j] = self._acquire_adapter(slot, adapter_names[slot])
+                bound.append(slot)
+        except AdapterMissingError:
+            for slot in bound:
+                self._release_adapter(slot)
+            raise
         M = self.max_len // self.paged_cfg.block_size
         tables = np.full((S, M), self.paged_cfg.num_blocks, np.int32)
         reused_len = np.zeros(S, np.int32)
@@ -306,6 +481,8 @@ class SlotEngine:
         except RuntimeError:
             for slot in admitted:
                 self.alloc.release(slot)
+            for slot in bound:
+                self._release_adapter(slot)
             raise
         for j, (slot, prompt, temperature, seed, _, _) in enumerate(norm):
             rest = len(prompt) - int(reused_len[j])
@@ -319,7 +496,9 @@ class SlotEngine:
         self.state, self.cache, firsts = self.fns.insert_batch(
             self.state, self.cache, self._t(tables), self._t(reused_len),
             self._t(prompts), self._t(clens), self._t(dsts), self._t(seeds),
-            self._t(temps), self._t(last), sampled=bool((temps > 0).any()))
+            self._t(temps), self._t(last), sampled=bool((temps > 0).any()),
+            aids=self._t(aids), apool=self.apool)
+        self.n_forwards += 1
         r, w = self._prefill_kv_bytes(reused_len, clens)
         self.prefill_read_bytes_total += r
         self.prefill_write_bytes_total += w
@@ -358,7 +537,8 @@ class SlotEngine:
             is_last = off + clen >= len(prompt)
             self.state, self.cache, first = self.fns.prefill_extend(
                 self.state, self.cache, slot, self._t(chunk), clen, is_last,
-                sampled=bool(self.temps[slot] > 0))
+                sampled=bool(self.temps[slot] > 0), apool=self.apool)
+            self.n_forwards += 1
             # the one-hot batched program walks every lane's prefix
             r, w = self._prefill_kv_bytes(
                 self.pos, np.where(np.arange(self.num_slots) == slot, clen,
@@ -403,11 +583,12 @@ class SlotEngine:
         t0 = time.perf_counter()
         self.state, self.cache, blocks = self.fns.decode_block(
             self.state, self.cache, k,
-            sampled=bool((self.temps[dec] > 0).any()))
+            sampled=bool((self.temps[dec] > 0).any()), apool=self.apool)
         t1 = time.perf_counter()
         arr = blocks.cpu().numpy()  # ONE host sync for K x num_slots tokens
         t2 = time.perf_counter()
         self.n_decode_blocks += 1
+        self.n_forwards += k
         self.n_decode_tokens += k * len(dec)
         self.n_decode_steps += k
         self.t_decode_dispatch_s += t1 - t0
@@ -437,13 +618,15 @@ class SlotEngine:
     def evict(self, slot: int) -> None:
         """Free a lane: release its blocks on the host, zero the ones no
         tenant or prefix-cache entry still holds, reset the device state
-        and the host shadows."""
+        and the host shadows, and unpin its adapter (a deferred unload
+        completes here)."""
         freed = self.alloc.release(slot)
         M = self.max_len // self.paged_cfg.block_size
         free_ids = np.full(M, self.paged_cfg.num_blocks, np.int32)
         free_ids[:len(freed)] = freed
         self.state, self.cache = self.fns.evict(
             self.state, self.cache, int(slot), self._t(free_ids))
+        self._release_adapter(slot)
         self.occupied[slot] = False
         self.decoding[slot] = False
         self.pos[slot] = 0

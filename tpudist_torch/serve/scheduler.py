@@ -29,6 +29,12 @@ FINISH_REASONS = {
                 "hard drain, never-started server)",
     "cache_full": "hit a full KV cache with budget unspent — only reachable "
                   "when the admission budget rule is bypassed",
+    "adapter_missing": "named a per-tenant adapter no longer resident in "
+                       "the pool when its lane had to bind — a raced "
+                       "unload between admission and placement "
+                       "(submit-time misses reject with the same reason "
+                       "instead; the engine never silently serves "
+                       "base-model output for an adapter request)",
 }
 
 
@@ -40,7 +46,8 @@ def new_trace_id() -> str:
 class AdmissionError(RuntimeError):
     """A request the scheduler refused; ``reason`` is machine-readable
     (``queue_full``, ``draining``, ``budget_exceeded: ...``,
-    ``empty_prompt``, ``max_new_must_be_positive``, ``kv_exhausted: ...``)."""
+    ``empty_prompt``, ``max_new_must_be_positive``, ``kv_exhausted: ...``,
+    ``adapter_missing`` — the named per-tenant adapter is not loaded)."""
 
     def __init__(self, reason: str):
         super().__init__(f"request rejected: {reason}")
@@ -62,6 +69,9 @@ class Request:
     #: block reuse keys on it)
     prefix_hashes: tuple = ()
     priority: int = 0  # higher first; FIFO within a class
+    #: per-tenant adapter NAME: the request decodes through this adapter's
+    #: rank-r factors from the adapter pool; None = the base model
+    adapter: Optional[str] = None
 
 
 class RequestHandle:
@@ -143,7 +153,8 @@ class Scheduler:
                  check_budget: Callable[[int, int], Optional[str]],
                  default_max_new: int = 64,
                  default_deadline_s: Optional[float] = None,
-                 prefix_hasher: Optional[Callable] = None):
+                 prefix_hasher: Optional[Callable] = None,
+                 check_adapter: Optional[Callable] = None):
         if queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         self.queue_limit = queue_limit
@@ -151,6 +162,9 @@ class Scheduler:
         self.default_max_new = default_max_new
         self.default_deadline_s = default_deadline_s
         self.prefix_hasher = prefix_hasher
+        #: adapter-name admission gate (the server passes the engine's
+        #: ``has_adapter``): ``name -> Optional[reason]``
+        self.check_adapter = check_adapter
         self._q: "collections.deque[RequestHandle]" = collections.deque()
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -162,9 +176,12 @@ class Scheduler:
                temperature: float = 0.0, deadline_s: Optional[float] = None,
                seed: Optional[int] = None, eos_id: Optional[int] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
-               priority: int = 0) -> RequestHandle:
+               priority: int = 0,
+               adapter: Optional[str] = None) -> RequestHandle:
         """Admit a request or raise :class:`AdmissionError`.  ``deadline_s``
-        None inherits the default; ``<= 0`` means no deadline."""
+        None inherits the default; ``<= 0`` means no deadline.
+        ``adapter`` names the per-tenant LoRA adapter the lane decodes
+        through (it must be loaded — else ``adapter_missing``)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if deadline_s is None:
             deadline = self.default_deadline_s
@@ -185,13 +202,17 @@ class Scheduler:
                       seed=0 if seed is None else int(seed),
                       eos_id=None if eos_id is None else int(eos_id),
                       on_token=on_token, prefix_hashes=hashes,
-                      priority=int(priority))
+                      priority=int(priority),
+                      adapter=None if adapter is None else str(adapter))
         with self._lock:
             reason = self._refuse_reason
             if reason is None and len(self._q) >= self.queue_limit:
                 reason = "queue_full"
             if reason is None:
                 reason = self.check_budget(len(prompt), req.max_new)
+            if reason is None and req.adapter is not None \
+                    and self.check_adapter is not None:
+                reason = self.check_adapter(req.adapter)
             if reason is not None:
                 self.rejected += 1
                 raise AdmissionError(reason)

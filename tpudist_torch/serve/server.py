@@ -1,7 +1,8 @@
 """Threaded serving front-end — the PyTorch port of
-``tpudist/serve/server.py`` for the serving slice: ingestion, the engine
-loop and graceful drain (telemetry, the host KV tier, preemption, load
-shedding, adapters and structured output are later slices).
+``tpudist/serve/server.py`` for the serving slices: ingestion, the engine
+loop, graceful drain and per-tenant LoRA adapters (telemetry, the host KV
+tier, preemption, load shedding, disaggregation and structured output are
+later slices).
 
 One background thread drives the engine; any number of caller threads
 submit.  Each loop iteration admits queued requests into free slots (one
@@ -17,6 +18,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from tpudist_torch.serve.adapters import AdapterMissingError
 from tpudist_torch.serve.engine import SlotEngine
 from tpudist_torch.serve.scheduler import RequestHandle, Scheduler
 
@@ -30,7 +32,9 @@ class ServeConfig:
     family.  The port's engine runs the kernel configuration only, so
     ``paged``, ``attn_kernel="paged"``, ``prefill_kernel`` and
     ``sample_kernel`` default on; another value raises
-    ``NotImplementedError`` at engine construction."""
+    ``NotImplementedError`` at engine construction.  ``fused_rope``,
+    ``lora_kernel`` and the adapter knobs keep the JAX package's defaults
+    (off; 8 blocks of rank 8)."""
 
     num_slots: int = 4
     queue_limit: int = 64
@@ -46,7 +50,14 @@ class ServeConfig:
     attn_kernel: str = "paged"
     prefill_kernel: bool = True
     sample_kernel: bool = True
-    fused_rope: bool = False
+    fused_rope: bool = False  # fused RoPE+QKV kernel on the kernel arms
+    lora_kernel: bool = False  # LoRA gather-matmul (requires adapters)
+    # -- per-tenant adapters: per-request ``adapter=`` names decode through
+    # base(x) + (x·A)·B with the adapter's factors from a paged pool
+    adapters: bool = False
+    adapter_blocks: int = 8  # resident-adapter capacity (one block each)
+    adapter_rank: int = 8  # LoRA rank r shared by the pool
+    disagg: bool = False  # prefill/decode disaggregation (not ported)
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -73,6 +84,11 @@ class ServeConfig:
             prefill_kernel=env_flag("TPUDIST_SERVE_PREFILL_KERNEL", True),
             sample_kernel=env_flag("TPUDIST_SERVE_SAMPLE_KERNEL", True),
             fused_rope=env_flag("TPUDIST_SERVE_FUSED_ROPE", False),
+            lora_kernel=env_flag("TPUDIST_SERVE_LORA_KERNEL", False),
+            adapters=env_flag("TPUDIST_SERVE_ADAPTERS", False),
+            adapter_blocks=env_int("TPUDIST_SERVE_ADAPTER_BLOCKS", 8) or 8,
+            adapter_rank=env_int("TPUDIST_SERVE_ADAPTER_RANK", 8) or 8,
+            disagg=env_flag("TPUDIST_SERVE_DISAGG", False),
         )
 
 
@@ -93,6 +109,10 @@ class InferenceServer:
                  device="cuda"):
         self.config = config or ServeConfig.from_env()
         cfg = self.config
+        if cfg.disagg:
+            raise NotImplementedError(
+                "disagg (prefill/decode disaggregation) is not ported to "
+                "tpudist_torch yet (ROADMAP.md queue A item 8)")
         self.engine = SlotEngine(
             model, num_slots=cfg.num_slots, prefill_pad=cfg.prefill_pad,
             decode_block=cfg.decode_block, paged=cfg.paged,
@@ -100,7 +120,9 @@ class InferenceServer:
             kv_int8=cfg.kv_int8, prefix_cache_blocks=cfg.prefix_cache_blocks,
             attn_kernel=cfg.attn_kernel, prefill_kernel=cfg.prefill_kernel,
             sample_kernel=cfg.sample_kernel, fused_rope=cfg.fused_rope,
-            device=device)
+            lora_kernel=cfg.lora_kernel, adapters=cfg.adapters,
+            adapter_blocks=cfg.adapter_blocks,
+            adapter_rank=cfg.adapter_rank, device=device)
         hasher = None
         if cfg.prefix_cache_blocks > 0:
             from tpudist_torch.serve.paged_alloc import hash_chain
@@ -112,7 +134,10 @@ class InferenceServer:
             check_budget=self.engine.check_budget,
             default_max_new=cfg.max_new,
             default_deadline_s=cfg.deadline_s,
-            prefix_hasher=hasher)
+            prefix_hasher=hasher,
+            check_adapter=lambda name: (
+                None if self.engine.has_adapter(name)
+                else "adapter_missing"))
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._draining = False
@@ -138,14 +163,37 @@ class InferenceServer:
                temperature: float = 0.0, deadline_s: Optional[float] = None,
                seed: Optional[int] = None, eos_id: Optional[int] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
-               priority: int = 0) -> RequestHandle:
+               priority: int = 0,
+               adapter: Optional[str] = None) -> RequestHandle:
         """Thread-safe ingestion; raises
         :class:`~tpudist_torch.serve.scheduler.AdmissionError` on
-        backpressure or budget rejection."""
+        backpressure or budget rejection.  ``adapter`` names a per-tenant
+        LoRA adapter loaded with :meth:`load_adapter` (else the request
+        rejects ``adapter_missing``)."""
         return self.scheduler.submit(
             prompt, max_new=max_new, temperature=temperature,
             deadline_s=deadline_s, seed=seed, eos_id=eos_id,
-            on_token=on_token, priority=priority)
+            on_token=on_token, priority=priority, adapter=adapter)
+
+    # -- per-tenant adapters ------------------------------------------------
+
+    def _require_adapters(self) -> None:
+        if self.engine.adapters is None:
+            raise RuntimeError(
+                "server built without adapters (ServeConfig.adapters / "
+                "TPUDIST_SERVE_ADAPTERS)")
+
+    def load_adapter(self, name: str, factors) -> dict:
+        """Load ``factors`` under ``name`` into the engine's adapter pool
+        (thread-safe; see :meth:`SlotEngine.load_adapter`)."""
+        self._require_adapters()
+        return self.engine.load_adapter(name, factors)
+
+    def unload_adapter(self, name: str) -> dict:
+        """Unload ``name``: frees now when no lane holds it, else defers
+        (new requests already reject ``adapter_missing``)."""
+        self._require_adapters()
+        return self.engine.unload_adapter(name)
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop admitting, finish everything admitted, stop the loop.
@@ -179,6 +227,7 @@ class InferenceServer:
             "launch_counts": self.engine.launch_counts(),
             "decode": self.engine.decode_stats(),
             "kv": self.engine.kv_stats(),
+            "adapters": self.engine.adapter_stats(),
             "loop_error": self.loop_error,
         }
 
@@ -229,6 +278,11 @@ class InferenceServer:
         for h in sched.take(len(free), now, admit=_gate):
             if h.done:  # finished in-queue (deadline expired)
                 self._note_finished(h)
+            elif not eng.has_adapter(h.request.adapter):
+                # admitted, but its adapter was unloaded while it queued:
+                # finish loudly, never serve base-model output for it
+                h._finish("adapter_missing")
+                self._note_finished(h)
             else:
                 alive.append(h)
         if not alive:
@@ -239,9 +293,27 @@ class InferenceServer:
             h.t_admitted = t0
             r = h.request
             items.append((slot, r.prompt, r.temperature, r.seed, r.max_new,
-                          r.prefix_hashes))
+                          r.prefix_hashes, None, r.adapter))
             self._slot_handles[slot] = h
-        for slot, tok in eng.start_batch(items).items():
+        firsts = {}
+        while items:
+            try:
+                firsts = eng.start_batch(items)
+                break
+            except AdapterMissingError as e:
+                # an unload raced the recheck above (start_batch validated
+                # the whole batch first, so nothing changed): finish that
+                # adapter's requests, admit the rest
+                keep = []
+                for it in items:
+                    if it[7] == e.adapter:
+                        h = self._slot_handles.pop(it[0])
+                        h._finish("adapter_missing")
+                        self._note_finished(h)
+                    else:
+                        keep.append(it)
+                items = keep
+        for slot, tok in firsts.items():
             if tok is not None:
                 self._deliver_block(slot, [tok])
 
