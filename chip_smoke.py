@@ -13,9 +13,12 @@ order; any failure exits non-zero:
    blocks, sentinel table tails, ragged chunk lengths, a sliding window;
    written int8 blocks must be byte-identical; the sampling filters top-k 5,
    top-p 0.9, both, and ties (top-k exact, top-p within the stated margin).
-   Each kernel is timed with CUDA events (median of 30 after warm-up, L2
-   flushed between launches) beside its plain version, its bound and, where
-   one PyTorch call computes the same function, that call;
+   The paged decode kernel also runs the speculative verify's call (q
+   ``[8, 8, s, 128]``, s = 5 and 9, a K + 1 window at fill 0; bf16 and int8
+   pools, ragged cursors, a window).  Each kernel is timed with CUDA events
+   (median of 30 after warm-up, L2 flushed between launches) beside its
+   plain version, its bound and, where one PyTorch call computes the same
+   function, that call; the s = 5 verify beside the s = 1 step;
 3b. the flash forward, dq and dk/dv kernels against their plain versions at
    the training path's shapes (b 8, h 8, s 2048, dh 128, bf16, causal), a
    GQA sliding-window case (h_kv 2, window 512), a non-causal ragged length
@@ -30,6 +33,10 @@ order; any failure exits non-zero:
    sentinel), a GQA case, a rope-off ragged case and f32 cases
    (:func:`linear_agreement`: elementwise, per row and over the tensor),
    timed as in phase 3 beside the unfused chain ``fused_rope=False`` runs;
+3d. the residual prep of the speculative verify against its plain version
+   at ``[8, 4, 256]`` (temperatures 0, 0.7, 1.3, an empty-residual row),
+   ``[8, 2, 17]``, ``[8, 4, 32000]`` and a bf16 input
+   (:func:`residual_close`), timed as in phase 3;
 4. the main path: ``InferenceServer`` on the d1024 / 8-layer / 8-head /
    ff4096 / vocab-256 / max_len-2048 RoPE TransformerLM in bf16 (random
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
@@ -41,9 +48,22 @@ order; any failure exits non-zero:
    ``fused_rope_qkv`` must launch once and ``lora_delta`` three times per
    layer and forward, every base lane must equal the same request on the
    server without adapters and every adapter lane must differ from it;
+4c. speculative decoding on phase 4's server and requests (``spec=True,
+   spec_k=4``, the tied 4-layer draft): 12 greedy spec lanes, 2 greedy
+   ``spec=False`` lanes, 2 lanes sampled at temperature 0.8.  Every request
+   must finish "length"; ``fused_residual_prep`` must launch once a spec
+   block and the paged decode kernel once a layer of every decode-arm
+   forward (8 a target forward, 4 a draft forward); every greedy lane must
+   equal its phase-4 stream or leave it first at a near tie of the card's
+   logits (:func:`hold_greedy_streams`);
+4d. the same on phase 4b's adapter server and traffic (every lane greedy,
+   held against phase 4b's streams; ``fused_rope_qkv`` and ``lora_delta``
+   once / three times a layer of every target and draft forward);
 5. where the time goes: one admission prefill and one decode block of the
    same model under ``torch.profiler`` (device busy time, idle share, the
-   heaviest kernels), on phase 4's engine and on phase 4b's;
+   heaviest kernels), on phase 4's engine and on phase 4b's; 5c: one
+   speculative block (draft propose + verify) per emitted token beside
+   phase 5's decode block;
 6. one prompt's logits through the paged prefill path on the card (bf16,
    kernels) against the port's CPU plain path (f32, same weights); 5b: the
    same for one adapter lane through the fused RoPE+QKV arm;
@@ -106,6 +126,16 @@ ADAPTER_KERNELS = ("fused_rope_qkv", "lora_delta")
 # base lanes; ragged decode cursors and prefill chunk starts of the main
 # path, and which lanes carry an adapter
 RANK, N_ADAPTERS = 8, 4
+# phase 4c's traffic beside the 12 greedy spec lanes: greedy lanes with
+# spec=False, and lanes sampled at temperature 0.8 (spec on)
+SPEC_OFF_LANES, SAMPLED_LANES = (3, 9), (6, 13)
+# the largest top-2 gap of the card's bf16 logits at which a greedy spec
+# lane may leave its non-speculative stream (hold_greedy_streams).  On the
+# H100 7 lanes of phases 4c and 4d left theirs, every one where the gap was
+# 0.015625, one bf16 step of a logit in [2, 4); phase 6 reads card logits
+# at most 0.0445 (3 such steps) off the f32 plain path.  The bound is 4
+# steps; a wrong verify row moves logits by far more than that.
+NEAR_TIE_GAP = 0.0625
 ADAPTER_NAMES = ("a0", None, "a1", "a2", None, "a3")
 DECODE_OFFS = [37, 364, 120, 250, 5, 300, 180, 64]
 PREFILL_OFFS = [0, 64, 128, 0, 192, 64, 256, 0]
@@ -186,10 +216,10 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # phase 3: kernels against their plain versions
 
 
-def decode_inputs(torch, dev, gen, pos0, quant, fill, window_cols=W):
+def decode_inputs(torch, dev, gen, pos0, quant, fill, window_cols=W, s=1):
     S, n_kv = SLOTS, HEADS
     nb = 1024
-    q = torch.randn(S, HEADS, 1, DH, generator=gen, device=dev).bfloat16()
+    q = torch.randn(S, HEADS, s, DH, generator=gen, device=dev).bfloat16()
     if quant:
         pk = torch.randint(-127, 128, (LAYERS, nb, n_kv, BS, DH),
                            generator=gen, device=dev, dtype=torch.int8)
@@ -319,15 +349,49 @@ def check_kernels(torch, dev):
             torch.cuda.synchronize()
             err = max(err, close_bf16(torch, out, ref,
                                       v_max(args[2], args[4], args[9])))
-    # timing at main-path cursors (prompts of 1-300 plus 16-64 new tokens)
+    # the speculative verify: s = K + 1 queries a lane over a K + 1 window
+    # buffer at fill 0 (K = 4 and 8), bf16 and int8 pools, a window
+    verify_err = 0.0
+    for s, quant, window in ((5, False, None), (5, True, None),
+                             (9, False, None), (9, True, None),
+                             (5, False, 100)):
+        pos0 = [0, 1, 17, 100, 255, 364, 1000, 2048 - s - 7]
+        args = decode_inputs(torch, dev, gen, pos0, quant, [0] * SLOTS,
+                             window_cols=s, s=s)
+        for layer in (0, LAYERS - 1):
+            out = paged_attention(*args, layer=layer, window=window)
+            ref = paged_attention_reference(*args, layer=layer,
+                                            window=window)
+            torch.cuda.synchronize()
+            verify_err = max(verify_err, close_bf16(
+                torch, out, ref, v_max(args[2], args[4], args[9])))
+    err = max(err, verify_err)
+
+    # timing at main-path cursors (prompts of 1-300 plus 16-64 new tokens):
+    # a decode step (s 1, fill 3 of a K = 8 window) and a K = 4 verify
+    # (s 5, fill 0); the verify moves the same bytes but 5 times the q and
+    # output rows (and its own 5-column window)
     pos0 = [37, 364, 120, 250, 5, 300, 180, 64]
+    live = sum(-(-p // BS) for p in pos0)
+
+    def decode_bytes(args):
+        return (2 * args[0].numel() * 2  # q in, out
+                + 2 * live * HEADS * BS * DH * 2  # live K/V blocks
+                + live * 4 + SLOTS * 8  # table entries, pos0, fill
+                + 2 * args[8].numel() * 2)  # window K/V
+
+    vargs = decode_inputs(torch, dev, gen, pos0, False, [0] * SLOTS,
+                          window_cols=5, s=5)
+    vflops = 4 * HEADS * DH * sum(p + i + 1 for p in pos0 for i in range(5))
+    verify = dict(
+        s=5, max_abs_err=verify_err,
+        ms=time_ms(torch, lambda: paged_attention(*vargs, layer=3), flush),
+        plain_ms=time_ms(torch, lambda: paged_attention_reference(
+            *vargs, layer=3), flush),
+        bound=bound(decode_bytes(vargs), vflops, H100_BF16_FLOPS))
     fill = [3] * SLOTS
     args = decode_inputs(torch, dev, gen, pos0, False, fill)
-    live = sum(-(-p // BS) for p in pos0)
-    nbytes = (2 * args[0].numel() * 2  # q in, out
-              + 2 * live * HEADS * BS * DH * 2  # live K/V blocks
-              + live * 4 + SLOTS * 8  # table entries, pos0, fill
-              + 2 * args[8].numel() * 2)  # window K/V
+    nbytes = decode_bytes(args)
     flops = 4 * HEADS * DH * sum(p + f + 1 for p, f in zip(pos0, fill))
     keep = (torch.arange(M * BS + W, device=dev)[None]
             < torch.tensor(pos0, device=dev)[:, None])
@@ -439,9 +503,90 @@ def check_kernels(torch, dev):
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']} ms, bound {r['bound'][0]:.5f} ms by "
             f"{r['bound'][1]})")
+    log(f"kernel paged_attention, verify s 5 and 9 (bf16, int8, window): "
+        f"max_abs_err {verify_err:.3g}; s 5 timed {verify['ms']:.4f} ms "
+        f"(plain {verify['plain_ms']:.4f} ms, bound "
+        f"{verify['bound'][0]:.5f} ms by {verify['bound'][1]}) beside s 1 "
+        f"{rec['paged_attention']['ms']:.4f} ms")
+    rec["paged_attention"]["verify"] = verify
     del flush
     ops.reset_launch_counts()
     return rec
+
+
+def residual_close(torch, out, ref, lt, temps) -> float:
+    """The residual prep against its plain version, with the CPU test's
+    tolerances (tests/test_torch_spec.py): ``pt`` and ``pd`` to ``rtol
+    2e-6, atol 1e-7`` (the kernel sums each softmax in another order), the
+    same rows with an empty residual, those rows' logits ``lt / temp`` bit
+    for bit, the residual probabilities ``exp(lr)`` to ``atol 1e-6``.
+    Returns the largest difference of ``pt``, ``pd`` and ``exp(lr)``."""
+    err = 0.0
+    for a, b in zip(out[:2], ref[:2]):
+        if not torch.allclose(a, b, rtol=2e-6, atol=1e-7):
+            raise AssertionError("fused_residual_prep's softmax differs from "
+                                 "its plain version")
+        err = max(err, float((a - b).abs().max()))
+    has = [(torch.clamp(x[0] - x[1], min=0) > 0).any(-1) for x in (out, ref)]
+    if not torch.equal(has[0], has[1]):
+        raise AssertionError("fused_residual_prep finds another set of "
+                             "empty residuals than its plain version")
+    temp = torch.clamp(temps, min=1e-6)[:, None, None]
+    scaled = (lt.float() / temp)[~has[0]]
+    if not (torch.equal(out[2][~has[0]], scaled)
+            and torch.equal(ref[2][~has[0]], scaled)):
+        raise AssertionError("an empty residual row is not lt / temp bit "
+                             "for bit")
+    pe, re = out[2][has[0]].exp(), ref[2][has[0]].exp()
+    if not torch.allclose(pe, re, rtol=0, atol=1e-6):
+        raise AssertionError("fused_residual_prep's residual differs from "
+                             "its plain version")
+    return max(err, float((pe - re).abs().max()) if pe.numel() else 0.0)
+
+
+def check_residual(torch, dev):
+    """Phase 3d: the residual prep kernel against its plain version at the
+    verify's main shape ``[8, 4, 256]`` (temperatures 0, 0.7 and 1.3, one
+    row with draft == target), a prime vocab and a 32000 vocab (the row
+    loop), f32 and a bf16 input; timed as in phase 3."""
+    from tpudist_torch import ops
+    from tpudist_torch.ops.fused_sample import (fused_residual_prep,
+                                                fused_residual_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    temps = torch.tensor([0, 0.7, 1.3, 0.7, 0, 1.3, 0.7, 1.3], device=dev)
+    err = 0.0
+    for k, vocab, dtype in ((4, V, torch.float32), (2, 17, torch.float32),
+                            (4, 32000, torch.float32),
+                            (4, V, torch.bfloat16)):
+        lt = torch.randn(SLOTS, k, vocab, generator=gen, device=dev) * 3
+        ld = torch.randn(SLOTS, k, vocab, generator=gen, device=dev) * 3
+        ld[2] = lt[2]  # an empty residual
+        lt, ld = lt.to(dtype), ld.to(dtype)
+        out = fused_residual_prep(lt, ld, temps)
+        ref = fused_residual_reference(lt, ld, temps)
+        torch.cuda.synchronize()
+        err = max(err, residual_close(torch, out, ref, lt, temps))
+    lt = torch.randn(SLOTS, 4, V, generator=gen, device=dev) * 3
+    ld = torch.randn(SLOTS, 4, V, generator=gen, device=dev) * 3
+    nbytes = SLOTS * 4 * V * (2 * 4 + 3 * 4) + SLOTS * 4
+    rec = dict(
+        route="cuda", source="tpudist_torch/csrc/fused_sample.cu",
+        replaces="tpudist/ops/fused_sample.py:219", max_abs_err=err,
+        ms=time_ms(torch, lambda: fused_residual_prep(lt, ld, temps), flush),
+        plain_ms=time_ms(torch, lambda: fused_residual_reference(
+            lt, ld, temps), flush),
+        library_ms=None,
+        # ~12 f32 operations an entry: 4 divisions, 2 exps, 3 subtractions,
+        # a max, an add and a log
+        bound=bound(nbytes, 12 * SLOTS * 4 * V, H100_F32_FLOPS))
+    log(f"kernel fused_residual_prep: max_abs_err {err:.3g}, "
+        f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, library none, "
+        f"bound {rec['bound'][0]:.6f} ms by {rec['bound'][1]})")
+    del flush
+    ops.reset_launch_counts()
+    return {"fused_residual_prep": rec}
 
 
 def check_filters(torch, out, ref, topk_row, top_p: float) -> None:
@@ -924,7 +1069,152 @@ def serve_main_path(torch, model, gen_seed: int):
         ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
         tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
         prompt_lens=[len(p) for p, _ in reqs],
-        decode=stats["decode"], launches=counts)
+        decode=stats["decode"], launches=counts,
+        streams=[h.tokens for h in handles])
+
+
+def near_tie_gap(torch, model, prompt, got, want, factors=None):
+    """Where a greedy stream ``got`` differs from ``want``: the first
+    differing position and the top-2 gap of the card's bf16 logits there,
+    the common prefix teacher-forced through :func:`prompt_logits`."""
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = list(prompt) + list(want[:j])
+    top = prompt_logits(torch, model, seq, factors)[-1].float().topk(2)
+    return j, float(top.values[0] - top.values[1])
+
+
+def hold_greedy_streams(torch, model, prompts, streams, base, lanes,
+                        factors=None, names=None):
+    """Gate of phases 4c and 4d: each greedy lane in ``lanes`` equals its
+    non-speculative stream ``base``, or differs first where the card's top-2
+    logits lie within ``NEAR_TIE_GAP`` (the verify computes a row in an
+    ``S * (K + 1)``-row pass, so bf16 rounds otherwise than in the ``s =
+    1`` decode).  Returns ``(equal lanes, [(lane, position, gap)])``."""
+    equal, ties = 0, []
+    for i in lanes:
+        if streams[i] == base[i]:
+            equal += 1
+            continue
+        f = None if names is None or names[i] is None else factors[names[i]]
+        j, gap = near_tie_gap(torch, model, prompts[i], streams[i], base[i],
+                              f)
+        ties.append((i, j, gap))
+        log(f"  lane {i} first differs at token {j}: top-2 logit gap "
+            f"{gap:.5f} (bound {NEAR_TIE_GAP})")
+        if gap > NEAR_TIE_GAP:
+            raise AssertionError(
+                f"greedy lane {i} differs from its non-speculative stream "
+                f"at token {j} where the top-2 gap {gap:.5f} is no near tie")
+    return equal, ties
+
+
+def serve_spec_path(torch, model, gen_seed: int, base: dict,
+                    factors=None) -> dict:
+    """Phases 4c and 4d: speculative decoding (``spec=True, spec_k=4``, the
+    tied 4-layer draft) on phase 4's server and requests, or with
+    ``factors`` on phase 4b's adapter server and traffic.  Phase 4c runs
+    ``SPEC_OFF_LANES`` greedy with ``spec=False`` and ``SAMPLED_LANES`` at
+    temperature 0.8; phase 4d runs every lane greedy.  Gates: every request
+    finishes ``length``; spec blocks ran; ``fused_residual_prep`` launched
+    once a spec block; the paged decode kernel once a layer of every
+    decode-arm forward (8 a target forward, 4 a draft forward), and with
+    adapters ``fused_rope_qkv`` and ``lora_delta`` once / three times a
+    layer of every forward; greedy lanes hold their non-speculative stream
+    ``base["streams"]`` (:func:`hold_greedy_streams`)."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    on = factors is not None
+    rng = np.random.default_rng(gen_seed)
+    warm_prompt = None if on else rng.integers(0, V, size=70)
+    reqs = [(rng.integers(0, V, size=int(rng.integers(1, 301))),
+             int(rng.integers(16, 65))) for _ in range(16)]
+    names = ([ADAPTER_NAMES[i % len(ADAPTER_NAMES)] for i in range(16)]
+             if on else [None] * 16)
+    spec_on = [on or i not in SPEC_OFF_LANES for i in range(16)]
+    temps = [0.8 if not on and i in SAMPLED_LANES else 0.0
+             for i in range(16)]
+    cfg = ServeConfig(num_slots=SLOTS, queue_limit=64, max_new=64,
+                      prefill_pad=P, decode_block=8, kv_block=BS,
+                      fused_rope=on, adapters=on, lora_kernel=on, spec=True,
+                      spec_k=4)
+    server = InferenceServer(model, cfg, device="cuda")
+    eng = server.engine
+    try:
+        for name, f in (factors or {}).items():
+            server.load_adapter(name, f)
+        if not on:  # phase 4's schedule: warm up, then submit all
+            server.start()
+            warm = server.submit(warm_prompt, max_new=9)
+            if not warm.wait(600) or warm.finish_reason != "length":
+                raise AssertionError("warm-up request did not finish")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        before = dict(eng.decode_stats(), blocks_spec=eng.n_spec_blocks)
+        t0 = time.perf_counter()
+        handles = [server.submit(p, max_new=n, temperature=t, seed=i,
+                                 spec=sp, adapter=a)
+                   for i, ((p, n), t, sp, a) in enumerate(
+                       zip(reqs, temps, spec_on, names))]
+        if on:  # phase 4b's schedule: all queued, then start
+            server.start()
+        for h in handles:
+            if not h.wait(900):
+                raise AssertionError("request timed out")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        stats = server.stats()
+    finally:
+        server.close(60)
+    for h, (_, n) in zip(handles, reqs):
+        if h.finish_reason != "length" or len(h.tokens) != n:
+            raise AssertionError(f"request {h.id}: {h.finish_reason}, "
+                                 f"{len(h.tokens)}/{n} tokens")
+    if stats["kv"]["blocks_in_use"] != 0:
+        raise AssertionError("KV pool did not drain")
+    dec, spec = stats["decode"], stats["spec"]
+    tf = dec["forwards"] - before["forwards"]
+    df = dec["draft_forwards"] - before["draft_forwards"]
+    t_dec = dec["steps"] - before["steps"]
+    d_dec = dec["draft_decode_forwards"] - before["draft_decode_forwards"]
+    blocks = eng.n_spec_blocks - before["blocks_spec"]
+    d_layers = eng.draft_model.n_layers
+    if not (blocks > 0 and spec["drafted"] > 0):
+        raise AssertionError(f"no speculative block ran: {spec}")
+    want = {"fused_residual_prep": blocks,
+            "paged_attention": LAYERS * t_dec + d_layers * d_dec}
+    if on:
+        want["fused_rope_qkv"] = LAYERS * tf + d_layers * df
+        want["lora_delta"] = 3 * (LAYERS * tf + d_layers * df)
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(
+                f"{name} launched {counts[name]} times, want {n} ({blocks} "
+                f"spec blocks, {tf} target / {df} draft forwards, {t_dec} / "
+                f"{d_dec} of them on the decode arm)")
+    if not all(counts[name] > 0 for name in SERVE_KERNELS):
+        raise AssertionError(f"a serving kernel was not launched: {counts}")
+    streams = [h.tokens for h in handles]
+    greedy = [i for i in range(16) if temps[i] == 0.0]
+    equal, ties = hold_greedy_streams(
+        torch, model, [p for p, _ in reqs], streams, base["streams"], greedy,
+        factors, names)
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(
+        requests=len(handles), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
+        tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
+        acceptance_rate=spec["acceptance_rate"],
+        tokens_per_target_pass=spec["accepted_per_pass"],
+        spec_blocks=blocks, target_forwards=tf, draft_forwards=df,
+        greedy_lanes_equal=f"{equal}/{len(greedy)}", near_ties=ties,
+        spec=spec, launches=counts, decode=dec,
+        base={k: base[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                   "tpot_p50_ms")})
 
 
 def adapter_factors(torch, model) -> dict:
@@ -1037,6 +1327,21 @@ def serve_adapter_path(torch, model, gen_seed: int) -> dict:
     return main
 
 
+def log_spec(what: str, r: dict, base: str, card: str) -> None:
+    b = r["base"]
+    log(f"{what}: {r['requests']} requests, {r['tokens']} tokens in "
+        f"{r['wall_s']:.3f} s = {r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{r['ttft_p50_ms']:.2f} ms, TPOT p50 {r['tpot_p50_ms']:.3f} ms "
+        f"({card}); {base} in this run {b['tokens_per_s']:.1f} tokens/s, "
+        f"TTFT p50 {b['ttft_p50_ms']:.2f} ms, TPOT p50 "
+        f"{b['tpot_p50_ms']:.3f} ms; acceptance {r['acceptance_rate']}, "
+        f"{r['tokens_per_target_pass']} tokens per lane and target pass, "
+        f"{r['spec_blocks']} spec blocks, {r['target_forwards']} target / "
+        f"{r['draft_forwards']} draft forwards; greedy lanes equal to "
+        f"{base}: {r['greedy_lanes_equal']}, near ties {r['near_ties']}; "
+        f"launches {r['launches']}")
+
+
 def device_profile(torch, fn, prep):
     """``fn`` timed plain (host clock to a synchronize, after ``prep``) and
     once under ``torch.profiler`` for the device's kernel time; the idle
@@ -1118,6 +1423,38 @@ def profile_engine(torch, model, factors=None):
     return out
 
 
+def profile_spec_block(torch, model) -> dict:
+    """Phase 5c: one speculative block (``draft_propose`` of the tied
+    4-layer draft + ``spec_verify``, K = 4) over 8 busy lanes at ~60 tokens
+    of context under ``torch.profiler`` (:func:`device_profile`), with the
+    tokens it emitted."""
+    import numpy as np
+
+    from tpudist_torch.serve import SlotEngine
+
+    eng = SlotEngine(model, num_slots=SLOTS, prefill_pad=P, decode_block=8,
+                     kv_block=BS, spec_draft=LAYERS // 2, spec_k=4,
+                     device="cuda")
+    rng = np.random.default_rng(3)
+    eng.start_batch([(s, rng.integers(0, V, size=60), 0.0, 0, 200)
+                     for s in range(SLOTS)])
+    eng.spec_decode_block()  # warm
+    emitted = []
+
+    def block():
+        info, _ = eng.spec_decode_block()
+        emitted.append(info["tokens"])
+
+    prof = device_profile(torch, block, lambda: None)
+    prof.update(emitted_tokens=emitted[-1], wall_emitted_tokens=emitted[0],
+                device_ms_per_token=(prof["device_busy_ms"] / emitted[-1]
+                                     if prof["device_busy_ms"] else None),
+                wall_ms_per_token=prof["wall_ms"] / emitted[0])
+    for s in range(SLOTS):
+        eng.evict(s)
+    return prof
+
+
 def prompt_logits(torch, model, prompt, factors=None):
     """All of ``prompt``'s logits through the paged prefill path (two
     chunks: the second walks the first one's committed blocks).  With
@@ -1132,11 +1469,12 @@ def prompt_logits(torch, model, prompt, factors=None):
                                  factors)
         ads = lora.pool_collection(pool, torch.zeros(1, dtype=torch.int32,
                                                      device=dev))
-    fns = make_slot_decode(model, 1, P, PagedKVConfig(16, BS, False),
+    nb = max(16, -(-len(prompt) // BS))
+    fns = make_slot_decode(model, 1, P, PagedKVConfig(nb, BS, False),
                            fused_rope=factors is not None, adapters=acfg)
     pkv = fns.init_slots()
-    rows = torch.full((1, M), 16, dtype=torch.int32, device=dev)
-    rows[0, :16] = torch.arange(16, device=dev)
+    rows = torch.full((1, M), nb, dtype=torch.int32, device=dev)
+    rows[0, :nb] = torch.arange(nb, device=dev)
     out = []
     for start in range(0, len(prompt), P):
         chunk = prompt[start:start + P]
@@ -1314,6 +1652,7 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     rec = check_kernels(torch, dev)
+    rec.update(check_residual(torch, dev))
     flash_rec, flash_fwd_bwd = check_flash(torch, dev)
     lin_rec, lin_info = check_fused_linear(torch, dev)
 
@@ -1330,6 +1669,9 @@ def main(argv=None) -> int:
         f"{main_path['ttft_p50_ms']:.2f} ms, TPOT p50 "
         f"{main_path['tpot_p50_ms']:.3f} ms ({card}); launches "
         f"{main_path['launches']}")
+    spec_path = serve_spec_path(torch, model, 7, main_path)
+    log_spec("spec path (tied 4-layer draft, K 4)", spec_path, "phase 4",
+             card)
 
     t0 = time.perf_counter()
     ad_path = serve_adapter_path(torch, model, gen_seed=7)
@@ -1347,11 +1689,23 @@ def main(argv=None) -> int:
         f"{ad_path['first_divergence_vs_unfused']}); without adapters "
         f"{ad_path['no_adapter_run']}, unfused {ad_path['unfused_run']}")
     ad_streams = ad_path.pop("streams")
+    spec_ad_path = serve_spec_path(torch, model, 7, dict(
+        ad_path, streams=ad_streams), adapter_factors(torch, model))
+    log_spec("spec adapter path (fused_rope, 4 adapters, tied 4-layer "
+             "draft, K 4)", spec_ad_path, "phase 4b", card)
 
     prof = profile_engine(torch, model)
     prof.update({f"adapter {k}": v for k, v in profile_engine(
         torch, model, adapter_factors(torch, model)).items()})
+    prof["spec_block"] = profile_spec_block(torch, model)
     log_profile(prof)
+    sb, db = prof["spec_block"], prof["decode_block"]
+    log(f"spec block: {sb['emitted_tokens']} tokens emitted, device "
+        f"{sb['device_ms_per_token']} ms and wall "
+        f"{sb['wall_ms_per_token']:.3f} ms per emitted token; phase 5's "
+        f"decode block (64 tokens): device "
+        f"{(db['device_busy_ms'] or 0) / 64:.4f} ms and wall "
+        f"{db['wall_ms'] / 64:.3f} ms per token")
 
     import numpy as np
 
@@ -1412,6 +1766,8 @@ def main(argv=None) -> int:
     launches = dict(main_path["launches"])
     launches.update({n: train["launches"][n] for n in flash_rec})
     launches.update({n: ad_path["launches"][n] for n in lin_rec})
+    launches["fused_residual_prep"] = spec_path["launches"][
+        "fused_residual_prep"]
     for name, r in (list(rec.items()) + list(flash_rec.items())
                     + list(lin_rec.items())):
         kernels.append(dict(
@@ -1423,6 +1779,8 @@ def main(argv=None) -> int:
             library_ms=r["library_ms"]))
     result = dict(card=card, kernels=kernels, main_path=main_path,
                   adapter_path=dict(ad_path, streams=ad_streams),
+                  spec_path=spec_path, spec_adapter_path=spec_ad_path,
+                  verify_kernel=rec["paged_attention"]["verify"],
                   fused_linear=lin_info,
                   profile=prof, flash_fwd_bwd=flash_fwd_bwd, train=train,
                   train_profile=train_prof, grads=grads,

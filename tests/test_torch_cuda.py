@@ -24,6 +24,11 @@ relative RMS, each stated and derived there.  lse is f32 on both sides:
 The fused RoPE+QKV and LoRA gather-matmul kernels: the bounds of
 ``chip_smoke.linear_agreement`` (``LINEAR_BOUNDS``, derived there from
 readings on the card).
+
+The residual prep: ``chip_smoke.residual_close``, the CPU test's
+tolerances (``pt``/``pd`` to ``rtol 2e-6, atol 1e-7``, empty-residual rows
+bit for bit, ``exp(lr)`` to ``atol 1e-6``).  A small f32 speculative engine
+on the card emits the greedy streams of the card's non-speculative engine.
 """
 
 import numpy as np
@@ -31,12 +36,13 @@ import pytest
 import torch
 
 from chip_smoke import (flash_agreement, linear_agreement, lora_inputs,
-                        qkv_inputs)
+                        qkv_inputs, residual_close)
 from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
                          sample_case, top_p_boundary_gap)
 from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                flash_backward_dq, flash_backward_reference,
                                flash_forward, flash_forward_reference,
+                               fused_residual_prep, fused_residual_reference,
                                fused_rope_qkv, fused_rope_qkv_reference,
                                fused_sample_prep, fused_sample_reference,
                                launch_counts, lora_delta,
@@ -84,6 +90,96 @@ def test_paged_attention_matches_plain(cuda, quant, n_kv):
     ref = paged_attention_reference(*args, layer=1, window=20)
     assert launch_counts()["paged_attention"] == 1
     _assert_bf16_close(out, ref, args[2], args[4], args[9])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("s", [5, 9])
+def test_paged_verify_window_matches_plain(cuda, quant, s):
+    """The speculative verify's call: s = K + 1 queries a lane over a
+    (K + 1)-column window buffer at fill 0, ragged cursors, a window."""
+    args = _on(cuda, decode_case(S=4, nh=4, n_kv=2, s=s, dh=128, L=2,
+                                 nb=40, bs=16, M=8, quant=quant, seed=s))
+    for i in (0, 8, 9):
+        args[i] = args[i].to(torch.bfloat16)
+    if not quant:
+        args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    for window in (None, 20):
+        reset_launch_counts()
+        out = paged_attention(*args, layer=1, window=window)
+        ref = paged_attention_reference(*args, layer=1, window=window)
+        assert launch_counts()["paged_attention"] == 1
+        _assert_bf16_close(out, ref, args[2], args[4], args[9])
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 4, 17), torch.float32), ((8, 4, 256), torch.float32),
+    ((2, 3, 32000), torch.float32), ((8, 2, 256), torch.bfloat16)])
+def test_residual_prep_matches_plain(cuda, shape, dtype):
+    r = np.random.default_rng(shape[2])
+    lt = torch.from_numpy(r.normal(size=shape).astype(np.float32) * 3)
+    ld = torch.from_numpy(r.normal(size=shape).astype(np.float32) * 3)
+    ld[1] = lt[1]  # an empty residual
+    temps = torch.from_numpy(
+        np.asarray([0.0, 0.9, 1.4, 0.7] * 2, np.float32)[:shape[0]])
+    lt, ld, temps = lt.to(cuda, dtype), ld.to(cuda, dtype), temps.to(cuda)
+    reset_launch_counts()
+    out = fused_residual_prep(lt, ld, temps)
+    assert launch_counts()["fused_residual_prep"] == 1
+    residual_close(torch, out, fused_residual_reference(lt, ld, temps), lt,
+                   temps)
+
+
+def test_spec_engine_on_the_card(cuda):
+    """A small f32 LM served with the tied 1-layer draft (K = 4): greedy
+    streams equal the card's non-speculative engine, the residual prep
+    launches once a spec block and the paged decode kernel once a layer of
+    every decode-arm forward."""
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.serve import SlotEngine
+
+    model = create_transformer(0, device=cuda, vocab=64, d_model=128,
+                               n_layers=2, n_heads=2, d_ff=256, max_len=128,
+                               rope=True)
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(0, 64, size=int(rng.integers(1, 40))),
+             int(rng.integers(2, 20))) for _ in range(6)]
+    streams, blocks = {}, {}
+    for spec in (1, None):
+        eng = SlotEngine(model, num_slots=4, prefill_pad=16, kv_block=16,
+                         spec_draft=spec, spec_k=4, device=cuda)
+        reset_launch_counts()
+        out, pending, slot_rid = {}, list(enumerate(reqs)), {}
+        while pending or eng.num_occupied:
+            items = []
+            for slot in eng.free_slots():
+                if not pending:
+                    break
+                rid, (p, n) = pending.pop(0)
+                slot_rid[slot] = rid
+                out[rid] = []
+                items.append((slot, p, 0.0, 0, n))
+            got = dict(eng.start_batch(items))
+            got.update(eng.advance_prefill())
+            for slot, tok in got.items():
+                if tok is not None:
+                    out[slot_rid[slot]].append(tok)
+            if eng.num_active:
+                for slot, toks in eng.decode_auto()[1].items():
+                    out[slot_rid[slot]].extend(toks)
+            for slot in list(slot_rid):
+                if len(out[slot_rid[slot]]) >= reqs[slot_rid[slot]][1]:
+                    assert len(out[slot_rid[slot]]) == \
+                        reqs[slot_rid[slot]][1]
+                    eng.evict(slot)
+                    del slot_rid[slot]
+        streams[spec] = [out[i] for i in range(len(reqs))]
+        blocks[spec] = eng.n_spec_blocks
+        counts, dec = launch_counts(), eng.decode_stats()
+        assert counts["fused_residual_prep"] == eng.n_spec_blocks
+        assert counts["paged_attention"] == (
+            2 * dec["steps"] + dec["draft_decode_forwards"])
+    assert streams[1] == streams[None]
+    assert blocks[1] > 0 and blocks[None] == 0
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])

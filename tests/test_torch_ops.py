@@ -36,7 +36,8 @@ from tpudist.ops.paged_prefill import (paged_prefill_attention as
 from torch_cases import decode_case as _decode_case
 from torch_cases import prefill_case as _prefill_case
 from torch_cases import sample_case, settled_torch_cpu
-from tpudist_torch.ops import (_build, fused_sample_prep, launch_counts,
+from tpudist_torch.ops import (_build, fused_residual_prep,
+                               fused_sample_prep, launch_counts,
                                paged_attention, paged_attention_reference,
                                paged_prefill_attention, reset_launch_counts)
 
@@ -185,11 +186,13 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
                         quant=False, seed=0)
     paged_attention(*_torch(args), layer=0)
     fused_sample_prep(torch.zeros(2, 8), torch.zeros(2))
+    fused_residual_prep(torch.zeros(2, 1, 8), torch.zeros(2, 1, 8),
+                        torch.zeros(2))
     assert launch_counts() == {"paged_attention": 0, "paged_prefill": 0,
                                "fused_sample": 0, "flash_forward": 0,
                                "flash_backward_dq": 0,
                                "flash_backward_dkv": 0, "fused_rope_qkv": 0,
-                               "lora_delta": 0}
+                               "lora_delta": 0, "fused_residual_prep": 0}
 
 
 def test_build_plumbing():

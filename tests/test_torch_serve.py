@@ -389,16 +389,20 @@ def _drive_items(eng, items):
 def test_engine_knob_validation(rope_models):
     """Every engine path outside the ported slices raises
     NotImplementedError naming its ROADMAP item; the fused RoPE+QKV arm
-    (the adapter-serving slice) builds."""
+    (the adapter-serving slice) and the tied-draft speculative engine (the
+    speculative-decoding slice) build."""
     _, model = rope_models
     for kw in (dict(paged=False), dict(attn_kernel="gather"),
                dict(prefill_kernel=False), dict(sample_kernel=False),
-               dict(mesh="1x2"), dict(spec_draft=1)):
+               dict(mesh="1x2")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SlotEngine(model, num_slots=2, kv_block=4, device="cpu", **kw)
     eng = SlotEngine(model, num_slots=2, kv_block=4, device="cpu",
                      fused_rope=True)
     assert eng.kv_stats()["fused_rope"] is True
+    eng = SlotEngine(model, num_slots=2, kv_block=4, device="cpu",
+                     spec_draft=1)
+    assert eng.spec_stats()["enabled"] is True
 
 
 # ---------------------------------------------------------------------------
@@ -456,7 +460,8 @@ def test_server_end_to_end_on_cpu(rope_models, jax_streams):
         assert st["launch_counts"] == {
             "paged_attention": 0, "paged_prefill": 0, "fused_sample": 0,
             "flash_forward": 0, "flash_backward_dq": 0,
-            "flash_backward_dkv": 0, "fused_rope_qkv": 0, "lora_delta": 0}
+            "flash_backward_dkv": 0, "fused_rope_qkv": 0, "lora_delta": 0,
+            "fused_residual_prep": 0}
     finally:
         assert server.close(30)
 

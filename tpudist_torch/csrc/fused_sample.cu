@@ -1,6 +1,7 @@
-// Fused sampling prep for Hopper (sm_90a).
+// Fused sampling prep and the speculative-verify residual prep for Hopper
+// (sm_90a).
 //
-// Replaces the Pallas TPU kernel tpudist/ops/fused_sample.py
+// tpd_fused_sample replaces the Pallas TPU kernel tpudist/ops/fused_sample.py
 // (fused_sample_prep, body _sample_kernel): per slot, the grammar allow-row
 // mask (finfo(f32).min where disallowed), the greedy arg-max of the masked
 // logits (lowest index on ties, a NaN counts as the largest value, as
@@ -26,6 +27,25 @@
 // latency at serving widths).  One CTA per slot row makes the elementwise
 // pass and the arg-max reduction in one read of the row; the sort touches
 // shared memory only.
+//
+// tpd_fused_residual replaces the Pallas TPU kernel
+// tpudist/ops/fused_sample.py (fused_residual_prep, body _residual_kernel):
+// per (slot, draft position) row of the verify window, with
+// t = max(temps[s], 1e-6) and IEEE divisions (no reciprocal multiply),
+// pt = softmax(lt / t) and pd = softmax(ld / t) as exp(x - max) / sum with
+// expf, and the residual sampling logits log(max(pt - pd, 0) + 1e-30) (logf),
+// or lt / t where no residual entry is positive.  "Some entry > 0" is how
+// the row's residual sum is tested: a sum of non-negative terms is > 0
+// exactly when one term is, whatever the summation order.
+//
+// Bound on the H100: bytes (two rows read, three written: 20 bytes a vocab
+// entry, 160 KB at the serving shape S 8, k 4, V 256 = 0.05 us at 3.35 TB/s),
+// so at serving widths the time is the launch.  One CTA per row loops over
+// the row for any V: one pass for the two maxima, one for the two sums, one
+// that writes pt, pd and the residual logits (rereading lt and ld from L2,
+// not keeping the row on chip), and a fourth over the rare row whose
+// residual is empty.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -182,6 +202,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// block-wide max over kThreads threads (red: kThreads/32 floats)
+__device__ float block_max(float x, float* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float m = red[0];
+  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+// element v of a row stored as f32 or bf16
+__device__ __forceinline__ float load_row(const void* row, bool bf16, int v) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(row)[v])
+              : static_cast<const float*>(row)[v];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_residual_kernel(const void* lt, const void* ld, const float* temps,
+                          float* pt, float* pd, float* lr, int k, int V,
+                          int lt_bf16, int ld_bf16) {
+  __shared__ float red[kThreads / 32];
+  const size_t row = blockIdx.x;
+  const float t = fmaxf(temps[row / k], 1e-6f);
+  const size_t esz_t = lt_bf16 ? 2 : 4, esz_d = ld_bf16 ? 2 : 4;
+  const void* rt = static_cast<const char*>(lt) + row * V * esz_t;
+  const void* rd = static_cast<const char*>(ld) + row * V * esz_d;
+  float* out_t = pt + row * V;
+  float* out_d = pd + row * V;
+  float* out_r = lr + row * V;
+  float mt = -INFINITY, md = -INFINITY;
+  for (int v = threadIdx.x; v < V; v += kThreads) {
+    mt = fmaxf(mt, load_row(rt, lt_bf16, v) / t);
+    md = fmaxf(md, load_row(rd, ld_bf16, v) / t);
+  }
+  mt = block_max(mt, red);
+  md = block_max(md, red);
+  float st = 0.f, sd = 0.f;
+  for (int v = threadIdx.x; v < V; v += kThreads) {
+    st += expf(load_row(rt, lt_bf16, v) / t - mt);
+    sd += expf(load_row(rd, ld_bf16, v) / t - md);
+  }
+  st = block_sum(st, red);
+  sd = block_sum(sd, red);
+  int has_res = 0;
+  for (int v = threadIdx.x; v < V; v += kThreads) {
+    const float p = expf(load_row(rt, lt_bf16, v) / t - mt) / st;
+    const float q = expf(load_row(rd, ld_bf16, v) / t - md) / sd;
+    out_t[v] = p;
+    out_d[v] = q;
+    const float res = fmaxf(p - q, 0.f);
+    has_res |= res > 0.f;
+    out_r[v] = logf(res + 1e-30f);
+  }
+  if (__syncthreads_or(has_res)) return;
+  for (int v = threadIdx.x; v < V; v += kThreads)
+    out_r[v] = load_row(rt, lt_bf16, v) / t;
+}
+
 }  // namespace
 
 extern "C" int tpd_fused_sample(const void* logits, const void* temps,
@@ -202,6 +284,18 @@ extern "C" int tpd_fused_sample(const void* logits, const void* temps,
       static_cast<const int*>(gstate), static_cast<float*>(masked),
       static_cast<float*>(scaled), static_cast<int*>(greedy), V, G1,
       n_states, top_k, top_p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tpd_fused_residual(const void* lt, const void* ld,
+                                  const void* temps, void* pt, void* pd,
+                                  void* lr, int S, int k, int V, int lt_bf16,
+                                  int ld_bf16, void* stream) {
+  fused_residual_kernel<<<S * k, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      lt, ld, static_cast<const float*>(temps), static_cast<float*>(pt),
+      static_cast<float*>(pd), static_cast<float*>(lr), k, V, lt_bf16,
+      ld_bf16);
   return (int)cudaGetLastError();
 }
 

@@ -1,20 +1,21 @@
-"""The port's model family: :class:`TransformerLM` and its LM losses, its
-paged KV storage, the adapter pool and the slot-decode programs of the
-serving engine."""
+"""The port's model family: :class:`TransformerLM` and its LM losses and
+tied draft, its paged KV storage, the adapter pool and the slot-decode
+programs of the serving engine."""
 
 from tpudist_torch.models.convert import (adapter_factors_from_jax,
                                           params_from_flax)
 from tpudist_torch.models.generate import (SlotDecode, SlotState,
-                                           make_slot_decode)
+                                           make_slot_decode, spec_accept)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig
 from tpudist_torch.models.transformer import (TransformerLM,
                                               create_transformer, lm_loss,
                                               lm_loss_with_targets,
-                                              resolve_device, rope_rotate)
+                                              resolve_device, rope_rotate,
+                                              tied_draft)
 
 __all__ = [
     "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "TransformerLM",
     "adapter_factors_from_jax", "create_transformer", "lm_loss",
     "lm_loss_with_targets", "make_slot_decode", "params_from_flax",
-    "resolve_device", "rope_rotate",
+    "resolve_device", "rope_rotate", "spec_accept", "tied_draft",
 ]

@@ -15,6 +15,25 @@ adapter_id``.  Sampling goes through the fused sampling kernel:
 greedy arg-max where ``temp <= 0``, else a categorical draw from a
 per-request stream keyed by ``(seed, count)`` — independent of the slot,
 the neighbours and the block size.
+
+Speculative decoding (``spec=`` a draft :class:`~tpudist_torch.models.
+TransformerLM`, usually :func:`~tpudist_torch.models.tied_draft`) adds the
+JAX package's draft programs beside these: the draft keeps its own
+unquantized pool at the target pool's block geometry (same block ids, so
+the host allocator, prefix reuse and evict free-lists are shared) in cursor
+lockstep with the target; ``draft_propose`` runs ``K + 1`` draft decode
+steps with in-loop token feedback, and ``spec_verify`` scores the whole
+``[last, d_1..d_K]`` window in ONE target pass through the paged decode
+kernel (``s = K + 1`` queries a lane), accepts the leading prefix
+(:func:`spec_accept`, the residual prep kernel for sampled lanes), commits
+the window and rolls both cursors back to ``pos0 + emitted``.  Rejected K/V
+past a cursor is masked garbage that the next window overwrites.  The JAX
+package runs its draft on the dense gather view; the port has no gather
+path, so the draft runs on the target's kernel arms (paged prefill, paged
+decode, fused RoPE+QKV and the LoRA kernel when on), and a plain block is
+teacher-forced through the draft in one ``s = K`` window pass.  That moves
+only the draft's rounding, never the output: the target verify is the
+oracle.
 """
 
 from __future__ import annotations
@@ -27,7 +46,7 @@ from tpudist_torch.models.lora import (AdapterPool, AdapterPoolConfig,
                                       pool_collection)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig, _Paged
 from tpudist_torch.models.transformer import PagedDecode, PagedPrefill
-from tpudist_torch.ops import fused_sample_prep
+from tpudist_torch.ops import fused_residual_prep, fused_sample_prep
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -44,10 +63,13 @@ def _mulhilo(a: torch.Tensor, b: int):
 
 
 def philox_uniform(seeds: torch.Tensor, counts: torch.Tensor,
-                   n: int) -> torch.Tensor:
+                   n: int, stream: int = 0) -> torch.Tensor:
     """``[S, n]`` uniforms in (0, 1) from Philox4x32-10 keyed by each
-    lane's ``seed``, at counter ``(i, count)`` — one reproducible stream
-    per request, the same bits on every device."""
+    lane's ``seed``, at counter ``(i, count, stream)`` — one reproducible
+    stream per request, the same bits on every device.  ``stream`` picks a
+    substream (the JAX package's ``fold_in(fold_in(key, count), j)``): 0
+    the plain draws, 1 the draft's proposals, 2 the acceptance uniforms, 3
+    the residual draws of speculative decoding."""
     S = seeds.shape[0]
     dev = seeds.device
     nblk = -(-n // 4)
@@ -58,7 +80,7 @@ def philox_uniform(seeds: torch.Tensor, counts: torch.Tensor,
         S, nblk)
     c1 = (counts & _MASK32).expand(S, nblk)
     c2 = ((counts >> 32) & _MASK32).expand(S, nblk)
-    c3 = torch.zeros_like(c0)
+    c3 = torch.full_like(c0, int(stream) & _MASK32)
     for _ in range(10):
         lo0, hi0 = _mulhilo(c0, _PHILOX_M[0])
         lo1, hi1 = _mulhilo(c2, _PHILOX_M[1])
@@ -71,18 +93,19 @@ def philox_uniform(seeds: torch.Tensor, counts: torch.Tensor,
 
 def sample_tail(logits: torch.Tensor, seeds: torch.Tensor,
                 temps: torch.Tensor, counts: torch.Tensor,
-                sampled: Optional[bool] = None) -> torch.Tensor:
+                sampled: Optional[bool] = None,
+                stream: int = 0) -> torch.Tensor:
     """Per-slot next tokens ``[S]`` int32 from ``logits [S, V]`` f32: the
     fused kernel's greedy arg-max where ``temps <= 0``, else the Gumbel-max
-    draw ``argmax(scaled + g)`` with ``g`` from :func:`philox_uniform`.
-    ``sampled=False`` promises no lane has ``temp > 0`` (skips the noise);
-    ``None`` checks."""
+    draw ``argmax(scaled + g)`` with ``g`` from :func:`philox_uniform` on
+    substream ``stream``.  ``sampled=False`` promises no lane has ``temp >
+    0`` (skips the noise); ``None`` checks."""
     _, scaled, greedy = fused_sample_prep(logits, temps)
     if sampled is None:
         sampled = bool((temps > 0).any())
     if not sampled:
         return greedy
-    u = philox_uniform(seeds, counts, logits.shape[1])
+    u = philox_uniform(seeds, counts, logits.shape[1], stream)
     drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
     return torch.where(temps > 0, drawn.to(torch.int32), greedy)
 
@@ -93,7 +116,10 @@ class SlotState(NamedTuple):
     ``pos`` (filled positions), ``counts`` (tokens emitted — the sampling
     stream index), ``temps`` f32, ``seeds`` int64 and ``adapter_id`` int32
     — the lane's block in the adapter pool, the pool's ``num_blocks``
-    sentinel for a base-only lane (zeros on an engine without adapters)."""
+    sentinel for a base-only lane (zeros on an engine without adapters).
+    The JAX state's per-lane ``accepted`` / ``drafted`` tallies have no
+    reader; the engine counts acceptance from ``spec_verify``'s packed
+    fetch."""
 
     last_tok: torch.Tensor
     active: torch.Tensor
@@ -102,6 +128,84 @@ class SlotState(NamedTuple):
     temps: torch.Tensor
     seeds: torch.Tensor
     adapter_id: torch.Tensor
+
+
+def spec_accept(state: SlotState, logits: torch.Tensor,
+                drafts: torch.Tensor, dlogits: torch.Tensor,
+                spec_on: torch.Tensor, rem: torch.Tensor,
+                sampled: Optional[bool] = None):
+    """Leading-prefix acceptance over a verify window, the correction /
+    bonus token and the per-lane budget clamp — the JAX ``_accept``.
+
+    ``logits [S, k+1, V]`` f32: row ``i`` scores the token after ``[last,
+    d_1..d_i]``; ``drafts [k, S]``, ``dlogits [k, S, V]`` the draft's
+    proposals and logits; ``spec_on [S]`` bool, ``rem [S]`` each lane's
+    remaining budget.  Greedy lanes accept while the draft equals the
+    target's arg-max (from the fused sampling kernel), so their stream is the
+    sequential decode's.  Sampled lanes accept ``d`` iff ``u · pd(d) <=
+    pt(d)`` and on a rejection draw from ``max(pt - pd, 0)`` (the residual
+    prep kernel); ``u`` is substream 2 and the residual draw substream 3 of
+    :func:`philox_uniform` at that token's count.  A row with no pending
+    draft — the bonus row, or row 0 of a spec-off lane — draws on substream
+    0 through :func:`sample_tail`, as the non-speculative engine does at the
+    same count.  The emitted count is clamped to ``rem``; a clamped lane's
+    last token is its last accepted draft.
+
+    Returns ``(x, a_raw, inc, out)``: the last emitted token ``[S]``, the
+    unclamped accept count, the emitted count (0 on inactive lanes) and the
+    emitted tokens ``[S, k+1]`` (zero past ``inc``)."""
+    S, k1, V = logits.shape
+    k = k1 - 1
+    dev = logits.device
+    active = state.active
+    greedy = state.temps <= 0
+    if sampled is None:
+        sampled = bool((state.temps > 0).any())
+    d = drafts.t().long()                                    # [S, k]
+    ar = torch.arange(k1, device=dev)
+    call = state.counts.long()[:, None] + ar[None]           # [S, k+1]
+
+    def per_row(t, n):
+        return t[:, None].expand(S, n).reshape(-1)
+
+    # the arg-max rows of greedy lanes and the plain draws of sampled ones
+    rows = sample_tail(logits.reshape(S * k1, V), per_row(state.seeds, k1),
+                       per_row(state.temps, k1), call.reshape(-1),
+                       sampled).reshape(S, k1).long()
+    pt, pd, res_logits = fused_residual_prep(
+        logits[:, :k].contiguous(), dlogits.transpose(0, 1).contiguous(),
+        state.temps)
+    acc = d == rows[:, :k]
+    res_rows = torch.zeros_like(d)
+    if sampled:
+        seeds_k = per_row(state.seeds, k)
+        cidx = call[:, :k].reshape(-1)
+        u = philox_uniform(seeds_k, cidx, 1, stream=2).reshape(S, k)
+        pt_d = pt.gather(-1, d[..., None])[..., 0]
+        pd_d = pd.gather(-1, d[..., None])[..., 0]
+        acc = torch.where(greedy[:, None], acc, u * pd_d <= pt_d)
+        g = torch.log(-torch.log(philox_uniform(seeds_k, cidx, V, stream=3)))
+        res_rows = torch.argmax(res_logits.reshape(S * k, V) - g,
+                                dim=-1).reshape(S, k)
+    acc = acc & (spec_on & active)[:, None]
+    a_raw = torch.cumprod(acc.long(), dim=1).sum(1)
+    a = torch.minimum(a_raw, torch.clamp(rem.long() - 1, min=0))
+    row_p = rows.gather(1, a[:, None])[:, 0]
+    row_r = torch.cat([res_rows, rows[:, -1:]], 1).gather(1, a[:, None])[:, 0]
+    # row a rejected a pending draft: residual draw; row k (or a spec-off
+    # lane's row 0) has no pending draft: the plain draw
+    specced = spec_on & active & (a < k) & ~greedy
+    x = torch.where(specced, row_r, row_p)
+    clamp_d = d.gather(1, a.clamp(max=k - 1)[:, None])[:, 0]
+    x = torch.where(a < a_raw, clamp_d, x)
+    inc = torch.where(active, a + 1, torch.zeros_like(a))
+    dpad = torch.cat([d, torch.zeros_like(d[:, :1])], 1)
+    out = torch.where(ar[None] < a[:, None], dpad,
+                      torch.where(ar[None] == a[:, None], x[:, None],
+                                  torch.zeros_like(dpad)))
+    out = torch.where(active[:, None], out, torch.zeros_like(out))
+    return (x.to(torch.int32), a_raw.to(torch.int32), inc.to(torch.int32),
+            out.to(torch.int32))
 
 
 class SlotDecode(NamedTuple):
@@ -117,6 +221,16 @@ class SlotDecode(NamedTuple):
     evict: Callable
     prefill_chunk: Callable
     paged: _Paged
+    # -- speculative decoding (``spec=``), else None: see make_slot_decode
+    init_draft: Optional[Callable] = None
+    draft_prefill: Optional[Callable] = None
+    draft_extend: Optional[Callable] = None
+    draft_evict: Optional[Callable] = None
+    draft_arm: Optional[Callable] = None
+    draft_track: Optional[Callable] = None
+    draft_propose: Optional[Callable] = None
+    spec_verify: Optional[Callable] = None
+    draft_paged: Optional[_Paged] = None
 
 
 def make_slot_decode(model, num_slots: int, prefill_pad: int,
@@ -124,8 +238,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                      prefill_kernel: bool = True,
                      sample_kernel: bool = True, fused_rope: bool = False,
                      lora_kernel: bool = False,
-                     adapters: Optional[AdapterPoolConfig] = None
-                     ) -> SlotDecode:
+                     adapters: Optional[AdapterPoolConfig] = None,
+                     spec=None) -> SlotDecode:
     """Build the slot programs over ``model`` (a
     :class:`~tpudist_torch.models.TransformerLM` on its serving device):
 
@@ -160,7 +274,31 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
     the port always takes the pool form, so either value runs the same
     kernel path.  Only the kernel configuration is ported; other engine
     paths raise ``NotImplementedError``.  Pools update in place (see
-    :mod:`tpudist_torch.models.paged`)."""
+    :mod:`tpudist_torch.models.paged`).
+
+    ``spec`` (a draft :class:`~tpudist_torch.models.TransformerLM` on the
+    same device, sharing ``vocab`` and ``max_len``) adds the speculative
+    programs (module doc):
+
+    - ``init_draft()`` — the empty draft pool (a :class:`PagedKV`);
+    - ``draft_prefill(dkv, tables, poss, prompts, clens, dsts, aids=None,
+      apool=None)`` and ``draft_extend(dkv, slot, chunk, clen, aids=None,
+      apool=None)`` — the draft twins of ``insert_batch`` /
+      ``prefill_extend``'s cache half (``aids [S]``: each lane's adapter
+      block);
+    - ``draft_evict(dkv, slot, free_ids)``;
+    - ``draft_track(state, dkv, prev_last [S], toks [K, S], apool=None)`` —
+      teacher-force a plain block's emitted tokens through the draft;
+    - ``draft_propose(state, dkv, k, sampled=None, apool=None)`` → ``(dkv,
+      drafts [k, S], dlogits [k, S, V])``;
+    - ``spec_verify(state, pkv, dkv, drafts, dlogits, spec_on [S], rem [S],
+      sampled=None, apool=None)`` → ``(state, pkv, dkv, packed [S, k+3])``:
+      column 0 the emitted count, 1 the unclamped accept count, 2.. the
+      emitted tokens.
+
+    The tied draft shares its lane's adapter (its blocks are the target's
+    first layers, so they read the pool's first layer slices); a loaded
+    draft of another projection geometry runs base-only."""
     if attn_kernel != "paged":
         raise NotImplementedError(
             f"attn_kernel={attn_kernel!r}: only the paged decode kernel is "
@@ -216,24 +354,41 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                     table=table.to(torch.int32).contiguous(),
                     pos0=pos0.to(torch.int32).contiguous())
 
-    @torch.no_grad()
-    def prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask, ads=None):
-        wtables = pg.write_tables(rows, poss, clens, prefill_pad, lane_mask)
+    def _prefill_on(mdl, pgx: _Paged, pkv, rows, poss, clens, prompts,
+                    lane_mask, ads):
+        """One batched paged-prefill forward of ``mdl`` over its pool
+        ``pkv`` (geometry ``pgx``), the touched blocks committed."""
+        wtables = pgx.write_tables(rows, poss, clens, prefill_pad, lane_mask)
         pool = _pool(pkv, rows, poss)
         pool.update(clen=clens.to(torch.int32).contiguous(),
                     wtable=wtables.contiguous())
-        ctx = PagedPrefill(pool, model.rope, model.sliding_window,
+        ctx = PagedPrefill(pool, mdl.rope, mdl.sliding_window,
                            fused_rope=fused_rope, adapters=ads)
-        logits = model(prompts, ctx).float()
+        logits = mdl(prompts, ctx).float()
         n = wtables.numel()
 
         def flat(i):
             t = torch.stack([w[i] for w in ctx.writes])  # [L, S, Mw, ...]
             return t.reshape((t.shape[0], n) + t.shape[3:])
 
-        pg.commit_quantized(pkv, wtables.reshape(n), flat(0), flat(1),
-                            flat(2), flat(3))
+        pgx.commit_quantized(pkv, wtables.reshape(n), flat(0), flat(1),
+                             flat(2), flat(3))
         return pkv, logits
+
+    def _window(mdl, pool, wk, wv, cursor, active, toks, ads):
+        """One paged-decode forward of ``mdl``: ``toks [S, s]`` at each
+        lane's ``cursor``, their K/V appended to the window buffers
+        ``wk``/``wv`` (``pool`` holds the dispatch-start ``pos0``) →
+        logits ``[S, s, V]`` f32."""
+        ctx = PagedDecode(pool, wk, wv, cursor, active, mdl.rope,
+                          mdl.sliding_window, fused_rope=fused_rope,
+                          adapters=ads)
+        return mdl(toks, ctx).float()
+
+    @torch.no_grad()
+    def prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask, ads=None):
+        return _prefill_on(model, pg, pkv, rows, poss, clens, prompts,
+                           lane_mask, ads)
 
     def _last(logits, clens):
         idx = (clens.long() - 1).clamp(0, logits.shape[1] - 1)
@@ -301,10 +456,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             sampled = bool((state.temps > 0).any())
         toks_all = []
         for _ in range(k):
-            ctx = PagedDecode(pool, wk, wv, cursor, active, model.rope,
-                              model.sliding_window, fused_rope=fused_rope,
-                              adapters=ads)
-            logits = model(last_tok[:, None], ctx)[:, -1].float()
+            logits = _window(model, pool, wk, wv, cursor, active,
+                             last_tok[:, None], ads)[:, -1]
             toks = sample_tail(logits, state.seeds, state.temps, counts,
                                sampled)
             last_tok = torch.where(active, toks, last_tok)
@@ -327,9 +480,155 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         state.adapter_id[slot] = aid_empty
         return state, pkv
 
-    return SlotDecode(num_slots=S, prefill_pad=prefill_pad,
-                      init_state=init_state, init_slots=pg.init,
-                      insert_batch=insert_batch,
-                      prefill_extend=prefill_extend,
-                      decode_block=decode_block, evict=evict,
-                      prefill_chunk=prefill_chunk, paged=pg)
+    progs = dict(num_slots=S, prefill_pad=prefill_pad,
+                 init_state=init_state, init_slots=pg.init,
+                 insert_batch=insert_batch, prefill_extend=prefill_extend,
+                 decode_block=decode_block, evict=evict,
+                 prefill_chunk=prefill_chunk, paged=pg)
+    if spec is None:
+        return SlotDecode(**progs)
+
+    # -- speculative decoding ------------------------------------------------
+    draft = spec
+    if int(draft.vocab) != int(model.vocab):
+        raise ValueError(f"draft vocab {draft.vocab} != target vocab "
+                         f"{model.vocab}")
+    if int(draft.max_len) != int(model.max_len):
+        raise ValueError(
+            f"draft max_len {draft.max_len} != target max_len "
+            f"{model.max_len} (draft and target cursors move in lockstep)")
+    if draft.tok_embed.device != device:
+        raise ValueError(f"draft on {draft.tok_embed.device}, target on "
+                         f"{device}")
+    # the tied draft IS the target's first layers, so it reads the pool's
+    # first layer slices; a loaded draft does too iff its projection
+    # geometry matches, else it runs base-only (acceptance only)
+    d_lora = adapters is not None and (
+        draft.d_model == model.d_model and draft.d_ff == model.d_ff
+        and draft.n_heads == model.n_heads and draft.n_kv == model.n_kv
+        and draft.n_layers <= model.n_layers)
+    # the draft pool: the target pool's block geometry (block ids are
+    # shared), the draft's bytes, always unquantized
+    pg_d = _Paged(draft, S, PagedKVConfig(paged.num_blocks, paged.block_size,
+                                          False), device)
+
+    def _d_ads(apool, ids):
+        return _ads(apool, ids) if d_lora else None
+
+    def _aids(aids):
+        return aids if aids is not None else torch.full(
+            (S,), aid_empty, dtype=torch.int32, device=device)
+
+    @torch.no_grad()
+    def draft_prefill(dkv, tables, poss, prompts, clens, dsts, aids=None,
+                      apool=None):
+        keep = dsts < S
+        dkv, _ = _prefill_on(draft, pg_d, dkv, tables, poss, clens, prompts,
+                             keep, _d_ads(apool, _aids(aids)))
+        d = dsts[keep].long()
+        dkv.table[d] = tables[keep].to(torch.int32)
+        dkv.cursor[d] = (poss + clens).to(torch.int32)[keep]
+        return dkv
+
+    @torch.no_grad()
+    def draft_extend(dkv, slot: int, chunk, clen: int, aids=None,
+                     apool=None):
+        onehot = lanes == slot
+        prompts = torch.zeros((S, prefill_pad), dtype=torch.int32,
+                              device=device)
+        prompts[slot] = chunk.to(torch.int32)
+        clens = torch.where(onehot, int(clen), 0).to(torch.int32)
+        dkv, _ = _prefill_on(draft, pg_d, dkv, dkv.table, dkv.cursor.clone(),
+                             clens, prompts, onehot,
+                             _d_ads(apool, _aids(aids)))
+        dkv.cursor[slot] += int(clen)
+        return dkv
+
+    @torch.no_grad()
+    def draft_evict(dkv, slot: int, free_ids):
+        pg_d.release(dkv, slot, free_ids)
+        return dkv
+
+    def draft_arm(*_args, **_kw):
+        raise NotImplementedError(
+            "draft_arm (a cold draft lane after a KV handoff import) belongs "
+            "to the lane handoff, not ported to tpudist_torch yet "
+            "(ROADMAP.md queue A item 8)")
+
+    @torch.no_grad()
+    def draft_track(state, dkv, prev_last, toks, apool=None):
+        k = toks.shape[0]
+        active = state.active.clone()
+        pos0 = dkv.cursor.clone()
+        fed = torch.cat([prev_last[None].to(torch.int32),
+                         toks[:-1].to(torch.int32)], 0).t().contiguous()
+        wk, wv = pg_d.window_view(k)
+        _window(draft, _pool(dkv, dkv.table, pos0), wk, wv, pos0, active,
+                fed, _d_ads(apool, state.adapter_id))
+        pg_d.commit_window(dkv, wk, wv, pos0, k, active)
+        dkv.cursor.copy_(pos0 + k * active.to(torch.int32))
+        return dkv
+
+    @torch.no_grad()
+    def draft_propose(state, dkv, k: int, sampled=None, apool=None):
+        ads = _d_ads(apool, state.adapter_id)
+        active = state.active.clone()
+        inc = active.to(torch.int32)
+        pos0 = dkv.cursor.clone()
+        wk, wv = pg_d.window_view(k + 1)
+        pool = _pool(dkv, dkv.table, pos0)
+        if sampled is None:
+            sampled = bool((state.temps > 0).any())
+        cursor, tok = pos0.clone(), state.last_tok
+        drafts, dlogits = [], []
+        # step k feeds d_k, so an all-accepted verify leaves both cursors
+        # equal; its logits are not needed
+        for i in range(k + 1):
+            lg = _window(draft, pool, wk, wv, cursor, active, tok[:, None],
+                         ads)[:, -1]
+            if i == k:
+                break
+            d = sample_tail(lg, state.seeds, state.temps, state.counts + i,
+                            sampled, stream=1)
+            tok = torch.where(active, d, state.last_tok)
+            drafts.append(tok)
+            dlogits.append(lg)
+            cursor = cursor + inc
+        pg_d.commit_window(dkv, wk, wv, pos0, k + 1, active)
+        dkv.cursor.copy_(pos0 + (k + 1) * inc)
+        return dkv, torch.stack(drafts), torch.stack(dlogits)
+
+    @torch.no_grad()
+    def spec_verify(state, pkv, dkv, drafts, dlogits, spec_on, rem,
+                    sampled=None, apool=None, grammar=None,
+                    logprobs: int = 0):
+        if grammar is not None or logprobs:
+            raise NotImplementedError(
+                "grammar masking and logprobs in the speculative verify "
+                "belong to structured output, not ported to tpudist_torch "
+                "yet (ROADMAP.md queue A item 5)")
+        k = drafts.shape[0]
+        active = state.active.clone()
+        pos0 = pkv.cursor.clone()
+        toks = torch.cat([state.last_tok[None], drafts.to(torch.int32)],
+                         0).t().contiguous()                  # [S, k+1]
+        wk, wv = pg.window_view(k + 1)
+        logits = _window(model, _pool(pkv, pkv.table, pos0), wk, wv, pos0,
+                         active, toks, _ads(apool, state.adapter_id))
+        x, a_raw, inc, out = spec_accept(state, logits, drafts, dlogits,
+                                         spec_on, rem, sampled)
+        pg.commit_window(pkv, wk, wv, pos0, k + 1, active)
+        new_cur = (pos0 + inc).to(torch.int32)
+        pkv.cursor.copy_(new_cur)
+        dkv.cursor.copy_(new_cur)
+        state.last_tok.copy_(torch.where(active, x, state.last_tok))
+        state.counts.add_(inc)
+        state.pos.add_(inc)
+        packed = torch.cat([inc[:, None], a_raw[:, None], out], 1)
+        return state, pkv, dkv, packed
+
+    return SlotDecode(**progs, init_draft=pg_d.init,
+                      draft_prefill=draft_prefill, draft_extend=draft_extend,
+                      draft_evict=draft_evict, draft_arm=draft_arm,
+                      draft_track=draft_track, draft_propose=draft_propose,
+                      spec_verify=spec_verify, draft_paged=pg_d)

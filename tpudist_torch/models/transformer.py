@@ -384,6 +384,31 @@ class TransformerLM(nn.Module):
         return F.linear(x.to(self.dtype), self.head.to(self.dtype))
 
 
+def tied_draft(model: TransformerLM, layers: int) -> TransformerLM:
+    """The weight-tied shallow draft of speculative decoding: a
+    :class:`TransformerLM` view over ``model``'s embeddings, first
+    ``layers`` blocks, final LayerNorm and head — the SAME ``Parameter``
+    objects (no copy, zero extra bytes), the counterpart of
+    :func:`tpudist.models.generate.tied_draft`.  Draft quality moves only
+    the acceptance rate, never the output: the target verify is the
+    oracle."""
+    n = int(model.n_layers)
+    if not 1 <= layers <= n:
+        raise ValueError(f"draft layers {layers} must be in [1, {n}]")
+    draft = TransformerLM.__new__(TransformerLM)
+    nn.Module.__init__(draft)
+    for name in ("vocab", "d_model", "n_heads", "d_ff", "max_len", "rope",
+                 "sliding_window", "n_kv_heads", "dtype", "param_dtype"):
+        setattr(draft, name, getattr(model, name))
+    draft.n_layers = int(layers)
+    draft.tok_embed = model.tok_embed
+    draft.pos_embed = model.pos_embed
+    draft.blocks = nn.ModuleList(model.blocks[:layers])
+    draft.ln_f = model.ln_f
+    draft.head = model.head
+    return draft
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
     """flax's lecun_normal: truncated normal (±2σ), variance 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978

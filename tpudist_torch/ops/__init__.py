@@ -16,15 +16,17 @@ from tpudist_torch.ops.flash_attention import (FlashAttention,
 from tpudist_torch.ops.fused_linear import (fused_rope_qkv,
                                             fused_rope_qkv_reference,
                                             lora_delta, lora_delta_reference)
-from tpudist_torch.ops.fused_sample import (fused_sample_prep,
+from tpudist_torch.ops.fused_sample import (fused_residual_prep,
+                                            fused_residual_reference,
+                                            fused_sample_prep,
                                             fused_sample_reference)
 from tpudist_torch.ops.paged_attention import (paged_attention,
                                                paged_attention_reference)
 from tpudist_torch.ops.paged_prefill import (paged_prefill_attention,
                                              paged_prefill_reference)
 
-#: every kernel wrapper of the port (serving, training and adapter-serving
-#: slices), by kernel name
+#: every kernel wrapper of the port (serving, training, adapter-serving and
+#: speculative-decoding slices), by kernel name
 KERNEL_WRAPPERS = {
     "paged_attention": paged_attention,
     "paged_prefill": paged_prefill_attention,
@@ -34,6 +36,7 @@ KERNEL_WRAPPERS = {
     "flash_backward_dkv": flash_backward_dkv,
     "fused_rope_qkv": fused_rope_qkv,
     "lora_delta": lora_delta,
+    "fused_residual_prep": fused_residual_prep,
 }
 
 
@@ -52,7 +55,8 @@ __all__ = [
     "FlashAttention", "KERNEL_WRAPPERS", "flash_attention",
     "flash_attention_with_lse", "flash_backward_dkv", "flash_backward_dq",
     "flash_backward_reference", "flash_forward", "flash_forward_reference",
-    "fused_rope_qkv", "fused_rope_qkv_reference", "fused_sample_prep",
+    "fused_residual_prep", "fused_residual_reference", "fused_rope_qkv",
+    "fused_rope_qkv_reference", "fused_sample_prep",
     "fused_sample_reference", "lora_delta", "lora_delta_reference",
     "launch_counts", "paged_attention", "paged_attention_reference",
     "paged_prefill_attention", "paged_prefill_reference",

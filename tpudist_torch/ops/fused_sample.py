@@ -1,12 +1,15 @@
-"""Fused sampling prep: the decode step's tail in one pass.
+"""Fused sampling prep: the decode step's tail in one pass, and the
+speculative verify's residual prep.
 
-The PyTorch/CUDA counterpart of :func:`tpudist.ops.fused_sample.
-fused_sample_prep`.  On a CUDA tensor :func:`fused_sample_prep` launches the
-hand-written kernel ``csrc/fused_sample.cu`` (grammar mask, greedy arg-max,
-temperature scale, top-k / top-p filters); on a CPU tensor it runs
+The PyTorch/CUDA counterpart of :mod:`tpudist.ops.fused_sample`.  On a CUDA
+tensor :func:`fused_sample_prep` launches the hand-written kernel
+``csrc/fused_sample.cu`` (grammar mask, greedy arg-max, temperature scale,
+top-k / top-p filters); on a CPU tensor it runs
 :func:`fused_sample_reference`.  The filters sort each row in one CTA's
 shared memory, so with a filter on the kernel takes rows of at most
-:data:`MAX_SORT_V` values and raises above.
+:data:`MAX_SORT_V` values and raises above.  :func:`fused_residual_prep`
+(the same source's second entry point, any vocab) and
+:func:`fused_residual_reference` follow the same rule.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ def _declare(lib) -> None:
     lib.tpd_fused_sample.argtypes = ([p] * 8 + [i] * 5 + [ctypes.c_float]
                                      + [p])
     lib.tpd_fused_sample.restype = i
+    lib.tpd_fused_residual.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.tpd_fused_residual.restype = i
 
 
 def fused_sample_prep(logits, temps, gallow=None, gidx=None, gstate=None, *,
@@ -113,3 +118,67 @@ def fused_sample_reference(logits, temps, gallow=None, gidx=None,
             float("inf"), device=sc.device)).amin(dim=-1, keepdim=True)
         sc = torch.where(sc < cutoff, torch.tensor(neg, device=sc.device), sc)
     return lg, sc, greedy
+
+
+def fused_residual_prep(lt, ld, temps):
+    """Speculative-verify prep over the target and draft logits ``lt`` /
+    ``ld [S, k, V]`` (f32 or bf16) at the ``k`` draft positions, with
+    ``temps [S]`` f32.  Returns ``(pt, pd, res_logits)``, each ``[S, k, V]``
+    f32: ``softmax(l / max(temp, 1e-6))`` of both, and the residual sampling
+    logits ``log(max(pt - pd, 0) + 1e-30)`` — ``lt / temp`` on a row whose
+    residual is empty.  A CUDA tensor launches the kernel (or raises); a CPU
+    tensor runs :func:`fused_residual_reference`."""
+    if lt.device.type == "cpu":
+        return fused_residual_reference(lt, ld, temps)
+    if lt.device.type != "cuda":
+        raise ValueError(f"fused_residual_prep runs on cuda or cpu, not "
+                         f"{lt.device}")
+    for t in (lt, ld, temps):
+        if t.device != lt.device or not t.is_contiguous():
+            raise ValueError("fused_residual_prep takes contiguous tensors "
+                             "on one device")
+    if lt.dim() != 3 or ld.shape != lt.shape:
+        raise ValueError(f"lt / ld must both be [S, k, V], got "
+                         f"{tuple(lt.shape)} and {tuple(ld.shape)}")
+    S, k, V = lt.shape
+    if temps.dtype != torch.float32 or temps.shape != (S,):
+        raise TypeError("temps must be float32 [S]")
+    for t in (lt, ld):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"lt / ld must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+    pt, pd, lr = (torch.empty((S, k, V), dtype=torch.float32,
+                              device=lt.device) for _ in range(3))
+    if pt.numel() == 0:
+        return pt, pd, lr
+    lib = _build.load("fused_sample", _declare)
+    ptr = _build.ptr
+    rc = lib.tpd_fused_residual(
+        ptr(lt), ptr(ld), ptr(temps), ptr(pt), ptr(pd), ptr(lr), S, k, V,
+        int(lt.dtype == torch.bfloat16), int(ld.dtype == torch.bfloat16),
+        _build.stream_of(lt.device))
+    _build.check(lib, rc, "fused_residual_prep")
+    fused_residual_prep.launches += 1
+    return pt, pd, lr
+
+
+#: kernel launches since the last reset (the main path's proof of use)
+fused_residual_prep.launches = 0
+
+
+def fused_residual_reference(lt, ld, temps):
+    """Plain PyTorch version of :func:`fused_residual_prep` (the JAX
+    ``_accept`` formulas: IEEE divisions by a tensor, ``exp(x - max) /
+    sum``)."""
+    temp = torch.clamp(temps.float(), min=1e-6)[:, None, None]
+    xt = lt.float() / temp
+    xd = ld.float() / temp
+
+    def softmax(x):
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        return e / e.sum(dim=-1, keepdim=True)
+
+    pt, pd = softmax(xt), softmax(xd)
+    res = torch.clamp(pt - pd, min=0.0)
+    has_res = (res > 0).any(dim=-1, keepdim=True)
+    return pt, pd, torch.where(has_res, torch.log(res + 1e-30), xt)

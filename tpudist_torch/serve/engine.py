@@ -5,7 +5,9 @@ the fused sampling kernel, with or without a prefix cache, optionally the
 fused RoPE+QKV kernel (``fused_rope``) and per-tenant LoRA adapters
 (``adapters``: a factor pool beside the KV pool, named adapters bound to
 lanes by the host registry of :mod:`tpudist_torch.serve.adapters`, each
-lane's delta from the LoRA gather-matmul kernel).
+lane's delta from the LoRA gather-matmul kernel), optionally speculative
+decoding (``spec_draft``: a draft proposes ``K`` tokens a lane, the target
+verifies them in one pass and emits ``accepted + 1``).
 
 The engine is the device half: ``num_slots`` KV lanes over the slot
 programs of :func:`tpudist_torch.models.make_slot_decode`, plus host shadow
@@ -14,6 +16,13 @@ block-size decisions.  Per engine iteration: ONE batched prefill for an
 admission batch, one chunk per still-prefilling slot (chunked prefill), and
 ONE decode block of ``K`` steps followed by ONE fetch of the ``K × S``
 tokens.  Single-threaded by contract.
+
+On a speculative engine the decode iteration is :meth:`SlotEngine.
+spec_decode_block`: one ``draft_propose`` (``K + 1`` draft steps), one
+``spec_verify`` (one target pass over the ``K + 1``-token window, the
+acceptance, the rollback) and one fetch of the packed ``[S, K + 3]``
+tokens.  Every plain block of a spec engine is draft-tracked, so the draft
+never desyncs from the target.
 """
 
 from __future__ import annotations
@@ -28,16 +37,18 @@ from tpudist_torch import ops
 from tpudist_torch.models import lora as _lora
 from tpudist_torch.models.generate import make_slot_decode
 from tpudist_torch.models.paged import PagedKVConfig
-from tpudist_torch.models.transformer import resolve_device
+from tpudist_torch.models.transformer import (TransformerLM, resolve_device,
+                                              tied_draft)
 from tpudist_torch.serve.adapters import (AdapterMissingError,
                                           AdapterRegistry)
 from tpudist_torch.serve.paged_alloc import BlockAllocator
 
 #: ``start_batch`` item: (slot, prompt_1d_int32, temperature, seed, max_new)
 #: plus an optional 6th element — the prompt's prefix hash chain — an
-#: optional 7th — the speculative-decoding opt (speculation is not ported;
-#: the flag is accepted and ignored, as a non-speculative JAX engine
-#: ignores it) — an optional 8th — the lane's adapter NAME (None =
+#: optional 7th — the speculative-decoding opt (True/None = speculate;
+#: False rides the spec programs with acceptance forced to zero and draws
+#: the non-speculative stream; ignored by a non-spec engine) — an optional
+#: 8th — the lane's adapter NAME (None =
 #: base-only) — and an optional 9th — a grammar (structured output is not
 #: ported: anything but None raises)
 InsertItem = Tuple[int, np.ndarray, float, int, int]
@@ -62,7 +73,13 @@ class SlotEngine:
     ``decoding``, ``pos`` (filled positions), ``counts`` (tokens emitted),
     ``budget`` (``max_new``) and ``temps``; the authoritative state lives on
     the device.  ``model`` is moved to ``device`` (``"cuda"`` by default;
-    a box without CUDA raises unless ``device="cpu"``)."""
+    a box without CUDA raises unless ``device="cpu"``).
+
+    ``spec_draft`` turns speculative decoding on: an int ties the target's
+    first that many layers (:func:`~tpudist_torch.models.tied_draft`), a
+    :class:`~tpudist_torch.models.TransformerLM` is a loaded draft (same
+    ``vocab`` and ``max_len``); ``spec_k`` is the most tokens drafted per
+    block."""
 
     def __init__(self, model, *, num_slots: int = 4,
                  prefill_pad: Optional[int] = None,
@@ -77,7 +94,7 @@ class SlotEngine:
                  lora_kernel: bool = False,
                  adapters: bool = False, adapter_blocks: int = 8,
                  adapter_rank: int = 8,
-                 mesh=None, spec_draft=None,
+                 mesh=None, spec_draft=None, spec_k: int = 4,
                  device="cuda"):
         # the JAX engine's rules for the kernel family's knobs (env-free
         # here; ServeConfig.from_env parses TPUDIST_SERVE_* once)
@@ -97,8 +114,6 @@ class SlotEngine:
                 "prefill_kernel=True (TPUDIST_SERVE_LORA_KERNEL)")
         if mesh is not None:
             raise _unported("mesh (the SPMD serving mesh)", "8")
-        if spec_draft is not None:
-            raise _unported("spec_draft (speculative decoding)", "3")
         if not paged:
             raise _unported("paged=False (the dense slot cache)", "5")
         if attn_kernel != "paged":
@@ -139,11 +154,27 @@ class SlotEngine:
         self.paged_cfg = PagedKVConfig(num_blocks=int(kv_blocks),
                                        block_size=kv_block,
                                        quantized=bool(kv_int8))
+        # -- speculative decoding: an int ties the target's first N layers
+        # (zero extra parameters), a TransformerLM is a loaded draft
+        self.spec = spec_draft is not None
+        self.spec_k = max(1, int(spec_k))
+        self.draft_model: Optional[TransformerLM] = None
+        if isinstance(spec_draft, bool):
+            raise TypeError("spec_draft is a layer count or a TransformerLM")
+        if isinstance(spec_draft, int):
+            self.draft_model = tied_draft(model, spec_draft)
+        elif isinstance(spec_draft, TransformerLM):
+            self.draft_model = spec_draft.to(self.device).requires_grad_(
+                False)
+        elif spec_draft is not None:
+            raise TypeError(f"spec_draft must be an int or a TransformerLM, "
+                            f"got {type(spec_draft).__name__}")
         self.fns = make_slot_decode(model, num_slots, prefill_pad,
                                     self.paged_cfg,
                                     fused_rope=self.fused_rope,
                                     lora_kernel=self.lora_kernel,
-                                    adapters=self.adapter_cfg)
+                                    adapters=self.adapter_cfg,
+                                    spec=self.draft_model)
         self.alloc = BlockAllocator(self.paged_cfg.num_blocks, kv_block,
                                     self.max_len,
                                     prefix_cache_blocks=prefix_cache_blocks)
@@ -152,22 +183,42 @@ class SlotEngine:
         self.block = max(1, int(decode_block if decode_block else 8))
         self.state = self.fns.init_state()
         self.cache = self.fns.init_slots()
+        self.dcache = self.fns.init_draft() if self.spec else None
         self.occupied = np.zeros(num_slots, bool)
         self.decoding = np.zeros(num_slots, bool)
         self.pos = np.zeros(num_slots, np.int32)
         self.counts = np.zeros(num_slots, np.int32)
         self.budget = np.zeros(num_slots, np.int32)
         self.temps = np.zeros(num_slots, np.float32)
+        #: per-slot speculative opt (the host shadow of ``spec_on``)
+        self.spec_on = np.ones(num_slots, bool)
         #: slot → (full prompt, next chunk offset) for prompts longer than
         #: one prefill chunk
         self._prefill_rest: Dict[int, Tuple[np.ndarray, int]] = {}
         self.peak_occupied = 0
-        #: model forward passes run (one per prefill call, one per decode
-        #: step): each runs every layer once
+        #: target forward passes run (one per prefill call, one per decode
+        #: step or verify pass): each runs every layer once
         self.n_forwards = 0
         self.n_decode_blocks = 0
         self.n_decode_tokens = 0
+        #: target forwards of the decode arm (decode steps, verify passes)
         self.n_decode_steps = 0
+        #: draft forward passes (prefill calls, propose steps, track
+        #: passes) and those of the decode arm (propose steps, track passes)
+        self.n_draft_forwards = 0
+        self.n_draft_decode_forwards = 0
+        # speculative-decode counters (spec_stats)
+        self.n_spec_blocks = 0
+        self.n_spec_lane_passes = 0  # sum of active lanes over spec blocks
+        self.n_spec_tokens = 0
+        self.n_spec_accepted = 0
+        self.n_spec_drafted = 0
+        self.n_spec_rollbacks = 0
+        self.t_spec_draft_s = 0.0
+        self.t_spec_verify_s = 0.0
+        self.t_spec_sync_s = 0.0
+        #: adapter name → [accepted, drafted] over lanes bound to it
+        self.spec_adapter_counts: Dict[str, List[int]] = {}
         self.t_decode_dispatch_s = 0.0
         self.t_decode_sync_s = 0.0
         self.kv_read_bytes_total = 0
@@ -210,10 +261,50 @@ class SlotEngine:
             "tokens": self.n_decode_tokens,
             "forwards": self.n_forwards,
             "steps": self.n_decode_steps,
+            "draft_forwards": self.n_draft_forwards,
+            "draft_decode_forwards": self.n_draft_decode_forwards,
             "dispatch_s": self.t_decode_dispatch_s,
             "sync_s": self.t_decode_sync_s,
             "kv_read_bytes": self.kv_read_bytes_total,
         }
+
+    def spec_stats(self) -> Dict[str, object]:
+        """Speculative-decode counters: blocks, emitted tokens, drafted vs
+        accepted (``accepted_per_pass`` = tokens per lane pass,
+        ``acceptance_rate`` = accepted / drafted), rollbacks (a verify that
+        rejected a draft), the draft / verify / fetch wall split, the
+        per-adapter acceptance and the draft pool's bytes."""
+        out = {
+            "enabled": self.spec,
+            "blocks": self.n_spec_blocks,
+            "lane_passes": self.n_spec_lane_passes,
+            "tokens": self.n_spec_tokens,
+            "accepted": self.n_spec_accepted,
+            "drafted": self.n_spec_drafted,
+            "rollbacks": self.n_spec_rollbacks,
+            "accepted_per_pass": (
+                self.n_spec_tokens / self.n_spec_lane_passes
+                if self.n_spec_lane_passes else None),
+            "acceptance_rate": (self.n_spec_accepted / self.n_spec_drafted
+                                if self.n_spec_drafted else None),
+            "draft_s": self.t_spec_draft_s,
+            "verify_s": self.t_spec_verify_s,
+            "sync_s": self.t_spec_sync_s,
+            "spec_k": self.spec_k if self.spec else None,
+        }
+        if self.spec and self.spec_adapter_counts:
+            out["by_adapter"] = {
+                name: {"accepted": a, "drafted": d,
+                       "acceptance_rate": (a / d if d else None)}
+                for name, (a, d) in sorted(self.spec_adapter_counts.items())}
+        if self.spec:
+            out["draft_pool_bytes"] = self.fns.draft_paged.pool_bytes
+        return out
+
+    def swap_draft(self, new_params):
+        raise NotImplementedError(
+            "swap_draft (the draft hot-swap of tpudist.distill) is not "
+            "ported to tpudist_torch yet (ROADMAP.md queue A item 8)")
 
     def _decode_kv_read_bytes(self, pos0: np.ndarray, passes: int,
                               window_per_lane: int) -> int:
@@ -426,10 +517,13 @@ class SlotEngine:
         # validate the whole batch before touching any state
         norm = []
         taken = set()
+        spec_flags: Dict[int, bool] = {}
         adapter_names: Dict[int, Optional[str]] = {}
         for item in items:
             slot, prompt, temperature, seed, max_new = item[:5]
             hashes = tuple(item[5]) if len(item) > 5 else ()
+            spec_flags[int(slot)] = (bool(item[6]) if len(item) > 6
+                                     and item[6] is not None else True)
             adapter = item[7] if len(item) > 7 else None
             if adapter is not None and not self.has_adapter(adapter):
                 # a vanished adapter must not leak half-admitted
@@ -502,12 +596,22 @@ class SlotEngine:
         r, w = self._prefill_kv_bytes(reused_len, clens)
         self.prefill_read_bytes_total += r
         self.prefill_write_bytes_total += w
+        if self.spec:
+            # same chunks, same (host-built) table rows: the draft pool's
+            # blocks mirror the target's ids, so a reused prefix's draft
+            # K/V is already in place
+            self.dcache = self.fns.draft_prefill(
+                self.dcache, self._t(tables), self._t(reused_len),
+                self._t(prompts), self._t(clens), self._t(dsts),
+                aids=self._t(aids), apool=self.apool)
+            self.n_draft_forwards += 1
         firsts_h = firsts.cpu().numpy() if last.any() else None
         out: Dict[int, Optional[int]] = {}
         for j, (slot, prompt, temperature, _, max_new, _) in enumerate(norm):
             self.occupied[slot] = True
             self.budget[slot] = max_new
             self.temps[slot] = temperature
+            self.spec_on[slot] = spec_flags[slot]
             self.pos[slot] = reused_len[j] + clens[j]
             self.alloc.note_progress(slot, int(self.pos[slot]))
             if last[j]:
@@ -539,6 +643,11 @@ class SlotEngine:
                 self.state, self.cache, slot, self._t(chunk), clen, is_last,
                 sampled=bool(self.temps[slot] > 0), apool=self.apool)
             self.n_forwards += 1
+            if self.spec:
+                self.dcache = self.fns.draft_extend(
+                    self.dcache, slot, self._t(chunk), clen,
+                    aids=self.state.adapter_id, apool=self.apool)
+                self.n_draft_forwards += 1
             # the one-hot batched program walks every lane's prefix
             r, w = self._prefill_kv_bytes(
                 self.pos, np.where(np.arange(self.num_slots) == slot, clen,
@@ -564,9 +673,17 @@ class SlotEngine:
         one fetch of the ``K × num_slots`` tokens.  ``K = min(block, min
         remaining budget, cache headroom)`` bucketed to a power of two, so
         no slot overshoots its budget.  Returns ``(info, slot → K
-        tokens)`` (``None, {}`` when no slot is decoding)."""
+        tokens)`` (``None, {}`` when no slot is decoding).  Alone it does
+        not move a spec engine's draft: call :meth:`decode_auto` or
+        :meth:`decode_auto_plain` there."""
+        info, out, _ = self._decode_block(max_k)
+        return info, out
+
+    def _decode_block(self, max_k: Optional[int]):
+        """:meth:`decode_block` plus the block's tokens ``[K, S]`` still on
+        the device (``None`` with no decoding slot)."""
         if not self.decoding.any():
-            return None, {}
+            return None, {}, None
         dec = np.nonzero(self.decoding)[0]
         remaining = self.budget[dec] - self.counts[dec]
         if (remaining < 1).any():
@@ -600,19 +717,143 @@ class SlotEngine:
         self.kv_read_bytes_total += kv_read
         info = {"k": k, "tokens": k * len(dec), "dispatch_s": t1 - t0,
                 "sync_s": t2 - t1, "kv_read_bytes": int(kv_read)}
+        return info, out, blocks
+
+    def decode_auto_plain(self, max_k: Optional[int] = None
+                          ) -> Tuple[Optional[dict], Dict[int, List[int]]]:
+        """A plain fused block that, on a spec engine, also teacher-forces
+        its emitted tokens through the draft (``draft_track``), so draft and
+        target cursors stay in lockstep across non-speculative
+        iterations."""
+        prev_last = (self.state.last_tok.clone()
+                     if self.spec and self.decoding.any() else None)
+        info, out, blocks = self._decode_block(max_k)
+        if self.spec and info is not None:
+            self.dcache = self.fns.draft_track(
+                self.state, self.dcache, prev_last, blocks, apool=self.apool)
+            self.n_draft_forwards += 1
+            self.n_draft_decode_forwards += 1
+        if info is not None and self.spec:
+            info = {**info, "spec": False}
         return info, out
 
-    def decode_auto_plain(self, max_k: Optional[int] = None):
-        """The plain fused block (no draft model in this slice)."""
-        return self.decode_block(max_k=max_k)
+    def spec_decode_block(self, max_k: Optional[int] = None
+                          ) -> Tuple[Optional[dict], Dict[int, List[int]]]:
+        """One speculative block over every decoding slot: ``K + 1`` draft
+        steps, ONE target pass over the ``K + 1``-token window, the
+        acceptance and rollback on the device, one fetch of the packed
+        tokens.  Each lane emits ``accepted + 1`` tokens, clamped on the
+        device to its remaining budget (``rem`` rides as data).  ``K`` is
+        capped by the tightest lane's cache headroom and by the largest
+        remaining budget and bucketed to a power of two; when it comes to
+        0 the iteration is a draft-tracked plain block."""
+        if not self.spec:
+            raise RuntimeError("engine built without spec_draft")
+        if not self.decoding.any():
+            return None, {}
+        dec = np.nonzero(self.decoding)[0]
+        remaining = self.budget[dec] - self.counts[dec]
+        if (remaining < 1).any():
+            raise RuntimeError(
+                "decoding slot with exhausted budget — the caller must "
+                "evict finished slots before the next block")
+        if (self.pos[dec] >= self.max_len).any():
+            raise RuntimeError("active slot at max_len — admission budget "
+                               "violated")
+        headroom = int((self.max_len - self.pos[dec]).min())
+        cap = self.spec_k if max_k is None else max(1, int(max_k))
+        # drafting is waste when every lane needs exactly one more token
+        cap = min(cap, max(int(remaining.max()) - 1, 0),
+                  max(headroom - 1, 0))
+        k = _pow2_floor(cap) if cap >= 1 else 0
+        if k < 1:
+            return self.decode_auto_plain()
+        rem = np.zeros(self.num_slots, np.int32)
+        rem[dec] = remaining
+        pos0 = self.pos[dec].copy()
+        sampled = bool((self.temps[dec] > 0).any())
+        t0 = time.perf_counter()
+        self.dcache, drafts, dlogits = self.fns.draft_propose(
+            self.state, self.dcache, k, sampled=sampled, apool=self.apool)
+        t1 = time.perf_counter()
+        self.state, self.cache, self.dcache, packed = self.fns.spec_verify(
+            self.state, self.cache, self.dcache, drafts, dlogits,
+            self._t(self.spec_on), self._t(rem), sampled=sampled,
+            apool=self.apool)
+        t2 = time.perf_counter()
+        pk = packed.cpu().numpy()  # ONE host sync: counts + token block
+        t3 = time.perf_counter()
+        n_emit = pk[dec, 0]
+        a_raw = pk[dec, 1]
+        accepted = int(a_raw.sum())
+        drafted = int(k * self.spec_on[dec].sum())
+        emitted = int(n_emit.sum())
+        # a rollback is a verify that rejected a draft (a budget-clamped
+        # full accept is not: the drafts were right)
+        rollbacks = int(((a_raw < k) & self.spec_on[dec]).sum())
+        self.counts[dec] += n_emit
+        self.pos[dec] += n_emit
+        self.n_forwards += 1
+        self.n_decode_steps += 1  # ONE target pass per spec block
+        self.n_draft_forwards += k + 1
+        self.n_draft_decode_forwards += k + 1
+        self.n_decode_blocks += 1
+        self.n_decode_tokens += emitted
+        self.t_decode_dispatch_s += t2 - t0
+        self.t_decode_sync_s += t3 - t2
+        self.n_spec_blocks += 1
+        self.n_spec_lane_passes += len(dec)
+        self.n_spec_tokens += emitted
+        self.n_spec_accepted += accepted
+        self.n_spec_drafted += drafted
+        self.n_spec_rollbacks += rollbacks
+        self.t_spec_draft_s += t1 - t0
+        self.t_spec_verify_s += t2 - t1
+        self.t_spec_sync_s += t3 - t2
+        by_adapter: Dict[str, List[int]] = {}
+        if self.adapters is not None:
+            for j, s in enumerate(dec):
+                bound = self.slot_adapter[s]
+                if bound is None or not self.spec_on[s]:
+                    continue
+                tally = by_adapter.setdefault(bound[0], [0, 0])
+                tally[0] += int(a_raw[j])
+                tally[1] += k
+            for name, (acc, dr) in by_adapter.items():
+                tot = self.spec_adapter_counts.setdefault(name, [0, 0])
+                tot[0] += acc
+                tot[1] += dr
+        out = {int(s): [int(t) for t in pk[s, 2:2 + pk[s, 0]]] for s in dec
+               if pk[s, 0] > 0}
+        # one attention sweep over each lane's prefix + the K+1 window (the
+        # draft's own sweeps are not charged here)
+        kv_read = self._decode_kv_read_bytes(pos0, 1, k + 1)
+        self.kv_read_bytes_total += kv_read
+        info = {"spec": True, "k": k, "tokens": emitted,
+                "accepted": accepted, "drafted": drafted,
+                "rollbacks": rollbacks, "draft_s": t1 - t0,
+                "verify_s": t2 - t1, "dispatch_s": t2 - t0,
+                "sync_s": t3 - t2, "kv_read_bytes": int(kv_read)}
+        if by_adapter:
+            info["accept_by_adapter"] = {
+                n: [int(a), int(d)] for n, (a, d) in by_adapter.items()}
+        return info, out
 
-    def decode_auto(self):
-        """The serving loop's decode dispatcher."""
-        return self.decode_block()
+    def decode_auto(self) -> Tuple[Optional[dict], Dict[int, List[int]]]:
+        """The serving loop's decode dispatcher: the speculative block when
+        the engine has a draft and a decoding lane opted in, else the plain
+        block (draft-tracked on a spec engine)."""
+        if not self.spec:
+            return self.decode_block()
+        if not (self.decoding & self.spec_on).any():
+            return self.decode_auto_plain()
+        return self.spec_decode_block()
 
     def step(self) -> Dict[int, int]:
-        """One single-token decode iteration (a K=1 block)."""
-        _, toks = self.decode_block(max_k=1)
+        """One single-token decode iteration (a K=1 block; draft-tracked on
+        a spec engine)."""
+        _, toks = (self.decode_auto_plain(max_k=1) if self.spec
+                   else self.decode_block(max_k=1))
         return {s: t[0] for s, t in toks.items()}
 
     def evict(self, slot: int) -> None:
@@ -626,6 +867,11 @@ class SlotEngine:
         free_ids[:len(freed)] = freed
         self.state, self.cache = self.fns.evict(
             self.state, self.cache, int(slot), self._t(free_ids))
+        if self.spec:
+            # the same recycled block ids: the draft pool's copies are
+            # zeroed beside the target's
+            self.dcache = self.fns.draft_evict(self.dcache, int(slot),
+                                               self._t(free_ids))
         self._release_adapter(slot)
         self.occupied[slot] = False
         self.decoding[slot] = False
@@ -633,4 +879,5 @@ class SlotEngine:
         self.counts[slot] = 0
         self.budget[slot] = 0
         self.temps[slot] = 0.0
+        self.spec_on[slot] = True
         self._prefill_rest.pop(slot, None)

@@ -72,6 +72,10 @@ class Request:
     #: per-tenant adapter NAME: the request decodes through this adapter's
     #: rank-r factors from the adapter pool; None = the base model
     adapter: Optional[str] = None
+    #: speculative-decoding opt: None = the server's default (speculate
+    #: when the server has a draft), False = the plain stream even on a
+    #: spec server, True = explicit opt-in
+    spec: Optional[bool] = None
 
 
 class RequestHandle:
@@ -176,12 +180,13 @@ class Scheduler:
                temperature: float = 0.0, deadline_s: Optional[float] = None,
                seed: Optional[int] = None, eos_id: Optional[int] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
-               priority: int = 0,
-               adapter: Optional[str] = None) -> RequestHandle:
+               priority: int = 0, adapter: Optional[str] = None,
+               spec: Optional[bool] = None) -> RequestHandle:
         """Admit a request or raise :class:`AdmissionError`.  ``deadline_s``
         None inherits the default; ``<= 0`` means no deadline.
         ``adapter`` names the per-tenant LoRA adapter the lane decodes
-        through (it must be loaded — else ``adapter_missing``)."""
+        through (it must be loaded — else ``adapter_missing``); ``spec``
+        is the request's speculative-decoding opt (:class:`Request`)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if deadline_s is None:
             deadline = self.default_deadline_s
@@ -203,7 +208,8 @@ class Scheduler:
                       eos_id=None if eos_id is None else int(eos_id),
                       on_token=on_token, prefix_hashes=hashes,
                       priority=int(priority),
-                      adapter=None if adapter is None else str(adapter))
+                      adapter=None if adapter is None else str(adapter),
+                      spec=None if spec is None else bool(spec))
         with self._lock:
             reason = self._refuse_reason
             if reason is None and len(self._q) >= self.queue_limit:

@@ -1,8 +1,8 @@
 """Threaded serving front-end — the PyTorch port of
 ``tpudist/serve/server.py`` for the serving slices: ingestion, the engine
-loop, graceful drain and per-tenant LoRA adapters (telemetry, the host KV
-tier, preemption, load shedding, disaggregation and structured output are
-later slices).
+loop, graceful drain, per-tenant LoRA adapters and speculative decoding
+(telemetry, the host KV tier, preemption, load shedding, disaggregation
+and structured output are later slices).
 
 One background thread drives the engine; any number of caller threads
 submit.  Each loop iteration admits queued requests into free slots (one
@@ -33,8 +33,9 @@ class ServeConfig:
     ``paged``, ``attn_kernel="paged"``, ``prefill_kernel`` and
     ``sample_kernel`` default on; another value raises
     ``NotImplementedError`` at engine construction.  ``fused_rope``,
-    ``lora_kernel`` and the adapter knobs keep the JAX package's defaults
-    (off; 8 blocks of rank 8)."""
+    ``lora_kernel``, the adapter knobs and the speculative-decoding knobs
+    keep the JAX package's defaults (off; 8 blocks of rank 8; K = 4 with a
+    draft tied to half the target's layers)."""
 
     num_slots: int = 4
     queue_limit: int = 64
@@ -57,7 +58,24 @@ class ServeConfig:
     adapters: bool = False
     adapter_blocks: int = 8  # resident-adapter capacity (one block each)
     adapter_rank: int = 8  # LoRA rank r shared by the pool
+    # -- speculative decoding (draft-propose / batched target-verify)
+    spec: bool = False  # draft proposes K, target verifies in one pass
+    spec_k: int = 4  # drafted tokens per speculative block
+    # tied-draft depth (the target's first N layers; 0 = half the target
+    # depth); a loaded draft (a TransformerLM) in ``spec_draft`` wins
+    spec_draft_layers: int = 0
+    spec_draft: Optional[object] = None  # a TransformerLM; not env-loadable
     disagg: bool = False  # prefill/decode disaggregation (not ported)
+
+    def resolve_spec_draft(self, model):
+        """The engine-facing ``spec_draft`` (None = spec off): the loaded
+        draft if one was given, else the tied layer count."""
+        if not self.spec:
+            return None
+        if self.spec_draft is not None:
+            return self.spec_draft
+        return int(self.spec_draft_layers
+                   or max(1, int(model.n_layers) // 2))
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -88,6 +106,10 @@ class ServeConfig:
             adapters=env_flag("TPUDIST_SERVE_ADAPTERS", False),
             adapter_blocks=env_int("TPUDIST_SERVE_ADAPTER_BLOCKS", 8) or 8,
             adapter_rank=env_int("TPUDIST_SERVE_ADAPTER_RANK", 8) or 8,
+            spec=env_flag("TPUDIST_SERVE_SPEC", False),
+            spec_k=env_int("TPUDIST_SERVE_SPEC_K", 4) or 4,
+            spec_draft_layers=env_int(
+                "TPUDIST_SERVE_SPEC_DRAFT_LAYERS", 0) or 0,
             disagg=env_flag("TPUDIST_SERVE_DISAGG", False),
         )
 
@@ -122,7 +144,9 @@ class InferenceServer:
             sample_kernel=cfg.sample_kernel, fused_rope=cfg.fused_rope,
             lora_kernel=cfg.lora_kernel, adapters=cfg.adapters,
             adapter_blocks=cfg.adapter_blocks,
-            adapter_rank=cfg.adapter_rank, device=device)
+            adapter_rank=cfg.adapter_rank,
+            spec_draft=cfg.resolve_spec_draft(model), spec_k=cfg.spec_k,
+            device=device)
         hasher = None
         if cfg.prefix_cache_blocks > 0:
             from tpudist_torch.serve.paged_alloc import hash_chain
@@ -163,17 +187,20 @@ class InferenceServer:
                temperature: float = 0.0, deadline_s: Optional[float] = None,
                seed: Optional[int] = None, eos_id: Optional[int] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
-               priority: int = 0,
-               adapter: Optional[str] = None) -> RequestHandle:
+               priority: int = 0, adapter: Optional[str] = None,
+               spec: Optional[bool] = None) -> RequestHandle:
         """Thread-safe ingestion; raises
         :class:`~tpudist_torch.serve.scheduler.AdmissionError` on
         backpressure or budget rejection.  ``adapter`` names a per-tenant
         LoRA adapter loaded with :meth:`load_adapter` (else the request
-        rejects ``adapter_missing``)."""
+        rejects ``adapter_missing``).  ``spec=False`` opts the request out
+        of speculative decoding on a spec server (its stream is the plain
+        engine's)."""
         return self.scheduler.submit(
             prompt, max_new=max_new, temperature=temperature,
             deadline_s=deadline_s, seed=seed, eos_id=eos_id,
-            on_token=on_token, priority=priority, adapter=adapter)
+            on_token=on_token, priority=priority, adapter=adapter,
+            spec=spec)
 
     # -- per-tenant adapters ------------------------------------------------
 
@@ -228,6 +255,7 @@ class InferenceServer:
             "decode": self.engine.decode_stats(),
             "kv": self.engine.kv_stats(),
             "adapters": self.engine.adapter_stats(),
+            "spec": self.engine.spec_stats(),
             "loop_error": self.loop_error,
         }
 
@@ -293,7 +321,7 @@ class InferenceServer:
             h.t_admitted = t0
             r = h.request
             items.append((slot, r.prompt, r.temperature, r.seed, r.max_new,
-                          r.prefix_hashes, None, r.adapter))
+                          r.prefix_hashes, r.spec, r.adapter))
             self._slot_handles[slot] = h
         firsts = {}
         while items:
