@@ -5,8 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  Phases, in
 order; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving and training paths from
-   ``tpudist_torch/csrc`` (one ``nvcc`` per source, all at once);
+2. build every CUDA kernel of the port from ``tpudist_torch/csrc`` (one
+   ``nvcc`` per source, all at once);
 3. each serving kernel against its plain PyTorch version at the serving
    slice's shapes (8 slots, dh 128, KV block 16, 128 blocks per lane, window
    8, chunk 64, vocab 256): bf16 and int8 pools, ragged cursors with partial
@@ -37,6 +37,11 @@ order; any failure exits non-zero:
    at ``[8, 4, 256]`` (temperatures 0, 0.7, 1.3, an empty-residual row),
    ``[8, 2, 17]``, ``[8, 4, 32000]`` and a bf16 input
    (:func:`residual_close`), timed as in phase 3;
+3e. the fused toy-MLP kernel against its plain version (``MLP_CASES``: the
+   toy model's weights at batches 256, 4096, a ragged 1000 and 2**20, and
+   five 128-wide layers), within ``MLP_PLAIN_REL`` of it and
+   ``MLP_F64_REL`` of float64 numpy, timed as in phase 3 beside its bound
+   and the plain chain;
 4. the main path: ``InferenceServer`` on the d1024 / 8-layer / 8-head /
    ff4096 / vocab-256 / max_len-2048 RoPE TransformerLM in bf16 (random
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
@@ -76,7 +81,18 @@ order; any failure exits non-zero:
 8. where the training time goes: one step under ``torch.profiler``;
 9. gradients at batch 2, same weights: the bf16 kernel path against the
    card's f32 plain path (dense attention, no kernel): the loss and every
-   parameter's gradient by cosine similarity.
+   parameter's gradient by cosine similarity;
+10. the toy ``demo.py`` path: ``python -m tpudist_torch.examples.demo
+   --dry_run --seed 0`` for the reference's 1000 iterations, as a
+   subprocess under the torchrun contract at world size 1 (the NCCL group,
+   DDP, the device-group loss all-reduce) in a temporary directory, with
+   ``--backend ici`` and then ``--backend host``: exit 0, 1000 metric rows,
+   both losses from about 3 to at most 0.3;
+11. the toy benches (``tpudist_torch.bench``): ``bench_toy`` (samples/s of
+   the scanned two-model step) and ``bench_fused_mlp`` at batch 4096 (the
+   kernel against the plain chain), counts zeroed just before — the fused
+   kernel must launch once a timed call at least; then one toy step window
+   under ``torch.profiler``.
 
 It prints the kernels' JSON record and the ``nvidia-smi`` line before the
 last line, which is the contract line ``{"ok": true, "device": ...}``.
@@ -160,6 +176,27 @@ LINEAR_BOUNDS = {"bf16": (2 ** -7, 2 ** -7, 2 ** -10),
 # dk/dv step of every KV tile reads 5.2e-4, the diagonal dS·K tile of every
 # Q tile 7.4e-3.  The bounds sit 4.8 and 9 times above the sound readings.
 GRAD_COS_MIN, LOSS_REL_MAX = 0.9997, 1e-3
+# phase 3e's cases (name, weights, batch): the toy model's weights at the
+# bench's batch 4096, the JAX bench's block of 256, a ragged batch and 2**20
+# rows, and five 128-wide layers (the widest shape the JAX kernel takes)
+MLP_CASES = (("toy b256", "toy", 256), ("toy b4096", "toy", 4096),
+             ("toy ragged b1000", "toy", 1000),
+             ("toy b1048576", "toy", 1 << 20),
+             ("wide 128x5 b4096", "wide", 4096))
+# the kernel against its plain version (both full f32, summed in another
+# order; H100 readings at most 3.4e-7) and against float64 numpy
+# (bench.py's own bound; readings at most 6.2e-7), relative to the
+# output's largest magnitude
+MLP_PLAIN_REL, MLP_F64_REL = 1e-5, 1e-4
+# phase 10: the reference demo's own run (demo.py:88, 1000 iterations) from
+# seed 0.  The losses end at most 0.3 (the toy data's noise floor is an MSE
+# of 0.25); at 300 iterations neither this port (0.321 and 0.311 on the
+# CPU) nor the JAX demo (0.374 and 0.276 on its 8-device CPU mesh) is
+# there yet.
+DEMO_ITERATIONS = 1000
+DEMO_ARGS = ["--dry_run", "--seed", "0", "--total_iterations",
+             str(DEMO_ITERATIONS)]
+DEMO_LOSS_MAX = 0.3
 
 
 def log(msg: str) -> None:
@@ -1021,6 +1058,114 @@ def check_fused_linear(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the fused toy-MLP kernel against its plain version
+
+
+def mlp_weights(torch, kind: str, dev):
+    """``toy``: the toy model's own weights (``create_toy_model(0)``, the
+    bench's); ``wide``: five 128-wide layers from a numpy seed, the widest
+    shape the JAX kernel takes."""
+    import numpy as np
+
+    from tpudist_torch.models import create_toy_model
+
+    if kind == "toy":
+        return [(w.detach(), b.detach())
+                for w, b in create_toy_model(0, device=dev).layers()]
+    r = np.random.default_rng(3)
+    return [(torch.from_numpy(r.normal(scale=128 ** -0.5, size=(128, 128))
+                              .astype(np.float32)).to(dev),
+             torch.from_numpy(r.normal(scale=0.1, size=128)
+                              .astype(np.float32)).to(dev))
+            for _ in range(5)]
+
+
+def mlp_inputs(torch, kind: str, batch: int, dev):
+    import numpy as np
+
+    weights = mlp_weights(torch, kind, dev)
+    x = np.random.default_rng(batch).standard_normal(
+        (batch, weights[0][0].shape[0])).astype(np.float32)
+    return weights, torch.from_numpy(x).to(dev)
+
+
+def mlp_agreement(torch, out, ref, weights, x) -> dict:
+    """The kernel's output against its plain version and against a float64
+    numpy forward, each as the largest difference over the float64
+    output's largest magnitude; held to ``MLP_PLAIN_REL`` and
+    ``MLP_F64_REL``."""
+    import numpy as np
+
+    from tpudist_torch.bench import f64_forward
+
+    r64 = f64_forward(x.cpu().numpy(), [(w.cpu().numpy(), b.cpu().numpy())
+                                        for w, b in weights])
+    scale = max(float(np.abs(r64).max()), 1e-6)
+    o, p = out.cpu().numpy(), ref.cpu().numpy()
+    res = dict(max_abs_err=float(np.abs(o - p).max()),
+               rel_vs_plain=float(np.abs(o - p).max() / scale),
+               rel_vs_f64=float(np.abs(o - r64).max() / scale),
+               plain_rel_vs_f64=float(np.abs(p - r64).max() / scale))
+    if not (np.isfinite(o).all() and res["rel_vs_plain"] <= MLP_PLAIN_REL
+            and res["rel_vs_f64"] <= MLP_F64_REL):
+        raise AssertionError(f"fused_mlp disagrees: {res}")
+    return res
+
+
+def mlp_bound(widths, batch: int):
+    """Bytes: x and the output once each, the weights once; operations:
+    the multiply-adds, 2 a weight a row (bias adds and activations left
+    out)."""
+    pairs = list(zip(widths[:-1], widths[1:]))
+    nbytes = 4 * (batch * (widths[0] + widths[-1])
+                  + sum(a * b + b for a, b in pairs))
+    flops = 2 * batch * sum(a * b for a, b in pairs)
+    return bound(nbytes, flops, H100_F32_FLOPS)
+
+
+def check_fused_mlp(torch, dev):
+    """Phase 3e: the fused MLP kernel against its plain version at
+    ``MLP_CASES`` (:func:`mlp_agreement`), each timed as in phase 3 beside
+    its bound and the plain chain; the kernels line takes the bench's batch
+    4096."""
+    from tpudist_torch import ops
+    from tpudist_torch.ops.fused_mlp import (fused_mlp, mlp_reference,
+                                             pack_params)
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cases, err = {}, 0.0
+    with torch.no_grad():
+        for name, kind, batch in MLP_CASES:
+            weights, x = mlp_inputs(torch, kind, batch, dev)
+            packed = pack_params(weights)
+            out = fused_mlp(x, packed)
+            ref = mlp_reference(x, weights)
+            torch.cuda.synchronize()
+            agree = mlp_agreement(torch, out, ref, weights, x)
+            err = max(err, agree["max_abs_err"])
+            cases[name] = dict(
+                agree, batch=batch, widths=list(packed.widths),
+                ms=time_ms(torch, lambda: fused_mlp(x, packed), flush),
+                plain_ms=time_ms(torch, lambda: mlp_reference(x, weights),
+                                 flush),
+                bound=mlp_bound(packed.widths, batch))
+            c = cases[name]
+            log(f"kernel fused_mlp {name}: {c['ms']:.4f} ms (plain "
+                f"{c['plain_ms']:.4f} ms, bound {c['bound'][0]:.7f} ms by "
+                f"{c['bound'][1]}); vs plain {c['rel_vs_plain']:.2e}, vs "
+                f"f64 {c['rel_vs_f64']:.2e} (plain vs f64 "
+                f"{c['plain_rel_vs_f64']:.2e})")
+    main = cases["toy b4096"]
+    rec = dict(route="cuda", source="tpudist_torch/csrc/fused_mlp.cu",
+               replaces="tpudist/ops/fused_mlp.py:64", max_abs_err=err,
+               ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+               bound=main["bound"])
+    del flush
+    ops.reset_launch_counts()
+    return {"fused_mlp": rec}, cases
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path; phase 5: prompt logits on the card vs the CPU
 
 
@@ -1363,7 +1508,10 @@ def device_profile(torch, fn, prep):
         fn()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device kernels only: a user annotation (torch.optim's
+    # ``Optimizer.step#Adam.step``) spans kernels that are counted already
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     by_name = {}
     for e in kern:
         by_name[e.name] = by_name.get(e.name, 0.0) \
@@ -1613,6 +1761,86 @@ def grad_check(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-11: the toy demo.py path and the toy benches
+
+
+def demo_path(backend: str) -> dict:
+    """Phase 10: ``python -m tpudist_torch.examples.demo`` as the reference
+    runs it (``--dry_run``, ``DEMO_ARGS``), a subprocess under the torchrun
+    contract at world size 1 (so the NCCL group, DDP and the device-group
+    loss all-reduce run) in a temporary working directory.  It must exit 0
+    and log one row an iteration; both models' losses must start near 3
+    and end at most ``DEMO_LOSS_MAX`` (the last row, and the mean of the
+    last 16)."""
+    import tempfile
+
+    from tpudist_torch.runtime.bootstrap import find_free_port
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo, RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(find_free_port()))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpudist_torch.examples.demo", *DEMO_ARGS,
+             "--backend", backend], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the demo ({backend}) exited "
+                                 f"{proc.returncode}: "
+                                 f"{(proc.stdout + proc.stderr)[-3000:]}")
+        path = os.path.join(tmp, "runs", "demo_dp", "metrics.jsonl")
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+    names = ("loss/model_X", "loss/model_Y")
+    res = dict(backend=backend, wall_s=wall, rows=len(rows),
+               first={k: rows[0][k] for k in names},
+               last={k: rows[-1][k] for k in names},
+               last16_mean={k: statistics.mean(r[k] for r in rows[-16:])
+                            for k in names},
+               banner=[line for line in proc.stdout.splitlines()
+                       if "launch=" in line])
+    if len(rows) != DEMO_ITERATIONS:
+        raise AssertionError(f"the demo logged {len(rows)} rows, not "
+                             f"{DEMO_ITERATIONS}")
+    if "launch=torchrun" not in proc.stdout or \
+            "backend=nccl" not in proc.stdout:
+        raise AssertionError(f"the demo did not run on the NCCL group: "
+                             f"{res['banner']}")
+    for k in names:
+        if not (res["first"][k] >= 2.0 and res["last"][k] <= DEMO_LOSS_MAX
+                and res["last16_mean"][k] <= DEMO_LOSS_MAX):
+            raise AssertionError(f"the demo ({backend}) did not converge: "
+                                 f"{res}")
+    return res
+
+
+def bench_path(torch) -> dict:
+    """Phase 11: ``tpudist_torch.bench``'s two benches on the card, every
+    kernel count zeroed just before; the fused kernel must launch at least
+    once a timed call.  Then one toy step window (256 iterations of the
+    scanned step) under ``torch.profiler``."""
+    from tpudist_torch import ops
+    from tpudist_torch.bench import bench_fused_mlp, bench_toy, toy_setup
+
+    ops.reset_launch_counts()
+    toy = bench_toy("cuda")
+    fused = bench_fused_mlp(4096, "cuda")
+    counts = ops.launch_counts()
+    if counts["fused_mlp"] < fused["kernel_calls"]:
+        raise AssertionError(f"fused_mlp launched {counts['fused_mlp']} "
+                             f"times for {fused['kernel_calls']} timed calls")
+    states, chunk_step, x_all, y_all, idx = toy_setup(torch.device("cuda"))
+    chunk_step(states, x_all, y_all, idx)  # warm-up
+    prof = device_profile(
+        torch, lambda: chunk_step(states, x_all, y_all, idx), lambda: None)
+    return dict(toy=toy, fused_mlp=fused, launches=counts,
+                toy_window_profile=prof)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -1655,6 +1883,7 @@ def main(argv=None) -> int:
     rec.update(check_residual(torch, dev))
     flash_rec, flash_fwd_bwd = check_flash(torch, dev)
     lin_rec, lin_info = check_fused_linear(torch, dev)
+    mlp_rec, mlp_cases = check_fused_mlp(torch, dev)
 
     cpu_model = create_transformer(0, device="cpu", dtype=torch.float32,
                                    **MODEL)
@@ -1762,14 +1991,33 @@ def main(argv=None) -> int:
         f"{grads['min_cos']:.5f} ({grads['min_cos_param']}, >= "
         f"{GRAD_COS_MIN}) over {grads['params']} parameters")
 
+    demos = [demo_path(backend) for backend in ("ici", "host")]
+    for d in demos:
+        log(f"toy demo (--backend {d['backend']}, world 1 under the torchrun "
+            f"contract, NCCL): {d['rows']} rows in {d['wall_s']:.1f} s of "
+            f"process wall; losses {d['first']} -> {d['last']}, mean of "
+            f"the last 16 {d['last16_mean']}")
+    benches = bench_path(torch)
+    toy, fused = benches["toy"], benches["fused_mlp"]
+    log(f"bench_toy: {toy['value']:.1f} samples/s/card ({card}); "
+        f"bench_fused_mlp (batch 4096): kernel {fused['kernel_fused']:.1f}, "
+        f"plain chain {fused['plain_chain']:.1f} samples/s, ratio "
+        f"{fused['kernel_over_plain']:.3f}; vs f64 "
+        f"{fused['max_rel_err_vs_f64']:.2e} and "
+        f"{fused['plain_rel_err_vs_f64']:.2e}; launches "
+        f"{benches['launches']['fused_mlp']} for {fused['kernel_calls']} "
+        f"timed calls")
+    log_profile({"toy_window": benches["toy_window_profile"]})
+
     kernels = []
     launches = dict(main_path["launches"])
     launches.update({n: train["launches"][n] for n in flash_rec})
     launches.update({n: ad_path["launches"][n] for n in lin_rec})
     launches["fused_residual_prep"] = spec_path["launches"][
         "fused_residual_prep"]
+    launches["fused_mlp"] = benches["launches"]["fused_mlp"]
     for name, r in (list(rec.items()) + list(flash_rec.items())
-                    + list(lin_rec.items())):
+                    + list(lin_rec.items()) + list(mlp_rec.items())):
         kernels.append(dict(
             name=name, route=r["route"], source=r["source"],
             replaces=r["replaces"],
@@ -1788,7 +2036,8 @@ def main(argv=None) -> int:
                               rel_rms=rel_rms, top1=top1),
                   adapter_logits=dict(max_abs_err=float(ad_diff.max()),
                                       rel_rms=ad_rel_rms, top1=ad_top1,
-                                      adapter_moves=ad_moved))
+                                      adapter_moves=ad_moved),
+                  fused_mlp_cases=mlp_cases, demos=demos, benches=benches)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -25,6 +25,12 @@ The fused RoPE+QKV and LoRA gather-matmul kernels: the bounds of
 ``chip_smoke.linear_agreement`` (``LINEAR_BOUNDS``, derived there from
 readings on the card).
 
+The fused toy-MLP kernel: ``chip_smoke.mlp_agreement`` — within 1e-5 of
+its plain version and 1e-4 of a float64 numpy forward, relative to the
+output's largest magnitude (both sides full f32, summed in another
+order).  The toy demo on the card (world size 1 under the torchrun
+contract, NCCL) converges as ``chip_smoke.demo_path`` holds it.
+
 The residual prep: ``chip_smoke.residual_close``, the CPU test's
 tolerances (``pt``/``pd`` to ``rtol 2e-6, atol 1e-7``, empty-residual rows
 bit for bit, ``exp(lr)`` to ``atol 1e-6``).  A small f32 speculative engine
@@ -35,18 +41,22 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (flash_agreement, linear_agreement, lora_inputs,
-                        qkv_inputs, residual_close)
+from chip_smoke import (MLP_CASES, demo_path, flash_agreement,
+                        linear_agreement, lora_inputs, mlp_agreement,
+                        mlp_inputs, qkv_inputs, residual_close)
 from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
                          sample_case, top_p_boundary_gap)
+from tpudist_torch.bench import bench_fused_mlp
 from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                flash_backward_dq, flash_backward_reference,
                                flash_forward, flash_forward_reference,
-                               fused_residual_prep, fused_residual_reference,
+                               fused_mlp, fused_residual_prep,
+                               fused_residual_reference,
                                fused_rope_qkv, fused_rope_qkv_reference,
                                fused_sample_prep, fused_sample_reference,
                                launch_counts, lora_delta,
-                               lora_delta_reference, paged_attention,
+                               lora_delta_reference, mlp_reference,
+                               pack_params, paged_attention,
                                paged_attention_reference,
                                paged_prefill_attention,
                                paged_prefill_reference, reset_launch_counts)
@@ -489,3 +499,56 @@ def test_adapter_engine_on_the_card(cuda):
     for i, name in enumerate(names):
         if name is None:
             assert streams[True][i] == streams[False][i]
+
+
+@pytest.mark.parametrize("case", MLP_CASES, ids=[c[0] for c in MLP_CASES])
+def test_fused_mlp_matches_plain(cuda, case):
+    """Phase 3e's shapes: the kernel against its plain version and float64
+    numpy, one launch counted a call."""
+    _, kind, batch = case
+    weights, x = mlp_inputs(torch, kind, batch, cuda)
+    packed = pack_params(weights)
+    reset_launch_counts()
+    with torch.no_grad():
+        out = fused_mlp(x, packed)
+        ref = mlp_reference(x, weights)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, packed.d_out)
+    mlp_agreement(torch, out, ref, weights, x)
+    assert launch_counts()["fused_mlp"] == 1
+
+
+def test_fused_mlp_wrong_inputs_raise(cuda):
+    """A CUDA input the kernel does not take raises: no fall back to the
+    plain version, no launch counted."""
+    weights, x = mlp_inputs(torch, "toy", 64, cuda)
+    packed = pack_params(weights)
+    reset_launch_counts()
+    with pytest.raises(TypeError):
+        fused_mlp(x.double(), packed)
+    with pytest.raises(TypeError):
+        fused_mlp(torch.zeros(2, 64, device=cuda)[:, :2], packed)
+    with pytest.raises(ValueError):
+        fused_mlp(x, pack_params([(w.cpu(), b.cpu()) for w, b in weights]))
+    with pytest.raises(ValueError, match="128"):
+        pack_params([(torch.zeros(2, 129, device=cuda),
+                      torch.zeros(129, device=cuda))])
+    assert fused_mlp(x[:0], packed).shape == (0, 1)
+    assert launch_counts()["fused_mlp"] == 0
+
+
+def test_bench_fused_mlp_on_the_card(cuda):
+    """The bench's checks pass on the card; every timed call launched the
+    kernel."""
+    reset_launch_counts()
+    out = bench_fused_mlp(4096, "cuda")
+    assert out["max_rel_err_vs_f64"] <= 1e-4
+    assert out["plain_rel_err_vs_f64"] <= 1e-5
+    assert launch_counts()["fused_mlp"] >= out["kernel_calls"] > 0
+
+
+def test_toy_demo_on_the_card(cuda):
+    """``python -m tpudist_torch.examples.demo`` at world size 1 under the
+    torchrun contract on the NCCL group converges (phase 10)."""
+    res = demo_path("ici")
+    assert res["rows"] == 1000

@@ -36,8 +36,8 @@ from tpudist.ops.paged_prefill import (paged_prefill_attention as
 from torch_cases import decode_case as _decode_case
 from torch_cases import prefill_case as _prefill_case
 from torch_cases import sample_case, settled_torch_cpu
-from tpudist_torch.ops import (_build, fused_residual_prep,
-                               fused_sample_prep, launch_counts,
+from tpudist_torch.ops import (_build, fused_mlp, fused_residual_prep,
+                               fused_sample_prep, launch_counts, pack_params,
                                paged_attention, paged_attention_reference,
                                paged_prefill_attention, reset_launch_counts)
 
@@ -188,11 +188,14 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     fused_sample_prep(torch.zeros(2, 8), torch.zeros(2))
     fused_residual_prep(torch.zeros(2, 1, 8), torch.zeros(2, 1, 8),
                         torch.zeros(2))
+    fused_mlp(torch.zeros(2, 3), pack_params([(torch.zeros(3, 4),
+                                               torch.zeros(4))]))
     assert launch_counts() == {"paged_attention": 0, "paged_prefill": 0,
                                "fused_sample": 0, "flash_forward": 0,
                                "flash_backward_dq": 0,
                                "flash_backward_dkv": 0, "fused_rope_qkv": 0,
-                               "lora_delta": 0, "fused_residual_prep": 0}
+                               "lora_delta": 0, "fused_residual_prep": 0,
+                               "fused_mlp": 0}
 
 
 def test_build_plumbing():
@@ -209,7 +212,7 @@ def test_build_plumbing():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert len({_build.source_hash(n) for n in _build.KERNELS}) == \
-        len(_build.KERNELS) == 7
+        len(_build.KERNELS) == 8
     assert [_build.dtype_code(d) for d in (torch.float32, torch.bfloat16,
                                            torch.int8)] == [0, 1, 2]
     with pytest.raises(TypeError):

@@ -461,7 +461,7 @@ def test_server_end_to_end_on_cpu(rope_models, jax_streams):
             "paged_attention": 0, "paged_prefill": 0, "fused_sample": 0,
             "flash_forward": 0, "flash_backward_dq": 0,
             "flash_backward_dkv": 0, "fused_rope_qkv": 0, "lora_delta": 0,
-            "fused_residual_prep": 0}
+            "fused_residual_prep": 0, "fused_mlp": 0}
     finally:
         assert server.close(30)
 

@@ -1,9 +1,10 @@
 """The port's model family: :class:`TransformerLM` and its LM losses and
 tied draft, its paged KV storage, the adapter pool and the slot-decode
-programs of the serving engine."""
+programs of the serving engine; and the toy MLP of the ``demo.py`` path."""
 
 from tpudist_torch.models.convert import (adapter_factors_from_jax,
-                                          params_from_flax)
+                                          params_from_flax,
+                                          toy_params_from_flax)
 from tpudist_torch.models.generate import (SlotDecode, SlotState,
                                            make_slot_decode, spec_accept)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig
@@ -12,10 +13,13 @@ from tpudist_torch.models.transformer import (TransformerLM,
                                               lm_loss_with_targets,
                                               resolve_device, rope_rotate,
                                               tied_draft)
+from tpudist_torch.models.toy_mlp import ToyMLP, create_toy_model
 
 __all__ = [
-    "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "TransformerLM",
-    "adapter_factors_from_jax", "create_transformer", "lm_loss",
+    "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "ToyMLP",
+    "TransformerLM", "adapter_factors_from_jax", "create_toy_model",
+    "create_transformer", "lm_loss",
     "lm_loss_with_targets", "make_slot_decode", "params_from_flax",
     "resolve_device", "rope_rotate", "spec_accept", "tied_draft",
+    "toy_params_from_flax",
 ]

@@ -1,5 +1,7 @@
 """Weights and adapter factors from the JAX package.
 
+:func:`toy_params_from_flax` does the same for the toy MLP.
+
 :func:`params_from_flax` maps a ``tpudist.models.TransformerLM`` param tree
 (nested dicts of numpy arrays, with or without the top ``"params"`` level)
 onto the state dict of :class:`tpudist_torch.models.TransformerLM`.  flax
@@ -58,3 +60,14 @@ def adapter_factors_from_jax(factors: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(np.asarray(factors[k]),
                                          dtype=np.float32))
             for k in FACTOR_KEYS}
+
+
+def toy_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of :class:`tpudist_torch.models.toy_mlp.ToyMLP` (f32
+    tensors) from a ``tpudist.models.ToyMLP`` param tree (nested dicts of
+    numpy arrays, with or without the top ``"params"`` level).  Both keep
+    the kernels ``[in, out]``, so the arrays carry over as they are."""
+    p = tree.get("params", tree)
+    return {f"{layer}.{name}": torch.from_numpy(
+        np.array(np.asarray(p[layer][name]), dtype=np.float32))
+        for layer in p for name in ("kernel", "bias")}

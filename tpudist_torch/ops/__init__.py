@@ -13,6 +13,9 @@ from tpudist_torch.ops.flash_attention import (FlashAttention,
                                                flash_backward_reference,
                                                flash_forward,
                                                flash_forward_reference)
+from tpudist_torch.ops.fused_mlp import (PackedMLP, fused_mlp,
+                                         mlp_reference, pack_params,
+                                         unpack_params)
 from tpudist_torch.ops.fused_linear import (fused_rope_qkv,
                                             fused_rope_qkv_reference,
                                             lora_delta, lora_delta_reference)
@@ -25,8 +28,8 @@ from tpudist_torch.ops.paged_attention import (paged_attention,
 from tpudist_torch.ops.paged_prefill import (paged_prefill_attention,
                                              paged_prefill_reference)
 
-#: every kernel wrapper of the port (serving, training, adapter-serving and
-#: speculative-decoding slices), by kernel name
+#: every kernel wrapper of the port (serving, training, adapter-serving,
+#: speculative-decoding and toy-MLP slices), by kernel name
 KERNEL_WRAPPERS = {
     "paged_attention": paged_attention,
     "paged_prefill": paged_prefill_attention,
@@ -37,6 +40,7 @@ KERNEL_WRAPPERS = {
     "fused_rope_qkv": fused_rope_qkv,
     "lora_delta": lora_delta,
     "fused_residual_prep": fused_residual_prep,
+    "fused_mlp": fused_mlp,
 }
 
 
@@ -52,13 +56,13 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "FlashAttention", "KERNEL_WRAPPERS", "flash_attention",
+    "FlashAttention", "KERNEL_WRAPPERS", "PackedMLP", "flash_attention",
     "flash_attention_with_lse", "flash_backward_dkv", "flash_backward_dq",
     "flash_backward_reference", "flash_forward", "flash_forward_reference",
-    "fused_residual_prep", "fused_residual_reference", "fused_rope_qkv",
+    "fused_mlp", "fused_residual_prep", "fused_residual_reference", "fused_rope_qkv",
     "fused_rope_qkv_reference", "fused_sample_prep",
     "fused_sample_reference", "lora_delta", "lora_delta_reference",
-    "launch_counts", "paged_attention", "paged_attention_reference",
+    "launch_counts", "mlp_reference", "pack_params", "paged_attention", "paged_attention_reference",
     "paged_prefill_attention", "paged_prefill_reference",
-    "reset_launch_counts",
+    "reset_launch_counts", "unpack_params",
 ]

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpudist_torch"
 KERNELS = ("paged_attention", "paged_prefill", "fused_sample",
            "flash_attention", "flash_backward", "fused_rope_qkv",
-           "lora_delta")
+           "lora_delta", "fused_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

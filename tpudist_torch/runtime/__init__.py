@@ -1,0 +1,17 @@
+"""The process contract of the port: rank/world-size resolution,
+``torch.distributed`` bring-up and teardown, job-wide seeding and
+rank-aware printing (the counterpart of :mod:`tpudist.runtime`)."""
+
+from tpudist_torch.runtime.bootstrap import (BootstrapError, ProcessContext,
+                                             host_group, initialize,
+                                             process_count, process_index,
+                                             resolve_process_context,
+                                             shutdown)
+from tpudist_torch.runtime.rank_logging import describe_runtime, rank_print
+from tpudist_torch.runtime.seeding import (fold_in_process, per_process_seed,
+                                           resolve_shared_seed)
+
+__all__ = ["BootstrapError", "ProcessContext", "describe_runtime",
+           "fold_in_process", "host_group", "initialize", "per_process_seed",
+           "process_count", "process_index", "rank_print",
+           "resolve_process_context", "resolve_shared_seed", "shutdown"]

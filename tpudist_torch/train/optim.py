@@ -131,3 +131,15 @@ def build_optimizer(params, lr: float, *, optimizer: str = "adam",
     for g in opt.param_groups:
         g["lr"] = 1.0
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, sched)
+
+
+def build_optimizer_from_args(args, params):
+    """The shared-CLI spelling (``--lr/--optimizer/--lr_schedule/
+    --warmup_steps/--total_iterations/--grad_clip/--weight_decay``) of
+    :func:`build_optimizer` over ``params``: ``(optimizer, scheduler)``."""
+    return build_optimizer(
+        params, args.lr, optimizer=getattr(args, "optimizer", "adam"),
+        schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+        total_steps=args.total_iterations,
+        grad_clip=getattr(args, "grad_clip", 0.0),
+        weight_decay=getattr(args, "weight_decay", 0.0))

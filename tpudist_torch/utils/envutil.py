@@ -46,3 +46,16 @@ def env_flag(name: str, default: bool = False) -> bool:
     if v is None:
         return default
     return v.strip().lower() not in ("", "0", "false", "off", "no")
+
+
+def env_rank(default: Optional[int] = None) -> Optional[int]:
+    """This process's global rank from the launcher env contracts, in
+    precedence order (tpudist > torchrun > SLURM)."""
+    for var in ("TPUDIST_PROCESS_ID", "RANK", "SLURM_PROCID"):
+        v = os.environ.get(var)
+        if v:
+            try:
+                return int(v)
+            except ValueError:
+                continue
+    return default
