@@ -15,7 +15,12 @@ order; any failure exits non-zero:
    top-p 0.9, both, and ties (top-k exact, top-p within the stated margin).
    The paged decode kernel also runs the speculative verify's call (q
    ``[8, 8, s, 128]``, s = 5 and 9, a K + 1 window at fill 0; bf16 and int8
-   pools, ragged cursors, a window).  Each kernel is timed with CUDA events
+   pools, ragged cursors, a window).  The paged prefill's tensor-core arm
+   is also held at GQA (8 q heads over 2 kv heads), chunks 16 and 128 and
+   window 40, and its CUDA-core arm at the serving shape; both arms, and
+   the tensor-core arm's attention without its block writes, are timed on
+   the same inputs, each split by kernel under ``torch.profiler``.  Each
+   kernel is timed with CUDA events
    (median of 30 after warm-up, L2 flushed between launches) beside its
    plain version, its bound and, where one PyTorch call computes the same
    function, that call; the s = 5 verify beside the s = 1 step;
@@ -46,13 +51,17 @@ order; any failure exits non-zero:
    ff4096 / vocab-256 / max_len-2048 RoPE TransformerLM in bf16 (random
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
    (chunked prefill) and 16-64 new tokens; every request must finish
-   "length" and every kernel's launch count (zeroed just before) must grow;
+   "length", every kernel's launch count (zeroed just before) must grow,
+   and the paged prefill's tensor-core arm must serve every prefill launch;
 4b. the adapter path: the same model and server geometry with
    ``fused_rope``, ``adapters`` and ``lora_kernel`` on, 4 adapters of rank
    8 loaded, 16 greedy requests of which a third are base lanes;
    ``fused_rope_qkv`` must launch once and ``lora_delta`` three times per
    layer and forward, every base lane must equal the same request on the
-   server without adapters and every adapter lane must differ from it;
+   server without adapters and every adapter lane must differ from it, or
+   equal it only where the CPU f32 path shows the adapter acting and the
+   card's stream leaving an f32 stream at a near tie
+   (:func:`adapter_lane_ties`);
 4c. speculative decoding on phase 4's server and requests (``spec=True,
    spec_k=4``, the tied 4-layer draft): 12 greedy spec lanes, 2 greedy
    ``spec=False`` lanes, 2 lanes sampled at temperature 0.8.  Every request
@@ -243,6 +252,41 @@ def time_ms(torch, fn, flush, n: int = 30, warmup: int = 5,
     return statistics.median(times)
 
 
+def kernel_split(torch, fn, flush, names, n: int = 30) -> dict:
+    """Device ms of each kernel of ``fn`` (each launched once a call), under
+    ``torch.profiler`` over ``n`` calls, each after an L2 flush as
+    :func:`time_ms` times them: ``{name: ms}``, the mean over the launches
+    of kernels whose name contains ``name``, for each of ``names``.  The
+    mean is over the launches the window recorded: on the H100 a window
+    now and then comes back with some or all of them missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        seen = {name: [] for name in names}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for name in names:
+                if name in e.name:
+                    seen[name].append(e.time_range.elapsed_us() / 1e3)
+        if all(len(t) >= n // 2 for t in seen.values()):
+            if any(len(t) < n for t in seen.values()):
+                got = {k: len(v) for k, v in seen.items()}
+                log(f"  profiler window: {got} of {n} launches recorded")
+            return {name: statistics.mean(t) for name, t in seen.items()}
+    raise AssertionError(f"the profiler recorded too few launches of "
+                         f"{names}: {({k: len(v) for k, v in seen.items()})}")
+
+
 def bound(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -253,8 +297,9 @@ def bound(nbytes: float, flops: float, peak_flops: float):
 # phase 3: kernels against their plain versions
 
 
-def decode_inputs(torch, dev, gen, pos0, quant, fill, window_cols=W, s=1):
-    S, n_kv = SLOTS, HEADS
+def decode_inputs(torch, dev, gen, pos0, quant, fill, window_cols=W, s=1,
+                  n_kv=HEADS):
+    S = SLOTS
     nb = 1024
     q = torch.randn(S, HEADS, s, DH, generator=gen, device=dev).bfloat16()
     if quant:
@@ -287,25 +332,30 @@ def decode_inputs(torch, dev, gen, pos0, quant, fill, window_cols=W, s=1):
     return [q, pk, pv, sk, sv, table, pos0, fill, wk, wv]
 
 
-def prefill_inputs(torch, dev, gen, pos0, clen, quant):
+def prefill_inputs(torch, dev, gen, pos0, clen, quant, n_kv=HEADS, chunk=P):
+    """One prefill call's inputs: q of ``HEADS`` heads and a ``chunk`` of
+    K/V over ``n_kv`` kv heads (GQA below ``HEADS``), the pool holding each
+    lane's prefix, the write table of the engine's rule."""
     from tpudist_torch.models.paged import PagedKVConfig, _Paged
 
-    base = decode_inputs(torch, dev, gen, [p + P for p in pos0], quant,
-                         [0] * SLOTS)
-    q = torch.randn(SLOTS, HEADS, P, DH, generator=gen, device=dev).bfloat16()
-    kn = torch.randn(SLOTS, HEADS, P, DH, generator=gen,
+    base = decode_inputs(torch, dev, gen, [p + chunk for p in pos0], quant,
+                         [0] * SLOTS, n_kv=n_kv)
+    q = torch.randn(SLOTS, HEADS, chunk, DH, generator=gen,
+                    device=dev).bfloat16()
+    kn = torch.randn(SLOTS, n_kv, chunk, DH, generator=gen,
                      device=dev).bfloat16()
-    vn = torch.randn(SLOTS, HEADS, P, DH, generator=gen,
+    vn = torch.randn(SLOTS, n_kv, chunk, DH, generator=gen,
                      device=dev).bfloat16()
     pos0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
     clen = torch.tensor(clen, dtype=torch.int32, device=dev)
 
-    class _Geom:  # the pool geometry _Paged reads off a model
-        n_layers, n_kv, head_dim, max_len = LAYERS, HEADS, DH, M * BS
-        dtype = torch.bfloat16
+    from types import SimpleNamespace
 
-    pg = _Paged(_Geom, SLOTS, PagedKVConfig(1024, BS, quant), dev)
-    wtable = pg.write_tables(base[5], pos0, clen, P,
+    geom = SimpleNamespace(  # the pool geometry _Paged reads off a model
+        n_layers=LAYERS, n_kv=n_kv, head_dim=DH, max_len=M * BS,
+        dtype=torch.bfloat16)
+    pg = _Paged(geom, SLOTS, PagedKVConfig(1024, BS, quant), dev)
+    wtable = pg.write_tables(base[5], pos0, clen, chunk,
                              torch.ones(SLOTS, dtype=torch.bool, device=dev))
     return [q, kn, vn] + base[1:6] + [wtable, pos0, clen]
 
@@ -359,7 +409,9 @@ def check_kernels(torch, dev):
                                                 fused_sample_reference)
     from tpudist_torch.ops.paged_attention import (paged_attention,
                                                    paged_attention_reference)
-    from tpudist_torch.ops.paged_prefill import (paged_prefill_attention,
+    from tpudist_torch.ops.paged_prefill import (TC_ROWS,
+                                                 _paged_prefill_on_arm,
+                                                 paged_prefill_attention,
                                                  paged_prefill_reference)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -444,32 +496,51 @@ def check_kernels(torch, dev):
             args[9], 3), flush),
         bound=bound(nbytes, flops, H100_BF16_FLOPS))
 
-    # -- row 2: paged prefill attention + block writes
+    # -- row 2: paged prefill attention + block writes: the main path's
+    # shape (MHA, chunk 64) at layers 0 and 7, then GQA (8 q heads over 2
+    # kv heads: 64-row tiles span q heads), chunk 16 (R under one tile)
+    # and chunk 128 (two chunk tiles), each with and without a window; bf16
+    # and int8 pools.  The serving shape runs the tensor-core arm.
     err = 0.0
-    cases = [
-        dict(pos0=[0, 5, 64, 100, 300, 17, 1000, 0],
-             clen=[64, 1, 30, 64, 0, 50, 64, 10], quant=True),
-        dict(pos0=[0, 5, 64, 100, 300, 17, 1000, 0],
-             clen=[64, 1, 30, 64, 0, 50, 64, 10], quant=False),
-    ]
+    pos0 = [0, 5, 64, 100, 300, 17, 1000, 0]
+    clen = [64, 1, 30, 64, 0, 50, 64, 10]
+    cases = [dict(n_kv=HEADS, chunk=P, layers=(0, LAYERS - 1))] + [
+        dict(n_kv=n_kv, chunk=chunk, layers=(LAYERS - 1,))
+        for n_kv, chunk in ((2, P), (HEADS, 16), (HEADS, 128))]
     for c in cases:
-        args = prefill_inputs(torch, dev, gen, c["pos0"], c["clen"],
-                              c["quant"])
-        vmax = v_max(args[4], args[6], args[2])
-        for layer in (0, LAYERS - 1):
-            out = paged_prefill_attention(*args, layer=layer)
-            ref = paged_prefill_reference(*args, layer=layer)
-            torch.cuda.synchronize()
-            err = max(err, close_bf16(torch, out[0], ref[0], vmax))
-            for a, b in zip(out[1:], ref[1:]):
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        "prefill kernel's written blocks/scales differ from "
-                        "the plain version's")
-        out = paged_prefill_attention(*args, layer=1, window=40)
-        ref = paged_prefill_reference(*args, layer=1, window=40)
-        torch.cuda.synchronize()
-        err = max(err, close_bf16(torch, out[0], ref[0], vmax))
+        for quant in (True, False):
+            cl = [min(x, c["chunk"]) for x in clen]
+            args = prefill_inputs(torch, dev, gen, pos0, cl, quant,
+                                  n_kv=c["n_kv"], chunk=c["chunk"])
+            vmax = v_max(args[4], args[6], args[2])
+            for layer, window in ([(lay, None) for lay in c["layers"]]
+                                  + [(1, 40)]):
+                ops.reset_launch_counts()
+                out = paged_prefill_attention(*args, layer=layer,
+                                              window=window)
+                ref = paged_prefill_reference(*args, layer=layer,
+                                              window=window)
+                torch.cuda.synchronize()
+                if paged_prefill_attention.launches_tc != 1:
+                    raise AssertionError("a bf16 dh-128 prefill did not run "
+                                         "the tensor-core arm")
+                err = max(err, close_bf16(torch, out[0], ref[0], vmax))
+                for a, b in zip(out[1:], ref[1:]):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            "prefill kernel's written blocks/scales differ "
+                            "from the plain version's")
+    # the CUDA-core arm on the main path's shape, held as well
+    args = prefill_inputs(torch, dev, gen, pos0, clen, False)
+    out = _paged_prefill_on_arm("cc", *args, layer=3, window=40)
+    ref = paged_prefill_reference(*args, layer=3, window=40)
+    torch.cuda.synchronize()
+    cc_err = close_bf16(torch, out[0], ref[0], v_max(args[4], args[6],
+                                                      args[2]))
+    # the tensor-core arm over these lanes too: one CTA walks each lane, so
+    # the lane at pos0 1000 (16 prefix tiles) sets the time
+    long_ms = time_ms(torch, lambda: paged_prefill_attention(*args, layer=3),
+                      flush)
     pos0 = [0, 64, 128, 0, 192, 64, 256, 0]  # chunked prefill of prompts
     clen = [64, 64, 64, 37, 44, 64, 30, 12]
     args = prefill_inputs(torch, dev, gen, pos0, clen, False)
@@ -486,17 +557,35 @@ def check_kernels(torch, dev):
     p0 = torch.tensor(pos0, device=dev)[:, None, None]
     row = torch.arange(P, device=dev)[None, :, None]
     keep = torch.where(kpos < M * BS, kpos < p0, (kpos - M * BS) <= row)
+    planned = lambda: paged_prefill_attention(*args, layer=3)  # noqa: E731
+    # the arms on the same inputs, each split by kernel: the tensor-core
+    # arm is one launch (its block writes run in extra CTAs beside the
+    # attention), and alone without them; the CUDA-core arm launches the
+    # attention, then the same block writes as a kernel of their own
+    tc, cc = ("prefill_tc_kernel",), ("paged_attention_kernel",
+                                      "prefill_write_kernel")
+    arms = {
+        "tc": (tc, planned),
+        "tc attention alone": (tc, lambda: _paged_prefill_on_arm(
+            "tc", *args, layer=3, writes=False)),
+        "cc": (cc, lambda: _paged_prefill_on_arm("cc", *args, layer=3))}
+    arm_rec = {name: dict(ms=time_ms(torch, fn, flush),
+                          split=kernel_split(torch, fn, flush, names))
+               for name, (names, fn) in arms.items()}
     rec["paged_prefill"] = dict(
         route="cuda", source="tpudist_torch/csrc/paged_prefill.cu",
         replaces="tpudist/ops/paged_prefill.py:189", max_abs_err=err,
-        ms=time_ms(torch, lambda: paged_prefill_attention(*args, layer=3),
-                   flush),
+        ms=arm_rec["tc"]["ms"],
         plain_ms=time_ms(torch, lambda: paged_prefill_reference(
             *args, layer=3), flush),
         library_ms=time_ms(torch, dense_sdpa(
             torch, args[0], *args[3:8], keep[:, None], args[1], args[2], 3),
             flush),
-        bound=bound(nbytes, flops, H100_BF16_FLOPS))
+        bound=bound(nbytes, flops, H100_BF16_FLOPS),
+        kernel_ms=arm_rec["tc"]["split"][tc[0]],
+        attn_ms=arm_rec["tc attention alone"]["split"][tc[0]],
+        write_ms=arm_rec["cc"]["split"][cc[1]],
+        cc_max_abs_err=cc_err, arms=arm_rec, long_lanes_ms=long_ms)
 
     # -- row 3: fused sampling prep
     err = 0.0
@@ -540,6 +629,17 @@ def check_kernels(torch, dev):
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']} ms, bound {r['bound'][0]:.5f} ms by "
             f"{r['bound'][1]})")
+    pr = rec["paged_prefill"]
+    log(f"kernel paged_prefill, tensor-core arm ({TC_ROWS} rows a CTA): "
+        f"{pr['ms']:.4f} ms, one launch of {pr['kernel_ms']:.4f} ms on the "
+        f"device; attention alone {pr['attn_ms']:.4f} ms, the block writes "
+        f"as a kernel of their own {pr['write_ms']:.4f} ms (profiler, per "
+        f"call); arms on the same inputs: " + "; ".join(
+            f"{name} {a['ms']:.4f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in a["split"].items()) + ")"
+            for name, a in pr["arms"].items())
+        + f"; CUDA-core arm max_abs_err {pr['cc_max_abs_err']:.3g}; "
+        f"lanes up to pos0 1000 {pr['long_lanes_ms']:.4f} ms")
     log(f"kernel paged_attention, verify s 5 and 9 (bf16, int8, window): "
         f"max_abs_err {verify_err:.3g}; s 5 timed {verify['ms']:.4f} ms "
         f"(plain {verify['plain_ms']:.4f} ms, bound "
@@ -1195,6 +1295,8 @@ def serve_main_path(torch, model, gen_seed: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        prefill_arms = dict(tc=ops.paged_prefill_attention.launches_tc,
+                            cc=ops.paged_prefill_attention.launches_cc)
         stats = server.stats()
     finally:
         server.close(60)
@@ -1207,6 +1309,10 @@ def serve_main_path(torch, model, gen_seed: int):
     if not all(counts[name] > 0 for name in SERVE_KERNELS):
         raise AssertionError(f"a kernel was not launched on the serving "
                              f"path: {counts}")
+    if prefill_arms != dict(tc=counts["paged_prefill"], cc=0):
+        raise AssertionError(f"the tensor-core arm did not serve every "
+                             f"prefill launch: {prefill_arms} of "
+                             f"{counts['paged_prefill']}")
     tokens = sum(len(h.tokens) for h in handles)
     return dict(
         requests=len(handles), tokens=tokens, wall_s=wall,
@@ -1215,6 +1321,7 @@ def serve_main_path(torch, model, gen_seed: int):
         tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
         prompt_lens=[len(p) for p, _ in reqs],
         decode=stats["decode"], launches=counts,
+        prefill_arm_launches=prefill_arms,
         streams=[h.tokens for h in handles])
 
 
@@ -1372,16 +1479,67 @@ def adapter_factors(torch, model) -> dict:
         for i in range(N_ADAPTERS)}
 
 
-def serve_adapter_path(torch, model, gen_seed: int) -> dict:
+def cpu_stream(torch, cpu_model, prompt, n: int, name=None, factors=None):
+    """One request's greedy stream on the port's CPU f32 path (every
+    kernel's plain version), through adapter ``name`` if given."""
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    on = name is not None
+    cfg = ServeConfig(num_slots=1, queue_limit=4, max_new=64, prefill_pad=P,
+                      decode_block=8, kv_block=BS, fused_rope=True,
+                      adapters=on, lora_kernel=on)
+    server = InferenceServer(cpu_model, cfg, device="cpu")
+    try:
+        if on:
+            server.load_adapter(name, factors)
+        h = server.submit(prompt, max_new=n, adapter=name)
+        server.start()
+        if not h.wait(900):
+            raise AssertionError("CPU reference request timed out")
+    finally:
+        server.close(60)
+    return h.tokens
+
+
+def adapter_lane_ties(torch, model, cpu_model, prompt, n, name, factors,
+                      stream):
+    """Gate of phase 4b for an adapter lane whose card stream equals its
+    base lane's: in f32 on the CPU the adapter stream must differ from the
+    base stream, and where the card's one ``stream`` leaves either f32
+    stream it must leave it first at a near tie of the card's logits (top-2
+    gap within ``NEAR_TIE_GAP``, :func:`hold_greedy_streams`' standard).  On
+    random weights a lane can settle into one repeated token, so an adapter
+    may first move a greedy choice late, at a gap that bf16 rounding
+    crosses.  Returns ``[(stream, position, gap)]``."""
+    ref = {None: cpu_stream(torch, cpu_model, prompt, n),
+           name: cpu_stream(torch, cpu_model, prompt, n, name, factors)}
+    if ref[None] == ref[name]:
+        raise AssertionError(f"adapter {name} leaves the stream unchanged "
+                             f"on the CPU f32 path too")
+    ties = []
+    for key, f in ((None, None), (name, factors)):
+        if stream == ref[key]:
+            continue
+        j, gap = near_tie_gap(torch, model, prompt, stream, ref[key], f)
+        ties.append((key or "base", j, gap))
+        if gap > NEAR_TIE_GAP:
+            raise AssertionError(
+                f"the card's stream leaves the f32 {key or 'base'} stream at "
+                f"token {j} where the top-2 gap {gap:.5f} is no near tie")
+    return ties
+
+
+def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
     """Phase 4b: ``InferenceServer`` with ``fused_rope``, ``adapters`` and
     ``lora_kernel`` on, over phase 4's model and geometry; 16 greedy
     requests (prompts 1-300 tokens, 16-64 new tokens) naming
     ``ADAPTER_NAMES`` in turn.  The same requests then run on a server that
     differs only by ``adapters=False`` (each base lane must match it token
-    for token, each adapter lane must differ) and on phase 4's unfused arm
-    (base-lane agreement reported only: bf16 rounds in another order).
-    Every request is queued before its server starts, so the three servers
-    run the same schedule."""
+    for token, each adapter lane must differ, or be held by
+    :func:`adapter_lane_ties` against the CPU f32 path of ``cpu_model``)
+    and on phase 4's unfused arm (base-lane agreement reported only: bf16
+    rounds in another order).  Every request is queued before its server
+    starts, so the three servers run the same schedule."""
     import numpy as np
 
     from tpudist_torch import ops
@@ -1446,14 +1604,19 @@ def serve_adapter_path(torch, model, gen_seed: int) -> dict:
     if not all(c[name] > 0 for name in SERVE_KERNELS):
         raise AssertionError(f"a serving kernel was not launched: {c}")
     base = run(fused=True, adapters=False)
+    ties = {}
     for i, name in enumerate(names):
         same = main["streams"][i] == base["streams"][i]
         if name is None and not same:
             raise AssertionError(f"base lane {i} differs from the same "
                                  "request on the engine without adapters")
         if name is not None and same:
-            raise AssertionError(f"adapter lane {i} ({name}) equals its "
-                                 "base stream")
+            ties[i] = adapter_lane_ties(
+                torch, model, cpu_model, reqs[i][0], reqs[i][1], name,
+                factors[name], main["streams"][i])
+            log(f"  adapter lane {i} ({name}) equals its base stream on the "
+                f"card; against the CPU f32 streams: {ties[i]} (bound "
+                f"{NEAR_TIE_GAP})")
     unfused = run(fused=False, adapters=False)
     lanes = [i for i, n in enumerate(names) if n is None]
     agree = sum(main["streams"][i] == unfused["streams"][i] for i in lanes)
@@ -1462,7 +1625,8 @@ def serve_adapter_path(torch, model, gen_seed: int) -> dict:
         for i in lanes]
     main.update(prompt_lens=[len(p) for p, _ in reqs], names=names,
                 base_lanes_equal_no_adapter_engine=len(lanes),
-                adapter_lanes_differ=len(names) - len(lanes),
+                adapter_lanes_differ=len(names) - len(lanes) - len(ties),
+                adapter_lanes_at_near_ties=ties,
                 base_lanes_equal_unfused=f"{agree}/{len(lanes)}",
                 first_divergence_vs_unfused=first_diff,
                 no_adapter_run={k: base[k] for k in (
@@ -1897,13 +2061,15 @@ def main(argv=None) -> int:
         f"{main_path['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{main_path['ttft_p50_ms']:.2f} ms, TPOT p50 "
         f"{main_path['tpot_p50_ms']:.3f} ms ({card}); launches "
-        f"{main_path['launches']}")
+        f"{main_path['launches']}; prefill launches by arm "
+        f"{main_path['prefill_arm_launches']}")
     spec_path = serve_spec_path(torch, model, 7, main_path)
     log_spec("spec path (tied 4-layer draft, K 4)", spec_path, "phase 4",
              card)
 
     t0 = time.perf_counter()
-    ad_path = serve_adapter_path(torch, model, gen_seed=7)
+    ad_path = serve_adapter_path(torch, model, gen_seed=7,
+                                 cpu_model=cpu_model)
     log(f"adapter path (fused_rope, 4 adapters, rank {RANK}): "
         f"{ad_path['requests']} requests, {ad_path['tokens']} tokens in "
         f"{ad_path['wall_s']:.3f} s = {ad_path['tokens_per_s']:.1f} "

@@ -60,6 +60,7 @@ from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                paged_attention_reference,
                                paged_prefill_attention,
                                paged_prefill_reference, reset_launch_counts)
+from tpudist_torch.ops.paged_prefill import _paged_prefill_on_arm
 from tpudist_torch.train.__main__ import main as train_main
 
 pytestmark = pytest.mark.cuda
@@ -192,20 +193,90 @@ def test_spec_engine_on_the_card(cuda):
     assert blocks[1] > 0 and blocks[None] == 0
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-def test_paged_prefill_matches_plain(cuda, quant):
-    """Fresh, dead and partial-first-block lanes; written blocks exact."""
-    args = _on(cuda, prefill_case(S=4, nh=4, n_kv=2, dh=128, L=2, nb=48,
-                                  bs=16, M=8, P=16, quant=quant, seed=2))
+def _prefill_lanes(P, bs=16, M=16):
+    """(pos0, clen) of six lanes at max_len M * bs: a fresh lane, a dead
+    lane at a block boundary, one token mid-block, a full chunk ending at
+    max_len, a ragged chunk ending there mid-block, a ragged chunk from
+    mid-block."""
+    top = M * bs
+    return ([0, 2 * bs, bs + 1, top - P, top - P // 2 - 3, 100],
+            [P, 0, 1, P, P // 2 + 3, max(1, P - 5)])
+
+
+def _prefill_on(dev, nh, n_kv, dh, P, quant, seed, dtype=torch.bfloat16):
+    pos0, clen = _prefill_lanes(P)
+    args = _on(dev, prefill_case(S=6, nh=nh, n_kv=n_kv, dh=dh, L=2, nb=100,
+                                 bs=16, M=16, P=P, quant=quant, seed=seed,
+                                 pos0=pos0, clen=clen))
     for i in (0, 1, 2):
-        args[i] = args[i].to(torch.bfloat16)
+        args[i] = args[i].to(dtype)
     if not quant:
-        args[3], args[4] = args[3].bfloat16(), args[4].bfloat16()
-    out = paged_prefill_attention(*args, layer=0)
-    ref = paged_prefill_reference(*args, layer=0)
-    _assert_bf16_close(out[0], ref[0], args[4], args[6], args[2])
+        args[3], args[4] = args[3].to(dtype), args[4].to(dtype)
+    return args
+
+
+def _assert_prefill_equal_writes(out, ref):
     for a, b in zip(out[1:], ref[1:]):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 40, 7], ids=lambda w: f"w{w}")
+@pytest.mark.parametrize("P", [16, 64, 128])
+@pytest.mark.parametrize("nh,n_kv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_paged_prefill_matches_plain(cuda, dh, nh, n_kv, P, window, quant):
+    """The tensor-core arm over ragged lanes (clen 0 and 1, cursors at a
+    block boundary, mid-block and near max_len), GQA tiles spanning q
+    heads, windows wider and narrower than a block; written blocks exact."""
+    args = _prefill_on(cuda, nh, n_kv, dh, P, quant, seed=dh + P + nh)
+    reset_launch_counts()
+    out = paged_prefill_attention(*args, layer=1, window=window)
+    ref = paged_prefill_reference(*args, layer=1, window=window)
+    assert launch_counts()["paged_prefill"] == 1
+    assert paged_prefill_attention.launches_tc == 1
+    _assert_bf16_close(out[0], ref[0], args[4], args[6], args[2])
+    _assert_prefill_equal_writes(out, ref)
+
+
+def test_paged_prefill_bf16_dh128_takes_tensor_cores(cuda):
+    """The serving call (bf16, dh 128, P 64) counts one tensor-core launch
+    and none on the CUDA-core arm; without its block writes the attention
+    is the same."""
+    args = _prefill_on(cuda, 8, 8, 128, 64, False, seed=3)
+    reset_launch_counts()
+    out = paged_prefill_attention(*args, layer=0)
+    assert (paged_prefill_attention.launches,
+            paged_prefill_attention.launches_tc,
+            paged_prefill_attention.launches_cc) == (1, 1, 0)
+    ref = paged_prefill_reference(*args, layer=0)
+    _assert_bf16_close(out[0], ref[0], args[4], args[6], args[2])
+    alone = _paged_prefill_on_arm("tc", *args, layer=0, writes=False)
+    torch.testing.assert_close(alone[0], out[0], atol=0, rtol=0)
+    assert alone[1].shape[1] == 0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_prefill_f32_takes_cuda_cores(cuda, quant):
+    """f32 compute runs the CUDA-core arm in full f32: within 1e-5 of the
+    plain version (both f32, summed in another order over at most 400
+    columns), written blocks exact; the forced CUDA-core arm in bf16
+    agrees as the tensor-core arm does."""
+    args = _prefill_on(cuda, 8, 2, 64, 64, quant, seed=5,
+                       dtype=torch.float32)
+    reset_launch_counts()
+    out = paged_prefill_attention(*args, layer=1, window=40)
+    assert (paged_prefill_attention.launches_tc,
+            paged_prefill_attention.launches_cc) == (0, 1)
+    ref = paged_prefill_reference(*args, layer=1, window=40)
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=1e-5)
+    _assert_prefill_equal_writes(out, ref)
+    args = _prefill_on(cuda, 8, 2, 128, 64, quant, seed=6)
+    out = _paged_prefill_on_arm("cc", *args, layer=1)
+    ref = paged_prefill_reference(*args, layer=1)
+    assert paged_prefill_attention.launches_cc == 2
+    _assert_bf16_close(out[0], ref[0], args[4], args[6], args[2])
+    _assert_prefill_equal_writes(out, ref)
 
 
 def test_fused_sample_matches_plain(cuda):

@@ -486,6 +486,70 @@ def test_serve_config_from_env(monkeypatch):
     assert cfg.attn_kernel == "gather"  # the engine refuses it loudly
 
 
+# the JAX ServeConfig.from_env variables with no port yet, and the
+# ROADMAP.md queue A item each raises with
+UNPORTED_ENV = {
+    "MESH": "8", "CONSTRAIN": "5", "LOGPROBS": "5", "TP_OVERLAP": "6",
+    "HOST_TIER": "8", "PREEMPT": "8", "SHED": "8", "SHED_ATTAINMENT": "8",
+    "SHED_PRIORITY": "8", "FAIR_SHARE": "8", "HANDOFF": "8",
+    "HANDOFF_QUEUE": "8", "DECODE_WORKERS": "8", "PREFILL_WORKERS": "8",
+    "PREFILL_SLOTS": "8", "RECOVER": "8", "POOL_RESIZE": "8", "AUTO": "8",
+    "HEALTH_STALE_S": "8"}
+
+
+@pytest.mark.parametrize("suffix", sorted(UNPORTED_ENV))
+def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, suffix):
+    """Each knob the port cannot honour raises, naming itself and its
+    ROADMAP item, instead of building a server that ignores it."""
+    name = f"TPUDIST_SERVE_{suffix}"
+    monkeypatch.setenv(name, "2x1" if suffix == "MESH" else "1")
+    with pytest.raises(NotImplementedError,
+                       match=rf"{name} .*queue A item "
+                             rf"{UNPORTED_ENV[suffix]}\b"):
+        ServeConfig.from_env()
+
+
+def test_serve_config_from_env_without_unported_knobs(monkeypatch):
+    """Unset or empty, the unported knobs change nothing: the config is
+    the defaults'.  The port reads or refuses every ``TPUDIST_SERVE_*``
+    variable of the JAX server module."""
+    import inspect
+    import os
+    import re
+
+    from tpudist.serve import server as jax_server
+
+    for name in [n for n in os.environ if n.startswith("TPUDIST_SERVE_")]:
+        monkeypatch.delenv(name)
+    assert ServeConfig.from_env() == ServeConfig()
+    for suffix in UNPORTED_ENV:
+        monkeypatch.setenv(f"TPUDIST_SERVE_{suffix}", "")
+    assert ServeConfig.from_env() == ServeConfig()
+    names = lambda obj: set(re.findall(  # noqa: E731
+        r"TPUDIST_SERVE_(\w+)", inspect.getsource(obj)))
+    assert (names(jax_server) - names(ServeConfig.from_env)
+            == set(UNPORTED_ENV))
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("tenant", "acme", "8"), ("session", "s1", "8"),
+    ("grammar", "[ab]{2}", "5"), ("json_schema", {"type": "integer"}, "5"),
+    ("stop", [[3, 4]], "5"), ("logprobs", 2, "5")])
+def test_submit_refuses_unported_keywords(rope_models, key, value, item):
+    """The JAX ``submit`` keywords are taken; a value but the default
+    raises naming its ROADMAP item, and the default admits as before."""
+    _, model = rope_models
+    server = InferenceServer(model, ServeConfig(max_new=4, **ENGINE_KW),
+                             device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=rf"submit\({key}=.*queue A item {item}\b"):
+        server.submit(_prompt(5, 0), **{key: value})
+    default = {"logprobs": 0}.get(key)
+    h = server.submit(_prompt(5, 0), **{key: default})
+    assert server.scheduler.pending() == 1 and not h.done
+    assert server.close(30)
+
+
 def test_demo_entry_point_runs_on_cpu(capsys):
     import json
 

@@ -83,27 +83,33 @@ def wtable(table, pos0, clen, bs, M, Mw, nb):
     return np.where(live, ids, nb).astype(np.int32)
 
 
-def prefill_case(S, nh, n_kv, dh, L, nb, bs, M, P, quant, seed):
+def prefill_case(S, nh, n_kv, dh, L, nb, bs, M, P, quant, seed, pos0=None,
+                 clen=None):
     """Ragged prefill inputs: a fresh lane, a dead (clen 0) lane, a
-    non-block-aligned cursor (partial first block), sentinel tails."""
+    non-block-aligned cursor (partial first block), sentinel tails; or the
+    lanes' ``pos0`` and ``clen`` as given (``nb >= S * M``)."""
     r = np.random.default_rng(seed)
     q = r.normal(size=(S, nh, P, dh)).astype(np.float32)
     kn = r.normal(size=(S, n_kv, P, dh)).astype(np.float32)
     vn = r.normal(size=(S, n_kv, P, dh)).astype(np.float32)
     pk, pv, sk, sv = _pool(r, L, nb, n_kv, bs, dh, quant)
-    pos0 = r.integers(0, (M - (P - 1) // bs - 1) * bs, size=S).astype(
-        np.int32)
-    pos0[0] = 0
-    if S > 2:
-        pos0[2] = bs + 1
-    clen = r.integers(1, P + 1, size=S).astype(np.int32)
-    if S > 1:
-        clen[1] = 0
+    if pos0 is not None:
+        pos0 = np.asarray(pos0, np.int32)
+        clen = np.asarray(clen, np.int32)
+    else:
+        pos0 = r.integers(0, (M - (P - 1) // bs - 1) * bs, size=S).astype(
+            np.int32)
+        pos0[0] = 0
+        if S > 2:
+            pos0[2] = bs + 1
+        clen = r.integers(1, P + 1, size=S).astype(np.int32)
+        if S > 1:
+            clen[1] = 0
     table = np.full((S, M), nb, np.int32)
     perm = r.permutation(nb)
     Mw = min(M, (P - 1) // bs + 2)
     for b in range(S):
-        span = -(-int(pos0[b] + (P if clen[b] else 0)) // bs) or 1
+        span = min(M, -(-int(pos0[b] + (P if clen[b] else 0)) // bs) or 1)
         table[b, :span] = perm[b * M:b * M + span]
     wt = wtable(table, pos0, clen, bs, M, Mw, nb)
     return [q, kn, vn, pk, pv, sk, sv, table, wt, pos0, clen]

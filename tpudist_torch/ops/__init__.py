@@ -51,8 +51,12 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's ``launches`` (and the paged prefill's per-arm
+    ``launches_tc`` / ``launches_cc``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    paged_prefill_attention.launches_tc = 0
+    paged_prefill_attention.launches_cc = 0
 
 
 __all__ = [

@@ -5,25 +5,81 @@ CUDA tensor :func:`paged_prefill_attention` launches the hand-written
 Hopper kernel ``csrc/paged_prefill.cu`` (attention over the pool prefix plus
 the causal chunk, then the touched blocks merged and requantized into
 separate outputs); on a CPU tensor it runs :func:`paged_prefill_reference`.
+The attention has two arms, chosen by :func:`_prefill_plan`: bf16
+tensor-core tiles (``mma.sync``) at head dims 16, 32, 64 and 128, and the
+CUDA-core code shared with the decode kernel for f32 and other head dims.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from tpudist_torch.ops import _build
-from tpudist_torch.ops.paged_attention import (_MASK_VALUE, _check_smem,
-                                               _dense_view,
+from tpudist_torch.ops.paged_attention import (_MASK_VALUE, _dense_view,
                                                check_paged_inputs)
+
+#: shared memory one CTA may use on the H100 (bytes)
+SMEM_LIMIT = 227 * 1024
+#: head dims the tensor-core arm is instantiated for (bf16 tiles take
+#: multiples of 16; the flash kernels' set)
+TC_HEAD_DIMS = (16, 32, 64, 128)
+#: keys per K/V tile of the tensor-core arm (csrc/paged_prefill.cu kTile)
+#: and its K/V tile buffers (kStages)
+TC_TILE, TC_STAGES = 64, 3
+#: query rows per CTA of the tensor-core arm (kRows: 64 rows ran faster
+#: than 32 on the H100 in every timed call)
+TC_ROWS = 64
+#: query rows per CTA of the CUDA-core arm (paged_common.cuh kRowsPerCta)
+CC_ROWS = 16
+
+
+class PrefillPlan(NamedTuple):
+    """How one call launches: the arm (``"tc"`` tensor cores, ``"cc"``
+    CUDA cores), query rows per CTA and shared memory per CTA (bytes)."""
+
+    arm: str
+    rows: int
+    smem: int
+
+
+def _prefill_plan(dtype, dh: int, R: int, bs: int) -> PrefillPlan:
+    """The launch of one kv head group of ``R = group * P`` query rows at
+    head dim ``dh`` and KV block ``bs`` in compute dtype ``dtype``: bf16 at
+    a head dim of :data:`TC_HEAD_DIMS` takes the tensor-core arm
+    (:data:`TC_ROWS` rows a CTA: Q, then :data:`TC_STAGES` K and V tiles of
+    :data:`TC_TILE` keys, bf16 rows padded by 8), anything else the
+    CUDA-core arm (f32 in shared memory: q and the accumulator of up to
+    :data:`CC_ROWS` rows, one block of K and V rows padded by 4, the
+    scores and three row vectors)."""
+    if dtype == torch.bfloat16 and dh in TC_HEAD_DIMS:
+        return PrefillPlan(
+            "tc", TC_ROWS, (TC_ROWS + 2 * TC_STAGES * TC_TILE) * (dh + 8) * 2)
+    return _cc_plan(dh, R, bs)
+
+
+def _cc_plan(dh: int, R: int, bs: int) -> PrefillPlan:
+    r = min(R, CC_ROWS)
+    ld = dh + 4 if dh % 4 == 0 else dh + 1
+    floats = 2 * r * dh + 2 * bs * ld + r * bs + 3 * r
+    return PrefillPlan("cc", r, floats * 4)
+
+
+def _check_smem(plan: PrefillPlan, dh: int, bs: int) -> None:
+    """Raise where ``plan``'s shared memory does not fit one CTA."""
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{plan.rows} query rows x dh {dh} x block {bs} take "
+            f"{plan.smem} bytes of shared memory on the {plan.arm} arm, "
+            f"past the {SMEM_LIMIT} one CTA may use")
 
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tpd_paged_prefill.argtypes = (
-        [p] * 16 + [i] * 11 + [ctypes.c_float, i, i, p])
+        [p] * 16 + [i] * 11 + [ctypes.c_float, i, i, i, p])
     lib.tpd_paged_prefill.restype = i
 
 
@@ -51,6 +107,22 @@ def paged_prefill_attention(q, k_new, v_new, pool_k, pool_v, scale_k,
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    return _launch(q, k_new, v_new, pool_k, pool_v, scale_k, scale_v,
+                   table, wtable, pos0, clen, layer, window)
+
+
+#: kernel launches since the last reset (the main path's proof of use);
+#: ``launches_tc`` / ``launches_cc`` split them by arm
+paged_prefill_attention.launches = 0
+paged_prefill_attention.launches_tc = 0
+paged_prefill_attention.launches_cc = 0
+
+
+def _launch(q, k_new, v_new, pool_k, pool_v, scale_k, scale_v, table,
+            wtable, pos0, clen, layer, window, arm=None, writes=True):
+    """Check the inputs, plan (or force ``arm``, ``"tc"`` or ``"cc"``),
+    launch and count the launch; without ``writes`` the kernel writes no
+    block (zero-size block outputs)."""
     check_paged_inputs(q, pool_k, pool_v, scale_k, scale_v, table, pos0,
                        k_new, v_new, layer, ints=(wtable, clen))
     S, nh, P, dh = q.shape
@@ -59,10 +131,21 @@ def paged_prefill_attention(q, k_new, v_new, pool_k, pool_v, scale_k,
         raise ValueError(f"chunk K/V length {k_new.shape[2]} != q's {P}")
     if wtable.dim() != 2 or wtable.shape[0] != S or clen.shape != (S,):
         raise ValueError("wtable must be [S, Mw] and clen [S]")
-    Mw = wtable.shape[1]
+    Mw = wtable.shape[1] if writes else 0
     R = (nh // n_kv) * P
-    _check_smem(R, dh, bs)
+    if arm == "cc":
+        plan = _cc_plan(dh, R, bs)
+    else:
+        plan = _prefill_plan(q.dtype, dh, R, bs)
+        if arm not in (None, plan.arm):
+            raise ValueError(f"arm {arm!r}: {plan.arm!r} serves {q.dtype} "
+                             f"at dh {dh}")
+    _check_smem(plan, dh, bs)
     o = torch.empty_like(q)
+    if plan.arm == "tc" and any(
+            t.data_ptr() % 16 for t in (q, k_new, v_new, pool_k, pool_v, o)):
+        raise ValueError("the tensor-core arm copies 16-byte chunks: q, the "
+                         "chunk K/V and the pools must be 16-byte aligned")
     qk = torch.empty((S, Mw, n_kv, bs, dh), dtype=pool_k.dtype,
                      device=q.device)
     qv = torch.empty_like(qk)
@@ -77,14 +160,29 @@ def paged_prefill_attention(q, k_new, v_new, pool_k, pool_v, scale_k,
         S, n_kv, R, P, dh, nb, bs, table.shape[1], Mw, layer,
         0 if window is None else int(window), float(dh ** -0.5),
         _build.dtype_code(q.dtype), _build.dtype_code(pool_k.dtype),
-        _build.stream_of(q.device))
+        int(plan.arm == "tc"), _build.stream_of(q.device))
     _build.check(lib, rc, "paged_prefill_attention")
-    paged_prefill_attention.launches += 1
+    fn = paged_prefill_attention
+    fn.launches += 1
+    if plan.arm == "tc":
+        fn.launches_tc += 1
+    else:
+        fn.launches_cc += 1
     return o, qk, qv, sk, sv
 
 
-#: kernel launches since the last reset (the main path's proof of use)
-paged_prefill_attention.launches = 0
+def _paged_prefill_on_arm(arm: str, q, k_new, v_new, pool_k, pool_v,
+                          scale_k, scale_v, table, wtable, pos0, clen, *,
+                          layer: int, window: Optional[int] = None,
+                          writes: bool = True):
+    """:func:`paged_prefill_attention` on CUDA tensors with the arm
+    (``"tc"`` or ``"cc"``; the CUDA-core arm takes any dtype and head dim)
+    forced rather than planned, to time the arms beside each other on the
+    same inputs; ``writes=False`` times the attention alone."""
+    if arm not in ("tc", "cc"):
+        raise ValueError(f"arm {arm!r}: 'tc' or 'cc'")
+    return _launch(q, k_new, v_new, pool_k, pool_v, scale_k, scale_v, table,
+                   wtable, pos0, clen, layer, window, arm=arm, writes=writes)
 
 
 def paged_prefill_reference(q, k_new, v_new, pool_k, pool_v, scale_k,

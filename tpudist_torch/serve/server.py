@@ -25,6 +25,52 @@ from tpudist_torch.serve.scheduler import RequestHandle, Scheduler
 #: poll interval of an idle engine loop (host-side only)
 _IDLE_WAIT_S = 0.01
 
+#: ``TPUDIST_SERVE_*`` variables that the JAX ``ServeConfig.from_env``
+#: reads and the port has no subsystem for yet: suffix → (what it turns
+#: on, its ROADMAP.md queue A item).  Set to a non-empty value, each one
+#: raises instead of being dropped.
+_UNPORTED_ENV = {
+    "MESH": ("the serving mesh (serve/spmd.py)", "8"),
+    "CONSTRAIN": ("grammar-constrained decoding (constrain/)", "5"),
+    "LOGPROBS": ("logprobs", "5"),
+    "TP_OVERLAP": ("the collective matmuls (parallel/overlap.py)",
+                   "6 (A6c)"),
+    "HOST_TIER": ("the host KV tier (serve/host_tier.py)", "8"),
+    "PREEMPT": ("preemption (serve/overload.py)", "8"),
+    "SHED": ("load shedding (serve/overload.py)", "8"),
+    "SHED_ATTAINMENT": ("load shedding (serve/overload.py)", "8"),
+    "SHED_PRIORITY": ("load shedding (serve/overload.py)", "8"),
+    "FAIR_SHARE": ("fair-share admission (serve/overload.py)", "8"),
+    "HANDOFF": ("the disaggregated handoff (serve/disagg.py)", "8"),
+    "HANDOFF_QUEUE": ("the disaggregated handoff (serve/disagg.py)", "8"),
+    "DECODE_WORKERS": ("disaggregated decode workers (serve/disagg.py)",
+                       "8"),
+    "PREFILL_WORKERS": ("disaggregated prefill workers (serve/disagg.py)",
+                        "8"),
+    "PREFILL_SLOTS": ("disaggregated prefill slots (serve/disagg.py)", "8"),
+    "RECOVER": ("disaggregated lane recovery (serve/disagg.py)", "8"),
+    "POOL_RESIZE": ("the backpressure pool resize (serve/disagg.py)", "8"),
+    "AUTO": ("measurement-driven planning (plan/)", "8"),
+    "HEALTH_STALE_S": ("the /healthz heartbeat (telemetry/)", "8"),
+}
+
+#: ``submit`` keywords of the JAX server the port takes only at their
+#: defaults: keyword → (default, what it asks for, ROADMAP.md item)
+_UNPORTED_SUBMIT = {
+    "tenant": (None, "per-tenant telemetry and fair share", "8"),
+    "session": (None, "host-tier session resume (serve/host_tier.py)", "8"),
+    "grammar": (None, "grammar-constrained decoding (constrain/)", "5"),
+    "json_schema": (None, "grammar-constrained decoding (constrain/)", "5"),
+    "stop": (None, "stop sequences", "5"),
+    "logprobs": (0, "logprobs", "5"),
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to tpudist_torch yet (ROADMAP.md queue A "
+        f"item {item})")
+
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -84,6 +130,10 @@ class ServeConfig:
         from tpudist_torch.utils.envutil import (env_flag, env_int,
                                                  env_positive_float)
 
+        for suffix, (what, item) in _UNPORTED_ENV.items():
+            name = f"TPUDIST_SERVE_{suffix}"
+            if os.environ.get(name, "").strip():
+                raise _not_ported(f"{name} ({what})", item)
         return cls(
             num_slots=env_int("TPUDIST_SERVE_SLOTS", 4) or 4,
             queue_limit=env_int("TPUDIST_SERVE_QUEUE", 64) or 64,
@@ -188,14 +238,26 @@ class InferenceServer:
                seed: Optional[int] = None, eos_id: Optional[int] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
                priority: int = 0, adapter: Optional[str] = None,
-               spec: Optional[bool] = None) -> RequestHandle:
+               spec: Optional[bool] = None, tenant: Optional[str] = None,
+               session: Optional[str] = None,
+               grammar: Optional[str] = None, json_schema=None, stop=None,
+               logprobs: int = 0) -> RequestHandle:
         """Thread-safe ingestion; raises
         :class:`~tpudist_torch.serve.scheduler.AdmissionError` on
         backpressure or budget rejection.  ``adapter`` names a per-tenant
         LoRA adapter loaded with :meth:`load_adapter` (else the request
         rejects ``adapter_missing``).  ``spec=False`` opts the request out
         of speculative decoding on a spec server (its stream is the plain
-        engine's)."""
+        engine's).  ``tenant``, ``session``, ``grammar``, ``json_schema``,
+        ``stop`` and ``logprobs`` are the JAX server's keywords; any value
+        but their default raises ``NotImplementedError`` naming the
+        ROADMAP item that ports them."""
+        given = dict(tenant=tenant, session=session, grammar=grammar,
+                     json_schema=json_schema, stop=stop, logprobs=logprobs)
+        for key, (default, what, item) in _UNPORTED_SUBMIT.items():
+            value = given[key]
+            if value is not None if default is None else value != default:
+                raise _not_ported(f"submit({key}=...) ({what})", item)
         return self.scheduler.submit(
             prompt, max_new=max_new, temperature=temperature,
             deadline_s=deadline_s, seed=seed, eos_id=eos_id,
