@@ -23,15 +23,20 @@ order; any failure exits non-zero:
    kernel is timed with CUDA events
    (median of 30 after warm-up, L2 flushed between launches) beside its
    plain version, its bound and, where one PyTorch call computes the same
-   function, that call; the s = 5 verify beside the s = 1 step;
+   function, that call; the s = 5 verify beside the s = 1 step and beside
+   SDPA over the gathered view under the verify rows' own mask;
 3b. the flash forward, dq and dk/dv kernels against their plain versions at
    the training path's shapes (b 8, h 8, s 2048, dh 128, bf16, causal), a
    GQA sliding-window case (h_kv 2, window 512), a non-causal ragged length
-   (s 1000), an f32 case and head dims 32 and 16 (bf16 and f32), elementwise,
-   per row and over the whole tensor (:func:`flash_agreement`), timed as in
-   phase 3; the yardstick is
+   (s 1000), head dim 64 (one tile; GQA 8/1 under a band at s 2047), dead
+   rows, an f32 case and head dims 32 and 16 (bf16 and f32), elementwise,
+   per row and over the whole tensor (:func:`flash_case_readings`); on the
+   backward's wgmma arm also the dq kernel that forms delta itself.  Timed
+   as in phase 3, the mma.sync arm that the wgmma arm replaced in the same
+   call, in turns; the yardstick is
    ``scaled_dot_product_attention(is_causal=True)``, forward alone and
-   forward + backward beside FlashAttention's forward + dq + dk/dv;
+   forward + backward, and its backward beside FlashAttention's backward
+   alone (dq forming delta, dk/dv);
 3c. the fused RoPE+QKV and LoRA gather-matmul kernels against their plain
    versions at the adapter path's shapes (8 slots, d 1024, decode T 1 and
    prefill T 64, rank 8, lane ids mixing adapters, base lanes and the
@@ -86,7 +91,8 @@ order; any failure exits non-zero:
    positions, batch 8, bf16 compute over f32 masters, Adam lr 3e-4, on
    increment-chain tokens, for 30 steps: losses, median step ms after 3
    warm-up steps, tokens/s, MFU, peak memory; the loss must fall and every
-   flash kernel (counts zeroed just before) must launch 8 times a step;
+   flash kernel (counts zeroed just before) must launch 8 times a step, the
+   dq and dk/dv kernels all on the backward's wgmma arm;
 8. where the training time goes: one step under ``torch.profiler``;
 9. gradients at batch 2, same weights: the bf16 kernel path against the
    card's f32 plain path (dense attention, no kernel): the loss and every
@@ -114,6 +120,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -134,15 +141,25 @@ TRAIN_ARGS = ["--device", "cuda", "--seq_len", "2048", "--d_model", "1024",
               "--lr", "3e-4", "--seed", "0"]
 TRAIN_STEPS, TRAIN_WARMUP = 30, 3
 # phase 3b's cases: (name, b, h, h_kv, s, head dim, dtype, band); head dim
-# 32 is ``python -m tpudist_torch.train``'s default model (d 128, 4 heads)
+# 32 is ``python -m tpudist_torch.train``'s default model (d 128, 4 heads).
+# bf16 at head dims 64 and 128 runs the backward's wgmma arm, whose dq
+# kernel is also held with the delta it forms itself
 FLASH_CASES = (("main path", 8, 8, 8, 2048, DH, "bf16", (0, None)),
                ("GQA + window 512", 2, 8, 2, 2048, DH, "bf16", (0, 512)),
                ("non-causal, s 1000", 2, 8, 8, 1000, DH, "bf16",
                 (None, None)),
+               ("dh 64 one tile", 1, 2, 2, 64, 64, "bf16", (None, None)),
+               ("dh 64 GQA 8/1 band, s 2047", 1, 8, 1, 2047, 64, "bf16",
+                (-20, 64)),
+               ("dead rows, s 130", 2, 4, 4, 130, DH, "bf16", (10, 40)),
                ("f32 causal", 1, 4, 4, 512, DH, "f32", (0, None)),
                ("dh 32 causal", 8, 4, 4, 512, 32, "bf16", (0, None)),
                ("dh 16 GQA band", 2, 4, 2, 300, 16, "bf16", (-20, 64)),
                ("dh 32 f32 window", 2, 4, 2, 300, 32, "f32", (0, 40)))
+# the delta the dq kernel forms (rowsum(out·do) - dlse in f32) against the
+# plain one, relative to rowsum(|out·do|) + |dlse|: two f32 sums of 128
+# products in different orders, each within ~128·2**-24 of that magnitude
+DELTA_REL_MAX = 1e-5
 SERVE_KERNELS = ("paged_attention", "paged_prefill", "fused_sample")
 TRAIN_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 ADAPTER_KERNELS = ("fused_rope_qkv", "lora_delta")
@@ -178,12 +195,15 @@ LORA_IDS = [0, 8, 1, 8, 2, 3, 8, 0]  # 8 = the sentinel of an 8-block pool
 LINEAR_BOUNDS = {"bf16": (2 ** -7, 2 ** -7, 2 ** -10),
                  "f32": (1e-5, 1e-5, 2e-6)}
 # gradient agreement, bf16 kernel path vs f32 plain path on the same batch
-# (phase 9).  Readings on the H100 (tests/torch_flash_faults.py): the sound
-# kernels leave 1 - cosine at 6.2e-5 at worst over the 52 parameters and the
-# loss 1.1e-4 apart; a bf16 plain path (dense attention, no kernel) reads
-# 6.3e-5 and 1.4e-4, so that is bf16's own rounding.  Dropping the last
-# dk/dv step of every KV tile reads 5.2e-4, the diagonal dS·K tile of every
-# Q tile 7.4e-3.  The bounds sit 4.8 and 9 times above the sound readings.
+# (phase 9).  Readings on the H100 (tests/torch_flash_faults.py; the same
+# on the mma.sync arm and on the wgmma arm): the sound kernels leave 1 -
+# cosine at 6.2e-5 at worst over the 52 parameters and the loss 1.1e-4
+# apart; a bf16 plain path (dense attention, no kernel) reads 6.3e-5 and
+# 1.4e-4, so that is bf16's own rounding.  On the wgmma arm, dropping the
+# last (64-query) dk/dv step of every KV tile reads 1.1e-3, the diagonal
+# dS·K tile of every Q tile 7.4e-3, half of every row sum of the folded
+# delta 0.40 (the mma.sync arm's 32-query step read 5.2e-4).  The bounds
+# sit 4.8 and 9 times above the sound readings.
 GRAD_COS_MIN, LOSS_REL_MAX = 0.9997, 1e-3
 # phase 3e's cases (name, weights, batch): the toy model's weights at the
 # bench's batch 4096, the JAX bench's block of 256, a ragged batch and 2**20
@@ -210,6 +230,19 @@ DEMO_LOSS_MAX = 0.3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def entry_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    entry (``dkv_wgmma<128>``), or the mangled name if it has no template
+    arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        n, end = int(m.group()), m.end()
+        args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end + n:])
+        if args and re.fullmatch(r"[A-Za-z_]\w*", mangled[end:end + n]):
+            return (mangled[end:end + n] + "<"
+                    + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">")
+    return mangled
 
 
 def card_line() -> str:
@@ -472,11 +505,20 @@ def check_kernels(torch, dev):
     vargs = decode_inputs(torch, dev, gen, pos0, False, [0] * SLOTS,
                           window_cols=5, s=5)
     vflops = 4 * HEADS * DH * sum(p + i + 1 for p in pos0 for i in range(5))
+    # the verify rows' own mask over the dense view: the lane's prefix, and
+    # window columns up to the row (fill 0)
+    kpos = torch.arange(M * BS + 5, device=dev)
+    vkeep = torch.where(
+        kpos < M * BS, kpos < torch.tensor(pos0, device=dev)[:, None, None],
+        (kpos - M * BS) <= torch.arange(5, device=dev)[None, :, None])
     verify = dict(
         s=5, max_abs_err=verify_err,
         ms=time_ms(torch, lambda: paged_attention(*vargs, layer=3), flush),
         plain_ms=time_ms(torch, lambda: paged_attention_reference(
             *vargs, layer=3), flush),
+        library_ms=time_ms(torch, dense_sdpa(
+            torch, vargs[0], *vargs[1:6], vkeep[:, None], vargs[8],
+            vargs[9], 3), flush),
         bound=bound(decode_bytes(vargs), vflops, H100_BF16_FLOPS))
     fill = [3] * SLOTS
     args = decode_inputs(torch, dev, gen, pos0, False, fill)
@@ -642,7 +684,8 @@ def check_kernels(torch, dev):
         f"lanes up to pos0 1000 {pr['long_lanes_ms']:.4f} ms")
     log(f"kernel paged_attention, verify s 5 and 9 (bf16, int8, window): "
         f"max_abs_err {verify_err:.3g}; s 5 timed {verify['ms']:.4f} ms "
-        f"(plain {verify['plain_ms']:.4f} ms, bound "
+        f"(plain {verify['plain_ms']:.4f} ms, library "
+        f"{verify['library_ms']:.4f} ms, bound "
         f"{verify['bound'][0]:.5f} ms by {verify['bound'][1]}) beside s 1 "
         f"{rec['paged_attention']['ms']:.4f} ms")
     rec["paged_attention"]["verify"] = verify
@@ -785,7 +828,8 @@ def flash_agreement(torch, out, ref, dtype, grad: bool = True,
     the phase's cases (tests/torch_flash_faults.py): bf16 outputs at most
     5.7e-3 per row and 2.3e-3 overall; bf16 gradients, whose rows can
     cancel to nearly nothing, at most 0.025 of the mean row per row and
-    1.8e-4 overall; f32 below 6e-7 per row and 5e-6 of the mean row.  So
+    1.9e-4 overall (the wgmma arm and the dq forming delta included); f32
+    below 7e-7 per row and 5e-6 of the mean row.  So
     bf16 takes ``row = 2**-6``, ``rms = 2**-7`` and for gradients ``floor =
     2**-4``; f32 takes ``row = rms = 1e-5`` and for gradients ``floor =
     1e-4``.  Half of one KV tile's P·V dropped in one head's last Q tile
@@ -823,20 +867,76 @@ def flash_close(torch, out, ref, dtype, what: str, grad: bool = True,
     return r["max_abs_err"]
 
 
+def flash_case_readings(torch, gen, case) -> dict:
+    """One ``FLASH_CASES`` case on the card: the forward, dq and dk/dv
+    kernels against their plain versions (:func:`flash_agreement` of out,
+    dq, dk, dv; lse within ``1e-4 + 1e-5·|lse|``).  On the wgmma arm also
+    the dq kernel that forms delta itself, with a random lse cotangent: its
+    delta within ``DELTA_REL_MAX`` of the plain one, its dq against the
+    plain dq, and bit for bit the explicit-delta arm's dq on its delta.
+    Every check's verdict is under ``ok``."""
+    from tpudist_torch.ops.flash_attention import (
+        _bwd_arm, flash_backward_dkv, flash_backward_dq,
+        flash_backward_dq_delta, flash_backward_reference, flash_forward,
+        flash_forward_reference)
+
+    name, b, h, h_kv, s, d, dt, band = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
+                  .to(dtype) for shape in ((b, h, s, d), (b, h_kv, s, d),
+                                           (b, h_kv, s, d), (b, h, s, d)))
+    vmax = float(v.float().abs().max())
+    out, lse = flash_forward(q, k, v, band)
+    ref, rlse = flash_forward_reference(q, k, v, band)
+    delta = (ref.float() * g.float()).sum(-1).contiguous()
+    dq = flash_backward_dq(q, k, v, g, rlse, delta, band)
+    dk, dv = flash_backward_dkv(q, k, v, g, rlse, delta, band)
+    rq, rk, rv = flash_backward_reference(q, k, v, g, rlse, delta, band)
+    torch.cuda.synchronize()
+    res = dict(case=name, arm=_bwd_arm(q), lse_ok=bool(
+        ((lse - rlse).abs() <= 1e-4 + 1e-5 * rlse.abs()).all()))
+    for t, a, r, grad in (("out", out, ref, False), ("dq", dq, rq, True),
+                          ("dk", dk, rk, True), ("dv", dv, rv, True)):
+        res[t] = flash_agreement(torch, a, r, dtype, grad, vmax)
+    if res["arm"] == "wgmma":
+        g_lse = torch.randn(b, h, s, generator=gen, device="cuda")
+        fq, fdelta = flash_backward_dq_delta(q, k, v, g, rlse, ref, g_lse,
+                                             band)
+        pdelta = (ref.float() * g.float()).sum(-1) - g_lse
+        mag = (ref.float() * g.float()).abs().sum(-1) + g_lse.abs()
+        rq = flash_backward_reference(q, k, v, g, rlse, pdelta, band)[0]
+        eq = flash_backward_dq(q, k, v, g, rlse, fdelta, band)
+        torch.cuda.synchronize()
+        res["delta_rel"] = float(((fdelta - pdelta).abs() / mag).max())
+        res["dq_fold"] = flash_agreement(torch, fq, rq, dtype)
+        res["fold_equals_explicit"] = bool(torch.equal(fq, eq))
+    checks = [res["lse_ok"]] + [
+        r["elementwise_ok"] and r["rows_ok"] and r["rms_ok"]
+        for r in (res[t] for t in ("out", "dq", "dk", "dv", "dq_fold")
+                  if t in res)]
+    if "delta_rel" in res:
+        checks += [res["delta_rel"] <= DELTA_REL_MAX,
+                   res["fold_equals_explicit"]]
+    res["ok"] = all(checks)
+    return res
+
+
 def check_flash(torch, dev):
     """Phase 3b: forward, dq and dk/dv kernels against their plain versions
-    on ``FLASH_CASES``, then timed at the training path's shapes."""
+    on ``FLASH_CASES`` (:func:`flash_case_readings`), then timed at the
+    training path's shapes beside the mma.sync arm the wgmma arm replaced
+    and the folded delta beside the given one."""
     import torch.nn.functional as F
 
     from tpudist_torch import ops
     from tpudist_torch.ops.flash_attention import (
-        FlashAttention, band_live_pairs, flash_backward_dkv,
-        flash_backward_dq, flash_backward_reference, flash_forward,
-        flash_forward_reference)
+        FlashAttention, _launch_dkv, _launch_dq, band_live_pairs,
+        flash_backward_dkv, flash_backward_dq, flash_backward_dq_delta,
+        flash_backward_reference, flash_forward, flash_forward_reference)
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
 
     def inputs(b, h, h_kv, s, dtype, d=DH):
         def r(*shape):
@@ -846,31 +946,30 @@ def check_flash(torch, dev):
 
     err = {"flash_forward": 0.0, "flash_backward_dq": 0.0,
            "flash_backward_dkv": 0.0}
-    for name, b, h, h_kv, s, d, dt, band in FLASH_CASES:
-        dtype = bf16 if dt == "bf16" else f32
-        q, k, v, g = inputs(b, h, h_kv, s, dtype, d)
-        out, lse = flash_forward(q, k, v, band)
-        ref, rlse = flash_forward_reference(q, k, v, band)
-        torch.cuda.synchronize()
-        e = flash_close(torch, out, ref, dtype, f"flash_forward ({name})",
-                        grad=False, vmax=float(v.float().abs().max()))
-        if not bool(((lse - rlse).abs() <= 1e-4 + 1e-5 * rlse.abs()).all()):
-            raise AssertionError(f"flash lse disagrees ({name})")
-        err["flash_forward"] = max(err["flash_forward"], e)
-        delta = (ref.float() * g.float()).sum(-1).contiguous()
-        dq = flash_backward_dq(q, k, v, g, rlse, delta, band)
-        dk, dv = flash_backward_dkv(q, k, v, g, rlse, delta, band)
-        rq, rk, rv = flash_backward_reference(q, k, v, g, rlse, delta, band)
-        torch.cuda.synchronize()
-        err["flash_backward_dq"] = max(err["flash_backward_dq"], flash_close(
-            torch, dq, rq, dtype, f"flash dq ({name})"))
-        err["flash_backward_dkv"] = max(
-            err["flash_backward_dkv"],
-            flash_close(torch, dk, rk, dtype, f"flash dk ({name})"),
-            flash_close(torch, dv, rv, dtype, f"flash dv ({name})"))
-        log(f"flash {name}: b {b} h {h}/{h_kv} s {s} dh {d} {dtype}: "
-            f"agrees")
-        del q, k, v, g, out, ref, dq, dk, dv, rq, rk, rv
+    fold = dict(delta_rel=0.0, dq_max_abs_err=0.0, cases=0)
+    for case in FLASH_CASES:
+        r = flash_case_readings(torch, gen, case)
+        if not r["ok"]:
+            raise AssertionError(f"flash kernels disagree with their plain "
+                                 f"versions ({case[0]}): {r}")
+        err["flash_forward"] = max(err["flash_forward"],
+                                   r["out"]["max_abs_err"])
+        err["flash_backward_dq"] = max(err["flash_backward_dq"],
+                                       r["dq"]["max_abs_err"],
+                                       r.get("dq_fold", r["dq"])
+                                       ["max_abs_err"])
+        err["flash_backward_dkv"] = max(err["flash_backward_dkv"],
+                                        r["dk"]["max_abs_err"],
+                                        r["dv"]["max_abs_err"])
+        if "delta_rel" in r:
+            fold["delta_rel"] = max(fold["delta_rel"], r["delta_rel"])
+            fold["dq_max_abs_err"] = max(fold["dq_max_abs_err"],
+                                         r["dq_fold"]["max_abs_err"])
+            fold["cases"] += 1
+        log(f"flash {case[0]}: b {case[1]} h {case[2]}/{case[3]} s "
+            f"{case[4]} dh {case[5]} {case[6]}, {r['arm']} arm: agrees"
+            + (f"; folded delta rel {r['delta_rel']:.2e}, dq equal to the "
+               f"given-delta arm's" if "delta_rel" in r else ""))
 
     # timing at the main path's shapes (b 8, h 8, s 2048, dh 128, causal)
     b, h, s, band = 8, 8, 2048, (0, None)
@@ -881,6 +980,11 @@ def check_flash(torch, dev):
     elt = q.numel()
     io = 4 * elt * 2  # q, k, v, do (or out) in bf16
     rows = b * h * s * 4  # one f32 per query row (lse, delta)
+
+    def plain_dq_delta():
+        dl = (out.float() * g.float()).sum(-1)
+        return flash_backward_reference(q, k, v, g, lse, dl, band)[0], dl
+
     shapes = dict(
         flash_forward=(io + rows, 4 * work * DH,
                        lambda: flash_forward(q, k, v, band),
@@ -889,11 +993,12 @@ def check_flash(torch, dev):
                            q, k, v, is_causal=True),
                        "tpudist/ops/flash_attention.py:283",
                        "tpudist_torch/csrc/flash_attention.cu"),
-        flash_backward_dq=(io + 2 * rows + elt * 2, 6 * work * DH,
-                           lambda: flash_backward_dq(q, k, v, g, lse, delta,
-                                                     band),
-                           lambda: flash_backward_reference(
-                               q, k, v, g, lse, delta, band), None,
+        # the main path's dq: the kernel forms delta from out and do
+        flash_backward_dq=(io + elt * 2 + 2 * rows + elt * 2,
+                           6 * work * DH + 2 * elt,
+                           lambda: flash_backward_dq_delta(
+                               q, k, v, g, lse, out, None, band),
+                           plain_dq_delta, None,
                            "tpudist/ops/flash_attention.py:622",
                            "tpudist_torch/csrc/flash_backward.cu"),
         flash_backward_dkv=(io + 2 * rows + 2 * elt * 2, 8 * work * DH,
@@ -913,8 +1018,25 @@ def check_flash(torch, dev):
             plain_ms=time_ms(torch, plain, flush, n=5, warmup=1),
             library_ms=time_ms(torch, lib, flush) if lib else None,
             bound=bound(nbytes, flops, H100_BF16_FLOPS))
-    # forward + backward: FlashAttention (fwd, delta, dq, dk/dv) against
-    # one scaled_dot_product_attention forward + backward
+    # the same call: dq with a given delta, and the mma.sync arm that the
+    # wgmma arm replaced at this shape, in turns (mma, wgmma, wgmma, mma)
+    given_ms = time_ms(torch, lambda: flash_backward_dq(
+        q, k, v, g, lse, delta, band), flush)
+    arms = {"mma": [], "wgmma": []}
+    for arm in ("mma", "wgmma", "wgmma", "mma"):
+        arms[arm].append(dict(
+            dq=time_ms(torch, lambda: _launch_dq(arm, q, k, v, g, lse, delta,
+                                                 band), flush),
+            dkv=time_ms(torch, lambda: _launch_dkv(arm, q, k, v, g, lse,
+                                                   delta, band), flush)))
+    rec["flash_backward_dq"]["given_delta_ms"] = given_ms
+    rec["flash_backward_dq"]["replaced_ms"] = [a["dq"] for a in arms["mma"]]
+    rec["flash_backward_dkv"]["replaced_ms"] = [a["dkv"]
+                                                for a in arms["mma"]]
+    rec["flash_backward_dq"]["arm_ms"] = [a["dq"] for a in arms["wgmma"]]
+    rec["flash_backward_dkv"]["arm_ms"] = [a["dkv"] for a in arms["wgmma"]]
+    # forward + backward: FlashAttention (fwd, dq with delta, dk/dv)
+    # against one scaled_dot_product_attention forward + backward
     qa, ka, va = (t.detach().requires_grad_(True) for t in (q, k, v))
 
     def ours():
@@ -925,8 +1047,8 @@ def check_flash(torch, dev):
         o = F.scaled_dot_product_attention(qa, ka, va, is_causal=True)
         o.backward(g)
 
-    # the backward alone (delta, dq, dk/dv against SDPA's backward), over
-    # one forward graph kept alive between the timed calls
+    # the backward alone (dq forming delta, dk/dv against SDPA's backward),
+    # over one forward graph kept alive between the timed calls
     o_ours, _ = FlashAttention.apply(qa, ka, va, True)
     o_sdpa = F.scaled_dot_product_attention(qa, ka, va, is_causal=True)
     fwd_bwd = dict(ms=time_ms(torch, ours, flush),
@@ -936,12 +1058,23 @@ def check_flash(torch, dev):
                    library_bwd_ms=time_ms(torch, lambda: torch.autograd.grad(
                        o_sdpa, (qa, ka, va), g, retain_graph=True), flush),
                    bound_ms=bound(io + 2 * rows + 3 * elt * 2,
-                                  18 * work * DH, H100_BF16_FLOPS)[0])
+                                  18 * work * DH, H100_BF16_FLOPS)[0],
+                   folded_delta=fold)
     for name, r in rec.items():
         log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3g}, "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']} ms, bound {r['bound'][0]:.5f} ms by "
             f"{r['bound'][1]})")
+    dq_r, dkv_r = rec["flash_backward_dq"], rec["flash_backward_dkv"]
+    log(f"flash backward arms, same call (mma, wgmma, wgmma, mma): dq "
+        f"{dq_r['replaced_ms'][0]:.4f}, {dq_r['arm_ms'][0]:.4f}, "
+        f"{dq_r['arm_ms'][1]:.4f}, {dq_r['replaced_ms'][1]:.4f} ms; dk/dv "
+        f"{dkv_r['replaced_ms'][0]:.4f}, {dkv_r['arm_ms'][0]:.4f}, "
+        f"{dkv_r['arm_ms'][1]:.4f}, {dkv_r['replaced_ms'][1]:.4f} ms; the "
+        f"wgmma dq forming delta {dq_r['ms']:.4f} ms, given delta "
+        f"{dq_r['given_delta_ms']:.4f} ms; folded delta over "
+        f"{fold['cases']} cases: rel {fold['delta_rel']:.2e} <= "
+        f"{DELTA_REL_MAX}")
     log(f"flash fwd+bwd (FlashAttention): {fwd_bwd['ms']:.4f} ms, SDPA "
         f"fwd+bwd {fwd_bwd['library_ms']:.4f} ms, bound "
         f"{fwd_bwd['bound_ms']:.5f} ms; backward alone "
@@ -1827,6 +1960,8 @@ def train_main_path(torch):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     counts = ops.launch_counts()
+    wgmma = {n: ops.KERNEL_WRAPPERS[n].launches_wgmma
+             for n in ("flash_backward_dq", "flash_backward_dkv")}
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(times[TRAIN_WARMUP:])
     geom = dict(d_model=args.d_model, n_layers=args.n_layers,
@@ -1841,7 +1976,7 @@ def train_main_path(torch):
         flops_per_step=flops,
         mfu=mfu(flops, step_s, 1, peak_per_chip=H100_BF16_FLOPS),
         params=transformer_param_count(max_len=args.seq_len, **geom),
-        peak_mem_gb=peak / 1e9, launches=counts)
+        peak_mem_gb=peak / 1e9, launches=counts, launches_wgmma=wgmma)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if res["last5_mean"] > losses[0] - 0.1:
@@ -1853,6 +1988,10 @@ def train_main_path(torch):
         if counts[name] != per_step:
             raise AssertionError(f"{name} launched {counts[name]} times, not "
                                  f"{per_step} (8 layers x {TRAIN_STEPS})")
+    for name, n in wgmma.items():
+        if n != per_step:
+            raise AssertionError(f"{name} ran {n} of its {per_step} launches "
+                                 f"on the wgmma arm")
     return res, step, batches[0]
 
 
@@ -2039,9 +2178,13 @@ def main(argv=None) -> int:
     for name in _build.KERNELS:
         text = _build.library_path(name).with_suffix(".log").read_text() \
             if _build.library_path(name).with_suffix(".log").is_file() else ""
+        entry = ""
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = " " + entry_name(m.group(1))
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {name}{entry}: {line.strip()}")
 
     rec = check_kernels(torch, dev)
     rec.update(check_residual(torch, dev))
@@ -2144,7 +2287,8 @@ def main(argv=None) -> int:
         f"tokens/s, MFU {train['mfu']:.4f} of 989 TFLOP/s "
         f"({train['flops_per_step'] / 1e12:.2f} TFLOP/step), peak memory "
         f"{train['peak_mem_gb']:.2f} GB ({card}); launches "
-        f"{train['launches']}")
+        f"{train['launches']}, on the backward's wgmma arm "
+        f"{train['launches_wgmma']}")
     train_prof = {"train_step": device_profile(torch, lambda: step(tokens),
                                                lambda: None)}
     log_profile(train_prof)

@@ -19,7 +19,10 @@ additions rounds by at most 2**-24 relative on either side).
 Flash kernels (forward, dq, dk/dv) against their plain versions: the
 bounds of ``chip_smoke.flash_agreement``, elementwise, per row and in
 relative RMS, each stated and derived there.  lse is f32 on both sides:
-``1e-4 + 1e-5 * |ref|``.
+``1e-4 + 1e-5 * |ref|``.  The backward's wgmma arm (bf16 at head dims 64
+and 128) through ``chip_smoke.flash_case_readings``: also the delta its dq
+kernel forms, within ``chip_smoke.DELTA_REL_MAX`` of the plain one, and
+that kernel's dq bit for bit the given-delta arm's.
 
 The fused RoPE+QKV and LoRA gather-matmul kernels: the bounds of
 ``chip_smoke.linear_agreement`` (``LINEAR_BOUNDS``, derived there from
@@ -42,13 +45,15 @@ import pytest
 import torch
 
 from chip_smoke import (MLP_CASES, demo_path, flash_agreement,
-                        linear_agreement, lora_inputs, mlp_agreement,
-                        mlp_inputs, qkv_inputs, residual_close)
+                        flash_case_readings, linear_agreement, lora_inputs,
+                        mlp_agreement, mlp_inputs, qkv_inputs,
+                        residual_close)
 from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
                          sample_case, top_p_boundary_gap)
 from tpudist_torch.bench import bench_fused_mlp
 from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
-                               flash_backward_dq, flash_backward_reference,
+                               flash_backward_dq, flash_backward_dq_delta,
+                               flash_backward_reference,
                                flash_forward, flash_forward_reference,
                                fused_mlp, fused_residual_prep,
                                fused_residual_reference,
@@ -60,6 +65,7 @@ from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                paged_attention_reference,
                                paged_prefill_attention,
                                paged_prefill_reference, reset_launch_counts)
+from tpudist_torch.ops.flash_attention import _launch_dkv, _launch_dq
 from tpudist_torch.ops.paged_prefill import _paged_prefill_on_arm
 from tpudist_torch.train.__main__ import main as train_main
 
@@ -322,6 +328,10 @@ def test_cuda_tensor_never_falls_back(cuda):
         flash_forward(q, q, q, (0, None))
     with pytest.raises(TypeError):
         flash_forward(q.half(), q.half(), q.half(), (0, None))
+    q = torch.zeros(1, 2, 16, 32, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    with pytest.raises(ValueError):  # dh 32: no kernel forms delta there
+        flash_backward_dq_delta(q, q, q, q, lse, q, None, (0, None))
 
 
 # (dtype, heads, kv heads, seq, head dim, band)
@@ -373,6 +383,102 @@ def test_flash_kernels_match_plain(cuda, case):
     assert launch_counts()["flash_forward"] == 1
     assert launch_counts()["flash_backward_dq"] == 1
     assert launch_counts()["flash_backward_dkv"] == 1
+
+
+# the backward's wgmma arm: (b, heads, kv heads, seq, head dim, band)
+WGMMA_CASES = {
+    "one_tile_d64": (1, 2, 2, 64, 64, (None, None)),
+    "one_tile_d128": (1, 2, 2, 64, 128, (None, None)),
+    "ragged130_causal_d128": (2, 4, 4, 130, 128, (0, None)),
+    "ragged1000_full_d64": (1, 4, 4, 1000, 64, (None, None)),
+    "ragged2047_causal_d128": (1, 2, 2, 2047, 128, (0, None)),
+    "gqa8_2_causal_d64": (1, 8, 2, 256, 64, (0, None)),
+    "gqa8_1_window40_d128": (1, 8, 1, 300, 128, (0, 40)),
+    "band_gqa_d64": (2, 4, 2, 200, 64, (-20, 64)),
+    "dead_rows_d128": (2, 2, 2, 130, 128, (10, 40)),
+}
+
+
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_flash_wgmma_arm_matches_plain(cuda, case):
+    """dq, dk/dv and the delta-forming dq on the wgmma arm against the
+    plain versions (``chip_smoke.flash_case_readings``): one tile, ragged
+    lengths, GQA 8/2 and 8/1, a window, a band, dead rows, head dims 64 and
+    128; every backward launch counts on the wgmma arm."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, h_kv, s, d, band = WGMMA_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    reset_launch_counts()
+    r = flash_case_readings(torch, gen, (case, b, h, h_kv, s, d, "bf16",
+                                         band))
+    assert r["arm"] == "wgmma" and r["ok"], r
+    # dq given delta, dq forming it, dq on the formed delta; one dk/dv
+    assert flash_backward_dq.launches == 3
+    assert flash_backward_dq.launches_wgmma == 3
+    assert flash_backward_dkv.launches == 1
+    assert flash_backward_dkv.launches_wgmma == 1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_mma_arm_still_matches_plain(cuda, d):
+    """The mma.sync arm that the wgmma arm replaced at head dims 64 and 128
+    (phase 3b times the two on the same inputs), forced: it agrees with
+    the plain version and counts no wgmma launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    band = (0, None)
+    q, k, v, g = [t.bfloat16() for t in _on(cuda, flash_case(4, 2, 200, d,
+                                                             seed=d))]
+    ref, lse = flash_forward_reference(q, k, v, band)
+    delta = (ref.float() * g.float()).sum(-1).contiguous()
+    reset_launch_counts()
+    dq = _launch_dq("mma", q, k, v, g, lse, delta, band)
+    dk, dv = _launch_dkv("mma", q, k, v, g, lse, delta, band)
+    rq, rk, rv = flash_backward_reference(q, k, v, g, lse, delta, band)
+    torch.cuda.synchronize()
+    for a, b in ((dq, rq), (dk, rk), (dv, rv)):
+        _flash_close(a, b, torch.bfloat16)
+    assert launch_counts()["flash_backward_dq"] == 1
+    assert flash_backward_dq.launches_wgmma == 0
+    assert flash_backward_dkv.launches_wgmma == 0
+
+
+@pytest.mark.parametrize("d,dtype,wgmma", [
+    (128, torch.bfloat16, True), (64, torch.bfloat16, True),
+    (32, torch.bfloat16, False), (128, torch.float32, False)],
+    ids=["bf16_d128", "bf16_d64", "bf16_d32", "f32_d128"])
+def test_flash_backward_arm_by_head_dim(cuda, d, dtype, wgmma):
+    """FlashAttention's backward launches one dq and one dk/dv kernel, on
+    the wgmma arm (dq forming delta) for bf16 at head dims 64 and 128."""
+    q, k, v, g = [t.to(dtype) for t in _on(cuda, flash_case(4, 2, 192, d,
+                                                            seed=3))]
+    a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    reset_launch_counts()
+    out, _ = FlashAttention.apply(*a, True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_backward_dq"] == 1
+    assert launch_counts()["flash_backward_dkv"] == 1
+    assert flash_backward_dq.launches_wgmma == int(wgmma)
+    assert flash_backward_dkv.launches_wgmma == int(wgmma)
+
+
+def test_flash_unused_lse_on_the_card(cuda):
+    """An unused lse reaches the backward as ``None`` (a null dlse in the
+    delta-forming kernel): the gradients equal those with an explicit zero
+    lse cotangent, bit for bit."""
+    q, k, v, _ = [t.bfloat16() for t in _on(cuda, flash_case(4, 2, 200,
+                                                             128, seed=4))]
+    grads = []
+    for explicit in (False, True):
+        a = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out, lse = FlashAttention.apply(*a, True)
+        loss = out.float().square().sum()
+        if explicit:
+            loss = loss + 0.0 * lse.sum()
+        loss.backward()
+        grads.append([t.grad for t in a])
+    for x, y in zip(*grads):
+        assert torch.equal(x, y)
 
 
 def test_flash_autograd_matches_dense_autograd(cuda):

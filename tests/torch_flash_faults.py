@@ -11,9 +11,12 @@ plants the fault there (a textual edit of the copy's kernel source; the
 checkout is never touched), and measures in a child process run in that
 copy, which builds its own kernels:
 
-- every phase-3b case of ``chip_smoke.py`` (``FLASH_CASES``): for the
-  forward output, dq, dk and dv, ``chip_smoke.flash_agreement`` (worst row,
-  relative RMS, the elementwise bound alone and the full check);
+- every phase-3b case of ``chip_smoke.py`` (``FLASH_CASES``) through
+  ``chip_smoke.flash_case_readings``: for the forward output, dq, dk and dv
+  ``chip_smoke.flash_agreement`` (worst row, relative RMS, the elementwise
+  bound alone and the full check), and on the backward's wgmma arm the dq
+  kernel that forms delta itself (delta, its dq, equality with the
+  given-delta arm);
 - phase 9's comparison (``chip_smoke.grad_readings``: batch 2 of the
   training geometry, bf16 kernels against the f32 plain path), held to
   ``GRAD_COS_MIN`` and ``LOSS_REL_MAX``; for the sound kernels also a bf16
@@ -40,9 +43,11 @@ ROOT = Path(__file__).resolve().parent.parent
 FWD = "tpudist_torch/csrc/flash_attention.cu"
 BWD = "tpudist_torch/csrc/flash_backward.cu"
 _PV = "    mma_pt<DN, kBK / 16>(o, s, Vs, LD, lane);"
-_DSK = "    mma_pt<DN, kBK / 16>(acc, s, ks, LD, lane);"
-_DV = "    mma_pt<DN, kQB / 16>(dv, s, dos, LD, lane);  // dv += bf(pᵀ)·do"
-_DK = "    mma_pt<DN, kQB / 16>(dk, s, qs, LD, lane);  // dk += bf(dsᵀ)·q"
+# the backward's wgmma arm (head dims 64 and 128: the main path's)
+_DSK = "    hw::wgmma_pt<DN>(acc, s, ks);  // dq += bf(ds)·k"
+_DV = "    hw::wgmma_pt<DN>(dv, s, dos);  // dv += bf(pᵀ)·do"
+_DK = "    hw::wgmma_pt<DN>(dk, dp, qs);  // dk += bf(dsᵀ)·q"
+_ROWSUM = "    sum += __shfl_xor_sync(0xffffffffu, sum, 1);"
 # zero the second half (32 columns) of the warp's score / ds tile
 _HALF = ("      for (int n = NT / 2; n < NT; ++n)\n"
          "        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;\n")
@@ -57,7 +62,7 @@ FAULTS = {
     "dq_half_tile_one_head": ([(BWD, _DSK, "    if (j == (first + last) / 2 "
                                 "&& blockIdx.x == 0 && blockIdx.y == 0)\n"
                                 + _HALF + _DSK)], ("3b",)),
-    # 16 queries of one (member, Q tile) step of the dk/dv pass left out,
+    # 32 queries of one (member, Q tile) step of the dk/dv pass left out,
     # in one KV head's first KV tile
     "dkv_half_step_one_head": ([(BWD, _DV, "    if (it == steps / 2 && "
                                  "blockIdx.x == 0 && blockIdx.y == 0)\n"
@@ -70,10 +75,12 @@ FAULTS = {
                            (BWD, _DK, "    if (it != steps - 1)\n  " + _DK)],
                           ("3b", "9")),
     # dq scaled by 0.97 everywhere (phase 9's cosine cannot see a scale)
-    "dq_scaled_097": ([(BWD, "__floats2bfloat162_rn(acc[dn][2 * r], "
-                        "acc[dn][2 * r + 1]);",
-                        "__floats2bfloat162_rn(0.97f * acc[dn][2 * r], "
-                        "0.97f * acc[dn][2 * r + 1]);")], ("3b",)),
+    "dq_scaled_097": ([(BWD, "__floats2bfloat162_rn(acc[i][2 * r], "
+                        "acc[i][2 * r + 1]);",
+                        "__floats2bfloat162_rn(0.97f * acc[i][2 * r], "
+                        "0.97f * acc[i][2 * r + 1]);")], ("3b",)),
+    # the folded delta sums half of each row (one thread's columns)
+    "dq_delta_half_row": ([(BWD, _ROWSUM, "")], ("3b",)),
 }
 
 
@@ -96,9 +103,6 @@ def measure(name: str) -> dict:
 
     import chip_smoke as cs
     from tpudist_torch.ops import _build
-    from tpudist_torch.ops.flash_attention import (
-        flash_backward_dkv, flash_backward_dq, flash_backward_reference,
-        flash_forward, flash_forward_reference)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -106,29 +110,10 @@ def measure(name: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     out = {"variant": name, "3b": {}}
     caught_3b = False
-    for case, b, h, h_kv, s, d, dt, band in cs.FLASH_CASES:
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        q, k, v, g = (torch.randn(*shape, generator=gen, device="cuda")
-                      .to(dtype) for shape in ((b, h, s, d), (b, h_kv, s, d),
-                                               (b, h_kv, s, d), (b, h, s, d)))
-        o, lse = flash_forward(q, k, v, band)
-        ref, rlse = flash_forward_reference(q, k, v, band)
-        delta = (ref.float() * g.float()).sum(-1).contiguous()
-        dq = flash_backward_dq(q, k, v, g, rlse, delta, band)
-        dk, dv = flash_backward_dkv(q, k, v, g, rlse, delta, band)
-        rq, rk, rv = flash_backward_reference(q, k, v, g, rlse, delta, band)
-        torch.cuda.synchronize()
-        row = {"lse_ok": bool(((lse - rlse).abs()
-                               <= 1e-4 + 1e-5 * rlse.abs()).all())}
-        for t, a, r, grad in (("out", o, ref, False), ("dq", dq, rq, True),
-                              ("dk", dk, rk, True), ("dv", dv, rv, True)):
-            row[t] = cs.flash_agreement(torch, a, r, dtype, grad,
-                                        float(v.float().abs().max()))
-            caught_3b |= not (row[t]["elementwise_ok"] and row[t]["rows_ok"]
-                              and row[t]["rms_ok"])
-        caught_3b |= not row["lse_ok"]
-        out["3b"][case] = row
-        del q, k, v, g, o, ref, dq, dk, dv, rq, rk, rv
+    for case in cs.FLASH_CASES:
+        row = cs.flash_case_readings(torch, gen, case)
+        caught_3b |= not row["ok"]
+        out["3b"][case[0]] = row
     torch.cuda.empty_cache()
     out["9"] = cs.grad_readings(torch)
     out["caught"] = [p for p, hit in (("3b", caught_3b),

@@ -15,23 +15,53 @@
 //
 // where bf() rounds to the input dtype; every product accumulates in f32.
 //
-// Design.  dq: one CTA per (b·h, 64-row Q tile), a loop over the live KV
-// tiles accumulating dq in f32 registers (the TPU kernel's KV-innermost
-// sweep).  dk/dv: one CTA per (b·h_kv, 64-row KV tile), a loop over every
-// (group member, live 32-row Q tile) accumulating dk and dv in f32
+// Schedule, every arm.  dq: one CTA per (b·h, 64-row Q tile), a loop over
+// the live KV tiles accumulating dq in f32 registers (the TPU kernel's
+// KV-innermost sweep).  dk/dv: one CTA per (b·h_kv, 64-row KV tile), a loop
+// over every (group member, live Q tile) accumulating dk and dv in f32
 // registers: the TPU's sequential "arbitrary" grid axis becomes a loop
 // inside the CTA, so a GQA group sums into its KV head without atomics and
 // the result is deterministic.  Query rows past Sq carry lse = +inf (p = 0)
 // and delta 0; keys past Sk are masked in the dq pass and never stored by
-// the dk/dv pass.
+// the dk/dv pass.  Under a causal band the longest CTAs start first.
 //
-// bf16 runs on the tensor cores (mma.sync m16n8k16, double-buffered
-// cp.async tiles); f32 on CUDA-core FMAs in full f32, never TF32.
+// Arms (ops/flash_attention.py _bwd_arm picks one; the caller may force the
+// mma.sync arm for bf16 to time it):
+//
+// - wgmma, bf16 at head dims 64 and 128 (the training path).  One
+//   warpgroup (4 warps) a CTA over 64 rows, every product a Hopper
+//   warpgroup MMA (hopper_mma.cuh): the score and dp tiles m64n64k16 with
+//   both operands in 128-byte-swizzled shared memory, the dq / dk / dv
+//   updates m64n{D}k16 with bf(ds) or bf(p) repacked from the accumulators
+//   into A registers and B read through the descriptor's transpose bit (k,
+//   q and do are stored row-major by key or query).  The CTA's own tiles
+//   (q and do for dq; k and v for dk/dv) stay resident; the streamed tiles
+//   (k and v, or q and do, 64 rows each) arrive by TMA in a ring of two
+//   stages, one thread issuing the next stage's copies while the warpgroup
+//   multiplies the other; the dk/dv pass's lse and delta rows for the next
+//   step load into registers under the same step.  The maps are built per
+//   launch over [heads, rows, D] views, so a tile past a head's last row
+//   reads zeros.  The dq kernel can also form delta itself
+//   (tpd_flash_backward_dq with an out pointer): it reads its rows of the
+//   forward's out with 16-byte loads while the q and do tiles land, sums
+//   out·do against the do tile in shared memory, subtracts dlse, uses the
+//   result and writes it to a [b, h, Sq] f32 buffer that the dk/dv launch
+//   after it reads.
+// - mma.sync, bf16 at head dims 16 and 32: 4 warps of 16 rows on
+//   mma.sync m16n8k16, padded shared tiles, cp.async double buffers (dk/dv
+//   streams 32-row Q tiles).
+// - f32 on CUDA-core FMAs in full f32, never TF32.
 //
 // Bound on the H100: operations (6·pairs·D flops for dq and 8·pairs·D for
-// dk/dv against a few MB of operands at the training shapes).  Like the
-// forward, this first version runs well below that bound.
+// dk/dv against a few MB of operands at the training shapes).  The wgmma
+// arm has no warp specialisation and one warpgroup a CTA; shared memory
+// (six 16 KB tiles at D = 128) holds an SM to two CTAs, so one CTA's
+// softmax arithmetic overlaps the other's products, and each step waits
+// on its products before the next (PERF.md has the readings).
+#include <cuda.h>
+
 #include "flash_common.cuh"
+#include "hopper_mma.cuh"
 
 namespace tpd_flash {
 namespace {
@@ -269,6 +299,308 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----------------------------------------------------------- wgmma, bf16
+
+namespace hw = tpd_hopper;
+constexpr int kWg = hw::kTileRows;  // rows of a CTA's tile and of a step's
+
+// sum of the eight bf16 products of two 16-byte chunks, in f32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
+}
+
+// Out != nullptr: form delta = rowsum(out·do) - dlse (GLse may be null) and
+// write it to Delta; else read Delta.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dq_wgmma(const __grid_constant__ CUtensorMap tmQ,
+             const __grid_constant__ CUtensorMap tmK,
+             const __grid_constant__ CUtensorMap tmV,
+             const __grid_constant__ CUtensorMap tmdO,
+             const float* __restrict__ Lse, float* __restrict__ Delta,
+             const bf16* __restrict__ Out, const float* __restrict__ GLse,
+             bf16* __restrict__ dQ, int H, int Hkv, int Sq, int Sk, int lo,
+             int hi, float scale) {
+  static_assert(D == 64 || D == 128, "wgmma tiles take head dims 64 and 128");
+  constexpr int T = kWg * D, DN = D / 8, NT = kWg / 8;
+  constexpr uint32_t kTileBytes = T * sizeof(bf16);
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(hw::align1024(smem_raw));  // [64][D]
+  bf16* dOs = Qs + T;                                           // [64][D]
+  bf16* Ks = dOs + T;                                           // [2][64][D]
+  bf16* Vs = Ks + 2 * T;                                        // [2][64][D]
+  float* delta_s = reinterpret_cast<float*>(Vs + 2 * T);        // [64]
+  // barriers: the resident Q/dO tiles, then one per K/V ring stage
+  uint64_t* bars = reinterpret_cast<uint64_t*>(delta_s + kWg);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = b * Hkv + h / (H / Hkv);
+  // longest CTAs first, as in the forward (last Q tiles, b·h fastest)
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  int first, last;
+  kv_tiles(q0, min(q0 + kWg, Sq) - 1, lo, hi, Sk, kWg, first, last);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) hw::mbar_init(bars + i, 1);
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hw::mbar_expect(bars, 2 * kTileBytes);
+    hw::tma_tile<D>(Qs, &tmQ, bars, q0, bh);
+    hw::tma_tile<D>(dOs, &tmdO, bars, q0, bh);
+    if (first <= last) {
+      hw::mbar_expect(bars + 1, 2 * kTileBytes);
+      hw::tma_tile<D>(Ks, &tmK, bars + 1, first * kWg, hk);
+      hw::tma_tile<D>(Vs, &tmV, bars + 1, first * kWg, hk);
+    }
+  }
+  if (Out != nullptr) {
+    // two threads a row, half of its columns each: the out loads fly with
+    // the Q/dO tiles, the sums run while the first K/V tile is in flight
+    // (a row past Sq reads row Sq - 1 and is not stored)
+    const int r = threadIdx.x >> 1, half = threadIdx.x & 1, row = q0 + r;
+    const bf16* o =
+        Out + ((size_t)bh * Sq + min(row, Sq - 1)) * D + half * (D / 2);
+    uint4 ov[D / 16];
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c)
+      ov[c] = *reinterpret_cast<const uint4*>(o + c * 8);
+    hw::mbar_wait(bars, 0);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c)
+      sum += dot8(ov[c], *reinterpret_cast<const uint4*>(
+                             dOs + hw::swz(r, half * (D / 2) + c * 8)));
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      float d = 0.f;
+      if (row < Sq) {
+        d = GLse != nullptr ? sum - GLse[(size_t)bh * Sq + row] : sum;
+        Delta[(size_t)bh * Sq + row] = d;
+      }
+      delta_s[r] = d;
+    }
+    __syncthreads();
+  } else {
+    hw::mbar_wait(bars, 0);
+  }
+  float lse[2], live[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rl = warp * 16 + g + r * 8, row = q0 + rl;
+    const bool ok = row < Sq;
+    lse[r] = ok ? Lse[(size_t)bh * Sq + row] : INFINITY;
+    live[r] = ok ? live_of(lse[r]) : 0.f;
+    delta[r] = Out != nullptr ? delta_s[rl]
+                              : (ok ? Delta[(size_t)bh * Sq + row] : 0.f);
+  }
+
+  float acc[DN][4] = {};
+  for (int j = first; j <= last; ++j) {
+    const int t = j - first, buf = t & 1;
+    if (j < last && threadIdx.x == 0) {  // the stage freed last step
+      hw::mbar_expect(bars + 1 + (buf ^ 1), 2 * kTileBytes);
+      hw::tma_tile<D>(Ks + (buf ^ 1) * T, &tmK, bars + 1 + (buf ^ 1),
+                      (j + 1) * kWg, hk);
+      hw::tma_tile<D>(Vs + (buf ^ 1) * T, &tmV, bars + 1 + (buf ^ 1),
+                      (j + 1) * kWg, hk);
+    }
+    hw::mbar_wait(bars + 1 + buf, (t >> 1) & 1);
+    const bf16* ks = Ks + buf * T;
+    const bf16* vs = Vs + buf * T;
+    float s[NT][4] = {}, dp[NT][4] = {};
+    hw::wgmma_fence();
+    hw::wgmma_abt<D>(s, Qs, ks);    // s = q·kᵀ
+    hw::wgmma_abt<D>(dp, dOs, vs);  // dp = do·vᵀ
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_acc(s);
+    hw::fence_acc(dp);
+
+    const int k0 = j * kWg;
+    const bool interior = tile_interior(q0, kWg, k0, kWg, lo, hi, Sk);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[n][e] * scale;
+        if (!interior) {
+          const int qp = q0 + warp * 16 + g + r * 8;
+          const int kp = k0 + n * 8 + tq * 2 + (e & 1);
+          if (!(kp < Sk && in_band(qp, kp, lo, hi))) x = kMask;
+        }
+        const float p = exp_row(x, lse[r]) * live[r];
+        s[n][e] = p * (dp[n][e] - delta[r]) * scale;  // ds
+      }
+    hw::wgmma_pt<DN>(acc, s, ks);  // dq += bf(ds)·k
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_acc(acc);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + r * 8;
+    if (row >= Sq) continue;
+    const size_t base = ((size_t)bh * Sq + row) * D + tq * 2;
+#pragma unroll
+    for (int i = 0; i < DN; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dQ + base + i * 8) =
+          __floats2bfloat162_rn(acc[i][2 * r], acc[i][2 * r + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    dkv_wgmma(const __grid_constant__ CUtensorMap tmQ,
+              const __grid_constant__ CUtensorMap tmK,
+              const __grid_constant__ CUtensorMap tmV,
+              const __grid_constant__ CUtensorMap tmdO,
+              const float* __restrict__ Lse, const float* __restrict__ Delta,
+              bf16* __restrict__ dK, bf16* __restrict__ dV, int H, int Hkv,
+              int Sq, int Sk, int lo, int hi, float scale) {
+  static_assert(D == 64 || D == 128, "wgmma tiles take head dims 64 and 128");
+  constexpr int T = kWg * D, DN = D / 8, NT = kWg / 8;
+  constexpr uint32_t kTileBytes = T * sizeof(bf16);
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(hw::align1024(smem_raw));  // [64][D]
+  bf16* Vs = Ks + T;                                            // [64][D]
+  bf16* Qs = Vs + T;                                            // [2][64][D]
+  bf16* dOs = Qs + 2 * T;                                       // [2][64][D]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * T);         // [2][64]
+  float* delta_s = lse_s + 2 * kWg;                             // [2][64]
+  // barriers: the resident K/V tiles, then one per Q/dO ring stage
+  uint64_t* bars = reinterpret_cast<uint64_t*>(delta_s + 2 * kWg);
+  const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv % Hkv;
+  const int group = H / Hkv;
+  // b·h_kv fastest; under a causal band the first KV tiles see the most
+  // Q tiles, so the longest CTAs start first
+  const int k0 = blockIdx.y * kWg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  int qfirst, qlast;
+  q_tiles(k0, min(k0 + kWg, Sk) - 1, lo, hi, Sq, kWg, qfirst, qlast);
+  const int per_head = qlast - qfirst + 1;
+  const int steps = per_head > 0 ? group * per_head : 0;
+  // q head (b·H + hk·group + member) and Q tile of step `it`
+  auto head_of = [&](int it) { return b * H + hk * group + it / per_head; };
+  auto tile_of = [&](int it) { return qfirst + it % per_head; };
+  // one thread: the step's Q and dO tiles into ring stage `buf`
+  auto stream = [&](int it, int buf) {
+    hw::mbar_expect(bars + 1 + buf, 2 * kTileBytes);
+    hw::tma_tile<D>(Qs + buf * T, &tmQ, bars + 1 + buf, tile_of(it) * kWg,
+                    head_of(it));
+    hw::tma_tile<D>(dOs + buf * T, &tmdO, bars + 1 + buf, tile_of(it) * kWg,
+                    head_of(it));
+  };
+  // the lse and delta of a step's 64 rows (threads < 64, a row each)
+  auto row_scalars = [&](int it, float& l, float& d) {
+    const int row = tile_of(it) * kWg + threadIdx.x;
+    const size_t i = (size_t)head_of(it) * Sq + row;
+    l = row < Sq ? Lse[i] : INFINITY;
+    d = row < Sq ? Delta[i] : 0.f;
+  };
+  if (steps == 0) {
+    // no live query: dk = dv = 0
+  } else if (threadIdx.x < kWg) {
+    row_scalars(0, lse_s[threadIdx.x], delta_s[threadIdx.x]);
+  } else if (threadIdx.x == kWg) {
+    for (int i = 0; i < 3; ++i) hw::mbar_init(bars + i, 1);
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+  if (steps > 0 && threadIdx.x == 0) {
+    hw::mbar_expect(bars, 2 * kTileBytes);
+    hw::tma_tile<D>(Ks, &tmK, bars, k0, bkv);
+    hw::tma_tile<D>(Vs, &tmV, bars, k0, bkv);
+    stream(0, 0);
+  }
+  if (steps > 0) hw::mbar_wait(bars, 0);
+
+  float dk[DN][4] = {}, dv[DN][4] = {};
+  for (int it = 0; it < steps; ++it) {
+    const int buf = it & 1;
+    const bool next = it + 1 < steps;
+    float nl = 0.f, nd = 0.f;  // the next step's row scalars, in flight
+    if (next && threadIdx.x < kWg) row_scalars(it + 1, nl, nd);
+    if (next && threadIdx.x == 0) stream(it + 1, buf ^ 1);
+    hw::mbar_wait(bars + 1 + buf, (it >> 1) & 1);
+    const int q0 = tile_of(it) * kWg;
+    const bf16* qs = Qs + buf * T;
+    const bf16* dos = dOs + buf * T;
+    const float* ls = lse_s + buf * kWg;
+    const float* dl = delta_s + buf * kWg;
+
+    // rows: this warp's 16 keys; columns: the step's 64 queries
+    float s[NT][4] = {}, dp[NT][4] = {};
+    hw::wgmma_fence();
+    hw::wgmma_abt<D>(s, Ks, qs);    // sᵀ = k·qᵀ
+    hw::wgmma_abt<D>(dp, Vs, dos);  // dpᵀ = v·doᵀ
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_acc(s);
+    hw::fence_acc(dp);
+    const bool interior = tile_interior(q0, kWg, k0, kWg, lo, hi, 1 << 30);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + tq * 2 + (e & 1);
+        float x = s[n][e] * scale;
+        if (!interior) {
+          const int kp = k0 + warp * 16 + g + (e >> 1) * 8;
+          if (!in_band(q0 + c, kp, lo, hi)) x = kMask;
+        }
+        s[n][e] = exp_row(x, ls[c]) * live_of(ls[c]);  // pᵀ
+      }
+    hw::wgmma_pt<DN>(dv, s, dos);  // dv += bf(pᵀ)·do
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + tq * 2 + (e & 1);
+        dp[n][e] = s[n][e] * (dp[n][e] - dl[c]) * scale;  // dsᵀ
+      }
+    hw::wgmma_pt<DN>(dk, dp, qs);  // dk += bf(dsᵀ)·q
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_acc(dk);
+    hw::fence_acc(dv);
+    if (next && threadIdx.x < kWg) {
+      lse_s[(buf ^ 1) * kWg + threadIdx.x] = nl;
+      delta_s[(buf ^ 1) * kWg + threadIdx.x] = nd;
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + warp * 16 + g + r * 8;
+    if (row >= Sk) continue;
+    const size_t base = ((size_t)bkv * Sk + row) * D + tq * 2;
+#pragma unroll
+    for (int i = 0; i < DN; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(dK + base + i * 8) =
+          __floats2bfloat162_rn(dk[i][2 * r], dk[i][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dV + base + i * 8) =
+          __floats2bfloat162_rn(dv[i][2 * r], dv[i][2 * r + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------------- f32
 
 // dq: 16 query rows per CTA, 32-key tiles; a warp holds one row's tile
@@ -432,18 +764,109 @@ using namespace tpd_flash;
     return (int)cudaGetLastError();                                           \
   }
 
-// all of q, k, v, do, dq alike (kBF16 or kF32), contiguous; lse/delta f32
+// the kernel arm: ops/flash_attention.py _ARMS
+enum Arm : int { kArmF32 = 0, kArmMma = 1, kArmWgmma = 2 };
+
+// Shared memory of the wgmma arm: two resident and four streamed [64][D]
+// bf16 tiles, up to 1 KB of row scalars, the mbarriers and 1 KB of slack
+// to align the tiles to 1024 bytes.
+inline size_t wgmma_smem(int D) {
+  return (size_t)6 * kWg * D * sizeof(bf16) + 3072;
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, which this library does not link:
+// it is reached through the runtime's entry-point query
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a [heads, rows, D] bf16 tensor in boxes of 64 rows x 64
+// columns with the 128-byte swizzle; rows past the end read as zeros.
+static bool tile_map(CUtensorMap* m, const void* p, int heads, int rows,
+                     int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(bf16),
+                                 (cuuint64_t)rows * D * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, (cuuint32_t)kWg, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of q, k, v and do, in that order.  The encoder needs the
+// device's context current on this thread, which a thread whose first CUDA
+// work this is (autograd's) may not have yet: setting the current device
+// again binds it.
+static bool tile_maps(CUtensorMap* m, const void* q, const void* k,
+                      const void* v, const void* dout, int B, int H, int Hkv,
+                      int Sq, int Sk, int D) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return false;
+  return tile_map(m, q, B * H, Sq, D) && tile_map(m + 1, k, B * Hkv, Sk, D) &&
+         tile_map(m + 2, v, B * Hkv, Sk, D) &&
+         tile_map(m + 3, dout, B * H, Sq, D);
+}
+
+// All of q, k, v, do, dq alike (bf16 for arms 1-2, f32 for arm 0),
+// contiguous; lse f32 [B, H, Sq].  out == NULL: delta is read.  out != NULL
+// (arm 2 only; out bf16 like q, glse f32 or NULL): the kernel forms delta =
+// rowsum(out·do) - glse and writes it to delta.
 extern "C" int tpd_flash_backward_dq(const void* q, const void* k,
                                      const void* v, const void* dout,
-                                     const void* lse, const void* delta,
+                                     const void* lse, void* delta,
+                                     const void* out, const void* glse,
                                      void* dq, int B, int H, int Hkv, int Sq,
-                                     int Sk, int D, int lo, int hi, int dtype,
+                                     int Sk, int D, int lo, int hi, int arm,
                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out != nullptr && arm != kArmWgmma) return (int)cudaErrorInvalidValue;
   if (Sq <= 0 || B * H <= 0) return 0;
   const float* L = static_cast<const float*>(lse);
-  const float* Dl = static_cast<const float*>(delta);
-  if (dtype == kBF16) {
+  float* Dl = static_cast<float*>(delta);
+  if (arm == kArmWgmma) {
+    const dim3 grid(B * H, (Sq + kWg - 1) / kWg);
+    const size_t smem = wgmma_smem(D);
+    CUtensorMap m[4];
+    if ((D != 64 && D != 128) || !tile_maps(m, q, k, v, dout, B, H, Hkv, Sq,
+                                             Sk, D))
+      return (int)cudaErrorInvalidValue;
+    const bf16* O = static_cast<const bf16*>(out);
+    const float* GL = static_cast<const float*>(glse);
+    bf16* dQ = static_cast<bf16*>(dq);
+    if (D == 64)
+      TPD_LAUNCH(dq_wgmma<64>, grid, kThreads, smem, m[0], m[1], m[2],
+                 m[3], L, Dl, O, GL, dQ, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 128)
+      TPD_LAUNCH(dq_wgmma<128>, grid, kThreads, smem, m[0], m[1], m[2],
+                 m[3], L, Dl, O, GL, dQ, H, Hkv, Sq, Sk, lo, hi, scale)
+  } else if (arm == kArmMma) {
     const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
     const size_t smem = (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
     const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
@@ -462,7 +885,7 @@ extern "C" int tpd_flash_backward_dq(const void* q, const void* k,
     if (D == 128)
       TPD_LAUNCH(dq_bf16<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
                  dQ, H, Hkv, Sq, Sk, lo, hi, scale)
-  } else if (dtype == kF32) {
+  } else if (arm == kArmF32) {
     const dim3 grid((Sq + kSQ - 1) / kSQ, B * H);
     const size_t smem =
         ((size_t)2 * kSQ * D + 2 * kSK * (D + 1) + kSQ * kSK + 2 * kSQ) *
@@ -493,13 +916,27 @@ extern "C" int tpd_flash_backward_dkv(const void* q, const void* k,
                                       const void* lse, const void* delta,
                                       void* dk, void* dv, int B, int H,
                                       int Hkv, int Sq, int Sk, int D, int lo,
-                                      int hi, int dtype, float scale,
+                                      int hi, int arm, float scale,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Sk <= 0 || B * Hkv <= 0) return 0;
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
-  if (dtype == kBF16) {
+  if (arm == kArmWgmma) {
+    const dim3 grid(B * Hkv, (Sk + kWg - 1) / kWg);
+    const size_t smem = wgmma_smem(D);
+    CUtensorMap m[4];
+    if ((D != 64 && D != 128) || !tile_maps(m, q, k, v, dout, B, H, Hkv, Sq,
+                                             Sk, D))
+      return (int)cudaErrorInvalidValue;
+    bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
+    if (D == 64)
+      TPD_LAUNCH(dkv_wgmma<64>, grid, kThreads, smem, m[0], m[1], m[2],
+                 m[3], L, Dl, dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
+    if (D == 128)
+      TPD_LAUNCH(dkv_wgmma<128>, grid, kThreads, smem, m[0], m[1],
+                 m[2], m[3], L, Dl, dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
+  } else if (arm == kArmMma) {
     const dim3 grid(B * Hkv, (Sk + kKB - 1) / kKB);
     const size_t smem = (size_t)(2 * kKB + 4 * kQB) * (D + 8) * sizeof(bf16) +
                         4 * kQB * sizeof(float);
@@ -519,7 +956,7 @@ extern "C" int tpd_flash_backward_dkv(const void* q, const void* k,
     if (D == 128)
       TPD_LAUNCH(dkv_bf16<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
                  dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
-  } else if (dtype == kF32) {
+  } else if (arm == kArmF32) {
     const dim3 grid((Sk + kSK - 1) / kSK, B * Hkv);
     const size_t smem = ((size_t)2 * kSK * (D + 1) + 2 * kSQ * (D + 1) +
                          2 * kSK * (kSQ + 1) + 2 * kSQ) *

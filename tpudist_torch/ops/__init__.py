@@ -10,6 +10,7 @@ from tpudist_torch.ops.flash_attention import (FlashAttention,
                                                flash_attention_with_lse,
                                                flash_backward_dkv,
                                                flash_backward_dq,
+                                               flash_backward_dq_delta,
                                                flash_backward_reference,
                                                flash_forward,
                                                flash_forward_reference)
@@ -51,18 +52,21 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's ``launches`` (and the paged prefill's per-arm
-    ``launches_tc`` / ``launches_cc``)."""
+    """Zero every wrapper's ``launches`` (and the per-arm counts: the paged
+    prefill's ``launches_tc`` / ``launches_cc``, the flash backward's
+    ``launches_wgmma``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     paged_prefill_attention.launches_tc = 0
     paged_prefill_attention.launches_cc = 0
+    flash_backward_dq.launches_wgmma = 0
+    flash_backward_dkv.launches_wgmma = 0
 
 
 __all__ = [
     "FlashAttention", "KERNEL_WRAPPERS", "PackedMLP", "flash_attention",
     "flash_attention_with_lse", "flash_backward_dkv", "flash_backward_dq",
-    "flash_backward_reference", "flash_forward", "flash_forward_reference",
+    "flash_backward_dq_delta", "flash_backward_reference", "flash_forward", "flash_forward_reference",
     "fused_mlp", "fused_residual_prep", "fused_residual_reference", "fused_rope_qkv",
     "fused_rope_qkv_reference", "fused_sample_prep",
     "fused_sample_reference", "lora_delta", "lora_delta_reference",

@@ -2,13 +2,19 @@
 backward passes.
 
 The PyTorch/CUDA counterpart of :mod:`tpudist.ops.flash_attention`.  On CUDA
-tensors :func:`flash_forward`, :func:`flash_backward_dq` and
-:func:`flash_backward_dkv` launch the hand-written kernels
-``csrc/flash_attention.cu`` and ``csrc/flash_backward.cu`` (bf16 on the
-tensor cores, f32 on CUDA-core FMAs; head dims 16, 32, 64 and 128; any
-sequence length); on CPU tensors they run :func:`flash_forward_reference` and
-:func:`flash_backward_reference`.  :class:`FlashAttention` ties them into an
-autograd function with the JAX ``custom_vjp``'s residuals and lse cotangent.
+tensors :func:`flash_forward`, :func:`flash_backward_dq`,
+:func:`flash_backward_dq_delta` and :func:`flash_backward_dkv` launch the
+hand-written kernels ``csrc/flash_attention.cu`` and
+``csrc/flash_backward.cu`` (bf16 on the tensor cores, f32 on CUDA-core FMAs;
+head dims 16, 32, 64 and 128; any sequence length); on CPU tensors they run
+:func:`flash_forward_reference` and :func:`flash_backward_reference`.
+:class:`FlashAttention` ties them into an autograd function with the JAX
+``custom_vjp``'s residuals and lse cotangent.
+
+The backward has three arms on CUDA (:func:`_bwd_arm`): Hopper warpgroup
+MMAs (``wgmma``) for bf16 at head dims 64 and 128, whose dq kernel can also
+form the delta ``rowsum(out·dout) − dlse`` itself; ``mma.sync`` tiles for
+bf16 at head dims 16 and 32; CUDA-core FMAs for f32.
 
 Layouts are the JAX package's: q ``[b, h, s, dh]``, k/v ``[b, h_kv, s,
 dh]`` (grouped-query attention natively: ``h_kv`` divides ``h``), lse ``[b,
@@ -182,7 +188,7 @@ def _declare_fwd(lib) -> None:
 
 def _declare_bwd(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpd_flash_backward_dq.argtypes = ([p] * 7 + [i] * 9
+    lib.tpd_flash_backward_dq.argtypes = ([p] * 9 + [i] * 9
                                           + [ctypes.c_float] + [p])
     lib.tpd_flash_backward_dq.restype = i
     lib.tpd_flash_backward_dkv.argtypes = ([p] * 8 + [i] * 9
@@ -245,50 +251,56 @@ def flash_forward(q, k, v, band: Band, out_f32: bool = False,
     return out, lse
 
 
-def _bwd_check(what: str, q, k, v, do, lse, delta):
-    _check_cuda(what, [q, k, v, do, lse, delta], q.dtype)
+# the backward's kernel arms (enum Arm in csrc/flash_backward.cu)
+_ARMS = {"f32": 0, "mma": 1, "wgmma": 2}
+_WGMMA_DIMS = (64, 128)
+
+
+def _bwd_arm(q) -> str:
+    """The arm a CUDA backward call takes: ``wgmma`` for bf16 at head dims
+    64 and 128, ``mma`` (mma.sync) for bf16 at 16 and 32, ``f32``."""
+    if q.dtype == torch.float32:
+        return "f32"
+    return "wgmma" if q.shape[-1] in _WGMMA_DIMS else "mma"
+
+
+def _bwd_check(what: str, q, k, v, do, rows_f32):
+    _check_cuda(what, [q, k, v, do] + list(rows_f32), q.dtype)
     b, h, h_kv, d = _geometry(what, q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise TypeError(f"{what}: do must match q's shape and dtype")
     rows = (b, h, q.shape[2])
-    if tuple(lse.shape) != rows or tuple(delta.shape) != rows \
-            or lse.dtype != torch.float32 or delta.dtype != torch.float32:
-        raise TypeError(f"{what}: lse and delta must be float32 {rows}")
+    if any(tuple(t.shape) != rows or t.dtype != torch.float32
+           for t in rows_f32):
+        raise TypeError(f"{what}: lse, delta and g_lse must be float32 "
+                        f"{rows}")
     return b, h, h_kv, d
 
 
-def flash_backward_dq(q, k, v, do, lse, delta, band: Band,
-                      block_q: int = 128):
-    """dq of the backward (``do`` in q's dtype, ``delta = rowsum(out·dout)
-    − dlse``).  CUDA tensors launch the dq kernel of
-    ``csrc/flash_backward.cu``; CPU tensors run the plain backward."""
-    if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, do, lse, delta, band,
-                                        block_q)[0]
-    b, h, h_kv, d = _bwd_check("flash_backward_dq", q, k, v, do, lse, delta)
+def _launch_dq(arm: str, q, k, v, do, lse, delta, band: Band, out=None,
+               g_lse=None):
+    """One launch of the dq kernel on ``arm`` (inputs checked by the
+    caller); with ``out`` the kernel writes ``rowsum(out·do) − g_lse`` into
+    ``delta`` and uses it.  ``chip_smoke.py`` and the CUDA tests also call
+    it to time and hold the bf16 arms on the same inputs."""
+    b, h, h_kv, d = _shapes(q, k, v)
     dq = torch.empty_like(q)
     lib = _build.load("flash_backward", _declare_bwd)
     lo, hi = _band_ints(band)
     ptr = _build.ptr
     rc = lib.tpd_flash_backward_dq(
-        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq), b, h,
-        h_kv, q.shape[2], k.shape[2], d, lo, hi, _build.dtype_code(q.dtype),
-        d ** -0.5, _build.stream_of(q.device))
+        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(out),
+        ptr(g_lse), ptr(dq), b, h, h_kv, q.shape[2], k.shape[2], d, lo, hi,
+        _ARMS[arm], d ** -0.5, _build.stream_of(q.device))
     _build.check(lib, rc, "flash_backward_dq")
     flash_backward_dq.launches += 1
+    flash_backward_dq.launches_wgmma += arm == "wgmma"
     return dq
 
 
-def flash_backward_dkv(q, k, v, do, lse, delta, band: Band,
-                       block_q: int = 128):
-    """``(dk, dv)`` of the backward, each GQA group summed into its KV
-    head.  CUDA tensors launch the dk/dv kernel of
-    ``csrc/flash_backward.cu``; CPU tensors run the plain backward."""
-    if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, do, lse, delta, band,
-                                        block_q)[1:]
-    b, h, h_kv, d = _bwd_check("flash_backward_dkv", q, k, v, do, lse,
-                               delta)
+def _launch_dkv(arm: str, q, k, v, do, lse, delta, band: Band):
+    """One launch of the dk/dv kernel on ``arm``, as :func:`_launch_dq`."""
+    b, h, h_kv, d = _shapes(q, k, v)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_backward", _declare_bwd)
@@ -296,27 +308,97 @@ def flash_backward_dkv(q, k, v, do, lse, delta, band: Band,
     ptr = _build.ptr
     rc = lib.tpd_flash_backward_dkv(
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dk),
-        ptr(dv), b, h, h_kv, q.shape[2], k.shape[2], d, lo, hi,
-        _build.dtype_code(q.dtype), d ** -0.5, _build.stream_of(q.device))
+        ptr(dv), b, h, h_kv, q.shape[2], k.shape[2], d, lo, hi, _ARMS[arm],
+        d ** -0.5, _build.stream_of(q.device))
     _build.check(lib, rc, "flash_backward_dkv")
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.launches_wgmma += arm == "wgmma"
     return dk, dv
 
 
-#: kernel launches since the last reset (the main path's proof of use)
+def flash_backward_dq(q, k, v, do, lse, delta, band: Band,
+                      block_q: int = 128):
+    """dq of the backward (``do`` in q's dtype, ``delta = rowsum(out·dout)
+    − dlse``; the JAX ``_flash_backward`` inputs).  CUDA tensors launch the
+    dq kernel of ``csrc/flash_backward.cu`` on :func:`_bwd_arm`'s arm; CPU
+    tensors run the plain backward."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, do, lse, delta, band,
+                                        block_q)[0]
+    _bwd_check("flash_backward_dq", q, k, v, do, [lse, delta])
+    return _launch_dq(_bwd_arm(q), q, k, v, do, lse, delta, band)
+
+
+def flash_backward_dq_delta(q, k, v, do, lse, out, g_lse, band: Band,
+                            block_q: int = 128):
+    """``(dq, delta)`` of the backward from the forward's ``out`` and the
+    cotangents: ``delta = rowsum(out·do) − g_lse`` (``g_lse`` ``None``: no
+    lse cotangent), f32 ``[b, h, sq]``, the input of
+    :func:`flash_backward_dkv`.  CUDA tensors launch the wgmma dq kernel,
+    which forms delta itself before its first KV tile (bf16 at head dims 64
+    and 128, ``out`` and ``do`` in q's dtype and shape; other inputs
+    raise); CPU tensors run the plain delta and backward."""
+    if q.device.type == "cpu":
+        delta = (out.float() * do.float()).sum(dim=-1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        return flash_backward_reference(q, k, v, do, lse, delta, band,
+                                        block_q)[0], delta
+    rows = [lse] if g_lse is None else [lse, g_lse]
+    b, h, _, d = _bwd_check("flash_backward_dq_delta", q, k, v, do, rows)
+    _check_cuda("flash_backward_dq_delta", [q, out], q.dtype)
+    if _bwd_arm(q) != "wgmma" or out.shape != q.shape \
+            or out.dtype != q.dtype:
+        raise ValueError(f"flash_backward_dq_delta forms delta in the wgmma "
+                         f"dq kernel: bf16 q and out at head dims "
+                         f"{_WGMMA_DIMS}, not {q.dtype}/{out.dtype} at {d}")
+    delta = torch.empty(b, h, q.shape[2], device=q.device,
+                        dtype=torch.float32)
+    dq = _launch_dq("wgmma", q, k, v, do, lse, delta, band, out, g_lse)
+    return dq, delta
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, band: Band,
+                       block_q: int = 128):
+    """``(dk, dv)`` of the backward, each GQA group summed into its KV
+    head.  CUDA tensors launch the dk/dv kernel of
+    ``csrc/flash_backward.cu`` on :func:`_bwd_arm`'s arm; CPU tensors run
+    the plain backward."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, do, lse, delta, band,
+                                        block_q)[1:]
+    _bwd_check("flash_backward_dkv", q, k, v, do, [lse, delta])
+    return _launch_dkv(_bwd_arm(q), q, k, v, do, lse, delta, band)
+
+
+#: kernel launches since the last reset (the main path's proof of use), and
+#: those of the backward's wgmma arm
 flash_forward.launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
+flash_backward_dq.launches_wgmma = 0
+flash_backward_dkv.launches_wgmma = 0
+
+
+def _folds_delta(q, out, g_out) -> bool:
+    """Whether a CUDA backward forms delta in the dq kernel: the wgmma arm,
+    with ``out`` and its cotangent in q's dtype (``out_f32`` keeps the
+    plain delta over the f32 cotangent)."""
+    return _bwd_arm(q) == "wgmma" and out.dtype == g_out.dtype == q.dtype
 
 
 class FlashAttention(torch.autograd.Function):
     """``(out, lse)`` of the band attention, differentiable in both outputs.
 
     Forward: :func:`flash_forward`, saving ``q, k, v, out, lse``.  Backward:
-    ``delta = rowsum(out·g_out) − g_lse`` in plain tensor ops (where JAX's
-    ``_bwd`` computes it, so the lse cotangent shifts the delta the kernels
-    consume), then the dq pass and the dk/dv pass — kernels on CUDA, the
-    plain backward on the CPU."""
+    the lse cotangent shifts the delta the kernels consume (``delta =
+    rowsum(out·g_out) − g_lse``, where JAX's ``_bwd`` computes it), then the
+    dq pass and the dk/dv pass.  On CUDA the wgmma arm's dq kernel forms
+    delta itself (:func:`flash_backward_dq_delta`) and the dk/dv kernel
+    reads it; the other arms (and ``out_f32``) take delta from plain tensor
+    ops, as the CPU's plain backward does.  A cotangent autograd would fill
+    with zeros arrives as ``None`` (``set_materialize_grads(False)``): no
+    lse cotangent subtracts nothing."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal=False, window=None, out_f32=False,
@@ -325,12 +407,25 @@ class FlashAttention(torch.autograd.Function):
         out, lse = flash_forward(q, k, v, band, out_f32, block_q)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.band, ctx.block_q = band, block_q
+        ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        delta = (out.float() * g_out.float()).sum(dim=-1) - g_lse.float()
+        if g_out is None:  # only the lse reaches the loss
+            g_out = torch.zeros_like(out)
+        if g_lse is not None:
+            g_lse = g_lse.float().contiguous()
+        if q.device.type == "cuda" and _folds_delta(q, out, g_out):
+            do = g_out.contiguous()
+            dq, delta = flash_backward_dq_delta(q, k, v, do, lse, out, g_lse,
+                                                ctx.band)
+            dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, ctx.band)
+            return dq, dk, dv, None, None, None, None
+        delta = (out.float() * g_out.float()).sum(dim=-1)
+        if g_lse is not None:
+            delta = delta - g_lse
         do = g_out.to(q.dtype).contiguous()
         args = (q, k, v, do, lse, delta.contiguous(), ctx.band, ctx.block_q)
         if q.device.type == "cpu":
