@@ -15,7 +15,11 @@ order; any failure exits non-zero:
    top-p 0.9, both, and ties (top-k exact, top-p within the stated margin).
    The paged decode kernel also runs the speculative verify's call (q
    ``[8, 8, s, 128]``, s = 5 and 9, a K + 1 window at fill 0; bf16 and int8
-   pools, ragged cursors, a window).  The paged prefill's tensor-core arm
+   pools, ragged cursors, a window, GQA 8/2); every decode case runs on
+   the split walk (twice: the second call must equal the first) and on the
+   CUDA-core walk it replaced (``decode_readings``), and the two arms are
+   timed in turns at the decode step and the s = 5 verify.  The paged
+   prefill's tensor-core arm
    is also held at GQA (8 q heads over 2 kv heads), chunks 16 and 128 and
    window 40, and its CUDA-core arm at the serving shape; both arms, and
    the tensor-core arm's attention without its block writes, are timed on
@@ -31,9 +35,11 @@ order; any failure exits non-zero:
    (s 1000), head dim 64 (one tile; GQA 8/1 under a band at s 2047), dead
    rows, an f32 case and head dims 32 and 16 (bf16 and f32), elementwise,
    per row and over the whole tensor (:func:`flash_case_readings`); on the
-   backward's wgmma arm also the dq kernel that forms delta itself.  Timed
-   as in phase 3, the mma.sync arm that the wgmma arm replaced in the same
-   call, in turns; the yardstick is
+   forward's wgmma arm also its f32 output, on the backward's wgmma arm
+   the dq kernel that forms delta itself.  Timed as in phase 3, forward
+   and backward each beside the mma.sync arm that their wgmma arm replaced
+   in the same call, in turns (the replaced forward held first on the same
+   inputs); the yardstick is
    ``scaled_dot_product_attention(is_causal=True)``, forward alone and
    forward + backward, and its backward beside FlashAttention's backward
    alone (dq forming delta, dk/dv);
@@ -57,7 +63,8 @@ order; any failure exits non-zero:
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
    (chunked prefill) and 16-64 new tokens; every request must finish
    "length", every kernel's launch count (zeroed just before) must grow,
-   and the paged prefill's tensor-core arm must serve every prefill launch;
+   the paged prefill's tensor-core arm must serve every prefill launch and
+   the paged decode's split walk every decode launch;
 4b. the adapter path: the same model and server geometry with
    ``fused_rope``, ``adapters`` and ``lora_kernel`` on, 4 adapters of rank
    8 loaded, 16 greedy requests of which a third are base lanes;
@@ -72,7 +79,8 @@ order; any failure exits non-zero:
    ``spec=False`` lanes, 2 lanes sampled at temperature 0.8.  Every request
    must finish "length"; ``fused_residual_prep`` must launch once a spec
    block and the paged decode kernel once a layer of every decode-arm
-   forward (8 a target forward, 4 a draft forward); every greedy lane must
+   forward (8 a target forward, 4 a draft forward), every launch on the
+   split walk; every greedy lane must
    equal its phase-4 stream or leave it first at a near tie of the card's
    logits (:func:`hold_greedy_streams`);
 4d. the same on phase 4b's adapter server and traffic (every lane greedy,
@@ -91,8 +99,8 @@ order; any failure exits non-zero:
    positions, batch 8, bf16 compute over f32 masters, Adam lr 3e-4, on
    increment-chain tokens, for 30 steps: losses, median step ms after 3
    warm-up steps, tokens/s, MFU, peak memory; the loss must fall and every
-   flash kernel (counts zeroed just before) must launch 8 times a step, the
-   dq and dk/dv kernels all on the backward's wgmma arm;
+   flash kernel (counts zeroed just before) must launch 8 times a step, all
+   on the wgmma arms (forward, dq and dk/dv);
 8. where the training time goes: one step under ``torch.profiler``;
 9. gradients at batch 2, same weights: the bf16 kernel path against the
    card's f32 plain path (dense attention, no kernel): the loss and every
@@ -109,8 +117,10 @@ order; any failure exits non-zero:
    kernel must launch once a timed call at least; then one toy step window
    under ``torch.profiler``.
 
-It prints the kernels' JSON record and the ``nvidia-smi`` line before the
-last line, which is the contract line ``{"ok": true, "device": ...}``.
+It prints the kernels' JSON record (a kernel with several arms also lists
+each arm's time on the same inputs and its launches on the main path) and
+the ``nvidia-smi`` line before the last line, which is the contract line
+``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
 """
 
@@ -436,11 +446,87 @@ def v_max(pool_v, scale_v, fresh_v) -> float:
     return max(pool, float(fresh_v.float().abs().max()))
 
 
+# phase 3's decode cases: (pos0, int8 pool, fill, window, s, kv heads).
+# pos0: an empty lane, partial blocks, lanes past several 128-key splits,
+# near and at max_len, prefixes ending on a split boundary; a sliding window
+# that leaves whole early splits without a live key; the speculative
+# verify's s = K + 1 queries over a K + 1 window at fill 0 (K = 4 and 8),
+# MHA and GQA 8/2 (36 query rows a kv head: three row tiles)
+_RAGGED = [0, 1, 17, 100, 255, 364, 1000, 2040]
+DECODE_CASES = (
+    (_RAGGED, False, [0, 3, 7, 1, 0, 5, 2, 0], None, 1, HEADS),
+    (_RAGGED, True, [1, 0, 2, 7, 4, 0, 6, 3], None, 1, HEADS),
+    ([5, 33, 80, 160, 200, 640, 999, 1500], False, [0, 1, 2, 3, 4, 5, 6, 7],
+     100, 1, HEADS),
+    ([128, 256, 2048, 0, 127, 129, 383, 384], False, [0, 0, 0, 0, 7, 7, 3, 3],
+     None, 1, HEADS),
+    ([5, 33, 80, 160, 200, 640, 999, 1500], True, [0, 1, 2, 3, 4, 5, 6, 7],
+     40, 1, 2),
+) + tuple(
+    (_RAGGED[:7] + [2048 - s - 7], quant, [0] * SLOTS, window, s, n_kv)
+    for s, quant, window, n_kv in ((5, False, None, HEADS),
+                                   (5, True, None, HEADS),
+                                   (9, False, None, HEADS),
+                                   (9, True, None, HEADS),
+                                   (5, False, 100, HEADS),
+                                   (9, False, None, 2), (5, True, 40, 2)))
+
+
+def decode_readings(torch, dev, gen) -> dict:
+    """Phase 3's decode cases (``DECODE_CASES``, layers 0 and 7) on the
+    planned arm (the split walk for bf16 dh 128) and on the CUDA-core arm,
+    each within :func:`close_bf16`'s bound of the plain version; the split
+    walk's output equal, bit for bit, to a second call's (its merge counters
+    are left zero).  Verdicts under ``ok``; nothing raises."""
+    from tpudist_torch import ops
+    from tpudist_torch.ops.paged_attention import (_paged_attention_on_arm,
+                                                   paged_attention,
+                                                   paged_attention_reference)
+
+    res = dict(err=0.0, verify_err=0.0, cc_err=0.0, ok=True, failed=[],
+               repeat_equal=True, tc_launches=0, launches=0)
+    ops.reset_launch_counts()
+    for pos0, quant, fill, window, s, n_kv in DECODE_CASES:
+        args = decode_inputs(torch, dev, gen, pos0, quant, fill,
+                             window_cols=W if s == 1 else s, s=s, n_kv=n_kv)
+        vmax = v_max(args[2], args[4], args[9])
+        for layer in (0, LAYERS - 1):
+            out = paged_attention(*args, layer=layer, window=window)
+            again = paged_attention(*args, layer=layer, window=window)
+            cc = _paged_attention_on_arm("cc", *args, layer=layer,
+                                         window=window)
+            ref = paged_attention_reference(*args, layer=layer,
+                                            window=window)
+            torch.cuda.synchronize()
+            res["repeat_equal"] &= bool(torch.equal(out, again))
+            for key, got in (("verify_err" if s > 1 else "err", out),
+                             ("cc_err", cc)):
+                try:
+                    res[key] = max(res[key], close_bf16(torch, got, ref,
+                                                        vmax))
+                except AssertionError:
+                    res["ok"] = False
+                    res["failed"].append(dict(
+                        pos0=pos0[:3], quant=quant, window=window, s=s,
+                        n_kv=n_kv, layer=layer, arm=key,
+                        max_abs_err=float((got.float() - ref.float())
+                                          .abs().max())))
+    res["launches"] = paged_attention.launches
+    res["tc_launches"] = paged_attention.launches_tc
+    # two planned calls a case and layer, both on the split walk, and one
+    # forced CUDA-core call
+    res["ok"] &= res["repeat_equal"] and res["tc_launches"] \
+        == 2 * (res["launches"] - res["tc_launches"]) > 0
+    ops.reset_launch_counts()
+    return res
+
+
 def check_kernels(torch, dev):
     from tpudist_torch import ops
     from tpudist_torch.ops.fused_sample import (fused_sample_prep,
                                                 fused_sample_reference)
-    from tpudist_torch.ops.paged_attention import (paged_attention,
+    from tpudist_torch.ops.paged_attention import (_paged_attention_on_arm,
+                                                   paged_attention,
                                                    paged_attention_reference)
     from tpudist_torch.ops.paged_prefill import (TC_ROWS,
                                                  _paged_prefill_on_arm,
@@ -451,42 +537,13 @@ def check_kernels(torch, dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rec = {}
 
-    # -- row 1: paged decode attention
-    err = 0.0
-    cases = [  # pos0 ragged: empty lane, partial blocks, near max_len
-        dict(pos0=[0, 1, 17, 100, 255, 364, 1000, 2040], quant=False,
-             fill=[0, 3, 7, 1, 0, 5, 2, 0], window=None),
-        dict(pos0=[0, 1, 17, 100, 255, 364, 1000, 2040], quant=True,
-             fill=[1, 0, 2, 7, 4, 0, 6, 3], window=None),
-        dict(pos0=[5, 33, 80, 160, 200, 640, 999, 1500], quant=False,
-             fill=[0, 1, 2, 3, 4, 5, 6, 7], window=100),
-    ]
-    for c in cases:
-        args = decode_inputs(torch, dev, gen, c["pos0"], c["quant"],
-                             c["fill"])
-        for layer in (0, LAYERS - 1):
-            out = paged_attention(*args, layer=layer, window=c["window"])
-            ref = paged_attention_reference(*args, layer=layer,
-                                            window=c["window"])
-            torch.cuda.synchronize()
-            err = max(err, close_bf16(torch, out, ref,
-                                      v_max(args[2], args[4], args[9])))
-    # the speculative verify: s = K + 1 queries a lane over a K + 1 window
-    # buffer at fill 0 (K = 4 and 8), bf16 and int8 pools, a window
-    verify_err = 0.0
-    for s, quant, window in ((5, False, None), (5, True, None),
-                             (9, False, None), (9, True, None),
-                             (5, False, 100)):
-        pos0 = [0, 1, 17, 100, 255, 364, 1000, 2048 - s - 7]
-        args = decode_inputs(torch, dev, gen, pos0, quant, [0] * SLOTS,
-                             window_cols=s, s=s)
-        for layer in (0, LAYERS - 1):
-            out = paged_attention(*args, layer=layer, window=window)
-            ref = paged_attention_reference(*args, layer=layer,
-                                            window=window)
-            torch.cuda.synchronize()
-            verify_err = max(verify_err, close_bf16(
-                torch, out, ref, v_max(args[2], args[4], args[9])))
+    # -- row 1: paged decode attention (the split walk and the CUDA-core
+    # arm against the plain version)
+    dec = decode_readings(torch, dev, gen)
+    if not dec["ok"]:
+        raise AssertionError(f"paged decode kernel disagrees with its plain "
+                             f"version: {dec}")
+    err, verify_err = dec["err"], dec["verify_err"]
     err = max(err, verify_err)
 
     # timing at main-path cursors (prompts of 1-300 plus 16-64 new tokens):
@@ -536,7 +593,18 @@ def check_kernels(torch, dev):
         library_ms=time_ms(torch, dense_sdpa(
             torch, args[0], *args[1:6], keep[:, None, None], args[8],
             args[9], 3), flush),
-        bound=bound(nbytes, flops, H100_BF16_FLOPS))
+        bound=bound(nbytes, flops, H100_BF16_FLOPS), cc_max_abs_err=dec[
+            "cc_err"])
+    # the arms on the same inputs, in turns (cc, tc, tc, cc): the split walk
+    # and the CUDA-core walk it replaced, at the decode step and the verify
+    turns = {key: {"tc": [], "cc": []} for key in ("s1", "s5")}
+    for arm in ("cc", "tc", "tc", "cc"):
+        for key, a in (("s1", args), ("s5", vargs)):
+            turns[key][arm].append(time_ms(
+                torch, lambda: _paged_attention_on_arm(arm, *a, layer=3),
+                flush))
+    rec["paged_attention"]["arm_ms"] = turns["s1"]
+    verify["arm_ms"] = turns["s5"]
 
     # -- row 2: paged prefill attention + block writes: the main path's
     # shape (MHA, chunk 64) at layers 0 and 7, then GQA (8 q heads over 2
@@ -682,12 +750,22 @@ def check_kernels(torch, dev):
             for name, a in pr["arms"].items())
         + f"; CUDA-core arm max_abs_err {pr['cc_max_abs_err']:.3g}; "
         f"lanes up to pos0 1000 {pr['long_lanes_ms']:.4f} ms")
-    log(f"kernel paged_attention, verify s 5 and 9 (bf16, int8, window): "
-        f"max_abs_err {verify_err:.3g}; s 5 timed {verify['ms']:.4f} ms "
-        f"(plain {verify['plain_ms']:.4f} ms, library "
+    log(f"kernel paged_attention, verify s 5 and 9 (bf16, int8, window, "
+        f"GQA 8/2): max_abs_err {verify_err:.3g}; s 5 timed "
+        f"{verify['ms']:.4f} ms (plain {verify['plain_ms']:.4f} ms, library "
         f"{verify['library_ms']:.4f} ms, bound "
         f"{verify['bound'][0]:.5f} ms by {verify['bound'][1]}) beside s 1 "
         f"{rec['paged_attention']['ms']:.4f} ms")
+    for key, arms in (("s 1", rec["paged_attention"]["arm_ms"]),
+                      ("verify s 5", verify["arm_ms"])):
+        log(f"kernel paged_attention {key}, arms in turns (cc, tc, tc, cc): "
+            f"{arms['cc'][0]:.4f}, {arms['tc'][0]:.4f}, {arms['tc'][1]:.4f}, "
+            f"{arms['cc'][1]:.4f} ms; split walk / CUDA-core "
+            f"{sum(arms['tc']) / sum(arms['cc']):.3f}")
+    log(f"kernel paged_attention: split walk s 5 / s 1 "
+        f"{sum(verify['arm_ms']['tc']) / sum(rec['paged_attention']['arm_ms']['tc']):.3f}; "
+        f"CUDA-core arm max_abs_err {dec['cc_err']:.3g}; "
+        f"{dec['tc_launches']} checking launches on the split walk")
     rec["paged_attention"]["verify"] = verify
     del flush
     ops.reset_launch_counts()
@@ -870,13 +948,15 @@ def flash_close(torch, out, ref, dtype, what: str, grad: bool = True,
 def flash_case_readings(torch, gen, case) -> dict:
     """One ``FLASH_CASES`` case on the card: the forward, dq and dk/dv
     kernels against their plain versions (:func:`flash_agreement` of out,
-    dq, dk, dv; lse within ``1e-4 + 1e-5·|lse|``).  On the wgmma arm also
-    the dq kernel that forms delta itself, with a random lse cotangent: its
-    delta within ``DELTA_REL_MAX`` of the plain one, its dq against the
-    plain dq, and bit for bit the explicit-delta arm's dq on its delta.
-    Every check's verdict is under ``ok``."""
+    dq, dk, dv; lse within ``1e-4 + 1e-5·|lse|``).  On the forward's wgmma
+    arm also its ``out_f32`` output (the bf16 output's bound, on f32
+    values).  On the backward's wgmma arm also the dq kernel that forms
+    delta itself, with a random lse cotangent: its delta within
+    ``DELTA_REL_MAX`` of the plain one, its dq against the plain dq, and bit
+    for bit the explicit-delta arm's dq on its delta.  Every check's verdict
+    is under ``ok``."""
     from tpudist_torch.ops.flash_attention import (
-        _bwd_arm, flash_backward_dkv, flash_backward_dq,
+        _bwd_arm, _fwd_arm, flash_backward_dkv, flash_backward_dq,
         flash_backward_dq_delta, flash_backward_reference, flash_forward,
         flash_forward_reference)
 
@@ -893,11 +973,18 @@ def flash_case_readings(torch, gen, case) -> dict:
     dk, dv = flash_backward_dkv(q, k, v, g, rlse, delta, band)
     rq, rk, rv = flash_backward_reference(q, k, v, g, rlse, delta, band)
     torch.cuda.synchronize()
-    res = dict(case=name, arm=_bwd_arm(q), lse_ok=bool(
+    res = dict(case=name, arm=_bwd_arm(q), fwd_arm=_fwd_arm(q), lse_ok=bool(
         ((lse - rlse).abs() <= 1e-4 + 1e-5 * rlse.abs()).all()))
     for t, a, r, grad in (("out", out, ref, False), ("dq", dq, rq, True),
                           ("dk", dk, rk, True), ("dv", dv, rv, True)):
         res[t] = flash_agreement(torch, a, r, dtype, grad, vmax)
+    if res["fwd_arm"] == "wgmma":
+        o32, l32 = flash_forward(q, k, v, band, out_f32=True)
+        r32, _ = flash_forward_reference(q, k, v, band, out_f32=True)
+        torch.cuda.synchronize()
+        res["out_f32"] = flash_agreement(torch, o32, r32, dtype, False, vmax)
+        res["lse_ok"] &= bool(
+            ((l32 - rlse).abs() <= 1e-4 + 1e-5 * rlse.abs()).all())
     if res["arm"] == "wgmma":
         g_lse = torch.randn(b, h, s, generator=gen, device="cuda")
         fq, fdelta = flash_backward_dq_delta(q, k, v, g, rlse, ref, g_lse,
@@ -912,8 +999,8 @@ def flash_case_readings(torch, gen, case) -> dict:
         res["fold_equals_explicit"] = bool(torch.equal(fq, eq))
     checks = [res["lse_ok"]] + [
         r["elementwise_ok"] and r["rows_ok"] and r["rms_ok"]
-        for r in (res[t] for t in ("out", "dq", "dk", "dv", "dq_fold")
-                  if t in res)]
+        for r in (res[t] for t in ("out", "out_f32", "dq", "dk", "dv",
+                                   "dq_fold") if t in res)]
     if "delta_rel" in res:
         checks += [res["delta_rel"] <= DELTA_REL_MAX,
                    res["fold_equals_explicit"]]
@@ -930,9 +1017,10 @@ def check_flash(torch, dev):
 
     from tpudist_torch import ops
     from tpudist_torch.ops.flash_attention import (
-        FlashAttention, _launch_dkv, _launch_dq, band_live_pairs,
-        flash_backward_dkv, flash_backward_dq, flash_backward_dq_delta,
-        flash_backward_reference, flash_forward, flash_forward_reference)
+        FlashAttention, _launch_dkv, _launch_dq, _launch_fwd,
+        band_live_pairs, flash_backward_dkv, flash_backward_dq,
+        flash_backward_dq_delta, flash_backward_reference, flash_forward,
+        flash_forward_reference)
 
     gen = torch.Generator(device=dev).manual_seed(4321)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -967,7 +1055,8 @@ def check_flash(torch, dev):
                                          r["dq_fold"]["max_abs_err"])
             fold["cases"] += 1
         log(f"flash {case[0]}: b {case[1]} h {case[2]}/{case[3]} s "
-            f"{case[4]} dh {case[5]} {case[6]}, {r['arm']} arm: agrees"
+            f"{case[4]} dh {case[5]} {case[6]}, forward on the "
+            f"{r['fwd_arm']} arm, backward on the {r['arm']} arm: agrees"
             + (f"; folded delta rel {r['delta_rel']:.2e}, dq equal to the "
                f"given-delta arm's" if "delta_rel" in r else ""))
 
@@ -975,6 +1064,18 @@ def check_flash(torch, dev):
     b, h, s, band = 8, 8, 2048, (0, None)
     q, k, v, g = inputs(b, h, h, s, bf16)
     out, lse = flash_forward(q, k, v, band)
+    # the forward's mma.sync arm, which the wgmma arm replaced at this
+    # shape, held on the same inputs before it is timed beside it
+    mout, mlse = _launch_fwd("mma", q, k, v, band)
+    ref, rlse = flash_forward_reference(q, k, v, band)
+    torch.cuda.synchronize()
+    for o_, l_ in ((out, lse), (mout, mlse)):
+        flash_close(torch, o_, ref, bf16, "the forward's arms", False,
+                    float(v.float().abs().max()))
+        if not bool(((l_ - rlse).abs() <= 1e-4 + 1e-5 * rlse.abs()).all()):
+            raise AssertionError("the forward's lse disagrees with its "
+                                 "plain version")
+    del mout, mlse, ref, rlse
     delta = (out.float() * g.float()).sum(-1).contiguous()
     work = b * h * band_live_pairs(s, s, band)
     elt = q.numel()
@@ -1029,6 +1130,12 @@ def check_flash(torch, dev):
                                                  band), flush),
             dkv=time_ms(torch, lambda: _launch_dkv(arm, q, k, v, g, lse,
                                                    delta, band), flush)))
+    fwd_arms = {"mma": [], "wgmma": []}
+    for arm in ("mma", "wgmma", "wgmma", "mma"):
+        fwd_arms[arm].append(time_ms(torch, lambda: _launch_fwd(
+            arm, q, k, v, band), flush))
+    rec["flash_forward"]["replaced_ms"] = fwd_arms["mma"]
+    rec["flash_forward"]["arm_ms"] = fwd_arms["wgmma"]
     rec["flash_backward_dq"]["given_delta_ms"] = given_ms
     rec["flash_backward_dq"]["replaced_ms"] = [a["dq"] for a in arms["mma"]]
     rec["flash_backward_dkv"]["replaced_ms"] = [a["dkv"]
@@ -1066,6 +1173,12 @@ def check_flash(torch, dev):
             f"{r['library_ms']} ms, bound {r['bound'][0]:.5f} ms by "
             f"{r['bound'][1]})")
     dq_r, dkv_r = rec["flash_backward_dq"], rec["flash_backward_dkv"]
+    fw = rec["flash_forward"]
+    log(f"flash forward arms, same call (mma, wgmma, wgmma, mma): "
+        f"{fw['replaced_ms'][0]:.4f}, {fw['arm_ms'][0]:.4f}, "
+        f"{fw['arm_ms'][1]:.4f}, {fw['replaced_ms'][1]:.4f} ms; wgmma / "
+        f"mma.sync {sum(fw['arm_ms']) / sum(fw['replaced_ms']):.3f}; SDPA "
+        f"causal forward {fw['library_ms']:.4f} ms")
     log(f"flash backward arms, same call (mma, wgmma, wgmma, mma): dq "
         f"{dq_r['replaced_ms'][0]:.4f}, {dq_r['arm_ms'][0]:.4f}, "
         f"{dq_r['arm_ms'][1]:.4f}, {dq_r['replaced_ms'][1]:.4f} ms; dk/dv "
@@ -1430,6 +1543,7 @@ def serve_main_path(torch, model, gen_seed: int):
         counts = ops.launch_counts()
         prefill_arms = dict(tc=ops.paged_prefill_attention.launches_tc,
                             cc=ops.paged_prefill_attention.launches_cc)
+        decode_tc = ops.paged_attention.launches_tc
         stats = server.stats()
     finally:
         server.close(60)
@@ -1446,6 +1560,9 @@ def serve_main_path(torch, model, gen_seed: int):
         raise AssertionError(f"the tensor-core arm did not serve every "
                              f"prefill launch: {prefill_arms} of "
                              f"{counts['paged_prefill']}")
+    if decode_tc != counts["paged_attention"]:
+        raise AssertionError(f"the split walk served {decode_tc} of the "
+                             f"{counts['paged_attention']} decode launches")
     tokens = sum(len(h.tokens) for h in handles)
     return dict(
         requests=len(handles), tokens=tokens, wall_s=wall,
@@ -1454,7 +1571,7 @@ def serve_main_path(torch, model, gen_seed: int):
         tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
         prompt_lens=[len(p) for p, _ in reqs],
         decode=stats["decode"], launches=counts,
-        prefill_arm_launches=prefill_arms,
+        prefill_arm_launches=prefill_arms, decode_tc_launches=decode_tc,
         streams=[h.tokens for h in handles])
 
 
@@ -1551,6 +1668,7 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        decode_tc = ops.paged_attention.launches_tc
         stats = server.stats()
     finally:
         server.close(60)
@@ -1560,6 +1678,9 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
                                  f"{len(h.tokens)}/{n} tokens")
     if stats["kv"]["blocks_in_use"] != 0:
         raise AssertionError("KV pool did not drain")
+    if decode_tc != counts["paged_attention"]:
+        raise AssertionError(f"the split walk served {decode_tc} of the "
+                             f"{counts['paged_attention']} decode launches")
     dec, spec = stats["decode"], stats["spec"]
     tf = dec["forwards"] - before["forwards"]
     df = dec["draft_forwards"] - before["draft_forwards"]
@@ -1597,7 +1718,8 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
         tokens_per_target_pass=spec["accepted_per_pass"],
         spec_blocks=blocks, target_forwards=tf, draft_forwards=df,
         greedy_lanes_equal=f"{equal}/{len(greedy)}", near_ties=ties,
-        spec=spec, launches=counts, decode=dec,
+        spec=spec, launches=counts, decode_tc_launches=decode_tc,
+        decode=dec,
         base={k: base[k] for k in ("tokens_per_s", "ttft_p50_ms",
                                    "tpot_p50_ms")})
 
@@ -1960,8 +2082,7 @@ def train_main_path(torch):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     counts = ops.launch_counts()
-    wgmma = {n: ops.KERNEL_WRAPPERS[n].launches_wgmma
-             for n in ("flash_backward_dq", "flash_backward_dkv")}
+    wgmma = {n: ops.KERNEL_WRAPPERS[n].launches_wgmma for n in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(times[TRAIN_WARMUP:])
     geom = dict(d_model=args.d_model, n_layers=args.n_layers,
@@ -2287,7 +2408,7 @@ def main(argv=None) -> int:
         f"tokens/s, MFU {train['mfu']:.4f} of 989 TFLOP/s "
         f"({train['flops_per_step'] / 1e12:.2f} TFLOP/step), peak memory "
         f"{train['peak_mem_gb']:.2f} GB ({card}); launches "
-        f"{train['launches']}, on the backward's wgmma arm "
+        f"{train['launches']}, on the wgmma arms "
         f"{train['launches_wgmma']}")
     train_prof = {"train_step": device_profile(torch, lambda: step(tokens),
                                                lambda: None)}
@@ -2326,6 +2447,23 @@ def main(argv=None) -> int:
     launches["fused_residual_prep"] = spec_path["launches"][
         "fused_residual_prep"]
     launches["fused_mlp"] = benches["launches"]["fused_mlp"]
+    # the kernels with several arms: each arm's time on the same inputs
+    # (the mean of its turns) and its launches on the main path
+    mean = statistics.mean
+    arms = {
+        "paged_attention": (
+            {a: mean(t) for a, t in rec["paged_attention"]["arm_ms"].items()},
+            {"tc": main_path["decode_tc_launches"],
+             "cc": launches["paged_attention"]
+             - main_path["decode_tc_launches"]}),
+        "paged_prefill": (
+            {a: rec["paged_prefill"]["arms"][a]["ms"] for a in ("tc", "cc")},
+            main_path["prefill_arm_launches"])}
+    for name in TRAIN_KERNELS:
+        wg = train["launches_wgmma"][name]
+        arms[name] = ({"wgmma": mean(flash_rec[name]["arm_ms"]),
+                       "mma": mean(flash_rec[name]["replaced_ms"])},
+                      {"wgmma": wg, "mma": launches[name] - wg})
     for name, r in (list(rec.items()) + list(flash_rec.items())
                     + list(lin_rec.items()) + list(mlp_rec.items())):
         kernels.append(dict(
@@ -2335,6 +2473,10 @@ def main(argv=None) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"]))
+        if name in arms:
+            kernels[-1]["arms"] = {
+                a: dict(ms=ms, launches=int(arms[name][1][a]))
+                for a, ms in arms[name][0].items()}
     result = dict(card=card, kernels=kernels, main_path=main_path,
                   adapter_path=dict(ad_path, streams=ad_streams),
                   spec_path=spec_path, spec_adapter_path=spec_ad_path,

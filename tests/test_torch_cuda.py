@@ -24,6 +24,15 @@ and 128) through ``chip_smoke.flash_case_readings``: also the delta its dq
 kernel forms, within ``chip_smoke.DELTA_REL_MAX`` of the plain one, and
 that kernel's dq bit for bit the given-delta arm's.
 
+The paged decode's split walk (bf16 q over bf16 or int8 pools at head
+dims 16-128) and the forced CUDA-core walk: the bf16 bound above, on
+phase 3's cases (``chip_smoke.decode_readings``) and on ragged lanes over
+several 128-key splits, the verify at s 5 and 9, GQA 8/2, windows and an
+empty lane; a second call equal bit for bit (the merge counters are left
+zero).  The flash forward's wgmma arm (bf16 at head dims 64 and 128) on
+the backward's wgmma cases, its ``out_f32`` output included, and the
+forced mma.sync forward at head dims 64 and 128: the flash bounds above.
+
 The fused RoPE+QKV and LoRA gather-matmul kernels: the bounds of
 ``chip_smoke.linear_agreement`` (``LINEAR_BOUNDS``, derived there from
 readings on the card).
@@ -44,10 +53,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (MLP_CASES, demo_path, flash_agreement,
-                        flash_case_readings, linear_agreement, lora_inputs,
-                        mlp_agreement, mlp_inputs, qkv_inputs,
-                        residual_close)
+from chip_smoke import (MLP_CASES, decode_readings, demo_path,
+                        flash_agreement, flash_case_readings,
+                        linear_agreement, lora_inputs, mlp_agreement,
+                        mlp_inputs, qkv_inputs, residual_close)
 from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
                          sample_case, top_p_boundary_gap)
 from tpudist_torch.bench import bench_fused_mlp
@@ -65,7 +74,9 @@ from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                paged_attention_reference,
                                paged_prefill_attention,
                                paged_prefill_reference, reset_launch_counts)
-from tpudist_torch.ops.flash_attention import _launch_dkv, _launch_dq
+from tpudist_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
+                                               _launch_fwd)
+from tpudist_torch.ops.paged_attention import _paged_attention_on_arm
 from tpudist_torch.ops.paged_prefill import _paged_prefill_on_arm
 from tpudist_torch.train.__main__ import main as train_main
 
@@ -106,7 +117,67 @@ def test_paged_attention_matches_plain(cuda, quant, n_kv):
     out = paged_attention(*args, layer=1, window=20)
     ref = paged_attention_reference(*args, layer=1, window=20)
     assert launch_counts()["paged_attention"] == 1
+    assert paged_attention.launches_tc == 1  # the split walk
     _assert_bf16_close(out, ref, args[2], args[4], args[9])
+
+
+def _decode_on(dev, nh, n_kv, s, dh, quant, seed, fill_max=0, M=64):
+    """bf16 decode inputs over a 64-block table (1024 keys: 8 splits of the
+    split walk), ragged cursors from an empty lane up."""
+    args = _on(dev, decode_case(S=6, nh=nh, n_kv=n_kv, s=s, dh=dh, L=2,
+                                nb=6 * M, bs=16, M=M, quant=quant,
+                                seed=seed, fill_max=fill_max))
+    for i in (0, 8, 9):
+        args[i] = args[i].to(torch.bfloat16)
+    if not quant:
+        args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    return args
+
+
+@pytest.mark.parametrize("window", [None, 20], ids=lambda w: f"w{w}")
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("s,nh,n_kv", [(1, 8, 8), (5, 8, 8), (9, 8, 8),
+                                       (9, 8, 2), (1, 8, 2)],
+                         ids=["s1", "s5", "s9", "s9_gqa8_2", "s1_gqa8_2"])
+def test_paged_decode_split_walk_matches_plain(cuda, s, nh, n_kv, quant,
+                                               window):
+    """The split walk over lanes spanning several splits, an empty lane,
+    the verify's s 5 and 9, GQA 8/2 (36 query rows: three row tiles) and a
+    sliding window that leaves early splits dead; a second call equals the
+    first bit for bit, and the forced CUDA-core walk still matches."""
+    args = _decode_on(cuda, nh, n_kv, s, 128, quant, seed=s + 10 * n_kv,
+                      fill_max=7 if s == 1 else 0)
+    assert int(args[6][0]) == 0 and int(args[6].max()) > 3 * 128
+    reset_launch_counts()
+    out = paged_attention(*args, layer=1, window=window)
+    again = paged_attention(*args, layer=1, window=window)
+    cc = _paged_attention_on_arm("cc", *args, layer=1, window=window)
+    ref = paged_attention_reference(*args, layer=1, window=window)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == 3
+    assert paged_attention.launches_tc == 2
+    assert torch.equal(out, again)
+    _assert_bf16_close(out, ref, args[2], args[4], args[9])
+    _assert_bf16_close(cc, ref, args[2], args[4], args[9])
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_decode_split_walk_head_dims(cuda, dh, s):
+    args = _decode_on(cuda, 4, 2, s, dh, False, seed=dh + s, fill_max=3)
+    reset_launch_counts()
+    out = paged_attention(*args, layer=0, window=None)
+    ref = paged_attention_reference(*args, layer=0, window=None)
+    assert paged_attention.launches_tc == 1
+    _assert_bf16_close(out, ref, args[2], args[4], args[9])
+
+
+def test_paged_decode_phase3_cases(cuda):
+    """chip_smoke phase 3's decode cases on the split walk and the
+    CUDA-core walk (``decode_readings``)."""
+    gen = torch.Generator(device=cuda).manual_seed(1234)
+    r = decode_readings(torch, cuda, gen)
+    assert r["ok"], r
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
@@ -332,6 +403,12 @@ def test_cuda_tensor_never_falls_back(cuda):
     lse = torch.zeros(1, 2, 16, device=cuda)
     with pytest.raises(ValueError):  # dh 32: no kernel forms delta there
         flash_backward_dq_delta(q, q, q, q, lse, q, None, (0, None))
+    with pytest.raises(ValueError):  # dh 32: no wgmma forward
+        _launch_fwd("wgmma", q, q, q, (0, None))
+    args = _decode_on(cuda, 4, 2, 1, 128, False, seed=0)
+    args[0], args[8], args[9] = (args[i].float() for i in (0, 8, 9))
+    with pytest.raises(ValueError):  # f32 q: no split walk
+        _paged_attention_on_arm("tc", *args, layer=0)
 
 
 # (dtype, heads, kv heads, seq, head dim, band)
@@ -411,7 +488,10 @@ def test_flash_wgmma_arm_matches_plain(cuda, case):
     reset_launch_counts()
     r = flash_case_readings(torch, gen, (case, b, h, h_kv, s, d, "bf16",
                                          band))
-    assert r["arm"] == "wgmma" and r["ok"], r
+    assert r["arm"] == r["fwd_arm"] == "wgmma" and r["ok"], r
+    assert "out_f32" in r  # the forward's f32 output held as well
+    # two forwards (bf16 and f32 out), both on the wgmma arm
+    assert flash_forward.launches == flash_forward.launches_wgmma == 2
     # dq given delta, dq forming it, dq on the formed delta; one dk/dv
     assert flash_backward_dq.launches == 3
     assert flash_backward_dq.launches_wgmma == 3
@@ -442,6 +522,29 @@ def test_flash_mma_arm_still_matches_plain(cuda, d):
     assert flash_backward_dkv.launches_wgmma == 0
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_mma_arm_still_matches_plain(cuda, d):
+    """The forward's mma.sync arm that the wgmma arm replaced at head dims
+    64 and 128 (phase 3b times the two on the same inputs), forced: it
+    agrees with the plain version and counts no wgmma launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _ = [t.bfloat16() for t in _on(cuda, flash_case(4, 2, 200, d,
+                                                             seed=d + 1))]
+    vmax = float(v.float().abs().max())
+    for band in ((0, None), (-20, 64), (None, None)):
+        reset_launch_counts()
+        out, lse = _launch_fwd("mma", q, k, v, band)
+        o32, _ = _launch_fwd("mma", q, k, v, band, out_f32=True)
+        ref, rlse = flash_forward_reference(q, k, v, band)
+        r32, _ = flash_forward_reference(q, k, v, band, out_f32=True)
+        torch.cuda.synchronize()
+        _flash_close(out, ref, torch.bfloat16, grad=False, vmax=vmax)
+        _flash_close(o32, r32, torch.bfloat16, grad=False, vmax=vmax)
+        assert bool(((lse - rlse).abs() <= 1e-4 + 1e-5 * rlse.abs()).all())
+        assert flash_forward.launches == 2
+        assert flash_forward.launches_wgmma == 0
+
+
 @pytest.mark.parametrize("d,dtype,wgmma", [
     (128, torch.bfloat16, True), (64, torch.bfloat16, True),
     (32, torch.bfloat16, False), (128, torch.float32, False)],
@@ -458,6 +561,7 @@ def test_flash_backward_arm_by_head_dim(cuda, d, dtype, wgmma):
     torch.cuda.synchronize()
     assert launch_counts()["flash_backward_dq"] == 1
     assert launch_counts()["flash_backward_dkv"] == 1
+    assert flash_forward.launches_wgmma == int(wgmma)
     assert flash_backward_dq.launches_wgmma == int(wgmma)
     assert flash_backward_dkv.launches_wgmma == int(wgmma)
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Planted-fault readings of the flash kernels' checks, on one NVIDIA card.
+"""Planted-fault readings of the attention kernels' checks, on one NVIDIA card.
 
 Run from the repository root on the GPU machine::
 
@@ -11,8 +11,11 @@ plants the fault there (a textual edit of the copy's kernel source; the
 checkout is never touched), and measures in a child process run in that
 copy, which builds its own kernels:
 
+- phase 3's paged decode cases (``chip_smoke.decode_readings``: the split
+  walk and the CUDA-core walk against the plain version);
 - every phase-3b case of ``chip_smoke.py`` (``FLASH_CASES``) through
-  ``chip_smoke.flash_case_readings``: for the forward output, dq, dk and dv
+  ``chip_smoke.flash_case_readings``: for the forward output (and on the
+  forward's wgmma arm its f32 output), lse, dq, dk and dv
   ``chip_smoke.flash_agreement`` (worst row, relative RMS, the elementwise
   bound alone and the full check), and on the backward's wgmma arm the dq
   kernel that forms delta itself (delta, its dq, equality with the
@@ -42,7 +45,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 FWD = "tpudist_torch/csrc/flash_attention.cu"
 BWD = "tpudist_torch/csrc/flash_backward.cu"
+DEC = "tpudist_torch/csrc/paged_attention.cu"
 _PV = "    mma_pt<DN, kBK / 16>(o, s, Vs, LD, lane);"
+# the forward's wgmma arm (head dims 64 and 128: the main path's): a step's
+# P·V, the last tile's P·V, the epilogue's row
+_WPV = "      hw::wgmma_pv<DN, 8>(o, pa, Vs + sp * TK);\n"
+_WLAST = ("    hw::named_sync(mine, kBoth);\n"
+          "    hw::wgmma_pv<DN, 8>(o, pa, Vs + sp * TK);\n")
+_WROW = ("    const int row = qr + g + r * 8;\n"
+         "    if (row >= Sq) continue;\n")
+# the split walk's merge weight of a partial
+_MERGE = "        const float c = exp_row(rd(i, DN * 4 + r), mx);"
 # the backward's wgmma arm (head dims 64 and 128: the main path's)
 _DSK = "    hw::wgmma_pt<DN>(acc, s, ks);  // dq += bf(ds)·k"
 _DV = "    hw::wgmma_pt<DN>(dv, s, dos);  // dv += bf(pᵀ)·do"
@@ -54,10 +67,32 @@ _HALF = ("      for (int n = NT / 2; n < NT; ++n)\n"
 
 # name -> (edits (file, text, replacement), phases that must catch it)
 FAULTS = {
-    # 32 keys of one KV tile left out of P·V, in one head's last Q tile
+    # 32 keys of one KV tile left out of P·V, in one head's last Q tile (the
+    # mma.sync forward: head dims 16 and 32)
     "fwd_half_tile_one_head": ([(FWD, _PV, "    if (j == (first + last) / 2 "
                                  "&& blockIdx.x == 0 && blockIdx.y == 0)\n"
                                  + _HALF + _PV)], ("3b",)),
+    # the wgmma forward: half (64 keys) of one P·V step left out, in one
+    # head's last Q tile
+    "fwd_wgmma_half_pv_one_head": ([(FWD, _WPV, (
+        "      if (t == n / 2 && blockIdx.x == 0 && blockIdx.y == 0)\n"
+        "        for (int kk = 4; kk < 8; ++kk)\n"
+        "          pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;\n")
+        + _WPV)], ("3b",)),
+    # the wgmma forward: the last KV tile's P·V skipped (its p still in l)
+    "fwd_wgmma_skip_last_tile": ([(FWD, _WLAST,
+                                   "    hw::named_sync(mine, kBoth);\n")],
+                                 ("3b",)),
+    # the wgmma forward: one lse row (head 0, row 5) off by log 2
+    "fwd_wgmma_lse_row_log2": ([(FWD, _WROW, _WROW + (
+        "    if (bh == 0 && row == 5) m[r] += 0.6931472f;\n"))], ("3b",)),
+    # the paged decode's split walk: a partial whose row saw no live key
+    # (a sliding window past its span) given weight 1 in the merge
+    "decode_dead_span_weight_one": ([(DEC, _MERGE, (
+        "        const float c = rd(i, DN * 4 + r) <= -5e29f\n"
+        "                            ? 1.f\n"
+        "                            : exp_row(rd(i, DN * 4 + r), mx);"))],
+        ("3",)),
     # the same in dS·K of the dq pass
     "dq_half_tile_one_head": ([(BWD, _DSK, "    if (j == (first + last) / 2 "
                                 "&& blockIdx.x == 0 && blockIdx.y == 0)\n"
@@ -106,9 +141,13 @@ def measure(name: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build(["flash_attention", "flash_backward"])
+    _build.build(["flash_attention", "flash_backward", "paged_attention"])
+    out = {"variant": name}
+    out["3"] = cs.decode_readings(
+        torch, torch.device("cuda"),
+        torch.Generator(device="cuda").manual_seed(1234))
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    out = {"variant": name, "3b": {}}
+    out["3b"] = {}
     caught_3b = False
     for case in cs.FLASH_CASES:
         row = cs.flash_case_readings(torch, gen, case)
@@ -116,7 +155,8 @@ def measure(name: str) -> dict:
         out["3b"][case[0]] = row
     torch.cuda.empty_cache()
     out["9"] = cs.grad_readings(torch)
-    out["caught"] = [p for p, hit in (("3b", caught_3b),
+    out["caught"] = [p for p, hit in (("3", not out["3"]["ok"]),
+                                      ("3b", caught_3b),
                                       ("9", not cs.grads_agree(out["9"])))
                      if hit]
     if name == "sound":

@@ -1,18 +1,19 @@
 // Hopper warpgroup matrix products (wgmma) and the shared-memory layout they
-// read, for the flash backward's tensor-core arm (flash_backward.cu).
+// read, for the flash kernels' wgmma arms (flash_attention.cu,
+// flash_backward.cu); the host side of the TMA loads is tma_host.cuh.
 //
 // A warpgroup is 4 consecutive warps (128 threads).  wgmma.mma_async
 // computes D[64 x N] += A[64 x 16] · B[16 x N] in f32, A from shared memory
 // or from registers, B from shared memory, each operand in shared memory
 // named by a 64-bit descriptor.
 //
-// Tiles.  Every operand tile here has 64 rows of D bf16 columns (D = 64 or
-// 128), stored as D / 64 column blocks of [64 rows][64 columns]: one row of
-// a block is 128 bytes, and its eight 16-byte chunks are permuted by the
-// 128-byte swizzle (chunk c of row r sits at chunk c ^ (r % 8)), the
-// canonical layout of the descriptor's swizzle mode 1.  Blocks are
-// 1024-byte aligned, so the hardware's swizzle (an XOR of address bits 4-6
-// with bits 7-9) lines up with the one the loads write.
+// Tiles.  An operand tile has 64 rows (128 for the forward's key tiles) of
+// D bf16 columns (D = 64 or 128), stored as D / 64 column blocks of [rows]
+// [64 columns]: one row of a block is 128 bytes, and its eight 16-byte
+// chunks are permuted by the 128-byte swizzle (chunk c of row r sits at
+// chunk c ^ (r % 8)), the canonical layout of the descriptor's swizzle mode
+// 1.  Blocks are 1024-byte aligned, so the hardware's swizzle (an XOR of
+// address bits 4-6 with bits 7-9) lines up with the one the loads write.
 //
 // - K-major (the tile's columns are the product's depth; A, or B stored as
 //   [N][K]): depth step kk (16 columns) starts kk % 4 · 32 bytes into block
@@ -72,14 +73,17 @@ __device__ __forceinline__ uint64_t make_desc(const bf16* p, uint32_t lbo,
          ((uint64_t)1 << 62);  // 128-byte swizzle
 }
 
-// depth step kk (16 columns) of a tile read K-major
+// depth step kk (16 columns) of a tile of ROWS rows read K-major
+template <int ROWS = kTileRows>
 __device__ __forceinline__ uint64_t desc_k(const bf16* tile, int kk) {
-  return make_desc(tile + (kk >> 2) * kBlockElems + (kk & 3) * 16, 16, 1024);
+  return make_desc(tile + (kk >> 2) * ROWS * 64 + (kk & 3) * 16, 16, 1024);
 }
 
-// depth step kk (16 rows) of a tile read MN-major (B with the transpose bit)
+// depth step kk (16 rows) of a tile of ROWS rows read MN-major (B with the
+// transpose bit): column blocks ROWS * 128 bytes apart
+template <int ROWS = kTileRows>
 __device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int kk) {
-  return make_desc(tile + kk * 16 * 64, kTileRows * 128, 1024);
+  return make_desc(tile + kk * 16 * 64, ROWS * 128, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -116,6 +120,25 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a,
       "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : TPD_D4(0), TPD_D4(1), TPD_D4(2), TPD_D4(3), TPD_D4(4), TPD_D4(5),
         TPD_D4(6), TPD_D4(7)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= A · B, both from shared memory, both K-major; scale_d 0
+// overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : TPD_D4(0), TPD_D4(1), TPD_D4(2), TPD_D4(3), TPD_D4(4), TPD_D4(5),
+        TPD_D4(6), TPD_D4(7), TPD_D4(8), TPD_D4(9), TPD_D4(10), TPD_D4(11),
+        TPD_D4(12), TPD_D4(13), TPD_D4(14), TPD_D4(15)
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -167,12 +190,13 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the 64 x 64 f32 accumulator tile s, rounded to bf16, as the A fragments
-// of the four 16-deep steps of the next product
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&s)[8][4]) {
+// the 64 x 16·KS f32 accumulator tile s, rounded to bf16, as the A
+// fragments of the KS 16-deep steps of the next product
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4],
+                                       const float (&s)[2 * KS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     a[kk][0] = pack2(s[2 * kk][0], s[2 * kk][1]);
     a[kk][1] = pack2(s[2 * kk][2], s[2 * kk][3]);
     a[kk][2] = pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
@@ -190,6 +214,31 @@ __device__ __forceinline__ void wgmma_abt(float (&d)[8][4], const bf16* a,
     wgmma_ss_n64(d, desc_k(a, kk), desc_k(b, kk), kk > 0);
 }
 
+// d[64 x 128] = A · Bᵀ over D columns: A a row-major [64][D] tile, B a
+// row-major [128][D] tile in shared memory (both K-major); issued, not
+// waited for
+template <int D>
+__device__ __forceinline__ void wgmma_abt128(float (&d)[16][4], const bf16* a,
+                                             const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n128(d, desc_k(a, kk), desc_k<128>(b, kk), kk > 0);
+}
+
+// acc[64 x D] += A · T over the 16·KS rows of T: A the packed bf16
+// fragments of a 64 x 16·KS tile (pack_a), T a [16·KS][D] tile in shared
+// memory read MN-major; issued, not waited for.  The caller keeps `a`
+// unchanged until the wait.
+template <int NB, int KS>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[NB][4],
+                                         const uint32_t (&a)[KS][4],
+                                         const bf16* t) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs<NB>(acc, a[kk], desc_mn<16 * KS>(t, kk));
+}
+
 // acc[64 x D] += bf(p) · T over 64 rows of T: p the f32 accumulator tile,
 // T a [64][D] tile in shared memory read MN-major; issued, not waited for
 template <int NB>
@@ -198,9 +247,17 @@ __device__ __forceinline__ void wgmma_pt(float (&acc)[NB][4],
                                          const bf16* t) {
   uint32_t a[4][4];
   pack_a(a, p);
-  wgmma_fence();
+  wgmma_pv<NB, 4>(acc, a, t);
+}
+
+// keep the compiler from moving reads or writes of packed A fragments
+// across the asynchronous product that reads them
+template <int KS>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<NB>(acc, a[kk], desc_mn(t, kk));
+  for (int i = 0; i < KS; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
 // ------------------------------------------------- TMA copies and mbarriers
@@ -228,6 +285,13 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// arrive once (a consumer releasing a ring stage)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // wait until the barrier's phase `parity` has completed
@@ -258,15 +322,41 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       : "memory");
 }
 
-// rows [row0, row0 + 64) of head `head` of a [heads, rows, D] bf16 tensor
-// (its map: boxes of 64 rows x 64 columns) into a swizzled tile, D / 64
-// boxes; rows past the end are zero-filled.  One thread issues it.
-template <int D>
+// rows [row0, row0 + ROWS) of head `head` of a [heads, rows, D] bf16
+// tensor (its map: boxes of 64 rows x 64 columns) into a swizzled tile of
+// ROWS rows, ROWS / 64 boxes a column block; rows past the end are
+// zero-filled.  One thread issues it.
+template <int D, int ROWS = kTileRows>
 __device__ __forceinline__ void tma_tile(bf16* tile, const void* map,
                                          uint64_t* bar, int row0, int head) {
 #pragma unroll
   for (int cb = 0; cb < D / 64; ++cb)
-    tma_load_3d(tile + cb * kBlockElems, map, bar, cb * 64, row0, head);
+#pragma unroll
+    for (int rb = 0; rb < ROWS / kTileRows; ++rb)
+      tma_load_3d(tile + cb * ROWS * 64 + rb * kBlockElems, map, bar,
+                  cb * 64, row0 + rb * kTileRows, head);
+}
+
+// Hand registers back (dec) or take them (inc), up to N a thread, for the
+// calling warpgroup: every warp of it executes the same one, on a path that
+// does not reconverge with the other warpgroups' (else ptxas ignores it)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over `n` threads: sync
+// waits for all n, arrive counts this thread and goes on.  Two warpgroups
+// take turns with them (a sync on one's own id, an arrive on the other's).
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 }  // namespace tpd_hopper

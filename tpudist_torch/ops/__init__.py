@@ -53,12 +53,14 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     """Zero every wrapper's ``launches`` (and the per-arm counts: the paged
-    prefill's ``launches_tc`` / ``launches_cc``, the flash backward's
-    ``launches_wgmma``)."""
+    prefill's ``launches_tc`` / ``launches_cc``, the paged decode's
+    ``launches_tc``, the flash kernels' ``launches_wgmma``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     paged_prefill_attention.launches_tc = 0
     paged_prefill_attention.launches_cc = 0
+    paged_attention.launches_tc = 0
+    flash_forward.launches_wgmma = 0
     flash_backward_dq.launches_wgmma = 0
     flash_backward_dkv.launches_wgmma = 0
 

@@ -11,10 +11,13 @@ head dims 16, 32, 64 and 128; any sequence length); on CPU tensors they run
 :class:`FlashAttention` ties them into an autograd function with the JAX
 ``custom_vjp``'s residuals and lse cotangent.
 
-The backward has three arms on CUDA (:func:`_bwd_arm`): Hopper warpgroup
-MMAs (``wgmma``) for bf16 at head dims 64 and 128, whose dq kernel can also
-form the delta ``rowsum(out·dout) − dlse`` itself; ``mma.sync`` tiles for
-bf16 at head dims 16 and 32; CUDA-core FMAs for f32.
+The forward and the backward each have three arms on CUDA
+(:func:`_fwd_arm`, :func:`_bwd_arm`): Hopper warpgroup MMAs (``wgmma``) for
+bf16 at head dims 64 and 128 (the forward warp-specialised: a producer
+warpgroup feeding two consumer warpgroups over a TMA ring; the backward's
+dq kernel can also form the delta ``rowsum(out·dout) − dlse`` itself);
+``mma.sync``
+tiles for bf16 at head dims 16 and 32; CUDA-core FMAs for f32.
 
 Layouts are the JAX package's: q ``[b, h, s, dh]``, k/v ``[b, h_kv, s,
 dh]`` (grouped-query attention natively: ``h_kv`` divides ``h``), lse ``[b,
@@ -225,15 +228,45 @@ def _geometry(what: str, q, k, v):
     return b, h, h_kv, d
 
 
-def flash_forward(q, k, v, band: Band, out_f32: bool = False,
-                  block_q: int = 128):
-    """The forward over ``band``: ``(out, lse)``.  CUDA tensors launch
-    ``csrc/flash_attention.cu`` (``block_q`` tiles only the plain version);
-    CPU tensors run :func:`flash_forward_reference`."""
-    if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, band, out_f32, block_q)
-    _check_cuda("flash_forward", [q, k, v], q.dtype)
-    b, h, h_kv, d = _geometry("flash_forward", q, k, v)
+# the kernels' arms (enum Arm in csrc/flash_attention.cu and
+# csrc/flash_backward.cu)
+_ARMS = {"f32": 0, "mma": 1, "wgmma": 2}
+_WGMMA_DIMS = (64, 128)
+#: the forward's wgmma arm (csrc/flash_attention.cu): query rows a CTA (two
+#: consumer warpgroups of 64), keys a K/V tile, and the K/V ring's stages
+#: by head dim
+FWD_WGMMA_ROWS, FWD_WGMMA_KEYS = 128, 128
+FWD_WGMMA_STAGES = {64: 4, 128: 3}
+
+
+def fwd_wgmma_smem(d: int) -> int:
+    """Shared memory of one forward wgmma CTA at head dim ``d``: two ``[64,
+    d]`` Q tiles and the ring of ``[128, d]`` K and V tiles in bf16, plus 2
+    KB for the mbarriers and the 1024-byte alignment of the tiles."""
+    return (FWD_WGMMA_ROWS + 2 * FWD_WGMMA_STAGES[d] * FWD_WGMMA_KEYS) \
+        * d * 2 + 2048
+
+
+def _fwd_arm(q) -> str:
+    """The arm a CUDA forward call takes: ``wgmma`` for bf16 at head dims
+    64 and 128 (warp-specialised, TMA-fed), ``mma`` (mma.sync) for bf16 at
+    16 and 32, ``f32``."""
+    if q.dtype == torch.float32:
+        return "f32"
+    return "wgmma" if q.shape[-1] in _WGMMA_DIMS else "mma"
+
+
+def _launch_fwd(arm: str, q, k, v, band: Band, out_f32: bool = False):
+    """One launch of the forward kernel on ``arm`` (inputs checked by the
+    caller).  ``chip_smoke.py`` and the CUDA tests also call it to time and
+    hold the bf16 arms on the same inputs."""
+    b, h, h_kv, d = _shapes(q, k, v)
+    if arm == "wgmma" and (d not in _WGMMA_DIMS
+                           or q.dtype != torch.bfloat16):
+        raise ValueError(f"the forward's wgmma arm takes bf16 at head dims "
+                         f"{_WGMMA_DIMS}, not {q.dtype} at {d}")
+    if (arm == "f32") != (q.dtype == torch.float32):
+        raise ValueError(f"arm {arm!r} does not take {q.dtype}")
     sq, sk = q.shape[2], k.shape[2]
     f32_out = out_f32 or q.dtype == torch.float32
     out = torch.empty(b, h, sq, d, device=q.device,
@@ -244,24 +277,30 @@ def flash_forward(q, k, v, band: Band, out_f32: bool = False,
     ptr = _build.ptr
     rc = lib.tpd_flash_forward(
         ptr(q), ptr(k), ptr(v), ptr(out), ptr(lse), b, h, h_kv, sq, sk, d,
-        lo, hi, _build.dtype_code(q.dtype), int(f32_out), d ** -0.5,
+        lo, hi, _ARMS[arm], int(f32_out), d ** -0.5,
         _build.stream_of(q.device))
     _build.check(lib, rc, "flash_forward")
     flash_forward.launches += 1
+    flash_forward.launches_wgmma += arm == "wgmma"
     return out, lse
 
 
-# the backward's kernel arms (enum Arm in csrc/flash_backward.cu)
-_ARMS = {"f32": 0, "mma": 1, "wgmma": 2}
-_WGMMA_DIMS = (64, 128)
+def flash_forward(q, k, v, band: Band, out_f32: bool = False,
+                  block_q: int = 128):
+    """The forward over ``band``: ``(out, lse)``.  CUDA tensors launch
+    ``csrc/flash_attention.cu`` on :func:`_fwd_arm`'s arm (``block_q``
+    tiles only the plain version); CPU tensors run
+    :func:`flash_forward_reference`."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, band, out_f32, block_q)
+    _check_cuda("flash_forward", [q, k, v], q.dtype)
+    _geometry("flash_forward", q, k, v)
+    return _launch_fwd(_fwd_arm(q), q, k, v, band, out_f32)
 
 
-def _bwd_arm(q) -> str:
-    """The arm a CUDA backward call takes: ``wgmma`` for bf16 at head dims
-    64 and 128, ``mma`` (mma.sync) for bf16 at 16 and 32, ``f32``."""
-    if q.dtype == torch.float32:
-        return "f32"
-    return "wgmma" if q.shape[-1] in _WGMMA_DIMS else "mma"
+#: the arm a CUDA backward call takes: the forward's rule (``wgmma`` for
+#: bf16 at head dims 64 and 128, ``mma`` for bf16 at 16 and 32, ``f32``)
+_bwd_arm = _fwd_arm
 
 
 def _bwd_check(what: str, q, k, v, do, rows_f32):
@@ -372,8 +411,9 @@ def flash_backward_dkv(q, k, v, do, lse, delta, band: Band,
 
 
 #: kernel launches since the last reset (the main path's proof of use), and
-#: those of the backward's wgmma arm
+#: those of the wgmma arms
 flash_forward.launches = 0
+flash_forward.launches_wgmma = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches_wgmma = 0

@@ -18,11 +18,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from tpudist_torch.ops import _build
-from tpudist_torch.ops.paged_attention import (_MASK_VALUE, _dense_view,
+from tpudist_torch.ops.paged_attention import (CC_ROWS, SMEM_LIMIT,
+                                               _MASK_VALUE, _check_smem,
+                                               _decode_plan, _dense_view,
                                                check_paged_inputs)
 
-#: shared memory one CTA may use on the H100 (bytes)
-SMEM_LIMIT = 227 * 1024
 #: head dims the tensor-core arm is instantiated for (bf16 tiles take
 #: multiples of 16; the flash kernels' set)
 TC_HEAD_DIMS = (16, 32, 64, 128)
@@ -32,8 +32,6 @@ TC_TILE, TC_STAGES = 64, 3
 #: query rows per CTA of the tensor-core arm (kRows: 64 rows ran faster
 #: than 32 on the H100 in every timed call)
 TC_ROWS = 64
-#: query rows per CTA of the CUDA-core arm (paged_common.cuh kRowsPerCta)
-CC_ROWS = 16
 
 
 class PrefillPlan(NamedTuple):
@@ -61,19 +59,9 @@ def _prefill_plan(dtype, dh: int, R: int, bs: int) -> PrefillPlan:
 
 
 def _cc_plan(dh: int, R: int, bs: int) -> PrefillPlan:
-    r = min(R, CC_ROWS)
-    ld = dh + 4 if dh % 4 == 0 else dh + 1
-    floats = 2 * r * dh + 2 * bs * ld + r * bs + 3 * r
-    return PrefillPlan("cc", r, floats * 4)
-
-
-def _check_smem(plan: PrefillPlan, dh: int, bs: int) -> None:
-    """Raise where ``plan``'s shared memory does not fit one CTA."""
-    if plan.smem > SMEM_LIMIT:
-        raise ValueError(
-            f"{plan.rows} query rows x dh {dh} x block {bs} take "
-            f"{plan.smem} bytes of shared memory on the {plan.arm} arm, "
-            f"past the {SMEM_LIMIT} one CTA may use")
+    """The CUDA-core arm: the decode kernel's walk (its plan)."""
+    plan = _decode_plan("cc", R, dh, bs, 1)
+    return PrefillPlan("cc", plan.rows, plan.smem)
 
 
 def _declare(lib) -> None:
