@@ -44,11 +44,14 @@ order; any failure exits non-zero:
    forward + backward, and its backward beside FlashAttention's backward
    alone (dq forming delta, dk/dv);
 3c. the fused RoPE+QKV and LoRA gather-matmul kernels against their plain
-   versions at the adapter path's shapes (8 slots, d 1024, decode T 1 and
-   prefill T 64, rank 8, lane ids mixing adapters, base lanes and the
-   sentinel), a GQA case, a rope-off ragged case and f32 cases
-   (:func:`linear_agreement`: elementwise, per row and over the tensor),
-   timed as in phase 3 beside the unfused chain ``fused_rope=False`` runs;
+   versions at the adapter path's shapes (8 slots, d 1024, decode T 1, the
+   speculative verify's T 5 and prefill T 64, rank 8, lane ids mixing
+   adapters, base lanes and the sentinel), a GQA case, a rope-off ragged
+   case and f32 cases (:func:`linear_agreement`: elementwise, per row and
+   over the tensor), timed as in phase 3 beside the unfused chain
+   ``fused_rope=False`` runs; ``lora_delta``'s cluster arm (decode and
+   verify) also beside the staged kernel it replaced there, in turns, and
+   the card's ``cudaOccupancyMaxActiveClusters`` for it;
 3d. the residual prep of the speculative verify against its plain version
    at ``[8, 4, 256]`` (temperatures 0, 0.7, 1.3, an empty-residual row),
    ``[8, 2, 17]``, ``[8, 4, 32000]`` and a bf16 input
@@ -56,8 +59,9 @@ order; any failure exits non-zero:
 3e. the fused toy-MLP kernel against its plain version (``MLP_CASES``: the
    toy model's weights at batches 256, 4096, a ragged 1000 and 2**20, and
    five 128-wide layers), within ``MLP_PLAIN_REL`` of it and
-   ``MLP_F64_REL`` of float64 numpy, timed as in phase 3 beside its bound
-   and the plain chain;
+   ``MLP_F64_REL`` of float64 numpy, timed as in phase 3 (and with the
+   host's launch, as 3c) beside its bound and the plain chain, with the
+   launch plan (arm, rows a thread and a CTA, grid) of each case;
 4. the main path: ``InferenceServer`` on the d1024 / 8-layer / 8-head /
    ff4096 / vocab-256 / max_len-2048 RoPE TransformerLM in bf16 (random
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
@@ -69,8 +73,10 @@ order; any failure exits non-zero:
    ``fused_rope``, ``adapters`` and ``lora_kernel`` on, 4 adapters of rank
    8 loaded, 16 greedy requests of which a third are base lanes;
    ``fused_rope_qkv`` must launch once and ``lora_delta`` three times per
-   layer and forward, every base lane must equal the same request on the
-   server without adapters and every adapter lane must differ from it, or
+   layer and forward (its cluster arm serving the decode launches, the
+   staged arm the prefill chunks), every base lane must equal the same
+   request on the server without adapters and every adapter lane must
+   differ from it, or
    equal it only where the CPU f32 path shows the adapter acting and the
    card's stream leaving an f32 stream at a near tie
    (:func:`adapter_lane_ties`);
@@ -178,6 +184,8 @@ ADAPTER_KERNELS = ("fused_rope_qkv", "lora_delta")
 # base lanes; ragged decode cursors and prefill chunk starts of the main
 # path, and which lanes carry an adapter
 RANK, N_ADAPTERS = 8, 4
+# the speculative path's draft length: its verify runs SPEC_K + 1 rows a slot
+SPEC_K = 4
 # phase 4c's traffic beside the 12 greedy spec lanes: greedy lanes with
 # spec=False, and lanes sampled at temperature 0.8 (spec on)
 SPEC_OFF_LANES, SAMPLED_LANES = (3, 9), (6, 13)
@@ -1280,13 +1288,18 @@ def unfused_qkv(torch, h, w, offsets, extra, on, nh, n_kv, dh):
 
 def check_fused_linear(torch, dev):
     """Phase 3c: both kernels against their plain versions at the main
-    path's shapes (decode T 1, prefill T 64, 8 slots, d 1024, rank 8), a GQA
-    case, a rope-off ragged case and f32 cases; then timed as in phase 3."""
+    path's shapes (decode T 1, the verify's T 5, prefill T 64, 8 slots, d
+    1024, rank 8), a GQA case, a rope-off ragged case and f32 cases; then
+    timed as in phase 3, ``lora_delta``'s cluster arm also beside the
+    staged arm on the same inputs, in turns."""
     from tpudist_torch import ops
-    from tpudist_torch.ops.fused_linear import (fused_rope_qkv,
+    from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS,
+                                                _launch_lora,
+                                                fused_rope_qkv,
                                                 fused_rope_qkv_reference,
                                                 lora_delta,
-                                                lora_delta_reference)
+                                                lora_delta_reference,
+                                                lora_max_active_clusters)
 
     gen = torch.Generator(device=dev).manual_seed(5678)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1320,13 +1333,17 @@ def check_fused_linear(torch, dev):
                                           r["max_abs_err"])
         log(f"fused_rope_qkv {name}: agrees")
     # (name, S, T, d_in, d_out, dtype, rank, ids)
+    # (the cases added later come last, so the earlier ones keep the draws
+    # of the generator they were read against)
     lora_cases = (
         ("qkv decode", SLOTS, 1, 1024, 3072, bf16, RANK, LORA_IDS),
         ("wi decode", SLOTS, 1, 1024, 4096, bf16, RANK, LORA_IDS),
         ("wo prefill", SLOTS, P, 4096, 1024, bf16, RANK, LORA_IDS),
         ("qkv prefill", SLOTS, P, 1024, 3072, bf16, RANK, LORA_IDS),
         ("f32 rank 2, ragged", 3, 37, 256, 200, f32, 2, [1, 8, 7]),
-        ("rank 64, sentinel only", 2, 5, 512, 300, bf16, 64, [8, 8]))
+        ("rank 64, sentinel only", 2, 5, 512, 300, bf16, 64, [8, 8]),
+        ("wo decode", SLOTS, 1, 4096, 1024, bf16, RANK, LORA_IDS),
+        ("wi verify", SLOTS, SPEC_K + 1, 1024, 4096, bf16, RANK, LORA_IDS))
     for name, S, T, d_in, d_out, dtype, rank, ids in lora_cases:
         dt = "bf16" if dtype == bf16 else "f32"
         args = lora_inputs(torch, dev, gen, S, T, d_in, d_out, dtype, rank,
@@ -1367,6 +1384,7 @@ def check_fused_linear(torch, dev):
     for label, T, d_in, d_out in (("qkv decode", 1, 1024, 3072),
                                   ("wi decode", 1, 1024, 4096),
                                   ("wo decode", 1, 4096, 1024),
+                                  ("wi verify", SPEC_K + 1, 1024, 4096),
                                   ("wi prefill", P, 1024, 4096)):
         args = lora_inputs(torch, dev, gen, SLOTS, T, d_in, d_out, bf16,
                            RANK, LORA_IDS)
@@ -1374,7 +1392,7 @@ def check_fused_linear(torch, dev):
         rows = SLOTS * T
         nbytes = (2 * rows * (d_in + d_out) + SLOTS * 4
                   + blocks * RANK * (d_in + d_out) * 4)
-        timings[f"lora_delta {label}"] = dict(
+        t = timings[f"lora_delta {label}"] = dict(
             ms=time_ms(torch, lambda: lora_delta(*args, layer=3), flush),
             host_ms=time_ms(torch, lambda: lora_delta(*args, layer=3),
                             flush, spin=False),
@@ -1382,11 +1400,22 @@ def check_fused_linear(torch, dev):
                 *args, layer=3), flush),
             bound=bound(nbytes, 2 * rows * RANK * (d_in + d_out),
                         H100_BF16_FLOPS))
+        if T <= LORA_DECODE_ROWS:  # the staged arm it replaced, in turns
+            arm_ms = {"cluster": [], "staged": []}
+            for arm in ("staged", "cluster", "cluster", "staged"):
+                arm_ms[arm].append(time_ms(torch, lambda: _launch_lora(
+                    arm, *args, 3), flush))
+            t["arm_ms"] = arm_ms
+    clusters = lora_max_active_clusters(SLOTS)
+    log(f"lora_delta cluster arm: at most {clusters} clusters of 8 CTAs "
+        f"resident at once (cudaOccupancyMaxActiveClusters; {SLOTS} a "
+        f"call)")
     for name, t in timings.items():
         log(f"kernel {name}: {t['ms']:.4f} ms (with host launch "
             f"{t['host_ms']:.4f} ms; plain {t['plain_ms']:.4f} "
             f"ms" + (f", unfused chain {t['unfused_ms']:.4f} ms"
                      if "unfused_ms" in t else "")
+            + (f"; arms in turns {t['arm_ms']}" if "arm_ms" in t else "")
             + f", bound {t['bound'][0]:.5f} ms by {t['bound'][1]})")
     for name, src, replaces, key in (
             ("fused_rope_qkv", "tpudist_torch/csrc/fused_rope_qkv.cu",
@@ -1398,19 +1427,22 @@ def check_fused_linear(torch, dev):
                          max_abs_err=worst[name], ms=t["ms"],
                          plain_ms=t["plain_ms"], library_ms=None,
                          bound=t["bound"])
+    rec["lora_delta"]["arm_ms"] = timings["lora_delta wi decode"]["arm_ms"]
     del flush
     ops.reset_launch_counts()
-    return rec, dict(timings=timings, readings=readings)
+    return rec, dict(timings=timings, readings=readings,
+                     lora_max_active_clusters=clusters)
 
 
 # ---------------------------------------------------------------------------
 # phase 3e: the fused toy-MLP kernel against its plain version
 
 
-def mlp_weights(torch, kind: str, dev):
+def mlp_weights(torch, kind, dev):
     """``toy``: the toy model's own weights (``create_toy_model(0)``, the
     bench's); ``wide``: five 128-wide layers from a numpy seed, the widest
-    shape the JAX kernel takes."""
+    shape the JAX kernel takes; a tuple of widths: layers of those widths
+    from a numpy seed (the CUDA tests' edge cases)."""
     import numpy as np
 
     from tpudist_torch.models import create_toy_model
@@ -1418,15 +1450,16 @@ def mlp_weights(torch, kind: str, dev):
     if kind == "toy":
         return [(w.detach(), b.detach())
                 for w, b in create_toy_model(0, device=dev).layers()]
-    r = np.random.default_rng(3)
-    return [(torch.from_numpy(r.normal(scale=128 ** -0.5, size=(128, 128))
+    widths = (128,) * 6 if kind == "wide" else tuple(kind)
+    r = np.random.default_rng(3 if kind == "wide" else len(widths))
+    return [(torch.from_numpy(r.normal(scale=a ** -0.5, size=(a, b))
                               .astype(np.float32)).to(dev),
-             torch.from_numpy(r.normal(scale=0.1, size=128)
+             torch.from_numpy(r.normal(scale=0.1, size=b)
                               .astype(np.float32)).to(dev))
-            for _ in range(5)]
+            for a, b in zip(widths[:-1], widths[1:])]
 
 
-def mlp_inputs(torch, kind: str, batch: int, dev):
+def mlp_inputs(torch, kind, batch: int, dev):
     import numpy as np
 
     weights = mlp_weights(torch, kind, dev)
@@ -1474,9 +1507,11 @@ def check_fused_mlp(torch, dev):
     ``MLP_CASES`` (:func:`mlp_agreement`), each timed as in phase 3 beside
     its bound and the plain chain; the kernels line takes the bench's batch
     4096."""
+    import dataclasses
+
     from tpudist_torch import ops
-    from tpudist_torch.ops.fused_mlp import (fused_mlp, mlp_reference,
-                                             pack_params)
+    from tpudist_torch.ops.fused_mlp import (_mlp_plan, fused_mlp,
+                                             mlp_reference, pack_params)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     cases, err = {}, 0.0
@@ -1491,12 +1526,19 @@ def check_fused_mlp(torch, dev):
             err = max(err, agree["max_abs_err"])
             cases[name] = dict(
                 agree, batch=batch, widths=list(packed.widths),
+                plan=dataclasses.asdict(_mlp_plan(packed.widths, batch)),
                 ms=time_ms(torch, lambda: fused_mlp(x, packed), flush),
+                host_ms=time_ms(torch, lambda: fused_mlp(x, packed), flush,
+                                spin=False),
                 plain_ms=time_ms(torch, lambda: mlp_reference(x, weights),
                                  flush),
                 bound=mlp_bound(packed.widths, batch))
             c = cases[name]
-            log(f"kernel fused_mlp {name}: {c['ms']:.4f} ms (plain "
+            log(f"kernel fused_mlp {name}: {c['ms']:.4f} ms (with host "
+                f"launch {c['host_ms']:.4f} ms; {c['plan']['arm']} arm, "
+                f"{c['plan']['rows']} rows a thread, "
+                f"{c['plan']['rows_per_cta']} a tile, {c['plan']['blocks']} "
+                f"tiles; plain "
                 f"{c['plain_ms']:.4f} ms, bound {c['bound'][0]:.7f} ms by "
                 f"{c['bound'][1]}); vs plain {c['rel_vs_plain']:.2e}, vs "
                 f"f64 {c['rel_vs_f64']:.2e} (plain vs f64 "
@@ -1641,7 +1683,7 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
     cfg = ServeConfig(num_slots=SLOTS, queue_limit=64, max_new=64,
                       prefill_pad=P, decode_block=8, kv_block=BS,
                       fused_rope=on, adapters=on, lora_kernel=on, spec=True,
-                      spec_k=4)
+                      spec_k=SPEC_K)
     server = InferenceServer(model, cfg, device="cuda")
     eng = server.engine
     try:
@@ -1798,6 +1840,7 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
     import numpy as np
 
     from tpudist_torch import ops
+    from tpudist_torch.ops import lora_delta
     from tpudist_torch.serve import InferenceServer, ServeConfig
 
     rng = np.random.default_rng(gen_seed)
@@ -1830,6 +1873,7 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = ops.launch_counts()
+            cluster = lora_delta.launches_cluster
             forwards = server.engine.n_forwards - fw0
             stats = server.stats()
         finally:
@@ -1846,8 +1890,8 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
             tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
             ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
             tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
-            forwards=forwards, launches=counts, decode=stats["decode"],
-            adapters=stats["adapters"])
+            forwards=forwards, launches=counts, lora_cluster_launches=cluster,
+            decode=stats["decode"], adapters=stats["adapters"])
 
     main = run(fused=True, adapters=True)
     L, fw, c = LAYERS, main["forwards"], main["launches"]
@@ -1858,6 +1902,11 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
             f"(want {L * fw} and {3 * L * fw})")
     if not all(c[name] > 0 for name in SERVE_KERNELS):
         raise AssertionError(f"a serving kernel was not launched: {c}")
+    if not 0 < main["lora_cluster_launches"] < c["lora_delta"]:
+        raise AssertionError(
+            f"lora_delta's cluster arm served {main['lora_cluster_launches']}"
+            f" of {c['lora_delta']} launches: decode must take it, the "
+            f"prefill chunks the staged arm")
     base = run(fused=True, adapters=False)
     ties = {}
     for i, name in enumerate(names):
@@ -2000,7 +2049,7 @@ def profile_spec_block(torch, model) -> dict:
     from tpudist_torch.serve import SlotEngine
 
     eng = SlotEngine(model, num_slots=SLOTS, prefill_pad=P, decode_block=8,
-                     kv_block=BS, spec_draft=LAYERS // 2, spec_k=4,
+                     kv_block=BS, spec_draft=LAYERS // 2, spec_k=SPEC_K,
                      device="cuda")
     rng = np.random.default_rng(3)
     eng.start_batch([(s, rng.integers(0, V, size=60), 0.0, 0, 200)
@@ -2458,7 +2507,12 @@ def main(argv=None) -> int:
              - main_path["decode_tc_launches"]}),
         "paged_prefill": (
             {a: rec["paged_prefill"]["arms"][a]["ms"] for a in ("tc", "cc")},
-            main_path["prefill_arm_launches"])}
+            main_path["prefill_arm_launches"]),
+        "lora_delta": (
+            {a: mean(t) for a, t in lin_rec["lora_delta"]["arm_ms"].items()},
+            {"cluster": ad_path["lora_cluster_launches"],
+             "staged": launches["lora_delta"]
+             - ad_path["lora_cluster_launches"]})}
     for name in TRAIN_KERNELS:
         wg = train["launches_wgmma"][name]
         arms[name] = ({"wgmma": mean(flash_rec[name]["arm_ms"]),

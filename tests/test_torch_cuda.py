@@ -76,6 +76,8 @@ from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                paged_prefill_reference, reset_launch_counts)
 from tpudist_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
                                                _launch_fwd)
+from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS, _launch_lora,
+                                            lora_max_active_clusters)
 from tpudist_torch.ops.paged_attention import _paged_attention_on_arm
 from tpudist_torch.ops.paged_prefill import _paged_prefill_on_arm
 from tpudist_torch.train.__main__ import main as train_main
@@ -664,6 +666,22 @@ LORA_CASES = {
     "ragged_bf16_r16": (2, 19, 300, 333, torch.bfloat16, 16, [5, 2]),
     "ragged_f32_r2": (3, 37, 256, 200, torch.float32, 2, [1, 8, 7]),
     "sentinel_f32_r64": (2, 5, 512, 260, torch.float32, 64, [8, 8]),
+    # the cluster arm's edges: the speculative verify's T 5 at wi widths,
+    # T at the arm's last row count and one past it (the staged arm), one
+    # slot, a depth that 8 CTAs x 4 do not divide, odd depths at ranks 1
+    # and 2 (no 16-byte loads), rank 64, f32
+    "verify_wi_T5": (8, 5, 1024, 4096, torch.bfloat16, 8,
+                     [0, 8, 1, 8, 2, 3, 8, 0]),
+    "cluster_T8": (4, 8, 1024, 3072, torch.bfloat16, 8, [0, 8, 3, 1]),
+    "staged_T9": (4, 9, 1024, 3072, torch.bfloat16, 8, [0, 8, 3, 1]),
+    "one_slot_wo": (1, 1, 4096, 1024, torch.bfloat16, 8, [3]),
+    "d_in_1000": (8, 1, 1000, 3000, torch.bfloat16, 8,
+                  [0, 8, 1, 8, 2, 3, 8, 0]),
+    "cluster_r1_odd": (3, 2, 1001, 500, torch.bfloat16, 1, [0, 8, 3]),
+    "cluster_r2_odd": (3, 3, 1002, 500, torch.bfloat16, 2, [0, 8, 3]),
+    "cluster_r64": (2, 4, 2048, 1000, torch.bfloat16, 64, [5, 8]),
+    "cluster_f32_r16": (3, 3, 512, 260, torch.float32, 16, [1, 8, 7]),
+    "cluster_narrow": (2, 7, 20, 9, torch.float32, 4, [1, 8]),
 }
 
 
@@ -685,6 +703,28 @@ def test_lora_delta_matches_plain(cuda, case):
         r = linear_agreement(torch, out, ref, dt)
         assert r["ok"], r
     assert launch_counts()["lora_delta"] == 2
+    assert lora_delta.launches_cluster == (2 if T <= LORA_DECODE_ROWS else 0)
+
+
+@pytest.mark.parametrize("case", ["decode_bf16_r8", "verify_wi_T5",
+                                  "cluster_r64", "cluster_f32_r16"])
+def test_lora_delta_staged_arm_at_decode_rows(cuda, case):
+    """The staged kernel the cluster arm replaced at decode and verify rows
+    (forced, as phase 3c times it) agrees with the plain version too, and
+    the cluster arm's card can hold a cluster at once."""
+    S, T, d_in, d_out, dtype, rank, ids = LORA_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    args = lora_inputs(torch, cuda, gen, S, T, d_in, d_out, dtype, rank,
+                       ids)
+    reset_launch_counts()
+    out = _launch_lora("staged", *args, 3)
+    torch.cuda.synchronize()
+    r = linear_agreement(torch, out, lora_delta_reference(*args, layer=3),
+                         "bf16" if dtype == torch.bfloat16 else "f32")
+    assert r["ok"], r
+    assert launch_counts()["lora_delta"] == 1
+    assert lora_delta.launches_cluster == 0
+    assert lora_max_active_clusters(S) >= 1
 
 
 def test_fused_linear_wrong_inputs_raise(cuda):
@@ -782,10 +822,27 @@ def test_adapter_engine_on_the_card(cuda):
             assert streams[True][i] == streams[False][i]
 
 
-@pytest.mark.parametrize("case", MLP_CASES, ids=[c[0] for c in MLP_CASES])
+# the register-blocked arm's and the tiled arm's edges (name, weights,
+# batch): one row; a batch that is neither a multiple of the 4 rows a thread
+# nor of a CTA's 512; one layer; widths 17 and 33 either side of the arms'
+# bound; 9 layers; 40 layers of width 32 (widths past the kernel's by-value
+# 32 and weights past its 48 KB staging); the tiled arm's 64-row tiles with
+# a ragged last tile, and a few rows through mixed widths
+MLP_EDGE_CASES = (("toy b1", "toy", 1), ("toy ragged b70001", "toy", 70001),
+                  ("one layer 5x7", (5, 7), 999),
+                  ("width 17", (2, 17, 1), 4096),
+                  ("width 33", (2, 33, 1), 4096),
+                  ("9 layers", (3,) + (9,) * 8 + (2,), 5000),
+                  ("deep 40x32", (4,) + (32,) * 40 + (3,), 3000),
+                  ("wide ragged b8385", "wide", 8385),
+                  ("mixed 100/128 b77", (2, 100, 128, 1), 77))
+
+
+@pytest.mark.parametrize("case", MLP_CASES + MLP_EDGE_CASES,
+                         ids=[c[0] for c in MLP_CASES + MLP_EDGE_CASES])
 def test_fused_mlp_matches_plain(cuda, case):
-    """Phase 3e's shapes: the kernel against its plain version and float64
-    numpy, one launch counted a call."""
+    """Phase 3e's shapes and the arms' edges: the kernel against its plain
+    version and float64 numpy, one launch counted a call."""
     _, kind, batch = case
     weights, x = mlp_inputs(torch, kind, batch, cuda)
     packed = pack_params(weights)

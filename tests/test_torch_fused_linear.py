@@ -33,6 +33,9 @@ from torch_cases import settled_torch_cpu
 from tpudist_torch.ops import (fused_rope_qkv, fused_rope_qkv_reference,
                                launch_counts, lora_delta,
                                lora_delta_reference, reset_launch_counts)
+from tpudist_torch.ops import _build
+from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS, LORA_RANKS,
+                                            _launch_lora, _lora_arm)
 
 QKV_TOL = dict(atol=1e-6, rtol=1e-6)
 LORA_TOL = dict(atol=2e-6, rtol=2e-6)
@@ -151,6 +154,57 @@ def test_lora_delta_matches_jax_every_layer(ids):
                          _t(np.minimum(ids, B - 1)), layer=1)
     assert torch.equal(clamped, lora_delta(_t(h), _t(pa), _t(pb), _t(ids),
                                            layer=1))
+
+
+@pytest.mark.parametrize("T", [1, 5, 8, 9])
+def test_lora_delta_rows_across_the_arms_match_jax(T):
+    """The decode step (T 1), the speculative verify (T 5), the cluster
+    arm's last T (8) and the first T past it (9): the port's CPU path
+    against the interpreted Pallas kernel and the JAX reference, as the arm
+    the CUDA wrapper would take for that T."""
+    r = np.random.default_rng(20 + T)
+    S, L, B, rank, d_in, d_out = 3, 2, 5, 2, 32, 12  # LORA_TOL's shapes
+    h = r.normal(size=(S, T, d_in)).astype(np.float32)
+    pa = r.normal(size=(L, B, d_in, rank)).astype(np.float32)
+    pb = r.normal(size=(L, B, rank, d_out)).astype(np.float32)
+    ids = np.asarray([2, 5, 0], np.int32)
+    assert _lora_arm(T) == ("cluster" if T <= 8 else "staged")
+    out = lora_delta(_t(h), _t(pa), _t(pb), _t(ids), layer=1)
+    assert out.shape == (S, T, d_out)
+    for ref in (jax_lora_delta(*map(jnp.asarray, (h, pa, pb, ids)),
+                               layer=1, interpret=True),
+                jax_lora_delta_reference(*map(jnp.asarray,
+                                              (h, pa, pb, ids)), layer=1)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **LORA_TOL)
+
+
+def test_lora_arm_by_rows():
+    """Up to ``LORA_DECODE_ROWS`` rows a slot (decode, the draft steps,
+    the verify's K + 1 at K up to 7) the cluster arm, past it (the
+    prefill chunk) the staged kernel; forcing the cluster arm past it
+    raises before anything launches."""
+    assert [_lora_arm(T) for T in (1, 2, 5, 8)] == ["cluster"] * 4
+    assert [_lora_arm(T) for T in (9, 16, 64)] == ["staged"] * 3
+    x = torch.zeros(2, 9, 32)
+    pa, pb = torch.zeros(1, 2, 32, 4), torch.zeros(1, 2, 4, 6)
+    ids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="arm"):
+        _launch_lora("cluster", x, pa, pb, ids, 0)
+    with pytest.raises(ValueError, match="arm"):
+        _launch_lora("split", x[:, :1], pa, pb, ids, 0)
+
+
+def test_lora_constants_match_the_kernel_source():
+    """The decode rows, the cluster size (8, the portable maximum) and the
+    instantiated ranks are the kernel's."""
+    import re
+
+    src = (_build.CSRC / "lora_delta.cu").read_text()
+    assert re.search(rf"constexpr int kDecodeRows = {LORA_DECODE_ROWS};",
+                     src)
+    assert re.search(r"constexpr int kCluster = 8;", src)
+    assert tuple(int(r) for r in re.findall(r"TPD_LORA\((\d+)\)\n",
+                                            src)) == LORA_RANKS
 
 
 def test_lora_delta_bf16_rounds_factors_and_intermediate():

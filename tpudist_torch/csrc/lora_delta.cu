@@ -14,15 +14,37 @@
 //
 // Bound on the H100: bytes.  At rank 8 the work is 2·r flops per x and out
 // element, far below the tensor cores' share, and the traffic is x, the
-// output tile and each slot's factor blocks.  Design: a CTA owns one slot,
-// 16 rows of its T and 256 output columns.  It recomputes the slot's
-// [16, r] intermediate (cheap at small r) with the A block staged through
-// shared memory in depth chunks, so each CTA reads it from L2 once, and its
-// warps split each chunk among them when the rows are few (decode); then
-// every thread owns one output column, holds its r B-factor values in
-// registers and writes the column's rows.  Products on
-// CUDA-core FMAs in f32 for both dtypes (products of bf16 values are exact
-// in f32; never TF32).
+// output tile and each slot's factor blocks.  At decode (one row a slot)
+// that is a few thousand FMAs a slot: the time is the chain of dependent
+// loads and barriers, so the two arms (the wrapper picks by T) cut it.
+//
+// - cluster arm (T <= kDecodeRows: decode, the draft steps, the
+//   speculative verify's K + 1 rows): one thread-block cluster of kCluster
+//   CTAs a slot.  CTA c reads the c-th slice of A's depth straight into
+//   registers with 16-byte loads, multiplies it by the same slice of x and
+//   sums over its warps in shared memory; the loads of its own d_out /
+//   kCluster columns of B are issued with the A loads, so they overlap the
+//   A read and the barrier.  Each CTA writes its partial [T, r] sum into
+//   its slot of every CTA's shared memory (distributed shared memory
+//   stores), and after one cluster barrier every CTA adds the kCluster
+//   slots in the same order (rank 0 first), so all hold the same total,
+//   and rounds it as the plain version does; then it writes its columns.
+//   One load wave, one block reduction, one cluster barrier (and the wait
+//   half of one whose arrive opens the kernel, so no CTA writes into
+//   another that has not started), one store; no CTA reads another's
+//   shared memory, so none waits to leave.
+// - staged arm (longer T: the prefill chunk): a CTA owns one slot, 16 rows
+//   of its T and 256 output columns.  It recomputes the slot's [16, r]
+//   intermediate (cheap at small r) with the A block staged through shared
+//   memory in depth chunks, so each CTA reads it from L2 once, and its
+//   warps split each chunk among them when the rows are few; then every
+//   thread owns one output column, holds its r B-factor values in
+//   registers and writes the column's rows.
+//
+// Products on CUDA-core FMAs in f32 for both dtypes (products of bf16
+// values are exact in f32; never TF32).
+#include <cooperative_groups.h>
+
 #include "flash_common.cuh"
 
 namespace {
@@ -33,6 +55,8 @@ constexpr int kThreads = 256;  // 8 warps; one output column per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsT = 16;     // rows of T per CTA: at most 2 per warp
 constexpr int kColsN = kThreads;
+constexpr int kCluster = 8;     // CTAs a cluster (the portable maximum)
+constexpr int kDecodeRows = 8;  // T up to this takes the cluster arm
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -135,22 +159,258 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The cluster barrier in two halves: arrive (relaxed: it orders nothing)
+// and wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Four consecutive floats of A from flat index f of a slice of n: one
+// 16-byte load where the slice is aligned (vec) and holds all four, else
+// element by element, zero past the end.
+__device__ __forceinline__ float4 load4(const float* a, int f, int n,
+                                        bool vec) {
+  if (vec && f + 3 < n) return __ldg(reinterpret_cast<const float4*>(a + f));
+  float4 v;
+  v.x = f < n ? __ldg(a + f) : 0.f;
+  v.y = f + 1 < n ? __ldg(a + f + 1) : 0.f;
+  v.z = f + 2 < n ? __ldg(a + f + 2) : 0.f;
+  v.w = f + 3 < n ? __ldg(a + f + 3) : 0.f;
+  return v;
+}
+
+__device__ __forceinline__ float elem(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// One output column n of the cluster arm: its T_len rows from the rounded
+// intermediate and the column's r B values.
+template <typename T, int R>
+__device__ __forceinline__ void write_column(const float (*mid)[R],
+                                             const float (&bq)[R], T* o,
+                                             int T_len, int d_out) {
+#pragma unroll
+  for (int t = 0; t < kDecodeRows; ++t) {
+    if (t >= T_len) break;
+    float y = 0.f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) y = fmaf(mid[t][j], bq[j], y);
+    o[(size_t)t * d_out] = from_f<T>(y);
+  }
+}
+
+// The cluster arm: grid (kCluster, S), clusters of (kCluster, 1, 1), one
+// cluster a slot; T_len <= kDecodeRows.  vec: A's blocks are 16-byte
+// aligned (the pool's pointer, and d_in * R a multiple of 4).
+template <typename T, int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    lora_cluster_kernel(const T* x, const float* pool_a, const float* pool_b,
+                        const int* ids, T* out, int T_len, int d_in,
+                        int d_out, int B, int layer, int vec) {
+  constexpr int kJ = R < 4 ? R : 4;          // distinct j a thread holds
+  constexpr int kLanes = R < 4 ? 1 : R / 4;  // lanes holding distinct j
+  constexpr int kU = 4;                      // A loads in flight a thread
+  constexpr int kStride = 4 * kThreads * kU;
+  constexpr int kQ = R <= 16 ? 2 : 1;        // B columns prefetched
+  __shared__ float part[kWarps][kDecodeRows][R];
+  // the cluster's CTA sums, by rank (written by every CTA of the cluster)
+  __shared__ float recv[kCluster][kDecodeRows][R];
+  __shared__ float mid[kDecodeRows][R];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank(), s = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // this CTA's depth slice [k0, k1) (a multiple of 4 deep, so every slice
+  // starts 16-byte aligned) and columns [n0, n1)
+  const int ks = ((d_in + kCluster - 1) / kCluster + 3) & ~3;
+  const int k0 = min(d_in, c * ks), k1 = min(d_in, k0 + ks);
+  const int nflat = (k1 - k0) * R;
+  const int nc = (d_out + kCluster - 1) / kCluster;
+  const int n0 = min(d_out, c * nc), n1 = min(d_out, n0 + nc);
+  const T* xs = x + (size_t)s * T_len * d_in;
+  // the writes into other CTAs' shared memory wait until every CTA of the
+  // cluster runs; that barrier's arrive goes first, its wait after the loads
+  cluster_arrive_relaxed();
+
+  // thread tid takes the slice's flat floats 4·tid + kStride·p + 4·256·u:
+  // element e of each has j = (4·tid + e) % R on every pass, and at R >= 4
+  // one k for all four.  x first: it does not wait on ids[s].
+  float xv[kU][kDecodeRows];
+  auto load_x = [&](int base) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int f = base + 4 * kThreads * u;
+      const int k = k0 + f / R;
+#pragma unroll
+      for (int t = 0; t < kDecodeRows; ++t)
+        xv[u][t] = R >= 4 && f < nflat && t < T_len
+                       ? to_f(xs[(size_t)t * d_in + k])
+                       : 0.f;
+    }
+  };
+  load_x(4 * tid);
+  const int bid = max(0, min(ids[s], B - 1));
+  const float* a = pool_a + (((size_t)layer * B + bid) * d_in + k0) * R;
+  const float* b = pool_b + ((size_t)layer * B + bid) * R * d_out;
+
+  // B: this thread's first columns, loaded with A, used after the barrier
+  float bv[kQ][R];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int n = n0 + tid + q * kThreads;
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      bv[q][j] = n < n1 ? rnd<T>(__ldg(b + (size_t)j * d_out + n)) : 0.f;
+  }
+
+  float acc[kDecodeRows][4];
+#pragma unroll
+  for (int t = 0; t < kDecodeRows; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  for (int base = 4 * tid; base < nflat; base += kStride) {
+    float4 av[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      av[u] = load4(a, base + 4 * kThreads * u, nflat, vec);
+    if (base != 4 * tid) load_x(base);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int f = base + 4 * kThreads * u;
+      if (f >= nflat) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float av_e = rnd<T>(elem(av[u], e));
+        if constexpr (R >= 4) {
+#pragma unroll
+          for (int t = 0; t < kDecodeRows; ++t)
+            acc[t][e] = fmaf(xv[u][t], av_e, acc[t][e]);
+        } else {  // ranks 1 and 2: each element its own k
+          if (f + e >= nflat) break;
+          const int k = k0 + (f + e) / R;
+#pragma unroll
+          for (int t = 0; t < kDecodeRows; ++t)
+            if (t < T_len)
+              acc[t][e] =
+                  fmaf(to_f(xs[(size_t)t * d_in + k]), av_e, acc[t][e]);
+        }
+      }
+    }
+  }
+  // fold the elements onto their j, then sum the lanes that share a j
+  if constexpr (R < 4) {
+#pragma unroll
+    for (int t = 0; t < kDecodeRows; ++t)
+#pragma unroll
+      for (int e = R; e < 4; ++e) acc[t][e % R] += acc[t][e];
+  }
+#pragma unroll
+  for (int t = 0; t < kDecodeRows; ++t) {
+    if (t >= T_len) break;
+#pragma unroll
+    for (int e = 0; e < kJ; ++e) {
+      float v = acc[t][e];
+#pragma unroll
+      for (int m = kLanes; m < 32; m <<= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, m);
+      if (lane < kLanes) part[warp][t][(R < 4 ? 0 : 4 * lane) + e] = v;
+    }
+  }
+  __syncthreads();
+  cluster_wait();
+  // this CTA's [T, r] sum, pushed into slot c of every CTA of the cluster
+  for (int i = tid; i < T_len * R; i += kThreads) {
+    const int t = i / R, j = i % R;
+    float m = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m += part[w][t][j];
+#pragma unroll
+    for (int cc = 0; cc < kCluster; ++cc)
+      *cluster.map_shared_rank(&recv[c][t][j], cc) = m;
+  }
+  cluster.sync();  // every CTA's sum has arrived everywhere
+  for (int i = tid; i < T_len * R; i += kThreads) {
+    const int t = i / R, j = i % R;
+    float m = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < kCluster; ++cc) m += recv[cc][t][j];
+    mid[t][j] = rnd<T>(m);
+  }
+  __syncthreads();
+
+  T* o = out + (size_t)s * T_len * d_out;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int n = n0 + tid + q * kThreads;
+    if (n < n1) write_column<T, R>(mid, bv[q], o + n, T_len, d_out);
+  }
+  for (int n = n0 + tid + kQ * kThreads; n < n1; n += kThreads) {
+    float bq[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      bq[j] = rnd<T>(__ldg(b + (size_t)j * d_out + n));
+    write_column<T, R>(mid, bq, o + n, T_len, d_out);
+  }
+}
+
+// The cluster arm's launch configuration: grid (kCluster, S), clusters of
+// kCluster CTAs along x.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(int S, cudaStream_t st) {
+    cfg.gridDim = dim3(kCluster, S, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename T, int R>
+int launch_r(const T* x, const float* pa, const float* pb, const int* ids,
+             T* out, int S, int T_len, int d_in, int d_out, int B, int layer,
+             int arm, cudaStream_t st) {
+  if (arm == 1) {
+    if (T_len > kDecodeRows) return (int)cudaErrorInvalidValue;
+    const int vec = reinterpret_cast<uintptr_t>(pa) % 16 == 0 &&
+                    ((long long)d_in * R) % 4 == 0;
+    ClusterLaunch l(S, st);
+    const cudaError_t e =
+        cudaLaunchKernelEx(&l.cfg, lora_cluster_kernel<T, R>, x, pa, pb,
+                           ids, out, T_len, d_in, d_out, B, layer, vec);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  if (arm != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((d_out + kColsN - 1) / kColsN, S, (T_len + kRowsT - 1) / kRowsT);
+  lora_kernel<T, R><<<grid, kThreads, 0, st>>>(x, pa, pb, ids, out, T_len,
+                                               d_in, d_out, B, layer);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, const void* pool_a, const void* pool_b,
            const void* ids, void* out, int S, int T_len, int d_in, int d_out,
-           int B, int r, int layer, cudaStream_t st) {
-  dim3 grid((d_out + kColsN - 1) / kColsN, S, (T_len + kRowsT - 1) / kRowsT);
+           int B, int r, int layer, int arm, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const float* pa = static_cast<const float*>(pool_a);
   const float* pb = static_cast<const float*>(pool_b);
   const int* ip = static_cast<const int*>(ids);
   T* op = static_cast<T*>(out);
-#define TPD_LORA(RR)                                                     \
-  case RR:                                                               \
-    lora_kernel<T, RR><<<grid, kThreads, 0, st>>>(xp, pa, pb, ip, op,    \
-                                                  T_len, d_in, d_out, B, \
-                                                  layer);                \
-    break;
+#define TPD_LORA(RR) \
+  case RR:           \
+    return launch_r<T, RR>(xp, pa, pb, ip, op, S, T_len, d_in, d_out, B, \
+                           layer, arm, st);
   switch (r) {
     TPD_LORA(1)
     TPD_LORA(2)
@@ -163,23 +423,31 @@ int launch(const void* x, const void* pool_a, const void* pool_b,
       return (int)cudaErrorInvalidValue;
   }
 #undef TPD_LORA
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16; r one of 1, 2, 4, 8, 16, 32, 64 (the wrapper
-// checks).
+// dtype: 0 f32, 1 bf16; r one of 1, 2, 4, 8, 16, 32, 64; arm 0 the staged
+// kernel, 1 the cluster arm (T <= kDecodeRows).  The wrapper checks the
+// arguments and picks the arm (ops/fused_linear.py _lora_arm).
 extern "C" int tpd_lora_delta(const void* x, const void* pool_a,
                               const void* pool_b, const void* ids, void* out,
                               int S, int T, int d_in, int d_out, int B, int r,
-                              int layer, int dtype, void* stream) {
+                              int layer, int dtype, int arm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == tpd_flash::kBF16)
     return launch<bf16>(x, pool_a, pool_b, ids, out, S, T, d_in, d_out, B, r,
-                        layer, st);
+                        layer, arm, st);
   return launch<float>(x, pool_a, pool_b, ids, out, S, T, d_in, d_out, B, r,
-                       layer, st);
+                       layer, arm, st);
+}
+
+// How many clusters of the cluster arm (bf16, rank 8) the card can hold at
+// once, into *count (cudaOccupancyMaxActiveClusters).
+extern "C" int tpd_lora_max_clusters(int S, int* count) {
+  ClusterLaunch l(S, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      count, (const void*)lora_cluster_kernel<bf16, 8>, &l.cfg);
 }
 
 extern "C" const char* tpd_error_string(int code) {

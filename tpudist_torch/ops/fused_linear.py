@@ -19,6 +19,10 @@ from tpudist_torch.ops import _build
 
 #: LoRA ranks the CUDA kernel is instantiated for (``csrc/lora_delta.cu``)
 LORA_RANKS = (1, 2, 4, 8, 16, 32, 64)
+#: rows a slot up to which ``lora_delta`` takes the cluster arm (decode,
+#: the draft steps, the speculative verify's K + 1); ``csrc/lora_delta.cu``
+#: kDecodeRows
+LORA_DECODE_ROWS = 8
 
 
 def _declare_rope(lib) -> None:
@@ -30,8 +34,29 @@ def _declare_rope(lib) -> None:
 
 def _declare_lora(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpd_lora_delta.argtypes = [p] * 5 + [i] * 8 + [p]
+    lib.tpd_lora_delta.argtypes = [p] * 5 + [i] * 9 + [p]
     lib.tpd_lora_delta.restype = i
+    lib.tpd_lora_max_clusters.argtypes = [i, ctypes.POINTER(i)]
+    lib.tpd_lora_max_clusters.restype = i
+
+
+def _lora_arm(T: int) -> str:
+    """``lora_delta``'s CUDA arm for ``T`` rows a slot: ``"cluster"`` (one
+    thread-block cluster a slot splitting the factors, its partial sums
+    meeting in distributed shared memory) up to :data:`LORA_DECODE_ROWS`,
+    ``"staged"`` (A staged through shared memory, 16 rows a CTA) past it."""
+    return "cluster" if T <= LORA_DECODE_ROWS else "staged"
+
+
+def lora_max_active_clusters(S: int = 8) -> int:
+    """How many clusters of ``lora_delta``'s cluster arm (bf16, rank 8, a
+    grid for ``S`` slots) the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _build.load("lora_delta", _declare_lora)
+    n = ctypes.c_int(0)
+    _build.check(lib, lib.tpd_lora_max_clusters(S, ctypes.byref(n)),
+                 "lora_delta cluster occupancy")
+    return n.value
 
 
 def _check_qkv_args(h, w, offsets, extra, on, n_heads, n_kv, dh):
@@ -166,7 +191,10 @@ def lora_delta(x, pool_a, pool_b, ids, *, layer: int):
     - ``ids [S]`` int32 — per-slot adapter blocks (the sentinel ``B``
       clamps to ``B - 1``; the caller's ``on`` select discards it).
 
-    Returns ``[S, T, d_out]`` in ``x``'s dtype."""
+    Returns ``[S, T, d_out]`` in ``x``'s dtype.  On CUDA, ``T`` up to
+    :data:`LORA_DECODE_ROWS` takes the cluster arm (:func:`_lora_arm`;
+    ``lora_delta.launches_cluster`` counts it), longer ``T`` the staged
+    kernel."""
     if x.dim() != 3 or pool_a.dim() != 4 or pool_b.dim() != 4:
         raise ValueError("x must be [S, T, d_in], the pools [L, B, ...]")
     S, T, d_in = x.shape
@@ -198,22 +226,38 @@ def lora_delta(x, pool_a, pool_b, ids, *, layer: int):
             raise ValueError(f"tensor on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError("lora_delta takes contiguous tensors")
+    return _launch_lora(_lora_arm(T), x, pool_a, pool_b, ids, layer)
+
+
+def _launch_lora(arm: str, x, pool_a, pool_b, ids, layer: int):
+    """Launch ``lora_delta``'s kernel on ``arm`` (``"cluster"`` or
+    ``"staged"``) for arguments :func:`lora_delta` has checked; only
+    ``chip_smoke.py`` and the CUDA tests force an arm."""
+    S, T, d_in = x.shape
+    B, r, d_out = pool_a.shape[1], pool_a.shape[3], pool_b.shape[-1]
+    if arm not in ("cluster", "staged") or (
+            arm == "cluster" and T > LORA_DECODE_ROWS):
+        raise ValueError(f"no lora_delta arm {arm!r} for T {T}")
     out = torch.empty(S, T, d_out, dtype=x.dtype, device=x.device)
     if S * T * d_out == 0:
         return out
     lib = _build.load("lora_delta", _declare_lora)
     ptr = _build.ptr
+    cluster = arm == "cluster"
     rc = lib.tpd_lora_delta(ptr(x), ptr(pool_a), ptr(pool_b), ptr(ids),
                             ptr(out), S, T, d_in, d_out, B, r, layer,
-                            _build.dtype_code(x.dtype),
+                            _build.dtype_code(x.dtype), int(cluster),
                             _build.stream_of(x.device))
     _build.check(lib, rc, "lora_delta")
     lora_delta.launches += 1
+    lora_delta.launches_cluster += cluster
     return out
 
 
-#: kernel launches since the last reset (the main path's proof of use)
+#: kernel launches since the last reset (the main path's proof of use), and
+#: those of them on the cluster arm
 lora_delta.launches = 0
+lora_delta.launches_cluster = 0
 
 
 def lora_delta_reference(x, pool_a, pool_b, ids, *, layer: int):
