@@ -48,10 +48,17 @@ order; any failure exits non-zero:
    speculative verify's T 5 and prefill T 64, rank 8, lane ids mixing
    adapters, base lanes and the sentinel), a GQA case, a rope-off ragged
    case and f32 cases (:func:`linear_agreement`: elementwise, per row and
-   over the tensor), timed as in phase 3 beside the unfused chain
-   ``fused_rope=False`` runs; ``lora_delta``'s cluster arm (decode and
-   verify) also beside the staged kernel it replaced there, in turns, and
-   the card's ``cudaOccupancyMaxActiveClusters`` for it;
+   over the tensor), ``fused_rope_qkv`` on the arm ``_rope_arm`` picks
+   (its counters must show that arm) and, for bf16, on the mma.sync arm
+   too, with the split and wgmma arms' edges (the verify's T 5, ragged S 3
+   x T 5 under GQA, 64 rows, 65 rows at head dim 64); timed as in phase 3
+   beside the unfused chain ``fused_rope=False`` runs and ``F.linear`` of
+   the product alone; ``fused_rope_qkv``'s split arm (decode, the T 5
+   verify) and wgmma arm (prefill) beside the mma.sync arm they replaced,
+   and ``lora_delta``'s cluster arm (decode and verify) beside the staged
+   kernel it replaced, in turns; an empty kernel's time (one CTA, and the
+   split arm's grid of clusters: the timer's floor); the card's
+   ``cudaOccupancyMaxActiveClusters`` for both cluster arms;
 3d. the residual prep of the speculative verify against its plain version
    at ``[8, 4, 256]`` (temperatures 0, 0.7, 1.3, an empty-residual row),
    ``[8, 2, 17]``, ``[8, 4, 32000]`` and a bf16 input
@@ -73,8 +80,10 @@ order; any failure exits non-zero:
    ``fused_rope``, ``adapters`` and ``lora_kernel`` on, 4 adapters of rank
    8 loaded, 16 greedy requests of which a third are base lanes;
    ``fused_rope_qkv`` must launch once and ``lora_delta`` three times per
-   layer and forward (its cluster arm serving the decode launches, the
-   staged arm the prefill chunks), every base lane must equal the same
+   layer and forward (``fused_rope_qkv``'s split arm serving every decode
+   forward and its wgmma arm every prefill chunk; ``lora_delta``'s cluster
+   arm the decode launches, the staged arm the prefill chunks), every
+   base lane must equal the same
    request on the server without adapters and every adapter lane must
    differ from it, or
    equal it only where the CPU f32 path shows the adapter acting and the
@@ -91,7 +100,9 @@ order; any failure exits non-zero:
    logits (:func:`hold_greedy_streams`);
 4d. the same on phase 4b's adapter server and traffic (every lane greedy,
    held against phase 4b's streams; ``fused_rope_qkv`` and ``lora_delta``
-   once / three times a layer of every target and draft forward);
+   once / three times a layer of every target and draft forward, every
+   decode, draft and verify forward on ``fused_rope_qkv``'s split arm and
+   every prefill chunk on its wgmma arm);
 5. where the time goes: one admission prefill and one decode block of the
    same model under ``torch.profiler`` (device busy time, idle share, the
    heaviest kernels), on phase 4's engine and on phase 4b's; 5c: one
@@ -207,9 +218,10 @@ LORA_IDS = [0, 8, 1, 8, 2, 3, 8, 0]  # 8 = the sentinel of an 8-block pool
 # the bounds sit above the H100's readings over the phase's cases: bf16
 # 3.6e-3, 4.2e-3 and 2.4e-4 (the LoRA prefill products: the plain version's
 # cuBLAS sums the 4096-deep intermediate in another order and rounds it to
-# bf16 one step apart; fused_rope_qkv reads 0 — bit for bit), f32 1.3e-6,
-# 1.6e-6 and 3.2e-7.  A missed delta or a wrong rotation angle moves whole
-# rows by 0.1 or more.
+# bf16 one step apart; fused_rope_qkv's split arm sums the depth in 8
+# slices and reads 3.1e-3, 1.4e-3 and 1.2e-4, its wgmma and mma.sync arms
+# 0 — bit for bit), f32 1.3e-6, 1.6e-6 and 3.2e-7.  A missed delta or a
+# wrong rotation angle moves whole rows by 0.1 or more.
 LINEAR_BOUNDS = {"bf16": (2 ** -7, 2 ** -7, 2 ** -10),
                  "f32": (1e-5, 1e-5, 2e-6)}
 # gradient agreement, bf16 kernel path vs f32 plain path on the same batch
@@ -1289,17 +1301,28 @@ def unfused_qkv(torch, h, w, offsets, extra, on, nh, n_kv, dh):
 def check_fused_linear(torch, dev):
     """Phase 3c: both kernels against their plain versions at the main
     path's shapes (decode T 1, the verify's T 5, prefill T 64, 8 slots, d
-    1024, rank 8), a GQA case, a rope-off ragged case and f32 cases; then
-    timed as in phase 3, ``lora_delta``'s cluster arm also beside the
-    staged arm on the same inputs, in turns."""
+    1024, rank 8), a GQA case, a rope-off ragged case and f32 cases, each
+    ``fused_rope_qkv`` case on the arm ``_rope_arm`` picks and the bf16
+    ones also on the mma.sync arm; then timed as in phase 3:
+    ``fused_rope_qkv``'s split and wgmma arms beside the mma.sync arm they
+    replaced and ``lora_delta``'s cluster arm beside the staged arm, on the
+    same inputs, in turns; ``F.linear`` of the qkv product alone; an empty
+    kernel (the timer's floor for a tiny launch and for the split arm's
+    grid); and the card's ``cudaOccupancyMaxActiveClusters`` for both
+    cluster arms."""
+    import torch.nn.functional as F
+
     from tpudist_torch import ops
     from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS,
-                                                _launch_lora,
-                                                fused_rope_qkv,
+                                                ROPE_SPLIT_COLS,
+                                                ROPE_SPLIT_KS, _launch_empty,
+                                                _launch_lora, _launch_rope,
+                                                _rope_arm, fused_rope_qkv,
                                                 fused_rope_qkv_reference,
                                                 lora_delta,
                                                 lora_delta_reference,
-                                                lora_max_active_clusters)
+                                                lora_max_active_clusters,
+                                                rope_max_active_clusters)
 
     gen = torch.Generator(device=dev).manual_seed(5678)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -1318,20 +1341,39 @@ def check_fused_linear(torch, dev):
         ("f32 GQA, bool mask", 5, 9, 4, 2, 64, f32, True, True,
          [0, 3, 11, 100, 2000]))
     worst = {"fused_rope_qkv": 0.0, "lora_delta": 0.0}
-    for name, S, T, nh, n_kv, dh, dtype, rope, extra, offs in qkv_cases:
+
+    def hold_qkv(name, S, T, nh, n_kv, dh, dtype, rope, extra, offs, g,
+                 on_bool):
         dt = "bf16" if dtype == bf16 else "f32"
-        args = qkv_inputs(torch, dev, gen, S, T, nh, n_kv, dh, dtype, offs,
-                          extra, on_bool=dtype == f32)
+        args = qkv_inputs(torch, dev, g, S, T, nh, n_kv, dh, dtype, offs,
+                          extra, on_bool=on_bool)
         kw = dict(n_heads=nh, n_kv=n_kv, dh=dh, rope=rope)
-        out = fused_rope_qkv(*args, **kw)
         ref = fused_rope_qkv_reference(*args, **kw)
+        arm = _rope_arm(S * T, dh, nh * dh, dtype)
+        ops.reset_launch_counts()
+        outs = {arm: fused_rope_qkv(*args, **kw)}
+        ran = {a: getattr(fused_rope_qkv, f"launches_{a}")
+               for a in ("split", "wgmma")}
+        if ran.get(arm, 1) != 1 or sum(ran.values()) != (arm in ran):
+            raise AssertionError(f"fused_rope_qkv {name}: launched {ran}, "
+                                 f"the plan says {arm}")
+        if dtype == bf16 and arm != "mma":  # the arm the new ones replaced
+            outs["mma"] = _launch_rope("mma", *args, **kw)
         torch.cuda.synchronize()
-        for part, a, b in zip("qkv", out, ref):
-            r = linear_close(torch, a, b, dt, f"fused_rope_qkv {name} {part}")
-            readings[f"fused_rope_qkv {name} {part}"] = r
-            worst["fused_rope_qkv"] = max(worst["fused_rope_qkv"],
-                                          r["max_abs_err"])
-        log(f"fused_rope_qkv {name}: agrees")
+        for a, out in outs.items():
+            for part, x, y in zip("qkv", out, ref):
+                key = f"fused_rope_qkv {name} {part}" + (
+                    " (mma arm)" if a != arm else "")
+                r = linear_close(torch, x, y, dt, key)
+                readings[key] = r
+                worst["fused_rope_qkv"] = max(worst["fused_rope_qkv"],
+                                              r["max_abs_err"])
+        log(f"fused_rope_qkv {name}: agrees on the {arm} arm"
+            + (" and the mma arm" if len(outs) > 1 else ""))
+
+    for name, S, T, nh, n_kv, dh, dtype, rope, extra, offs in qkv_cases:
+        hold_qkv(name, S, T, nh, n_kv, dh, dtype, rope, extra, offs, gen,
+                 dtype == f32)
     # (name, S, T, d_in, d_out, dtype, rank, ids)
     # (the cases added later come last, so the earlier ones keep the draws
     # of the generator they were read against)
@@ -1358,21 +1400,40 @@ def check_fused_linear(torch, dev):
             worst["lora_delta"] = max(worst["lora_delta"], r["max_abs_err"])
         log(f"lora_delta {name}: agrees")
 
+    # the split and wgmma arms' own edges, on a generator of their own (the
+    # cases above keep the draws they were read against): the verify's T
+    # 5, a ragged S 3 x T 5 under GQA with a bool mask, the split arm's
+    # last row count (64) and the wgmma arm's first (65, a row tile cut
+    # mid-slot) at head dim 64
+    gen2 = torch.Generator(device=dev).manual_seed(5679)
+    for name, S, T, nh, n_kv, dh, rope, extra, offs, on_bool in (
+            ("verify T 5", SLOTS, SPEC_K + 1, HEADS, HEADS, DH, True, True,
+             DECODE_OFFS, False),
+            ("split GQA 8/2, S 3 x T 5", 3, 5, HEADS, 2, DH, True, True,
+             [7, 1999, 64], True),
+            ("split 64 rows, rope off", 4, 16, HEADS, 2, DH, False, True,
+             [0, 3, 5, 9], False),
+            ("wgmma 65 rows, dh 64", 5, 13, 16, 4, 64, True, True,
+             [0, 100, 1000, 5, 17], False)):
+        hold_qkv(name, S, T, nh, n_kv, dh, bf16, rope, extra, offs, gen2,
+                 on_bool)
+
     for kname in ADAPTER_KERNELS:
         rs = [r for k, r in readings.items() if k.startswith(kname)]
         log(f"{kname} readings, worst over {len(rs)} outputs: "
             + ", ".join(f"{m} {max(r[m] for r in rs):.3g}"
                         for m in ("worst_elem", "worst_row", "rel_rms")))
     rec, timings = {}, {}
+    d, dtot = HEADS * DH, 3 * HEADS * DH
     for label, T, offs in (("decode", 1, DECODE_OFFS),
-                           ("prefill", P, PREFILL_OFFS)):
+                           ("prefill", P, PREFILL_OFFS),
+                           ("verify", SPEC_K + 1, DECODE_OFFS)):
         args = qkv_inputs(torch, dev, gen, SLOTS, T, HEADS, HEADS, DH, bf16,
                           offs)
         kw = dict(n_heads=HEADS, n_kv=HEADS, dh=DH)
-        d, dtot = HEADS * DH, 3 * HEADS * DH
         rows = SLOTS * T
         nbytes = 2 * (d * dtot + rows * d + 2 * rows * dtot) + SLOTS * 8
-        timings[f"fused_rope_qkv {label}"] = dict(
+        t = timings[f"fused_rope_qkv {label}"] = dict(
             ms=time_ms(torch, lambda: fused_rope_qkv(*args, **kw), flush),
             host_ms=time_ms(torch, lambda: fused_rope_qkv(*args, **kw),
                             flush, spin=False),
@@ -1381,6 +1442,26 @@ def check_fused_linear(torch, dev):
             unfused_ms=time_ms(torch, lambda: unfused_qkv(
                 torch, *args, HEADS, HEADS, DH), flush),
             bound=bound(nbytes, 2 * rows * d * dtot, H100_BF16_FLOPS))
+        # the product alone through one PyTorch call: a yardstick for the
+        # product, not for the function (no single call adds the delta and
+        # rotates)
+        wt = args[1].t()
+        t["linear_ms"] = time_ms(torch, lambda: F.linear(args[0], wt), flush)
+        # the new arm and the mma.sync arm it replaced, in turns
+        arm = _rope_arm(rows, DH, d, bf16)
+        t["arm"], t["arm_ms"] = arm, {"mma": [], arm: []}
+        for a in ("mma", arm, arm, "mma"):
+            t["arm_ms"][a].append(time_ms(torch, lambda: _launch_rope(
+                a, *args, **kw), flush))
+    # the timer's floor: an empty kernel of one CTA, and one of the split
+    # arm's grid at decode (clusters of ROPE_SPLIT_KS CTAs)
+    split_ctas = ROPE_SPLIT_KS * dtot // ROPE_SPLIT_COLS
+    floor = dict(one_cta=time_ms(torch, lambda: _launch_empty(1), flush),
+                 split_grid=time_ms(torch, lambda: _launch_empty(
+                     split_ctas, True), flush), split_ctas=split_ctas)
+    log(f"timer floor (time_ms of an empty kernel): one CTA "
+        f"{floor['one_cta']:.4f} ms, {split_ctas} CTAs in clusters of "
+        f"{ROPE_SPLIT_KS} {floor['split_grid']:.4f} ms")
     for label, T, d_in, d_out in (("qkv decode", 1, 1024, 3072),
                                   ("wi decode", 1, 1024, 4096),
                                   ("wo decode", 1, 4096, 1024),
@@ -1410,11 +1491,19 @@ def check_fused_linear(torch, dev):
     log(f"lora_delta cluster arm: at most {clusters} clusters of 8 CTAs "
         f"resident at once (cudaOccupancyMaxActiveClusters; {SLOTS} a "
         f"call)")
+    rope_clusters = {rows: rope_max_active_clusters(rows, d, dtot)
+                     for rows in (SLOTS, SLOTS * (SPEC_K + 1))}
+    log(f"fused_rope_qkv split arm: at most {rope_clusters} clusters of "
+        f"{ROPE_SPLIT_KS} CTAs resident at once by rows "
+        f"(cudaOccupancyMaxActiveClusters; {dtot // ROPE_SPLIT_COLS} a "
+        f"call)")
     for name, t in timings.items():
         log(f"kernel {name}: {t['ms']:.4f} ms (with host launch "
             f"{t['host_ms']:.4f} ms; plain {t['plain_ms']:.4f} "
             f"ms" + (f", unfused chain {t['unfused_ms']:.4f} ms"
                      if "unfused_ms" in t else "")
+            + (f", F.linear of the product alone {t['linear_ms']:.4f} ms"
+               if "linear_ms" in t else "")
             + (f"; arms in turns {t['arm_ms']}" if "arm_ms" in t else "")
             + f", bound {t['bound'][0]:.5f} ms by {t['bound'][1]})")
     for name, src, replaces, key in (
@@ -1428,10 +1517,18 @@ def check_fused_linear(torch, dev):
                          plain_ms=t["plain_ms"], library_ms=None,
                          bound=t["bound"])
     rec["lora_delta"]["arm_ms"] = timings["lora_delta wi decode"]["arm_ms"]
+    # each arm at its own main-path shape: split and the mma.sync arm at
+    # decode, wgmma at prefill
+    dec, pre = (timings[f"fused_rope_qkv {k}"] for k in ("decode", "prefill"))
+    rec["fused_rope_qkv"]["arm_ms"] = {
+        "split": dec["arm_ms"]["split"], "mma": dec["arm_ms"]["mma"],
+        "wgmma": pre["arm_ms"]["wgmma"]}
     del flush
     ops.reset_launch_counts()
     return rec, dict(timings=timings, readings=readings,
-                     lora_max_active_clusters=clusters)
+                     lora_max_active_clusters=clusters,
+                     rope_max_active_clusters=rope_clusters,
+                     timer_floor_ms=floor)
 
 
 # ---------------------------------------------------------------------------
@@ -1711,6 +1808,8 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         decode_tc = ops.paged_attention.launches_tc
+        rope_arms = {"split": ops.fused_rope_qkv.launches_split,
+                     "wgmma": ops.fused_rope_qkv.launches_wgmma}
         stats = server.stats()
     finally:
         server.close(60)
@@ -1743,6 +1842,17 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
                 f"{name} launched {counts[name]} times, want {n} ({blocks} "
                 f"spec blocks, {tf} target / {df} draft forwards, {t_dec} / "
                 f"{d_dec} of them on the decode arm)")
+    # every decode, draft and verify forward on fused_rope_qkv's split arm,
+    # every prefill chunk on its wgmma arm
+    want_arms = ({"split": LAYERS * t_dec + d_layers * d_dec,
+                  "wgmma": LAYERS * (tf - t_dec) + d_layers * (df - d_dec)}
+                 if on else {"split": 0, "wgmma": 0})
+    if rope_arms != want_arms:
+        raise AssertionError(
+            f"fused_rope_qkv's arms served {rope_arms} of "
+            f"{counts['fused_rope_qkv']} launches (want {want_arms}: "
+            f"{t_dec} / {d_dec} target / draft decode-arm forwards of {tf} "
+            f"/ {df})")
     if not all(counts[name] > 0 for name in SERVE_KERNELS):
         raise AssertionError(f"a serving kernel was not launched: {counts}")
     streams = [h.tokens for h in handles]
@@ -1761,7 +1871,7 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
         spec_blocks=blocks, target_forwards=tf, draft_forwards=df,
         greedy_lanes_equal=f"{equal}/{len(greedy)}", near_ties=ties,
         spec=spec, launches=counts, decode_tc_launches=decode_tc,
-        decode=dec,
+        rope_arm_launches=rope_arms, decode=dec,
         base={k: base[k] for k in ("tokens_per_s", "ttft_p50_ms",
                                    "tpot_p50_ms")})
 
@@ -1840,7 +1950,7 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
     import numpy as np
 
     from tpudist_torch import ops
-    from tpudist_torch.ops import lora_delta
+    from tpudist_torch.ops import fused_rope_qkv, lora_delta
     from tpudist_torch.serve import InferenceServer, ServeConfig
 
     rng = np.random.default_rng(gen_seed)
@@ -1865,6 +1975,7 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
             torch.cuda.synchronize()
             ops.reset_launch_counts()
             fw0 = server.engine.n_forwards
+            st0 = server.engine.n_decode_steps
             t0 = time.perf_counter()
             server.start()
             for h in handles:
@@ -1874,7 +1985,10 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
             wall = time.perf_counter() - t0
             counts = ops.launch_counts()
             cluster = lora_delta.launches_cluster
+            rope_arms = {"split": fused_rope_qkv.launches_split,
+                         "wgmma": fused_rope_qkv.launches_wgmma}
             forwards = server.engine.n_forwards - fw0
+            steps = server.engine.n_decode_steps - st0
             stats = server.stats()
         finally:
             server.close(60)
@@ -1890,7 +2004,8 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
             tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
             ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
             tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
-            forwards=forwards, launches=counts, lora_cluster_launches=cluster,
+            forwards=forwards, decode_forwards=steps, launches=counts,
+            lora_cluster_launches=cluster, rope_arm_launches=rope_arms,
             decode=stats["decode"], adapters=stats["adapters"])
 
     main = run(fused=True, adapters=True)
@@ -1900,6 +2015,14 @@ def serve_adapter_path(torch, model, gen_seed: int, cpu_model) -> dict:
             f"{fw} forwards of {L} layers launched fused_rope_qkv "
             f"{c['fused_rope_qkv']} and lora_delta {c['lora_delta']} times "
             f"(want {L * fw} and {3 * L * fw})")
+    # every decode forward on the split arm, every prefill chunk on wgmma
+    dec = main["decode_forwards"]
+    want = {"split": L * dec, "wgmma": L * (fw - dec)}
+    if main["rope_arm_launches"] != want or not 0 < dec < fw:
+        raise AssertionError(
+            f"fused_rope_qkv's arms served {main['rope_arm_launches']} of "
+            f"{c['fused_rope_qkv']} launches over {dec} decode and "
+            f"{fw - dec} prefill forwards (want {want})")
     if not all(c[name] > 0 for name in SERVE_KERNELS):
         raise AssertionError(f"a serving kernel was not launched: {c}")
     if not 0 < main["lora_cluster_launches"] < c["lora_delta"]:
@@ -2388,7 +2511,9 @@ def main(argv=None) -> int:
         f"{ad_path['wall_s']:.3f} s = {ad_path['tokens_per_s']:.1f} "
         f"tokens/s, TTFT p50 {ad_path['ttft_p50_ms']:.2f} ms, TPOT p50 "
         f"{ad_path['tpot_p50_ms']:.3f} ms ({card}); {ad_path['forwards']} "
-        f"forwards, launches {ad_path['launches']}; base lanes equal the "
+        f"forwards ({ad_path['decode_forwards']} decode), launches "
+        f"{ad_path['launches']}, fused_rope_qkv by arm "
+        f"{ad_path['rope_arm_launches']}; base lanes equal the "
         f"server without adapters "
         f"({ad_path['base_lanes_equal_no_adapter_engine']}), adapter lanes "
         f"differ ({ad_path['adapter_lanes_differ']}); base "
@@ -2512,7 +2637,14 @@ def main(argv=None) -> int:
             {a: mean(t) for a, t in lin_rec["lora_delta"]["arm_ms"].items()},
             {"cluster": ad_path["lora_cluster_launches"],
              "staged": launches["lora_delta"]
-             - ad_path["lora_cluster_launches"]})}
+             - ad_path["lora_cluster_launches"]}),
+        # split and mma at decode, wgmma at prefill
+        "fused_rope_qkv": (
+            {a: mean(t)
+             for a, t in lin_rec["fused_rope_qkv"]["arm_ms"].items()},
+            dict(ad_path["rope_arm_launches"],
+                 mma=launches["fused_rope_qkv"]
+                 - sum(ad_path["rope_arm_launches"].values())))}
     for name in TRAIN_KERNELS:
         wg = train["launches_wgmma"][name]
         arms[name] = ({"wgmma": mean(flash_rec[name]["arm_ms"]),

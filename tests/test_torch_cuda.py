@@ -77,7 +77,9 @@ from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
 from tpudist_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
                                                _launch_fwd)
 from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS, _launch_lora,
-                                            lora_max_active_clusters)
+                                            _launch_rope, _rope_arm,
+                                            lora_max_active_clusters,
+                                            rope_max_active_clusters)
 from tpudist_torch.ops.paged_attention import _paged_attention_on_arm
 from tpudist_torch.ops.paged_prefill import _paged_prefill_on_arm
 from tpudist_torch.train.__main__ import main as train_main
@@ -658,6 +660,77 @@ def test_fused_rope_qkv_matches_plain(cuda, case):
         assert r["ok"], r
 
 
+# the new arms' cases (S, T, heads, kv heads, head dim, rope, delta, bool
+# mask): the split arm at S·T 8 (decode), 40 (the T 5 verify), 64 (its
+# last row count), a ragged S 3 x T 5, GQA 8/2, rope off; the wgmma arm at
+# head dims 64 and 128, S·T 65 (a row tile cut mid-slot), 512 (prefill)
+# and 1000, GQA, rope off, with and without the delta
+ROPE_ARM_CASES = {
+    "split_decode_S8": ("split", 8, 1, 8, 8, 128, True, True, False),
+    "split_verify_T5": ("split", 8, 5, 8, 8, 128, True, True, True),
+    "split_64_rows": ("split", 4, 16, 8, 8, 128, True, True, False),
+    "split_ragged_3x5": ("split", 3, 5, 8, 8, 128, True, True, True),
+    "split_gqa_8_2": ("split", 8, 1, 8, 2, 128, True, True, False),
+    "split_norope_dh64": ("split", 8, 5, 8, 8, 64, False, True, True),
+    "split_no_delta": ("split", 6, 1, 4, 2, 64, True, False, False),
+    "wgmma_dh64_M65": ("wgmma", 5, 13, 8, 8, 64, True, True, False),
+    "wgmma_dh128_M65": ("wgmma", 5, 13, 8, 2, 128, True, True, True),
+    "wgmma_prefill_512": ("wgmma", 8, 64, 8, 8, 128, True, True, False),
+    "wgmma_gqa_M1000": ("wgmma", 8, 125, 8, 2, 128, True, True, True),
+    "wgmma_dh64_M1000_norope": ("wgmma", 8, 125, 4, 4, 64, False, True,
+                                False),
+    "wgmma_no_delta": ("wgmma", 4, 70, 8, 8, 128, True, False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROPE_ARM_CASES))
+def test_fused_rope_qkv_arm_matches_plain_and_mma(cuda, case):
+    """The split and wgmma arms, as the plan picks them, against the plain
+    version and against the forced mma.sync arm they replaced; the launch
+    counts by arm follow the plan."""
+    arm, S, T, nh, n_kv, dh, rope, extra, on_bool = ROPE_ARM_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    offs = [int(x) for x in np.random.default_rng(len(case)).integers(
+        0, 2000, size=S)]
+    args = qkv_inputs(torch, cuda, gen, S, T, nh, n_kv, dh, torch.bfloat16,
+                      offs, extra, on_bool)
+    kw = dict(n_heads=nh, n_kv=n_kv, dh=dh, rope=rope)
+    assert _rope_arm(S * T, dh, nh * dh, torch.bfloat16) == arm
+    reset_launch_counts()
+    out = fused_rope_qkv(*args, **kw)
+    mma = _launch_rope("mma", *args, **kw)
+    ref = fused_rope_qkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_rope_qkv"] == 2
+    assert fused_rope_qkv.launches_split == (arm == "split")
+    assert fused_rope_qkv.launches_wgmma == (arm == "wgmma")
+    for a, m, b in zip(out, mma, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert a.is_contiguous()
+        for other in (b, m):
+            r = linear_agreement(torch, a, other, "bf16")
+            assert r["ok"], r
+
+
+@pytest.mark.parametrize("T", [1, 5])
+def test_fused_rope_qkv_split_rows_do_not_depend_on_the_batch(cuda, T):
+    """A row's split-arm sum does not depend on S·T: each slot alone gives
+    the rows it gives among all eight, bit for bit (so the verify's rows
+    sum as the decode step's)."""
+    gen = torch.Generator(device=cuda).manual_seed(40 + T)
+    args = qkv_inputs(torch, cuda, gen, 8, T, 8, 8, 128, torch.bfloat16,
+                      [3, 70, 9, 1500, 0, 12, 640, 33])
+    kw = dict(n_heads=8, n_kv=8, dh=128)
+    q, k, v = _launch_rope("split", *args, **kw)
+    for s in (0, 5, 7):
+        one = [a[s:s + 1] if a is not None else None for a in args]
+        one[1] = args[1]
+        q1, k1, v1 = _launch_rope("split", *one, **kw)
+        assert torch.equal(q1[0], q[s]) and torch.equal(k1[0], k[s])
+        assert torch.equal(v1[0], v[s])
+    assert rope_max_active_clusters(8 * T, 1024, 3072) >= 1
+
+
 # (S, T, d_in, d_out, dtype, rank, ids) over an 8-block pool: 8 = sentinel
 LORA_CASES = {
     "decode_bf16_r8": (8, 1, 1024, 4096, torch.bfloat16, 8,
@@ -746,6 +819,10 @@ def test_fused_linear_wrong_inputs_raise(cuda):
                                         torch.bfloat16, [0, 1])
     with pytest.raises(ValueError, match="multiples of 32"):
         fused_rope_qkv(h48, w48, offs48, n_heads=4, n_kv=4, dh=48)
+    with pytest.raises(ValueError, match="arm"):  # 66 rows
+        _launch_rope("split", h.repeat(1, 11, 1), w, offs, **kw)
+    with pytest.raises(ValueError, match="arm"):
+        _launch_rope("f32", h, w, offs, **kw)
     x, a, b, ids = lora_inputs(torch, cuda, gen, 2, 3, 64, 32,
                                torch.bfloat16, 8, [0, 8])
     with pytest.raises(TypeError):

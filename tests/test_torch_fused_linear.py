@@ -6,6 +6,11 @@ them: S 3, T 4, 4 q heads, head dim 8, per-slot offsets 0 / 3 / 11, the
 delta on lanes 0 and 2) go through ``tpudist.ops.fused_linear`` and through
 the port's CPU path (the plain versions the wrappers run for CPU tensors).
 
+``_rope_qkv_split_reference``, the plain model of the CUDA split arm's
+depth sum, goes through the same comparison at S 3, T 1 and 5, d 256 and
+head dim 64; ``_rope_arm`` (the arm plan) and the constants it shares with
+``csrc/fused_rope_qkv.cu`` are held without a card.
+
 Tolerances:
 
 - ``fused_rope_qkv``: the JAX suite's own, ``atol = rtol = 1e-6`` (f32;
@@ -35,7 +40,15 @@ from tpudist_torch.ops import (fused_rope_qkv, fused_rope_qkv_reference,
                                lora_delta_reference, reset_launch_counts)
 from tpudist_torch.ops import _build
 from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS, LORA_RANKS,
-                                            _launch_lora, _lora_arm)
+                                            ROPE_ARMS, ROPE_SPLIT_COLS,
+                                            ROPE_SPLIT_KS,
+                                            ROPE_SPLIT_MAX_D,
+                                            ROPE_SPLIT_ROWS, ROPE_STAGES,
+                                            ROPE_TILE_ROWS,
+                                            ROPE_WGMMA_HEAD_DIMS,
+                                            _launch_lora, _launch_rope,
+                                            _lora_arm, _rope_arm,
+                                            _rope_qkv_split_reference)
 
 QKV_TOL = dict(atol=1e-6, rtol=1e-6)
 LORA_TOL = dict(atol=2e-6, rtol=2e-6)
@@ -125,6 +138,126 @@ def test_rope_qkv_bf16_rounds_like_the_unfused_arm():
     assert q.dtype == torch.bfloat16
     assert torch.equal(q, rope_rotate(q2, offset=_t(offs)))
     assert torch.equal(v, v2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("dh", [32, 64, 96, 128])
+@pytest.mark.parametrize("M", [1, 8, 40, 64, 65, 512])
+def test_rope_arm_by_rows_and_head_dim(M, dh, dtype):
+    """bf16 up to ``ROPE_SPLIT_ROWS`` rows (decode's 8, the T 5 verify's
+    40, 64) takes the split arm at head dims that hold whole
+    ``ROPE_SPLIT_COLS``-column blocks (64, 128); past it (a prefill
+    chunk's 512) the wgmma arm at head dims 64 and 128; the mma.sync arm
+    at the others (32, 96) whatever the rows; float32 always the f32 arm."""
+    arm = _rope_arm(M, dh, 1024, dtype)
+    if dtype == torch.float32:
+        assert arm == "f32"
+    elif dh not in (64, 128):
+        assert arm == "mma"
+    else:
+        assert arm == ("split" if M <= 64 else "wgmma")
+    if dtype == torch.bfloat16 and dh in (64, 128):  # too deep to split
+        assert _rope_arm(M, dh, 2 * ROPE_SPLIT_MAX_D, dtype) == "wgmma"
+
+
+def test_rope_constants_match_the_kernel_source():
+    """The split arm's rows, cluster size and depth limit, the wgmma arm's
+    tile rows, stages and head dims, and the arm codes are the kernel's."""
+    import re
+
+    src = (_build.CSRC / "fused_rope_qkv.cu").read_text()
+    for name, value in (("kSplitRows", ROPE_SPLIT_ROWS),
+                        ("kSplitKS", ROPE_SPLIT_KS),
+                        ("kSplitMaxDepth", ROPE_SPLIT_MAX_D),
+                        ("kSplitCols", ROPE_SPLIT_COLS),
+                        ("kWgRows", ROPE_TILE_ROWS),
+                        ("kWgStages", ROPE_STAGES)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    codes = dict(re.findall(r"kArm(\w+) = (\d+)",
+                            re.search(r"enum Arm[^}]*}", src).group()))
+    assert {k.lower(): int(v) for k, v in codes.items()} == {
+        arm: i for i, arm in enumerate(ROPE_ARMS)}
+    # the wgmma arm: one warpgroup a 64-wide slice of the head
+    assert ROPE_WGMMA_HEAD_DIMS == (64, 128)
+    assert "if (dh == 64) TPD_ROPE_WGMMA(1)" in src
+    assert "TPD_ROPE_WGMMA(2)" in src
+
+
+@pytest.mark.parametrize("n_kv", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("rope", [True, False], ids=["rope", "norope"])
+@pytest.mark.parametrize("with_extra", [False, True],
+                         ids=["base", "lora-extra"])
+@pytest.mark.parametrize("T", [1, 5], ids=["decode", "verify"])
+def test_rope_split_model_matches_jax(T, with_extra, rope, n_kv):
+    """The split arm's sum (``ROPE_SPLIT_KS`` depth slices of 32 at d 256,
+    f32 partials summed in rank order) against the interpreted Pallas
+    kernel and the JAX reference at decode (T 1) and the speculative
+    verify's T 5, at ``QKV_TOL``.  h and w lie on dyadic grids (steps 1/8
+    and 1/256), so every product and every partial or total sum over the
+    depth is exact in f32 whatever its order: the comparison holds the
+    slicing (each slice summed once), the rounding, the delta and the
+    rotation, not the order of 256 f32 additions, which alone moves
+    unit-scale outputs by ~1e-6."""
+    h, w, offs, extra, on, kw = _case(30 + T + 2 * with_extra + 4 * rope
+                                      + 8 * n_kv, T=T, nh=4, n_kv=n_kv,
+                                      dh=64)
+    h, w = np.round(h * 8) / 8, np.round(w * 256) / 256
+    e, o = (extra, on) if with_extra else (None, None)
+    jargs = [jnp.asarray(a) if a is not None else None
+             for a in (h, w, offs, e, o)]
+    refs = (jax_rope_qkv(*jargs, rope=rope, interpret=True, **kw),
+            jax_rope_qkv_reference(*jargs, rope=rope, **kw))
+    out = _rope_qkv_split_reference(_t(h), _t(w), _t(offs), _t(e), _t(o),
+                                    rope=rope, **kw)
+    assert [tuple(x.shape) for x in out] == [
+        (3, 4, T, 64), (3, n_kv, T, 64), (3, n_kv, T, 64)]
+    for ref in refs:
+        for a, b in zip(out, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **QKV_TOL)
+
+
+def test_rope_split_model_slices_the_depth_as_the_kernel():
+    """At d 64 (four 16-deep steps) only the first four of the eight ranks
+    hold a step; the model equals the plain version's f32 product there and
+    at d 256 (on the dyadic grids of the test above: exact sums), and
+    refuses a depth the kernel's steps do not cut."""
+    for d in (64, 256):
+        h, w, offs, extra, on, kw = _case(40 + d, nh=d // 64, n_kv=d // 64,
+                                          dh=64)
+        h, w = np.round(h * 8) / 8, np.round(w * 256) / 256
+        out = _rope_qkv_split_reference(_t(h), _t(w), _t(offs), _t(extra),
+                                        _t(on), **kw)
+        ref = fused_rope_qkv_reference(_t(h), _t(w), _t(offs), _t(extra),
+                                       _t(on), **kw)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, **QKV_TOL)
+    with pytest.raises(ValueError, match="16-deep"):
+        _rope_qkv_split_reference(torch.zeros(1, 1, 40), torch.zeros(40, 24),
+                                  torch.zeros(1, dtype=torch.int32),
+                                  n_heads=1, n_kv=1, dh=8)
+
+
+def test_rope_forced_arm_must_fit_the_shapes():
+    """Forcing an arm the shapes or the dtype do not fit raises before
+    anything launches: the split arm past ``ROPE_SPLIT_ROWS`` rows or at
+    head dim 32, the wgmma arm at head dim 32, a bf16 arm on float32 and
+    back, an unknown arm."""
+    def args(S, T, dh, dtype):
+        h = torch.zeros(S, T, 4 * dh, dtype=dtype)
+        return (h, torch.zeros(4 * dh, 12 * dh, dtype=dtype),
+                torch.zeros(S, dtype=torch.int32))
+
+    for arm, a in (("split", args(5, 13, 64, torch.bfloat16)),
+                   ("split", args(8, 1, 32, torch.bfloat16)),
+                   ("wgmma", args(3, 64, 32, torch.bfloat16)),
+                   ("mma", args(1, 1, 64, torch.float32)),
+                   ("split", args(1, 1, 64, torch.float32)),
+                   ("f32", args(1, 1, 64, torch.bfloat16)),
+                   ("tiled", args(1, 1, 64, torch.bfloat16))):
+        dh = a[0].shape[-1] // 4
+        with pytest.raises(ValueError, match="arm"):
+            _launch_rope(arm, *a, n_heads=4, n_kv=4, dh=dh)
 
 
 @pytest.mark.parametrize("ids", [[0, 5, 3], [5, 5, 5], [4, 0, 4]],

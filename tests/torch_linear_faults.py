@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Planted-fault readings of the LoRA and fused-MLP kernels' checks, on one
-NVIDIA card.
+"""Planted-fault readings of the RoPE+QKV, LoRA and fused-MLP kernels'
+checks, on one NVIDIA card.
 
 Run from the repository root on the GPU machine::
 
@@ -36,6 +36,7 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+ROPE = "tpudist_torch/csrc/fused_rope_qkv.cu"
 LORA = "tpudist_torch/csrc/lora_delta.cu"
 MLP = "tpudist_torch/csrc/fused_mlp.cu"
 KERNELS = ["lora_delta", "fused_rope_qkv", "fused_mlp"]
@@ -51,6 +52,17 @@ FAULTS = {
     "mlp_skips_last_row_of_thread": ([(
         MLP, "      if (!live[i]) continue;",
         "      if (!live[i] || i == R - 1) continue;")], ("3e",)),
+    # fused_rope_qkv's split arm sums the partials of every depth slice but
+    # rank 3's
+    "rope_split_drops_rank3": ([(
+        ROPE, "    for (int k = 1; k < kSplitKS; ++k) {  // in rank order\n",
+        "    for (int k = 1; k < kSplitKS; ++k) {  // in rank order\n"
+        "      if (k == 3) continue;\n")], ("3c",)),
+    # fused_rope_qkv's wgmma arm rotates each pair with the partner of the
+    # next accumulator block
+    "rope_wgmma_wrong_partner_block": ([(
+        ROPE, "    const int ip = i + NB / 2;",
+        "    const int ip = (i + NB / 2 + 1) % NB;")], ("3c",)),
 }
 
 

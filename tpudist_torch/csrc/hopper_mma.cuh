@@ -1,6 +1,7 @@
 // Hopper warpgroup matrix products (wgmma) and the shared-memory layout they
 // read, for the flash kernels' wgmma arms (flash_attention.cu,
-// flash_backward.cu); the host side of the TMA loads is tma_host.cuh.
+// flash_backward.cu) and the RoPE+QKV wgmma arm (fused_rope_qkv.cu); the
+// host side of the TMA loads is tma_host.cuh.
 //
 // A warpgroup is 4 consecutive warps (128 threads).  wgmma.mma_async
 // computes D[64 x N] += A[64 x 16] · B[16 x N] in f32, A from shared memory

@@ -1,6 +1,7 @@
 // Host side of the TMA tile loads of hopper_mma.cuh: the tensor maps of
 // [heads, rows, D] bf16 tensors, shared by the flash forward's and the
-// flash backward's wgmma arms (flash_attention.cu, flash_backward.cu).
+// flash backward's wgmma arms (flash_attention.cu, flash_backward.cu) and
+// the RoPE+QKV wgmma arm (fused_rope_qkv.cu).
 #pragma once
 
 #include <cuda.h>
@@ -37,17 +38,17 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a [heads, rows, D] bf16 tensor in boxes of 64 rows x 64
+// The map of a [heads, rows, D] bf16 tensor in boxes of box_rows rows x 64
 // columns with the 128-byte swizzle; rows past the end read as zeros.
 static bool tile_map(CUtensorMap* m, const void* p, int heads, int rows,
-                     int D) {
+                     int D, int box_rows = kTileRows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(bf16),
                                  (cuuint64_t)rows * D * sizeof(bf16)};
-  const cuuint32_t box[3] = {64, (cuuint32_t)kTileRows, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -56,15 +56,22 @@ from tpudist_torch.ops import (FlashAttention, fused_rope_qkv, lora_delta,
 _MASK_VALUE = -1e30
 
 
+def rope_freqs(half: int, base: float = 10000.0, device=None):
+    """The ``half`` rotation frequencies ``base ** (-j / half)`` in f32, as
+    :func:`rope_rotate` forms them (the fused RoPE+QKV kernel's split and
+    wgmma arms read this table)."""
+    expo = -torch.arange(half, dtype=torch.float32, device=device)
+    return torch.pow(torch.tensor(base, dtype=torch.float32, device=device),
+                     expo / torch.full_like(expo, half))
+
+
 def rope_rotate(x: torch.Tensor, base: float = 10000.0, offset=0):
     """Rotary embedding over ``[batch, heads, seq, head_dim]`` (GPT-NeoX
     half split, f32 angles).  ``offset`` is a scalar or a ``[batch]``
     vector of per-lane start positions."""
     half = x.shape[-1] // 2
     dev = x.device
-    expo = -torch.arange(half, dtype=torch.float32, device=dev)
-    freqs = torch.pow(torch.tensor(base, dtype=torch.float32, device=dev),
-                      expo / torch.full_like(expo, half))
+    freqs = rope_freqs(half, base, dev)
     off = torch.as_tensor(offset, device=dev).to(torch.float32)
     positions = off[..., None] + torch.arange(
         x.shape[-2], dtype=torch.float32, device=dev)

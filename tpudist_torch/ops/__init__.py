@@ -55,7 +55,8 @@ def reset_launch_counts() -> None:
     """Zero every wrapper's ``launches`` (and the per-arm counts: the paged
     prefill's ``launches_tc`` / ``launches_cc``, the paged decode's
     ``launches_tc``, the flash kernels' ``launches_wgmma``, the LoRA
-    kernel's ``launches_cluster``)."""
+    kernel's ``launches_cluster``, the RoPE+QKV kernel's
+    ``launches_split`` / ``launches_wgmma``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     paged_prefill_attention.launches_tc = 0
@@ -65,6 +66,8 @@ def reset_launch_counts() -> None:
     flash_backward_dq.launches_wgmma = 0
     flash_backward_dkv.launches_wgmma = 0
     lora_delta.launches_cluster = 0
+    fused_rope_qkv.launches_split = 0
+    fused_rope_qkv.launches_wgmma = 0
 
 
 __all__ = [

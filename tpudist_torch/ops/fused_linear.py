@@ -6,7 +6,8 @@ tensors the wrappers launch the hand-written Hopper kernels
 ``csrc/fused_rope_qkv.cu`` and ``csrc/lora_delta.cu`` (see their headers for
 the designs and what bounds them); on CPU tensors they run the plain
 versions :func:`fused_rope_qkv_reference` and :func:`lora_delta_reference`.
-Arguments keep the JAX package's layouts.
+:func:`_rope_qkv_split_reference` is the plain model of the RoPE+QKV split
+arm's depth sum, for the tests.  Arguments keep the JAX package's layouts.
 """
 
 from __future__ import annotations
@@ -17,6 +18,21 @@ import torch
 
 from tpudist_torch.ops import _build
 
+#: ``fused_rope_qkv``'s CUDA arms, by their code in
+#: ``csrc/fused_rope_qkv.cu`` (enum Arm)
+ROPE_ARMS = ("f32", "mma", "split", "wgmma")
+#: rows (S·T) up to which bf16 takes the split arm (kSplitRows), its CTAs a
+#: cluster, one depth slice each (kSplitKS), and the depth it takes at most
+#: (kSplitMaxDepth)
+ROPE_SPLIT_ROWS, ROPE_SPLIT_KS, ROPE_SPLIT_MAX_D = 64, 8, 8192
+#: output columns a split cluster owns (kSplitCols): half of them rotation
+#: pairs' first halves, half their partners, so the head dim must be a
+#: multiple of it
+ROPE_SPLIT_COLS = 64
+#: the wgmma arm's rows a CTA (kWgRows), its ring stages of 64-deep tiles
+#: (kWgStages) and the head dims it is instantiated for
+ROPE_TILE_ROWS, ROPE_STAGES = 64, 4
+ROPE_WGMMA_HEAD_DIMS = (64, 128)
 #: LoRA ranks the CUDA kernel is instantiated for (``csrc/lora_delta.cu``)
 LORA_RANKS = (1, 2, 4, 8, 16, 32, 64)
 #: rows a slot up to which ``lora_delta`` takes the cluster arm (decode,
@@ -27,9 +43,52 @@ LORA_DECODE_ROWS = 8
 
 def _declare_rope(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tpd_fused_rope_qkv.argtypes = [p] * 8 + [i] * 8 + [ctypes.c_float,
-                                                            i, p]
+    lib.tpd_fused_rope_qkv.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float,
+                                                            i, i, p]
     lib.tpd_fused_rope_qkv.restype = i
+    lib.tpd_rope_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.tpd_rope_max_clusters.restype = i
+    lib.tpd_rope_empty.argtypes = [i, i, p]
+    lib.tpd_rope_empty.restype = i
+
+
+def _rope_arm(M: int, dh: int, d: int, dtype) -> str:
+    """``fused_rope_qkv``'s CUDA arm for ``M = S·T`` rows of depth ``d`` at
+    head dim ``dh``: ``"f32"`` for float32; for bfloat16 ``"split"`` (the
+    depth split over a thread-block cluster, partial sums meeting in
+    distributed shared memory) up to :data:`ROPE_SPLIT_ROWS` rows and
+    :data:`ROPE_SPLIT_MAX_D` deep at head dims that are multiples of
+    :data:`ROPE_SPLIT_COLS`, else ``"wgmma"`` (64-row x one-head tiles over
+    a TMA ring) at head dims :data:`ROPE_WGMMA_HEAD_DIMS`, else ``"mma"``
+    (64 x 32 tiles on mma.sync)."""
+    if dtype == torch.float32:
+        return "f32"
+    if M <= ROPE_SPLIT_ROWS and d <= ROPE_SPLIT_MAX_D \
+            and dh % ROPE_SPLIT_COLS == 0:
+        return "split"
+    return "wgmma" if dh in ROPE_WGMMA_HEAD_DIMS else "mma"
+
+
+def rope_max_active_clusters(M: int = 8, d: int = 1024,
+                             dtot: int = 3072) -> int:
+    """How many clusters of ``fused_rope_qkv``'s split arm (``M`` rows,
+    depth ``d``, ``dtot`` output columns) the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _build.load("fused_rope_qkv", _declare_rope)
+    n = ctypes.c_int(0)
+    _build.check(lib, lib.tpd_rope_max_clusters(M, d, dtot, ctypes.byref(n)),
+                 "fused_rope_qkv cluster occupancy")
+    return n.value
+
+
+def _launch_empty(ctas: int = 1, cluster: bool = False):
+    """Launch an empty kernel of ``ctas`` CTAs (in clusters of
+    :data:`ROPE_SPLIT_KS` with ``cluster``) on the current CUDA stream: the
+    timer's floor for a launch of that grid (``chip_smoke.py`` only)."""
+    lib = _build.load("fused_rope_qkv", _declare_rope)
+    _build.check(lib, lib.tpd_rope_empty(ctas, int(cluster),
+                                         _build.stream_of("cuda")),
+                 "empty kernel")
 
 
 def _declare_lora(lib) -> None:
@@ -98,7 +157,9 @@ def fused_rope_qkv(h, w, offsets, extra=None, on=None, *, n_heads: int,
     - ``rope=False`` skips the rotation.
 
     Returns ``(q [S, n_heads, T, dh], k [S, n_kv, T, dh], v)``, contiguous,
-    in ``h``'s dtype, with q and k rotated."""
+    in ``h``'s dtype, with q and k rotated.  On CUDA the arm follows
+    :func:`_rope_arm`; ``fused_rope_qkv.launches_split`` and
+    ``.launches_wgmma`` count the split and wgmma arms."""
     S, T, d, dtot = _check_qkv_args(h, w, offsets, extra, on, n_heads, n_kv,
                                     dh)
     if h.device.type == "cpu":
@@ -122,35 +183,83 @@ def fused_rope_qkv(h, w, offsets, extra=None, on=None, *, n_heads: int,
     if d % 64:
         raise ValueError(f"fused_rope_qkv's CUDA kernel takes d_model a "
                          f"multiple of 64, not {d}")
+    for t in (h, offsets, extra, on, w):
+        if t is not None and t.device != h.device:
+            raise ValueError(f"tensor on {t.device}, h on {h.device}")
+        if t is not None and t is not w and not t.is_contiguous():
+            raise ValueError("fused_rope_qkv takes contiguous h, offsets, "
+                             "extra and on")
+    return _launch_rope(_rope_arm(S * T, dh, d, h.dtype), h, w, offsets,
+                        extra, on, n_heads=n_heads, n_kv=n_kv, dh=dh,
+                        base=base, rope=rope)
+
+
+_FREQS: dict = {}
+
+
+def _rope_freqs(half: int, base: float, device):
+    """The device's table of :func:`~tpudist_torch.models.transformer.
+    rope_freqs` for ``(half, base)``, formed once."""
+    key = (half, float(base), str(device))
+    if key not in _FREQS:
+        from tpudist_torch.models.transformer import rope_freqs
+
+        _FREQS[key] = rope_freqs(half, base, device)
+    return _FREQS[key]
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (the kernels read h and the weight 16 bytes at a time)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_rope(arm: str, h, w, offsets, extra=None, on=None, *,
+                 n_heads: int, n_kv: int, dh: int, base: float = 10000.0,
+                 rope: bool = True):
+    """Launch ``fused_rope_qkv``'s kernel on ``arm`` (one of
+    :data:`ROPE_ARMS`) for CUDA arguments :func:`fused_rope_qkv` has
+    checked; only ``chip_smoke.py`` and the CUDA tests force an arm.  An
+    arm the shapes or the dtype do not fit raises before any launch."""
+    S, T, d = h.shape
+    M, bf16 = S * T, h.dtype == torch.bfloat16
+    if arm not in ROPE_ARMS or (arm == "f32") == bf16 or (
+            arm == "split" and (M > ROPE_SPLIT_ROWS or d > ROPE_SPLIT_MAX_D
+                                or dh % ROPE_SPLIT_COLS)) or (
+            arm == "wgmma" and dh not in ROPE_WGMMA_HEAD_DIMS):
+        raise ValueError(f"no fused_rope_qkv arm {arm!r} for {h.dtype}, "
+                         f"S·T {M}, d {d}, head dim {dh}")
     wt = w.t()
     if not wt.is_contiguous():
         wt = wt.contiguous()
-    for t in (h, offsets, extra, on, wt):
-        if t is not None and t.device != h.device:
-            raise ValueError(f"tensor on {t.device}, h on {h.device}")
-        if t is not None and not t.is_contiguous():
-            raise ValueError("fused_rope_qkv takes contiguous h, offsets, "
-                             "extra and on")
+    h, wt, extra = _aligned(h), _aligned(wt), _aligned(extra)
+    freqs = (_rope_freqs(dh // 2, base, h.device)
+             if arm in ("split", "wgmma") else None)
     q = torch.empty(S, n_heads, T, dh, dtype=h.dtype, device=h.device)
     k = torch.empty(S, n_kv, T, dh, dtype=h.dtype, device=h.device)
     v = torch.empty_like(k)
-    if S * T == 0:
+    if M == 0:
         return q, k, v
     lib = _build.load("fused_rope_qkv", _declare_rope)
     ptr = _build.ptr
     rc = lib.tpd_fused_rope_qkv(
-        ptr(h), ptr(wt), ptr(offsets), ptr(extra), ptr(on), ptr(q), ptr(k),
-        ptr(v), S, T, d, n_heads, n_kv, dh,
+        ptr(h), ptr(wt), ptr(offsets), ptr(extra), ptr(on), ptr(freqs),
+        ptr(q), ptr(k), ptr(v), S, T, d, n_heads, n_kv, dh,
         int(on is not None and on.dtype == torch.bool), int(bool(rope)),
-        float(base), _build.dtype_code(h.dtype),
+        float(base), _build.dtype_code(h.dtype), ROPE_ARMS.index(arm),
         _build.stream_of(h.device))
     _build.check(lib, rc, "fused_rope_qkv")
     fused_rope_qkv.launches += 1
+    fused_rope_qkv.launches_split += arm == "split"
+    fused_rope_qkv.launches_wgmma += arm == "wgmma"
     return q, k, v
 
 
-#: kernel launches since the last reset (the main path's proof of use)
+#: kernel launches since the last reset (the main path's proof of use), and
+#: those of them on the split and on the wgmma arm
 fused_rope_qkv.launches = 0
+fused_rope_qkv.launches_split = 0
+fused_rope_qkv.launches_wgmma = 0
 
 
 def fused_rope_qkv_reference(h, w, offsets, extra=None, on=None, *,
@@ -160,12 +269,44 @@ def fused_rope_qkv_reference(h, w, offsets, extra=None, on=None, *,
     ``h``'s dtype, the ``on`` select of ``+ extra``, the head split and
     :func:`~tpudist_torch.models.transformer.rope_rotate` — the port's
     unfused arm composed as the JAX reference composes it."""
+    return _finish_qkv(torch.matmul(h, w), offsets, extra, on,
+                       n_heads=n_heads, n_kv=n_kv, dh=dh, base=base,
+                       rope=rope)
+
+
+def _rope_qkv_split_reference(h, w, offsets, extra=None, on=None, *,
+                              n_heads: int, n_kv: int, dh: int,
+                              base: float = 10000.0, rope: bool = True,
+                              ks: int = ROPE_SPLIT_KS):
+    """Plain model of the split arm's sum: the depth cut into ``ks`` slices
+    of whole 16-deep steps as ``csrc/fused_rope_qkv.cu`` cuts it (the last
+    slices shorter or empty), each slice's product in f32, the partials
+    summed in rank order and rounded to ``h``'s dtype once; then the delta,
+    the head split and the rotation of :func:`fused_rope_qkv_reference`."""
+    d = h.shape[-1]
+    if d % 16:
+        raise ValueError(f"the split arm cuts the depth in 16-deep steps, "
+                         f"not {d}")
+    per = -(-(d // 16) // ks)
+    acc = None
+    for r in range(ks):
+        k0, k1 = min(d, 16 * r * per), min(d, 16 * (r + 1) * per)
+        part = torch.matmul(h[..., k0:k1].float(), w[k0:k1].float())
+        acc = part if acc is None else acc + part
+    return _finish_qkv(acc.to(h.dtype), offsets, extra, on, n_heads=n_heads,
+                       n_kv=n_kv, dh=dh, base=base, rope=rope)
+
+
+def _finish_qkv(qkv, offsets, extra, on, *, n_heads: int, n_kv: int,
+                dh: int, base: float, rope: bool):
+    """The product's epilogue as the port's unfused arm composes it: the
+    ``on`` select of ``+ extra``, the head split and
+    :func:`~tpudist_torch.models.transformer.rope_rotate`."""
     from tpudist_torch.models.transformer import rope_rotate
 
-    S, T, _ = h.shape
-    qkv = torch.matmul(h, w)
+    S, T, _ = qkv.shape
     if extra is not None:
-        m = (torch.ones(S, dtype=torch.bool, device=h.device) if on is None
+        m = (torch.ones(S, dtype=torch.bool, device=qkv.device) if on is None
              else on != 0)
         qkv = torch.where(m[:, None, None], qkv + extra, qkv)
 
