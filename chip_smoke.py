@@ -11,8 +11,16 @@ order; any failure exits non-zero:
    slice's shapes (8 slots, dh 128, KV block 16, 128 blocks per lane, window
    8, chunk 64, vocab 256): bf16 and int8 pools, ragged cursors with partial
    blocks, sentinel table tails, ragged chunk lengths, a sliding window;
-   written int8 blocks must be byte-identical; the sampling filters top-k 5,
-   top-p 0.9, both, and ties (top-k exact, top-p within the stated margin).
+   written int8 blocks must be byte-identical.  The sampling prep
+   (:func:`check_sample`) on both arms (the row arm, one CTA a row; the
+   cluster arm, a thread-block cluster a row) at ``SAMPLE_CASES``: S 8 and
+   40 at vocab 256, 32000 and 50257, no filter, top-k 50, top-p 0.9 and
+   both, with and without grammar rows, on rows with ties straddling the
+   k-th value, a flat row, a temperature-0 row whose masked entries scale
+   to -inf and a row masked whole (masked, greedy and top-k exact, top-p
+   within the stated margin; each call one launch on its arm), every case
+   timed on every arm beside ``torch.topk`` and ``torch.sort`` of the
+   scaled row.
    The paged decode kernel also runs the speculative verify's call (q
    ``[8, 8, s, 128]``, s = 5 and 9, a K + 1 window at fill 0; bf16 and int8
    pools, ragged cursors, a window, GQA 8/2); every decode case runs on
@@ -60,9 +68,11 @@ order; any failure exits non-zero:
    split arm's grid of clusters: the timer's floor); the card's
    ``cudaOccupancyMaxActiveClusters`` for both cluster arms;
 3d. the residual prep of the speculative verify against its plain version
-   at ``[8, 4, 256]`` (temperatures 0, 0.7, 1.3, an empty-residual row),
-   ``[8, 2, 17]``, ``[8, 4, 32000]`` and a bf16 input
-   (:func:`residual_close`), timed as in phase 3;
+   on both arms at ``RESIDUAL_CASES``: ``[8, 4, 256]`` (temperatures 0,
+   0.7, 1.3, an empty-residual row, -inf entries), ``[8, 2, 17]``, ``[8, 4,
+   32000]`` f32 and bf16 and ``[8, 4, 256]`` bf16 (:func:`residual_close`;
+   each call one launch on its arm), timed as in phase 3 beside
+   ``torch.softmax`` of both inputs;
 3e. the fused toy-MLP kernel against its plain version (``MLP_CASES``: the
    toy model's weights at batches 256, 4096, a ragged 1000 and 2**20, and
    five 128-wide layers), within ``MLP_PLAIN_REL`` of it and
@@ -74,8 +84,9 @@ order; any failure exits non-zero:
    weights from a seed), 16 greedy requests with prompts of 1-300 tokens
    (chunked prefill) and 16-64 new tokens; every request must finish
    "length", every kernel's launch count (zeroed just before) must grow,
-   the paged prefill's tensor-core arm must serve every prefill launch and
-   the paged decode's split walk every decode launch;
+   the paged prefill's tensor-core arm must serve every prefill launch, the
+   paged decode's split walk every decode launch and the sampling prep's
+   planned arm at vocab 256 every sampling launch;
 4b. the adapter path: the same model and server geometry with
    ``fused_rope``, ``adapters`` and ``lora_kernel`` on, 4 adapters of rank
    8 loaded, 16 greedy requests of which a third are base lanes;
@@ -95,7 +106,8 @@ order; any failure exits non-zero:
    must finish "length"; ``fused_residual_prep`` must launch once a spec
    block and the paged decode kernel once a layer of every decode-arm
    forward (8 a target forward, 4 a draft forward), every launch on the
-   split walk; every greedy lane must
+   split walk, every sampling and residual prep launch on its planned arm;
+   every greedy lane must
    equal its phase-4 stream or leave it first at a near tie of the card's
    logits (:func:`hold_greedy_streams`);
 4d. the same on phase 4b's adapter server and traffic (every lane greedy,
@@ -188,6 +200,19 @@ FLASH_CASES = (("main path", 8, 8, 8, 2048, DH, "bf16", (0, None)),
 # products in different orders, each within ~128·2**-24 of that magnitude
 DELTA_REL_MAX = 1e-5
 SERVE_KERNELS = ("paged_attention", "paged_prefill", "fused_sample")
+# phase 3's sampling shapes (label, S, vocab, top_k, top_p): (a) the serving
+# main path, (b) the verify's 40 rows through sample_tail, (c) both filters
+# at vocab 256, (d)-(f) the long vocabularies of GPT-2-style and larger LMs
+SAMPLE_CASES = (("a", SLOTS, V, 0, 0.0), ("b", 40, V, 0, 0.0),
+                ("c", SLOTS, V, 50, 0.9), ("d", SLOTS, 32000, 0, 0.0),
+                ("e", SLOTS, 32000, 0, 0.9), ("f", SLOTS, 50257, 50, 0.9))
+# phase 3d's residual shapes (label, k, vocab, dtype): the verify's main
+# shape first
+RESIDUAL_CASES = (("[8, 4, 256] f32", 4, V, "float32"),
+                  ("[8, 2, 17] f32", 2, 17, "float32"),
+                  ("[8, 4, 32000] f32", 4, 32000, "float32"),
+                  ("[8, 4, 32000] bf16", 4, 32000, "bfloat16"),
+                  ("[8, 4, 256] bf16", 4, V, "bfloat16"))
 TRAIN_KERNELS = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 ADAPTER_KERNELS = ("fused_rope_qkv", "lora_delta")
 # the adapter-serving path (phases 3c, 4b, 5b): ServeConfig's pool (8 blocks
@@ -543,8 +568,6 @@ def decode_readings(torch, dev, gen) -> dict:
 
 def check_kernels(torch, dev):
     from tpudist_torch import ops
-    from tpudist_torch.ops.fused_sample import (fused_sample_prep,
-                                                fused_sample_reference)
     from tpudist_torch.ops.paged_attention import (_paged_attention_on_arm,
                                                    paged_attention,
                                                    paged_attention_reference)
@@ -717,43 +740,6 @@ def check_kernels(torch, dev):
         write_ms=arm_rec["cc"]["split"][cc[1]],
         cc_max_abs_err=cc_err, arms=arm_rec, long_lanes_ms=long_ms)
 
-    # -- row 3: fused sampling prep
-    err = 0.0
-    lg = torch.randn(SLOTS, V, generator=gen, device=dev)
-    lg[0, [3, 9, 200]] = 10.0  # tied maxima: lowest index wins
-    lg[1] = 0.0
-    temps = torch.tensor([0, 0.7, 1.3, 0, 2, 0.5, 0, 1], device=dev)
-    gallow = torch.rand(3, 5, V, generator=gen, device=dev) > 0.3
-    gallow[2] = True
-    gidx = torch.tensor([0, 2, 1, 2, 0, 1, 2, 0], dtype=torch.int32,
-                        device=dev)
-    gstate = torch.tensor([1, 0, 3, 4, 2, 0, 1, 4], dtype=torch.int32,
-                          device=dev)
-    for a in ((lg, temps), (lg, temps, gallow, gidx, gstate)):
-        out = fused_sample_prep(*a)
-        ref = fused_sample_reference(*a)
-        for x, y in zip(out, ref):
-            if not torch.equal(x, y):
-                raise AssertionError("fused_sample_prep differs from its "
-                                     "plain version")
-    if int(out[2][1]) != 0 or int(fused_sample_prep(lg, temps)[2][0]) != 3:
-        raise AssertionError("arg-max ties must pick the lowest index")
-    lgf = lg.clone()
-    lgf[2, :12] = 3.0  # ties straddling the k-th value
-    lgf[3] = 0.5  # a flat row
-    for tk, tp in ((5, 0.0), (0, 0.9), (5, 0.9), (12, 0.0)):
-        for a in ((lgf, temps), (lgf, temps, gallow, gidx, gstate)):
-            check_filters(torch, fused_sample_prep(*a, top_k=tk, top_p=tp),
-                          fused_sample_reference(*a, top_k=tk, top_p=tp),
-                          fused_sample_reference(*a, top_k=tk)[1], tp)
-    nbytes = SLOTS * V * 4 * 3 + SLOTS * 4 * 2
-    rec["fused_sample"] = dict(
-        route="cuda", source="tpudist_torch/csrc/fused_sample.cu",
-        replaces="tpudist/ops/fused_sample.py:79", max_abs_err=err,
-        ms=time_ms(torch, lambda: fused_sample_prep(lg, temps), flush),
-        plain_ms=time_ms(torch, lambda: fused_sample_reference(lg, temps),
-                         flush),
-        library_ms=None, bound=bound(nbytes, 3 * SLOTS * V, H100_F32_FLOPS))
     for name, r in rec.items():
         log(f"kernel {name}: max_abs_err {r['max_abs_err']:.3g}, "
             f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
@@ -822,46 +808,234 @@ def residual_close(torch, out, ref, lt, temps) -> float:
     return max(err, float((pe - re).abs().max()) if pe.numel() else 0.0)
 
 
-def check_residual(torch, dev):
-    """Phase 3d: the residual prep kernel against its plain version at the
-    verify's main shape ``[8, 4, 256]`` (temperatures 0, 0.7 and 1.3, one
-    row with draft == target), a prime vocab and a 32000 vocab (the row
-    loop), f32 and a bf16 input; timed as in phase 3."""
+def sample_inputs(torch, dev, gen, S: int, vocab: int):
+    """Logits ``[S, vocab]`` with ties straddling the top-k threshold (row
+    1), a flat row (2), a temperature-0 row whose grammar-masked entries
+    scale to -inf (3), and a row the grammar masks whole at temperature 1
+    (6: every scaled value finfo(f32).min); temperatures; grammar rows."""
+    lg = torch.randn(S, vocab, generator=gen, device=dev) * 2
+    lg[1, :60] = 4.0
+    lg[2] = 0.5
+    temps = torch.tensor([1.0, 0.7, 1.3, 0.0, 2.0, 0.5, 1.0, 0.9] * (
+        S // 8 + 1), device=dev)[:S]
+    gallow = torch.rand(2, 3, vocab, generator=gen, device=dev) > 0.5
+    gallow[1] = True
+    gallow[0, 2] = False
+    gidx = torch.tensor(([1, 1, 1, 0, 1, 0, 0, 1] * (S // 8 + 1))[:S],
+                        dtype=torch.int32, device=dev)
+    gstate = torch.tensor(([0, 1, 2, 1, 0, 1, 2, 2] * (S // 8 + 1))[:S],
+                          dtype=torch.int32, device=dev)
+    return lg, temps, gallow, gidx, gstate
+
+
+def prep_arms(kind: str, rows: int, vocab: int) -> list:
+    """Both arms of the sampling (``kind`` "sample") or residual
+    ("residual") prep that take ``rows`` rows of ``vocab``: the plan's
+    first, then the other (the row arm only up to its longest row, the
+    cluster arm at the size the plan would give it)."""
+    from tpudist_torch.ops import fused_sample as fs
+
+    plan = fs._sample_arm if kind == "sample" else fs._residual_arm
+    most = (fs.SAMPLE_ROW_MAX_NV if kind == "sample"
+            else fs.RESIDUAL_ROW_MAX_NV) * fs.SAMPLE_THREADS
+    arms = [plan(rows, vocab)]
+    if arms[0][0] == "row":
+        arms.append(("cluster", fs._cluster_size(rows, vocab)))
+    elif vocab <= most:
+        arms.append(("row",
+                     fs._pow2_at_least(-(-vocab // fs.SAMPLE_THREADS))))
+    return arms
+
+
+def check_sample(torch, dev):
+    """Phase 3, row 3: ``fused_sample_prep`` against its plain version at
+    the serving shape (arg-max ties, top-k 5 and 12, top-p, grammar rows)
+    and on both arms at ``SAMPLE_CASES`` (the arm the plan names, and the
+    other where it takes the row) on :func:`sample_inputs`' rows, with and
+    without grammar rows; masked, greedy and top-k exact, top-p within
+    ``check_filters``' margin; each call one launch on the arm it was
+    given.  Then the times: every case on every arm
+    that takes it (CUDA events, median of 30, L2 flushed before each
+    launch), the plain version at the main path's shape, ``torch.topk(.,
+    50)`` and ``torch.sort`` of the scaled row (one step of the plain
+    version each, not the same function) where the filters run, and each
+    case's bytes bound."""
     from tpudist_torch import ops
-    from tpudist_torch.ops.fused_sample import (fused_residual_prep,
+    from tpudist_torch.ops.fused_sample import (_launch_sample,
+                                                fused_sample_prep,
+                                                fused_sample_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # the serving shape on the planned arm: tied maxima (lowest index wins),
+    # a zero row, grammar rows; the filters at top-k 5 and 12 (12 values
+    # tied at the 12th), top-p 0.9 and both, a flat row
+    lg = torch.randn(SLOTS, V, generator=gen, device=dev)
+    lg[0, [3, 9, 200]] = 10.0
+    lg[1] = 0.0
+    temps = torch.tensor([0, 0.7, 1.3, 0, 2, 0.5, 0, 1], device=dev)
+    gallow = torch.rand(3, 5, V, generator=gen, device=dev) > 0.3
+    gallow[2] = True
+    gidx = torch.tensor([0, 2, 1, 2, 0, 1, 2, 0], dtype=torch.int32,
+                        device=dev)
+    gstate = torch.tensor([1, 0, 3, 4, 2, 0, 1, 4], dtype=torch.int32,
+                          device=dev)
+    for a in ((lg, temps), (lg, temps, gallow, gidx, gstate)):
+        out = fused_sample_prep(*a)
+        for x, y in zip(out, fused_sample_reference(*a)):
+            if not torch.equal(x, y):
+                raise AssertionError("fused_sample_prep differs from its "
+                                     "plain version")
+    if int(out[2][1]) != 0 or int(fused_sample_prep(lg, temps)[2][0]) != 3:
+        raise AssertionError("arg-max ties must pick the lowest index")
+    lg[2, :12] = 3.0
+    lg[3] = 0.5
+    for tk, tp in ((5, 0.0), (0, 0.9), (5, 0.9), (12, 0.0)):
+        for a in ((lg, temps), (lg, temps, gallow, gidx, gstate)):
+            check_filters(torch, fused_sample_prep(*a, top_k=tk, top_p=tp),
+                          fused_sample_reference(*a, top_k=tk, top_p=tp),
+                          fused_sample_reference(*a, top_k=tk)[1], tp)
+    cases = {}
+    for label, S, vocab, tk, tp in SAMPLE_CASES:
+        args = sample_inputs(torch, dev, gen, S, vocab)
+        filtered = 0 < tk < vocab or 0.0 < tp < 1.0
+        arms = prep_arms("sample", S, vocab)
+        for arm, width in arms:
+            for a in (args[:2], args):
+                ops.reset_launch_counts()
+                out = _launch_sample(arm, width, *a, top_k=tk, top_p=tp)
+                torch.cuda.synchronize()
+                got = (ops.fused_sample_prep.launches_row,
+                       ops.fused_sample_prep.launches_cluster)
+                if got != ((1, 0) if arm == "row" else (0, 1)):
+                    raise AssertionError(f"fused_sample_prep ({label}) on "
+                                         f"the {arm} arm launched {got}")
+                check_filters(torch, out,
+                              fused_sample_reference(*a, top_k=tk, top_p=tp),
+                              fused_sample_reference(*a, top_k=tk)[1], tp)
+        # timed on rows of unit-normal logits times 2 at temperatures in
+        # [0.5, 1.5): the checked rows' ties and flat rows are edge cases
+        lg = torch.randn(S, vocab, generator=gen, device=dev) * 2
+        temps = torch.rand(S, generator=gen, device=dev) + 0.5
+        nbytes = S * vocab * 4 * 3 + S * 4 * 2
+        row = dict(S=S, vocab=vocab, top_k=tk, top_p=tp,
+                   planned=f"{arms[0][0]}{arms[0][1]}",
+                   bound=bound(nbytes, 3 * S * vocab, H100_F32_FLOPS),
+                   arm_ms={f"{arm}{width}": time_ms(
+                       torch, lambda: _launch_sample(arm, width, lg, temps,
+                                                     top_k=tk, top_p=tp),
+                       flush) for arm, width in arms})
+        if filtered:
+            scaled = fused_sample_reference(lg, temps)[1]
+            row["topk_ms"] = time_ms(
+                torch, lambda: torch.topk(scaled, 50, dim=-1), flush)
+            row["sort_ms"] = time_ms(
+                torch, lambda: torch.sort(scaled, dim=-1, descending=True),
+                flush)
+        cases[label] = row
+        log(f"kernel fused_sample ({label}: S {S}, vocab {vocab}, top_k "
+            f"{tk}, top_p {tp}): " + ", ".join(
+                f"{a} {ms:.4f}" for a, ms in row["arm_ms"].items())
+            + f" ms (plan {row['planned']}); bound {row['bound'][0]:.6f} ms"
+            + (f"; torch.topk(50) {row['topk_ms']:.4f}, torch.sort "
+               f"{row['sort_ms']:.4f} ms" if filtered else ""))
+    main = cases["a"]
+    lg = torch.randn(SLOTS, V, generator=gen, device=dev) * 2
+    temps = torch.rand(SLOTS, generator=gen, device=dev) + 0.5
+    rec = dict(
+        route="cuda", source="tpudist_torch/csrc/fused_sample.cu",
+        replaces="tpudist/ops/fused_sample.py:79", max_abs_err=0.0,
+        ms=main["arm_ms"][main["planned"]],
+        plain_ms=time_ms(torch, lambda: fused_sample_reference(lg, temps),
+                         flush),
+        library_ms=None, bound=main["bound"],
+        arm_ms={k.rstrip("0123456789"): v
+                for k, v in main["arm_ms"].items()},
+        cases=cases)
+    log(f"kernel fused_sample: max_abs_err 0 (exact; top-p within the "
+        f"margin), {rec['ms']:.4f} ms at the main path (plain "
+        f"{rec['plain_ms']:.4f} ms, library none, bound "
+        f"{rec['bound'][0]:.6f} ms by {rec['bound'][1]})")
+    del flush
+    ops.reset_launch_counts()
+    return {"fused_sample": rec}
+
+
+def check_residual(torch, dev):
+    """Phase 3d: the residual prep kernel against its plain version
+    (:func:`residual_close`) on both arms at ``RESIDUAL_CASES``
+    (temperatures 0, 0.7 and 1.3, a row with draft == target, ``-inf``
+    target entries), each call one launch on the arm it was given; every
+    case timed on every arm that takes it as in phase 3, beside the bytes
+    bound and ``torch.softmax`` of ``lt`` and of ``ld`` (one step of the
+    plain version, not the same function)."""
+    from tpudist_torch import ops
+    from tpudist_torch.ops.fused_sample import (_launch_residual,
                                                 fused_residual_reference)
 
     gen = torch.Generator(device=dev).manual_seed(99)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     temps = torch.tensor([0, 0.7, 1.3, 0.7, 0, 1.3, 0.7, 1.3], device=dev)
-    err = 0.0
-    for k, vocab, dtype in ((4, V, torch.float32), (2, 17, torch.float32),
-                            (4, 32000, torch.float32),
-                            (4, V, torch.bfloat16)):
+    err, cases = 0.0, {}
+    for label, k, vocab, dtype in RESIDUAL_CASES:
+        dt = getattr(torch, dtype)
         lt = torch.randn(SLOTS, k, vocab, generator=gen, device=dev) * 3
         ld = torch.randn(SLOTS, k, vocab, generator=gen, device=dev) * 3
         ld[2] = lt[2]  # an empty residual
-        lt, ld = lt.to(dtype), ld.to(dtype)
-        out = fused_residual_prep(lt, ld, temps)
-        ref = fused_residual_reference(lt, ld, temps)
-        torch.cuda.synchronize()
-        err = max(err, residual_close(torch, out, ref, lt, temps))
+        lt[3, 0, ::5] = float("-inf")
+        lt, ld = lt.to(dt), ld.to(dt)
+        arms = prep_arms("residual", SLOTS * k, vocab)
+        for arm, width in arms:
+            ops.reset_launch_counts()
+            out = _launch_residual(arm, width, lt, ld, temps)
+            torch.cuda.synchronize()
+            got = (ops.fused_residual_prep.launches_row,
+                   ops.fused_residual_prep.launches_cluster)
+            if got != ((1, 0) if arm == "row" else (0, 1)):
+                raise AssertionError(f"fused_residual_prep ({label}) on the "
+                                     f"{arm} arm launched {got}")
+            err = max(err, residual_close(
+                torch, out, fused_residual_reference(lt, ld, temps), lt,
+                temps))
+        lt = (torch.randn(SLOTS, k, vocab, generator=gen, device=dev)
+              * 3).to(dt)
+        ld = (torch.randn(SLOTS, k, vocab, generator=gen, device=dev)
+              * 3).to(dt)
+        nbytes = SLOTS * k * vocab * (2 * lt.element_size() + 3 * 4) \
+            + SLOTS * 4
+        row = dict(
+            k=k, vocab=vocab, dtype=dtype, planned=f"{arms[0][0]}{arms[0][1]}",
+            # ~12 f32 operations an entry: 4 divisions, 2 exps, 3
+            # subtractions, a max, an add and a log
+            bound=bound(nbytes, 12 * SLOTS * k * vocab, H100_F32_FLOPS),
+            arm_ms={f"{arm}{width}": time_ms(
+                torch, lambda: _launch_residual(arm, width, lt, ld, temps),
+                flush) for arm, width in arms},
+            softmax_ms=time_ms(torch, lambda: (torch.softmax(lt, dim=-1),
+                                               torch.softmax(ld, dim=-1)),
+                               flush))
+        cases[label] = row
+        log(f"kernel fused_residual_prep ({label}): " + ", ".join(
+            f"{a} {ms:.4f}" for a, ms in row["arm_ms"].items())
+            + f" ms (plan {row['planned']}); bound {row['bound'][0]:.6f} "
+            f"ms; torch.softmax of lt and ld {row['softmax_ms']:.4f} ms")
+    main = cases[RESIDUAL_CASES[0][0]]
     lt = torch.randn(SLOTS, 4, V, generator=gen, device=dev) * 3
     ld = torch.randn(SLOTS, 4, V, generator=gen, device=dev) * 3
-    nbytes = SLOTS * 4 * V * (2 * 4 + 3 * 4) + SLOTS * 4
     rec = dict(
         route="cuda", source="tpudist_torch/csrc/fused_sample.cu",
         replaces="tpudist/ops/fused_sample.py:219", max_abs_err=err,
-        ms=time_ms(torch, lambda: fused_residual_prep(lt, ld, temps), flush),
+        ms=main["arm_ms"][main["planned"]],
         plain_ms=time_ms(torch, lambda: fused_residual_reference(
             lt, ld, temps), flush),
-        library_ms=None,
-        # ~12 f32 operations an entry: 4 divisions, 2 exps, 3 subtractions,
-        # a max, an add and a log
-        bound=bound(nbytes, 12 * SLOTS * 4 * V, H100_F32_FLOPS))
+        library_ms=None, bound=main["bound"],
+        arm_ms={k.rstrip("0123456789"): v
+                for k, v in main["arm_ms"].items()},
+        cases=cases)
     log(f"kernel fused_residual_prep: max_abs_err {err:.3g}, "
-        f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms, library none, "
-        f"bound {rec['bound'][0]:.6f} ms by {rec['bound'][1]})")
+        f"{rec['ms']:.4f} ms at the verify's shape (plain "
+        f"{rec['plain_ms']:.4f} ms, library none, bound "
+        f"{rec['bound'][0]:.6f} ms by {rec['bound'][1]})")
     del flush
     ops.reset_launch_counts()
     return {"fused_residual_prep": rec}
@@ -871,9 +1045,10 @@ def check_filters(torch, out, ref, topk_row, top_p: float) -> None:
     """Sampling outputs with top-k / top-p on: masked, greedy and top-k
     exact.  A top-p kept set may differ from the plain version's only where
     the softmax mass before a value lies within ``V * 2**-23`` of
-    ``top_p``: the kernel sums the sorted row's probabilities in another
-    order than a sequential cumsum, each of V additions rounding by at most
-    2**-24 relative on either side."""
+    ``top_p``: the kernel sums the row's probabilities in another order
+    than a sequential cumsum, each of V additions rounding by at most
+    2**-24 relative on either side.  A row whose top value is not finite
+    has no softmax to round: its kept set is exact."""
     import numpy as np
 
     for x, y in ((out[0], ref[0]), (out[2], ref[2])):
@@ -890,6 +1065,11 @@ def check_filters(torch, out, ref, topk_row, top_p: float) -> None:
     for row in range(o.shape[0]):
         diff = np.flatnonzero((o[row] == neg) != (r[row] == neg))
         srt = np.sort(t[row].astype(np.float64))[::-1]
+        if not np.isfinite(srt[0]):  # no softmax: the kept sets are exact
+            if diff.size:
+                raise AssertionError("top-p kept sets differ on a row whose "
+                                     "top value is not finite")
+            continue
         p = np.exp(srt - srt[0])
         before = np.concatenate([[0.0], np.cumsum(p / p.sum())[:-1]])
         for pos in diff:
@@ -1683,6 +1863,7 @@ def serve_main_path(torch, model, gen_seed: int):
         prefill_arms = dict(tc=ops.paged_prefill_attention.launches_tc,
                             cc=ops.paged_prefill_attention.launches_cc)
         decode_tc = ops.paged_attention.launches_tc
+        sample_arm_launches = prep_arm_launches(ops.fused_sample_prep)
         stats = server.stats()
     finally:
         server.close(60)
@@ -1702,6 +1883,8 @@ def serve_main_path(torch, model, gen_seed: int):
     if decode_tc != counts["paged_attention"]:
         raise AssertionError(f"the split walk served {decode_tc} of the "
                              f"{counts['paged_attention']} decode launches")
+    hold_planned_arm("fused_sample_prep", sample_arm_launches,
+                     counts["fused_sample"], planned_arms()["sample"])
     tokens = sum(len(h.tokens) for h in handles)
     return dict(
         requests=len(handles), tokens=tokens, wall_s=wall,
@@ -1711,7 +1894,36 @@ def serve_main_path(torch, model, gen_seed: int):
         prompt_lens=[len(p) for p, _ in reqs],
         decode=stats["decode"], launches=counts,
         prefill_arm_launches=prefill_arms, decode_tc_launches=decode_tc,
+        sample_arm_launches=sample_arm_launches,
         streams=[h.tokens for h in handles])
+
+
+def planned_arms() -> dict:
+    """The arms the plans name at the serving vocab
+    (``ops/fused_sample.py`` ``_sample_arm``, ``_residual_arm``):
+    ``fused_sample_prep``'s for the decode step's 8 rows and the verify's
+    ``8 * (K + 1)`` (one arm for both), ``fused_residual_prep``'s for the
+    verify's ``8 * K``."""
+    from tpudist_torch.ops.fused_sample import _residual_arm, _sample_arm
+
+    sample = {_sample_arm(n, V)[0] for n in (SLOTS, SLOTS * (SPEC_K + 1))}
+    if len(sample) != 1:
+        raise AssertionError(f"decode and verify rows plan {sample}")
+    return dict(sample=sample.pop(),
+                residual=_residual_arm(SLOTS * SPEC_K, V)[0])
+
+
+def prep_arm_launches(fn) -> dict:
+    """A sampling or residual prep's launches by arm since the last reset."""
+    return dict(row=fn.launches_row, cluster=fn.launches_cluster)
+
+
+def hold_planned_arm(name: str, by_arm: dict, total: int, arm: str) -> None:
+    """Gate of phases 4, 4c and 4d: every launch of ``name`` on ``arm``,
+    the arm its plan names at the serving vocab."""
+    if by_arm.get(arm, 0) != total or sum(by_arm.values()) != total:
+        raise AssertionError(f"{name} launched {by_arm} by arm, want all "
+                             f"{total} on the {arm} arm")
 
 
 def near_tie_gap(torch, model, prompt, got, want, factors=None):
@@ -1810,6 +2022,8 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
         decode_tc = ops.paged_attention.launches_tc
         rope_arms = {"split": ops.fused_rope_qkv.launches_split,
                      "wgmma": ops.fused_rope_qkv.launches_wgmma}
+        sample_arm_launches = prep_arm_launches(ops.fused_sample_prep)
+        residual_arm_launches = prep_arm_launches(ops.fused_residual_prep)
         stats = server.stats()
     finally:
         server.close(60)
@@ -1855,6 +2069,11 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
             f"/ {df})")
     if not all(counts[name] > 0 for name in SERVE_KERNELS):
         raise AssertionError(f"a serving kernel was not launched: {counts}")
+    arms = planned_arms()
+    hold_planned_arm("fused_sample_prep", sample_arm_launches,
+                     counts["fused_sample"], arms["sample"])
+    hold_planned_arm("fused_residual_prep", residual_arm_launches,
+                     counts["fused_residual_prep"], arms["residual"])
     streams = [h.tokens for h in handles]
     greedy = [i for i in range(16) if temps[i] == 0.0]
     equal, ties = hold_greedy_streams(
@@ -1871,7 +2090,8 @@ def serve_spec_path(torch, model, gen_seed: int, base: dict,
         spec_blocks=blocks, target_forwards=tf, draft_forwards=df,
         greedy_lanes_equal=f"{equal}/{len(greedy)}", near_ties=ties,
         spec=spec, launches=counts, decode_tc_launches=decode_tc,
-        rope_arm_launches=rope_arms, decode=dec,
+        rope_arm_launches=rope_arms, sample_arm_launches=sample_arm_launches,
+        residual_arm_launches=residual_arm_launches, decode=dec,
         base={k: base[k] for k in ("tokens_per_s", "ttft_p50_ms",
                                    "tpot_p50_ms")})
 
@@ -2480,6 +2700,7 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name}{entry}: {line.strip()}")
 
     rec = check_kernels(torch, dev)
+    rec.update(check_sample(torch, dev))
     rec.update(check_residual(torch, dev))
     flash_rec, flash_fwd_bwd = check_flash(torch, dev)
     lin_rec, lin_info = check_fused_linear(torch, dev)
@@ -2633,6 +2854,12 @@ def main(argv=None) -> int:
         "paged_prefill": (
             {a: rec["paged_prefill"]["arms"][a]["ms"] for a in ("tc", "cc")},
             main_path["prefill_arm_launches"]),
+        # the row arm at the main path's shape beside the cluster arm on the
+        # same inputs; serving launches all on the row arm
+        "fused_sample": (rec["fused_sample"]["arm_ms"],
+                         main_path["sample_arm_launches"]),
+        "fused_residual_prep": (rec["fused_residual_prep"]["arm_ms"],
+                                spec_path["residual_arm_launches"]),
         "lora_delta": (
             {a: mean(t) for a, t in lin_rec["lora_delta"]["arm_ms"].items()},
             {"cluster": ad_path["lora_cluster_launches"],

@@ -53,10 +53,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (MLP_CASES, decode_readings, demo_path,
+from chip_smoke import (MLP_CASES, RESIDUAL_CASES, SAMPLE_CASES,
+                        check_filters, decode_readings, demo_path,
                         flash_agreement, flash_case_readings,
                         linear_agreement, lora_inputs, mlp_agreement,
-                        mlp_inputs, qkv_inputs, residual_close)
+                        mlp_inputs, prep_arms, qkv_inputs, residual_close,
+                        sample_inputs)
 from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
                          sample_case, top_p_boundary_gap)
 from tpudist_torch.bench import bench_fused_mlp
@@ -76,6 +78,9 @@ from tpudist_torch.ops import (FlashAttention, flash_backward_dkv,
                                paged_prefill_reference, reset_launch_counts)
 from tpudist_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
                                                _launch_fwd)
+from tpudist_torch.ops.fused_sample import (CLUSTER_SIZES, MAX_CLUSTER,
+                                            SLICE_CAP, _launch_residual,
+                                            _launch_sample)
 from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS, _launch_lora,
                                             _launch_rope, _rope_arm,
                                             lora_max_active_clusters,
@@ -390,12 +395,153 @@ def test_fused_sample_filters_match_plain(cuda, tk, tp):
     torch.testing.assert_close(out[1][kept], ref[1][kept], atol=0, rtol=0)
 
 
+def _sample_counts():
+    return (fused_sample_prep.launches_row,
+            fused_sample_prep.launches_cluster)
+
+
+@pytest.mark.parametrize("case", SAMPLE_CASES, ids=[c[0] for c in SAMPLE_CASES])
+def test_fused_sample_arms_match_plain(cuda, case):
+    """Phase 3's shapes (a)-(f) on both arms that take them, with and
+    without grammar rows (``chip_smoke.sample_inputs``: ties straddling
+    kth, a flat row, a temperature-0 row, a row masked whole): masked,
+    greedy and top-k exact, top-p within ``check_filters``' margin, one
+    launch on the arm given."""
+    label, S, V, tk, tp = case
+    args = sample_inputs(torch, cuda, torch.Generator(device=cuda)
+                         .manual_seed(S + V), S, V)
+    for arm, width in prep_arms("sample", S, V):
+        for a in (args[:2], args):
+            reset_launch_counts()
+            out = _launch_sample(arm, width, *a, top_k=tk, top_p=tp)
+            assert _sample_counts() == ((1, 0) if arm == "row" else (0, 1))
+            check_filters(torch, out,
+                          fused_sample_reference(*a, top_k=tk, top_p=tp),
+                          fused_sample_reference(*a, top_k=tk)[1], tp)
+
+
+def _equal_nan(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.parametrize("tk,tp", [(0, 0.0), (50, 0.0), (0, 0.9),
+                                   (50, 0.9)])
+@pytest.mark.parametrize("V", [256, 32000])
+def test_fused_sample_nan_and_inf_rows(cuda, V, tk, tp):
+    """A NaN row (arg-max at the first NaN; the filters keep what the plain
+    version keeps), a row all -inf, a row with a +inf, rows with -inf
+    entries: equal to the plain version on both arms, NaN where NaN (a row
+    whose maximum is NaN or infinite keeps the top value alone as its
+    top-p cutoff, as the plain version's NaN softmax does)."""
+    r = np.random.default_rng(V + tk)
+    lg = torch.from_numpy((r.normal(size=(6, V)) * 2).astype(np.float32))
+    lg[0, [5, V // 2]] = float("nan")
+    lg[1] = float("-inf")
+    lg[2, 7] = float("inf")
+    lg[3, ::3] = float("-inf")
+    lg[4, 1::2] = float("-inf")
+    lg, temps = lg.to(cuda), torch.tensor([1.0, 0.7, 1.3, 0.0, 2.0, 1.0],
+                                          device=cuda)
+    ref = fused_sample_reference(lg, temps, top_k=tk, top_p=tp)
+    topk_row = fused_sample_reference(lg, temps, top_k=tk)[1].cpu().numpy()
+    for arm, width in prep_arms("sample", 6, V):
+        out = _launch_sample(arm, width, lg, temps, top_k=tk, top_p=tp)
+        assert _equal_nan(out[0], ref[0]) and torch.equal(out[2], ref[2])
+        if tp == 0.0:
+            assert _equal_nan(out[1], ref[1])
+            continue
+        o, f = out[1].cpu(), ref[1].cpu()
+        assert _equal_nan(o[:3], f[:3])  # NaN, -inf, +inf maxima: exact
+        masses = top_p_boundary_gap(o[3:].numpy(), f[3:].numpy(),
+                                    topk_row[3:])
+        assert np.all(np.abs(masses - tp) <= V * 2.0 ** -23), masses
+        kept = o[3:] > torch.finfo(torch.float32).min
+        assert torch.equal(o[3:][kept], f[3:][kept])
+
+
+@pytest.mark.parametrize("C", CLUSTER_SIZES)
+@pytest.mark.parametrize("V", [1, 5, 1001, 4099])
+def test_fused_sample_cluster_arm_edges(cuda, V, C):
+    """The cluster arm where V is not a multiple of 4 * C (the last CTA's
+    slice short), V < C (CTAs with no values) and V = 1, at S 3 and 40,
+    every filter setting, against the plain version."""
+    for S in (3, 40):
+        args = sample_inputs(torch, cuda, torch.Generator(device=cuda)
+                             .manual_seed(V * C + S), S, V)
+        for tk, tp in ((0, 0.0), (2, 0.0), (0, 0.9), (3, 0.5)):
+            out = _launch_sample("cluster", C, *args, top_k=tk, top_p=tp)
+            check_filters(torch, out,
+                          fused_sample_reference(*args, top_k=tk, top_p=tp),
+                          fused_sample_reference(*args, top_k=tk)[1], tp)
+
+
+def test_fused_sample_s40_long_vocab_filters(cuda):
+    """The verify's 40 rows at vocab 32000 with both filters, on the planned
+    cluster arm: one launch, equal to the plain version."""
+    args = sample_inputs(torch, cuda, torch.Generator(device=cuda)
+                         .manual_seed(40), 40, 32000)
+    reset_launch_counts()
+    out = fused_sample_prep(*args, top_k=50, top_p=0.9)
+    assert _sample_counts() == (0, 1)
+    check_filters(torch, out,
+                  fused_sample_reference(*args, top_k=50, top_p=0.9),
+                  fused_sample_reference(*args, top_k=50)[1], 0.9)
+
+
+def test_preps_past_the_shared_memory_slice(cuda):
+    """Rows longer than a cluster of ``MAX_CLUSTER`` CTAs holds in shared
+    memory (``SLICE_CAP`` values a CTA, the residual's half as many pairs):
+    the rest of each slice waits in the outputs, and both preps still
+    equal their plain versions."""
+    V = MAX_CLUSTER * SLICE_CAP + 40961
+    args = sample_inputs(torch, cuda, torch.Generator(device=cuda)
+                         .manual_seed(7), 3, V)
+    for tk, tp in ((0, 0.0), (50, 0.9)):
+        check_filters(torch, fused_sample_prep(*args, top_k=tk, top_p=tp),
+                      fused_sample_reference(*args, top_k=tk, top_p=tp),
+                      fused_sample_reference(*args, top_k=tk)[1], tp)
+    V = MAX_CLUSTER * SLICE_CAP // 2 + 20481
+    lt = torch.randn(1, 2, V, device=cuda) * 3
+    ld = torch.randn(1, 2, V, device=cuda) * 3
+    ld[0, 1] = lt[0, 1]  # an empty residual
+    temps = torch.tensor([0.8], device=cuda)
+    residual_close(torch, fused_residual_prep(lt, ld, temps),
+                   fused_residual_reference(lt, ld, temps), lt, temps)
+
+
+@pytest.mark.parametrize("case", RESIDUAL_CASES,
+                         ids=[c[0] for c in RESIDUAL_CASES])
+def test_residual_prep_arms_match_plain(cuda, case):
+    """Phase 3d's shapes on both arms that take them: ``residual_close``,
+    one launch on the arm given."""
+    label, k, V, dtype = case
+    r = np.random.default_rng(V + k)
+    lt = torch.from_numpy(r.normal(size=(8, k, V)).astype(np.float32) * 3)
+    ld = torch.from_numpy(r.normal(size=(8, k, V)).astype(np.float32) * 3)
+    ld[2] = lt[2]
+    lt[3, 0, ::5] = float("-inf")
+    dt = getattr(torch, dtype)
+    lt, ld = lt.to(cuda, dt), ld.to(cuda, dt)
+    temps = torch.tensor([0, 0.7, 1.3, 0.7, 0, 1.3, 0.7, 1.3], device=cuda)
+    for arm, width in prep_arms("residual", 8 * k, V):
+        reset_launch_counts()
+        out = _launch_residual(arm, width, lt, ld, temps)
+        assert (fused_residual_prep.launches_row,
+                fused_residual_prep.launches_cluster) == (
+                    (1, 0) if arm == "row" else (0, 1))
+        residual_close(torch, out, fused_residual_reference(lt, ld, temps),
+                       lt, temps)
+
+
 def test_cuda_tensor_never_falls_back(cuda):
     """A CUDA tensor the kernel does not take raises; it never runs the
     plain version instead."""
     logits = torch.zeros(2, 5000, device=cuda)
-    with pytest.raises(ValueError):
-        fused_sample_prep(logits, torch.zeros(2, device=cuda), top_k=2)
+    gallow = torch.ones(1, 1, 4999, dtype=torch.bool, device=cuda)
+    gidx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):  # a grammar row of another vocab
+        fused_sample_prep(logits, torch.zeros(2, device=cuda), gallow, gidx,
+                          gidx, top_k=2)
     with pytest.raises(TypeError):
         fused_sample_prep(logits.double(), torch.zeros(2, device=cuda))
     q = torch.zeros(1, 2, 16, 48, device=cuda)  # head_dim 48: no kernel

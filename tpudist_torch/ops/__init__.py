@@ -56,7 +56,8 @@ def reset_launch_counts() -> None:
     prefill's ``launches_tc`` / ``launches_cc``, the paged decode's
     ``launches_tc``, the flash kernels' ``launches_wgmma``, the LoRA
     kernel's ``launches_cluster``, the RoPE+QKV kernel's
-    ``launches_split`` / ``launches_wgmma``)."""
+    ``launches_split`` / ``launches_wgmma``, the sampling and residual
+    preps' ``launches_row`` / ``launches_cluster``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     paged_prefill_attention.launches_tc = 0
@@ -68,6 +69,9 @@ def reset_launch_counts() -> None:
     lora_delta.launches_cluster = 0
     fused_rope_qkv.launches_split = 0
     fused_rope_qkv.launches_wgmma = 0
+    for fn in (fused_sample_prep, fused_residual_prep):
+        fn.launches_row = 0
+        fn.launches_cluster = 0
 
 
 __all__ = [
