@@ -144,7 +144,24 @@ order; any failure exits non-zero:
    the scanned two-model step) and ``bench_fused_mlp`` at batch 4096 (the
    kernel against the plain chain), counts zeroed just before — the fused
    kernel must launch once a timed call at least; then one toy step window
-   under ``torch.profiler``.
+   under ``torch.profiler``;
+12. the model split (:func:`split_path`): the toy models in two layer
+   groups over ``[cuda:0, cuda:0]`` (``data_model_mesh(devices=...)``)
+   under DDP, 1000 iterations under the torchrun contract at world size 1
+   (NCCL), losses equal to phase 10's within ``SPLIT_RTOL``; then ``python
+   -m tpudist_torch.examples.demo_model_split --model_parallel 1
+   --dry_run``;
+13. the MPI bootstrap (:func:`mpi_path`): ``python -m
+   tpudist_torch.examples.demo_mpi_bootstrap`` under ``OMPI_COMM_WORLD_*``
+   at world size 1 with ``MASTER_ADDR``/``MASTER_PORT`` (NCCL), final
+   losses at most ``DEMO_LOSS_MAX``;
+14. the Trainer facade (:func:`trainer_path`): ``python -m
+   tpudist_torch.examples.demo_trainer --dry_run --seed 0`` fp32 and bf16
+   (1000 steps, batch 128) converging (``TRAINER_LAST_MAX``); a checkpoint round
+   trip (600 steps saving every 200, ``--resume`` to 1000) whose rows
+   601-1000 equal the unbroken fp32 run's within ``RESUME_RTOL``; and a
+   ``--profile_dir`` run of the demo whose trace holds the card's kernels.
+   Each prints its wall time and losses.
 
 It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path) and
@@ -164,6 +181,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
@@ -281,6 +299,25 @@ DEMO_ITERATIONS = 1000
 DEMO_ARGS = ["--dry_run", "--seed", "0", "--total_iterations",
              str(DEMO_ITERATIONS)]
 DEMO_LOSS_MAX = 0.3
+LOSS_NAMES = ("loss/model_X", "loss/model_Y")
+# phase 12: the split's losses against phase 10's.  Both stages on one card
+# do the unsplit model's arithmetic in the same order, so bit for bit is
+# expected; the bound admits a last-bit difference of cuBLAS's choice of
+# kernel between the two processes and nothing a wrong stage moves (a
+# layer's activation left out moves a loss by 1e-2 or more)
+SPLIT_RTOL = 1e-5
+# phase 14: demo_trainer (1000 steps, batch 128) on the CPU ends at 0.2520
+# and 0.2277 (fp32), 0.2484 and 0.2248 (bf16), the means of the last 16 at
+# 0.2363 and 0.2251, 0.2344 and 0.2250: the toy data's noise floor (an MSE
+# of 0.25) plus the batch's own fluctuation.  A batch of 128 samples' MSE
+# at the floor has a standard deviation of 0.25 * sqrt(2 / 128) = 0.031,
+# so the last row's bound is the floor plus 4 of them, and the mean of
+# the last 16 (a standard deviation of 0.008) keeps phase 10's 0.3
+TRAINER_LAST_MAX = 0.375
+# the resumed rows against the unbroken run's: bit for bit expected (the
+# same kernels on the same data from the same state)
+RESUME_RTOL = 1e-6
+PROFILE_ITERATIONS = 50
 
 
 def log(msg: str) -> None:
@@ -2581,6 +2618,67 @@ def grad_check(torch):
 # phases 10-11: the toy demo.py path and the toy benches
 
 
+def run_module(module: str, args, env=None, cwd=None, timeout: int = 600):
+    """``python -m module *args`` as a subprocess in ``cwd`` (default: a
+    temporary working directory), with the repository on the path and
+    ``env`` added to the environment; it must exit 0.  Returns its output,
+    its wall time in seconds and the metric rows of each
+    ``runs/<group>/metrics.jsonl`` under ``cwd`` (by group)."""
+    import tempfile
+
+    if cwd is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return run_module(module, args, env, tmp, timeout)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    full = dict(os.environ, PYTHONPATH=repo, **(env or {}))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd,
+                          env=full, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited "
+                             f"{proc.returncode}: "
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    rows = {}
+    runs = os.path.join(cwd, "runs")
+    for group in (os.listdir(runs) if os.path.isdir(runs) else []):
+        with open(os.path.join(runs, group, "metrics.jsonl")) as f:
+            rows[group] = [json.loads(line) for line in f]
+    return proc.stdout, wall, rows
+
+
+def torchrun_env(**extra) -> dict:
+    """The torchrun contract at world size 1 on a free local port."""
+    from tpudist_torch.runtime.bootstrap import find_free_port
+
+    return dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                MASTER_ADDR="localhost", MASTER_PORT=str(find_free_port()),
+                **extra)
+
+
+def loss_summary(rows, names=LOSS_NAMES) -> dict:
+    """First and last losses and the mean of the last 16 of metric rows."""
+    return dict(rows=len(rows), first={k: rows[0][k] for k in names},
+                last={k: rows[-1][k] for k in names},
+                last16_mean={k: statistics.mean(r[k] for r in rows[-16:])
+                             for k in names})
+
+
+def hold_converged(what: str, res: dict,
+                   last_bound: float = DEMO_LOSS_MAX) -> None:
+    """``DEMO_ITERATIONS`` rows whose losses start near 3 and end at most
+    ``DEMO_LOSS_MAX`` (the mean of the last 16) and ``last_bound`` (the
+    last row)."""
+    if res["rows"] != DEMO_ITERATIONS:
+        raise AssertionError(f"{what} logged {res['rows']} rows, not "
+                             f"{DEMO_ITERATIONS}")
+    for k in LOSS_NAMES:
+        if not (res["first"][k] >= 2.0 and res["last"][k] <= last_bound
+                and res["last16_mean"][k] <= DEMO_LOSS_MAX):
+            raise AssertionError(f"{what} did not converge: {res}")
+
+
 def demo_path(backend: str) -> dict:
     """Phase 10: ``python -m tpudist_torch.examples.demo`` as the reference
     runs it (``--dry_run``, ``DEMO_ARGS``), a subprocess under the torchrun
@@ -2589,48 +2687,18 @@ def demo_path(backend: str) -> dict:
     and log one row an iteration; both models' losses must start near 3
     and end at most ``DEMO_LOSS_MAX`` (the last row, and the mean of the
     last 16)."""
-    import tempfile
-
-    from tpudist_torch.runtime.bootstrap import find_free_port
-
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=repo, RANK="0", WORLD_SIZE="1",
-               LOCAL_RANK="0", MASTER_ADDR="localhost",
-               MASTER_PORT=str(find_free_port()))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tpudist_torch.examples.demo", *DEMO_ARGS,
-             "--backend", backend], cwd=tmp, env=env, capture_output=True,
-            text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the demo ({backend}) exited "
-                                 f"{proc.returncode}: "
-                                 f"{(proc.stdout + proc.stderr)[-3000:]}")
-        path = os.path.join(tmp, "runs", "demo_dp", "metrics.jsonl")
-        with open(path) as f:
-            rows = [json.loads(line) for line in f]
-    names = ("loss/model_X", "loss/model_Y")
-    res = dict(backend=backend, wall_s=wall, rows=len(rows),
-               first={k: rows[0][k] for k in names},
-               last={k: rows[-1][k] for k in names},
-               last16_mean={k: statistics.mean(r[k] for r in rows[-16:])
-                            for k in names},
-               banner=[line for line in proc.stdout.splitlines()
-                       if "launch=" in line])
-    if len(rows) != DEMO_ITERATIONS:
-        raise AssertionError(f"the demo logged {len(rows)} rows, not "
-                             f"{DEMO_ITERATIONS}")
-    if "launch=torchrun" not in proc.stdout or \
-            "backend=nccl" not in proc.stdout:
+    out, wall, rows = run_module("tpudist_torch.examples.demo",
+                                 DEMO_ARGS + ["--backend", backend],
+                                 torchrun_env())
+    rows = rows["demo_dp"]
+    res = dict(backend=backend, wall_s=wall, **loss_summary(rows),
+               banner=[line for line in out.splitlines()
+                       if "launch=" in line],
+               losses=[[r[k] for k in LOSS_NAMES] for r in rows])
+    if "launch=torchrun" not in out or "backend=nccl" not in out:
         raise AssertionError(f"the demo did not run on the NCCL group: "
                              f"{res['banner']}")
-    for k in names:
-        if not (res["first"][k] >= 2.0 and res["last"][k] <= DEMO_LOSS_MAX
-                and res["last16_mean"][k] <= DEMO_LOSS_MAX):
-            raise AssertionError(f"the demo ({backend}) did not converge: "
-                                 f"{res}")
+    hold_converged(f"the demo ({backend})", res)
     return res
 
 
@@ -2657,6 +2725,180 @@ def bench_path(torch) -> dict:
                 toy_window_profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the reference's other entry points — the model split, the
+# MPI bootstrap, the Trainer facade — with checkpoint/resume and a trace
+
+
+def split_path(torch, demo_losses) -> dict:
+    """Phase 12: the toy models split at model axis 2 over ``[cuda:0,
+    cuda:0]`` (``data_model_mesh(devices=...)``: both stages on the one
+    card), trained for ``DEMO_ITERATIONS`` through the demo's
+    ``build_training(split=True)`` and ``run_training`` under the torchrun
+    contract at world size 1 (the NCCL group, DDP over the two-stage
+    modules, the device-group loss all-reduce), in this process.  Its
+    per-iteration losses must equal phase 10's (``--backend ici``) within
+    ``SPLIT_RTOL``.  Then ``python -m
+    tpudist_torch.examples.demo_model_split --model_parallel 1 --dry_run``
+    must exit 0."""
+    import tempfile
+
+    from tpudist_torch.config import get_args
+    from tpudist_torch.examples.common import build_training
+    from tpudist_torch.models.split_mlp import SplitToyMLP
+    from tpudist_torch.runtime import initialize, shutdown
+    from tpudist_torch.runtime.mesh import data_model_mesh
+    from tpudist_torch.train import run_training
+    from tpudist_torch.utils import MetricsLogger
+
+    saved = {k: os.environ.get(k) for k in torchrun_env()}
+    os.environ.update(torchrun_env())
+    try:
+        ctx = initialize(device="cuda")
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        mesh = data_model_mesh(2, devices=["cuda:0", "cuda:0"])
+        states, step, loader, cfg, chunk = build_training(
+            get_args(DEMO_ARGS), mesh, split=True)
+        for st in states.values():
+            if not (isinstance(st.model, SplitToyMLP)
+                    and len(st.model.stages) == 2 and isinstance(
+                        st.replica, torch.nn.parallel.DistributedDataParallel)):
+                raise AssertionError("the split models are not two-stage "
+                                     "modules under DDP")
+        cfg.progress_bar = False
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "metrics.jsonl")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_training(states, step, loader, mesh,
+                         MetricsLogger(jsonl_path=Path(path)), cfg, chunk)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(path) as f:
+                rows = [json.loads(line) for line in f]
+        shutdown()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res = dict(launch=ctx.launch_source, backend=backend,
+               devices=[str(d) for d in mesh.devices],
+               stages=[len(i) for _, i in states["model_X"].model.stages],
+               train_wall_s=wall, **loss_summary(rows))
+    hold_converged("the split", res)
+    got = [[r[k] for k in LOSS_NAMES] for r in rows]
+    rel = max(abs(g / w - 1) for gr, wr in zip(got, demo_losses)
+              for g, w in zip(gr, wr))
+    res["max_rel_vs_phase10"] = rel
+    res["equal_to_phase10"] = got == demo_losses
+    if ctx.launch_source != "torchrun" or backend != "nccl" \
+            or rel > SPLIT_RTOL:
+        raise AssertionError(f"the split's losses leave phase 10's: {res}")
+    out, res["mp1_wall_s"], mp1 = run_module(
+        "tpudist_torch.examples.demo_model_split",
+        ["--model_parallel", "1", "--dry_run"])
+    res["mp1"] = loss_summary(mp1["demo_model_split"])
+    hold_converged("demo_model_split --model_parallel 1", res["mp1"])
+    return res
+
+
+def mpi_path() -> dict:
+    """Phase 13: ``python -m tpudist_torch.examples.demo_mpi_bootstrap``
+    under ``OMPI_COMM_WORLD_RANK=0 OMPI_COMM_WORLD_SIZE=1`` with
+    ``MASTER_ADDR``/``MASTER_PORT`` (the env contract: no ``mpi4py``), so
+    the NCCL group forms as in phase 10.  It must exit 0, report the mpi
+    launch and print final losses at most ``DEMO_LOSS_MAX``."""
+    import ast
+
+    env = torchrun_env()
+    env = dict(OMPI_COMM_WORLD_RANK="0", OMPI_COMM_WORLD_SIZE="1",
+               MASTER_ADDR=env["MASTER_ADDR"], MASTER_PORT=env["MASTER_PORT"])
+    out, wall, rows = run_module("tpudist_torch.examples.demo_mpi_bootstrap",
+                                 DEMO_ARGS, env)
+    found = re.findall(r"final losses: (\{.*\})", out)
+    res = dict(wall_s=wall, banner=[line for line in out.splitlines()
+                                    if "launch=" in line],
+               final=ast.literal_eval(found[-1]) if found else None,
+               metric_files=sorted(rows))
+    if not ("launch=mpi" in out and "backend=nccl" in out and found
+            and not rows and all(v <= DEMO_LOSS_MAX
+                                 for v in res["final"].values())):
+        raise AssertionError(f"the MPI demo failed its gates: {res}\n"
+                             f"{out[-2000:]}")
+    return res
+
+
+def trainer_path() -> dict:
+    """Phase 14: ``python -m tpudist_torch.examples.demo_trainer --dry_run
+    --seed 0`` (the reference's Lightning shape: 1000 steps, batch 128),
+    fp32 then bf16, under the torchrun contract at world size 1; each must
+    converge (the last row within ``TRAINER_LAST_MAX``).  Then a checkpoint round trip:
+    600 steps saving every 200, then ``--resume`` to 1000 in the same
+    directory; its rows 601-1000 must equal the fp32 run's within
+    ``RESUME_RTOL`` (bit for bit expected).  Then ``python -m
+    tpudist_torch.examples.demo --profile_dir`` for ``PROFILE_ITERATIONS``:
+    its trace must exist and hold kernel events of the card."""
+    import tempfile
+
+    base = ["--dry_run", "--seed", "0"]
+    res = {}
+    rows = {}
+    for precision in ("fp32", "bf16"):
+        out, wall, r = run_module("tpudist_torch.examples.demo_trainer",
+                                  base + ["--precision", precision],
+                                  torchrun_env())
+        rows[precision] = r["demo_trainer"]
+        res[precision] = dict(wall_s=wall, **loss_summary(rows[precision]))
+        if "final losses" not in out:
+            raise AssertionError(out[-2000:])
+        hold_converged(f"demo_trainer --precision {precision}",
+                       res[precision], TRAINER_LAST_MAX)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        walls = []
+        for total, extra in (("600", []), ("1000", ["--resume"])):
+            _, wall, r = run_module(
+                "tpudist_torch.examples.demo_trainer",
+                base + ["--total_iterations", total, "--checkpoint_dir", ck,
+                        "--checkpoint_every", "200", *extra],
+                torchrun_env(), cwd=tmp)
+            walls.append(wall)
+        steps = sorted(os.listdir(ck))
+        resumed = r["demo_trainer"]
+    want = [[r[k] for k in LOSS_NAMES] for r in rows["fp32"][600:]]
+    got = [[r[k] for k in LOSS_NAMES] for r in resumed[600:]]
+    rel = max(abs(g / w - 1) for gr, wr in zip(got, want)
+              for g, w in zip(gr, wr))
+    res["resume"] = dict(walls_s=walls, rows=len(resumed), files=steps,
+                         bit_for_bit=got == want, max_rel=rel)
+    if len(resumed) != DEMO_ITERATIONS or rel > RESUME_RTOL:
+        raise AssertionError(f"the resumed run leaves the unbroken one: "
+                             f"{res['resume']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, wall, _ = run_module(
+            "tpudist_torch.examples.demo",
+            ["--dry_run", "--seed", "0", "--total_iterations",
+             str(PROFILE_ITERATIONS), "--profile_dir", "prof"], cwd=tmp)
+        path = os.path.join(tmp, "prof", "process_0", "trace.json")
+        size = os.path.getsize(path) if os.path.isfile(path) else 0
+        kernels = 0
+        if size:
+            with open(path) as f:
+                trace = json.load(f)
+            kernels = sum(1 for e in trace.get("traceEvents", [])
+                          if e.get("cat") == "kernel")
+    res["profile"] = dict(wall_s=wall, trace_bytes=size,
+                          kernel_events=kernels)
+    if not (size > 0 and kernels > 0):
+        raise AssertionError(f"the --profile_dir trace is missing or has "
+                             f"no kernel: {res['profile']}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -2679,6 +2921,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2835,6 +3078,40 @@ def main(argv=None) -> int:
         f"timed calls")
     log_profile({"toy_window": benches["toy_window_profile"]})
 
+    split = split_path(torch, demos[0]["losses"])
+    log(f"split (model axis 2 on {split['devices']}, stages "
+        f"{split['stages']}, world 1 under the {split['launch']} contract, "
+        f"{split['backend']}, DDP): {split['rows']} rows, training "
+        f"{split['train_wall_s']:.2f} s ({card}); losses {split['first']} -> "
+        f"{split['last']}, mean of the last 16 {split['last16_mean']}; "
+        f"max rel vs phase 10 {split['max_rel_vs_phase10']:.2e} (bit for "
+        f"bit: {split['equal_to_phase10']}); demo_model_split "
+        f"--model_parallel 1: {split['mp1']['rows']} rows in "
+        f"{split['mp1_wall_s']:.1f} s of process wall, losses -> "
+        f"{split['mp1']['last']}")
+    mpi = mpi_path()
+    log(f"MPI demo (OMPI_COMM_WORLD_* world 1 + MASTER_ADDR, NCCL): "
+        f"{mpi['wall_s']:.1f} s of process wall ({card}); {mpi['banner']}; "
+        f"final losses {mpi['final']}")
+    trainer = trainer_path()
+    for precision in ("fp32", "bf16"):
+        t = trainer[precision]
+        log(f"demo_trainer --precision {precision} (1000 steps, batch 128, "
+            f"world 1 under the torchrun contract, NCCL): {t['rows']} rows "
+            f"in {t['wall_s']:.1f} s of process wall ({card}); losses "
+            f"{t['first']} -> {t['last']}, mean of the last 16 "
+            f"{t['last16_mean']}")
+    r = trainer["resume"]
+    log(f"demo_trainer checkpoint round trip (600 steps saving every 200, "
+        f"then --resume to 1000): {r['walls_s'][0]:.1f} + "
+        f"{r['walls_s'][1]:.1f} s of process wall, {r['rows']} rows, files "
+        f"{r['files']}; rows 601-1000 against the unbroken run: bit for bit "
+        f"{r['bit_for_bit']}, max rel {r['max_rel']:.2e}")
+    p = trainer["profile"]
+    log(f"demo --profile_dir ({PROFILE_ITERATIONS} iterations): "
+        f"{p['wall_s']:.1f} s of process wall, trace {p['trace_bytes']} "
+        f"bytes, {p['kernel_events']} kernel events")
+
     kernels = []
     launches = dict(main_path["launches"])
     launches.update({n: train["launches"][n] for n in flash_rec})
@@ -2902,12 +3179,15 @@ def main(argv=None) -> int:
                   adapter_logits=dict(max_abs_err=float(ad_diff.max()),
                                       rel_rms=ad_rel_rms, top1=ad_top1,
                                       adapter_moves=ad_moved),
-                  fused_mlp_cases=mlp_cases, demos=demos, benches=benches)
+                  fused_mlp_cases=mlp_cases, demos=demos, benches=benches,
+                  split=split, mpi=mpi, trainer=trainer,
+                  smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=2)
+    log(f"smoke wall: {result['smoke_wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,10 @@ The fused toy-MLP kernel: ``chip_smoke.mlp_agreement`` — within 1e-5 of
 its plain version and 1e-4 of a float64 numpy forward, relative to the
 output's largest magnitude (both sides full f32, summed in another
 order).  The toy demo on the card (world size 1 under the torchrun
-contract, NCCL) converges as ``chip_smoke.demo_path`` holds it.
+contract, NCCL) converges as ``chip_smoke.demo_path`` holds it.  The toy
+model split over ``[cuda:0, cuda:0]`` equals the unsplit model, forward
+and gradients bit for bit; a checkpoint round trip on the card resumes
+the unbroken run bit for bit, its restored tensors on the card.
 
 The residual prep: ``chip_smoke.residual_close``, the CPU test's
 tolerances (``pt``/``pd`` to ``rtol 2e-6, atol 1e-7``, empty-residual rows
@@ -1113,3 +1116,80 @@ def test_toy_demo_on_the_card(cuda):
     torchrun contract on the NCCL group converges (phase 10)."""
     res = demo_path("ici")
     assert res["rows"] == 1000
+
+
+def test_split_on_the_card_equals_unsplit(cuda):
+    """The toy model in two layer groups over ``[cuda:0, cuda:0]`` equals
+    the unsplit model on the card, forward and gradients bit for bit (the
+    same products in the same order)."""
+    from tpudist_torch.models import create_toy_model
+    from tpudist_torch.models.split_mlp import split_toy_model
+
+    whole = create_toy_model(0, device=cuda)
+    split = split_toy_model(whole, [cuda, cuda])
+    assert all(p.device.type == "cuda" for p in split.parameters())
+    x = torch.randn(1000, 2, generator=torch.Generator().manual_seed(1)).to(
+        cuda)
+    a, b = whole(x), split(x)
+    assert torch.equal(a, b)
+    a.square().mean().backward()
+    b.square().mean().backward()
+    for (n, p), (m, q) in zip(whole.named_parameters(),
+                              split.named_parameters()):
+        assert n == m and torch.equal(p.grad, q.grad)
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """20 iterations of the demo's training on the card, unbroken, against
+    10 saving every 5 and a restore into fresh states on the card resumed
+    to 20: the restored tensors live on the card, and the parameters, Adam
+    moments and losses equal the unbroken run's bit for bit."""
+    import json
+
+    from tpudist_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from tpudist_torch.config import get_args
+    from tpudist_torch.examples.common import build_training
+    from tpudist_torch.runtime.mesh import data_parallel_mesh
+    from tpudist_torch.train import run_training
+    from tpudist_torch.utils import MetricsLogger
+
+    def training(n):
+        args = get_args(["--seed", "0", "--batch_size", "128",
+                         "--total_iterations", str(n)])
+        states, step, loader, cfg, chunk = build_training(
+            args, data_parallel_mesh(device="cuda"))
+        cfg.sync_every, cfg.progress_bar = 8, False
+        return states, step, loader, cfg, chunk
+
+    def run(n, label, **kw):
+        states, step, loader, cfg, chunk = training(n)
+        states = kw.pop("states", states)
+        path = tmp_path / label / "metrics.jsonl"
+        states, _ = run_training(states, step, loader, "cuda",
+                                 MetricsLogger(jsonl_path=path), cfg, chunk,
+                                 **kw)
+        return states, [{k: v for k, v in json.loads(line).items()
+                         if k.startswith("loss/")}
+                        for line in path.read_text().splitlines()]
+
+    whole, rows = run(20, "whole")
+    mgr = CheckpointManager(CheckpointConfig(directory=str(tmp_path / "ck"),
+                                             save_every=5))
+    run(10, "first", ckpt=mgr)
+    fresh = training(20)[0]
+    assert mgr.restore(fresh)["iteration"] == 10
+    for st in fresh.values():
+        assert all(v.is_cuda for v in st.model.state_dict().values())
+        assert all(v.is_cuda for s in st.optimizer.state.values()
+                   for k, v in s.items() if k != "step")
+    resumed, tail = run(20, "resumed", states=fresh, start_iteration=10)
+    assert tail == rows[10:]
+    for n in whole:
+        for (k, v), (_, w) in zip(whole[n].model.state_dict().items(),
+                                  resumed[n].model.state_dict().items()):
+            assert torch.equal(v, w), k
+        for p, q in zip(whole[n].model.parameters(),
+                        resumed[n].model.parameters()):
+            sa, sb = whole[n].optimizer.state[p], resumed[n].optimizer.state[q]
+            assert torch.equal(sa["exp_avg"], sb["exp_avg"])
+            assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])

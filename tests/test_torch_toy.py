@@ -239,16 +239,18 @@ def test_cli_equals_jax(argv):
 
 
 def test_unported_flags_raise():
-    for argv, item in ((["--checkpoint_dir", "c"], "item 9"),
-                       (["--checkpoint_every", "3"], "item 9"),
-                       (["--resume"], "item 9"),
-                       (["--profile_dir", "p"], "item 7b")):
-        with pytest.raises(NotImplementedError, match=item):
-            check_not_ported(get_args(argv))
+    # checkpoints (A9) and --profile_dir (A7b) are ported: accepted now
+    assert check_not_ported(get_args(
+        ["--checkpoint_dir", "c", "--checkpoint_every", "3", "--resume",
+         "--profile_dir", "p"])) is None
     for opt in ("adafactor", "lion"):
         with pytest.raises(NotImplementedError, match="6e"):
             build_optimizer_from_args(get_args(["--optimizer", opt]),
                                       [torch.zeros(2, requires_grad=True)])
+        with pytest.raises(NotImplementedError, match="6e"):
+            check_not_ported(get_args(["--optimizer", opt]))
+    with pytest.raises(NotImplementedError, match="6d"):
+        check_not_ported(get_args(["--num_workers", "2"]))
 
 
 def test_seeding(no_launch_env):

@@ -4,17 +4,22 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tpudist_torch.comm.collectives import MetricBackend
 from tpudist_torch.data import ShardPlan, make_loader, make_toy_data
+from tpudist_torch.models.split_mlp import split_toy_model
 from tpudist_torch.models.toy_mlp import create_toy_model
 from tpudist_torch.runtime.bootstrap import process_count, process_index
+from tpudist_torch.runtime.mesh import Mesh
+from tpudist_torch.runtime.rank_logging import rank_print
 from tpudist_torch.train import (TrainLoopConfig, build_optimizer_from_args,
                                  init_model_states,
                                  make_multi_model_train_step,
-                                 make_scanned_train_step)
-from tpudist_torch.utils import init_metrics
+                                 make_scanned_train_step, run_training)
+from tpudist_torch.utils import StageTimer, init_metrics, trace
 
 
 def build_two_models(seed: int, device) -> dict:
@@ -35,11 +40,17 @@ def build_loader(args, *, seed: int):
                        num_workers=args.num_workers)
 
 
-def build_training(args, device):
+def build_training(args, mesh: Mesh, *, split: bool = False):
     """Models, optimizers (Adam at ``--lr``, ``demo.py:80-81``, plus the
     shared schedule flags), the per-step and scanned steps, the loader and
-    the loop config."""
-    models = build_two_models(args.seed, device)
+    the loop config.  The models sit on the mesh's replica device, or with
+    ``split`` in layer groups over its replica devices
+    (``split_toy_model``)."""
+    if split:
+        models = {k: split_toy_model(m, mesh.devices)
+                  for k, m in build_two_models(args.seed, "cpu").items()}
+    else:
+        models = build_two_models(args.seed, mesh.devices[0])
     states = init_model_states(
         models, lambda params: build_optimizer_from_args(args, params))
     backend = MetricBackend(args.backend)
@@ -60,13 +71,62 @@ def build_logger(args, default_group: str):
                         dry_run=args.dry_run)
 
 
+def build_checkpointing(args, states):
+    """Checkpoint manager + resume position from the shared CLI contract
+    (``--checkpoint_dir/--checkpoint_every/--resume``; dir defaults to the
+    reference's ``${scratch_dir}/${exp_name}/checkpoints`` when env-set).
+
+    Returns ``(ckpt_manager_or_None, states, start_iteration)``."""
+    from tpudist_torch.checkpoint import (resolve_checkpoint_location,
+                                          setup_checkpointing)
+
+    try:
+        directory = resolve_checkpoint_location(
+            args.checkpoint_dir, save_every=args.checkpoint_every,
+            resume=args.resume)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if directory is None:
+        return None, states, 0
+    return setup_checkpointing(states, directory,
+                               save_every=args.checkpoint_every,
+                               resume=args.resume, seed=args.seed)
+
+
+def train_demo(args, mesh: Mesh, *, group: Optional[str],
+               split: bool = False) -> dict:
+    """The toy demos' shared body (``examples/demo.py:48-70``): build the
+    training under a stage timer, resume from ``--checkpoint_dir`` when
+    asked, and train under the ``--profile_dir`` trace; the final losses.
+    ``group`` is the metrics group (``--group`` wins); ``None`` logs to
+    stdout only (no metrics logger)."""
+    stages = StageTimer()
+    with stages.phase("build_training"):
+        states, step, loader, loop_cfg, chunk_step = build_training(
+            args, mesh, split=split)
+    logger = build_logger(args, group) if group is not None else None
+    with stages.phase("setup_checkpointing"):
+        ckpt, states, start = build_checkpointing(args, states)
+    rank_print(f"stages: {stages.emit()}")
+    with trace(args.profile_dir):
+        states, losses = run_training(
+            states, step, loader, mesh, logger, loop_cfg, chunk_step,
+            ckpt=ckpt, start_iteration=start)
+    loader.close()
+    if ckpt is not None:
+        ckpt.close()
+    return losses
+
+
 def check_not_ported(args) -> None:
-    """Raise on the shared CLI's flags whose parts are not ported yet."""
-    if args.checkpoint_dir or args.checkpoint_every or args.resume:
+    """Raise on the shared CLI's values whose parts are not ported yet,
+    before the process group forms (the loader and the optimizer raise on
+    them too, later)."""
+    if args.num_workers > 0:
         raise NotImplementedError(
-            "--checkpoint_dir / --checkpoint_every / --resume: the "
-            "checkpoint manager is not ported yet (it needs a torch format "
-            "of its own): ROADMAP queue A, item 9")
-    if args.profile_dir:
+            "--num_workers > 0 (the native C++ gather loader) is not ported "
+            "yet: ROADMAP queue A, item 6d")
+    if args.optimizer in ("adafactor", "lion"):
         raise NotImplementedError(
-            "--profile_dir is not ported yet: ROADMAP queue A, item 7b")
+            f"--optimizer {args.optimizer} is not ported yet: ROADMAP queue "
+            "A, item 6e")

@@ -24,20 +24,21 @@ Two ranks on the CPU over gloo (one command per rank, ``RANK`` 0 and 1)::
       python -m tpudist_torch.examples.demo --device cpu --dry_run
 
 Metrics go to ``runs/<group>/metrics.jsonl`` under the working directory.
+``--checkpoint_dir DIR --checkpoint_every N`` saves every N iterations and
+at the end; ``--resume`` continues from the latest step in DIR;
+``--profile_dir DIR`` writes a ``torch.profiler`` trace of the training to
+``DIR/process_<rank>/trace.json``.
 """
 
 from __future__ import annotations
 
-import torch
-
 from tpudist_torch.config import get_args
-from tpudist_torch.examples.common import (build_logger, build_training,
-                                           check_not_ported)
+from tpudist_torch.examples.common import check_not_ported, train_demo
 from tpudist_torch.models.transformer import resolve_device
 from tpudist_torch.runtime import (describe_runtime, initialize,
                                    per_process_seed, resolve_shared_seed,
                                    shutdown)
-from tpudist_torch.train import run_training
+from tpudist_torch.runtime.mesh import data_parallel_mesh
 from tpudist_torch.utils.record import record
 
 
@@ -47,17 +48,12 @@ def main(argv=None) -> dict:
     check_not_ported(args)
     device = resolve_device(args.device)
     ctx = initialize(use_node_rank=args.use_node_rank, device=device)
-    if device.type == "cuda":
-        device = torch.device("cuda", ctx.local_rank)
     args.seed = resolve_shared_seed(args.seed)  # job-wide agreement
+    mesh = data_parallel_mesh(device=device)
     # per-rank seed offset (demo.py:59-60), for anything rank-local; model
     # init and the global shuffle use the shared base seed
-    describe_runtime(ctx, per_process_seed(args.seed), device)
-    states, step, loader, loop_cfg, chunk_step = build_training(args, device)
-    logger = build_logger(args, default_group="demo_dp")
-    states, losses = run_training(states, step, loader, device, logger,
-                                  loop_cfg, chunk_step_fn=chunk_step)
-    loader.close()
+    describe_runtime(ctx, per_process_seed(args.seed), mesh.devices[0])
+    losses = train_demo(args, mesh, group="demo_dp")
     print(f"[rank {ctx.process_id}] final losses: {losses}", flush=True)
     # teardown ordering parity (demo.py:130-136,177-178): the metrics
     # logger finished inside run_training, then the process group goes down

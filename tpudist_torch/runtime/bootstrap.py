@@ -181,9 +181,9 @@ def resolve_process_context(
             raise BootstrapError("OMPI_COMM_WORLD_RANK/SIZE are set but empty")
         coord = None
         if n > 1:
-            # The coordinator address must have been agreed on out-of-band,
-            # by env (the mpi4py broadcast helper of the JAX package's
-            # runtime/mpi_bootstrap.py is not ported: ROADMAP A7a).
+            # The coordinator address must have been agreed on out-of-band:
+            # by env here, or broadcast over MPI first
+            # (runtime/mpi_bootstrap.py exports MASTER_ADDR/MASTER_PORT).
             if "MASTER_ADDR" in env:
                 coord = _coordinator_from_master_env()
             else:
@@ -270,6 +270,13 @@ def host_group():
     """The host (gloo) process group of :func:`initialize`, or ``None``
     when no process group is up."""
     return _HOST_GROUP
+
+
+def local_rank() -> int:
+    """This process's rank on its host: from the context of
+    :func:`initialize`, else from the launch environment."""
+    ctx = _INITIALIZED_CTX or resolve_process_context()
+    return ctx.local_rank
 
 
 def process_index() -> int:

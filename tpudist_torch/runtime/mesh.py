@@ -1,0 +1,163 @@
+"""Named parallel axes over the process group — the counterpart of
+:mod:`tpudist.runtime.mesh`.
+
+The JAX package builds one global ``jax.sharding.Mesh`` over every device
+of the job and names its axes.  In PyTorch the same axes are the process
+group and the devices a process owns, the reference's own shape
+(``demo.py:66``, ``demo_one_model_multi_gpu.py:89-98``):
+
+- ``data`` — the process group: one model replica a rank, DDP averaging
+  the gradients over it;
+- ``model`` — the devices one rank owns, its replica's layer groups placed
+  one group a device (:mod:`tpudist_torch.models.split_mlp`);
+- ``stage`` and ``seq`` (pipeline and sequence parallelism) are not
+  ported yet: ROADMAP queue A, item A6c.
+
+:class:`MeshConfig` is copied from the JAX package and pinned equal to it.
+A :class:`Mesh` is a plain record of the axes, this rank's coordinate on
+the ``data`` axis and the devices of its replica.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from tpudist_torch.runtime.bootstrap import (local_rank, process_count,
+                                             process_index)
+
+AXIS_DATA = "data"
+AXIS_STAGE = "stage"
+AXIS_SEQ = "seq"
+AXIS_MODEL = "model"
+ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
+
+_NOT_PORTED = ("the {} is not ported yet (pipeline and sequence "
+               "parallelism, multi-slice meshes): ROADMAP queue A, item A6c")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Axis sizes; ``-1`` means "absorb all remaining devices"."""
+
+    data: int = -1
+    stage: int = 1
+    seq: int = 1
+    model: int = 1
+
+    def resolve(self, n_devices: int) -> "MeshConfig":
+        sizes = {"data": self.data, "stage": self.stage, "seq": self.seq, "model": self.model}
+        unknown = [k for k, v in sizes.items() if v == -1]
+        fixed = math.prod(v for v in sizes.values() if v != -1)
+        if len(unknown) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        if unknown:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes product {fixed}"
+                )
+            sizes[unknown[0]] = n_devices // fixed
+        if math.prod(sizes.values()) != n_devices:
+            raise ValueError(
+                f"mesh {sizes} does not cover {n_devices} devices"
+            )
+        return MeshConfig(**sizes)
+
+    def axis_sizes(self) -> dict:
+        return {"data": self.data, "stage": self.stage, "seq": self.seq, "model": self.model}
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The axes of a run as one rank sees them: ``shape`` maps each axis
+    name to its size, ``coords`` holds this rank's place on the ``data``
+    axis (the process group), and ``devices`` are the devices of this
+    rank's model replica, one a ``model`` coordinate (repeats allowed)."""
+
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    devices: Tuple[torch.device, ...]
+
+
+def replica_devices(local_rank: int, model_size: int,
+                    device_count: int) -> Tuple[torch.device, ...]:
+    """The ``model_size`` distinct CUDA devices of the rank ``local_rank``
+    on its host, ``cuda:local_rank*model_size + i``; raises when the host
+    has fewer.  No index is taken modulo the count, so two ranks never
+    share a device (SURVEY appendix: ``demo_one_model_multi_gpu.py:90-91``
+    does, and collides)."""
+    if model_size < 1:
+        raise ValueError(f"model axis must be at least 1, got {model_size}")
+    first = local_rank * model_size
+    if first + model_size > device_count:
+        raise ValueError(
+            f"local rank {local_rank} needs devices {first}.."
+            f"{first + model_size - 1} for a model axis of {model_size}, "
+            f"but the host has {device_count}")
+    return tuple(torch.device("cuda", first + i) for i in range(model_size))
+
+
+def _devices(model_size: int, devices, device) -> Tuple[torch.device, ...]:
+    if devices is not None:
+        devices = tuple(torch.device(d) for d in devices)
+        if len(devices) != model_size:
+            raise ValueError(
+                f"{len(devices)} devices given for a model axis of "
+                f"{model_size}: a rank holds one replica's devices")
+        return devices
+    device = torch.device(device)
+    if device.type == "cuda":
+        return replica_devices(local_rank(), model_size,
+                               torch.cuda.device_count())
+    return (device,) * model_size
+
+
+def data_parallel_mesh(devices: Optional[Sequence] = None, *,
+                       device="cuda") -> Mesh:
+    """The 1-D ``data`` mesh over the process group — the DDP default
+    (SURVEY.md §2.4).  The rank's device is ``devices[0]`` when given,
+    else ``cuda:local_rank`` (``demo.py:66``) or the CPU."""
+    devs = _devices(1, devices, device)
+    return Mesh((AXIS_DATA,), {AXIS_DATA: process_count()},
+                {AXIS_DATA: process_index()}, devs)
+
+
+def data_model_mesh(model_size: int = 2,
+                    devices: Optional[Sequence] = None, *,
+                    device="cuda") -> Mesh:
+    """The 2-D ``('data', 'model')`` mesh of the one-model-several-devices
+    demo (``demo_one_model_multi_gpu.py``'s two GPUs a process): ``data``
+    is the process group, ``model`` the ``model_size`` devices this rank
+    owns.  ``devices`` (this rank's replica, taken as given, repeats
+    allowed) or, on CUDA, :func:`replica_devices` for the local rank; on
+    the CPU every stage is the CPU."""
+    devs = _devices(model_size, devices, device)
+    return Mesh((AXIS_DATA, AXIS_MODEL),
+                {AXIS_DATA: process_count(), AXIS_MODEL: model_size},
+                {AXIS_DATA: process_index()}, devs)
+
+
+def make_mesh(config: Optional[MeshConfig] = None, *,
+              devices: Optional[Sequence] = None, device="cuda") -> Mesh:
+    """A mesh from a :class:`MeshConfig` over this job's devices
+    (``model`` a rank, ``data`` the process group): the ``data``/``model``
+    meshes above.  ``stage`` or ``seq`` above 1 is not ported yet (A6c)."""
+    config = config or MeshConfig()
+    if config.stage != 1 or config.seq != 1:
+        raise NotImplementedError(_NOT_PORTED.format("stage / seq axis"))
+    if config.model == -1:
+        raise ValueError("the model axis needs a size: a rank owns the "
+                         "devices of one replica")
+    config.resolve(process_count() * config.model)
+    if config.model == 1:
+        return data_parallel_mesh(devices, device=device)
+    return data_model_mesh(config.model, devices, device=device)
+
+
+def make_hybrid_mesh(*args, **kwargs) -> Mesh:
+    """The multi-slice DCN × ICI mesh of the JAX package: not ported."""
+    raise NotImplementedError(_NOT_PORTED.format("hybrid (DCN x ICI) mesh"))

@@ -15,7 +15,9 @@ losses are reduced on the host group then.  Two paths, chosen as the JAX
 loop chooses (:func:`run_training`): a per-step loop over the loader, and
 the device-cached path, where the dataset sits on the device and one call
 of the scanned step runs a window of iterations from an uploaded index
-window.
+window.  Both save through a checkpoint manager on its cadence and resume
+from a saved iteration, with the JAX loop's semantics (the SIGTERM
+preemption save of the JAX loop belongs to ROADMAP A8 and is not here).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from tpudist_torch.comm.collectives import (MetricBackend, barrier,
 from tpudist_torch.data.loader import ShardedLoader, shard_batch
 from tpudist_torch.data.sharding import epoch_indices
 from tpudist_torch.runtime.bootstrap import process_index
+from tpudist_torch.runtime.mesh import Mesh
 from tpudist_torch.train.step import ModelState
 from tpudist_torch.utils.metrics import MetricsLogger
 
@@ -55,9 +58,15 @@ class TrainLoopConfig:
     device_cache_max_bytes: int = 256 * 1024 * 1024
 
 
-def finalize_run(*, logger, flush=None) -> None:
-    """The run-teardown ordering (``demo.py:130-136``): queued metric rows
-    flushed, ``logger.finish()``, then the end-of-training barrier."""
+def finalize_run(states, *, iteration, epoch, ckpt, logger,
+                 flush=None) -> None:
+    """The run-teardown ordering (``demo.py:130-136``): the final
+    checkpoint save (drained), queued metric rows flushed,
+    ``logger.finish()``, then the end-of-training barrier."""
+    if ckpt is not None:
+        ckpt.save(iteration, states, {"iteration": iteration,
+                                      "epoch": epoch})
+        ckpt.wait_until_finished()
     if flush is not None:
         flush()
     if logger is not None:
@@ -65,14 +74,14 @@ def finalize_run(*, logger, flush=None) -> None:
     barrier("end_of_training")
 
 
-def _make_pbar(config: TrainLoopConfig):
+def _make_pbar(config: TrainLoopConfig, initial: int = 0):
     if not config.progress_bar or process_index() != 0:
         return None
     try:
         from tqdm import tqdm
     except ImportError:
         return None
-    return tqdm(total=config.total_iterations, desc="train")
+    return tqdm(total=config.total_iterations, desc="train", initial=initial)
 
 
 def _host_means(vals: np.ndarray, batch_sizes: np.ndarray) -> np.ndarray:
@@ -122,13 +131,43 @@ class _DeferredMetrics:
                              for k, v in zip(keys, row)}, commit=True)
 
 
+def _placement(device):
+    """The devices of a batch's inputs and targets: a :class:`Mesh`'s
+    replica takes its inputs on its first device and its targets on its
+    last (a split model's last stage computes the loss)."""
+    if isinstance(device, Mesh):
+        return device.devices[0], device.devices[-1]
+    return device, device
+
+
+def _final_losses(config, last, batch_size) -> dict:
+    """The last iteration's global means from its device losses (``{}``
+    when the run took no step, a resume at the budget)."""
+    if last is None:
+        return {}
+    keys = sorted(last)
+    final = _fetch(config, keys, [torch.stack([last[k] for k in keys])],
+                   [batch_size])[-1]
+    return dict(zip(keys, map(float, final)))
+
+
 def run_training(states: Dict[str, ModelState], step_fn: Callable,
                  loader: ShardedLoader, device,
                  logger: Optional[MetricsLogger] = None,
                  config: Optional[TrainLoopConfig] = None,
-                 chunk_step_fn: Optional[Callable] = None):
+                 chunk_step_fn: Optional[Callable] = None, *,
+                 ckpt=None, start_iteration: int = 0):
     """Run to the iteration budget; returns ``(states, final_losses)``
     (the last iteration's global means).
+
+    ``device`` is the process's device, or a
+    :class:`~tpudist_torch.runtime.mesh.Mesh` whose replica devices take
+    the inputs (first) and the targets (last).  ``ckpt`` (a
+    :class:`tpudist_torch.checkpoint.CheckpointManager`) saves on its
+    ``save_every`` cadence and once at the end; ``start_iteration`` (from
+    the restored meta) resumes: whole epochs are skipped arithmetically
+    and the partial epoch by index, so the data continue exactly where the
+    saved run left off (``set_epoch`` semantics, ``demo.py:96-98``).
 
     ``chunk_step_fn`` (from :func:`make_scanned_train_step`) switches to the
     device-cached path when the loader's plan allows it (``distributed``
@@ -147,38 +186,46 @@ def run_training(states: Dict[str, ModelState], step_fn: Callable,
             and loader.dataset.x.nbytes + loader.dataset.y.nbytes
             <= config.device_cache_max_bytes):
         return _run_scanned(states, chunk_step_fn, loader, device, logger,
-                            config)
-    pbar = _make_pbar(config)
+                            config, ckpt, start_iteration)
+    x_dev, y_dev = _placement(device)
+    pbar = _make_pbar(config, initial=start_iteration)
     deferred = _DeferredMetrics(logger, config) if logger is not None \
         else None
-    epoch = iteration = 0
-    last = None  # (batch size, losses)
+    batches_per_epoch = len(loader)
+    epoch = start_iteration // batches_per_epoch
+    iteration = epoch * batches_per_epoch
+    skip = start_iteration - iteration
+    last, bs = None, loader.batch_size  # the last step's losses and batch
     while iteration < config.total_iterations:
         loader.set_epoch(epoch)
-        for x, y in loader:
+        iteration += skip
+        for x, y in loader.iter_from(skip):
             if iteration >= config.total_iterations:
                 break
             bs = x.shape[0]
-            gx, gy = shard_batch((x, y), device)
-            states, losses = step_fn(states, gx, gy)
-            last = (bs, losses)
+            states, losses = step_fn(states, *shard_batch((x,), x_dev),
+                                     *shard_batch((y,), y_dev))
+            last = losses
             if deferred is not None and iteration % config.log_every == 0:
                 deferred.add(iteration, bs, losses)
             iteration += 1
+            if ckpt is not None:
+                ckpt.maybe_save(iteration, states,
+                                {"iteration": iteration, "epoch": epoch})
             if pbar is not None:
                 pbar.update(1)
+        skip = 0
         epoch += 1
     if pbar is not None:
         pbar.close()
-    finalize_run(logger=logger,
+    finalize_run(states, iteration=iteration, epoch=epoch, ckpt=ckpt,
+                 logger=logger,
                  flush=deferred.flush if deferred is not None else None)
-    keys = sorted(last[1])
-    final = _fetch(config, keys, [torch.stack([last[1][k] for k in keys])],
-                   [last[0]])[-1]
-    return states, dict(zip(keys, map(float, final)))
+    return states, _final_losses(config, last, bs)
 
 
-def _run_scanned(states, chunk_step_fn, loader, device, logger, config):
+def _run_scanned(states, chunk_step_fn, loader, device, logger, config,
+                 ckpt, start_iteration):
     """The device-cached loop (see :func:`run_training`).
 
     The per-epoch global permutation is derived on the host as the
@@ -187,8 +234,9 @@ def _run_scanned(states, chunk_step_fn, loader, device, logger, config):
     rank ``r`` takes exactly its shard's batch from each index row."""
     plan = loader.plan
     B = loader.batch_size
-    x_all = torch.from_numpy(loader.dataset.x).to(device)
-    y_all = torch.from_numpy(loader.dataset.y).to(device)
+    x_dev, y_dev = _placement(device)
+    x_all = torch.from_numpy(loader.dataset.x).to(x_dev)
+    y_all = torch.from_numpy(loader.dataset.y).to(y_dev)
     shard_plans = [dataclasses.replace(plan, shard_id=i)
                    for i in range(plan.num_shards)]
     batches_per_epoch = plan.samples_per_shard // B
@@ -198,18 +246,26 @@ def _run_scanned(states, chunk_step_fn, loader, device, logger, config):
         for t in range(batches_per_epoch):
             yield np.concatenate([s[t * B:(t + 1) * B] for s in per_shard])
 
-    pbar = _make_pbar(config)
+    pbar = _make_pbar(config, initial=start_iteration)
     total = config.total_iterations
-    iteration = epoch = 0
+    save_every = ckpt.config.save_every if ckpt is not None else 0
+    iteration = start_iteration
+    epoch, batch_in_epoch = divmod(start_iteration, batches_per_epoch)
     gen = None
     pending = []  # (first iteration, {name: [K] device losses})
     last = None
     while iteration < total:
+        # a window ends at the sync cadence, a save boundary or the budget
         k = min(max(1, config.sync_every), total - iteration)
+        if save_every > 0:
+            k = min(k, save_every - iteration % save_every)
         idx_rows = []
         while len(idx_rows) < k:
             if gen is None:
                 gen = global_batches(epoch)
+                for _ in range(batch_in_epoch):
+                    next(gen)
+                batch_in_epoch = 0
             for row in gen:
                 idx_rows.append(row)
                 if len(idx_rows) == k:
@@ -217,7 +273,7 @@ def _run_scanned(states, chunk_step_fn, loader, device, logger, config):
             else:
                 gen = None
                 epoch += 1
-        idx = torch.from_numpy(np.stack(idx_rows).astype(np.int64)).to(device)
+        idx = torch.from_numpy(np.stack(idx_rows).astype(np.int64)).to(x_dev)
         states, losses = chunk_step_fn(states, x_all, y_all, idx)
         last = losses
         if logger is not None:
@@ -226,17 +282,20 @@ def _run_scanned(states, chunk_step_fn, loader, device, logger, config):
                 _flush_scanned(pending, B, logger, config)
                 pending = []
         iteration += len(idx_rows)
+        if ckpt is not None:
+            ckpt.maybe_save(iteration, states,
+                            {"iteration": iteration, "epoch": epoch})
         if pbar is not None:
             pbar.update(len(idx_rows))
     if pbar is not None:
         pbar.close()
-    finalize_run(logger=logger,
+    finalize_run(states, iteration=iteration, epoch=epoch, ckpt=ckpt,
+                 logger=logger,
                  flush=(lambda: _flush_scanned(pending, B, logger, config))
                  if logger is not None else None)
-    keys = sorted(last)
-    final = _fetch(config, keys, [torch.stack([last[k][-1] for k in keys])],
-                   [B])[-1]
-    return states, dict(zip(keys, map(float, final)))
+    return states, _final_losses(
+        config, None if last is None else {k: v[-1] for k, v in last.items()},
+        B)
 
 
 def _flush_scanned(pending, batch_size, logger, config):

@@ -41,21 +41,35 @@ class ModelState:
     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler] = None
 
 
-def init_model_states(models: Mapping[str, nn.Module], tx: Callable
+def ddp_device_ids(model: nn.Module):
+    """DDP's ``device_ids`` for ``model``: its one CUDA device, or ``None``
+    for a CPU module and for one whose parameters span several devices
+    (``demo_one_model_multi_gpu.py:96-98``)."""
+    devs = {p.device for p in model.parameters()}
+    if len(devs) == 1:
+        (dev,) = devs
+        if dev.type == "cuda":
+            return [dev]
+    return None
+
+
+def init_model_states(models: Mapping[str, nn.Module], tx: Callable, *,
+                      wrap: Optional[Callable[[nn.Module], nn.Module]] = None
                       ) -> Dict[str, ModelState]:
     """``models`` maps name → module; ``tx(params) -> (optimizer,
     scheduler or None)`` builds each model's optimizer (e.g. ``lambda p:
-    build_optimizer_from_args(args, p)``).  Wraps each module in DDP when
+    build_optimizer_from_args(args, p)``).  ``wrap(module)``, when given,
+    is what the step calls in place of the module (a cast around it, whose
+    parameters are the module's).  Wraps each replica in DDP when
     ``torch.distributed`` is initialized."""
     import torch.distributed as dist
 
     states = {}
     for name, model in models.items():
-        replica = model
+        replica = wrap(model) if wrap is not None else model
         if dist.is_initialized():
-            dev = next(model.parameters()).device
             replica = nn.parallel.DistributedDataParallel(
-                model, device_ids=[dev] if dev.type == "cuda" else None)
+                replica, device_ids=ddp_device_ids(model))
         opt, sched = tx(model.parameters())
         states[name] = ModelState(model, replica, opt, sched)
     return states
@@ -132,9 +146,12 @@ def make_scanned_train_step(loss_fn: Callable = mse_loss, *,
                              f"{tuple(idx.shape)}")
         b = idx.shape[1] // n
         mine = idx[:, r * b:(r + 1) * b]
+        # a split model takes its inputs on its first device and its
+        # targets on its last: each is gathered where it lies
+        mx, my = mine.to(x_all.device), mine.to(y_all.device)
         rows = {name: [] for name in states}
         for t in range(idx.shape[0]):
-            xb, yb = x_all[mine[t]], y_all[mine[t]]
+            xb, yb = x_all[mx[t]], y_all[my[t]]
             for name, st in states.items():
                 rows[name].append(_update(st, loss_fn, xb, yb))
         local = {name: torch.stack(v) for name, v in rows.items()}

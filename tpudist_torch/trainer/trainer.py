@@ -1,0 +1,223 @@
+"""High-level Trainer facade — the counterpart of
+:mod:`tpudist.trainer.trainer`, parity with PyTorch Lightning as the
+reference uses it (``demo_pytorch_lightning.py``, SURVEY.md §3.4).
+
+The reference's ``LitToyModel`` holds two models (``:16-25``), sums their
+MSE losses in ``training_step`` (``:27-33``) and returns one Adam per model
+from ``configure_optimizers`` (``:35-40``); ``pl.Trainer(gpus, num_nodes,
+strategy='ddp', precision=32)`` owns the loop, device placement and
+distributed wiring (``:57-60``).  Here the user supplies a
+:class:`TrainerModule` (models, optimizers, loss) and the :class:`Trainer`
+owns the runtime, the mesh, the steps, logging, checkpoints and teardown.
+``strategy``:
+
+- ``'dp'``       the ``data`` mesh, a full replica a rank under DDP
+  (≅ ``strategy='ddp'``);
+- ``'dp_model'`` the ``('data', 'model')`` mesh: each rank owns
+  ``model_parallel`` devices and :meth:`TrainerModule.place_model` puts
+  the model on them (by default whole on the first);
+- ``'fsdp'``, ``'zero1'``, ``'pp'`` are not ported yet (ROADMAP A6c),
+  ``'auto'`` neither (A8, ``plan/``); nor is :class:`LMTrainerModule`
+  (A6 item 6b).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from tpudist_torch.comm.collectives import MetricBackend
+from tpudist_torch.runtime.bootstrap import initialize, shutdown
+from tpudist_torch.runtime.mesh import data_model_mesh, data_parallel_mesh
+from tpudist_torch.runtime.seeding import resolve_shared_seed
+from tpudist_torch.train.loop import TrainLoopConfig, run_training
+from tpudist_torch.train.optim import build_optimizer
+from tpudist_torch.train.step import (init_model_states,
+                                      make_multi_model_train_step,
+                                      make_scanned_train_step, mse_loss)
+from tpudist_torch.utils.metrics import init_metrics
+
+_LAYOUTS_NOT_PORTED = ("fsdp", "zero1", "pp")
+
+
+def _cast_floats(x, dtype):
+    """Cast a float tensor; integer inputs (token ids) pass through."""
+    return x.to(dtype) if torch.is_floating_point(x) else x
+
+
+class BF16Apply(nn.Module):
+    """Mixed precision as the JAX facade's ``_bf16_apply``: f32 master
+    weights, bf16 compute — the parameters and float inputs are cast to
+    bf16 at apply time and the output back to f32, so the gradients reach
+    the f32 masters through the casts.  Not ``torch.autocast``, whose
+    per-op policy computes something else."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = {n: _cast_floats(p, torch.bfloat16)
+                  for n, p in self.module.named_parameters()}
+        out = functional_call(self.module, params,
+                              (_cast_floats(x, torch.bfloat16),))
+        return _cast_floats(out, torch.float32)
+
+
+class TrainerModule:
+    """Subclass and override; the Lightning-``LightningModule`` analog."""
+
+    def configure_models(self, generator: torch.Generator
+                         ) -> Dict[str, nn.Module]:
+        """Return name → ``nn.Module``, drawn from ``generator``.  Called
+        once on every process with a generator seeded by the job's seed
+        (replicated init without broadcast)."""
+        raise NotImplementedError
+
+    def configure_optimizers(self):
+        """Return one optimizer factory ``params -> (optimizer, scheduler
+        or None)``, or a per-model dict of them — the
+        ``configure_optimizers`` returning a list of Adams analog
+        (``demo_pytorch_lightning.py:35-40``);
+        :func:`tpudist_torch.train.build_optimizer` builds one with a
+        schedule."""
+        return functools.partial(build_optimizer, lr=1e-3)
+
+    def loss(self, pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Per-model loss, logged per model (the reference's
+        ``training_step`` sums loss_X + loss_Y, ``:27-33``)."""
+        return mse_loss(pred, target)
+
+    def place_model(self, mesh, model: nn.Module) -> nn.Module:
+        """Where a model lives under ``strategy='dp_model'`` (and ``'dp'``):
+        by default whole on the replica's first device, as the JAX facade
+        replicates when its ``state_sharding`` hook returns ``None``; a
+        module may split it over ``mesh.devices``
+        (:func:`tpudist_torch.models.split_mlp.split_toy_model`)."""
+        return model.to(mesh.devices[0])
+
+
+class LMTrainerModule(TrainerModule):
+    """The LM family's module (one transformer, token batches): not ported
+    yet — ROADMAP queue A, item 6b."""
+
+
+@dataclasses.dataclass
+class Trainer:
+    max_steps: int = 1000  # demo_pytorch_lightning.py:48 (1000 steps)
+    # 'dp' | 'dp_model' (ported) | 'fsdp' | 'zero1' | 'pp' (A6c) | 'auto'
+    # (A8, plan/)
+    strategy: str = "dp"
+    model_parallel: int = 2
+    # fsdp/zero1 and pp knobs of the JAX facade, kept for its signature
+    # (their strategies are A6c)
+    shard_min_size: int = 1024
+    pipeline_stages: int = 2
+    pp_schedule: str = "1f1b"
+    pp_chunks: int = 2
+    microbatches: Optional[int] = None
+    precision: str = "fp32"  # 'fp32' (reference precision=32) | 'bf16'
+    log_every: int = 1
+    metric_backend: MetricBackend = MetricBackend.ICI
+    project: str = "tpudist"
+    group: Optional[str] = None
+    dry_run: bool = False
+    seed: Optional[int] = 0  # None → rank-0 draw broadcast job-wide
+    use_node_rank: bool = False
+    progress_bar: bool = True
+    # Checkpointing (the demos' --checkpoint_dir/--checkpoint_every/--resume
+    # contract, reference dir layout job_submitter.sh:157-159): a directory
+    # enables periodic saves; resume=True restores the latest step and
+    # continues the loop from its saved iteration.
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    resume: bool = False
+    device: str = "cuda"  # 'cuda' (raises without CUDA) or 'cpu'
+
+    def _check_ported(self, module) -> None:
+        if isinstance(module, LMTrainerModule):
+            raise NotImplementedError(
+                "LMTrainerModule (the Trainer's LM path) is not ported yet: "
+                "ROADMAP queue A, item 6b")
+        if self.strategy == "auto":
+            raise NotImplementedError(
+                "strategy='auto' (the measurement-driven planner, plan/) is "
+                "not ported yet: ROADMAP queue A, item A8")
+        if self.strategy in _LAYOUTS_NOT_PORTED:
+            raise NotImplementedError(
+                f"strategy={self.strategy!r} is not ported yet (sharded "
+                "and pipelined layouts, parallel/): ROADMAP queue A, item "
+                "A6c")
+        if self.strategy not in ("dp", "dp_model"):
+            raise ValueError(f"unknown strategy {self.strategy!r}")
+        if self.precision not in ("fp32", "bf16"):
+            raise ValueError(f"unknown precision {self.precision!r}")
+
+    def fit(self, module: TrainerModule, loader) -> Dict[str, float]:
+        """Own the whole run: init runtime, build mesh + steps, train,
+        save.  Returns the final per-model losses; the trained states are
+        on ``self.final_states``."""
+        from tpudist_torch.checkpoint import (resolve_checkpoint_location,
+                                              setup_checkpointing)
+        from tpudist_torch.models.transformer import resolve_device
+
+        # Resolve (and validate resume config) before any runtime side
+        # effects — same env-contract resolution as the plain demos.
+        ckpt_dir = resolve_checkpoint_location(
+            self.checkpoint_dir, save_every=self.checkpoint_every,
+            resume=self.resume,
+        )
+        self._check_ported(module)
+        device = resolve_device(self.device)
+        initialize(use_node_rank=self.use_node_rank, device=device)
+        seed = resolve_shared_seed(self.seed)
+        if self.strategy == "dp":
+            mesh = data_parallel_mesh(device=device)
+        else:
+            mesh = data_model_mesh(self.model_parallel, device=device)
+
+        models = module.configure_models(torch.Generator().manual_seed(seed))
+        models = {k: module.place_model(mesh, m) for k, m in models.items()}
+        tx = module.configure_optimizers()
+        wrap = BF16Apply if self.precision == "bf16" else None
+        states = {}
+        for name, model in models.items():
+            states.update(init_model_states(
+                {name: model}, tx[name] if isinstance(tx, dict) else tx,
+                wrap=wrap))
+        step = make_multi_model_train_step(
+            module.loss, metric_backend=self.metric_backend)
+        chunk_step = make_scanned_train_step(
+            module.loss, metric_backend=self.metric_backend)
+
+        ckpt = None
+        start_iteration = 0
+        if ckpt_dir is not None:
+            ckpt, states, start_iteration = setup_checkpointing(
+                states, ckpt_dir, save_every=self.checkpoint_every,
+                resume=self.resume, seed=seed)
+        logger = init_metrics(project=self.project,
+                              group=self.group or "trainer",
+                              dry_run=self.dry_run)
+        cfg = TrainLoopConfig(total_iterations=self.max_steps,
+                              log_every=self.log_every,
+                              metric_backend=self.metric_backend,
+                              progress_bar=self.progress_bar)
+        try:
+            states, losses = run_training(
+                states, step, loader, mesh, logger, cfg, chunk_step,
+                ckpt=ckpt, start_iteration=start_iteration)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+        self.final_states = states
+        return losses
+
+    @staticmethod
+    def teardown():
+        shutdown()
