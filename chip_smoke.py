@@ -161,7 +161,22 @@ order; any failure exits non-zero:
    trip (600 steps saving every 200, ``--resume`` to 1000) whose rows
    601-1000 equal the unbroken fp32 run's within ``RESUME_RTOL``; and a
    ``--profile_dir`` run of the demo whose trace holds the card's kernels.
-   Each prints its wall time and losses.
+   Each prints its wall time and losses;
+15. the LM entry point whole (:func:`lm_entry_subprocess`,
+   :func:`lm_entry_in_process`): on a corpus of increment chains (40
+   batches of 8 x 2048 tokens and a 10% held-out tail), ``python -m
+   tpudist_torch.examples.demo_long_context`` at phase 7's geometry with
+   remat ``dots``, ``--num_workers 2``, eval every 10 and ``--generate 16``
+   as a subprocess under the torchrun contract at world size 1 (NCCL, DDP):
+   the loss falls, the eval rows are finite, the tokens print.  Then the
+   same configuration in this process: under remat the flash forward
+   launches 16 times a step and dq and dk/dv 8 (counts zeroed just before,
+   all on the wgmma arms), fed by the native pool (which must build) and
+   the device prefetch; step ms, tokens/s, MFU and idle share with the pool
+   and prefetch and with the synchronous loader; every greedy token of
+   ``--generate`` equal to the training forward's arg-max or at a near tie;
+   peak memory under each remat policy below phase 7's; remat's gradients
+   equal the plain step's bit for bit; adafactor and lion lower the loss.
 
 It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path) and
@@ -318,6 +333,21 @@ TRAINER_LAST_MAX = 0.375
 # same kernels on the same data from the same state)
 RESUME_RTOL = 1e-6
 PROFILE_ITERATIONS = 50
+# phase 15: the LM entry point whole at phase 7's geometry.  The corpus:
+# 360 windows of 2048 increment-chain tokens at vocab 256 (seed 15), 36 held
+# out (--eval_fraction 0.1), 324 training windows = 40 batches of 8 and 4
+LM_CORPUS_WINDOWS, LM_CORPUS_SEED = 360, 15
+LM_STEPS = 30
+LM_FLAGS = ["--remat", "--remat_policy", "dots", "--num_workers", "2",
+            "--eval_fraction", "0.1", "--eval_every", "10",
+            "--generate", "16"]
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch")
+# phase 15's optimizer runs: 10 steps each; adafactor's update is scaled by
+# the parameter's RMS (~0.03 at d 1024), so its lr is 1e-2 for a step of
+# Adam's size; lion at a third of Adam's 3e-4 (its sign update moves every
+# weight by the full lr)
+OPT_STEPS = 10
+OPT_LR = {"adafactor": "1e-2", "lion": "1e-4"}
 
 
 def log(msg: str) -> None:
@@ -2899,6 +2929,256 @@ def trainer_path() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM entry point whole
+
+
+def write_chain_corpus(path: str) -> str:
+    """``LM_CORPUS_WINDOWS`` windows of 2048 increment-chain tokens at vocab
+    256 from ``LM_CORPUS_SEED``, one flat ``.npy`` stream."""
+    import numpy as np
+
+    starts = np.random.default_rng(LM_CORPUS_SEED).integers(
+        0, 256, size=(LM_CORPUS_WINDOWS, 1))
+    tokens = (starts + np.arange(2048)[None]) % 256
+    np.save(path, tokens.astype(np.uint16).ravel())
+    return path
+
+
+def lm_entry_subprocess(corpus: str) -> dict:
+    """Phase 15a: ``python -m tpudist_torch.examples.demo_long_context`` at
+    phase 7's geometry with ``LM_FLAGS`` (remat ``dots``, the native pool,
+    eval every 10, ``--generate 16``) on ``corpus`` for ``LM_STEPS``, a
+    subprocess under the torchrun contract at world size 1 (NCCL, DDP, the
+    loss all-reduce).  It must exit 0 with one row an iteration, its loss
+    falling 0.1 nat (the mean of the last 5 against the first), finite eval
+    rows at iterations 0, 10 and 20, and the prompt and its 16 generated
+    tokens printed."""
+    out, wall, rows = run_module(
+        "tpudist_torch.examples.demo_long_context",
+        TRAIN_ARGS + LM_FLAGS + ["--data_path", corpus, "--dry_run",
+                                 "--total_iterations", str(LM_STEPS)],
+        torchrun_env(), timeout=600)
+    rows = rows["demo_long_context"]
+    lm = [r["loss/lm"] for r in rows]
+    evals = {r["iteration"]: r["loss/eval"] for r in rows
+             if "loss/eval" in r}
+    m = re.search(r"prompt (\[[^\]]*\]) -> (\[[^\]]*\])", out)
+    res = dict(wall_s=wall, rows=len(rows), first=lm[0] if lm else None,
+               last=lm[-1] if lm else None,
+               last5_mean=statistics.mean(lm[-5:]) if lm else None,
+               evals=evals, banner=[line for line in out.splitlines()
+                                    if "launch=" in line],
+               prompt=json.loads(m.group(1)) if m else None,
+               generated=json.loads(m.group(2)) if m else None)
+    if "launch=torchrun" not in out or "backend=nccl" not in out:
+        raise AssertionError(f"the LM entry point did not run on the NCCL "
+                             f"group: {res['banner']}")
+    if len(rows) != LM_STEPS or not all(map(math.isfinite, lm)) or \
+            res["last5_mean"] > lm[0] - 0.1:
+        raise AssertionError(f"the LM entry point did not converge: {res}")
+    if sorted(evals) != [0, 10, 20] or not all(
+            map(math.isfinite, evals.values())):
+        raise AssertionError(f"the eval rows are missing or not finite: "
+                             f"{evals}")
+    if m is None or len(res["generated"]) != 16:
+        raise AssertionError(f"--generate printed no 16 tokens: "
+                             f"{out[-1500:]}")
+    return res
+
+
+def lm_args(corpus: str, *extra):
+    from tpudist_torch.examples.demo_long_context import get_args
+
+    return get_args(TRAIN_ARGS + ["--data_path", corpus, "--eval_fraction",
+                                  "0.1", "--total_iterations",
+                                  str(LM_STEPS), *extra])
+
+
+def lm_training(torch, args):
+    """The entry point's model, optimizer and step for ``args``."""
+    from tpudist_torch.examples.demo_long_context import build_model
+    from tpudist_torch.train import (build_optimizer_from_args,
+                                     make_lm_train_step)
+
+    model = build_model(args, "cuda")
+    opt, sched = build_optimizer_from_args(args, model.parameters())
+    return model, make_lm_train_step(model, opt, scheduler=sched)
+
+
+def lm_loop(torch, step, next_batch, n: int) -> tuple:
+    """``n`` steps on ``next_batch()``, synchronized once at the end:
+    the host-clock ms per step and the losses."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(next_batch()) for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, [float(x) for x in losses]
+
+
+def lm_throughput(torch, args, ms: float) -> dict:
+    from tpudist_torch.utils.flops import mfu, transformer_train_flops
+
+    flops = transformer_train_flops(
+        batch=args.batch_size, seq_len=args.seq_len, d_model=args.d_model,
+        n_layers=args.n_layers, d_ff=args.d_ff, vocab=args.vocab)
+    return dict(step_ms=ms, tokens_per_s=args.batch_size * args.seq_len
+                / (ms / 1e3),
+                mfu=mfu(flops, ms / 1e3, 1, peak_per_chip=H100_BF16_FLOPS))
+
+
+def lm_entry_in_process(torch, corpus: str, phase7_peak_gb: float) -> dict:
+    """Phase 15b: the entry point's configuration in this process.
+
+    - The native pool feeds ``prefetch_to_device`` (``native_available()``,
+      the loader a ``PrefetchingTokenBatches``); with counts zeroed after 3
+      warm-up steps, ``LM_STEPS`` steps under remat ``dots`` launch the
+      flash forward 16 times a step (8 layers, each recomputed) and dq and
+      dk/dv 8 times, every launch on the wgmma arms.
+    - Step ms, tokens/s, MFU and the idle share of 5 steps
+      (:func:`device_profile`), fed by the pool and the prefetch, then by
+      the synchronous loader with a copy a step (measured, no claim).
+    - ``--generate 16`` from the corpus prompt: each greedy token equals
+      the arg-max of the training forward over the sequence so far, or
+      that forward's top-2 logits lie within ``NEAR_TIE_GAP``.
+    - Peak memory and step ms under each remat policy (4 steps from a
+      fresh model, peak statistics reset after building, as phase 7), each
+      peak below phase 7's.
+    - One step's gradients with remat ``dots`` against the same step
+      without remat, same weights and batch: equal bit for bit.
+    - ``OPT_STEPS`` steps of adafactor and of lion: the mean of the last 3
+      losses below the first by 0.05 nat."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.data import prefetch_to_device
+    from tpudist_torch.data.native_loader import native_available
+    from tpudist_torch.examples.demo_long_context import open_corpus
+    from tpudist_torch.models import generate, lm_loss
+
+    res = {}
+    args = lm_args(corpus, "--remat", "--remat_policy", "dots",
+                   "--num_workers", "2")
+    if not native_available():
+        raise AssertionError("the native gather pool did not build on the "
+                             "card's machine")
+    model, step = lm_training(torch, args)
+    windows, stream, _ = open_corpus(args)
+    res["loader"] = type(stream).__name__
+    if res["loader"] != "PrefetchingTokenBatches":
+        raise AssertionError(f"--num_workers 2 gave {res['loader']}, not "
+                             f"the native pool's loader")
+    batches = prefetch_to_device(stream, "cuda")
+    lm_loop(torch, step, lambda: next(batches), 3)
+    ops.reset_launch_counts()
+    ms, losses = lm_loop(torch, step, lambda: next(batches), LM_STEPS)
+    counts = ops.launch_counts()
+    wgmma = {n: ops.KERNEL_WRAPPERS[n].launches_wgmma for n in TRAIN_KERNELS}
+    res["remat_launches"] = {n: counts[n] for n in TRAIN_KERNELS}
+    res["remat_launches_wgmma"] = wgmma
+    per_step = {"flash_forward": 16, "flash_backward_dq": 8,
+                "flash_backward_dkv": 8}
+    for name, k in per_step.items():
+        if counts[name] != k * LM_STEPS or wgmma[name] != k * LM_STEPS:
+            raise AssertionError(
+                f"{name} launched {counts[name]} times ({wgmma[name]} on "
+                f"the wgmma arm), not {k} x {LM_STEPS} under remat")
+    res["losses"] = losses
+    if statistics.mean(losses[-5:]) > losses[0] - 0.1:
+        raise AssertionError(f"the in-process run did not converge: "
+                             f"{losses}")
+    res["prefetch"] = dict(lm_throughput(torch, args, ms), idle=device_profile(
+        torch, lambda: [step(next(batches)) for _ in range(5)],
+        lambda: None))
+    _, sync_stream, _ = open_corpus(lm_args(corpus, "--remat",
+                                            "--remat_policy", "dots"))
+
+    def sync_batch():
+        return torch.from_numpy(next(sync_stream)).cuda()
+
+    sync_ms, _ = lm_loop(torch, step, sync_batch, 10)
+    res["sync"] = dict(lm_throughput(torch, args, sync_ms),
+                       idle=device_profile(
+                           torch, lambda: [step(sync_batch())
+                                           for _ in range(5)],
+                           lambda: None))
+    batches.close()
+    stream.close()
+
+    prompt = torch.from_numpy(windows.gather(np.zeros(1, np.int64))[:, :8])
+    out = generate(model, prompt.cuda(), 16)
+    with torch.no_grad():
+        logits = model(out[:, :-1])[0].float()  # row t predicts token t+1
+    ties = []
+    for t in range(8, 24):
+        want = int(logits[t - 1].argmax())
+        if want != int(out[0, t]):
+            top = logits[t - 1].topk(2).values
+            ties.append((t, float(top[0] - top[1])))
+    res["generate"] = dict(prompt=prompt[0].tolist(),
+                           tokens=out[0, 8:].tolist(), ties=ties)
+    if any(gap > NEAR_TIE_GAP for _, gap in ties):
+        raise AssertionError(f"--generate left the full forward's arg-max "
+                             f"at no near tie: {ties}")
+    del model, step, batches
+    torch.cuda.empty_cache()
+
+    fixed = [torch.from_numpy(next(sync_stream)).cuda() for _ in range(4)]
+    res["policies"] = {}
+    for policy in REMAT_POLICIES:
+        model, step = lm_training(torch, lm_args(
+            corpus, "--remat", "--remat_policy", policy))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for tokens in fixed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        res["policies"][policy] = dict(peak_mem_gb=peak,
+                                       step_ms=statistics.median(times[1:]))
+        del model, step
+        torch.cuda.empty_cache()
+        if peak >= phase7_peak_gb:
+            raise AssertionError(f"remat {policy} peaks at {peak:.2f} GB, "
+                                 f"not below phase 7's {phase7_peak_gb:.2f}")
+
+    grads = {}
+    for remat in (False, True):
+        extra = ["--remat", "--remat_policy", "dots"] if remat else []
+        model, _ = lm_training(torch, lm_args(corpus, *extra))
+        lm_loss(model(fixed[0]), fixed[0]).backward()
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    diff = max(float((grads[True][n] - grads[False][n]).abs().max())
+               for n in grads[False])
+    equal = all(torch.equal(grads[True][n], grads[False][n])
+                for n in grads[False])
+    res["remat_grads"] = dict(bit_for_bit=equal, max_abs_diff=diff,
+                              params=len(grads[False]))
+    del grads
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError(f"remat's gradients leave the plain step's: "
+                             f"{res['remat_grads']}")
+
+    res["optimizers"] = {}
+    for opt in ("adafactor", "lion"):
+        model, step = lm_training(torch, lm_args(
+            corpus, "--optimizer", opt, "--lr", OPT_LR[opt]))
+        _, losses = lm_loop(torch, step, sync_batch, OPT_STEPS)
+        res["optimizers"][opt] = losses
+        del model, step
+        torch.cuda.empty_cache()
+        if statistics.mean(losses[-3:]) > losses[0] - 0.05:
+            raise AssertionError(f"{opt} did not lower the loss in "
+                                 f"{OPT_STEPS} steps: {losses}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -3112,6 +3392,42 @@ def main(argv=None) -> int:
         f"{p['wall_s']:.1f} s of process wall, trace {p['trace_bytes']} "
         f"bytes, {p['kernel_events']} kernel events")
 
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = write_chain_corpus(os.path.join(tmp, "chains.npy"))
+        lm_sub = lm_entry_subprocess(corpus)
+        lm_in = lm_entry_in_process(torch, corpus, train["peak_mem_gb"])
+    log(f"LM entry point (d1024 bf16, remat dots, --num_workers 2, eval "
+        f"every 10, --generate 16; world 1 under the torchrun contract, "
+        f"NCCL): {lm_sub['rows']} rows in {lm_sub['wall_s']:.1f} s of "
+        f"process wall ({card}); loss {lm_sub['first']:.4f} -> "
+        f"{lm_sub['last']:.4f} (mean of the last 5 "
+        f"{lm_sub['last5_mean']:.4f}); eval {lm_sub['evals']}; prompt "
+        f"{lm_sub['prompt']} -> {lm_sub['generated']}")
+    log(f"LM in process: loader {lm_in['loader']}; launches under remat "
+        f"({LM_STEPS} steps) {lm_in['remat_launches']}, on the wgmma arms "
+        f"{lm_in['remat_launches_wgmma']}")
+    for mode in ("prefetch", "sync"):
+        r = lm_in[mode]
+        log(f"LM step, remat dots, {mode} feed ({card}): "
+            f"{r['step_ms']:.2f} ms = {r['tokens_per_s']:.0f} tokens/s, MFU "
+            f"{r['mfu']:.4f}; 5 steps profiled: device busy "
+            f"{r['idle']['device_busy_ms']} ms of "
+            f"{r['idle']['profiled_wall_ms']:.2f}, idle share "
+            f"{r['idle']['idle_share']}")
+    for policy, r in lm_in["policies"].items():
+        log(f"remat {policy}: peak memory {r['peak_mem_gb']:.2f} GB (phase "
+            f"7 without remat {train['peak_mem_gb']:.2f}), step "
+            f"{r['step_ms']:.2f} ms ({card})")
+    g = lm_in["remat_grads"]
+    log(f"remat dots gradients vs no remat: bit for bit {g['bit_for_bit']} "
+        f"over {g['params']} parameters (max abs diff {g['max_abs_diff']})")
+    log(f"--generate: {lm_in['generate']}")
+    for opt, losses in lm_in["optimizers"].items():
+        log(f"{opt} ({OPT_STEPS} steps, lr {OPT_LR[opt]}): losses "
+            f"{[round(x, 4) for x in losses]}")
+
     kernels = []
     launches = dict(main_path["launches"])
     launches.update({n: train["launches"][n] for n in flash_rec})
@@ -3181,6 +3497,7 @@ def main(argv=None) -> int:
                                       adapter_moves=ad_moved),
                   fused_mlp_cases=mlp_cases, demos=demos, benches=benches,
                   split=split, mpi=mpi, trainer=trainer,
+                  lm_entry=dict(subprocess=lm_sub, in_process=lm_in),
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1193,3 +1193,94 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             sa, sb = whole[n].optimizer.state[p], resumed[n].optimizer.state[q]
             assert torch.equal(sa["exp_avg"], sb["exp_avg"])
             assert torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+
+
+def test_prefetch_to_device_on_the_card(cuda):
+    """``prefetch_to_device`` onto the card yields tensors equal to the
+    source's, in order, with a pinned buffer never refilled before its copy
+    landed: a spin on the side stream holds every copy back while the drain
+    thread cycles through its 5 buffers (``host_buffer + depth + 2``) for 12
+    batches, so a refill that did not wait on the copy's event would land
+    a later batch in an earlier one's copy."""
+    from tpudist_torch.data import prefetch_to_device
+
+    src = [np.full((256, 4096), i, np.int32) for i in range(12)]
+    it = prefetch_to_device(iter(src), cuda, depth=2, host_buffer=1)
+    with torch.cuda.stream(it.stream):
+        torch.cuda._sleep(400_000_000)  # ~0.2 s at the H100's ~2 GHz
+    got = list(it)
+    assert len(got) == len(src)
+    for i, t in enumerate(got):
+        assert t.device.type == "cuda"
+        assert torch.equal(t.cpu(), torch.from_numpy(src[i])), i
+    pairs = prefetch_to_device(((a, a[:1]) for a in src[:3]), cuda)
+    for i, (x, y) in enumerate(pairs):
+        assert int(x[0, 0]) == int(y[0, 0]) == i
+    it.close()
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots", "dots_no_batch"])
+def test_remat_launches_and_gradients_on_the_card(cuda, policy):
+    """A step under remat recomputes every flash forward in the backward:
+    per layer two forward launches, one dq and one dk/dv, all on the wgmma
+    arm (bf16, head dim 64); its gradients equal the step without remat bit
+    for bit (the recompute repeats the same deterministic kernels)."""
+    from tpudist_torch.models import create_transformer, lm_loss
+
+    geom = dict(vocab=64, d_model=128, n_layers=2, n_heads=2, d_ff=256,
+                max_len=256)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 64, (2, 256)).astype(np.int32)).to(cuda)
+    grads = {}
+    for remat in (False, True):
+        model = create_transformer(0, device=cuda, dtype=torch.bfloat16,
+                                   param_dtype=torch.float32, trainable=True,
+                                   remat=remat, remat_policy=policy, **geom)
+        reset_launch_counts()
+        lm_loss(model(tokens), tokens).backward()
+        counts = launch_counts()
+        want = {"flash_forward": 4 if remat else 2, "flash_backward_dq": 2,
+                "flash_backward_dkv": 2}
+        for name, n in want.items():
+            assert counts[name] == n, (name, counts[name])
+        assert flash_forward.launches_wgmma == want["flash_forward"]
+        assert flash_backward_dq.launches_wgmma == 2
+        assert flash_backward_dkv.launches_wgmma == 2
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+    for name, g in grads[False].items():
+        assert torch.equal(grads[True][name], g), name
+
+
+@pytest.mark.parametrize("opt", ["adafactor", "lion"])
+def test_optimizer_steps_on_the_card_equal_the_cpu(cuda, opt):
+    """Five adafactor or lion steps (warmup-cosine, global-norm clip, decay
+    0.1) on tensors on the card against the same steps on the CPU, which
+    ``tests/test_torch_train.py`` holds to optax: the same bound,
+    ``rtol 1e-6, atol 1e-7`` (the same f32 formulas; the means and norms
+    sum in another order)."""
+    from tpudist_torch.train import build_optimizer
+
+    r = np.random.default_rng(12)
+    shapes = {"m": (128, 130), "w": (4, 3), "b": (3,)}
+    init = {k: r.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (r.normal(size=s) * 3).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(5)]
+    kw = dict(optimizer=opt, schedule="warmup_cosine", warmup_steps=2,
+              total_steps=8, grad_clip=1.0, weight_decay=0.1)
+    sides = {}
+    for dev in ("cpu", cuda):
+        params = {k: torch.tensor(v, device=dev, requires_grad=True)
+                  for k, v in init.items()}
+        sides[str(dev)] = (params, *build_optimizer(list(params.values()),
+                                                    1e-2, **kw))
+    for g in grads:
+        for params, o, sched in sides.values():
+            for k, p in params.items():
+                p.grad = torch.from_numpy(g[k].copy()).to(p.device)
+            o.step()
+            sched.step()
+        cpu, card = sides["cpu"][0], sides[str(cuda)][0]
+        for k in shapes:
+            np.testing.assert_allclose(card[k].detach().cpu().numpy(),
+                                       cpu[k].detach().numpy(), rtol=1e-6,
+                                       atol=1e-7, err_msg=k)

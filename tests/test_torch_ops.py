@@ -236,7 +236,8 @@ def test_port_imports_no_jax():
     package."""
     files = sorted((REPO / "tpudist_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
-              REPO / "tests" / "torch_flash_faults.py"]
+              REPO / "tests" / "torch_flash_faults.py",
+              REPO / "tests" / "torch_lm_feed.py"]
     assert len(files) > 10
     bad = []
     for path in files:

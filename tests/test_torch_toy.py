@@ -64,7 +64,7 @@ from tpudist_torch.config import get_args
 from tpudist_torch.data import (ShardedLoader, ShardPlan, make_loader,
                                 make_toy_data, shard_batch)
 from tpudist_torch.data.sharding import epoch_indices
-from tpudist_torch.examples.common import check_not_ported
+from tpudist_torch.data.native_loader import PrefetchingLoader
 from tpudist_torch.examples.demo import main as demo_main
 from tpudist_torch.models import ToyMLP, create_toy_model, \
     toy_params_from_flax
@@ -149,8 +149,13 @@ def test_shard_batch_and_loader_factory():
     assert torch.equal(ty, torch.from_numpy(y))
     plan = ShardPlan(num_samples=8, num_shards=1, shard_id=0)
     assert isinstance(make_loader(make_toy_data(8), 4, plan), ShardedLoader)
-    with pytest.raises(NotImplementedError, match="6d"):
-        make_loader(make_toy_data(8), 4, plan, num_workers=2)
+    # num_workers > 0: the native gather pool, the same batches
+    pooled = make_loader(make_toy_data(8), 4, plan, num_workers=2)
+    assert isinstance(pooled, PrefetchingLoader)
+    for (gx, gy), (wx, wy) in zip(pooled, make_loader(make_toy_data(8), 4,
+                                                      plan)):
+        assert np.array_equal(gx, wx) and np.array_equal(gy, wy)
+    pooled.close()
 
 
 CONTRACTS = {
@@ -239,18 +244,22 @@ def test_cli_equals_jax(argv):
 
 
 def test_unported_flags_raise():
-    # checkpoints (A9) and --profile_dir (A7b) are ported: accepted now
-    assert check_not_ported(get_args(
-        ["--checkpoint_dir", "c", "--checkpoint_every", "3", "--resume",
-         "--profile_dir", "p"])) is None
-    for opt in ("adafactor", "lion"):
-        with pytest.raises(NotImplementedError, match="6e"):
-            build_optimizer_from_args(get_args(["--optimizer", opt]),
-                                      [torch.zeros(2, requires_grad=True)])
-        with pytest.raises(NotImplementedError, match="6e"):
-            check_not_ported(get_args(["--optimizer", opt]))
-    with pytest.raises(NotImplementedError, match="6d"):
-        check_not_ported(get_args(["--num_workers", "2"]))
+    """Nothing of the shared CLI is refused any more: adafactor and lion
+    (6e) build their optimizers, ``--num_workers`` (6d) the native pool's
+    loader, as checkpoints (A9) and ``--profile_dir`` (A7b) before them."""
+    from tpudist_torch.train.optim import Adafactor, Lion
+
+    for opt, cls in (("adafactor", Adafactor), ("lion", Lion)):
+        built, _ = build_optimizer_from_args(
+            get_args(["--optimizer", opt]),
+            [torch.zeros(2, requires_grad=True)])
+        assert isinstance(built, cls)
+    args = get_args(["--num_workers", "2", "--batch_size", "4"])
+    plan = ShardPlan(num_samples=8, num_shards=1, shard_id=0)
+    loader = make_loader(make_toy_data(8), args.batch_size, plan,
+                         num_workers=args.num_workers)
+    assert isinstance(loader, PrefetchingLoader)
+    loader.close()
 
 
 def test_seeding(no_launch_env):

@@ -190,7 +190,9 @@ def test_bf16_apply_casts_and_reaches_the_masters():
     """The wrapped module computes on bf16 copies, returns f32, and its
     gradients land on the f32 parameters."""
     model = ToyMLP()
-    torch.nn.init.normal_(model.dense_0.kernel)
+    gen = torch.Generator().manual_seed(0)
+    for p in model.parameters():  # ToyMLP() leaves its kernels unset
+        torch.nn.init.normal_(p, generator=gen)
     wrapped = BF16Apply(model)
     x = torch.randn(8, 2)
     out = wrapped(x)
@@ -209,12 +211,16 @@ def test_bf16_apply_casts_and_reaches_the_masters():
 def test_unported_strategies_raise(no_launch_env, strategy, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(strategy=strategy, device="cpu").fit(TrainerModule(), None)
-    with pytest.raises(NotImplementedError, match="6b"):
+    # the LM path (6b) is ported: an LM module reaches configure_lm
+    with pytest.raises(NotImplementedError):
         Trainer(device="cpu").fit(LMTrainerModule(), None)
+    with pytest.raises(NotImplementedError, match=item):
+        Trainer(strategy=strategy, device="cpu").fit(LMTrainerModule(), None)
     with pytest.raises(ValueError, match="unknown strategy"):
         Trainer(strategy="ddp", device="cpu").fit(TrainerModule(), None)
     if strategy != "auto":
-        with pytest.raises(NotImplementedError, match="6b"):
+        # the demo trains the LM module under these layouts: A6c
+        with pytest.raises(NotImplementedError, match="A6c"):
             trainer_main(["--device", "cpu", "--strategy", strategy])
 
 

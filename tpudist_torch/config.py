@@ -11,11 +11,11 @@ Flag parity with the reference's ``argument_parser.py``:
   gloo/mpi→host).  Gradients always reduce in DDP on the device group.
 - ``--torchrun`` — a no-op: the launch contract is detected from the
   environment.
-- ``--use_node_rank``, ``--seed``, ``--num_workers``, ``--dry_run`` as in the
-  reference; ``--total_iterations``, ``--batch_size``, ``--lr`` and the
-  schedule/optimizer flags; ``--profile_dir``, ``--checkpoint_dir``,
-  ``--checkpoint_every`` and ``--resume`` parse as in the JAX package, and
-  the entry points raise on them (not ported yet).
+- ``--use_node_rank``, ``--seed``, ``--num_workers`` (> 0: the native C++
+  gather pool), ``--dry_run`` as in the reference; ``--total_iterations``,
+  ``--batch_size``, ``--lr`` and the schedule/optimizer flags (adam, adamw,
+  adafactor, lion); ``--profile_dir``, ``--checkpoint_dir``,
+  ``--checkpoint_every`` and ``--resume`` as in the JAX package.
 - ``--device`` — ``cuda`` (default; raises without CUDA) or ``cpu``.
 """
 
@@ -47,8 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "runtime init and broadcasts it (see "
                         "runtime.seeding.resolve_shared_seed)")
     p.add_argument("--num_workers", default=0, type=int,
-                   help=">0: background batch assembly (not ported); 0: "
-                        "synchronous numpy loader")
+                   help=">0: background batch assembly on the native "
+                        "gather pool; 0: synchronous numpy loader")
     p.add_argument("--dry_run", action="store_true",
                    help="offline metrics (no wandb network/credentials)")
     p.add_argument("--total_iterations", default=1000, type=int)
@@ -75,8 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--project", default="tpudist", type=str)
     p.add_argument("--group", default=None, type=str)
     p.add_argument("--profile_dir", default=None, type=str,
-                   help="capture a profiler trace into this directory (not "
-                        "ported)")
+                   help="capture a profiler trace into this directory")
     p.add_argument("--checkpoint_dir", default=None, type=str)
     p.add_argument("--checkpoint_every", default=0, type=int)
     p.add_argument("--resume", action="store_true",

@@ -61,13 +61,19 @@ class ShardedLoader:
 
 
 def make_loader(dataset: ToyData, batch_size: int, plan: ShardPlan, *,
-                num_workers: int = 0) -> ShardedLoader:
+                num_workers: int = 0, prefetch_depth: int = 4
+                ) -> ShardedLoader:
     """The loader of the shared CLI's ``--num_workers``: 0 is the
-    synchronous numpy loader; background workers are not ported."""
-    if num_workers > 0:
-        raise NotImplementedError(
-            "--num_workers > 0 (the native C++ gather loader) is not ported "
-            "yet: ROADMAP queue A, item 6d")
+    synchronous numpy loader, > 0 the native gather pool's
+    :class:`~tpudist_torch.data.native_loader.PrefetchingLoader` (the
+    synchronous loader where no ``g++`` can build it: the flag is a
+    performance hint)."""
+    from tpudist_torch.data import native_loader
+
+    if num_workers > 0 and native_loader.native_available():
+        return native_loader.PrefetchingLoader(
+            dataset, batch_size, plan, num_workers=num_workers,
+            prefetch_depth=prefetch_depth)
     return ShardedLoader(dataset, batch_size, plan)
 
 

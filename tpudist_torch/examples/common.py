@@ -116,17 +116,3 @@ def train_demo(args, mesh: Mesh, *, group: Optional[str],
     if ckpt is not None:
         ckpt.close()
     return losses
-
-
-def check_not_ported(args) -> None:
-    """Raise on the shared CLI's values whose parts are not ported yet,
-    before the process group forms (the loader and the optimizer raise on
-    them too, later)."""
-    if args.num_workers > 0:
-        raise NotImplementedError(
-            "--num_workers > 0 (the native C++ gather loader) is not ported "
-            "yet: ROADMAP queue A, item 6d")
-    if args.optimizer in ("adafactor", "lion"):
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer} is not ported yet: ROADMAP queue "
-            "A, item 6e")

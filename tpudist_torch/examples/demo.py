@@ -33,7 +33,7 @@ at the end; ``--resume`` continues from the latest step in DIR;
 from __future__ import annotations
 
 from tpudist_torch.config import get_args
-from tpudist_torch.examples.common import check_not_ported, train_demo
+from tpudist_torch.examples.common import train_demo
 from tpudist_torch.models.transformer import resolve_device
 from tpudist_torch.runtime import (describe_runtime, initialize,
                                    per_process_seed, resolve_shared_seed,
@@ -45,7 +45,6 @@ from tpudist_torch.utils.record import record
 @record
 def main(argv=None) -> dict:
     args = get_args(argv)
-    check_not_ported(args)
     device = resolve_device(args.device)
     ctx = initialize(use_node_rank=args.use_node_rank, device=device)
     args.seed = resolve_shared_seed(args.seed)  # job-wide agreement

@@ -1,0 +1,342 @@
+"""Long-context LM training — the counterpart of
+``examples/demo_long_context.py`` at one sequence shard.
+
+A decoder-only TransformerLM (f32 master weights; ``--precision bf16``
+computes in bf16 with f32 LayerNorm, softmax and loss) trained
+data-parallel over the process group: each rank holds a replica under DDP
+(NCCL on the card, gloo on the CPU), steps on its share of the batch, and
+the logged loss is the global mean.  On CUDA the attention forward and
+backward run through the hand-written flash kernels.
+
+Two batch contracts, as the JAX demo's:
+
+- the synthetic increment-chain task (x[t+1] = (x[t] + 1) % vocab from a
+  random start): ``--batch_size`` is the global batch, drawn whole on every
+  rank from the shared seed, each rank taking its contiguous rows;
+- a tokenized corpus (``--data_path``): ``--batch_size`` is per rank, each
+  rank reading its own shard of the windows (``--dataloader``), assembled
+  on the native gather pool with ``--num_workers > 0``; ``--eval_fraction``
+  holds out the corpus tail, evaluated every ``--eval_every`` iterations on
+  up to 4 fixed batches, the same on every rank.
+
+Batches reach the device through :func:`tpudist_torch.data.
+prefetch_to_device`.  ``--remat`` (with ``--remat_policy``) recomputes each
+block in the backward; ``--generate N`` decodes N tokens after training
+from an 8-token prompt through the dense KV cache (greedy, or sampled with
+``--gen_temperature``/``--gen_top_k``/``--gen_top_p``).  Metrics go to
+``runs/<group>/metrics.jsonl`` (``loss/lm``, ``loss/eval``).  The sequence-
+parallel and sharded options (``--seq_shards > 1``, ``--inner_block``,
+``--zigzag``, ``--moe_*``, ``--fsdp``) raise: ROADMAP queue A, item A6c.
+``--n_heads`` and ``--d_ff`` set the geometry the JAX demo leaves at the
+model's defaults (4 heads, d_ff 512).
+
+One process on the CPU::
+
+  python -m tpudist_torch.examples.demo_long_context --device cpu \\
+      --dry_run --seq_len 64 --d_model 64 --total_iterations 20
+
+Two ranks over gloo (one command per rank, ``RANK`` 0 and 1)::
+
+  RANK=0 WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=29500 \\
+      python -m tpudist_torch.examples.demo_long_context --device cpu \\
+      --dry_run --seq_len 64 --d_model 64 --total_iterations 20
+
+The d1024 geometry on one card under the torchrun contract::
+
+  RANK=0 WORLD_SIZE=1 MASTER_ADDR=localhost MASTER_PORT=29500 \\
+      python -m tpudist_torch.examples.demo_long_context --dry_run \\
+      --seq_len 2048 --d_model 1024 --n_layers 8 --n_heads 8 --d_ff 4096 \\
+      --vocab 256 --batch_size 8 --precision bf16 --total_iterations 30
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from tpudist_torch.config import build_parser
+from tpudist_torch.config import get_args as parse_args
+from tpudist_torch.data.prefetch import prefetch_to_device
+from tpudist_torch.models.transformer import (create_transformer,
+                                              resolve_device)
+from tpudist_torch.runtime import (describe_runtime, initialize,
+                                   process_count, process_index, rank_print,
+                                   resolve_shared_seed, shutdown)
+from tpudist_torch.runtime.mesh import data_parallel_mesh
+from tpudist_torch.train.lm import make_lm_eval_step, make_lm_train_step
+from tpudist_torch.train.optim import build_optimizer_from_args
+from tpudist_torch.utils import init_metrics, trace
+from tpudist_torch.utils.record import record
+
+_A6C = "ROADMAP queue A, item A6c (parallel/)"
+
+
+def get_args(argv=None):
+    """The JAX demo's flags on the shared parser, plus ``--n_heads`` and
+    ``--d_ff``.  The options of the ``parallel/`` slice raise here, before
+    any process group forms."""
+    p = build_parser()
+    p.add_argument("--seq_len", default=512, type=int)
+    p.add_argument("--seq_shards", default=1, type=int,
+                   help="size of the seq mesh axis (ring length; A6c)")
+    p.add_argument("--inner_block", default=None, type=int,
+                   help="sub-block the ring's per-shard KV (A6c)")
+    p.add_argument("--vocab", default=64, type=int)
+    p.add_argument("--d_model", default=128, type=int)
+    p.add_argument("--n_layers", default=2, type=int)
+    p.add_argument("--n_heads", default=4, type=int)
+    p.add_argument("--d_ff", default=512, type=int)
+    p.add_argument("--moe_experts", default=0, type=int,
+                   help="routed MoE FFN of this many experts (A6c)")
+    p.add_argument("--moe_topk", default=1, type=int,
+                   help="experts per token (A6c)")
+    p.add_argument("--moe_balance", default=0.0, type=float,
+                   help="weight of the load-balancing aux loss (A6c)")
+    p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32",
+                   help="bf16 = f32 master weights, bf16 compute")
+    p.add_argument("--fsdp", action="store_true",
+                   help="fully-sharded params + optimizer state (A6c)")
+    p.add_argument("--zigzag", action="store_true",
+                   help="causal-balanced zigzag ring layout (A6c)")
+    p.add_argument("--sliding_window", default=None, type=int,
+                   help="local attention: attend the previous N positions "
+                        "only")
+    p.add_argument("--rope", action="store_true",
+                   help="rotary position encoding instead of the learned "
+                        "position table")
+    p.add_argument("--n_kv_heads", default=None, type=int,
+                   help="grouped-query attention: K/V heads (default: "
+                        "= heads)")
+    p.add_argument("--accum_steps", default=1, type=int,
+                   help="gradient-accumulation microbatches per update")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each transformer block in the backward")
+    p.add_argument("--remat_policy", default="nothing",
+                   choices=["nothing", "dots", "dots_no_batch"],
+                   help="what the remat'd backward may keep: 'dots' saves "
+                        "the matmul outputs, 'dots_no_batch' the 2-D ones")
+    p.add_argument("--gen_temperature", default=0.0, type=float,
+                   help="sampling temperature for --generate (0 = greedy)")
+    p.add_argument("--gen_top_k", default=None, type=int,
+                   help="top-k filter for --generate sampling")
+    p.add_argument("--gen_top_p", default=None, type=float,
+                   help="nucleus top-p filter for --generate sampling")
+    p.add_argument("--generate", default=0, type=int,
+                   help="after training, decode this many tokens from a "
+                        "prompt through the KV cache and print them")
+    p.add_argument("--data_path", default=None, type=str,
+                   help="tokenized corpus (.npy or raw binary token "
+                        "stream); default: the synthetic increment-chain "
+                        "task")
+    p.add_argument("--data_dtype", default=None, type=str,
+                   help="raw-binary token dtype (default uint16; .npy "
+                        "files carry their own)")
+    p.add_argument("--eval_fraction", default=0.0, type=float,
+                   help="hold out this tail fraction of --data_path "
+                        "windows for evaluation")
+    p.add_argument("--eval_every", default=50, type=int,
+                   help="evaluate the held-out set every N iterations")
+    p.set_defaults(batch_size=8, total_iterations=300, lr=3e-4)
+    args = parse_args(argv, parser=p)
+    refused = {"--seq_shards > 1": args.seq_shards != 1,
+               "--inner_block": args.inner_block is not None,
+               "--zigzag": args.zigzag, "--fsdp": args.fsdp,
+               "--moe_experts": args.moe_experts > 0}
+    for flag, on in refused.items():
+        if on:
+            raise NotImplementedError(f"{flag} is not ported yet: {_A6C}")
+    return args
+
+
+def make_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int):
+    """Increment-chain tokens: fully predictable after the first position."""
+    start = rng.integers(0, vocab, size=(batch, 1))
+    ramp = np.arange(seq, dtype=np.int64)[None, :]
+    return ((start + ramp) % vocab).astype(np.int32)
+
+
+def build_model(args, device) -> torch.nn.Module:
+    """The trainable TransformerLM of ``args`` on ``device``, its weights
+    drawn from ``args.seed`` (every rank draws the same)."""
+    return create_transformer(
+        args.seed, device=device, trainable=True,
+        dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
+        param_dtype=torch.float32, vocab=args.vocab, d_model=args.d_model,
+        n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
+        max_len=args.seq_len, rope=args.rope, n_kv_heads=args.n_kv_heads,
+        sliding_window=args.sliding_window, remat=args.remat,
+        remat_policy=args.remat_policy)
+
+
+def open_corpus(args, *, num_shards: int = 1, shard_id: int = 0):
+    """``(windows, train stream, eval indices)`` of ``--data_path`` for this
+    rank's shard; raises ``SystemExit`` when the corpus holds a token id
+    past ``--vocab``."""
+    from tpudist_torch.data import make_lm_loader
+
+    windows, corpus, eval_idx = make_lm_loader(
+        args.data_path, seq_len=args.seq_len, batch_size=args.batch_size,
+        dtype=args.data_dtype, num_shards=num_shards, shard_id=shard_id,
+        seed=args.seed, mode=args.dataloader,
+        eval_fraction=args.eval_fraction, num_workers=args.num_workers)
+    max_tok = int(np.max(windows.tokens))
+    if max_tok >= args.vocab:
+        if hasattr(corpus, "close"):
+            corpus.close()
+        raise SystemExit(
+            f"--data_path holds token id {max_tok} but --vocab is "
+            f"{args.vocab}: raise --vocab (embedding gathers clamp "
+            "silently)")
+    return windows, corpus, eval_idx
+
+
+def build_training(args):
+    """``(model, step, next_batch)`` for ``args`` in one process: the
+    trainable model on ``args.device``, the train step over its optimizer,
+    and a function returning the next ``[batch, seq_len]`` int32 token
+    batch (numpy) — the synthetic task, or the corpus with
+    ``--data_path``."""
+    if args.seed is None:
+        args.seed = resolve_shared_seed(None)
+    model = build_model(args, resolve_device(args.device))
+    opt, sched = build_optimizer_from_args(args, model.parameters())
+    step = make_lm_train_step(model, opt, scheduler=sched,
+                              accum_steps=args.accum_steps)
+    if args.data_path is not None:
+        _, corpus, _ = open_corpus(args)
+        return model, step, lambda: next(corpus)
+    rng = np.random.default_rng(args.seed)
+    return model, step, lambda: make_batch(rng, args.batch_size,
+                                           args.seq_len, args.vocab)
+
+
+def _check_flags(args) -> None:
+    """The JAX demo's flag checks (``:135-142``, ``:268-270``)."""
+    if args.moe_experts == 0 and (args.moe_topk != 1 or args.moe_balance):
+        raise SystemExit("--moe_topk/--moe_balance need --moe_experts > 0")
+    if args.eval_fraction > 0 and args.data_path is None:
+        raise SystemExit("--eval_fraction needs --data_path (the synthetic "
+                         "task has no held-out set)")
+
+
+def _generate(args, model, windows) -> None:
+    """``--generate``: decode after training from the corpus's first 8
+    tokens or a synthetic prompt (``:339-378``)."""
+    from tpudist_torch.models.generate import generate
+
+    if process_count() > 1:
+        rank_print("--generate skipped on multi-host runs")
+        return
+    if windows is not None:
+        prompt = windows.gather(np.zeros(1, np.int64))[:, :8]
+    else:
+        prompt = make_batch(np.random.default_rng(args.seed + 1), 1, 8,
+                            args.vocab)
+    temp = args.gen_temperature
+    if temp == 0.0 and (args.gen_top_k is not None
+                        or args.gen_top_p is not None):
+        # the filters mean nothing under greedy argmax: sample
+        temp = 1.0
+        rank_print("--gen_top_k/--gen_top_p given with temperature 0: "
+                   "sampling at temperature 1.0")
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(args.seed or 0)
+    out = generate(model, torch.from_numpy(prompt).to(device), args.generate,
+                   temperature=temp, top_k=args.gen_top_k,
+                   top_p=args.gen_top_p, generator=gen)
+    rank_print(f"prompt {prompt[0].tolist()} -> "
+               f"{out[0, 8:].cpu().tolist()}")
+
+
+@record
+def main(argv=None) -> float:
+    """Train, evaluate, decode; returns the final loss."""
+    args = get_args(argv)
+    _check_flags(args)
+    device = resolve_device(args.device)
+    ctx = initialize(use_node_rank=args.use_node_rank, device=device)
+    args.seed = resolve_shared_seed(args.seed)
+    mesh = data_parallel_mesh(device=device)
+    world, rank = process_count(), process_index()
+    describe_runtime(ctx, args.seed, mesh.devices[0])
+    rank_print(f"mesh={{'data': {world}, 'seq': 1}} seq_len={args.seq_len} "
+               f"(block {args.seq_len}/chip)")
+    dev = mesh.devices[0]
+    model = build_model(args, dev)
+    opt, sched = build_optimizer_from_args(args, model.parameters())
+    step = make_lm_train_step(model, opt, scheduler=sched,
+                              accum_steps=args.accum_steps)
+    logger = init_metrics(args.project, args.group or "demo_long_context",
+                          dry_run=args.dry_run)
+    rng = np.random.default_rng(args.seed)
+    windows = corpus = None
+    if args.data_path is not None:
+        # per-rank shard of the windows; --batch_size is per rank
+        windows, corpus, eval_idx = open_corpus(args, num_shards=world,
+                                                shard_id=rank)
+    elif args.batch_size % world:
+        raise SystemExit(f"the synthetic --batch_size {args.batch_size} is "
+                         f"the global batch: it must divide over {world} "
+                         "ranks")
+    eval_batches = []
+    if corpus is not None and 0 < len(eval_idx) < args.batch_size:
+        rank_print(f"WARNING: eval disabled — the held-out tail has "
+                   f"{len(eval_idx)} windows, fewer than one batch of "
+                   f"{args.batch_size}")
+    if corpus is not None and len(eval_idx) >= args.batch_size:
+        # fixed held-out batches (up to 4), the same on every rank
+        n_eval = min(4, len(eval_idx) // args.batch_size)
+        eval_batches = [torch.from_numpy(windows.gather(
+            eval_idx[i * args.batch_size:(i + 1) * args.batch_size])).to(dev)
+            for i in range(n_eval)]
+    eval_step = make_lm_eval_step(model)
+
+    def eval_loss() -> float:
+        return float(np.mean([float(eval_step(b)) for b in eval_batches]))
+
+    share = args.batch_size // world
+
+    def batch_source():
+        for _ in range(args.total_iterations):
+            if corpus is not None:
+                yield next(corpus)
+            else:
+                # the same global batch on every rank: this rank's rows
+                yield make_batch(rng, args.batch_size, args.seq_len,
+                                 args.vocab)[rank * share:(rank + 1) * share]
+
+    batches = prefetch_to_device(batch_source(), dev)
+    loss = None
+    t0 = time.perf_counter()
+    with trace(args.profile_dir):
+        for it, tokens in enumerate(batches):
+            loss = step(tokens)
+            do_eval = bool(eval_batches) and it % args.eval_every == 0
+            if it % args.log_every == 0 or do_eval:
+                row = {"loss/lm": float(loss), "iteration": it}
+                if do_eval:
+                    row["loss/eval"] = eval_loss()
+                logger.log(row)
+                rank_print(f"iteration {it}: " + " ".join(
+                    f"{k} {v:.4f}" for k, v in row.items()
+                    if k != "iteration"))
+    batches.close()
+    final = float(loss) if loss is not None else float("nan")
+    rank_print(f"{args.total_iterations} iterations in "
+               f"{time.perf_counter() - t0:.2f} s on {dev}")
+    logger.finish()
+    if hasattr(corpus, "close"):
+        corpus.close()  # joins the native gather pool's workers
+    rank_print(f"final lm loss: {final:.4f}")
+    if args.generate > 0:
+        _generate(args, model, windows)
+    # the process group goes down even at world 1, where the JAX demo
+    # has none to tear down
+    shutdown()
+    return final
+
+
+if __name__ == "__main__":
+    main()

@@ -25,7 +25,7 @@ import torch
 
 from tpudist_torch.config import build_parser
 from tpudist_torch.config import get_args as parse_args
-from tpudist_torch.examples.common import check_not_ported, train_demo
+from tpudist_torch.examples.common import train_demo
 from tpudist_torch.models.transformer import resolve_device
 from tpudist_torch.runtime import (describe_runtime, initialize,
                                    per_process_seed, resolve_shared_seed,
@@ -44,7 +44,6 @@ def get_args(argv=None):
 @record
 def main(argv=None) -> dict:
     args = get_args(argv)
-    check_not_ported(args)
     device = resolve_device(args.device)
     ctx = initialize(use_node_rank=args.use_node_rank, device=device)
     args.seed = resolve_shared_seed(args.seed)

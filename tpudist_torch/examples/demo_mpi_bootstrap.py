@@ -15,7 +15,7 @@ losses, global batch-weighted means as in ``demo.py``.
 from __future__ import annotations
 
 from tpudist_torch.config import get_args
-from tpudist_torch.examples.common import check_not_ported, train_demo
+from tpudist_torch.examples.common import train_demo
 from tpudist_torch.models.transformer import resolve_device
 from tpudist_torch.runtime import (describe_runtime, per_process_seed,
                                    rank_print, resolve_shared_seed, shutdown)
@@ -27,7 +27,6 @@ from tpudist_torch.utils.record import record
 @record
 def main(argv=None) -> dict:
     args = get_args(argv)
-    check_not_ported(args)
     device = resolve_device(args.device)
     ctx = initialize_from_mpi(device=device)
     args.seed = resolve_shared_seed(args.seed)

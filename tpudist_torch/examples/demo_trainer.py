@@ -7,8 +7,10 @@ MSE loss; the Trainer owns the loop, devices, logging, checkpoints and
 teardown.  The reference's Lightning shape (1000 steps, batch 128,
 precision 32, ``demo_pytorch_lightning.py:48,50,58``) is the default;
 ``--precision bf16`` computes in bf16 over f32 masters.  The parser is the
-JAX demo's; ``--strategy fsdp|zero1|pp`` (the LM module under sharded or
-pipelined layouts) raises: ROADMAP A6 item 6b and A6c.
+JAX demo's; ``--strategy fsdp|zero1|pp`` trains the LM module
+(:class:`ChainLMModule` on :class:`ChainLoader`'s increment chains) under
+sharded or pipelined layouts, which raise: ROADMAP A6c.  The LM module
+itself trains under ``Trainer(strategy='dp')``.
 
   python -m tpudist_torch.examples.demo_trainer --dry_run
 
@@ -21,14 +23,18 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
+import torch
+
 from tpudist_torch.comm.collectives import MetricBackend
 from tpudist_torch.config import build_parser
 from tpudist_torch.config import get_args as parse_args
-from tpudist_torch.examples.common import build_loader, check_not_ported
+from tpudist_torch.examples.common import build_loader
 from tpudist_torch.models.toy_mlp import create_toy_model
-from tpudist_torch.models.transformer import resolve_device
+from tpudist_torch.models.transformer import (create_transformer,
+                                              resolve_device)
 from tpudist_torch.runtime import initialize, resolve_shared_seed
-from tpudist_torch.trainer import Trainer, TrainerModule
+from tpudist_torch.trainer import LMTrainerModule, Trainer, TrainerModule
 from tpudist_torch.train.optim import build_optimizer
 from tpudist_torch.utils import record, trace
 
@@ -44,6 +50,49 @@ class ToyTrainerModule(TrainerModule):
     def configure_optimizers(self):
         adam = functools.partial(build_optimizer, lr=1e-3)
         return {"model_X": adam, "model_Y": adam}
+
+
+class ChainLMModule(LMTrainerModule):
+    """Small TransformerLM on the increment-chain task — the module the
+    transformer strategies drive through the facade (2 heads, d_ff 4 x
+    d_model, max_len the sequence)."""
+
+    def __init__(self, args):
+        self.args = args
+
+    def configure_lm(self, generator):
+        a = self.args
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+        return create_transformer(
+            seed, device="cpu", trainable=True, vocab=a.vocab,
+            d_model=a.d_model, n_layers=a.n_layers, n_heads=2,
+            d_ff=4 * a.d_model, max_len=a.seq_len)
+
+    def configure_optimizers(self):
+        return functools.partial(build_optimizer, lr=self.args.lr)
+
+
+class ChainLoader:
+    """Deterministic increment-chain token batches (``set_epoch`` reshuffles
+    the chain starts — the ``DistributedSampler`` semantics); the same on
+    every rank."""
+
+    def __init__(self, *, batch, seq, vocab, batches_per_epoch=16, seed=0):
+        self.batch, self.seq, self.vocab = batch, seq, vocab
+        self.n, self.seed, self.epoch = batches_per_epoch, seed, 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        rng = np.random.default_rng((self.seed, self.epoch))
+        for _ in range(self.n):
+            start = rng.integers(0, self.vocab, size=(self.batch, 1))
+            ramp = np.arange(self.seq, dtype=np.int64)[None, :]
+            yield ((start + ramp) % self.vocab).astype(np.int32)
 
 
 def get_args(argv=None):
@@ -70,12 +119,6 @@ def get_args(argv=None):
 @record
 def main(argv=None) -> dict:
     args = get_args(argv)
-    check_not_ported(args)
-    if args.strategy in ("fsdp", "zero1", "pp"):
-        raise NotImplementedError(
-            f"--strategy {args.strategy} trains the LM module (the "
-            "Trainer's LM path, ROADMAP queue A item 6b) under a sharded or "
-            "pipelined layout (item A6c): not ported yet")
     device = resolve_device(args.device)
     # initialize() is idempotent — Trainer.fit will reuse this context; the
     # seed must be agreed job-wide before the loader's shard plan is built.
@@ -99,10 +142,18 @@ def main(argv=None) -> dict:
         resume=args.resume,
         device=args.device,
     )
-    loader = build_loader(args, seed=args.seed)
+    if args.strategy in ("fsdp", "zero1", "pp"):
+        # the transformer strategies: the LM module on the chain task
+        module = ChainLMModule(args)
+        loader = ChainLoader(batch=args.batch_size, seq=args.seq_len,
+                             vocab=args.vocab, seed=args.seed)
+    else:
+        module = ToyTrainerModule()
+        loader = build_loader(args, seed=args.seed)
     with trace(args.profile_dir):
-        losses = trainer.fit(ToyTrainerModule(), loader)
-    loader.close()
+        losses = trainer.fit(module, loader)
+    if hasattr(loader, "close"):
+        loader.close()
     print(f"final losses: {losses}", flush=True)
     trainer.teardown()
     return losses

@@ -5,8 +5,10 @@ programs of the serving engine; and the toy MLP of the ``demo.py`` path."""
 from tpudist_torch.models.convert import (adapter_factors_from_jax,
                                           params_from_flax,
                                           toy_params_from_flax)
-from tpudist_torch.models.generate import (SlotDecode, SlotState,
-                                           make_slot_decode, spec_accept)
+from tpudist_torch.models.generate import (CacheFullError, SlotDecode,
+                                           SlotState, filter_logits,
+                                           generate, make_slot_decode,
+                                           sample_logits, spec_accept)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig
 from tpudist_torch.models.transformer import (TransformerLM,
                                               create_transformer, lm_loss,
@@ -16,10 +18,10 @@ from tpudist_torch.models.transformer import (TransformerLM,
 from tpudist_torch.models.toy_mlp import ToyMLP, create_toy_model
 
 __all__ = [
-    "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "ToyMLP",
+    "CacheFullError", "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "ToyMLP",
     "TransformerLM", "adapter_factors_from_jax", "create_toy_model",
-    "create_transformer", "lm_loss",
+    "create_transformer", "filter_logits", "generate", "lm_loss",
     "lm_loss_with_targets", "make_slot_decode", "params_from_flax",
-    "resolve_device", "rope_rotate", "spec_accept", "tied_draft",
+    "resolve_device", "rope_rotate", "sample_logits", "spec_accept", "tied_draft",
     "toy_params_from_flax",
 ]

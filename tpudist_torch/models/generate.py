@@ -1,5 +1,15 @@
-"""Slot-decode programs of the serving engine — the paged-kernel subset of
-:func:`tpudist.models.generate.make_slot_decode`, in PyTorch.
+"""Decoding — the counterpart of :mod:`tpudist.models.generate`: the
+sequential dense-cache :func:`generate` (the LM entry point's
+``--generate``), and the slot-decode programs of the serving engine, the
+paged-kernel subset of :func:`tpudist.models.generate.make_slot_decode`.
+
+:func:`generate` runs the model one token at a time over a dense KV cache
+(:class:`~tpudist_torch.models.transformer.DenseDecode`), teacher-forcing
+the prompt and then sampling with :func:`sample_logits` (greedy arg-max at
+temperature 0; else top-k/top-p filtered draws from an explicit
+``torch.Generator``).  Like the JAX dense path it runs no kernel.  The slot
+engine's own gather and dense paths stay unported (ROADMAP queue A, item
+A5).
 
 ``num_slots`` KV lanes over one paged pool plus a per-slot
 :class:`SlotState` on the device.  Every program runs fixed-shape over all
@@ -38,6 +48,7 @@ oracle.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -45,8 +56,86 @@ import torch
 from tpudist_torch.models.lora import (AdapterPool, AdapterPoolConfig,
                                       pool_collection)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig, _Paged
-from tpudist_torch.models.transformer import PagedDecode, PagedPrefill
+from tpudist_torch.models.transformer import (CacheFullError, DenseDecode,
+                                              PagedDecode, PagedPrefill)
 from tpudist_torch.ops import fused_residual_prep, fused_sample_prep
+
+def filter_logits(logits: torch.Tensor, *, temperature: float = 1.0,
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """``logits [batch, vocab]`` (f32) scaled by ``1 / temperature`` and
+    filtered as the JAX ``sample_logits`` does before its draw: ``top_k``
+    keeps the logits at least the k-th largest, then ``top_p`` keeps the
+    smallest prefix of the sorted vocabulary whose mass reaches ``top_p``
+    (the first token crossing it, and the top token, always stay); ties
+    with a cutoff survive.  Masked entries are f32's lowest value."""
+    if top_k is not None and top_k < 1:
+        raise ValueError(f"top_k must be >= 1, got {top_k}")
+    logits = logits / temperature
+    neg = torch.finfo(logits.dtype).min
+    if top_k is not None and top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, neg),
+                             logits)
+    if top_p is not None and top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        keep = torch.cat([torch.zeros_like(cum[..., :1]), cum[..., :-1]],
+                         dim=-1) < top_p
+        keep[..., 0] = True
+        cutoff = torch.where(keep, sorted_logits,
+                             torch.full_like(sorted_logits, math.inf)).min(
+            dim=-1, keepdim=True).values
+        logits = torch.where(logits < cutoff, torch.full_like(logits, neg),
+                             logits)
+    return logits
+
+
+def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator]
+                  = None, *, temperature: float = 1.0,
+                  top_k: Optional[int] = None,
+                  top_p: Optional[float] = None) -> torch.Tensor:
+    """Token ids ``[batch]`` from ``logits [batch, vocab]`` (f32):
+    ``temperature == 0`` is the greedy arg-max (filters ignored), else a
+    categorical draw from ``generator`` over :func:`filter_logits`."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(filter_logits(logits, temperature=temperature,
+                                        top_k=top_k, top_p=top_p), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(model, prompt: torch.Tensor, max_new: int, *,
+             temperature: float = 0.0, top_k: Optional[int] = None,
+             top_p: Optional[float] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``[batch, plen + max_new]`` tokens: ``prompt [batch, plen]`` fed one
+    token at a time through the dense KV cache, then ``max_new`` tokens
+    drawn by :func:`sample_logits` (the JAX ``generate``'s sequence,
+    prompt included).  ``generator`` seeds the draws; greedy decoding needs
+    none.  Raises ``ValueError`` when ``plen + max_new`` exceeds the
+    model's ``max_len`` (the cache's size)."""
+    batch, plen = prompt.shape
+    if plen + max_new > model.max_len:
+        raise ValueError(
+            f"prompt {plen} + max_new {max_new} exceeds the model's max_len "
+            f"{model.max_len} (the KV-cache size)")
+    ctx = DenseDecode(model, batch, prompt.device)
+    out = [prompt[:, :1]]
+    tok = prompt[:, :1]
+    for i in range(plen + max_new - 1):
+        logits = model(tok, ctx)[:, -1].float()
+        ctx.pos += tok.shape[1]
+        if i + 1 < plen:
+            nxt = prompt[:, i + 1]
+        else:
+            nxt = sample_logits(logits, generator, temperature=temperature,
+                                top_k=top_k, top_p=top_p).to(prompt.dtype)
+        tok = nxt[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)

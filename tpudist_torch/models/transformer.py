@@ -150,6 +150,70 @@ class _Causal:
         return attention_reference(q, k, v, window=self.window)
 
 
+class CacheFullError(RuntimeError):
+    """A decode step was asked to write past ``max_len``: the dense KV
+    cache is full (:class:`DenseDecode`; ``generate`` checks its budget up
+    front)."""
+
+
+class DenseDecode:
+    """The sequential decode arm over a dense KV cache (the JAX package's
+    ``Block._decode_attention``): per layer ``[batch, n_kv, max_len, dh]``
+    K/V buffers in the compute dtype and one cursor ``pos`` for the whole
+    batch.  Each call writes its ``s`` tokens' K/V at the cursor and every
+    query attends over the filled prefix plus the call's tokens before it
+    (f32 scores and softmax, the weights cast to the cache's dtype).  The
+    caller advances ``pos`` by ``s`` after the forward.  Plain tensor ops:
+    the JAX dense path runs no Pallas kernel either."""
+
+    fused_rope = False
+    adapters = None
+
+    def __init__(self, model: "TransformerLM", batch: int, device):
+        shape = (batch, model.n_kv, model.max_len, model.head_dim)
+        self.k = [torch.zeros(shape, dtype=model.dtype, device=device)
+                  for _ in range(model.n_layers)]
+        self.v = [torch.zeros(shape, dtype=model.dtype, device=device)
+                  for _ in range(model.n_layers)]
+        self.rope = model.rope
+        self.window = model.sliding_window
+        self.max_len = model.max_len
+        self.pos = 0
+
+    def positions(self, batch: int, seq: int, device) -> torch.Tensor:
+        return (self.pos + torch.arange(seq, device=device))[None].expand(
+            batch, seq)
+
+    def attend(self, layer: int, q, k, v, rotated: bool = False):
+        pos = self.pos
+        b, nh, s, dh = q.shape
+        if pos + s > self.max_len:
+            raise CacheFullError(
+                f"KV cache full: cursor {pos} + {s} token(s) exceeds "
+                f"max_len {self.max_len}")
+        if self.rope and not rotated:
+            q = rope_rotate(q, offset=pos)
+            k = rope_rotate(k, offset=pos)
+        ck, cv = self.k[layer], self.v[layer]
+        ck[:, :, pos:pos + s] = k.to(ck.dtype)
+        cv[:, :, pos:pos + s] = v.to(cv.dtype)
+        n_kv = ck.shape[1]
+        qg = q.reshape(b, n_kv, nh // n_kv, s, dh).float()
+        scores = torch.einsum("bngqd,bnkd->bngqk", qg, ck.float()) * (
+            dh ** -0.5)
+        qpos = pos + torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(self.max_len, device=q.device)[None]
+        live = kpos <= qpos
+        if self.window is not None:
+            live = live & (kpos > qpos - self.window)
+        scores = torch.where(live, scores,
+                             torch.tensor(_MASK_VALUE, device=q.device))
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bngqk,bnkd->bngqd", w.to(cv.dtype).float(),
+                           cv.float())
+        return out.reshape(b, nh, s, dh).to(q.dtype)
+
+
 class PagedDecode:
     """Decode arm over a paged pool, batched over the slot axis.
 
@@ -340,15 +404,16 @@ class TransformerLM(nn.Module):
                  sliding_window: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: str = "nothing"):
         super().__init__()
         if sliding_window is not None and sliding_window < 1:
             raise ValueError(
                 f"sliding_window must be >= 1, got {sliding_window}")
-        if remat:
-            raise NotImplementedError(
-                "remat (rematerialized blocks) is not ported yet: ROADMAP "
-                "queue A, item 6a")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of "
+                             f"{sorted(REMAT_POLICIES)}, got "
+                             f"{remat_policy!r}")
+        self.remat, self.remat_policy = remat, remat_policy
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
         self.n_heads, self.d_ff, self.max_len = n_heads, d_ff, max_len
         self.rope, self.sliding_window = rope, sliding_window
@@ -379,16 +444,67 @@ class TransformerLM(nn.Module):
         if ctx is None:
             ctx = _Causal(self.rope, self.sliding_window)
         b, s = tokens.shape
-        x = self.tok_embed[tokens.long()].to(self.dtype)
+        x = F.embedding(tokens.long(), self.tok_embed).to(self.dtype)
         if not self.rope:
             # padded chunk rows and idle lanes may sit past the table; their
             # outputs are never read, so clamping keeps them finite
             pos = ctx.positions(b, s, tokens.device).clamp(0, self.max_len - 1)
-            x = x + self.pos_embed[pos].to(self.dtype)
+            x = x + F.embedding(pos, self.pos_embed).to(self.dtype)
+        remat = self.remat and isinstance(ctx, _Causal) and \
+            torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, ctx)
+            x = (rematerialized(block, x, ctx, self.remat_policy) if remat
+                 else block(x, ctx))
         x = layer_norm(x, self.ln_f)
         return F.linear(x.to(self.dtype), self.head.to(self.dtype))
+
+
+# what a rematerialized block's backward may keep besides its input, as the
+# JAX package's jax.checkpoint policies: nothing (recompute the whole block),
+# every matmul output (checkpoint_dots), or the matmuls without batch
+# dimensions (checkpoint_dots_with_no_batch_dims: the 2-D projections, not
+# the attention's batched products)
+REMAT_POLICIES = {
+    "nothing": (),
+    "dots": ("mm", "addmm", "bmm", "matmul", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def _remat_context(policy: str):
+    """The selective-checkpoint context function of ``policy`` (``None``
+    for ``nothing``): the listed aten products are saved in the forward,
+    everything else recomputed.  The flash kernels launch through ctypes
+    inside an autograd Function, below the dispatcher, so no policy saves
+    their output: under every policy the forward kernel runs again in the
+    backward, as a ``pallas_call`` is no ``dot_general`` for
+    ``checkpoint_dots`` either."""
+    names = REMAT_POLICIES[policy]
+    if not names:
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    saved = {getattr(torch.ops.aten, n).default for n in names}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
+
+
+def rematerialized(block: nn.Module, x: torch.Tensor, ctx, policy: str):
+    """``block(x, ctx)`` whose internals the backward recomputes (flax
+    ``nn.remat(Block, policy=...)``); the non-reentrant form, which keeps
+    DDP's gradient hooks working."""
+    from torch.utils.checkpoint import checkpoint
+
+    context_fn = _remat_context(policy)
+    if context_fn is None:
+        return checkpoint(block, x, ctx, use_reentrant=False)
+    return checkpoint(block, x, ctx, use_reentrant=False,
+                      context_fn=context_fn)
 
 
 def tied_draft(model: TransformerLM, layers: int) -> TransformerLM:
@@ -405,7 +521,8 @@ def tied_draft(model: TransformerLM, layers: int) -> TransformerLM:
     draft = TransformerLM.__new__(TransformerLM)
     nn.Module.__init__(draft)
     for name in ("vocab", "d_model", "n_heads", "d_ff", "max_len", "rope",
-                 "sliding_window", "n_kv_heads", "dtype", "param_dtype"):
+                 "sliding_window", "n_kv_heads", "dtype", "param_dtype",
+                 "remat", "remat_policy"):
         setattr(draft, name, getattr(model, name))
     draft.n_layers = int(layers)
     draft.tok_embed = model.tok_embed

@@ -1,43 +1,91 @@
-"""LM train and eval steps for the Transformer family — the single-device
-counterpart of :mod:`tpudist.train.lm`.
+"""LM train and eval steps for the Transformer family — the counterpart of
+:mod:`tpudist.train.lm` on a data-parallel mesh.
 
-No mesh: one process, one device.  ``grad_reduce_dtype``, ``state_sharding``,
-the MoE ``aux`` outputs and the scanned step belong to the ``parallel/``
-slice (ROADMAP queue A, item 6c).
+Where the JAX step is one program over the ``data`` axis whose compiler
+inserts the gradient all-reduce, here each process holds a full replica and,
+when a process group is up, the model is wrapped in
+``DistributedDataParallel`` (as the toy step, :mod:`tpudist_torch.train.
+step`): each rank steps on its own equal share of the global batch, DDP
+averages the gradients on the device group, and the reported loss is the
+global mean (an all-reduce average of the per-rank means), as the JAX
+step's is.  ``grad_reduce_dtype``, ``state_sharding``, the MoE ``aux``
+outputs and the scanned step belong to the ``parallel/`` slice (ROADMAP
+queue A, item A6c).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Optional
 
 import torch
 
 from tpudist_torch.models.transformer import lm_loss
 
+_A6C = "ROADMAP queue A, item A6c (parallel/)"
+
+
+def _global_mean(loss: torch.Tensor) -> torch.Tensor:
+    """The mean of every rank's ``loss`` (equal per-rank batches make it
+    the global batch's mean), all-reduced on the device group and queued
+    on the device; ``loss`` itself without a process group."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return loss
+    buf = loss.detach().clone()
+    dist.all_reduce(buf)
+    return buf / dist.get_world_size()
+
 
 def make_lm_train_step(model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer, *, scheduler=None,
                        accum_steps: int = 1,
-                       loss_fn: Callable = lm_loss) -> Callable:
+                       loss_fn: Callable = lm_loss,
+                       wrap: Optional[Callable] = None,
+                       grad_reduce_dtype=None, state_sharding=None,
+                       aux: bool = False) -> Callable:
     """``step(tokens [batch, seq]) -> loss``: forward, backward, one
-    optimizer update (and one scheduler step).
+    optimizer update (and one scheduler step) on this rank's rows.
+
+    The step calls ``model`` — or ``wrap(model)``, a module whose
+    parameters are the model's (the Trainer's bf16 cast) — wrapped in
+    ``DistributedDataParallel`` when a process group is up (``step.replica``
+    is what it calls).  The returned loss is the global mean over the
+    process group.
 
     ``accum_steps`` > 1 splits the batch into that many microbatches, sums
     their gradients and scales the sum (and the reported loss) by
     ``1 / accum_steps`` before the update, as the JAX step's ``lax.scan``
-    does; the batch must divide evenly.  The loss comes back as a detached
-    0-d tensor on the model's device (no host sync)."""
+    does; the batch must divide evenly.  The microbatches before the last
+    run under DDP's ``no_sync()``, so there is one gradient all-reduce per
+    update.  The loss comes back as a detached 0-d tensor on the model's
+    device (no host sync).  ``grad_reduce_dtype``, ``state_sharding`` and
+    ``aux`` raise (A6c)."""
+    import torch.distributed as dist
+
+    for name, value in (("grad_reduce_dtype", grad_reduce_dtype),
+                        ("state_sharding", state_sharding), ("aux", aux)):
+        if value:
+            raise NotImplementedError(f"{name} is not ported yet: {_A6C}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError("the model has no trainable parameters (build it "
                          "with create_transformer(..., trainable=True))")
+    replica = wrap(model) if wrap is not None else model
+    if dist.is_initialized():
+        from tpudist_torch.train.step import ddp_device_ids
+
+        replica = torch.nn.parallel.DistributedDataParallel(
+            replica, device_ids=ddp_device_ids(model))
+    no_sync = getattr(replica, "no_sync", contextlib.nullcontext)
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            loss = loss_fn(model(tokens), tokens)
+            loss = loss_fn(replica(tokens), tokens)
             loss.backward()
             loss = loss.detach()
         else:
@@ -46,10 +94,13 @@ def make_lm_train_step(model: torch.nn.Module,
                 raise ValueError(
                     f"batch {b} must divide into {accum_steps} accum steps")
             loss = 0.0
-            for chunk in tokens.reshape(accum_steps, b // accum_steps,
-                                        *tokens.shape[1:]):
-                part = loss_fn(model(chunk), chunk)
-                part.backward()
+            chunks = tokens.reshape(accum_steps, b // accum_steps,
+                                    *tokens.shape[1:])
+            for i, chunk in enumerate(chunks):
+                last = i == accum_steps - 1
+                with (contextlib.nullcontext() if last else no_sync()):
+                    part = loss_fn(replica(chunk), chunk)
+                    part.backward()
                 loss = loss + part.detach()
             scale = 1.0 / accum_steps
             loss = loss * scale
@@ -59,14 +110,17 @@ def make_lm_train_step(model: torch.nn.Module,
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return loss
+        return _global_mean(loss)
 
+    step.replica = replica
     return step
 
 
 def make_lm_eval_step(model: torch.nn.Module, *,
                       loss_fn: Callable = lm_loss) -> Callable:
-    """``eval_step(tokens) -> loss`` without gradients."""
+    """``eval_step(tokens) -> loss`` without gradients, on this rank's
+    batch (the entry point evaluates the same held-out batches on every
+    rank, so no reduction is needed)."""
 
     def eval_step(tokens: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():

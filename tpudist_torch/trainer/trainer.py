@@ -17,8 +17,13 @@ owns the runtime, the mesh, the steps, logging, checkpoints and teardown.
   ``model_parallel`` devices and :meth:`TrainerModule.place_model` puts
   the model on them (by default whole on the first);
 - ``'fsdp'``, ``'zero1'``, ``'pp'`` are not ported yet (ROADMAP A6c),
-  ``'auto'`` neither (A8, ``plan/``); nor is :class:`LMTrainerModule`
-  (A6 item 6b).
+  ``'auto'`` neither (A8, ``plan/``).
+
+An :class:`LMTrainerModule` (one transformer, token batches) trains under
+``'dp'`` through the LM step (:func:`tpudist_torch.train.lm.
+make_lm_train_step`), with checkpoints and resume by skipping batches.  The
+JAX facade's SIGTERM preemption save and telemetry stage events are not
+ported on either path (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ from tpudist_torch.comm.collectives import MetricBackend
 from tpudist_torch.runtime.bootstrap import initialize, shutdown
 from tpudist_torch.runtime.mesh import data_model_mesh, data_parallel_mesh
 from tpudist_torch.runtime.seeding import resolve_shared_seed
-from tpudist_torch.train.loop import TrainLoopConfig, run_training
+from tpudist_torch.train.loop import (TrainLoopConfig, _make_pbar,
+                                      finalize_run, run_training)
 from tpudist_torch.train.optim import build_optimizer
-from tpudist_torch.train.step import (init_model_states,
+from tpudist_torch.train.step import (ModelState, init_model_states,
                                       make_multi_model_train_step,
                                       make_scanned_train_step, mse_loss)
 from tpudist_torch.utils.metrics import init_metrics
@@ -103,8 +109,32 @@ class TrainerModule:
 
 
 class LMTrainerModule(TrainerModule):
-    """The LM family's module (one transformer, token batches): not ported
-    yet — ROADMAP queue A, item 6b."""
+    """Trainer module for the LM family: ONE language model from
+    :meth:`configure_lm`; the loader passed to ``fit`` yields ``[batch,
+    seq]`` int32 token arrays (re-iterated per epoch; an optional
+    ``set_epoch(e)`` hook gets the ``DistributedSampler.set_epoch`` call,
+    ``demo.py:96-98``).  Under several ranks each yielded batch is the
+    global batch, the same on every rank, and each rank trains on its
+    contiguous rows."""
+
+    def configure_lm(self, generator: torch.Generator) -> nn.Module:
+        """Return the ``nn.Module`` (e.g. a :func:`tpudist_torch.models.
+        create_transformer`), drawn from ``generator``; called once on every
+        process with the same seed (replicated init)."""
+        raise NotImplementedError
+
+    def configure_optimizers(self):
+        """One optimizer factory ``params -> (optimizer, scheduler or
+        None)`` (the LM path has a single model, so a per-model dict is
+        refused)."""
+        return functools.partial(build_optimizer, lr=1e-3)
+
+    def loss(self, logits: torch.Tensor, tokens: torch.Tensor
+             ) -> torch.Tensor:
+        """Next-token loss of ``model(tokens) -> logits``."""
+        from tpudist_torch.models.transformer import lm_loss
+
+        return lm_loss(logits, tokens)
 
 
 @dataclasses.dataclass
@@ -140,10 +170,6 @@ class Trainer:
     device: str = "cuda"  # 'cuda' (raises without CUDA) or 'cpu'
 
     def _check_ported(self, module) -> None:
-        if isinstance(module, LMTrainerModule):
-            raise NotImplementedError(
-                "LMTrainerModule (the Trainer's LM path) is not ported yet: "
-                "ROADMAP queue A, item 6b")
         if self.strategy == "auto":
             raise NotImplementedError(
                 "strategy='auto' (the measurement-driven planner, plan/) is "
@@ -176,6 +202,8 @@ class Trainer:
         device = resolve_device(self.device)
         initialize(use_node_rank=self.use_node_rank, device=device)
         seed = resolve_shared_seed(self.seed)
+        if isinstance(module, LMTrainerModule):
+            return self._fit_lm(module, loader, ckpt_dir, seed, device)
         if self.strategy == "dp":
             mesh = data_parallel_mesh(device=device)
         else:
@@ -217,6 +245,117 @@ class Trainer:
                 ckpt.close()
         self.final_states = states
         return losses
+
+    def _fit_lm(self, module: LMTrainerModule, loader, ckpt_dir, seed,
+                device) -> Dict[str, Optional[float]]:
+        """The LM-family fit (JAX ``_fit_lm``, ``strategy='dp'``): one
+        transformer under DDP, the LM step, a token-batch loader."""
+        from tpudist_torch.checkpoint import setup_checkpointing
+        from tpudist_torch.train.lm import make_lm_train_step
+
+        if self.strategy != "dp":
+            raise ValueError(
+                f"strategy {self.strategy!r} not supported for "
+                "LMTrainerModule (dp; fsdp/zero1/pp are ROADMAP A6c; "
+                "dp_model is the toy split-MLP layout)")
+        mesh = data_parallel_mesh(device=device)
+        model = module.configure_lm(
+            torch.Generator().manual_seed(seed)).to(mesh.devices[0])
+        tx = module.configure_optimizers()
+        if isinstance(tx, dict):
+            raise ValueError("LMTrainerModule.configure_optimizers must "
+                             "return one optimizer factory (single model)")
+        opt, sched = tx(model.parameters())
+        step = make_lm_train_step(
+            model, opt, scheduler=sched, loss_fn=module.loss,
+            wrap=BF16Apply if self.precision == "bf16" else None)
+        states = {"lm": ModelState(model, step.replica, opt, sched)}
+        ckpt = None
+        start_iteration = 0
+        if ckpt_dir is not None:
+            ckpt, states, start_iteration = setup_checkpointing(
+                states, ckpt_dir, save_every=self.checkpoint_every,
+                resume=self.resume, seed=seed)
+        logger = init_metrics(project=self.project,
+                              group=self.group or "trainer",
+                              dry_run=self.dry_run)
+        try:
+            losses = self._run_lm_loop(states, step, loader, mesh, logger,
+                                       ckpt, start_iteration)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+        self.final_states = states
+        return losses
+
+    def _run_lm_loop(self, states, step, loader, mesh, logger, ckpt,
+                     start_iteration):
+        """The token-batch loop (JAX ``_run_lm_loop``): epochs of the
+        loader with ``set_epoch``, a resume skipping the saved epoch's
+        consumed batches, one ``loss/lm`` row every ``log_every`` steps,
+        checkpoints, then the shared teardown (:func:`finalize_run`)."""
+        import numpy as np
+
+        from tpudist_torch.runtime.bootstrap import (process_count,
+                                                     process_index)
+
+        world, rank = process_count(), process_index()
+        batches = len(loader) if hasattr(loader, "__len__") else None
+        if batches is None and start_iteration:
+            # without __len__ the epoch boundary of the resume point is
+            # unknown: the skip would replay or exhaust the wrong epoch
+            raise ValueError(
+                f"resume at iteration {start_iteration} requires a sized "
+                "loader: the LM loop derives the epoch boundary from "
+                "len(loader), which this loader does not provide — wrap it "
+                "with a __len__ (e.g. a list or tpudist_torch.data loader) "
+                "or restart without resume")
+        epoch = start_iteration // batches if batches else 0
+        skip = start_iteration - epoch * (batches or 0)
+        iteration = start_iteration
+        loss = None
+        dev = mesh.devices[0]
+        pbar = _make_pbar(TrainLoopConfig(total_iterations=self.max_steps,
+                                          progress_bar=self.progress_bar),
+                          initial=start_iteration)
+        while iteration < self.max_steps:
+            if hasattr(loader, "set_epoch"):
+                loader.set_epoch(epoch)
+            it = iter(loader)
+            for _ in range(skip):
+                next(it, None)
+            skip = 0
+            advanced = False
+            for tokens in it:
+                advanced = True
+                if iteration >= self.max_steps:
+                    break
+                tokens = np.asarray(tokens, dtype=np.int32)
+                if tokens.shape[0] % world:
+                    raise ValueError(
+                        f"the global batch of {tokens.shape[0]} rows does "
+                        f"not divide over {world} ranks")
+                share = tokens.shape[0] // world
+                loss = step(torch.from_numpy(
+                    tokens[rank * share:(rank + 1) * share]).to(dev))
+                iteration += 1
+                # the step's loss is already the global mean: there is no
+                # per-rank value left for a host-fabric reduction to merge
+                if iteration % max(1, self.log_every) == 0:
+                    logger.log({"loss/lm": float(loss)}, commit=True)
+                if pbar is not None:
+                    pbar.update(1)
+                if ckpt is not None:
+                    ckpt.maybe_save(iteration, states,
+                                    {"iteration": iteration, "epoch": epoch})
+            if not advanced:
+                raise ValueError("LM loader yielded no batches")
+            epoch += 1
+        if pbar is not None:
+            pbar.close()
+        finalize_run(states, iteration=iteration, epoch=epoch, ckpt=ckpt,
+                     logger=logger)
+        return {"lm": float(loss) if loss is not None else None}
 
     @staticmethod
     def teardown():
