@@ -20,7 +20,10 @@ order; any failure exits non-zero:
    to -inf and a row masked whole (masked, greedy and top-k exact, top-p
    within the stated margin; each call one launch on its arm), every case
    timed on every arm beside ``torch.topk`` and ``torch.sort`` of the
-   scaled row.
+   scaled row; and its grammar arm at ``GRAMMAR_CASES`` ((g) the serving
+   shape with phase 4e's ``[5, 64, 256]`` pool, (h) vocab 32000 with a
+   ``[5, 64, 32000]`` pool: masked, scaled and greedy exact on both arms,
+   timed beside the planned arm without the pool).
    The paged decode kernel also runs the speculative verify's call (q
    ``[8, 8, s, 128]``, s = 5 and 9, a K + 1 window at fill 0; bf16 and int8
    pools, ragged cursors, a window, GQA 8/2); every decode case runs on
@@ -115,6 +118,23 @@ order; any failure exits non-zero:
    once / three times a layer of every target and draft forward, every
    decode, draft and verify forward on ``fused_rope_qkv``'s split arm and
    every prefill chunk on its wgmma arm);
+4e. structured output on phase 4's model and requests
+   (:func:`serve_constrained_path`): ``ServeConfig(constrain=True,
+   logprobs=5)``, 6 lanes over three regexes, 4 lanes of a JSON schema, 6
+   free lanes of which 3 carry stop sequences cut from phase 4's streams,
+   8 greedy and 8 at temperature 0.8, every lane asking top-5 logprobs;
+   first the same traffic without grammars, stops or logprobs (the
+   yardstick; its greedy lanes hold phase 4's streams).  Gates: each
+   constrained lane's text in its language (``re.fullmatch``, the schema's
+   own check) or a prefix of a member, no ``grammar_violation``, free
+   greedy lanes equal to phase 4's streams bit for bit or leaving them
+   first at a near tie (the schedule moves bf16 rounding), each stop lane
+   ended at its first match (a two-token match straddling two
+   deliveries), the logprobs rows, every sampling launch carrying the
+   grammar pool;
+4f. the same traffic on phase 4c's spec server (greedy lanes equal their
+   4e streams or leave them at a near tie of the logits the grammar
+   allows) and on phase 4b's adapter server (the grammar gates);
 5. where the time goes: one admission prefill and one decode block of the
    same model under ``torch.profiler`` (device busy time, idle share, the
    heaviest kernels), on phase 4's engine and on phase 4b's; 5c: one
@@ -239,6 +259,36 @@ SERVE_KERNELS = ("paged_attention", "paged_prefill", "fused_sample")
 SAMPLE_CASES = (("a", SLOTS, V, 0, 0.0), ("b", 40, V, 0, 0.0),
                 ("c", SLOTS, V, 50, 0.9), ("d", SLOTS, 32000, 0, 0.0),
                 ("e", SLOTS, 32000, 0, 0.9), ("f", SLOTS, 50257, 50, 0.9))
+# the structured-output server of phases 4e and 4f: ServeConfig's grammar
+# pool (4 blocks of 64 states, the sentinel block beside them), top-5
+# logprobs, token 0 as EOS for the constrained lanes
+CONSTRAIN_BLOCKS, CONSTRAIN_STATES, N_LOGPROBS, EOS_ID = 4, 64, 5, 0
+# phase 3's grammar cases of the sampling prep (label, S, vocab, pool [G+1,
+# S_max]): (g) the serving shape with that server's pool, (h) a 32000 vocab
+# with a [5, 64, 32000] pool (10.2 MB)
+GRAMMAR_CASES = (("g", SLOTS, V, (CONSTRAIN_BLOCKS + 1, CONSTRAIN_STATES)),
+                 ("h", SLOTS, 32000, (5, 64)))
+# phase 4e's grammars over default_vocab(256): three regexes (12, 24 and 47
+# automaton states) and an object with an integer and a boolean (26)
+CONSTRAIN_REGEXES = {"r1": "[a-f]{3,8}-[0-9]{2}",
+                     "r2": "[A-Z][a-z]{2,6}( [A-Z][a-z]{2,6}){0,2}",
+                     "r3": "(GET|PUT|POST) /[a-z]{1,8}(/[a-z0-9]{1,8}){0,3}"}
+CONSTRAIN_SCHEMA = {"type": "object",
+                    "properties": {"n": {"type": "integer"},
+                                   "ok": {"type": "boolean"}},
+                    "required": ["n", "ok"]}
+# phase 4e's 16 lanes on phase 4's requests: each lane's grammar (6 regex
+# lanes, 4 schema lanes, 6 free lanes), temperature (8 greedy, 8 at 0.8)
+# and stop sequences, cut from phase 4's stream of the same request by
+# token index: lane 4 one token, lane 8 the pair ending at token 9 (the
+# boundary of two 8-token decode blocks when the schedule runs blocks of
+# 8), lane 9 the pair ending at token 1 (token 0 comes from the prefill, so
+# that pair always straddles two deliveries)
+LANE_GRAMMARS = ("r1", "r1", "json", None, None, "r2", "r2", "json", None,
+                 None, "r3", "r3", "json", None, "json", None)
+LANE_TEMPS = tuple(0.0 if i in (0, 2, 3, 4, 5, 8, 9, 10) else 0.8
+                   for i in range(16))
+LANE_STOPS = {4: ((5, 6),), 8: ((8, 10),), 9: ((0, 2),)}
 # phase 3d's residual shapes (label, k, vocab, dtype): the verify's main
 # shape first
 RESIDUAL_CASES = (("[8, 4, 256] f32", 4, V, "float32"),
@@ -895,6 +945,33 @@ def sample_inputs(torch, dev, gen, S: int, vocab: int):
     return lg, temps, gallow, gidx, gstate
 
 
+def grammar_inputs(torch, dev, gen, S: int, vocab: int, pool):
+    """A grammar case's inputs: logits ``[S, vocab]`` (unit normal times
+    2), temperatures with greedy rows, a bool pool ``[G+1, S_max, vocab]``
+    whose rows allow from a few to most tokens (block ``G`` the all-True
+    sentinel; block 0's state 0 allows token 1 alone, an automaton that
+    takes nothing but EOS), and each row's ``(gidx, gstate)``: rows 2 and 5
+    on the sentinel, row 0 on the one-token state, the others on random
+    blocks and states."""
+    G1, n_states = pool
+    lg = torch.randn(S, vocab, generator=gen, device=dev) * 2
+    temps = torch.tensor(([0.0, 0.8, 1.0, 0.0, 0.8, 1.3, 0.8, 0.5] * S)[:S],
+                         device=dev)
+    dens = torch.rand(G1, n_states, 1, generator=gen, device=dev)
+    gallow = torch.rand(G1, n_states, vocab, generator=gen,
+                        device=dev) < dens
+    gallow[0, 0] = False
+    gallow[0, 0, 1] = True
+    gallow[G1 - 1] = True
+    gidx = torch.randint(0, G1 - 1, (S,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    gstate = torch.randint(0, n_states, (S,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    gidx[[2, 5]] = G1 - 1
+    gidx[0] = gstate[0] = 0
+    return lg, temps, gallow, gidx, gstate
+
+
 def prep_arms(kind: str, rows: int, vocab: int) -> list:
     """Both arms of the sampling (``kind`` "sample") or residual
     ("residual") prep that take ``rows`` rows of ``vocab``: the plan's
@@ -1006,6 +1083,9 @@ def check_sample(torch, dev):
             + f" ms (plan {row['planned']}); bound {row['bound'][0]:.6f} ms"
             + (f"; torch.topk(50) {row['topk_ms']:.4f}, torch.sort "
                f"{row['sort_ms']:.4f} ms" if filtered else ""))
+    for label, S, vocab, pool in GRAMMAR_CASES:
+        cases[label] = check_grammar_case(torch, dev, gen, flush, label, S,
+                                          vocab, pool)
     main = cases["a"]
     lg = torch.randn(SLOTS, V, generator=gen, device=dev) * 2
     temps = torch.rand(SLOTS, generator=gen, device=dev) + 0.5
@@ -1026,6 +1106,62 @@ def check_sample(torch, dev):
     del flush
     ops.reset_launch_counts()
     return {"fused_sample": rec}
+
+
+def check_grammar_case(torch, dev, gen, flush, label, S, vocab, pool):
+    """Phase 3, row 3's grammar arm at a constrained server's pool
+    (``GRAMMAR_CASES``): on both arms, one launch each (counted by
+    ``launches_grammar`` too), masked, scaled and greedy equal to the plain
+    version bit for bit on :func:`grammar_inputs`; then timed as in phase
+    3 on both arms, beside the planned arm without the grammar operands on
+    the same logits and the plain version.  The bound counts the logits
+    read, one allow row read a slot (``S · V`` bytes), ``masked`` and
+    ``scaled`` written, and the per-row scalars."""
+    from tpudist_torch import ops
+    from tpudist_torch.ops.fused_sample import (_launch_sample,
+                                                fused_sample_reference)
+
+    args = grammar_inputs(torch, dev, gen, S, vocab, pool)
+    arms = prep_arms("sample", S, vocab)
+    for arm, width in arms:
+        ops.reset_launch_counts()
+        out = _launch_sample(arm, width, *args)
+        torch.cuda.synchronize()
+        fs = ops.fused_sample_prep
+        got = (fs.launches_row, fs.launches_cluster, fs.launches_grammar)
+        if got != ((1, 0, 1) if arm == "row" else (0, 1, 1)):
+            raise AssertionError(f"fused_sample_prep ({label}) on the {arm} "
+                                 f"arm launched {got} (row, cluster, "
+                                 "grammar)")
+        for name, x, y in zip(("masked", "scaled", "greedy"), out,
+                              fused_sample_reference(*args)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"fused_sample_prep's grammar arm "
+                                     f"({label}, {arm}) differs from its "
+                                     f"plain version in {name}")
+    G1, n_states = pool
+    nbytes = S * vocab * 4 + S * vocab + 2 * S * vocab * 4 + S * 4 * 4
+    plan = arms[0]
+    row = dict(
+        S=S, vocab=vocab, pool=[G1, n_states, vocab],
+        pool_bytes=G1 * n_states * vocab, planned=f"{plan[0]}{plan[1]}",
+        bound=bound(nbytes, 3 * S * vocab, H100_F32_FLOPS),
+        arm_ms={f"{arm}{width}": time_ms(
+            torch, lambda: _launch_sample(arm, width, *args), flush)
+            for arm, width in arms},
+        free_ms=time_ms(torch, lambda: _launch_sample(*plan, *args[:2]),
+                        flush),
+        plain_ms=time_ms(torch, lambda: fused_sample_reference(*args),
+                         flush))
+    log(f"kernel fused_sample ({label}: S {S}, vocab {vocab}, grammar pool "
+        f"{row['pool']} = {row['pool_bytes']} bytes): " + ", ".join(
+            f"{a} {ms:.4f}" for a, ms in row["arm_ms"].items())
+        + f" ms (plan {row['planned']}); the planned arm without grammar "
+        f"{row['free_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms; bound "
+        f"{row['bound'][0]:.6f} ms by {row['bound'][1]}; masked, scaled and "
+        f"greedy exact")
+    ops.reset_launch_counts()
+    return row
 
 
 def check_residual(torch, dev):
@@ -1993,23 +2129,35 @@ def hold_planned_arm(name: str, by_arm: dict, total: int, arm: str) -> None:
                              f"{total} on the {arm} arm")
 
 
-def near_tie_gap(torch, model, prompt, got, want, factors=None):
+def near_tie_gap(torch, model, prompt, got, want, factors=None, tg=None):
     """Where a greedy stream ``got`` differs from ``want``: the first
     differing position and the top-2 gap of the card's bf16 logits there,
-    the common prefix teacher-forced through :func:`prompt_logits`."""
-    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    the common prefix teacher-forced through :func:`prompt_logits`; with a
+    grammar ``tg``, of the logits its automaton allows at that state.  Two
+    streams that agree until one ends (a stop or EOS at another place)
+    fail."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        raise AssertionError(f"a greedy stream ends after {len(got)} tokens "
+                             f"where its reference ends after {len(want)} "
+                             "on the same tokens")
     seq = list(prompt) + list(want[:j])
-    top = prompt_logits(torch, model, seq, factors)[-1].float().topk(2)
+    lg = prompt_logits(torch, model, seq, factors)[-1].float()
+    if tg is not None:
+        allow = torch.from_numpy(tg.allowed[tg.walk(want[:j])])
+        lg = torch.where(allow, lg, torch.full_like(lg, -math.inf))
+    top = lg.topk(2)
     return j, float(top.values[0] - top.values[1])
 
 
 def hold_greedy_streams(torch, model, prompts, streams, base, lanes,
-                        factors=None, names=None):
-    """Gate of phases 4c and 4d: each greedy lane in ``lanes`` equals its
-    non-speculative stream ``base``, or differs first where the card's top-2
-    logits lie within ``NEAR_TIE_GAP`` (the verify computes a row in an
-    ``S * (K + 1)``-row pass, so bf16 rounds otherwise than in the ``s =
-    1`` decode).  Returns ``(equal lanes, [(lane, position, gap)])``."""
+                        factors=None, names=None, grammars=None):
+    """Gate of phases 4c, 4d and 4f: each greedy lane in ``lanes`` equals
+    its non-speculative stream ``base``, or differs first where the card's
+    top-2 logits (those its grammar allows, ``grammars[lane]``) lie within
+    ``NEAR_TIE_GAP`` (the verify computes a row in an ``S * (K + 1)``-row
+    pass, so bf16 rounds otherwise than in the ``s = 1`` decode).  Returns
+    ``(equal lanes, [(lane, position, gap)])``."""
     equal, ties = 0, []
     for i in lanes:
         if streams[i] == base[i]:
@@ -2017,7 +2165,7 @@ def hold_greedy_streams(torch, model, prompts, streams, base, lanes,
             continue
         f = None if names is None or names[i] is None else factors[names[i]]
         j, gap = near_tie_gap(torch, model, prompts[i], streams[i], base[i],
-                              f)
+                              f, None if grammars is None else grammars[i])
         ties.append((i, j, gap))
         log(f"  lane {i} first differs at token {j}: top-2 logit gap "
             f"{gap:.5f} (bound {NEAR_TIE_GAP})")
@@ -2363,6 +2511,337 @@ def log_spec(what: str, r: dict, base: str, card: str) -> None:
         f"{r['draft_forwards']} draft forwards; greedy lanes equal to "
         f"{base}: {r['greedy_lanes_equal']}, near ties {r['near_ties']}; "
         f"launches {r['launches']}")
+
+
+# ---------------------------------------------------------------------------
+# phases 4e and 4f: structured output, logprobs and stop sequences on the
+# serving path
+
+
+def constrain_grammars() -> tuple:
+    """Phase 4e's grammars by kind (``CONSTRAIN_REGEXES`` and ``"json"``,
+    ``CONSTRAIN_SCHEMA``) over ``default_vocab(256)`` with EOS ``EOS_ID``,
+    each compiled once through the port's compiler (the server's own
+    compiles of the same asks are then cache hits): ``({kind:
+    TokenGrammar}, {kind: host ms of its compile})``."""
+    from tpudist_torch.constrain import compile_grammar, default_vocab
+
+    out, ms = {}, {}
+    for kind in ("r1", "r2", "r3", "json"):
+        kw = (dict(json_schema=CONSTRAIN_SCHEMA) if kind == "json"
+              else dict(regex=CONSTRAIN_REGEXES[kind]))
+        t0 = time.perf_counter()
+        out[kind] = compile_grammar(vocab=default_vocab(V), eos_id=EOS_ID,
+                                    max_states=CONSTRAIN_STATES, **kw)
+        ms[kind] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def first_stop(stream, seqs):
+    """The index of the last token of ``stream``'s first stop-sequence
+    match (the server's suffix match after every token), or None."""
+    for e in range(len(stream)):
+        for q in seqs:
+            if e + 1 >= len(q) and tuple(stream[e + 1 - len(q):e + 1]) == q:
+                return e
+    return None
+
+
+def hold_language(i, h, tg, kind) -> None:
+    """Gate 1 of phases 4e and 4f for constrained lane ``i``: finished
+    ``eos``, its text (the tokens before EOS) is in the language
+    (``re.fullmatch`` of the regex; ``json.loads`` and the schema's own
+    check: an object of exactly an int ``n`` and a bool ``ok``); finished
+    ``length``, its tokens walk the automaton (every state is live, so they
+    spell a prefix of a member).  Anything else fails."""
+    from tpudist_torch.constrain import default_vocab
+
+    vocab = default_vocab(V)
+    if h.finish_reason == "eos":
+        text = "".join(vocab[t] for t in h.tokens[:-1])
+        if kind == "json":
+            try:
+                obj = json.loads(text)
+            except ValueError:
+                obj = None
+            ok = (isinstance(obj, dict) and set(obj) == {"n", "ok"}
+                  and type(obj["n"]) is int and type(obj["ok"]) is bool)
+        else:
+            ok = re.fullmatch(CONSTRAIN_REGEXES[kind], text) is not None
+    elif h.finish_reason == "length":
+        ok = tg.walk(h.tokens) is not None
+        text = "".join(vocab[t] for t in h.tokens)
+    else:
+        ok, text = False, None
+    if not ok:
+        raise AssertionError(f"constrained lane {i} ({kind}) finished "
+                             f"{h.finish_reason} with {text!r}, outside its "
+                             "language")
+
+
+def hold_logprobs(i, h, tg, greedy: bool) -> int:
+    """Gate 5 of phases 4e and 4f for lane ``i``: one row a token, None for
+    the prefill's first token; each row ``N_LOGPROBS`` wide, sorted, every
+    value ``<= 0``; a greedy lane's token is its row's top id; on a
+    constrained lane every id above -1e30 is allowed by the host shadow at
+    that token's state.  Returns the rows checked."""
+    if len(h.logprobs) != len(h.tokens) or h.logprobs[0] is not None:
+        raise AssertionError(f"lane {i}: {len(h.logprobs)} logprobs rows "
+                             f"for {len(h.tokens)} tokens (the first None)")
+    state = 0 if tg is None else tg.advance(0, h.tokens[0])
+    for j in range(1, len(h.tokens)):
+        ids, vals = h.logprobs[j]
+        tok = h.tokens[j]
+        if len(ids) != N_LOGPROBS or any(
+                b > a for a, b in zip(vals, vals[1:])) or max(vals) > 0:
+            raise AssertionError(f"lane {i} token {j}: logprobs row "
+                                 f"{ids} {vals} is not a sorted top-"
+                                 f"{N_LOGPROBS} of log-probabilities")
+        if greedy and ids[0] != tok:
+            raise AssertionError(f"greedy lane {i} token {j}: emitted {tok}, "
+                                 f"top logprob id {ids[0]}")
+        if tg is not None:
+            if any(v > -1e30 and not tg.token_allowed(state, t)
+                   for t, v in zip(ids, vals)):
+                raise AssertionError(f"constrained lane {i} token {j}: a "
+                                     "forbidden id carries probability")
+            state = tg.advance(state, tok)
+    return len(h.tokens) - 1
+
+
+def serve_constrained_path(torch, model, gen_seed: int, base: dict,
+                           mode: str = "plain", constrained=None) -> dict:
+    """Phase 4e (``mode="plain"``): ``ServeConfig(constrain=True,
+    logprobs=5)`` on phase 4's model, geometry and 16 requests, the lanes
+    as ``LANE_GRAMMARS`` / ``LANE_TEMPS`` / ``LANE_STOPS`` say, every lane
+    asking top-5 logprobs.  Phase 4f: the same traffic on phase 4c's spec
+    server (``mode="spec"``) and on phase 4b's adapter server with its four
+    adapters (``mode="adapter"``, names cycling as in 4b).  ``mode="free"``
+    is 4e's yardstick: the same requests, temperatures and seeds on phase
+    4's server, without grammars, stops or logprobs (every lane runs to
+    its budget; each greedy lane must hold phase 4's stream, gate 3).
+    The launch counts are zeroed just before the requests and read just
+    after.
+
+    Gates: (1) every constrained lane in its language
+    (:func:`hold_language`); (2) no ``grammar_violation``; (3) on 4e each
+    free greedy lane equals phase 4's stream ``base["streams"]`` bit for
+    bit or leaves it first at a near tie (:func:`hold_greedy_streams`: the
+    server's schedule, which moves with when requests arrive and with the
+    decode block sizes that the constrained lanes' early EOS changes,
+    moves where the paged decode splits a lane's keys, so bf16 rounds
+    otherwise; phase 4's own traffic differs so between runs; the sentinel
+    row's identity itself is exact in phase 3's (g) and (h)), on the spec
+    server every greedy lane its 4e stream (``constrained["streams"]``) up
+    to a near tie of the logits its grammar allows; (4) each stop lane
+    ends at its first match with the stop tokens kept (on 4e: phase 4's
+    stream cut there, and a two-token match straddles two deliveries), or,
+    off phase 4's stream, at its budget without a match; (5) the logprobs
+    rows (:func:`hold_logprobs`); (6) the sampling kernel's grammar arm
+    launched: on the plain and adapter servers every sampling launch
+    carries the pool, on the spec server the decode steps' do (the
+    verify's rows are masked before the kernel, the draft proposes
+    unmasked)."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.constrain import compile_cache_stats
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    rng = np.random.default_rng(gen_seed)
+    warm_prompt = rng.integers(0, V, size=70)
+    reqs = [(rng.integers(0, V, size=int(rng.integers(1, 301))),
+             int(rng.integers(16, 65))) for _ in range(16)]
+    cache0 = compile_cache_stats()
+    grammars, compile_ms = ({}, {}) if mode == "free" \
+        else constrain_grammars()
+    ref = base["streams"]
+    stops = {i: tuple(tuple(ref[i][a:b]) for a, b in cuts)
+             for i, cuts in LANE_STOPS.items()}
+    names = ([ADAPTER_NAMES[i % len(ADAPTER_NAMES)] for i in range(16)]
+             if mode == "adapter" else [None] * 16)
+    on, free = mode == "adapter", mode == "free"
+    if free:
+        stops = {}
+    cfg = ServeConfig(num_slots=SLOTS, queue_limit=64, max_new=64,
+                      prefill_pad=P, decode_block=8, kv_block=BS,
+                      fused_rope=on, adapters=on, lora_kernel=on,
+                      spec=mode == "spec", spec_k=SPEC_K, constrain=not free,
+                      constrain_blocks=CONSTRAIN_BLOCKS,
+                      constrain_states=CONSTRAIN_STATES,
+                      logprobs=0 if free else N_LOGPROBS)
+    server = InferenceServer(model, cfg, device="cuda")
+    deliveries = {}
+    deliver = server._deliver_block
+
+    def record(slot, toks, lp=None):
+        # each delivery's size by request: where a stop match straddles
+        h = server._slot_handles[slot]
+        deliveries.setdefault(h.id, []).append(len(toks))
+        return deliver(slot, toks, lp)
+
+    server._deliver_block = record
+    try:
+        for name, f in (adapter_factors(torch, model) if on else {}).items():
+            server.load_adapter(name, f)
+        if not on:  # phase 4's schedule: warm up, then submit all
+            server.start()
+            warm = server.submit(warm_prompt, max_new=9)
+            if not warm.wait(600) or warm.finish_reason != "length":
+                raise AssertionError("warm-up request did not finish")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        dec0 = server.engine.decode_stats()
+        t0 = time.perf_counter()
+        handles = []
+        for i, (p, n) in enumerate(reqs):
+            kind = None if free else LANE_GRAMMARS[i]
+            ask = ({} if kind is None else dict(
+                eos_id=EOS_ID, **({"json_schema": CONSTRAIN_SCHEMA}
+                                  if kind == "json" else
+                                  {"grammar": CONSTRAIN_REGEXES[kind]})))
+            handles.append(server.submit(
+                p, max_new=n, temperature=LANE_TEMPS[i], seed=i,
+                adapter=names[i], stop=stops.get(i),
+                logprobs=0 if free else N_LOGPROBS, **ask))
+        if on:  # phase 4b's schedule: all queued, then start
+            server.start()
+        for h in handles:
+            if not h.wait(900):
+                raise AssertionError("request timed out")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        grammar_launches = ops.fused_sample_prep.launches_grammar
+        sample_arm_launches = prep_arm_launches(ops.fused_sample_prep)
+        stats = server.stats()
+    finally:
+        server.close(60)
+    # host wall of the decode iterations (dispatch plus the one fetch) per
+    # target pass: a decode step, or a spec block's verify
+    dec = {k: stats["decode"][k] - dec0[k]
+           for k in ("steps", "dispatch_s", "sync_s", "tokens")}
+    step_ms = 1e3 * (dec["dispatch_s"] + dec["sync_s"]) / max(dec["steps"], 1)
+    if stats["kv"]["blocks_in_use"] != 0:
+        raise AssertionError("KV pool did not drain")
+    if not free and stats["constrained"]["pinned"] != 0:
+        raise AssertionError(f"grammar blocks still pinned: "
+                             f"{stats['constrained']}")
+    lane_g = [None if k is None or free else grammars[k]
+              for k in LANE_GRAMMARS]
+    reasons = {}
+    rows = 0
+    for i, h in enumerate(handles):
+        reasons[h.finish_reason] = reasons.get(h.finish_reason, 0) + 1
+        if h.finish_reason == "grammar_violation":  # gate 2
+            raise AssertionError(f"lane {i} finished grammar_violation")
+        if lane_g[i] is not None:
+            hold_language(i, h, lane_g[i], LANE_GRAMMARS[i])
+        elif i not in stops and (h.finish_reason != "length"
+                                 or len(h.tokens) != reqs[i][1]):
+            raise AssertionError(f"free lane {i}: {h.finish_reason}, "
+                                 f"{len(h.tokens)}/{reqs[i][1]} tokens")
+        if not free:
+            rows += hold_logprobs(i, h, lane_g[i], LANE_TEMPS[i] == 0.0)
+    streams = [h.tokens for h in handles]
+    straddles = {}
+    for i, seqs in stops.items():  # gate 4
+        h = handles[i]
+        e = first_stop(h.tokens, seqs)
+        if e is None:
+            # off phase 4's stream (an adapter lane, or a lane that left it
+            # at a near tie, gate 3) the sequence may never come: the
+            # budget ends it
+            if h.finish_reason != "length" or len(h.tokens) != reqs[i][1]:
+                raise AssertionError(f"stop lane {i}: {h.finish_reason} "
+                                     f"after {len(h.tokens)} tokens without "
+                                     "a match")
+            continue
+        if h.finish_reason != "stop_sequence" or e != len(h.tokens) - 1:
+            raise AssertionError(f"stop lane {i}: {h.finish_reason} after "
+                                 f"{len(h.tokens)} tokens, first match of "
+                                 f"{seqs} ends at {e}")
+        starts = np.cumsum([0] + deliveries[h.id])
+        chunk = np.searchsorted(starts, [e + 1 - len(seqs[0]), e],
+                                side="right")
+        straddles[i] = bool(chunk[0] != chunk[1])
+    if mode == "plain" and not any(
+            straddles.get(i) for i in stops if len(stops[i][0]) == 2):
+        raise AssertionError(f"no two-token stop match straddled two "
+                             f"deliveries: {straddles}")
+    greedy = [i for i in range(16) if LANE_TEMPS[i] == 0.0]
+    equal, ties = len(greedy), []
+    if mode in ("plain", "free"):  # gate 3: the sentinel row is an identity
+        want = [r[:first_stop(r, stops[i]) + 1] if i in stops else r
+                for i, r in enumerate(ref)]
+        greedy = [i for i in greedy if lane_g[i] is None]
+        equal, ties = hold_greedy_streams(
+            torch, model, [p for p, _ in reqs], streams, want, greedy)
+    elif mode == "spec":
+        equal, ties = hold_greedy_streams(
+            torch, model, [p for p, _ in reqs], streams,
+            constrained["streams"], greedy, grammars=lane_g)
+    if not all(counts[name] > 0 for name in SERVE_KERNELS):
+        raise AssertionError(f"a serving kernel was not launched: {counts}")
+    if on and not (counts["fused_rope_qkv"] > 0 and counts["lora_delta"] > 0):
+        raise AssertionError(f"the adapter kernels were not launched: "
+                             f"{counts}")
+    if mode == "spec" and counts["fused_residual_prep"] == 0:
+        raise AssertionError("no speculative verify ran")
+    if free:
+        if grammar_launches:
+            raise AssertionError(f"{grammar_launches} grammar launches "
+                                 "without a grammar pool")
+    elif not 0 < grammar_launches <= counts["fused_sample"] or (
+            mode != "spec" and grammar_launches != counts["fused_sample"]):
+        raise AssertionError(  # gate 6
+            f"fused_sample_prep carried the grammar pool in "
+            f"{grammar_launches} of {counts['fused_sample']} launches")
+    hold_planned_arm("fused_sample_prep", sample_arm_launches,
+                     counts["fused_sample"], planned_arms()["sample"])
+    cache1 = compile_cache_stats()
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(
+        mode=mode, requests=len(handles), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
+        tpot_p50_ms=1e3 * statistics.median(
+            h.tpot_s for h in handles if h.tpot_s is not None),
+        finish_reasons=reasons, logprob_rows=rows, decode=dec,
+        decode_step_ms=step_ms,
+        grammar_states={k: g.n_states for k, g in grammars.items()},
+        compile_ms=compile_ms,
+        compile_cache=dict(hits=cache1["hits"] - cache0["hits"],
+                           misses=cache1["misses"] - cache0["misses"]),
+        stops={i: [list(q) for q in seqs] for i, seqs in stops.items()},
+        stop_straddles=straddles,
+        greedy_lanes_equal=f"{equal}/{len(greedy)}", near_ties=ties,
+        launches=counts, grammar_launches=grammar_launches,
+        sample_arm_launches=sample_arm_launches,
+        spec=stats["spec"], constrained=stats.get("constrained"),
+        streams=streams,
+        base={k: base[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                   "tpot_p50_ms")})
+
+
+def log_constrained(what: str, r: dict, card: str) -> None:
+    b = r["base"]
+    log(f"{what}: {r['requests']} requests, {r['tokens']} tokens in "
+        f"{r['wall_s']:.3f} s = {r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{r['ttft_p50_ms']:.2f} ms, TPOT p50 {r['tpot_p50_ms']:.3f} ms, "
+        f"{r['decode_step_ms']:.3f} ms of host wall per target pass of the "
+        f"decode ({r['decode']['steps']} passes) ({card}); phase 4 in this "
+        f"run {b['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{b['ttft_p50_ms']:.2f} ms, TPOT p50 {b['tpot_p50_ms']:.3f} ms; "
+        f"finish reasons {r['finish_reasons']}; "
+        f"grammar states {r['grammar_states']}; compile host ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in r["compile_ms"].items())
+        + f" (this phase's compiles: {r['compile_cache']}); launches "
+        f"{r['launches']}, fused_sample.grammar {r['grammar_launches']} of "
+        f"{r['launches']['fused_sample']}; {r['logprob_rows']} logprobs rows "
+        f"held; stops {r['stops']}, straddling two deliveries "
+        f"{r['stop_straddles']}; greedy lanes equal "
+        f"{r['greedy_lanes_equal']}, near ties {r['near_ties']}")
 
 
 def device_profile(torch, fn, prep):
@@ -3271,6 +3750,22 @@ def main(argv=None) -> int:
     log_spec("spec adapter path (fused_rope, 4 adapters, tied 4-layer "
              "draft, K 4)", spec_ad_path, "phase 4b", card)
 
+    constrained_free = serve_constrained_path(torch, model, 7, main_path,
+                                              "free")
+    log_constrained("phase 4e's traffic without grammars, stops or "
+                    "logprobs (its yardstick)", constrained_free, card)
+    constrained = serve_constrained_path(torch, model, 7, main_path)
+    log_constrained("phase 4e, constrained serving (4 grammars, top-5 "
+                    "logprobs, stop sequences)", constrained, card)
+    constrained_spec = serve_constrained_path(
+        torch, model, 7, main_path, "spec", constrained)
+    log_constrained("phase 4f, the same on the spec server (tied 4-layer "
+                    "draft, K 4)", constrained_spec, card)
+    constrained_ad = serve_constrained_path(torch, model, 7, main_path,
+                                            "adapter")
+    log_constrained("phase 4f, the same on the adapter server (fused_rope, "
+                    "4 adapters)", constrained_ad, card)
+
     prof = profile_engine(torch, model)
     prof.update({f"adapter {k}": v for k, v in profile_engine(
         torch, model, adapter_factors(torch, model)).items()})
@@ -3483,9 +3978,24 @@ def main(argv=None) -> int:
             kernels[-1]["arms"] = {
                 a: dict(ms=ms, launches=int(arms[name][1][a]))
                 for a, ms in arms[name][0].items()}
+        if name == "fused_sample":
+            # the grammar arm on the constrained server (phase 4e's launches)
+            # and at phase 3's grammar cases (the planned arm)
+            kernels[-1]["grammar"] = dict(
+                launches=int(constrained["grammar_launches"]),
+                cases={c: dict(ms=r["cases"][c]["arm_ms"][
+                    r["cases"][c]["planned"]],
+                    bound_ms=r["cases"][c]["bound"][0],
+                    plain_ms=r["cases"][c]["plain_ms"],
+                    free_ms=r["cases"][c]["free_ms"])
+                    for c, *_ in GRAMMAR_CASES})
     result = dict(card=card, kernels=kernels, main_path=main_path,
                   adapter_path=dict(ad_path, streams=ad_streams),
                   spec_path=spec_path, spec_adapter_path=spec_ad_path,
+                  constrained_free_path=constrained_free,
+                  constrained_path=constrained,
+                  constrained_spec_path=constrained_spec,
+                  constrained_adapter_path=constrained_ad,
                   verify_kernel=rec["paged_attention"]["verify"],
                   fused_linear=lin_info,
                   profile=prof, flash_fwd_bwd=flash_fwd_bwd, train=train,

@@ -56,9 +56,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (MLP_CASES, RESIDUAL_CASES, SAMPLE_CASES,
-                        check_filters, decode_readings, demo_path,
-                        flash_agreement, flash_case_readings,
+from chip_smoke import (GRAMMAR_CASES, MLP_CASES, RESIDUAL_CASES,
+                        SAMPLE_CASES, check_filters, decode_readings,
+                        demo_path, flash_agreement, flash_case_readings,
+                        grammar_inputs,
                         linear_agreement, lora_inputs, mlp_agreement,
                         mlp_inputs, prep_arms, qkv_inputs, residual_close,
                         sample_inputs)
@@ -421,6 +422,83 @@ def test_fused_sample_arms_match_plain(cuda, case):
             check_filters(torch, out,
                           fused_sample_reference(*a, top_k=tk, top_p=tp),
                           fused_sample_reference(*a, top_k=tk)[1], tp)
+
+
+@pytest.mark.parametrize("case", GRAMMAR_CASES,
+                         ids=[c[0] for c in GRAMMAR_CASES])
+def test_fused_sample_grammar_cases_match_plain(cuda, case):
+    """Phase 3's grammar cases (g) and (h): the constrained server's pool
+    at vocab 256, and a ``[5, 64, 32000]`` pool, on both arms
+    (``chip_smoke.grammar_inputs``: sentinel rows, a one-token state, rows
+    of varied density): masked, scaled and greedy equal to the plain
+    version bit for bit, one launch on the arm given, counted as a grammar
+    launch."""
+    label, S, V, pool = case
+    args = grammar_inputs(torch, cuda, torch.Generator(device=cuda)
+                          .manual_seed(S + V), S, V, pool)
+    ref = fused_sample_reference(*args)
+    for arm, width in prep_arms("sample", S, V):
+        reset_launch_counts()
+        out = _launch_sample(arm, width, *args)
+        assert _sample_counts() == ((1, 0) if arm == "row" else (0, 1))
+        assert fused_sample_prep.launches_grammar == 1
+        for x, y in zip(out, ref):
+            assert torch.equal(x, y), (label, arm)
+
+
+def test_constrained_engine_block_on_the_card(cuda):
+    """One admission and one decode block of a constrained engine with
+    top-3 logprobs on a small f32 LM, on the card and on the CPU (every
+    kernel's plain version) from the same weights: first tokens, the
+    block's tokens, ``gidx`` / ``gstate`` and the logprobs ids equal,
+    values within 1e-4; every sampling launch carried the grammar pool."""
+    from tpudist_torch.constrain import (ConstrainConfig, compile_grammar,
+                                         default_vocab)
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.serve import SlotEngine
+
+    vocab = default_vocab(64, 1)
+    tg = compile_grammar(regex="[A-F]{2,6}-[0-9]{1,3}", vocab=vocab,
+                         eos_id=1, max_states=32)
+    schema = compile_grammar(json_schema={"type": "array",
+                                          "items": {"type": "integer"}},
+                             vocab=vocab, eos_id=1, max_states=32)
+    rng = np.random.default_rng(3)
+    items = [(0, rng.integers(2, 64, size=9), 0.0, 0, 20, (), True, None,
+              tg),
+             (1, rng.integers(2, 64, size=30), 0.0, 1, 20, (), True, None,
+              None),
+             (2, rng.integers(2, 64, size=4), 0.0, 2, 20, (), True, None,
+              schema),
+             (3, rng.integers(2, 64, size=12), 0.0, 3, 20, (), True, None,
+              tg)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = create_transformer(0, device=dev, vocab=64, d_model=128,
+                                   n_layers=2, n_heads=2, d_ff=256,
+                                   max_len=128, rope=True)
+        eng = SlotEngine(model, num_slots=4, prefill_pad=16, kv_block=16,
+                         decode_block=8,
+                         constrain=ConstrainConfig(vocab, 2, 32),
+                         logprobs=3, device=dev)
+        reset_launch_counts()
+        first = dict(eng.start_batch(items))
+        while eng.prefilling_slots():
+            first.update(eng.advance_prefill())
+        info, block = eng.decode_block()
+        out[dev.type] = (first, block, eng.state.gidx.tolist(),
+                         eng.state.gstate.tolist(), info["logprobs"])
+        if dev.type == "cuda":
+            assert launch_counts()["fused_sample"] > 0
+            assert fused_sample_prep.launches_grammar == launch_counts()[
+                "fused_sample"]
+    card, cpu = out["cuda"], out["cpu"]
+    assert card[:4] == cpu[:4]
+    for s, rows in cpu[4].items():
+        for (ids, vals), (cids, cvals) in zip(rows, card[4][s]):
+            assert cids == ids
+            np.testing.assert_allclose(cvals, vals, rtol=1e-4, atol=1e-4)
+    assert tg.walk([cpu[0][0]] + cpu[1][0]) is not None
 
 
 def _equal_nan(a, b):

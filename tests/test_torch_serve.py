@@ -489,7 +489,7 @@ def test_serve_config_from_env(monkeypatch):
 # the JAX ServeConfig.from_env variables with no port yet, and the
 # ROADMAP.md queue A item each raises with
 UNPORTED_ENV = {
-    "MESH": "8", "CONSTRAIN": "5", "LOGPROBS": "5", "TP_OVERLAP": "6",
+    "MESH": "8", "TP_OVERLAP": "6",
     "HOST_TIER": "8", "PREEMPT": "8", "SHED": "8", "SHED_ATTAINMENT": "8",
     "SHED_PRIORITY": "8", "FAIR_SHARE": "8", "HANDOFF": "8",
     "HANDOFF_QUEUE": "8", "DECODE_WORKERS": "8", "PREFILL_WORKERS": "8",
@@ -507,6 +507,19 @@ def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, suffix):
                        match=rf"{name} .*queue A item "
                              rf"{UNPORTED_ENV[suffix]}\b"):
         ServeConfig.from_env()
+
+
+@pytest.mark.parametrize("name,value,field,want", [
+    ("TPUDIST_SERVE_CONSTRAIN", "1", "constrain", True),
+    ("TPUDIST_SERVE_LOGPROBS", "5", "logprobs", 5),
+    ("TPUDIST_CONSTRAIN_BLOCKS", "6", "constrain_blocks", 6),
+    ("TPUDIST_CONSTRAIN_STATES", "128", "constrain_states", 128)])
+def test_serve_config_from_env_reads_structured_output_knobs(
+        monkeypatch, name, value, field, want):
+    """The structured-output knobs are read as the JAX server reads them
+    (they raised before the port had the subsystem)."""
+    monkeypatch.setenv(name, value)
+    assert getattr(ServeConfig.from_env(), field) == want
 
 
 def test_serve_config_from_env_without_unported_knobs(monkeypatch):
@@ -532,9 +545,7 @@ def test_serve_config_from_env_without_unported_knobs(monkeypatch):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("tenant", "acme", "8"), ("session", "s1", "8"),
-    ("grammar", "[ab]{2}", "5"), ("json_schema", {"type": "integer"}, "5"),
-    ("stop", [[3, 4]], "5"), ("logprobs", 2, "5")])
+    ("tenant", "acme", "8"), ("session", "s1", "8")])
 def test_submit_refuses_unported_keywords(rope_models, key, value, item):
     """The JAX ``submit`` keywords are taken; a value but the default
     raises naming its ROADMAP item, and the default admits as before."""
@@ -547,6 +558,29 @@ def test_submit_refuses_unported_keywords(rope_models, key, value, item):
     default = {"logprobs": 0}.get(key)
     h = server.submit(_prompt(5, 0), **{key: default})
     assert server.scheduler.pending() == 1 and not h.done
+    assert server.close(30)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("grammar", "[!-#]{2}"), ("json_schema", {"enum": ["!!", "##"]}),
+    ("stop", [[3, 4], 5]), ("logprobs", 2)])
+def test_submit_takes_structured_output_keywords(rope_models, key, value):
+    """``grammar=``, ``json_schema=``, ``stop=`` and ``logprobs=`` are
+    taken (they raised before the port had structured output): the request
+    queues with its compiled grammar, stop sequences or logprobs width."""
+    _, model = rope_models
+    server = InferenceServer(model, ServeConfig(
+        max_new=4, constrain=True, constrain_states=32, logprobs=3,
+        **ENGINE_KW), device="cpu")
+    h = server.submit(_prompt(5, 0), eos_id=1, **{key: value})
+    assert server.scheduler.pending() == 1 and not h.done
+    req = h.request
+    if key in ("grammar", "json_schema"):
+        assert req.grammar.source["kind"] == ("regex" if key == "grammar"
+                                              else "json_schema")
+    else:
+        assert (req.stop, req.logprobs) == (
+            ((3, 4), (5,)), 0) if key == "stop" else ((), 2)
     assert server.close(30)
 
 

@@ -334,12 +334,38 @@ def test_unported_spec_pieces_raise(models):
         eng.swap_draft({})
     with pytest.raises(NotImplementedError, match="item 8"):
         eng.fns.draft_arm(eng.dcache, 0, None, 0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.fns.spec_verify(eng.state, eng.cache, eng.dcache, None, None,
-                            None, None, grammar=object())
     with pytest.raises(ValueError, match="vocab"):
         SlotEngine(model, spec_draft=TransformerLM(**dict(CFG, vocab=8)),
                    **ENGINE_KW, device="cpu")
+
+
+def test_verify_runs_with_grammar_and_logprobs(models):
+    """The verify takes the grammar pool and returns logprobs (it raised
+    before the port had structured output): a constrained greedy lane's
+    emitted tokens walk its automaton, ``gstate`` ends where the host
+    shadow does, and every emitted token has a top-n row."""
+    from tpudist_torch.constrain import (ConstrainConfig, compile_grammar,
+                                         default_vocab)
+
+    _, model = models
+    vocab = default_vocab(CFG["vocab"], 1)
+    tg = compile_grammar(regex="[!-#]{2,6}", vocab=vocab, eos_id=1,
+                         max_states=16)
+    eng = SlotEngine(model, spec_draft=1, spec_k=4, **ENGINE_KW,
+                     constrain=ConstrainConfig(vocab, 2, 16), logprobs=2,
+                     device="cpu")
+    first = eng.start_batch([(0, _prompt(5, 0), 0.0, 0, 9, (), True, None,
+                              tg)])
+    toks, rows = [first[0]], 0
+    while eng.num_active and eng.counts[0] < eng.budget[0]:
+        info, out = eng.spec_decode_block()
+        toks.extend(out.get(0, []))
+        rows += len(info["logprobs"].get(0, []))
+        for ids, vals in info["logprobs"].get(0, []):
+            assert len(ids) == 2 and vals[0] >= vals[1]
+    assert rows == len(toks) - 1 and eng.n_spec_blocks > 0
+    end = tg.walk(toks)
+    assert end is not None and int(eng.state.gstate[0]) == end
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +401,7 @@ def test_sampled_acceptance_matches_target_distribution():
                                               .astype(np.int32)),
                       temps=torch.full((S,), temp),
                       seeds=torch.arange(S, dtype=torch.int64) * 7919,
-                      adapter_id=z.clone())
+                      adapter_id=z.clone(), gidx=z.clone(), gstate=z.clone())
     logits = torch.from_numpy(np.broadcast_to(lt, (S, 2, V)).copy())
     dlogits = torch.from_numpy(np.broadcast_to(ld, (1, S, V)).copy())
     x, a_raw, inc, out = spec_accept(

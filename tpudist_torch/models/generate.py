@@ -182,21 +182,55 @@ def philox_uniform(seeds: torch.Tensor, counts: torch.Tensor,
 
 def sample_tail(logits: torch.Tensor, seeds: torch.Tensor,
                 temps: torch.Tensor, counts: torch.Tensor,
-                sampled: Optional[bool] = None,
-                stream: int = 0) -> torch.Tensor:
-    """Per-slot next tokens ``[S]`` int32 from ``logits [S, V]`` f32: the
-    fused kernel's greedy arg-max where ``temps <= 0``, else the Gumbel-max
-    draw ``argmax(scaled + g)`` with ``g`` from :func:`philox_uniform` on
-    substream ``stream``.  ``sampled=False`` promises no lane has ``temp >
-    0`` (skips the noise); ``None`` checks."""
-    _, scaled, greedy = fused_sample_prep(logits, temps)
+                sampled: Optional[bool] = None, stream: int = 0,
+                gpool=None, gidx: Optional[torch.Tensor] = None,
+                gstate: Optional[torch.Tensor] = None):
+    """Per-slot next tokens from ``logits [S, V]`` f32 — the JAX
+    ``_sample_tail``: the fused kernel masks each row by its grammar row
+    (``gpool = (gallow [G+1, S_max, V] bool, gnext)`` at ``gidx`` /
+    ``gstate [S]`` int32; ``None`` = no grammar seam) and takes the greedy
+    arg-max of the masked row where ``temps <= 0``; elsewhere the
+    Gumbel-max draw ``argmax(scaled + g)`` runs on the kernel's ``scaled``
+    (the masked row over the temperature), ``g`` from
+    :func:`philox_uniform` on substream ``stream``, so a forbidden token is
+    neither pick.  ``sampled=False`` promises no lane has ``temp > 0``
+    (skips the noise); ``None`` checks.  Returns ``(toks [S] int32, masked
+    [S, V] f32)``; ``masked`` feeds :func:`top_logprobs`."""
+    if gpool is None:
+        masked, scaled, greedy = fused_sample_prep(logits, temps)
+    else:
+        masked, scaled, greedy = fused_sample_prep(logits, temps, gpool[0],
+                                                   gidx, gstate)
     if sampled is None:
         sampled = bool((temps > 0).any())
     if not sampled:
-        return greedy
+        return greedy, masked
     u = philox_uniform(seeds, counts, logits.shape[1], stream)
     drawn = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
-    return torch.where(temps > 0, drawn.to(torch.int32), greedy)
+    return torch.where(temps > 0, drawn.to(torch.int32), greedy), masked
+
+
+def grammar_advance(gpool, gidx: torch.Tensor, gstate: torch.Tensor,
+                    toks: torch.Tensor, moved: torch.Tensor) -> torch.Tensor:
+    """The automaton advance over one emitted token a lane — the JAX
+    ``_gadvance``: ``gnext[gidx, gstate, tok]`` where ``moved``, else the
+    old state (the tables self-loop on forbidden tokens, so even a
+    defensive gather stays inside the automaton).  ``gpool`` None (no
+    grammar seam) leaves ``gstate`` as it is."""
+    if gpool is None:
+        return gstate
+    nxt = gpool[1][gidx, gstate, toks]
+    return torch.where(moved, nxt, gstate)
+
+
+def top_logprobs(masked: torch.Tensor, n: int):
+    """Top-``n`` ``(ids int32, logprobs f32)`` over the last axis of the
+    POST-MASK ``log_softmax`` — the JAX ``_top_lp`` (``lax.top_k``: the
+    lower id first among equal values, which a stable descending sort
+    keeps)."""
+    lp = torch.log_softmax(masked, dim=-1)
+    vals, ids = torch.sort(lp, dim=-1, descending=True, stable=True)
+    return ids[..., :n].to(torch.int32), vals[..., :n].contiguous()
 
 
 class SlotState(NamedTuple):
@@ -206,9 +240,12 @@ class SlotState(NamedTuple):
     stream index), ``temps`` f32, ``seeds`` int64 and ``adapter_id`` int32
     — the lane's block in the adapter pool, the pool's ``num_blocks``
     sentinel for a base-only lane (zeros on an engine without adapters).
-    The JAX state's per-lane ``accepted`` / ``drafted`` tallies have no
-    reader; the engine counts acceptance from ``spec_verify``'s packed
-    fetch."""
+    ``gidx`` / ``gstate`` int32 are the lane's block in the grammar pool
+    and its automaton state: the pool's ``num_blocks`` sentinel (its
+    all-True row keeps a free lane's logits bit for bit) and 0 for an
+    unconstrained lane, zeros on an engine without ``constrain``.  The JAX
+    state's per-lane ``accepted`` / ``drafted`` tallies have no reader; the
+    engine counts acceptance from ``spec_verify``'s packed fetch."""
 
     last_tok: torch.Tensor
     active: torch.Tensor
@@ -217,12 +254,15 @@ class SlotState(NamedTuple):
     temps: torch.Tensor
     seeds: torch.Tensor
     adapter_id: torch.Tensor
+    gidx: torch.Tensor
+    gstate: torch.Tensor
 
 
 def spec_accept(state: SlotState, logits: torch.Tensor,
                 drafts: torch.Tensor, dlogits: torch.Tensor,
                 spec_on: torch.Tensor, rem: torch.Tensor,
-                sampled: Optional[bool] = None):
+                sampled: Optional[bool] = None,
+                tok_ok: Optional[torch.Tensor] = None):
     """Leading-prefix acceptance over a verify window, the correction /
     bonus token and the per-lane budget clamp — the JAX ``_accept``.
 
@@ -239,6 +279,12 @@ def spec_accept(state: SlotState, logits: torch.Tensor,
     0 through :func:`sample_tail`, as the non-speculative engine does at the
     same count.  The emitted count is clamped to ``rem``; a clamped lane's
     last token is its last accepted draft.
+
+    On a constrained engine ``logits`` are the verify rows masked along
+    each lane's automaton trajectory (:func:`spec_verify`'s), and ``tok_ok
+    [S, k]`` marks the drafts the grammar allows: a forbidden draft is
+    rejected outright (``acc &= tok_ok``), whatever ``u`` says — its
+    masked target probability is tiny, not zero.
 
     Returns ``(x, a_raw, inc, out)``: the last emitted token ``[S]``, the
     unclamped accept count, the emitted count (0 on inactive lanes) and the
@@ -260,7 +306,7 @@ def spec_accept(state: SlotState, logits: torch.Tensor,
     # the arg-max rows of greedy lanes and the plain draws of sampled ones
     rows = sample_tail(logits.reshape(S * k1, V), per_row(state.seeds, k1),
                        per_row(state.temps, k1), call.reshape(-1),
-                       sampled).reshape(S, k1).long()
+                       sampled)[0].reshape(S, k1).long()
     pt, pd, res_logits = fused_residual_prep(
         logits[:, :k].contiguous(), dlogits.transpose(0, 1).contiguous(),
         state.temps)
@@ -276,6 +322,8 @@ def spec_accept(state: SlotState, logits: torch.Tensor,
         g = torch.log(-torch.log(philox_uniform(seeds_k, cidx, V, stream=3)))
         res_rows = torch.argmax(res_logits.reshape(S * k, V) - g,
                                 dim=-1).reshape(S, k)
+    if tok_ok is not None:
+        acc = acc & tok_ok
     acc = acc & (spec_on & active)[:, None]
     a_raw = torch.cumprod(acc.long(), dim=1).sum(1)
     a = torch.minimum(a_raw, torch.clamp(rem.long() - 1, min=0))
@@ -295,6 +343,30 @@ def spec_accept(state: SlotState, logits: torch.Tensor,
     out = torch.where(active[:, None], out, torch.zeros_like(out))
     return (x.to(torch.int32), a_raw.to(torch.int32), inc.to(torch.int32),
             out.to(torch.int32))
+
+
+def _trajectory_mask(gpool, state: SlotState, logits: torch.Tensor,
+                     drafts: torch.Tensor):
+    """The verify rows masked along each lane's automaton trajectory — the
+    grammar half of the JAX ``_accept``: row ``i`` of ``logits [S, k+1,
+    V]`` at the state after ``d_1..d_i`` (row 0 at the lane's current
+    state, so a spec-off lane's one token is right whatever its drafts
+    are).  A forbidden draft holds the state.  Returns ``(masked, tok_ok
+    [S, k])``."""
+    gallow, gnext = gpool
+    gidx = state.gidx.long()
+    st = state.gstate.long()
+    traj, oks = [st], []
+    for dt in drafts.long():                                 # [S] a step
+        ok = gallow[gidx, st, dt]
+        st = torch.where(ok, gnext[gidx, st, dt].long(), st)
+        traj.append(st)
+        oks.append(ok)
+    traj = torch.stack(traj, 1)                              # [S, k+1]
+    allow = gallow[gidx[:, None], traj]                      # [S, k+1, V]
+    masked = torch.where(allow, logits, torch.full_like(
+        logits, torch.finfo(logits.dtype).min))
+    return masked, torch.stack(oks, 1)
 
 
 class SlotDecode(NamedTuple):
@@ -328,27 +400,31 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                      sample_kernel: bool = True, fused_rope: bool = False,
                      lora_kernel: bool = False,
                      adapters: Optional[AdapterPoolConfig] = None,
-                     spec=None) -> SlotDecode:
+                     spec=None, constrain=None,
+                     logprobs: int = 0) -> SlotDecode:
     """Build the slot programs over ``model`` (a
     :class:`~tpudist_torch.models.TransformerLM` on its serving device):
 
     - ``init_state()`` / ``init_slots()`` — zero state / empty pool;
     - ``insert_batch(state, pkv, tables [S, M], poss [S], prompts [S, pad],
       clens [S], dsts [S], seeds [S], temps [S], last [S], sampled=None,
-      aids=None, apool=None)`` → ``(state, pkv, firsts [S])``: prefill lane
-      ``j``'s chunk at ``poss[j]`` through its table row (with adapter
-      block ``aids[j]``), install it in slot ``dsts[j]`` (``num_slots`` =
-      unused lane), and where ``last[j]`` sample the first token and arm
+      aids=None, apool=None, gids=None, gpool=None)`` → ``(state, pkv,
+      firsts [S])``: prefill lane ``j``'s chunk at ``poss[j]`` through its
+      table row (with adapter block ``aids[j]``), install it in slot
+      ``dsts[j]`` (``num_slots`` = unused lane) with grammar block
+      ``gids[j]``, and where ``last[j]`` sample the first token and arm
       the slot;
     - ``prefill_extend(state, pkv, slot, chunk [pad], clen, is_last,
-      sampled=None, apool=None)`` → ``(state, pkv, first)``: append one
-      prompt chunk at the slot's cursor (the batched prefill with a one-hot
-      batch);
-    - ``decode_block(state, pkv, k, sampled=None, apool=None)`` →
-      ``(state, pkv, toks [k, S])``: ``k`` decode steps with in-loop token
-      feedback;
+      sampled=None, apool=None, gpool=None)`` → ``(state, pkv, first)``:
+      append one prompt chunk at the slot's cursor (the batched prefill
+      with a one-hot batch);
+    - ``decode_block(state, pkv, k, sampled=None, apool=None, gpool=None)``
+      → ``(state, pkv, toks [k, S])``, plus ``(lp_ids [k, S, n], lp_vals
+      [k, S, n])`` with ``logprobs = n > 0``: ``k`` decode steps with
+      in-loop token feedback;
     - ``evict(state, pkv, slot, free_ids [M])`` — free a lane, zero the
-      blocks whose refcount hit zero, reset its adapter to the sentinel;
+      blocks whose refcount hit zero, reset its adapter and grammar to the
+      sentinels;
     - ``prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask,
       ads=None)`` → ``(pkv, logits [S, pad, V] f32)`` — the model-level
       prefill.
@@ -364,6 +440,17 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
     kernel path.  Only the kernel configuration is ported; other engine
     paths raise ``NotImplementedError``.  Pools update in place (see
     :mod:`tpudist_torch.models.paged`).
+
+    ``constrain`` (a :class:`~tpudist_torch.constrain.ConstrainConfig`)
+    turns on the structured-output seam: the programs that sample take the
+    grammar pool ``gpool = (gallow [G+1, S_max, V] bool, gnext [G+1,
+    S_max, V] int32)`` (block ``G`` the all-True sentinel), the sampling
+    kernel masks each lane's row at its ``(gidx, gstate)`` before the pick,
+    and ``gstate`` advances with every committed token
+    (:func:`grammar_advance`).  ``logprobs = n`` makes ``decode_block`` and
+    ``spec_verify`` also return the top-``n`` rows of the post-mask
+    ``log_softmax`` at each emitted position (:func:`top_logprobs`);
+    prefill-sampled first tokens carry none.
 
     ``spec`` (a draft :class:`~tpudist_torch.models.TransformerLM` on the
     same device, sharing ``vocab`` and ``max_len``) adds the speculative
@@ -381,9 +468,13 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
     - ``draft_propose(state, dkv, k, sampled=None, apool=None)`` → ``(dkv,
       drafts [k, S], dlogits [k, S, V])``;
     - ``spec_verify(state, pkv, dkv, drafts, dlogits, spec_on [S], rem [S],
-      sampled=None, apool=None)`` → ``(state, pkv, dkv, packed [S, k+3])``:
-      column 0 the emitted count, 1 the unclamped accept count, 2.. the
-      emitted tokens.
+      sampled=None, apool=None, gpool=None)`` → ``(state, pkv, dkv, packed
+      [S, k+3])``, plus ``(lp_ids [S, k+1, n], lp_vals [S, k+1, n])`` with
+      ``logprobs = n > 0``: column 0 the emitted count, 1 the unclamped
+      accept count, 2.. the emitted tokens.  The draft proposes unmasked;
+      the verify rows are masked along each lane's automaton trajectory
+      over its drafts, a forbidden draft is a rejection, and ``gstate``
+      advances over the emitted tokens only.
 
     The tied draft shares its lane's adapter (its blocks are the target's
     first layers, so they read the pool's first layer slices); a loaded
@@ -406,6 +497,9 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             "it requires the adapter seam (pass adapters=...)")
     if num_slots < 1:
         raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+    n_lp = int(logprobs)
+    if n_lp < 0:
+        raise ValueError(f"logprobs must be >= 0, got {n_lp}")
     if not 1 <= prefill_pad <= model.max_len:
         raise ValueError(f"prefill_pad {prefill_pad} must be in "
                          f"[1, {model.max_len}]")
@@ -415,6 +509,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
     lanes = torch.arange(S, device=device)
     #: the sentinel adapter id = base-only (also what evict resets to)
     aid_empty = int(adapters.num_blocks) if adapters is not None else 0
+    #: the sentinel grammar id = unconstrained (also what evict resets to)
+    gid_empty = int(constrain.num_blocks) if constrain is not None else 0
 
     def _ads(apool: Optional[AdapterPool], ids):
         if adapters is None:
@@ -423,6 +519,16 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             raise ValueError("an adapter engine's programs take the adapter "
                              "pool (apool=...)")
         return pool_collection(apool, ids)
+
+    def _gp(gpool):
+        """The grammar pool a program samples through (None when the seam
+        is off)."""
+        if constrain is None:
+            return None
+        if gpool is None:
+            raise ValueError("a constrained engine's programs take the "
+                             "grammar pool (gpool=...)")
+        return gpool
 
     def init_state() -> SlotState:
         z = torch.zeros(S, dtype=torch.int32, device=device)
@@ -435,7 +541,10 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                                            device=device),
                          adapter_id=torch.full((S,), aid_empty,
                                                dtype=torch.int32,
-                                               device=device))
+                                               device=device),
+                         gidx=torch.full((S,), gid_empty, dtype=torch.int32,
+                                         device=device),
+                         gstate=z.clone())
 
     def _pool(pkv: PagedKV, table, pos0) -> dict:
         return dict(pool_k=pkv.pool_k, pool_v=pkv.pool_v,
@@ -485,17 +594,22 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
 
     @torch.no_grad()
     def insert_batch(state, pkv, tables, poss, prompts, clens, dsts, seeds,
-                     temps, last, sampled=None, aids=None, apool=None):
+                     temps, last, sampled=None, aids=None, apool=None,
+                     gids=None, gpool=None):
         keep = dsts < S
+        gp = _gp(gpool)
         if aids is None:
             aids = torch.full((S,), aid_empty, dtype=torch.int32,
+                              device=device)
+        if gids is None:
+            gids = torch.full((S,), gid_empty, dtype=torch.int32,
                               device=device)
         pkv, logits = prefill_chunk(pkv, tables, poss, clens, prompts, keep,
                                     _ads(apool, aids))
         new_cur = (poss + clens).to(torch.int32)
         zero = torch.zeros(S, dtype=torch.int32, device=device)
-        firsts = sample_tail(_last(logits, clens), seeds, temps, zero,
-                             sampled)
+        firsts, _ = sample_tail(_last(logits, clens), seeds, temps, zero,
+                                sampled, gpool=gp, gidx=gids, gstate=zero)
         d = dsts[keep].long()
         pkv.table[d] = tables[keep].to(torch.int32)
         pkv.cursor[d] = new_cur[keep]
@@ -506,11 +620,14 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         state.temps[d] = temps[keep].float()
         state.seeds[d] = seeds[keep].long()
         state.adapter_id[d] = aids[keep].to(torch.int32)
+        state.gidx[d] = gids[keep].to(torch.int32)
+        state.gstate[d] = grammar_advance(gp, gids, zero, firsts, last)[keep]
         return state, pkv, firsts
 
     @torch.no_grad()
     def prefill_extend(state, pkv, slot: int, chunk, clen: int,
-                       is_last: bool, sampled=None, apool=None):
+                       is_last: bool, sampled=None, apool=None, gpool=None):
+        gp = _gp(gpool)
         onehot = lanes == slot
         poss = pkv.cursor.clone()
         prompts = torch.zeros((S, prefill_pad), dtype=torch.int32,
@@ -521,19 +638,27 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                                     onehot, _ads(apool, state.adapter_id))
         pkv.cursor[slot] += int(clen)
         row = logits[slot, max(0, min(int(clen), prefill_pad) - 1)][None]
+        gi = state.gidx[slot:slot + 1]
+        gs = state.gstate[slot:slot + 1]
         first = sample_tail(row, state.seeds[slot:slot + 1],
                             state.temps[slot:slot + 1],
                             torch.zeros(1, dtype=torch.int32, device=device),
-                            sampled)[0]
+                            sampled, gpool=gp, gidx=gi, gstate=gs)[0]
         state.pos[slot] += int(clen)
         state.active[slot] = bool(is_last)
-        state.last_tok[slot] = first if is_last else 0
+        state.last_tok[slot] = first[0] if is_last else 0
         state.counts[slot] = int(bool(is_last))
-        return state, pkv, first
+        if is_last:
+            state.gstate[slot:slot + 1] = grammar_advance(
+                gp, gi, gs, first, torch.ones(1, dtype=torch.bool,
+                                              device=device))
+        return state, pkv, first[0]
 
     @torch.no_grad()
-    def decode_block(state, pkv, k: int, sampled=None, apool=None):
+    def decode_block(state, pkv, k: int, sampled=None, apool=None,
+                     gpool=None):
         ads = _ads(apool, state.adapter_id)
+        gp = _gp(gpool)
         pos0 = pkv.cursor.clone()
         active = state.active.clone()
         inc = active.to(torch.int32)
@@ -541,24 +666,36 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         pool = _pool(pkv, pkv.table, pos0)
         cursor = pos0.clone()
         last_tok, counts, pos = state.last_tok, state.counts, state.pos
+        gstate = state.gstate
         if sampled is None:
             sampled = bool((state.temps > 0).any())
-        toks_all = []
+        toks_all, masked_all = [], []
         for _ in range(k):
             logits = _window(model, pool, wk, wv, cursor, active,
                              last_tok[:, None], ads)[:, -1]
-            toks = sample_tail(logits, state.seeds, state.temps, counts,
-                               sampled)
+            toks, masked = sample_tail(logits, state.seeds, state.temps,
+                                       counts, sampled, gpool=gp,
+                                       gidx=state.gidx, gstate=gstate)
             last_tok = torch.where(active, toks, last_tok)
+            gstate = grammar_advance(gp, state.gidx, gstate, last_tok,
+                                     active)
             counts = counts + inc
             pos = pos + inc
             cursor = cursor + inc
             toks_all.append(last_tok)
+            if n_lp:
+                masked_all.append(masked)
         pg.commit_window(pkv, wk, wv, pos0, k, active)
         pkv.cursor.copy_(cursor)
         state.last_tok.copy_(last_tok)
         state.counts.copy_(counts)
         state.pos.copy_(pos)
+        if gp is not None:
+            state.gstate.copy_(gstate)
+        if n_lp:
+            # the block's top-n rows in one pass over its k masked rows
+            return (state, pkv, torch.stack(toks_all)) + top_logprobs(
+                torch.stack(masked_all), n_lp)
         return state, pkv, torch.stack(toks_all)
 
     @torch.no_grad()
@@ -567,6 +704,7 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         for leaf in state:
             leaf[slot] = 0
         state.adapter_id[slot] = aid_empty
+        state.gidx[slot] = gid_empty
         return state, pkv
 
     progs = dict(num_slots=S, prefill_pad=prefill_pad,
@@ -677,8 +815,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                          ads)[:, -1]
             if i == k:
                 break
-            d = sample_tail(lg, state.seeds, state.temps, state.counts + i,
-                            sampled, stream=1)
+            d, _ = sample_tail(lg, state.seeds, state.temps,
+                               state.counts + i, sampled, stream=1)
             tok = torch.where(active, d, state.last_tok)
             drafts.append(tok)
             dlogits.append(lg)
@@ -689,13 +827,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
 
     @torch.no_grad()
     def spec_verify(state, pkv, dkv, drafts, dlogits, spec_on, rem,
-                    sampled=None, apool=None, grammar=None,
-                    logprobs: int = 0):
-        if grammar is not None or logprobs:
-            raise NotImplementedError(
-                "grammar masking and logprobs in the speculative verify "
-                "belong to structured output, not ported to tpudist_torch "
-                "yet (ROADMAP.md queue A item 5)")
+                    sampled=None, apool=None, gpool=None):
+        gp = _gp(gpool)
         k = drafts.shape[0]
         active = state.active.clone()
         pos0 = pkv.cursor.clone()
@@ -704,8 +837,20 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         wk, wv = pg.window_view(k + 1)
         logits = _window(model, _pool(pkv, pkv.table, pos0), wk, wv, pos0,
                          active, toks, _ads(apool, state.adapter_id))
+        tok_ok = None
+        if gp is not None:
+            logits, tok_ok = _trajectory_mask(gp, state, logits, drafts)
         x, a_raw, inc, out = spec_accept(state, logits, drafts, dlogits,
-                                         spec_on, rem, sampled)
+                                         spec_on, rem, sampled, tok_ok)
+        if gp is not None:
+            # the automaton over the EMITTED tokens only (out[:, :inc]):
+            # accepted drafts passed tok_ok and corrections come from the
+            # masked rows, so every consumed transition is a real one
+            gnew = state.gstate
+            for j in range(k + 1):
+                gnew = grammar_advance(gp, state.gidx, gnew, out[:, j],
+                                       j < inc)
+            state.gstate.copy_(gnew)
         pg.commit_window(pkv, wk, wv, pos0, k + 1, active)
         new_cur = (pos0 + inc).to(torch.int32)
         pkv.cursor.copy_(new_cur)
@@ -714,6 +859,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         state.counts.add_(inc)
         state.pos.add_(inc)
         packed = torch.cat([inc[:, None], a_raw[:, None], out], 1)
+        if n_lp:
+            return (state, pkv, dkv, packed) + top_logprobs(logits, n_lp)
         return state, pkv, dkv, packed
 
     return SlotDecode(**progs, init_draft=pg_d.init,

@@ -57,7 +57,8 @@ def reset_launch_counts() -> None:
     ``launches_tc``, the flash kernels' ``launches_wgmma``, the LoRA
     kernel's ``launches_cluster``, the RoPE+QKV kernel's
     ``launches_split`` / ``launches_wgmma``, the sampling and residual
-    preps' ``launches_row`` / ``launches_cluster``)."""
+    preps' ``launches_row`` / ``launches_cluster``, and the sampling
+    prep's ``launches_grammar``)."""
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     paged_prefill_attention.launches_tc = 0
@@ -72,6 +73,7 @@ def reset_launch_counts() -> None:
     for fn in (fused_sample_prep, fused_residual_prep):
         fn.launches_row = 0
         fn.launches_cluster = 0
+    fused_sample_prep.launches_grammar = 0
 
 
 __all__ = [

@@ -181,14 +181,19 @@ def _launch_sample(arm: str, width: int, logits, temps, gallow=None,
         fused_sample_prep.launches_row += 1
     else:
         fused_sample_prep.launches_cluster += 1
+    if grammar:
+        fused_sample_prep.launches_grammar += 1
     return masked, scaled, greedy
 
 
 #: kernel launches since the last reset (the main path's proof of use), in
-#: all and by arm
+#: all, by arm, and those that carried grammar operands (a constrained
+#: engine's launches: its pool rides every call, free lanes on the
+#: sentinel block)
 fused_sample_prep.launches = 0
 fused_sample_prep.launches_row = 0
 fused_sample_prep.launches_cluster = 0
+fused_sample_prep.launches_grammar = 0
 
 
 def fused_sample_reference(logits, temps, gallow=None, gidx=None,

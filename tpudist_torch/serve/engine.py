@@ -7,7 +7,11 @@ fused RoPE+QKV kernel (``fused_rope``) and per-tenant LoRA adapters
 lanes by the host registry of :mod:`tpudist_torch.serve.adapters`, each
 lane's delta from the LoRA gather-matmul kernel), optionally speculative
 decoding (``spec_draft``: a draft proposes ``K`` tokens a lane, the target
-verifies them in one pass and emits ``accepted + 1``).
+verifies them in one pass and emits ``accepted + 1``), optionally structured
+output (``constrain``: a grammar-table pool beside the KV pool, compiled
+grammars bound to lanes by the host registry of :mod:`tpudist_torch.
+constrain.registry`, each lane's row masked by the sampling kernel) and
+top-n logprobs (``logprobs``).
 
 The engine is the device half: ``num_slots`` KV lanes over the slot
 programs of :func:`tpudist_torch.models.make_slot_decode`, plus host shadow
@@ -34,6 +38,8 @@ import numpy as np
 import torch
 
 from tpudist_torch import ops
+from tpudist_torch.constrain import (ConstrainConfig, GrammarError,
+                                     GrammarRegistry, compile_cache_stats)
 from tpudist_torch.models import lora as _lora
 from tpudist_torch.models.generate import make_slot_decode
 from tpudist_torch.models.paged import PagedKVConfig
@@ -49,8 +55,9 @@ from tpudist_torch.serve.paged_alloc import BlockAllocator
 #: False rides the spec programs with acceptance forced to zero and draws
 #: the non-speculative stream; ignored by a non-spec engine) — an optional
 #: 8th — the lane's adapter NAME (None =
-#: base-only) — and an optional 9th — a grammar (structured output is not
-#: ported: anything but None raises)
+#: base-only) — and an optional 9th — the request's compiled
+#: :class:`tpudist_torch.constrain.TokenGrammar` (None = unconstrained; the
+#: engine binds it into the grammar pool)
 InsertItem = Tuple[int, np.ndarray, float, int, int]
 
 
@@ -79,7 +86,14 @@ class SlotEngine:
     first that many layers (:func:`~tpudist_torch.models.tied_draft`), a
     :class:`~tpudist_torch.models.TransformerLM` is a loaded draft (same
     ``vocab`` and ``max_len``); ``spec_k`` is the most tokens drafted per
-    block."""
+    block.
+
+    ``constrain`` (a :class:`~tpudist_torch.constrain.ConstrainConfig`)
+    turns on structured output: a device pool ``[G+1, S_max, V]`` of allow
+    and next-state tables (block ``G`` the all-True sentinel free lanes
+    index), written once per grammar bind.  ``logprobs = n`` returns the
+    top-``n`` post-mask logprobs of every decoded token in the decode
+    blocks' ``info["logprobs"]``."""
 
     def __init__(self, model, *, num_slots: int = 4,
                  prefill_pad: Optional[int] = None,
@@ -95,7 +109,8 @@ class SlotEngine:
                  adapters: bool = False, adapter_blocks: int = 8,
                  adapter_rank: int = 8,
                  mesh=None, spec_draft=None, spec_k: int = 4,
-                 device="cuda"):
+                 constrain: Optional[ConstrainConfig] = None,
+                 logprobs: int = 0, device="cuda"):
         # the JAX engine's rules for the kernel family's knobs (env-free
         # here; ServeConfig.from_env parses TPUDIST_SERVE_* once)
         if fused_rope and attn_kernel != "paged" and not prefill_kernel:
@@ -141,6 +156,38 @@ class SlotEngine:
                 rank=max(1, int(adapter_rank)))
             self.apool = _lora.init_adapter_pool(model, self.adapter_cfg)
             self.adapters = AdapterRegistry(self.adapter_cfg.num_blocks)
+        # -- structured output: the grammar-table pool, the host registry
+        # deciding which compiled grammar occupies which block, and the
+        # host shadow slot → bound ``(TokenGrammar, block_id)`` (None =
+        # unconstrained; the grammar is the shadow automaton the server
+        # walks over delivered tokens)
+        self.constrain_cfg = constrain
+        self.grammars: Optional[GrammarRegistry] = None
+        self.gpool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.slot_grammar: List[Optional[Tuple[object, int]]] = \
+            [None] * num_slots
+        V = int(model.vocab)
+        if constrain is not None:
+            if len(constrain.vocab) != V:
+                raise ValueError(
+                    f"constrain vocab has {len(constrain.vocab)} entries, "
+                    f"model vocab is {V}")
+            self.grammars = GrammarRegistry(constrain.num_blocks)
+            G, S_max = constrain.num_blocks, constrain.max_states
+            # every block starts as the identity (all-True, next 0): a
+            # never-written block decodes unconstrained instead of sampling
+            # an all-masked row, and block G stays the sentinel (binds only
+            # write blocks < G)
+            self.gpool = (
+                torch.ones((G + 1, S_max, V), dtype=torch.bool,
+                           device=self.device),
+                torch.zeros((G + 1, S_max, V), dtype=torch.int32,
+                            device=self.device))
+        #: top-n logprobs width of the decode programs (0 = off); a
+        #: request's ``logprobs=n`` is a host-side slice of it
+        self.n_lp = max(0, int(logprobs))
+        if self.n_lp > V:
+            raise ValueError(f"logprobs {self.n_lp} > vocab {V}")
         self.max_len = int(model.max_len)
         if prefill_pad is None:
             prefill_pad = min(self.max_len, 64)
@@ -174,7 +221,8 @@ class SlotEngine:
                                     fused_rope=self.fused_rope,
                                     lora_kernel=self.lora_kernel,
                                     adapters=self.adapter_cfg,
-                                    spec=self.draft_model)
+                                    spec=self.draft_model,
+                                    constrain=constrain, logprobs=self.n_lp)
         self.alloc = BlockAllocator(self.paged_cfg.num_blocks, kv_block,
                                     self.max_len,
                                     prefix_cache_blocks=prefix_cache_blocks)
@@ -453,6 +501,82 @@ class SlotEngine:
             # the block before the free list hands it on
             _lora.zero_block(self.apool, freed)
 
+    # -- structured output (the grammar pool) -------------------------------
+
+    def has_constrain(self) -> bool:
+        """Would a NEW constrained request bind (pool-full deferral
+        aside)?  False on an engine built without ``constrain=``."""
+        return self.grammars is not None
+
+    def _gid_sentinel(self) -> int:
+        return (self.constrain_cfg.num_blocks
+                if self.constrain_cfg is not None else 0)
+
+    def _write_grammar_block(self, block: int, tg) -> None:
+        """Upload ``tg``'s tables into pool ``block`` (one host-to-device
+        copy a bind, never a step); rows past ``n_states`` stay the
+        identity, so a defensive gather never lands on an all-masked
+        row."""
+        cfg = self.constrain_cfg
+        S_max, V = cfg.max_states, len(cfg.vocab)
+        if tg.n_states > S_max or tg.allowed.shape[1] != V:
+            raise GrammarError(
+                f"grammar tables [{tg.n_states}, {tg.allowed.shape[1]}] "
+                f"exceed the pool row [{S_max}, {V}] "
+                "(TPUDIST_CONSTRAIN_STATES)")
+        allow = np.ones((S_max, V), bool)
+        nxt = np.zeros((S_max, V), np.int32)
+        allow[:tg.n_states] = tg.allowed
+        nxt[:tg.n_states] = tg.next_state
+        self.gpool[0][block].copy_(torch.from_numpy(allow))
+        self.gpool[1][block].copy_(torch.from_numpy(nxt))
+
+    def _acquire_grammar(self, slot: int, tg) -> int:
+        """Bind compiled grammar ``tg`` to ``slot`` (refcount pin) and
+        return its pool block id — the sentinel for an unconstrained lane.
+        A fresh bind writes the tables before any lane decodes under the
+        block.  Raises :class:`~tpudist_torch.constrain.GrammarPoolFull`
+        when every block is pinned (the server defers the request)."""
+        if tg is None:
+            return self._gid_sentinel()
+        if self.grammars is None:
+            raise RuntimeError("engine built without constrain=")
+        block, fresh = self.grammars.bind(tg)
+        if fresh:
+            try:
+                self._write_grammar_block(block, tg)
+            except BaseException:
+                self.grammars.release(block)
+                raise
+        self.slot_grammar[slot] = (tg, block)
+        return block
+
+    def _release_grammar(self, slot: int) -> None:
+        if self.grammars is None:
+            return
+        bound = self.slot_grammar[slot]
+        if bound is None:
+            return
+        self.slot_grammar[slot] = None
+        self.grammars.release(bound[1])
+
+    def constrain_stats(self) -> Dict[str, object]:
+        """Grammar-pool accounting: registry counters, the compile cache's
+        hits and misses, the pool's geometry and bytes (``{"enabled":
+        False}`` without ``constrain``)."""
+        if self.grammars is None:
+            return {"enabled": False}
+        return {
+            "enabled": True,
+            "max_states": self.constrain_cfg.max_states,
+            "pool_bytes": int(self.gpool[0].numel()
+                              + self.gpool[1].numel() * 4),
+            "slots_bound": sum(1 for g in self.slot_grammar
+                               if g is not None),
+            "compile_cache": compile_cache_stats(),
+            **self.grammars.stats(),
+        }
+
     # -- admission ----------------------------------------------------------
 
     def check_budget(self, prompt_len: int, max_new: int) -> Optional[str]:
@@ -519,6 +643,7 @@ class SlotEngine:
         taken = set()
         spec_flags: Dict[int, bool] = {}
         adapter_names: Dict[int, Optional[str]] = {}
+        grammar_objs: Dict[int, Optional[object]] = {}
         for item in items:
             slot, prompt, temperature, seed, max_new = item[:5]
             hashes = tuple(item[5]) if len(item) > 5 else ()
@@ -530,11 +655,12 @@ class SlotEngine:
                 # neighbours: the server finishes it "adapter_missing"
                 raise AdapterMissingError(str(adapter))
             adapter_names[int(slot)] = adapter
-            if len(item) > 8 and item[8] is not None:
+            grammar = item[8] if len(item) > 8 else None
+            if grammar is not None and self.grammars is None:
                 raise ValueError(
                     "constrained request on an engine built without "
-                    "constrain= (structured output is not ported: ROADMAP.md "
-                    "queue A item 5)")
+                    "constrain= (TPUDIST_SERVE_CONSTRAIN)")
+            grammar_objs[int(slot)] = grammar
             if self.occupied[slot] or slot in taken:
                 raise ValueError(f"slot {slot} is occupied")
             taken.add(slot)
@@ -554,6 +680,22 @@ class SlotEngine:
                 aids[j] = self._acquire_adapter(slot, adapter_names[slot])
                 bound.append(slot)
         except AdapterMissingError:
+            for slot in bound:
+                self._release_adapter(slot)
+            raise
+        # grammar binds follow the adapter discipline: transactional (a
+        # mid-batch GrammarPoolFull — every block pinned by running lanes —
+        # rolls every earlier pin back, adapter pins included; the server
+        # defers the constrained items)
+        gids = np.full(S, self._gid_sentinel(), np.int32)
+        gbound: List[int] = []
+        try:
+            for j, (slot, *_rest) in enumerate(norm):
+                gids[j] = self._acquire_grammar(slot, grammar_objs[slot])
+                gbound.append(slot)
+        except BaseException:
+            for slot in gbound:
+                self._release_grammar(slot)
             for slot in bound:
                 self._release_adapter(slot)
             raise
@@ -577,6 +719,8 @@ class SlotEngine:
                 self.alloc.release(slot)
             for slot in bound:
                 self._release_adapter(slot)
+            for slot in gbound:
+                self._release_grammar(slot)
             raise
         for j, (slot, prompt, temperature, seed, _, _) in enumerate(norm):
             rest = len(prompt) - int(reused_len[j])
@@ -591,7 +735,8 @@ class SlotEngine:
             self.state, self.cache, self._t(tables), self._t(reused_len),
             self._t(prompts), self._t(clens), self._t(dsts), self._t(seeds),
             self._t(temps), self._t(last), sampled=bool((temps > 0).any()),
-            aids=self._t(aids), apool=self.apool)
+            aids=self._t(aids), apool=self.apool, gids=self._t(gids),
+            gpool=self.gpool)
         self.n_forwards += 1
         r, w = self._prefill_kv_bytes(reused_len, clens)
         self.prefill_read_bytes_total += r
@@ -641,7 +786,8 @@ class SlotEngine:
             is_last = off + clen >= len(prompt)
             self.state, self.cache, first = self.fns.prefill_extend(
                 self.state, self.cache, slot, self._t(chunk), clen, is_last,
-                sampled=bool(self.temps[slot] > 0), apool=self.apool)
+                sampled=bool(self.temps[slot] > 0), apool=self.apool,
+                gpool=self.gpool)
             self.n_forwards += 1
             if self.spec:
                 self.dcache = self.fns.draft_extend(
@@ -698,11 +844,24 @@ class SlotEngine:
         k = _pow2_floor(min(cap, int(remaining.min()), headroom))
         pos0 = self.pos[dec].copy()
         t0 = time.perf_counter()
-        self.state, self.cache, blocks = self.fns.decode_block(
+        res = self.fns.decode_block(
             self.state, self.cache, k,
-            sampled=bool((self.temps[dec] > 0).any()), apool=self.apool)
+            sampled=bool((self.temps[dec] > 0).any()), apool=self.apool,
+            gpool=self.gpool)
+        self.state, self.cache, blocks = res[:3]
         t1 = time.perf_counter()
-        arr = blocks.cpu().numpy()  # ONE host sync for K x num_slots tokens
+        n = self.n_lp
+        if n:
+            # the top-n rows ride the same fetch: ids and the f32 values'
+            # bits packed beside the tokens, [K, S, 1 + 2n] int32
+            both = torch.cat([blocks[..., None], res[3],
+                              res[4].view(torch.int32)], -1)
+            packed = both.cpu().numpy()  # ONE host sync
+            arr = packed[..., 0]
+            lpi = packed[..., 1:1 + n]
+            lpv = packed[..., 1 + n:].view(np.float32)
+        else:
+            arr = blocks.cpu().numpy()  # ONE host sync for K x S tokens
         t2 = time.perf_counter()
         self.n_decode_blocks += 1
         self.n_forwards += k
@@ -717,6 +876,12 @@ class SlotEngine:
         self.kv_read_bytes_total += kv_read
         info = {"k": k, "tokens": k * len(dec), "dispatch_s": t1 - t0,
                 "sync_s": t2 - t1, "kv_read_bytes": int(kv_read)}
+        if n:
+            # slot → one (ids, logprobs) top-n pair per emitted token,
+            # aligned with the token lists in ``out``
+            info["logprobs"] = {
+                int(s): [(lpi[i, s].tolist(), lpv[i, s].tolist())
+                         for i in range(k)] for s in dec}
         return info, out, blocks
 
     def decode_auto_plain(self, max_k: Optional[int] = None
@@ -776,12 +941,25 @@ class SlotEngine:
         self.dcache, drafts, dlogits = self.fns.draft_propose(
             self.state, self.dcache, k, sampled=sampled, apool=self.apool)
         t1 = time.perf_counter()
-        self.state, self.cache, self.dcache, packed = self.fns.spec_verify(
+        res = self.fns.spec_verify(
             self.state, self.cache, self.dcache, drafts, dlogits,
             self._t(self.spec_on), self._t(rem), sampled=sampled,
-            apool=self.apool)
+            apool=self.apool, gpool=self.gpool)
+        self.state, self.cache, self.dcache, packed = res[:4]
         t2 = time.perf_counter()
-        pk = packed.cpu().numpy()  # ONE host sync: counts + token block
+        n = self.n_lp
+        if n:
+            # the verify's [S, k+1, n] top-n rows ride the packed fetch
+            S = self.num_slots
+            both = torch.cat([packed, res[4].reshape(S, -1),
+                              res[5].reshape(S, -1).view(torch.int32)], 1)
+            allp = both.cpu().numpy()  # ONE host sync
+            pk = allp[:, :k + 3]
+            lpi = allp[:, k + 3:k + 3 + (k + 1) * n].reshape(S, k + 1, n)
+            lpv = allp[:, k + 3 + (k + 1) * n:].view(np.float32).reshape(
+                S, k + 1, n)
+        else:
+            pk = packed.cpu().numpy()  # ONE host sync: counts + tokens
         t3 = time.perf_counter()
         n_emit = pk[dec, 0]
         a_raw = pk[dec, 1]
@@ -836,7 +1014,15 @@ class SlotEngine:
                 "sync_s": t3 - t2, "kv_read_bytes": int(kv_read)}
         if by_adapter:
             info["accept_by_adapter"] = {
-                n: [int(a), int(d)] for n, (a, d) in by_adapter.items()}
+                name: [int(a), int(d)] for name, (a, d) in
+                by_adapter.items()}
+        if n:
+            # slot → per-emitted-token top-n pairs, rows [:n_emit] of the
+            # verify's rows (aligned with ``out``)
+            info["logprobs"] = {
+                int(s): [(lpi[s, i].tolist(), lpv[s, i].tolist())
+                         for i in range(int(pk[s, 0]))]
+                for s in dec if pk[s, 0] > 0}
         return info, out
 
     def decode_auto(self) -> Tuple[Optional[dict], Dict[int, List[int]]]:
@@ -859,8 +1045,8 @@ class SlotEngine:
     def evict(self, slot: int) -> None:
         """Free a lane: release its blocks on the host, zero the ones no
         tenant or prefix-cache entry still holds, reset the device state
-        and the host shadows, and unpin its adapter (a deferred unload
-        completes here)."""
+        and the host shadows, and unpin its adapter and grammar (a deferred
+        adapter unload completes here)."""
         freed = self.alloc.release(slot)
         M = self.max_len // self.paged_cfg.block_size
         free_ids = np.full(M, self.paged_cfg.num_blocks, np.int32)
@@ -873,6 +1059,7 @@ class SlotEngine:
             self.dcache = self.fns.draft_evict(self.dcache, int(slot),
                                                self._t(free_ids))
         self._release_adapter(slot)
+        self._release_grammar(slot)
         self.occupied[slot] = False
         self.decoding[slot] = False
         self.pos[slot] = 0

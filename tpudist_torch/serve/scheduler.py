@@ -2,9 +2,10 @@
 batching, ported from ``tpudist/serve/scheduler.py`` for the serving slice.
 
 Admission control at submit (budget rule and queue bound, rejected
-synchronously with a machine-readable reason), a priority-ordered FIFO
-(higher priority first, arrival order within a class) and deadline
-enforcement for queued requests.  Thread contract: ``submit`` from any
+synchronously with a machine-readable reason; a grammar ask compiled here,
+so an uncompilable one rejects at once), a priority-ordered FIFO (higher
+priority first, arrival order within a class) and deadline enforcement for
+queued requests.  Thread contract: ``submit`` from any
 number of threads; ``take``/``expire_queued`` from the single engine thread.
 """
 
@@ -35,6 +36,16 @@ FINISH_REASONS = {
                        "(submit-time misses reject with the same reason "
                        "instead; the engine never silently serves "
                        "base-model output for an adapter request)",
+    "stop_sequence": "matched one of its per-request stop sequences on "
+                     "the delivered stream (host-side suffix match on "
+                     "the packed block fetch, block-boundary straddles "
+                     "included; the stop tokens stay in the output)",
+    "grammar_violation": "a constrained lane's emitted token broke its "
+                         "grammar's host shadow automaton — the stream "
+                         "is truncated before the violating token "
+                         "(defense in depth: the device-side mask makes "
+                         "this unreachable unless the pool tables and "
+                         "the host shadow diverge)",
 }
 
 
@@ -47,7 +58,13 @@ class AdmissionError(RuntimeError):
     """A request the scheduler refused; ``reason`` is machine-readable
     (``queue_full``, ``draining``, ``budget_exceeded: ...``,
     ``empty_prompt``, ``max_new_must_be_positive``, ``kv_exhausted: ...``,
-    ``adapter_missing`` — the named per-tenant adapter is not loaded)."""
+    ``adapter_missing`` — the named per-tenant adapter is not loaded —,
+    ``invalid_grammar: ...`` — an uncompilable or unsatisfiable grammar, a
+    grammar and json_schema double ask, or a grammar without ``eos_id`` —,
+    ``constrain_disabled`` — a grammar on a server without the
+    structured-output pool —, ``invalid_stop: ...`` — a malformed stop
+    sequence —, ``invalid_logprobs`` / ``logprobs_unavailable: ...`` — a
+    bad or over-wide top-n ask)."""
 
     def __init__(self, reason: str):
         super().__init__(f"request rejected: {reason}")
@@ -76,6 +93,20 @@ class Request:
     #: when the server has a draft), False = the plain stream even on a
     #: spec server, True = explicit opt-in
     spec: Optional[bool] = None
+    #: compiled grammar (:class:`tpudist_torch.constrain.TokenGrammar`):
+    #: the output is masked token by token by its tables (bound into the
+    #: engine's pool at placement) and tracked by its host shadow
+    #: automaton on delivery; compiled once at submit.  None =
+    #: unconstrained
+    grammar: Optional[object] = None
+    #: stop sequences: a tuple of token-id tuples, suffix-matched on the
+    #: delivered stream after every token (straddles across block
+    #: boundaries match too); the first match finishes ``stop_sequence``
+    #: with the stop tokens kept
+    stop: tuple = ()
+    #: top-n logprobs per emitted token (0 = off), capped by the server's
+    #: engine-wide width
+    logprobs: int = 0
 
 
 class RequestHandle:
@@ -94,6 +125,14 @@ class RequestHandle:
         self.t_done: Optional[float] = None
         self.slot: Optional[int] = None
         self.trace_id: str = new_trace_id()
+        #: the host shadow automaton's state over the DELIVERED tokens
+        #: (``request.grammar`` only): the server advances it on delivery
+        #: and truncates ``grammar_violation`` on divergence
+        self.gstate: int = 0
+        #: one ``(ids, logprobs)`` pair per delivered token
+        #: (``request.logprobs > 0`` only), sliced to the asked width, or
+        #: None for a token the prefill sampled (a stream's first)
+        self.logprobs: List = []
 
     @property
     def done(self) -> bool:
@@ -158,7 +197,9 @@ class Scheduler:
                  default_max_new: int = 64,
                  default_deadline_s: Optional[float] = None,
                  prefix_hasher: Optional[Callable] = None,
-                 check_adapter: Optional[Callable] = None):
+                 check_adapter: Optional[Callable] = None,
+                 compile_grammar_fn: Optional[Callable] = None,
+                 max_logprobs: int = 0):
         if queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         self.queue_limit = queue_limit
@@ -169,6 +210,15 @@ class Scheduler:
         #: adapter-name admission gate (the server passes the engine's
         #: ``has_adapter``): ``name -> Optional[reason]``
         self.check_adapter = check_adapter
+        #: grammar compiler (the server passes a closure over the engine's
+        #: vocabulary and state cap): ``(regex, json_schema, eos_id) ->
+        #: TokenGrammar``, raising ``ValueError`` on anything uncompilable;
+        #: run outside the lock.  None = structured output off (grammar
+        #: asks reject ``constrain_disabled``)
+        self.compile_grammar_fn = compile_grammar_fn
+        #: engine-wide top-n logprobs width (0 = off); asks past it reject
+        #: ``logprobs_unavailable``
+        self.max_logprobs = int(max_logprobs)
         self._q: "collections.deque[RequestHandle]" = collections.deque()
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -176,18 +226,79 @@ class Scheduler:
         self._next_id = 0
         self.rejected = 0
 
+    def _reject(self, reason: str) -> None:
+        with self._lock:
+            self.rejected += 1
+        raise AdmissionError(reason)
+
+    def _compile_grammar(self, grammar, json_schema, eos_id):
+        """Compile a submit's grammar ask (outside the lock) or reject."""
+        if grammar is None and json_schema is None:
+            return None
+        if self.compile_grammar_fn is None:
+            self._reject("constrain_disabled")
+        if grammar is not None and json_schema is not None:
+            self._reject("invalid_grammar: pass exactly one of "
+                         "grammar/json_schema")
+        if eos_id is None:
+            self._reject("invalid_grammar: a grammar requires eos_id — "
+                         "the automaton can only terminate on EOS in an "
+                         "accept state")
+        try:
+            return self.compile_grammar_fn(grammar, json_schema,
+                                           int(eos_id))
+        except ValueError as e:
+            self._reject(f"invalid_grammar: {e}")
+
+    def _norm_stop(self, stop) -> tuple:
+        """A submit's ``stop`` ask as a tuple of token-id tuples (a bare
+        int is a one-token sequence), or a rejection."""
+        if not stop:
+            return ()
+        seqs = []
+        try:
+            for s in stop:
+                if isinstance(s, (int, np.integer)):
+                    seqs.append((int(s),))
+                else:
+                    t = tuple(int(x) for x in s)
+                    if not t:
+                        self._reject("invalid_stop: empty stop sequence")
+                    seqs.append(t)
+        except (TypeError, ValueError):
+            self._reject("invalid_stop: stop must be a list of token "
+                         "ids or token-id sequences")
+        return tuple(seqs)
+
     def submit(self, prompt, *, max_new: Optional[int] = None,
                temperature: float = 0.0, deadline_s: Optional[float] = None,
                seed: Optional[int] = None, eos_id: Optional[int] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
                priority: int = 0, adapter: Optional[str] = None,
-               spec: Optional[bool] = None) -> RequestHandle:
+               spec: Optional[bool] = None, grammar: Optional[str] = None,
+               json_schema=None, stop=None,
+               logprobs: int = 0) -> RequestHandle:
         """Admit a request or raise :class:`AdmissionError`.  ``deadline_s``
         None inherits the default; ``<= 0`` means no deadline.
         ``adapter`` names the per-tenant LoRA adapter the lane decodes
         through (it must be loaded — else ``adapter_missing``); ``spec``
-        is the request's speculative-decoding opt (:class:`Request`)."""
+        is the request's speculative-decoding opt (:class:`Request`).
+        ``grammar`` (a regex) or ``json_schema`` constrains the output —
+        compiled here, so an uncompilable ask rejects ``invalid_grammar``
+        now, and a grammar requires ``eos_id``; ``stop`` is a list of stop
+        sequences (token ids, or lists of token ids); ``logprobs`` asks for
+        the top-n ``(id, logprob)`` pairs of every token."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        tg = self._compile_grammar(grammar, json_schema, eos_id)
+        stop_seqs = self._norm_stop(stop)
+        n_lp = int(logprobs or 0)
+        if n_lp < 0:
+            self._reject("invalid_logprobs")
+        if n_lp > self.max_logprobs:
+            self._reject(
+                "logprobs_unavailable: asked top-%d, the engine computes "
+                "top-%d (TPUDIST_SERVE_LOGPROBS)"
+                % (n_lp, self.max_logprobs))
         if deadline_s is None:
             deadline = self.default_deadline_s
         else:
@@ -209,7 +320,8 @@ class Scheduler:
                       on_token=on_token, prefix_hashes=hashes,
                       priority=int(priority),
                       adapter=None if adapter is None else str(adapter),
-                      spec=None if spec is None else bool(spec))
+                      spec=None if spec is None else bool(spec),
+                      grammar=tg, stop=stop_seqs, logprobs=n_lp)
         with self._lock:
             reason = self._refuse_reason
             if reason is None and len(self._q) >= self.queue_limit:
@@ -276,6 +388,14 @@ class Scheduler:
                     keep.append(h)
             self._q = keep
         return out
+
+    def requeue_front(self, handles: List[RequestHandle]) -> None:
+        """Put taken handles back at the head of the queue, in order (a
+        constrained request deferred while every grammar block is pinned
+        retries first as lanes finish); the queue bound does not apply."""
+        with self._lock:
+            self._q.extendleft(reversed(handles))
+            self._work.notify_all()
 
     def pending(self) -> int:
         with self._lock:

@@ -1,8 +1,9 @@
 """Threaded serving front-end — the PyTorch port of
 ``tpudist/serve/server.py`` for the serving slices: ingestion, the engine
-loop, graceful drain, per-tenant LoRA adapters and speculative decoding
-(telemetry, the host KV tier, preemption, load shedding, disaggregation
-and structured output are later slices).
+loop, graceful drain, per-tenant LoRA adapters, speculative decoding and
+structured output (grammars and JSON schemas, stop sequences, top-n
+logprobs); telemetry, the host KV tier, preemption, load shedding and
+disaggregation are later slices.
 
 One background thread drives the engine; any number of caller threads
 submit.  Each loop iteration admits queued requests into free slots (one
@@ -18,6 +19,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from tpudist_torch.constrain import GrammarPoolFull
 from tpudist_torch.serve.adapters import AdapterMissingError
 from tpudist_torch.serve.engine import SlotEngine
 from tpudist_torch.serve.scheduler import RequestHandle, Scheduler
@@ -31,8 +33,6 @@ _IDLE_WAIT_S = 0.01
 #: raises instead of being dropped.
 _UNPORTED_ENV = {
     "MESH": ("the serving mesh (serve/spmd.py)", "8"),
-    "CONSTRAIN": ("grammar-constrained decoding (constrain/)", "5"),
-    "LOGPROBS": ("logprobs", "5"),
     "TP_OVERLAP": ("the collective matmuls (parallel/overlap.py)",
                    "6 (A6c)"),
     "HOST_TIER": ("the host KV tier (serve/host_tier.py)", "8"),
@@ -59,10 +59,6 @@ _UNPORTED_ENV = {
 _UNPORTED_SUBMIT = {
     "tenant": (None, "per-tenant telemetry and fair share", "8"),
     "session": (None, "host-tier session resume (serve/host_tier.py)", "8"),
-    "grammar": (None, "grammar-constrained decoding (constrain/)", "5"),
-    "json_schema": (None, "grammar-constrained decoding (constrain/)", "5"),
-    "stop": (None, "stop sequences", "5"),
-    "logprobs": (0, "logprobs", "5"),
 }
 
 
@@ -81,7 +77,8 @@ class ServeConfig:
     ``NotImplementedError`` at engine construction.  ``fused_rope``,
     ``lora_kernel``, the adapter knobs and the speculative-decoding knobs
     keep the JAX package's defaults (off; 8 blocks of rank 8; K = 4 with a
-    draft tied to half the target's layers)."""
+    draft tied to half the target's layers), and so do the structured-output
+    knobs (off; 4 grammar blocks of 64 states; no logprobs)."""
 
     num_slots: int = 4
     queue_limit: int = 64
@@ -111,6 +108,15 @@ class ServeConfig:
     # depth); a loaded draft (a TransformerLM) in ``spec_draft`` wins
     spec_draft_layers: int = 0
     spec_draft: Optional[object] = None  # a TransformerLM; not env-loadable
+    # -- structured output: per-request ``grammar=`` (regex) /
+    # ``json_schema=`` asks compile on the host into token automata whose
+    # tables live in a fixed device pool, masked by the sampling kernel
+    constrain: bool = False
+    constrain_blocks: int = 4  # resident-grammar capacity (one block each)
+    constrain_states: int = 64  # automaton state cap per compiled grammar
+    # engine-wide top-n logprobs width per emitted token (0 = off); a
+    # request asks any ``submit(logprobs=n)`` with n <= this
+    logprobs: int = 0
     disagg: bool = False  # prefill/decode disaggregation (not ported)
 
     def resolve_spec_draft(self, model):
@@ -160,8 +166,23 @@ class ServeConfig:
             spec_k=env_int("TPUDIST_SERVE_SPEC_K", 4) or 4,
             spec_draft_layers=env_int(
                 "TPUDIST_SERVE_SPEC_DRAFT_LAYERS", 0) or 0,
+            constrain=env_flag("TPUDIST_SERVE_CONSTRAIN", False),
+            constrain_blocks=env_int("TPUDIST_CONSTRAIN_BLOCKS", 4) or 4,
+            constrain_states=env_int("TPUDIST_CONSTRAIN_STATES", 64) or 64,
+            logprobs=env_int("TPUDIST_SERVE_LOGPROBS", 0) or 0,
             disagg=env_flag("TPUDIST_SERVE_DISAGG", False),
         )
+
+
+def _compile_grammar_for(ccfg, regex, json_schema, eos_id):
+    """The scheduler's grammar compiler: closes over the engine's
+    constrain geometry so admission compiles (LRU-cached) and rejects
+    synchronously."""
+    from tpudist_torch.constrain import compile_grammar
+
+    return compile_grammar(regex=regex, json_schema=json_schema,
+                           vocab=ccfg.vocab, eos_id=eos_id,
+                           max_states=ccfg.max_states)
 
 
 class InferenceServer:
@@ -185,6 +206,18 @@ class InferenceServer:
             raise NotImplementedError(
                 "disagg (prefill/decode disaggregation) is not ported to "
                 "tpudist_torch yet (ROADMAP.md queue A item 8)")
+        # structured output: the token vocabulary the grammar compiler
+        # lowers against (token id → decoded text) is an engine constant;
+        # EOS stays per request (compile_grammar wires its column)
+        ccfg = None
+        if cfg.constrain:
+            from tpudist_torch.constrain import (ConstrainConfig,
+                                                 default_vocab)
+
+            ccfg = ConstrainConfig(vocab=default_vocab(int(model.vocab)),
+                                   num_blocks=cfg.constrain_blocks,
+                                   max_states=cfg.constrain_states)
+        self.constrain_cfg = ccfg
         self.engine = SlotEngine(
             model, num_slots=cfg.num_slots, prefill_pad=cfg.prefill_pad,
             decode_block=cfg.decode_block, paged=cfg.paged,
@@ -196,7 +229,7 @@ class InferenceServer:
             adapter_blocks=cfg.adapter_blocks,
             adapter_rank=cfg.adapter_rank,
             spec_draft=cfg.resolve_spec_draft(model), spec_k=cfg.spec_k,
-            device=device)
+            constrain=ccfg, logprobs=cfg.logprobs, device=device)
         hasher = None
         if cfg.prefix_cache_blocks > 0:
             from tpudist_torch.serve.paged_alloc import hash_chain
@@ -211,7 +244,13 @@ class InferenceServer:
             prefix_hasher=hasher,
             check_adapter=lambda name: (
                 None if self.engine.has_adapter(name)
-                else "adapter_missing"))
+                else "adapter_missing"),
+            # compiled outside the scheduler lock; GrammarError subclasses
+            # ValueError, so an uncompilable ask rejects synchronously
+            compile_grammar_fn=(None if ccfg is None else (
+                lambda regex, schema, eos: _compile_grammar_for(
+                    ccfg, regex, schema, eos))),
+            max_logprobs=self.engine.n_lp)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._draining = False
@@ -248,12 +287,21 @@ class InferenceServer:
         LoRA adapter loaded with :meth:`load_adapter` (else the request
         rejects ``adapter_missing``).  ``spec=False`` opts the request out
         of speculative decoding on a spec server (its stream is the plain
-        engine's).  ``tenant``, ``session``, ``grammar``, ``json_schema``,
-        ``stop`` and ``logprobs`` are the JAX server's keywords; any value
-        but their default raises ``NotImplementedError`` naming the
-        ROADMAP item that ports them."""
-        given = dict(tenant=tenant, session=session, grammar=grammar,
-                     json_schema=json_schema, stop=stop, logprobs=logprobs)
+        engine's).
+
+        Structured output: ``grammar`` (a regex over the decoded text) or
+        ``json_schema`` constrains the stream to the grammar's language
+        (needs ``ServeConfig.constrain`` and an ``eos_id``; an
+        uncompilable ask rejects ``invalid_grammar``).  ``stop`` is a list
+        of token-id sequences (a bare int is a one-token sequence) matched
+        on the delivered stream; a match finishes ``stop_sequence`` with
+        the stop tokens kept.  ``logprobs=n`` attaches the top-n
+        ``(token_id, logprob)`` pairs of every token to
+        ``handle.logprobs`` (post-mask on constrained lanes; ``n`` at most
+        ``ServeConfig.logprobs``).  ``tenant`` and ``session`` are the JAX
+        server's keywords; any value but their default raises
+        ``NotImplementedError`` naming the ROADMAP item that ports them."""
+        given = dict(tenant=tenant, session=session)
         for key, (default, what, item) in _UNPORTED_SUBMIT.items():
             value = given[key]
             if value is not None if default is None else value != default:
@@ -262,7 +310,8 @@ class InferenceServer:
             prompt, max_new=max_new, temperature=temperature,
             deadline_s=deadline_s, seed=seed, eos_id=eos_id,
             on_token=on_token, priority=priority, adapter=adapter,
-            spec=spec)
+            spec=spec, grammar=grammar, json_schema=json_schema, stop=stop,
+            logprobs=logprobs)
 
     # -- per-tenant adapters ------------------------------------------------
 
@@ -318,6 +367,11 @@ class InferenceServer:
             "kv": self.engine.kv_stats(),
             "adapters": self.engine.adapter_stats(),
             "spec": self.engine.spec_stats(),
+            # the grammar pool and the logprobs width (absent when both
+            # are off)
+            **({"constrained": {**self.engine.constrain_stats(),
+                                "logprobs": self.engine.n_lp}}
+               if self.engine.has_constrain() or self.engine.n_lp else {}),
             "loop_error": self.loop_error,
         }
 
@@ -380,16 +434,28 @@ class InferenceServer:
         items, t0 = [], time.monotonic()
         for h, slot in zip(alive, free):
             h.slot = slot
-            h.t_admitted = t0
+            if h.t_admitted is None:
+                h.t_admitted = t0
             r = h.request
             items.append((slot, r.prompt, r.temperature, r.seed, r.max_new,
-                          r.prefix_hashes, r.spec, r.adapter))
+                          r.prefix_hashes, r.spec, r.adapter, r.grammar))
             self._slot_handles[slot] = h
-        firsts = {}
+        firsts, deferred = {}, []
         while items:
             try:
                 firsts = eng.start_batch(items)
                 break
+            except GrammarPoolFull:
+                # the batch's grammars need more blocks than running lanes
+                # leave free (start_batch rolled the whole dispatch back):
+                # the last constrained item waits at the head of the queue
+                # and the rest retry, so every grammar that fits binds now
+                # and the others as lanes free their blocks
+                j = max(k for k, it in enumerate(items) if it[8] is not None)
+                h = self._slot_handles.pop(items[j][0])
+                h.slot = None
+                deferred.append(h)
+                items = items[:j] + items[j + 1:]
             except AdapterMissingError as e:
                 # an unload raced the recheck above (start_batch validated
                 # the whole batch first, so nothing changed): finish that
@@ -403,6 +469,7 @@ class InferenceServer:
                     else:
                         keep.append(it)
                 items = keep
+        sched.requeue_front(deferred[::-1])
         for slot, tok in firsts.items():
             if tok is not None:
                 self._deliver_block(slot, [tok])
@@ -430,9 +497,10 @@ class InferenceServer:
             if eng.num_active:
                 self._occupancy_sum += eng.occupancy
                 self._steps += 1
-                _, blocks = eng.decode_auto()
+                info, blocks = eng.decode_auto()
+                block_lp = (info or {}).get("logprobs") or {}
                 for slot, toks in blocks.items():
-                    self._deliver_block(slot, toks)
+                    self._deliver_block(slot, toks, block_lp.get(slot))
             elif eng.prefilling_slots():
                 pass  # prefill work continues next iteration
             elif self._draining and sched.pending() == 0:
@@ -440,17 +508,43 @@ class InferenceServer:
             else:
                 sched.wait_for_work(_IDLE_WAIT_S)
 
-    def _deliver_block(self, slot: int, toks: List[int]) -> None:
+    def _deliver_block(self, slot: int, toks: List[int], lp=None) -> None:
         """Stream a token block to the slot's request, truncating at its
-        stop token or length budget (the device block runs past either by
-        at most the block size)."""
+        stop token, a stop sequence or its length budget (the device block
+        runs past any of them by at most the block size).
+
+        ``lp`` is the block's top-n logprobs rows aligned with ``toks``
+        (absent on prefill-sampled first tokens, which surface None).  A
+        constrained lane walks its grammar's host shadow automaton per
+        delivered token; a token the shadow forbids truncates the stream
+        before delivery and finishes ``grammar_violation`` (the device
+        mask makes that unreachable unless the pool tables and the shadow
+        diverge).  Stop sequences are suffix-matched on the delivered
+        stream, so a match straddling two blocks is found too."""
         h = self._slot_handles[slot]
         eos = h.request.eos_id
-        for tok in toks:
+        tg = h.request.grammar
+        for i, tok in enumerate(toks):
+            if tg is not None:
+                if not tg.token_allowed(h.gstate, tok):
+                    self._finish_slot(slot, "grammar_violation")
+                    return
+                h.gstate = tg.advance(h.gstate, tok)
             h._deliver(tok)
+            if h.request.logprobs > 0:
+                n = h.request.logprobs
+                row = lp[i] if lp is not None and i < len(lp) else None
+                h.logprobs.append(None if row is None
+                                  else (row[0][:n], row[1][:n]))
             self.tokens_out += 1
             if eos is not None and tok == eos:
                 self._finish_slot(slot, "eos")
+                return
+            if h.request.stop and any(
+                    len(h.tokens) >= len(s)
+                    and tuple(h.tokens[-len(s):]) == s
+                    for s in h.request.stop):
+                self._finish_slot(slot, "stop_sequence")
                 return
             if len(h.tokens) >= h.request.max_new:
                 self._finish_slot(slot, "length")
