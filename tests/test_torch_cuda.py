@@ -37,6 +37,14 @@ The fused RoPE+QKV and LoRA gather-matmul kernels: the bounds of
 ``chip_smoke.linear_agreement`` (``LINEAR_BOUNDS``, derived there from
 readings on the card).
 
+Every shape the JAX kernels take: the flash kernels at head dims 1 to 256
+(multiples of 8 through cp.async, others element by element; 200 and 256
+on the backward's column chunks), ``fused_rope_qkv`` at any head dim (odd
+ones with RoPE off) and any depth, ``lora_delta`` at any rank (padded to a
+compiled width, past 64 in chunks), and the paged tensor-core arms at head
+dims 48, 80, 96 and 112, each against its plain version at the bounds
+above.
+
 The fused toy-MLP kernel: ``chip_smoke.mlp_agreement`` — within 1e-5 of
 its plain version and 1e-4 of a float64 numpy forward, relative to the
 output's largest magnitude (both sides full f32, summed in another
@@ -85,8 +93,10 @@ from tpudist_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
 from tpudist_torch.ops.fused_sample import (CLUSTER_SIZES, MAX_CLUSTER,
                                             SLICE_CAP, _launch_residual,
                                             _launch_sample)
-from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS, _launch_lora,
-                                            _launch_rope, _rope_arm,
+from tpudist_torch.ops.fused_linear import (LORA_CLUSTER_MAX_RANK,
+                                            LORA_DECODE_ROWS, _launch_lora,
+                                            _launch_rope, _lora_arm,
+                                            _rope_arm,
                                             lora_max_active_clusters,
                                             rope_max_active_clusters)
 from tpudist_torch.ops.paged_attention import _paged_attention_on_arm
@@ -174,7 +184,7 @@ def test_paged_decode_split_walk_matches_plain(cuda, s, nh, n_kv, quant,
     _assert_bf16_close(cc, ref, args[2], args[4], args[9])
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64, 48, 80, 96, 112])
 @pytest.mark.parametrize("s", [1, 5])
 def test_paged_decode_split_walk_head_dims(cuda, dh, s):
     args = _decode_on(cuda, 4, 2, s, dh, False, seed=dh + s, fill_max=3)
@@ -329,6 +339,57 @@ def test_paged_prefill_matches_plain(cuda, dh, nh, n_kv, P, window, quant):
     _assert_prefill_equal_writes(out, ref)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 40], ids=lambda w: f"w{w}")
+@pytest.mark.parametrize("nh,n_kv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("dh", [48, 80, 96, 112])
+def test_paged_prefill_new_head_dims_take_tensor_cores(cuda, dh, nh, n_kv,
+                                                       window, quant):
+    """The tensor-core arm at the head dims its instantiations widened to
+    (48, 80, 96, 112: 6, 10, 12 and 14 eight-column fragments; chunks of a
+    prefix tile that the 256 threads do not divide evenly) against the
+    plain version; written blocks exact."""
+    args = _prefill_on(cuda, nh, n_kv, dh, 64, quant, seed=dh + nh)
+    reset_launch_counts()
+    out = paged_prefill_attention(*args, layer=1, window=window)
+    ref = paged_prefill_reference(*args, layer=1, window=window)
+    assert paged_prefill_attention.launches_tc == 1
+    _assert_bf16_close(out[0], ref[0], args[4], args[6], args[2])
+    _assert_prefill_equal_writes(out, ref)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_decode_dh256_mqa_on_cuda_cores(cuda, s, quant):
+    """Gemma-2B's attention in serving (dh 256, 8 heads over one kv head):
+    the decode plans the CUDA-core walk, which matches the plain version,
+    with and without a window."""
+    args = _decode_on(cuda, 8, 1, s, 256, quant, seed=256 + s, fill_max=3)
+    for window in (None, 20):
+        reset_launch_counts()
+        out = paged_attention(*args, layer=1, window=window)
+        ref = paged_attention_reference(*args, layer=1, window=window)
+        assert (paged_attention.launches,
+                paged_attention.launches_tc) == (1, 0)
+        _assert_bf16_close(out, ref, args[2], args[4], args[9])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("window", [None, 40], ids=lambda w: f"w{w}")
+def test_paged_prefill_dh256_mqa_on_cuda_cores(cuda, window, quant):
+    """Gemma-2B's prefill chunk (dh 256, 8 heads over one kv head) plans the
+    CUDA-core arm, which matches the plain version; written blocks
+    exact."""
+    args = _prefill_on(cuda, 8, 1, 256, 64, quant, seed=257)
+    reset_launch_counts()
+    out = paged_prefill_attention(*args, layer=1, window=window)
+    ref = paged_prefill_reference(*args, layer=1, window=window)
+    assert (paged_prefill_attention.launches_tc,
+            paged_prefill_attention.launches_cc) == (0, 1)
+    _assert_bf16_close(out[0], ref[0], args[4], args[6], args[2])
+    _assert_prefill_equal_writes(out, ref)
+
+
 def test_paged_prefill_bf16_dh128_takes_tensor_cores(cuda):
     """The serving call (bf16, dh 128, P 64) counts one tensor-core launch
     and none on the CUDA-core arm; without its block writes the attention
@@ -406,11 +467,11 @@ def _sample_counts():
 
 @pytest.mark.parametrize("case", SAMPLE_CASES, ids=[c[0] for c in SAMPLE_CASES])
 def test_fused_sample_arms_match_plain(cuda, case):
-    """Phase 3's shapes (a)-(f) on both arms that take them, with and
-    without grammar rows (``chip_smoke.sample_inputs``: ties straddling
-    kth, a flat row, a temperature-0 row, a row masked whole): masked,
-    greedy and top-k exact, top-p within ``check_filters``' margin, one
-    launch on the arm given."""
+    """Phase 3's shapes (a)-(f), (i) and (j) on both arms that take them,
+    with and without grammar rows (``chip_smoke.sample_inputs``: ties
+    straddling kth, a flat row, a temperature-0 row, a row masked whole):
+    masked, greedy and top-k exact, top-p within ``check_filters``' margin,
+    one launch on the arm given."""
     label, S, V, tk, tp = case
     args = sample_inputs(torch, cuda, torch.Generator(device=cuda)
                          .manual_seed(S + V), S, V)
@@ -625,8 +686,8 @@ def test_cuda_tensor_never_falls_back(cuda):
                           gidx, top_k=2)
     with pytest.raises(TypeError):
         fused_sample_prep(logits.double(), torch.zeros(2, device=cuda))
-    q = torch.zeros(1, 2, 16, 48, device=cuda)  # head_dim 48: no kernel
-    with pytest.raises(ValueError):
+    q = torch.zeros(1, 2, 16, 264, device=cuda)  # head_dim past 256
+    with pytest.raises(ValueError, match="A6f"):
         flash_forward(q, q, q, (0, None))
     with pytest.raises(TypeError):
         flash_forward(q.half(), q.half(), q.half(), (0, None))
@@ -655,6 +716,29 @@ FLASH_CASES = {
     "band_gqa_bf16_d16": (torch.bfloat16, 4, 2, 150, 16, (-20, 30)),
     "window_gqa_f32_d32": (torch.float32, 4, 2, 140, 32, (0, 40)),
     "ragged_full_f32_d16": (torch.float32, 2, 2, 90, 16, (None, None)),
+    # every head dim up to 256: the padded mma.sync widths (8 in 16, 24 in
+    # 32, 40 in 64, 80 in 96, 200 in 256), the widths of public models (80,
+    # 96, 256), odd and non-multiple-of-8 widths (element-wise loads and
+    # stores), GQA, MQA and windows
+    "causal_bf16_d80": (torch.bfloat16, 4, 4, 200, 80, (0, None)),
+    "window_gqa_bf16_d96": (torch.bfloat16, 4, 2, 150, 96, (0, 40)),
+    "mqa_causal_bf16_d256": (torch.bfloat16, 4, 1, 200, 256, (0, None)),
+    "band_bf16_d200": (torch.bfloat16, 2, 2, 130, 200, (-20, 64)),
+    "causal_bf16_d8": (torch.bfloat16, 2, 2, 100, 8, (0, None)),
+    "gqa_causal_bf16_d24": (torch.bfloat16, 4, 2, 140, 24, (0, None)),
+    "window_bf16_d40": (torch.bfloat16, 2, 2, 150, 40, (0, 32)),
+    "causal_bf16_d3": (torch.bfloat16, 2, 2, 90, 3, (0, None)),
+    "ragged_full_bf16_d17": (torch.bfloat16, 2, 1, 77, 17, (None, None)),
+    "gqa_causal_bf16_d100": (torch.bfloat16, 4, 2, 130, 100, (0, None)),
+    "mqa_band_bf16_d130": (torch.bfloat16, 4, 1, 100, 130, (-10, 50)),
+    "causal_f32_d80": (torch.float32, 4, 4, 130, 80, (0, None)),
+    "mqa_causal_f32_d256": (torch.float32, 4, 1, 100, 256, (0, None)),
+    "window_gqa_f32_d96": (torch.float32, 4, 2, 120, 96, (0, 40)),
+    "band_f32_d200": (torch.float32, 2, 2, 90, 200, (-20, 64)),
+    "causal_f32_d8": (torch.float32, 2, 2, 70, 8, (0, None)),
+    "gqa_f32_d24": (torch.float32, 4, 2, 80, 24, (0, None)),
+    "causal_f32_d3": (torch.float32, 2, 2, 60, 3, (0, None)),
+    "mqa_full_f32_d130": (torch.float32, 4, 1, 70, 130, (None, None)),
 }
 
 
@@ -778,8 +862,11 @@ def test_flash_forward_mma_arm_still_matches_plain(cuda, d):
 
 @pytest.mark.parametrize("d,dtype,wgmma", [
     (128, torch.bfloat16, True), (64, torch.bfloat16, True),
-    (32, torch.bfloat16, False), (128, torch.float32, False)],
-    ids=["bf16_d128", "bf16_d64", "bf16_d32", "f32_d128"])
+    (32, torch.bfloat16, False), (128, torch.float32, False),
+    (80, torch.bfloat16, False), (256, torch.bfloat16, False),
+    (256, torch.float32, False)],
+    ids=["bf16_d128", "bf16_d64", "bf16_d32", "f32_d128", "bf16_d80",
+         "bf16_d256", "f32_d256"])
 def test_flash_backward_arm_by_head_dim(cuda, d, dtype, wgmma):
     """FlashAttention's backward launches one dq and one dk/dv kernel, on
     the wgmma arm (dq forming delta) for bf16 at head dims 64 and 128."""
@@ -939,6 +1026,66 @@ def test_fused_rope_qkv_arm_matches_plain_and_mma(cuda, case):
             assert r["ok"], r
 
 
+# every head dim and depth (S, T, heads, kv heads, head dim, d_model,
+# dtype, rope, delta, bool mask, arm): Phi-2's 80 at d 2560 (decode and a
+# prefill chunk, the mma.sync arm), Gemma-2B's 256 at d 2048 with MQA (the
+# split arm at decode, mma.sync at prefill), 96 at d 96, a head of 48 over
+# d 200 (a partial last depth tile), 24 over d 100 (rows not on 16 bytes:
+# element copies), an odd head dim with RoPE off, and f32
+QKV_SHAPE_CASES = {
+    "phi2_decode_dh80": (8, 1, 32, 32, 80, 2560, torch.bfloat16, True, True,
+                         False, "mma"),
+    "phi2_prefill_dh80": (2, 64, 32, 32, 80, 2560, torch.bfloat16, True,
+                          True, True, "mma"),
+    "gemma_decode_dh256": (8, 1, 8, 1, 256, 2048, torch.bfloat16, True, True,
+                           False, "split"),
+    "gemma_prefill_dh256": (2, 64, 8, 1, 256, 2048, torch.bfloat16, True,
+                            True, True, "mma"),
+    "dh96_d96": (3, 5, 1, 1, 96, 96, torch.bfloat16, True, True, False,
+                 "mma"),
+    "dh48_d200": (4, 7, 4, 2, 48, 200, torch.bfloat16, True, True, True,
+                  "mma"),
+    "dh24_d100": (3, 9, 4, 4, 24, 100, torch.bfloat16, True, False, False,
+                  "mma"),
+    "norope_dh7_d60": (3, 5, 3, 1, 7, 60, torch.bfloat16, False, True,
+                       False, "mma"),
+    "f32_dh80_d2560": (2, 5, 32, 32, 80, 2560, torch.float32, True, True,
+                       False, "f32"),
+    "f32_norope_dh7_d30": (2, 9, 2, 2, 7, 30, torch.float32, False, True,
+                           True, "f32"),
+}
+
+
+@pytest.mark.parametrize("case", list(QKV_SHAPE_CASES))
+def test_fused_rope_qkv_every_head_dim_and_depth(cuda, case):
+    """Head dims that are not multiples of 32 and depths that are not
+    multiples of 64 on the arm the plan picks, against the plain version
+    (and, for bf16 off the mma.sync arm, against that arm too)."""
+    (S, T, nh, n_kv, dh, d, dtype, rope, extra, on_bool,
+     arm) = QKV_SHAPE_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    offs = [int(x) for x in np.random.default_rng(len(case)).integers(
+        0, 2000, size=S)]
+    args = qkv_inputs(torch, cuda, gen, S, T, nh, n_kv, dh, dtype, offs,
+                      extra, on_bool, d=d)
+    kw = dict(n_heads=nh, n_kv=n_kv, dh=dh, rope=rope)
+    assert _rope_arm(S * T, dh, d, dtype) == arm
+    reset_launch_counts()
+    outs = [fused_rope_qkv(*args, **kw)]
+    if arm not in ("mma", "f32"):
+        outs.append(_launch_rope("mma", *args, **kw))
+    ref = fused_rope_qkv_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_rope_qkv"] == len(outs)
+    assert fused_rope_qkv.launches_split == (arm == "split")
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    for out in outs:
+        for a, b in zip(out, ref):
+            assert a.dtype == dtype and a.shape == b.shape
+            r = linear_agreement(torch, a, b, dt)
+            assert r["ok"], r
+
+
 @pytest.mark.parametrize("T", [1, 5])
 def test_fused_rope_qkv_split_rows_do_not_depend_on_the_batch(cuda, T):
     """A row's split-arm sum does not depend on S·T: each slot alone gives
@@ -982,13 +1129,31 @@ LORA_CASES = {
     "cluster_r64": (2, 4, 2048, 1000, torch.bfloat16, 64, [5, 8]),
     "cluster_f32_r16": (3, 3, 512, 260, torch.float32, 16, [1, 8, 7]),
     "cluster_narrow": (2, 7, 20, 9, torch.float32, 4, [1, 8]),
+    # any rank: 3 and 12 padded to the widths 4 and 16, 128 and 200 in
+    # chunks of 64 (the last 8 wide), on both arms, bf16 and f32; a rank
+    # past the cluster arm's shared memory on the staged arm at decode
+    "cluster_r3": (8, 1, 2560, 7680, torch.bfloat16, 3,
+                   [0, 8, 1, 8, 2, 3, 8, 0]),
+    "cluster_r12": (8, 1, 2048, 2560, torch.bfloat16, 12,
+                    [0, 8, 1, 8, 2, 3, 8, 0]),
+    "cluster_r128": (8, 1, 2560, 7680, torch.bfloat16, 128,
+                     [0, 8, 1, 8, 2, 3, 8, 0]),
+    "verify_r128_T5": (4, 5, 2560, 2560, torch.bfloat16, 128, [0, 8, 1, 2]),
+    "cluster_r200": (3, 2, 1000, 777, torch.bfloat16, 200, [1, 8, 4]),
+    "staged_r12": (3, 64, 2048, 2560, torch.bfloat16, 12, [5, 8, 2]),
+    "staged_r128": (2, 64, 2560, 7680, torch.bfloat16, 128, [1, 8]),
+    "staged_r200": (2, 33, 1000, 777, torch.bfloat16, 200, [1, 8]),
+    "cluster_f32_r3_odd": (3, 3, 1001, 500, torch.float32, 3, [0, 8, 3]),
+    "cluster_f32_r200": (2, 4, 512, 260, torch.float32, 200, [8, 6]),
+    "staged_f32_r100": (2, 20, 300, 333, torch.float32, 100, [2, 5]),
+    "decode_r4100_staged": (2, 1, 64, 40, torch.float32, 4100, [1, 8]),
 }
 
 
 @pytest.mark.parametrize("case", list(LORA_CASES))
 def test_lora_delta_matches_plain(cuda, case):
-    """Ragged T and widths, sentinel and repeated ids, ranks 2 to 64, bf16
-    and f32, first and last layer."""
+    """Ragged T and widths, sentinel and repeated ids, ranks 1 to 4100,
+    bf16 and f32, first and last layer."""
     S, T, d_in, d_out, dtype, rank, ids = LORA_CASES[case]
     gen = torch.Generator(device=cuda).manual_seed(len(case))
     args = lora_inputs(torch, cuda, gen, S, T, d_in, d_out, dtype, rank,
@@ -1003,11 +1168,16 @@ def test_lora_delta_matches_plain(cuda, case):
         r = linear_agreement(torch, out, ref, dt)
         assert r["ok"], r
     assert launch_counts()["lora_delta"] == 2
-    assert lora_delta.launches_cluster == (2 if T <= LORA_DECODE_ROWS else 0)
+    assert lora_delta.launches_cluster == (
+        2 if _lora_arm(T, rank) == "cluster" else 0)
+    assert (_lora_arm(T, rank) == "cluster") == (
+        T <= LORA_DECODE_ROWS and rank <= LORA_CLUSTER_MAX_RANK)
 
 
 @pytest.mark.parametrize("case", ["decode_bf16_r8", "verify_wi_T5",
-                                  "cluster_r64", "cluster_f32_r16"])
+                                  "cluster_r64", "cluster_f32_r16",
+                                  "cluster_r3", "cluster_r128",
+                                  "cluster_f32_r200"])
 def test_lora_delta_staged_arm_at_decode_rows(cuda, case):
     """The staged kernel the cluster arm replaced at decode and verify rows
     (forced, as phase 3c times it) agrees with the plain version too, and
@@ -1042,10 +1212,20 @@ def test_fused_linear_wrong_inputs_raise(cuda):
         fused_rope_qkv(h, w.float(), offs, **kw)
     with pytest.raises(ValueError):
         fused_rope_qkv(h, w, offs.cpu(), **kw)
+    # head dim 48 (not a multiple of 32) runs on the mma.sync arm
     h48, w48, offs48, _, _ = qkv_inputs(torch, cuda, gen, 2, 3, 4, 4, 48,
                                         torch.bfloat16, [0, 1])
-    with pytest.raises(ValueError, match="multiples of 32"):
-        fused_rope_qkv(h48, w48, offs48, n_heads=4, n_kv=4, dh=48)
+    kw48 = dict(n_heads=4, n_kv=4, dh=48)
+    for a, b in zip(fused_rope_qkv(h48, w48, offs48, **kw48),
+                    fused_rope_qkv_reference(h48, w48, offs48, **kw48)):
+        assert linear_agreement(torch, a, b, "bf16")["ok"]
+    # an odd head dim cannot rotate (its halves do not split); RoPE off it
+    # runs
+    h7, w7, offs7, _, _ = qkv_inputs(torch, cuda, gen, 2, 3, 4, 4, 7,
+                                     torch.bfloat16, [0, 1])
+    with pytest.raises(ValueError, match="A6f"):
+        fused_rope_qkv(h7, w7, offs7, n_heads=4, n_kv=4, dh=7)
+    fused_rope_qkv(h7, w7, offs7, n_heads=4, n_kv=4, dh=7, rope=False)
     with pytest.raises(ValueError, match="arm"):  # 66 rows
         _launch_rope("split", h.repeat(1, 11, 1), w, offs, **kw)
     with pytest.raises(ValueError, match="arm"):
@@ -1060,10 +1240,12 @@ def test_fused_linear_wrong_inputs_raise(cuda):
         lora_delta(x, a, b, ids.long(), layer=0)
     with pytest.raises(ValueError):
         lora_delta(x, a.cpu(), b, ids, layer=0)
+    # rank 3 (no compiled width of its own) runs at width 4
     x3, a3, b3, ids3 = lora_inputs(torch, cuda, gen, 2, 3, 64, 32,
                                    torch.bfloat16, 3, [0, 8])
-    with pytest.raises(ValueError, match="ranks"):
-        lora_delta(x3, a3, b3, ids3, layer=0)
+    assert linear_agreement(torch, lora_delta(x3, a3, b3, ids3, layer=0),
+                            lora_delta_reference(x3, a3, b3, ids3, layer=0),
+                            "bf16")["ok"]
 
 
 def test_adapter_engine_on_the_card(cuda):

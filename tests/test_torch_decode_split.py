@@ -204,8 +204,11 @@ def test_fwd_plan_constants_match_the_kernel_source():
     (BF16, BF16, 128, "tc"), (BF16, torch.int8, 128, "tc"),
     (BF16, BF16, 64, "tc"), (BF16, torch.int8, 32, "tc"),
     (BF16, BF16, 16, "tc"), (BF16, F32, 128, "cc"), (F32, F32, 128, "cc"),
-    (F32, torch.int8, 128, "cc"), (BF16, BF16, 48, "cc"),
-    (BF16, BF16, 8, "cc")])
+    (F32, torch.int8, 128, "cc"), (BF16, F32, 48, "cc"),
+    (BF16, BF16, 8, "cc"), (BF16, BF16, 48, "tc"),
+    (BF16, torch.int8, 80, "tc"), (BF16, BF16, 96, "tc"),
+    (BF16, torch.int8, 112, "tc"), (BF16, BF16, 40, "cc"),
+    (BF16, BF16, 256, "cc")])
 def test_decode_arm_by_dtype_and_head_dim(q, pool, dh, arm):
     assert pa._decode_arm(_T(q), _T(pool), dh) == arm
 
@@ -217,7 +220,8 @@ USED = [("tc", 1, 128, 16, 128), ("tc", 5, 128, 16, 128),
         ("tc", 36, 128, 16, 128), ("tc", 8, 32, 16, 8),
         ("tc", 2, 16, 16, 8), ("tc", 20, 64, 16, 8),
         ("cc", 1, 128, 16, 128), ("cc", 36, 128, 16, 128),
-        ("cc", 4, 32, 4, 16), ("cc", 8, 8, 4, 8)]
+        ("cc", 4, 32, 4, 16), ("cc", 8, 8, 4, 8), ("tc", 1, 80, 16, 128),
+        ("tc", 5, 112, 16, 128), ("cc", 8, 256, 16, 128)]
 
 
 @pytest.mark.parametrize("arm,R,dh,bs,M", USED)

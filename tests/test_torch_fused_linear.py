@@ -39,7 +39,9 @@ from tpudist_torch.ops import (fused_rope_qkv, fused_rope_qkv_reference,
                                launch_counts, lora_delta,
                                lora_delta_reference, reset_launch_counts)
 from tpudist_torch.ops import _build
-from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS, LORA_RANKS,
+from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS,
+                                            LORA_PAD_WIDTHS,
+                                            LORA_RANK_WIDTHS,
                                             ROPE_ARMS, ROPE_SPLIT_COLS,
                                             ROPE_SPLIT_KS,
                                             ROPE_SPLIT_MAX_D,
@@ -329,7 +331,8 @@ def test_lora_arm_by_rows():
 
 def test_lora_constants_match_the_kernel_source():
     """The decode rows, the cluster size (8, the portable maximum) and the
-    instantiated ranks are the kernel's."""
+    instantiated rank widths, fixed and padded (the widest also the chunk
+    of wider ranks), are the kernel's."""
     import re
 
     src = (_build.CSRC / "lora_delta.cu").read_text()
@@ -337,7 +340,11 @@ def test_lora_constants_match_the_kernel_source():
                      src)
     assert re.search(r"constexpr int kCluster = 8;", src)
     assert tuple(int(r) for r in re.findall(r"TPD_LORA\((\d+)\)\n",
-                                            src)) == LORA_RANKS
+                                            src)) == LORA_RANK_WIDTHS
+    assert tuple(int(r) for r in re.findall(
+        r"TPD_LORA_PADDED\((\d+)\)\n", src)) == LORA_PAD_WIDTHS
+    assert re.search(rf"constexpr int kMaxWidth = {LORA_PAD_WIDTHS[-1]};",
+                     src)
 
 
 def test_lora_delta_bf16_rounds_factors_and_intermediate():

@@ -1,8 +1,8 @@
 """The paged prefill's launch plan (``tpudist_torch.ops.paged_prefill``).
 
 ``_prefill_plan`` picks the attention arm of ``csrc/paged_prefill.cu`` (bf16
-tensor-core tiles at head dims 16, 32, 64 and 128; the CUDA-core code
-otherwise), the query rows per CTA and the shared memory per CTA, which
+tensor-core tiles at head dims that are multiples of 16 up to 128; the
+CUDA-core code otherwise), the query rows per CTA and the shared memory per CTA, which
 ``_check_smem`` holds to the 227 KB one H100 CTA may use.  Pure Python: the
 kernels themselves run on the card (``tests/test_torch_cuda.py``).
 """
@@ -21,7 +21,7 @@ from tpudist_torch.ops.paged_prefill import (CC_ROWS, SMEM_LIMIT,
 BF16, F32 = torch.bfloat16, torch.float32
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 48, 80, 96, 112])
 def test_bf16_at_tile_head_dims_takes_tensor_cores(dh):
     for R in (16, 64, 512):  # rows under, at and over one CTA's
         plan = _prefill_plan(BF16, dh, R, 16)
@@ -31,7 +31,8 @@ def test_bf16_at_tile_head_dims_takes_tensor_cores(dh):
 
 
 @pytest.mark.parametrize("dtype,dh", [(F32, 128), (F32, 64), (F32, 16),
-                                      (BF16, 48), (BF16, 8), (F32, 8)])
+                                      (F32, 48), (BF16, 8), (F32, 8),
+                                      (BF16, 40), (BF16, 256)])
 def test_f32_and_other_head_dims_take_cuda_cores(dtype, dh):
     plan = _prefill_plan(dtype, dh, 64, 16)
     assert plan.arm == "cc" and plan.rows == CC_ROWS
@@ -45,7 +46,8 @@ def test_f32_and_other_head_dims_take_cuda_cores(dtype, dh):
 USED = [(BF16, 128, 64, 16), (BF16, 128, 512, 16), (BF16, 32, 16, 16),
         (BF16, 64, 128, 16), (BF16, 16, 256, 16), (F32, 128, 64, 16),
         (F32, 128, 512, 16), (F32, 8, 16, 4), (BF16, 8, 8, 4),
-        (BF16, 48, 64, 16)]
+        (BF16, 48, 64, 16), (BF16, 80, 512, 16), (BF16, 112, 64, 16),
+        (BF16, 256, 64, 16)]
 
 
 @pytest.mark.parametrize("dtype,dh,R,bs", USED)

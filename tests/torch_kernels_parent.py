@@ -29,6 +29,14 @@ and ``fused_mlp`` kernels and runs:
 - its own ``chip_smoke.serve_adapter_path`` (phase 4b: the d1024 LM served
   with 4 adapters on the fused arms; tokens/s, TTFT and TPOT, host-paced).
 
+Section ``table`` builds that tree's flash, ``fused_rope_qkv`` and
+``lora_delta`` kernels and times only the common rows of both other
+sections' kind: ``QKV_SHAPES`` (the planned arm, and the ``mma.sync`` arm
+forced), ``LORA_SHAPES`` and ``FLASH_SHAPES`` (the flash kernels'
+``mma.sync`` arms forced in bf16, and their f32 arms: forward, dq and
+dk/dv at head dims 128 and 32), each with ``chip_smoke.time_ms`` (~5
+min).
+
 Section ``sample`` builds that tree's serving kernels (``paged_attention``,
 ``paged_prefill``, ``fused_sample``) and runs:
 
@@ -51,6 +59,7 @@ it needs the card and a few minutes.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -82,23 +91,17 @@ SAMPLE_SHAPES = (("a", 8, 256, 0, 0.0), ("b", 40, 256, 0, 0.0),
 RESIDUAL_SHAPES = (("[8, 4, 256] f32", 4, 256, "float32"),
                    ("[8, 4, 32000] f32", 4, 32000, "float32"),
                    ("[8, 4, 32000] bf16", 4, 32000, "bfloat16"))
-SECTIONS = ("linear", "sample")
+# (label, b, h, s, head dim): the flash kernels' mma.sync arms, forced, and
+# their f32 arms (the LM entry point's default precision) at phase 3b's
+# timed shape and at ``python -m tpudist_torch.train``'s head dim
+FLASH_SHAPES = (("dh 128", 8, 8, 2048, 128), ("dh 32", 8, 4, 512, 32))
+SECTIONS = ("linear", "sample", "table")
 
 
-def measure_linear(torch, cs) -> dict:
-    """Section ``linear``: phases 3c, 3e, the common table, the fused-MLP
-    bench and phase 4b of the tree in the current directory."""
-    from tpudist_torch.bench import bench_fused_mlp
-    from tpudist_torch.ops import _build
+def linear_table(torch, cs, dev, gen, flush) -> dict:
+    """The common ``fused_rope_qkv`` and ``lora_delta`` rows."""
     from tpudist_torch.ops.fused_linear import fused_rope_qkv, lora_delta
-    from tpudist_torch.ops.fused_mlp import fused_mlp, pack_params
 
-    _build.build()
-    dev = torch.device("cuda")
-    lin_rec, lin_info = cs.check_fused_linear(torch, dev)
-    mlp_rec, mlp_cases = cs.check_fused_mlp(torch, dev)
-    gen = torch.Generator(device=dev).manual_seed(5678)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     common = {}
     for label, T, offs in QKV_SHAPES:
         args = cs.qkv_inputs(torch, dev, gen, cs.SLOTS, T, cs.HEADS,
@@ -112,6 +115,23 @@ def measure_linear(torch, cs) -> dict:
                               torch.bfloat16, cs.RANK, cs.LORA_IDS)
         common[f"lora_delta {label}"] = cs.time_ms(
             torch, lambda: lora_delta(*args, layer=3), flush)
+    return common
+
+
+def measure_linear(torch, cs) -> dict:
+    """Section ``linear``: phases 3c, 3e, the common table, the fused-MLP
+    bench and phase 4b of the tree in the current directory."""
+    from tpudist_torch.bench import bench_fused_mlp
+    from tpudist_torch.ops import _build
+    from tpudist_torch.ops.fused_mlp import fused_mlp, pack_params
+
+    _build.build()
+    dev = torch.device("cuda")
+    lin_rec, lin_info = cs.check_fused_linear(torch, dev)
+    mlp_rec, mlp_cases = cs.check_fused_mlp(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    common = linear_table(torch, cs, dev, gen, flush)
     with torch.no_grad():
         for label, kind, batch in MLP_SHAPES:
             weights, x = cs.mlp_inputs(torch, kind, batch, dev)
@@ -184,6 +204,47 @@ def measure_sample(torch, cs) -> dict:
                     "acceptance_rate", "spec_blocks")})
 
 
+def measure_table(torch, cs) -> dict:
+    """Section ``table``: the common ``fused_rope_qkv`` and ``lora_delta``
+    rows and the flash ``mma.sync`` arms of the tree in the current
+    directory."""
+    from tpudist_torch.ops import _build
+    from tpudist_torch.ops.flash_attention import (_launch_dkv, _launch_dq,
+                                                   _launch_fwd)
+    from tpudist_torch.ops.fused_linear import _launch_rope
+
+    _build.build(["flash_attention", "flash_backward", "fused_rope_qkv",
+                  "lora_delta"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    common = linear_table(torch, cs, dev, gen, flush)
+    for label, T, offs in QKV_SHAPES:  # the mma.sync arm, forced
+        args = cs.qkv_inputs(torch, dev, gen, cs.SLOTS, T, cs.HEADS,
+                             cs.HEADS, cs.DH, torch.bfloat16,
+                             getattr(cs, offs))
+        kw = dict(n_heads=cs.HEADS, n_kv=cs.HEADS, dh=cs.DH)
+        common[f"fused_rope_qkv mma {label}"] = cs.time_ms(
+            torch, lambda: _launch_rope("mma", *args, **kw), flush)
+    band = (0, None)
+    for (label, b, h, s, d), (arm, dtype) in itertools.product(
+            FLASH_SHAPES, (("mma", torch.bfloat16), ("f32", torch.float32))):
+        q, k, v, g = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+        _, lse = _launch_fwd(arm, q, k, v, band)
+        delta = torch.randn(b, h, s, generator=gen, device=dev)
+        for kname, fn in (
+                ("forward", lambda: _launch_fwd(arm, q, k, v, band)),
+                ("dq", lambda: _launch_dq(arm, q, k, v, g, lse, delta,
+                                          band)),
+                ("dk/dv", lambda: _launch_dkv(arm, q, k, v, g, lse, delta,
+                                              band))):
+            common[f"flash {kname} {arm} {label}"] = cs.time_ms(torch, fn,
+                                                                flush)
+    del flush
+    return dict(common_ms=common)
+
+
 def measure(sections) -> dict:
     """The sections asked for, of the tree in the current directory."""
     sys.path.insert(0, os.getcwd())
@@ -195,8 +256,8 @@ def measure(sections) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     out = dict(tree=os.getcwd(), card=cs.card_line())
     for name in sections:
-        out[name] = {"linear": measure_linear,
-                     "sample": measure_sample}[name](torch, cs)
+        out[name] = {"linear": measure_linear, "sample": measure_sample,
+                     "table": measure_table}[name](torch, cs)
     return out
 
 

@@ -39,10 +39,18 @@
 //   issuing, so one's softmax runs under the other's products.  Both walk
 //   all the CTA's tiles (a causal CTA's first warpgroup masks much of its
 //   last tile), which keeps the turns in step.
-// - mma.sync, bf16 at head dims 16 and 32: 4 warps of 16 query rows (a 64-row
-//   Q tile) on mma.sync m16n8k16, K/V tiles of 64 keys through cp.async.
+// - mma.sync, bf16 at every other head dim up to 256: 4 warps of 16 query
+//   rows (a 64-row Q tile) on mma.sync m16n8k16, K/V tiles of 64 keys
+//   through cp.async.  The tiles are compiled for the padded widths of
+//   flash_common.cuh (pad_head_dim), zero past a narrower head dim taken
+//   at run time, and at 16, 32, 64 and 128 once more with the head dim
+//   fixed at the width (kExact); past 128 the Q fragments load from shared
+//   memory per step rather than stay in registers, and one CTA holds an
+//   SM's registers.
 // - f32 (the JAX package's fp32 path) on CUDA-core FMAs in full f32, never
-//   TF32.
+//   TF32, at any head dim up to 256 (each thread owns the output elements
+//   tid, tid + 128, ... of the CTA's 16 rows; the head dim compiled in at
+//   16, 32, 64 and 128, taken at run time elsewhere).
 //
 // Bound on the H100: operations.  At the training shapes (s 2048, dh 128)
 // the band's 4·pairs·D flops exceed the q/k/v/out bytes over the memory
@@ -57,30 +65,30 @@ namespace {
 
 // mma.sync: 4 warps of 16 query rows share each 64-key K/V tile, with one
 // K/V buffer and at most 170 registers a thread, so three CTAs fit an SM (12
-// warps) and hide each other's loads instead of double buffering.
-// Head dims: the kernels are instantiated for 16, 32, 64 and 128 (the bf16
-// tiles need multiples of 16; the f32 kernels map a thread to a column, so
-// D must divide the 128 threads).
+// warps) and hide each other's loads instead of double buffering.  DP is
+// the padded head dim (pad_head_dim), d <= DP the real one.
 constexpr int kBQ = 64, kBK = 64, kFwdMinCtas = 3;
 constexpr int kSQ = 16, kSK = 32;  // f32 tiles
 
-template <int D, bool kOutF32>
-__global__ void __launch_bounds__(kThreads, kFwdMinCtas)
+template <int DP, bool kOutF32, bool kExact>
+__global__ void __launch_bounds__(kThreads, DP > 128 ? 1 : kFwdMinCtas)
     fwd_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
              const bf16* __restrict__ V, void* __restrict__ Out,
-             float* __restrict__ Lse, int H, int Hkv, int Sq, int Sk, int lo,
-             int hi, float scale) {
-  static_assert(D % 16 == 0, "bf16 tiles take head dims in steps of 16");
-  constexpr int LD = D + 8, DN = D / 8, KD = D / 16, NT = kBK / 8;
+             float* __restrict__ Lse, int H, int Hkv, int Sq, int Sk,
+             int d_arg, int lo, int hi, float scale) {
+  const int d = kExact ? DP : d_arg;  // kExact: no padded column
+  static_assert(DP % 16 == 0, "bf16 tiles take head dims in steps of 16");
+  constexpr int LD = DP + 8, DN = DP / 8, KD = DP / 16, NT = kBK / 8;
+  constexpr bool kQRegs = DP <= 128;  // Q fragments held in registers
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kBQ][LD]
   bf16* Ks = Qs + kBQ * LD;                   // [kBK][LD]
   bf16* Vs = Ks + kBK * LD;                   // [kBK][LD]
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int hk = b * Hkv + h / (H / Hkv);
-  const bf16* q = Q + (size_t)bh * Sq * D;
-  const bf16* k = K + (size_t)hk * Sk * D;
-  const bf16* v = V + (size_t)hk * Sk * D;
+  const bf16* q = Q + (size_t)bh * Sq * d;
+  const bf16* k = K + (size_t)hk * Sk * d;
+  const bf16* v = V + (size_t)hk * Sk * d;
   // b·h varies fastest and the last Q tiles come first: under a causal
   // band they walk the most KV tiles, so every head's long CTAs start early
   // and the short ones fill the tail of the grid
@@ -90,30 +98,34 @@ __global__ void __launch_bounds__(kThreads, kFwdMinCtas)
   int first, last;
   kv_tiles(q0, min(q0 + kBQ, Sq) - 1, lo, hi, Sk, kBK, first, last);
 
-  load_tile_async<kBQ, D>(Qs, q, q0, Sq);
+  load_tile_async<kBQ, DP>(Qs, q, q0, Sq, d);
   if (first <= last) {
-    load_tile_async<kBK, D>(Ks, k, first * kBK, Sk);
-    load_tile_async<kBK, D>(Vs, v, first * kBK, Sk);
+    load_tile_async<kBK, DP>(Ks, k, first * kBK, Sk, d);
+    load_tile_async<kBK, DP>(Vs, v, first * kBK, Sk, d);
   }
   cp_commit();
 
   float o[DN][4] = {};
   float m[2] = {kMask, kMask}, l[2] = {0.f, 0.f};
-  uint32_t qa[KD][4];
+  uint32_t qa[kQRegs ? KD : 1][4];
   for (int j = first; j <= last; ++j) {
     if (j > first) {  // every warp left the previous tile at the barrier
-      load_tile_async<kBK, D>(Ks, k, j * kBK, Sk);
-      load_tile_async<kBK, D>(Vs, v, j * kBK, Sk);
+      load_tile_async<kBK, DP>(Ks, k, j * kBK, Sk, d);
+      load_tile_async<kBK, DP>(Vs, v, j * kBK, Sk, d);
       cp_commit();
     }
     cp_wait<0>();
     __syncthreads();
-    if (j == first)
-      for (int kk = 0; kk < KD; ++kk)
-        load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
 
     float s[NT][4] = {};
-    mma_abt<NT, KD>(s, qa, Ks, LD, lane);
+    if constexpr (kQRegs) {
+      if (j == first)
+        for (int kk = 0; kk < KD; ++kk)
+          load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
+      mma_abt<NT, KD>(s, qa, Ks, LD, lane);
+    } else {
+      mma_abt_smem<NT, KD>(s, Qs, LD, warp * 16, Ks, LD, lane);
+    }
     const int k0 = j * kBK;
     const bool interior = tile_interior(q0, kBQ, k0, kBK, lo, hi, Sk);
 #pragma unroll
@@ -165,20 +177,15 @@ __global__ void __launch_bounds__(kThreads, kFwdMinCtas)
     // dead row (no live key): out 0, lse -1e30, the "no contribution"
     // partial of a logsumexp merge
     const bool dead = m[r] <= kMask * 0.5f;
-    const size_t base = ((size_t)bh * Sq + row) * D + tq * 2;
+    const size_t base = ((size_t)bh * Sq + row) * d;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn) {
       const float a = dead ? 0.f : o[dn][2 * r] / l[r];
       const float c = dead ? 0.f : o[dn][2 * r + 1] / l[r];
-      if (kOutF32) {
-        float2* p = reinterpret_cast<float2*>(static_cast<float*>(Out) + base +
-                                              dn * 8);
-        *p = make_float2(a, c);
-      } else {
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(
-            static_cast<bf16*>(Out) + base + dn * 8);
-        *p = __floats2bfloat162_rn(a, c);
-      }
+      if (kOutF32)
+        store_pair(static_cast<float*>(Out) + base, dn * 8 + tq * 2, d, a, c);
+      else
+        store_pair(static_cast<bf16*>(Out) + base, dn * 8 + tq * 2, d, a, c);
     }
     if (tq == 0) Lse[(size_t)bh * Sq + row] = dead ? kMask : m[r] + logf(l[r]);
   }
@@ -420,15 +427,21 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // f32: 16 query rows per CTA, 32-key tiles; a warp holds one row's scores
-// (a lane per key), each thread one output column of its rows.
-template <int D>
+// (a lane per key).  kD > 0 compiles the head dim in (16, 32, 64, 128):
+// each thread owns one output column of kAcc consecutive rows.  kD == 0
+// takes it at run time (d_arg): the [16, D] output tile's elements go to
+// the threads in turn (element tid + 128·i: row e / D, column e % D), so
+// any D up to kMaxHeadDim runs, at most kAcc elements a thread.  The
+// run-time loops cost up to 68% at the compiled widths (PERF.md).
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
     fwd_f32(const float* __restrict__ Q, const float* __restrict__ K,
             const float* __restrict__ V, float* __restrict__ Out,
-            float* __restrict__ Lse, int H, int Hkv, int Sq, int Sk, int lo,
-            int hi, float scale) {
-  static_assert(kThreads % D == 0, "a thread owns one output column");
-  constexpr int LDK = D + 1, RPT = kSQ * D / kThreads;
+            float* __restrict__ Lse, int H, int Hkv, int Sq, int Sk,
+            int d_arg, int lo, int hi, float scale) {
+  const int D = kD ? kD : d_arg;
+  constexpr int kAcc = (kD ? kD : kMaxHeadDim) * kSQ / kThreads;
+  const int LDK = D | 1;  // odd: a warp's 32 key rows fall in 32 banks
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [kSQ][D]
   float* Ks = Qs + kSQ * D;                     // [kSK][LDK]
@@ -444,25 +457,27 @@ __global__ void __launch_bounds__(kThreads)
   const float* v = V + (size_t)hk * Sk * D;
   const int q0 = blockIdx.x * kSQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col = threadIdx.x % D, rb = (threadIdx.x / D) * RPT;
+  // kD > 0: this thread's column and first row
+  const int cb = kD ? threadIdx.x % D : 0;
+  const int rb = kD ? threadIdx.x / D * kAcc : 0;
   int first, last;
   kv_tiles(q0, min(q0 + kSQ, Sq) - 1, lo, hi, Sk, kSK, first, last);
-  load_tile_f32<kSQ, D>(Qs, D, q, q0, Sq);
+  load_tile_f32<kSQ>(Qs, D, q, q0, Sq, D);
   if (threadIdx.x < kSQ) {
     ms[threadIdx.x] = kMask;
     ls[threadIdx.x] = 0.f;
   }
-  float acc[RPT] = {};
+  float acc[kAcc] = {};
   for (int j = first; j <= last; ++j) {
     const int k0 = j * kSK;
     __syncthreads();
-    load_tile_f32<kSK, D>(Ks, LDK, k, k0, Sk);
-    load_tile_f32<kSK, D>(Vs, D, v, k0, Sk);
+    load_tile_f32<kSK>(Ks, LDK, k, k0, Sk, D);
+    load_tile_f32<kSK>(Vs, D, v, k0, Sk, D);
     __syncthreads();
     const bool interior = tile_interior(q0, kSQ, k0, kSK, lo, hi, Sk);
     for (int r = warp; r < kSQ; r += kThreads / 32) {
       float s = 0.f;
-      for (int d = 0; d < D; ++d) s += Qs[r * D + d] * Ks[lane * LDK + d];
+      for (int c = 0; c < D; ++c) s += Qs[r * D + c] * Ks[lane * LDK + c];
       s *= scale;
       if (!interior && !(k0 + lane < Sk && in_band(q0 + r, k0 + lane, lo, hi)))
         s = kMask;
@@ -479,16 +494,31 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rb + i;
-      float pv = 0.f;
-      for (int c = 0; c < kSK; ++c) pv += Ps[r * kSK + c] * Vs[c * D + col];
-      acc[i] = acc[i] * cs[r] + pv;
+    if constexpr (kD > 0) {
+      for (int i = 0; i < kAcc; ++i) {
+        const int r = rb + i;
+        float pv = 0.f;
+        for (int c = 0; c < kSK; ++c) pv += Ps[r * kSK + c] * Vs[c * D + cb];
+        acc[i] = acc[i] * cs[r] + pv;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        if (e >= kSQ * D) break;
+        const int r = e / D, col = e % D;
+        float pv = 0.f;
+        for (int c = 0; c < kSK; ++c) pv += Ps[r * kSK + c] * Vs[c * D + col];
+        acc[i] = acc[i] * cs[r] + pv;
+      }
     }
   }
   __syncthreads();
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rb + i, row = q0 + r;
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (!kD && e >= kSQ * D) break;
+    const int r = kD ? rb + i : e / D, col = kD ? cb : e % D, row = q0 + r;
     if (row >= Sq) continue;
     const bool dead = ms[r] <= kMask * 0.5f;
     Out[((size_t)bh * Sq + row) * D + col] = dead ? 0.f : acc[i] / ls[r];
@@ -517,7 +547,7 @@ inline size_t wgmma_fwd_smem(int D) {
 
 // q/k/v contiguous [B, H|Hkv, S, D], all three alike: bf16 for arms 1-2,
 // f32 for arm 0; out_f32 selects an f32 `out` for bf16 inputs (f32 inputs
-// always give f32)
+// always give f32).  D: 64 or 128 on arm 2, 1..kMaxHeadDim on arms 0-1.
 extern "C" int tpd_flash_forward(const void* q, const void* k, const void* v,
                                  void* out, void* lse, int B, int H, int Hkv,
                                  int Sq, int Sk, int D, int lo, int hi,
@@ -551,57 +581,69 @@ extern "C" int tpd_flash_forward(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   if (arm == kArmMma) {
+    const int DP = pad_head_dim(D);
     const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-    const size_t smem = (size_t)(kBQ + 2 * kBK) * (D + 8) * sizeof(bf16);
+    const size_t smem = (size_t)(kBQ + 2 * kBK) * (DP + 8) * sizeof(bf16);
     const bf16* Q = static_cast<const bf16*>(q);
     const bf16* K = static_cast<const bf16*>(k);
     const bf16* V = static_cast<const bf16*>(v);
     float* L = static_cast<float*>(lse);
-#define TPD_FWD_BF16(DD, OF)                                                  \
+#define TPD_FWD_BF16(DD, OF, EX)                                              \
   {                                                                           \
-    auto kern = fwd_bf16<DD, OF>;                                             \
+    auto kern = fwd_bf16<DD, OF, EX>;                                         \
     cudaError_t e = cudaFuncSetAttribute(                                     \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);        \
     if (e != cudaSuccess) return (int)e;                                      \
-    kern<<<grid, kThreads, smem, st>>>(Q, K, V, out, L, H, Hkv, Sq, Sk, lo,   \
-                                       hi, scale);                            \
+    kern<<<grid, kThreads, smem, st>>>(Q, K, V, out, L, H, Hkv, Sq, Sk, D,    \
+                                       lo, hi, scale);                        \
     return (int)cudaGetLastError();                                           \
   }
-    if (D == 16 && out_f32) TPD_FWD_BF16(16, true)
-    if (D == 16) TPD_FWD_BF16(16, false)
-    if (D == 32 && out_f32) TPD_FWD_BF16(32, true)
-    if (D == 32) TPD_FWD_BF16(32, false)
-    if (D == 64 && out_f32) TPD_FWD_BF16(64, true)
-    if (D == 64) TPD_FWD_BF16(64, false)
-    if (D == 128 && out_f32) TPD_FWD_BF16(128, true)
-    if (D == 128) TPD_FWD_BF16(128, false)
+// the head dim fixed at 16, 32, 64 and 128 (the widths before any padding,
+// where the run-time width costs time); every padded width at run time
+#define TPD_FWD_BF16_EXACT(DD)                        \
+  if (D == DD && out_f32) TPD_FWD_BF16(DD, true, true) \
+  if (D == DD) TPD_FWD_BF16(DD, false, true)
+#define TPD_FWD_BF16_PAD(DD)                           \
+  if (DP == DD && out_f32) TPD_FWD_BF16(DD, true, false) \
+  if (DP == DD) TPD_FWD_BF16(DD, false, false)
+    TPD_FWD_BF16_EXACT(16)
+    TPD_FWD_BF16_EXACT(32)
+    TPD_FWD_BF16_EXACT(64)
+    TPD_FWD_BF16_EXACT(128)
+    TPD_FWD_BF16_PAD(16)
+    TPD_FWD_BF16_PAD(32)
+    TPD_FWD_BF16_PAD(64)
+    TPD_FWD_BF16_PAD(96)
+    TPD_FWD_BF16_PAD(128)
+    TPD_FWD_BF16_PAD(256)
+#undef TPD_FWD_BF16_PAD
+#undef TPD_FWD_BF16_EXACT
 #undef TPD_FWD_BF16
     return (int)cudaErrorInvalidValue;
   }
   if (arm == kArmF32) {
+    if (D < 1 || D > kMaxHeadDim) return (int)cudaErrorInvalidValue;
     const dim3 grid((Sq + kSQ - 1) / kSQ, B * H);
     const size_t smem =
-        ((size_t)kSQ * D + kSK * (D + 1) + kSK * D + kSQ * kSK + 3 * kSQ) *
+        ((size_t)kSQ * D + kSK * (D | 1) + kSK * D + kSQ * kSK + 3 * kSQ) *
         sizeof(float);
-    const float* Q = static_cast<const float*>(q);
-    const float* K = static_cast<const float*>(k);
-    const float* V = static_cast<const float*>(v);
-    float* O = static_cast<float*>(out);
-    float* L = static_cast<float*>(lse);
 #define TPD_FWD_F32(DD)                                                       \
-  {                                                                           \
+  if (D == DD || DD == 0) {                                                   \
     auto kern = fwd_f32<DD>;                                                  \
     cudaError_t e = cudaFuncSetAttribute(                                     \
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);        \
     if (e != cudaSuccess) return (int)e;                                      \
-    kern<<<grid, kThreads, smem, st>>>(Q, K, V, O, L, H, Hkv, Sq, Sk, lo, hi, \
-                                       scale);                                \
+    kern<<<grid, kThreads, smem, st>>>(                                       \
+        static_cast<const float*>(q), static_cast<const float*>(k),           \
+        static_cast<const float*>(v), static_cast<float*>(out),               \
+        static_cast<float*>(lse), H, Hkv, Sq, Sk, D, lo, hi, scale);          \
     return (int)cudaGetLastError();                                           \
   }
-    if (D == 16) TPD_FWD_F32(16)
-    if (D == 32) TPD_FWD_F32(32)
-    if (D == 64) TPD_FWD_F32(64)
-    if (D == 128) TPD_FWD_F32(128)
+    TPD_FWD_F32(16)
+    TPD_FWD_F32(32)
+    TPD_FWD_F32(64)
+    TPD_FWD_F32(128)
+    TPD_FWD_F32(0)
 #undef TPD_FWD_F32
   }
   return (int)cudaErrorInvalidValue;

@@ -47,10 +47,21 @@
 //   out·do against the do tile in shared memory, subtracts dlse, uses the
 //   result and writes it to a [b, h, Sq] f32 buffer that the dk/dv launch
 //   after it reads.
-// - mma.sync, bf16 at head dims 16 and 32: 4 warps of 16 rows on
-//   mma.sync m16n8k16, padded shared tiles, cp.async double buffers (dk/dv
-//   streams 32-row Q tiles).
-// - f32 on CUDA-core FMAs in full f32, never TF32.
+// - mma.sync, bf16 at every other head dim up to 256: 4 warps of 16 rows
+//   on mma.sync m16n8k16, padded shared tiles, cp.async double buffers
+//   (dk/dv streams 32-row Q tiles).  The tiles are compiled for the padded
+//   widths of flash_common.cuh (pad_head_dim), zero past a narrower head
+//   dim, and at 16, 32, 64 and 128 once more with the head dim fixed at the
+//   width (kExact).  Past 128 a CTA's f32 accumulators (dq, or dk and dv)
+//   would not fit four warps' registers, so the output columns split into
+//   chunks of kColChunk, one CTA each along grid z: every chunk's CTA forms
+//   the whole score and dp tiles (the depth is the full head dim) and
+//   accumulates its own columns only, and the A fragments of the score
+//   products load from shared memory per step.
+// - f32 on CUDA-core FMAs in full f32, never TF32, at any head dim up to
+//   256 (each thread owns the output elements tid, tid + 128, ... of the
+//   CTA's rows; the head dim compiled in at 16, 32, 64 and 128, taken at
+//   run time elsewhere).
 //
 // Bound on the H100: operations (6·pairs·D flops for dq and 8·pairs·D for
 // dk/dv against a few MB of operands at the training shapes).  The wgmma
@@ -66,27 +77,51 @@ namespace tpd_flash {
 namespace {
 
 // bf16, 4 warps of 16 rows, the streamed tiles double-buffered: dq walks
-// 64-key tiles for 64 query rows, dk/dv 32-row Q tiles for 64 keys.  Head
-// dims 16, 32, 64 and 128, as in the forward.
+// 64-key tiles for 64 query rows, dk/dv 32-row Q tiles for 64 keys.  DP is
+// the padded head dim (pad_head_dim), d <= DP the real one; a CTA
+// accumulates output columns [c0, c0 + DC), c0 = blockIdx.z · DC.
 constexpr int kBQ = 64, kBK = 64;
 constexpr int kKB = 64, kQB = 32;
 constexpr int kSQ = 16, kSK = 32;  // f32 tiles
+constexpr int kColChunk = 128;     // output columns a bf16 CTA at most
+
+// the output columns a bf16 CTA accumulates at padded head dim DP
+__host__ __device__ constexpr int col_chunk(int DP) {
+  return DP < kColChunk ? DP : kColChunk;
+}
 
 __device__ __forceinline__ float live_of(float lse) {
   return lse > kMask * 0.5f ? 1.f : 0.f;
 }
 
+// acc[n-tile] += A(rows r0.. of the shared tile A, depth DP) · Tᵀ: the A
+// fragments held (a[KD], loaded here) up to a depth of 128, loaded per
+// step past it
+template <int NT, int DP>
+__device__ __forceinline__ void mma_rows(float (*acc)[4], const bf16* A,
+                                         int r0, const bf16* t, int lane) {
+  constexpr int LD = DP + 8, KD = DP / 16;
+  if constexpr (DP <= 128) {
+    uint32_t a[KD][4];
+    for (int kk = 0; kk < KD; ++kk) load_a(a[kk], A, LD, r0, kk * 16, lane);
+    mma_abt<NT, KD>(acc, a, t, LD, lane);
+  } else {
+    mma_abt_smem<NT, KD>(acc, A, LD, r0, t, LD, lane);
+  }
+}
+
 // ------------------------------------------------------------------ dq, bf16
 
-template <int D>
+template <int DP, bool kExact>
 __global__ void __launch_bounds__(kThreads)
     dq_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
             const bf16* __restrict__ V, const bf16* __restrict__ dO,
             const float* __restrict__ Lse, const float* __restrict__ Delta,
-            bf16* __restrict__ dQ, int H, int Hkv, int Sq, int Sk, int lo,
-            int hi, float scale) {
-  static_assert(D % 16 == 0, "bf16 tiles take head dims in steps of 16");
-  constexpr int LD = D + 8, DN = D / 8, KD = D / 16, NT = kBK / 8;
+            bf16* __restrict__ dQ, int H, int Hkv, int Sq, int Sk, int d_arg,
+            int lo, int hi, float scale) {
+  const int d = kExact ? DP : d_arg;  // kExact: no padded column
+  static_assert(DP % 16 == 0, "bf16 tiles take head dims in steps of 16");
+  constexpr int LD = DP + 8, DC = col_chunk(DP), DN = DC / 8, NT = kBK / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kBQ][LD]
   bf16* dOs = Qs + kBQ * LD;                  // [kBQ][LD]
@@ -94,8 +129,9 @@ __global__ void __launch_bounds__(kThreads)
   bf16* Vs = Ks + 2 * kBK * LD;               // [2][kBK][LD]
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int hk = b * Hkv + h / (H / Hkv);
-  const bf16* k = K + (size_t)hk * Sk * D;
-  const bf16* v = V + (size_t)hk * Sk * D;
+  const int c0 = DP > DC ? blockIdx.z * DC : 0;  // this CTA's dq columns
+  const bf16* k = K + (size_t)hk * Sk * d;
+  const bf16* v = V + (size_t)hk * Sk * d;
   // longest CTAs first, as in the forward (last Q tiles, b·h fastest)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -103,11 +139,11 @@ __global__ void __launch_bounds__(kThreads)
   int first, last;
   kv_tiles(q0, min(q0 + kBQ, Sq) - 1, lo, hi, Sk, kBK, first, last);
 
-  load_tile_async<kBQ, D>(Qs, Q + (size_t)bh * Sq * D, q0, Sq);
-  load_tile_async<kBQ, D>(dOs, dO + (size_t)bh * Sq * D, q0, Sq);
+  load_tile_async<kBQ, DP>(Qs, Q + (size_t)bh * Sq * d, q0, Sq, d);
+  load_tile_async<kBQ, DP>(dOs, dO + (size_t)bh * Sq * d, q0, Sq, d);
   if (first <= last) {
-    load_tile_async<kBK, D>(Ks, k, first * kBK, Sk);
-    load_tile_async<kBK, D>(Vs, v, first * kBK, Sk);
+    load_tile_async<kBK, DP>(Ks, k, first * kBK, Sk, d);
+    load_tile_async<kBK, DP>(Vs, v, first * kBK, Sk, d);
   }
   cp_commit();
   float lse[2], live[2], delta[2];
@@ -124,8 +160,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = first; j <= last; ++j) {
     const int buf = (j - first) & 1;
     if (j < last) {
-      load_tile_async<kBK, D>(Ks + (buf ^ 1) * kBK * LD, k, (j + 1) * kBK, Sk);
-      load_tile_async<kBK, D>(Vs + (buf ^ 1) * kBK * LD, v, (j + 1) * kBK, Sk);
+      load_tile_async<kBK, DP>(Ks + (buf ^ 1) * kBK * LD, k, (j + 1) * kBK,
+                               Sk, d);
+      load_tile_async<kBK, DP>(Vs + (buf ^ 1) * kBK * LD, v, (j + 1) * kBK,
+                               Sk, d);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -134,16 +172,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const bf16* ks = Ks + buf * kBK * LD;
     const bf16* vs = Vs + buf * kBK * LD;
-    uint32_t a[KD][4];
 
     float s[NT][4] = {};
-    for (int kk = 0; kk < KD; ++kk)
-      load_a(a[kk], Qs, LD, warp * 16, kk * 16, lane);
-    mma_abt<NT, KD>(s, a, ks, LD, lane);
+    mma_rows<NT, DP>(s, Qs, warp * 16, ks, lane);
     float dp[NT][4] = {};
-    for (int kk = 0; kk < KD; ++kk)
-      load_a(a[kk], dOs, LD, warp * 16, kk * 16, lane);
-    mma_abt<NT, KD>(dp, a, vs, LD, lane);
+    mma_rows<NT, DP>(dp, dOs, warp * 16, vs, lane);
 
     const int k0 = j * kBK;
     const bool interior = tile_interior(q0, kBQ, k0, kBK, lo, hi, Sk);
@@ -161,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
         const float p = exp_row(x, lse[r]) * live[r];
         s[n][e] = p * (dp[n][e] - delta[r]) * scale;  // ds
       }
-    mma_pt<DN, kBK / 16>(acc, s, ks, LD, lane);
+    mma_pt<DN, kBK / 16>(acc, s, ks + c0, LD, lane);
     __syncthreads();
   }
   cp_wait<0>();
@@ -170,25 +203,26 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + r * 8;
     if (row >= Sq) continue;
-    const size_t base = ((size_t)bh * Sq + row) * D + tq * 2;
+    bf16* out = dQ + ((size_t)bh * Sq + row) * d;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn)
-      *reinterpret_cast<__nv_bfloat162*>(dQ + base + dn * 8) =
-          __floats2bfloat162_rn(acc[dn][2 * r], acc[dn][2 * r + 1]);
+      store_pair(out, c0 + dn * 8 + tq * 2, d, acc[dn][2 * r],
+                 acc[dn][2 * r + 1]);
   }
 }
 
 // ---------------------------------------------------------------- dk/dv, bf16
 
-template <int D>
+template <int DP, bool kExact>
 __global__ void __launch_bounds__(kThreads)
     dkv_bf16(const bf16* __restrict__ Q, const bf16* __restrict__ K,
              const bf16* __restrict__ V, const bf16* __restrict__ dO,
              const float* __restrict__ Lse, const float* __restrict__ Delta,
              bf16* __restrict__ dK, bf16* __restrict__ dV, int H, int Hkv,
-             int Sq, int Sk, int lo, int hi, float scale) {
-  static_assert(D % 16 == 0, "bf16 tiles take head dims in steps of 16");
-  constexpr int LD = D + 8, DN = D / 8, KD = D / 16, NT = kQB / 8;
+             int Sq, int Sk, int d_arg, int lo, int hi, float scale) {
+  const int d = kExact ? DP : d_arg;  // kExact: no padded column
+  static_assert(DP % 16 == 0, "bf16 tiles take head dims in steps of 16");
+  constexpr int LD = DP + 8, DC = col_chunk(DP), DN = DC / 8, NT = kQB / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [kKB][LD]
   bf16* Vs = Ks + kKB * LD;                   // [kKB][LD]
@@ -198,6 +232,7 @@ __global__ void __launch_bounds__(kThreads)
   float* delta_s = lse_s + 2 * kQB;                              // [2][kQB]
   const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv % Hkv;
   const int group = H / Hkv;
+  const int c0 = DP > DC ? blockIdx.z * DC : 0;  // its dk, dv columns
   // b·h_kv fastest; under a causal band the first KV tiles see the most
   // Q tiles, so the longest CTAs start first
   const int k0 = blockIdx.y * kKB;
@@ -212,9 +247,10 @@ __global__ void __launch_bounds__(kThreads)
   auto prefetch = [&](int it, int buf) {
     const int gi = it / per_head, qt = qfirst + it % per_head;
     const size_t bh = (size_t)b * H + hk * group + gi;
-    load_tile_async<kQB, D>(Qs + buf * kQB * LD, Q + bh * Sq * D, qt * kQB, Sq);
-    load_tile_async<kQB, D>(dOs + buf * kQB * LD, dO + bh * Sq * D, qt * kQB,
-                            Sq);
+    load_tile_async<kQB, DP>(Qs + buf * kQB * LD, Q + bh * Sq * d, qt * kQB,
+                             Sq, d);
+    load_tile_async<kQB, DP>(dOs + buf * kQB * LD, dO + bh * Sq * d,
+                             qt * kQB, Sq, d);
     if (threadIdx.x < kQB) {
       const int row = qt * kQB + threadIdx.x;
       const bool ok = row < Sq;
@@ -223,8 +259,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
   if (steps > 0) {
-    load_tile_async<kKB, D>(Ks, K + (size_t)bkv * Sk * D, k0, Sk);
-    load_tile_async<kKB, D>(Vs, V + (size_t)bkv * Sk * D, k0, Sk);
+    load_tile_async<kKB, DP>(Ks, K + (size_t)bkv * Sk * d, k0, Sk, d);
+    load_tile_async<kKB, DP>(Vs, V + (size_t)bkv * Sk * d, k0, Sk, d);
     prefetch(0, 0);
   }
   cp_commit();
@@ -245,13 +281,10 @@ __global__ void __launch_bounds__(kThreads)
     const bf16* dos = dOs + buf * kQB * LD;
     const float* ls = lse_s + buf * kQB;
     const float* ds_ = delta_s + buf * kQB;
-    uint32_t a[KD][4];
 
     // sᵀ = k·qᵀ (rows: this warp's 16 keys; columns: the tile's 32 queries)
     float s[NT][4] = {};
-    for (int kk = 0; kk < KD; ++kk)
-      load_a(a[kk], Ks, LD, warp * 16, kk * 16, lane);
-    mma_abt<NT, KD>(s, a, qs, LD, lane);
+    mma_rows<NT, DP>(s, Ks, warp * 16, qs, lane);
     const bool interior = tile_interior(q0, kQB, k0, kKB, lo, hi, 1 << 30);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -265,12 +298,10 @@ __global__ void __launch_bounds__(kThreads)
         }
         s[n][e] = exp_row(x, ls[c]) * live_of(ls[c]);  // pᵀ
       }
-    mma_pt<DN, kQB / 16>(dv, s, dos, LD, lane);  // dv += bf(pᵀ)·do
+    mma_pt<DN, kQB / 16>(dv, s, dos + c0, LD, lane);  // dv += bf(pᵀ)·do
 
     float dp[NT][4] = {};  // dpᵀ = v·doᵀ
-    for (int kk = 0; kk < KD; ++kk)
-      load_a(a[kk], Vs, LD, warp * 16, kk * 16, lane);
-    mma_abt<NT, KD>(dp, a, dos, LD, lane);
+    mma_rows<NT, DP>(dp, Vs, warp * 16, dos, lane);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -278,7 +309,7 @@ __global__ void __launch_bounds__(kThreads)
         const int c = n * 8 + tq * 2 + (e & 1);
         s[n][e] = s[n][e] * (dp[n][e] - ds_[c]) * scale;  // dsᵀ
       }
-    mma_pt<DN, kQB / 16>(dk, s, qs, LD, lane);  // dk += bf(dsᵀ)·q
+    mma_pt<DN, kQB / 16>(dk, s, qs + c0, LD, lane);  // dk += bf(dsᵀ)·q
     __syncthreads();
   }
   cp_wait<0>();
@@ -287,13 +318,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < 2; ++r) {
     const int row = k0 + warp * 16 + g + r * 8;
     if (row >= Sk) continue;
-    const size_t base = ((size_t)bkv * Sk + row) * D + tq * 2;
+    const size_t base = ((size_t)bkv * Sk + row) * d;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn) {
-      *reinterpret_cast<__nv_bfloat162*>(dK + base + dn * 8) =
-          __floats2bfloat162_rn(dk[dn][2 * r], dk[dn][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dV + base + dn * 8) =
-          __floats2bfloat162_rn(dv[dn][2 * r], dv[dn][2 * r + 1]);
+      const int c = c0 + dn * 8 + tq * 2;
+      store_pair(dK + base, c, d, dk[dn][2 * r], dk[dn][2 * r + 1]);
+      store_pair(dV + base, c, d, dv[dn][2 * r], dv[dn][2 * r + 1]);
     }
   }
 }
@@ -603,16 +633,21 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------------------------- f32
 
 // dq: 16 query rows per CTA, 32-key tiles; a warp holds one row's tile
-// (a lane per key), each thread one dq column of its rows.
-template <int D>
+// (a lane per key).  kD > 0 compiles the head dim in (16, 32, 64, 128):
+// each thread owns one dq column of kDqAcc consecutive rows.  kD == 0
+// takes it at run time: the [16, D] dq tile's elements go to the threads
+// in turn (element tid + 128·i: row e / D, column e % D), at most kDqAcc a
+// thread, so any D up to kMaxHeadDim runs (fwd_f32's rule).
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
     dq_f32(const float* __restrict__ Q, const float* __restrict__ K,
            const float* __restrict__ V, const float* __restrict__ dO,
            const float* __restrict__ Lse, const float* __restrict__ Delta,
-           float* __restrict__ dQ, int H, int Hkv, int Sq, int Sk, int lo,
-           int hi, float scale) {
-  static_assert(kThreads % D == 0, "a thread owns one column");
-  constexpr int LDK = D + 1, RPT = kSQ * D / kThreads;
+           float* __restrict__ dQ, int H, int Hkv, int Sq, int Sk, int d_arg,
+           int lo, int hi, float scale) {
+  const int D = kD ? kD : d_arg;
+  constexpr int kDqAcc = (kD ? kD : kMaxHeadDim) * kSQ / kThreads;
+  const int LDK = D | 1;  // odd: a warp's 32 key rows fall in 32 banks
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [kSQ][D]
   float* dOs = Qs + kSQ * D;                    // [kSQ][D]
@@ -627,29 +662,31 @@ __global__ void __launch_bounds__(kThreads)
   const float* v = V + (size_t)hk * Sk * D;
   const int q0 = blockIdx.x * kSQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col = threadIdx.x % D, rb = (threadIdx.x / D) * RPT;
+  // kD > 0: this thread's column and first row
+  const int cb = kD ? threadIdx.x % D : 0;
+  const int rb = kD ? threadIdx.x / D * kDqAcc : 0;
   int first, last;
   kv_tiles(q0, min(q0 + kSQ, Sq) - 1, lo, hi, Sk, kSK, first, last);
-  load_tile_f32<kSQ, D>(Qs, D, Q + (size_t)bh * Sq * D, q0, Sq);
-  load_tile_f32<kSQ, D>(dOs, D, dO + (size_t)bh * Sq * D, q0, Sq);
+  load_tile_f32<kSQ>(Qs, D, Q + (size_t)bh * Sq * D, q0, Sq, D);
+  load_tile_f32<kSQ>(dOs, D, dO + (size_t)bh * Sq * D, q0, Sq, D);
   if (threadIdx.x < kSQ) {
     const int row = q0 + threadIdx.x;
     ls[threadIdx.x] = row < Sq ? Lse[(size_t)bh * Sq + row] : INFINITY;
     dl[threadIdx.x] = row < Sq ? Delta[(size_t)bh * Sq + row] : 0.f;
   }
-  float acc[RPT] = {};
+  float acc[kDqAcc] = {};
   for (int j = first; j <= last; ++j) {
     const int k0 = j * kSK;
     __syncthreads();
-    load_tile_f32<kSK, D>(Ks, LDK, k, k0, Sk);
-    load_tile_f32<kSK, D>(Vs, LDK, v, k0, Sk);
+    load_tile_f32<kSK>(Ks, LDK, k, k0, Sk, D);
+    load_tile_f32<kSK>(Vs, LDK, v, k0, Sk, D);
     __syncthreads();
     const bool interior = tile_interior(q0, kSQ, k0, kSK, lo, hi, Sk);
     for (int r = warp; r < kSQ; r += kThreads / 32) {
       float s = 0.f, dp = 0.f;
-      for (int d = 0; d < D; ++d) {
-        s += Qs[r * D + d] * Ks[lane * LDK + d];
-        dp += dOs[r * D + d] * Vs[lane * LDK + d];
+      for (int c = 0; c < D; ++c) {
+        s += Qs[r * D + c] * Ks[lane * LDK + c];
+        dp += dOs[r * D + c] * Vs[lane * LDK + c];
       }
       s *= scale;
       if (!interior && !(k0 + lane < Sk && in_band(q0 + r, k0 + lane, lo, hi)))
@@ -658,30 +695,50 @@ __global__ void __launch_bounds__(kThreads)
       dSs[r * kSK + lane] = p * (dp - dl[r]) * scale;
     }
     __syncthreads();
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rb + i;
-      float x = 0.f;
-      for (int c = 0; c < kSK; ++c) x += dSs[r * kSK + c] * Ks[c * LDK + col];
-      acc[i] += x;
+    if constexpr (kD > 0) {
+      for (int i = 0; i < kDqAcc; ++i) {
+        const int r = rb + i;
+        float x = 0.f;
+        for (int c = 0; c < kSK; ++c) x += dSs[r * kSK + c] * Ks[c * LDK + cb];
+        acc[i] += x;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kDqAcc; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        if (e >= kSQ * D) break;
+        const int r = e / D, col = e % D;
+        float x = 0.f;
+        for (int c = 0; c < kSK; ++c)
+          x += dSs[r * kSK + c] * Ks[c * LDK + col];
+        acc[i] += x;
+      }
     }
   }
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + rb + i;
+#pragma unroll
+  for (int i = 0; i < kDqAcc; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (!kD && e >= kSQ * D) break;
+    const int row = q0 + (kD ? rb + i : e / D), col = kD ? cb : e % D;
     if (row < Sq) dQ[((size_t)bh * Sq + row) * D + col] = acc[i];
   }
 }
 
-// dk/dv: 32 keys per CTA, a loop over (group member, 16-row Q tile); each
-// thread owns one dk/dv column of its keys.
-template <int D>
+// dk/dv: 32 keys per CTA, a loop over (group member, 16-row Q tile); at a
+// compiled head dim each thread owns one dk/dv column of kKvAcc
+// consecutive keys, at a run-time one the [32, D] dk and dv tiles'
+// elements go to the threads in turn, at most kKvAcc a thread (kD as
+// dq_f32's).
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
     dkv_f32(const float* __restrict__ Q, const float* __restrict__ K,
             const float* __restrict__ V, const float* __restrict__ dO,
             const float* __restrict__ Lse, const float* __restrict__ Delta,
             float* __restrict__ dK, float* __restrict__ dV, int H, int Hkv,
-            int Sq, int Sk, int lo, int hi, float scale) {
-  static_assert(kThreads % D == 0, "a thread owns one column");
-  constexpr int LD = D + 1, KPT = kSK * D / kThreads, LP = kSQ + 1;
+            int Sq, int Sk, int d_arg, int lo, int hi, float scale) {
+  const int D = kD ? kD : d_arg;
+  constexpr int kKvAcc = (kD ? kD : kMaxHeadDim) * kSK / kThreads;
+  const int LD = D | 1, LP = kSQ + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);  // [kSK][LD]
   float* Vs = Ks + kSK * LD;                    // [kSK][LD]
@@ -694,19 +751,21 @@ __global__ void __launch_bounds__(kThreads)
   const int bkv = blockIdx.y, b = bkv / Hkv, hk = bkv % Hkv;
   const int group = H / Hkv;
   const int k0 = blockIdx.x * kSK;
-  const int col = threadIdx.x % D, kb = (threadIdx.x / D) * KPT;
+  // kD > 0: this thread's column and first key
+  const int cb = kD ? threadIdx.x % D : 0;
+  const int kb = kD ? threadIdx.x / D * kKvAcc : 0;
   int qfirst, qlast;
   q_tiles(k0, min(k0 + kSK, Sk) - 1, lo, hi, Sq, kSQ, qfirst, qlast);
-  load_tile_f32<kSK, D>(Ks, LD, K + (size_t)bkv * Sk * D, k0, Sk);
-  load_tile_f32<kSK, D>(Vs, LD, V + (size_t)bkv * Sk * D, k0, Sk);
-  float dk[KPT] = {}, dv[KPT] = {};
+  load_tile_f32<kSK>(Ks, LD, K + (size_t)bkv * Sk * D, k0, Sk, D);
+  load_tile_f32<kSK>(Vs, LD, V + (size_t)bkv * Sk * D, k0, Sk, D);
+  float dk[kKvAcc] = {}, dv[kKvAcc] = {};
   for (int gi = 0; gi < group; ++gi) {
     const size_t bh = (size_t)b * H + hk * group + gi;
     for (int qt = qfirst; qt <= qlast; ++qt) {
       const int q0 = qt * kSQ;
       __syncthreads();
-      load_tile_f32<kSQ, D>(Qs, LD, Q + bh * Sq * D, q0, Sq);
-      load_tile_f32<kSQ, D>(dOs, LD, dO + bh * Sq * D, q0, Sq);
+      load_tile_f32<kSQ>(Qs, LD, Q + bh * Sq * D, q0, Sq, D);
+      load_tile_f32<kSQ>(dOs, LD, dO + bh * Sq * D, q0, Sq, D);
       if (threadIdx.x < kSQ) {
         const int row = q0 + threadIdx.x;
         ls[threadIdx.x] = row < Sq ? Lse[bh * Sq + row] : INFINITY;
@@ -717,9 +776,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = threadIdx.x % kSQ;
       for (int c = threadIdx.x / kSQ; c < kSK; c += kThreads / kSQ) {
         float s = 0.f, dp = 0.f;
-        for (int d = 0; d < D; ++d) {
-          s += Ks[c * LD + d] * Qs[r * LD + d];
-          dp += Vs[c * LD + d] * dOs[r * LD + d];
+        for (int x = 0; x < D; ++x) {
+          s += Ks[c * LD + x] * Qs[r * LD + x];
+          dp += Vs[c * LD + x] * dOs[r * LD + x];
         }
         s *= scale;
         if (!interior && !in_band(q0 + r, k0 + c, lo, hi)) s = kMask;
@@ -728,20 +787,39 @@ __global__ void __launch_bounds__(kThreads)
         dSs[c * LP + r] = p * (dp - dl[r]) * scale;
       }
       __syncthreads();
-      for (int i = 0; i < KPT; ++i) {
-        const int c = kb + i;
-        float xv = 0.f, xk = 0.f;
-        for (int rr = 0; rr < kSQ; ++rr) {
-          xv += Ps[c * LP + rr] * dOs[rr * LD + col];
-          xk += dSs[c * LP + rr] * Qs[rr * LD + col];
+      if constexpr (kD > 0) {
+        for (int i = 0; i < kKvAcc; ++i) {
+          const int c = kb + i;
+          float xv = 0.f, xk = 0.f;
+          for (int rr = 0; rr < kSQ; ++rr) {
+            xv += Ps[c * LP + rr] * dOs[rr * LD + cb];
+            xk += dSs[c * LP + rr] * Qs[rr * LD + cb];
+          }
+          dv[i] += xv;
+          dk[i] += xk;
         }
-        dv[i] += xv;
-        dk[i] += xk;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kKvAcc; ++i) {
+          const int e = threadIdx.x + i * kThreads;
+          if (e >= kSK * D) break;
+          const int c = e / D, col = e % D;
+          float xv = 0.f, xk = 0.f;
+          for (int rr = 0; rr < kSQ; ++rr) {
+            xv += Ps[c * LP + rr] * dOs[rr * LD + col];
+            xk += dSs[c * LP + rr] * Qs[rr * LD + col];
+          }
+          dv[i] += xv;
+          dk[i] += xk;
+        }
       }
     }
   }
-  for (int i = 0; i < KPT; ++i) {
-    const int row = k0 + kb + i;
+#pragma unroll
+  for (int i = 0; i < kKvAcc; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (!kD && e >= kSK * D) break;
+    const int row = k0 + (kD ? kb + i : e / D), col = kD ? cb : e % D;
     if (row >= Sk) continue;
     dK[((size_t)bkv * Sk + row) * D + col] = dk[i];
     dV[((size_t)bkv * Sk + row) * D + col] = dv[i];
@@ -774,7 +852,8 @@ inline size_t wgmma_smem(int D) {
 }
 
 // All of q, k, v, do, dq alike (bf16 for arms 1-2, f32 for arm 0),
-// contiguous; lse f32 [B, H, Sq].  out == NULL: delta is read.  out != NULL
+// contiguous; lse f32 [B, H, Sq]; D 64 or 128 on arm 2, 1..kMaxHeadDim on
+// arms 0-1.  out == NULL: delta is read.  out != NULL
 // (arm 2 only; out bf16 like q, glse f32 or NULL): the kernel forms delta =
 // rowsum(out·do) - glse and writes it to delta.
 extern "C" int tpd_flash_backward_dq(const void* q, const void* k,
@@ -806,46 +885,52 @@ extern "C" int tpd_flash_backward_dq(const void* q, const void* k,
       TPD_LAUNCH(dq_wgmma<128>, grid, kThreads, smem, m[0], m[1], m[2],
                  m[3], L, Dl, O, GL, dQ, H, Hkv, Sq, Sk, lo, hi, scale)
   } else if (arm == kArmMma) {
-    const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-    const size_t smem = (size_t)(2 * kBQ + 4 * kBK) * (D + 8) * sizeof(bf16);
+    const int DP = pad_head_dim(D);
+    const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ, DP / col_chunk(DP));
+    const size_t smem = (size_t)(2 * kBQ + 4 * kBK) * (DP + 8) * sizeof(bf16);
     const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
                *V = static_cast<const bf16*>(v),
                *dO = static_cast<const bf16*>(dout);
     bf16* dQ = static_cast<bf16*>(dq);
-    if (D == 16)
-      TPD_LAUNCH(dq_bf16<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 32)
-      TPD_LAUNCH(dq_bf16<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 64)
-      TPD_LAUNCH(dq_bf16<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 128)
-      TPD_LAUNCH(dq_bf16<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dQ, H, Hkv, Sq, Sk, lo, hi, scale)
+// the head dim fixed at 16, 32, 64 and 128, every padded width at run
+// time (the forward's rule)
+#define TPD_DQ_BF16(DD, EX)                                               \
+  TPD_LAUNCH((dq_bf16<DD, EX>), grid, kThreads, smem, Q, K, V, dO, L, Dl, \
+             dQ, H, Hkv, Sq, Sk, D, lo, hi, scale)
+#define TPD_DQ_BF16_EXACT(DD) if (D == DD) TPD_DQ_BF16(DD, true)
+#define TPD_DQ_BF16_PAD(DD) if (DP == DD) TPD_DQ_BF16(DD, false)
+    TPD_DQ_BF16_EXACT(16)
+    TPD_DQ_BF16_EXACT(32)
+    TPD_DQ_BF16_EXACT(64)
+    TPD_DQ_BF16_EXACT(128)
+    TPD_DQ_BF16_PAD(16)
+    TPD_DQ_BF16_PAD(32)
+    TPD_DQ_BF16_PAD(64)
+    TPD_DQ_BF16_PAD(96)
+    TPD_DQ_BF16_PAD(128)
+    TPD_DQ_BF16_PAD(256)
+#undef TPD_DQ_BF16_PAD
+#undef TPD_DQ_BF16_EXACT
+#undef TPD_DQ_BF16
   } else if (arm == kArmF32) {
+    if (D < 1 || D > kMaxHeadDim) return (int)cudaErrorInvalidValue;
     const dim3 grid((Sq + kSQ - 1) / kSQ, B * H);
     const size_t smem =
-        ((size_t)2 * kSQ * D + 2 * kSK * (D + 1) + kSQ * kSK + 2 * kSQ) *
+        ((size_t)2 * kSQ * D + 2 * kSK * (D | 1) + kSQ * kSK + 2 * kSQ) *
         sizeof(float);
-    const float *Q = static_cast<const float*>(q),
-                *K = static_cast<const float*>(k),
-                *V = static_cast<const float*>(v),
-                *dO = static_cast<const float*>(dout);
-    float* dQ = static_cast<float*>(dq);
-    if (D == 16)
-      TPD_LAUNCH(dq_f32<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
-                 Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 32)
-      TPD_LAUNCH(dq_f32<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
-                 Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 64)
-      TPD_LAUNCH(dq_f32<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
-                 Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 128)
-      TPD_LAUNCH(dq_f32<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dQ, H,
-                 Hkv, Sq, Sk, lo, hi, scale)
+#define TPD_DQ_F32(DD)                                                     \
+  if (D == DD || DD == 0)                                                  \
+    TPD_LAUNCH(dq_f32<DD>, grid, kThreads, smem,                           \
+               static_cast<const float*>(q), static_cast<const float*>(k), \
+               static_cast<const float*>(v),                               \
+               static_cast<const float*>(dout), L, Dl,                     \
+               static_cast<float*>(dq), H, Hkv, Sq, Sk, D, lo, hi, scale)
+    TPD_DQ_F32(16)
+    TPD_DQ_F32(32)
+    TPD_DQ_F32(64)
+    TPD_DQ_F32(128)
+    TPD_DQ_F32(0)
+#undef TPD_DQ_F32
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -876,47 +961,52 @@ extern "C" int tpd_flash_backward_dkv(const void* q, const void* k,
       TPD_LAUNCH(dkv_wgmma<128>, grid, kThreads, smem, m[0], m[1],
                  m[2], m[3], L, Dl, dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
   } else if (arm == kArmMma) {
-    const dim3 grid(B * Hkv, (Sk + kKB - 1) / kKB);
-    const size_t smem = (size_t)(2 * kKB + 4 * kQB) * (D + 8) * sizeof(bf16) +
+    const int DP = pad_head_dim(D);
+    const dim3 grid(B * Hkv, (Sk + kKB - 1) / kKB, DP / col_chunk(DP));
+    const size_t smem = (size_t)(2 * kKB + 4 * kQB) * (DP + 8) * sizeof(bf16) +
                         4 * kQB * sizeof(float);
     const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
                *V = static_cast<const bf16*>(v),
                *dO = static_cast<const bf16*>(dout);
     bf16 *dK = static_cast<bf16*>(dk), *dV = static_cast<bf16*>(dv);
-    if (D == 16)
-      TPD_LAUNCH(dkv_bf16<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 32)
-      TPD_LAUNCH(dkv_bf16<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 64)
-      TPD_LAUNCH(dkv_bf16<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 128)
-      TPD_LAUNCH(dkv_bf16<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl,
-                 dK, dV, H, Hkv, Sq, Sk, lo, hi, scale)
+#define TPD_DKV_BF16(DD, EX)                                              \
+  TPD_LAUNCH((dkv_bf16<DD, EX>), grid, kThreads, smem, Q, K, V, dO, L, Dl, \
+             dK, dV, H, Hkv, Sq, Sk, D, lo, hi, scale)
+#define TPD_DKV_BF16_EXACT(DD) if (D == DD) TPD_DKV_BF16(DD, true)
+#define TPD_DKV_BF16_PAD(DD) if (DP == DD) TPD_DKV_BF16(DD, false)
+    TPD_DKV_BF16_EXACT(16)
+    TPD_DKV_BF16_EXACT(32)
+    TPD_DKV_BF16_EXACT(64)
+    TPD_DKV_BF16_EXACT(128)
+    TPD_DKV_BF16_PAD(16)
+    TPD_DKV_BF16_PAD(32)
+    TPD_DKV_BF16_PAD(64)
+    TPD_DKV_BF16_PAD(96)
+    TPD_DKV_BF16_PAD(128)
+    TPD_DKV_BF16_PAD(256)
+#undef TPD_DKV_BF16_PAD
+#undef TPD_DKV_BF16_EXACT
+#undef TPD_DKV_BF16
   } else if (arm == kArmF32) {
+    if (D < 1 || D > kMaxHeadDim) return (int)cudaErrorInvalidValue;
     const dim3 grid((Sk + kSK - 1) / kSK, B * Hkv);
-    const size_t smem = ((size_t)2 * kSK * (D + 1) + 2 * kSQ * (D + 1) +
+    const size_t smem = ((size_t)2 * kSK * (D | 1) + 2 * kSQ * (D | 1) +
                          2 * kSK * (kSQ + 1) + 2 * kSQ) *
                         sizeof(float);
-    const float *Q = static_cast<const float*>(q),
-                *K = static_cast<const float*>(k),
-                *V = static_cast<const float*>(v),
-                *dO = static_cast<const float*>(dout);
-    float *dK = static_cast<float*>(dk), *dV = static_cast<float*>(dv);
-    if (D == 16)
-      TPD_LAUNCH(dkv_f32<16>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
-                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 32)
-      TPD_LAUNCH(dkv_f32<32>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
-                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 64)
-      TPD_LAUNCH(dkv_f32<64>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
-                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
-    if (D == 128)
-      TPD_LAUNCH(dkv_f32<128>, grid, kThreads, smem, Q, K, V, dO, L, Dl, dK,
-                 dV, H, Hkv, Sq, Sk, lo, hi, scale)
+#define TPD_DKV_F32(DD)                                                    \
+  if (D == DD || DD == 0)                                                  \
+    TPD_LAUNCH(dkv_f32<DD>, grid, kThreads, smem,                          \
+               static_cast<const float*>(q), static_cast<const float*>(k), \
+               static_cast<const float*>(v),                               \
+               static_cast<const float*>(dout), L, Dl,                     \
+               static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv,   \
+               Sq, Sk, D, lo, hi, scale)
+    TPD_DKV_F32(16)
+    TPD_DKV_F32(32)
+    TPD_DKV_F32(64)
+    TPD_DKV_F32(128)
+    TPD_DKV_F32(0)
+#undef TPD_DKV_F32
   }
   return (int)cudaErrorInvalidValue;
 }

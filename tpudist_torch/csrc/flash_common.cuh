@@ -17,6 +17,13 @@
 // conflicts.  Global tiles arrive by cp.async with zero fill past the
 // sequence end: double-buffered against the math in the backward passes;
 // the forward keeps one buffer and three CTAs per SM instead.
+//
+// Head dims: the bf16 tiles are compiled for a few padded widths DP
+// (pad_head_dim: 16, 32, 64, 96, 128, 256) and take any real head dim
+// d <= DP at run time.  Columns d..DP - 1 of every shared tile load as
+// zeros, so they add nothing to a product over the depth and their output
+// columns are never stored.  The f32 kernels take d at run time, up to
+// kMaxHeadDim.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +51,19 @@ __device__ __forceinline__ float exp_row(float x, float m) {
 }
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
+
+constexpr int kMaxHeadDim = 256;
+
+// The padded width whose bf16 tiles hold head dim d; 0 past kMaxHeadDim.
+__host__ __device__ constexpr int pad_head_dim(int d) {
+  return d <= 16    ? 16
+         : d <= 32  ? 32
+         : d <= 64  ? 64
+         : d <= 96  ? 96
+         : d <= 128 ? 128
+         : d <= kMaxHeadDim ? kMaxHeadDim
+                            : 0;
+}
 
 __device__ __forceinline__ bool in_band(int q, int k, int lo, int hi) {
   const int d = q - k;
@@ -132,6 +152,26 @@ __device__ __forceinline__ void load_a(uint32_t* a, const bf16* t, int ld,
   a[3] = lds32(p + 8 * ld + 8);
 }
 
+// acc[n-tile] += A * T^T as mma_abt below, the A fragments of rows r0.. of
+// the row-major shared tile A (leading dimension lda) loaded per 16-deep
+// step instead of held: the register budget of the widest head dims.
+template <int NT, int KS>
+__device__ __forceinline__ void mma_abt_smem(float (*acc)[4], const bf16* A,
+                                             int lda, int r0, const bf16* t,
+                                             int ld, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    load_a(a, A, lda, r0, kk * 16, lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const bf16* p = t + (n * 8 + g) * ld + kk * 16 + tq * 2;
+      mma_bf16(acc[n], a, lds32(p), lds32(p + 8));
+    }
+  }
+}
+
 // acc[n-tile] += A(16 x 16·KS, fragments a[KS]) * T^T for the 8-row blocks
 // n = 0..NT-1 of a row-major tile T (rows = output columns, cols = depth):
 // the B operand of T^T is two contiguous bf16 of a T row.
@@ -202,15 +242,74 @@ __device__ __forceinline__ void load_tile_async(bf16* sm, const bf16* g,
   }
 }
 
+// rows [row0, row0 + ROWS) of a [n_rows, d] bf16 matrix (d < DP) into a
+// [ROWS][DP + 8] shared tile; rows past n_rows and columns past d are
+// zero.  Rows of d % 8 == 0 elements start on 16 bytes and copy by
+// cp.async; other widths copy element by element (the stores are done
+// when the caller's barrier that follows its cp_wait is).  Kept out of
+// line: the kernels' tile loops inline only the exact width's copy.
+template <int ROWS, int DP>
+__device__ __noinline__ void load_tile_padded(bf16* sm, const bf16* g,
+                                              int row0, int n_rows, int d) {
+  constexpr int kChunks = DP / 8;
+  if ((d & 7) == 0) {
+    for (int c = threadIdx.x; c < ROWS * kChunks; c += blockDim.x) {
+      const int r = c / kChunks, col = (c % kChunks) * 8;
+      const bool ok = row0 + r < n_rows && col < d;
+      cp_async16(sm + r * (DP + 8) + col,
+                 g + (ok ? (size_t)(row0 + r) * d + col : 0), ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += blockDim.x) {
+      const int r = i / DP, col = i % DP;
+      sm[r * (DP + 8) + col] = row0 + r < n_rows && col < d
+                                   ? g[(size_t)(row0 + r) * d + col]
+                                   : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The same for any d <= DP: the exact width's copy where d == DP.
+template <int ROWS, int DP>
+__device__ __forceinline__ void load_tile_async(bf16* sm, const bf16* g,
+                                                int row0, int n_rows, int d) {
+  if (d == DP)
+    load_tile_async<ROWS, DP>(sm, g, row0, n_rows);
+  else
+    load_tile_padded<ROWS, DP>(sm, g, row0, n_rows, d);
+}
+
 // rows [row0, row0 + ROWS) of a [n_rows, D] f32 matrix into a shared tile
 // with leading dimension ld; rows past n_rows are zero
-template <int ROWS, int D>
+template <int ROWS>
 __device__ __forceinline__ void load_tile_f32(float* sm, int ld,
                                               const float* g, int row0,
-                                              int n_rows) {
+                                              int n_rows, int D) {
   for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
     const int r = i / D, c = i % D;
     sm[r * ld + c] = row0 + r < n_rows ? g[(size_t)(row0 + r) * D + c] : 0.f;
+  }
+}
+
+// Output columns c and c + 1 (c even) of a row of d values at `row`: one
+// paired store where both lie in the row and d is even (the pair is then
+// aligned), else each on its own; columns at or past d are not stored.
+__device__ __forceinline__ void store_pair(bf16* row, int c, int d, float a,
+                                           float b) {
+  if ((d & 1) == 0 && c + 1 < d) {
+    *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (c < d) row[c] = __float2bfloat16_rn(a);
+    if (c + 1 < d) row[c + 1] = __float2bfloat16_rn(b);
+  }
+}
+__device__ __forceinline__ void store_pair(float* row, int c, int d, float a,
+                                           float b) {
+  if ((d & 1) == 0 && c + 1 < d) {
+    *reinterpret_cast<float2*>(row + c) = make_float2(a, b);
+  } else {
+    if (c < d) row[c] = a;
+    if (c + 1 < d) row[c + 1] = b;
   }
 }
 

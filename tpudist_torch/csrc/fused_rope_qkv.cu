@@ -65,10 +65,21 @@
 //   first half lies in accumulator block i and its partner in block i + 4
 //   of the same thread, so the epilogue rotates in registers and stores two
 //   neighbouring columns at a time.
-// - mma (bf16, other head dims; the yardstick the smoke times the new arms
-//   against): a CTA owns 64 rows × 32 columns (16 pairs), depth tiles of 64
-//   by cp.async, three stages, 4 warps on mma.sync.
+// - mma (bf16, every other head dim and depth; the yardstick the smoke
+//   times the new arms against): a CTA owns 64 rows × 32 columns (16
+//   pairs), depth tiles of 64 by cp.async, three stages, 4 warps on
+//   mma.sync.
 // - f32: the mma arm's tiling on CUDA-core FMAs (never TF32).
+//
+// The mma and f32 arms take any head dim and any depth.  A head's columns
+// pair as (j, j + half) with half = ceil(dh / 2) (dh / 2 under RoPE, which
+// needs an even dh), 16 pairs a column block, so a block past the head's
+// last pair (dh 80: pairs 32..39 of block 2) loads zeros for the weight
+// rows that do not exist and stores nothing for them; an odd dh (RoPE
+// off) has no partner for its last column.  The depth loop runs
+// ceil(d / 64) tiles, the last one zero past d; rows of h and of the
+// weight that start on 16 bytes (d % 8 == 0) copy by cp.async, others
+// element by element.
 //
 // Resources (ptxas for sm_90a; no spills): split 64 registers, dynamic
 // shared memory 29,960 / 55,048 / 67,592 bytes at 8 / 40 / 64 rows and d
@@ -226,18 +237,27 @@ __device__ __forceinline__ void pair_math(float& v1, float& v2, bool has_e,
   }
 }
 
-// One rotation pair of one row: column jl of the head and jl + dh/2.
+// The pairing of a head's columns on the mma and f32 arms: (j, j + half),
+// half = ceil(dh / 2) (dh / 2 under RoPE, whose dh is even).
+__device__ __forceinline__ int pair_half(const Args& a) {
+  return (a.dh + 1) / 2;
+}
+
+// One rotation pair of one row: column jl of the head and jl + half; a pair
+// past the head's last (jl >= half) is not stored, nor a partner past dh.
 template <typename T>
 __device__ __forceinline__ void finish_pair(const Args& a,
                                             const HeadRow<T>& r, int jl,
                                             float v1, float v2) {
-  const int half = a.dh / 2;
+  const int half = pair_half(a);
+  if (jl >= half) return;
+  const bool has2 = jl + half < a.dh;
   float sn = 0.f, cs = 1.f;
   if (r.rot) angle(r.pos, rope_freq(a, jl), sn, cs);
   pair_math<T>(v1, v2, r.add, r.add ? to_f(r.e[jl]) : 0.f,
-               r.add ? to_f(r.e[jl + half]) : 0.f, r.rot, sn, cs);
+               r.add && has2 ? to_f(r.e[jl + half]) : 0.f, r.rot, sn, cs);
   r.out[jl] = from_f<T>(v1);
-  r.out[jl + half] = from_f<T>(v2);
+  if (has2) r.out[jl + half] = from_f<T>(v2);
 }
 
 // What two neighbouring bf16 pairs (jl and jl + 1, jl even) of a row add:
@@ -291,23 +311,62 @@ __device__ __forceinline__ void finish_two(const HeadRow<bf16>& r, int jl,
       __floats2bfloat162_rn(y0, y1);
 }
 
+// 16-pair column blocks a head (the mma and f32 arms' grid)
+__host__ __device__ __forceinline__ int pair_blocks(int dh) {
+  return ((dh + 1) / 2 + 15) / 16;
+}
+
 // The head and the first-half column of the 16 pairs of column block cb.
 __device__ __forceinline__ void block_columns(const Args& a, int cb,
                                               int& head, int& c0) {
-  const int chunks = a.dh / 32;  // 16-pair chunks per head
+  const int chunks = pair_blocks(a.dh);
   head = cb / chunks;
   c0 = (cb % chunks) * 16;
 }
 
 // Local weight row lr (0..31) of a column block: the 16 first-half
-// columns, then their 16 partners.
+// columns, then their 16 partners; -1 where the column does not exist (a
+// pair past the head's last, or the missing partner of an odd dh).
 __device__ __forceinline__ int weight_row(const Args& a, int head, int c0,
                                           int lr) {
-  return head * a.dh + (lr < 16 ? c0 + lr : a.dh / 2 + c0 + lr - 16);
+  const int half = pair_half(a), p = c0 + (lr < 16 ? lr : lr - 16);
+  const int col = lr < 16 ? p : half + p;
+  return p < half && col < a.dh ? head * a.dh + col : -1;
+}
+
+// Rows [r0, r0 + ROWS) x depth [k0, k0 + COLS) of a row-major bf16 matrix
+// with d columns into a shared tile of leading dimension ld, zero where the
+// row does not exist (row(r) < 0) or the depth is past d: 16-byte cp.async
+// copies where the rows start on 16 bytes, else element by element.
+template <int ROWS, int COLS, typename RowOf>
+__device__ __forceinline__ void load_bf16_tile(bf16* sm, int ld,
+                                               const bf16* g, int d, int k0,
+                                               RowOf row) {
+  if ((d & 7) == 0) {
+    for (int c = threadIdx.x; c < ROWS * (COLS / 8); c += kThreads) {
+      const int r = c / (COLS / 8), col = (c % (COLS / 8)) * 8;
+      const int gr = row(r);
+      const bool ok = gr >= 0 && k0 + col < d;
+      tpd_flash::cp_async16(sm + r * ld + col,
+                            g + (ok ? (size_t)gr * d + k0 + col : 0), ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += kThreads) {
+      const int r = i / COLS, col = i % COLS;
+      const int gr = row(r);
+      sm[r * ld + col] = gr >= 0 && k0 + col < d
+                             ? g[(size_t)gr * d + k0 + col]
+                             : __float2bfloat16(0.f);
+    }
+  }
 }
 
 // ------------------------------------------------------------- mma arm
 
+// kWhole: every column block holds 16 whole pairs and the depth whole
+// 64-deep tiles (dh % 32 == 0, d % 64 == 0), so no row or column of a tile
+// is ever missing: the copies run unchecked
+template <bool kWhole>
 __global__ void __launch_bounds__(kThreads)
     rope_qkv_bf16(Args a) {
   __shared__ __align__(16) bf16 hs[kStages][kRows * kLd];
@@ -318,22 +377,32 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* h = static_cast<const bf16*>(a.h);
   const bf16* wt = static_cast<const bf16*>(a.wt);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nk = a.d / kDepth;
+  const int nk = (a.d + kDepth - 1) / kDepth;
 
   auto load = [&](int stage, int kt) {
     const int k0 = kt * kDepth;
-    for (int c = threadIdx.x; c < kRows * (kDepth / 8); c += kThreads) {
-      const int r = c / (kDepth / 8), col = (c % (kDepth / 8)) * 8;
-      const bool ok = m0 + r < M;
-      tpd_flash::cp_async16(&hs[stage][r * kLd + col],
-                            h + (size_t)(ok ? m0 + r : 0) * a.d + k0 + col,
-                            ok);
-    }
-    for (int c = threadIdx.x; c < kCols * (kDepth / 8); c += kThreads) {
-      const int r = c / (kDepth / 8), col = (c % (kDepth / 8)) * 8;
-      tpd_flash::cp_async16(
-          &ws[stage][r * kLd + col],
-          wt + (size_t)weight_row(a, head, c0, r) * a.d + k0 + col, true);
+    if constexpr (kWhole) {
+      for (int c = threadIdx.x; c < kRows * (kDepth / 8); c += kThreads) {
+        const int r = c / (kDepth / 8), col = (c % (kDepth / 8)) * 8;
+        const bool ok = m0 + r < M;
+        tpd_flash::cp_async16(&hs[stage][r * kLd + col],
+                              h + (size_t)(ok ? m0 + r : 0) * a.d + k0 + col,
+                              ok);
+      }
+      for (int c = threadIdx.x; c < kCols * (kDepth / 8); c += kThreads) {
+        const int r = c / (kDepth / 8), col = (c % (kDepth / 8)) * 8;
+        const int wrow = head * a.dh + (r < 16 ? c0 + r : a.dh / 2 + c0 + r
+                                                              - 16);
+        tpd_flash::cp_async16(&ws[stage][r * kLd + col],
+                              wt + (size_t)wrow * a.d + k0 + col, true);
+      }
+    } else {
+      load_bf16_tile<kRows, kDepth>(hs[stage], kLd, h, a.d, k0, [&](int r) {
+        return m0 + r < M ? m0 + r : -1;
+      });
+      load_bf16_tile<kCols, kDepth>(ws[stage], kLd, wt, a.d, k0, [&](int r) {
+        return weight_row(a, head, c0, r);
+      });
     }
   };
 
@@ -394,11 +463,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int k0 = 0; k0 < a.d; k0 += kDepthF) {
     for (int i = threadIdx.x; i < kRows * kDepthF; i += kThreads) {
       const int r = i / kDepthF, c = i % kDepthF;
-      hs[r][c] = m0 + r < M ? h[(size_t)(m0 + r) * a.d + k0 + c] : 0.f;
+      hs[r][c] = m0 + r < M && k0 + c < a.d
+                     ? h[(size_t)(m0 + r) * a.d + k0 + c]
+                     : 0.f;
     }
     for (int i = threadIdx.x; i < kCols * kDepthF; i += kThreads) {
       const int r = i / kDepthF, c = i % kDepthF;
-      ws[r][c] = wt[(size_t)weight_row(a, head, c0, r) * a.d + k0 + c];
+      const int wr = weight_row(a, head, c0, r);
+      ws[r][c] = wr >= 0 && k0 + c < a.d ? wt[(size_t)wr * a.d + k0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -794,7 +866,8 @@ struct SplitLaunch {
 };
 
 int split_prepare(int M, int d, size_t& smem) {
-  if (M > kSplitRows || d > kSplitMaxDepth) return (int)cudaErrorInvalidValue;
+  if (M > kSplitRows || d > kSplitMaxDepth || d % 16)
+    return (int)cudaErrorInvalidValue;
   smem = split_smem(M, d);
   if (smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(
@@ -808,9 +881,9 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 // dtype: 0 f32, 1 bf16 (tpd_flash::DType); arm: enum Arm (the wrapper's
-// _rope_arm picks it and checks the shapes: dh a multiple of 32, d a
-// multiple of 64; split S·T <= kSplitRows and d <= kSplitMaxDepth; wgmma
-// dh 64 or 128).
+// _rope_arm picks it and checks the shapes: split S·T <= kSplitRows, d <=
+// kSplitMaxDepth and a multiple of 16, dh a multiple of kSplitCols; wgmma
+// dh 64 or 128 and d a multiple of 64; mma and f32 any dh and d).
 extern "C" int tpd_fused_rope_qkv(const void* h, const void* wt,
                                   const void* offsets, const void* extra,
                                   const void* on, const void* freqs,
@@ -855,7 +928,7 @@ extern "C" int tpd_fused_rope_qkv(const void* h, const void* wt,
   }
   if (arm == kArmWgmma) {
     CUtensorMap m[2];
-    if ((dh != 64 && dh != 128) || freqs == nullptr ||
+    if ((dh != 64 && dh != 128) || d % 64 || freqs == nullptr ||
         !rope_maps(m, h, wt, M, heads * dh, d))
       return (int)cudaErrorInvalidValue;
     const dim3 grid(heads, (M + kWgRows - 1) / kWgRows);
@@ -873,9 +946,11 @@ extern "C" int tpd_fused_rope_qkv(const void* h, const void* wt,
     TPD_ROPE_WGMMA(2)
 #undef TPD_ROPE_WGMMA
   }
-  dim3 grid(heads * (dh / 32), (M + kRows - 1) / kRows);
-  if (arm == kArmMma)
-    rope_qkv_bf16<<<grid, kThreads, 0, st>>>(a);
+  dim3 grid(heads * pair_blocks(dh), (M + kRows - 1) / kRows);
+  if (arm == kArmMma && dh % 32 == 0 && d % kDepth == 0)
+    rope_qkv_bf16<true><<<grid, kThreads, 0, st>>>(a);
+  else if (arm == kArmMma)
+    rope_qkv_bf16<false><<<grid, kThreads, 0, st>>>(a);
   else if (arm == kArmF32)
     rope_qkv_f32<<<grid, kThreads, 0, st>>>(a);
   else

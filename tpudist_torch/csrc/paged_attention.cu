@@ -16,7 +16,7 @@
 // two arms:
 //
 // - the split walk on the tensor cores (bf16 q over bf16 or int8 pools, head
-//   dim 16, 32, 64 or 128), one launch.  The grid is (slot, kv head, split x
+//   dims that are multiples of 16 up to 128), one launch.  The grid is (slot, kv head, split x
 //   16-row tile of the R query rows): split z owns keys [128 z, 128 z + 128)
 //   of the lane's table, a fixed span the host sizes from the table width
 //   alone (reading the cursors on the host would synchronise it on the
@@ -327,7 +327,11 @@ static cudaError_t launch_split_pool(const AttnArgs& a, int S, float* part,
   switch (a.dh) {
     case 16: return launch_split_t<16, PT>(a, S, part, count, splits, st);
     case 32: return launch_split_t<32, PT>(a, S, part, count, splits, st);
+    case 48: return launch_split_t<48, PT>(a, S, part, count, splits, st);
     case 64: return launch_split_t<64, PT>(a, S, part, count, splits, st);
+    case 80: return launch_split_t<80, PT>(a, S, part, count, splits, st);
+    case 96: return launch_split_t<96, PT>(a, S, part, count, splits, st);
+    case 112: return launch_split_t<112, PT>(a, S, part, count, splits, st);
     case 128: return launch_split_t<128, PT>(a, S, part, count, splits, st);
   }
   return cudaErrorInvalidValue;

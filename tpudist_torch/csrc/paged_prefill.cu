@@ -12,8 +12,8 @@
 // _Paged.commit_quantized.  The wrapper's plan picks one of two arms
 // (tpudist_torch/ops/paged_prefill.py _prefill_plan):
 //
-// - the tensor-core arm (bf16 compute, head dim 16, 32, 64 or 128), one
-//   launch.  An attention CTA per (slot, kv head, tile of 64 query rows)
+// - the tensor-core arm (bf16 compute, head dims that are multiples of 16
+//   up to 128), one launch.  An attention CTA per (slot, kv head, tile of 64 query rows)
 //   of 8 warps: a warp holds 16 rows' Q in registers as mma.sync
 //   A fragments and takes one half of every 64-key K/V tile, so two warps
 //   share each SM sub-partition's tensor core; the halves' (m, l, O) merge
@@ -516,7 +516,11 @@ static cudaError_t launch_pool(const AttnArgs& a, const WriteArgs& w, int S,
   switch (a.dh) {
     case 16: return launch_t<16, PT>(a, w, S, st);
     case 32: return launch_t<32, PT>(a, w, S, st);
+    case 48: return launch_t<48, PT>(a, w, S, st);
     case 64: return launch_t<64, PT>(a, w, S, st);
+    case 80: return launch_t<80, PT>(a, w, S, st);
+    case 96: return launch_t<96, PT>(a, w, S, st);
+    case 112: return launch_t<112, PT>(a, w, S, st);
     case 128: return launch_t<128, PT>(a, w, S, st);
   }
   return cudaErrorInvalidValue;

@@ -97,8 +97,9 @@ __device__ __forceinline__ void load_prefix_tile(bf16* Ks, bf16* Vs,
                                                  int h, int k0, int kend,
                                                  int tid) {
   constexpr int LD = D + 8, CH = D / 8, NC = KEYS * CH;
+  // chunks a thread at most; with NC not a multiple of THREADS (head dims
+  // 48, 80 and 112 on the prefill's 256 threads) the last round is partial
   constexpr int N = (NC + THREADS - 1) / THREADS;
-  static_assert(NC % THREADS == 0 || THREADS % NC == 0, "even chunks");
   const PT* pk = static_cast<const PT*>(a.pool_k);
   const PT* pv = static_cast<const PT*>(a.pool_v);
   size_t off[N];
@@ -122,7 +123,7 @@ __device__ __forceinline__ void load_prefix_tile(bf16* Ks, bf16* Vs,
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     const int c = tid + n * THREADS, r = c / CH, col = (c % CH) * 8;
-    if (c >= NC) break;  // head dim 16 on 256 threads: half of them idle
+    if (c >= NC) break;  // a partial last round, or head dim 16 on 256
     const bool ok = k0 + r < kend;
     pool_chunk<PT>(Ks + r * LD + col, pk + off[n], sk[n], ok);
     pool_chunk<PT>(Vs + r * LD + col, pv + off[n], sv[n], ok);

@@ -73,9 +73,10 @@ def nvcc_command(nvcc: str, name: str, out: Path) -> list:
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every kernel in ``names`` whose library is missing, one
     ``nvcc`` per source, all started together.  Returns ``name → seconds``
-    (0.0 for a library already built); raises with the compiler's output if
-    any build fails.  The compiler's log (``-Xptxas -v``: registers, shared
-    memory, spills) lands beside each library as ``<name>-<hash>.log``."""
+    until that source's ``nvcc`` exited (0.0 for a library already built);
+    raises with the compiler's output if any build fails.  The compiler's
+    log (``-Xptxas -v``: registers, shared memory, spills) lands beside
+    each library as ``<name>-<hash>.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     missing = [n for n in names if not library_path(n).is_file()]
     out = {n: 0.0 for n in names if n not in missing}
@@ -90,13 +91,18 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
                                             stderr=subprocess.STDOUT),
                            time.perf_counter(), tmp, lib)
     failed = []
-    for name, (proc, t0, tmp, lib) in procs.items():
-        rc = proc.wait()
-        out[name] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append((name, lib.with_suffix(".log").read_text()[-4000:]))
-            continue
-        os.replace(tmp, lib)
+    while procs:  # each source's seconds until its own nvcc exits
+        for name, (proc, t0, tmp, lib) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            out[name] = time.perf_counter() - t0
+            del procs[name]
+            if proc.returncode != 0:
+                failed.append((name,
+                               lib.with_suffix(".log").read_text()[-4000:]))
+                continue
+            os.replace(tmp, lib)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {name} ---\n{text}" for name, text in failed))

@@ -6,7 +6,8 @@ tensors :func:`flash_forward`, :func:`flash_backward_dq`,
 :func:`flash_backward_dq_delta` and :func:`flash_backward_dkv` launch the
 hand-written kernels ``csrc/flash_attention.cu`` and
 ``csrc/flash_backward.cu`` (bf16 on the tensor cores, f32 on CUDA-core FMAs;
-head dims 16, 32, 64 and 128; any sequence length); on CPU tensors they run
+every head dim from 1 to :data:`MAX_HEAD_DIM`; any sequence length); on CPU
+tensors they run
 :func:`flash_forward_reference` and :func:`flash_backward_reference`.
 :class:`FlashAttention` ties them into an autograd function with the JAX
 ``custom_vjp``'s residuals and lse cotangent.
@@ -17,7 +18,9 @@ bf16 at head dims 64 and 128 (the forward warp-specialised: a producer
 warpgroup feeding two consumer warpgroups over a TMA ring; the backward's
 dq kernel can also form the delta ``rowsum(out·dout) − dlse`` itself);
 ``mma.sync``
-tiles for bf16 at head dims 16 and 32; CUDA-core FMAs for f32.
+tiles for bf16 at every other head dim (compiled for the padded widths
+:data:`PAD_HEAD_DIMS`, zero past the real head dim); CUDA-core FMAs for
+f32.
 
 Layouts are the JAX package's: q ``[b, h, s, dh]``, k/v ``[b, h_kv, s,
 dh]`` (grouped-query attention natively: ``h_kv`` divides ``h``), lse ``[b,
@@ -35,10 +38,17 @@ from typing import Optional, Tuple
 import torch
 
 from tpudist_torch.ops import _build
+from tpudist_torch.ops.paged_attention import SMEM_LIMIT
 
 _MASK_VALUE = -1e30
 _UNBOUNDED = 1 << 30  # kUnbounded in csrc/flash_common.cuh
-_HEAD_DIMS = (16, 32, 64, 128)  # the kernels' compile-time head dims
+#: the widest head dim the CUDA kernels take (kMaxHeadDim in
+#: csrc/flash_common.cuh); wider ones raise, naming ROADMAP A6f
+MAX_HEAD_DIM = 256
+#: the padded widths the bf16 mma.sync tiles are compiled for
+#: (pad_head_dim in csrc/flash_common.cuh): a head dim runs at the first
+#: that holds it, its columns past the real head dim zero
+PAD_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 
 Band = Tuple[Optional[int], Optional[int]]
 
@@ -218,11 +228,60 @@ def _band_ints(band: Band):
             _UNBOUNDED if hi is None else int(hi))
 
 
+def pad_head_dim(d: int) -> int:
+    """The padded width of the bf16 mma.sync tiles that hold head dim
+    ``d`` (:data:`PAD_HEAD_DIMS`)."""
+    for p in PAD_HEAD_DIMS:
+        if d <= p:
+            return p
+    raise ValueError(f"head_dim {d} is past the flash kernels' "
+                     f"{MAX_HEAD_DIM} (ROADMAP A6f)")
+
+
+def mma_smem(kind: str, d: int) -> int:
+    """Dynamic shared memory of one CTA of the bf16 mma.sync arm of
+    ``kind`` (``"fwd"``, ``"dq"``, ``"dkv"``) at head dim ``d``: the
+    ``[rows][DP + 8]`` bf16 tiles of ``csrc/flash_attention.cu`` and
+    ``csrc/flash_backward.cu`` (forward: a 64-row Q tile and one 64-key K
+    and V tile; dq: Q and dO tiles and double-buffered K/V tiles; dk/dv:
+    64-key K and V tiles, double-buffered 32-row Q and dO tiles and their
+    row scalars)."""
+    ld = pad_head_dim(d) + 8
+    tiles = {"fwd": 64 + 2 * 64, "dq": 2 * 64 + 4 * 64,
+             "dkv": 2 * 64 + 4 * 32}[kind]
+    return tiles * ld * 2 + (4 * 32 * 4 if kind == "dkv" else 0)
+
+
+def f32_smem(kind: str, d: int) -> int:
+    """Dynamic shared memory of one CTA of the f32 arm of ``kind`` at
+    head dim ``d`` (16 query rows, 32-key tiles; rows read across a warp
+    padded to an odd width)."""
+    odd = d | 1
+    floats = {"fwd": 16 * d + 32 * odd + 32 * d + 16 * 32 + 3 * 16,
+              "dq": 2 * 16 * d + 2 * 32 * odd + 16 * 32 + 2 * 16,
+              "dkv": 2 * 32 * odd + 2 * 16 * odd + 2 * 32 * 17
+              + 2 * 16}[kind]
+    return floats * 4
+
+
+def _check_smem(what: str, kind: str, arm: str, d: int) -> None:
+    """Raise before a launch whose CTA of the mma.sync or f32 arm of
+    ``kind`` would need more shared memory at head dim ``d`` than one CTA
+    may use (the wgmma arms take only head dims 64 and 128)."""
+    if arm == "wgmma":
+        return
+    smem = (f32_smem if arm == "f32" else mma_smem)(kind, d)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: head_dim {d} takes {smem} bytes of "
+                         f"shared memory on the {arm} arm, past the "
+                         f"{SMEM_LIMIT} one CTA may use")
+
+
 def _geometry(what: str, q, k, v):
     b, h, h_kv, d = _shapes(q, k, v)
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {d} not in the kernels' "
-                         f"{_HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head_dim {d} is past the kernels' "
+                         f"{MAX_HEAD_DIM} (ROADMAP A6f)")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{what}: q, k, v must share one dtype")
     return b, h, h_kv, d
@@ -250,7 +309,7 @@ def fwd_wgmma_smem(d: int) -> int:
 def _fwd_arm(q) -> str:
     """The arm a CUDA forward call takes: ``wgmma`` for bf16 at head dims
     64 and 128 (warp-specialised, TMA-fed), ``mma`` (mma.sync) for bf16 at
-    16 and 32, ``f32``."""
+    every other head dim, ``f32``."""
     if q.dtype == torch.float32:
         return "f32"
     return "wgmma" if q.shape[-1] in _WGMMA_DIMS else "mma"
@@ -267,6 +326,8 @@ def _launch_fwd(arm: str, q, k, v, band: Band, out_f32: bool = False):
                          f"{_WGMMA_DIMS}, not {q.dtype} at {d}")
     if (arm == "f32") != (q.dtype == torch.float32):
         raise ValueError(f"arm {arm!r} does not take {q.dtype}")
+    _geometry("flash_forward", q, k, v)
+    _check_smem("flash_forward", "fwd", arm, d)
     sq, sk = q.shape[2], k.shape[2]
     f32_out = out_f32 or q.dtype == torch.float32
     out = torch.empty(b, h, sq, d, device=q.device,
@@ -294,12 +355,12 @@ def flash_forward(q, k, v, band: Band, out_f32: bool = False,
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, band, out_f32, block_q)
     _check_cuda("flash_forward", [q, k, v], q.dtype)
-    _geometry("flash_forward", q, k, v)
     return _launch_fwd(_fwd_arm(q), q, k, v, band, out_f32)
 
 
 #: the arm a CUDA backward call takes: the forward's rule (``wgmma`` for
-#: bf16 at head dims 64 and 128, ``mma`` for bf16 at 16 and 32, ``f32``)
+#: bf16 at head dims 64 and 128, ``mma`` for bf16 at every other head dim,
+#: ``f32``)
 _bwd_arm = _fwd_arm
 
 
@@ -323,6 +384,7 @@ def _launch_dq(arm: str, q, k, v, do, lse, delta, band: Band, out=None,
     ``delta`` and uses it.  ``chip_smoke.py`` and the CUDA tests also call
     it to time and hold the bf16 arms on the same inputs."""
     b, h, h_kv, d = _shapes(q, k, v)
+    _check_smem("flash_backward_dq", "dq", arm, d)
     dq = torch.empty_like(q)
     lib = _build.load("flash_backward", _declare_bwd)
     lo, hi = _band_ints(band)
@@ -340,6 +402,7 @@ def _launch_dq(arm: str, q, k, v, do, lse, delta, band: Band, out=None,
 def _launch_dkv(arm: str, q, k, v, do, lse, delta, band: Band):
     """One launch of the dk/dv kernel on ``arm``, as :func:`_launch_dq`."""
     b, h, h_kv, d = _shapes(q, k, v)
+    _check_smem("flash_backward_dkv", "dkv", arm, d)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.load("flash_backward", _declare_bwd)

@@ -27,14 +27,23 @@ ROPE_ARMS = ("f32", "mma", "split", "wgmma")
 ROPE_SPLIT_ROWS, ROPE_SPLIT_KS, ROPE_SPLIT_MAX_D = 64, 8, 8192
 #: output columns a split cluster owns (kSplitCols): half of them rotation
 #: pairs' first halves, half their partners, so the head dim must be a
-#: multiple of it
+#: multiple of it; the split arm also cuts the depth in 16-deep steps, and
+#: the wgmma arm in 64-deep tiles (ROPE_WGMMA_DEPTH)
 ROPE_SPLIT_COLS = 64
+ROPE_SPLIT_STEP, ROPE_WGMMA_DEPTH = 16, 64
 #: the wgmma arm's rows a CTA (kWgRows), its ring stages of 64-deep tiles
 #: (kWgStages) and the head dims it is instantiated for
 ROPE_TILE_ROWS, ROPE_STAGES = 64, 4
 ROPE_WGMMA_HEAD_DIMS = (64, 128)
-#: LoRA ranks the CUDA kernel is instantiated for (``csrc/lora_delta.cu``)
-LORA_RANKS = (1, 2, 4, 8, 16, 32, 64)
+#: the rank widths ``csrc/lora_delta.cu`` is compiled for with the rank
+#: fixed at the width, and the padded widths that take any other rank at
+#: run time: the first that holds it, its columns past the rank zero; a
+#: rank past the widest in chunks of it
+LORA_RANK_WIDTHS = (1, 2, 4, 8, 16, 32, 64)
+LORA_PAD_WIDTHS = (4, 16, 64)
+#: the widest rank the cluster arm takes (its ``[T, r]`` intermediate lives
+#: in 32·r bytes of shared memory); wider ranks take the staged arm
+LORA_CLUSTER_MAX_RANK = 4096
 #: rows a slot up to which ``lora_delta`` takes the cluster arm (decode,
 #: the draft steps, the speculative verify's K + 1); ``csrc/lora_delta.cu``
 #: kDecodeRows
@@ -57,16 +66,28 @@ def _rope_arm(M: int, dh: int, d: int, dtype) -> str:
     head dim ``dh``: ``"f32"`` for float32; for bfloat16 ``"split"`` (the
     depth split over a thread-block cluster, partial sums meeting in
     distributed shared memory) up to :data:`ROPE_SPLIT_ROWS` rows and
-    :data:`ROPE_SPLIT_MAX_D` deep at head dims that are multiples of
-    :data:`ROPE_SPLIT_COLS`, else ``"wgmma"`` (64-row x one-head tiles over
-    a TMA ring) at head dims :data:`ROPE_WGMMA_HEAD_DIMS`, else ``"mma"``
-    (64 x 32 tiles on mma.sync)."""
+    :data:`ROPE_SPLIT_MAX_D` deep (a multiple of :data:`ROPE_SPLIT_STEP`) at
+    head dims that are multiples of :data:`ROPE_SPLIT_COLS`, else
+    ``"wgmma"`` (64-row x one-head tiles over a TMA ring) at head dims
+    :data:`ROPE_WGMMA_HEAD_DIMS` and depths in whole
+    :data:`ROPE_WGMMA_DEPTH` tiles, else ``"mma"`` (64 x 32 tiles on
+    mma.sync: any head dim and depth)."""
     if dtype == torch.float32:
         return "f32"
-    if M <= ROPE_SPLIT_ROWS and d <= ROPE_SPLIT_MAX_D \
-            and dh % ROPE_SPLIT_COLS == 0:
+    if _rope_takes("split", M, dh, d):
         return "split"
-    return "wgmma" if dh in ROPE_WGMMA_HEAD_DIMS else "mma"
+    return "wgmma" if _rope_takes("wgmma", M, dh, d) else "mma"
+
+
+def _rope_takes(arm: str, M: int, dh: int, d: int) -> bool:
+    """Whether bf16 ``arm`` takes ``M`` rows of depth ``d`` at head dim
+    ``dh`` (the mma.sync arm takes every shape)."""
+    if arm == "split":
+        return (M <= ROPE_SPLIT_ROWS and d <= ROPE_SPLIT_MAX_D
+                and d % ROPE_SPLIT_STEP == 0 and dh % ROPE_SPLIT_COLS == 0)
+    if arm == "wgmma":
+        return dh in ROPE_WGMMA_HEAD_DIMS and d % ROPE_WGMMA_DEPTH == 0
+    return arm == "mma"
 
 
 def rope_max_active_clusters(M: int = 8, d: int = 1024,
@@ -99,12 +120,15 @@ def _declare_lora(lib) -> None:
     lib.tpd_lora_max_clusters.restype = i
 
 
-def _lora_arm(T: int) -> str:
-    """``lora_delta``'s CUDA arm for ``T`` rows a slot: ``"cluster"`` (one
-    thread-block cluster a slot splitting the factors, its partial sums
-    meeting in distributed shared memory) up to :data:`LORA_DECODE_ROWS`,
-    ``"staged"`` (A staged through shared memory, 16 rows a CTA) past it."""
-    return "cluster" if T <= LORA_DECODE_ROWS else "staged"
+def _lora_arm(T: int, r: int = 1) -> str:
+    """``lora_delta``'s CUDA arm for ``T`` rows a slot at rank ``r``:
+    ``"cluster"`` (one thread-block cluster a slot splitting the factors,
+    its partial sums meeting in distributed shared memory) up to
+    :data:`LORA_DECODE_ROWS` rows and :data:`LORA_CLUSTER_MAX_RANK`,
+    ``"staged"`` (A staged through shared memory, 16 rows a CTA) past
+    either."""
+    return ("cluster" if T <= LORA_DECODE_ROWS
+            and r <= LORA_CLUSTER_MAX_RANK else "staged")
 
 
 def lora_max_active_clusters(S: int = 8) -> int:
@@ -154,7 +178,9 @@ def fused_rope_qkv(h, w, offsets, extra=None, on=None, *, n_heads: int,
     - ``extra [S, T, dtot]`` — an optional additive delta (the LoRA qkv
       delta), applied before the rotation where ``on [S]`` (int32 or bool)
       is non-zero; ``on=None`` applies it everywhere;
-    - ``rope=False`` skips the rotation.
+    - ``rope=False`` skips the rotation (any head dim; the rotation splits
+      the head dim in halves, so ``rope=True`` takes an even one, as the
+      JAX kernel's rotation does).
 
     Returns ``(q [S, n_heads, T, dh], k [S, n_kv, T, dh], v)``, contiguous,
     in ``h``'s dtype, with q and k rotated.  On CUDA the arm follows
@@ -162,6 +188,9 @@ def fused_rope_qkv(h, w, offsets, extra=None, on=None, *, n_heads: int,
     ``.launches_wgmma`` count the split and wgmma arms."""
     S, T, d, dtot = _check_qkv_args(h, w, offsets, extra, on, n_heads, n_kv,
                                     dh)
+    if rope and dh % 2:
+        raise ValueError(f"the rotation splits a head in halves: an odd head "
+                         f"dim {dh} takes rope=False (ROADMAP A6f)")
     if h.device.type == "cpu":
         return fused_rope_qkv_reference(h, w, offsets, extra, on,
                                         n_heads=n_heads, n_kv=n_kv, dh=dh,
@@ -177,12 +206,6 @@ def fused_rope_qkv(h, w, offsets, extra=None, on=None, *, n_heads: int,
         raise TypeError("offsets must be int32")
     if on is not None and on.dtype not in (torch.int32, torch.bool):
         raise TypeError("on must be int32 or bool")
-    if dh % 32:
-        raise ValueError(f"fused_rope_qkv's CUDA kernel is instantiated for "
-                         f"head dims that are multiples of 32, not {dh}")
-    if d % 64:
-        raise ValueError(f"fused_rope_qkv's CUDA kernel takes d_model a "
-                         f"multiple of 64, not {d}")
     for t in (h, offsets, extra, on, w):
         if t is not None and t.device != h.device:
             raise ValueError(f"tensor on {t.device}, h on {h.device}")
@@ -224,9 +247,7 @@ def _launch_rope(arm: str, h, w, offsets, extra=None, on=None, *,
     S, T, d = h.shape
     M, bf16 = S * T, h.dtype == torch.bfloat16
     if arm not in ROPE_ARMS or (arm == "f32") == bf16 or (
-            arm == "split" and (M > ROPE_SPLIT_ROWS or d > ROPE_SPLIT_MAX_D
-                                or dh % ROPE_SPLIT_COLS)) or (
-            arm == "wgmma" and dh not in ROPE_WGMMA_HEAD_DIMS):
+            bf16 and not _rope_takes(arm, M, dh, d)):
         raise ValueError(f"no fused_rope_qkv arm {arm!r} for {h.dtype}, "
                          f"S·T {M}, d {d}, head dim {dh}")
     wt = w.t()
@@ -332,8 +353,8 @@ def lora_delta(x, pool_a, pool_b, ids, *, layer: int):
     - ``ids [S]`` int32 — per-slot adapter blocks (the sentinel ``B``
       clamps to ``B - 1``; the caller's ``on`` select discards it).
 
-    Returns ``[S, T, d_out]`` in ``x``'s dtype.  On CUDA, ``T`` up to
-    :data:`LORA_DECODE_ROWS` takes the cluster arm (:func:`_lora_arm`;
+    Returns ``[S, T, d_out]`` in ``x``'s dtype.  On CUDA, any rank; ``T``
+    up to :data:`LORA_DECODE_ROWS` takes the cluster arm (:func:`_lora_arm`;
     ``lora_delta.launches_cluster`` counts it), longer ``T`` the staged
     kernel."""
     if x.dim() != 3 or pool_a.dim() != 4 or pool_b.dim() != 4:
@@ -359,15 +380,12 @@ def lora_delta(x, pool_a, pool_b, ids, *, layer: int):
         raise TypeError("the adapter pools must be float32")
     if ids.dtype != torch.int32:
         raise TypeError("ids must be int32")
-    if r not in LORA_RANKS:
-        raise ValueError(f"lora_delta's CUDA kernel is instantiated for "
-                         f"ranks {LORA_RANKS}, not {r}")
     for t in (x, pool_a, pool_b, ids):
         if t.device != x.device:
             raise ValueError(f"tensor on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError("lora_delta takes contiguous tensors")
-    return _launch_lora(_lora_arm(T), x, pool_a, pool_b, ids, layer)
+    return _launch_lora(_lora_arm(T, r), x, pool_a, pool_b, ids, layer)
 
 
 def _launch_lora(arm: str, x, pool_a, pool_b, ids, layer: int):
@@ -377,11 +395,13 @@ def _launch_lora(arm: str, x, pool_a, pool_b, ids, layer: int):
     S, T, d_in = x.shape
     B, r, d_out = pool_a.shape[1], pool_a.shape[3], pool_b.shape[-1]
     if arm not in ("cluster", "staged") or (
-            arm == "cluster" and T > LORA_DECODE_ROWS):
-        raise ValueError(f"no lora_delta arm {arm!r} for T {T}")
+            arm == "cluster" and _lora_arm(T, r) != "cluster"):
+        raise ValueError(f"no lora_delta arm {arm!r} for T {T}, rank {r}")
     out = torch.empty(S, T, d_out, dtype=x.dtype, device=x.device)
     if S * T * d_out == 0:
         return out
+    if r == 0:  # an empty adapter adds nothing
+        return out.zero_()
     lib = _build.load("lora_delta", _declare_lora)
     ptr = _build.ptr
     cluster = arm == "cluster"

@@ -33,7 +33,7 @@ SMEM_LIMIT = 227 * 1024
 #: tile buffers (kBufs) and query rows a CTA (kRows)
 SPLIT_KEYS, TC_KEYS, TC_WARPS, TC_BUFS, TC_ROWS = 128, 16, 4, 2, 16
 #: head dims the split walk is instantiated for
-TC_HEAD_DIMS = (16, 32, 64, 128)
+TC_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: query rows per CTA of the CUDA-core arm (paged_common.cuh kRowsPerCta)
 CC_ROWS = 16
 _ARMS = {"cc": 0, "tc": 1}

@@ -24,8 +24,8 @@ from tpudist_torch.ops.paged_attention import (CC_ROWS, SMEM_LIMIT,
                                                check_paged_inputs)
 
 #: head dims the tensor-core arm is instantiated for (bf16 tiles take
-#: multiples of 16; the flash kernels' set)
-TC_HEAD_DIMS = (16, 32, 64, 128)
+#: multiples of 16, up to 128: the decode's split walk's set)
+TC_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: keys per K/V tile of the tensor-core arm (csrc/paged_prefill.cu kTile)
 #: and its K/V tile buffers (kStages)
 TC_TILE, TC_STAGES = 64, 3
