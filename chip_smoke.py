@@ -149,6 +149,22 @@ order; any failure exits non-zero:
 4f. the same traffic on phase 4c's spec server (greedy lanes equal their
    4e streams or leave them at a near tie of the logits the grammar
    allows) and on phase 4b's adapter server (the grammar gates);
+4g. the JAX package's default serving configuration and its neighbours on
+   phase 4's model and phase 4c's traffic (:func:`serve_arm`): (a) the
+   dense cache, teacher-forced prefill and unfused sampling tail; (b) (a)
+   with the sampling kernel; (c) the gather decode over the paged pool
+   beside the prefill and sampling kernels; (d) phase 4c's spec server on
+   the dense cache, unfused and kernel tail.  Gates: no paged decode
+   launch, no kernel at all on the unfused dense runs, the sampling prep at
+   least once a decode step on (b) and (c), the paged prefill on (c), the
+   residual prep once a spec block on (d)'s kernel half; greedy lanes hold
+   phase 4's streams (bit for bit or a near tie); the sampled lanes of (a)
+   and (b), and of (d)'s halves, byte for byte alike.  (e)
+   (:func:`lanes_path`): ``peek_logits`` on phase 4's kernel engine
+   launches nothing and advances nothing; two lanes exported mid-stream
+   from a (c) engine continue bit for bit in another (c) engine's other
+   slots, and the greedy one in a kernel-arm engine bit for bit or from a
+   near tie;
 5. where the time goes: one admission prefill and one decode block of the
    same model under ``torch.profiler`` (device busy time, idle share, the
    heaviest kernels), on phase 4's engine and on phase 4b's; 5c: one
@@ -707,8 +723,9 @@ def prefill_inputs(torch, dev, gen, pos0, clen, quant, n_kv=HEADS, chunk=P,
 def dense_sdpa(torch, q, pool_k, pool_v, scale_k, scale_v, table, keep_cols,
                fresh_k, fresh_v, layer):
     """(library yardstick) one ``scaled_dot_product_attention`` call over
-    the gathered dense K/V (gathered here, outside the timed call) under
-    the boolean mask ``keep_cols [S, 1, Tq, K]``, as a closure."""
+    the gathered dense K/V (gathered here, outside the timed call, and
+    repeated to every query head under GQA/MQA) under the boolean mask
+    ``keep_cols [S, 1, Tq, K]``, as a closure."""
     import torch.nn.functional as F
 
     from tpudist_torch.ops.paged_attention import _dense_view
@@ -718,6 +735,10 @@ def dense_sdpa(torch, q, pool_k, pool_v, scale_k, scale_v, table, keep_cols,
                    fresh_k], 2)
     v = torch.cat([_dense_view(pool_v, scale_v, rows, layer, q.dtype),
                    fresh_v], 2)
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, 1)
+        v = v.repeat_interleave(group, 1)
     return lambda: F.scaled_dot_product_attention(q, k, v,
                                                   attn_mask=keep_cols)
 
@@ -875,10 +896,18 @@ def paged_head_dim_readings(torch, dev, gen, flush, dh: int,
     for arm in order:
         turns[arm].append(time_ms(torch, lambda: _paged_attention_on_arm(
             arm, *args, layer=3), flush))
+    # the library yardstick of the main table's row 1: SDPA over the
+    # pre-gathered dense view, each lane's prefix and its 4 window columns
+    keep = (torch.arange(M * BS + W, device=dev)[None]
+            < torch.tensor(pos0, device=dev)[:, None])
+    keep[:, M * BS:M * BS + 4] = True
     res["decode"] = dict(
         arm_ms=turns, ms=statistics.mean(turns[planned]),
         plain_ms=time_ms(torch, lambda: paged_attention_reference(
             *args, layer=3), flush),
+        library_ms=time_ms(torch, dense_sdpa(
+            torch, args[0], *args[1:6], keep[:, None, None], args[8],
+            args[9], 3), flush),
         bound=bound(nbytes, flops, H100_BF16_FLOPS))
     ppos = [0, 64, 128, 0, 192, 64, 256, 0]
     clen = [64, 64, 64, 37, 44, 64, 30, 12]
@@ -913,10 +942,19 @@ def paged_head_dim_readings(torch, dev, gen, flush, dh: int,
     for arm in order:
         turns[arm].append(time_ms(torch, lambda: _paged_prefill_on_arm(
             arm, *args, layer=3), flush))
+    # row 2's yardstick: SDPA over each lane's prefix and its causal chunk
+    kpos = torch.arange(M * BS + P, device=dev)
+    keep = torch.where(kpos < M * BS,
+                       kpos < torch.tensor(ppos, device=dev)[:, None, None],
+                       (kpos - M * BS)
+                       <= torch.arange(P, device=dev)[None, :, None])
     res["prefill"] = dict(
         arm_ms=turns, ms=statistics.mean(turns[planned]),
         plain_ms=time_ms(torch, lambda: paged_prefill_reference(
             *args, layer=3), flush),
+        library_ms=time_ms(torch, dense_sdpa(
+            torch, args[0], *args[3:8], keep[:, None], args[1], args[2], 3),
+            flush),
         bound=bound(nbytes, flops, H100_BF16_FLOPS))
     for key in ("decode", "prefill"):
         r = res[key]
@@ -924,7 +962,8 @@ def paged_head_dim_readings(torch, dev, gen, flush, dh: int,
             f"turns ({', '.join(order)}) " + ", ".join(
                 f"{r['arm_ms'][a][order[:i].count(a)]:.4f}"
                 for i, a in enumerate(order))
-            + f" ms (plain {r['plain_ms']:.4f} ms, bound "
+            + f" ms (plain {r['plain_ms']:.4f} ms, SDPA on the gathered "
+            f"dense view {r['library_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.5f} ms by {r['bound'][1]}); max_abs_err "
             + (f"{res['prefill_err']:.3g}" if key == "prefill" else
                f"{res['decode_err_bf16']:.3g} bf16, "
@@ -3253,6 +3292,298 @@ def log_constrained(what: str, r: dict, card: str) -> None:
         f"{r['greedy_lanes_equal']}, near ties {r['near_ties']}")
 
 
+# phase 4g: the JAX package's default serving configuration on the card and
+# its neighbours, each on phase 4's model and phase 4c's traffic (phase 4's
+# requests; SPEC_OFF_LANES greedy with spec off, SAMPLED_LANES at 0.8, the
+# rest greedy): (a) the JAX defaults, the dense cache with the
+# teacher-forced prefill and the unfused tail; (b) (a) with the sampling
+# kernel; (c) the gather decode over the paged pool beside the prefill and
+# sampling kernels; (d) phase 4c's spec server on the dense cache, the
+# unfused and the kernel tail
+DEFAULT_ARMS = {
+    "a": dict(paged=False, attn_kernel="gather", prefill_kernel=False,
+              sample_kernel=False),
+    "b": dict(paged=False, attn_kernel="gather", prefill_kernel=False,
+              sample_kernel=True),
+    "c": dict(paged=True, attn_kernel="gather", prefill_kernel=True,
+              sample_kernel=True),
+    "d unfused": dict(paged=False, attn_kernel="gather",
+                      prefill_kernel=False, sample_kernel=False, spec=True,
+                      spec_k=SPEC_K),
+    "d kernel": dict(paged=False, attn_kernel="gather", prefill_kernel=False,
+                     sample_kernel=True, spec=True, spec_k=SPEC_K),
+}
+# the sampled lanes two runs must draw byte for byte alike
+SAME_DRAWS = (("a", "b"), ("d unfused", "d kernel"))
+
+
+def phase4_traffic(gen_seed: int):
+    """Phase 4's warm-up prompt and 16 requests (the same draws), with
+    phase 4c's temperatures and speculation flags."""
+    import numpy as np
+
+    rng = np.random.default_rng(gen_seed)
+    warm = rng.integers(0, V, size=70)
+    reqs = [(rng.integers(0, V, size=int(rng.integers(1, 301))),
+             int(rng.integers(16, 65))) for _ in range(16)]
+    temps = [0.8 if i in SAMPLED_LANES else 0.0 for i in range(16)]
+    spec_on = [i not in SPEC_OFF_LANES for i in range(16)]
+    return warm, reqs, temps, spec_on
+
+
+def serve_arm(torch, model, knobs: dict, gen_seed: int) -> dict:
+    """One phase 4g run: phase 4's server geometry with ``knobs``, warmed
+    up, then the traffic of :func:`phase4_traffic` with the launch counts
+    zeroed just before it.  Every request must finish ``length``."""
+    from tpudist_torch import ops
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    warm_prompt, reqs, temps, spec_on = phase4_traffic(gen_seed)
+    cfg = ServeConfig(num_slots=SLOTS, queue_limit=64, max_new=64,
+                      prefill_pad=P, decode_block=8, kv_block=BS, **knobs)
+    server = InferenceServer(model, cfg, device="cuda").start()
+    eng = server.engine
+    try:
+        warm = server.submit(warm_prompt, max_new=9)
+        if not warm.wait(600) or warm.finish_reason != "length":
+            raise AssertionError("warm-up request did not finish")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        before = dict(eng.decode_stats(), spec_blocks=eng.n_spec_blocks)
+        t0 = time.perf_counter()
+        handles = [server.submit(p, max_new=n, temperature=t, seed=i,
+                                 spec=sp)
+                   for i, ((p, n), t, sp) in enumerate(
+                       zip(reqs, temps, spec_on))]
+        for h in handles:
+            if not h.wait(900):
+                raise AssertionError("request timed out")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        stats = server.stats()
+    finally:
+        server.close(60)
+    for h, (_, n) in zip(handles, reqs):
+        if h.finish_reason != "length" or len(h.tokens) != n:
+            raise AssertionError(f"request {h.id}: {h.finish_reason}, "
+                                 f"{len(h.tokens)}/{n} tokens")
+    dec = stats["decode"]
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(
+        knobs=knobs, requests=len(handles), tokens=tokens, wall_s=wall,
+        tokens_per_s=tokens / wall,
+        ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
+        tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
+        launches=counts, steps=dec["steps"] - before["steps"],
+        spec_blocks=eng.n_spec_blocks - before["spec_blocks"],
+        kv=stats["kv"], prompts=[p for p, _ in reqs], temps=temps,
+        streams=[h.tokens for h in handles])
+
+
+def hold_default_arms(torch, model, runs: dict, base: dict) -> dict:
+    """Phase 4g's gates over :func:`serve_arm`'s runs: no paged decode
+    launch on any arm; the unfused runs launch no kernel at all; the
+    sampling prep at least once a decode step where it is on; the paged
+    prefill on (c); the residual prep once a spec block on (d)'s kernel
+    half (none on the other); greedy lanes hold phase 4's streams
+    (:func:`hold_greedy_streams`); the sampled lanes of (a) and (b), and of
+    the two halves of (d), byte for byte alike.  Returns the lanes held
+    equal and the near ties, by run."""
+    held = {}
+    for name, r in runs.items():
+        n = r["launches"]
+        if n["paged_attention"]:
+            raise AssertionError(f"phase 4g {name}: {n['paged_attention']} "
+                                 "paged decode launches on a gather arm")
+        kern = r["knobs"]["sample_kernel"]
+        if not kern and any(n.values()):
+            raise AssertionError(f"phase 4g {name}: kernels launched on the "
+                                 f"unfused dense arm: {n}")
+        if kern and n["fused_sample"] < r["steps"]:
+            raise AssertionError(
+                f"phase 4g {name}: fused_sample_prep launched "
+                f"{n['fused_sample']} times in {r['steps']} decode steps")
+        if r["knobs"]["prefill_kernel"] != (n["paged_prefill"] > 0):
+            raise AssertionError(f"phase 4g {name}: paged prefill launches "
+                                 f"{n['paged_prefill']}")
+        if r["knobs"].get("spec"):
+            if r["spec_blocks"] < 1:
+                raise AssertionError(f"phase 4g {name}: no spec block ran")
+            if n["fused_residual_prep"] != (r["spec_blocks"] if kern
+                                            else 0):
+                raise AssertionError(
+                    f"phase 4g {name}: fused_residual_prep launched "
+                    f"{n['fused_residual_prep']} times in "
+                    f"{r['spec_blocks']} spec blocks")
+        greedy = [i for i, t in enumerate(r["temps"]) if t == 0.0]
+        held[name] = hold_greedy_streams(torch, model, r["prompts"],
+                                         r["streams"], base["streams"],
+                                         greedy)
+    for x, y in SAME_DRAWS:
+        for i in SAMPLED_LANES:
+            if runs[x]["streams"][i] != runs[y]["streams"][i]:
+                raise AssertionError(f"phase 4g: sampled lane {i} draws "
+                                     f"otherwise on {x} and {y}")
+    return held
+
+
+def adopt_lane(src, slot: int, dst, dslot: int) -> None:
+    """Export ``slot`` of engine ``src`` (``export_lane``) and install it in
+    free ``dslot`` of engine ``dst`` (``import_lane``; a paged ``dst``
+    reserves the lane's footprint first) with the host shadows the
+    continuation needs."""
+    import numpy as np
+
+    lane, row = src.fns.export_lane(src.state, src.cache, slot)
+    if dst.alloc is not None:
+        got, _ = dst.alloc.admit(dslot, int(src.pos[slot]),
+                                 int(src.budget[slot]), ())
+        table = np.full(dst.max_len // dst.paged_cfg.block_size,
+                        dst.paged_cfg.num_blocks, np.int32)
+        table[:len(got)] = got
+        dst.state, dst.cache = dst.fns.import_lane(
+            dst.state, dst.cache, dslot, dst._t(table), lane, row)
+    else:
+        dst.state, dst.cache = dst.fns.import_lane(dst.state, dst.cache,
+                                                   dslot, lane, row)
+    dst.occupied[dslot] = dst.decoding[dslot] = True
+    for name in ("pos", "counts", "budget", "temps"):
+        getattr(dst, name)[dslot] = getattr(src, name)[slot]
+
+
+def finish_lanes(eng, out: dict) -> dict:
+    """Decode every lane of ``eng`` to its budget, appending to ``out``."""
+    while eng.num_active:
+        for s, toks in eng.decode_block()[1].items():
+            out.setdefault(s, []).extend(toks)
+            if eng.counts[s] >= eng.budget[s]:
+                eng.evict(s)
+    return out
+
+
+def lanes_path(torch, model, gen_seed: int, base: dict) -> dict:
+    """Phase 4g (e).  ``peek_logits`` on phase 4's kernel engine (8 of
+    phase 4's requests prefilled and decoded one block): no kernel
+    launches, nothing advances, and each greedy lane's next token is the
+    peek's arg-max or within ``NEAR_TIE_GAP`` of it (the peek reads the
+    gather view, the step the kernel).  Then two lanes (one greedy, one at
+    0.8) exported mid-stream from an engine of (c)'s arms and imported into
+    another (c) engine, in another slot, which must continue both streams
+    bit for bit, and into a kernel-arm engine, whose greedy lane must
+    continue bit for bit or leave first at a near tie."""
+    from tpudist_torch import ops
+    from tpudist_torch.serve import SlotEngine
+
+    _, reqs, _, _ = phase4_traffic(gen_seed)
+    geo = dict(num_slots=SLOTS, prefill_pad=P, decode_block=8, kv_block=BS,
+               device="cuda")
+    gather = dict(attn_kernel="gather", prefill_kernel=True)
+
+    def admit(eng, temps):
+        """Phase 4's first 8 prompts (48 new tokens each), prefilled and
+        decoded two blocks → the tokens so far, by slot."""
+        out = {i: [] for i in range(SLOTS)}
+        firsts = eng.start_batch([(i, reqs[i][0], temps[i], i, 48)
+                                  for i in range(SLOTS)])
+        while eng.prefilling_slots():
+            firsts.update(eng.advance_prefill())
+        for s, tok in firsts.items():
+            out[s].append(tok)
+        for _ in range(2):
+            for s, toks in eng.decode_block()[1].items():
+                out[s].extend(toks)
+        return out
+
+    kern = SlotEngine(model, **geo)
+    admit(kern, [0.0] * SLOTS)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = [t.clone() for t in kern.state] + [kern.cache.cursor.clone()]
+    peek = kern.fns.peek_logits(kern.state, kern.cache)
+    torch.cuda.synchronize()
+    peek_launches = ops.launch_counts()
+    if any(peek_launches.values()):
+        raise AssertionError(f"peek_logits launched kernels: "
+                             f"{peek_launches}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            before, list(kern.state) + [kern.cache.cursor])):
+        raise AssertionError("peek_logits advanced the engine")
+    nxt = kern.decode_block(max_k=1)[1]
+    top = peek.float().topk(2)
+    peek_gaps = []
+    for s, toks in nxt.items():
+        gap = float(top.values[s, 0] - top.values[s, 1])
+        if toks[0] != int(top.indices[s, 0]):
+            peek_gaps.append((s, gap))
+            if gap > NEAR_TIE_GAP:
+                raise AssertionError(f"lane {s}: peek's arg-max "
+                                     f"{int(top.indices[s, 0])} is not the "
+                                     f"next token {toks[0]} (gap {gap:.4f})")
+    del kern
+    temps = [0.8 if i == 1 else 0.0 for i in range(SLOTS)]
+    src = SlotEngine(model, **geo, **gather)
+    pre = admit(src, temps)
+    twin = SlotEngine(model, **geo, **gather)
+    kdst = SlotEngine(model, **geo)
+    moved = {0: 5, 1: 6}
+    for slot, dslot in moved.items():
+        adopt_lane(src, slot, twin, dslot)
+        adopt_lane(src, slot, kdst, dslot)
+    t0 = time.perf_counter()
+    unbroken = finish_lanes(src, {})
+    twin_out, kdst_out = finish_lanes(twin, {}), finish_lanes(kdst, {})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for slot, dslot in moved.items():
+        if twin_out[dslot] != unbroken[slot]:
+            raise AssertionError(f"lane {slot} imported into another engine "
+                                 "of its arms does not continue its stream")
+    g = 0
+    equal_kernel = {slot: kdst_out[dslot] == unbroken[slot]
+                    for slot, dslot in moved.items()}
+    ties = []
+    if not equal_kernel[g]:
+        full = pre[g] + unbroken[g]
+        got = pre[g] + kdst_out[moved[g]]
+        j, gap = near_tie_gap(torch, model, reqs[g][0], got, full)
+        ties.append((g, j, gap))
+        if gap > NEAR_TIE_GAP:
+            raise AssertionError(f"greedy lane {g} imported into the kernel "
+                                 f"arm leaves its stream at token {j} "
+                                 f"(gap {gap:.5f})")
+    for e in (src, twin, kdst):
+        if e.alloc.free_blocks != e.alloc.num_blocks:
+            raise AssertionError("a lane's blocks were not released")
+    return dict(peek_launches=peek_launches, peek_gaps=peek_gaps,
+                exported_at=[len(pre[s]) for s in moved],
+                continued_tokens=[len(unbroken[s]) for s in moved],
+                twin_equal=True, kernel_equal=equal_kernel,
+                kernel_near_ties=ties, continuation_wall_s=wall)
+
+
+def log_default_arms(runs: dict, held: dict, base: dict, lanes: dict,
+                     card: str) -> None:
+    for name, r in runs.items():
+        equal, ties = held[name]
+        knobs = ", ".join(f"{k}={v}" for k, v in r["knobs"].items())
+        log(f"phase 4g {name} ({knobs}): "
+            f"{r['requests']} requests, {r['tokens']} tokens in "
+            f"{r['wall_s']:.3f} s = {r['tokens_per_s']:.1f} tokens/s, TTFT "
+            f"p50 {r['ttft_p50_ms']:.2f} ms, TPOT p50 {r['tpot_p50_ms']:.3f} "
+            f"ms ({card}); phase 4 {base['tokens_per_s']:.1f} tokens/s, "
+            f"TTFT p50 {base['ttft_p50_ms']:.2f} ms, TPOT p50 "
+            f"{base['tpot_p50_ms']:.3f} ms; {r['steps']} decode steps, "
+            f"{r['spec_blocks']} spec blocks, launches {r['launches']}; "
+            f"greedy lanes equal to phase 4's {equal}, near ties {ties}")
+    log(f"phase 4g e: peek_logits launches {lanes['peek_launches']}, lanes "
+        f"off the peek's arg-max at near ties {lanes['peek_gaps']}; lanes "
+        f"exported after {lanes['exported_at']} tokens continue "
+        f"{lanes['continued_tokens']} tokens bit for bit in another (c) "
+        f"engine; in the kernel arm equal {lanes['kernel_equal']}, near ties "
+        f"{lanes['kernel_near_ties']}")
+
+
 def device_profile(torch, fn, prep):
     """``fn`` timed plain (host clock to a synchronize, after ``prep``) and
     once under ``torch.profiler`` for the device's kernel time; the idle
@@ -4490,6 +4821,12 @@ def main(argv=None) -> int:
     log_constrained("phase 4f, the same on the adapter server (fused_rope, "
                     "4 adapters)", constrained_ad, card)
 
+    default_runs = {name: serve_arm(torch, model, knobs, 7)
+                    for name, knobs in DEFAULT_ARMS.items()}
+    default_held = hold_default_arms(torch, model, default_runs, main_path)
+    lanes = lanes_path(torch, model, 7, main_path)
+    log_default_arms(default_runs, default_held, main_path, lanes, card)
+
     prof = profile_engine(torch, model)
     prof.update({f"adapter {k}": v for k, v in profile_engine(
         torch, model, adapter_factors(torch, model)).items()})
@@ -4715,6 +5052,11 @@ def main(argv=None) -> int:
                                               t.get("linear_ms")),
                              bound_ms=t["bound"][0], bound_by=t["bound"][1])
                 for k, t in shapes.items()}
+        # phase 4g's launches by run (the JAX defaults and their
+        # neighbours: the dense and gather arms launch no paged decode)
+        kernels[-1]["phase4g"] = {
+            run: int(r["launches"][name])
+            for run, r in default_runs.items() if name in r["launches"]}
         kernels[-1]["phase16"] = {
             ph: (p["train"]["launches"].get(name)
                  or p["serve"]["arms"].get(name))
@@ -4738,6 +5080,10 @@ def main(argv=None) -> int:
                   constrained_path=constrained,
                   constrained_spec_path=constrained_spec,
                   constrained_adapter_path=constrained_ad,
+                  default_arms={name: {k: v for k, v in r.items()
+                                       if k not in ("prompts", "streams")}
+                                for name, r in default_runs.items()},
+                  default_arms_held=default_held, lanes=lanes,
                   verify_kernel=rec["paged_attention"]["verify"],
                   fused_linear=lin_info,
                   profile=prof, flash_fwd_bwd=flash_fwd_bwd, train=train,

@@ -17,6 +17,9 @@ against the JAX package on the CPU.
 - a sampled stream is the same alone and beside neighbours.
 """
 
+import dataclasses
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -387,16 +390,30 @@ def _drive_items(eng, items):
 
 
 def test_engine_knob_validation(rope_models):
-    """Every engine path outside the ported slices raises
-    NotImplementedError naming its ROADMAP item; the fused RoPE+QKV arm
-    (the adapter-serving slice) and the tied-draft speculative engine (the
-    speculative-decoding slice) build."""
-    _, model = rope_models
+    """The JAX engine's arms outside the kernel configuration build and
+    serve a request (the dense cache, the gather decode, the teacher-forced
+    prefill, the unfused sampling tail) with the stream ``generate()``
+    gives; the serving mesh still raises NotImplementedError naming its
+    ROADMAP item; the kernel arms raise without a pool, as the JAX
+    engine's do; the fused RoPE+QKV arm and the tied-draft speculative
+    engine build."""
+    (jmod, jparams), model = rope_models
+    prompt, max_new = _prompt(11, 5), 5
+    want = np.asarray(jax_generate(jmod, jparams, jnp.asarray(prompt)[None],
+                                   max_new))[0, len(prompt):].tolist()
     for kw in (dict(paged=False), dict(attn_kernel="gather"),
-               dict(prefill_kernel=False), dict(sample_kernel=False),
-               dict(mesh="1x2")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlotEngine(model, num_slots=2, kv_block=4, device="cpu", **kw)
+               dict(prefill_kernel=False), dict(sample_kernel=False)):
+        eng = SlotEngine(model, num_slots=2, prefill_pad=8, kv_block=4,
+                         device="cpu", **kw)
+        assert _drive_items(eng, [(1, prompt, 0.0, 0, max_new)]) == {
+            1: want}, kw
+        assert eng.kv_stats()["paged"] is kw.get("paged", True)
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        SlotEngine(model, num_slots=2, kv_block=4, device="cpu",
+                   mesh="1x2")
+    for kw in (dict(attn_kernel="paged"), dict(prefill_kernel=True)):
+        with pytest.raises(ValueError, match="requires paged=True"):
+            SlotEngine(model, num_slots=2, device="cpu", paged=False, **kw)
     eng = SlotEngine(model, num_slots=2, kv_block=4, device="cpu",
                      fused_rope=True)
     assert eng.kv_stats()["fused_rope"] is True
@@ -483,7 +500,7 @@ def test_serve_config_from_env(monkeypatch):
     monkeypatch.setenv("TPUDIST_SERVE_ATTN_KERNEL", "gather")
     cfg = ServeConfig.from_env()
     assert cfg.kv_int8 and cfg.num_slots == 8 and cfg.paged
-    assert cfg.attn_kernel == "gather"  # the engine refuses it loudly
+    assert cfg.attn_kernel == "gather"  # the gather decode on the pool
 
 
 # the JAX ServeConfig.from_env variables with no port yet, and the
@@ -542,6 +559,41 @@ def test_serve_config_from_env_without_unported_knobs(monkeypatch):
         r"TPUDIST_SERVE_(\w+)", inspect.getsource(obj)))
     assert (names(jax_server) - names(ServeConfig.from_env)
             == set(UNPORTED_ENV))
+
+
+@pytest.mark.parametrize("env,want", [
+    ({"TPUDIST_SERVE_PAGED": "0"},
+     dict(paged=False, attn_kernel="gather", prefill_kernel=False)),
+    ({"TPUDIST_SERVE_ATTN_KERNEL": "gather"},
+     dict(paged=True, attn_kernel="gather", prefill_kernel=True)),
+    ({"TPUDIST_SERVE_PREFILL_KERNEL": "0"},
+     dict(paged=True, attn_kernel="paged", prefill_kernel=False)),
+    ({"TPUDIST_SERVE_SAMPLE_KERNEL": "0"},
+     dict(paged=True, attn_kernel="paged", sample_kernel=False))],
+    ids=["paged", "attn_kernel", "prefill_kernel", "sample_kernel"])
+def test_server_from_env_on_the_jax_default_knobs(rope_models, monkeypatch,
+                                                  env, want):
+    """Each knob the JAX server defaults off starts the port's server from
+    ``ServeConfig.from_env()`` and serves; ``PAGED=0`` alone takes the
+    dense arms, as the JAX server's defaults are."""
+    (jmod, jparams), model = rope_models
+    for name in [n for n in os.environ if n.startswith("TPUDIST_SERVE_")]:
+        monkeypatch.delenv(name)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    cfg = ServeConfig.from_env()
+    assert {k: getattr(cfg, k) for k in want} == want
+    cfg = dataclasses.replace(cfg, max_new=4, **ENGINE_KW)
+    server = InferenceServer(model, cfg, device="cpu").start()
+    try:
+        h = server.submit(_prompt(10, 3), max_new=4)
+        assert h.wait(60) and h.finish_reason == "length"
+    finally:
+        server.close()
+    ref = jax_generate(jmod, jparams, jnp.asarray(_prompt(10, 3))[None], 4)
+    assert h.tokens == np.asarray(ref)[0, 10:].tolist()
+    kv = server.stats()["kv"]
+    assert {k: kv[k] for k in want} == want
 
 
 @pytest.mark.parametrize("key,value,item", [

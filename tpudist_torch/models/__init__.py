@@ -1,13 +1,15 @@
 """The port's model family: :class:`TransformerLM` and its LM losses and
-tied draft, its paged KV storage, the adapter pool and the slot-decode
-programs of the serving engine; and the toy MLP of the ``demo.py`` path."""
+tied draft, its paged and dense KV storage, the adapter pool and the
+slot-decode programs of the serving engine; and the toy MLP of the
+``demo.py`` path."""
 
 from tpudist_torch.models.convert import (adapter_factors_from_jax,
                                           params_from_flax,
                                           toy_params_from_flax)
-from tpudist_torch.models.generate import (CacheFullError, SlotDecode,
-                                           SlotState, filter_logits,
-                                           generate, make_slot_decode,
+from tpudist_torch.models.generate import (CacheFullError, DenseKV,
+                                           SlotDecode, SlotState,
+                                           filter_logits, generate,
+                                           make_slot_decode,
                                            sample_logits, spec_accept)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig
 from tpudist_torch.models.transformer import (TransformerLM,
@@ -18,7 +20,7 @@ from tpudist_torch.models.transformer import (TransformerLM,
 from tpudist_torch.models.toy_mlp import ToyMLP, create_toy_model
 
 __all__ = [
-    "CacheFullError", "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "ToyMLP",
+    "CacheFullError", "DenseKV", "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "ToyMLP",
     "TransformerLM", "adapter_factors_from_jax", "create_toy_model",
     "create_transformer", "filter_logits", "generate", "lm_loss",
     "lm_loss_with_targets", "make_slot_decode", "params_from_flax",

@@ -1,49 +1,60 @@
 """Decoding — the counterpart of :mod:`tpudist.models.generate`: the
 sequential dense-cache :func:`generate` (the LM entry point's
-``--generate``), and the slot-decode programs of the serving engine, the
-paged-kernel subset of :func:`tpudist.models.generate.make_slot_decode`.
+``--generate``), and the slot-decode programs of the serving engine,
+:func:`make_slot_decode` with every arm of the JAX one.
 
 :func:`generate` runs the model one token at a time over a dense KV cache
 (:class:`~tpudist_torch.models.transformer.DenseDecode`), teacher-forcing
 the prompt and then sampling with :func:`sample_logits` (greedy arg-max at
 temperature 0; else top-k/top-p filtered draws from an explicit
-``torch.Generator``).  Like the JAX dense path it runs no kernel.  The slot
-engine's own gather and dense paths stay unported (ROADMAP queue A, item
-A5).
+``torch.Generator``).  Like the JAX dense path it runs no kernel.
 
-``num_slots`` KV lanes over one paged pool plus a per-slot
-:class:`SlotState` on the device.  Every program runs fixed-shape over all
-slots: idle lanes compute too, and the ``active`` mask keeps them from
-advancing or writing.  The attention arms are the paged decode kernel (a
-K-step decode block with in-loop token feedback, its tokens held in window
-buffers and committed once per block) and the paged prefill kernel (one
-batched call per admission batch; a chunk extend runs the same program
-with a one-hot batch).  With ``fused_rope`` the QKV projection and the
-rotation run as one kernel; with ``adapters`` every forward reads each
-lane's LoRA factors from the adapter pool through its ``SlotState.
-adapter_id``.  Sampling goes through the fused sampling kernel:
-greedy arg-max where ``temp <= 0``, else a categorical draw from a
-per-request stream keyed by ``(seed, count)`` — independent of the slot,
-the neighbours and the block size.
+The slot programs keep ``num_slots`` KV lanes plus a per-slot
+:class:`SlotState` on the device, over a paged pool (:class:`PagedKV`) or
+the dense slot cache (:class:`DenseKV`, ``paged=None``).  Every program
+runs fixed-shape over all slots: idle lanes compute too, and the
+``active`` mask keeps them from advancing or writing.  The arms:
+
+- decode: the paged decode kernel (``attn_kernel="paged"``: a K-step
+  block with in-loop token feedback, its tokens held in window buffers and
+  committed once per block), or a dense view
+  (:class:`~tpudist_torch.models.transformer.SlotDense`) — the dense cache
+  itself, or on a paged pool its gather through the block tables
+  (``"gather"``), whose touched blocks are committed back after the block;
+- prefill: the paged prefill kernel (``prefill_kernel``: one batched call
+  per admission batch; a chunk extend runs the same program with a one-hot
+  batch), or the teacher-forced prefill: ONE causal forward of the chunk
+  over a dense view, the rows past its length writing nothing (the JAX
+  package scans single-token steps; one forward streams the weights once
+  and computes the same function);
+- sampling: the fused sampling kernel (``sample_kernel``), or the unfused
+  tail, its plain formulas in tensor ops — the same masked row, arg-max
+  and IEEE division by ``max(t, 1e-6)``, so both tails draw the same
+  streams; greedy arg-max where ``temp <= 0``, else a categorical draw from
+  a per-request stream keyed by ``(seed, count)`` — independent of the
+  slot, the neighbours and the block size.
+
+With ``fused_rope`` the kernel arms' QKV projection and rotation run as one
+kernel; with ``adapters`` every forward reads each lane's LoRA factors
+from the adapter pool through its ``SlotState.adapter_id`` (the kernel
+arms through the LoRA gather-matmul kernel, the dense views as
+pre-gathered factors).
 
 Speculative decoding (``spec=`` a draft :class:`~tpudist_torch.models.
 TransformerLM`, usually :func:`~tpudist_torch.models.tied_draft`) adds the
-JAX package's draft programs beside these: the draft keeps its own
-unquantized pool at the target pool's block geometry (same block ids, so
+JAX package's draft programs beside these: the draft keeps its own KV (on a
+paged engine an unquantized pool at the target pool's block geometry, so
 the host allocator, prefix reuse and evict free-lists are shared) in cursor
 lockstep with the target; ``draft_propose`` runs ``K + 1`` draft decode
 steps with in-loop token feedback, and ``spec_verify`` scores the whole
-``[last, d_1..d_K]`` window in ONE target pass through the paged decode
-kernel (``s = K + 1`` queries a lane), accepts the leading prefix
-(:func:`spec_accept`, the residual prep kernel for sampled lanes), commits
-the window and rolls both cursors back to ``pos0 + emitted``.  Rejected K/V
+``[last, d_1..d_K]`` window in ONE target pass (``s = K + 1`` queries a
+lane), accepts the leading prefix (:func:`spec_accept`), commits the
+window and rolls both cursors back to ``pos0 + emitted``.  Rejected K/V
 past a cursor is masked garbage that the next window overwrites.  The JAX
-package runs its draft on the dense gather view; the port has no gather
-path, so the draft runs on the target's kernel arms (paged prefill, paged
-decode, fused RoPE+QKV and the LoRA kernel when on), and a plain block is
-teacher-forced through the draft in one ``s = K`` window pass.  That moves
-only the draft's rounding, never the output: the target verify is the
-oracle.
+package runs its draft on the dense gather view; the port's draft runs on
+the target's arms, and a plain block is teacher-forced through the draft
+in one ``s = K`` window pass.  That moves only the draft's rounding, never
+the output: the target verify is the oracle.
 """
 
 from __future__ import annotations
@@ -54,11 +65,14 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from tpudist_torch.models.lora import (AdapterPool, AdapterPoolConfig,
-                                      pool_collection)
+                                      gather_collection, pool_collection)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig, _Paged
 from tpudist_torch.models.transformer import (CacheFullError, DenseDecode,
-                                              PagedDecode, PagedPrefill)
+                                              PagedDecode, PagedPrefill,
+                                              SlotDense)
 from tpudist_torch.ops import fused_residual_prep, fused_sample_prep
+from tpudist_torch.ops.fused_sample import (fused_residual_reference,
+                                            fused_sample_reference)
 
 def filter_logits(logits: torch.Tensor, *, temperature: float = 1.0,
                   top_k: Optional[int] = None,
@@ -184,7 +198,7 @@ def sample_tail(logits: torch.Tensor, seeds: torch.Tensor,
                 temps: torch.Tensor, counts: torch.Tensor,
                 sampled: Optional[bool] = None, stream: int = 0,
                 gpool=None, gidx: Optional[torch.Tensor] = None,
-                gstate: Optional[torch.Tensor] = None):
+                gstate: Optional[torch.Tensor] = None, kernel: bool = True):
     """Per-slot next tokens from ``logits [S, V]`` f32 — the JAX
     ``_sample_tail``: the fused kernel masks each row by its grammar row
     (``gpool = (gallow [G+1, S_max, V] bool, gnext)`` at ``gidx`` /
@@ -193,14 +207,18 @@ def sample_tail(logits: torch.Tensor, seeds: torch.Tensor,
     Gumbel-max draw ``argmax(scaled + g)`` runs on the kernel's ``scaled``
     (the masked row over the temperature), ``g`` from
     :func:`philox_uniform` on substream ``stream``, so a forbidden token is
-    neither pick.  ``sampled=False`` promises no lane has ``temp > 0``
-    (skips the noise); ``None`` checks.  Returns ``(toks [S] int32, masked
-    [S, V] f32)``; ``masked`` feeds :func:`top_logprobs`."""
+    neither pick.  ``kernel=False`` is the unfused tail (the JAX ``_gmask``
+    + ``_slot_sample``): the same three values from the kernel's plain
+    formulas in tensor ops on the logits' device — the division by a
+    tensor, as the kernel's, so both tails draw the same tokens.
+    ``sampled=False`` promises no lane has ``temp > 0`` (skips the noise);
+    ``None`` checks.  Returns ``(toks [S] int32, masked [S, V] f32)``;
+    ``masked`` feeds :func:`top_logprobs`."""
+    prep = fused_sample_prep if kernel else fused_sample_reference
     if gpool is None:
-        masked, scaled, greedy = fused_sample_prep(logits, temps)
+        masked, scaled, greedy = prep(logits, temps)
     else:
-        masked, scaled, greedy = fused_sample_prep(logits, temps, gpool[0],
-                                                   gidx, gstate)
+        masked, scaled, greedy = prep(logits, temps, gpool[0], gidx, gstate)
     if sampled is None:
         sampled = bool((temps > 0).any())
     if not sampled:
@@ -262,7 +280,7 @@ def spec_accept(state: SlotState, logits: torch.Tensor,
                 drafts: torch.Tensor, dlogits: torch.Tensor,
                 spec_on: torch.Tensor, rem: torch.Tensor,
                 sampled: Optional[bool] = None,
-                tok_ok: Optional[torch.Tensor] = None):
+                tok_ok: Optional[torch.Tensor] = None, kernel: bool = True):
     """Leading-prefix acceptance over a verify window, the correction /
     bonus token and the per-lane budget clamp — the JAX ``_accept``.
 
@@ -278,7 +296,10 @@ def spec_accept(state: SlotState, logits: torch.Tensor,
     draft — the bonus row, or row 0 of a spec-off lane — draws on substream
     0 through :func:`sample_tail`, as the non-speculative engine does at the
     same count.  The emitted count is clamped to ``rem``; a clamped lane's
-    last token is its last accepted draft.
+    last token is its last accepted draft.  ``kernel=False`` runs both
+    preps unfused (the JAX ``_accept``'s own formulas: ``softmax(l / t)``
+    of both, ``log(max(pt - pd, 0) + 1e-30)`` or ``lt / t`` where the
+    residual is empty).
 
     On a constrained engine ``logits`` are the verify rows masked along
     each lane's automaton trajectory (:func:`spec_verify`'s), and ``tok_ok
@@ -306,8 +327,9 @@ def spec_accept(state: SlotState, logits: torch.Tensor,
     # the arg-max rows of greedy lanes and the plain draws of sampled ones
     rows = sample_tail(logits.reshape(S * k1, V), per_row(state.seeds, k1),
                        per_row(state.temps, k1), call.reshape(-1),
-                       sampled)[0].reshape(S, k1).long()
-    pt, pd, res_logits = fused_residual_prep(
+                       sampled, kernel=kernel)[0].reshape(S, k1).long()
+    prep = fused_residual_prep if kernel else fused_residual_reference
+    pt, pd, res_logits = prep(
         logits[:, :k].contiguous(), dlogits.transpose(0, 1).contiguous(),
         state.temps)
     acc = d == rows[:, :k]
@@ -369,6 +391,17 @@ def _trajectory_mask(gpool, state: SlotState, logits: torch.Tensor,
     return masked, torch.stack(oks, 1)
 
 
+class DenseKV(NamedTuple):
+    """The dense slot cache (``make_slot_decode(paged=None)``): ``k``/``v``
+    ``[L, S, n_kv, max_len, dh]`` in the compute dtype, every slot owning
+    ``max_len`` positions, and ``cursor [S]`` int32, each lane's filled
+    length (the JAX cache's per-lane ``idx``).  Updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    cursor: torch.Tensor
+
+
 class SlotDecode(NamedTuple):
     """The slot-decode programs (see :func:`make_slot_decode`)."""
 
@@ -380,8 +413,14 @@ class SlotDecode(NamedTuple):
     prefill_extend: Callable
     decode_block: Callable
     evict: Callable
-    prefill_chunk: Callable
-    paged: _Paged
+    sample: Callable
+    peek_logits: Callable
+    export_lane: Callable
+    import_lane: Callable
+    #: the kernel prefill's model-level program (None on the other arm)
+    prefill_chunk: Optional[Callable] = None
+    #: the pool's geometry helper (None on the dense cache)
+    paged: Optional[_Paged] = None
     # -- speculative decoding (``spec=``), else None: see make_slot_decode
     init_draft: Optional[Callable] = None
     draft_prefill: Optional[Callable] = None
@@ -394,8 +433,222 @@ class SlotDecode(NamedTuple):
     draft_paged: Optional[_Paged] = None
 
 
+class _Lanes:
+    """One model's KV lanes and the arms its slot programs run on: the
+    dense slot cache (``pg`` None) or a paged pool ``pg``; decode through
+    the paged decode kernel (``kernel_decode``) or a dense view; prefill
+    through the paged prefill kernel (``kernel_prefill``) or teacher-forced
+    over a dense view.  ``ads(apool, ids, kernel)`` builds the lanes'
+    adapter collection for a kernel program (the pool form) or a dense one
+    (pre-gathered factors), None without the seam."""
+
+    def __init__(self, mdl, pg: Optional[_Paged], num_slots: int,
+                 prefill_pad: int, device, *, kernel_decode: bool,
+                 kernel_prefill: bool, fused_rope: bool, ads: Callable):
+        self.mdl, self.pg = mdl, pg
+        self.S, self.pad, self.device = num_slots, prefill_pad, device
+        self.kernel_decode = kernel_decode
+        self.kernel_prefill = kernel_prefill
+        self.fused_rope = fused_rope
+        self.ads = ads
+        self.lanes = torch.arange(num_slots, device=device)
+
+    def init(self):
+        if self.pg is not None:
+            return self.pg.init()
+        m = self.mdl
+        shape = (m.n_layers, self.S, m.n_kv, m.max_len, m.head_dim)
+        return DenseKV(
+            k=torch.zeros(shape, dtype=m.dtype, device=self.device),
+            v=torch.zeros(shape, dtype=m.dtype, device=self.device),
+            cursor=torch.zeros(self.S, dtype=torch.int32,
+                               device=self.device))
+
+    def _dense(self, k, v, cursor, n_write, toks, ads):
+        """One forward of ``toks [S', s]`` over dense views → f32 logits."""
+        m = self.mdl
+        return m(toks, SlotDense(k, v, cursor, n_write, m.rope,
+                                 m.sliding_window, ads)).float()
+
+    @staticmethod
+    def _last(logits, clens):
+        idx = (clens.long() - 1).clamp(0, logits.shape[1] - 1)
+        return logits[torch.arange(logits.shape[0],
+                                   device=logits.device), idx]
+
+    # -- prefill ------------------------------------------------------------
+
+    def prefill_chunk(self, pkv, rows, poss, clens, prompts, lane_mask,
+                      ads=None):
+        """One batched paged-prefill kernel forward over the pool (lane
+        ``j``'s chunk at ``poss[j]`` through its row ``rows[j]``), the
+        touched blocks committed → ``(pkv, logits [S, pad, V] f32)``."""
+        pg, m = self.pg, self.mdl
+        wtables = pg.write_tables(rows, poss, clens, self.pad, lane_mask)
+        pool = dict(pool_k=pkv.pool_k, pool_v=pkv.pool_v,
+                    scale_k=pkv.scale_k, scale_v=pkv.scale_v,
+                    table=rows.to(torch.int32).contiguous(),
+                    pos0=poss.to(torch.int32).contiguous(),
+                    clen=clens.to(torch.int32).contiguous(),
+                    wtable=wtables.contiguous())
+        ctx = PagedPrefill(pool, m.rope, m.sliding_window,
+                           fused_rope=self.fused_rope, adapters=ads)
+        logits = m(prompts, ctx).float()
+        n = wtables.numel()
+
+        def flat(i):
+            t = torch.stack([w[i] for w in ctx.writes])  # [L, S, Mw, ...]
+            return t.reshape((t.shape[0], n) + t.shape[3:])
+
+        pg.commit_quantized(pkv, wtables.reshape(n), flat(0), flat(1),
+                            flat(2), flat(3))
+        return pkv, logits
+
+    def insert(self, kv, tables, poss, prompts, clens, dsts, apool, aids):
+        """Prefill an admission batch's chunks and install lane ``j`` in
+        slot ``dsts[j]`` (``num_slots`` = unused) → ``(kv, logits after
+        each lane's last live token [S, V] f32)``."""
+        keep = dsts < self.S
+        d = dsts[keep].long()
+        new_cur = (poss + clens).to(torch.int32)
+        if self.pg is None:                          # fresh lanes, then in
+            k, v = torch.zeros_like(kv.k), torch.zeros_like(kv.v)
+            logits = self._dense(k, v, poss, clens, prompts,
+                                 self.ads(apool, aids, False))
+            kv.k[:, d] = k[:, keep]
+            kv.v[:, d] = v[:, keep]
+            kv.cursor[d] = new_cur[keep]
+        elif self.kernel_prefill:
+            kv, logits = self.prefill_chunk(kv, tables, poss, clens, prompts,
+                                            keep, self.ads(apool, aids, True))
+            kv.table[d] = tables[keep].to(torch.int32)
+            kv.cursor[d] = new_cur[keep]
+        else:
+            k, v = self.pg.dense_kv(kv, tables)
+            logits = self._dense(k, v, poss, clens, prompts,
+                                 self.ads(apool, aids, False))
+            kv = self.pg.commit_lanes(kv, k, v, tables, dsts, poss, self.pad,
+                                      new_cur)
+        return kv, self._last(logits, clens)
+
+    def extend(self, kv, slot: int, chunk, clen: int, apool, aids):
+        """Append one prompt chunk at ``slot``'s cursor → ``(kv, the
+        logits after its last live token [V] f32)``.  The kernel arm runs
+        the batched program with a one-hot batch (every lane's adapter);
+        the teacher-forced arm runs the one lane."""
+        last = max(0, min(int(clen), self.pad) - 1)
+        if self.kernel_prefill:
+            onehot = self.lanes == slot
+            prompts = torch.zeros((self.S, self.pad), dtype=torch.int32,
+                                  device=self.device)
+            prompts[slot] = chunk.to(torch.int32)
+            clens = torch.where(onehot, int(clen), 0).to(torch.int32)
+            kv, logits = self.prefill_chunk(
+                kv, kv.table, kv.cursor.clone(), clens, prompts, onehot,
+                self.ads(apool, aids, True))
+            row = logits[slot, last]
+        else:
+            one = slice(slot, slot + 1)
+            pos0 = kv.cursor[one].clone()
+            n = torch.full((1,), int(clen), dtype=torch.int32,
+                           device=self.device)
+            ads = self.ads(apool, aids[one], False)
+            if self.pg is None:                       # the slot, in place
+                k, v = kv.k[:, one], kv.v[:, one]
+            else:
+                k, v = self.pg.dense_kv(kv, kv.table[one])
+            row = self._dense(k, v, pos0, n, chunk[None].to(torch.int32),
+                              ads)[0, last]
+            if self.pg is not None:
+                self.pg.commit_rows(kv, kv.table[one], k, v, pos0, self.pad,
+                                    torch.ones(1, dtype=torch.bool,
+                                               device=self.device))
+        kv.cursor[slot] += int(clen)
+        return kv, row
+
+    # -- decode -------------------------------------------------------------
+
+    def open(self, kv, span: int):
+        """A decode dispatch's view at the dispatch-start cursors: window
+        buffers and the pool (kernel), the gathered dense view (gather) or
+        the dense cache itself."""
+        if self.kernel_decode:
+            pg = self.pg
+            wk, wv = pg.window_view(span)
+            pool = dict(pool_k=kv.pool_k, pool_v=kv.pool_v,
+                        scale_k=kv.scale_k, scale_v=kv.scale_v,
+                        table=kv.table.to(torch.int32).contiguous(),
+                        pos0=kv.cursor.clone())
+            return pool, wk, wv
+        if self.pg is not None:
+            return self.pg.dense_kv(kv, kv.table)
+        return kv.k, kv.v
+
+    def forward(self, view, cursor, active, toks, ads):
+        """``toks [S, s]`` at each lane's ``cursor``, their K/V written
+        where ``active`` → logits ``[S, s, V]`` f32."""
+        m = self.mdl
+        if self.kernel_decode:
+            pool, wk, wv = view
+            ctx = PagedDecode(pool, wk, wv, cursor, active, m.rope,
+                              m.sliding_window, fused_rope=self.fused_rope,
+                              adapters=ads)
+            return m(toks, ctx).float()
+        n = toks.shape[1] * active.to(torch.int32)
+        return self._dense(view[0], view[1], cursor, n, toks, ads)
+
+    def close(self, kv, view, pos0, span: int, active, new_cur):
+        """Commit a dispatch's ``[pos0, pos0 + span)`` writes and set the
+        cursors to ``new_cur``."""
+        if self.kernel_decode:
+            self.pg.commit_window(kv, view[1], view[2], pos0, span, active)
+        elif self.pg is not None:
+            self.pg.commit_rows(kv, kv.table, view[0], view[1], pos0, span,
+                                active)
+        kv.cursor.copy_(new_cur)
+        return kv
+
+    # -- peek, handoff, evict -----------------------------------------------
+
+    def peek(self, state, kv, apool):
+        """Every lane's next-token logits ``[S, V]`` f32 from a dense view
+        (a copy: nothing advances) — the JAX ``peek_logits``, which runs the
+        gather step on every paged arm too."""
+        if self.pg is None:
+            k, v = kv.k.clone(), kv.v.clone()
+        else:
+            k, v = self.pg.dense_kv(kv, kv.table)
+        n = torch.ones(self.S, dtype=torch.int32, device=self.device)
+        return self._dense(k, v, kv.cursor, n, state.last_tok[:, None],
+                           self.ads(apool, state.adapter_id, False))[:, -1]
+
+    def export(self, kv, slot: int):
+        if self.pg is not None:
+            return self.pg.extract_lane(kv, slot)
+        return (kv.k[:, slot].clone(), kv.v[:, slot].clone(),
+                kv.cursor[slot].clone())
+
+    def adopt(self, kv, slot: int, row, lane):
+        k, v, cursor = lane
+        if self.pg is not None:
+            return self.pg.adopt_lane(kv, slot, row, k, v, cursor)
+        kv.k[:, slot] = k.to(kv.k.device, kv.k.dtype)
+        kv.v[:, slot] = v.to(kv.v.device, kv.v.dtype)
+        kv.cursor[slot] = torch.as_tensor(cursor).to(kv.cursor.device)
+        return kv
+
+    def release(self, kv, slot: int, free_ids=None):
+        if self.pg is not None:
+            return self.pg.release(kv, slot, free_ids)
+        kv.k[:, slot] = 0
+        kv.v[:, slot] = 0
+        kv.cursor[slot] = 0
+        return kv
+
+
 def make_slot_decode(model, num_slots: int, prefill_pad: int,
-                     paged: PagedKVConfig, *, attn_kernel: str = "paged",
+                     paged: Optional[PagedKVConfig], *,
+                     attn_kernel: str = "paged",
                      prefill_kernel: bool = True,
                      sample_kernel: bool = True, fused_rope: bool = False,
                      lora_kernel: bool = False,
@@ -403,98 +656,131 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                      spec=None, constrain=None,
                      logprobs: int = 0) -> SlotDecode:
     """Build the slot programs over ``model`` (a
-    :class:`~tpudist_torch.models.TransformerLM` on its serving device):
+    :class:`~tpudist_torch.models.TransformerLM` on its serving device) —
+    the JAX ``make_slot_decode``, the mesh aside.  ``paged`` a
+    :class:`PagedKVConfig` keeps the KV in a paged pool (``cache`` below is
+    a :class:`PagedKV`); None keeps the dense slot cache (a
+    :class:`DenseKV`), where the programs drop their ``tables``, ``poss``
+    and ``free_ids`` arguments, as in JAX:
 
-    - ``init_state()`` / ``init_slots()`` — zero state / empty pool;
-    - ``insert_batch(state, pkv, tables [S, M], poss [S], prompts [S, pad],
-      clens [S], dsts [S], seeds [S], temps [S], last [S], sampled=None,
-      aids=None, apool=None, gids=None, gpool=None)`` → ``(state, pkv,
-      firsts [S])``: prefill lane ``j``'s chunk at ``poss[j]`` through its
-      table row (with adapter block ``aids[j]``), install it in slot
-      ``dsts[j]`` (``num_slots`` = unused lane) with grammar block
-      ``gids[j]``, and where ``last[j]`` sample the first token and arm
-      the slot;
-    - ``prefill_extend(state, pkv, slot, chunk [pad], clen, is_last,
-      sampled=None, apool=None, gpool=None)`` → ``(state, pkv, first)``:
-      append one prompt chunk at the slot's cursor (the batched prefill
-      with a one-hot batch);
-    - ``decode_block(state, pkv, k, sampled=None, apool=None, gpool=None)``
-      → ``(state, pkv, toks [k, S])``, plus ``(lp_ids [k, S, n], lp_vals
-      [k, S, n])`` with ``logprobs = n > 0``: ``k`` decode steps with
-      in-loop token feedback;
-    - ``evict(state, pkv, slot, free_ids [M])`` — free a lane, zero the
-      blocks whose refcount hit zero, reset its adapter and grammar to the
-      sentinels;
+    - ``init_state()`` / ``init_slots()`` — zero state / empty cache;
+    - ``insert_batch(state, cache, [tables [S, M], poss [S],] prompts [S,
+      pad], clens [S], dsts [S], seeds [S], temps [S], last [S],
+      sampled=None, aids=None, apool=None, gids=None, gpool=None)`` →
+      ``(state, cache, firsts [S])``: prefill lane ``j``'s chunk (at
+      ``poss[j]`` through its table row) with adapter block ``aids[j]``,
+      install it in slot ``dsts[j]`` (``num_slots`` = unused lane) with
+      grammar block ``gids[j]``, and where ``last[j]`` sample the first
+      token and arm the slot;
+    - ``prefill_extend(state, cache, slot, chunk [pad], clen, is_last,
+      sampled=None, apool=None, gpool=None)`` → ``(state, cache, first)``:
+      append one prompt chunk at the slot's cursor;
+    - ``decode_block(state, cache, k, sampled=None, apool=None,
+      gpool=None)`` → ``(state, cache, toks [k, S])``, plus ``(lp_ids [k,
+      S, n], lp_vals [k, S, n])`` with ``logprobs = n > 0``: ``k`` decode
+      steps with in-loop token feedback;
+    - ``evict(state, cache, slot[, free_ids [M]])`` — free a lane (a paged
+      pool zeroes the blocks whose refcount hit zero), reset its adapter and
+      grammar to the sentinels;
+    - ``sample(logits [S, V], seeds, temps, counts)`` → ``[S]`` int32: the
+      unfused tail (:func:`sample_tail`);
+    - ``peek_logits(state, cache, apool=None)`` → ``[S, V]`` f32: every
+      lane's next-token logits, nothing advanced (the int8-accuracy
+      oracle);
+    - ``export_lane(state, cache, slot)`` → ``(lane, lane_state)``: the
+      lane ``(k, v, cursor)``, ``k``/``v`` ``[L, n_kv, max_len, dh]`` (on
+      a paged pool the dense view through the slot's table, int8
+      dequantized), and the slot's :class:`SlotState` row;
+    - ``import_lane(state, cache, slot, [row [M],] lane, lane_state)`` →
+      ``(state, cache)``: install an exported lane in ``slot`` (a paged
+      pool scatters it into the host-allocated ``row``'s blocks,
+      requantizing).  The row carries ``last_tok``, ``counts`` and
+      ``seeds``, so a continuation in another engine and slot draws what
+      the source would have;
     - ``prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask,
-      ads=None)`` → ``(pkv, logits [S, pad, V] f32)`` — the model-level
-      prefill.
+      ads=None)`` → ``(pkv, logits [S, pad, V] f32)`` — the kernel
+      prefill's model-level program (``prefill_kernel`` only).
 
-    ``fused_rope`` runs both arms' QKV projection and rotation through the
-    fused RoPE+QKV kernel.  ``adapters`` (an :class:`~tpudist_torch.
-    models.lora.AdapterPoolConfig`) turns on the per-tenant adapter seam:
-    every forward program takes the pool (``apool``, an :class:`~
-    tpudist_torch.models.lora.AdapterPool`) and reads each lane's factors
-    from its ``SlotState.adapter_id`` through the LoRA gather-matmul
-    kernel.  ``lora_kernel`` is validated as the JAX package validates it;
-    the port always takes the pool form, so either value runs the same
-    kernel path.  Only the kernel configuration is ported; other engine
-    paths raise ``NotImplementedError``.  Pools update in place (see
-    :mod:`tpudist_torch.models.paged`).
+    ``attn_kernel`` is ``"paged"`` (the paged decode kernel; needs a pool)
+    or ``"gather"`` (decode over a dense view: the dense cache, or the
+    pool gathered through the tables and committed back after each
+    dispatch); ``prefill_kernel`` the paged prefill kernel (needs a pool)
+    or the teacher-forced prefill; ``sample_kernel`` the fused sampling
+    and residual kernels or the unfused tail (module doc).  ``fused_rope``
+    runs the kernel arms' QKV projection and rotation through the fused
+    RoPE+QKV kernel.  ``adapters`` (an :class:`~tpudist_torch.models.lora.
+    AdapterPoolConfig`) turns on the per-tenant adapter seam: every forward
+    program takes the pool (``apool``) and reads each lane's factors from
+    its ``SlotState.adapter_id`` — the kernel arms through the LoRA
+    gather-matmul kernel, the dense views as pre-gathered factors.
+    ``lora_kernel`` and ``fused_rope`` are validated as the JAX package
+    validates them; the port's kernel programs always take the pool form,
+    so either ``lora_kernel`` value runs the same kernel path.  Caches
+    update in place (see :mod:`tpudist_torch.models.paged`).
 
     ``constrain`` (a :class:`~tpudist_torch.constrain.ConstrainConfig`)
     turns on the structured-output seam: the programs that sample take the
     grammar pool ``gpool = (gallow [G+1, S_max, V] bool, gnext [G+1,
-    S_max, V] int32)`` (block ``G`` the all-True sentinel), the sampling
-    kernel masks each lane's row at its ``(gidx, gstate)`` before the pick,
-    and ``gstate`` advances with every committed token
-    (:func:`grammar_advance`).  ``logprobs = n`` makes ``decode_block`` and
-    ``spec_verify`` also return the top-``n`` rows of the post-mask
-    ``log_softmax`` at each emitted position (:func:`top_logprobs`);
-    prefill-sampled first tokens carry none.
+    S_max, V] int32)`` (block ``G`` the all-True sentinel), each lane's row
+    is masked at its ``(gidx, gstate)`` before the pick, and ``gstate``
+    advances with every committed token (:func:`grammar_advance`).
+    ``logprobs = n`` makes ``decode_block`` and ``spec_verify`` also return
+    the top-``n`` rows of the post-mask ``log_softmax`` at each emitted
+    position (:func:`top_logprobs`); prefill-sampled first tokens carry
+    none.
 
     ``spec`` (a draft :class:`~tpudist_torch.models.TransformerLM` on the
     same device, sharing ``vocab`` and ``max_len``) adds the speculative
-    programs (module doc):
+    programs (module doc), the draft on the target's arms:
 
-    - ``init_draft()`` — the empty draft pool (a :class:`PagedKV`);
-    - ``draft_prefill(dkv, tables, poss, prompts, clens, dsts, aids=None,
+    - ``init_draft()`` — the empty draft cache;
+    - ``draft_prefill(dkv, [tables, poss,] prompts, clens, dsts, aids=None,
       apool=None)`` and ``draft_extend(dkv, slot, chunk, clen, aids=None,
       apool=None)`` — the draft twins of ``insert_batch`` /
       ``prefill_extend``'s cache half (``aids [S]``: each lane's adapter
       block);
-    - ``draft_evict(dkv, slot, free_ids)``;
+    - ``draft_evict(dkv, slot[, free_ids])``;
     - ``draft_track(state, dkv, prev_last [S], toks [K, S], apool=None)`` —
       teacher-force a plain block's emitted tokens through the draft;
     - ``draft_propose(state, dkv, k, sampled=None, apool=None)`` → ``(dkv,
       drafts [k, S], dlogits [k, S, V])``;
-    - ``spec_verify(state, pkv, dkv, drafts, dlogits, spec_on [S], rem [S],
-      sampled=None, apool=None, gpool=None)`` → ``(state, pkv, dkv, packed
-      [S, k+3])``, plus ``(lp_ids [S, k+1, n], lp_vals [S, k+1, n])`` with
-      ``logprobs = n > 0``: column 0 the emitted count, 1 the unclamped
-      accept count, 2.. the emitted tokens.  The draft proposes unmasked;
-      the verify rows are masked along each lane's automaton trajectory
-      over its drafts, a forbidden draft is a rejection, and ``gstate``
-      advances over the emitted tokens only.
+    - ``spec_verify(state, cache, dkv, drafts, dlogits, spec_on [S], rem
+      [S], sampled=None, apool=None, gpool=None)`` → ``(state, cache, dkv,
+      packed [S, k+3])``, plus ``(lp_ids [S, k+1, n], lp_vals [S, k+1,
+      n])`` with ``logprobs = n > 0``: column 0 the emitted count, 1 the
+      unclamped accept count, 2.. the emitted tokens.  The draft proposes
+      unmasked; the verify rows are masked along each lane's automaton
+      trajectory over its drafts, a forbidden draft is a rejection, and
+      ``gstate`` advances over the emitted tokens only.
 
     The tied draft shares its lane's adapter (its blocks are the target's
     first layers, so they read the pool's first layer slices); a loaded
     draft of another projection geometry runs base-only."""
-    if attn_kernel != "paged":
-        raise NotImplementedError(
-            f"attn_kernel={attn_kernel!r}: only the paged decode kernel is "
-            "ported; the gather path waits for ROADMAP.md queue A item 5")
-    if not prefill_kernel:
-        raise NotImplementedError(
-            "prefill_kernel=False: the teacher-forced gather prefill waits "
-            "for ROADMAP.md queue A item 5")
-    if not sample_kernel:
-        raise NotImplementedError(
-            "sample_kernel=False: the unfused sampling tail waits for "
-            "ROADMAP.md queue A item 5")
+    if attn_kernel not in ("gather", "paged"):
+        raise ValueError(
+            f"attn_kernel must be 'gather' or 'paged', got {attn_kernel!r}")
+    if attn_kernel == "paged" and paged is None:
+        raise ValueError(
+            "attn_kernel='paged' is the paged-pool kernel — it requires a "
+            "paged cache (pass paged=PagedKVConfig(...))")
+    if prefill_kernel and paged is None:
+        raise ValueError(
+            "prefill_kernel=True is the paged-prefill kernel — it requires "
+            "a paged cache (pass paged=PagedKVConfig(...))")
+    kernel_decode = attn_kernel == "paged"
+    if fused_rope and not kernel_decode and not prefill_kernel:
+        raise ValueError(
+            "fused_rope=True fuses RoPE+QKV on the kernel arms only — "
+            "enable attn_kernel='paged' and/or prefill_kernel=True")
     if lora_kernel and adapters is None:
         raise ValueError(
             "lora_kernel=True is the in-kernel adapter gather-matmul — "
             "it requires the adapter seam (pass adapters=...)")
+    if lora_kernel and not kernel_decode and not prefill_kernel:
+        raise ValueError(
+            "lora_kernel=True rides the slot-batched kernel programs only "
+            "— enable attn_kernel='paged' and/or prefill_kernel=True (the "
+            "dense and gather programs take pre-gathered factors)")
     if num_slots < 1:
         raise ValueError(f"num_slots must be >= 1, got {num_slots}")
     n_lp = int(logprobs)
@@ -504,21 +790,20 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         raise ValueError(f"prefill_pad {prefill_pad} must be in "
                          f"[1, {model.max_len}]")
     device = model.tok_embed.device
-    pg = _Paged(model, num_slots, paged, device)
     S = num_slots
-    lanes = torch.arange(S, device=device)
+    kern = bool(sample_kernel)
     #: the sentinel adapter id = base-only (also what evict resets to)
     aid_empty = int(adapters.num_blocks) if adapters is not None else 0
     #: the sentinel grammar id = unconstrained (also what evict resets to)
     gid_empty = int(constrain.num_blocks) if constrain is not None else 0
 
-    def _ads(apool: Optional[AdapterPool], ids):
+    def _ads(apool: Optional[AdapterPool], ids, kernel: bool):
         if adapters is None:
             return None
         if apool is None:
             raise ValueError("an adapter engine's programs take the adapter "
                              "pool (apool=...)")
-        return pool_collection(apool, ids)
+        return (pool_collection if kernel else gather_collection)(apool, ids)
 
     def _gp(gpool):
         """The grammar pool a program samples through (None when the seam
@@ -529,6 +814,17 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             raise ValueError("a constrained engine's programs take the "
                              "grammar pool (gpool=...)")
         return gpool
+
+    def _ids(ids, empty: int):
+        return ids if ids is not None else torch.full(
+            (S,), empty, dtype=torch.int32, device=device)
+
+    arms = dict(kernel_decode=kernel_decode,
+                kernel_prefill=bool(prefill_kernel),
+                fused_rope=bool(fused_rope))
+    pg = None if paged is None else _Paged(model, S, paged, device)
+    tgt = _Lanes(model, pg, S, prefill_pad, device, ads=_ads, **arms)
+    zeros = torch.zeros(S, dtype=torch.int32, device=device)
 
     def init_state() -> SlotState:
         z = torch.zeros(S, dtype=torch.int32, device=device)
@@ -546,74 +842,20 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                                          device=device),
                          gstate=z.clone())
 
-    def _pool(pkv: PagedKV, table, pos0) -> dict:
-        return dict(pool_k=pkv.pool_k, pool_v=pkv.pool_v,
-                    scale_k=pkv.scale_k, scale_v=pkv.scale_v,
-                    table=table.to(torch.int32).contiguous(),
-                    pos0=pos0.to(torch.int32).contiguous())
-
-    def _prefill_on(mdl, pgx: _Paged, pkv, rows, poss, clens, prompts,
-                    lane_mask, ads):
-        """One batched paged-prefill forward of ``mdl`` over its pool
-        ``pkv`` (geometry ``pgx``), the touched blocks committed."""
-        wtables = pgx.write_tables(rows, poss, clens, prefill_pad, lane_mask)
-        pool = _pool(pkv, rows, poss)
-        pool.update(clen=clens.to(torch.int32).contiguous(),
-                    wtable=wtables.contiguous())
-        ctx = PagedPrefill(pool, mdl.rope, mdl.sliding_window,
-                           fused_rope=fused_rope, adapters=ads)
-        logits = mdl(prompts, ctx).float()
-        n = wtables.numel()
-
-        def flat(i):
-            t = torch.stack([w[i] for w in ctx.writes])  # [L, S, Mw, ...]
-            return t.reshape((t.shape[0], n) + t.shape[3:])
-
-        pgx.commit_quantized(pkv, wtables.reshape(n), flat(0), flat(1),
-                             flat(2), flat(3))
-        return pkv, logits
-
-    def _window(mdl, pool, wk, wv, cursor, active, toks, ads):
-        """One paged-decode forward of ``mdl``: ``toks [S, s]`` at each
-        lane's ``cursor``, their K/V appended to the window buffers
-        ``wk``/``wv`` (``pool`` holds the dispatch-start ``pos0``) →
-        logits ``[S, s, V]`` f32."""
-        ctx = PagedDecode(pool, wk, wv, cursor, active, mdl.rope,
-                          mdl.sliding_window, fused_rope=fused_rope,
-                          adapters=ads)
-        return mdl(toks, ctx).float()
-
     @torch.no_grad()
-    def prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask, ads=None):
-        return _prefill_on(model, pg, pkv, rows, poss, clens, prompts,
-                           lane_mask, ads)
-
-    def _last(logits, clens):
-        idx = (clens.long() - 1).clamp(0, logits.shape[1] - 1)
-        return logits[lanes, idx]
-
-    @torch.no_grad()
-    def insert_batch(state, pkv, tables, poss, prompts, clens, dsts, seeds,
-                     temps, last, sampled=None, aids=None, apool=None,
-                     gids=None, gpool=None):
+    def _insert(state, kv, tables, poss, prompts, clens, dsts, seeds, temps,
+                last, sampled, aids, apool, gids, gpool):
         keep = dsts < S
         gp = _gp(gpool)
-        if aids is None:
-            aids = torch.full((S,), aid_empty, dtype=torch.int32,
-                              device=device)
-        if gids is None:
-            gids = torch.full((S,), gid_empty, dtype=torch.int32,
-                              device=device)
-        pkv, logits = prefill_chunk(pkv, tables, poss, clens, prompts, keep,
-                                    _ads(apool, aids))
+        aids, gids = _ids(aids, aid_empty), _ids(gids, gid_empty)
+        kv, last_logits = tgt.insert(kv, tables, poss, prompts, clens, dsts,
+                                     apool, aids)
         new_cur = (poss + clens).to(torch.int32)
-        zero = torch.zeros(S, dtype=torch.int32, device=device)
-        firsts, _ = sample_tail(_last(logits, clens), seeds, temps, zero,
-                                sampled, gpool=gp, gidx=gids, gstate=zero)
+        firsts, _ = sample_tail(last_logits, seeds, temps, zeros, sampled,
+                                gpool=gp, gidx=gids, gstate=zeros,
+                                kernel=kern)
         d = dsts[keep].long()
-        pkv.table[d] = tables[keep].to(torch.int32)
-        pkv.cursor[d] = new_cur[keep]
-        state.last_tok[d] = torch.where(last, firsts, zero)[keep]
+        state.last_tok[d] = torch.where(last, firsts, zeros)[keep]
         state.active[d] = last[keep]
         state.pos[d] = new_cur[keep]
         state.counts[d] = last.to(torch.int32)[keep]
@@ -621,29 +863,34 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         state.seeds[d] = seeds[keep].long()
         state.adapter_id[d] = aids[keep].to(torch.int32)
         state.gidx[d] = gids[keep].to(torch.int32)
-        state.gstate[d] = grammar_advance(gp, gids, zero, firsts, last)[keep]
-        return state, pkv, firsts
+        state.gstate[d] = grammar_advance(gp, gids, zeros, firsts, last)[keep]
+        return state, kv, firsts
+
+    if pg is None:
+        def insert_batch(state, cache, prompts, clens, dsts, seeds, temps,
+                         last, sampled=None, aids=None, apool=None,
+                         gids=None, gpool=None):
+            return _insert(state, cache, None, zeros, prompts, clens, dsts,
+                           seeds, temps, last, sampled, aids, apool, gids,
+                           gpool)
+    else:
+        def insert_batch(state, pkv, tables, poss, prompts, clens, dsts,
+                         seeds, temps, last, sampled=None, aids=None,
+                         apool=None, gids=None, gpool=None):
+            return _insert(state, pkv, tables, poss, prompts, clens, dsts,
+                           seeds, temps, last, sampled, aids, apool, gids,
+                           gpool)
 
     @torch.no_grad()
-    def prefill_extend(state, pkv, slot: int, chunk, clen: int,
+    def prefill_extend(state, kv, slot: int, chunk, clen: int,
                        is_last: bool, sampled=None, apool=None, gpool=None):
         gp = _gp(gpool)
-        onehot = lanes == slot
-        poss = pkv.cursor.clone()
-        prompts = torch.zeros((S, prefill_pad), dtype=torch.int32,
-                              device=device)
-        prompts[slot] = chunk.to(torch.int32)
-        clens = torch.where(onehot, int(clen), 0).to(torch.int32)
-        pkv, logits = prefill_chunk(pkv, pkv.table, poss, clens, prompts,
-                                    onehot, _ads(apool, state.adapter_id))
-        pkv.cursor[slot] += int(clen)
-        row = logits[slot, max(0, min(int(clen), prefill_pad) - 1)][None]
+        kv, row = tgt.extend(kv, slot, chunk, clen, apool, state.adapter_id)
         gi = state.gidx[slot:slot + 1]
         gs = state.gstate[slot:slot + 1]
-        first = sample_tail(row, state.seeds[slot:slot + 1],
-                            state.temps[slot:slot + 1],
-                            torch.zeros(1, dtype=torch.int32, device=device),
-                            sampled, gpool=gp, gidx=gi, gstate=gs)[0]
+        first = sample_tail(row[None], state.seeds[slot:slot + 1],
+                            state.temps[slot:slot + 1], zeros[:1], sampled,
+                            gpool=gp, gidx=gi, gstate=gs, kernel=kern)[0]
         state.pos[slot] += int(clen)
         state.active[slot] = bool(is_last)
         state.last_tok[slot] = first[0] if is_last else 0
@@ -652,18 +899,17 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             state.gstate[slot:slot + 1] = grammar_advance(
                 gp, gi, gs, first, torch.ones(1, dtype=torch.bool,
                                               device=device))
-        return state, pkv, first[0]
+        return state, kv, first[0]
 
     @torch.no_grad()
-    def decode_block(state, pkv, k: int, sampled=None, apool=None,
+    def decode_block(state, kv, k: int, sampled=None, apool=None,
                      gpool=None):
-        ads = _ads(apool, state.adapter_id)
+        ads = _ads(apool, state.adapter_id, kernel_decode)
         gp = _gp(gpool)
-        pos0 = pkv.cursor.clone()
+        pos0 = kv.cursor.clone()
         active = state.active.clone()
         inc = active.to(torch.int32)
-        wk, wv = pg.window_view(k)
-        pool = _pool(pkv, pkv.table, pos0)
+        view = tgt.open(kv, k)
         cursor = pos0.clone()
         last_tok, counts, pos = state.last_tok, state.counts, state.pos
         gstate = state.gstate
@@ -671,11 +917,12 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             sampled = bool((state.temps > 0).any())
         toks_all, masked_all = [], []
         for _ in range(k):
-            logits = _window(model, pool, wk, wv, cursor, active,
-                             last_tok[:, None], ads)[:, -1]
+            logits = tgt.forward(view, cursor, active, last_tok[:, None],
+                                 ads)[:, -1]
             toks, masked = sample_tail(logits, state.seeds, state.temps,
                                        counts, sampled, gpool=gp,
-                                       gidx=state.gidx, gstate=gstate)
+                                       gidx=state.gidx, gstate=gstate,
+                                       kernel=kern)
             last_tok = torch.where(active, toks, last_tok)
             gstate = grammar_advance(gp, state.gidx, gstate, last_tok,
                                      active)
@@ -685,8 +932,7 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             toks_all.append(last_tok)
             if n_lp:
                 masked_all.append(masked)
-        pg.commit_window(pkv, wk, wv, pos0, k, active)
-        pkv.cursor.copy_(cursor)
+        tgt.close(kv, view, pos0, k, active, cursor)
         state.last_tok.copy_(last_tok)
         state.counts.copy_(counts)
         state.pos.copy_(pos)
@@ -694,24 +940,62 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             state.gstate.copy_(gstate)
         if n_lp:
             # the block's top-n rows in one pass over its k masked rows
-            return (state, pkv, torch.stack(toks_all)) + top_logprobs(
+            return (state, kv, torch.stack(toks_all)) + top_logprobs(
                 torch.stack(masked_all), n_lp)
-        return state, pkv, torch.stack(toks_all)
+        return state, kv, torch.stack(toks_all)
 
-    @torch.no_grad()
-    def evict(state, pkv, slot: int, free_ids):
-        pg.release(pkv, slot, free_ids)
+    def _reset(state, slot: int):
         for leaf in state:
             leaf[slot] = 0
         state.adapter_id[slot] = aid_empty
         state.gidx[slot] = gid_empty
-        return state, pkv
+        return state
+
+    if pg is None:
+        @torch.no_grad()
+        def evict(state, cache, slot: int):
+            return _reset(state, slot), tgt.release(cache, slot)
+    else:
+        @torch.no_grad()
+        def evict(state, pkv, slot: int, free_ids):
+            return _reset(state, slot), tgt.release(pkv, slot, free_ids)
+
+    @torch.no_grad()
+    def sample(logits, seeds, temps, counts):
+        return sample_tail(logits, seeds, temps, counts, kernel=False)[0]
+
+    @torch.no_grad()
+    def peek_logits(state, kv, apool=None):
+        return tgt.peek(state, kv, apool)
+
+    @torch.no_grad()
+    def export_lane(state, kv, slot: int):
+        return tgt.export(kv, slot), SlotState(
+            *(leaf[slot].clone() for leaf in state))
+
+    def _import(state, kv, slot, row, lane, lane_state):
+        kv = tgt.adopt(kv, slot, row, lane)
+        for leaf, val in zip(state, lane_state):
+            leaf[slot] = torch.as_tensor(val).to(leaf.device, leaf.dtype)
+        return state, kv
+
+    if pg is None:
+        @torch.no_grad()
+        def import_lane(state, cache, slot: int, lane, lane_state):
+            return _import(state, cache, slot, None, lane, lane_state)
+    else:
+        @torch.no_grad()
+        def import_lane(state, pkv, slot: int, row, lane, lane_state):
+            return _import(state, pkv, slot, row, lane, lane_state)
 
     progs = dict(num_slots=S, prefill_pad=prefill_pad,
-                 init_state=init_state, init_slots=pg.init,
+                 init_state=init_state, init_slots=tgt.init,
                  insert_batch=insert_batch, prefill_extend=prefill_extend,
-                 decode_block=decode_block, evict=evict,
-                 prefill_chunk=prefill_chunk, paged=pg)
+                 decode_block=decode_block, evict=evict, sample=sample,
+                 peek_logits=peek_logits, export_lane=export_lane,
+                 import_lane=import_lane, paged=pg,
+                 prefill_chunk=(torch.no_grad()(tgt.prefill_chunk)
+                                if prefill_kernel else None))
     if spec is None:
         return SlotDecode(**progs)
 
@@ -734,47 +1018,46 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         draft.d_model == model.d_model and draft.d_ff == model.d_ff
         and draft.n_heads == model.n_heads and draft.n_kv == model.n_kv
         and draft.n_layers <= model.n_layers)
+
+    def _d_ads(apool, ids, kernel: bool):
+        return _ads(apool, ids, kernel) if d_lora else None
+
     # the draft pool: the target pool's block geometry (block ids are
     # shared), the draft's bytes, always unquantized
-    pg_d = _Paged(draft, S, PagedKVConfig(paged.num_blocks, paged.block_size,
-                                          False), device)
-
-    def _d_ads(apool, ids):
-        return _ads(apool, ids) if d_lora else None
-
-    def _aids(aids):
-        return aids if aids is not None else torch.full(
-            (S,), aid_empty, dtype=torch.int32, device=device)
+    pg_d = None if paged is None else _Paged(
+        draft, S, PagedKVConfig(paged.num_blocks, paged.block_size, False),
+        device)
+    dft = _Lanes(draft, pg_d, S, prefill_pad, device, ads=_d_ads, **arms)
 
     @torch.no_grad()
-    def draft_prefill(dkv, tables, poss, prompts, clens, dsts, aids=None,
-                      apool=None):
-        keep = dsts < S
-        dkv, _ = _prefill_on(draft, pg_d, dkv, tables, poss, clens, prompts,
-                             keep, _d_ads(apool, _aids(aids)))
-        d = dsts[keep].long()
-        dkv.table[d] = tables[keep].to(torch.int32)
-        dkv.cursor[d] = (poss + clens).to(torch.int32)[keep]
-        return dkv
+    def _draft_prefill(dkv, tables, poss, prompts, clens, dsts, aids,
+                       apool):
+        return dft.insert(dkv, tables, poss, prompts, clens, dsts, apool,
+                          _ids(aids, aid_empty))[0]
+
+    if pg is None:
+        def draft_prefill(dkv, prompts, clens, dsts, aids=None, apool=None):
+            return _draft_prefill(dkv, None, zeros, prompts, clens, dsts,
+                                  aids, apool)
+
+        @torch.no_grad()
+        def draft_evict(dkv, slot: int):
+            return dft.release(dkv, slot)
+    else:
+        def draft_prefill(dkv, tables, poss, prompts, clens, dsts,
+                          aids=None, apool=None):
+            return _draft_prefill(dkv, tables, poss, prompts, clens, dsts,
+                                  aids, apool)
+
+        @torch.no_grad()
+        def draft_evict(dkv, slot: int, free_ids):
+            return dft.release(dkv, slot, free_ids)
 
     @torch.no_grad()
     def draft_extend(dkv, slot: int, chunk, clen: int, aids=None,
                      apool=None):
-        onehot = lanes == slot
-        prompts = torch.zeros((S, prefill_pad), dtype=torch.int32,
-                              device=device)
-        prompts[slot] = chunk.to(torch.int32)
-        clens = torch.where(onehot, int(clen), 0).to(torch.int32)
-        dkv, _ = _prefill_on(draft, pg_d, dkv, dkv.table, dkv.cursor.clone(),
-                             clens, prompts, onehot,
-                             _d_ads(apool, _aids(aids)))
-        dkv.cursor[slot] += int(clen)
-        return dkv
-
-    @torch.no_grad()
-    def draft_evict(dkv, slot: int, free_ids):
-        pg_d.release(dkv, slot, free_ids)
-        return dkv
+        return dft.extend(dkv, slot, chunk, clen, apool,
+                          _ids(aids, aid_empty))[0]
 
     def draft_arm(*_args, **_kw):
         raise NotImplementedError(
@@ -789,21 +1072,19 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         pos0 = dkv.cursor.clone()
         fed = torch.cat([prev_last[None].to(torch.int32),
                          toks[:-1].to(torch.int32)], 0).t().contiguous()
-        wk, wv = pg_d.window_view(k)
-        _window(draft, _pool(dkv, dkv.table, pos0), wk, wv, pos0, active,
-                fed, _d_ads(apool, state.adapter_id))
-        pg_d.commit_window(dkv, wk, wv, pos0, k, active)
-        dkv.cursor.copy_(pos0 + k * active.to(torch.int32))
-        return dkv
+        view = dft.open(dkv, k)
+        dft.forward(view, pos0, active, fed,
+                    _d_ads(apool, state.adapter_id, kernel_decode))
+        return dft.close(dkv, view, pos0, k, active,
+                         pos0 + k * active.to(torch.int32))
 
     @torch.no_grad()
     def draft_propose(state, dkv, k: int, sampled=None, apool=None):
-        ads = _d_ads(apool, state.adapter_id)
+        ads = _d_ads(apool, state.adapter_id, kernel_decode)
         active = state.active.clone()
         inc = active.to(torch.int32)
         pos0 = dkv.cursor.clone()
-        wk, wv = pg_d.window_view(k + 1)
-        pool = _pool(dkv, dkv.table, pos0)
+        view = dft.open(dkv, k + 1)
         if sampled is None:
             sampled = bool((state.temps > 0).any())
         cursor, tok = pos0.clone(), state.last_tok
@@ -811,37 +1092,37 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         # step k feeds d_k, so an all-accepted verify leaves both cursors
         # equal; its logits are not needed
         for i in range(k + 1):
-            lg = _window(draft, pool, wk, wv, cursor, active, tok[:, None],
-                         ads)[:, -1]
+            lg = dft.forward(view, cursor, active, tok[:, None], ads)[:, -1]
             if i == k:
                 break
             d, _ = sample_tail(lg, state.seeds, state.temps,
-                               state.counts + i, sampled, stream=1)
+                               state.counts + i, sampled, stream=1,
+                               kernel=kern)
             tok = torch.where(active, d, state.last_tok)
             drafts.append(tok)
             dlogits.append(lg)
             cursor = cursor + inc
-        pg_d.commit_window(dkv, wk, wv, pos0, k + 1, active)
-        dkv.cursor.copy_(pos0 + (k + 1) * inc)
+        dkv = dft.close(dkv, view, pos0, k + 1, active, pos0 + (k + 1) * inc)
         return dkv, torch.stack(drafts), torch.stack(dlogits)
 
     @torch.no_grad()
-    def spec_verify(state, pkv, dkv, drafts, dlogits, spec_on, rem,
+    def spec_verify(state, kv, dkv, drafts, dlogits, spec_on, rem,
                     sampled=None, apool=None, gpool=None):
         gp = _gp(gpool)
         k = drafts.shape[0]
         active = state.active.clone()
-        pos0 = pkv.cursor.clone()
+        pos0 = kv.cursor.clone()
         toks = torch.cat([state.last_tok[None], drafts.to(torch.int32)],
                          0).t().contiguous()                  # [S, k+1]
-        wk, wv = pg.window_view(k + 1)
-        logits = _window(model, _pool(pkv, pkv.table, pos0), wk, wv, pos0,
-                         active, toks, _ads(apool, state.adapter_id))
+        view = tgt.open(kv, k + 1)
+        logits = tgt.forward(view, pos0, active, toks,
+                             _ads(apool, state.adapter_id, kernel_decode))
         tok_ok = None
         if gp is not None:
             logits, tok_ok = _trajectory_mask(gp, state, logits, drafts)
         x, a_raw, inc, out = spec_accept(state, logits, drafts, dlogits,
-                                         spec_on, rem, sampled, tok_ok)
+                                         spec_on, rem, sampled, tok_ok,
+                                         kernel=kern)
         if gp is not None:
             # the automaton over the EMITTED tokens only (out[:, :inc]):
             # accepted drafts passed tok_ok and corrections come from the
@@ -851,19 +1132,18 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                 gnew = grammar_advance(gp, state.gidx, gnew, out[:, j],
                                        j < inc)
             state.gstate.copy_(gnew)
-        pg.commit_window(pkv, wk, wv, pos0, k + 1, active)
         new_cur = (pos0 + inc).to(torch.int32)
-        pkv.cursor.copy_(new_cur)
+        tgt.close(kv, view, pos0, k + 1, active, new_cur)
         dkv.cursor.copy_(new_cur)
         state.last_tok.copy_(torch.where(active, x, state.last_tok))
         state.counts.add_(inc)
         state.pos.add_(inc)
         packed = torch.cat([inc[:, None], a_raw[:, None], out], 1)
         if n_lp:
-            return (state, pkv, dkv, packed) + top_logprobs(logits, n_lp)
-        return state, pkv, dkv, packed
+            return (state, kv, dkv, packed) + top_logprobs(logits, n_lp)
+        return state, kv, dkv, packed
 
-    return SlotDecode(**progs, init_draft=pg_d.init,
+    return SlotDecode(**progs, init_draft=dft.init,
                       draft_prefill=draft_prefill, draft_extend=draft_extend,
                       draft_evict=draft_evict, draft_arm=draft_arm,
                       draft_track=draft_track, draft_propose=draft_propose,

@@ -24,10 +24,13 @@ serves many tenants' rank-r LoRA fine-tunes:
   the pool in place, and only ever a block no live lane is bound to.
 
 The JAX package has two collection forms, pre-gathered factors
-(``gather_collection``) and the pool form (``pool_collection``); both
-compute the same function and its suite pins their streams identical.  The
-port keeps only the pool form, so an engine built with
-``lora_kernel=False`` runs the same kernel path as ``lora_kernel=True``.
+(:func:`gather_collection`) and the pool form (:func:`pool_collection`);
+both compute the same function and its suite pins their streams identical.
+The port's kernel programs always take the pool form, so an engine built
+with ``lora_kernel=False`` runs the same kernel path as ``lora_kernel=True``
+there; the dense and gather programs take the pre-gathered factors, whose
+delta is two batched products in plain tensor ops on every device, as the
+JAX package's XLA product on those programs is.
 The host half — name → block id, refcounts, LRU eviction of cold adapters
 — is :mod:`tpudist_torch.serve.adapters`.
 """
@@ -163,6 +166,22 @@ def pool_collection(pool: AdapterPool, ids: torch.Tensor) -> Dict[str, Any]:
     col: Dict[str, Any] = {key: getattr(pool, key) for key in FACTOR_KEYS}
     col["ids"] = ids
     col["on"] = ids < pool.a_qkv.shape[1]
+    return col
+
+
+def gather_collection(pool: AdapterPool,
+                      ids: torch.Tensor) -> Dict[str, Any]:
+    """The adapters of a dense or gather program: each slot's factors
+    gathered at ``ids [S]`` (``a_* [L, S, d_in, r]``, ``b_* [L, S, r,
+    d_out]``) and ``on = ids < num_blocks`` — the JAX ``gather_collection``.
+    Sentinel ids clamp onto a real block, which ``on`` deselects: a
+    base-only lane is the base model bit for bit."""
+    B = pool.a_qkv.shape[1]
+    ids = ids.long()
+    safe = ids.clamp(max=B - 1)
+    col: Dict[str, Any] = {key: getattr(pool, key)[:, safe]
+                           for key in FACTOR_KEYS}
+    col["on"] = ids < B
     return col
 
 

@@ -110,8 +110,12 @@ class _Paged:
     def dense_kv(self, pkv: PagedKV, rows: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Gather block ids ``rows [..., M']`` into dense K/V
-        ``[L, ..., n_kv, M' * bs, dh]`` in the compute dtype (sentinel ids
-        clamp onto a real block — garbage past every cursor)."""
+        ``[L, ..., n_kv, M' * bs, dh]`` in the compute dtype, int8 pools
+        dequantized (sentinel ids clamp onto a real block — garbage past
+        every cursor).  Through whole tables it is the JAX ``slot_cache``
+        (every slot) and ``lane_cache`` (an admission batch's rows): the
+        dense views the gather and teacher-forced programs run over, a new
+        tensor committed back by :meth:`commit_rows`."""
         bs = self.cfg.block_size
         span = rows.shape[-1] * bs
         rows = rows.long().clamp(max=self.cfg.num_blocks - 1)
@@ -197,6 +201,79 @@ class _Paged:
 
         return self.scatter_values(pkv, ids.reshape(-1), vals_of(old_k, wk),
                                    vals_of(old_v, wv))
+
+    def commit_rows(self, pkv: PagedKV, rows: torch.Tensor,
+                    dk: torch.Tensor, dv: torch.Tensor, pos0: torch.Tensor,
+                    span: int, lane_mask: torch.Tensor) -> PagedKV:
+        """Scatter the blocks dense views ``dk``/``dv [L, S', n_kv,
+        max_len, dh]`` wrote in ``[pos0, pos0 + span)`` back into the pool
+        through ``rows [S', M]`` (requantized on an int8 pool; the JAX
+        ``_Paged._commit``, and through ``pkv.table`` its
+        ``commit_slots``).  Masked lanes and blocks below ``pos0``'s are
+        never written, so shared prefix blocks stay as they are."""
+        bs, B = self.cfg.block_size, self.cfg.num_blocks
+        M, T = self.blocks_per_slot, self.touch_count(span)
+        L, nk, dh = self.n_layers, self.n_kv, self.dh
+        n = rows.shape[0]
+        dev = dk.device
+        pos0 = pos0.long()
+        t0 = torch.div(pos0, bs, rounding_mode="floor")
+        start = t0.clamp(0, M - T)
+        logical = start[:, None] + torch.arange(T, device=dev)[None]
+        ids = torch.gather(rows.long(), 1, logical.clamp(max=M - 1))
+        live = (logical >= t0[:, None]) & (logical < M) & lane_mask[:, None]
+        ids = torch.where(live, ids, torch.full_like(ids, B))
+        cols = (start[:, None] * bs
+                + torch.arange(T * bs, device=dev)[None])       # [S', T*bs]
+        idx = cols[None, :, None, :, None].expand(L, n, nk, T * bs, dh)
+
+        def vals_of(dense):
+            x = dense.gather(3, idx).reshape(L, n, nk, T, bs, dh)
+            return x.permute(0, 1, 3, 2, 4, 5).reshape(L, n * T, nk, bs, dh)
+
+        return self.scatter_values(pkv, ids.reshape(-1), vals_of(dk),
+                                   vals_of(dv))
+
+    def commit_lanes(self, pkv: PagedKV, dk: torch.Tensor, dv: torch.Tensor,
+                     rows: torch.Tensor, dsts: torch.Tensor,
+                     pos0: torch.Tensor, span: int,
+                     cursor: torch.Tensor) -> PagedKV:
+        """Commit lanes' dense views after a prefill wrote ``[pos0,
+        pos0 + span)``: each lane's blocks through its OWN row, then install
+        the rows and ``cursor`` at ``dsts`` (sentinel ``num_slots`` = an
+        unused lane, dropped)."""
+        keep = dsts < self.num_slots
+        pkv = self.commit_rows(pkv, rows, dk, dv, pos0, span, keep)
+        d = dsts[keep].long()
+        pkv.table[d] = rows[keep].to(torch.int32)
+        pkv.cursor[d] = cursor[keep].to(torch.int32)
+        return pkv
+
+    # -- KV handoff ---------------------------------------------------------
+
+    def extract_lane(self, pkv: PagedKV, slot: int):
+        """One slot's KV as a dense lane ``(k, v, cursor)``, ``k``/``v``
+        ``[L, n_kv, max_len, dh]`` in the compute dtype (int8 dequantized;
+        past the cursor the clamped gather's garbage, which every reader
+        masks) — the export half of a KV handoff."""
+        k, v = self.dense_kv(pkv, pkv.table[slot])
+        return k, v, pkv.cursor[slot].clone()
+
+    def adopt_lane(self, pkv: PagedKV, slot: int, row: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor,
+                   cursor: torch.Tensor) -> PagedKV:
+        """The import half: scatter a dense lane into the blocks of the
+        (host-allocated) table ``row [M]`` (sentinel entries drop), install
+        the row and ``cursor`` at ``slot``.  An int8 pool requantizes: in
+        an f32 compute dtype that gives back the exported blocks' bytes; a
+        bf16 view has rounded the products ``q * scale``, as in the JAX
+        package, so its blocks can come back a step apart."""
+        dev = pkv.table.device
+        one = torch.ones(1, dtype=torch.int32, device=dev)
+        return self.commit_lanes(
+            pkv, k[:, None], v[:, None], row.reshape(1, -1).to(dev),
+            one * int(slot), 0 * one, self.max_len,
+            torch.as_tensor(cursor, device=dev).reshape(1))
 
     def write_tables(self, rows: torch.Tensor, pos0: torch.Tensor,
                      clen: torch.Tensor, span: int,

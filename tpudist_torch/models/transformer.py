@@ -150,6 +150,28 @@ class _Causal:
         return attention_reference(q, k, v, window=self.window)
 
 
+def cached_attention(q, ck, cv, qpos, window: Optional[int]):
+    """Attention of ``q [b, nh, s, dh]`` over a dense cache ``ck``/``cv
+    [b, n_kv, max_len, dh]`` (grouped: the cache is read un-repeated), query
+    ``i`` of lane ``b`` over positions ``<= qpos[b, i]`` within the sliding
+    ``window``: f32 scores and softmax, the weights cast to the cache dtype
+    (the JAX ``Block._decode_attention``)."""
+    b, nh, s, dh = q.shape
+    n_kv, max_len = ck.shape[1], ck.shape[2]
+    qg = q.reshape(b, n_kv, nh // n_kv, s, dh).float()
+    scores = torch.einsum("bngqd,bnkd->bngqk", qg, ck.float()) * (dh ** -0.5)
+    kpos = torch.arange(max_len, device=q.device)
+    live = kpos <= qpos[..., None]                              # [b, s, K]
+    if window is not None:
+        live = live & (kpos > qpos[..., None] - window)
+    scores = torch.where(live[:, None, None], scores,
+                         torch.tensor(_MASK_VALUE, device=q.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngqk,bnkd->bngqd", w.to(cv.dtype).float(),
+                       cv.float())
+    return out.reshape(b, nh, s, dh).to(q.dtype)
+
+
 class CacheFullError(RuntimeError):
     """A decode step was asked to write past ``max_len``: the dense KV
     cache is full (:class:`DenseDecode`; ``generate`` checks its budget up
@@ -197,21 +219,64 @@ class DenseDecode:
         ck, cv = self.k[layer], self.v[layer]
         ck[:, :, pos:pos + s] = k.to(ck.dtype)
         cv[:, :, pos:pos + s] = v.to(cv.dtype)
-        n_kv = ck.shape[1]
-        qg = q.reshape(b, n_kv, nh // n_kv, s, dh).float()
-        scores = torch.einsum("bngqd,bnkd->bngqk", qg, ck.float()) * (
-            dh ** -0.5)
-        qpos = pos + torch.arange(s, device=q.device)[:, None]
-        kpos = torch.arange(self.max_len, device=q.device)[None]
-        live = kpos <= qpos
-        if self.window is not None:
-            live = live & (kpos > qpos - self.window)
-        scores = torch.where(live, scores,
-                             torch.tensor(_MASK_VALUE, device=q.device))
-        w = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bngqk,bnkd->bngqd", w.to(cv.dtype).float(),
-                           cv.float())
-        return out.reshape(b, nh, s, dh).to(q.dtype)
+        qpos = (pos + torch.arange(s, device=q.device))[None].expand(b, s)
+        return cached_attention(q, ck, cv, qpos, self.window)
+
+
+class SlotDense:
+    """The slot engine's dense decode arm (the JAX package's vmapped
+    ``Block._decode_attention`` over batch-1 caches): ``k``/``v`` ``[L, S,
+    n_kv, max_len, dh]`` in the compute dtype — the dense slot cache, or a
+    view gathered from the paged pool — written IN PLACE, one cursor a lane
+    ``cursor [S]`` (RoPE and learned positions at each lane's own offset),
+    and ``n_write [S]``: each lane writes the K/V of its first ``n_write``
+    rows at ``cursor + i`` (0 for an inactive lane, which neither writes
+    nor, by its caller, advances; ``clen`` for a prefill chunk, whose
+    padded rows write nothing).  Every query ``i`` attends over positions
+    ``<= cursor + i`` within the sliding window (:func:`cached_attention`,
+    as :class:`DenseDecode`).  ``adapters`` is the gathered
+    collection (:func:`tpudist_torch.models.lora.gather_collection`).  Plain
+    tensor ops: the JAX dense path runs no Pallas kernel either."""
+
+    fused_rope = False
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 cursor: torch.Tensor, n_write: torch.Tensor, rope: bool,
+                 window: Optional[int], adapters: Optional[dict] = None):
+        self.k, self.v = k, v
+        self.cursor = cursor.long()
+        self.n_write = n_write.long()
+        self.rope = rope
+        self.window = window
+        self.adapters = adapters
+
+    def positions(self, batch: int, seq: int, device) -> torch.Tensor:
+        return self.cursor[:, None] + torch.arange(seq, device=device)
+
+    def attend(self, layer: int, q, k, v, rotated: bool = False):
+        S, s = q.shape[0], q.shape[2]
+        ck, cv = self.k[layer], self.v[layer]
+        max_len = ck.shape[2]
+        dev = q.device
+        pos = self.cursor
+        if self.rope and not rotated:
+            q = rope_rotate(q, offset=pos)
+            k = rope_rotate(k, offset=pos)
+        # rows [0, nw) write at pos + i; the other rows rewrite the old
+        # value of one position outside that range (every lane's written
+        # rows are its leading ones), so duplicate targets carry one value
+        nw = torch.minimum(self.n_write, (max_len - pos).clamp(min=0))
+        rows = torch.arange(s, device=dev)[None]
+        write = rows < nw[:, None]                                # [S, s]
+        spare = ((pos + nw) % max_len)[:, None]
+        cols = torch.where(write, pos[:, None] + rows, spare)
+        lanes = torch.arange(S, device=dev)[:, None]
+        keep = write[:, :, None, None]
+        ck[lanes, :, cols] = torch.where(keep, k.to(ck.dtype).transpose(1, 2),
+                                         ck[lanes, :, cols])
+        cv[lanes, :, cols] = torch.where(keep, v.to(cv.dtype).transpose(1, 2),
+                                         cv[lanes, :, cols])
+        return cached_attention(q, ck, cv, pos[:, None] + rows, self.window)
 
 
 class PagedDecode:
@@ -341,10 +406,18 @@ class Block(nn.Module):
         self.wo = nn.Parameter(torch.empty(d_model, d_ff, dtype=pd))
 
     def _delta(self, ads: dict, h_in: torch.Tensor, proj: str):
-        """The raw adapter delta ``(h·A)·B`` of one projection through the
-        LoRA gather-matmul kernel (each lane's own factor block)."""
-        return lora_delta(h_in.to(self.dtype).contiguous(), ads[f"a_{proj}"],
-                          ads[f"b_{proj}"], ads["ids"], layer=self.layer_idx)
+        """The raw adapter delta ``(h·A)·B`` of one projection: through the
+        LoRA gather-matmul kernel from the pool form (each lane's own
+        factor block), or as two batched products in the compute dtype
+        from pre-gathered factors (:func:`~tpudist_torch.models.lora.
+        gather_collection`, the dense and gather programs)."""
+        h = h_in.to(self.dtype)
+        if "ids" not in ads:
+            a = ads[f"a_{proj}"][self.layer_idx].to(self.dtype)
+            b = ads[f"b_{proj}"][self.layer_idx].to(self.dtype)
+            return torch.bmm(torch.bmm(h, a), b)
+        return lora_delta(h.contiguous(), ads[f"a_{proj}"], ads[f"b_{proj}"],
+                          ads["ids"], layer=self.layer_idx)
 
     def _ad(self, ads: Optional[dict], y: torch.Tensor, h_in: torch.Tensor,
             proj: str) -> torch.Tensor:

@@ -1,8 +1,13 @@
 """Slot-based continuous-batching decode engine — the PyTorch port of
-``tpudist/serve/engine.py`` for the kernel configuration: a paged KV pool
-(native or int8) with the paged decode kernel, the paged prefill kernel and
-the fused sampling kernel, with or without a prefix cache, optionally the
-fused RoPE+QKV kernel (``fused_rope``) and per-tenant LoRA adapters
+``tpudist/serve/engine.py``, the serving mesh aside: a paged KV pool
+(native or int8, with or without a prefix cache) or the dense slot cache
+(``paged=False``: every slot owns ``max_len`` positions and a free slot is
+the whole admission budget); decode through the paged decode kernel or a
+dense view (``attn_kernel="gather"``), prefill through the paged prefill
+kernel or teacher-forced (``prefill_kernel=False``), sampling through the
+fused sampling kernel or the unfused tail (``sample_kernel=False``);
+optionally the fused RoPE+QKV kernel (``fused_rope``) and per-tenant LoRA
+adapters
 (``adapters``: a factor pool beside the KV pool, named adapters bound to
 lanes by the host registry of :mod:`tpudist_torch.serve.adapters`, each
 lane's delta from the LoRA gather-matmul kernel), optionally speculative
@@ -69,8 +74,7 @@ def _pow2_floor(k: int) -> int:
 def _unported(knob: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{knob} is not ported to tpudist_torch yet (ROADMAP.md queue A "
-        f"item {item}); the port's engine runs paged=True, "
-        "attn_kernel='paged', prefill_kernel=True, sample_kernel=True")
+        f"item {item})")
 
 
 class SlotEngine:
@@ -81,6 +85,13 @@ class SlotEngine:
     ``budget`` (``max_new``) and ``temps``; the authoritative state lives on
     the device.  ``model`` is moved to ``device`` (``"cuda"`` by default;
     a box without CUDA raises unless ``device="cpu"``).
+
+    ``attn_kernel`` (``"paged"`` or ``"gather"``) and ``prefill_kernel``
+    left at None take the kernel arms on a paged engine and the dense arms
+    on a dense one (the kernel arms need the pool: asked for on a dense
+    engine, they raise as the JAX engine's do).  ``prefix_cache_blocks``
+    sizes the block allocator's prefix cache and does nothing on a dense
+    engine, which has no allocator.
 
     ``spec_draft`` turns speculative decoding on: an int ties the target's
     first that many layers (:func:`~tpudist_torch.models.tied_draft`), a
@@ -101,8 +112,8 @@ class SlotEngine:
                  paged: bool = True, kv_block: int = 16,
                  kv_blocks: Optional[int] = None, kv_int8: bool = False,
                  prefix_cache_blocks: int = 0,
-                 attn_kernel: str = "paged",
-                 prefill_kernel: bool = True,
+                 attn_kernel: Optional[str] = None,
+                 prefill_kernel: Optional[bool] = None,
                  sample_kernel: bool = True,
                  fused_rope: bool = False,
                  lora_kernel: bool = False,
@@ -113,6 +124,22 @@ class SlotEngine:
                  logprobs: int = 0, device="cuda"):
         # the JAX engine's rules for the kernel family's knobs (env-free
         # here; ServeConfig.from_env parses TPUDIST_SERVE_* once)
+        if attn_kernel is None:
+            attn_kernel = "paged" if paged else "gather"
+        if prefill_kernel is None:
+            prefill_kernel = bool(paged)
+        if attn_kernel not in ("gather", "paged"):
+            raise ValueError(
+                f"attn_kernel must be 'gather' or 'paged', got "
+                f"{attn_kernel!r} (TPUDIST_SERVE_ATTN_KERNEL)")
+        if attn_kernel == "paged" and not paged:
+            raise ValueError(
+                "attn_kernel='paged' walks the paged block pool in-kernel "
+                "— it requires paged=True (TPUDIST_SERVE_PAGED)")
+        if prefill_kernel and not paged:
+            raise ValueError(
+                "prefill_kernel=True is the paged-prefill kernel — it "
+                "requires paged=True (TPUDIST_SERVE_PREFILL_KERNEL)")
         if fused_rope and attn_kernel != "paged" and not prefill_kernel:
             raise ValueError(
                 "fused_rope=True fuses RoPE+QKV on the kernel arms only "
@@ -129,17 +156,12 @@ class SlotEngine:
                 "prefill_kernel=True (TPUDIST_SERVE_LORA_KERNEL)")
         if mesh is not None:
             raise _unported("mesh (the SPMD serving mesh)", "8")
-        if not paged:
-            raise _unported("paged=False (the dense slot cache)", "5")
-        if attn_kernel != "paged":
-            raise _unported(f"attn_kernel={attn_kernel!r}", "5")
-        if not prefill_kernel:
-            raise _unported("prefill_kernel=False", "5")
-        if not sample_kernel:
-            raise _unported("sample_kernel=False", "5")
         self.device = resolve_device(device)
         model = model.to(self.device)
         self.model = model
+        self.attn_kernel = attn_kernel
+        self.prefill_kernel = bool(prefill_kernel)
+        self.sample_kernel = bool(sample_kernel)
         self.fused_rope = bool(fused_rope)
         self.lora_kernel = bool(lora_kernel)
         # -- per-tenant adapters: the factor pool, the host registry, and
@@ -191,16 +213,19 @@ class SlotEngine:
         self.max_len = int(model.max_len)
         if prefill_pad is None:
             prefill_pad = min(self.max_len, 64)
-        kv_block = min(int(kv_block), self.max_len)
-        if self.max_len % kv_block:
-            raise ValueError(
-                f"kv_block {kv_block} must divide max_len {self.max_len}")
-        if kv_blocks is None:
-            # dense-equivalent capacity
-            kv_blocks = num_slots * (self.max_len // kv_block)
-        self.paged_cfg = PagedKVConfig(num_blocks=int(kv_blocks),
-                                       block_size=kv_block,
-                                       quantized=bool(kv_int8))
+        self.paged_cfg: Optional[PagedKVConfig] = None
+        if paged:
+            kv_block = min(int(kv_block), self.max_len)
+            if self.max_len % kv_block:
+                raise ValueError(
+                    f"kv_block {kv_block} must divide max_len "
+                    f"{self.max_len}")
+            if kv_blocks is None:
+                # dense-equivalent capacity
+                kv_blocks = num_slots * (self.max_len // kv_block)
+            self.paged_cfg = PagedKVConfig(num_blocks=int(kv_blocks),
+                                           block_size=kv_block,
+                                           quantized=bool(kv_int8))
         # -- speculative decoding: an int ties the target's first N layers
         # (zero extra parameters), a TransformerLM is a loaded draft
         self.spec = spec_draft is not None
@@ -217,15 +242,21 @@ class SlotEngine:
             raise TypeError(f"spec_draft must be an int or a TransformerLM, "
                             f"got {type(spec_draft).__name__}")
         self.fns = make_slot_decode(model, num_slots, prefill_pad,
-                                    self.paged_cfg,
+                                    self.paged_cfg, attn_kernel=attn_kernel,
+                                    prefill_kernel=self.prefill_kernel,
+                                    sample_kernel=self.sample_kernel,
                                     fused_rope=self.fused_rope,
                                     lora_kernel=self.lora_kernel,
                                     adapters=self.adapter_cfg,
                                     spec=self.draft_model,
                                     constrain=constrain, logprobs=self.n_lp)
-        self.alloc = BlockAllocator(self.paged_cfg.num_blocks, kv_block,
-                                    self.max_len,
-                                    prefix_cache_blocks=prefix_cache_blocks)
+        #: the block allocator (None on the dense engine: a free slot is
+        #: the whole admission budget)
+        self.alloc: Optional[BlockAllocator] = None
+        if paged:
+            self.alloc = BlockAllocator(
+                self.paged_cfg.num_blocks, kv_block, self.max_len,
+                prefix_cache_blocks=prefix_cache_blocks)
         self.num_slots = num_slots
         self.prefill_pad = prefill_pad
         self.block = max(1, int(decode_block if decode_block else 8))
@@ -272,6 +303,10 @@ class SlotEngine:
         self.kv_read_bytes_total = 0
         self.prefill_read_bytes_total = 0
         self.prefill_write_bytes_total = 0
+        #: the dense arena's resident bytes (0 on a paged engine)
+        self._dense_resident_bytes = (
+            0 if paged else int(num_slots * self.max_len
+                                * self._bytes_per_pos()))
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -346,7 +381,9 @@ class SlotEngine:
                        "acceptance_rate": (a / d if d else None)}
                 for name, (a, d) in sorted(self.spec_adapter_counts.items())}
         if self.spec:
-            out["draft_pool_bytes"] = self.fns.draft_paged.pool_bytes
+            out["draft_pool_bytes"] = (
+                self.fns.draft_paged.pool_bytes if self.alloc is not None
+                else self.dcache.k.nbytes + self.dcache.v.nbytes)
         return out
 
     def swap_draft(self, new_params):
@@ -354,42 +391,87 @@ class SlotEngine:
             "swap_draft (the draft hot-swap of tpudist.distill) is not "
             "ported to tpudist_torch yet (ROADMAP.md queue A item 8)")
 
+    def _bytes_per_pos(self) -> float:
+        """Resident KV bytes per cached position: the pool's (int8 and
+        scales when quantized) or the dense cache's K and V rows over every
+        layer."""
+        if self.alloc is not None:
+            return self.fns.paged.bytes_per_pos
+        m = self.model
+        itemsize = torch.empty((), dtype=m.dtype).element_size()
+        return float(2 * m.n_layers * m.n_kv * m.head_dim * itemsize)
+
     def _decode_kv_read_bytes(self, pos0: np.ndarray, passes: int,
                               window_per_lane: int) -> int:
-        """KV bytes one decode dispatch's attention streams: each pass walks
-        every lane's live blocks (whole blocks) plus its window positions
-        (unquantized, in the compute dtype)."""
+        """KV bytes one decode dispatch's attention streams, per the arm
+        (the JAX engine's model): on the paged kernel each pass walks every
+        lane's live blocks (whole blocks) plus its window positions
+        (unquantized, in the compute dtype); on the gather and dense arms
+        every pass sweeps the full ``[num_slots, max_len]`` view."""
+        bpp = self._bytes_per_pos()
+        if self.attn_kernel != "paged":
+            return int(passes * self.num_slots * self.max_len * bpp)
         pg = self.fns.paged
         bs = self.paged_cfg.block_size
         live = ((pos0.astype(np.int64) + bs - 1) // bs) * bs
         itemsize = torch.empty((), dtype=pg.compute_dtype).element_size()
         window_bpp = 2 * pg.n_layers * pg.n_kv * pg.dh * itemsize
-        return int(passes * int(live.sum()) * pg.bytes_per_pos
+        return int(passes * int(live.sum()) * bpp
                    + len(pos0) * window_per_lane * window_bpp)
 
-    def _prefill_kv_bytes(self, pos0: np.ndarray,
-                          clens: np.ndarray) -> Tuple[int, int]:
-        """``(read, write)`` KV bytes of one prefill dispatch: each lane
-        walks its pool prefix in whole blocks and writes the blocks its
-        chunk ``[pos0, pos0 + clen)`` covers."""
-        bpp = self.fns.paged.bytes_per_pos
-        bs = self.paged_cfg.block_size
+    def _prefill_kv_bytes(self, pos0: np.ndarray, clens: np.ndarray,
+                          lanes: int) -> Tuple[int, int]:
+        """``(read, write)`` KV bytes of one prefill dispatch, per the arm:
+        the kernel walks each lane's pool prefix in whole blocks and writes
+        the blocks its chunk ``[pos0, pos0 + clen)`` covers; the
+        teacher-forced arm builds a ``max_len`` dense view for each of its
+        ``lanes`` and sweeps it once in its one forward (the JAX scan
+        sweeps it once a padded step), and writes back the static span of
+        blocks a chunk can touch (the dense engine: the whole lane)."""
+        bpp = self._bytes_per_pos()
         pos0 = np.asarray(pos0, np.int64)
         clens = np.asarray(clens, np.int64)
-        pref = ((pos0 + bs - 1) // bs) * bs
-        touched = np.where(clens > 0,
-                           (pos0 + clens - 1) // bs - pos0 // bs + 1, 0)
-        return int(pref.sum() * bpp), int(touched.sum() * bs * bpp)
+        live = clens > 0
+        if self.prefill_kernel:
+            bs = self.paged_cfg.block_size
+            pref = ((pos0 + bs - 1) // bs) * bs
+            touched = np.where(live,
+                               (pos0 + clens - 1) // bs - pos0 // bs + 1, 0)
+            return int(pref.sum() * bpp), int(touched.sum() * bs * bpp)
+        read = lanes * 2 * self.max_len * bpp
+        if self.alloc is not None:
+            pg = self.fns.paged
+            write = int(live.sum()) * pg.touch_count(self.prefill_pad) * \
+                self.paged_cfg.block_size * bpp
+        else:
+            write = int(live.sum()) * self.max_len * bpp
+        return int(read), int(write)
 
     def kv_stats(self) -> Dict[str, object]:
-        """KV residency accounting (the serving report's capacity story)."""
+        """KV residency accounting (the serving report's capacity story):
+        the dense engine pins its whole arena, the paged engine the blocks
+        tenants and the prefix cache hold."""
+        arms = {"attn_kernel": self.attn_kernel,
+                "prefill_kernel": self.prefill_kernel,
+                "sample_kernel": self.sample_kernel,
+                "fused_rope": self.fused_rope,
+                "lora_kernel": self.lora_kernel,
+                "prefill_read_bytes": self.prefill_read_bytes_total,
+                "prefill_write_bytes": self.prefill_write_bytes_total}
+        if self.alloc is None:
+            return {
+                "paged": False, **arms, "quantized": False,
+                "block_size": None, "blocks_total": None,
+                "blocks_in_use": None, "blocks_free": None,
+                "cached_blocks": None, "block_occupancy": None,
+                "pool_bytes": self._dense_resident_bytes,
+                "bytes_resident": self._dense_resident_bytes,
+                "bytes_per_pos": self._bytes_per_pos(),
+                "peak_occupied_slots": self.peak_occupied,
+            }
         pg, al = self.fns.paged, self.alloc
         return {
-            "paged": True, "attn_kernel": "paged", "prefill_kernel": True,
-            "sample_kernel": True, "fused_rope": self.fused_rope,
-            "lora_kernel": self.lora_kernel,
-            "prefill_read_bytes": self.prefill_read_bytes_total,
-            "prefill_write_bytes": self.prefill_write_bytes_total,
+            "paged": True, **arms,
             "quantized": self.paged_cfg.quantized,
             "block_size": self.paged_cfg.block_size,
             "blocks_total": al.num_blocks,
@@ -589,10 +671,11 @@ class SlotEngine:
         if prompt_len + max_new > self.max_len:
             return (f"budget_exceeded: prompt {prompt_len} + max_new "
                     f"{max_new} > max_len {self.max_len}")
-        need = self.alloc.blocks_needed(prompt_len, max_new)
-        if need > self.alloc.num_blocks:
-            return (f"kv_exhausted: footprint {need} blocks > pool "
-                    f"{self.alloc.num_blocks}")
+        if self.alloc is not None:
+            need = self.alloc.blocks_needed(prompt_len, max_new)
+            if need > self.alloc.num_blocks:
+                return (f"kv_exhausted: footprint {need} blocks > pool "
+                        f"{self.alloc.num_blocks}")
         return None
 
     def cache_full_slots(self) -> List[int]:
@@ -606,7 +689,10 @@ class SlotEngine:
                      prefix_hashes: Sequence[str] = (), *,
                      reserve: int = 0) -> bool:
         """Would the pool cover this request right now, on top of
-        ``reserve`` blocks promised to same-batch admissions?"""
+        ``reserve`` blocks promised to same-batch admissions?  Always on
+        the dense engine."""
+        if self.alloc is None:
+            return True
         return self.alloc.can_admit(prompt_len, max_new, prefix_hashes,
                                     reserve=reserve)
 
@@ -614,7 +700,10 @@ class SlotEngine:
                            prefix_hashes: Sequence[str] = (), *,
                            reserve: int = 0, protect: Sequence[int] = ()):
         """``(fresh_blocks, reused_ids)`` if the pool covers this request on
-        top of ``reserve`` and ``protect``, else ``None``."""
+        top of ``reserve`` and ``protect``, else ``None`` (``(0, [])`` on the
+        dense engine)."""
+        if self.alloc is None:
+            return 0, []
         return self.alloc.probe(prompt_len, max_new, prefix_hashes,
                                 reserve=reserve, protect=protect)
 
@@ -699,29 +788,33 @@ class SlotEngine:
             for slot in bound:
                 self._release_adapter(slot)
             raise
-        M = self.max_len // self.paged_cfg.block_size
-        tables = np.full((S, M), self.paged_cfg.num_blocks, np.int32)
         reused_len = np.zeros(S, np.int32)
-        admitted = []
-        # pin every item's reusable chain for the whole batch
-        protect: List[int] = []
-        for _, prompt, _, _, _, hashes in norm:
-            protect.extend(self.alloc.reusable_blocks(len(prompt), hashes))
-        try:
-            for j, (slot, prompt, _, _, max_new, hashes) in enumerate(norm):
-                row, reused = self.alloc.admit(slot, len(prompt), max_new,
-                                               hashes, protect=protect)
-                admitted.append(slot)
-                tables[j, :len(row)] = row
-                reused_len[j] = reused
-        except RuntimeError:
-            for slot in admitted:
-                self.alloc.release(slot)
-            for slot in bound:
-                self._release_adapter(slot)
-            for slot in gbound:
-                self._release_grammar(slot)
-            raise
+        if self.alloc is not None:
+            M = self.max_len // self.paged_cfg.block_size
+            tables = np.full((S, M), self.paged_cfg.num_blocks, np.int32)
+            admitted = []
+            # pin every item's reusable chain for the whole batch
+            protect: List[int] = []
+            for _, prompt, _, _, _, hashes in norm:
+                protect.extend(self.alloc.reusable_blocks(len(prompt),
+                                                          hashes))
+            try:
+                for j, (slot, prompt, _, _, max_new, hashes) in \
+                        enumerate(norm):
+                    row, reused = self.alloc.admit(slot, len(prompt),
+                                                   max_new, hashes,
+                                                   protect=protect)
+                    admitted.append(slot)
+                    tables[j, :len(row)] = row
+                    reused_len[j] = reused
+            except RuntimeError:
+                for slot in admitted:
+                    self.alloc.release(slot)
+                for slot in bound:
+                    self._release_adapter(slot)
+                for slot in gbound:
+                    self._release_grammar(slot)
+                raise
         for j, (slot, prompt, temperature, seed, _, _) in enumerate(norm):
             rest = len(prompt) - int(reused_len[j])
             clen = min(rest, pad)
@@ -731,14 +824,17 @@ class SlotEngine:
             seeds[j] = seed & 0xFFFFFFFF
             temps[j] = temperature
             last[j] = rest <= pad
+        # the paged programs take each lane's table row and reused length
+        where = (() if self.alloc is None
+                 else (self._t(tables), self._t(reused_len)))
         self.state, self.cache, firsts = self.fns.insert_batch(
-            self.state, self.cache, self._t(tables), self._t(reused_len),
-            self._t(prompts), self._t(clens), self._t(dsts), self._t(seeds),
-            self._t(temps), self._t(last), sampled=bool((temps > 0).any()),
+            self.state, self.cache, *where, self._t(prompts),
+            self._t(clens), self._t(dsts), self._t(seeds), self._t(temps),
+            self._t(last), sampled=bool((temps > 0).any()),
             aids=self._t(aids), apool=self.apool, gids=self._t(gids),
             gpool=self.gpool)
         self.n_forwards += 1
-        r, w = self._prefill_kv_bytes(reused_len, clens)
+        r, w = self._prefill_kv_bytes(reused_len, clens, S)
         self.prefill_read_bytes_total += r
         self.prefill_write_bytes_total += w
         if self.spec:
@@ -746,9 +842,8 @@ class SlotEngine:
             # blocks mirror the target's ids, so a reused prefix's draft
             # K/V is already in place
             self.dcache = self.fns.draft_prefill(
-                self.dcache, self._t(tables), self._t(reused_len),
-                self._t(prompts), self._t(clens), self._t(dsts),
-                aids=self._t(aids), apool=self.apool)
+                self.dcache, *where, self._t(prompts), self._t(clens),
+                self._t(dsts), aids=self._t(aids), apool=self.apool)
             self.n_draft_forwards += 1
         firsts_h = firsts.cpu().numpy() if last.any() else None
         out: Dict[int, Optional[int]] = {}
@@ -758,7 +853,8 @@ class SlotEngine:
             self.temps[slot] = temperature
             self.spec_on[slot] = spec_flags[slot]
             self.pos[slot] = reused_len[j] + clens[j]
-            self.alloc.note_progress(slot, int(self.pos[slot]))
+            if self.alloc is not None:
+                self.alloc.note_progress(slot, int(self.pos[slot]))
             if last[j]:
                 self.decoding[slot] = True
                 self.counts[slot] = 1
@@ -794,14 +890,19 @@ class SlotEngine:
                     self.dcache, slot, self._t(chunk), clen,
                     aids=self.state.adapter_id, apool=self.apool)
                 self.n_draft_forwards += 1
-            # the one-hot batched program walks every lane's prefix
-            r, w = self._prefill_kv_bytes(
-                self.pos, np.where(np.arange(self.num_slots) == slot, clen,
-                                   0))
+            if self.prefill_kernel:
+                # the one-hot batched program walks every lane's prefix
+                r, w = self._prefill_kv_bytes(
+                    self.pos, np.where(np.arange(self.num_slots) == slot,
+                                       clen, 0), self.num_slots)
+            else:
+                r, w = self._prefill_kv_bytes(self.pos[slot:slot + 1],
+                                              np.asarray([clen]), 1)
             self.prefill_read_bytes_total += r
             self.prefill_write_bytes_total += w
             self.pos[slot] += clen
-            self.alloc.note_progress(slot, int(self.pos[slot]))
+            if self.alloc is not None:
+                self.alloc.note_progress(slot, int(self.pos[slot]))
             if is_last:
                 del self._prefill_rest[slot]
                 self.decoding[slot] = True
@@ -1047,17 +1148,20 @@ class SlotEngine:
         tenant or prefix-cache entry still holds, reset the device state
         and the host shadows, and unpin its adapter and grammar (a deferred
         adapter unload completes here)."""
-        freed = self.alloc.release(slot)
-        M = self.max_len // self.paged_cfg.block_size
-        free_ids = np.full(M, self.paged_cfg.num_blocks, np.int32)
-        free_ids[:len(freed)] = freed
-        self.state, self.cache = self.fns.evict(
-            self.state, self.cache, int(slot), self._t(free_ids))
+        freed = ()
+        if self.alloc is not None:
+            freed = self.alloc.release(slot)
+            M = self.max_len // self.paged_cfg.block_size
+            free_ids = np.full(M, self.paged_cfg.num_blocks, np.int32)
+            free_ids[:len(freed)] = freed
+            freed = (self._t(free_ids),)
+        self.state, self.cache = self.fns.evict(self.state, self.cache,
+                                                int(slot), *freed)
         if self.spec:
             # the same recycled block ids: the draft pool's copies are
             # zeroed beside the target's
             self.dcache = self.fns.draft_evict(self.dcache, int(slot),
-                                               self._t(free_ids))
+                                               *freed)
         self._release_adapter(slot)
         self._release_grammar(slot)
         self.occupied[slot] = False

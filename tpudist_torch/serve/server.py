@@ -71,10 +71,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass
 class ServeConfig:
     """Serving knobs; :meth:`from_env` reads the ``TPUDIST_SERVE_*``
-    family.  The port's engine runs the kernel configuration only, so
-    ``paged``, ``attn_kernel="paged"``, ``prefill_kernel`` and
-    ``sample_kernel`` default on; another value raises
-    ``NotImplementedError`` at engine construction.  ``fused_rope``,
+    family.  Every engine arm of the JAX server builds, but the defaults
+    differ: the port's ``paged``, ``attn_kernel="paged"``,
+    ``prefill_kernel`` and ``sample_kernel`` default to the hand-written
+    kernels, where the JAX server's default to the dense slot cache, the
+    gather decode, the teacher-forced prefill and the unfused sampling
+    tail.  ``paged=False, attn_kernel="gather", prefill_kernel=False,
+    sample_kernel=False`` — or ``TPUDIST_SERVE_PAGED=0
+    TPUDIST_SERVE_SAMPLE_KERNEL=0`` through :meth:`from_env`, where
+    ``PAGED=0`` leaves ``ATTN_KERNEL`` and ``PREFILL_KERNEL``, when unset,
+    at the dense arms — is the JAX server's default configuration.  The
+    kernel arms need the pool: with ``paged=False`` they raise.
+    ``prefix_cache_blocks`` sizes the block allocator only, so on a dense
+    engine it does nothing (as in JAX).  ``fused_rope``,
     ``lora_kernel``, the adapter knobs and the speculative-decoding knobs
     keep the JAX package's defaults (off; 8 blocks of rank 8; K = 4 with a
     draft tied to half the target's layers), and so do the structured-output
@@ -86,14 +95,14 @@ class ServeConfig:
     prefill_pad: Optional[int] = None  # chunk size; None: min(max_len, 64)
     deadline_s: Optional[float] = None  # default per-request deadline
     decode_block: int = 8  # max fused decode tokens per dispatch (K)
-    paged: bool = True
+    paged: bool = True  # block pool + block tables, not the dense cache
     kv_block: int = 16  # tokens per KV block (must divide max_len)
     kv_blocks: Optional[int] = None  # None = num_slots * max_len / kv_block
     kv_int8: bool = False  # int8 KV storage + per-block scales
     prefix_cache_blocks: int = 0  # shared-prefix LRU cache bound (blocks)
-    attn_kernel: str = "paged"
-    prefill_kernel: bool = True
-    sample_kernel: bool = True
+    attn_kernel: str = "paged"  # or "gather": decode over a dense view
+    prefill_kernel: bool = True  # False: the teacher-forced prefill
+    sample_kernel: bool = True  # False: the unfused sampling tail
     fused_rope: bool = False  # fused RoPE+QKV kernel on the kernel arms
     lora_kernel: bool = False  # LoRA gather-matmul (requires adapters)
     # -- per-tenant adapters: per-request ``adapter=`` names decode through
@@ -140,6 +149,9 @@ class ServeConfig:
             name = f"TPUDIST_SERVE_{suffix}"
             if os.environ.get(name, "").strip():
                 raise _not_ported(f"{name} ({what})", item)
+        # without a pool the kernel arms that need one default off, as the
+        # JAX server's do; set explicitly they raise at the engine
+        paged = env_flag("TPUDIST_SERVE_PAGED", True)
         return cls(
             num_slots=env_int("TPUDIST_SERVE_SLOTS", 4) or 4,
             queue_limit=env_int("TPUDIST_SERVE_QUEUE", 64) or 64,
@@ -147,15 +159,16 @@ class ServeConfig:
             prefill_pad=env_int("TPUDIST_SERVE_PREFILL_PAD", None),
             deadline_s=env_positive_float("TPUDIST_SERVE_DEADLINE_S", None),
             decode_block=env_int("TPUDIST_SERVE_DECODE_BLOCK", 8) or 8,
-            paged=env_flag("TPUDIST_SERVE_PAGED", True),
+            paged=paged,
             kv_block=env_int("TPUDIST_SERVE_KV_BLOCK", 16) or 16,
             kv_blocks=env_int("TPUDIST_SERVE_KV_BLOCKS", None),
             kv_int8=env_flag("TPUDIST_SERVE_KV_INT8", False),
             prefix_cache_blocks=env_int(
                 "TPUDIST_SERVE_PREFIX_CACHE", 0) or 0,
             attn_kernel=os.environ.get(
-                "TPUDIST_SERVE_ATTN_KERNEL", "").strip() or "paged",
-            prefill_kernel=env_flag("TPUDIST_SERVE_PREFILL_KERNEL", True),
+                "TPUDIST_SERVE_ATTN_KERNEL", "").strip()
+            or ("paged" if paged else "gather"),
+            prefill_kernel=env_flag("TPUDIST_SERVE_PREFILL_KERNEL", paged),
             sample_kernel=env_flag("TPUDIST_SERVE_SAMPLE_KERNEL", True),
             fused_rope=env_flag("TPUDIST_SERVE_FUSED_ROPE", False),
             lora_kernel=env_flag("TPUDIST_SERVE_LORA_KERNEL", False),
@@ -231,7 +244,7 @@ class InferenceServer:
             spec_draft=cfg.resolve_spec_draft(model), spec_k=cfg.spec_k,
             constrain=ccfg, logprobs=cfg.logprobs, device=device)
         hasher = None
-        if cfg.prefix_cache_blocks > 0:
+        if cfg.paged and cfg.prefix_cache_blocks > 0:
             from tpudist_torch.serve.paged_alloc import hash_chain
 
             bs = self.engine.paged_cfg.block_size
