@@ -240,10 +240,28 @@ order; any failure exits non-zero:
    ``lora_kernel`` on, four adapters loaded and the even lanes on one,
    each lane's stream equal to the dense sequential ``generate`` with its
    adapter merged into the weights or leaving it at a near tie; at head
-   dim 80 every paged launch on the tensor cores.
+   dim 80 every paged launch on the tensor cores;
+17. sequence parallelism (:func:`seq_parallel_path`): (a) ring attention
+   over 4 shards of 2048 on one card (a ``LocalRing``: the launches a rank
+   of a 4-rank ring would run) at b 2, h 8, s 8192, dh 128, bf16
+   (``RING_CASES``: causal, causal GQA 8/2, window 512 GQA, zigzag,
+   non-causal), forward and backward held against the single-call flash
+   attention and against the plain carry body, the flash launches counted
+   (causal 10 of each kernel, window 512 7, zigzag and non-causal 16),
+   causal again at ``inner_block`` 512 bit for bit, forward + backward
+   timed beside the single call; the hop shapes' kernels (``RING_HOPS``:
+   an unmasked 2048 block and window 512's corner band, f32 output)
+   against their plain versions and timed; (b) the entry point's
+   configuration at ``--seq_shards 4`` against ``--seq_shards 1`` on the
+   same batches (seq 8192, batch 2, d1024): f32 at 2 layers within
+   ``SEQ_F32_RTOL`` a step, then bf16 at 8 layers for 10 steps (step ms,
+   tokens/s, MFU, peak memory, 80 flash forward launches a step against 8,
+   all on the wgmma arms) within ``SEQ_BF16_RTOL`` a step, and a ring
+   whose last hop leaves K/V in place outside it.
 
 It prints the kernels' JSON record (a kernel with several arms also lists
-each arm's time on the same inputs and its launches on the main path) and
+each arm's time on the same inputs and its launches on the main path; the
+flash kernels also their phase 17 launches and hop-shape times) and
 the ``nvidia-smi`` line before the last line, which is the contract line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
@@ -552,6 +570,39 @@ PUBLIC_CONFIGS = (
 PUBLIC_SEQ, PUBLIC_BATCH, PUBLIC_STEPS, PUBLIC_WARMUP = 2048, 2, 10, 3
 PUBLIC_REQUESTS = 8
 PUBLIC_NAMES = ("a0", None, "a1", None, "a2", None, "a3", None)
+# phase 17: sequence parallelism.  (a) the ring at the training path's
+# attention at 4x its context (b 2, h 8, s 8192, dh 128, bf16) over 4 local
+# shards of 2048: (name, layout, causal, window, inner_block, kv heads); an
+# inner_block changes nothing on the kernel body, so that case runs again
+# with it and must give the same bits and launches
+RING_SHARDS, RING_B, RING_H, RING_S = 4, 2, 8, 8192
+RING_CASES = (("causal", "ring", True, None, 512, 8),
+              ("causal gqa", "ring", True, None, None, 2),
+              ("window 512 gqa", "ring", True, 512, None, 2),
+              ("zigzag", "zigzag", True, None, None, 8),
+              ("non-causal", "ring", False, None, None, 8))
+# the hop shapes' kernels held and timed: a later hop's unmasked block and
+# window 512's corner band over shards of 2048 (only the first 511 query
+# rows have a live key), each with the f32 output the ring merges
+RING_HOPS = (("ring hop unmasked", 2, 8, 8, 2048, DH, "bf16", (None, None)),
+             ("ring hop corner band", 2, 8, 2, 2048, DH, "bf16",
+              (None, 512 - 2048)))
+# (b) the entry point at --seq_shards 4 against --seq_shards 1 on the same
+# batches: the main training geometry at seq 8192, batch 2 (phase 7's
+# tokens a step), 10 steps in bf16; the f32 pair at 2 layers, 5 steps, each
+# step's loss within SEQ_F32_RTOL (the same sums in another order)
+SEQ_ARGS = ["--device", "cuda", "--seq_len", "8192", "--d_model", "1024",
+            "--n_layers", "8", "--n_heads", "8", "--d_ff", "4096",
+            "--vocab", "256", "--batch_size", "2", "--lr", "3e-4",
+            "--seed", "0"]
+SEQ_STEPS, SEQ_F32_STEPS, SEQ_F32_LAYERS = 10, 5, 2
+SEQ_F32_RTOL = 1e-4
+# bf16 runs of the two layouts round at other places: each step's losses
+# within this relative gap of each other; a ring whose last hop leaves K/V
+# in place (one live block a layer read twice, another never) must leave it.
+# On an H100 80GB HBM3 at 700 W the sound ring read 2.18e-5 and the stale
+# one 1.26e-3: the bound sits ~9x above the one and ~6x below the other
+SEQ_BF16_RTOL = 2e-4
 
 
 def log(msg: str) -> None:
@@ -644,6 +695,19 @@ def kernel_split(torch, fn, flush, names, n: int = 30) -> dict:
             return {name: statistics.mean(t) for name, t in seen.items()}
     raise AssertionError(f"the profiler recorded too few launches of "
                          f"{names}: {({k: len(v) for k, v in seen.items()})}")
+
+
+def band_live_extent(seq_q: int, seq_k: int, band) -> tuple:
+    """``(rows, keys)``: the query rows with a live key in ``band`` and the
+    keys with a live query row, the most of each operand a banded launch
+    must read (its outputs are written whole)."""
+    lo = -seq_k if band[0] is None else band[0]
+    hi = seq_q + seq_k if band[1] is None else band[1]
+    rows = sum(max(0, i - hi + 1) <= min(seq_k - 1, i - lo)
+               for i in range(seq_q))
+    keys = sum(max(0, j + lo) <= min(seq_q - 1, j + hi - 1)
+               for j in range(seq_k))
+    return rows, keys
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -3817,7 +3881,7 @@ class PlainCausal:
         if group > 1:
             k = k.repeat_interleave(group, dim=1)
             v = v.repeat_interleave(group, dim=1)
-        return attention_reference(q, k, v)
+        return attention_reference(q, k, v, causal=True)
 
 
 def grad_readings(torch, bf16_ctx=None) -> dict:
@@ -4173,6 +4237,368 @@ def public_widths_path(torch, card: str) -> dict:
         log(f"phase {cfg['phase']} wall: {out[cfg['phase']]['wall_s']:.1f} "
             f"s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: sequence parallelism — the ring on the flash kernels
+
+
+def ring_launches(n: int, causal: bool, window, shard: int,
+                  zigzag: bool = False) -> int:
+    """Flash launches of one ring forward over ``n`` local shards (each of
+    the backward's dq and dk/dv kernels launches as often): a launch per
+    shard and live hop.  Causal: the diagonal hops plus, at hop t, the
+    ``n - t`` shards whose block comes from the past, until a window's band
+    leaves every shard; zigzag: one launch per shard and hop."""
+    if zigzag or not causal:
+        return n * n
+    total = n
+    for step in range(1, n):
+        if window is not None and window - step * shard <= -(shard - 1):
+            break
+        total += n - step
+    return total
+
+
+def ring_case(torch, gen, case) -> dict:
+    """One ``RING_CASES`` case: the ring's forward and backward over 4
+    local shards on the flash kernels, its launches counted (counts zeroed
+    just before), held against the single-call flash attention of phase 3b
+    over the whole sequence and against the plain carry body on the same
+    inputs (:func:`flash_agreement`'s bounds: the bf16 output's over max|V|,
+    the bf16 gradients'), and timed forward + backward beside the single
+    call."""
+    from tpudist_torch import ops
+    from tpudist_torch.ops import FlashAttention
+    from tpudist_torch.parallel import (LocalRing, make_ring_attention,
+                                        make_zigzag_ring_attention,
+                                        zigzag_indices)
+
+    name, layout, causal, window, inner, h_kv = case
+    b, h, s, n = RING_B, RING_H, RING_S, RING_SHARDS
+    if inner is not None and (layout != "ring" or window is not None):
+        raise ValueError(f"phase 17 {name}: inner_block is checked on the "
+                         f"plain causal ring only")
+    q, g = (torch.randn(b, h, s, DH, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, h_kv, s, DH, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    vmax = float(v.float().abs().max())
+    ring = LocalRing(n)
+    if layout == "zigzag":
+        pi = torch.as_tensor(zigzag_indices(s, n), device="cuda").long()
+        attn = make_zigzag_ring_attention(ring)
+        plain = make_zigzag_ring_attention(ring, kernel="xla")
+    else:
+        pi = torch.arange(s, device="cuda")
+        attn = make_ring_attention(ring, causal=causal, window=window)
+        plain = make_ring_attention(ring, causal=causal, window=window,
+                                    inner_block=inner, kernel="xla")
+    qp, kp, vp, gp = (t[:, :, pi].contiguous() for t in (q, k, v, g))
+
+    def run(fn, *ts, cot):
+        leaves = [t.detach().requires_grad_(True) for t in ts]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, cot))
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = run(attn, qp, kp, vp, cot=gp)
+    torch.cuda.synchronize()
+    counts = {k_: v_ for k_, v_ in ops.launch_counts().items() if v_}
+    want_n = ring_launches(n, causal, window, s // n, layout == "zigzag")
+    res = dict(case=name, launches=counts, expected_launches=want_n)
+    if counts != {kn: want_n for kn in TRAIN_KERNELS}:
+        raise AssertionError(f"phase 17 {name}: launches {counts}, not "
+                             f"{want_n} of each flash kernel")
+    if inner is not None:
+        # the kernel body's tiles already bound the score memory, so
+        # inner_block only checks that it divides the shard
+        ops.reset_launch_counts()
+        again = run(make_ring_attention(ring, causal=causal,
+                                        inner_block=inner),
+                    qp, kp, vp, cot=gp)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        res["inner_block"] = dict(inner_block=inner, bit_for_bit=same,
+                                  launches={k_: v_ for k_, v_ in
+                                            ops.launch_counts().items()
+                                            if v_})
+        del again
+        if not same or res["inner_block"]["launches"] != counts:
+            raise AssertionError(f"phase 17 {name}: inner_block {inner} "
+                                 f"changed the kernel ring: "
+                                 f"{res['inner_block']}")
+
+    def single(q_, k_, v_):
+        return FlashAttention.apply(q_, k_, v_, causal, window)[0]
+
+    ref = [t[:, :, pi] for t in run(single, q, k, v, cot=g)]
+    res["vs_single_call"] = {
+        t: flash_agreement(torch, a, r, torch.bfloat16, t != "out", vmax)
+        for t, a, r in zip(("out", "dq", "dk", "dv"), got, ref)}
+    del ref
+    pl = run(plain, qp, kp, vp, cot=gp)
+    res["vs_plain"] = {
+        t: flash_agreement(torch, a, r, torch.bfloat16, t != "out", vmax)
+        for t, a, r in zip(("out", "dq", "dk", "dv"), got, pl)}
+    del pl, got
+    torch.cuda.empty_cache()
+    for against in ("vs_single_call", "vs_plain"):
+        for t, r in res[against].items():
+            if not (r["elementwise_ok"] and r["rows_ok"] and r["rms_ok"]):
+                raise AssertionError(f"phase 17 {name}: the ring's {t} "
+                                     f"leaves {against}: {r}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (qp, kp, vp)]
+    sleaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    res["ring_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        attn(*leaves), leaves, gp), flush, n=10, warmup=2)
+    res["single_fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+        single(*sleaves), sleaves, g), flush, n=10, warmup=2)
+    worst = max(r["worst_row_of_mean"] for a in ("vs_single_call",
+                                                  "vs_plain")
+                for r in res[a].values())
+    log(f"phase 17 ring {name} (b {b} h {h}/{h_kv} s {s} over {n} shards, "
+        f"bf16): launches {counts}"
+        + (f" (inner_block {inner}: the same bits and launches)"
+           if inner is not None else "")
+        + "; vs single-call flash rel RMS "
+        + ", ".join(f"{t} {r['rel_rms']:.2e}"
+                    for t, r in res["vs_single_call"].items())
+        + "; vs the plain body "
+        + ", ".join(f"{t} {r['rel_rms']:.2e}"
+                    for t, r in res["vs_plain"].items())
+        + f" (worst row {worst:.2e} of the mean); forward + backward "
+        f"{res['ring_fwd_bwd_ms']:.3f} ms, single call "
+        f"{res['single_fwd_bwd_ms']:.3f} ms")
+    return res
+
+
+def ring_hop_readings(torch, gen, flush, case) -> dict:
+    """One ``RING_HOPS`` shape: the forward (f32 output, as the ring calls
+    it), dq and dk/dv kernels against their plain versions
+    (:func:`flash_case_readings`), then each timed as phase 3 times it
+    beside its plain version, its bound by operations over the live pairs
+    and, for the unmasked hop, ``scaled_dot_product_attention``'s forward
+    and backward (K/V expanded outside the timed call; the corner band has
+    no library call that gives its dead rows 0).  The bound's bytes read
+    only the query rows and keys the band leaves live
+    (:func:`band_live_extent`) and write every output row.  ``{kernel:
+    {ms, plain_ms, library_ms, bound}}`` under ``kernels``."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.ops.flash_attention import (
+        band_live_pairs, flash_backward_dkv, flash_backward_dq,
+        flash_backward_reference, flash_forward, flash_forward_reference)
+
+    name, b, h, h_kv, s, d, _, band = case
+    readings = flash_case_readings(torch, gen, case)
+    if not readings["ok"]:
+        raise AssertionError(f"phase 17 {name}: the kernels disagree with "
+                             f"their plain versions: {readings}")
+    q, g = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, h_kv, s, d, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    out, lse = flash_forward(q, k, v, band, out_f32=True)
+    delta = (out * g.float()).sum(-1).contiguous()
+    work = b * h * band_live_pairs(s, s, band)
+    qb, kvb, rows = q.numel() * 2, k.numel() * 2, b * h * s * 4
+    live_q, live_k = band_live_extent(s, s, band)
+    # reads of the live rows (q, dO, lse, delta) and keys (k, v)
+    qr, kvr, rr = qb * live_q // s, kvb * live_k // s, rows * live_q // s
+    sdpa_fwd = sdpa_bwd = None
+    if band == (None, None):
+        ke, ve = (t.repeat_interleave(h // h_kv, dim=1).requires_grad_(True)
+                  for t in (k, v))
+        qa = q.detach().requires_grad_(True)
+        o_sdpa = F.scaled_dot_product_attention(qa, ke, ve)
+        sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            o_sdpa, (qa, ke, ve), g, retain_graph=True), flush)
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, ke, ve), flush)
+    res = dict(readings=readings, kernels={})
+    for kname, kern, plain, nbytes, flops, lib in (
+            ("flash_forward",
+             lambda: flash_forward(q, k, v, band, out_f32=True),
+             lambda: flash_forward_reference(q, k, v, band, out_f32=True),
+             qr + 2 * kvr + 2 * qb + rows, 4 * work * d, sdpa_fwd),
+            ("flash_backward_dq", lambda: flash_backward_dq(
+                q, k, v, g, lse, delta, band),
+             lambda: flash_backward_reference(q, k, v, g, lse, delta, band),
+             2 * qr + 2 * kvr + 2 * rr + qb, 6 * work * d, sdpa_bwd),
+            ("flash_backward_dkv", lambda: flash_backward_dkv(
+                q, k, v, g, lse, delta, band),
+             lambda: flash_backward_reference(q, k, v, g, lse, delta, band),
+             2 * qr + 2 * kvr + 2 * rr + 2 * kvb, 8 * work * d,
+             sdpa_bwd)):
+        res["kernels"][kname] = dict(
+            ms=time_ms(torch, kern, flush),
+            plain_ms=time_ms(torch, plain, flush, n=3, warmup=1),
+            library_ms=lib, bound=bound(nbytes, flops, H100_BF16_FLOPS))
+        r = res["kernels"][kname]
+        lib_txt = (f"SDPA {'backward' if 'backward' in kname else 'forward'}"
+                   f" {lib:.4f} ms" if lib is not None else "no library call")
+        log(f"kernel {kname} at the {name} (b {b} h {h}/{h_kv} s {s}, band "
+            f"{band}, {work} live pairs over {live_q} rows and {live_k} "
+            f"keys): {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f} ms, {lib_txt}, bound {r['bound'][0]:.5f} "
+            f"ms by {r['bound'][1]})")
+    return res
+
+
+def seq_entry_run(torch, shards: int, steps: int, *extra) -> dict:
+    """``steps`` steps of the entry point's configuration (``SEQ_ARGS``,
+    ``--seq_shards shards``, through ``build_training``: one process, a
+    LocalRing over the card) on its seeded synthetic batches, every kernel
+    count zeroed just before: losses, step ms p50 (steps after the first
+    3), tokens/s, MFU, peak memory, launches."""
+    from tpudist_torch import ops
+    from tpudist_torch.train.__main__ import build_training, get_args
+    from tpudist_torch.utils.flops import mfu, transformer_train_flops
+
+    args = get_args(SEQ_ARGS + ["--seq_shards", str(shards),
+                                "--total_iterations", str(steps), *extra])
+    model, step, next_batch = build_training(args)
+
+    def cuda(batch):
+        if isinstance(batch, tuple):
+            return tuple(torch.from_numpy(a).cuda() for a in batch)
+        return torch.from_numpy(batch).cuda()
+
+    batches = [cuda(next_batch()) for _ in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    wgmma = {n: ops.KERNEL_WRAPPERS[n].launches_wgmma for n in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[3:] if steps > 4 else times)
+    flops = transformer_train_flops(
+        batch=args.batch_size, seq_len=args.seq_len, d_model=args.d_model,
+        n_layers=args.n_layers, d_ff=args.d_ff, vocab=args.vocab)
+    del model, step, batches
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phase 17: non-finite losses at "
+                             f"--seq_shards {shards}: {losses}")
+    return dict(shards=shards, losses=losses, step_ms_p50=step_s * 1e3,
+                tokens_per_s=args.batch_size * args.seq_len / step_s,
+                mfu=mfu(flops, step_s, 1, peak_per_chip=H100_BF16_FLOPS),
+                peak_mem_gb=peak / 1e9, launches=counts,
+                launches_wgmma=wgmma, layers=args.n_layers)
+
+
+class StaleLastHop:
+    """A known-wrong ring for the bf16 bound's control run: while it is
+    entered, every causal ring pass over a ``LocalRing`` leaves K/V in
+    place on its last hop, so the last shard folds in shard 1's block twice
+    and never shard 0's (one live hop of ten a layer wrong)."""
+
+    def __enter__(self):
+        from tpudist_torch.parallel.ring import LocalRing
+
+        self.hop, calls = LocalRing.hop, [0]
+        hop = self.hop
+
+        def stale(ring, ks, vs):
+            calls[0] += 1
+            if calls[0] % (ring.size - 1) == 0:
+                return ks, vs
+            return hop(ring, ks, vs)
+
+        LocalRing.hop = stale
+        return self
+
+    def __exit__(self, *exc):
+        from tpudist_torch.parallel.ring import LocalRing
+
+        LocalRing.hop = self.hop
+
+
+def seq_parallel_path(torch, card: str) -> dict:
+    """Phase 17: (a) every ``RING_CASES`` case (:func:`ring_case`) and the
+    hop shapes' kernels (:func:`ring_hop_readings`); (b) the entry point at
+    ``--seq_shards 4`` against ``--seq_shards 1`` on the same batches: f32
+    at ``SEQ_F32_LAYERS`` layers, each step's loss within
+    ``SEQ_F32_RTOL``; bf16 at full depth, ``SEQ_STEPS`` steps, the flash
+    kernels launched ``ring_launches`` times a layer and step on the ring
+    (80 forward a step at 4 shards) against once a layer unsharded, every
+    launch on the wgmma arms, each step's losses within ``SEQ_BF16_RTOL``
+    of each other; then the ring again with a stale last hop
+    (:class:`StaleLastHop`), whose losses must leave that bound."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    if (ring_launches(4, True, None, 2048), ring_launches(4, True, 512, 2048)
+            ) != (10, 7):
+        raise AssertionError("ring_launches miscounts the causal ring")
+    res = dict(cases={c[0]: ring_case(torch, gen, c) for c in RING_CASES})
+    res["hops"] = {c[0]: ring_hop_readings(torch, gen, flush, c)
+                   for c in RING_HOPS}
+    del flush
+    torch.cuda.empty_cache()
+    f32 = [seq_entry_run(torch, n, SEQ_F32_STEPS, "--precision", "fp32",
+                         "--n_layers", str(SEQ_F32_LAYERS))
+           for n in (RING_SHARDS, 1)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(f32[0]["losses"],
+                                               f32[1]["losses"])]
+    res["f32"] = dict(ring=f32[0], unsharded=f32[1], max_rel=max(rel))
+    log(f"phase 17 entry point f32 ({SEQ_F32_LAYERS} layers, seq "
+        f"{RING_S}, batch {RING_B}): --seq_shards {RING_SHARDS} losses "
+        f"{f32[0]['losses']}, --seq_shards 1 {f32[1]['losses']}; max rel "
+        f"{max(rel):.2e} (bound {SEQ_F32_RTOL})")
+    if max(rel) > SEQ_F32_RTOL:
+        raise AssertionError(f"phase 17: the f32 ring's losses leave the "
+                             f"unsharded run's: {rel}")
+    bf16 = [seq_entry_run(torch, n, SEQ_STEPS, "--precision", "bf16")
+            for n in (RING_SHARDS, 1)]
+    ring, flat = bf16
+    per_layer = ring_launches(RING_SHARDS, True, None, RING_S // RING_SHARDS)
+    for r, k in ((ring, per_layer), (flat, 1)):
+        want = {n: k * r["layers"] * SEQ_STEPS for n in TRAIN_KERNELS}
+        got = {n: r["launches"].get(n, 0) for n in TRAIN_KERNELS}
+        if got != want or r["launches_wgmma"] != want:
+            raise AssertionError(f"phase 17: --seq_shards {r['shards']} "
+                                 f"launched {got} ({r['launches_wgmma']} on "
+                                 f"the wgmma arms), not {want} in "
+                                 f"{SEQ_STEPS} steps")
+    gap = [abs(a - b) / abs(b) for a, b in zip(ring["losses"],
+                                               flat["losses"])]
+    with StaleLastHop():
+        stale = seq_entry_run(torch, RING_SHARDS, SEQ_STEPS, "--precision",
+                              "bf16")["losses"]
+    stale_gap = [abs(a - b) / abs(b) for a, b in zip(stale, flat["losses"])]
+    res["bf16"] = dict(ring=ring, unsharded=flat, max_rel=max(gap),
+                       stale_hop=dict(losses=stale, max_rel=max(stale_gap)))
+    for r in bf16:
+        log(f"phase 17 entry point bf16 --seq_shards {r['shards']} (d1024, "
+            f"8 layers, seq {RING_S}, batch {RING_B}, {SEQ_STEPS} steps): "
+            f"step p50 {r['step_ms_p50']:.2f} ms = {r['tokens_per_s']:.0f} "
+            f"tokens/s, MFU {r['mfu']:.4f}, peak memory "
+            f"{r['peak_mem_gb']:.2f} GB ({card}); flash launches "
+            f"{r['launches'].get('flash_forward', 0) // SEQ_STEPS} forward "
+            f"a step; losses {[round(x, 4) for x in r['losses']]}")
+    log(f"phase 17 bf16 losses, ring vs unsharded: max rel {max(gap):.2e}; "
+        f"a ring with a stale last hop: max rel {max(stale_gap):.2e} "
+        f"(bound {SEQ_BF16_RTOL}), losses {[round(x, 4) for x in stale]}")
+    if max(gap) > SEQ_BF16_RTOL:
+        raise AssertionError(f"phase 17: the bf16 ring's losses leave the "
+                             f"unsharded run's: {gap}")
+    if max(stale_gap) <= SEQ_BF16_RTOL:
+        raise AssertionError(f"phase 17: the bf16 bound {SEQ_BF16_RTOL} "
+                             f"does not tell a stale hop: {stale_gap}")
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"phase 17 wall: {res['wall_s']:.1f} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4986,6 +5412,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     public = public_widths_path(torch, card)
+    seq = seq_parallel_path(torch, card)
 
     kernels = []
     launches = dict(main_path["launches"])
@@ -5062,6 +5489,20 @@ def main(argv=None) -> int:
                  or p["serve"]["arms"].get(name))
             for ph, p in public.items()
             if name in p["train"]["launches"] or name in p["serve"]["arms"]}
+        if name in TRAIN_KERNELS:
+            # phase 17: the ring's launches in the entry point's 10 bf16
+            # steps at --seq_shards 4 and in each ring case, and the kernel
+            # at the hop shapes
+            kernels[-1]["phase17"] = dict(
+                launches=int(seq["bf16"]["ring"]["launches"][name]),
+                cases={c: int(r["launches"][name])
+                       for c, r in seq["cases"].items()},
+                hops={hop: dict(ms=h["kernels"][name]["ms"],
+                                plain_ms=h["kernels"][name]["plain_ms"],
+                                library_ms=h["kernels"][name]["library_ms"],
+                                bound_ms=h["kernels"][name]["bound"][0],
+                                bound_by=h["kernels"][name]["bound"][1])
+                      for hop, h in seq["hops"].items()})
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -5096,7 +5537,7 @@ def main(argv=None) -> int:
                   fused_mlp_cases=mlp_cases, demos=demos, benches=benches,
                   split=split, mpi=mpi, trainer=trainer,
                   lm_entry=dict(subprocess=lm_sub, in_process=lm_in),
-                  public_widths=public,
+                  public_widths=public, seq_parallel=seq,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

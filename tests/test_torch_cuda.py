@@ -70,7 +70,7 @@ from chip_smoke import (GRAMMAR_CASES, MLP_CASES, RESIDUAL_CASES,
                         grammar_inputs,
                         linear_agreement, lora_inputs, mlp_agreement,
                         mlp_inputs, prep_arms, qkv_inputs, residual_close,
-                        sample_inputs)
+                        ring_launches, sample_inputs)
 from torch_cases import (decode_case, filter_case, flash_case, prefill_case,
                          sample_case, top_p_boundary_gap)
 from tpudist_torch.bench import bench_fused_mlp
@@ -1544,3 +1544,86 @@ def test_optimizer_steps_on_the_card_equal_the_cpu(cuda, opt):
             np.testing.assert_allclose(card[k].detach().cpu().numpy(),
                                        cpu[k].detach().numpy(), rtol=1e-6,
                                        atol=1e-7, err_msg=k)
+
+
+# the ring's hop shapes (phase 17): a later hop's band (None, window −
+# step·shard) leaves only a corner of the block live (rows with no live key
+# come back as out 0 and lse -1e30): (b, h, h_kv, s, dh, dtype, band)
+RING_HOP_CASES = {
+    "wgmma corner": (1, 8, 2, 2048, 128, "bf16", (None, 512 - 2048)),
+    "wgmma unmasked": (1, 8, 8, 2048, 128, "bf16", (None, None)),
+    "mma corner dh 80": (1, 4, 4, 512, 80, "bf16", (None, 100 - 512)),
+    "f32 corner": (1, 4, 2, 512, 64, "f32", (None, 64 - 512)),
+}
+
+
+@pytest.mark.parametrize("case", list(RING_HOP_CASES))
+def test_ring_hop_shapes_match_plain(cuda, case):
+    """The flash kernels at the ring's hop shapes against their plain
+    versions (``chip_smoke.flash_case_readings``: out, lse, the f32 output
+    the ring merges, dq, dk/dv, the delta-forming dq), dead rows exactly 0
+    and -1e30."""
+    b, h, h_kv, s, d, dt, band = RING_HOP_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    r = flash_case_readings(torch, gen, (case, b, h, h_kv, s, d, dt, band))
+    assert r["ok"], r
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v = (torch.randn(b, n, s, d, generator=gen, device=cuda)
+               .to(dtype) for n in (h, h_kv, h_kv))
+    out, lse = flash_forward(q, k, v, band, out_f32=True)
+    if band[1] is not None:
+        dead = torch.arange(s, device=cuda) >= s + band[1] - 1
+        assert bool((out[:, :, dead] == 0).all())
+        assert bool((lse[:, :, dead] == -1e30).all())
+
+
+@pytest.mark.parametrize("layout", ["causal", "window 300", "zigzag",
+                                    "non-causal gqa"])
+def test_ring_of_four_shards_matches_single_flash(cuda, layout):
+    """Ring attention over a LocalRing of 4 on the flash kernels (forward
+    and backward, flash launches counted) against the single-call flash
+    attention over the whole sequence, at the flash bounds."""
+    from tpudist_torch.parallel import (LocalRing, make_ring_attention,
+                                        make_zigzag_ring_attention,
+                                        zigzag_indices)
+
+    b, h, s, d, n = 2, 8, 1024, 128, 4
+    h_kv = 2 if "gqa" in layout else h
+    causal = layout != "non-causal gqa"
+    window = 300 if layout == "window 300" else None
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, g = (torch.randn(b, h, s, d, generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    k, v = (torch.randn(b, h_kv, s, d, generator=gen, device=cuda)
+            .bfloat16() for _ in range(2))
+    if layout == "zigzag":
+        pi = torch.as_tensor(zigzag_indices(s, n), device=cuda).long()
+        attn = make_zigzag_ring_attention(LocalRing(n))
+    else:
+        pi = torch.arange(s, device=cuda)
+        attn = make_ring_attention(LocalRing(n), causal=causal,
+                                   window=window)
+    # causal 10 (4 diagonal hops, then 3 + 2 + 1 live ones); window 300
+    # over shards of 256 stops after hop 2: 4 + 3 + 2; zigzag and
+    # non-causal a launch per shard and hop
+    want_launches = ring_launches(n, causal, window, s // n,
+                                  layout == "zigzag")
+    assert want_launches == {"causal": 10, "window 300": 9}.get(layout,
+                                                                n * n)
+
+    def run(fn, ts, cot):
+        leaves = [t.detach().requires_grad_(True) for t in ts]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, cot))
+
+    reset_launch_counts()
+    got = run(attn, [t[:, :, pi].contiguous() for t in (q, k, v)],
+              g[:, :, pi].contiguous())
+    counts = launch_counts()
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        assert counts[name] == want_launches, counts
+    want = run(lambda *a: FlashAttention.apply(*a, causal, window)[0],
+               [q, k, v], g)
+    vmax = float(v.float().abs().max())
+    for i, (x, y) in enumerate(zip(got, want)):
+        _flash_close(x, y[:, :, pi], torch.bfloat16, grad=i > 0, vmax=vmax)

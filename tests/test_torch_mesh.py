@@ -96,10 +96,30 @@ def test_meshes_on_the_cpu():
         make_mesh(MeshConfig(data=2), device="cpu")
 
 
-@pytest.mark.parametrize("config", [MeshConfig(stage=2), MeshConfig(seq=2),
+@pytest.mark.parametrize("config", [MeshConfig(stage=2),
+                                    MeshConfig(stage=2, seq=2),
                                     MeshConfig(stage=-1, data=1)])
 def test_unported_axes_raise(config):
     with pytest.raises(NotImplementedError, match="A6c"):
         make_mesh(config, device="cpu")
     with pytest.raises(NotImplementedError, match="A6c"):
         make_hybrid_mesh(config)
+
+
+def test_seq_axis_folds_onto_one_process():
+    """Without a process group the seq shards fold onto the rank's device:
+    a ``LocalRing`` of the axis's size, data 1; a data axis the one process
+    cannot cover raises as JAX's resolve does, and seq beside a model axis
+    is not ported (A6c)."""
+    from tpudist_torch.parallel import LocalRing
+
+    m = make_mesh(MeshConfig(seq=4), device="cpu")
+    assert m.axis_names == ("data", "seq")
+    assert m.shape == {"data": 1, "seq": 4} and m.coords == {"data": 0}
+    assert m.devices == (torch.device("cpu"),)
+    assert isinstance(m.ring, LocalRing) and m.ring.size == 4
+    assert m.ring.indices == (0, 1, 2, 3) and m.ring.processes == 1
+    with pytest.raises(ValueError, match="does not cover"):
+        make_mesh(MeshConfig(data=2, seq=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="A6c"):
+        make_mesh(MeshConfig(seq=2, model=2), device="cpu")

@@ -237,7 +237,9 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "tpudist_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_cuda.py",
               REPO / "tests" / "torch_flash_faults.py",
-              REPO / "tests" / "torch_lm_feed.py"]
+              REPO / "tests" / "torch_lm_feed.py",
+              REPO / "tests" / "torch_ring_parent.py",
+              REPO / "tests" / "torch_ring_worker.py"]
     assert len(files) > 10
     bad = []
     for path in files:

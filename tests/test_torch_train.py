@@ -45,7 +45,8 @@ from tpudist_torch.models import (TransformerLM, create_transformer,
                                   params_from_flax)
 from tpudist_torch.train import (build_optimizer, build_schedule,
                                  make_lm_eval_step, make_lm_train_step)
-from tpudist_torch.train.__main__ import get_args, main as train_main
+from tpudist_torch.train.__main__ import (build_training, get_args,
+                                         main as train_main)
 from tpudist_torch.utils import flops
 
 GEOM = dict(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -323,11 +324,18 @@ def test_entry_point_trains_on_cpu_and_refuses_the_rest(capsys, tmp_path,
     np.save(corpus, (np.arange(4096) % 16).astype(np.int32))
     assert np.isfinite(train_main(small + ["--total_iterations", "2",
                                            "--data_path", str(corpus)]))
-    # --remat and --generate are ported; the parallel/ options still raise
-    for flag in (["--seq_shards", "2"], ["--moe_experts", "4"], ["--fsdp"],
-                 ["--zigzag"], ["--inner_block", "16"]):
+    # --remat, --generate and the ring's flags are ported; FSDP and MoE
+    # (A6c's later slices) still raise
+    for flag in (["--moe_experts", "4"], ["--fsdp"]):
         with pytest.raises(NotImplementedError, match="A6c"):
             get_args(small + flag)
+    ring = get_args(small + ["--seq_shards", "2", "--zigzag",
+                             "--inner_block", "16"])
+    assert (ring.seq_shards, ring.zigzag, ring.inner_block) == (2, True, 16)
+    with pytest.raises(SystemExit, match="excludes"):
+        build_training(ring)
+    assert np.isfinite(train_main(small + ["--seq_shards", "2",
+                                           "--total_iterations", "2"]))
     args = get_args(small + ["--remat", "--remat_policy", "dots",
                              "--generate", "8"])
     assert args.remat and args.remat_policy == "dots" and args.generate == 8

@@ -1,5 +1,5 @@
-"""Long-context LM training — the counterpart of
-``examples/demo_long_context.py`` at one sequence shard.
+"""Long-context LM training over a ``(data × seq)`` mesh — the counterpart
+of ``examples/demo_long_context.py``.
 
 A decoder-only TransformerLM (f32 master weights; ``--precision bf16``
 computes in bf16 with f32 LayerNorm, softmax and loss) trained
@@ -8,25 +8,39 @@ data-parallel over the process group: each rank holds a replica under DDP
 the logged loss is the global mean.  On CUDA the attention forward and
 backward run through the hand-written flash kernels.
 
+``--seq_shards N`` shards the sequence over a ring of ``N`` places (ring
+attention, :mod:`tpudist_torch.parallel`): across ``N`` ranks of each
+data row when the process group has several ranks (``data`` = world /
+``N``), or folded onto the one device of a one-process job (the
+:class:`~tpudist_torch.parallel.LocalRing`: the same launches in the same
+order, not seq-parallel memory).  ``--zigzag`` lays the tokens out in the
+causal-balanced zigzag order, ``--inner_block`` sub-blocks the plain ring
+body's KV, and ``--sliding_window`` lives inside the ring (the model's own
+window is off, and comes back for ``--generate``), as in the JAX demo.
+
 Two batch contracts, as the JAX demo's:
 
 - the synthetic increment-chain task (x[t+1] = (x[t] + 1) % vocab from a
   random start): ``--batch_size`` is the global batch, drawn whole on every
   rank from the shared seed, each rank taking its contiguous rows;
-- a tokenized corpus (``--data_path``): ``--batch_size`` is per rank, each
-  rank reading its own shard of the windows (``--dataloader``), assembled
-  on the native gather pool with ``--num_workers > 0``; ``--eval_fraction``
-  holds out the corpus tail, evaluated every ``--eval_every`` iterations on
-  up to 4 fixed batches, the same on every rank.
+- a tokenized corpus (``--data_path``): ``--batch_size`` is per data row,
+  each row reading its own shard of the windows (``--dataloader``; the
+  ranks of one ring read the same rows), assembled on the native gather
+  pool with ``--num_workers > 0``; ``--eval_fraction`` holds out the corpus
+  tail, evaluated every ``--eval_every`` iterations on up to 4 fixed
+  batches, the same on every rank.
+
+Each rank takes its seq slice of its data row's batch, the zigzag
+permutation applied first, with the next-token targets built in temporal
+order (:class:`~tpudist_torch.parallel.SeqLayout`).
 
 Batches reach the device through :func:`tpudist_torch.data.
 prefetch_to_device`.  ``--remat`` (with ``--remat_policy``) recomputes each
 block in the backward; ``--generate N`` decodes N tokens after training
 from an 8-token prompt through the dense KV cache (greedy, or sampled with
 ``--gen_temperature``/``--gen_top_k``/``--gen_top_p``).  Metrics go to
-``runs/<group>/metrics.jsonl`` (``loss/lm``, ``loss/eval``).  The sequence-
-parallel and sharded options (``--seq_shards > 1``, ``--inner_block``,
-``--zigzag``, ``--moe_*``, ``--fsdp``) raise: ROADMAP queue A, item A6c.
+``runs/<group>/metrics.jsonl`` (``loss/lm``, ``loss/eval``).  The sharded
+options (``--moe_*``, ``--fsdp``) raise: ROADMAP queue A, item A6c.
 ``--n_heads`` and ``--d_ff`` set the geometry the JAX demo leaves at the
 model's defaults (4 heads, d_ff 512).
 
@@ -40,6 +54,12 @@ Two ranks over gloo (one command per rank, ``RANK`` 0 and 1)::
   RANK=0 WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=29500 \\
       python -m tpudist_torch.examples.demo_long_context --device cpu \\
       --dry_run --seq_len 64 --d_model 64 --total_iterations 20
+
+Four seq shards on the CPU (one process: a LocalRing; or four ranks over
+gloo, ``WORLD_SIZE=4``, one ring)::
+
+  python -m tpudist_torch.examples.demo_long_context --device cpu \\
+      --dry_run --seq_len 64 --d_model 64 --seq_shards 4 --zigzag
 
 The d1024 geometry on one card under the torchrun contract::
 
@@ -59,12 +79,14 @@ import torch
 from tpudist_torch.config import build_parser
 from tpudist_torch.config import get_args as parse_args
 from tpudist_torch.data.prefetch import prefetch_to_device
-from tpudist_torch.models.transformer import (create_transformer,
+from tpudist_torch.models.transformer import (RingCausal,
+                                              create_transformer, lm_loss,
                                               resolve_device)
 from tpudist_torch.runtime import (describe_runtime, initialize,
-                                   process_count, process_index, rank_print,
+                                   process_count, rank_print,
                                    resolve_shared_seed, shutdown)
-from tpudist_torch.runtime.mesh import data_parallel_mesh
+from tpudist_torch.runtime.mesh import (MeshConfig, data_parallel_mesh,
+                                        make_mesh)
 from tpudist_torch.train.lm import make_lm_eval_step, make_lm_train_step
 from tpudist_torch.train.optim import build_optimizer_from_args
 from tpudist_torch.utils import init_metrics, trace
@@ -80,9 +102,9 @@ def get_args(argv=None):
     p = build_parser()
     p.add_argument("--seq_len", default=512, type=int)
     p.add_argument("--seq_shards", default=1, type=int,
-                   help="size of the seq mesh axis (ring length; A6c)")
+                   help="size of the seq mesh axis (ring length)")
     p.add_argument("--inner_block", default=None, type=int,
-                   help="sub-block the ring's per-shard KV (A6c)")
+                   help="sub-block the ring's per-shard KV consumption")
     p.add_argument("--vocab", default=64, type=int)
     p.add_argument("--d_model", default=128, type=int)
     p.add_argument("--n_layers", default=2, type=int)
@@ -99,7 +121,9 @@ def get_args(argv=None):
     p.add_argument("--fsdp", action="store_true",
                    help="fully-sharded params + optimizer state (A6c)")
     p.add_argument("--zigzag", action="store_true",
-                   help="causal-balanced zigzag ring layout (A6c)")
+                   help="causal-balanced zigzag ring layout (requires "
+                        "--seq_shards > 1; excludes --sliding_window/"
+                        "--rope/--inner_block)")
     p.add_argument("--sliding_window", default=None, type=int,
                    help="local attention: attend the previous N positions "
                         "only")
@@ -140,10 +164,7 @@ def get_args(argv=None):
                    help="evaluate the held-out set every N iterations")
     p.set_defaults(batch_size=8, total_iterations=300, lr=3e-4)
     args = parse_args(argv, parser=p)
-    refused = {"--seq_shards > 1": args.seq_shards != 1,
-               "--inner_block": args.inner_block is not None,
-               "--zigzag": args.zigzag, "--fsdp": args.fsdp,
-               "--moe_experts": args.moe_experts > 0}
+    refused = {"--fsdp": args.fsdp, "--moe_experts": args.moe_experts > 0}
     for flag, on in refused.items():
         if on:
             raise NotImplementedError(f"{flag} is not ported yet: {_A6C}")
@@ -159,14 +180,17 @@ def make_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int):
 
 def build_model(args, device) -> torch.nn.Module:
     """The trainable TransformerLM of ``args`` on ``device``, its weights
-    drawn from ``args.seed`` (every rank draws the same)."""
+    drawn from ``args.seed`` (every rank draws the same).  On the ring
+    (``--seq_shards > 1``) the model's own window is off: the ring holds
+    it."""
     return create_transformer(
         args.seed, device=device, trainable=True,
         dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
         param_dtype=torch.float32, vocab=args.vocab, d_model=args.d_model,
         n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff,
         max_len=args.seq_len, rope=args.rope, n_kv_heads=args.n_kv_heads,
-        sliding_window=args.sliding_window, remat=args.remat,
+        sliding_window=None if args.seq_shards > 1 else args.sliding_window,
+        remat=args.remat,
         remat_policy=args.remat_policy)
 
 
@@ -192,33 +216,83 @@ def open_corpus(args, *, num_shards: int = 1, shard_id: int = 0):
     return windows, corpus, eval_idx
 
 
+def seq_parts(args, ring):
+    """``(ctx, loss_fn, place)`` of the step over ``ring`` (``None``: one
+    sequence shard): the model's ring attention context (the zigzag ring
+    under ``--zigzag``, else the causal ring with ``--inner_block`` and
+    ``--sliding_window``), the loss, and the function that cuts a row
+    batch into this process's ``(tokens, targets)``
+    (:class:`~tpudist_torch.parallel.SeqLayout`); without a ring the
+    model's own attention, ``lm_loss`` and the batch as it is."""
+    if ring is None:
+        return None, lm_loss, lambda batch: batch
+    from tpudist_torch.parallel import (SeqLayout, make_ring_attention,
+                                        make_zigzag_ring_attention)
+
+    if args.zigzag:
+        attention = make_zigzag_ring_attention(ring)
+    else:
+        attention = make_ring_attention(ring, causal=True,
+                                        inner_block=args.inner_block,
+                                        window=args.sliding_window)
+    layout = SeqLayout(ring, args.seq_len, zigzag=args.zigzag)
+    return (RingCausal(args.rope, attention, layout.positions), layout.loss,
+            layout.place)
+
+
 def build_training(args):
     """``(model, step, next_batch)`` for ``args`` in one process: the
     trainable model on ``args.device``, the train step over its optimizer,
-    and a function returning the next ``[batch, seq_len]`` int32 token
-    batch (numpy) — the synthetic task, or the corpus with
-    ``--data_path``."""
+    and a function returning the next batch (numpy) — the synthetic task,
+    or the corpus with ``--data_path``: ``[batch, seq_len]`` int32 tokens,
+    or with ``--seq_shards > 1`` (every shard on this process's device)
+    the pair ``(tokens, targets)`` of the ring's layout."""
+    from tpudist_torch.parallel import LocalRing
+
+    _check_flags(args)
     if args.seed is None:
         args.seed = resolve_shared_seed(None)
     model = build_model(args, resolve_device(args.device))
     opt, sched = build_optimizer_from_args(args, model.parameters())
+    ctx, loss_fn, place = seq_parts(
+        args, LocalRing(args.seq_shards) if args.seq_shards > 1 else None)
     step = make_lm_train_step(model, opt, scheduler=sched,
-                              accum_steps=args.accum_steps)
+                              accum_steps=args.accum_steps, ctx=ctx,
+                              loss_fn=loss_fn)
     if args.data_path is not None:
         _, corpus, _ = open_corpus(args)
-        return model, step, lambda: next(corpus)
+        return model, step, lambda: place(next(corpus))
     rng = np.random.default_rng(args.seed)
-    return model, step, lambda: make_batch(rng, args.batch_size,
-                                           args.seq_len, args.vocab)
+    return model, step, lambda: place(make_batch(
+        rng, args.batch_size, args.seq_len, args.vocab))
 
 
 def _check_flags(args) -> None:
-    """The JAX demo's flag checks (``:135-142``, ``:268-270``)."""
+    """The JAX demo's flag checks (``:135-142``, ``:155-163``,
+    ``:268-270``)."""
     if args.moe_experts == 0 and (args.moe_topk != 1 or args.moe_balance):
         raise SystemExit("--moe_topk/--moe_balance need --moe_experts > 0")
+    if args.seq_shards < 1:
+        raise SystemExit(f"--seq_shards must be at least 1, got "
+                         f"{args.seq_shards}")
+    if args.zigzag:
+        if args.seq_shards < 2:
+            raise SystemExit("--zigzag balances the RING; needs "
+                             "--seq_shards > 1")
+        if args.sliding_window or args.rope or args.inner_block:
+            raise SystemExit("--zigzag excludes --sliding_window/--rope/"
+                             "--inner_block (window already rebalances; "
+                             "rope derives positions from array order)")
     if args.eval_fraction > 0 and args.data_path is None:
         raise SystemExit("--eval_fraction needs --data_path (the synthetic "
                          "task has no held-out set)")
+
+
+def _to_device(batch, device):
+    """A numpy batch, or a tuple of them, as tensors on ``device``."""
+    if isinstance(batch, tuple):
+        return tuple(torch.from_numpy(a).to(device) for a in batch)
+    return torch.from_numpy(batch).to(device)
 
 
 def _generate(args, model, windows) -> None:
@@ -243,6 +317,9 @@ def _generate(args, model, windows) -> None:
                    "sampling at temperature 1.0")
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(args.seed or 0)
+    # a ring-trained windowed model decodes with the window the ring held,
+    # through the model's own cache (the JAX demo's module.clone)
+    model.sliding_window = args.sliding_window
     out = generate(model, torch.from_numpy(prompt).to(device), args.generate,
                    temperature=temp, top_k=args.gen_top_k,
                    top_p=args.gen_top_p, generator=gen)
@@ -258,28 +335,34 @@ def main(argv=None) -> float:
     device = resolve_device(args.device)
     ctx = initialize(use_node_rank=args.use_node_rank, device=device)
     args.seed = resolve_shared_seed(args.seed)
-    mesh = data_parallel_mesh(device=device)
-    world, rank = process_count(), process_index()
+    n_seq = args.seq_shards
+    mesh = (make_mesh(MeshConfig(data=-1, seq=n_seq), device=device)
+            if n_seq > 1 else data_parallel_mesh(device=device))
+    # the data rows: the ranks of one ring read the same rows
+    rows, data_row = mesh.shape["data"], mesh.coords["data"]
     describe_runtime(ctx, args.seed, mesh.devices[0])
-    rank_print(f"mesh={{'data': {world}, 'seq': 1}} seq_len={args.seq_len} "
-               f"(block {args.seq_len}/chip)")
+    rank_print(f"mesh={{'data': {rows}, 'seq': {n_seq}}} seq_len="
+               f"{args.seq_len} (block {args.seq_len // n_seq}/chip)")
     dev = mesh.devices[0]
+    seq_ctx, loss_fn, place = seq_parts(args, mesh.ring)
     model = build_model(args, dev)
     opt, sched = build_optimizer_from_args(args, model.parameters())
     step = make_lm_train_step(model, opt, scheduler=sched,
-                              accum_steps=args.accum_steps)
+                              accum_steps=args.accum_steps, ctx=seq_ctx,
+                              loss_fn=loss_fn)
     logger = init_metrics(args.project, args.group or "demo_long_context",
                           dry_run=args.dry_run)
     rng = np.random.default_rng(args.seed)
     windows = corpus = None
     if args.data_path is not None:
-        # per-rank shard of the windows; --batch_size is per rank
-        windows, corpus, eval_idx = open_corpus(args, num_shards=world,
-                                                shard_id=rank)
-    elif args.batch_size % world:
+        # per-row shard of the windows; --batch_size is per data row
+        windows, corpus, eval_idx = open_corpus(args, num_shards=rows,
+                                                shard_id=data_row)
+    elif args.batch_size % rows:
+        unit = "ranks" if n_seq == 1 else "data rows"
         raise SystemExit(f"the synthetic --batch_size {args.batch_size} is "
-                         f"the global batch: it must divide over {world} "
-                         "ranks")
+                         f"the global batch: it must divide over {rows} "
+                         f"{unit}")
     eval_batches = []
     if corpus is not None and 0 < len(eval_idx) < args.batch_size:
         rank_print(f"WARNING: eval disabled — the held-out tail has "
@@ -288,24 +371,25 @@ def main(argv=None) -> float:
     if corpus is not None and len(eval_idx) >= args.batch_size:
         # fixed held-out batches (up to 4), the same on every rank
         n_eval = min(4, len(eval_idx) // args.batch_size)
-        eval_batches = [torch.from_numpy(windows.gather(
-            eval_idx[i * args.batch_size:(i + 1) * args.batch_size])).to(dev)
+        eval_batches = [_to_device(place(windows.gather(
+            eval_idx[i * args.batch_size:(i + 1) * args.batch_size])), dev)
             for i in range(n_eval)]
-    eval_step = make_lm_eval_step(model)
+    eval_step = make_lm_eval_step(model, loss_fn=loss_fn, ctx=seq_ctx)
 
     def eval_loss() -> float:
         return float(np.mean([float(eval_step(b)) for b in eval_batches]))
 
-    share = args.batch_size // world
+    share = args.batch_size // rows
 
     def batch_source():
         for _ in range(args.total_iterations):
             if corpus is not None:
-                yield next(corpus)
+                yield place(next(corpus))
             else:
-                # the same global batch on every rank: this rank's rows
-                yield make_batch(rng, args.batch_size, args.seq_len,
-                                 args.vocab)[rank * share:(rank + 1) * share]
+                # the same global batch on every rank: this data row's rows
+                yield place(make_batch(rng, args.batch_size, args.seq_len,
+                                       args.vocab)[data_row * share:
+                                                   (data_row + 1) * share])
 
     batches = prefetch_to_device(batch_source(), dev)
     loss = None

@@ -94,20 +94,29 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return (x - mean) * (torch.rsqrt(var + eps) * scale)
 
 
-def attention_reference(q, k, v, *, window: Optional[int] = None):
-    """Plain causal softmax attention over ``[batch, heads, seq,
-    head_dim]`` (optionally banded to ``q - k < window``): f32 scores and
-    softmax, weights cast back to ``v``'s dtype."""
+def attention_reference(q, k, v, *, causal: bool = False,
+                        window: Optional[int] = None):
+    """Plain softmax attention over ``[batch, heads, seq, head_dim]`` — the
+    single-device ground truth (the JAX ``tpudist.parallel.
+    attention_reference``): f32 scores and softmax, weights cast back to
+    ``v``'s dtype.  ``causal`` masks ``q < k``; ``window`` (requires
+    ``causal``) bands to ``q - k < window``."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    T, K = scores.shape[-2], scores.shape[-1]
-    qi = torch.arange(T, device=q.device)[:, None]
-    kj = torch.arange(K, device=q.device)[None]
-    keep = qi >= kj
     if window is not None:
-        keep = keep & (qi - kj < window)
-    scores = torch.where(keep, scores,
-                         torch.tensor(_MASK_VALUE, device=q.device))
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+    if causal:
+        T, K = scores.shape[-2], scores.shape[-1]
+        qi = torch.arange(T, device=q.device)[:, None]
+        kj = torch.arange(K, device=q.device)[None]
+        keep = qi >= kj
+        if window is not None:
+            keep = keep & (qi - kj < window)
+        scores = torch.where(keep, scores,
+                             torch.tensor(_MASK_VALUE, device=q.device))
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(),
                         v.float()).to(q.dtype)
@@ -147,7 +156,44 @@ class _Causal:
         if group > 1:
             k = k.repeat_interleave(group, dim=1)
             v = v.repeat_interleave(group, dim=1)
-        return attention_reference(q, k, v, window=self.window)
+        return attention_reference(q, k, v, causal=True, window=self.window)
+
+
+class RingCausal(_Causal):
+    """Training-mode attention arm over this process's shards of a
+    sequence-parallel run (the JAX model's ``positions`` argument with an
+    injected layout-aware attention, ``tpudist/models/transformer.py:
+    709-732``).  ``attention`` is a ring (:func:`tpudist_torch.parallel.
+    make_ring_attention` or :func:`~tpudist_torch.parallel.
+    make_zigzag_ring_attention`) over ``[batch, heads, tokens, dh]``;
+    ``positions`` are the global positions of the tokens this process holds
+    (:attr:`tpudist_torch.parallel.SeqLayout.positions`), which the learned
+    table reads and RoPE rotates by.  The model's own ``sliding_window`` is
+    not read: the window lives inside the ring, as in JAX."""
+
+    def __init__(self, rope: bool, attention, positions):
+        super().__init__(rope, getattr(attention, "window", None))
+        self.attention = attention
+        pos = torch.as_tensor(positions, dtype=torch.long)
+        self._positions = pos
+        start = int(pos[0])
+        if rope and not torch.equal(pos, torch.arange(start, start + len(pos))):
+            raise ValueError("rope rotates by contiguous positions: a "
+                             "permuted layout (zigzag) needs the learned "
+                             "position table")
+        self.rope_start = start
+
+    def positions(self, batch: int, seq: int, device) -> torch.Tensor:
+        if seq != len(self._positions):
+            raise ValueError(f"{seq} tokens given to a ring context of "
+                             f"{len(self._positions)}")
+        return self._positions.to(device)[None].expand(batch, seq)
+
+    def attend(self, layer: int, q, k, v, rotated: bool = False):
+        if self.rope and not rotated:
+            q = rope_rotate(q, offset=self.rope_start)
+            k = rope_rotate(k, offset=self.rope_start)
+        return self.attention(q.contiguous(), k.contiguous(), v.contiguous())
 
 
 def cached_attention(q, ck, cv, qpos, window: Optional[int]):

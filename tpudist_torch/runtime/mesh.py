@@ -10,12 +10,19 @@ group and the devices a process owns, the reference's own shape
   the gradients over it;
 - ``model`` — the devices one rank owns, its replica's layer groups placed
   one group a device (:mod:`tpudist_torch.models.split_mlp`);
-- ``stage`` and ``seq`` (pipeline and sequence parallelism) are not
-  ported yet: ROADMAP queue A, item A6c.
+- ``seq`` — sequence parallelism (:mod:`tpudist_torch.parallel`): over a
+  process group the ranks lay out as the JAX axis order puts them, ``data``
+  outermost and then ``seq`` (rank ``d·N + s``), and each data row's ``N``
+  ranks form one seq subgroup, its ring (:class:`~tpudist_torch.parallel.
+  ProcessGroupRing`); in a job of one process the ``N`` shards fold onto
+  the rank's one device (:class:`~tpudist_torch.parallel.LocalRing`), as
+  ``model`` stages may repeat a device;
+- ``stage`` (pipeline parallelism) is not ported yet: ROADMAP queue A,
+  item A6c.
 
 :class:`MeshConfig` is copied from the JAX package and pinned equal to it.
-A :class:`Mesh` is a plain record of the axes, this rank's coordinate on
-the ``data`` axis and the devices of its replica.
+A :class:`Mesh` is a plain record of the axes, this rank's coordinates on
+the ``data`` (and ``seq``) axes, the devices of its replica and its ring.
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ AXIS_SEQ = "seq"
 AXIS_MODEL = "model"
 ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
 
-_NOT_PORTED = ("the {} is not ported yet (pipeline and sequence "
-               "parallelism, multi-slice meshes): ROADMAP queue A, item A6c")
+_NOT_PORTED = ("the {} is not ported yet (pipeline parallelism, "
+               "multi-slice meshes): ROADMAP queue A, item A6c")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,13 +81,16 @@ class MeshConfig:
 class Mesh:
     """The axes of a run as one rank sees them: ``shape`` maps each axis
     name to its size, ``coords`` holds this rank's place on the ``data``
-    axis (the process group), and ``devices`` are the devices of this
-    rank's model replica, one a ``model`` coordinate (repeats allowed)."""
+    axis (the process group) and, when its ring spans ranks, on ``seq``;
+    ``devices`` are the devices of this rank's model replica, one a
+    ``model`` coordinate (repeats allowed); ``ring`` is the ``seq`` axis's
+    ring (``None`` without one)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     coords: Dict[str, int]
     devices: Tuple[torch.device, ...]
+    ring: object = dataclasses.field(default=None, compare=False)
 
 
 def replica_devices(local_rank: int, model_size: int,
@@ -141,17 +151,61 @@ def data_model_mesh(model_size: int = 2,
                 {AXIS_DATA: process_index()}, devs)
 
 
+def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
+                  device="cuda") -> Mesh:
+    """The 2-D ``('data', 'seq')`` mesh of the long-context demo.  Over a
+    process group of ``W`` ranks (``W`` a multiple of ``seq``): ``data`` is
+    ``W / seq`` rows, rank ``d·seq + s`` the ``s``-th place of row ``d``'s
+    ring, each row's ranks one subgroup (``dist.new_group``, made by every
+    rank for every row, in order).  In a job of one process the ``seq``
+    shards fold onto the rank's device (a :class:`LocalRing`)."""
+    from tpudist_torch.parallel.ring import LocalRing, ProcessGroupRing
+
+    if seq < 1:
+        raise ValueError(f"seq axis must be at least 1, got {seq}")
+    devs = _devices(1, devices, device)
+    world = process_count()
+    names = (AXIS_DATA, AXIS_SEQ)
+    if world == 1:
+        return Mesh(names, {AXIS_DATA: 1, AXIS_SEQ: seq}, {AXIS_DATA: 0},
+                    devs, LocalRing(seq))
+    if world % seq:
+        raise ValueError(f"a seq axis of {seq} does not divide the "
+                         f"{world} ranks of the process group")
+    import torch.distributed as dist
+
+    rank, rows = process_index(), world // seq
+    groups = [dist.new_group(ranks=list(range(d * seq, (d + 1) * seq)))
+              for d in range(rows)]
+    d, s = divmod(rank, seq)
+    ring = ProcessGroupRing(groups[d], range(d * seq, (d + 1) * seq), s)
+    return Mesh(names, {AXIS_DATA: rows, AXIS_SEQ: seq},
+                {AXIS_DATA: d, AXIS_SEQ: s}, devs, ring)
+
+
 def make_mesh(config: Optional[MeshConfig] = None, *,
               devices: Optional[Sequence] = None, device="cuda") -> Mesh:
     """A mesh from a :class:`MeshConfig` over this job's devices
-    (``model`` a rank, ``data`` the process group): the ``data``/``model``
-    meshes above.  ``stage`` or ``seq`` above 1 is not ported yet (A6c)."""
+    (``model`` a rank, ``data`` the process group, ``seq`` over the process
+    group or folded onto a one-process job's device): the meshes above.
+    ``stage`` above 1, and ``seq`` beside ``model``, are not ported yet
+    (A6c)."""
     config = config or MeshConfig()
-    if config.stage != 1 or config.seq != 1:
-        raise NotImplementedError(_NOT_PORTED.format("stage / seq axis"))
+    if config.stage != 1:
+        raise NotImplementedError(_NOT_PORTED.format("stage axis"))
     if config.model == -1:
         raise ValueError("the model axis needs a size: a rank owns the "
                          "devices of one replica")
+    if config.seq == -1:
+        raise ValueError("the seq axis needs a size: it is the ring's "
+                         "length")
+    if config.seq != 1:
+        if config.model != 1:
+            raise NotImplementedError(_NOT_PORTED.format(
+                "seq axis beside a model axis"))
+        world = process_count()
+        config.resolve(world if world > 1 else config.seq)
+        return data_seq_mesh(config.seq, devices, device=device)
     config.resolve(process_count() * config.model)
     if config.model == 1:
         return data_parallel_mesh(devices, device=device)

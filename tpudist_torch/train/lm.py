@@ -8,9 +8,18 @@ when a process group is up, the model is wrapped in
 step`): each rank steps on its own equal share of the global batch, DDP
 averages the gradients on the device group, and the reported loss is the
 global mean (an all-reduce average of the per-rank means), as the JAX
-step's is.  ``grad_reduce_dtype``, ``state_sharding``, the MoE ``aux``
-outputs and the scanned step belong to the ``parallel/`` slice (ROADMAP
-queue A, item A6c).
+step's is.
+
+Sequence parallelism (``ctx``, a :class:`~tpudist_torch.models.transformer.
+RingCausal` over a ring of :mod:`tpudist_torch.parallel`): each rank holds
+its data row's rows and its shards of their tokens, a batch is the pair
+``(tokens, targets)`` of :meth:`~tpudist_torch.parallel.SeqLayout.place`
+and the loss :meth:`~tpudist_torch.parallel.SeqLayout.loss`, each rank's
+share counted against the global number of targets, so that DDP's average
+over every rank is the gradient of the global mean and :func:`_global_mean`
+reports the global batch's loss.  ``grad_reduce_dtype``,
+``state_sharding``, the MoE ``aux`` outputs and the scanned step belong to
+A6c's later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -38,15 +47,32 @@ def _global_mean(loss: torch.Tensor) -> torch.Tensor:
     return buf / dist.get_world_size()
 
 
+def _split(batch):
+    """``(tokens, targets)`` of a batch: a ``(tokens, targets)`` pair, or
+    a token batch that is its own loss target (``lm_loss``'s form)."""
+    if isinstance(batch, (tuple, list)):
+        return batch[0], batch[1]
+    return batch, batch
+
+
+def _forward_loss(replica, batch, ctx, loss_fn):
+    tokens, targets = _split(batch)
+    logits = replica(tokens) if ctx is None else replica(tokens, ctx)
+    return loss_fn(logits, targets)
+
+
 def make_lm_train_step(model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer, *, scheduler=None,
                        accum_steps: int = 1,
                        loss_fn: Callable = lm_loss,
-                       wrap: Optional[Callable] = None,
+                       wrap: Optional[Callable] = None, ctx=None,
                        grad_reduce_dtype=None, state_sharding=None,
                        aux: bool = False) -> Callable:
     """``step(tokens [batch, seq]) -> loss``: forward, backward, one
-    optimizer update (and one scheduler step) on this rank's rows.
+    optimizer update (and one scheduler step) on this rank's rows.  With
+    ``ctx`` (an attention context the model is called with, the ring's)
+    the batch may be a ``(tokens, targets)`` pair, and ``loss_fn`` takes
+    the targets.
 
     The step calls ``model`` — or ``wrap(model)``, a module whose
     parameters are the model's (the Trainer's bf16 cast) — wrapped in
@@ -85,21 +111,22 @@ def make_lm_train_step(model: torch.nn.Module,
     def step(tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            loss = loss_fn(replica(tokens), tokens)
+            loss = _forward_loss(replica, tokens, ctx, loss_fn)
             loss.backward()
             loss = loss.detach()
         else:
-            b = tokens.shape[0]
+            parts = _split(tokens)
+            b = parts[0].shape[0]
             if b % accum_steps:
                 raise ValueError(
                     f"batch {b} must divide into {accum_steps} accum steps")
             loss = 0.0
-            chunks = tokens.reshape(accum_steps, b // accum_steps,
-                                    *tokens.shape[1:])
+            chunks = list(zip(*(t.reshape(accum_steps, b // accum_steps,
+                                          *t.shape[1:]) for t in parts)))
             for i, chunk in enumerate(chunks):
                 last = i == accum_steps - 1
                 with (contextlib.nullcontext() if last else no_sync()):
-                    part = loss_fn(replica(chunk), chunk)
+                    part = _forward_loss(replica, chunk, ctx, loss_fn)
                     part.backward()
                 loss = loss + part.detach()
             scale = 1.0 / accum_steps
@@ -117,13 +144,16 @@ def make_lm_train_step(model: torch.nn.Module,
 
 
 def make_lm_eval_step(model: torch.nn.Module, *,
-                      loss_fn: Callable = lm_loss) -> Callable:
+                      loss_fn: Callable = lm_loss, ctx=None) -> Callable:
     """``eval_step(tokens) -> loss`` without gradients, on this rank's
     batch (the entry point evaluates the same held-out batches on every
-    rank, so no reduction is needed)."""
+    rank).  With ``ctx`` (the ring's) the batch may be a ``(tokens,
+    targets)`` pair and each rank holds a share of the loss: the global
+    mean over the process group is returned, as the train step's."""
 
-    def eval_step(tokens: torch.Tensor) -> torch.Tensor:
+    def eval_step(tokens) -> torch.Tensor:
         with torch.no_grad():
-            return loss_fn(model(tokens), tokens)
+            loss = _forward_loss(model, tokens, ctx, loss_fn)
+        return loss if ctx is None else _global_mean(loss)
 
     return eval_step
