@@ -257,7 +257,21 @@ order; any failure exits non-zero:
    ``SEQ_F32_RTOL`` a step, then bf16 at 8 layers for 10 steps (step ms,
    tokens/s, MFU, peak memory, 80 flash forward launches a step against 8,
    all on the wgmma arms) within ``SEQ_BF16_RTOL`` a step, and a ring
-   whose last hop leaves K/V in place outside it.
+   whose last hop leaves K/V in place outside it;
+18. sharded state and tensor parallelism (:func:`sharded_path`): this
+   process joins a world of 1 over NCCL under the torchrun contract and
+   runs phase 7's step for 10 steps on the same batches under ``dp``
+   (DDP), ``fsdp`` (ZeRO-3), ``zero1``, TP over a model axis of 2 folded
+   onto the card and TP merged with FSDP, and with the bf16 gradient
+   reduce: FSDP and ZeRO-1 within ``SHARD_RTOL`` of dp a step, TP within
+   ``TP_RTOL``, 8 flash launches of each kernel a step (16 under TP, each
+   shard at 4 heads), all wgmma; step ms, tokens/s, MFU, peak memory
+   (above what was held before the run, :func:`memory_held`),
+   collectives a step and ``state_bytes_per_device`` printed (at world 1
+   the collectives are copies: no memory saving is measured); the flash
+   kernels at the TP shard's shape held against their plain versions and
+   timed beside their bound and SDPA; ``--fsdp --seq_shards 4`` against
+   ``--seq_shards 4`` at seq 8192 for 5 steps, within ``SHARD_RTOL``.
 
 It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path; the
@@ -270,6 +284,7 @@ Exits non-zero, printing no result, without CUDA or outside the repository.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -603,6 +618,25 @@ SEQ_F32_RTOL = 1e-4
 # On an H100 80GB HBM3 at 700 W the sound ring read 2.18e-5 and the stale
 # one 1.26e-3: the bound sits ~9x above the one and ~6x below the other
 SEQ_BF16_RTOL = 2e-4
+# phase 18: sharded state and tensor parallelism at phase 7's model and
+# step (TRAIN_ARGS), SHARD_STEPS steps each on the same batches, world 1
+# over NCCL: dp (DDP), fsdp and zero1, TP over a model axis of TP_SHARDS
+# folded onto the card and TP merged with FSDP, and the bf16 gradient
+# reduce; then the entry point's --fsdp beside the ring of phase 17.
+# FSDP and ZeRO-1 at world 1 gather and reduce-scatter by copies: the same
+# numbers as dp, bf16 launches in the same order, each step's loss within
+# SHARD_RTOL of dp's (phase 17's bound of one bf16 run against another)
+SHARD_STEPS, SHARD_SEQ_STEPS, TP_SHARDS = 10, 5, 2
+SHARD_RTOL = SEQ_BF16_RTOL
+# TP sums two bf16 partial outputs of proj and wo (in f32, rounded once)
+# where the unsharded block rounds one product: each step's loss within
+# TP_RTOL of dp's.  On an H100 80GB HBM3 at 700 W TP and TP + FSDP read
+# 6.10e-5 (FSDP and ZeRO-1 0: the same launches on the same numbers)
+TP_RTOL = 5e-4
+# the flash kernels at the TP shard's shape: phase 7's attention at half
+# its heads (b 8, h 4, s 2048, dh 128, bf16, causal)
+TP_FLASH_CASE = ("TP shard", 8, 8 // TP_SHARDS, 8 // TP_SHARDS, 2048, DH,
+                 "bf16", (0, None))
 
 
 def log(msg: str) -> None:
@@ -4448,6 +4482,16 @@ def ring_hop_readings(torch, gen, flush, case) -> dict:
     return res
 
 
+def memory_held(torch) -> int:
+    """The bytes allocated on the card before a run builds anything (what
+    earlier phases and runs left, once their reference cycles are
+    collected): a run's peak is read above them, so it is the run's own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
 def seq_entry_run(torch, shards: int, steps: int, *extra) -> dict:
     """``steps`` steps of the entry point's configuration (``SEQ_ARGS``,
     ``--seq_shards shards``, through ``build_training``: one process, a
@@ -4460,6 +4504,7 @@ def seq_entry_run(torch, shards: int, steps: int, *extra) -> dict:
 
     args = get_args(SEQ_ARGS + ["--seq_shards", str(shards),
                                 "--total_iterations", str(steps), *extra])
+    held = memory_held(torch)
     model, step, next_batch = build_training(args)
 
     def cuda(batch):
@@ -4493,8 +4538,8 @@ def seq_entry_run(torch, shards: int, steps: int, *extra) -> dict:
     return dict(shards=shards, losses=losses, step_ms_p50=step_s * 1e3,
                 tokens_per_s=args.batch_size * args.seq_len / step_s,
                 mfu=mfu(flops, step_s, 1, peak_per_chip=H100_BF16_FLOPS),
-                peak_mem_gb=peak / 1e9, launches=counts,
-                launches_wgmma=wgmma, layers=args.n_layers)
+                peak_mem_gb=(peak - held) / 1e9, held_gb=held / 1e9,
+                launches=counts, launches_wgmma=wgmma, layers=args.n_layers)
 
 
 class StaleLastHop:
@@ -4584,7 +4629,8 @@ def seq_parallel_path(torch, card: str) -> dict:
             f"8 layers, seq {RING_S}, batch {RING_B}, {SEQ_STEPS} steps): "
             f"step p50 {r['step_ms_p50']:.2f} ms = {r['tokens_per_s']:.0f} "
             f"tokens/s, MFU {r['mfu']:.4f}, peak memory "
-            f"{r['peak_mem_gb']:.2f} GB ({card}); flash launches "
+            f"{r['peak_mem_gb']:.3f} GB above the {r['held_gb']:.3f} GB held "
+            f"before the run ({card}); flash launches "
             f"{r['launches'].get('flash_forward', 0) // SEQ_STEPS} forward "
             f"a step; losses {[round(x, 4) for x in r['losses']]}")
     log(f"phase 17 bf16 losses, ring vs unsharded: max rel {max(gap):.2e}; "
@@ -4598,6 +4644,226 @@ def seq_parallel_path(torch, card: str) -> dict:
                              f"does not tell a stale hop: {stale_gap}")
     res["wall_s"] = time.perf_counter() - t0
     log(f"phase 17 wall: {res['wall_s']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 18: sharded state (FSDP, ZeRO-1), tensor parallelism, the bf16
+# gradient reduce
+
+
+def shard_run(torch, label: str, steps: int, layout=None, *, tp=False,
+              reduce_dtype=None) -> dict:
+    """``steps`` steps of phase 7's step (``TRAIN_ARGS``: the demo's model
+    and optimizer) on the seeded synthetic batches under ``layout(mesh,
+    model, opt)`` (``None``: DDP), on the ``data`` mesh or, with ``tp``, a
+    ``('data', 'model')`` mesh of ``TP_SHARDS`` places on the card; every
+    count zeroed just before: losses, step ms p50 (after the first 3),
+    tokens/s, MFU, peak memory, flash launches (and on the wgmma arms),
+    the runtime's collectives a step and ``state_bytes_per_device``."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.examples.demo_long_context import (build_model,
+                                                          make_batch)
+    from tpudist_torch.parallel import state_bytes_per_device
+    from tpudist_torch.runtime.mesh import data_model_mesh, data_parallel_mesh
+    from tpudist_torch.train.__main__ import get_args
+    from tpudist_torch.train.lm import make_lm_train_step
+    from tpudist_torch.train.optim import build_optimizer_from_args
+    from tpudist_torch.utils.flops import mfu, transformer_train_flops
+
+    args = get_args(TRAIN_ARGS + ["--total_iterations", str(steps)])
+    dev = torch.device("cuda")
+    held = memory_held(torch)
+    model = build_model(args, dev)
+    opt, sched = build_optimizer_from_args(args, model.parameters())
+    mesh = (data_model_mesh(TP_SHARDS, devices=[dev] * TP_SHARDS) if tp
+            else data_parallel_mesh(device=dev))
+    plan = layout(mesh, model, opt) if layout is not None else None
+    step = make_lm_train_step(model, opt, scheduler=sched,
+                              state_sharding=plan,
+                              grad_reduce_dtype=reduce_dtype)
+    rng = np.random.default_rng(args.seed)
+    batches = [torch.from_numpy(make_batch(rng, args.batch_size,
+                                           args.seq_len, args.vocab)).to(dev)
+               for _ in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rt = step.runtime
+    if rt is not None:
+        rt.counts.update({k: 0 for k in rt.counts})
+    losses, times = [], []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        loss = step(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = {n: ops.launch_counts().get(n, 0) for n in TRAIN_KERNELS}
+    wgmma = {n: ops.KERNEL_WRAPPERS[n].launches_wgmma for n in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times[3:])
+    flops = transformer_train_flops(
+        batch=args.batch_size, seq_len=args.seq_len, d_model=args.d_model,
+        n_layers=args.n_layers, d_ff=args.d_ff, vocab=args.vocab)
+    res = dict(label=label, losses=losses, step_ms_p50=step_s * 1e3,
+               tokens_per_s=args.batch_size * args.seq_len / step_s,
+               mfu=mfu(flops, step_s, 1, peak_per_chip=H100_BF16_FLOPS),
+               peak_mem_gb=(peak - held) / 1e9, held_gb=held / 1e9,
+               launches=counts, launches_wgmma=wgmma, layers=args.n_layers,
+               collectives=(None if rt is None else
+                            {k: v / steps for k, v in rt.counts.items()}),
+               state_bytes=(None if plan is None
+                            else state_bytes_per_device(plan)))
+    del model, opt, step, batches, rt
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phase 18 {label}: non-finite losses "
+                             f"{losses}")
+    return res
+
+
+def log_shard_run(r: dict, card: str, base=None) -> None:
+    gap = "" if base is None else (
+        f"; losses vs dp max rel "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(r['losses'], base)):.2e}")
+    coll = "" if r["collectives"] is None else (
+        f"; collectives a step {r['collectives']}")
+    sb = "" if r["state_bytes"] is None else (
+        f"; state_bytes_per_device {r['state_bytes'] / 2**20:.1f} MiB")
+    log(f"phase 18 {r['label']} (phase 7's model, world 1, "
+        f"{len(r['losses'])} steps): step p50 {r['step_ms_p50']:.2f} ms = "
+        f"{r['tokens_per_s']:.0f} tokens/s, MFU {r['mfu']:.4f}, peak "
+        f"memory {r['peak_mem_gb']:.3f} GB above the {r['held_gb']:.3f} GB "
+        f"held before the run ({card}); flash launches a step "
+        f"{ {n: v // len(r['losses']) for n, v in r['launches'].items()} }"
+        f"{coll}{sb}{gap}; losses {[round(x, 4) for x in r['losses']]}")
+
+
+def hold_launches(r: dict, per_layer: int) -> None:
+    """Every flash kernel ``per_layer`` times a layer and step, all on the
+    wgmma arms."""
+    steps = len(r["losses"])
+    want = {n: per_layer * r["layers"] * steps for n in TRAIN_KERNELS}
+    if r["launches"] != want or r["launches_wgmma"] != want:
+        raise AssertionError(f"phase 18 {r['label']}: flash launches "
+                             f"{r['launches']} (wgmma {r['launches_wgmma']})"
+                             f", not {want}")
+
+
+def hold_losses(r: dict, base, rtol: float) -> float:
+    gap = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], base))
+    if gap > rtol:
+        raise AssertionError(f"phase 18 {r['label']}: losses leave dp's by "
+                             f"{gap:.2e} > {rtol}: {r['losses']} vs {base}")
+    return gap
+
+
+def sharded_path(torch, card: str) -> dict:
+    """Phase 18: (a) ``dp`` (DDP), ``fsdp`` and ``zero1`` at world 1 over
+    NCCL (this process under the torchrun contract), each step's loss
+    within ``SHARD_RTOL`` of ``dp``'s, 8 flash launches of each kernel a
+    step; (b) TP over ``TP_SHARDS`` places folded onto the card and TP
+    merged with FSDP, within ``TP_RTOL`` of ``dp``, 16 launches of each a
+    step, all wgmma; the flash kernels at the shard's shape
+    (``TP_FLASH_CASE``) against their plain versions and timed beside
+    their bound and SDPA; (c) the bf16 gradient reduce against ``dp``'s f32
+    one (the gap printed); (d) the entry point's ``--fsdp --seq_shards
+    4`` against ``--seq_shards 4`` (phase 17's configuration,
+    ``SHARD_SEQ_STEPS`` steps), within ``SHARD_RTOL``."""
+    from tpudist_torch.models.transformer import transformer_tp_sharding
+    from tpudist_torch.parallel import (fsdp_sharding, merge_shardings,
+                                        zero1_sharding)
+    from tpudist_torch.runtime import initialize, shutdown
+
+    t0 = time.perf_counter()
+    env = torchrun_env()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize(device=torch.device("cuda"))
+        runs = {"dp": shard_run(torch, "dp (DDP)", SHARD_STEPS)}
+        base = runs["dp"]["losses"]
+        runs["fsdp"] = shard_run(torch, "fsdp", SHARD_STEPS, fsdp_sharding)
+        runs["zero1"] = shard_run(torch, "zero1", SHARD_STEPS,
+                                  zero1_sharding)
+        runs["tp"] = shard_run(torch, f"TP model {TP_SHARDS}", SHARD_STEPS,
+                               transformer_tp_sharding, tp=True)
+        runs["tp_fsdp"] = shard_run(
+            torch, f"TP model {TP_SHARDS} + FSDP", SHARD_STEPS,
+            lambda mesh, m, o: merge_shardings(
+                transformer_tp_sharding(mesh, m, o),
+                fsdp_sharding(mesh, m, o)), tp=True)
+        runs["bf16_reduce"] = shard_run(torch, "grad_reduce_dtype bf16",
+                                        SHARD_STEPS,
+                                        reduce_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(1818)
+        readings = flash_case_readings(torch, gen, TP_FLASH_CASE)
+        if not readings["ok"]:
+            raise AssertionError(f"phase 18: the flash kernels disagree "
+                                 f"with their plain versions at the TP "
+                                 f"shard's shape: {readings}")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        timed = flash_head_dim_timings(torch, gen, flush,
+                                       TP_FLASH_CASE[:6])
+        del flush
+        torch.cuda.empty_cache()
+        seq_fsdp = seq_entry_run(torch, RING_SHARDS, SHARD_SEQ_STEPS,
+                                 "--precision", "bf16", "--fsdp")
+        seq_plain = seq_entry_run(torch, RING_SHARDS, SHARD_SEQ_STEPS,
+                                  "--precision", "bf16")
+    finally:
+        shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for name, r in runs.items():
+        log_shard_run(r, card, None if name == "dp" else base)
+    gaps = {}
+    for name in ("dp", "fsdp", "zero1"):
+        hold_launches(runs[name], 1)
+    for name in ("tp", "tp_fsdp"):
+        hold_launches(runs[name], TP_SHARDS)
+    for name in ("fsdp", "zero1"):
+        gaps[name] = hold_losses(runs[name], base, SHARD_RTOL)
+    for name in ("tp", "tp_fsdp"):
+        gaps[name] = hold_losses(runs[name], base, TP_RTOL)
+    gaps["bf16_reduce"] = max(abs(a - b) / abs(b) for a, b in
+                              zip(runs["bf16_reduce"]["losses"], base))
+    log("phase 18 (a) world 1: the collectives are copies, so the memory "
+        "FSDP and ZeRO-1 save over more ranks is not measured on this box")
+    log(f"phase 18 (c) bf16 gradient reduce against the f32 reduce: losses "
+        f"max rel {gaps['bf16_reduce']:.2e}")
+    seq_gap = max(abs(a - b) / abs(b) for a, b in
+                  zip(seq_fsdp["losses"], seq_plain["losses"]))
+    for r, tag in ((seq_fsdp, "--fsdp --seq_shards 4"),
+                   (seq_plain, "--seq_shards 4")):
+        log(f"phase 18 (d) entry point {tag} (seq {RING_S}, batch "
+            f"{RING_B}, {SHARD_SEQ_STEPS} steps): step p50 "
+            f"{r['step_ms_p50']:.2f} ms = {r['tokens_per_s']:.0f} tokens/s, "
+            f"MFU {r['mfu']:.4f}, peak memory {r['peak_mem_gb']:.3f} GB "
+            f"above the {r['held_gb']:.3f} GB held before the run ({card}); "
+            f"flash forward launches "
+            f"{r['launches'].get('flash_forward', 0)}; losses "
+            f"{[round(x, 4) for x in r['losses']]}")
+    log(f"phase 18 (d) --fsdp against the ring alone: losses max rel "
+        f"{seq_gap:.2e} (bound {SHARD_RTOL})")
+    if seq_fsdp["launches"] != seq_plain["launches"]:
+        raise AssertionError(f"phase 18 (d): --fsdp launched "
+                             f"{seq_fsdp['launches']}, the ring "
+                             f"{seq_plain['launches']}")
+    if seq_gap > SHARD_RTOL:
+        raise AssertionError(f"phase 18 (d): --fsdp leaves the ring's "
+                             f"losses by {seq_gap:.2e}")
+    res = dict(runs=runs, gaps=gaps, tp_flash=dict(readings=readings,
+                                                   kernels=timed),
+               seq=dict(fsdp=seq_fsdp, plain=seq_plain, max_rel=seq_gap),
+               wall_s=time.perf_counter() - t0)
+    log(f"phase 18 wall: {res['wall_s']:.1f} s")
     return res
 
 
@@ -5413,6 +5679,7 @@ def main(argv=None) -> int:
 
     public = public_widths_path(torch, card)
     seq = seq_parallel_path(torch, card)
+    shard = sharded_path(torch, card)
 
     kernels = []
     launches = dict(main_path["launches"])
@@ -5503,6 +5770,18 @@ def main(argv=None) -> int:
                                 bound_ms=h["kernels"][name]["bound"][0],
                                 bound_by=h["kernels"][name]["bound"][1])
                       for hop, h in seq["hops"].items()})
+            # phase 18: the TP runs' launches (model 2 folded onto the
+            # card, 10 steps) and the kernel at the TP shard's shape
+            t = shard["tp_flash"]["kernels"][name]
+            kernels[-1]["phase18"] = dict(
+                launches={run: int(shard["runs"][run]["launches"][name])
+                          for run in shard["runs"]},
+                seq_fsdp_launches=int(
+                    shard["seq"]["fsdp"]["launches"][name]),
+                tp_shard=dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                              library_ms=t["library_ms"],
+                              bound_ms=t["bound"][0],
+                              bound_by=t["bound"][1]))
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -5538,6 +5817,7 @@ def main(argv=None) -> int:
                   split=split, mpi=mpi, trainer=trainer,
                   lm_entry=dict(subprocess=lm_sub, in_process=lm_in),
                   public_widths=public, seq_parallel=seq,
+                  sharded=shard,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

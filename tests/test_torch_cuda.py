@@ -1627,3 +1627,82 @@ def test_ring_of_four_shards_matches_single_flash(cuda, layout):
     vmax = float(v.float().abs().max())
     for i, (x, y) in enumerate(zip(got, want)):
         _flash_close(x, y[:, :, pi], torch.bfloat16, grad=i > 0, vmax=vmax)
+
+
+def test_flash_at_the_tp_shard_shape(cuda):
+    """The flash kernels at the TP shard's shape (phase 7's attention at
+    half its heads: b 8, h 4, s 2048, dh 128, bf16, causal) against their
+    plain versions (``chip_smoke.flash_case_readings``), on the wgmma arms."""
+    from chip_smoke import TP_FLASH_CASE, flash_case_readings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    r = flash_case_readings(torch, gen, TP_FLASH_CASE)
+    assert r["ok"] and r["arm"] == r["fwd_arm"] == "wgmma", r
+
+
+# the folded TP run against the unsharded one, a few times above what an
+# H100 80GB HBM3 at 700 W read (the same in three runs): the loss 3.42e-5
+# apart, the worst gradient (pos_embed) 8.52e-3 by relative norm
+FOLDED_TP_LOSS_RTOL = 2e-4
+FOLDED_TP_GRAD_RTOL = 3e-2
+
+
+def folded_tp_readings(cuda) -> dict:
+    """One forward and backward of a small bf16-over-f32 model, unsharded
+    and with a model axis of 2 folded onto the card: each run's flash
+    launches, the TP loss's relative gap and each gradient's relative
+    distance ``|g_tp - g| / |g|`` (by norm) from the unsharded run's."""
+    from tpudist_torch.models import create_transformer, lm_loss
+    from tpudist_torch.models.transformer import transformer_tp_sharding
+    from tpudist_torch.parallel import shard_state
+    from tpudist_torch.runtime.mesh import data_model_mesh
+    from tpudist_torch.train import build_optimizer
+
+    geom = dict(vocab=64, d_model=256, n_layers=2, n_heads=4, d_ff=512,
+                max_len=256)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 64, (2, 256)).astype(np.int32)).to(cuda)
+    grads, losses, counts = {}, {}, {}
+    for tp in (False, True):
+        model = create_transformer(0, device=cuda, dtype=torch.bfloat16,
+                                   param_dtype=torch.float32, trainable=True,
+                                   **geom)
+        fwd = model
+        if tp:
+            opt, _ = build_optimizer(model.parameters(), 1e-3)
+            fwd = shard_state(model, opt, transformer_tp_sharding(
+                data_model_mesh(2, devices=[cuda, cuda]), model, opt))
+        reset_launch_counts()
+        loss = lm_loss(fwd(tokens), tokens)
+        loss.backward()
+        counts[tp] = {n: launch_counts()[n] for n in (
+            "flash_forward", "flash_backward_dq", "flash_backward_dkv")}
+        losses[tp] = float(loss.detach())
+        if tp:
+            grads[tp] = {n: fwd._whole(n, [t.grad for t in fwd.pieces[n]],
+                                       fwd._shapes[n]).float()
+                         for n in fwd._order}
+        else:
+            grads[tp] = {n: p.grad.float()
+                         for n, p in model.named_parameters()}
+    return dict(
+        counts=counts, wgmma=flash_forward.launches_wgmma,
+        loss_gap=abs(losses[True] - losses[False]) / abs(losses[False]),
+        grad_rel={n: float((grads[True][n] - g).norm() / g.norm())
+                  for n, g in grads[False].items()})
+
+
+def test_folded_tp_block_equals_unsharded_on_the_card(cuda):
+    """A model axis of 2 folded onto the card: the TP step's loss and
+    every gradient against the unsharded model's (bf16 compute over f32
+    masters; each shard's flash launches at its own head count: twice the
+    launches, all wgmma), within ``FOLDED_TP_LOSS_RTOL`` and
+    ``FOLDED_TP_GRAD_RTOL``."""
+    r = folded_tp_readings(cuda)
+    counts = r["counts"]
+    assert counts[True] == {n: 2 * v for n, v in counts[False].items()}
+    assert r["wgmma"] == counts[True]["flash_forward"]
+    assert r["loss_gap"] <= FOLDED_TP_LOSS_RTOL, r["loss_gap"]
+    worst = max(r["grad_rel"].items(), key=lambda kv: kv[1])
+    assert worst[1] <= FOLDED_TP_GRAD_RTOL, worst

@@ -324,11 +324,14 @@ def test_entry_point_trains_on_cpu_and_refuses_the_rest(capsys, tmp_path,
     np.save(corpus, (np.arange(4096) % 16).astype(np.int32))
     assert np.isfinite(train_main(small + ["--total_iterations", "2",
                                            "--data_path", str(corpus)]))
-    # --remat, --generate and the ring's flags are ported; FSDP and MoE
-    # (A6c's later slices) still raise
-    for flag in (["--moe_experts", "4"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="A6c"):
-            get_args(small + flag)
+    # --remat, --generate, the ring's flags and --fsdp are ported; MoE
+    # (A6c's later slices) still raises
+    with pytest.raises(NotImplementedError, match="A6c"):
+        get_args(small + ["--moe_experts", "4"])
+    assert get_args(small + ["--fsdp"]).fsdp
+    sharded = train_main(small + ["--total_iterations", "2", "--fsdp"])
+    assert np.isfinite(sharded)
+    assert "fsdp: " in capsys.readouterr().out
     ring = get_args(small + ["--seq_shards", "2", "--zigzag",
                              "--inner_block", "16"])
     assert (ring.seq_shards, ring.zigzag, ring.inner_block) == (2, True, 16)

@@ -8,10 +8,12 @@ resume needs to continue the unbroken run bit for bit: the loader's order
 is a pure function of ``(seed, epoch)`` (:mod:`tpudist_torch.data.sharding`)
 and the toy step draws no random numbers, so no RNG state is saved.
 
-- Rank 0 writes; the other ranks wait at a barrier.  Every rank holds the
-  full replica (DDP), so a checkpoint written at one world size loads at
-  any other — the port's counterpart of the JAX manager's
-  ``restore_resharded``.
+- Rank 0 writes; the other ranks wait at a barrier.  The states hold the
+  whole tensors — a replica under DDP, or the gathered state of a sharded
+  layout (:mod:`tpudist_torch.parallel.zero`'s views, whose ``state_dict``
+  every rank takes part in) — so a checkpoint written under one layout and
+  world size loads under any other: the port's counterpart of the JAX
+  manager's ``restore_resharded``.
 - Writes are atomic: ``step_<N>.tmp``, flushed and synced, then
   ``os.replace``; :attr:`CheckpointManager.latest_step` counts finished
   files only, and retention keeps the last ``max_to_keep``.
@@ -166,8 +168,10 @@ class CheckpointManager:
         if step in self._saved:
             return False
         self._saved.add(step)
+        # every rank: a sharded state's state_dict gathers its shards
+        whole = state_dicts(states)
         if process_index() == 0:
-            payload = {"states": _to_host(state_dicts(states)),
+            payload = {"states": _to_host(whole),
                        "meta": dict(meta, seed=self.seed)}
             self._join_writer()
             if self.config.async_save:

@@ -39,8 +39,15 @@ prefetch_to_device`.  ``--remat`` (with ``--remat_policy``) recomputes each
 block in the backward; ``--generate N`` decodes N tokens after training
 from an 8-token prompt through the dense KV cache (greedy, or sampled with
 ``--gen_temperature``/``--gen_top_k``/``--gen_top_p``).  Metrics go to
-``runs/<group>/metrics.jsonl`` (``loss/lm``, ``loss/eval``).  The sharded
-options (``--moe_*``, ``--fsdp``) raise: ROADMAP queue A, item A6c.
+``runs/<group>/metrics.jsonl`` (``loss/lm``, ``loss/eval``).  ``--fsdp``
+shards the parameters and the optimizer state over the ``data`` axis
+(ZeRO-3, :func:`tpudist_torch.parallel.fsdp_sharding`, carried out by
+:mod:`tpudist_torch.parallel.zero`: each block's shards gathered for its
+forward and again for its backward, the gradients reduce-scattered), with
+the JAX demo's ``fsdp: X MiB state/chip`` line; it composes with the ring,
+``--accum_steps``, ``--remat``, eval and ``--generate`` (which decodes
+from the gathered weights).  ``--moe_*`` raises: ROADMAP queue A, item
+A6c.
 ``--n_heads`` and ``--d_ff`` set the geometry the JAX demo leaves at the
 model's defaults (4 heads, d_ff 512).
 
@@ -119,7 +126,8 @@ def get_args(argv=None):
     p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32",
                    help="bf16 = f32 master weights, bf16 compute")
     p.add_argument("--fsdp", action="store_true",
-                   help="fully-sharded params + optimizer state (A6c)")
+                   help="fully-sharded params + optimizer state (ZeRO-3 "
+                        "over the data axis)")
     p.add_argument("--zigzag", action="store_true",
                    help="causal-balanced zigzag ring layout (requires "
                         "--seq_shards > 1; excludes --sliding_window/"
@@ -164,10 +172,8 @@ def get_args(argv=None):
                    help="evaluate the held-out set every N iterations")
     p.set_defaults(batch_size=8, total_iterations=300, lr=3e-4)
     args = parse_args(argv, parser=p)
-    refused = {"--fsdp": args.fsdp, "--moe_experts": args.moe_experts > 0}
-    for flag, on in refused.items():
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet: {_A6C}")
+    if args.moe_experts > 0:
+        raise NotImplementedError(f"--moe_experts is not ported yet: {_A6C}")
     return args
 
 
@@ -240,6 +246,20 @@ def seq_parts(args, ring):
             layout.place)
 
 
+def fsdp_layout(args, mesh, model, opt):
+    """``--fsdp``: the ZeRO-3 layout of the model and its optimizer over
+    the mesh's ``data`` axis (``None`` without the flag), and the JAX
+    demo's line of its bytes a device."""
+    if not args.fsdp:
+        return None
+    from tpudist_torch.parallel import fsdp_sharding, state_bytes_per_device
+
+    layout = fsdp_sharding(mesh, model, opt)
+    rank_print(f"fsdp: {state_bytes_per_device(layout) / 2**20:.1f} MiB "
+               "state/chip (ZeRO-3 layout)")
+    return layout
+
+
 def build_training(args):
     """``(model, step, next_batch)`` for ``args`` in one process: the
     trainable model on ``args.device``, the train step over its optimizer,
@@ -252,13 +272,15 @@ def build_training(args):
     _check_flags(args)
     if args.seed is None:
         args.seed = resolve_shared_seed(None)
-    model = build_model(args, resolve_device(args.device))
+    device = resolve_device(args.device)
+    model = build_model(args, device)
     opt, sched = build_optimizer_from_args(args, model.parameters())
     ctx, loss_fn, place = seq_parts(
         args, LocalRing(args.seq_shards) if args.seq_shards > 1 else None)
+    layout = fsdp_layout(args, data_parallel_mesh(device=device), model, opt)
     step = make_lm_train_step(model, opt, scheduler=sched,
                               accum_steps=args.accum_steps, ctx=ctx,
-                              loss_fn=loss_fn)
+                              loss_fn=loss_fn, state_sharding=layout)
     if args.data_path is not None:
         _, corpus, _ = open_corpus(args)
         return model, step, lambda: place(next(corpus))
@@ -347,9 +369,10 @@ def main(argv=None) -> float:
     seq_ctx, loss_fn, place = seq_parts(args, mesh.ring)
     model = build_model(args, dev)
     opt, sched = build_optimizer_from_args(args, model.parameters())
+    layout = fsdp_layout(args, mesh, model, opt)
     step = make_lm_train_step(model, opt, scheduler=sched,
                               accum_steps=args.accum_steps, ctx=seq_ctx,
-                              loss_fn=loss_fn)
+                              loss_fn=loss_fn, state_sharding=layout)
     logger = init_metrics(args.project, args.group or "demo_long_context",
                           dry_run=args.dry_run)
     rng = np.random.default_rng(args.seed)
@@ -374,7 +397,8 @@ def main(argv=None) -> float:
         eval_batches = [_to_device(place(windows.gather(
             eval_idx[i * args.batch_size:(i + 1) * args.batch_size])), dev)
             for i in range(n_eval)]
-    eval_step = make_lm_eval_step(model, loss_fn=loss_fn, ctx=seq_ctx)
+    eval_step = make_lm_eval_step(model, loss_fn=loss_fn, ctx=seq_ctx,
+                                  params_sharding=step.runtime)
 
     def eval_loss() -> float:
         return float(np.mean([float(eval_step(b)) for b in eval_batches]))
@@ -415,7 +439,9 @@ def main(argv=None) -> float:
         corpus.close()  # joins the native gather pool's workers
     rank_print(f"final lm loss: {final:.4f}")
     if args.generate > 0:
-        _generate(args, model, windows)
+        # --fsdp: every rank gathers the whole weights first
+        _generate(args, model if step.runtime is None
+                  else step.runtime.materialize(), windows)
     # the process group goes down even at world 1, where the JAX demo
     # has none to tear down
     shutdown()

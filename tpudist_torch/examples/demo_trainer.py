@@ -9,8 +9,9 @@ precision 32, ``demo_pytorch_lightning.py:48,50,58``) is the default;
 ``--precision bf16`` computes in bf16 over f32 masters.  The parser is the
 JAX demo's; ``--strategy fsdp|zero1|pp`` trains the LM module
 (:class:`ChainLMModule` on :class:`ChainLoader`'s increment chains) under
-sharded or pipelined layouts, which raise: ROADMAP A6c.  The LM module
-itself trains under ``Trainer(strategy='dp')``.
+the sharded layouts — ZeRO-3 and ZeRO-1 over the ``data`` axis
+(:mod:`tpudist_torch.parallel.zero`) — or pipelined, which raises: ROADMAP
+A6c.  The LM module also trains under ``Trainer(strategy='dp')``.
 
   python -m tpudist_torch.examples.demo_trainer --dry_run
 

@@ -427,7 +427,11 @@ class PagedPrefill:
 
 class Block(nn.Module):
     """Pre-LN decoder block: ``x + proj(attn(LN(x)))``, then
-    ``x + wo(gelu(wi(LN(x))))``.  Linear weights are stored ``[out, in]``."""
+    ``x + wo(gelu(wi(LN(x))))``.  Linear weights are stored ``[out, in]``
+    and cast to ``dtype`` where they are used (``cast_weights``: the ZeRO-3
+    runtime gathers them in that dtype)."""
+
+    cast_weights = ("qkv", "proj", "wi", "wo")
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: Optional[int], layer_idx: int,
@@ -511,10 +515,264 @@ class Block(nn.Module):
         return x + self._ad(ads, F.linear(y, self.wo.to(dtype)), y, "wo")
 
 
+def _same_device(d, dev: torch.device) -> bool:
+    """Whether ``d`` names ``dev`` (``cuda`` without an index names the
+    current card)."""
+    d = torch.device(d)
+    if d.type != dev.type:
+        return False
+    if d.type == "cuda" and d.index is None:
+        return dev.index == torch.cuda.current_device()
+    return d.index == dev.index
+
+
+class _CopyToShards(torch.autograd.Function):
+    """Megatron's ``f``: the input to every model device in the forward, the
+    sum of their gradients in the backward."""
+
+    @staticmethod
+    def forward(ctx, devices, x):
+        ctx.device = x.device
+        return tuple(x.view_as(x) if _same_device(d, x.device)
+                     else x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [g for g in grads if g is not None]
+        total = live[0].to(ctx.device)
+        for g in live[1:]:
+            total = total + g.to(ctx.device)
+        return None, total
+
+
+class _SumShards(torch.autograd.Function):
+    """Megatron's ``g``: the sum of the model devices' partial outputs on
+    ``device`` in the forward (taken in f32, rounded once to the partials'
+    dtype), the gradient to every device in the backward."""
+
+    @staticmethod
+    def forward(ctx, device, *parts):
+        ctx.where = [(p.device, p.dtype) for p in parts]
+        total = parts[0].float().to(device)
+        for p in parts[1:]:
+            total = total + p.float().to(device)
+        return total.to(parts[0].dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.to(dev, dt) for dev, dt in ctx.where))
+
+
+class TPBlock(nn.Module):
+    """The Megatron form of :class:`Block` over ``devices``, the ``model``
+    axis of this rank (repeats allowed: on one card every shard folds onto
+    it and makes its own launches).  Shard ``m`` holds heads ``[m·h/M,
+    (m+1)·h/M)`` — its q rows and the k and v rows of its kv heads, each
+    query group whole with its kv head — and the matching ``proj`` columns,
+    ``d_ff/M`` rows of ``wi`` and the matching ``wo`` columns.  The forward
+    copies the normed input to every shard (``f``), runs each shard's
+    attention (the flash kernels over its heads on CUDA) and MLP, and sums
+    the partial outputs of ``proj`` and of ``wo`` (``g``), one sum each.
+    The norms stay whole (the ``ln1``/``ln2`` parameters of the block it
+    was made from).  The training arm only: the serving arms (decode,
+    prefill, fused RoPE, adapters) keep the replicated block.
+
+    The state dict holds the whole tensors under the block's own keys
+    (``qkv``, ``proj``, ``wi``, ``wo``), assembled from the shards and cut
+    into them on load.  ``SPLIT`` is the one statement of which dimension
+    each weight splits along: :func:`transformer_tp_sharding` and the
+    runtime read it."""
+
+    SPLIT = {"qkv": 0, "proj": 1, "wi": 0, "wo": 1}
+
+    def __init__(self, block: Block, devices):
+        super().__init__()
+        devices = tuple(torch.device(d) for d in devices)
+        m = len(devices)
+        h, kv = block.n_heads, block.n_kv
+        d_ff = block.wi.shape[0]
+        for what, n in (("n_heads", h), ("n_kv_heads", kv), ("d_ff", d_ff)):
+            if n % m:
+                raise ValueError(f"{what} {n} does not divide over a model "
+                                 f"axis of {m}")
+        self.devices, self.m = devices, m
+        self.d_model, self.n_heads, self.n_kv = block.d_model, h, kv
+        self.dh, self.layer_idx, self.dtype = block.dh, block.layer_idx, \
+            block.dtype
+        self.ln1, self.ln2 = block.ln1, block.ln2
+        self._idx = {"qkv": self._qkv_rows(), "wi": self._even(d_ff),
+                     "proj": self._even(h * self.dh),
+                     "wo": self._even(d_ff)}
+        for name in self.SPLIT:
+            whole = getattr(block, name).detach()
+            for i, part in enumerate(self.slice(name, whole,
+                                                self.split_dim(name))):
+                setattr(self, f"{name}_s{i}", nn.Parameter(
+                    part.to(devices[i]).clone(),
+                    requires_grad=getattr(block, name).requires_grad))
+
+    def _even(self, n: int):
+        k = n // self.m
+        return [torch.arange(i * k, (i + 1) * k) for i in range(self.m)]
+
+    def _qkv_rows(self):
+        d, dh = self.d_model, self.dh
+        kv_dim = self.n_kv * dh
+        hq, hk = self.n_heads // self.m, self.n_kv // self.m
+        out = []
+        for i in range(self.m):
+            q = torch.arange(i * hq * dh, (i + 1) * hq * dh)
+            k = d + torch.arange(i * hk * dh, (i + 1) * hk * dh)
+            out.append(torch.cat([q, k, k + kv_dim]))
+        return out
+
+    @classmethod
+    def split_dim(cls, name: str) -> int:
+        """The dimension of the ``[out, in]`` weight the shards split
+        (``SPLIT``): rows of ``qkv`` and ``wi``, columns of ``proj`` and
+        ``wo``."""
+        return cls.SPLIT[name]
+
+    def pieces(self, name: str) -> List[nn.Parameter]:
+        return [getattr(self, f"{name}_s{i}") for i in range(self.m)]
+
+    def slice(self, name: str, whole: torch.Tensor, dim: int):
+        """The shards' parts of ``whole``, a tensor that runs along weight
+        ``name``'s split dimension at its own dimension ``dim``."""
+        return [whole.index_select(dim, ix.to(whole.device))
+                for ix in self._idx[name]]
+
+    def assemble(self, name: str, parts, dim: int) -> torch.Tensor:
+        """The inverse of :meth:`slice`, on the first shard's device."""
+        dev = parts[0].device
+        shape = list(parts[0].shape)
+        shape[dim] = sum(p.shape[dim] for p in parts)
+        out = parts[0].new_empty(shape)
+        for ix, p in zip(self._idx[name], parts):
+            out.index_copy_(dim, ix.to(dev), p.detach().to(dev))
+        return out
+
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        for name in ("ln1", "ln2"):
+            t = getattr(self, name)
+            destination[prefix + name] = t if keep_vars else t.detach()
+        for name in self.SPLIT:
+            destination[prefix + name] = self.assemble(
+                name, self.pieces(name), self.split_dim(name))
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
+        with torch.no_grad():
+            for name in ("ln1", "ln2", "qkv", "proj", "wi", "wo"):
+                key = prefix + name
+                if key not in state_dict:
+                    missing_keys.append(key)
+                    continue
+                whole = state_dict[key]
+                if name in ("ln1", "ln2"):
+                    getattr(self, name).copy_(whole)
+                    continue
+                for p, part in zip(self.pieces(name), self.slice(
+                        name, whole, self.split_dim(name))):
+                    p.copy_(part)
+
+    def to_block(self) -> Block:
+        """The replicated :class:`Block` of the same weights (on the first
+        shard's device)."""
+        blk = Block.__new__(Block)
+        nn.Module.__init__(blk)
+        blk.d_model, blk.n_heads, blk.n_kv = self.d_model, self.n_heads, \
+            self.n_kv
+        blk.dh, blk.layer_idx, blk.dtype = self.dh, self.layer_idx, self.dtype
+        blk.ln1, blk.ln2 = self.ln1, self.ln2
+        for name in self.SPLIT:
+            p0 = self.pieces(name)[0]
+            setattr(blk, name, nn.Parameter(
+                self.assemble(name, self.pieces(name), self.split_dim(name)),
+                requires_grad=p0.requires_grad))
+        return blk
+
+    def forward(self, x: torch.Tensor, ctx) -> torch.Tensor:
+        if not isinstance(ctx, _Causal) or isinstance(ctx, RingCausal):
+            raise ValueError(
+                "the tensor-parallel block runs the training arm only: "
+                "decode, prefill, fused RoPE and adapters keep the "
+                "replicated block, and seq beside model is ROADMAP queue A, "
+                "item A6c")
+        dtype = self.dtype
+        b, s, _ = x.shape
+        hq, hk, dh = self.n_heads // self.m, self.n_kv // self.m, self.dh
+
+        def heads(t, n):
+            return t.reshape(b, s, n, dh).transpose(1, 2)
+
+        hs = _CopyToShards.apply(self.devices,
+                                 layer_norm(x, self.ln1).to(dtype))
+        parts = []
+        for h, w, pw in zip(hs, self.pieces("qkv"), self.pieces("proj")):
+            qkv = F.linear(h, w.to(dtype))
+            q = qkv[..., :hq * dh]
+            k = qkv[..., hq * dh:(hq + hk) * dh]
+            v = qkv[..., (hq + hk) * dh:]
+            attn = ctx.attend(self.layer_idx, heads(q, hq), heads(k, hk),
+                              heads(v, hk))
+            attn = attn.transpose(1, 2).reshape(b, s, hq * dh)
+            parts.append(F.linear(attn.to(dtype), pw.to(dtype)))
+        x = x + _SumShards.apply(x.device, *parts)
+        hs = _CopyToShards.apply(self.devices,
+                                 layer_norm(x, self.ln2).to(dtype))
+        parts = [F.linear(F.gelu(F.linear(h, wi.to(dtype)),
+                                 approximate="tanh"), wo.to(dtype))
+                 for h, wi, wo in zip(hs, self.pieces("wi"),
+                                      self.pieces("wo"))]
+        return x + _SumShards.apply(x.device, *parts)
+
+
+def transformer_tp_sharding(mesh, model: nn.Module, optimizer=None, *,
+                            axis_name: str = "model"):
+    """The Megatron layout of a :class:`TransformerLM` (and, when given, of
+    its optimizer's state): per block ``qkv`` and ``wi`` column-split,
+    ``proj`` and ``wo`` row-split on the JAX-shaped ``[in, out]`` view —
+    the port's ``[out, in]`` weights split along :attr:`TPBlock.SPLIT`'s
+    dimension — embeddings, norms and head replicated: the JAX package's
+    path rules.  An optimizer slot follows its parameter's rule unless it
+    has fewer than two dimensions (counters, Adafactor's factored
+    statistics and placeholders), as JAX's ``ndim`` check.  ``mesh`` is the port's mesh or
+    a ``{axis: size}`` dict; :mod:`tpudist_torch.parallel.zero` carries it
+    out with :class:`TPBlock`."""
+    from tpudist_torch.parallel.fsdp import (Leaf, make_layout,
+                                             optimizer_leaves, param_leaves)
+
+    leaves = param_leaves(model)
+    if optimizer is not None:
+        leaves.update(optimizer_leaves(model, optimizer))
+    out = {}
+    for key, (shape, transposed, itemsize) in leaves.items():
+        spec = [None] * len(shape)
+        hit = [w for w in key.replace("/", ".").split(".")
+               if w in TPBlock.SPLIT]
+        if hit and len(shape) >= 2:
+            spec[TPBlock.SPLIT[hit[0]]] = axis_name
+        out[key] = Leaf(shape, transposed, itemsize, tuple(spec))
+    return make_layout(out, mesh)
+
+
 class TransformerLM(nn.Module):
     """Causal LM: token (+ learned position) embeddings, ``n_layers``
     pre-LN blocks, final LayerNorm, untied head — the
-    :class:`tpudist.models.TransformerLM` geometry and numerics."""
+    :class:`tpudist.models.TransformerLM` geometry and numerics.
+
+    ``block_fn``, when set, runs each block in place of the module's own
+    call: ``block_fn(block, x, ctx, remat, remat_policy) -> x`` (the ZeRO-3
+    runtime gathers a block's shards there, :mod:`tpudist_torch.parallel.
+    zero`).  ``jax_transposed`` names the weights the port stores ``[out,
+    in]`` where flax keeps ``[in, out]`` (the sharding rules read them);
+    ``cast_weights`` those cast to ``dtype`` where they are used, as
+    :class:`Block`'s."""
+
+    jax_transposed = ("qkv", "proj", "wi", "wo", "head")
+    cast_weights = ("head",)
 
     def __init__(self, vocab: int = 256, d_model: int = 128,
                  n_layers: int = 2, n_heads: int = 4, d_ff: int = 512,
@@ -548,6 +806,7 @@ class TransformerLM(nn.Module):
             for i in range(n_layers))
         self.ln_f = nn.Parameter(torch.ones(d_model, dtype=torch.float32))
         self.head = nn.Parameter(torch.empty(vocab, d_model, dtype=pd))
+        self.block_fn = None
 
     @property
     def n_kv(self) -> int:
@@ -571,9 +830,13 @@ class TransformerLM(nn.Module):
             x = x + F.embedding(pos, self.pos_embed).to(self.dtype)
         remat = self.remat and isinstance(ctx, _Causal) and \
             torch.is_grad_enabled()
+        run = getattr(self, "block_fn", None)
         for block in self.blocks:
-            x = (rematerialized(block, x, ctx, self.remat_policy) if remat
-                 else block(x, ctx))
+            if run is not None:
+                x = run(block, x, ctx, remat, self.remat_policy)
+            else:
+                x = (rematerialized(block, x, ctx, self.remat_policy)
+                     if remat else block(x, ctx))
         x = layer_norm(x, self.ln_f)
         return F.linear(x.to(self.dtype), self.head.to(self.dtype))
 
@@ -649,6 +912,7 @@ def tied_draft(model: TransformerLM, layers: int) -> TransformerLM:
     draft.blocks = nn.ModuleList(model.blocks[:layers])
     draft.ln_f = model.ln_f
     draft.head = model.head
+    draft.block_fn = None
     return draft
 
 

@@ -7,9 +7,12 @@ group and the devices a process owns, the reference's own shape
 (``demo.py:66``, ``demo_one_model_multi_gpu.py:89-98``):
 
 - ``data`` — the process group: one model replica a rank, DDP averaging
-  the gradients over it;
-- ``model`` — the devices one rank owns, its replica's layer groups placed
-  one group a device (:mod:`tpudist_torch.models.split_mlp`);
+  the gradients over it, or the group a sharded state (FSDP, ZeRO-1:
+  :mod:`tpudist_torch.parallel.zero`) is sharded over;
+- ``model`` — the devices one rank owns: its replica's layer groups placed
+  one group a device (:mod:`tpudist_torch.models.split_mlp`), or the shards
+  of tensor parallelism, one a device (:class:`~tpudist_torch.models.
+  transformer.TPBlock`; on one card they fold onto it);
 - ``seq`` — sequence parallelism (:mod:`tpudist_torch.parallel`): over a
   process group the ranks lay out as the JAX axis order puts them, ``data``
   outermost and then ``seq`` (rank ``d·N + s``), and each data row's ``N``
@@ -17,8 +20,8 @@ group and the devices a process owns, the reference's own shape
   ProcessGroupRing`); in a job of one process the ``N`` shards fold onto
   the rank's one device (:class:`~tpudist_torch.parallel.LocalRing`), as
   ``model`` stages may repeat a device;
-- ``stage`` (pipeline parallelism) is not ported yet: ROADMAP queue A,
-  item A6c.
+- ``stage`` (pipeline parallelism), ``seq`` beside ``model`` and the
+  multi-slice mesh are not ported yet: ROADMAP queue A, item A6c.
 
 :class:`MeshConfig` is copied from the JAX package and pinned equal to it.
 A :class:`Mesh` is a plain record of the axes, this rank's coordinates on
@@ -84,13 +87,16 @@ class Mesh:
     axis (the process group) and, when its ring spans ranks, on ``seq``;
     ``devices`` are the devices of this rank's model replica, one a
     ``model`` coordinate (repeats allowed); ``ring`` is the ``seq`` axis's
-    ring (``None`` without one)."""
+    ring (``None`` without one); ``data_group`` the process group of this
+    rank's ``data`` axis (``None``: the default group, which it is unless a
+    ``seq`` axis spans ranks)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     coords: Dict[str, int]
     devices: Tuple[torch.device, ...]
     ring: object = dataclasses.field(default=None, compare=False)
+    data_group: object = dataclasses.field(default=None, compare=False)
 
 
 def replica_devices(local_rank: int, model_size: int,
@@ -177,10 +183,12 @@ def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
     rank, rows = process_index(), world // seq
     groups = [dist.new_group(ranks=list(range(d * seq, (d + 1) * seq)))
               for d in range(rows)]
+    cols = [dist.new_group(ranks=list(range(s, world, seq)))
+            for s in range(seq)]
     d, s = divmod(rank, seq)
     ring = ProcessGroupRing(groups[d], range(d * seq, (d + 1) * seq), s)
     return Mesh(names, {AXIS_DATA: rows, AXIS_SEQ: seq},
-                {AXIS_DATA: d, AXIS_SEQ: s}, devs, ring)
+                {AXIS_DATA: d, AXIS_SEQ: s}, devs, ring, cols[s])
 
 
 def make_mesh(config: Optional[MeshConfig] = None, *,

@@ -17,9 +17,16 @@ its data row's rows and its shards of their tokens, a batch is the pair
 and the loss :meth:`~tpudist_torch.parallel.SeqLayout.loss`, each rank's
 share counted against the global number of targets, so that DDP's average
 over every rank is the gradient of the global mean and :func:`_global_mean`
-reports the global batch's loss.  ``grad_reduce_dtype``,
-``state_sharding``, the MoE ``aux`` outputs and the scanned step belong to
-A6c's later slices (ROADMAP queue A).
+reports the global batch's loss.
+
+``state_sharding`` (a :class:`~tpudist_torch.parallel.fsdp.Layout`: FSDP,
+ZeRO-1, tensor parallelism or a merge of them) replaces DDP with the
+runtime of :mod:`tpudist_torch.parallel.zero`, which carries the plan out
+around the same forward and backward: the reported loss and the update are
+replicated data parallelism's.  ``grad_reduce_dtype`` narrows the gradient
+mean to that dtype, as the JAX package's compressed step does (sum at the
+narrow dtype, divide, cast back to f32).  The MoE ``aux`` outputs and the
+scanned step belong to A6c's later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -61,6 +68,41 @@ def _forward_loss(replica, batch, ctx, loss_fn):
     return loss_fn(logits, targets)
 
 
+def _compressed_mean_(params, dtype) -> None:
+    """The JAX compressed step's ``pmean(g.astype(dtype))`` then f32: every
+    gradient cast to ``dtype``, summed over the process group at that dtype
+    (one flat all-reduce), divided by the world size there, and cast back —
+    rounded to ``dtype`` also at world size 1, as JAX's are."""
+    import torch.distributed as dist
+
+    live = [p for p in params if p.grad is not None]
+    if not live:
+        return
+    flat = torch.cat([p.grad.reshape(-1).to(dtype) for p in live])
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.all_reduce(flat)
+        flat.div_(dist.get_world_size())
+    off = 0
+    for p in live:
+        n = p.grad.numel()
+        p.grad.copy_(flat[off:off + n].view(p.grad.shape).to(p.grad.dtype))
+        off += n
+
+
+def _check_compressed(grad_reduce_dtype, state_sharding, aux, accum_steps,
+                      ctx) -> None:
+    """The JAX package's refusals for ``grad_reduce_dtype``."""
+    if grad_reduce_dtype is None:
+        return
+    if state_sharding is not None or aux or accum_steps != 1:
+        raise ValueError(
+            "grad_reduce_dtype requires the pure-DP step (replicated "
+            "state; no aux/moe_balance_weight/accum_steps)")
+    if ctx is not None:
+        raise ValueError("grad_reduce_dtype supports data-only meshes; axes "
+                         "['seq'] have size > 1")
+
+
 def make_lm_train_step(model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer, *, scheduler=None,
                        accum_steps: int = 1,
@@ -86,30 +128,56 @@ def make_lm_train_step(model: torch.nn.Module,
     does; the batch must divide evenly.  The microbatches before the last
     run under DDP's ``no_sync()``, so there is one gradient all-reduce per
     update.  The loss comes back as a detached 0-d tensor on the model's
-    device (no host sync).  ``grad_reduce_dtype``, ``state_sharding`` and
-    ``aux`` raise (A6c)."""
+    device (no host sync).
+
+    ``state_sharding`` — a layout of ``model`` and ``optimizer``
+    (:func:`~tpudist_torch.parallel.fsdp_sharding`,
+    :func:`~tpudist_torch.parallel.zero1_sharding`,
+    :func:`~tpudist_torch.models.transformer.transformer_tp_sharding`,
+    :func:`~tpudist_torch.parallel.merge_shardings`) whose mesh carries the
+    process groups — shards the state before the first step
+    (:func:`tpudist_torch.parallel.zero.shard_state`): ``step.runtime`` is
+    the runtime, ``step.replica`` what the step calls, ``step.optimizer``
+    the optimizer over the shards as checkpoints see it.  ``wrap`` may then
+    only be a cast with a ``compute_dtype`` (the Trainer's ``BF16Apply``).
+    ``grad_reduce_dtype`` (e.g. ``torch.bfloat16``) reduces the gradients
+    at that dtype (:func:`_compressed_mean_`) with the JAX step's refusals.
+    ``aux`` raises (A6c)."""
     import torch.distributed as dist
 
-    for name, value in (("grad_reduce_dtype", grad_reduce_dtype),
-                        ("state_sharding", state_sharding), ("aux", aux)):
-        if value:
-            raise NotImplementedError(f"{name} is not ported yet: {_A6C}")
+    _check_compressed(grad_reduce_dtype, state_sharding, aux, accum_steps,
+                      ctx)
+    if aux:
+        raise NotImplementedError(f"aux is not ported yet: {_A6C}")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError("the model has no trainable parameters (build it "
                          "with create_transformer(..., trainable=True))")
-    replica = wrap(model) if wrap is not None else model
-    if dist.is_initialized():
-        from tpudist_torch.train.step import ddp_device_ids
+    runtime = None
+    if state_sharding is not None:
+        from tpudist_torch.parallel.zero import shard_state
 
-        replica = torch.nn.parallel.DistributedDataParallel(
-            replica, device_ids=ddp_device_ids(model))
+        cast = getattr(wrap, "compute_dtype", None)
+        if wrap is not None and cast is None:
+            raise ValueError("under state_sharding, wrap must be a cast "
+                             "with a compute_dtype (BF16Apply)")
+        runtime = shard_state(model, optimizer, state_sharding, cast=cast)
+        replica, opt = runtime, runtime.optimizer
+        params = runtime.grad_tensors()
+    else:
+        replica, opt = (wrap(model) if wrap is not None else model), \
+            optimizer
+        if dist.is_initialized() and grad_reduce_dtype is None:
+            from tpudist_torch.train.step import ddp_device_ids
+
+            replica = torch.nn.parallel.DistributedDataParallel(
+                replica, device_ids=ddp_device_ids(model))
     no_sync = getattr(replica, "no_sync", contextlib.nullcontext)
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
+        opt.zero_grad(set_to_none=True)
         if accum_steps == 1:
             loss = _forward_loss(replica, tokens, ctx, loss_fn)
             loss.backward()
@@ -134,26 +202,33 @@ def make_lm_train_step(model: torch.nn.Module,
             for p in params:
                 if p.grad is not None:
                     p.grad.mul_(scale)
-        optimizer.step()
+        if grad_reduce_dtype is not None:
+            _compressed_mean_(params, grad_reduce_dtype)
+        opt.step()
         if scheduler is not None:
             scheduler.step()
         return _global_mean(loss)
 
-    step.replica = replica
+    step.replica, step.runtime, step.optimizer = replica, runtime, opt
     return step
 
 
 def make_lm_eval_step(model: torch.nn.Module, *,
-                      loss_fn: Callable = lm_loss, ctx=None) -> Callable:
+                      loss_fn: Callable = lm_loss, ctx=None,
+                      params_sharding=None) -> Callable:
     """``eval_step(tokens) -> loss`` without gradients, on this rank's
     batch (the entry point evaluates the same held-out batches on every
     rank).  With ``ctx`` (the ring's) the batch may be a ``(tokens,
     targets)`` pair and each rank holds a share of the loss: the global
-    mean over the process group is returned, as the train step's."""
+    mean over the process group is returned, as the train step's.
+    ``params_sharding`` is the layout the train step keeps, as its runtime
+    (``step.runtime``): the forward gathers the shards it needs, as the
+    JAX eval step runs under the train step's ``params_sharding``."""
+    forward = model if params_sharding is None else params_sharding
 
     def eval_step(tokens) -> torch.Tensor:
         with torch.no_grad():
-            loss = _forward_loss(model, tokens, ctx, loss_fn)
+            loss = _forward_loss(forward, tokens, ctx, loss_fn)
         return loss if ctx is None else _global_mean(loss)
 
     return eval_step

@@ -69,18 +69,47 @@ def build_schedule(lr: float, *, schedule: str = "constant",
                      f"{SCHEDULES}")
 
 
+def _leaf_of(p):
+    """The :class:`~tpudist_torch.parallel.zero.LeafShard` a piece of a
+    sharded leaf carries; a plain tensor is the one piece of its own leaf
+    (no split dimension, no process axis)."""
+    info = getattr(p, "_tpudist_leaf", None)
+    if info is None:
+        from tpudist_torch.parallel.zero import LeafShard
+
+        info = LeafShard(tuple(p.shape), None, None, f"id{id(p)}")
+    return info
+
+
 def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
     """Rescale the gradients in place when their global L2 norm exceeds
     ``max_norm`` (optax: ``g · max_norm / norm``, untouched below it).
-    Returns the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    Returns the norm.
+
+    A piece of a leaf sharded over a process group
+    (:class:`tpudist_torch.parallel.zero.LeafShard`) adds its squares to a
+    sum all-reduced over that group; every other tensor — a replicated
+    one, a tensor-parallel piece (the pieces of a leaf split it) — counts
+    once, here."""
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return torch.zeros(())
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    dev = params[0].grad.device
+    total, axes = 0.0, {}
+    for p in params:
+        part = (p.grad.float() ** 2).sum().to(dev)
+        ax = _leaf_of(p).axis
+        if ax is None or ax.size == 1:
+            total = total + part
+        else:
+            axes[id(ax)] = (ax, axes.get(id(ax), (ax, 0.0))[1] + part)
+    for ax, part in axes.values():
+        total = total + ax.all_reduce(part)
+    norm = torch.sqrt(total)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
-    for g in grads:
-        g.mul_(factor.to(g.dtype))
+    for p in params:
+        p.grad.mul_(factor.to(p.grad.device, p.grad.dtype))
     return norm
 
 
@@ -100,12 +129,6 @@ def _factored_dims(shape, min_dim: int) -> Optional[Tuple[int, int]]:
     if shape[order[-2]] < min_dim:
         return None
     return int(order[-2]), int(order[-1])
-
-
-def _safe_rms(x: torch.Tensor, min_rms: float) -> torch.Tensor:
-    """``max(sqrt(mean(x²)), min_rms)`` (optax ``safe_root_mean_squares``)."""
-    rms = torch.sqrt(torch.mean(x * x))
-    return torch.where(rms <= min_rms, torch.full_like(rms, min_rms), rms)
 
 
 # optax.adafactor's defaults, as the JAX package builds it
@@ -131,12 +154,33 @@ class Adafactor(torch.optim.Optimizer):
     4. ``+ weight_decay_rate · p`` on weight matrices (:func:`decay_mask`);
     5. subtracted from the parameter.
 
-    No momentum, as the JAX package builds it."""
+    No momentum, as the JAX package builds it.
+
+    A leaf may arrive in pieces (:class:`tpudist_torch.parallel.zero.
+    LeafShard`: FSDP/ZeRO-1 shards over the data group, tensor-parallel
+    pieces in this process).  The pieces of one leaf step together: the
+    factored axes are those of the whole leaf, a mean along the split
+    dimension and the two RMS values are sums over the pieces and the
+    process group, and each piece keeps its own slice of a statistic that
+    runs along the split dimension — the numbers of the whole leaf."""
 
     def __init__(self, params, lr: float = 1e-3, *,
                  weight_decay_rate: float = 0.0):
         super().__init__(params, dict(lr=lr))
         self.weight_decay_rate = weight_decay_rate
+
+    @staticmethod
+    def slot_shapes(full_shape, local_shape) -> dict:
+        """The shapes of a piece's ``v_row``, ``v_col`` and ``v`` (only the
+        slots it keeps) for a leaf of ``full_shape``."""
+        dims = _factored_dims(tuple(full_shape), FACTOR_MIN_DIM)
+        if dims is None:
+            return {"v": tuple(local_shape)}
+        d1, d0 = dims
+        return {"v_row": tuple(n for i, n in enumerate(local_shape)
+                               if i != d0),
+                "v_col": tuple(n for i, n in enumerate(local_shape)
+                               if i != d1)}
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -146,53 +190,83 @@ class Adafactor(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             lr = group["lr"]
+            leaves = {}
             for p in group["params"]:
-                if p.grad is None:
-                    continue
-                self._update(p, p.grad.float(), lr)
+                if p.grad is not None:
+                    leaves.setdefault(_leaf_of(p).key, []).append(p)
+            for pieces in leaves.values():
+                self._update(pieces, lr)
         return loss
 
-    def _update(self, p: torch.Tensor, g: torch.Tensor, lr: float) -> None:
+    def _init_state(self, p: torch.Tensor, full_shape) -> dict:
         st = self.state[p]
-        dims = _factored_dims(tuple(p.shape), FACTOR_MIN_DIM)
         if not st:
             st["step"] = torch.zeros((), dtype=torch.int64)
-            if dims is None:
-                st["v"] = torch.zeros_like(p, dtype=torch.float32)
-            else:
-                d1, d0 = dims
-                st["v_row"] = torch.zeros(
-                    [n for i, n in enumerate(p.shape) if i != d0],
-                    dtype=torch.float32, device=p.device)
-                st["v_col"] = torch.zeros(
-                    [n for i, n in enumerate(p.shape) if i != d1],
-                    dtype=torch.float32, device=p.device)
-        t = torch.tensor(float(int(st["step"]) + 1), dtype=torch.float32,
-                         device=p.device)
+            for k, shape in self.slot_shapes(full_shape, p.shape).items():
+                st[k] = torch.zeros(shape, dtype=torch.float32,
+                                    device=p.device)
+        return st
+
+    def _update(self, pieces, lr: float) -> None:
+        """One update of a leaf from its pieces (the class doc; a plain
+        tensor is one piece)."""
+        info = _leaf_of(pieces[0])
+        full, s = tuple(info.full_shape), info.dim
+        numel = float(math.prod(full))
+        dims = _factored_dims(full, FACTOR_MIN_DIM)
+        sts = [self._init_state(p, full) for p in pieces]
+        gs = [p.grad.float() for p in pieces]
+        t = torch.tensor(float(int(sts[0]["step"]) + 1), dtype=torch.float32)
         decay = 1.0 - t ** (-FACTOR_DECAY_RATE)
-        g_sqr = g * g + FACTOR_EPS
+
+        def mean_over(xs, dim, keepdim=False):
+            """Each piece's mean of the whole leaf along ``dim``."""
+            if dim != s:
+                return [x.mean(dim=dim, keepdim=keepdim) for x in xs]
+            return [x / full[dim] for x in info.total(
+                [x.sum(dim=dim, keepdim=keepdim) for x in xs])]
+
+        g_sqr = [g * g + FACTOR_EPS for g in gs]
+        us = []
         if dims is None:
-            st["v"] = decay * st["v"] + (1.0 - decay) * g_sqr
-            u = g * st["v"] ** -0.5
+            for st, g, q in zip(sts, gs, g_sqr):
+                dk = decay.to(g.device)
+                st["v"] = dk * st["v"] + (1.0 - dk) * q
+                us.append(g * st["v"] ** -0.5)
         else:
             d1, d0 = dims
-            st["v_row"] = (decay * st["v_row"]
-                           + (1.0 - decay) * g_sqr.mean(dim=d0))
-            st["v_col"] = (decay * st["v_col"]
-                           + (1.0 - decay) * g_sqr.mean(dim=d1))
             rd1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = st["v_row"].mean(dim=rd1, keepdim=True)
-            row_factor = (st["v_row"] / row_col_mean) ** -0.5
-            col_factor = st["v_col"] ** -0.5
-            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-        st["step"] += 1
-        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / FACTOR_CLIP,
-                            min=1.0)
-        u = lr * u
-        u = u * _safe_rms(p.float(), PARAM_SCALE_MIN)
-        if self.weight_decay_rate and decay_mask(p):
-            u = u + self.weight_decay_rate * p
-        p.add_(-1 * u)
+            vrs, vcs = mean_over(g_sqr, d0), mean_over(g_sqr, d1)
+            for st, vr, vc in zip(sts, vrs, vcs):
+                dk = decay.to(vr.device)
+                st["v_row"] = dk * st["v_row"] + (1.0 - dk) * vr
+                st["v_col"] = dk * st["v_col"] + (1.0 - dk) * vc
+            # v_row runs along the split dimension when it is d1
+            rows = [st["v_row"] for st in sts]
+            if s == d1:
+                rcm = [x / full[d1] for x in info.total(
+                    [r.sum(dim=rd1, keepdim=True) for r in rows])]
+            else:
+                rcm = [r.mean(dim=rd1, keepdim=True) for r in rows]
+            for st, g, r, m in zip(sts, gs, rows, rcm):
+                row_factor = (r / m) ** -0.5
+                col_factor = st["v_col"] ** -0.5
+                us.append(g * row_factor.unsqueeze(d0)
+                          * col_factor.unsqueeze(d1))
+        for st in sts:
+            st["step"] += 1
+        sq = info.total([(u * u).sum() for u in us])
+        us = [u / torch.clamp(torch.sqrt(q / numel) / FACTOR_CLIP, min=1.0)
+              for u, q in zip(us, sq)]
+        psq = info.total([(p.float() ** 2).sum() for p in pieces])
+        for p, u, q in zip(pieces, us, psq):
+            rms = torch.sqrt(q / numel)
+            rms = torch.where(rms <= PARAM_SCALE_MIN,
+                              torch.full_like(rms, PARAM_SCALE_MIN), rms)
+            u = lr * u * rms
+            if self.weight_decay_rate and decay_mask(p):
+                u = u + self.weight_decay_rate * p
+            p.add_(-1 * u)
 
 
 class Lion(torch.optim.Optimizer):
@@ -265,6 +339,10 @@ def build_optimizer(params, lr: float, *, optimizer: str = "adam",
         ]
         opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=lr,
                                 betas=(0.9, 0.999), eps=1e-8)
+    # the step counters the JAX package's optax chain keeps: the optimizer's
+    # and, under a schedule, scale_by_schedule's (parallel/fsdp.py counts
+    # them for state_bytes_per_device)
+    opt.jax_counters = 1 + (schedule != "constant")
     if grad_clip > 0:
         def clip(optim, args, kwargs):
             clip_grad_global_norm_(

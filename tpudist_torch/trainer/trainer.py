@@ -16,12 +16,23 @@ owns the runtime, the mesh, the steps, logging, checkpoints and teardown.
 - ``'dp_model'`` the ``('data', 'model')`` mesh: each rank owns
   ``model_parallel`` devices and :meth:`TrainerModule.place_model` puts
   the model on them (by default whole on the first);
-- ``'fsdp'``, ``'zero1'``, ``'pp'`` are not ported yet (ROADMAP A6c),
-  ``'auto'`` neither (A8, ``plan/``).
+- ``'fsdp'``     the ``data`` mesh, parameters and optimizer state
+  sharded over it (ZeRO-3, :func:`tpudist_torch.parallel.fsdp_sharding`,
+  leaves under ``shard_min_size`` elements replicated);
+- ``'zero1'``    the ``data`` mesh, parameters replicated and the
+  optimizer state sharded (:func:`tpudist_torch.parallel.zero1_sharding`);
+- ``'pp'`` is not ported yet (ROADMAP A6c), ``'auto'`` neither (A8,
+  ``plan/``).
+
+Under ``'fsdp'`` and ``'zero1'`` :mod:`tpudist_torch.parallel.zero`
+carries the layout out in place of DDP; checkpoints hold the whole,
+gathered state (a run saved under one strategy resumes under another), and
+``final_states`` holds the models with their whole weights.
 
 An :class:`LMTrainerModule` (one transformer, token batches) trains under
-``'dp'`` through the LM step (:func:`tpudist_torch.train.lm.
-make_lm_train_step`), with checkpoints and resume by skipping batches.  The
+``'dp'``, ``'fsdp'`` and ``'zero1'`` through the LM step
+(:func:`tpudist_torch.train.lm.make_lm_train_step`), with checkpoints and
+resume by skipping batches.  The
 JAX facade's SIGTERM preemption save and telemetry stage events are not
 ported on either path (ROADMAP A8).
 """
@@ -48,7 +59,7 @@ from tpudist_torch.train.step import (ModelState, init_model_states,
                                       make_scanned_train_step, mse_loss)
 from tpudist_torch.utils.metrics import init_metrics
 
-_LAYOUTS_NOT_PORTED = ("fsdp", "zero1", "pp")
+_SHARDED = ("fsdp", "zero1")
 
 
 def _cast_floats(x, dtype):
@@ -61,7 +72,11 @@ class BF16Apply(nn.Module):
     weights, bf16 compute — the parameters and float inputs are cast to
     bf16 at apply time and the output back to f32, so the gradients reach
     the f32 masters through the casts.  Not ``torch.autocast``, whose
-    per-op policy computes something else."""
+    per-op policy computes something else.  ``compute_dtype`` tells a
+    sharded step (:mod:`tpudist_torch.parallel.zero`) to apply the same
+    casts itself."""
+
+    compute_dtype = torch.bfloat16
 
     def __init__(self, module: nn.Module):
         super().__init__()
@@ -140,13 +155,14 @@ class LMTrainerModule(TrainerModule):
 @dataclasses.dataclass
 class Trainer:
     max_steps: int = 1000  # demo_pytorch_lightning.py:48 (1000 steps)
-    # 'dp' | 'dp_model' (ported) | 'fsdp' | 'zero1' | 'pp' (A6c) | 'auto'
+    # 'dp' | 'dp_model' | 'fsdp' | 'zero1' (ported) | 'pp' (A6c) | 'auto'
     # (A8, plan/)
     strategy: str = "dp"
     model_parallel: int = 2
-    # fsdp/zero1 and pp knobs of the JAX facade, kept for its signature
-    # (their strategies are A6c)
+    # fsdp/zero1: leaves under this many elements stay replicated (the
+    # gather overhead beats the memory win for small tensors)
     shard_min_size: int = 1024
+    # pp knobs of the JAX facade, kept for its signature (pp is A6c)
     pipeline_stages: int = 2
     pp_schedule: str = "1f1b"
     pp_chunks: int = 2
@@ -174,12 +190,11 @@ class Trainer:
             raise NotImplementedError(
                 "strategy='auto' (the measurement-driven planner, plan/) is "
                 "not ported yet: ROADMAP queue A, item A8")
-        if self.strategy in _LAYOUTS_NOT_PORTED:
+        if self.strategy == "pp":
             raise NotImplementedError(
-                f"strategy={self.strategy!r} is not ported yet (sharded "
-                "and pipelined layouts, parallel/): ROADMAP queue A, item "
-                "A6c")
-        if self.strategy not in ("dp", "dp_model"):
+                "strategy='pp' is not ported yet (pipelined layouts, "
+                "parallel/): ROADMAP queue A, item A6c")
+        if self.strategy not in ("dp", "dp_model") + _SHARDED:
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.precision not in ("fp32", "bf16"):
             raise ValueError(f"unknown precision {self.precision!r}")
@@ -204,10 +219,10 @@ class Trainer:
         seed = resolve_shared_seed(self.seed)
         if isinstance(module, LMTrainerModule):
             return self._fit_lm(module, loader, ckpt_dir, seed, device)
-        if self.strategy == "dp":
-            mesh = data_parallel_mesh(device=device)
-        else:
+        if self.strategy == "dp_model":
             mesh = data_model_mesh(self.model_parallel, device=device)
+        else:
+            mesh = data_parallel_mesh(device=device)
 
         models = module.configure_models(torch.Generator().manual_seed(seed))
         models = {k: module.place_model(mesh, m) for k, m in models.items()}
@@ -215,9 +230,13 @@ class Trainer:
         wrap = BF16Apply if self.precision == "bf16" else None
         states = {}
         for name, model in models.items():
-            states.update(init_model_states(
-                {name: model}, tx[name] if isinstance(tx, dict) else tx,
-                wrap=wrap))
+            factory = tx[name] if isinstance(tx, dict) else tx
+            if self.strategy in _SHARDED:
+                states[name] = self._sharded_state(mesh, model, factory,
+                                                   wrap)
+            else:
+                states.update(init_model_states({name: model}, factory,
+                                                wrap=wrap))
         step = make_multi_model_train_step(
             module.loss, metric_backend=self.metric_backend)
         chunk_step = make_scanned_train_step(
@@ -243,8 +262,41 @@ class Trainer:
         finally:
             if ckpt is not None:
                 ckpt.close()
-        self.final_states = states
+        self.final_states = self._whole(states)
         return losses
+
+    def _sharded_state(self, mesh, model, factory, wrap) -> ModelState:
+        """A toy model's state under ``fsdp``/``zero1``: the optimizer built
+        over the whole model, then the layout carried out
+        (:func:`tpudist_torch.parallel.zero.shard_state`); the state's
+        model and optimizer are the runtime's whole views, its replica the
+        runtime."""
+        from tpudist_torch.parallel import shard_state
+
+        opt, sched = factory(model.parameters())
+        rt = shard_state(model, opt, self._layout(mesh, model, opt),
+                         cast=getattr(wrap, "compute_dtype", None))
+        return ModelState(rt.model_view, rt, rt.optimizer, sched)
+
+    def _layout(self, mesh, model, opt):
+        from tpudist_torch.parallel import fsdp_sharding, zero1_sharding
+
+        rule = fsdp_sharding if self.strategy == "fsdp" else zero1_sharding
+        return rule(mesh, model, opt, min_size=self.shard_min_size)
+
+    @staticmethod
+    def _whole(states):
+        """``states`` with every sharded model put back whole (the
+        runtime's gathered weights), for the consumers of full weights."""
+        from tpudist_torch.parallel import ShardedRuntime
+
+        out = {}
+        for name, st in states.items():
+            if isinstance(st.replica, ShardedRuntime):
+                model = st.replica.materialize()
+                st = ModelState(model, model, st.optimizer, st.scheduler)
+            out[name] = st
+        return out
 
     def _fit_lm(self, module: LMTrainerModule, loader, ckpt_dir, seed,
                 device) -> Dict[str, Optional[float]]:
@@ -253,10 +305,10 @@ class Trainer:
         from tpudist_torch.checkpoint import setup_checkpointing
         from tpudist_torch.train.lm import make_lm_train_step
 
-        if self.strategy != "dp":
+        if self.strategy not in ("dp",) + _SHARDED:
             raise ValueError(
                 f"strategy {self.strategy!r} not supported for "
-                "LMTrainerModule (dp; fsdp/zero1/pp are ROADMAP A6c; "
+                "LMTrainerModule (dp, fsdp, zero1; pp is ROADMAP A6c; "
                 "dp_model is the toy split-MLP layout)")
         mesh = data_parallel_mesh(device=device)
         model = module.configure_lm(
@@ -266,10 +318,15 @@ class Trainer:
             raise ValueError("LMTrainerModule.configure_optimizers must "
                              "return one optimizer factory (single model)")
         opt, sched = tx(model.parameters())
+        layout = (self._layout(mesh, model, opt)
+                  if self.strategy in _SHARDED else None)
         step = make_lm_train_step(
             model, opt, scheduler=sched, loss_fn=module.loss,
-            wrap=BF16Apply if self.precision == "bf16" else None)
-        states = {"lm": ModelState(model, step.replica, opt, sched)}
+            wrap=BF16Apply if self.precision == "bf16" else None,
+            state_sharding=layout)
+        states = {"lm": ModelState(
+            model if step.runtime is None else step.runtime.model_view,
+            step.replica, step.optimizer, sched)}
         ckpt = None
         start_iteration = 0
         if ckpt_dir is not None:
@@ -285,7 +342,7 @@ class Trainer:
         finally:
             if ckpt is not None:
                 ckpt.close()
-        self.final_states = states
+        self.final_states = self._whole(states)
         return losses
 
     def _run_lm_loop(self, states, step, loader, mesh, logger, ckpt,
