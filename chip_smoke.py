@@ -639,6 +639,26 @@ TP_FLASH_CASE = ("TP shard", 8, 8 // TP_SHARDS, 8 // TP_SHARDS, 2048, DH,
                  "bf16", (0, None))
 
 
+# phase 19: (a) phase 7's model with MOE_EXPERTS experts a block folded
+# onto the card, top MOE_TOPK, balance weight MOE_BALANCE, MOE_STEPS steps;
+# one layer at top-1 with nothing dropped against the dense reference, its
+# largest error within MOE_REF_BOUND of the output's largest magnitude (and
+# its relative RMS within it): two bf16 roundings of the same products
+MOE_EXPERTS, MOE_TOPK, MOE_BALANCE, MOE_STEPS, MOE_LAYERS = 8, 2, 0.01, 10, 8
+MOE_REF_BOUND = 2 ** -7
+# (b) the LM's MLP widths (rows = phase 7's tokens a step) at these model
+# axes; each hop of the reduce-scatter rounds its running sum to bf16 once,
+# so the overlapped bodies stay within m * OVERLAP_BOUND of the output's
+# largest magnitude of the off body's one f32 sum
+OVERLAP_SHAPE, OVERLAP_MODELS, OVERLAP_BOUND = (16384, 1024, 4096), (2, 4), \
+    2 ** -7
+# (c) the 3-D path's flash shape: a ring hop's unmasked block over one TP
+# shard's heads (phase 17's hop at half its heads); (d) the scanned window
+THREE_D_HOP = ("3-D hop (TP shard)", 2, 8 // TP_SHARDS, 8 // TP_SHARDS,
+               2048, DH, "bf16", (None, None))
+SCAN_K = 4
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -4868,6 +4888,328 @@ def sharded_path(torch, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: expert parallelism with its aux loss, the collective matmuls,
+# 3-D parallelism and the scanned step
+
+
+def timed_steps(torch, step, batches, aux: bool) -> tuple:
+    """Run ``step`` over ``batches`` (each timed on the host clock, ending
+    in a synchronize): the losses, the seconds of each step and, with
+    ``aux``, each step's statistics as floats."""
+    losses, times, stats = [], [], []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        out = step(tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        loss, got = out if aux else (out, {})
+        losses.append(float(loss))
+        stats.append({k: v.tolist() for k, v in got.items()})
+    return losses, times, stats
+
+
+def train_readings(torch, args, held: int, losses, times, label: str,
+                   steps: int, **extra) -> dict:
+    """Step ms p50 (after the first 3), tokens/s, MFU by
+    ``utils/flops.py``'s dense formula, peak memory above ``held`` and the
+    flash launches (all and on the wgmma arms) of a run of ``args``."""
+    from tpudist_torch import ops
+    from tpudist_torch.utils.flops import mfu, transformer_train_flops
+
+    step_s = statistics.median(times[3:])
+    flops = transformer_train_flops(
+        batch=args.batch_size, seq_len=args.seq_len, d_model=args.d_model,
+        n_layers=args.n_layers, d_ff=args.d_ff, vocab=args.vocab)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phase 19 {label}: non-finite losses "
+                             f"{losses}")
+    return dict(label=label, losses=losses, step_ms_p50=step_s * 1e3,
+                tokens_per_s=args.batch_size * args.seq_len / step_s,
+                mfu=mfu(flops, step_s, 1, peak_per_chip=H100_BF16_FLOPS),
+                peak_mem_gb=(torch.cuda.max_memory_allocated() - held) / 1e9,
+                held_gb=held / 1e9, layers=args.n_layers, steps=steps,
+                launches={n: ops.launch_counts().get(n, 0)
+                          for n in TRAIN_KERNELS},
+                launches_wgmma={n: ops.KERNEL_WRAPPERS[n].launches_wgmma
+                                for n in TRAIN_KERNELS}, **extra)
+
+
+def moe_run(torch) -> dict:
+    """(a) Phase 7's model and batches with ``MOE_EXPERTS`` experts in every
+    block, top ``MOE_TOPK``, balance weight ``MOE_BALANCE``, through the
+    entry point's ``build_training`` (the experts' places folded onto the
+    card), ``MOE_STEPS`` steps with every count zeroed just before."""
+    from tpudist_torch import ops
+    from tpudist_torch.train.__main__ import build_training, get_args
+
+    args = get_args(TRAIN_ARGS + [
+        "--total_iterations", str(MOE_STEPS), "--moe_experts",
+        str(MOE_EXPERTS), "--moe_topk", str(MOE_TOPK), "--moe_balance",
+        str(MOE_BALANCE)])
+    held = memory_held(torch)
+    model, step, next_batch = build_training(args)
+    batches = [torch.from_numpy(next_batch()).cuda()
+               for _ in range(MOE_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times, stats = timed_steps(torch, step, batches, aux=True)
+    res = train_readings(torch, args, held, losses, times, "MoE",
+                         MOE_STEPS, moe=stats)
+    # one more step under the profiler, after the counts were read
+    res["profile"] = device_profile(torch, lambda: step(batches[-1]),
+                                    lambda: None)
+    res["ep_vs_dense"] = moe_reference_check(torch, model)
+    del model, step, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_reference_check(torch, model) -> dict:
+    """One MoE layer's forward at top-1 with a capacity factor of
+    ``MOE_EXPERTS`` (every expert's queue holds every token: nothing drops)
+    against the dense reference on the same bf16 weights and tokens."""
+    from tpudist_torch.models.transformer import (dense_moe_reference,
+                                                  moe_expert_fn)
+    from tpudist_torch.parallel import make_moe
+    from tpudist_torch.runtime.mesh import data_model_mesh
+
+    moe = model.blocks[0].moe
+    params = {"router": moe.router.detach().bfloat16(),
+              "experts": {"w": moe.w.detach().bfloat16(),
+                          "wo": moe.wo.detach().bfloat16()}}
+    gen = torch.Generator(device="cuda").manual_seed(1919)
+    x = torch.randn(8 * 2048, model.d_model, generator=gen,
+                    device="cuda").bfloat16()
+    mesh = data_model_mesh(MOE_EXPERTS,
+                           devices=[torch.device("cuda")] * MOE_EXPERTS)
+    with torch.no_grad():
+        y, stats = make_moe(mesh, moe_expert_fn, k=1,
+                            capacity_factor=float(MOE_EXPERTS))(params, x)
+        ref = dense_moe_reference(params, x)
+    diff = (y.float() - ref.float()).abs()
+    vmax = float(ref.float().abs().max())
+    rel_rms = float((y.float() - ref.float()).norm() / ref.float().norm())
+    res = dict(max_abs_err=float(diff.max()), ref_max=vmax, rel_rms=rel_rms,
+               dropped=float(stats.dropped_fraction),
+               bound=MOE_REF_BOUND * vmax)
+    if res["dropped"] != 0.0 or res["max_abs_err"] > res["bound"] or \
+            rel_rms > MOE_REF_BOUND:
+        raise AssertionError(f"phase 19 (a): the expert-parallel layer "
+                             f"leaves the dense reference: {res}")
+    return res
+
+
+def overlap_mlp_readings(torch, flush) -> dict:
+    """(b) ``make_tp_mlp(overlap='ring'|'bidir')`` against ``'off'`` at
+    each of ``OVERLAP_MODELS`` places folded onto the card, at the LM's MLP
+    widths in bf16: the largest gap (under ``m·OVERLAP_BOUND`` of the
+    output's largest magnitude: each hop rounds the reduce-scatter's
+    running sum) and each mode's time (CUDA events)."""
+    from tpudist_torch.parallel import init_mlp_params, make_tp_mlp
+    from tpudist_torch.runtime.mesh import data_model_mesh
+
+    rows, d, f = OVERLAP_SHAPE
+    gen = torch.Generator().manual_seed(1920)
+    params = {k: v.cuda().bfloat16()
+              for k, v in init_mlp_params(gen, d, f).items()}
+    x = torch.randn(rows, d, generator=gen).cuda().bfloat16()
+    res = {}
+    for m in OVERLAP_MODELS:
+        mesh = data_model_mesh(m, devices=[torch.device("cuda")] * m)
+        fns = {mode: make_tp_mlp(mesh, overlap=mode)
+               for mode in ("off", "ring", "bidir")}
+        with torch.no_grad():
+            off = fns["off"](params, x).float()
+            r = dict(ms={}, gap={}, bound=m * OVERLAP_BOUND *
+                     float(off.abs().max()))
+            for mode, fn in fns.items():
+                if mode != "off":
+                    r["gap"][mode] = float((fn(params, x).float() - off)
+                                           .abs().max())
+                r["ms"][mode] = time_ms(torch, lambda fn=fn: fn(params, x),
+                                        flush)
+        res[m] = r
+        log(f"phase 19 (b) TP MLP at model {m} folded onto the card "
+            f"({rows} x {d} -> {f} -> {d}, bf16): off {r['ms']['off']:.4f} "
+            f"ms, ring {r['ms']['ring']:.4f} ms, bidir "
+            f"{r['ms']['bidir']:.4f} ms; largest gap against off: ring "
+            f"{r['gap']['ring']:.4e}, bidir {r['gap']['bidir']:.4e} (bound "
+            f"{r['bound']:.4e}); one card has no links, so no hop can run "
+            f"beside a matmul here: these times show the chains' cost, not "
+            f"their overlap")
+        if max(r["gap"].values()) > r["bound"]:
+            raise AssertionError(f"phase 19 (b): the overlapped MLP leaves "
+                                 f"the off body at model {m}: {r}")
+    return res
+
+
+def three_d_run(torch) -> dict:
+    """(c) ``demo_3d_parallel``'s build at phase 17's geometry
+    (``SEQ_ARGS``: seq 8192, batch 2, bf16) over ``--seq_shards
+    RING_SHARDS --model_shards TP_SHARDS``, one process (a LocalRing, the
+    model axis folded onto the card), ``SEQ_STEPS`` steps on phase 17's
+    batches with every count zeroed just before."""
+    from tpudist_torch import ops
+    from tpudist_torch.examples import demo_3d_parallel as demo
+
+    args = demo.get_args(SEQ_ARGS + [
+        "--precision", "bf16", "--seq_shards", str(RING_SHARDS),
+        "--model_shards", str(TP_SHARDS), "--total_iterations",
+        str(SEQ_STEPS)])
+    held = memory_held(torch)
+    mesh = demo.build_mesh(args, torch.device("cuda"))
+    model, step, next_batch = demo.build(args, mesh)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in next_batch())
+               for _ in range(SEQ_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times, _ = timed_steps(torch, step, batches, aux=False)
+    res = train_readings(torch, args, held, losses, times, "3-D", SEQ_STEPS,
+                         mesh=dict(mesh.shape))
+    res["profile"] = device_profile(torch, lambda: step(batches[-1]),
+                                    lambda: None)
+    del model, step, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def scanned_run(torch) -> dict:
+    """(d) ``make_scanned_lm_train_step`` over ``SCAN_K`` of phase 7's
+    batches against ``SCAN_K`` plain steps from the same weights."""
+    import numpy as np
+
+    from tpudist_torch.examples.demo_long_context import (build_model,
+                                                          make_batch)
+    from tpudist_torch.train.__main__ import get_args
+    from tpudist_torch.train.lm import (make_lm_train_step,
+                                        make_scanned_lm_train_step)
+    from tpudist_torch.train.optim import build_optimizer_from_args
+
+    args = get_args(TRAIN_ARGS + ["--total_iterations", str(SCAN_K)])
+    rng = np.random.default_rng(args.seed)
+    toks = torch.from_numpy(np.stack([
+        make_batch(rng, args.batch_size, args.seq_len, args.vocab)
+        for _ in range(SCAN_K)])).cuda()
+    losses = {}
+    for kind in ("scanned", "plain"):
+        model = build_model(args, torch.device("cuda"))
+        opt, sched = build_optimizer_from_args(args, model.parameters())
+        if kind == "scanned":
+            out = make_scanned_lm_train_step(model, opt, scheduler=sched)(
+                toks)
+        else:
+            step = make_lm_train_step(model, opt, scheduler=sched)
+            out = torch.stack([step(t) for t in toks])
+        losses[kind] = out.tolist()
+        del model, opt
+        torch.cuda.empty_cache()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses["scanned"],
+                                                  losses["plain"]))
+    return dict(losses=losses, max_rel=gap,
+                bit_for_bit=losses["scanned"] == losses["plain"])
+
+
+def log_train(r: dict, card: str) -> None:
+    per_step = {n: v // r["steps"] for n, v in r["launches"].items()}
+    log(f"phase 19 {r['label']} (phase 7's model, world 1, {r['steps']} "
+        f"steps): step p50 {r['step_ms_p50']:.2f} ms = "
+        f"{r['tokens_per_s']:.0f} tokens/s, MFU {r['mfu']:.4f} (the dense "
+        f"formula: one FFN a token), peak memory {r['peak_mem_gb']:.3f} GB "
+        f"above the {r['held_gb']:.3f} GB held before the run ({card}); "
+        f"flash launches a step {per_step}, on the wgmma arms "
+        f"{r['launches_wgmma']}; losses {[round(x, 4) for x in r['losses']]}")
+
+
+def expert_3d_path(torch, card: str, ring_losses) -> dict:
+    """Phase 19: (a) :func:`moe_run`, gated on finite, falling losses, 8
+    launches of each flash kernel a step (all wgmma) and
+    :func:`moe_reference_check`; (b) :func:`overlap_mlp_readings`; (c)
+    :func:`three_d_run` against ``ring_losses`` (phase 17's ``--seq_shards
+    4`` run on the same batches) within ``TP_RTOL``, every flash launch on
+    the wgmma arms, ``TP_SHARDS`` times phase 17's, and the kernels at the
+    shard's hop shape (``THREE_D_HOP``); (d) :func:`scanned_run`, bit for
+    bit or within ``SHARD_RTOL`` (printed).  World 1 under the torchrun
+    contract (NCCL)."""
+    from tpudist_torch.runtime import initialize, shutdown
+
+    t0 = time.perf_counter()
+    env = torchrun_env()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize(device=torch.device("cuda"))
+        moe = moe_run(torch)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        mlp = overlap_mlp_readings(torch, flush)
+        three = three_d_run(torch)
+        gen = torch.Generator(device="cuda").manual_seed(1921)
+        hop = ring_hop_readings(torch, gen, flush, THREE_D_HOP)
+        del flush
+        torch.cuda.empty_cache()
+        scan = scanned_run(torch)
+    finally:
+        shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log_train(moe, card)
+    log_profile({"phase 19 MoE step": moe["profile"],
+                 "phase 19 3-D step": three["profile"]})
+    for i, st in enumerate(moe["moe"]):
+        log(f"phase 19 (a) step {i} moe/*: dropped fraction "
+            f"{st['moe_dropped_fraction']:.4f}, load max "
+            f"{max(st['moe_expert_load']):.4f}, balance loss "
+            f"{st['moe_balance_loss']:.4f}")
+    ref = moe["ep_vs_dense"]
+    log(f"phase 19 (a) one MoE layer at top-1, capacity factor "
+        f"{MOE_EXPERTS} (dropped {ref['dropped']}), against the dense "
+        f"reference in bf16: max abs err {ref['max_abs_err']:.4e} (bound "
+        f"{ref['bound']:.4e} = {MOE_REF_BOUND} of the largest |y| "
+        f"{ref['ref_max']:.4f}), rel RMS {ref['rel_rms']:.3e}")
+    log_train(three, card)
+    per_layer = ring_launches(RING_SHARDS, True, None, RING_S // RING_SHARDS)
+    want = {n: TP_SHARDS * per_layer * MOE_LAYERS * SEQ_STEPS
+            for n in TRAIN_KERNELS}
+    if three["launches"] != want or three["launches_wgmma"] != want:
+        raise AssertionError(f"phase 19 (c): 3-D flash launches "
+                             f"{three['launches']} (wgmma "
+                             f"{three['launches_wgmma']}), not {want}")
+    moe_want = {n: MOE_LAYERS * MOE_STEPS for n in TRAIN_KERNELS}
+    if moe["launches"] != moe_want or moe["launches_wgmma"] != moe_want:
+        raise AssertionError(f"phase 19 (a): MoE flash launches "
+                             f"{moe['launches']} (wgmma "
+                             f"{moe['launches_wgmma']}), not {moe_want}")
+    first, last3 = moe["losses"][0], statistics.mean(moe["losses"][-3:])
+    if not last3 < first:
+        raise AssertionError(f"phase 19 (a): the MoE losses do not fall: "
+                             f"{moe['losses']}")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(three["losses"],
+                                                  ring_losses))
+    three["max_rel_vs_ring"] = gap
+    log(f"phase 19 (c) 3-D (seq {RING_SHARDS} x model {TP_SHARDS}) against "
+        f"phase 17's --seq_shards {RING_SHARDS} on the same batches: losses "
+        f"max rel {gap:.2e} (bound {TP_RTOL})")
+    if gap > TP_RTOL:
+        raise AssertionError(f"phase 19 (c): the 3-D losses leave the "
+                             f"ring's: {three['losses']} vs {ring_losses}")
+    log(f"phase 19 (d) scanned step, K {SCAN_K}: losses "
+        f"{scan['losses']['scanned']} against {SCAN_K} plain steps "
+        f"{scan['losses']['plain']}: bit for bit {scan['bit_for_bit']}, "
+        f"max rel {scan['max_rel']:.2e}")
+    if scan["max_rel"] > SHARD_RTOL:
+        raise AssertionError(f"phase 19 (d): the scanned step leaves the "
+                             f"plain steps: {scan}")
+    res = dict(moe=moe, overlap_mlp=mlp, three_d=three, three_d_hop=hop,
+               scanned=scan, wall_s=time.perf_counter() - t0)
+    log(f"phase 19 wall: {res['wall_s']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 10-11: the toy demo.py path and the toy benches
 
 
@@ -5680,6 +6022,7 @@ def main(argv=None) -> int:
     public = public_widths_path(torch, card)
     seq = seq_parallel_path(torch, card)
     shard = sharded_path(torch, card)
+    moe = expert_3d_path(torch, card, seq["bf16"]["ring"]["losses"])
 
     kernels = []
     launches = dict(main_path["launches"])
@@ -5782,6 +6125,16 @@ def main(argv=None) -> int:
                               library_ms=t["library_ms"],
                               bound_ms=t["bound"][0],
                               bound_by=t["bound"][1]))
+            # phase 19: the MoE LM's and the 3-D path's launches (10 steps
+            # each) and the kernel at the 3-D path's hop shape
+            t = moe["three_d_hop"]["kernels"][name]
+            kernels[-1]["phase19"] = dict(
+                launches={"moe": int(moe["moe"]["launches"][name]),
+                          "3d": int(moe["three_d"]["launches"][name])},
+                three_d_hop=dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                                 library_ms=t["library_ms"],
+                                 bound_ms=t["bound"][0],
+                                 bound_by=t["bound"][1]))
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -5817,7 +6170,7 @@ def main(argv=None) -> int:
                   split=split, mpi=mpi, trainer=trainer,
                   lm_entry=dict(subprocess=lm_sub, in_process=lm_in),
                   public_widths=public, seq_parallel=seq,
-                  sharded=shard,
+                  sharded=shard, moe_overlap_3d=moe,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -1706,3 +1706,110 @@ def test_folded_tp_block_equals_unsharded_on_the_card(cuda):
     assert r["loss_gap"] <= FOLDED_TP_LOSS_RTOL, r["loss_gap"]
     worst = max(r["grad_rel"].items(), key=lambda kv: kv[1])
     assert worst[1] <= FOLDED_TP_GRAD_RTOL, worst
+
+
+def test_moe_layer_on_the_card_equals_dense_reference(cuda):
+    """The expert-parallel layer over 4 places folded onto the card, top-1
+    at a capacity factor of 4 (nothing drops), against the dense reference
+    on the same bf16 weights: within ``MOE_REF_BOUND`` of the largest
+    output magnitude, and its top-2 gradients finite."""
+    from chip_smoke import MOE_REF_BOUND
+    from tpudist_torch.models.transformer import (dense_moe_reference,
+                                                  moe_expert_fn)
+    from tpudist_torch.parallel import make_moe
+    from tpudist_torch.runtime.mesh import data_model_mesh
+
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    e, d, f = 4, 256, 512
+    params = {"router": torch.randn(d, e, generator=gen, device=cuda),
+              "experts": {
+                  "w": torch.randn(e, d, f, generator=gen, device=cuda) / 16,
+                  "wo": torch.randn(e, f, d, generator=gen, device=cuda)
+                  / 22}}
+    params = {"router": params["router"].bfloat16(),
+              "experts": {k: v.bfloat16()
+                          for k, v in params["experts"].items()}}
+    x = torch.randn(2048, d, generator=gen, device=cuda).bfloat16()
+    mesh = data_model_mesh(e, devices=[cuda] * e)
+    y, stats = make_moe(mesh, moe_expert_fn, k=1,
+                        capacity_factor=float(e))(params, x)
+    ref = dense_moe_reference(params, x)
+    assert float(stats.dropped_fraction) == 0.0
+    vmax = float(ref.float().abs().max())
+    assert float((y.float() - ref.float()).abs().max()) <= \
+        MOE_REF_BOUND * vmax
+    leaves = [params["router"]] + list(params["experts"].values())
+    for t in leaves:
+        t.requires_grad_(True)
+    y2, st2 = make_moe(mesh, moe_expert_fn, k=2)(params, x)
+    (y2.float().square().sum() + st2.balance_loss).backward()
+    assert all(torch.isfinite(t.grad).all() for t in leaves)
+
+
+def test_overlapped_tp_mlp_on_the_card(cuda):
+    """``make_tp_mlp(overlap='ring'|'bidir')`` at model 2 and 4 folded onto
+    the card against ``'off'`` in bf16, within ``m·OVERLAP_BOUND`` of the
+    output's largest magnitude (``chip_smoke.overlap_mlp_readings``'s
+    bound)."""
+    from chip_smoke import OVERLAP_BOUND
+    from tpudist_torch.parallel import init_mlp_params, make_tp_mlp
+    from tpudist_torch.runtime.mesh import data_model_mesh
+
+    gen = torch.Generator().manual_seed(20)
+    params = {k: v.to(cuda).bfloat16()
+              for k, v in init_mlp_params(gen, 256, 1024).items()}
+    x = torch.randn(512, 256, generator=gen).to(cuda).bfloat16()
+    for m in (2, 4):
+        mesh = data_model_mesh(m, devices=[cuda] * m)
+        off = make_tp_mlp(mesh, overlap="off")(params, x).float()
+        for mode in ("ring", "bidir"):
+            out = make_tp_mlp(mesh, overlap=mode)(params, x).float()
+            gap = float((out - off).abs().max())
+            assert gap <= m * OVERLAP_BOUND * float(off.abs().max()), \
+                (m, mode, gap)
+
+
+def test_ring_under_tp_on_the_card(cuda):
+    """A TP block over 2 places folded onto the card under a LocalRing of
+    4: each shard's ring makes ``ring_launches`` flash launches a layer on
+    the wgmma arm (twice the unsharded ring's), and the loss stays within
+    ``FOLDED_TP_LOSS_RTOL`` of the ring without TP."""
+    from tpudist_torch.models import create_transformer, lm_loss
+    from tpudist_torch.models.transformer import (RingCausal,
+                                                  transformer_tp_sharding)
+    from tpudist_torch.parallel import (LocalRing, SeqLayout,
+                                        make_ring_attention, shard_state)
+    from tpudist_torch.runtime.mesh import data_model_mesh
+    from tpudist_torch.train import build_optimizer
+
+    geom = dict(vocab=64, d_model=256, n_layers=2, n_heads=4, d_ff=512,
+                max_len=1024)
+    ring = LocalRing(4)
+    layout = SeqLayout(ring, 1024)
+    toks = np.random.default_rng(5).integers(0, 64, (2, 1024)).astype(
+        np.int32)
+    tokens, targets = (torch.from_numpy(a).to(cuda)
+                       for a in layout.place(toks))
+    ctx = RingCausal(False, make_ring_attention(ring, causal=True),
+                     layout.positions)
+    losses, counts = {}, {}
+    for tp in (False, True):
+        model = create_transformer(0, device=cuda, dtype=torch.bfloat16,
+                                   param_dtype=torch.float32, trainable=True,
+                                   **geom)
+        fwd = model
+        if tp:
+            opt, _ = build_optimizer(model.parameters(), 1e-3)
+            fwd = shard_state(model, opt, transformer_tp_sharding(
+                data_model_mesh(2, devices=[cuda, cuda]), model, opt))
+        reset_launch_counts()
+        loss = layout.loss(fwd(tokens, ctx), targets)
+        loss.backward()
+        counts[tp] = {n: launch_counts()[n] for n in (
+            "flash_forward", "flash_backward_dq", "flash_backward_dkv")}
+        losses[tp] = float(loss.detach())
+    per = ring_launches(4, True, None, 256) * geom["n_layers"]
+    assert counts[False] == {n: per for n in counts[False]}
+    assert counts[True] == {n: 2 * per for n in counts[True]}
+    assert abs(losses[True] - losses[False]) / abs(losses[False]) <= \
+        FOLDED_TP_LOSS_RTOL

@@ -110,7 +110,7 @@ def test_seq_axis_folds_onto_one_process():
     """Without a process group the seq shards fold onto the rank's device:
     a ``LocalRing`` of the axis's size, data 1; a data axis the one process
     cannot cover raises as JAX's resolve does, and seq beside a model axis
-    is not ported (A6c)."""
+    is the 3-D mesh, in the JAX axis order."""
     from tpudist_torch.parallel import LocalRing
 
     m = make_mesh(MeshConfig(seq=4), device="cpu")
@@ -121,5 +121,7 @@ def test_seq_axis_folds_onto_one_process():
     assert m.ring.indices == (0, 1, 2, 3) and m.ring.processes == 1
     with pytest.raises(ValueError, match="does not cover"):
         make_mesh(MeshConfig(data=2, seq=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        make_mesh(MeshConfig(seq=2, model=2), device="cpu")
+    three = make_mesh(MeshConfig(seq=2, model=2), device="cpu")
+    assert three.axis_names == ("data", "seq", "model")
+    assert three.shape == {"data": 1, "seq": 2, "model": 2}
+    assert isinstance(three.ring, LocalRing) and three.ring.size == 2

@@ -6,7 +6,8 @@ on the CPU), the JAX side a ``model`` mesh of the suite's virtual devices.
 - The MLP pair: ``tp_mlp_shard`` through ``make_tp_mlp`` at model 2 and 4
   (and with ``batch_axis='data'``) against JAX ``make_tp_mlp``: outputs and
   gradients at ``rtol 1e-5`` (f32; one sum in another order).  The specs of
-  ``mlp_param_sharding``; the overlapped bodies raise (A6c).
+  ``mlp_param_sharding``; the overlapped bodies' entry points (held against
+  JAX in ``tests/test_torch_overlap.py``) and their refusals.
 - The whole transformer at model 2 and 4 (MHA) and GQA 4/2 at model 2,
   from the JAX init's weights (d 64, 2 layers, seq 32, batch 8): the loss
   and every parameter's gradient against JAX ``value_and_grad`` under
@@ -46,8 +47,8 @@ from tpudist_torch.models.transformer import (DenseDecode, TPBlock,
                                               _Causal,
                                               transformer_tp_sharding)
 from tpudist_torch.parallel import (make_tp_mlp, mlp_param_sharding,
-                                    overlap_fsdp_mlp, shard_state,
-                                    tp_mlp_overlap_shard)
+                                    overlap_fsdp_mlp, shard_mlp_params,
+                                    shard_state, tp_mlp_overlap_shard)
 from tpudist_torch.runtime.mesh import data_model_mesh
 from tpudist_torch.train import build_optimizer, make_lm_train_step
 
@@ -100,19 +101,35 @@ def test_tp_mlp_equals_jax(m, batch_axis):
 
 
 def test_overlapped_bodies_raise(monkeypatch):
+    """The overlapped bodies are ported: ``make_tp_mlp(overlap=...)`` and
+    the knob give the pair's numbers (``tests/test_torch_overlap.py`` holds
+    them against JAX); what still raises are JAX's refusals — a batch axis
+    beside the overlapped body, an unknown explicit mode, the FSDP MLP over
+    a rank's own devices."""
     mesh = data_model_mesh(2, device="cpu")
+    params = {k: torch.tensor(np.asarray(v)) for k, v in
+              jax_init_mlp(jax.random.PRNGKey(3), 16, 64).items()}
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(8, 16)).astype(np.float32))
+    off = make_tp_mlp(mesh, overlap="off")(params, x)
     for mode in ("ring", "bidir"):
-        with pytest.raises(NotImplementedError, match="A6c"):
-            make_tp_mlp(mesh, overlap=mode)
-        with pytest.raises(NotImplementedError, match="A6c"):
-            overlap_fsdp_mlp(mesh, overlap=mode)
-    with pytest.raises(NotImplementedError, match="A6c"):
-        tp_mlp_overlap_shard({}, None)
+        out = make_tp_mlp(mesh, overlap=mode)(params, x)
+        np.testing.assert_allclose(out.numpy(), off.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        with pytest.raises(ValueError, match="batch_axis"):
+            make_tp_mlp(mesh, batch_axis="data", overlap=mode)
+        with pytest.raises(ValueError, match="ranks of an axis"):
+            overlap_fsdp_mlp(mesh, axis_name="model", overlap=mode)
+    outs = tp_mlp_overlap_shard(shard_mlp_params(params, mesh.devices),
+                                list(x.chunk(2)), mode="ring")
+    np.testing.assert_allclose(torch.cat(outs).numpy(), off.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="overlap"):
+        make_tp_mlp(mesh, overlap="spiral")
     assert overlap_fsdp_mlp(mesh) is None
-    assert callable(make_tp_mlp(mesh, overlap="off"))
     monkeypatch.setenv("TPUDIST_OVERLAP", "ring")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        make_tp_mlp(mesh)
+    np.testing.assert_allclose(make_tp_mlp(mesh)(params, x).numpy(),
+                               off.numpy(), rtol=1e-5, atol=1e-5)
 
 
 GEOM = GEOMS["d64"]

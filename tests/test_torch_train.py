@@ -324,10 +324,11 @@ def test_entry_point_trains_on_cpu_and_refuses_the_rest(capsys, tmp_path,
     np.save(corpus, (np.arange(4096) % 16).astype(np.int32))
     assert np.isfinite(train_main(small + ["--total_iterations", "2",
                                            "--data_path", str(corpus)]))
-    # --remat, --generate, the ring's flags and --fsdp are ported; MoE
-    # (A6c's later slices) still raises
-    with pytest.raises(NotImplementedError, match="A6c"):
-        get_args(small + ["--moe_experts", "4"])
+    # --remat, --generate, the ring's flags, --fsdp and MoE are ported
+    moe = get_args(small + ["--moe_experts", "4", "--moe_topk", "2"])
+    assert (moe.moe_experts, moe.moe_topk) == (4, 2)
+    assert np.isfinite(train_main(small + ["--total_iterations", "2",
+                                           "--moe_experts", "2"]))
     assert get_args(small + ["--fsdp"]).fsdp
     sharded = train_main(small + ["--total_iterations", "2", "--fsdp"])
     assert np.isfinite(sharded)

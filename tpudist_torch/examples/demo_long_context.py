@@ -46,8 +46,14 @@ shards the parameters and the optimizer state over the ``data`` axis
 forward and again for its backward, the gradients reduce-scattered), with
 the JAX demo's ``fsdp: X MiB state/chip`` line; it composes with the ring,
 ``--accum_steps``, ``--remat``, eval and ``--generate`` (which decodes
-from the gathered weights).  ``--moe_*`` raises: ROADMAP queue A, item
-A6c.
+from the gathered weights).  ``--moe_experts E`` replaces every block's
+dense FFN with a routed MoE of ``E`` experts (:func:`tpudist_torch.
+parallel.make_moe`, top ``--moe_topk``), one expert a place of a ``model``
+axis of ``E`` devices a rank (folded onto the card where the host has
+fewer), its routing statistics logged as ``moe/dropped_fraction``,
+``moe/load_max`` and ``moe/balance_loss`` and ``--moe_balance`` times its
+balance loss added to the trained loss; it composes with dp, not with
+``--seq_shards``, as in the JAX demo.
 ``--n_heads`` and ``--d_ff`` set the geometry the JAX demo leaves at the
 model's defaults (4 heads, d_ff 512).
 
@@ -93,19 +99,15 @@ from tpudist_torch.runtime import (describe_runtime, initialize,
                                    process_count, rank_print,
                                    resolve_shared_seed, shutdown)
 from tpudist_torch.runtime.mesh import (MeshConfig, data_parallel_mesh,
-                                        make_mesh)
+                                        make_mesh, model_devices)
 from tpudist_torch.train.lm import make_lm_eval_step, make_lm_train_step
 from tpudist_torch.train.optim import build_optimizer_from_args
 from tpudist_torch.utils import init_metrics, trace
 from tpudist_torch.utils.record import record
 
-_A6C = "ROADMAP queue A, item A6c (parallel/)"
-
-
 def get_args(argv=None):
     """The JAX demo's flags on the shared parser, plus ``--n_heads`` and
-    ``--d_ff``.  The options of the ``parallel/`` slice raise here, before
-    any process group forms."""
+    ``--d_ff``."""
     p = build_parser()
     p.add_argument("--seq_len", default=512, type=int)
     p.add_argument("--seq_shards", default=1, type=int,
@@ -118,11 +120,15 @@ def get_args(argv=None):
     p.add_argument("--n_heads", default=4, type=int)
     p.add_argument("--d_ff", default=512, type=int)
     p.add_argument("--moe_experts", default=0, type=int,
-                   help="routed MoE FFN of this many experts (A6c)")
+                   help="replace the dense FFN with a routed MoE of this "
+                        "many experts, expert-parallel over a model axis of "
+                        "the same size (requires --seq_shards 1)")
     p.add_argument("--moe_topk", default=1, type=int,
-                   help="experts per token (A6c)")
+                   help="experts per token (1 = Switch raw gate, >1 = "
+                        "Mixtral-style renormalized gates)")
     p.add_argument("--moe_balance", default=0.0, type=float,
-                   help="weight of the load-balancing aux loss (A6c)")
+                   help="weight of the Switch/GShard load-balancing aux "
+                        "loss added to the LM loss (e.g. 0.01)")
     p.add_argument("--precision", choices=["fp32", "bf16"], default="fp32",
                    help="bf16 = f32 master weights, bf16 compute")
     p.add_argument("--fsdp", action="store_true",
@@ -171,10 +177,7 @@ def get_args(argv=None):
     p.add_argument("--eval_every", default=50, type=int,
                    help="evaluate the held-out set every N iterations")
     p.set_defaults(batch_size=8, total_iterations=300, lr=3e-4)
-    args = parse_args(argv, parser=p)
-    if args.moe_experts > 0:
-        raise NotImplementedError(f"--moe_experts is not ported yet: {_A6C}")
-    return args
+    return parse_args(argv, parser=p)
 
 
 def make_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int):
@@ -186,9 +189,10 @@ def make_batch(rng: np.random.Generator, batch: int, seq: int, vocab: int):
 
 def build_model(args, device) -> torch.nn.Module:
     """The trainable TransformerLM of ``args`` on ``device``, its weights
-    drawn from ``args.seed`` (every rank draws the same).  On the ring
-    (``--seq_shards > 1``) the model's own window is off: the ring holds
-    it."""
+    drawn from ``args.seed`` (every rank draws the same), with
+    ``--moe_experts`` MoE FFNs (their ``moe_fn`` set by the caller).  On
+    the ring (``--seq_shards > 1``) the model's own window is off: the ring
+    holds it."""
     return create_transformer(
         args.seed, device=device, trainable=True,
         dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
@@ -197,7 +201,29 @@ def build_model(args, device) -> torch.nn.Module:
         max_len=args.seq_len, rope=args.rope, n_kv_heads=args.n_kv_heads,
         sliding_window=None if args.seq_shards > 1 else args.sliding_window,
         remat=args.remat,
-        remat_policy=args.remat_policy)
+        remat_policy=args.remat_policy, n_experts=args.moe_experts)
+
+
+def moe_parts(args, mesh):
+    """``--moe_experts``: the expert-parallel layer over ``mesh``'s
+    ``model`` axis (top ``--moe_topk``, statistics averaged over ``data``)
+    for the model's ``moe_fn``, ``None`` without MoE."""
+    if args.moe_experts == 0:
+        return None
+    from tpudist_torch.models.transformer import moe_expert_fn
+    from tpudist_torch.parallel import make_moe
+
+    return make_moe(mesh, moe_expert_fn, batch_axis="data",
+                    k=args.moe_topk)
+
+
+def moe_rows(aux: dict) -> dict:
+    """The JAX demo's ``moe/*`` metric rows of a step's ``aux``."""
+    if "moe_dropped_fraction" not in aux:
+        return {}
+    return {"moe/dropped_fraction": float(aux["moe_dropped_fraction"]),
+            "moe/load_max": float(aux["moe_expert_load"].max()),
+            "moe/balance_loss": float(aux["moe_balance_loss"])}
 
 
 def open_corpus(args, *, num_shards: int = 1, shard_id: int = 0):
@@ -262,7 +288,9 @@ def fsdp_layout(args, mesh, model, opt):
 
 def build_training(args):
     """``(model, step, next_batch)`` for ``args`` in one process: the
-    trainable model on ``args.device``, the train step over its optimizer,
+    trainable model on ``args.device`` (its experts' places folded onto
+    it), the train step over its optimizer (returning ``(loss, aux)`` with
+    ``--moe_experts``),
     and a function returning the next batch (numpy) — the synthetic task,
     or the corpus with ``--data_path``: ``[batch, seq_len]`` int32 tokens,
     or with ``--seq_shards > 1`` (every shard on this process's device)
@@ -274,13 +302,19 @@ def build_training(args):
         args.seed = resolve_shared_seed(None)
     device = resolve_device(args.device)
     model = build_model(args, device)
+    experts = max(args.moe_experts, 1)
+    mesh = make_mesh(MeshConfig(data=-1, model=experts),
+                     devices=model_devices(experts, device), device=device)
+    model.moe_fn = moe_parts(args, mesh)
     opt, sched = build_optimizer_from_args(args, model.parameters())
     ctx, loss_fn, place = seq_parts(
         args, LocalRing(args.seq_shards) if args.seq_shards > 1 else None)
     layout = fsdp_layout(args, data_parallel_mesh(device=device), model, opt)
     step = make_lm_train_step(model, opt, scheduler=sched,
                               accum_steps=args.accum_steps, ctx=ctx,
-                              loss_fn=loss_fn, state_sharding=layout)
+                              loss_fn=loss_fn, state_sharding=layout,
+                              aux=args.moe_experts > 0,
+                              moe_balance_weight=args.moe_balance)
     if args.data_path is not None:
         _, corpus, _ = open_corpus(args)
         return model, step, lambda: place(next(corpus))
@@ -292,6 +326,13 @@ def build_training(args):
 def _check_flags(args) -> None:
     """The JAX demo's flag checks (``:135-142``, ``:155-163``,
     ``:268-270``)."""
+    if args.moe_experts > 0 and args.seq_shards > 1:
+        raise SystemExit("--moe_experts composes with dp, not sp: use "
+                         "--seq_shards 1")
+    if args.moe_experts > 0 and not 1 <= args.moe_topk <= args.moe_experts:
+        raise SystemExit(
+            f"--moe_topk {args.moe_topk} must be in [1, "
+            f"{args.moe_experts}] (= --moe_experts)")
     if args.moe_experts == 0 and (args.moe_topk != 1 or args.moe_balance):
         raise SystemExit("--moe_topk/--moe_balance need --moe_experts > 0")
     if args.seq_shards < 1:
@@ -357,22 +398,32 @@ def main(argv=None) -> float:
     device = resolve_device(args.device)
     ctx = initialize(use_node_rank=args.use_node_rank, device=device)
     args.seed = resolve_shared_seed(args.seed)
-    n_seq = args.seq_shards
-    mesh = (make_mesh(MeshConfig(data=-1, seq=n_seq), device=device)
-            if n_seq > 1 else data_parallel_mesh(device=device))
+    n_seq, experts = args.seq_shards, args.moe_experts
+    # the model axis holds the experts, one a place (folded onto the
+    # rank's card where the host has fewer)
+    mesh = (make_mesh(MeshConfig(data=-1, seq=n_seq,
+                                 model=max(experts, 1)),
+                      devices=model_devices(max(experts, 1), device),
+                      device=device)
+            if n_seq > 1 or experts else data_parallel_mesh(device=device))
     # the data rows: the ranks of one ring read the same rows
     rows, data_row = mesh.shape["data"], mesh.coords["data"]
     describe_runtime(ctx, args.seed, mesh.devices[0])
-    rank_print(f"mesh={{'data': {rows}, 'seq': {n_seq}}} seq_len="
-               f"{args.seq_len} (block {args.seq_len // n_seq}/chip)")
+    model_axis = f", 'model': {experts}" if experts else ""
+    rank_print(f"mesh={{'data': {rows}, 'seq': {n_seq}{model_axis}}} "
+               f"seq_len={args.seq_len} (block {args.seq_len // n_seq}"
+               "/chip)")
     dev = mesh.devices[0]
     seq_ctx, loss_fn, place = seq_parts(args, mesh.ring)
     model = build_model(args, dev)
+    model.moe_fn = moe_parts(args, mesh)
     opt, sched = build_optimizer_from_args(args, model.parameters())
     layout = fsdp_layout(args, mesh, model, opt)
     step = make_lm_train_step(model, opt, scheduler=sched,
                               accum_steps=args.accum_steps, ctx=seq_ctx,
-                              loss_fn=loss_fn, state_sharding=layout)
+                              loss_fn=loss_fn, state_sharding=layout,
+                              aux=experts > 0,
+                              moe_balance_weight=args.moe_balance)
     logger = init_metrics(args.project, args.group or "demo_long_context",
                           dry_run=args.dry_run)
     rng = np.random.default_rng(args.seed)
@@ -420,12 +471,13 @@ def main(argv=None) -> float:
     t0 = time.perf_counter()
     with trace(args.profile_dir):
         for it, tokens in enumerate(batches):
-            loss = step(tokens)
+            loss, aux = step(tokens) if experts else (step(tokens), {})
             do_eval = bool(eval_batches) and it % args.eval_every == 0
             if it % args.log_every == 0 or do_eval:
                 row = {"loss/lm": float(loss), "iteration": it}
                 if do_eval:
                     row["loss/eval"] = eval_loss()
+                row.update(moe_rows(aux))
                 logger.log(row)
                 rank_print(f"iteration {it}: " + " ".join(
                     f"{k} {v:.4f}" for k, v in row.items()

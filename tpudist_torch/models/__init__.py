@@ -1,5 +1,5 @@
-"""The port's model family: :class:`TransformerLM` and its LM losses and
-tied draft, its paged and dense KV storage, the adapter pool and the
+"""The port's model family: :class:`TransformerLM` (with its MoE FFN) and
+its LM losses and tied draft, its paged and dense KV storage, the adapter pool and the
 slot-decode programs of the serving engine; and the toy MLP of the
 ``demo.py`` path."""
 
@@ -12,18 +12,21 @@ from tpudist_torch.models.generate import (CacheFullError, DenseKV,
                                            make_slot_decode,
                                            sample_logits, spec_accept)
 from tpudist_torch.models.paged import PagedKV, PagedKVConfig
-from tpudist_torch.models.transformer import (TransformerLM,
-                                              create_transformer, lm_loss,
+from tpudist_torch.models.transformer import (MoEFFN, TransformerLM,
+                                              create_transformer,
+                                              dense_moe_reference, lm_loss,
                                               lm_loss_with_targets,
-                                              resolve_device, rope_rotate,
+                                              moe_expert_fn, resolve_device,
+                                              rope_rotate, sown_stats,
                                               tied_draft)
 from tpudist_torch.models.toy_mlp import ToyMLP, create_toy_model
 
 __all__ = [
-    "CacheFullError", "DenseKV", "PagedKV", "PagedKVConfig", "SlotDecode", "SlotState", "ToyMLP",
-    "TransformerLM", "adapter_factors_from_jax", "create_toy_model",
-    "create_transformer", "filter_logits", "generate", "lm_loss",
-    "lm_loss_with_targets", "make_slot_decode", "params_from_flax",
-    "resolve_device", "rope_rotate", "sample_logits", "spec_accept", "tied_draft",
-    "toy_params_from_flax",
+    "CacheFullError", "DenseKV", "MoEFFN", "PagedKV", "PagedKVConfig",
+    "SlotDecode", "SlotState", "ToyMLP", "TransformerLM",
+    "adapter_factors_from_jax", "create_toy_model", "create_transformer",
+    "dense_moe_reference", "filter_logits", "generate", "lm_loss",
+    "lm_loss_with_targets", "make_slot_decode", "moe_expert_fn",
+    "params_from_flax", "resolve_device", "rope_rotate", "sample_logits",
+    "sown_stats", "spec_accept", "tied_draft", "toy_params_from_flax",
 ]

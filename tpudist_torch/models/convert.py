@@ -6,7 +6,8 @@
 (nested dicts of numpy arrays, with or without the top ``"params"`` level)
 onto the state dict of :class:`tpudist_torch.models.TransformerLM`.  flax
 ``Dense`` kernels are ``[in, out]``; the port's linear weights are
-``[out, in]``.  The tensors are f32, flax's master dtype: a model built with
+``[out, in]``; an MoE block's ``moe`` subtree (``router [d, E]``, ``w [E,
+d, f]``, ``wo [E, f, d]``) carries across as it is.  The tensors are f32, flax's master dtype: a model built with
 ``param_dtype=float32`` (training) loads them without a cast, so the same
 weights start both frameworks; a model whose parameters live in its compute
 dtype (serving) gets them rounded to nearest even by ``load_state_dict`` —
@@ -41,8 +42,12 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         pre = f"blocks.{i}."
         out[pre + "ln1"] = t(blk["LayerNorm_0"]["scale"])
         out[pre + "ln2"] = t(blk["LayerNorm_1"]["scale"])
-        for name in ("qkv", "proj", "wi", "wo"):
+        ffn = ("wi", "wo") if "moe" not in blk else ()
+        for name in ("qkv", "proj") + ffn:
             out[pre + name] = t(blk[name]["kernel"], transpose=True)
+        for name in ("router", "w", "wo") if not ffn else ():
+            # the MoE stacks keep the JAX layout
+            out[pre + "moe." + name] = t(blk["moe"][name])
         i += 1
     return out
 

@@ -781,6 +781,10 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             "lora_kernel=True rides the slot-batched kernel programs only "
             "— enable attn_kernel='paged' and/or prefill_kernel=True (the "
             "dense and gather programs take pre-gathered factors)")
+    if getattr(model, "n_experts", 0) > 0:
+        raise NotImplementedError(
+            "serving a model with an MoE FFN (A6c's expert layer) is not "
+            "ported yet: ROADMAP queue A, item A8")
     if num_slots < 1:
         raise ValueError(f"num_slots must be >= 1, got {num_slots}")
     n_lp = int(logprobs)

@@ -33,6 +33,14 @@ The two serving arms carry two more seams:
   (:func:`tpudist_torch.ops.lora_delta`); an off lane is the base tensor
   bit for bit.
 
+The FFN is the dense ``wi``/``wo`` pair, or, with ``n_experts > 0``, a
+routed MoE (:class:`MoEFFN`: the expert-parallel layer ``moe_fn`` of
+:func:`tpudist_torch.parallel.make_moe`, else :func:`dense_moe_reference`),
+or an injected ``mlp_fn(params, x)`` over the pair's kernels (the
+overlapped FSDP MLP, :func:`tpudist_torch.parallel.overlap_fsdp_mlp`).  The
+MoE layers' statistics of a forward are collected by :func:`sown_stats`
+(the JAX model's sown ``intermediates``).
+
 Weights live in ``param_dtype`` (default: the compute dtype ``dtype``) and
 are cast to ``dtype`` where they are used, as flax's ``nn.Dense(dtype=...)``
 and ``nn.Embed(dtype=...)`` cast their f32 masters at apply; LayerNorm scales
@@ -43,8 +51,9 @@ no-ops); training keeps f32 masters under bf16 compute
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -92,6 +101,79 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     mean2 = (x * x).mean(dim=-1, keepdim=True)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     return (x - mean) * (torch.rsqrt(var + eps) * scale)
+
+
+def moe_expert_fn(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The MoE FFN's expert, ``relu(x·w)·wo`` — shared by the
+    expert-parallel layer (:func:`tpudist_torch.parallel.make_moe`) and
+    :func:`dense_moe_reference`, as in the JAX package."""
+    return torch.relu(tokens @ params["w"]) @ params["wo"]
+
+
+def dense_moe_reference(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Every expert on every token, combined by the top-1 gate (routing in
+    f32, the experts in the compute dtype): the MoE FFN without a
+    ``moe_fn``, equal to the expert-parallel layer's top-1 output when no
+    token overflows capacity.  Ties go to the lower expert index."""
+    probs = torch.softmax((tokens @ params["router"]).float(), dim=-1)
+    idx = probs.argmax(dim=-1)
+    gate = probs.gather(-1, idx[:, None])[:, 0]
+    h = torch.relu(torch.einsum("td,edf->tef", tokens,
+                                params["experts"]["w"]))
+    y_all = torch.einsum("tef,efd->ted", h, params["experts"]["wo"])
+    pick = F.one_hot(idx, probs.shape[-1]).to(tokens.dtype)
+    return torch.einsum("ted,te->td", y_all,
+                        pick * gate.to(tokens.dtype)[:, None])
+
+
+class MoEFFN(nn.Module):
+    """The routed FFN of a block with ``n_experts > 0`` (the JAX
+    ``MoEFFN``): ``router [d, E]``, ``w [E, d, d_ff]`` and ``wo [E, d_ff,
+    d]``, stored as the JAX package holds them and cast to the compute
+    dtype where they are used.  ``moe_fn`` (:func:`tpudist_torch.parallel.
+    make_moe`) runs the expert-parallel layer and returns its
+    :class:`~tpudist_torch.parallel.MoEStats`; without it the dense
+    reference runs and there are no stats."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int,
+                 moe_fn: Optional[Callable], dtype: torch.dtype,
+                 param_dtype: torch.dtype):
+        super().__init__()
+        self.n_experts, self.moe_fn, self.dtype = n_experts, moe_fn, dtype
+        self.router = nn.Parameter(torch.empty(d_model, n_experts,
+                                               dtype=param_dtype))
+        self.w = nn.Parameter(torch.empty(n_experts, d_model, d_ff,
+                                          dtype=param_dtype))
+        self.wo = nn.Parameter(torch.empty(n_experts, d_ff, d_model,
+                                           dtype=param_dtype))
+
+    def forward(self, h: torch.Tensor):
+        b, s, d = h.shape
+        dt = self.dtype
+        params = {"router": self.router.to(dt),
+                  "experts": {"w": self.w.to(dt), "wo": self.wo.to(dt)}}
+        tokens = h.reshape(b * s, d).to(dt)
+        if self.moe_fn is None:
+            return dense_moe_reference(params, tokens).reshape(b, s, d), None
+        y, stats = self.moe_fn(params, tokens)
+        return y.reshape(b, s, d), stats
+
+
+@contextlib.contextmanager
+def sown_stats(model: nn.Module):
+    """Collect the MoE statistics of the forwards of ``model`` run inside:
+    yields a list that each MoE layer appends its
+    :class:`~tpudist_torch.parallel.MoEStats` to, in layer order (the JAX
+    model's ``intermediates``; a dense model appends nothing)."""
+    sown: list = []
+    blocks = [b for b in getattr(model, "blocks", ()) if hasattr(b, "sow")]
+    for b in blocks:
+        b.sow = sown
+    try:
+        yield sown
+    finally:
+        for b in blocks:
+            b.sow = None
 
 
 def attention_reference(q, k, v, *, causal: bool = False,
@@ -427,16 +509,27 @@ class PagedPrefill:
 
 class Block(nn.Module):
     """Pre-LN decoder block: ``x + proj(attn(LN(x)))``, then
-    ``x + wo(gelu(wi(LN(x))))``.  Linear weights are stored ``[out, in]``
-    and cast to ``dtype`` where they are used (``cast_weights``: the ZeRO-3
-    runtime gathers them in that dtype)."""
+    ``x + wo(gelu(wi(LN(x))))`` — or the routed :class:`MoEFFN` with
+    ``n_experts > 0``, or ``mlp_fn({'wi': [d, d_ff], 'wo': [d_ff, d]}, x)``
+    over the pair's kernels in the JAX layout (this rank's pieces of them
+    when ``mlp_fn.pieces`` cuts whole weights, as the overlapped FSDP MLP
+    takes).  Linear weights are stored ``[out, in]`` and cast to ``dtype``
+    where they are used (``cast_weights``: the ZeRO-3 runtime gathers them
+    in that dtype).  ``sow``, when a list (:func:`sown_stats`), receives
+    the MoE layer's statistics of each forward."""
 
-    cast_weights = ("qkv", "proj", "wi", "wo")
+    cast_weights = ("qkv", "proj", "wi", "wo", "moe.router", "moe.w",
+                    "moe.wo")
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  n_kv_heads: Optional[int], layer_idx: int,
-                 dtype: torch.dtype, param_dtype: torch.dtype):
+                 dtype: torch.dtype, param_dtype: torch.dtype, *,
+                 n_experts: int = 0, moe_fn: Optional[Callable] = None,
+                 mlp_fn: Optional[Callable] = None):
         super().__init__()
+        if n_experts > 0 and mlp_fn is not None:
+            raise ValueError("mlp_fn replaces the dense FFN; it cannot "
+                             "compose with the MoE FFN (n_experts > 0)")
         n_kv = n_heads if n_kv_heads is None else n_kv_heads
         if not 1 <= n_kv <= n_heads or n_heads % n_kv:
             raise ValueError(f"n_kv_heads {n_kv} must be in [1, {n_heads}] "
@@ -452,8 +545,13 @@ class Block(nn.Module):
                                             dtype=pd))
         self.proj = nn.Parameter(torch.empty(d_model, d_model, dtype=pd))
         self.ln2 = nn.Parameter(torch.ones(d_model, dtype=f32))
-        self.wi = nn.Parameter(torch.empty(d_ff, d_model, dtype=pd))
-        self.wo = nn.Parameter(torch.empty(d_model, d_ff, dtype=pd))
+        self.d_ff, self.n_experts, self.mlp_fn = d_ff, n_experts, mlp_fn
+        self.sow = None
+        if n_experts > 0:
+            self.moe = MoEFFN(d_model, d_ff, n_experts, moe_fn, dtype, pd)
+        else:
+            self.wi = nn.Parameter(torch.empty(d_ff, d_model, dtype=pd))
+            self.wo = nn.Parameter(torch.empty(d_model, d_ff, dtype=pd))
 
     def _delta(self, ads: dict, h_in: torch.Tensor, proj: str):
         """The raw adapter delta ``(h·A)·B`` of one projection: through the
@@ -482,6 +580,12 @@ class Block(nn.Module):
         dtype = self.dtype
         b, s, _ = x.shape
         ads = getattr(ctx, "adapters", None)
+        if ads is not None and (self.n_experts > 0
+                                or self.mlp_fn is not None):
+            raise ValueError(
+                "lora_rank adapters wrap the plain qkv/wi/wo Dense path; "
+                "they cannot compose with an MoE FFN or an injected mlp_fn "
+                "(the fused MLP hides the wi/wo seam)")
         h = layer_norm(x, self.ln1)
         kv_dim = self.n_kv * self.dh
         if getattr(ctx, "fused_rope", False):
@@ -510,6 +614,16 @@ class Block(nn.Module):
         attn = attn.transpose(1, 2).reshape(b, s, self.d_model)
         x = x + F.linear(attn.to(dtype), self.proj.to(dtype))
         h = layer_norm(x, self.ln2)
+        if self.n_experts > 0:
+            y, stats = self.moe(h)
+            if stats is not None and self.sow is not None:
+                self.sow.append(stats)
+            return x + y
+        if self.mlp_fn is not None:
+            wi, wo = self.wi.to(dtype).t(), self.wo.to(dtype).t()
+            if wi.shape[1] == self.d_ff:  # whole weights: this rank's part
+                wi, wo = self.mlp_fn.pieces(wi, wo)
+            return x + self.mlp_fn({"wi": wi, "wo": wo}, h.to(dtype))
         y = self._ad(ads, F.linear(h.to(dtype), self.wi.to(dtype)), h, "wi")
         y = F.gelu(y, approximate="tanh")
         return x + self._ad(ads, F.linear(y, self.wo.to(dtype)), y, "wo")
@@ -577,6 +691,10 @@ class TPBlock(nn.Module):
     was made from).  The training arm only: the serving arms (decode,
     prefill, fused RoPE, adapters) keep the replicated block.
 
+    Under a ring (:class:`RingCausal`) each shard's attention runs the
+    ring over its own heads (whole GQA groups): every live hop makes one
+    forward, dq and dk/dv flash launch a shard (3-D parallelism).
+
     The state dict holds the whole tensors under the block's own keys
     (``qkv``, ``proj``, ``wi``, ``wo``), assembled from the shards and cut
     into them on load.  ``SPLIT`` is the one statement of which dimension
@@ -587,6 +705,11 @@ class TPBlock(nn.Module):
 
     def __init__(self, block: Block, devices):
         super().__init__()
+        if block.n_experts > 0 or block.mlp_fn is not None:
+            raise NotImplementedError(
+                "tensor parallelism of a block with an MoE FFN or an "
+                "injected mlp_fn is not ported yet: ROADMAP queue A, item "
+                "A6c")
         devices = tuple(torch.device(d) for d in devices)
         m = len(devices)
         h, kv = block.n_heads, block.n_kv
@@ -685,6 +808,8 @@ class TPBlock(nn.Module):
         blk.d_model, blk.n_heads, blk.n_kv = self.d_model, self.n_heads, \
             self.n_kv
         blk.dh, blk.layer_idx, blk.dtype = self.dh, self.layer_idx, self.dtype
+        blk.d_ff, blk.n_experts, blk.mlp_fn, blk.sow = \
+            self.pieces("wi")[0].shape[0] * self.m, 0, None, None
         blk.ln1, blk.ln2 = self.ln1, self.ln2
         for name in self.SPLIT:
             p0 = self.pieces(name)[0]
@@ -694,12 +819,11 @@ class TPBlock(nn.Module):
         return blk
 
     def forward(self, x: torch.Tensor, ctx) -> torch.Tensor:
-        if not isinstance(ctx, _Causal) or isinstance(ctx, RingCausal):
+        if not isinstance(ctx, _Causal):
             raise ValueError(
                 "the tensor-parallel block runs the training arm only: "
                 "decode, prefill, fused RoPE and adapters keep the "
-                "replicated block, and seq beside model is ROADMAP queue A, "
-                "item A6c")
+                "replicated block")
         dtype = self.dtype
         b, s, _ = x.shape
         hq, hk, dh = self.n_heads // self.m, self.n_kv // self.m, self.dh
@@ -744,6 +868,10 @@ def transformer_tp_sharding(mesh, model: nn.Module, optimizer=None, *,
     from tpudist_torch.parallel.fsdp import (Leaf, make_layout,
                                              optimizer_leaves, param_leaves)
 
+    if getattr(model, "n_experts", 0) > 0:
+        raise NotImplementedError(
+            "the Megatron layout of an MoE model (expert stacks split over "
+            "the model axis) is not ported yet: ROADMAP queue A, item A6c")
     leaves = param_leaves(model)
     if optimizer is not None:
         leaves.update(optimizer_leaves(model, optimizer))
@@ -769,7 +897,9 @@ class TransformerLM(nn.Module):
     zero`).  ``jax_transposed`` names the weights the port stores ``[out,
     in]`` where flax keeps ``[in, out]`` (the sharding rules read them);
     ``cast_weights`` those cast to ``dtype`` where they are used, as
-    :class:`Block`'s."""
+    :class:`Block`'s.  ``n_experts``, ``moe_fn`` and ``mlp_fn`` are every
+    block's FFN (:class:`Block`); ``moe_fn`` and ``mlp_fn`` may be set
+    after construction (the same parameters either way)."""
 
     jax_transposed = ("qkv", "proj", "wi", "wo", "head")
     cast_weights = ("head",)
@@ -781,7 +911,9 @@ class TransformerLM(nn.Module):
                  sliding_window: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False, remat_policy: str = "nothing"):
+                 remat: bool = False, remat_policy: str = "nothing",
+                 n_experts: int = 0, moe_fn: Optional[Callable] = None,
+                 mlp_fn: Optional[Callable] = None):
         super().__init__()
         if sliding_window is not None and sliding_window < 1:
             raise ValueError(
@@ -794,7 +926,7 @@ class TransformerLM(nn.Module):
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
         self.n_heads, self.d_ff, self.max_len = n_heads, d_ff, max_len
         self.rope, self.sliding_window = rope, sliding_window
-        self.n_kv_heads = n_kv_heads
+        self.n_kv_heads, self.n_experts = n_kv_heads, n_experts
         self.dtype = dtype
         pd = dtype if param_dtype is None else param_dtype
         self.param_dtype = pd
@@ -802,7 +934,8 @@ class TransformerLM(nn.Module):
         self.pos_embed = (None if rope else nn.Parameter(
             torch.empty(max_len, d_model, dtype=pd)))
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, d_ff, n_kv_heads, i, dtype, pd)
+            Block(d_model, n_heads, d_ff, n_kv_heads, i, dtype, pd,
+                  n_experts=n_experts, moe_fn=moe_fn, mlp_fn=mlp_fn)
             for i in range(n_layers))
         self.ln_f = nn.Parameter(torch.ones(d_model, dtype=torch.float32))
         self.head = nn.Parameter(torch.empty(vocab, d_model, dtype=pd))
@@ -811,6 +944,31 @@ class TransformerLM(nn.Module):
     @property
     def n_kv(self) -> int:
         return self.n_heads if self.n_kv_heads is None else self.n_kv_heads
+
+    @property
+    def moe_fn(self) -> Optional[Callable]:
+        blk = self.blocks[0]
+        return blk.moe.moe_fn if getattr(blk, "n_experts", 0) > 0 else None
+
+    @moe_fn.setter
+    def moe_fn(self, fn: Optional[Callable]) -> None:
+        if fn is not None and self.n_experts == 0:
+            raise ValueError("moe_fn needs a model with n_experts > 0")
+        for blk in self.blocks:
+            if getattr(blk, "n_experts", 0) > 0:
+                blk.moe.moe_fn = fn
+
+    @property
+    def mlp_fn(self) -> Optional[Callable]:
+        return getattr(self.blocks[0], "mlp_fn", None)
+
+    @mlp_fn.setter
+    def mlp_fn(self, fn: Optional[Callable]) -> None:
+        if fn is not None and self.n_experts > 0:
+            raise ValueError("mlp_fn replaces the dense FFN; it cannot "
+                             "compose with the MoE FFN (n_experts > 0)")
+        for blk in self.blocks:
+            blk.mlp_fn = fn
 
     @property
     def head_dim(self) -> int:
@@ -903,8 +1061,8 @@ def tied_draft(model: TransformerLM, layers: int) -> TransformerLM:
     draft = TransformerLM.__new__(TransformerLM)
     nn.Module.__init__(draft)
     for name in ("vocab", "d_model", "n_heads", "d_ff", "max_len", "rope",
-                 "sliding_window", "n_kv_heads", "dtype", "param_dtype",
-                 "remat", "remat_policy"):
+                 "sliding_window", "n_kv_heads", "n_experts", "dtype",
+                 "param_dtype", "remat", "remat_policy"):
         setattr(draft, name, getattr(model, name))
     draft.n_layers = int(layers)
     draft.tok_embed = model.tok_embed
@@ -945,6 +1103,13 @@ def create_transformer(seed: int = 0, *, device="cuda",
     for blk in model.blocks:
         _lecun_normal_(blk.qkv, d, gen)
         _lecun_normal_(blk.proj, d, gen)
+        if blk.n_experts > 0:
+            # flax's lecun_normal counts the expert axis into the fan-in
+            e = blk.n_experts
+            _lecun_normal_(blk.moe.router, d, gen)
+            _lecun_normal_(blk.moe.w, d * e, gen)
+            _lecun_normal_(blk.moe.wo, model.d_ff * e, gen)
+            continue
         _lecun_normal_(blk.wi, d, gen)
         _lecun_normal_(blk.wo, model.d_ff, gen)
     _lecun_normal_(model.head, d, gen)

@@ -37,14 +37,15 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tpudist_torch.parallel.overlap import (ag_matmul, axis_ring,
+                                            overlap_mode)
+from tpudist_torch.parallel.ring import LocalRing
 from tpudist_torch.runtime.mesh import AXIS_DATA
 
 __all__ = ["Layout", "Leaf", "fsdp_sharding", "merge_shardings",
-           "optimizer_leaves", "overlap_fsdp_mlp", "param_leaves",
+           "optimizer_leaves", "overlap_fsdp_mlp", "overlap_mode",
+           "param_leaves",
            "state_bytes_per_device", "zero1_sharding"]
-
-_A6C_OVERLAP = ("the overlapped (collective-matmul) FSDP MLP is not ported "
-                "yet: ROADMAP queue A, item A6c (parallel/overlap.py)")
 
 Spec = Tuple[Optional[str], ...]
 
@@ -119,7 +120,10 @@ def _leaf_spec(shape, n: int, axis_name: str, min_size: int) -> Spec:
 
 
 def _transposed(model, name: str) -> bool:
-    return name.rsplit(".", 1)[-1] in getattr(model, "jax_transposed", ())
+    # the MoE FFN keeps the JAX package's [E, in, out] stacks as they are
+    words = name.split(".")
+    return words[-1] in getattr(model, "jax_transposed", ()) and \
+        "moe" not in words
 
 
 def param_leaves(model: torch.nn.Module) -> Dict[str, tuple]:
@@ -253,23 +257,53 @@ def state_bytes_per_device(layout: Layout) -> int:
     return total
 
 
-def overlap_mode(overlap: Optional[str]) -> str:
-    """The JAX package's resolution: ``overlap``, else the
-    ``TPUDIST_OVERLAP`` knob, else ``off``."""
-    import os
+def overlap_fsdp_mlp(mesh, *, axis_name: str = AXIS_DATA,
+                     overlap: Optional[str] = None, activation=None):
+    """The overlapped FSDP MLP, an ``mlp_fn(params, x) -> y`` for the
+    Block's dense-FFN seam (``create_transformer(mlp_fn=...)``), or
+    ``None`` when the mode (:func:`~tpudist_torch.parallel.overlap.
+    overlap_mode` of ``overlap``) resolves to off, the JAX function's
+    return for the dense path.
 
-    mode = overlap if overlap is not None else os.environ.get(
-        "TPUDIST_OVERLAP", "off")
-    if mode not in ("off", "ring", "bidir"):
-        raise ValueError(f"overlap mode must be off, ring or bidir, got "
-                         f"{mode!r}")
-    return mode
+    ``params`` are this rank's pieces of the block's FFN kernels in the
+    JAX layout, as the FSDP layout leaves them: ``wi [d, ff/n]`` (a column
+    shard) and ``wo [ff/n, d]`` (a contraction shard), over the ``n`` ranks
+    of ``mesh``'s ``axis_name`` axis; ``x [b, s, d]`` this rank's rows.
+    ``wi`` is gathered by columns into the first matmul (``ag_matmul``
+    ``gather='rhs'``: the same numbers as the whole matmul), ``wo`` by
+    contraction into the second (``'contract'``: one partial product a
+    hop), each hop a send/receive on the process group, so no all-gather of
+    either kernel runs.  The pieces' gradients come out of the hops'
+    backward already summed over the axis.  ``mlp_fn.pieces(wi, wo)`` cuts
+    this rank's pieces from whole kernels (the Block does so when its
+    weights are not sharded).  ``activation`` defaults to the Block's
+    tanh GELU."""
+    import torch.nn.functional as F
 
-
-def overlap_fsdp_mlp(*args, overlap: Optional[str] = None, **kwargs):
-    """The overlapped FSDP MLP: ``None`` when the mode resolves to off (the
-    JAX function's return for the dense path); ``ring``/``bidir`` are A6c's
-    collective matmuls."""
-    if overlap_mode(overlap) == "off":
+    mode = overlap_mode(overlap)
+    if mode == "off":
         return None
-    raise NotImplementedError(_A6C_OVERLAP)
+    ring = axis_ring(mesh, axis_name)
+    if isinstance(ring, LocalRing) and ring.size > 1:
+        raise ValueError(f"the overlapped FSDP MLP pipelines over the ranks "
+                         f"of an axis; the {axis_name!r} axis is one rank's "
+                         "devices")
+    act = activation if activation is not None else (
+        lambda t: F.gelu(t, approximate="tanh"))
+
+    def mlp_fn(params: dict, x: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        t = x.reshape(b * s, d)
+        h = act(ag_matmul(t, params["wi"], axis=ring, mode=mode,
+                          gather="rhs"))
+        y = ag_matmul(h, params["wo"], axis=ring, mode=mode,
+                      gather="contract")
+        return y.reshape(b, s, d).to(x.dtype)
+
+    def pieces(wi: torch.Tensor, wo: torch.Tensor):
+        n, i = ring.size, ring.indices[0]
+        return wi.chunk(n, 1)[i], wo.chunk(n, 0)[i]
+
+    mlp_fn.overlap, mlp_fn.axis_name = mode, axis_name
+    mlp_fn.ring, mlp_fn.pieces = ring, pieces
+    return mlp_fn

@@ -19,6 +19,12 @@ right: shard ``i``'s block goes to shard ``i + 1``.  Two rings implement it:
   plays the part of the JAX package's one-process virtual mesh; its peak
   memory is that of the whole sequence, not of a shard.
 
+The collective matmuls (:mod:`tpudist_torch.parallel.overlap`) move one
+tensor a place by any offset: :meth:`LocalRing.shift` rotates the list
+(onto each place's device, the ``model`` axis of a rank), and over a
+:class:`ProcessGroupRing` a hop posts :func:`_post_exchange` to the rank
+:meth:`ProcessGroupRing.rank_at` the offset and waits where it is used.
+
 Every rank of a ring posts its send and receive on every hop, also where
 its own compute on that hop is dead (a causal ring's early ranks): the
 bodies call ``hop`` unconditionally.  In the backward every hop must run
@@ -30,7 +36,7 @@ backwards runs everywhere, in the same order.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,33 +44,57 @@ import torch
 class LocalRing:
     """``size`` shards of the sequence on this process's one device;
     ``indices`` are their places on the ring (all of them), ``processes``
-    the number of ranks the ring spans (one)."""
+    the number of ranks the ring spans (one).  ``devices`` (one a place,
+    repeats allowed), when given, are where :meth:`shift` delivers each
+    place's tensor: the ``model`` axis's devices of a rank."""
 
     processes = 1
 
-    def __init__(self, size: int):
+    def __init__(self, size: int, devices: Optional[Sequence] = None):
         if size < 1:
             raise ValueError(f"ring size must be at least 1, got {size}")
+        if devices is not None and len(devices) != size:
+            raise ValueError(f"{len(devices)} devices for a ring of {size}")
         self.size = size
         self.indices = tuple(range(size))
+        self.devices = None if devices is None else tuple(
+            torch.device(d) for d in devices)
 
     def hop(self, ks: List[torch.Tensor], vs: List[torch.Tensor]):
         """Shard ``i`` receives shard ``i - 1``'s K and V."""
         return ks[-1:] + ks[:-1], vs[-1:] + vs[:-1]
 
+    def shift(self, ts: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
+        """Place ``i`` receives place ``i - shift``'s tensor (on its own
+        device when the ring has devices)."""
+        n = self.size
+        out = [ts[(i - shift) % n] for i in range(n)]
+        if self.devices is not None:
+            out = [t.to(d) for t, d in zip(out, self.devices)]
+        return out
+
     def finish(self, out: torch.Tensor, ks, vs) -> torch.Tensor:
         return out
 
 
-def _exchange(t: torch.Tensor, send_to: int, recv_from: int, group):
-    """Send ``t`` to global rank ``send_to`` and return what global rank
-    ``recv_from`` sent, both posted in one ``batch_isend_irecv``."""
+def _post_exchange(t: torch.Tensor, send_to: int, recv_from: int, group):
+    """Post the send of ``t`` to global rank ``send_to`` and the receive
+    from global rank ``recv_from`` in one ``batch_isend_irecv``; returns the
+    receive buffer and the requests, which must be waited on before it is
+    read (on NCCL the wait orders the current stream after the transfer)."""
     import torch.distributed as dist
 
     buf = torch.empty_like(t)
     ops = [dist.P2POp(dist.isend, t, send_to, group),
            dist.P2POp(dist.irecv, buf, recv_from, group)]
-    for req in dist.batch_isend_irecv(ops):
+    return buf, dist.batch_isend_irecv(ops)
+
+
+def _exchange(t: torch.Tensor, send_to: int, recv_from: int, group):
+    """Send ``t`` to global rank ``send_to`` and return what global rank
+    ``recv_from`` sent (:func:`_post_exchange`, waited on)."""
+    buf, reqs = _post_exchange(t, send_to, recv_from, group)
+    for req in reqs:
         req.wait()
     return buf
 
@@ -118,8 +148,12 @@ class ProcessGroupRing:
         self.index = index
         self.indices = (index,)
         self.processes = self.size
-        self.next_rank = self.ranks[(index + 1) % self.size]
-        self.prev_rank = self.ranks[(index - 1) % self.size]
+        self.next_rank = self.rank_at(1)
+        self.prev_rank = self.rank_at(-1)
+
+    def rank_at(self, offset: int) -> int:
+        """The global rank ``offset`` places along the ring from this one."""
+        return self.ranks[(self.index + offset) % self.size]
 
     def hop(self, ks, vs) -> Tuple[list, list]:
         k, v = _Hop.apply(ks[0].contiguous(), vs[0].contiguous(), self)

@@ -14,9 +14,12 @@ the gradient to every device), autograd functions of
 :func:`tpudist_torch.models.transformer.transformer_tp_sharding` with its
 :class:`~tpudist_torch.models.transformer.TPBlock`.
 
-The overlapped bodies (``tp_mlp_overlap_shard``, ``make_tp_mlp(overlap=
-'ring'|'bidir')``, the ``TPUDIST_OVERLAP`` knob) are A6c's collective
-matmuls and raise.
+:func:`tp_mlp_overlap_shard` is the pair with no monolithic collective:
+the batch arrives sharded over the model devices, the input gather is
+pipelined into the first matmul and the reduction is a pipelined
+reduce-scatter fused into the second (:mod:`tpudist_torch.parallel.
+overlap`), so the output comes back batch-sharded.  ``make_tp_mlp(overlap=
+'ring'|'bidir')`` (or the ``TPUDIST_OVERLAP`` knob) runs it.
 """
 
 from __future__ import annotations
@@ -26,16 +29,14 @@ from typing import Callable, Dict, List, Sequence
 import torch
 import torch.nn.functional as F
 
-from tpudist_torch.parallel.fsdp import overlap_mode
+from tpudist_torch.parallel.overlap import (ag_matmul, matmul_rs,
+                                            overlap_mode)
+from tpudist_torch.parallel.ring import LocalRing
 from tpudist_torch.runtime.mesh import AXIS_MODEL
 
 __all__ = ["column_spec", "init_mlp_params", "make_tp_mlp",
            "mlp_param_sharding", "row_spec", "shard_mlp_params",
            "tp_mlp_overlap_shard", "tp_mlp_shard"]
-
-_A6C_OVERLAP = ("the overlapped (collective-matmul) TP MLP is not ported "
-                "yet: ROADMAP queue A, item A6c (parallel/overlap.py)")
-
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation."""
@@ -99,9 +100,26 @@ def tp_mlp_shard(shards: Sequence[dict], x: torch.Tensor, *,
     return _SumShards.apply(x.device, *parts) + shards[0]["b2"].to(x.device)
 
 
-def tp_mlp_overlap_shard(*args, **kwargs):
-    """The collective-matmul body: A6c."""
-    raise NotImplementedError(_A6C_OVERLAP)
+def tp_mlp_overlap_shard(shards: Sequence[dict], xs: Sequence[torch.Tensor],
+                         *, activation: Callable = _gelu,
+                         mode: str = "ring") -> List[torch.Tensor]:
+    """The collective-matmul twin of :func:`tp_mlp_shard`: the same weight
+    shards (:func:`shard_mlp_params`), but ``xs`` are the model devices'
+    row chunks of the batch (``[batch/n, d]`` each, on its shard's device).
+    ``allgather(x)·w1`` is pipelined over a ring of the shards' devices
+    (:func:`~tpudist_torch.parallel.overlap.ag_matmul`, ``gather='lhs'``)
+    and the row-parallel sum is a pipelined reduce-scatter fused into
+    ``·w2`` (:func:`~tpudist_torch.parallel.overlap.matmul_rs`): each device
+    returns its own rows of the output, ``+ b2``.  The gather half gives
+    the same numbers as :func:`tp_mlp_shard`; the reduce-scatter sums the
+    partials in ring order."""
+    ring = LocalRing(len(shards), devices=[s["w1"].device for s in shards])
+    h = ag_matmul(list(xs), [s["w1"] for s in shards], axis=ring, mode=mode,
+                  gather="lhs")
+    h = [activation(hi + s["b1"]) for hi, s in zip(h, shards)]
+    out = matmul_rs(h, [s["w2"] for s in shards], axis=ring, mode=mode)
+    b2 = shards[0]["b2"]
+    return [o + b2.to(o.device) for o in out]
 
 
 def make_tp_mlp(mesh, *, axis_name: str = AXIS_MODEL, batch_axis=None,
@@ -110,10 +128,18 @@ def make_tp_mlp(mesh, *, axis_name: str = AXIS_MODEL, batch_axis=None,
     global view) cut over the mesh's model devices, ``x [batch, d]`` this
     rank's rows (its share of the ``data`` batch when ``batch_axis`` is
     ``'data'``: the process group splits the batch, nothing here does),
-    run through :func:`tp_mlp_shard`.  ``overlap`` other than ``None`` /
-    ``'off'`` (and the ``TPUDIST_OVERLAP`` knob) is A6c's."""
-    if overlap_mode(overlap) != "off":
-        raise NotImplementedError(_A6C_OVERLAP)
+    run through :func:`tp_mlp_shard`.  ``overlap`` (``None``: the
+    ``TPUDIST_OVERLAP`` knob, :func:`~tpudist_torch.parallel.overlap.
+    overlap_mode`) ``'ring'``/``'bidir'`` runs :func:`tp_mlp_overlap_shard`
+    instead: the batch (which must divide by the model axis) is cut into
+    one row chunk a device and the chunks' outputs joined on ``x``'s
+    device; ``batch_axis`` must then be ``None``, as in JAX (the model axis
+    carries the batch pipeline)."""
+    mode = overlap_mode(overlap)
+    if mode != "off" and batch_axis is not None:
+        raise ValueError(
+            "overlapped TP MLP pipelines the batch over the model axis; "
+            "batch_axis must be None")
     if batch_axis not in (None, "data"):
         raise ValueError(f"batch_axis must be None or 'data', got "
                          f"{batch_axis!r}")
@@ -124,8 +150,16 @@ def make_tp_mlp(mesh, *, axis_name: str = AXIS_MODEL, batch_axis=None,
                          f"{len(devices)} devices")
 
     def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-        return tp_mlp_shard(shard_mlp_params(params, devices), x,
-                            activation=activation)
+        shards = shard_mlp_params(params, devices)
+        if mode == "off":
+            return tp_mlp_shard(shards, x, activation=activation)
+        if x.shape[0] % len(devices):
+            raise ValueError(f"a batch of {x.shape[0]} rows does not divide "
+                             f"over a model axis of {len(devices)}")
+        xs = [c.to(d) for c, d in zip(x.chunk(len(devices)), devices)]
+        out = tp_mlp_overlap_shard(shards, xs, activation=activation,
+                                   mode=mode)
+        return torch.cat([o.to(x.device) for o in out])
 
     return mlp
 

@@ -16,7 +16,13 @@ Each parameter of the plan takes one of four forms:
   tensors, or views of them), refills it before its backward
   (:class:`_UnitFn`), and reduce-scatters their gradients to the shards
   after it; the root keeps its tensors for the head and reduce-scatters
-  once (:class:`_GatherFn`);
+  once (:class:`_GatherFn`).  A block whose FFN is the overlapped FSDP
+  MLP (``mlp_fn``, :func:`~tpudist_torch.parallel.overlap_fsdp_mlp`)
+  keeps its ``wi``/``wo`` out of the gather: the forward hands the block
+  this rank's pieces, which the ``mlp_fn``'s hop chains consume, and their
+  gradients come out of the chains' backward already summed over the
+  ``data`` group, so they are not reduce-scattered (the ``1/n`` of the
+  average below still applies);
 - ``zero1`` — the parameter replicated, its optimizer state sharded: the
   gradient is reduce-scattered to this rank's slice, the optimizer updates
   the slice, and one all-gather a step writes the updated slices back;
@@ -154,25 +160,45 @@ class _Unit:
 
     def __init__(self, runtime, names: List[str], dims: List[int],
                  shapes: List[tuple], shards: List[nn.Parameter],
-                 chains: List[tuple]):
+                 chains: List[tuple], local: List[bool]):
         self.runtime = runtime
         self.names, self.dims, self.shapes = names, dims, shapes
         self.shards, self.chains = shards, chains
+        #: indices of the shards gathered, and of those handed to the
+        #: block as this rank's pieces (the overlapped MLP's wi/wo)
+        self.gathered = [i for i, lc in enumerate(local) if not lc]
+        self.local = [i for i, lc in enumerate(local) if lc]
+
+    def cast(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """``t`` down shard ``i``'s chain of dtypes."""
+        for dt in self.chains[i]:
+            t = t.to(dt)
+        return t
+
+    def params(self, fulls, pieces) -> Dict[str, torch.Tensor]:
+        """``{name: tensor}`` of the gathered tensors ``fulls`` and the
+        local ``pieces`` (cast down their chains) for the block's call."""
+        out = dict(zip([self.names[i] for i in self.gathered], fulls))
+        out.update((self.names[i], self.cast(i, p))
+                   for i, p in zip(self.local, pieces))
+        return out
 
     def gather(self, shards, into: Optional[List[torch.Tensor]] = None):
+        """The whole tensors of the gathered shards (``self.gathered`` of
+        ``shards``), or refilled into ``into``."""
+        if not self.gathered:
+            return [] if into is None else into
         axis = self.runtime.data
         self.runtime.counts["gathers"] += 1
-        parts = []
-        for s, chain in zip(shards, self.chains):
-            t = s.detach()
-            for dt in chain:
-                t = t.to(dt)
-            parts.append(t.reshape(-1))
+        parts = [self.cast(i, shards[i].detach()).reshape(-1)
+                 for i in self.gathered]
         # one collective over the bytes, whatever the dtypes
-        rows = axis.all_gather(torch.cat([t.view(torch.uint8)
-                                          for t in parts]))
+        flat = torch.cat([t.view(torch.uint8) for t in parts])
+        self.runtime.counts["gather_bytes"] += flat.numel() * axis.size
+        rows = axis.all_gather(flat)
         fulls, off = [], 0
-        for i, (t, s, d) in enumerate(zip(parts, shards, self.dims)):
+        for i, (t, j) in enumerate(zip(parts, self.gathered)):
+            s, d = shards[j], self.dims[j]
             k = t.numel() * t.element_size()
             # a storage of its own, which free() can release
             full = _from_rows(rows[:, off:off + k].clone().view(t.dtype),
@@ -189,18 +215,23 @@ class _Unit:
         return fulls if into is None else into
 
     def reduce_scatter(self, grads) -> List[torch.Tensor]:
+        """The shards' gradients from those of the gathered tensors
+        (``self.gathered`` order)."""
+        if not self.gathered:
+            return []
         axis = self.runtime.data
         self.runtime.counts["reduce_scatters"] += 1
         down = []
-        for g, s, chain in zip(grads, self.shards, self.chains):
-            for dt in reversed(chain[:-1]):
+        for g, j in zip(grads, self.gathered):
+            for dt in reversed(self.chains[j][:-1]):
                 g = g.to(dt)
-            down.append(g.to(s.dtype))
-        stack = torch.cat([_stack_rows(g, d, axis.size)
-                           for g, d in zip(down, self.dims)], dim=1)
+            down.append(g.to(self.shards[j].dtype))
+        stack = torch.cat([_stack_rows(g, self.dims[j], axis.size)
+                           for g, j in zip(down, self.gathered)], dim=1)
         flat = axis.reduce_scatter(stack)
         out, off = [], 0
-        for s in self.shards:
+        for j in self.gathered:
+            s = self.shards[j]
             out.append(flat[off:off + s.numel()].view(s.shape))
             off += s.numel()
         return out
@@ -234,9 +265,12 @@ class _GatherFn(torch.autograd.Function):
 
 class _UnitFn(torch.autograd.Function):
     """One block under ZeRO-3: gather, run, free in the forward (the
-    block's own graph kept inside, over the gathered tensors); gather into
-    the same storage, back-propagate through that graph, reduce-scatter
-    and free in the backward."""
+    block's own graph kept inside, over the gathered tensors and the local
+    pieces); gather into the same storage, back-propagate through that
+    graph, reduce-scatter the gathered tensors' gradients and free in the
+    backward.  ``run(params, x) -> (y, extras)``: ``extras`` are tensors of
+    the inner graph the caller differentiates too (the MoE balance loss),
+    returned after ``y``."""
 
     @staticmethod
     def forward(ctx, unit, run, x, *shards):
@@ -245,26 +279,37 @@ class _UnitFn(torch.autograd.Function):
             f.requires_grad_(True)
         with torch.enable_grad():
             xin = x.detach().requires_grad_(x.requires_grad)
-            y = run(fulls, xin)
+            pieces = [shards[i].detach().requires_grad_(
+                shards[i].requires_grad) for i in unit.local]
+            y, extras = run(unit.params(fulls, pieces), xin)
         unit.free(fulls)
-        ctx.unit, ctx.fulls, ctx.xin, ctx.y = unit, fulls, xin, y
+        ctx.unit, ctx.fulls, ctx.pieces = unit, fulls, pieces
+        ctx.xin, ctx.y, ctx.extras = xin, y, list(extras)
         ctx.save_for_backward(*shards)
-        return y.detach()
+        return (y.detach(), *[e.detach() for e in extras])
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, *gextras):
         unit, fulls = ctx.unit, ctx.fulls
         unit.gather(ctx.saved_tensors, into=fulls)
-        torch.autograd.backward(ctx.y, gy)
-        grads = [torch.zeros(s, dtype=f.dtype, device=f.device)
+        pairs = [(e, g) for e, g in zip(ctx.extras, gextras)
+                 if g is not None and e.requires_grad]
+        torch.autograd.backward([ctx.y] + [e for e, _ in pairs],
+                                [gy] + [g for _, g in pairs])
+        grads = [torch.zeros(unit.shapes[j], dtype=f.dtype, device=f.device)
                  if f.grad is None else f.grad
-                 for f, s in zip(fulls, unit.shapes)]
-        out = unit.reduce_scatter(grads)
+                 for f, j in zip(fulls, unit.gathered)]
+        out = [None] * len(unit.shards)
+        for j, g in zip(unit.gathered, unit.reduce_scatter(grads)):
+            out[j] = g
+        # the local pieces' gradients are already summed over the group
+        for j, p in zip(unit.local, ctx.pieces):
+            out[j] = torch.zeros_like(p) if p.grad is None else p.grad
         for f in fulls:
             f.grad = None
         unit.free(fulls)
         gx = ctx.xin.grad
-        ctx.y = ctx.fulls = ctx.xin = None
+        ctx.y = ctx.fulls = ctx.xin = ctx.pieces = ctx.extras = None
         return (None, None, gx, *out)
 
 
@@ -286,7 +331,7 @@ class ShardedRuntime:
         mesh = layout.mesh
         self.model, self.layout, self.cast = model, layout, cast
         self.counts = {"gathers": 0, "reduce_scatters": 0, "all_reduces": 0,
-                       "all_gathers": 0}
+                       "all_gathers": 0, "gather_bytes": 0}
         self.data = _Axis(getattr(mesh, "data_group", None))
         ring = getattr(mesh, "ring", None)
         self.seq = (_Axis(ring.group) if isinstance(ring, ProcessGroupRing)
@@ -422,7 +467,8 @@ class ShardedRuntime:
                 continue
             module, rel = owner_of.get(id(p), (model, name))
             units.setdefault(id(module), [module]).append(
-                (rel, dim, tuple(p.shape), shard, self._chain(module, rel)))
+                (rel, dim, tuple(p.shape), shard, self._chain(module, rel),
+                 self._local(module, rel, dim)))
             p.data = p.data.new_empty(0)
         for module, *rows in units.values():
             unit = _Unit(self, *map(list, zip(*rows)))
@@ -433,6 +479,25 @@ class ShardedRuntime:
         if self._units and not hasattr(model, "block_fn"):
             raise ValueError("ZeRO-3 blocks need a model with a block_fn "
                              "seam (TransformerLM)")
+
+    def _local(self, module, name: str, dim: int) -> bool:
+        """Whether ZeRO-3 parameter ``name`` of ``module`` stays this
+        rank's piece in the forward: ``wi``/``wo`` of a block whose FFN is
+        the overlapped FSDP MLP, which must then split them along ``d_ff``
+        over this runtime's ``data`` group."""
+        fn = getattr(module, "mlp_fn", None)
+        if fn is None or name not in ("wi", "wo"):
+            return False
+        want = {"wi": 0, "wo": 1}[name]
+        if dim != want:
+            raise ValueError(f"the overlapped FSDP MLP takes {name} split "
+                             f"along d_ff (dimension {want} of the port's "
+                             f"weight), the layout splits dimension {dim}")
+        if fn.ring.size != self.data.size:
+            raise ValueError(f"the overlapped FSDP MLP's ring has "
+                             f"{fn.ring.size} places, the data group "
+                             f"{self.data.size}")
+        return True
 
     def _chain(self, module, name: str) -> tuple:
         """The dtypes parameter ``name`` of ``module`` passes through on
@@ -501,10 +566,12 @@ class ShardedRuntime:
             return (rematerialized(block, x, ctx, policy) if remat
                     else block(x, ctx))
 
-        def run(fulls, xin):
+        sow = getattr(block, "sow", None)
+        start = 0 if sow is None else len(sow)
+
+        def run(p, xin):
             from torch.func import functional_call
 
-            p = dict(zip(unit.names, fulls))
             if self.cast is not None:
                 for n, t in block.named_parameters():
                     if n not in p:
@@ -520,15 +587,24 @@ class ShardedRuntime:
 
                 cfn = _remat_context(policy)
                 kw = {} if cfn is None else {"context_fn": cfn}
-                return checkpoint(fn, xin, use_reentrant=False, **kw)
-            return fn(xin)
+                y = checkpoint(fn, xin, use_reentrant=False, **kw)
+            else:
+                y = fn(xin)
+            # the balance losses this forward sowed: differentiated
+            # through the block's inner graph
+            sown = [] if sow is None else sow[start:]
+            return y, [st.balance_loss for st in sown]
 
         if not torch.is_grad_enabled():
             fulls = unit.gather(unit.shards)
-            y = run(fulls, x)
+            y, _ = run(unit.params(fulls, [unit.shards[i].detach()
+                                           for i in unit.local]), x)
             unit.free(fulls)
             return y
-        return _UnitFn.apply(unit, run, x, *unit.shards)
+        y, *extras = _UnitFn.apply(unit, run, x, *unit.shards)
+        for i, bal in enumerate(extras):
+            sow[start + i] = sow[start + i]._replace(balance_loss=bal)
+        return y
 
     def zero_grad(self) -> None:
         for t in self.grad_tensors():

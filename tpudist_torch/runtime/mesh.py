@@ -20,8 +20,11 @@ group and the devices a process owns, the reference's own shape
   ProcessGroupRing`); in a job of one process the ``N`` shards fold onto
   the rank's one device (:class:`~tpudist_torch.parallel.LocalRing`), as
   ``model`` stages may repeat a device;
-- ``stage`` (pipeline parallelism), ``seq`` beside ``model`` and the
-  multi-slice mesh are not ported yet: ROADMAP queue A, item A6c.
+- ``seq`` beside ``model`` (3-D parallelism): ``data × seq`` over the
+  process group as above, ``model`` over the devices of each rank, in the
+  JAX axis order ``(data, seq, model)``;
+- ``stage`` (pipeline parallelism) and the multi-slice mesh are not ported
+  yet: ROADMAP queue A, items A6c (the pipeline slice) and A8.
 
 :class:`MeshConfig` is copied from the JAX package and pinned equal to it.
 A :class:`Mesh` is a plain record of the axes, this rank's coordinates on
@@ -46,7 +49,8 @@ AXIS_MODEL = "model"
 ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
 
 _NOT_PORTED = ("the {} is not ported yet (pipeline parallelism, "
-               "multi-slice meshes): ROADMAP queue A, item A6c")
+               "multi-slice meshes): ROADMAP queue A, item A6c's pipeline "
+               "slice, and A8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,9 +161,27 @@ def data_model_mesh(model_size: int = 2,
                 {AXIS_DATA: process_index()}, devs)
 
 
+def model_devices(model_size: int, device="cuda") -> Tuple[torch.device,
+                                                           ...]:
+    """This rank's devices for a ``model`` axis of ``model_size``: on CUDA
+    :func:`replica_devices` when the host has that many cards a local
+    rank, else the rank's own card ``model_size`` times (the places fold
+    onto it, each making its own launches); on the CPU the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        first = local_rank() * model_size
+        if first + model_size <= torch.cuda.device_count():
+            return replica_devices(local_rank(), model_size,
+                                   torch.cuda.device_count())
+        return (torch.device("cuda", local_rank()),) * model_size
+    return (device,) * model_size
+
+
 def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
-                  device="cuda") -> Mesh:
-    """The 2-D ``('data', 'seq')`` mesh of the long-context demo.  Over a
+                  device="cuda", model: int = 1) -> Mesh:
+    """The ``('data', 'seq')`` mesh of the long-context demo, or with
+    ``model > 1`` the 3-D ``('data', 'seq', 'model')`` one, ``model`` the
+    devices of each rank (``devices``, or :func:`_devices`).  Over a
     process group of ``W`` ranks (``W`` a multiple of ``seq``): ``data`` is
     ``W / seq`` rows, rank ``d·seq + s`` the ``s``-th place of row ``d``'s
     ring, each row's ranks one subgroup (``dist.new_group``, made by every
@@ -169,12 +191,13 @@ def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
 
     if seq < 1:
         raise ValueError(f"seq axis must be at least 1, got {seq}")
-    devs = _devices(1, devices, device)
+    devs = _devices(model, devices, device)
     world = process_count()
-    names = (AXIS_DATA, AXIS_SEQ)
+    names = (AXIS_DATA, AXIS_SEQ) + ((AXIS_MODEL,) if model > 1 else ())
+    extra = {AXIS_MODEL: model} if model > 1 else {}
     if world == 1:
-        return Mesh(names, {AXIS_DATA: 1, AXIS_SEQ: seq}, {AXIS_DATA: 0},
-                    devs, LocalRing(seq))
+        return Mesh(names, {AXIS_DATA: 1, AXIS_SEQ: seq, **extra},
+                    {AXIS_DATA: 0}, devs, LocalRing(seq))
     if world % seq:
         raise ValueError(f"a seq axis of {seq} does not divide the "
                          f"{world} ranks of the process group")
@@ -187,7 +210,7 @@ def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
             for s in range(seq)]
     d, s = divmod(rank, seq)
     ring = ProcessGroupRing(groups[d], range(d * seq, (d + 1) * seq), s)
-    return Mesh(names, {AXIS_DATA: rows, AXIS_SEQ: seq},
+    return Mesh(names, {AXIS_DATA: rows, AXIS_SEQ: seq, **extra},
                 {AXIS_DATA: d, AXIS_SEQ: s}, devs, ring, cols[s])
 
 
@@ -196,8 +219,7 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
     """A mesh from a :class:`MeshConfig` over this job's devices
     (``model`` a rank, ``data`` the process group, ``seq`` over the process
     group or folded onto a one-process job's device): the meshes above.
-    ``stage`` above 1, and ``seq`` beside ``model``, are not ported yet
-    (A6c)."""
+    ``stage`` above 1 is not ported yet (A6c's pipeline slice)."""
     config = config or MeshConfig()
     if config.stage != 1:
         raise NotImplementedError(_NOT_PORTED.format("stage axis"))
@@ -208,12 +230,10 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
         raise ValueError("the seq axis needs a size: it is the ring's "
                          "length")
     if config.seq != 1:
-        if config.model != 1:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "seq axis beside a model axis"))
         world = process_count()
-        config.resolve(world if world > 1 else config.seq)
-        return data_seq_mesh(config.seq, devices, device=device)
+        config.resolve((world if world > 1 else config.seq) * config.model)
+        return data_seq_mesh(config.seq, devices, device=device,
+                             model=config.model)
     config.resolve(process_count() * config.model)
     if config.model == 1:
         return data_parallel_mesh(devices, device=device)

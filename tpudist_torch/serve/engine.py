@@ -156,6 +156,11 @@ class SlotEngine:
                 "prefill_kernel=True (TPUDIST_SERVE_LORA_KERNEL)")
         if mesh is not None:
             raise _unported("mesh (the SPMD serving mesh)", "8")
+        if adapters and (getattr(model, "n_experts", 0) > 0
+                         or getattr(model, "mlp_fn", None) is not None):
+            raise ValueError(
+                "adapters wrap the plain qkv/wi/wo Dense path — they "
+                "cannot compose with an MoE FFN or an injected mlp_fn")
         self.device = resolve_device(device)
         model = model.to(self.device)
         self.model = model

@@ -25,8 +25,13 @@ runtime of :mod:`tpudist_torch.parallel.zero`, which carries the plan out
 around the same forward and backward: the reported loss and the update are
 replicated data parallelism's.  ``grad_reduce_dtype`` narrows the gradient
 mean to that dtype, as the JAX package's compressed step does (sum at the
-narrow dtype, divide, cast back to f32).  The MoE ``aux`` outputs and the
-scanned step belong to A6c's later slices (ROADMAP queue A).
+narrow dtype, divide, cast back to f32).
+
+``aux`` returns the MoE layers' routing statistics beside the loss
+(averaged over layers, as the JAX step's ``_collect_aux``), and
+``moe_balance_weight`` adds that multiple of their balance loss to the
+loss the step differentiates, never to the one it reports.
+:func:`make_scanned_lm_train_step` runs ``K`` steps a call.
 """
 
 from __future__ import annotations
@@ -36,9 +41,10 @@ from typing import Callable, Optional
 
 import torch
 
-from tpudist_torch.models.transformer import lm_loss
+from tpudist_torch.models.transformer import lm_loss, sown_stats
 
-_A6C = "ROADMAP queue A, item A6c (parallel/)"
+#: the MoE statistics ``aux`` returns, by the JAX step's names
+AUX_NAMES = ("moe_dropped_fraction", "moe_expert_load", "moe_balance_loss")
 
 
 def _global_mean(loss: torch.Tensor) -> torch.Tensor:
@@ -66,6 +72,16 @@ def _forward_loss(replica, batch, ctx, loss_fn):
     tokens, targets = _split(batch)
     logits = replica(tokens) if ctx is None else replica(tokens, ctx)
     return loss_fn(logits, targets)
+
+
+def _collect_aux(sown) -> dict:
+    """The JAX step's ``_collect_aux``: each statistic of the sown
+    :class:`~tpudist_torch.parallel.MoEStats` averaged over the layers
+    (empty when nothing was sown)."""
+    if not sown:
+        return {}
+    return {name: torch.stack([st[i] for st in sown]).mean(0)
+            for i, name in enumerate(AUX_NAMES)}
 
 
 def _compressed_mean_(params, dtype) -> None:
@@ -109,7 +125,8 @@ def make_lm_train_step(model: torch.nn.Module,
                        loss_fn: Callable = lm_loss,
                        wrap: Optional[Callable] = None, ctx=None,
                        grad_reduce_dtype=None, state_sharding=None,
-                       aux: bool = False) -> Callable:
+                       aux: bool = False,
+                       moe_balance_weight: float = 0.0) -> Callable:
     """``step(tokens [batch, seq]) -> loss``: forward, backward, one
     optimizer update (and one scheduler step) on this rank's rows.  With
     ``ctx`` (an attention context the model is called with, the ring's)
@@ -142,13 +159,19 @@ def make_lm_train_step(model: torch.nn.Module,
     only be a cast with a ``compute_dtype`` (the Trainer's ``BF16Apply``).
     ``grad_reduce_dtype`` (e.g. ``torch.bfloat16``) reduces the gradients
     at that dtype (:func:`_compressed_mean_`) with the JAX step's refusals.
-    ``aux`` raises (A6c)."""
+
+    ``aux`` makes the step return ``(loss, aux)``: ``aux`` holds the MoE
+    layers' ``moe_dropped_fraction``, ``moe_expert_load [n_experts]`` and
+    ``moe_balance_loss``, each a mean over the layers (detached; empty for
+    a model without MoE layers).  ``moe_balance_weight > 0`` adds that
+    multiple of the mean balance loss to the loss the backward runs from
+    (router load balancing trains also without ``aux``); the returned loss
+    stays the plain LM loss."""
     import torch.distributed as dist
 
-    _check_compressed(grad_reduce_dtype, state_sharding, aux, accum_steps,
-                      ctx)
-    if aux:
-        raise NotImplementedError(f"aux is not ported yet: {_A6C}")
+    need_inters = aux or moe_balance_weight > 0.0
+    _check_compressed(grad_reduce_dtype, state_sharding, need_inters,
+                      accum_steps, ctx)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     params = [p for p in model.parameters() if p.requires_grad]
@@ -176,29 +199,45 @@ def make_lm_train_step(model: torch.nn.Module,
                 replica, device_ids=ddp_device_ids(model))
     no_sync = getattr(replica, "no_sync", contextlib.nullcontext)
 
-    def step(tokens: torch.Tensor) -> torch.Tensor:
+    def run(batch):
+        """``(lm loss, aux)`` of one (micro)batch, its backward done."""
+        if not need_inters:
+            loss = _forward_loss(replica, batch, ctx, loss_fn)
+            loss.backward()
+            return loss.detach(), {}
+        with sown_stats(model) as sown:
+            loss = _forward_loss(replica, batch, ctx, loss_fn)
+        total = loss
+        if moe_balance_weight > 0.0 and sown:
+            total = total + moe_balance_weight * torch.stack(
+                [st.balance_loss for st in sown]).mean()
+        total.backward()
+        return loss.detach(), {k: v.detach()
+                               for k, v in _collect_aux(sown).items()}
+
+    def step(tokens: torch.Tensor):
         opt.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            loss = _forward_loss(replica, tokens, ctx, loss_fn)
-            loss.backward()
-            loss = loss.detach()
+            loss, collected = run(tokens)
         else:
             parts = _split(tokens)
             b = parts[0].shape[0]
             if b % accum_steps:
                 raise ValueError(
                     f"batch {b} must divide into {accum_steps} accum steps")
-            loss = 0.0
+            loss, collected = 0.0, {}
             chunks = list(zip(*(t.reshape(accum_steps, b // accum_steps,
                                           *t.shape[1:]) for t in parts)))
             for i, chunk in enumerate(chunks):
                 last = i == accum_steps - 1
                 with (contextlib.nullcontext() if last else no_sync()):
-                    part = _forward_loss(replica, chunk, ctx, loss_fn)
-                    part.backward()
-                loss = loss + part.detach()
+                    part, got = run(chunk)
+                loss = loss + part
+                collected = {k: collected.get(k, 0.0) + v
+                             for k, v in got.items()}
             scale = 1.0 / accum_steps
             loss = loss * scale
+            collected = {k: v * scale for k, v in collected.items()}
             for p in params:
                 if p.grad is not None:
                     p.grad.mul_(scale)
@@ -207,10 +246,61 @@ def make_lm_train_step(model: torch.nn.Module,
         opt.step()
         if scheduler is not None:
             scheduler.step()
+        if aux:
+            return _global_mean(loss), collected
         return _global_mean(loss)
 
     step.replica, step.runtime, step.optimizer = replica, runtime, opt
     return step
+
+
+def fsdp_overlap_mlp_fn(mesh, *, axis_name: str = "data",
+                        overlap: Optional[str] = None):
+    """The ``TPUDIST_OVERLAP``-driven overlapped FSDP MLP for
+    ``create_transformer(mlp_fn=...)`` (or ``model.mlp_fn = ...``), or
+    ``None`` when off (:func:`tpudist_torch.parallel.overlap_fsdp_mlp`).
+    Under ``make_lm_train_step(state_sharding=fsdp_sharding(mesh, ...))``
+    the runtime then hands each block its ``wi``/``wo`` pieces instead of
+    gathering them."""
+    from tpudist_torch.parallel.fsdp import overlap_fsdp_mlp
+
+    return overlap_fsdp_mlp(mesh, axis_name=axis_name, overlap=overlap)
+
+
+def chunk_token_sharding(mesh) -> tuple:
+    """The spec of a ``[K, batch, seq]`` token window: the iteration axis
+    whole, the batch over ``data`` and the tokens over ``seq`` where the
+    mesh has them (each rank steps on its rows and its shard of them)."""
+    names = getattr(mesh, "axis_names", ())
+    return (None, "data" if "data" in names else None,
+            "seq" if "seq" in names else None)
+
+
+def make_scanned_lm_train_step(model: torch.nn.Module,
+                               optimizer: torch.optim.Optimizer, *,
+                               loss_fn: Callable = lm_loss, scheduler=None,
+                               ctx=None, state_sharding=None,
+                               wrap: Optional[Callable] = None) -> Callable:
+    """``chunk_step(tokens [K, batch, seq]) -> losses (K,)``: ``K``
+    optimizer steps a call, one a window row, with the per-step losses
+    kept (the JAX ``make_scanned_lm_train_step``, whose ``lax.scan``
+    amortises dispatch; here the steps run one after another on the
+    device queue, and the losses are the ``K`` plain steps' bit for bit).
+    A ``(tokens, targets)`` pair of ``[K, ...]`` windows goes with ``ctx``
+    (the ring's).  The plain step's extras (MoE aux, accumulation, the
+    compressed reduce) are out of scope, as in JAX."""
+    step = make_lm_train_step(model, optimizer, scheduler=scheduler,
+                              loss_fn=loss_fn, wrap=wrap, ctx=ctx,
+                              state_sharding=state_sharding)
+
+    def chunk_step(tokens_chunk) -> torch.Tensor:
+        rows = (list(zip(*tokens_chunk)) if isinstance(
+            tokens_chunk, (tuple, list)) else list(tokens_chunk))
+        return torch.stack([step(r) for r in rows])
+
+    chunk_step.replica, chunk_step.runtime = step.replica, step.runtime
+    chunk_step.optimizer = step.optimizer
+    return chunk_step
 
 
 def make_lm_eval_step(model: torch.nn.Module, *,
