@@ -272,10 +272,21 @@ order; any failure exits non-zero:
    kernels at the TP shard's shape held against their plain versions and
    timed beside their bound and SDPA; ``--fsdp --seq_shards 4`` against
    ``--seq_shards 4`` at seq 8192 for 5 steps, within ``SHARD_RTOL``.
+19. expert parallelism, the collective matmuls, 3-D parallelism and the
+   scanned step (:func:`expert_3d_path`).
+20. pipeline parallelism (:func:`pipeline_path`): world 1 over NCCL,
+   ``demo_pipeline``'s build at phase 7's model with 4 stages folded onto
+   the card, 10 steps on phase 7's batches under GPipe (M 4), 1F1B (M 4)
+   and interleaved 1F1B (V 2, M 8): losses within ``TP_RTOL`` of phase 7's
+   and of each other, the flash launches a step of ``PP_LAUNCHES``, all
+   wgmma; step ms, tokens/s, MFU and peak memory printed; 1F1B again at
+   batch 16, M 8, its peak held against GPipe's and its M-4 peak; the
+   flash kernels at the microbatches' shapes (b 2 and b 1) held and timed;
+   the Trainer's ``pp`` (``demo_trainer --strategy pp``) as a subprocess.
 
 It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path; the
-flash kernels also their phase 17 launches and hop-shape times) and
+flash kernels also their phase 17-20 launches and shape times) and
 the ``nvidia-smi`` line before the last line, which is the contract line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
@@ -657,6 +668,30 @@ OVERLAP_SHAPE, OVERLAP_MODELS, OVERLAP_BOUND = (16384, 1024, 4096), (2, 4), \
 THREE_D_HOP = ("3-D hop (TP shard)", 2, 8 // TP_SHARDS, 8 // TP_SHARDS,
                2048, DH, "bf16", (None, None))
 SCAN_K = 4
+# phase 20: pipeline parallelism at phase 7's model and batches through
+# demo_pipeline's build at --stages PP_STAGES folded onto the card, world
+# 1 over NCCL, PP_STEPS steps a run: (schedule, microbatches, chunks) of
+# PP_RUNS, each step's loss within TP_RTOL of phase 7's unpipelined step
+# and of the other schedules', the flash launches a step of PP_LAUNCHES
+# ((forward, dq, dk/dv); a dead unit launches nothing, 1F1B recomputes
+# each forward in its backward), all on the wgmma arms; then 1F1B at batch
+# PP_BIG_BATCH with M 8 (the micro stays 2) for memory; the kernels at the
+# microbatches' shapes; the Trainer's pp as a subprocess
+PP_STAGES, PP_STEPS, PP_BIG_BATCH = 4, 10, 16
+PP_RUNS = (("gpipe", 4, 1), ("1f1b", 4, 1), ("interleaved", 8, 2))
+PP_LAUNCHES = {"gpipe": (32, 32, 32), "1f1b": (64, 32, 32),
+               "interleaved": (128, 64, 64)}
+PP_FLASH_CASES = (("pipeline micro b 2", 2, 8, 8, 2048, DH, "bf16",
+                   (0, None)),
+                  ("pipeline micro b 1", 1, 8, 8, 2048, DH, "bf16",
+                   (0, None)))
+# the slack of the memory gate: 1F1B's peak at M 8 may exceed its M-4 peak
+# by the batch-sized buffers it holds plus this share of the M-4 peak
+PP_MEM_SLACK = 0.10
+PP_TRAINER_ARGS = ["--strategy", "pp", "--stages", "2", "--pp_schedule",
+                   "1f1b", "--dry_run", "--seed", "0", "--total_iterations",
+                   "30", "--batch_size", "8"]
+PP_TRAINER_LAST_MAX = 3.0
 
 
 def log(msg: str) -> None:
@@ -5210,6 +5245,199 @@ def expert_3d_path(torch, card: str, ring_losses) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 20: pipeline parallelism
+
+
+def pipeline_args(schedule: str, micro: int, chunks: int, batch: int = 8):
+    """``demo_pipeline``'s arguments at phase 7's geometry (``TRAIN_ARGS``)
+    for one schedule."""
+    from tpudist_torch.examples import demo_pipeline as demo
+
+    argv = TRAIN_ARGS + ["--stages", str(PP_STAGES), "--schedule", schedule,
+                         "--chunks", str(chunks), "--microbatches",
+                         str(micro), "--total_iterations", str(PP_STEPS),
+                         "--max_len", "2048"]
+    argv[argv.index("--batch_size") + 1] = str(batch)
+    return demo.get_args(argv)
+
+
+def pipeline_run(torch, schedule: str, micro: int, chunks: int,
+                 batch: int = 8) -> dict:
+    """``PP_STEPS`` steps of ``demo_pipeline``'s build (the stages folded
+    onto the card) on phase 7's seeded batches, every count zeroed just
+    before: :func:`train_readings`, the flash launches a step and, at batch
+    8, one more step under the profiler (:func:`device_profile`)."""
+    from tpudist_torch import ops
+    from tpudist_torch.examples import demo_pipeline as demo
+    from tpudist_torch.runtime.mesh import MeshConfig, make_mesh
+
+    args = pipeline_args(schedule, micro, chunks, batch)
+    held = memory_held(torch)
+    mesh = make_mesh(MeshConfig(data=-1, stage=PP_STAGES),
+                     device=torch.device("cuda"))
+    model, step, next_batch = demo.build(args, mesh)
+    batches = [torch.from_numpy(next_batch()).cuda()
+               for _ in range(PP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times, _ = timed_steps(torch, step, batches, aux=False)
+    label = (f"{schedule} M {micro}" + (f" V {chunks}" if chunks > 1 else "")
+             + (f" batch {batch}" if batch != 8 else ""))
+    res = train_readings(torch, args, held, losses, times, label, PP_STEPS,
+                         schedule=schedule, microbatches=micro,
+                         chunks=chunks, batch=batch, mesh=dict(mesh.shape))
+    res["launches_per_step"] = {n: v // PP_STEPS
+                                for n, v in res["launches"].items()}
+    if batch == 8:
+        # one more step under the profiler, after the counts were read
+        res["profile"] = device_profile(torch, lambda: step(batches[-1]),
+                                        lambda: None)
+    del model, step, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def log_pipeline_run(r: dict, card: str, base) -> None:
+    gap = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], base))
+    log(f"phase 20 {r['label']} (phase 7's model, {PP_STAGES} stages folded "
+        f"onto the card, world 1, {r['steps']} steps): step p50 "
+        f"{r['step_ms_p50']:.2f} ms = {r['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{r['mfu']:.4f} (utils/flops.py's dense formula: 1F1B's recompute "
+        f"is not counted), peak memory {r['peak_mem_gb']:.3f} GB above the "
+        f"{r['held_gb']:.3f} GB held before the run ({card}); flash "
+        f"launches a step {r['launches_per_step']}, on the wgmma arms "
+        f"{ {n: v // r['steps'] for n, v in r['launches_wgmma'].items()} }; "
+        f"losses vs phase 7 max rel {gap:.2e}; losses "
+        f"{[round(x, 4) for x in r['losses']]}")
+
+
+def pipeline_trainer() -> dict:
+    """(d) ``demo_trainer`` with ``PP_TRAINER_ARGS`` (the Trainer's ``pp``
+    on the LM module, fp32) as a subprocess under the torchrun contract at
+    world 1 (NCCL): its last ``loss/lm`` under ``PP_TRAINER_LAST_MAX``."""
+    out, wall, rows = run_module("tpudist_torch.examples.demo_trainer",
+                                 PP_TRAINER_ARGS, torchrun_env())
+    rows = rows["demo_trainer"]
+    res = dict(wall_s=wall, rows=len(rows), first=rows[0]["loss/lm"],
+               last=rows[-1]["loss/lm"])
+    if "final losses" not in out or not res["last"] < PP_TRAINER_LAST_MAX:
+        raise AssertionError(f"phase 20 (d): demo_trainer --strategy pp "
+                             f"did not train: {res}; {out[-2000:]}")
+    return res
+
+
+def pipeline_path(torch, card: str, phase7_losses) -> dict:
+    """Phase 20: (a) GPipe at M 4, 1F1B at M 4 and interleaved at V 2, M 8
+    (``PP_RUNS``) through ``demo_pipeline``'s build at phase 7's model,
+    ``PP_STEPS`` steps each on phase 7's batches: the flash launches a step
+    of ``PP_LAUNCHES``, all wgmma; each step's loss within ``TP_RTOL`` of
+    phase 7's (``phase7_losses``) and of the other schedules'; (b) 1F1B at
+    batch ``PP_BIG_BATCH``, M 8: 1F1B's peak at batch 8 below GPipe's, and
+    its peak at M 8 at most its M-4 peak plus the batch-sized buffers it
+    holds (the embedded batch and the dx bank, reckoned here in f32) plus
+    ``PP_MEM_SLACK`` of the M-4 peak; (c) the flash kernels at the
+    microbatches' shapes (``PP_FLASH_CASES``) against their plain versions
+    and timed beside their bound and SDPA; (d) :func:`pipeline_trainer`.
+    World 1 under the torchrun contract (NCCL)."""
+    from tpudist_torch.runtime import initialize, shutdown
+
+    t0 = time.perf_counter()
+    env = torchrun_env()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize(device=torch.device("cuda"))
+        runs = {sch: pipeline_run(torch, sch, m, v) for sch, m, v in PP_RUNS}
+        runs["1f1b_big"] = pipeline_run(torch, "1f1b", 8, 1, PP_BIG_BATCH)
+        gen = torch.Generator(device="cuda").manual_seed(2020)
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        shapes = {}
+        for case in PP_FLASH_CASES:
+            readings = flash_case_readings(torch, gen, case)
+            if not (readings["ok"] and readings["arm"] == "wgmma"
+                    and readings["fwd_arm"] == "wgmma"):
+                raise AssertionError(f"phase 20 (c) {case[0]}: the flash "
+                                     f"kernels disagree with their plain "
+                                     f"versions: {readings}")
+            shapes[case[0]] = dict(readings=readings, kernels=(
+                flash_head_dim_timings(torch, gen, flush, case[:6])))
+        del flush
+        torch.cuda.empty_cache()
+    finally:
+        shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    trainer = pipeline_trainer()
+    base = phase7_losses[:PP_STEPS]
+    for r in runs.values():
+        if r["batch"] == 8:
+            log_pipeline_run(r, card, base)
+    log_profile({f"phase 20 {sch} step": runs[sch]["profile"]
+                 for sch, _, _ in PP_RUNS})
+    gaps = {}
+    for sch, _, _ in PP_RUNS:
+        r = runs[sch]
+        want = dict(zip(TRAIN_KERNELS, (n * PP_STEPS
+                                        for n in PP_LAUNCHES[sch])))
+        if r["launches"] != want or r["launches_wgmma"] != want:
+            raise AssertionError(f"phase 20 (a) {sch}: flash launches "
+                                 f"{r['launches']} (wgmma "
+                                 f"{r['launches_wgmma']}), not {want}")
+        gaps[sch] = max(abs(a - b) / abs(b)
+                        for a, b in zip(r["losses"], base))
+        if gaps[sch] > TP_RTOL:
+            raise AssertionError(f"phase 20 (a) {sch}: the losses leave "
+                                 f"phase 7's by {gaps[sch]:.2e} > {TP_RTOL}")
+    cross = max(abs(a - b) / abs(b)
+                for x, _, _ in PP_RUNS for y, _, _ in PP_RUNS
+                for a, b in zip(runs[x]["losses"], runs[y]["losses"]))
+    log(f"phase 20 (a) losses against phase 7's unpipelined step, max rel "
+        f"{gaps}; between the schedules {cross:.2e} (bound {TP_RTOL})")
+    if cross > TP_RTOL:
+        raise AssertionError(f"phase 20 (a): the schedules' losses leave "
+                             f"each other by {cross:.2e}")
+    big, small, gp = runs["1f1b_big"], runs["1f1b"], runs["gpipe"]
+    args = pipeline_args("1f1b", 4, 1)
+    extra_rows = PP_BIG_BATCH - 8
+    # the embedded batch and the dx bank: [rows, seq, d] each, in f32
+    buffers = 2 * extra_rows * args.seq_len * args.d_model * 4 / 1e9
+    allowed = small["peak_mem_gb"] + buffers + PP_MEM_SLACK * small[
+        "peak_mem_gb"]
+    mem = dict(gpipe_gb=gp["peak_mem_gb"], f1b_m4_gb=small["peak_mem_gb"],
+               f1b_m8_gb=big["peak_mem_gb"], buffers_gb=buffers,
+               allowed_gb=allowed, big_step_ms_p50=big["step_ms_p50"])
+    log(f"phase 20 (b) memory above what was held ({card}): GPipe M 4 "
+        f"{gp['peak_mem_gb']:.3f} GB, 1F1B M 4 {small['peak_mem_gb']:.3f} "
+        f"GB, 1F1B batch {PP_BIG_BATCH} M 8 {big['peak_mem_gb']:.3f} GB "
+        f"(allowed {allowed:.3f} GB = the M-4 peak + {buffers:.3f} GB of "
+        f"batch-sized buffers, the embedded batch and the dx bank in f32, + "
+        f"{PP_MEM_SLACK:.0%}); its step p50 {big['step_ms_p50']:.2f} ms, "
+        f"losses {[round(x, 4) for x in big['losses']]}; one card folds "
+        f"every stage, so the pipeline bubble is not measurable here")
+    if not small["peak_mem_gb"] < gp["peak_mem_gb"]:
+        raise AssertionError(f"phase 20 (b): 1F1B peaks at "
+                             f"{small['peak_mem_gb']:.3f} GB, not below "
+                             f"GPipe's {gp['peak_mem_gb']:.3f}")
+    if big["peak_mem_gb"] > allowed:
+        raise AssertionError(f"phase 20 (b): 1F1B at M 8 peaks at "
+                             f"{big['peak_mem_gb']:.3f} GB > {allowed:.3f}")
+    log(f"phase 20 (d) demo_trainer {' '.join(PP_TRAINER_ARGS)} (world 1 "
+        f"under the torchrun contract, NCCL, fp32): {trainer['rows']} rows "
+        f"in {trainer['wall_s']:.1f} s of process wall ({card}); loss/lm "
+        f"{trainer['first']:.4f} -> {trainer['last']:.4f} (bound "
+        f"{PP_TRAINER_LAST_MAX})")
+    res = dict(runs=runs, gaps=gaps, cross=cross, memory=mem,
+               shapes=shapes, trainer=trainer,
+               wall_s=time.perf_counter() - t0)
+    log(f"phase 20 wall: {res['wall_s']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phases 10-11: the toy demo.py path and the toy benches
 
 
@@ -6023,6 +6251,7 @@ def main(argv=None) -> int:
     seq = seq_parallel_path(torch, card)
     shard = sharded_path(torch, card)
     moe = expert_3d_path(torch, card, seq["bf16"]["ring"]["losses"])
+    pipe = pipeline_path(torch, card, train["losses"])
 
     kernels = []
     launches = dict(main_path["launches"])
@@ -6135,6 +6364,18 @@ def main(argv=None) -> int:
                                  library_ms=t["library_ms"],
                                  bound_ms=t["bound"][0],
                                  bound_by=t["bound"][1]))
+            # phase 20: each schedule's launches (10 steps at phase 7's
+            # model, the stages folded onto the card) and the kernel at
+            # the microbatches' shapes
+            kernels[-1]["phase20"] = dict(
+                launches={run: int(r["launches"][name])
+                          for run, r in pipe["runs"].items()},
+                shapes={c: dict(ms=sh["kernels"][name]["ms"],
+                                plain_ms=sh["kernels"][name]["plain_ms"],
+                                library_ms=sh["kernels"][name]["library_ms"],
+                                bound_ms=sh["kernels"][name]["bound"][0],
+                                bound_by=sh["kernels"][name]["bound"][1])
+                        for c, sh in pipe["shapes"].items()})
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -6170,7 +6411,7 @@ def main(argv=None) -> int:
                   split=split, mpi=mpi, trainer=trainer,
                   lm_entry=dict(subprocess=lm_sub, in_process=lm_in),
                   public_widths=public, seq_parallel=seq,
-                  sharded=shard, moe_overlap_3d=moe,
+                  sharded=shard, moe_overlap_3d=moe, pipeline=pipe,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

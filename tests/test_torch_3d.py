@@ -3,8 +3,8 @@ the Megatron block, ``tpudist_torch.examples.demo_3d_parallel``) and the
 scanned LM step, against the JAX package on the CPU.
 
 - ``make_mesh`` with ``seq`` and ``model`` both above 1: the axes in the
-  JAX order ``(data, seq, model)``, the ring, the model devices; ``stage``
-  still raises naming A6c.
+  JAX order ``(data, seq, model)``, the ring, the model devices; with
+  ``stage`` beside them, ``(data, stage, seq, model)``.
 - ``demo_3d_parallel --seq_shards 2 --model_shards 2`` in one process (a
   LocalRing of 2, the model axis folded onto the CPU) against the JAX demo
   in process on the suite's 8-device mesh (data 2 × seq 2 × model 2),
@@ -61,8 +61,11 @@ def test_mesh_with_seq_beside_model():
     assert isinstance(m.ring, LocalRing) and m.ring.size == 4
     with pytest.raises(ValueError, match="does not cover"):
         make_mesh(MeshConfig(data=2, seq=4, model=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        make_mesh(MeshConfig(stage=2, seq=2, model=2), device="cpu")
+    # a stage axis beside them (A6c's last slice): the full JAX order
+    m = make_mesh(MeshConfig(stage=2, seq=2, model=2), device="cpu")
+    assert m.axis_names == ("data", "stage", "seq", "model")
+    assert m.shape == {"data": 1, "stage": 2, "seq": 2, "model": 2}
+    assert m.stages.size == 2 and m.ring.size == 2
 
 
 def _carried(jax_params):

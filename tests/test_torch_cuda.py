@@ -1813,3 +1813,70 @@ def test_ring_under_tp_on_the_card(cuda):
     assert counts[True] == {n: 2 * per for n in counts[True]}
     assert abs(losses[True] - losses[False]) / abs(losses[False]) <= \
         FOLDED_TP_LOSS_RTOL
+
+
+# the folded pipeline against the unpipelined step: bf16 products at the
+# microbatch's rows where the unpipelined step has the whole batch's
+PIPELINE_LOSS_RTOL = 2e-4
+
+
+@pytest.mark.parametrize("case", ["pipeline micro b 2", "pipeline micro b 1"])
+def test_flash_at_the_pipeline_micro_shapes(cuda, case):
+    """The flash kernels at phase 20's microbatch shapes (phase 7's
+    attention at 2 and 1 rows: h 8, s 2048, dh 128, bf16, causal) against
+    their plain versions (``chip_smoke.flash_case_readings``), on the
+    wgmma arms."""
+    from chip_smoke import PP_FLASH_CASES, flash_case_readings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    r = flash_case_readings(torch, gen, dict(
+        (c[0], c) for c in PP_FLASH_CASES)[case])
+    assert r["ok"] and r["arm"] == r["fwd_arm"] == "wgmma", r
+
+
+@pytest.mark.parametrize("schedule,micro,chunks", [
+    ("gpipe", 4, 1), ("1f1b", 4, 1), ("interleaved", 8, 2)])
+def test_folded_pipeline_equals_unpipelined_on_the_card(cuda, schedule,
+                                                        micro, chunks):
+    """A bf16-over-f32 model of 8 layers at dh 64 with 4 stages folded onto
+    the card, two steps of each schedule against the unpipelined step from
+    the same weights on the same batches: the losses within
+    ``PIPELINE_LOSS_RTOL``; the flash launches of phase 20's table (a dead
+    unit launches nothing; 1F1B recomputes each forward), all wgmma."""
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.parallel import make_pp_lm_train_step
+    from tpudist_torch.runtime.mesh import MeshConfig, make_mesh
+    from tpudist_torch.train import build_optimizer, make_lm_train_step
+
+    geom = dict(vocab=64, d_model=256, n_layers=8, n_heads=4, d_ff=512,
+                max_len=256)
+    rng = np.random.default_rng(2)
+    batches = [torch.from_numpy(rng.integers(0, 64, (8, 256)).astype(
+        np.int32)).to(cuda) for _ in range(2)]
+    losses, counts = {}, {}
+    for kind in ("plain", schedule):
+        model = create_transformer(0, device=cuda, dtype=torch.bfloat16,
+                                   param_dtype=torch.float32, trainable=True,
+                                   **geom)
+        opt, _ = build_optimizer(model.parameters(), 1e-3)
+        if kind == "plain":
+            step = make_lm_train_step(model, opt)
+        else:
+            step = make_pp_lm_train_step(
+                make_mesh(MeshConfig(stage=4), device=cuda), model, opt,
+                n_stages=4, num_microbatches=micro, schedule=schedule,
+                n_chunks=chunks)
+        reset_launch_counts()
+        losses[kind] = [float(step(t)) for t in batches]
+        counts[kind] = {n: launch_counts()[n] for n in (
+            "flash_forward", "flash_backward_dq", "flash_backward_dkv")}
+        wgmma = flash_forward.launches_wgmma
+    L, M = geom["n_layers"], micro
+    fwd = L * M * (1 if schedule == "gpipe" else 2)
+    assert counts[schedule] == {"flash_forward": 2 * fwd,
+                                "flash_backward_dq": 2 * L * M,
+                                "flash_backward_dkv": 2 * L * M}
+    assert wgmma == counts[schedule]["flash_forward"]
+    np.testing.assert_allclose(losses[schedule], losses["plain"],
+                               rtol=PIPELINE_LOSS_RTOL)

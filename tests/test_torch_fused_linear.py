@@ -54,6 +54,11 @@ from tpudist_torch.ops.fused_linear import (LORA_DECODE_ROWS,
 
 QKV_TOL = dict(atol=1e-6, rtol=1e-6)
 LORA_TOL = dict(atol=2e-6, rtol=2e-6)
+#: the gathered delta's bound across the arms, in f32 ulps at the output's
+#: scale (``eps · max|want|``): the port and the interpreted kernel each
+#: land within 2 of the float64 value of the same inputs (measured: 0.9
+#: and 0.5), so they differ by at most 4 (measured: 1.5)
+LORA_SCALE_ULPS = 4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -296,7 +301,9 @@ def test_lora_delta_rows_across_the_arms_match_jax(T):
     """The decode step (T 1), the speculative verify (T 5), the cluster
     arm's last T (8) and the first T past it (9): the port's CPU path
     against the interpreted Pallas kernel and the JAX reference, as the arm
-    the CUDA wrapper would take for that T."""
+    the CUDA wrapper would take for that T, within ``LORA_SCALE_ULPS`` f32
+    ulps at the output's scale (outputs reach 20-50 here, where one ulp is
+    2-4e-6: an absolute bound of 2e-6 sat at one ulp)."""
     r = np.random.default_rng(20 + T)
     S, L, B, rank, d_in, d_out = 3, 2, 5, 2, 32, 12  # LORA_TOL's shapes
     h = r.normal(size=(S, T, d_in)).astype(np.float32)
@@ -306,11 +313,14 @@ def test_lora_delta_rows_across_the_arms_match_jax(T):
     assert _lora_arm(T) == ("cluster" if T <= 8 else "staged")
     out = lora_delta(_t(h), _t(pa), _t(pb), _t(ids), layer=1)
     assert out.shape == (S, T, d_out)
+    eps = np.finfo(np.float32).eps
     for ref in (jax_lora_delta(*map(jnp.asarray, (h, pa, pb, ids)),
                                layer=1, interpret=True),
                 jax_lora_delta_reference(*map(jnp.asarray,
                                               (h, pa, pb, ids)), layer=1)):
-        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **LORA_TOL)
+        want = np.asarray(ref)
+        assert np.abs(out.numpy() - want).max() <= (
+            LORA_SCALE_ULPS * eps * np.abs(want).max())
 
 
 def test_lora_arm_by_rows():

@@ -100,9 +100,22 @@ def test_meshes_on_the_cpu():
                                     MeshConfig(stage=2, seq=2),
                                     MeshConfig(stage=-1, data=1)])
 def test_unported_axes_raise(config):
-    with pytest.raises(NotImplementedError, match="A6c"):
-        make_mesh(config, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6c"):
+    """The ``stage`` axis is ported (A6c's last slice): in one process the
+    stages fold onto the device (``stage=-1`` absorbs the one rank there);
+    the hybrid mesh still raises, naming A8."""
+    m = make_mesh(config, device="cpu")
+    stage = max(config.stage, 1)
+    if stage > 1:
+        assert m.axis_names[:2] == ("data", "stage")
+        assert m.shape["stage"] == stage and m.stages.size == stage
+        assert m.stages.processes == 1
+        assert m.stages.devices == (torch.device("cpu"),) * stage
+        if config.seq > 1:
+            assert m.axis_names == ("data", "stage", "seq")
+            assert m.ring.size == config.seq
+    else:
+        assert m == make_mesh(device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
         make_hybrid_mesh(config)
 
 

@@ -252,8 +252,12 @@ def test_dense_model_aux_is_empty_and_refusals():
     with pytest.raises(ValueError, match="MoE"):
         SlotEngine(moe, adapters=True, paged=False, device="cpu")
     opt, _ = build_optimizer(moe.parameters(), LR)
-    with pytest.raises(NotImplementedError, match="A6c"):
-        transformer_tp_sharding({"model": 2}, moe, opt)
+    # the Megatron layout of an MoE model is ported (A6c's last slice):
+    # the expert stacks split on the expert axis, the router replicated
+    layout = transformer_tp_sharding({"model": 2}, moe, opt)
+    assert layout.leaves["blocks.0.moe.w"].split() == (0, "model")
+    assert layout.leaves["blocks.0.moe.wo"].split() == (0, "model")
+    assert layout.leaves["blocks.0.moe.router"].split()[1] is None
     for argv, msg in ((["--moe_experts", "2", "--seq_shards", "2"],
                        "dp, not sp"),
                       (["--moe_experts", "2", "--moe_topk", "3"],

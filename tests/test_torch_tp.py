@@ -17,6 +17,9 @@ on the CPU), the JAX side a ``model`` mesh of the suite's virtual devices.
   bounds).  Each shard attends over its own ``h/M`` heads.
 - TP x FSDP at data 2 x model 2 over gloo (``tests/torch_fsdp_worker.py``)
   against JAX's ``merge_shardings`` step on a data 2 x model 2 mesh.
+- TP of a block with an MoE FFN (dense reference, and ``make_moe`` over
+  the model devices) and with an injected ``mlp_fn`` at model 2: three
+  Adam steps against JAX's ``transformer_tp_sharding`` step.
 - The refusals: kv heads that do not divide, the serving arms, the ring
   beside the model axis.
 """
@@ -207,6 +210,87 @@ def test_tp_transformer_equals_jax(monkeypatch, m, n_kv):
     got = {f"w/{k}": v.detach().numpy()
            for k, v in step.runtime.model_view.state_dict().items()}
     _hold_changes(got, want, start, 1e-3)
+
+
+TP_FFN_CASES = ["moe_dense", "moe_fn", "mlp_fn"]
+
+
+def _tp_ffn_models(case, mesh):
+    """The JAX module and the port's model of ``case`` at model 2 (data 1
+    in JAX's ``mesh``): two experts a block without and with a
+    ``moe_fn`` (``make_moe`` over the model devices, top-1), or the
+    overlapped FSDP MLP injected as ``mlp_fn``."""
+    from tpudist.models.transformer import moe_expert_fn as jax_expert_fn
+    from tpudist.parallel import make_moe as jax_make_moe
+    from tpudist.train.lm import fsdp_overlap_mlp_fn as jax_mlp_fn
+    from tpudist_torch.models import moe_expert_fn
+    from tpudist_torch.parallel import make_moe
+    from tpudist_torch.train.lm import fsdp_overlap_mlp_fn
+
+    cfg = dict(GEOM, n_experts=2) if case.startswith("moe") else dict(GEOM)
+    pmesh = data_model_mesh(2, device="cpu")
+    jfn = pfn = None
+    if case == "moe_fn":
+        jfn = jax_make_moe(mesh, jax_expert_fn, k=1)
+        pfn = make_moe(pmesh, moe_expert_fn, k=1)
+    elif case == "mlp_fn":
+        jfn = jax_mlp_fn(mesh, overlap="ring")
+        pfn = fsdp_overlap_mlp_fn(pmesh, overlap="ring")
+    key = "moe_fn" if case == "moe_fn" else "mlp_fn"
+    module, params = jax_create(jax.random.PRNGKey(0), seq_len=32,
+                                **{**cfg, key: jfn})
+    model = TransformerLM(param_dtype=torch.float32, **cfg)
+    model.load_state_dict(params_from_flax(jax.device_get(params)))
+    setattr(model, key, pfn)
+    return module, params, model.requires_grad_(True), pmesh
+
+
+@pytest.mark.parametrize("case", TP_FFN_CASES)
+def test_tp_moe_and_mlp_fn_equal_jax(case):
+    """TP of a block with an MoE FFN (the expert stacks split on their
+    expert axis over ``model``, the router replicated; the dense reference
+    or ``make_moe`` over the same model devices) and of a block with an
+    injected ``mlp_fn`` (JAX runs it: the partitioner feeds the
+    ``mlp_fn`` its own layout), at model 2: three Adam steps under
+    ``transformer_tp_sharding`` against JAX's (losses ``rtol 1e-5``,
+    changes ``1e-3``)."""
+    mesh = _mesh((1, 2), ("data", "model"))
+    module, params, model, pmesh = _tp_ffn_models(case, mesh)
+    start = {k: v.detach().numpy().copy()
+             for k, v in model.state_dict().items()}
+    tx = optax.adam(LR)
+    state = init_lm_state(params, tx)
+    sharding = jax_tp(mesh, state)
+    state = jax.device_put(state, sharding)
+    if case.startswith("moe"):
+        w = sharding.params["params"]["block_0"]["moe"]
+        assert tuple(w["w"].spec) == ("model",)
+        assert tuple(w["router"].spec) == ()
+    jstep = jax_step(module.apply, tx, mesh, donate_state=False,
+                     state_sharding=sharding)
+    opt, _ = build_optimizer(model.parameters(), LR)
+    layout = transformer_tp_sharding(pmesh, model, opt)
+    step = make_lm_train_step(model, opt, state_sharding=layout)
+    assert all(isinstance(b, TPBlock) for b in model.blocks)
+    if case.startswith("moe"):
+        assert layout.leaves["blocks.0.moe.w"].split() == (0, "model")
+        assert [p.shape[0] for p in model.blocks[0].pieces("moe.w")] == \
+            [1, 1]
+    rng = np.random.default_rng(8)
+    for _ in range(STEPS):
+        t = rng.integers(0, 32, size=(8, 32)).astype(np.int32)
+        state, jloss = jstep(state, jnp.asarray(t))
+        np.testing.assert_allclose(float(step(torch.from_numpy(t).long())),
+                                   float(jloss), rtol=1e-5)
+    want = {k: v.numpy() for k, v in params_from_flax(
+        jax.device_get(state.params)).items()}
+    got = {f"w/{k}": v.detach().numpy()
+           for k, v in step.runtime.model_view.state_dict().items()}
+    _hold_changes(got, want, start, 1e-3)
+    # the replicated block of the same weights, from the TP block
+    blk = model.blocks[0].to_block()
+    for k, v in model.blocks[0].state_dict().items():
+        assert torch.equal(blk.state_dict()[k], v), k
 
 
 def test_tp_refusals():

@@ -10,8 +10,10 @@ precision 32, ``demo_pytorch_lightning.py:48,50,58``) is the default;
 JAX demo's; ``--strategy fsdp|zero1|pp`` trains the LM module
 (:class:`ChainLMModule` on :class:`ChainLoader`'s increment chains) under
 the sharded layouts — ZeRO-3 and ZeRO-1 over the ``data`` axis
-(:mod:`tpudist_torch.parallel.zero`) — or pipelined, which raises: ROADMAP
-A6c.  The LM module also trains under ``Trainer(strategy='dp')``.
+(:mod:`tpudist_torch.parallel.zero`) — or pipelined over ``--stages``
+stages with ``--pp_schedule`` (:mod:`tpudist_torch.parallel.pipeline_lm`;
+fp32 only, as in JAX).  The LM module also trains under
+``Trainer(strategy='dp')``.
 
   python -m tpudist_torch.examples.demo_trainer --dry_run
 

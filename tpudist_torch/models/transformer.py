@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -691,30 +691,41 @@ class TPBlock(nn.Module):
     was made from).  The training arm only: the serving arms (decode,
     prefill, fused RoPE, adapters) keep the replicated block.
 
+    A block with the routed :class:`MoEFFN` splits its expert stacks
+    ``moe.w``/``moe.wo`` on the expert axis, ``E/M`` experts a shard, the
+    router replicated (the JAX layout, ``tpudist/models/transformer.py:
+    815-818``): with a ``moe_fn`` (:func:`tpudist_torch.parallel.make_moe`
+    over the same model devices) each expert's rows run on the device that
+    holds it; without one, each shard computes the dense reference over its
+    experts and the partial outputs are summed.  A block with an injected
+    ``mlp_fn`` keeps ``wi``/``wo`` split as a dense block's and hands the
+    ``mlp_fn`` the whole kernels put together from the shards (what JAX's
+    partitioner does to feed the ``mlp_fn``'s own layout).
+
     Under a ring (:class:`RingCausal`) each shard's attention runs the
     ring over its own heads (whole GQA groups): every live hop makes one
     forward, dq and dk/dv flash launch a shard (3-D parallelism).
 
     The state dict holds the whole tensors under the block's own keys
-    (``qkv``, ``proj``, ``wi``, ``wo``), assembled from the shards and cut
-    into them on load.  ``SPLIT`` is the one statement of which dimension
+    (``qkv``, ``proj``, ``wi``, ``wo``, ``moe.*``), assembled from the
+    shards and cut into them on load.  ``SPLIT`` (a dense block) and
+    ``MOE_SPLIT`` (an MoE block) are the one statement of which dimension
     each weight splits along: :func:`transformer_tp_sharding` and the
-    runtime read it."""
+    runtime read them."""
 
     SPLIT = {"qkv": 0, "proj": 1, "wi": 0, "wo": 1}
+    MOE_SPLIT = {"qkv": 0, "proj": 1, "moe.w": 0, "moe.wo": 0}
+    sow = None  # as Block's: a list receives the MoE layer's statistics
 
     def __init__(self, block: Block, devices):
         super().__init__()
-        if block.n_experts > 0 or block.mlp_fn is not None:
-            raise NotImplementedError(
-                "tensor parallelism of a block with an MoE FFN or an "
-                "injected mlp_fn is not ported yet: ROADMAP queue A, item "
-                "A6c")
         devices = tuple(torch.device(d) for d in devices)
         m = len(devices)
         h, kv = block.n_heads, block.n_kv
-        d_ff = block.wi.shape[0]
-        for what, n in (("n_heads", h), ("n_kv_heads", kv), ("d_ff", d_ff)):
+        moe = block.n_experts > 0
+        width = ("n_experts", block.n_experts) if moe else (
+            "d_ff", block.wi.shape[0])
+        for what, n in (("n_heads", h), ("n_kv_heads", kv), width):
             if n % m:
                 raise ValueError(f"{what} {n} does not divide over a model "
                                  f"axis of {m}")
@@ -722,17 +733,32 @@ class TPBlock(nn.Module):
         self.d_model, self.n_heads, self.n_kv = block.d_model, h, kv
         self.dh, self.layer_idx, self.dtype = block.dh, block.layer_idx, \
             block.dtype
+        self.d_ff, self.n_experts = block.d_ff, block.n_experts
+        self.mlp_fn = block.mlp_fn
         self.ln1, self.ln2 = block.ln1, block.ln2
-        self._idx = {"qkv": self._qkv_rows(), "wi": self._even(d_ff),
-                     "proj": self._even(h * self.dh),
-                     "wo": self._even(d_ff)}
-        for name in self.SPLIT:
-            whole = getattr(block, name).detach()
-            for i, part in enumerate(self.slice(name, whole,
+        self.split = self.MOE_SPLIT if moe else self.SPLIT
+        self._idx = {"qkv": self._qkv_rows(),
+                     "proj": self._even(h * self.dh)}
+        if moe:
+            self.moe_fn = block.moe.moe_fn
+            self.moe = nn.Module()  # the replicated router, at "moe.router"
+            self.moe.router = block.moe.router
+            self._idx.update({"moe.w": self._even(block.n_experts),
+                              "moe.wo": self._even(block.n_experts)})
+        else:
+            self._idx.update({"wi": self._even(block.d_ff),
+                              "wo": self._even(block.d_ff)})
+        for name in self.split:
+            param = block.get_parameter(name)
+            for i, part in enumerate(self.slice(name, param.detach(),
                                                 self.split_dim(name))):
-                setattr(self, f"{name}_s{i}", nn.Parameter(
+                setattr(self, self._piece(name, i), nn.Parameter(
                     part.to(devices[i]).clone(),
-                    requires_grad=getattr(block, name).requires_grad))
+                    requires_grad=param.requires_grad))
+
+    @staticmethod
+    def _piece(name: str, i: int) -> str:
+        return f"{name.replace('.', '_')}_s{i}"
 
     def _even(self, n: int):
         k = n // self.m
@@ -750,14 +776,21 @@ class TPBlock(nn.Module):
         return out
 
     @classmethod
+    def split_of(cls, block: nn.Module) -> Dict[str, int]:
+        """``{weight: dimension}`` of the weights the model axis splits in
+        ``block`` (a :class:`Block` or a :class:`TPBlock`)."""
+        return cls.MOE_SPLIT if getattr(block, "n_experts", 0) > 0 \
+            else cls.SPLIT
+
+    @classmethod
     def split_dim(cls, name: str) -> int:
         """The dimension of the ``[out, in]`` weight the shards split
-        (``SPLIT``): rows of ``qkv`` and ``wi``, columns of ``proj`` and
-        ``wo``."""
-        return cls.SPLIT[name]
+        (``SPLIT``, ``MOE_SPLIT``): rows of ``qkv`` and ``wi``, columns of
+        ``proj`` and ``wo``, the expert axis of the MoE stacks."""
+        return {**cls.SPLIT, **cls.MOE_SPLIT}[name]
 
     def pieces(self, name: str) -> List[nn.Parameter]:
-        return [getattr(self, f"{name}_s{i}") for i in range(self.m)]
+        return [getattr(self, self._piece(name, i)) for i in range(self.m)]
 
     def slice(self, name: str, whole: torch.Tensor, dim: int):
         """The shards' parts of ``whole``, a tensor that runs along weight
@@ -775,11 +808,14 @@ class TPBlock(nn.Module):
             out.index_copy_(dim, ix.to(dev), p.detach().to(dev))
         return out
 
+    def _replicated(self) -> Tuple[str, ...]:
+        return ("ln1", "ln2") + (("moe.router",) if self.n_experts else ())
+
     def _save_to_state_dict(self, destination, prefix, keep_vars):
-        for name in ("ln1", "ln2"):
-            t = getattr(self, name)
+        for name in self._replicated():
+            t = self.get_parameter(name)
             destination[prefix + name] = t if keep_vars else t.detach()
-        for name in self.SPLIT:
+        for name in self.split:
             destination[prefix + name] = self.assemble(
                 name, self.pieces(name), self.split_dim(name))
 
@@ -787,14 +823,14 @@ class TPBlock(nn.Module):
                               strict, missing_keys, unexpected_keys,
                               error_msgs):
         with torch.no_grad():
-            for name in ("ln1", "ln2", "qkv", "proj", "wi", "wo"):
+            for name in self._replicated() + tuple(self.split):
                 key = prefix + name
                 if key not in state_dict:
                     missing_keys.append(key)
                     continue
                 whole = state_dict[key]
-                if name in ("ln1", "ln2"):
-                    getattr(self, name).copy_(whole)
+                if name in self._replicated():
+                    self.get_parameter(name).copy_(whole)
                     continue
                 for p, part in zip(self.pieces(name), self.slice(
                         name, whole, self.split_dim(name))):
@@ -803,20 +839,59 @@ class TPBlock(nn.Module):
     def to_block(self) -> Block:
         """The replicated :class:`Block` of the same weights (on the first
         shard's device)."""
-        blk = Block.__new__(Block)
-        nn.Module.__init__(blk)
-        blk.d_model, blk.n_heads, blk.n_kv = self.d_model, self.n_heads, \
-            self.n_kv
-        blk.dh, blk.layer_idx, blk.dtype = self.dh, self.layer_idx, self.dtype
-        blk.d_ff, blk.n_experts, blk.mlp_fn, blk.sow = \
-            self.pieces("wi")[0].shape[0] * self.m, 0, None, None
+        blk = Block(self.d_model, self.n_heads, self.d_ff, self.n_kv,
+                    self.layer_idx, self.dtype, self.pieces("qkv")[0].dtype,
+                    n_experts=self.n_experts,
+                    moe_fn=getattr(self, "moe_fn", None),
+                    mlp_fn=self.mlp_fn).to(self.devices[0])
         blk.ln1, blk.ln2 = self.ln1, self.ln2
-        for name in self.SPLIT:
+        if self.n_experts:
+            blk.moe.router = self.moe.router
+        for name in self.split:
             p0 = self.pieces(name)[0]
-            setattr(blk, name, nn.Parameter(
+            owner, leaf = (blk.moe, name[4:]) if name.startswith("moe.") \
+                else (blk, name)
+            setattr(owner, leaf, nn.Parameter(
                 self.assemble(name, self.pieces(name), self.split_dim(name)),
                 requires_grad=p0.requires_grad))
         return blk
+
+    def _whole(self, name: str, device) -> torch.Tensor:
+        """Weight ``name`` put together from the shards on ``device``,
+        differentiably (the shards split it into contiguous runs)."""
+        return torch.cat([p.to(device) for p in self.pieces(name)],
+                         self.split_dim(name))
+
+    def _moe(self, h: torch.Tensor) -> torch.Tensor:
+        b, s, d = h.shape
+        dt = self.dtype
+        tokens = h.reshape(b * s, d).to(dt)
+        router = self.moe.router.to(dt)
+        if self.moe_fn is not None:
+            # one expert's weights a tensor, each on the shard holding it
+            experts = {name[4:]: [e.to(dt) for p in self.pieces(name)
+                                  for e in p.unbind(0)]
+                       for name in ("moe.w", "moe.wo")}
+            y, stats = self.moe_fn({"router": router, "experts": experts},
+                                   tokens)
+            if stats is not None and self.sow is not None:
+                self.sow.append(stats)
+            return y.reshape(b, s, d)
+        # the dense reference, decomposed over the shards' experts
+        probs = torch.softmax((tokens @ router).float(), dim=-1)
+        idx = probs.argmax(dim=-1)
+        gate = probs.gather(-1, idx[:, None])[:, 0]
+        pick = F.one_hot(idx, probs.shape[-1]).to(dt) * gate.to(dt)[:, None]
+        k = self.n_experts // self.m
+        parts = []
+        for i, (dev, w, wo) in enumerate(zip(
+                self.devices, self.pieces("moe.w"), self.pieces("moe.wo"))):
+            t = tokens.to(dev)
+            hh = torch.relu(torch.einsum("td,edf->tef", t, w.to(dt)))
+            y_all = torch.einsum("tef,efd->ted", hh, wo.to(dt))
+            parts.append(torch.einsum("ted,te->td", y_all,
+                                      pick[:, i * k:(i + 1) * k].to(dev)))
+        return _SumShards.apply(h.device, *parts).reshape(b, s, d)
 
     def forward(self, x: torch.Tensor, ctx) -> torch.Tensor:
         if not isinstance(ctx, _Causal):
@@ -844,6 +919,14 @@ class TPBlock(nn.Module):
             attn = attn.transpose(1, 2).reshape(b, s, hq * dh)
             parts.append(F.linear(attn.to(dtype), pw.to(dtype)))
         x = x + _SumShards.apply(x.device, *parts)
+        if self.n_experts:
+            return x + self._moe(layer_norm(x, self.ln2))
+        if self.mlp_fn is not None:
+            h = layer_norm(x, self.ln2).to(dtype)
+            wi = self._whole("wi", x.device).to(dtype).t()
+            wo = self._whole("wo", x.device).to(dtype).t()
+            wi, wo = self.mlp_fn.pieces(wi, wo)
+            return x + self.mlp_fn({"wi": wi, "wo": wo}, h)
         hs = _CopyToShards.apply(self.devices,
                                  layer_norm(x, self.ln2).to(dtype))
         parts = [F.linear(F.gelu(F.linear(h, wi.to(dtype)),
@@ -859,8 +942,9 @@ def transformer_tp_sharding(mesh, model: nn.Module, optimizer=None, *,
     its optimizer's state): per block ``qkv`` and ``wi`` column-split,
     ``proj`` and ``wo`` row-split on the JAX-shaped ``[in, out]`` view —
     the port's ``[out, in]`` weights split along :attr:`TPBlock.SPLIT`'s
-    dimension — embeddings, norms and head replicated: the JAX package's
-    path rules.  An optimizer slot follows its parameter's rule unless it
+    dimension — the MoE expert stacks split on their expert axis with the
+    router replicated, embeddings, norms and head replicated: the JAX
+    package's path rules.  An optimizer slot follows its parameter's rule unless it
     has fewer than two dimensions (counters, Adafactor's factored
     statistics and placeholders), as JAX's ``ndim`` check.  ``mesh`` is the port's mesh or
     a ``{axis: size}`` dict; :mod:`tpudist_torch.parallel.zero` carries it
@@ -868,20 +952,19 @@ def transformer_tp_sharding(mesh, model: nn.Module, optimizer=None, *,
     from tpudist_torch.parallel.fsdp import (Leaf, make_layout,
                                              optimizer_leaves, param_leaves)
 
-    if getattr(model, "n_experts", 0) > 0:
-        raise NotImplementedError(
-            "the Megatron layout of an MoE model (expert stacks split over "
-            "the model axis) is not ported yet: ROADMAP queue A, item A6c")
     leaves = param_leaves(model)
     if optimizer is not None:
         leaves.update(optimizer_leaves(model, optimizer))
     out = {}
     for key, (shape, transposed, itemsize) in leaves.items():
         spec = [None] * len(shape)
-        hit = [w for w in key.replace("/", ".").split(".")
-               if w in TPBlock.SPLIT]
+        words = key.replace("/", ".").split(".")
+        hit = [f"moe.{w}" for a, w in zip(words, words[1:])
+               if a == "moe" and f"moe.{w}" in TPBlock.MOE_SPLIT]
+        if "moe" not in words:
+            hit = [w for w in words if w in TPBlock.SPLIT]
         if hit and len(shape) >= 2:
-            spec[TPBlock.SPLIT[hit[0]]] = axis_name
+            spec[TPBlock.split_dim(hit[0])] = axis_name
         out[key] = Leaf(shape, transposed, itemsize, tuple(spec))
     return make_layout(out, mesh)
 
@@ -978,14 +1061,8 @@ class TransformerLM(nn.Module):
         """``tokens [batch, seq]`` → logits ``[batch, seq, vocab]`` in the
         compute dtype.  ``ctx`` selects the attention arm (module doc)."""
         if ctx is None:
-            ctx = _Causal(self.rope, self.sliding_window)
-        b, s = tokens.shape
-        x = F.embedding(tokens.long(), self.tok_embed).to(self.dtype)
-        if not self.rope:
-            # padded chunk rows and idle lanes may sit past the table; their
-            # outputs are never read, so clamping keeps them finite
-            pos = ctx.positions(b, s, tokens.device).clamp(0, self.max_len - 1)
-            x = x + F.embedding(pos, self.pos_embed).to(self.dtype)
+            ctx = self.train_context()
+        x = self.embed(tokens, ctx)
         remat = self.remat and isinstance(ctx, _Causal) and \
             torch.is_grad_enabled()
         run = getattr(self, "block_fn", None)
@@ -995,8 +1072,36 @@ class TransformerLM(nn.Module):
             else:
                 x = (rematerialized(block, x, ctx, self.remat_policy)
                      if remat else block(x, ctx))
-        x = layer_norm(x, self.ln_f)
-        return F.linear(x.to(self.dtype), self.head.to(self.dtype))
+        return self.logits(x)
+
+    def train_context(self) -> "_Causal":
+        """The training arm's attention context: causal at positions
+        ``0..T-1``, with the model's RoPE and sliding window."""
+        return _Causal(self.rope, self.sliding_window)
+
+    def embed(self, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
+        """The token (+ position) embedding of ``tokens [batch, seq]`` in
+        the compute dtype: the forward's first step (the pipeline's stage-0
+        input)."""
+        ctx = self.train_context() if ctx is None else ctx
+        b, s = tokens.shape
+        x = F.embedding(tokens.long(), self.tok_embed).to(self.dtype)
+        if not self.rope:
+            # padded chunk rows and idle lanes may sit past the table; their
+            # outputs are never read, so clamping keeps them finite
+            pos = ctx.positions(b, s, tokens.device).clamp(0, self.max_len - 1)
+            x = x + F.embedding(pos, self.pos_embed).to(self.dtype)
+        return x
+
+    def logits(self, x: torch.Tensor, ln_f: Optional[torch.Tensor] = None,
+               head: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The final norm and the vocabulary head of the last block's
+        output: the forward's last step.  ``ln_f``/``head`` stand in for
+        the model's own (the pipeline's head differentiates them apart)."""
+        ln_f = self.ln_f if ln_f is None else ln_f
+        head = self.head if head is None else head
+        x = layer_norm(x, ln_f)
+        return F.linear(x.to(self.dtype), head.to(self.dtype))
 
 
 # what a rematerialized block's backward may keep besides its input, as the

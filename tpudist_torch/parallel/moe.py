@@ -118,9 +118,11 @@ def moe_shard(params: dict, x: torch.Tensor, *, expert_fn: ExpertFn,
               capacity_factor: float = 1.25,
               devices: Optional[Sequence] = None, k: int = 1):
     """The MoE layer over this rank's ``x [tokens, d]``: ``params =
-    {'router': [d, E], 'experts': {leaves with a leading expert axis}}``,
-    expert ``e`` run on ``devices[e]`` (default: ``x``'s device).  Returns
-    ``(y [tokens, d], MoEStats)``."""
+    {'router': [d, E], 'experts': {leaves with a leading expert axis}}``
+    (or a leaf as the list of its ``E`` experts' tensors, each where it
+    lives: the tensor-parallel block's expert shards), expert ``e`` run on
+    ``devices[e]`` (default: ``x``'s device).  Returns ``(y [tokens, d],
+    MoEStats)``."""
     n_experts = params["router"].shape[1]
     devices = ([x.device] * n_experts if devices is None
                else [torch.device(d) for d in devices])
@@ -139,7 +141,7 @@ def moe_shard(params: dict, x: torch.Tensor, *, expert_fn: ExpertFn,
     # where indexing each expert would add a zero-filled gradient of the
     # whole stack per expert
     rows = buf[:n_experts * capacity].view(n_experts, capacity, d).unbind(0)
-    stacks = {name: leaf.unbind(0)
+    stacks = {name: leaf.unbind(0) if torch.is_tensor(leaf) else leaf
               for name, leaf in params["experts"].items()}
     outs = []
     for e, dev in enumerate(devices):

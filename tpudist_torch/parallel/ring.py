@@ -77,17 +77,25 @@ class LocalRing:
         return out
 
 
-def _post_exchange(t: torch.Tensor, send_to: int, recv_from: int, group):
+def _post_exchange(t: Optional[torch.Tensor], send_to: Optional[int],
+                   recv_from: Optional[int], group,
+                   like: Optional[torch.Tensor] = None):
     """Post the send of ``t`` to global rank ``send_to`` and the receive
     from global rank ``recv_from`` in one ``batch_isend_irecv``; returns the
     receive buffer and the requests, which must be waited on before it is
-    read (on NCCL the wait orders the current stream after the transfer)."""
+    read (on NCCL the wait orders the current stream after the transfer).
+    Either side may be ``None`` (a one-way hop: the pipeline's, whose
+    chain has ends; ``like`` then gives the receive buffer's shape and
+    dtype); the buffer is ``None`` without a receive."""
     import torch.distributed as dist
 
-    buf = torch.empty_like(t)
-    ops = [dist.P2POp(dist.isend, t, send_to, group),
-           dist.P2POp(dist.irecv, buf, recv_from, group)]
-    return buf, dist.batch_isend_irecv(ops)
+    ops, buf = [], None
+    if send_to is not None:
+        ops.append(dist.P2POp(dist.isend, t, send_to, group))
+    if recv_from is not None:
+        buf = torch.empty_like(t if like is None else like)
+        ops.append(dist.P2POp(dist.irecv, buf, recv_from, group))
+    return buf, (dist.batch_isend_irecv(ops) if ops else [])
 
 
 def _exchange(t: torch.Tensor, send_to: int, recv_from: int, group):

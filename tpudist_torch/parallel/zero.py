@@ -410,8 +410,8 @@ class ShardedRuntime:
         name_of = {id(p): n for n, p in self.model.named_parameters()}
         blocks, placed = getattr(self.model, "blocks", ()), set()
         for i, blk in enumerate(blocks):
-            names = {w: name_of.get(id(getattr(blk, w, None)))
-                     for w in TPBlock.SPLIT}
+            names = {w: name_of.get(id(blk.get_parameter(w)))
+                     for w in TPBlock.split_of(blk)}
             tp = [self.modes.get(n, ("", None))[0] == "tp"
                   for n in names.values()]
             if not any(tp):
@@ -420,15 +420,17 @@ class ShardedRuntime:
                                   for w, n in names.items()):
                 raise ValueError(f"block {i}: the model axis splits all of "
                                  "qkv and wi by rows and proj and wo by "
-                                 "columns (TPBlock.SPLIT), or none")
+                                 "columns (TPBlock.SPLIT; an MoE block's "
+                                 "expert stacks by experts, MOE_SPLIT), or "
+                                 "none")
             placed.update(names.values())
             blocks[i] = TPBlock(blk, devices)
         stray = [n for n, (m, _) in self.modes.items()
                  if m == "tp" and n not in placed]
         if stray:
             raise ValueError(f"{stray}: the model axis splits a block's qkv, "
-                             "proj, wi and wo (transformer_tp_sharding), "
-                             "nothing else")
+                             "proj, wi and wo or expert stacks "
+                             "(transformer_tp_sharding), nothing else")
 
     def _build(self, model) -> None:
         data = self.data
@@ -440,8 +442,9 @@ class ShardedRuntime:
         for name in self._order:
             mode, dim = self.modes[name]
             if mode == "tp":
-                blk, leaf = name.rsplit(".", 1)
-                tpb = model.get_submodule(blk)
+                parts = name.split(".")
+                tpb = model.get_submodule(".".join(parts[:2]))
+                leaf = ".".join(parts[2:])
                 pieces = tpb.pieces(leaf)
                 for t in pieces:
                     t._tpudist_leaf = LeafShard(self._shapes[name],

@@ -23,8 +23,16 @@ group and the devices a process owns, the reference's own shape
 - ``seq`` beside ``model`` (3-D parallelism): ``data × seq`` over the
   process group as above, ``model`` over the devices of each rank, in the
   JAX axis order ``(data, seq, model)``;
-- ``stage`` (pipeline parallelism) and the multi-slice mesh are not ported
-  yet: ROADMAP queue A, items A6c (the pipeline slice) and A8.
+- ``stage`` (pipeline parallelism, :mod:`tpudist_torch.parallel.
+  pipeline`): over a process group the ranks lay out in the JAX axis order
+  ``(data, stage, seq, model)`` — rank ``(d·S + s)·N + q`` for data row
+  ``d``, stage ``s`` of ``S`` and seq place ``q`` of ``N``, ``model`` the
+  devices of each rank — and the ``S`` ranks of each ``(d, q)`` form one
+  stage subgroup, the pipeline's chain (a :class:`~tpudist_torch.parallel.
+  ProcessGroupRing`); in a job of one process the ``S`` stages fold onto
+  the rank's device (a :class:`~tpudist_torch.parallel.LocalRing`), as the
+  ``seq`` shards do;
+- the multi-slice mesh is not ported yet: ROADMAP queue A, item A8.
 
 :class:`MeshConfig` is copied from the JAX package and pinned equal to it.
 A :class:`Mesh` is a plain record of the axes, this rank's coordinates on
@@ -48,9 +56,8 @@ AXIS_SEQ = "seq"
 AXIS_MODEL = "model"
 ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
 
-_NOT_PORTED = ("the {} is not ported yet (pipeline parallelism, "
-               "multi-slice meshes): ROADMAP queue A, item A6c's pipeline "
-               "slice, and A8")
+_NOT_PORTED = ("the {} is not ported yet (multi-slice meshes): ROADMAP "
+               "queue A, item A8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,12 +95,13 @@ class MeshConfig:
 class Mesh:
     """The axes of a run as one rank sees them: ``shape`` maps each axis
     name to its size, ``coords`` holds this rank's place on the ``data``
-    axis (the process group) and, when its ring spans ranks, on ``seq``;
-    ``devices`` are the devices of this rank's model replica, one a
-    ``model`` coordinate (repeats allowed); ``ring`` is the ``seq`` axis's
+    axis (the process group) and, when they span ranks, on ``stage`` and
+    ``seq``; ``devices`` are the devices of this rank's model replica, one
+    a ``model`` coordinate (repeats allowed); ``ring`` is the ``seq`` axis's
     ring (``None`` without one); ``data_group`` the process group of this
     rank's ``data`` axis (``None``: the default group, which it is unless a
-    ``seq`` axis spans ranks)."""
+    ``stage`` or ``seq`` axis spans ranks); ``stages`` the ``stage`` axis's
+    chain, a ring of its places (``None`` without a ``stage`` axis)."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
@@ -101,6 +109,7 @@ class Mesh:
     devices: Tuple[torch.device, ...]
     ring: object = dataclasses.field(default=None, compare=False)
     data_group: object = dataclasses.field(default=None, compare=False)
+    stages: object = dataclasses.field(default=None, compare=False)
 
 
 def replica_devices(local_rank: int, model_size: int,
@@ -214,21 +223,91 @@ def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
                 {AXIS_DATA: d, AXIS_SEQ: s}, devs, ring, cols[s])
 
 
+def data_stage_mesh(stage: int, devices: Optional[Sequence] = None, *,
+                    device="cuda", seq: int = 1, model: int = 1) -> Mesh:
+    """The ``('data', 'stage')`` mesh of the pipeline demo, with ``seq``
+    and ``model`` beside it when above 1, in the JAX order ``(data, stage,
+    seq, model)``.  Over a process group of ``W`` ranks (``W`` a multiple
+    of ``stage·seq``): ``data`` is ``W / (stage·seq)`` rows, rank ``(d·
+    stage + s)·seq + q`` holds stage ``s`` and seq place ``q`` of row
+    ``d``; the stage subgroups (one a ``(d, q)``), then the seq subgroups
+    (one a ``(d, s)``), then the data subgroups (one a ``(s, q)``) are made
+    by every rank, in that order.  In a job of one process the stages (and
+    seq shards) fold onto the rank's first device."""
+    from tpudist_torch.parallel.ring import LocalRing, ProcessGroupRing
+
+    for name, n in (("stage", stage), ("seq", seq)):
+        if n < 1:
+            raise ValueError(f"{name} axis must be at least 1, got {n}")
+    devs = _devices(model, devices, device)
+    world = process_count()
+    names = ((AXIS_DATA, AXIS_STAGE) + ((AXIS_SEQ,) if seq > 1 else ())
+             + ((AXIS_MODEL,) if model > 1 else ()))
+    extra = {**({AXIS_SEQ: seq} if seq > 1 else {}),
+             **({AXIS_MODEL: model} if model > 1 else {})}
+    if world == 1:
+        return Mesh(names, {AXIS_DATA: 1, AXIS_STAGE: stage, **extra},
+                    {AXIS_DATA: 0}, devs,
+                    LocalRing(seq) if seq > 1 else None,
+                    stages=LocalRing(stage, (devs[0],) * stage))
+    if world % (stage * seq):
+        raise ValueError(f"a stage axis of {stage} and a seq axis of {seq} "
+                         f"cannot be laid out over the {world} ranks of "
+                         f"the process group: their product must divide "
+                         f"it (the stages and seq shards fold only in a "
+                         f"job of one process)")
+    import torch.distributed as dist
+
+    rows = world // (stage * seq)
+
+    def rank(d, s, q):
+        return (d * stage + s) * seq + q
+
+    stage_groups = {(d, q): dist.new_group(
+        ranks=[rank(d, s, q) for s in range(stage)])
+        for d in range(rows) for q in range(seq)}
+    seq_groups = {(d, s): dist.new_group(
+        ranks=[rank(d, s, q) for q in range(seq)])
+        for d in range(rows) for s in range(stage)} if seq > 1 else {}
+    data_groups = {(s, q): dist.new_group(
+        ranks=[rank(d, s, q) for d in range(rows)])
+        for s in range(stage) for q in range(seq)}
+    r = process_index()
+    d, s, q = r // (stage * seq), (r // seq) % stage, r % seq
+    stages = ProcessGroupRing(stage_groups[(d, q)],
+                              [rank(d, i, q) for i in range(stage)], s)
+    ring = (ProcessGroupRing(seq_groups[(d, s)],
+                             [rank(d, s, i) for i in range(seq)], q)
+            if seq > 1 else None)
+    coords = {AXIS_DATA: d, AXIS_STAGE: s, **({AXIS_SEQ: q} if seq > 1
+                                              else {})}
+    return Mesh(names, {AXIS_DATA: rows, AXIS_STAGE: stage, **extra},
+                coords, devs, ring, data_groups[(s, q)], stages)
+
+
 def make_mesh(config: Optional[MeshConfig] = None, *,
               devices: Optional[Sequence] = None, device="cuda") -> Mesh:
     """A mesh from a :class:`MeshConfig` over this job's devices
-    (``model`` a rank, ``data`` the process group, ``seq`` over the process
-    group or folded onto a one-process job's device): the meshes above.
-    ``stage`` above 1 is not ported yet (A6c's pipeline slice)."""
+    (``model`` a rank, ``data`` the process group, ``stage`` and ``seq``
+    over the process group or folded onto a one-process job's device): the
+    meshes above."""
     config = config or MeshConfig()
-    if config.stage != 1:
-        raise NotImplementedError(_NOT_PORTED.format("stage axis"))
     if config.model == -1:
         raise ValueError("the model axis needs a size: a rank owns the "
                          "devices of one replica")
     if config.seq == -1:
         raise ValueError("the seq axis needs a size: it is the ring's "
                          "length")
+    if config.stage == -1:
+        # the axis absorbs the ranks the others leave (one in a job of one
+        # process, whose devices are the ranks' own)
+        config = config.resolve(process_count() * config.model)
+    if config.stage != 1:
+        world = process_count()
+        config.resolve((world if world > 1 else config.stage * config.seq)
+                       * config.model)
+        return data_stage_mesh(config.stage, devices, device=device,
+                               seq=config.seq, model=config.model)
     if config.seq != 1:
         world = process_count()
         config.resolve((world if world > 1 else config.seq) * config.model)
@@ -241,5 +320,6 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
 
 
 def make_hybrid_mesh(*args, **kwargs) -> Mesh:
-    """The multi-slice DCN × ICI mesh of the JAX package: not ported."""
+    """The multi-slice DCN × ICI mesh of the JAX package: not ported
+    (A8)."""
     raise NotImplementedError(_NOT_PORTED.format("hybrid (DCN x ICI) mesh"))

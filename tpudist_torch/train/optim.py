@@ -90,7 +90,10 @@ def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
     (:class:`tpudist_torch.parallel.zero.LeafShard`) adds its squares to a
     sum all-reduced over that group; every other tensor — a replicated
     one, a tensor-parallel piece (the pieces of a leaf split it) — counts
-    once, here."""
+    once, here.  A pipeline stage's block parameter held by one rank of
+    the stage subgroup (``_tpudist_stage_axis``, :mod:`tpudist_torch.
+    parallel.pipeline_lm`) adds its squares to a sum all-reduced over that
+    subgroup, so the replicated embedding and head count once."""
     params = [p for p in params if p.grad is not None]
     if not params:
         return torch.zeros(())
@@ -98,7 +101,7 @@ def clip_grad_global_norm_(params, max_norm: float) -> torch.Tensor:
     total, axes = 0.0, {}
     for p in params:
         part = (p.grad.float() ** 2).sum().to(dev)
-        ax = _leaf_of(p).axis
+        ax = getattr(p, "_tpudist_stage_axis", None) or _leaf_of(p).axis
         if ax is None or ax.size == 1:
             total = total + part
         else:

@@ -21,8 +21,12 @@ owns the runtime, the mesh, the steps, logging, checkpoints and teardown.
   leaves under ``shard_min_size`` elements replicated);
 - ``'zero1'``    the ``data`` mesh, parameters replicated and the
   optimizer state sharded (:func:`tpudist_torch.parallel.zero1_sharding`);
-- ``'pp'`` is not ported yet (ROADMAP A6c), ``'auto'`` neither (A8,
-  ``plan/``).
+- ``'pp'``       the ``('data', 'stage')`` mesh: the LM's blocks split
+  over ``pipeline_stages`` stages (:func:`tpudist_torch.parallel.
+  make_pp_lm_train_step`, schedule ``pp_schedule``, ``pp_chunks`` chunks a
+  stage when interleaved, ``microbatches`` a step); an
+  :class:`LMTrainerModule` only, fp32 only, as in JAX;
+- ``'auto'`` is not ported yet (A8, ``plan/``).
 
 Under ``'fsdp'`` and ``'zero1'`` :mod:`tpudist_torch.parallel.zero`
 carries the layout out in place of DDP; checkpoints hold the whole,
@@ -30,7 +34,7 @@ gathered state (a run saved under one strategy resumes under another), and
 ``final_states`` holds the models with their whole weights.
 
 An :class:`LMTrainerModule` (one transformer, token batches) trains under
-``'dp'``, ``'fsdp'`` and ``'zero1'`` through the LM step
+``'dp'``, ``'fsdp'``, ``'zero1'`` and ``'pp'`` through the LM step
 (:func:`tpudist_torch.train.lm.make_lm_train_step`), with checkpoints and
 resume by skipping batches.  The
 JAX facade's SIGTERM preemption save and telemetry stage events are not
@@ -155,14 +159,16 @@ class LMTrainerModule(TrainerModule):
 @dataclasses.dataclass
 class Trainer:
     max_steps: int = 1000  # demo_pytorch_lightning.py:48 (1000 steps)
-    # 'dp' | 'dp_model' | 'fsdp' | 'zero1' (ported) | 'pp' (A6c) | 'auto'
-    # (A8, plan/)
+    # 'dp' | 'dp_model' | 'fsdp' | 'zero1' | 'pp' (ported) | 'auto' (A8,
+    # plan/)
     strategy: str = "dp"
     model_parallel: int = 2
     # fsdp/zero1: leaves under this many elements stay replicated (the
     # gather overhead beats the memory win for small tensors)
     shard_min_size: int = 1024
-    # pp knobs of the JAX facade, kept for its signature (pp is A6c)
+    # pp: stage-axis size, schedule ('gpipe' | '1f1b' | 'interleaved'),
+    # virtual chunks a stage (interleaved only), microbatches a step
+    # (default stages, or 2*stages for interleaved)
     pipeline_stages: int = 2
     pp_schedule: str = "1f1b"
     pp_chunks: int = 2
@@ -190,11 +196,7 @@ class Trainer:
             raise NotImplementedError(
                 "strategy='auto' (the measurement-driven planner, plan/) is "
                 "not ported yet: ROADMAP queue A, item A8")
-        if self.strategy == "pp":
-            raise NotImplementedError(
-                "strategy='pp' is not ported yet (pipelined layouts, "
-                "parallel/): ROADMAP queue A, item A6c")
-        if self.strategy not in ("dp", "dp_model") + _SHARDED:
+        if self.strategy not in ("dp", "dp_model", "pp") + _SHARDED:
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.precision not in ("fp32", "bf16"):
             raise ValueError(f"unknown precision {self.precision!r}")
@@ -219,6 +221,11 @@ class Trainer:
         seed = resolve_shared_seed(self.seed)
         if isinstance(module, LMTrainerModule):
             return self._fit_lm(module, loader, ckpt_dir, seed, device)
+        if self.strategy == "pp":
+            raise ValueError(
+                "strategy='pp' needs an LMTrainerModule (transformer "
+                "blocks shard over pipeline stages; the multi-model toy "
+                "contract has no block stack)")
         if self.strategy == "dp_model":
             mesh = data_model_mesh(self.model_parallel, device=device)
         else:
@@ -290,9 +297,11 @@ class Trainer:
         runtime's gathered weights), for the consumers of full weights."""
         from tpudist_torch.parallel import ShardedRuntime
 
+        from tpudist_torch.parallel import PipelineRuntime
+
         out = {}
         for name, st in states.items():
-            if isinstance(st.replica, ShardedRuntime):
+            if isinstance(st.replica, (ShardedRuntime, PipelineRuntime)):
                 model = st.replica.materialize()
                 st = ModelState(model, model, st.optimizer, st.scheduler)
             out[name] = st
@@ -300,17 +309,23 @@ class Trainer:
 
     def _fit_lm(self, module: LMTrainerModule, loader, ckpt_dir, seed,
                 device) -> Dict[str, Optional[float]]:
-        """The LM-family fit (JAX ``_fit_lm``, ``strategy='dp'``): one
-        transformer under DDP, the LM step, a token-batch loader."""
+        """The LM-family fit (JAX ``_fit_lm``): one transformer under DDP,
+        a sharded layout or the pipeline, the LM step, a token-batch
+        loader."""
         from tpudist_torch.checkpoint import setup_checkpointing
+        from tpudist_torch.runtime.mesh import MeshConfig, make_mesh
         from tpudist_torch.train.lm import make_lm_train_step
 
-        if self.strategy not in ("dp",) + _SHARDED:
+        if self.strategy not in ("dp", "pp") + _SHARDED:
             raise ValueError(
                 f"strategy {self.strategy!r} not supported for "
-                "LMTrainerModule (dp, fsdp, zero1; pp is ROADMAP A6c; "
-                "dp_model is the toy split-MLP layout)")
-        mesh = data_parallel_mesh(device=device)
+                "LMTrainerModule (use dp/fsdp/zero1/pp; dp_model is the "
+                "toy split-MLP layout)")
+        if self.strategy == "pp":
+            mesh = make_mesh(MeshConfig(data=-1, stage=self.pipeline_stages),
+                             device=device)
+        else:
+            mesh = data_parallel_mesh(device=device)
         model = module.configure_lm(
             torch.Generator().manual_seed(seed)).to(mesh.devices[0])
         tx = module.configure_optimizers()
@@ -318,15 +333,19 @@ class Trainer:
             raise ValueError("LMTrainerModule.configure_optimizers must "
                              "return one optimizer factory (single model)")
         opt, sched = tx(model.parameters())
-        layout = (self._layout(mesh, model, opt)
-                  if self.strategy in _SHARDED else None)
-        step = make_lm_train_step(
-            model, opt, scheduler=sched, loss_fn=module.loss,
-            wrap=BF16Apply if self.precision == "bf16" else None,
-            state_sharding=layout)
+        if self.strategy == "pp":
+            step = self._pp_step(mesh, model, opt, sched)
+        else:
+            layout = (self._layout(mesh, model, opt)
+                      if self.strategy in _SHARDED else None)
+            step = make_lm_train_step(
+                model, opt, scheduler=sched, loss_fn=module.loss,
+                wrap=BF16Apply if self.precision == "bf16" else None,
+                state_sharding=layout)
         states = {"lm": ModelState(
             model if step.runtime is None else step.runtime.model_view,
-            step.replica, step.optimizer, sched)}
+            step.runtime if self.strategy == "pp" else step.replica,
+            step.optimizer, sched)}
         ckpt = None
         start_iteration = 0
         if ckpt_dir is not None:
@@ -345,6 +364,27 @@ class Trainer:
         self.final_states = self._whole(states)
         return losses
 
+    def _pp_step(self, mesh, model, opt, sched):
+        """The pipelined LM step of the ``pp`` fields (JAX ``_fit_lm``'s
+        ``pp`` branch, with its bf16 refusal)."""
+        from tpudist_torch.parallel import make_pp_lm_train_step
+
+        if self.precision == "bf16":
+            raise ValueError(
+                "strategy='pp' does not support precision='bf16' yet: "
+                "the pipeline schedules own their step construction "
+                "(tpudist.parallel.pipeline_lm) and the facade's "
+                "apply-time cast does not reach it — requesting it "
+                "must not silently train fp32")
+        interleaved = self.pp_schedule == "interleaved"
+        chunks = self.pp_chunks if interleaved else 1
+        micro = self.microbatches or self.pipeline_stages * (
+            2 if interleaved else 1)
+        return make_pp_lm_train_step(
+            mesh, model, opt, n_stages=self.pipeline_stages,
+            num_microbatches=micro, schedule=self.pp_schedule,
+            n_chunks=chunks, scheduler=sched)
+
     def _run_lm_loop(self, states, step, loader, mesh, logger, ckpt,
                      start_iteration):
         """The token-batch loop (JAX ``_run_lm_loop``): epochs of the
@@ -353,10 +393,9 @@ class Trainer:
         checkpoints, then the shared teardown (:func:`finalize_run`)."""
         import numpy as np
 
-        from tpudist_torch.runtime.bootstrap import (process_count,
-                                                     process_index)
-
-        world, rank = process_count(), process_index()
+        # each data row trains on its rows (every stage of a pipelined
+        # row on the same ones)
+        world, rank = mesh.shape["data"], mesh.coords["data"]
         batches = len(loader) if hasattr(loader, "__len__") else None
         if batches is None and start_iteration:
             # without __len__ the epoch boundary of the resume point is
@@ -391,7 +430,7 @@ class Trainer:
                 if tokens.shape[0] % world:
                     raise ValueError(
                         f"the global batch of {tokens.shape[0]} rows does "
-                        f"not divide over {world} ranks")
+                        f"not divide over {world} data rows")
                 share = tokens.shape[0] // world
                 loss = step(torch.from_numpy(
                     tokens[rank * share:(rank + 1) * share]).to(dev))
