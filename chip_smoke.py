@@ -6,7 +6,8 @@ order; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel of the port from ``tpudist_torch/csrc`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once; ``LATE_BUILD``, the slowest, builds
+   on through phases 3-6, and phase 3e, its check, runs after phase 6);
 3. each serving kernel against its plain PyTorch version at the serving
    slice's shapes (8 slots, dh 128, KV block 16, 128 blocks per lane, window
    8, chunk 64, vocab 256): bf16 and int8 pools, ragged cursors with partial
@@ -191,7 +192,7 @@ order; any failure exits non-zero:
    ``--backend ici`` and then ``--backend host``: exit 0, 1000 metric rows,
    both losses from about 3 to at most 0.3;
 11. the toy benches (``tpudist_torch.bench``): ``bench_toy`` (samples/s of
-   the scanned two-model step) and ``bench_fused_mlp`` at batch 4096 (the
+   the scanned two-model step, ``TOY_BENCH_ROUNDS`` timed runs) and ``bench_fused_mlp`` at batch 4096 (the
    kernel against the plain chain), counts zeroed just before — the fused
    kernel must launch once a timed call at least; then one toy step window
    under ``torch.profiler``;
@@ -283,10 +284,38 @@ order; any failure exits non-zero:
    batch 16, M 8, its peak held against GPipe's and its M-4 peak; the
    flash kernels at the microbatches' shapes (b 2 and b 1) held and timed;
    the Trainer's ``pp`` (``demo_trainer --strategy pp``) as a subprocess.
+21. the serving mesh (:func:`serve_mesh_path`, run after phase 6 on phase
+   4's model): phase 4's 16 requests served over ``data x model`` places
+   folded onto the card (``MESH_RUNS``: (a) 1x2, (b) 1x2 with the ring
+   overlap, (c) 2x2 ring on the pool, (d) 1x8, one kv head a place, (e)
+   2x2 on the dense arena, (f) phase 4b's adapter server at 1x2, (g)
+   phase 4c's spec server at 1x2), each beside the unsharded run of its
+   family on the same schedule (every request queued before the server
+   starts).  Gates: greedy lanes equal phase 4's streams (4b's for (f))
+   or leave them first at a near tie; the launches of
+   :func:`mesh_launches_want` and, where the forwards match the unsharded
+   run's, each per-place kernel (``fused_rope_qkv``, ``paged_attention``,
+   ``paged_prefill``, ``lora_delta``'s qkv and wi deltas) at the places
+   times the unsharded launches, the sampling and residual preps at the
+   unsharded launches; every launch on its planned arm; the pool drained;
+   ``spmd_stats``' bytes a place below the total.  Then the kernels at the
+   per-place shapes (4 and 1 kv heads: decode, prefill chunk 64, the qkv
+   column slice, the qkv and wi B column slices) against their plain
+   versions and timed; and ``make_hybrid_mesh`` of this one-process job
+   equal to ``make_mesh``.  Tokens/s, TTFT p50 and TPOT p50 of each run
+   are printed beside the unsharded run's and phase 4's (no speed gate).
+
+The entry points that run as subprocesses (phases 10, 12's
+``demo_model_split``, 13, 14, 15a and 20's Trainer) run together after
+phase 9, ``SUBPROCESS_WORKERS`` at once (:func:`entry_point_paths`), and
+the phases that use them follow; their process walls are those of a
+shared host and card.  A ``timeline:`` line after each phase gives the
+seconds since the start.
 
 It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path; the
-flash kernels also their phase 17-20 launches and shape times) and
+flash kernels also their phase 17-20 launches and shape times; every
+kernel its phase 21 launches by run and the per-place shapes' times) and
 the ``nvidia-smi`` line before the last line, which is the contract line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
@@ -303,6 +332,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -370,6 +400,10 @@ FLASH_TIMED = (("Phi-2 dh 80", 2, 32, 32, 2048, 80),
 # products in different orders, each within ~128·2**-24 of that magnitude
 DELTA_REL_MAX = 1e-5
 SERVE_KERNELS = ("paged_attention", "paged_prefill", "fused_sample")
+# phase 2's slowest source (80-143 s of nvcc on an H100 host against at
+# most 46-64 for the others): phases 3-6 run while it builds, and phase 3e,
+# its check, after them
+LATE_BUILD = "fused_mlp"
 # phase 3's sampling shapes (label, S, vocab, top_k, top_p): (a) the serving
 # main path, (b) the verify's 40 rows through sample_tail, (c) both filters
 # at vocab 256, (d)-(f) the long vocabularies of GPT-2-style and larger LMs,
@@ -558,6 +592,13 @@ TRAINER_LAST_MAX = 0.375
 # same kernels on the same data from the same state)
 RESUME_RTOL = 1e-6
 PROFILE_ITERATIONS = 50
+# phase 11: one timed run of bench_toy's (8 windows of 256 steps; the
+# bench's own default takes the best of 3)
+TOY_BENCH_ROUNDS = 1
+TRAINER_BASE = ["--dry_run", "--seed", "0"]
+# the entry points run as subprocesses this many at once: each holds about
+# one of the host's 8 cores and leaves the card mostly idle
+SUBPROCESS_WORKERS = 8
 # phase 15: the LM entry point whole at phase 7's geometry.  The corpus:
 # 360 windows of 2048 increment-chain tokens at vocab 256 (seed 15), 36 held
 # out (--eval_fraction 0.1), 324 training windows = 40 batches of 8 and 4
@@ -3759,13 +3800,16 @@ def device_profile(torch, fn, prep):
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     # device kernels only: a user annotation (torch.optim's
-    # ``Optimizer.step#Adam.step``) spans kernels that are counted already
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    # ``Optimizer.step#Adam.step``) spans kernels that are counted already.
+    # The raw kineto events: ``prof.events()`` first builds every CPU op's
+    # event and their tree, seconds for a window of 40,000 launches
+    kern = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation()]
     by_name = {}
     for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) \
-            + e.time_range.elapsed_us() / 1e3
+        name = torch._C._demangle(e.name())
+        by_name[name] = by_name.get(name, 0.0) + e.duration_ns() / 1e6
     busy = sum(by_name.values())
     return dict(
         wall_ms=wall, profiled_wall_ms=prof_wall,
@@ -3884,6 +3928,422 @@ def prompt_logits(torch, model, prompt, factors=None):
             torch.ones(1, dtype=torch.bool, device=dev), ads)
         out.append(lg[0, :len(chunk)].float().cpu())
     return torch.cat(out)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the serving mesh (data x model places folded onto the card)
+
+#: phase 21's runs: (label, mesh, tp_overlap, knob family)
+MESH_RUNS = (("a 1x2", "1x2", "off", "plain"),
+             ("b 1x2 ring", "1x2", "ring", "plain"),
+             ("c 2x2 ring", "2x2", "ring", "plain"),
+             ("d 1x8", "1x8", "off", "plain"),
+             ("e 2x2 dense", "2x2", "off", "dense"),
+             ("f 1x2 adapters", "1x2", "off", "adapters"),
+             ("g 1x2 spec", "1x2", "off", "spec"))
+#: each family's knobs beside phase 4's server geometry: phase 4's kernel
+#: arms, the dense arena (the gather arm), phase 4b's adapter server,
+#: phase 4c's spec server
+MESH_FAMILIES = {"plain": {}, "dense": dict(paged=False,
+                                            attn_kernel="gather",
+                                            prefill_kernel=False),
+                 "adapters": dict(fused_rope=True, adapters=True,
+                                  lora_kernel=True),
+                 "spec": dict(spec=True, spec_k=SPEC_K)}
+#: the kernels each place launches on its slice (attention places times the
+#: unsharded run's launches), and those run once on gathered rows
+MESH_SHARDED = ("fused_rope_qkv", "paged_attention", "paged_prefill")
+MESH_ONCE = ("fused_sample", "fused_residual_prep")
+#: the per-place kernel shapes phase 3 does not hold: kv heads a place at
+#: 1x2 and at 1x8
+MESH_PLACE_HEADS = (("place of 1x2", HEADS // 2), ("place of 1x8",
+                                                    HEADS // 8))
+
+
+def mesh_serve_run(torch, model, family: str, mesh=None, overlap="off",
+                   factors=None) -> dict:
+    """One phase 21 run: phase 4's requests (phase 4b's adapter names,
+    phase 4c's spec-off and sampled lanes) on ``family``'s server, over
+    ``mesh`` (None: unsharded), every request queued before the server
+    starts so every run of a family runs the same schedule."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    knobs = MESH_FAMILIES[family]
+    ad, spec = family == "adapters", family == "spec"
+    rng = np.random.default_rng(7)
+    if not ad:
+        rng.integers(0, V, size=70)  # phase 4's warm-up prompt
+    reqs = [(rng.integers(0, V, size=int(rng.integers(1, 301))),
+             int(rng.integers(16, 65))) for _ in range(16)]
+    names = [ADAPTER_NAMES[i % len(ADAPTER_NAMES)] if ad else None
+             for i in range(16)]
+    temps = [0.8 if spec and i in SAMPLED_LANES else 0.0 for i in range(16)]
+    cfg = ServeConfig(num_slots=SLOTS, queue_limit=64, max_new=64,
+                      prefill_pad=P, decode_block=8, kv_block=BS, mesh=mesh,
+                      tp_overlap=overlap, **knobs)
+    server = InferenceServer(model, cfg, device="cuda")
+    eng = server.engine
+    try:
+        for name, f in (factors or {}).items():
+            server.load_adapter(name, f)
+        handles = [server.submit(
+            p, max_new=n, temperature=t, seed=i, adapter=a,
+            spec=(i not in SPEC_OFF_LANES) if spec else None)
+            for i, ((p, n), t, a) in enumerate(zip(reqs, temps, names))]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        server.start()
+        for h in handles:
+            if not h.wait(900):
+                raise AssertionError("request timed out")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        arms = dict(
+            decode_tc=ops.paged_attention.launches_tc,
+            prefill=dict(tc=ops.paged_prefill_attention.launches_tc,
+                         cc=ops.paged_prefill_attention.launches_cc),
+            rope=dict(split=ops.fused_rope_qkv.launches_split,
+                      wgmma=ops.fused_rope_qkv.launches_wgmma),
+            lora_cluster=ops.lora_delta.launches_cluster,
+            sample=prep_arm_launches(ops.fused_sample_prep),
+            residual=prep_arm_launches(ops.fused_residual_prep))
+        stats = server.stats()
+        places = eng.places
+        split = ((places.attn_places, places.wi_places)
+                 if places is not None else (1, 1))
+        draft_layers = eng.draft_model.n_layers if eng.spec else 0
+    finally:
+        server.close(60)
+    for h, (_, n) in zip(handles, reqs):
+        if h.finish_reason != "length" or len(h.tokens) != n:
+            raise AssertionError(f"request {h.id}: {h.finish_reason}, "
+                                 f"{len(h.tokens)}/{n} tokens")
+    if stats["kv"]["paged"] and stats["kv"]["blocks_in_use"] != 0:
+        raise AssertionError("KV pool did not drain")
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(
+        streams=[h.tokens for h in handles], prompts=[p for p, _ in reqs],
+        names=names, temps=temps, requests=len(handles), tokens=tokens,
+        wall_s=wall, tokens_per_s=tokens / wall,
+        ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
+        tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
+        launches=counts, arms=arms, decode=stats["decode"],
+        spec_blocks=stats["spec"]["blocks"], spmd=stats["spmd"],
+        split=split, family=family, draft_layers=draft_layers)
+
+
+def mesh_launches_want(r: dict) -> dict:
+    """A phase 21 run's launches from its own engine counters: each kernel
+    a place runs on its slice once a layer of every forward that reaches
+    it, at the attention places (``lora_delta``: the qkv delta a place of
+    attention, the wi delta a place of ``wi``, the wo delta once); one
+    sampling prep a target forward and a draft proposal, one residual prep
+    a spec block."""
+    knobs = MESH_FAMILIES[r["family"]]
+    pa, pw = r["split"]
+    d, L, dl = r["decode"], LAYERS, r["draft_layers"]
+    tf, df = d["forwards"], d["draft_forwards"]
+    td, dd = d["steps"], d["draft_decode_forwards"]
+    paged = knobs.get("paged", True)
+    spec = knobs.get("spec", False)
+    return {
+        "paged_attention": pa * (L * td + dl * dd) if paged else 0,
+        "paged_prefill": pa * (L * (tf - td) + dl * (df - dd))
+        if paged else 0,
+        "fused_rope_qkv": pa * (L * tf + dl * df)
+        if knobs.get("fused_rope") else 0,
+        "lora_delta": (pa + pw + 1) * (L * tf + dl * df)
+        if knobs.get("adapters") else 0,
+        # a proposal is a draft decode forward of a spec block but its
+        # last; a plain block's one draft pass samples nothing
+        "fused_sample": tf + (dd - d["blocks"] if spec else 0),
+        "fused_residual_prep": r["spec_blocks"]}
+
+
+def hold_mesh_launches(label: str, r: dict, base: dict) -> dict:
+    """Phase 21's launch gates: the launches of :func:`mesh_launches_want`
+    (held on the unsharded run ``base`` of the family as well); where the
+    run made the same forwards as ``base`` (every run but the spec
+    server's, whose acceptance follows the card's rounding), each per-place
+    kernel at the attention places times ``base``'s launches and the
+    sampling and residual preps at ``base``'s; every launch on its planned
+    arm."""
+    pa, pw = r["split"]
+    c, b = r["launches"], base["launches"]
+    for run, name in ((base, "the unsharded run"), (r, label)):
+        want = mesh_launches_want(run)
+        bad = {k: (run["launches"][k], n) for k, n in want.items()
+               if run["launches"][k] != n}
+        if bad:
+            raise AssertionError(f"{name}: launches (got, want) {bad} over "
+                                 f"{run['decode']}, {run['spec_blocks']} "
+                                 f"spec blocks")
+    same = all(r["decode"][k] == base["decode"][k] for k in (
+        "forwards", "steps", "draft_forwards", "draft_decode_forwards",
+        "blocks"))
+    if r["family"] != "spec" and not same:
+        raise AssertionError(f"{label}: forwards {r['decode']} where the "
+                             f"unsharded run made {base['decode']}")
+    if same:
+        for k in MESH_SHARDED + MESH_ONCE:
+            n = b[k] * (pa if k in MESH_SHARDED else 1)
+            if c[k] != n:
+                raise AssertionError(f"{label}: {k} launched {c[k]} times, "
+                                     f"want {n} (unsharded {b[k]})")
+    a = r["arms"]
+    d, L, dl = r["decode"], LAYERS, r["draft_layers"]
+    decode_fw = L * d["steps"] + dl * d["draft_decode_forwards"]
+    arms = planned_arms()
+    if a["decode_tc"] != c["paged_attention"] or a["prefill"] != dict(
+            tc=c["paged_prefill"], cc=0):
+        raise AssertionError(f"{label}: paged launches off their arms: {a}")
+    if c["fused_rope_qkv"] and a["rope"] != dict(
+            split=pa * decode_fw, wgmma=c["fused_rope_qkv"] - pa * decode_fw):
+        raise AssertionError(f"{label}: fused_rope_qkv's arms {a['rope']} "
+                             f"of {c['fused_rope_qkv']} launches")
+    if c["lora_delta"] and a["lora_cluster"] != (pa + pw + 1) * decode_fw:
+        raise AssertionError(f"{label}: lora_delta's cluster arm served "
+                             f"{a['lora_cluster']} of {c['lora_delta']}")
+    hold_planned_arm("fused_sample_prep", a["sample"], c["fused_sample"],
+                     arms["sample"])
+    hold_planned_arm("fused_residual_prep", a["residual"],
+                     c["fused_residual_prep"], arms["residual"])
+    return dict(same_schedule_as_unsharded=same, **{
+        k: c[k] for k in MESH_SHARDED + MESH_ONCE + ("lora_delta",)})
+
+
+def mesh_kernel_readings(torch, dev) -> dict:
+    """Phase 21's kernel checks at the per-place shapes phase 3 does not
+    hold (``MESH_PLACE_HEADS``: 4 and 1 kv heads a place, MHA within the
+    place): the paged decode (a decode step) and prefill (chunk 64) on
+    their planned tensor-core arms, ``fused_rope_qkv`` on the place's
+    column slice of qkv (decode and prefill, on the planned arm) and
+    ``lora_delta`` on the B column slices of qkv and wi; each against its
+    plain version, timed as in phase 3 beside its bound and, where one
+    call computes the same function, that call."""
+    import torch.nn.functional as F
+
+    from tpudist_torch import ops
+    from tpudist_torch.ops.fused_linear import (_rope_arm,
+                                                fused_rope_qkv_reference,
+                                                lora_delta_reference)
+    from tpudist_torch.ops.paged_attention import paged_attention_reference
+    from tpudist_torch.ops.paged_prefill import paged_prefill_reference
+
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    bf16 = torch.bfloat16
+    out = {k: {} for k in ("paged_attention", "paged_prefill",
+                           "fused_rope_qkv", "lora_delta")}
+    d = HEADS * DH
+    for label, hk in MESH_PLACE_HEADS:
+        # paged decode: phase 3's timing cursors, fill 3 of an 8 window
+        pos0, fill = DECODE_OFFS, [3] * SLOTS
+        args = decode_inputs(torch, dev, gen, pos0, False, fill, n_kv=hk)
+        args[0] = args[0][:, :hk].contiguous()
+        live = sum(-(-p // BS) for p in pos0)
+        ops.reset_launch_counts()
+        got = ops.paged_attention(*args, layer=3)
+        ref = paged_attention_reference(*args, layer=3)
+        if ops.paged_attention.launches_tc != 1:
+            raise AssertionError(f"{label} decode not on the split walk")
+        keep = (torch.arange(M * BS + W, device=dev)[None]
+                < torch.tensor(pos0, device=dev)[:, None])
+        keep[:, M * BS:M * BS + fill[0] + 1] = True
+        heads = f"{hk} kv head" + ("s" if hk > 1 else "")
+        out["paged_attention"][f"decode, {label} ({heads})"] = dict(
+            max_abs_err=close_bf16(torch, got, ref, v_max(args[2], args[4],
+                                                          args[9])),
+            ms=time_ms(torch, lambda: ops.paged_attention(*args, layer=3),
+                       flush),
+            plain_ms=time_ms(torch, lambda: paged_attention_reference(
+                *args, layer=3), flush),
+            library_ms=time_ms(torch, dense_sdpa(
+                torch, args[0], *args[1:6], keep[:, None, None], args[8],
+                args[9], 3), flush),
+            bound=bound(2 * args[0].numel() * 2
+                        + 2 * live * hk * BS * DH * 2 + live * 4 + SLOTS * 8
+                        + 2 * args[8].numel() * 2,
+                        4 * hk * DH * sum(p + f + 1
+                                          for p, f in zip(pos0, fill)),
+                        H100_BF16_FLOPS))
+        # paged prefill: phase 3's chunked-prefill cursors, chunk 64
+        pos0 = PREFILL_OFFS
+        clen = [64, 64, 64, 37, 44, 64, 30, 12]
+        args = prefill_inputs(torch, dev, gen, pos0, clen, False, n_kv=hk)
+        args[0] = args[0][:, :hk].contiguous()
+        ops.reset_launch_counts()
+        got = ops.paged_prefill_attention(*args, layer=3)
+        ref = paged_prefill_reference(*args, layer=3)
+        if ops.paged_prefill_attention.launches_tc != 1:
+            raise AssertionError(f"{label} prefill not on the tensor cores")
+        for a, b in zip(got[1:], ref[1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} prefill's written blocks "
+                                     "differ from the plain version's")
+        wt = args[8]
+        live = sum(-(-p // BS) for p in pos0)
+        touched = int((wt < 1024).sum())
+        kpos = torch.arange(M * BS + P, device=dev)
+        p0 = torch.tensor(pos0, device=dev)[:, None, None]
+        row = torch.arange(P, device=dev)[None, :, None]
+        keep = torch.where(kpos < M * BS, kpos < p0, (kpos - M * BS) <= row)
+        out["paged_prefill"][f"chunk 64, {label} ({heads})"] = dict(
+            max_abs_err=close_bf16(torch, got[0], ref[0], v_max(
+                args[4], args[6], args[2])),
+            ms=time_ms(torch, lambda: ops.paged_prefill_attention(
+                *args, layer=3), flush),
+            plain_ms=time_ms(torch, lambda: paged_prefill_reference(
+                *args, layer=3), flush),
+            library_ms=time_ms(torch, dense_sdpa(
+                torch, args[0], *args[3:8], keep[:, None], args[1], args[2],
+                3), flush),
+            bound=bound(2 * args[0].numel() * 2 + 2 * args[1].numel() * 2
+                        + 2 * (live + touched) * hk * BS * DH * 2
+                        + 2 * wt.numel() * hk * (BS * DH * 2 + 4)
+                        + wt.numel() * 4 + (live + touched) * 4 + SLOTS * 8,
+                        4 * hk * DH * sum(c * p + c * (c + 1) // 2
+                                          for p, c in zip(pos0, clen)),
+                        H100_BF16_FLOPS))
+        # fused_rope_qkv on the place's qkv columns (hk q heads, hk kv
+        # heads, depth d), with the adapter delta
+        dt = 3 * hk * DH
+        for what, T, offs in (("decode", 1, DECODE_OFFS),
+                              ("prefill", P, PREFILL_OFFS)):
+            args = qkv_inputs(torch, dev, gen, SLOTS, T, hk, hk, DH, bf16,
+                              offs, d=d)
+            kw = dict(n_heads=hk, n_kv=hk, dh=DH)
+            rows = SLOTS * T
+            ops.reset_launch_counts()
+            got = ops.fused_rope_qkv(*args, **kw)
+            ref = fused_rope_qkv_reference(*args, **kw)
+            arm = _rope_arm(rows, DH, d, bf16)
+            by_arm = dict(split=ops.fused_rope_qkv.launches_split,
+                          wgmma=ops.fused_rope_qkv.launches_wgmma)
+            if arm in by_arm and by_arm[arm] != 1:
+                raise AssertionError(f"{label} {what} qkv not on the {arm} "
+                                     f"arm: {by_arm}")
+            err = max(linear_close(torch, g, r, "bf16",
+                                   f"fused_rope_qkv {label} {what}")[
+                "max_abs_err"] for g, r in zip(got, ref))
+            wt = args[1].t()
+            out["fused_rope_qkv"][f"{what}, {label} ({dt} columns)"] = dict(
+                arm=arm, max_abs_err=err,
+                ms=time_ms(torch, lambda: ops.fused_rope_qkv(*args, **kw),
+                           flush),
+                plain_ms=time_ms(torch, lambda: fused_rope_qkv_reference(
+                    *args, **kw), flush),
+                library_ms=time_ms(torch, lambda: F.linear(args[0], wt),
+                                   flush),
+                bound=bound(2 * (d * dt + rows * d + 2 * rows * dt)
+                            + SLOTS * 8, 2 * rows * d * dt,
+                            H100_BF16_FLOPS))
+        # lora_delta on the B column slices (qkv's and wi's), decode
+        m = HEADS // hk
+        for what, d_out in (("qkv", dt), ("wi", MODEL["d_ff"] // m)):
+            args = lora_inputs(torch, dev, gen, SLOTS, 1, d, d_out, bf16,
+                               RANK, LORA_IDS)
+            got = ops.lora_delta(*args, layer=3)
+            ref = lora_delta_reference(*args, layer=3)
+            blocks = len({min(i, 7) for i in LORA_IDS})
+            out["lora_delta"][f"{what} decode, {label} ({d_out} columns)"] \
+                = dict(
+                max_abs_err=linear_close(torch, got, ref, "bf16",
+                                         f"lora_delta {label} {what}")[
+                    "max_abs_err"],
+                ms=time_ms(torch, lambda: ops.lora_delta(*args, layer=3),
+                           flush),
+                plain_ms=time_ms(torch, lambda: lora_delta_reference(
+                    *args, layer=3), flush),
+                library_ms=None,
+                bound=bound(2 * SLOTS * (d + d_out) + SLOTS * 4
+                            + blocks * RANK * (d + d_out) * 4,
+                            2 * SLOTS * RANK * (d + d_out),
+                            H100_BF16_FLOPS))
+    del flush
+    ops.reset_launch_counts()
+    for name, shapes in out.items():
+        for label, t in shapes.items():
+            log(f"  kernel {name} at {label}: max_abs_err "
+                f"{t['max_abs_err']:.3g}, {t['ms']:.4f} ms (plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, "
+                f"bound {t['bound'][0]:.5f} ms by {t['bound'][1]})")
+    return out
+
+
+def serve_mesh_path(torch, model, main_path: dict, ad_streams, card: str
+                    ) -> dict:
+    """Phase 21: phase 4's model served over ``data x model`` places
+    folded onto the card (``MESH_RUNS``), each run against the unsharded
+    run of its family on the same schedule.  Gates: greedy lanes equal
+    phase 4's streams (phase 4b's on the adapter server) or leave them
+    first at a near tie (:func:`hold_greedy_streams`); the launches of
+    :func:`hold_mesh_launches`; the pool drained; the parameter bytes a
+    place below the total.  Then the kernels at the per-place shapes
+    (:func:`mesh_kernel_readings`) and the hybrid mesh of this one-process
+    job (:func:`~tpudist_torch.runtime.mesh.make_hybrid_mesh`, equal to
+    ``make_mesh``)."""
+    from tpudist_torch.runtime.mesh import (MeshConfig, make_hybrid_mesh,
+                                            make_mesh)
+
+    t0 = time.perf_counter()
+    factors = adapter_factors(torch, model)
+    base = {fam: mesh_serve_run(torch, model, fam,
+                                factors=factors if fam == "adapters"
+                                else None)
+            for fam in MESH_FAMILIES}
+    runs, held = {}, {}
+    for label, mesh, overlap, fam in MESH_RUNS:
+        r = mesh_serve_run(torch, model, fam, mesh, overlap,
+                           factors if fam == "adapters" else None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = ad_streams if fam == "adapters" else main_path["streams"]
+        greedy = [i for i in range(16) if r["temps"][i] == 0.0]
+        equal, ties = hold_greedy_streams(
+            torch, model, r["prompts"], r["streams"], ref, greedy,
+            factors if fam == "adapters" else None,
+            r["names"] if fam == "adapters" else None)
+        want = hold_mesh_launches(label, r, base[fam])
+        sp = r["spmd"]
+        if not sp["param_bytes_per_device"] < sp["param_bytes_total"]:
+            raise AssertionError(f"{label}: spmd_stats {sp}")
+        same_as_unsharded = sum(a == b for a, b in zip(
+            r["streams"], base[fam]["streams"]))
+        held[label] = dict(greedy_lanes_equal=f"{equal}/{len(greedy)}",
+                           near_ties=ties, launches_held=want,
+                           lanes_equal_unsharded=f"{same_as_unsharded}/16")
+        runs[label] = {k: v for k, v in r.items()
+                       if k not in ("streams", "prompts", "names", "temps")}
+        log(f"phase 21 {label}: {r['tokens']} tokens in {r['wall_s']:.3f} s"
+            f" = {r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{r['ttft_p50_ms']:.2f} ms, TPOT p50 {r['tpot_p50_ms']:.3f} ms "
+            f"(unsharded {base[fam]['tokens_per_s']:.1f} tokens/s, "
+            f"{base[fam]['ttft_p50_ms']:.2f} / "
+            f"{base[fam]['tpot_p50_ms']:.3f} ms; phase 4 "
+            f"{main_path['tokens_per_s']:.1f} tokens/s) ({card}); greedy "
+            f"lanes equal {held[label]['greedy_lanes_equal']}, near ties "
+            f"{ties}; lanes equal to the unsharded run "
+            f"{held[label]['lanes_equal_unsharded']}; launches {want}; "
+            f"spmd {sp}")
+    kernels = mesh_kernel_readings(torch, torch.device("cuda"))
+    hybrid = make_hybrid_mesh(MeshConfig(), device="cuda")
+    if hybrid != make_mesh(MeshConfig(), device="cuda"):
+        raise AssertionError("the hybrid mesh of a one-process job is not "
+                             "make_mesh's")
+    wall = time.perf_counter() - t0
+    log(f"phase 21 wall: {wall:.1f} s; make_hybrid_mesh at world 1 equals "
+        f"make_mesh ({hybrid.shape})")
+    return dict(runs=runs, held=held, kernels=kernels, wall_s=wall,
+                unsharded={fam: {k: v for k, v in r.items()
+                                 if k not in ("streams", "prompts", "names",
+                                              "temps")}
+                           for fam, r in base.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -5327,7 +5787,7 @@ def pipeline_trainer() -> dict:
     return res
 
 
-def pipeline_path(torch, card: str, phase7_losses) -> dict:
+def pipeline_path(torch, card: str, phase7_losses, trainer: dict) -> dict:
     """Phase 20: (a) GPipe at M 4, 1F1B at M 4 and interleaved at V 2, M 8
     (``PP_RUNS``) through ``demo_pipeline``'s build at phase 7's model,
     ``PP_STEPS`` steps each on phase 7's batches: the flash launches a step
@@ -5338,7 +5798,8 @@ def pipeline_path(torch, card: str, phase7_losses) -> dict:
     holds (the embedded batch and the dx bank, reckoned here in f32) plus
     ``PP_MEM_SLACK`` of the M-4 peak; (c) the flash kernels at the
     microbatches' shapes (``PP_FLASH_CASES``) against their plain versions
-    and timed beside their bound and SDPA; (d) :func:`pipeline_trainer`.
+    and timed beside their bound and SDPA; (d) :func:`pipeline_trainer`
+    (``trainer``, run with the other entry points).
     World 1 under the torchrun contract (NCCL)."""
     from tpudist_torch.runtime import initialize, shutdown
 
@@ -5371,7 +5832,6 @@ def pipeline_path(torch, card: str, phase7_losses) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    trainer = pipeline_trainer()
     base = phase7_losses[:PP_STEPS]
     for r in runs.values():
         if r["batch"] == 8:
@@ -5471,13 +5931,22 @@ def run_module(module: str, args, env=None, cwd=None, timeout: int = 600):
     return proc.stdout, wall, rows
 
 
+_PORTS_GIVEN: set = set()
+_PORTS_LOCK = threading.Lock()
+
+
 def torchrun_env(**extra) -> dict:
-    """The torchrun contract at world size 1 on a free local port."""
+    """The torchrun contract at world size 1 on a free local port, one no
+    earlier call gave (the entry points run several at once)."""
     from tpudist_torch.runtime.bootstrap import find_free_port
 
+    with _PORTS_LOCK:
+        port = find_free_port()
+        while port in _PORTS_GIVEN:
+            port = find_free_port()
+        _PORTS_GIVEN.add(port)
     return dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                MASTER_ADDR="localhost", MASTER_PORT=str(find_free_port()),
-                **extra)
+                MASTER_ADDR="localhost", MASTER_PORT=str(port), **extra)
 
 
 def loss_summary(rows, names=LOSS_NAMES) -> dict:
@@ -5534,7 +6003,7 @@ def bench_path(torch) -> dict:
     from tpudist_torch.bench import bench_fused_mlp, bench_toy, toy_setup
 
     ops.reset_launch_counts()
-    toy = bench_toy("cuda")
+    toy = bench_toy("cuda", rounds=TOY_BENCH_ROUNDS)
     fused = bench_fused_mlp(4096, "cuda")
     counts = ops.launch_counts()
     if counts["fused_mlp"] < fused["kernel_calls"]:
@@ -5553,7 +6022,7 @@ def bench_path(torch) -> dict:
 # MPI bootstrap, the Trainer facade — with checkpoint/resume and a trace
 
 
-def split_path(torch, demo_losses) -> dict:
+def split_path(torch, demo_losses, mp1: dict) -> dict:
     """Phase 12: the toy models split at model axis 2 over ``[cuda:0,
     cuda:0]`` (``data_model_mesh(devices=...)``: both stages on the one
     card), trained for ``DEMO_ITERATIONS`` through the demo's
@@ -5561,9 +6030,7 @@ def split_path(torch, demo_losses) -> dict:
     contract at world size 1 (the NCCL group, DDP over the two-stage
     modules, the device-group loss all-reduce), in this process.  Its
     per-iteration losses must equal phase 10's (``--backend ici``) within
-    ``SPLIT_RTOL``.  Then ``python -m
-    tpudist_torch.examples.demo_model_split --model_parallel 1 --dry_run
-    --seed 0`` must exit 0 and converge."""
+    ``SPLIT_RTOL``.  ``mp1`` is :func:`model_split_mp1`'s run."""
     import tempfile
 
     from tpudist_torch.config import get_args
@@ -5621,14 +6088,22 @@ def split_path(torch, demo_losses) -> dict:
     if ctx.launch_source != "torchrun" or backend != "nccl" \
             or rel > SPLIT_RTOL:
         raise AssertionError(f"the split's losses leave phase 10's: {res}")
+    res["mp1_wall_s"], res["mp1"] = mp1["wall_s"], mp1["summary"]
+    return res
+
+
+def model_split_mp1() -> dict:
+    """Phase 12's entry point: ``python -m
+    tpudist_torch.examples.demo_model_split --model_parallel 1 --dry_run
+    --seed 0`` must exit 0 and converge."""
     # from the reference run's seed, as phase 10 (``DEMO_ARGS``): the
     # convergence bound is that run's, and a seed drawn per run ended at
     # 0.304 once
-    out, res["mp1_wall_s"], mp1 = run_module(
+    _, wall, rows = run_module(
         "tpudist_torch.examples.demo_model_split",
         ["--model_parallel", "1", "--dry_run", "--seed", "0"])
-    res["mp1"] = loss_summary(mp1["demo_model_split"])
-    hold_converged("demo_model_split --model_parallel 1", res["mp1"])
+    res = dict(wall_s=wall, summary=loss_summary(rows["demo_model_split"]))
+    hold_converged("demo_model_split --model_parallel 1", res["summary"])
     return res
 
 
@@ -5658,52 +6133,53 @@ def mpi_path() -> dict:
     return res
 
 
-def trainer_path() -> dict:
+def trainer_run(precision: str) -> dict:
     """Phase 14: ``python -m tpudist_torch.examples.demo_trainer --dry_run
-    --seed 0`` (the reference's Lightning shape: 1000 steps, batch 128),
-    fp32 then bf16, under the torchrun contract at world size 1; each must
-    converge (the last row within ``TRAINER_LAST_MAX``).  Then a checkpoint round trip:
-    600 steps saving every 200, then ``--resume`` to 1000 in the same
-    directory; its rows 601-1000 must equal the fp32 run's within
-    ``RESUME_RTOL`` (bit for bit expected).  Then ``python -m
-    tpudist_torch.examples.demo --profile_dir`` for ``PROFILE_ITERATIONS``:
-    its trace must exist and hold kernel events of the card."""
+    --seed 0`` (the reference's Lightning shape: 1000 steps, batch 128) at
+    ``precision`` under the torchrun contract at world size 1; it must
+    converge (the last row within ``TRAINER_LAST_MAX``).  Its losses are
+    returned under ``losses`` for :func:`trainer_path`."""
+    out, wall, r = run_module("tpudist_torch.examples.demo_trainer",
+                              TRAINER_BASE + ["--precision", precision],
+                              torchrun_env())
+    rows = r["demo_trainer"]
+    res = dict(wall_s=wall, **loss_summary(rows))
+    if "final losses" not in out:
+        raise AssertionError(out[-2000:])
+    hold_converged(f"demo_trainer --precision {precision}", res,
+                   TRAINER_LAST_MAX)
+    res["losses"] = [[row[k] for k in LOSS_NAMES] for row in rows]
+    return res
+
+
+def trainer_resume() -> dict:
+    """Phase 14's checkpoint round trip: 600 steps saving every 200, then
+    ``--resume`` to 1000 in the same directory; the resumed run's losses
+    are held by :func:`trainer_path`."""
     import tempfile
 
-    base = ["--dry_run", "--seed", "0"]
-    res = {}
-    rows = {}
-    for precision in ("fp32", "bf16"):
-        out, wall, r = run_module("tpudist_torch.examples.demo_trainer",
-                                  base + ["--precision", precision],
-                                  torchrun_env())
-        rows[precision] = r["demo_trainer"]
-        res[precision] = dict(wall_s=wall, **loss_summary(rows[precision]))
-        if "final losses" not in out:
-            raise AssertionError(out[-2000:])
-        hold_converged(f"demo_trainer --precision {precision}",
-                       res[precision], TRAINER_LAST_MAX)
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "ck")
         walls = []
         for total, extra in (("600", []), ("1000", ["--resume"])):
             _, wall, r = run_module(
                 "tpudist_torch.examples.demo_trainer",
-                base + ["--total_iterations", total, "--checkpoint_dir", ck,
-                        "--checkpoint_every", "200", *extra],
+                TRAINER_BASE + ["--total_iterations", total,
+                                "--checkpoint_dir", ck, "--checkpoint_every",
+                                "200", *extra],
                 torchrun_env(), cwd=tmp)
             walls.append(wall)
         steps = sorted(os.listdir(ck))
-        resumed = r["demo_trainer"]
-    want = [[r[k] for k in LOSS_NAMES] for r in rows["fp32"][600:]]
-    got = [[r[k] for k in LOSS_NAMES] for r in resumed[600:]]
-    rel = max(abs(g / w - 1) for gr, wr in zip(got, want)
-              for g, w in zip(gr, wr))
-    res["resume"] = dict(walls_s=walls, rows=len(resumed), files=steps,
-                         bit_for_bit=got == want, max_rel=rel)
-    if len(resumed) != DEMO_ITERATIONS or rel > RESUME_RTOL:
-        raise AssertionError(f"the resumed run leaves the unbroken one: "
-                             f"{res['resume']}")
+    return dict(walls_s=walls, files=steps, losses=[
+        [row[k] for k in LOSS_NAMES] for row in r["demo_trainer"]])
+
+
+def trainer_profile() -> dict:
+    """Phase 14's trace: ``python -m tpudist_torch.examples.demo
+    --profile_dir`` for ``PROFILE_ITERATIONS``; its trace must exist and
+    hold kernel events of the card."""
+    import tempfile
+
     with tempfile.TemporaryDirectory() as tmp:
         _, wall, _ = run_module(
             "tpudist_torch.examples.demo",
@@ -5717,12 +6193,63 @@ def trainer_path() -> dict:
                 trace = json.load(f)
             kernels = sum(1 for e in trace.get("traceEvents", [])
                           if e.get("cat") == "kernel")
-    res["profile"] = dict(wall_s=wall, trace_bytes=size,
-                          kernel_events=kernels)
+    res = dict(wall_s=wall, trace_bytes=size, kernel_events=kernels)
     if not (size > 0 and kernels > 0):
         raise AssertionError(f"the --profile_dir trace is missing or has "
-                             f"no kernel: {res['profile']}")
+                             f"no kernel: {res}")
     return res
+
+
+def trainer_path(entry: dict) -> dict:
+    """Phase 14 from :func:`entry_point_paths`' runs: fp32 and bf16
+    (:func:`trainer_run`), the round trip (:func:`trainer_resume`), whose
+    rows 601-1000 must equal the fp32 run's within ``RESUME_RTOL`` (bit
+    for bit expected), and the trace (:func:`trainer_profile`)."""
+    res = {p: dict(entry[f"trainer {p}"]) for p in ("fp32", "bf16")}
+    want = res["fp32"]["losses"][600:]
+    for p in res:
+        del res[p]["losses"]
+    resume = dict(entry["trainer resume"])
+    resumed = resume.pop("losses")
+    got = resumed[600:]
+    rel = max(abs(g / w - 1) for gr, wr in zip(got, want)
+              for g, w in zip(gr, wr))
+    res["resume"] = dict(resume, rows=len(resumed), bit_for_bit=got == want,
+                         max_rel=rel)
+    if len(resumed) != DEMO_ITERATIONS or rel > RESUME_RTOL:
+        raise AssertionError(f"the resumed run leaves the unbroken one: "
+                             f"{res['resume']}")
+    res["profile"] = entry["trainer profile"]
+    return res
+
+
+def entry_point_paths(corpus: str) -> dict:
+    """Every entry point the smoke runs as a subprocess (phase 10's demos,
+    phase 12's ``demo_model_split``, phases 13 and 14, phase 15a on
+    ``corpus`` and phase 20 (d)), at most ``SUBPROCESS_WORKERS`` at once,
+    the longest first.  Each is paced by its host process and leaves the
+    card mostly idle, so together they take about the wall of the longest
+    few; the process walls they report are those of a shared host and
+    card.  Returns each run's result by name; the first failure raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = {"trainer resume": trainer_resume,
+            "demo ici": lambda: demo_path("ici"),
+            "demo host": lambda: demo_path("host"),
+            "trainer bf16": lambda: trainer_run("bf16"),
+            "trainer fp32": lambda: trainer_run("fp32"),
+            "mpi": mpi_path,
+            "lm": lambda: lm_entry_subprocess(corpus),
+            "model split mp1": model_split_mp1,
+            "pp trainer": pipeline_trainer,
+            "trainer profile": trainer_profile}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SUBPROCESS_WORKERS) as pool:
+        futures = {name: pool.submit(job) for name, job in jobs.items()}
+        out = {name: f.result() for name, f in futures.items()}
+    log(f"entry points as subprocesses, {SUBPROCESS_WORKERS} at once: "
+        f"{len(jobs)} runs in {time.perf_counter() - t0:.1f} s of wall")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5998,32 +6525,41 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
 
     t_start = time.perf_counter()
+    timeline = {}
+
+    def mark(phase: str) -> None:
+        """Log the seconds since the start at ``phase``'s end."""
+        timeline[phase] = time.perf_counter() - t_start
+        log(f"timeline: {phase} done at {timeline[phase]:.1f} s")
+
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
+    # every nvcc starts now; the slowest source (LATE_BUILD) builds on in
+    # a thread through the phases before 3e, which do not call it
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    secs = _build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel "
-        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
-    for name in _build.KERNELS:
-        text = _build.library_path(name).with_suffix(".log").read_text() \
-            if _build.library_path(name).with_suffix(".log").is_file() else ""
-        entry = ""
-        for line in text.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                entry = " " + entry_name(m.group(1))
-            elif "Used" in line or "spill" in line:
-                log(f"  ptxas {name}{entry}: {line.strip()}")
+    late_pool = ThreadPoolExecutor(1)
+    late = late_pool.submit(_build.build, (LATE_BUILD,))
+    secs = _build.build([n for n in _build.KERNELS if n != LATE_BUILD])
+    log(f"build: {time.perf_counter() - t0:.1f} s wall for "
+        f"{len(secs)} of {len(_build.KERNELS)} kernels ({LATE_BUILD} builds "
+        f"on), per kernel " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in secs.items()))
+    mark("build")
 
     rec = check_kernels(torch, dev)
+    mark("phase 3 paged")
     rec.update(check_sample(torch, dev))
     rec.update(check_residual(torch, dev))
+    mark("phase 3 sampling")
     flash_rec, flash_fwd_bwd = check_flash(torch, dev)
+    mark("phase 3b")
     lin_rec, lin_info = check_fused_linear(torch, dev)
-    mlp_rec, mlp_cases = check_fused_mlp(torch, dev)
+    mark("phase 3c")
 
     cpu_model = create_transformer(0, device="cpu", dtype=torch.float32,
                                    **MODEL)
@@ -6042,6 +6578,7 @@ def main(argv=None) -> int:
     spec_path = serve_spec_path(torch, model, 7, main_path)
     log_spec("spec path (tied 4-layer draft, K 4)", spec_path, "phase 4",
              card)
+    mark("phase 4")
 
     t0 = time.perf_counter()
     ad_path = serve_adapter_path(torch, model, gen_seed=7,
@@ -6066,6 +6603,7 @@ def main(argv=None) -> int:
         ad_path, streams=ad_streams), adapter_factors(torch, model))
     log_spec("spec adapter path (fused_rope, 4 adapters, tied 4-layer "
              "draft, K 4)", spec_ad_path, "phase 4b", card)
+    mark("phase 4b")
 
     constrained_free = serve_constrained_path(torch, model, 7, main_path,
                                               "free")
@@ -6082,12 +6620,14 @@ def main(argv=None) -> int:
                                             "adapter")
     log_constrained("phase 4f, the same on the adapter server (fused_rope, "
                     "4 adapters)", constrained_ad, card)
+    mark("phase 4e-4f")
 
     default_runs = {name: serve_arm(torch, model, knobs, 7)
                     for name, knobs in DEFAULT_ARMS.items()}
     default_held = hold_default_arms(torch, model, default_runs, main_path)
     lanes = lanes_path(torch, model, 7, main_path)
     log_default_arms(default_runs, default_held, main_path, lanes, card)
+    mark("phase 4g")
 
     prof = profile_engine(torch, model)
     prof.update({f"adapter {k}": v for k, v in profile_engine(
@@ -6101,6 +6641,7 @@ def main(argv=None) -> int:
         f"decode block (64 tokens): device "
         f"{(db['device_busy_ms'] or 0) / 64:.4f} ms and wall "
         f"{db['wall_ms'] / 64:.3f} ms per token")
+    mark("phase 5")
 
     import numpy as np
 
@@ -6134,7 +6675,27 @@ def main(argv=None) -> int:
     if not (ad_rel_rms <= 0.05 and float(ad_diff.max()) <= 0.25):
         raise AssertionError("adapter-lane card logits disagree with the "
                              "CPU plain path")
+    mark("phase 6")
+    secs.update(late.result())
+    late_pool.shutdown()
+    log(f"build: {LATE_BUILD} {secs[LATE_BUILD]:.1f} s")
+    for name in _build.KERNELS:
+        text = _build.library_path(name).with_suffix(".log").read_text() \
+            if _build.library_path(name).with_suffix(".log").is_file() else ""
+        entry = ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = " " + entry_name(m.group(1))
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {name}{entry}: {line.strip()}")
+    mlp_rec, mlp_cases = check_fused_mlp(torch, dev)
+    mark("phase 3e")
+    mesh = serve_mesh_path(torch, model, main_path, ad_streams, card)
+    mark("phase 21")
     del model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
 
     train, step, tokens = train_main_path(torch)
     log(f"training main path: {train['steps']} steps, loss "
@@ -6157,8 +6718,15 @@ def main(argv=None) -> int:
         f"(rel {grads['loss_rel_diff']:.2e} <= {LOSS_REL_MAX}), min cosine "
         f"{grads['min_cos']:.5f} ({grads['min_cos_param']}, >= "
         f"{GRAD_COS_MIN}) over {grads['params']} parameters")
+    mark("phases 7-9")
 
-    demos = [demo_path(backend) for backend in ("ici", "host")]
+    import tempfile
+
+    corpus_dir = tempfile.TemporaryDirectory()
+    corpus = write_chain_corpus(os.path.join(corpus_dir.name, "chains.npy"))
+    entry = entry_point_paths(corpus)
+    mark("entry points")
+    demos = [entry["demo ici"], entry["demo host"]]
     for d in demos:
         log(f"toy demo (--backend {d['backend']}, world 1 under the torchrun "
             f"contract, NCCL): {d['rows']} rows in {d['wall_s']:.1f} s of "
@@ -6175,8 +6743,9 @@ def main(argv=None) -> int:
         f"{benches['launches']['fused_mlp']} for {fused['kernel_calls']} "
         f"timed calls")
     log_profile({"toy_window": benches["toy_window_profile"]})
+    mark("phase 11")
 
-    split = split_path(torch, demos[0]["losses"])
+    split = split_path(torch, demos[0]["losses"], entry["model split mp1"])
     log(f"split (model axis 2 on {split['devices']}, stages "
         f"{split['stages']}, world 1 under the {split['launch']} contract, "
         f"{split['backend']}, DDP): {split['rows']} rows, training "
@@ -6187,11 +6756,11 @@ def main(argv=None) -> int:
         f"--model_parallel 1: {split['mp1']['rows']} rows in "
         f"{split['mp1_wall_s']:.1f} s of process wall, losses -> "
         f"{split['mp1']['last']}")
-    mpi = mpi_path()
+    mpi = entry["mpi"]
     log(f"MPI demo (OMPI_COMM_WORLD_* world 1 + MASTER_ADDR, NCCL): "
         f"{mpi['wall_s']:.1f} s of process wall ({card}); {mpi['banner']}; "
         f"final losses {mpi['final']}")
-    trainer = trainer_path()
+    trainer = trainer_path(entry)
     for precision in ("fp32", "bf16"):
         t = trainer[precision]
         log(f"demo_trainer --precision {precision} (1000 steps, batch 128, "
@@ -6210,12 +6779,9 @@ def main(argv=None) -> int:
         f"{p['wall_s']:.1f} s of process wall, trace {p['trace_bytes']} "
         f"bytes, {p['kernel_events']} kernel events")
 
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        corpus = write_chain_corpus(os.path.join(tmp, "chains.npy"))
-        lm_sub = lm_entry_subprocess(corpus)
-        lm_in = lm_entry_in_process(torch, corpus, train["peak_mem_gb"])
+    lm_sub = entry["lm"]
+    lm_in = lm_entry_in_process(torch, corpus, train["peak_mem_gb"])
+    corpus_dir.cleanup()
     log(f"LM entry point (d1024 bf16, remat dots, --num_workers 2, eval "
         f"every 10, --generate 16; world 1 under the torchrun contract, "
         f"NCCL): {lm_sub['rows']} rows in {lm_sub['wall_s']:.1f} s of "
@@ -6246,12 +6812,18 @@ def main(argv=None) -> int:
         log(f"{opt} ({OPT_STEPS} steps, lr {OPT_LR[opt]}): losses "
             f"{[round(x, 4) for x in losses]}")
     torch.cuda.empty_cache()
+    mark("phases 12-15")
 
     public = public_widths_path(torch, card)
+    mark("phase 16")
     seq = seq_parallel_path(torch, card)
+    mark("phase 17")
     shard = sharded_path(torch, card)
+    mark("phase 18")
     moe = expert_3d_path(torch, card, seq["bf16"]["ring"]["losses"])
-    pipe = pipeline_path(torch, card, train["losses"])
+    mark("phase 19")
+    pipe = pipeline_path(torch, card, train["losses"], entry["pp trainer"])
+    mark("phase 20")
 
     kernels = []
     launches = dict(main_path["launches"])
@@ -6376,6 +6948,17 @@ def main(argv=None) -> int:
                                 bound_ms=sh["kernels"][name]["bound"][0],
                                 bound_by=sh["kernels"][name]["bound"][1])
                         for c, sh in pipe["shapes"].items()})
+        # phase 21: each serving-mesh run's launches, and the per-place
+        # shapes' times
+        kernels[-1]["phase21"] = dict(
+            launches={run: int(r["launches"][name])
+                      for run, r in mesh["runs"].items()},
+            unsharded={fam: int(r["launches"][name])
+                       for fam, r in mesh["unsharded"].items()},
+            shapes={c: dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                            library_ms=t["library_ms"],
+                            bound_ms=t["bound"][0], bound_by=t["bound"][1])
+                    for c, t in mesh["kernels"].get(name, {}).items()})
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -6412,6 +6995,7 @@ def main(argv=None) -> int:
                   lm_entry=dict(subprocess=lm_sub, in_process=lm_in),
                   public_widths=public, seq_parallel=seq,
                   sharded=shard, moe_overlap_3d=moe, pipeline=pipe,
+                  serve_mesh=mesh, timeline=timeline,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -58,6 +58,12 @@ The residual prep: ``chip_smoke.residual_close``, the CPU test's
 tolerances (``pt``/``pd`` to ``rtol 2e-6, atol 1e-7``, empty-residual rows
 bit for bit, ``exp(lr)`` to ``atol 1e-6``).  A small f32 speculative engine
 on the card emits the greedy streams of the card's non-speculative engine.
+
+The serving mesh: the kernels at the per-place shapes of phase 21
+(``chip_smoke.mesh_kernel_readings``: 4 and 1 kv heads a place, the qkv
+and B column slices) at the bounds above, and a small f32 engine over 1x2
+places folded onto the card emitting the unsharded engine's greedy
+streams, its per-place kernels launched twice as often.
 """
 
 import numpy as np
@@ -1880,3 +1886,68 @@ def test_folded_pipeline_equals_unpipelined_on_the_card(cuda, schedule,
     assert wgmma == counts[schedule]["flash_forward"]
     np.testing.assert_allclose(losses[schedule], losses["plain"],
                                rtol=PIPELINE_LOSS_RTOL)
+
+
+def test_kernels_at_the_mesh_place_shapes(cuda):
+    """Phase 21's per-place shapes, each kernel on its planned arm within
+    its bound (the function raises otherwise)."""
+    from chip_smoke import mesh_kernel_readings
+
+    out = mesh_kernel_readings(torch, cuda)
+    assert {k: len(v) for k, v in out.items()} == {
+        "paged_attention": 2, "paged_prefill": 2, "fused_rope_qkv": 4,
+        "lora_delta": 4}
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_folded_mesh_engine_on_the_card(cuda, mesh):
+    """An f32 LM (4 heads of 64, RoPE) served on the kernel arms with
+    fused RoPE+QKV over ``mesh`` folded onto the card: every greedy stream
+    the unsharded engine's, ``peek_logits`` within 1e-5, and the per-place
+    kernels at twice the unsharded launches, the sampling prep at its."""
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.serve import SlotEngine
+
+    model = create_transformer(0, device=cuda, vocab=64, d_model=256,
+                               n_layers=2, n_heads=4, d_ff=512, max_len=128,
+                               rope=True)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, 64, size=int(rng.integers(1, 40))), 12)
+            for _ in range(6)]
+    runs = {}
+    for m in (None, mesh):
+        eng = SlotEngine(model, num_slots=4, prefill_pad=16, kv_block=16,
+                         fused_rope=True, device=cuda, mesh=m)
+        reset_launch_counts()
+        out, peeks, pending, slot_rid = {}, [], list(enumerate(reqs)), {}
+        while pending or eng.num_occupied:
+            items = []
+            for slot in eng.free_slots():
+                if not pending:
+                    break
+                rid, (p, n) = pending.pop(0)
+                slot_rid[slot], out[rid] = rid, []
+                items.append((slot, p, 0.0, 0, n))
+            got = dict(eng.start_batch(items))
+            got.update(eng.advance_prefill())
+            for slot, tok in got.items():
+                if tok is not None:
+                    out[slot_rid[slot]].append(tok)
+            if eng.num_active:
+                peeks.append(eng.fns.peek_logits(eng.state, eng.cache))
+                for slot, toks in eng.decode_auto()[1].items():
+                    out[slot_rid[slot]].extend(toks)
+            for slot in list(slot_rid):
+                if len(out[slot_rid[slot]]) >= 12:
+                    eng.evict(slot)
+                    del slot_rid[slot]
+        runs[m] = ([out[i][:12] for i in range(len(reqs))], peeks,
+                   launch_counts())
+    (want, wpeeks, wc), (got, gpeeks, gc) = runs[None], runs[mesh]
+    assert got == want
+    assert len(gpeeks) == len(wpeeks)
+    for a, b in zip(gpeeks, wpeeks):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for k in ("fused_rope_qkv", "paged_attention", "paged_prefill"):
+        assert gc[k] == 2 * wc[k] > 0, k
+    assert gc["fused_sample"] == wc["fused_sample"] > 0

@@ -393,8 +393,8 @@ def test_engine_knob_validation(rope_models):
     """The JAX engine's arms outside the kernel configuration build and
     serve a request (the dense cache, the gather decode, the teacher-forced
     prefill, the unfused sampling tail) with the stream ``generate()``
-    gives; the serving mesh still raises NotImplementedError naming its
-    ROADMAP item; the kernel arms raise without a pool, as the JAX
+    gives; the serving mesh (1x2, folded onto the CPU) serves it too; the
+    kernel arms raise without a pool, as the JAX
     engine's do; the fused RoPE+QKV arm and the tied-draft speculative
     engine build."""
     (jmod, jparams), model = rope_models
@@ -408,9 +408,10 @@ def test_engine_knob_validation(rope_models):
         assert _drive_items(eng, [(1, prompt, 0.0, 0, max_new)]) == {
             1: want}, kw
         assert eng.kv_stats()["paged"] is kw.get("paged", True)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        SlotEngine(model, num_slots=2, kv_block=4, device="cpu",
-                   mesh="1x2")
+    eng = SlotEngine(model, num_slots=2, kv_block=4, device="cpu",
+                     prefill_pad=8, mesh="1x2")
+    assert _drive_items(eng, [(1, prompt, 0.0, 0, max_new)]) == {1: want}
+    assert eng.spmd_stats()["mesh"] == {"data": 1, "model": 2}
     for kw in (dict(attn_kernel="paged"), dict(prefill_kernel=True)):
         with pytest.raises(ValueError, match="requires paged=True"):
             SlotEngine(model, num_slots=2, device="cpu", paged=False, **kw)
@@ -506,7 +507,6 @@ def test_serve_config_from_env(monkeypatch):
 # the JAX ServeConfig.from_env variables with no port yet, and the
 # ROADMAP.md queue A item each raises with
 UNPORTED_ENV = {
-    "MESH": "8", "TP_OVERLAP": "6",
     "HOST_TIER": "8", "PREEMPT": "8", "SHED": "8", "SHED_ATTAINMENT": "8",
     "SHED_PRIORITY": "8", "FAIR_SHARE": "8", "HANDOFF": "8",
     "HANDOFF_QUEUE": "8", "DECODE_WORKERS": "8", "PREFILL_WORKERS": "8",
@@ -519,11 +519,31 @@ def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, suffix):
     """Each knob the port cannot honour raises, naming itself and its
     ROADMAP item, instead of building a server that ignores it."""
     name = f"TPUDIST_SERVE_{suffix}"
-    monkeypatch.setenv(name, "2x1" if suffix == "MESH" else "1")
+    monkeypatch.setenv(name, "1")
     with pytest.raises(NotImplementedError,
                        match=rf"{name} .*queue A item "
                              rf"{UNPORTED_ENV[suffix]}\b"):
         ServeConfig.from_env()
+
+
+@pytest.mark.parametrize("name,value", [
+    ("TPUDIST_SERVE_MESH", "2x1"), ("TPUDIST_SERVE_TP_OVERLAP", "ring")])
+def test_serve_config_from_env_reads_mesh_knobs(monkeypatch, name, value):
+    """The serving-mesh knobs (they raised before the port had the serving
+    mesh) are read as the JAX server reads them: the same ``mesh`` /
+    ``tp_overlap`` fields and the same ``mesh_config()``."""
+    from tpudist.serve import ServeConfig as JaxServeConfig
+
+    for var in [n for n in os.environ if n.startswith("TPUDIST_SERVE_")]:
+        monkeypatch.delenv(var)
+    monkeypatch.setenv(name, value)
+    got, want = ServeConfig.from_env(), JaxServeConfig.from_env()
+    assert (got.mesh, got.tp_overlap) == (want.mesh, want.tp_overlap)
+    mine, theirs = got.mesh_config(), want.mesh_config()
+    assert (mine is None) == (theirs is None)
+    if mine is not None:
+        assert (mine.shape, mine.tp_overlap, mine.dims) == (
+            theirs.shape, theirs.tp_overlap, theirs.dims)
 
 
 @pytest.mark.parametrize("name,value,field,want", [

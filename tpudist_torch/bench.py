@@ -62,9 +62,10 @@ def toy_setup(device):
             torch.from_numpy(data.y).to(device), idx)
 
 
-def bench_toy(device="cuda") -> dict:
+def bench_toy(device="cuda", rounds: int = 3) -> dict:
     """Samples/s of the scanned two-model train step (counterpart of
-    ``bench.py:47 bench_toy``)."""
+    ``bench.py:47 bench_toy``): the best of ``rounds`` timed runs of at
+    least 8 windows and half a second each."""
     device = resolve_device(device)
     states, chunk_step, x_all, y_all, idx = toy_setup(device)
     batch = idx.shape[1]
@@ -72,7 +73,7 @@ def bench_toy(device="cuda") -> dict:
         states, losses = chunk_step(states, x_all, y_all, idx)
     _sync(losses["model_X"])
     best = 0.0
-    for _ in range(3):
+    for _ in range(rounds):
         chunks = 0
         t0 = time.perf_counter()
         while True:

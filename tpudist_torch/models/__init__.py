@@ -7,12 +7,14 @@ from tpudist_torch.models.convert import (adapter_factors_from_jax,
                                           params_from_flax,
                                           toy_params_from_flax)
 from tpudist_torch.models.generate import (CacheFullError, DenseKV,
-                                           SlotDecode, SlotState,
+                                           PlacedDenseKV, SlotDecode,
+                                           SlotState,
                                            filter_logits, generate,
                                            make_slot_decode,
                                            sample_logits, spec_accept)
-from tpudist_torch.models.paged import PagedKV, PagedKVConfig
-from tpudist_torch.models.transformer import (MoEFFN, TransformerLM,
+from tpudist_torch.models.paged import PagedKV, PagedKVConfig, PlacedKV
+from tpudist_torch.models.transformer import (MoEFFN, PlacedLM,
+                                              TransformerLM,
                                               create_transformer,
                                               dense_moe_reference, lm_loss,
                                               lm_loss_with_targets,
@@ -23,7 +25,7 @@ from tpudist_torch.models.toy_mlp import ToyMLP, create_toy_model
 
 __all__ = [
     "CacheFullError", "DenseKV", "MoEFFN", "PagedKV", "PagedKVConfig",
-    "SlotDecode", "SlotState", "ToyMLP", "TransformerLM",
+    "PlacedDenseKV", "PlacedKV", "PlacedLM", "SlotDecode", "SlotState", "ToyMLP", "TransformerLM",
     "adapter_factors_from_jax", "create_toy_model", "create_transformer",
     "dense_moe_reference", "filter_logits", "generate", "lm_loss",
     "lm_loss_with_targets", "make_slot_decode", "moe_expert_fn",

@@ -65,14 +65,24 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from tpudist_torch.models.lora import (AdapterPool, AdapterPoolConfig,
-                                      gather_collection, pool_collection)
-from tpudist_torch.models.paged import PagedKV, PagedKVConfig, _Paged
-from tpudist_torch.models.transformer import (CacheFullError, DenseDecode,
-                                              PagedDecode, PagedPrefill,
+                                      gather_collection, place_collections,
+                                      pool_collection)
+from tpudist_torch.models.paged import (PagedKV, PagedKVConfig, _Paged,
+                                        _PlacedPaged)
+from tpudist_torch.models.transformer import (CacheFullError,
+                                              DenseDecode, PagedDecode,
+                                              PagedPrefill, Places,
                                               SlotDense)
 from tpudist_torch.ops import fused_residual_prep, fused_sample_prep
 from tpudist_torch.ops.fused_sample import (fused_residual_reference,
                                             fused_sample_reference)
+
+def moe_serving_unported() -> NotImplementedError:
+    """The refusal of a model with an MoE FFN on every serving path."""
+    return NotImplementedError(
+        "serving a model with an MoE FFN (A6c's expert layer) is not "
+        "ported yet: ROADMAP queue A, item A8")
+
 
 def filter_logits(logits: torch.Tensor, *, temperature: float = 1.0,
                   top_k: Optional[int] = None,
@@ -646,6 +656,206 @@ class _Lanes:
         return kv
 
 
+class PlacedDenseKV(NamedTuple):
+    """The dense slot cache over ``model`` places (the serving mesh):
+    ``k``/``v`` hold one ``[L, S, n_kv/P, max_len, dh]`` tensor a place,
+    its kv heads; ``cursor [S]`` exists once.  The ``data`` axis's rows
+    are slot ranges of each place's tensor: its places share the model
+    places' devices, and a place attends over all its rows' lanes in one
+    batched call (split a row a call, the CPU's batched product rounds the
+    scores of a grouped multi-query window otherwise)."""
+
+    k: tuple
+    v: tuple
+    cursor: torch.Tensor
+
+
+class _PlacedLanes(_Lanes):
+    """:class:`_Lanes` over a serving mesh's places: ``fwd`` the model's
+    forward over them (:class:`~tpudist_torch.models.transformer.
+    PlacedLM`), the KV split by kv heads (a :class:`~tpudist_torch.models.
+    paged.PlacedKV` through ``pg``, a :class:`PlacedDenseKV` without a
+    pool).  Every arm and program of :class:`_Lanes`, each place making
+    its own launches over its slice; the table, the cursors and the
+    sampling are the unsplit engine's."""
+
+    def __init__(self, mdl, fwd, pg, num_slots: int, prefill_pad: int,
+                 device, **kw):
+        super().__init__(mdl, pg, num_slots, prefill_pad, device, **kw)
+        self.fwd = fwd
+        self.P = fwd.attn_places
+        self.devices = fwd.devices[:self.P]
+
+    def init(self):
+        if self.pg is not None:
+            return self.pg.init()
+        m = self.mdl
+        shape = (m.n_layers, self.S, m.n_kv // self.P, m.max_len,
+                 m.head_dim)
+
+        def arena():
+            return tuple(torch.zeros(shape, dtype=m.dtype, device=dev)
+                         for dev in self.devices)
+
+        return PlacedDenseKV(k=arena(), v=arena(), cursor=torch.zeros(
+            self.S, dtype=torch.int32, device=self.device))
+
+    def _dense(self, k, v, cursor, n_write, toks, ads):
+        """One forward of ``toks [S', s]`` over each place's dense views."""
+        m = self.mdl
+        ctx = Places([SlotDense(kk, vv, cursor.to(dev), n_write.to(dev),
+                                m.rope, m.sliding_window)
+                      for kk, vv, dev in zip(k, v, self.devices)], ads)
+        return self.fwd(toks, ctx).float()
+
+    def prefill_chunk(self, pkv, rows, poss, clens, prompts, lane_mask,
+                      ads=None):
+        pg, m = self.pg, self.mdl
+        wtables = pg.write_tables(rows, poss, clens, self.pad, lane_mask)
+        ctxs = []
+        for i, dev in enumerate(self.devices):
+            p = pkv.place(i)
+            pool = dict(pool_k=p.pool_k, pool_v=p.pool_v,
+                        scale_k=p.scale_k, scale_v=p.scale_v,
+                        table=rows.to(dev, torch.int32).contiguous(),
+                        pos0=poss.to(dev, torch.int32).contiguous(),
+                        clen=clens.to(dev, torch.int32).contiguous(),
+                        wtable=wtables.to(dev).contiguous())
+            ctxs.append(PagedPrefill(pool, m.rope, m.sliding_window,
+                                     fused_rope=self.fused_rope))
+        logits = self.fwd(prompts, Places(ctxs, ads)).float()
+        n = wtables.numel()
+
+        def flat(c, i):
+            t = torch.stack([w[i] for w in c.writes])  # [L, S, Mw, ...]
+            return t.reshape((t.shape[0], n) + t.shape[3:])
+
+        pg.commit_quantized(pkv, wtables.reshape(n),
+                            [tuple(flat(c, i) for i in range(4))
+                             for c in ctxs])
+        return pkv, logits
+
+    def insert(self, kv, tables, poss, prompts, clens, dsts, apool, aids):
+        keep = dsts < self.S
+        d = dsts[keep].long()
+        new_cur = (poss + clens).to(torch.int32)
+        if self.pg is None:                          # fresh lanes, then in
+            k = [torch.zeros_like(t) for t in kv.k]
+            v = [torch.zeros_like(t) for t in kv.v]
+            logits = self._dense(k, v, poss, clens, prompts,
+                                 self.ads(apool, aids, False))
+            for dst, src in zip(kv.k + kv.v, k + v):
+                dst[:, d.to(dst.device)] = src[:, keep.to(src.device)]
+            kv.cursor[d] = new_cur[keep]
+        elif self.kernel_prefill:
+            kv, logits = self.prefill_chunk(kv, tables, poss, clens, prompts,
+                                            keep, self.ads(apool, aids, True))
+            kv.table[d] = tables[keep].to(torch.int32)
+            kv.cursor[d] = new_cur[keep]
+        else:
+            k, v = self.pg.dense_kv(kv, tables)
+            logits = self._dense(k, v, poss, clens, prompts,
+                                 self.ads(apool, aids, False))
+            kv = self.pg.commit_lanes(kv, k, v, tables, dsts, poss, self.pad,
+                                      new_cur)
+        return kv, self._last(logits, clens)
+
+    def extend(self, kv, slot: int, chunk, clen: int, apool, aids):
+        last = max(0, min(int(clen), self.pad) - 1)
+        if self.kernel_prefill:
+            return super().extend(kv, slot, chunk, clen, apool, aids)
+        one = slice(slot, slot + 1)
+        pos0 = kv.cursor[one].clone()
+        n = torch.full((1,), int(clen), dtype=torch.int32,
+                       device=self.device)
+        ads = self.ads(apool, aids[one], False)
+        if self.pg is None:                           # the slot, in place
+            k, v = [t[:, one] for t in kv.k], [t[:, one] for t in kv.v]
+        else:
+            k, v = self.pg.dense_kv(kv, kv.table[one])
+        row = self._dense(k, v, pos0, n, chunk[None].to(torch.int32),
+                          ads)[0, last]
+        if self.pg is not None:
+            self.pg.commit_rows(kv, kv.table[one], k, v, pos0, self.pad,
+                                torch.ones(1, dtype=torch.bool,
+                                           device=self.device))
+        kv.cursor[slot] += int(clen)
+        return kv, row
+
+    def open(self, kv, span: int):
+        if self.kernel_decode:
+            wk, wv = self.pg.window_view(span)
+            pools = []
+            for i, dev in enumerate(self.devices):
+                p = kv.place(i)
+                pools.append(dict(pool_k=p.pool_k, pool_v=p.pool_v,
+                                  scale_k=p.scale_k, scale_v=p.scale_v,
+                                  table=p.table.contiguous(),
+                                  pos0=kv.cursor.to(dev).clone()))
+            return pools, wk, wv
+        if self.pg is not None:
+            return self.pg.dense_kv(kv, kv.table)
+        return kv.k, kv.v
+
+    def forward(self, view, cursor, active, toks, ads):
+        m = self.mdl
+        if self.kernel_decode:
+            pools, wk, wv = view
+            ctx = Places([PagedDecode(
+                pool, k, v, cursor.to(dev), active.to(dev), m.rope,
+                m.sliding_window, fused_rope=self.fused_rope)
+                for pool, k, v, dev in zip(pools, wk, wv, self.devices)],
+                ads)
+            return self.fwd(toks, ctx).float()
+        n = toks.shape[1] * active.to(torch.int32)
+        return self._dense(view[0], view[1], cursor, n, toks, ads)
+
+    def close(self, kv, view, pos0, span: int, active, new_cur):
+        if self.kernel_decode:
+            self.pg.commit_window(kv, view[1], view[2], pos0, span, active)
+        elif self.pg is not None:
+            self.pg.commit_rows(kv, kv.table, view[0], view[1], pos0, span,
+                                active)
+        kv.cursor.copy_(new_cur)
+        return kv
+
+    def peek(self, state, kv, apool):
+        if self.pg is None:
+            k, v = [t.clone() for t in kv.k], [t.clone() for t in kv.v]
+        else:
+            k, v = self.pg.dense_kv(kv, kv.table)
+        n = torch.ones(self.S, dtype=torch.int32, device=self.device)
+        return self._dense(k, v, kv.cursor, n, state.last_tok[:, None],
+                           self.ads(apool, state.adapter_id, False))[:, -1]
+
+    def export(self, kv, slot: int):
+        if self.pg is not None:
+            return self.pg.extract_lane(kv, slot)
+        return (torch.cat([t[:, slot].to(self.device) for t in kv.k], 1),
+                torch.cat([t[:, slot].to(self.device) for t in kv.v], 1),
+                kv.cursor[slot].clone())
+
+    def adopt(self, kv, slot: int, row, lane):
+        k, v, cursor = lane
+        if self.pg is not None:
+            return self.pg.adopt_lane(kv, slot, row, k, v, cursor)
+        hk = self.mdl.n_kv // self.P
+        for i, (dk, dv) in enumerate(zip(kv.k, kv.v)):
+            heads = slice(i * hk, (i + 1) * hk)
+            dk[:, slot] = k[:, heads].to(dk.device, dk.dtype)
+            dv[:, slot] = v[:, heads].to(dv.device, dv.dtype)
+        kv.cursor[slot] = torch.as_tensor(cursor).to(kv.cursor.device)
+        return kv
+
+    def release(self, kv, slot: int, free_ids=None):
+        if self.pg is not None:
+            return self.pg.release(kv, slot, free_ids)
+        for t in kv.k + kv.v:
+            t[:, slot] = 0
+        kv.cursor[slot] = 0
+        return kv
+
+
 def make_slot_decode(model, num_slots: int, prefill_pad: int,
                      paged: Optional[PagedKVConfig], *,
                      attn_kernel: str = "paged",
@@ -654,7 +864,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
                      lora_kernel: bool = False,
                      adapters: Optional[AdapterPoolConfig] = None,
                      spec=None, constrain=None,
-                     logprobs: int = 0) -> SlotDecode:
+                     logprobs: int = 0, places=None,
+                     draft_places=None) -> SlotDecode:
     """Build the slot programs over ``model`` (a
     :class:`~tpudist_torch.models.TransformerLM` on its serving device) —
     the JAX ``make_slot_decode``, the mesh aside.  ``paged`` a
@@ -755,7 +966,16 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
 
     The tied draft shares its lane's adapter (its blocks are the target's
     first layers, so they read the pool's first layer slices); a loaded
-    draft of another projection geometry runs base-only."""
+    draft of another projection geometry runs base-only.
+
+    ``places`` (a :class:`~tpudist_torch.models.transformer.PlacedLM`, the
+    serving mesh of :mod:`tpudist_torch.serve.spmd`) runs every program
+    over ``model`` places: the forward is ``places``', the KV splits by kv
+    heads (a :class:`~tpudist_torch.models.paged.PlacedKV` or a
+    :class:`PlacedDenseKV`), the adapter pool is a :class:`~tpudist_torch.
+    models.lora.PlacedAdapterPool`; ``draft_places`` is the draft's.  The table, the
+    cursors, the state and the sampling are the unsplit programs', and
+    so are ``peek_logits``' and the exported lanes' tensors."""
     if attn_kernel not in ("gather", "paged"):
         raise ValueError(
             f"attn_kernel must be 'gather' or 'paged', got {attn_kernel!r}")
@@ -782,9 +1002,7 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             "— enable attn_kernel='paged' and/or prefill_kernel=True (the "
             "dense and gather programs take pre-gathered factors)")
     if getattr(model, "n_experts", 0) > 0:
-        raise NotImplementedError(
-            "serving a model with an MoE FFN (A6c's expert layer) is not "
-            "ported yet: ROADMAP queue A, item A8")
+        raise moe_serving_unported()
     if num_slots < 1:
         raise ValueError(f"num_slots must be >= 1, got {num_slots}")
     n_lp = int(logprobs)
@@ -807,6 +1025,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         if apool is None:
             raise ValueError("an adapter engine's programs take the adapter "
                              "pool (apool=...)")
+        if places is not None:
+            return place_collections(apool, ids, kernel, len(places.devices))
         return (pool_collection if kernel else gather_collection)(apool, ids)
 
     def _gp(gpool):
@@ -826,8 +1046,18 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
     arms = dict(kernel_decode=kernel_decode,
                 kernel_prefill=bool(prefill_kernel),
                 fused_rope=bool(fused_rope))
-    pg = None if paged is None else _Paged(model, S, paged, device)
-    tgt = _Lanes(model, pg, S, prefill_pad, device, ads=_ads, **arms)
+    def lanes(mdl, fwd, pcfg, ads):
+        """One model's lanes: plain, or over ``fwd``'s places."""
+        if fwd is None:
+            pg = None if pcfg is None else _Paged(mdl, S, pcfg, device)
+            return _Lanes(mdl, pg, S, prefill_pad, device, ads=ads, **arms)
+        pg = None if pcfg is None else _PlacedPaged(
+            mdl, S, pcfg, fwd.devices[:fwd.attn_places], device)
+        return _PlacedLanes(mdl, fwd, pg, S, prefill_pad, device, ads=ads,
+                            **arms)
+
+    tgt = lanes(model, places, paged, _ads)
+    pg = tgt.pg
     zeros = torch.zeros(S, dtype=torch.int32, device=device)
 
     def init_state() -> SlotState:
@@ -1028,10 +1258,10 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
 
     # the draft pool: the target pool's block geometry (block ids are
     # shared), the draft's bytes, always unquantized
-    pg_d = None if paged is None else _Paged(
-        draft, S, PagedKVConfig(paged.num_blocks, paged.block_size, False),
-        device)
-    dft = _Lanes(draft, pg_d, S, prefill_pad, device, ads=_d_ads, **arms)
+    dft = lanes(draft, draft_places, None if paged is None else
+                PagedKVConfig(paged.num_blocks, paged.block_size, False),
+                _d_ads)
+    pg_d = dft.pg
 
     @torch.no_grad()
     def _draft_prefill(dkv, tables, poss, prompts, clens, dsts, aids,

@@ -37,7 +37,7 @@ The host half — name → block id, refcounts, LRU eviction of cold adapters
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,25 +135,75 @@ def check_factors(model, cfg: AdapterPoolConfig,
                     f"(module geometry × pool rank {r})")
 
 
+class PlacedAdapterPool(NamedTuple):
+    """An adapter pool over ``model`` places (the serving mesh): ``b_qkv``
+    and ``b_wi`` hold one tensor a place, the output columns of its slice
+    of ``qkv`` / ``wi`` (``cols``: ``{key: [column index a place]}``, on
+    each place's device); the A factors and ``b_wo`` are whole.  A
+    1-tuple is a B factor that stays whole (its weight does)."""
+
+    a_qkv: torch.Tensor
+    b_qkv: Tuple[torch.Tensor, ...]
+    a_wi: torch.Tensor
+    b_wi: Tuple[torch.Tensor, ...]
+    a_wo: torch.Tensor
+    b_wo: torch.Tensor
+    cols: Dict[str, List[torch.Tensor]]
+
+
+def place_adapter_pool(pool: AdapterPool,
+                       cols: Dict[str, Optional[List[torch.Tensor]]],
+                       devices: Sequence) -> PlacedAdapterPool:
+    """``pool`` over places: ``cols[key]`` (``b_qkv``, ``b_wi``) the
+    output columns each place owns, or None to keep that factor whole."""
+    parts, kept = {}, {}
+    for key in ("b_qkv", "b_wi"):
+        whole = getattr(pool, key)
+        ix = cols.get(key)
+        if ix is None:
+            parts[key] = (whole,)
+            kept[key] = [torch.arange(whole.shape[-1],
+                                      device=whole.device)]
+            continue
+        kept[key] = [c.to(dev) for c, dev in zip(ix, devices)]
+        parts[key] = tuple(whole[..., c.to(whole.device)].to(dev)
+                           .contiguous() for c, dev in zip(ix, devices))
+    return PlacedAdapterPool(a_qkv=pool.a_qkv, b_qkv=parts["b_qkv"],
+                             a_wi=pool.a_wi, b_wi=parts["b_wi"],
+                             a_wo=pool.a_wo, b_wo=pool.b_wo, cols=kept)
+
+
+def _factor_parts(pool, key: str):
+    """``(tensor, columns)`` pairs of factor ``key``: one whole tensor
+    (columns None) or a placed pool's parts."""
+    t = getattr(pool, key)
+    if isinstance(t, tuple):
+        return list(zip(t, pool.cols[key]))
+    return [(t, None)]
+
+
 @torch.no_grad()
-def load_factors(pool: AdapterPool, bid: int,
-                 factors: Dict[str, Any]) -> AdapterPool:
+def load_factors(pool, bid: int, factors: Dict[str, Any]):
     """Write one adapter's factor set into block ``bid`` in place (loads
-    are rare next to decode steps).  Returns ``pool``."""
+    are rare next to decode steps; a placed pool's parts take their
+    columns).  Returns ``pool``."""
     for key in FACTOR_KEYS:
         src = factors[key]
         if not isinstance(src, torch.Tensor):
             src = torch.from_numpy(np.asarray(src, np.float32))
-        getattr(pool, key)[:, bid].copy_(src)
+        for dst, cols in _factor_parts(pool, key):
+            part = src if cols is None else src[..., cols.to(src.device)]
+            dst[:, bid].copy_(part)
     return pool
 
 
 @torch.no_grad()
-def zero_block(pool: AdapterPool, bid: int) -> AdapterPool:
+def zero_block(pool, bid: int):
     """Zero block ``bid`` in place: a freed block must not leak a tenant's
     fine-tune into a later lane.  Returns ``pool``."""
     for key in FACTOR_KEYS:
-        getattr(pool, key)[:, bid].zero_()
+        for dst, _ in _factor_parts(pool, key):
+            dst[:, bid].zero_()
     return pool
 
 
@@ -185,8 +235,25 @@ def gather_collection(pool: AdapterPool,
     return col
 
 
-def pool_bytes(pool: Optional[AdapterPool]) -> int:
+def place_collections(pool: PlacedAdapterPool, ids: torch.Tensor,
+                      kernel: bool, places: int) -> List[Dict[str, Any]]:
+    """Each of ``places`` places' adapter collection over a placed pool:
+    :func:`pool_collection` (``kernel``) or :func:`gather_collection` with
+    the place's ``b_qkv``/``b_wi`` slices (the first when a factor stays
+    whole)."""
+    out = []
+    for m in range(places):
+        view = AdapterPool(
+            a_qkv=pool.a_qkv, b_qkv=pool.b_qkv[min(m, len(pool.b_qkv) - 1)],
+            a_wi=pool.a_wi, b_wi=pool.b_wi[min(m, len(pool.b_wi) - 1)],
+            a_wo=pool.a_wo, b_wo=pool.b_wo)
+        out.append((pool_collection if kernel else gather_collection)(
+            view, ids))
+    return out
+
+
+def pool_bytes(pool) -> int:
     if pool is None:
         return 0
-    return sum(getattr(pool, k).numel() * getattr(pool, k).element_size()
-               for k in FACTOR_KEYS)
+    return sum(t.numel() * t.element_size() for k in FACTOR_KEYS
+               for t, _ in _factor_parts(pool, k))

@@ -18,7 +18,7 @@ would cost more than the dispatch.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,13 +68,16 @@ def _set_rows(dst: torch.Tensor, ids: torch.Tensor, vals) -> None:
 
 
 class _Paged:
-    """Gather/scatter machinery over one model's pool geometry."""
+    """Gather/scatter machinery over one model's pool geometry (``n_kv``:
+    the kv heads the pool holds, the model's unless a serving-mesh place
+    holds a slice of them)."""
 
-    def __init__(self, model, num_slots: int, cfg: PagedKVConfig, device):
+    def __init__(self, model, num_slots: int, cfg: PagedKVConfig, device,
+                 n_kv: Optional[int] = None):
         self.cfg = cfg
         self.num_slots = num_slots
         self.n_layers = model.n_layers
-        self.n_kv = model.n_kv
+        self.n_kv = model.n_kv if n_kv is None else int(n_kv)
         self.dh = model.head_dim
         self.max_len = model.max_len
         self.compute_dtype = model.dtype
@@ -332,6 +335,158 @@ class _Paged:
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
         return block_bytes(self.n_layers, self.n_kv, self.dh, itemsize,
                            self.cfg)
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.block_bytes * self.cfg.num_blocks
+
+    @property
+    def bytes_per_pos(self) -> float:
+        return self.block_bytes / self.cfg.block_size
+
+
+class PlacedKV(NamedTuple):
+    """A paged pool split over ``model`` places by kv heads (the serving
+    mesh, :mod:`tpudist_torch.serve.spmd`): ``pool_k``/``pool_v``/
+    ``scale_k``/``scale_v`` hold one tensor a place, ``[L, num_blocks,
+    n_kv/P, block_size, dh]`` and ``[L, num_blocks, n_kv/P]`` on the
+    place's device; the block table and the cursors are the host's
+    decisions and exist once, on the engine's device."""
+
+    pool_k: Tuple[torch.Tensor, ...]
+    pool_v: Tuple[torch.Tensor, ...]
+    scale_k: Tuple[torch.Tensor, ...]
+    scale_v: Tuple[torch.Tensor, ...]
+    table: torch.Tensor
+    cursor: torch.Tensor
+
+    def place(self, m: int) -> PagedKV:
+        """Place ``m``'s pool as a :class:`PagedKV` (the table and cursors
+        on its device)."""
+        dev = self.pool_k[m].device
+        return PagedKV(self.pool_k[m], self.pool_v[m], self.scale_k[m],
+                       self.scale_v[m], self.table.to(dev),
+                       self.cursor.to(dev))
+
+
+class _PlacedPaged:
+    """The machinery of :class:`_Paged` over a :class:`PlacedKV`: one
+    :class:`_Paged` a place over its ``n_kv/P`` heads.  Each per-place
+    view or buffer is a list, one tensor a place; the table and cursors
+    are written once.  The geometry and byte counts are the whole pool's,
+    which the split only divides."""
+
+    def __init__(self, model, num_slots: int, cfg: PagedKVConfig,
+                 devices: Sequence, device):
+        P = len(devices)
+        if model.n_kv % P:
+            raise ValueError(f"{model.n_kv} kv heads do not split over "
+                             f"{P} places")
+        self.places = [_Paged(model, num_slots, cfg, dev,
+                              n_kv=model.n_kv // P) for dev in devices]
+        self.whole = _Paged(model, num_slots, cfg, device)
+        for name in ("cfg", "num_slots", "n_layers", "n_kv", "dh",
+                     "max_len", "compute_dtype", "device",
+                     "blocks_per_slot", "storage_dtype"):
+            setattr(self, name, getattr(self.whole, name))
+
+    def init(self) -> PlacedKV:
+        pools = [pg.init() for pg in self.places]
+        return PlacedKV(
+            *(tuple(getattr(p, f) for p in pools)
+              for f in ("pool_k", "pool_v", "scale_k", "scale_v")),
+            table=torch.full((self.num_slots, self.blocks_per_slot),
+                             self.cfg.num_blocks, dtype=torch.int32,
+                             device=self.device),
+            cursor=torch.zeros(self.num_slots, dtype=torch.int32,
+                               device=self.device))
+
+    def _each(self, pkv: PlacedKV):
+        return [(pg, pkv.place(m), pg.device)
+                for m, pg in enumerate(self.places)]
+
+    def dense_kv(self, pkv: PlacedKV, rows: torch.Tensor):
+        """Each place's dense K/V views through ``rows`` (:meth:`_Paged.
+        dense_kv`): ``(ks, vs)``, lists."""
+        views = [pg.dense_kv(p, rows.to(dev)) for pg, p, dev
+                 in self._each(pkv)]
+        return [k for k, _ in views], [v for _, v in views]
+
+    def window_view(self, span: int):
+        views = [pg.window_view(span) for pg in self.places]
+        return [k for k, _ in views], [v for _, v in views]
+
+    def commit_window(self, pkv: PlacedKV, wk: List[torch.Tensor],
+                      wv: List[torch.Tensor], pos0, span: int,
+                      lane_mask) -> PlacedKV:
+        for (pg, p, dev), k, v in zip(self._each(pkv), wk, wv):
+            pg.commit_window(p, k, v, pos0.to(dev), span,
+                             lane_mask.to(dev))
+        return pkv
+
+    def commit_rows(self, pkv: PlacedKV, rows, dk: List[torch.Tensor],
+                    dv: List[torch.Tensor], pos0, span: int,
+                    lane_mask) -> PlacedKV:
+        for (pg, p, dev), k, v in zip(self._each(pkv), dk, dv):
+            pg.commit_rows(p, rows.to(dev), k, v, pos0.to(dev), span,
+                           lane_mask.to(dev))
+        return pkv
+
+    def commit_lanes(self, pkv: PlacedKV, dk, dv, rows, dsts, pos0,
+                     span: int, cursor) -> PlacedKV:
+        keep = dsts < self.num_slots
+        self.commit_rows(pkv, rows, dk, dv, pos0, span, keep)
+        d = dsts[keep].long()
+        pkv.table[d] = rows[keep].to(torch.int32)
+        pkv.cursor[d] = cursor[keep].to(torch.int32)
+        return pkv
+
+    def commit_quantized(self, pkv: PlacedKV, ids, parts) -> PlacedKV:
+        """``parts[m] = (qk, qv, sk, sv)``: place ``m``'s blocks in storage
+        form (:meth:`_Paged.commit_quantized`)."""
+        for (pg, p, dev), part in zip(self._each(pkv), parts):
+            pg.commit_quantized(p, ids.to(dev), *part)
+        return pkv
+
+    def write_tables(self, rows, pos0, clen, span: int, lane_mask):
+        return self.whole.write_tables(rows, pos0, clen, span, lane_mask)
+
+    def touch_count(self, span: int) -> int:
+        return self.whole.touch_count(span)
+
+    def extract_lane(self, pkv: PlacedKV, slot: int):
+        """The whole lane ``(k, v, cursor)`` (:meth:`_Paged.extract_lane`):
+        the places' heads put back together, on the engine's device."""
+        ks, vs = self.dense_kv(pkv, pkv.table[slot])
+        return (torch.cat([k.to(self.device) for k in ks], 1),
+                torch.cat([v.to(self.device) for v in vs], 1),
+                pkv.cursor[slot].clone())
+
+    def adopt_lane(self, pkv: PlacedKV, slot: int, row: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, cursor) -> PlacedKV:
+        """Scatter a whole lane into ``row``'s blocks, each place its kv
+        heads (:meth:`_Paged.adopt_lane`)."""
+        hk = self.places[0].n_kv
+        for m, (pg, p, dev) in enumerate(self._each(pkv)):
+            heads = slice(m * hk, (m + 1) * hk)
+            pg.adopt_lane(p, slot, row.to(dev), k[:, heads].to(dev),
+                          v[:, heads].to(dev), cursor)
+        pkv.table[slot] = row.reshape(-1).to(pkv.table)
+        pkv.cursor[slot] = torch.as_tensor(cursor).to(pkv.cursor)
+        return pkv
+
+    def release(self, pkv: PlacedKV, slot: int,
+                free_ids: torch.Tensor) -> PlacedKV:
+        for pg, p, dev in self._each(pkv):
+            pg.release(p, self.num_slots, free_ids.to(dev))
+        if 0 <= slot < self.num_slots:
+            pkv.table[slot] = self.cfg.num_blocks
+            pkv.cursor[slot] = 0
+        return pkv
+
+    @property
+    def block_bytes(self) -> int:
+        return sum(pg.block_bytes for pg in self.places)
 
     @property
     def pool_bytes(self) -> int:

@@ -629,6 +629,196 @@ class Block(nn.Module):
         return x + self._ad(ads, F.linear(y, self.wo.to(dtype)), y, "wo")
 
 
+class Places:
+    """The attention context of a forward over ``model`` places
+    (:class:`PlacedLM`): ``places[m]`` is place ``m``'s arm context (a
+    :class:`PagedDecode`, :class:`PagedPrefill` or :class:`SlotDense` over
+    its kv heads' slice of the KV storage),
+    ``adapters[m]`` its adapter collection (None without the seam).  The
+    positions and rope offsets are every place's, read from the first."""
+
+    def __init__(self, places: list, adapters: Optional[list] = None):
+        self.places = places
+        self.adapters = adapters
+        self.rope = places[0].rope
+        self.fused_rope = getattr(places[0], "fused_rope", False)
+
+    def positions(self, batch: int, seq: int, device) -> torch.Tensor:
+        return self.places[0].positions(batch, seq, device)
+
+    def rope_offsets(self) -> torch.Tensor:
+        return self.places[0].rope_offsets()
+
+
+def qkv_place_rows(d_model: int, n_heads: int, n_kv: int, dh: int,
+                   places: int) -> List[torch.Tensor]:
+    """The rows of a ``[dtot, d]`` qkv weight each of ``places`` places
+    owns when attention splits by whole kv heads: its ``n_heads/places``
+    query heads, then its ``n_kv/places`` kv heads' k rows and v rows —
+    contiguous, so the place's own product yields its heads in the layout
+    of a block with ``n_heads/places`` and ``n_kv/places`` heads."""
+    kv_dim = n_kv * dh
+    hq, hk = n_heads // places, n_kv // places
+    out = []
+    for i in range(places):
+        q = torch.arange(i * hq * dh, (i + 1) * hq * dh)
+        k = d_model + torch.arange(i * hk * dh, (i + 1) * hk * dh)
+        out.append(torch.cat([q, k, k + kv_dim]))
+    return out
+
+
+def even_rows(n: int, places: int) -> List[torch.Tensor]:
+    """``places`` contiguous, equal runs of ``range(n)``."""
+    k = n // places
+    return [torch.arange(i * k, (i + 1) * k) for i in range(places)]
+
+
+class PlacedLM:
+    """The serving forward of a :class:`TransformerLM` over ``model``
+    places (:mod:`tpudist_torch.serve.spmd`): ``devices[m]`` holds place
+    ``m``'s slices of the split weights, each a contiguous copy in the
+    compute dtype, and makes its launches.
+
+    Per block: LayerNorm once; each of ``attn_places`` places projects its
+    q/k/v columns (:func:`qkv_place_rows`: the fused RoPE+QKV kernel at
+    ``n_heads/P``, ``n_kv/P`` heads on the kernel arms) and attends over
+    its kv heads' slice of the KV storage (``ctx.places[m]``); the heads
+    are gathered and ``proj`` runs once.  ``wi`` is split over
+    ``wi_places`` places and gathered after GELU, ``wo`` runs once — or,
+    with ``mlp_fn`` (:func:`~tpudist_torch.serve.spmd.
+    serve_overlap_mlp_fn`), ``wi`` and ``wo`` both split over the ring.
+    ``head`` is split over ``head_places`` places and the logits gathered.
+    A count of 1 keeps that piece whole: it runs once on the first place.
+    Adapters split ``b_qkv`` and ``b_wi`` with their weights
+    (``ctx.adapters[m]``); each place's LoRA delta reads its slice.
+
+    The embedding, the norms, ``proj`` and the gathers run once per
+    forward, not once a place: on a folded card nothing replicated is
+    computed twice.  Every split column is the same dot product as the
+    whole weight's, so the result is the unsplit model's wherever the
+    device's GEMM rounds a column alike at both widths."""
+
+    def __init__(self, model: "TransformerLM", devices, *,
+                 attn_places: int = 1, wi_places: int = 1,
+                 head_places: int = 1, wo_places: int = 1,
+                 mlp_fn: Optional[Callable] = None, _blocks=None,
+                 _head=None):
+        if getattr(model, "mlp_fn", None) is not None:
+            raise ValueError("an injected mlp_fn replaces the FFN the "
+                             "serving mesh splits")
+        self.model = model
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.attn_places, self.wi_places = attn_places, wi_places
+        self.head_places, self.wo_places = head_places, wo_places
+        self.mlp_fn = mlp_fn
+        dt = model.dtype
+
+        def cut(w, rows):
+            return [w.detach()[ix.to(w.device)].to(dt).to(dev).contiguous()
+                    for ix, dev in zip(rows, self.devices)]
+
+        if _blocks is None:
+            _blocks = []
+            for blk in model.blocks:
+                pw = {}
+                if attn_places > 1:
+                    pw["qkv"] = cut(blk.qkv, qkv_place_rows(
+                        blk.d_model, blk.n_heads, blk.n_kv, blk.dh,
+                        attn_places))
+                if wi_places > 1:
+                    pw["wi"] = cut(blk.wi, even_rows(blk.d_ff, wi_places))
+                if wo_places > 1:
+                    pw["wo"] = cut(blk.wo, even_rows(blk.d_model,
+                                                     wo_places))
+                _blocks.append(pw)
+        self.blocks = _blocks
+        self.head = _head if _head is not None else (
+            cut(model.head, even_rows(model.vocab, head_places))
+            if head_places > 1 else None)
+
+    def __getattr__(self, name):
+        # the model's geometry (n_layers, n_kv, rope, max_len, ...)
+        return getattr(self.__dict__["model"], name)
+
+    def draft(self, draft: "TransformerLM") -> "PlacedLM":
+        """The tied draft's places (:func:`tied_draft` of this model): its
+        blocks' and head's place weights are this model's, shared."""
+        return PlacedLM(draft, self.devices, attn_places=self.attn_places,
+                        wi_places=self.wi_places,
+                        head_places=self.head_places,
+                        wo_places=self.wo_places, mlp_fn=self.mlp_fn,
+                        _blocks=self.blocks[:draft.n_layers],
+                        _head=self.head)
+
+    def __call__(self, tokens: torch.Tensor, ctx: Places) -> torch.Tensor:
+        m = self.model
+        x = m.embed(tokens, ctx)
+        for blk, pw in zip(m.blocks, self.blocks):
+            x = self._block(blk, pw, x, ctx)
+        x = layer_norm(x, m.ln_f).to(m.dtype)
+        if self.head is None:
+            return F.linear(x, m.head.to(m.dtype))
+        return torch.cat([F.linear(x.to(dev), w).to(x.device)
+                          for w, dev in zip(self.head, self.devices)], -1)
+
+    @staticmethod
+    def _on(ads: Optional[dict], dev) -> Optional[dict]:
+        return None if ads is None else {k: v.to(dev)
+                                         for k, v in ads.items()}
+
+    def _block(self, blk: Block, pw: dict, x: torch.Tensor, ctx: Places):
+        dtype = blk.dtype
+        b, s, _ = x.shape
+        ads = ctx.adapters
+        P = self.attn_places
+        hq, hk, dh = blk.n_heads // P, blk.n_kv // P, blk.dh
+        h = layer_norm(x, blk.ln1).to(dtype)
+        outs = []
+        for i, (c, dev) in enumerate(zip(ctx.places, self.devices[:P])):
+            hm = h.to(dev)
+            a = self._on(None if ads is None else ads[i], dev)
+            w = pw["qkv"][i] if "qkv" in pw else blk.qkv.to(dtype)
+            if ctx.fused_rope:
+                offsets = c.rope_offsets().to(torch.int32).to(dev)
+                extra = on = None
+                if a is not None:
+                    extra, on = blk._delta(a, hm, "qkv"), a["on"]
+                q, k, v = fused_rope_qkv(hm, w.t(), offsets, extra, on,
+                                         n_heads=hq, n_kv=hk, dh=dh,
+                                         rope=ctx.rope)
+                attn = c.attend(blk.layer_idx, q, k, v, rotated=True)
+            else:
+                qkv = blk._ad(a, F.linear(hm, w), hm, "qkv")
+
+                def heads(t, n):
+                    return t.reshape(b, s, n, dh).transpose(1, 2)
+
+                attn = c.attend(blk.layer_idx,
+                                heads(qkv[..., :hq * dh], hq),
+                                heads(qkv[..., hq * dh:(hq + hk) * dh], hk),
+                                heads(qkv[..., (hq + hk) * dh:], hk))
+            outs.append(attn.to(x.device))
+        attn = torch.cat(outs, 1).transpose(1, 2).reshape(b, s, blk.d_model)
+        x = x + F.linear(attn.to(dtype), blk.proj.to(dtype))
+        h = layer_norm(x, blk.ln2).to(dtype)
+        a0 = None if ads is None else ads[0]
+        if self.mlp_fn is not None:
+            return x + self.mlp_fn([w.t() for w in pw["wi"]],
+                                   [w.t() for w in pw["wo"]], h)
+        if "wi" in pw:
+            parts = []
+            for i, (w, dev) in enumerate(zip(pw["wi"], self.devices)):
+                hm = h.to(dev)
+                a = self._on(None if ads is None else ads[i], dev)
+                y = blk._ad(a, F.linear(hm, w), hm, "wi")
+                parts.append(F.gelu(y, approximate="tanh").to(x.device))
+            y = torch.cat(parts, -1)
+        else:
+            y = F.gelu(blk._ad(a0, F.linear(h, blk.wi.to(dtype)), h, "wi"),
+                       approximate="tanh")
+        return x + blk._ad(a0, F.linear(y, blk.wo.to(dtype)), y, "wo")
+
+
 def _same_device(d, dev: torch.device) -> bool:
     """Whether ``d`` names ``dev`` (``cuda`` without an index names the
     current card)."""

@@ -7,11 +7,14 @@ from tpudist_torch.runtime.bootstrap import (BootstrapError, ProcessContext,
                                              process_count, process_index,
                                              resolve_process_context,
                                              shutdown)
+from tpudist_torch.runtime.mesh import (MeshConfig, make_hybrid_mesh,
+                                        make_mesh)
 from tpudist_torch.runtime.rank_logging import describe_runtime, rank_print
 from tpudist_torch.runtime.seeding import (fold_in_process, per_process_seed,
                                            resolve_shared_seed)
 
-__all__ = ["BootstrapError", "ProcessContext", "describe_runtime",
-           "fold_in_process", "host_group", "initialize", "per_process_seed",
+__all__ = ["BootstrapError", "MeshConfig", "ProcessContext",
+           "describe_runtime", "fold_in_process", "host_group", "initialize",
+           "make_hybrid_mesh", "make_mesh", "per_process_seed",
            "process_count", "process_index", "rank_print",
            "resolve_process_context", "resolve_shared_seed", "shutdown"]

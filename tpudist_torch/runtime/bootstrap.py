@@ -279,6 +279,14 @@ def local_rank() -> int:
     return ctx.local_rank
 
 
+def local_world_size() -> int:
+    """The number of ranks on this process's host, as its launch contract
+    states it: from the context of :func:`initialize`, else from the launch
+    environment."""
+    ctx = _INITIALIZED_CTX or resolve_process_context()
+    return ctx.local_world_size
+
+
 def process_index() -> int:
     """This process's rank in the process group (0 without one)."""
     import torch.distributed as dist

@@ -32,7 +32,12 @@ group and the devices a process owns, the reference's own shape
   ProcessGroupRing`); in a job of one process the ``S`` stages fold onto
   the rank's device (a :class:`~tpudist_torch.parallel.LocalRing`), as the
   ``seq`` shards do;
-- the multi-slice mesh is not ported yet: ROADMAP queue A, item A8.
+- the hybrid mesh (:func:`make_hybrid_mesh`, the JAX package's DCN ×
+  ICI mesh): a JAX process is a node here and a JAX device a rank, so the
+  granule is the node.  ``data`` is the axis between nodes and every
+  ``stage``/``seq`` subgroup stays inside one node: rank coordinates are
+  laid out node by node, whatever order the launcher numbered the ranks
+  in.
 
 :class:`MeshConfig` is copied from the JAX package and pinned equal to it.
 A :class:`Mesh` is a plain record of the axes, this rank's coordinates on
@@ -43,11 +48,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+import os
+import socket
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from tpudist_torch.runtime.bootstrap import (local_rank, process_count,
+from tpudist_torch.runtime.bootstrap import (host_group, local_rank,
+                                             local_world_size, process_count,
                                              process_index)
 
 AXIS_DATA = "data"
@@ -55,10 +63,6 @@ AXIS_STAGE = "stage"
 AXIS_SEQ = "seq"
 AXIS_MODEL = "model"
 ALL_AXES = (AXIS_DATA, AXIS_STAGE, AXIS_SEQ, AXIS_MODEL)
-
-_NOT_PORTED = ("the {} is not ported yet (multi-slice meshes): ROADMAP "
-               "queue A, item A8")
-
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
@@ -145,29 +149,49 @@ def _devices(model_size: int, devices, device) -> Tuple[torch.device, ...]:
     return (device,) * model_size
 
 
+def _order(order: Optional[Sequence[int]], world: int) -> List[int]:
+    """The ranks in mesh order (``order[p]`` the rank at row-major position
+    ``p`` of the axes over the process group); the launcher's numbering
+    when None."""
+    if order is None:
+        return list(range(world))
+    order = [int(r) for r in order]
+    if sorted(order) != list(range(world)):
+        raise ValueError(f"a rank order must hold each of the {world} ranks "
+                         f"once, got {order}")
+    return order
+
+
 def data_parallel_mesh(devices: Optional[Sequence] = None, *,
-                       device="cuda") -> Mesh:
+                       device="cuda",
+                       order: Optional[Sequence[int]] = None) -> Mesh:
     """The 1-D ``data`` mesh over the process group — the DDP default
     (SURVEY.md §2.4).  The rank's device is ``devices[0]`` when given,
-    else ``cuda:local_rank`` (``demo.py:66``) or the CPU."""
+    else ``cuda:local_rank`` (``demo.py:66``) or the CPU.  ``order``
+    (:func:`make_hybrid_mesh`) puts the ranks on the axis in another order
+    than their numbers."""
     devs = _devices(1, devices, device)
+    pos = _order(order, process_count()).index(process_index())
     return Mesh((AXIS_DATA,), {AXIS_DATA: process_count()},
-                {AXIS_DATA: process_index()}, devs)
+                {AXIS_DATA: pos}, devs)
 
 
 def data_model_mesh(model_size: int = 2,
                     devices: Optional[Sequence] = None, *,
-                    device="cuda") -> Mesh:
+                    device="cuda",
+                    order: Optional[Sequence[int]] = None) -> Mesh:
     """The 2-D ``('data', 'model')`` mesh of the one-model-several-devices
     demo (``demo_one_model_multi_gpu.py``'s two GPUs a process): ``data``
     is the process group, ``model`` the ``model_size`` devices this rank
     owns.  ``devices`` (this rank's replica, taken as given, repeats
     allowed) or, on CUDA, :func:`replica_devices` for the local rank; on
-    the CPU every stage is the CPU."""
+    the CPU every stage is the CPU.  ``order`` as for
+    :func:`data_parallel_mesh`."""
     devs = _devices(model_size, devices, device)
+    pos = _order(order, process_count()).index(process_index())
     return Mesh((AXIS_DATA, AXIS_MODEL),
                 {AXIS_DATA: process_count(), AXIS_MODEL: model_size},
-                {AXIS_DATA: process_index()}, devs)
+                {AXIS_DATA: pos}, devs)
 
 
 def model_devices(model_size: int, device="cuda") -> Tuple[torch.device,
@@ -187,7 +211,8 @@ def model_devices(model_size: int, device="cuda") -> Tuple[torch.device,
 
 
 def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
-                  device="cuda", model: int = 1) -> Mesh:
+                  device="cuda", model: int = 1,
+                  order: Optional[Sequence[int]] = None) -> Mesh:
     """The ``('data', 'seq')`` mesh of the long-context demo, or with
     ``model > 1`` the 3-D ``('data', 'seq', 'model')`` one, ``model`` the
     devices of each rank (``devices``, or :func:`_devices`).  Over a
@@ -212,19 +237,19 @@ def data_seq_mesh(seq: int, devices: Optional[Sequence] = None, *,
                          f"{world} ranks of the process group")
     import torch.distributed as dist
 
-    rank, rows = process_index(), world // seq
-    groups = [dist.new_group(ranks=list(range(d * seq, (d + 1) * seq)))
-              for d in range(rows)]
-    cols = [dist.new_group(ranks=list(range(s, world, seq)))
-            for s in range(seq)]
-    d, s = divmod(rank, seq)
-    ring = ProcessGroupRing(groups[d], range(d * seq, (d + 1) * seq), s)
+    order, rows = _order(order, world), world // seq
+    row_ranks = [order[d * seq:(d + 1) * seq] for d in range(rows)]
+    groups = [dist.new_group(ranks=r) for r in row_ranks]
+    cols = [dist.new_group(ranks=order[s::seq]) for s in range(seq)]
+    d, s = divmod(order.index(process_index()), seq)
+    ring = ProcessGroupRing(groups[d], row_ranks[d], s)
     return Mesh(names, {AXIS_DATA: rows, AXIS_SEQ: seq, **extra},
                 {AXIS_DATA: d, AXIS_SEQ: s}, devs, ring, cols[s])
 
 
 def data_stage_mesh(stage: int, devices: Optional[Sequence] = None, *,
-                    device="cuda", seq: int = 1, model: int = 1) -> Mesh:
+                    device="cuda", seq: int = 1, model: int = 1,
+                    order: Optional[Sequence[int]] = None) -> Mesh:
     """The ``('data', 'stage')`` mesh of the pipeline demo, with ``seq``
     and ``model`` beside it when above 1, in the JAX order ``(data, stage,
     seq, model)``.  Over a process group of ``W`` ranks (``W`` a multiple
@@ -233,7 +258,9 @@ def data_stage_mesh(stage: int, devices: Optional[Sequence] = None, *,
     ``d``; the stage subgroups (one a ``(d, q)``), then the seq subgroups
     (one a ``(d, s)``), then the data subgroups (one a ``(s, q)``) are made
     by every rank, in that order.  In a job of one process the stages (and
-    seq shards) fold onto the rank's first device."""
+    seq shards) fold onto the rank's first device.  ``order``
+    (:func:`make_hybrid_mesh`): the place ``(d·stage + s)·seq + q`` is rank
+    ``order[(d·stage + s)·seq + q]`` instead."""
     from tpudist_torch.parallel.ring import LocalRing, ProcessGroupRing
 
     for name, n in (("stage", stage), ("seq", seq)):
@@ -259,9 +286,10 @@ def data_stage_mesh(stage: int, devices: Optional[Sequence] = None, *,
     import torch.distributed as dist
 
     rows = world // (stage * seq)
+    order = _order(order, world)
 
     def rank(d, s, q):
-        return (d * stage + s) * seq + q
+        return order[(d * stage + s) * seq + q]
 
     stage_groups = {(d, q): dist.new_group(
         ranks=[rank(d, s, q) for s in range(stage)])
@@ -272,7 +300,7 @@ def data_stage_mesh(stage: int, devices: Optional[Sequence] = None, *,
     data_groups = {(s, q): dist.new_group(
         ranks=[rank(d, s, q) for d in range(rows)])
         for s in range(stage) for q in range(seq)}
-    r = process_index()
+    r = order.index(process_index())
     d, s, q = r // (stage * seq), (r // seq) % stage, r % seq
     stages = ProcessGroupRing(stage_groups[(d, q)],
                               [rank(d, i, q) for i in range(stage)], s)
@@ -286,11 +314,13 @@ def data_stage_mesh(stage: int, devices: Optional[Sequence] = None, *,
 
 
 def make_mesh(config: Optional[MeshConfig] = None, *,
-              devices: Optional[Sequence] = None, device="cuda") -> Mesh:
+              devices: Optional[Sequence] = None, device="cuda",
+              order: Optional[Sequence[int]] = None) -> Mesh:
     """A mesh from a :class:`MeshConfig` over this job's devices
     (``model`` a rank, ``data`` the process group, ``stage`` and ``seq``
     over the process group or folded onto a one-process job's device): the
-    meshes above."""
+    meshes above.  ``order`` lays the ranks out in another order than their
+    numbers (:func:`make_hybrid_mesh`)."""
     config = config or MeshConfig()
     if config.model == -1:
         raise ValueError("the model axis needs a size: a rank owns the "
@@ -307,19 +337,106 @@ def make_mesh(config: Optional[MeshConfig] = None, *,
         config.resolve((world if world > 1 else config.stage * config.seq)
                        * config.model)
         return data_stage_mesh(config.stage, devices, device=device,
-                               seq=config.seq, model=config.model)
+                               seq=config.seq, model=config.model,
+                               order=order)
     if config.seq != 1:
         world = process_count()
         config.resolve((world if world > 1 else config.seq) * config.model)
         return data_seq_mesh(config.seq, devices, device=device,
-                             model=config.model)
+                             model=config.model, order=order)
     config.resolve(process_count() * config.model)
     if config.model == 1:
-        return data_parallel_mesh(devices, device=device)
-    return data_model_mesh(config.model, devices, device=device)
+        return data_parallel_mesh(devices, device=device, order=order)
+    return data_model_mesh(config.model, devices, device=device,
+                           order=order)
 
 
-def make_hybrid_mesh(*args, **kwargs) -> Mesh:
-    """The multi-slice DCN × ICI mesh of the JAX package: not ported
-    (A8)."""
-    raise NotImplementedError(_NOT_PORTED.format("hybrid (DCN x ICI) mesh"))
+def node_name() -> str:
+    """The name of the node this process runs on: ``TPUDIST_NODE_NAME``
+    when set (containers whose host name does not name the machine), else
+    the host name."""
+    return os.environ.get("TPUDIST_NODE_NAME", "").strip() or \
+        socket.gethostname()
+
+
+def job_nodes() -> List[List[int]]:
+    """The ranks of each node of the job, each node's ranks ascending and
+    the nodes in the order of their lowest rank.  The launch contract's
+    ``local_world_size`` says how many ranks a node holds; an all-gather of
+    :func:`node_name` says which, and the two must agree."""
+    world = process_count()
+    if world == 1:
+        return [[0]]
+    import torch.distributed as dist
+
+    names: list = [None] * world
+    dist.all_gather_object(names, node_name(), group=host_group())
+    by_name: Dict[str, List[int]] = {}
+    for r, name in enumerate(names):
+        by_name.setdefault(name, []).append(r)
+    nodes = sorted(by_name.values(), key=lambda ranks: ranks[0])
+    per = local_world_size()
+    if world % per or len(nodes) != world // per or any(
+            len(ranks) != per for ranks in nodes):
+        raise ValueError(
+            f"the launch contract puts {per} ranks on each node of a "
+            f"{world}-rank job, but the ranks' node names group them "
+            f"{[len(ranks) for ranks in nodes]}")
+    return nodes
+
+
+def make_hybrid_mesh(config: Optional[MeshConfig] = None, *,
+                     force_granules: Optional[int] = None,
+                     devices: Optional[Sequence] = None,
+                     device="cuda") -> Mesh:
+    """Multi-node mesh with DCN/ICI-aware rank placement — the JAX
+    package's ``make_hybrid_mesh``, a JAX process read as a node and a JAX
+    device as a rank.
+
+    Between nodes the fabric is an order of magnitude slower than inside
+    one, so the ``data`` axis (one gradient all-reduce a step) spans the
+    nodes and ``stage``/``seq`` (activations every layer) stay inside a
+    node; ``model`` is the devices of one rank, inside its node already.
+    The nodes come from :func:`job_nodes`; the ranks are laid out node by
+    node (the data axis's outer positions iterate the nodes, each node's
+    ranks fill its block in rank order), so a launcher that numbers ranks
+    across nodes still gets every ``stage``/``seq`` subgroup on one node.
+    The ``data`` axis must divide by the node count (JAX's refusal, its
+    text).  A job on one node falls back to :func:`make_mesh`.
+
+    ``force_granules=k`` is the one-node validation path: ``k`` contiguous
+    blocks of ranks stand in for nodes (the same layout as on ``k`` real
+    nodes numbered in order).  It raises when the job spans more than one
+    node, as JAX's does over several processes."""
+    config = (config or MeshConfig())
+    if config.model == -1:
+        raise ValueError("the model axis needs a size: a rank owns the "
+                         "devices of one replica")
+    world = process_count()
+    config = (config.resolve(world * config.model) if world > 1 else
+              dataclasses.replace(config, data=max(config.data, 1)))
+    nodes = job_nodes()
+    if force_granules is not None and len(nodes) > 1:
+        raise ValueError(
+            "force_granules is the single-node validation path; this job "
+            f"spans {len(nodes)} nodes — real granules are detected from "
+            "the nodes' names")
+    if len(nodes) == 1 and force_granules is None:
+        return make_mesh(config, devices=devices, device=device)
+    n_granules = force_granules if force_granules is not None \
+        else len(nodes)
+    sizes = config.axis_sizes()
+    if sizes["data"] % n_granules != 0:
+        raise ValueError(
+            f"hybrid mesh: data axis {sizes['data']} not divisible by "
+            f"{n_granules} DCN granules (the data axis is the DCN axis)"
+        )
+    if force_granules is not None:
+        if world % n_granules != 0:
+            raise ValueError(
+                f"{world} ranks not divisible into {n_granules} granules")
+        per = world // n_granules
+        nodes = [list(range(i * per, (i + 1) * per))
+                 for i in range(n_granules)]
+    order = [r for ranks in nodes for r in ranks]
+    return make_mesh(config, devices=devices, device=device, order=order)

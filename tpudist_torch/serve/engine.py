@@ -1,5 +1,5 @@
 """Slot-based continuous-batching decode engine — the PyTorch port of
-``tpudist/serve/engine.py``, the serving mesh aside: a paged KV pool
+``tpudist/serve/engine.py``: a paged KV pool
 (native or int8, with or without a prefix cache) or the dense slot cache
 (``paged=False``: every slot owns ``max_len`` positions and a free slot is
 the whole admission budget); decode through the paged decode kernel or a
@@ -16,7 +16,8 @@ verifies them in one pass and emits ``accepted + 1``), optionally structured
 output (``constrain``: a grammar-table pool beside the KV pool, compiled
 grammars bound to lanes by the host registry of :mod:`tpudist_torch.
 constrain.registry`, each lane's row masked by the sampling kernel) and
-top-n logprobs (``logprobs``).
+top-n logprobs (``logprobs``), and optionally a serving mesh (``mesh``:
+``data × model`` places, :mod:`tpudist_torch.serve.spmd`).
 
 The engine is the device half: ``num_slots`` KV lanes over the slot
 programs of :func:`tpudist_torch.models.make_slot_decode`, plus host shadow
@@ -46,12 +47,14 @@ from tpudist_torch import ops
 from tpudist_torch.constrain import (ConstrainConfig, GrammarError,
                                      GrammarRegistry, compile_cache_stats)
 from tpudist_torch.models import lora as _lora
-from tpudist_torch.models.generate import make_slot_decode
+from tpudist_torch.models.generate import (make_slot_decode,
+                                           moe_serving_unported)
 from tpudist_torch.models.paged import PagedKVConfig
 from tpudist_torch.models.transformer import (TransformerLM, resolve_device,
                                               tied_draft)
 from tpudist_torch.serve.adapters import (AdapterMissingError,
                                           AdapterRegistry)
+from tpudist_torch.serve import spmd
 from tpudist_torch.serve.paged_alloc import BlockAllocator
 
 #: ``start_batch`` item: (slot, prompt_1d_int32, temperature, seed, max_new)
@@ -66,15 +69,14 @@ from tpudist_torch.serve.paged_alloc import BlockAllocator
 InsertItem = Tuple[int, np.ndarray, float, int, int]
 
 
+def _tensors(t) -> list:
+    """A tensor, or a placed cache's tuple of them, as a list."""
+    return list(t) if isinstance(t, tuple) else [t]
+
+
 def _pow2_floor(k: int) -> int:
     """Largest power of two ``<= k`` (the decode block-size buckets)."""
     return 1 << (max(1, k).bit_length() - 1)
-
-
-def _unported(knob: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} is not ported to tpudist_torch yet (ROADMAP.md queue A "
-        f"item {item})")
 
 
 class SlotEngine:
@@ -104,7 +106,18 @@ class SlotEngine:
     and next-state tables (block ``G`` the all-True sentinel free lanes
     index), written once per grammar bind.  ``logprobs = n`` returns the
     top-``n`` post-mask logprobs of every decoded token in the decode
-    blocks' ``info["logprobs"]``."""
+    blocks' ``info["logprobs"]``.
+
+    ``mesh`` (a :class:`~tpudist_torch.serve.spmd.ServeMeshConfig` or its
+    ``"DxM"`` shape) serves over ``data × model`` places (folded onto the
+    engine's card when the host has fewer): the model's weights, the KV
+    storage and the adapter pool split as :mod:`tpudist_torch.serve.spmd`
+    lays them out, each place making its own kernel launches; the host
+    half — state, tables, allocator, registries — is the unsplit
+    engine's.  The TP overlap (``tp_overlap`` or the knobs) runs the MLP
+    through the collective matmuls, except beside adapters, as in JAX; a
+    tied draft shares the target's places.  :meth:`spmd_stats` reports
+    the layout."""
 
     def __init__(self, model, *, num_slots: int = 4,
                  prefill_pad: Optional[int] = None,
@@ -154,8 +167,6 @@ class SlotEngine:
                 "lora_kernel=True rides the slot-batched kernel programs "
                 "only — enable attn_kernel='paged' and/or "
                 "prefill_kernel=True (TPUDIST_SERVE_LORA_KERNEL)")
-        if mesh is not None:
-            raise _unported("mesh (the SPMD serving mesh)", "8")
         if adapters and (getattr(model, "n_experts", 0) > 0
                          or getattr(model, "mlp_fn", None) is not None):
             raise ValueError(
@@ -164,6 +175,38 @@ class SlotEngine:
         self.device = resolve_device(device)
         model = model.to(self.device)
         self.model = model
+        # -- the serving mesh: the model's forward over data × model places
+        # (spmd.place_model), the KV, adapter and draft layouts following
+        self.mesh = None
+        self.tp_overlap = "off"
+        self._mesh_cfg = None
+        self.places = None
+        if mesh is not None:
+            cfg = (mesh if isinstance(mesh, spmd.ServeMeshConfig)
+                   else spmd.ServeMeshConfig(shape=str(mesh)))
+            self._mesh_cfg = cfg
+            self.mesh = spmd.build_serve_mesh(cfg, self.device)
+        if self.mesh is not None:
+            if getattr(model, "n_experts", 0) > 0:
+                raise moe_serving_unported()
+            self.tp_overlap = spmd.resolve_serve_overlap(self._mesh_cfg)
+            mlp_fn = None
+            if self.tp_overlap != "off" and not adapters:
+                # the ring needs both FFN weights split; the fused
+                # overlapped MLP hides the wi/wo seam adapters wrap
+                mlp_fn = spmd.serve_overlap_mlp_fn(self.mesh,
+                                                   mode=self.tp_overlap)
+                m = self.mesh.model
+                if model.d_ff % m or model.d_model % m:
+                    mlp_fn = None
+            if mlp_fn is None:
+                self.tp_overlap = "off"
+            self._param_sharding = spmd.serve_param_sharding(
+                self.mesh, model, overlap=mlp_fn is not None)
+            self._spmd_param_stats = spmd.sharded_param_bytes(
+                model, self._param_sharding)
+            self.places = spmd.place_model(self.mesh, model,
+                                           self._param_sharding, mlp_fn)
         self.attn_kernel = attn_kernel
         self.prefill_kernel = bool(prefill_kernel)
         self.sample_kernel = bool(sample_kernel)
@@ -182,6 +225,9 @@ class SlotEngine:
                 num_blocks=max(1, int(adapter_blocks)),
                 rank=max(1, int(adapter_rank)))
             self.apool = _lora.init_adapter_pool(model, self.adapter_cfg)
+            if self.mesh is not None:
+                self.apool = spmd.place_adapter_pool(self.mesh, self.apool,
+                                                     model)
             self.adapters = AdapterRegistry(self.adapter_cfg.num_blocks)
         # -- structured output: the grammar-table pool, the host registry
         # deciding which compiled grammar occupies which block, and the
@@ -236,13 +282,21 @@ class SlotEngine:
         self.spec = spec_draft is not None
         self.spec_k = max(1, int(spec_k))
         self.draft_model: Optional[TransformerLM] = None
+        draft_places = None
         if isinstance(spec_draft, bool):
             raise TypeError("spec_draft is a layer count or a TransformerLM")
         if isinstance(spec_draft, int):
             self.draft_model = tied_draft(model, spec_draft)
+            if self.places is not None:
+                draft_places = self.places.draft(self.draft_model)
         elif isinstance(spec_draft, TransformerLM):
             self.draft_model = spec_draft.to(self.device).requires_grad_(
                 False)
+            if self.mesh is not None:
+                draft_places = spmd.place_model(
+                    self.mesh, self.draft_model,
+                    spmd.serve_spec_param_sharding(self.mesh,
+                                                   self.draft_model))
         elif spec_draft is not None:
             raise TypeError(f"spec_draft must be an int or a TransformerLM, "
                             f"got {type(spec_draft).__name__}")
@@ -254,7 +308,9 @@ class SlotEngine:
                                     lora_kernel=self.lora_kernel,
                                     adapters=self.adapter_cfg,
                                     spec=self.draft_model,
-                                    constrain=constrain, logprobs=self.n_lp)
+                                    constrain=constrain, logprobs=self.n_lp,
+                                    places=self.places,
+                                    draft_places=draft_places)
         #: the block allocator (None on the dense engine: a free slot is
         #: the whole admission budget)
         self.alloc: Optional[BlockAllocator] = None
@@ -388,8 +444,32 @@ class SlotEngine:
         if self.spec:
             out["draft_pool_bytes"] = (
                 self.fns.draft_paged.pool_bytes if self.alloc is not None
-                else self.dcache.k.nbytes + self.dcache.v.nbytes)
+                else sum(t.nbytes for t in _tensors(self.dcache.k)
+                         + _tensors(self.dcache.v)))
         return out
+
+    def spmd_stats(self) -> Dict[str, object]:
+        """The serving-mesh story (JAX's keys): mesh geometry, the
+        TP-overlap routing mode, and where the parameter bytes live; plus
+        ``replicated``, the pieces a ``model`` axis above 1 leaves whole
+        because it does not divide them (``attention``: ``n_kv``, so
+        ``qkv`` and the KV; ``wi``; ``head``) and ``slots`` where ``data``
+        does not divide the dense arena's slots.  Trivial on a
+        single-device engine."""
+        if self.mesh is None:
+            return {"mesh": None, "tp_overlap": "off"}
+        d, m = self._mesh_cfg.dims
+        pl = self.places
+        whole = [name for name, n in (("attention", pl.attn_places),
+                                      ("wi", pl.wi_places),
+                                      ("head", pl.head_places))
+                 if m > 1 and n == 1]
+        if self.alloc is None and d > 1 and self.num_slots % d:
+            whole.append("slots")
+        return {"mesh": {"data": d, "model": m},
+                "n_devices": self._mesh_cfg.n_devices,
+                "tp_overlap": self.tp_overlap,
+                **self._spmd_param_stats, "replicated": whole}
 
     def swap_draft(self, new_params):
         raise NotImplementedError(

@@ -2,7 +2,7 @@
 ``tpudist/serve/server.py`` for the serving slices: ingestion, the engine
 loop, graceful drain, per-tenant LoRA adapters, speculative decoding and
 structured output (grammars and JSON schemas, stop sequences, top-n
-logprobs); telemetry, the host KV tier, preemption, load shedding and
+logprobs) and the serving mesh (``mesh``, ``tp_overlap``); telemetry, the host KV tier, preemption, load shedding and
 disaggregation are later slices.
 
 One background thread drives the engine; any number of caller threads
@@ -32,9 +32,6 @@ _IDLE_WAIT_S = 0.01
 #: on, its ROADMAP.md queue A item).  Set to a non-empty value, each one
 #: raises instead of being dropped.
 _UNPORTED_ENV = {
-    "MESH": ("the serving mesh (serve/spmd.py)", "8"),
-    "TP_OVERLAP": ("the collective matmuls (parallel/overlap.py)",
-                   "6 (A6c)"),
     "HOST_TIER": ("the host KV tier (serve/host_tier.py)", "8"),
     "PREEMPT": ("preemption (serve/overload.py)", "8"),
     "SHED": ("load shedding (serve/overload.py)", "8"),
@@ -126,6 +123,11 @@ class ServeConfig:
     # engine-wide top-n logprobs width per emitted token (0 = off); a
     # request asks any ``submit(logprobs=n)`` with n <= this
     logprobs: int = 0
+    # -- the serving mesh (serve/spmd.py): "DxM" (data × model) or "M";
+    # "1" = single device.  Declarative on purpose (AMP-style): a planner
+    # searches this field, not the code.
+    mesh: Optional[str] = None
+    tp_overlap: Optional[str] = None  # off|ring|bidir; None = knob chain
     disagg: bool = False  # prefill/decode disaggregation (not ported)
 
     def resolve_spec_draft(self, model):
@@ -137,6 +139,14 @@ class ServeConfig:
             return self.spec_draft
         return int(self.spec_draft_layers
                    or max(1, int(model.n_layers) // 2))
+
+    def mesh_config(self):
+        """The engine-facing mesh spec (None when unset/1-device)."""
+        if not self.mesh or self.mesh.strip() in ("", "1", "1x1"):
+            return None
+        from tpudist_torch.serve.spmd import ServeMeshConfig
+
+        return ServeMeshConfig(shape=self.mesh, tp_overlap=self.tp_overlap)
 
     @classmethod
     def from_env(cls) -> "ServeConfig":
@@ -183,6 +193,9 @@ class ServeConfig:
             constrain_blocks=env_int("TPUDIST_CONSTRAIN_BLOCKS", 4) or 4,
             constrain_states=env_int("TPUDIST_CONSTRAIN_STATES", 64) or 64,
             logprobs=env_int("TPUDIST_SERVE_LOGPROBS", 0) or 0,
+            mesh=os.environ.get("TPUDIST_SERVE_MESH", "").strip() or None,
+            tp_overlap=os.environ.get(
+                "TPUDIST_SERVE_TP_OVERLAP", "").strip() or None,
             disagg=env_flag("TPUDIST_SERVE_DISAGG", False),
         )
 
@@ -242,7 +255,8 @@ class InferenceServer:
             adapter_blocks=cfg.adapter_blocks,
             adapter_rank=cfg.adapter_rank,
             spec_draft=cfg.resolve_spec_draft(model), spec_k=cfg.spec_k,
-            constrain=ccfg, logprobs=cfg.logprobs, device=device)
+            constrain=ccfg, logprobs=cfg.logprobs,
+            mesh=cfg.mesh_config(), device=device)
         hasher = None
         if cfg.paged and cfg.prefix_cache_blocks > 0:
             from tpudist_torch.serve.paged_alloc import hash_chain
@@ -380,6 +394,7 @@ class InferenceServer:
             "kv": self.engine.kv_stats(),
             "adapters": self.engine.adapter_stats(),
             "spec": self.engine.spec_stats(),
+            "spmd": self.engine.spmd_stats(),
             # the grammar pool and the logprobs width (absent when both
             # are off)
             **({"constrained": {**self.engine.constrain_stats(),
