@@ -104,7 +104,9 @@ order; any failure exits non-zero:
    "length", every kernel's launch count (zeroed just before) must grow,
    the paged prefill's tensor-core arm must serve every prefill launch, the
    paged decode's split walk every decode launch and the sampling prep's
-   planned arm at vocab 256 every sampling launch;
+   planned arm at vocab 256 every sampling launch.  Telemetry is on, as
+   shipped; the same warm-up and requests then run on a new server with
+   ``TPUDIST_TELEMETRY=0`` (:func:`serve_main_path_off`), printed beside;
 4b. the adapter path: the same model and server geometry with
    ``fused_rope``, ``adapters`` and ``lora_kernel`` on, 4 adapters of rank
    8 loaded, 16 greedy requests of which a third are base lanes;
@@ -304,6 +306,33 @@ order; any failure exits non-zero:
    versions and timed; and ``make_hybrid_mesh`` of this one-process job
    equal to ``make_mesh``.  Tokens/s, TTFT p50 and TPOT p50 of each run
    are printed beside the unsharded run's and phase 4's (no speed gate).
+22. runtime robustness and telemetry (:func:`phase22_train`,
+   :func:`phase22_serve`, :func:`watchdog_path`): (a) the Trainer's LM loop
+   at phase 7's model on phase 7's batches, 12 steps unbroken under an
+   armed watchdog (8 launches of each flash kernel a step, all wgmma), the
+   same under ``TPUDIST_FAULT=sigterm@step:6`` with a save every 4
+   (stopped at 6 with a forced save stamped ``preempted``,
+   ``Trainer.preempted``), then ``resume=True`` at restart 1 to 12: the
+   resumed losses equal the unbroken run's within ``RESUME_RTOL``, and
+   the report over both generations sums its goodput to its wall-clock
+   within 1% (idle is the rest, so this checks that no spans overlap);
+   the report's step p50 within ``PHASE22_STEP_SPAN_REL`` of the
+   CUDA-event step interval (a logged step's span ends on its loss).  (b) phase 4's server and 16 requests queued before start,
+   with telemetry and the endpoints on ``TPUDIST_METRICS_PORT=0``:
+   ``/healthz`` 200 and ``/statusz`` with the KV gauges mid-serve,
+   ``/metrics`` with the token counter and the TTFT/TPOT sketches; the
+   streams and launches equal phase 21's unsharded run on the same
+   schedule, greedy lanes phase 4's or a near tie, a
+   ``TPUDIST_TELEMETRY=0`` run launching the same; the report's and the
+   sketch's TTFT and TPOT p50 within ``QUANTILE_REL_ERROR`` of the
+   handles'; ``python -m tpudist_torch.telemetry trace`` one lifeline a
+   request; tokens/s on and off printed, not gated.  (c) SIGTERM to the
+   smoke's own process right after a server starts: ``serve_drain``, new
+   submits refused ``draining``, the admitted requests finishing.  (d) in
+   the subprocess pool: the toy demo with ``TPUDIST_WATCHDOG_S`` below an
+   injected ``host_delay`` exits 124, its crash record holding the stacks.
+   Every serving, training and entry-point phase records into a telemetry
+   session too (``runs/telemetry`` under its working directory).
 
 The entry points that run as subprocesses (phases 10, 12's
 ``demo_model_split``, 13, 14, 15a and 20's Trainer) run together after
@@ -315,7 +344,8 @@ seconds since the start.
 It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path; the
 flash kernels also their phase 17-20 launches and shape times; every
-kernel its phase 21 launches by run and the per-place shapes' times) and
+kernel its phase 21 launches by run and the per-place shapes' times, and
+its phase 22 launches) and
 the ``nvidia-smi`` line before the last line, which is the contract line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
@@ -324,6 +354,7 @@ Exits non-zero, printing no result, without CUDA or outside the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -733,6 +764,18 @@ PP_TRAINER_ARGS = ["--strategy", "pp", "--stages", "2", "--pp_schedule",
                    "1f1b", "--dry_run", "--seed", "0", "--total_iterations",
                    "30", "--batch_size", "8"]
 PP_TRAINER_LAST_MAX = 3.0
+# phase 22: the Trainer's LM loop at phase 7's model, 12 steps; the
+# SIGTERM drill at step 6 with a save every 4; the watchdog armed on the
+# unbroken fit, its deadline far above a step (the first gets 10x)
+PHASE22_STEPS, PHASE22_SIGTERM_AT, PHASE22_CKPT_EVERY = 12, 6, 4
+PHASE22_WATCHDOG_S = 120
+# the report's step p50 against the CUDA-event step interval: a logged
+# step's span ends on the loss, so it reads the card's time; the interval
+# also holds the host's work between two steps (the row, the batch)
+PHASE22_STEP_SPAN_REL = 0.20
+# (d): the toy demo's watchdog deadline, below the host delay injected
+# into its metric reduce
+WATCHDOG_DRILL_S, WATCHDOG_DELAY_MS = 3, 60000
 
 
 def log(msg: str) -> None:
@@ -2679,7 +2722,12 @@ def check_fused_mlp(torch, dev):
 # phase 4: the main path; phase 5: prompt logits on the card vs the CPU
 
 
-def serve_main_path(torch, model, gen_seed: int):
+def phase4_run(torch, model, gen_seed: int, probe=None):
+    """Phase 4's serving run: a new server, a warm-up request, then 16
+    requests timed from their submits (launch counts zeroed just before);
+    ``probe(server)`` reads what the caller needs before the server
+    closes.  Every request must finish ``"length"``.  Returns the handles,
+    the requests, the wall and the probe's result."""
     import numpy as np
 
     from tpudist_torch import ops
@@ -2704,18 +2752,32 @@ def serve_main_path(torch, model, gen_seed: int):
                 raise AssertionError("request timed out")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        prefill_arms = dict(tc=ops.paged_prefill_attention.launches_tc,
-                            cc=ops.paged_prefill_attention.launches_cc)
-        decode_tc = ops.paged_attention.launches_tc
-        sample_arm_launches = prep_arm_launches(ops.fused_sample_prep)
-        stats = server.stats()
+        probed = probe(server) if probe is not None else None
     finally:
         server.close(60)
     for h, (_, n) in zip(handles, reqs):
         if h.finish_reason != "length" or len(h.tokens) != n:
             raise AssertionError(f"request {h.id}: {h.finish_reason}, "
                                  f"{len(h.tokens)}/{n} tokens")
+    return handles, reqs, wall, probed
+
+
+def serve_main_path(torch, model, gen_seed: int):
+    from tpudist_torch import ops
+
+    def probe(server):
+        return dict(
+            counts=ops.launch_counts(),
+            prefill_arms=dict(tc=ops.paged_prefill_attention.launches_tc,
+                              cc=ops.paged_prefill_attention.launches_cc),
+            decode_tc=ops.paged_attention.launches_tc,
+            sample_arm_launches=prep_arm_launches(ops.fused_sample_prep),
+            stats=server.stats())
+
+    handles, reqs, wall, got = phase4_run(torch, model, gen_seed, probe)
+    counts, prefill_arms, decode_tc, sample_arm_launches, stats = (
+        got[k] for k in ("counts", "prefill_arms", "decode_tc",
+                         "sample_arm_launches", "stats"))
     if stats["kv"]["blocks_in_use"] != 0:
         raise AssertionError("KV pool did not drain")
     if not all(counts[name] > 0 for name in SERVE_KERNELS):
@@ -2741,6 +2803,22 @@ def serve_main_path(torch, model, gen_seed: int):
         prefill_arm_launches=prefill_arms, decode_tc_launches=decode_tc,
         sample_arm_launches=sample_arm_launches,
         streams=[h.tokens for h in handles])
+
+
+def serve_main_path_off(torch, model, gen_seed: int) -> dict:
+    """Phase 4's run again on a new server with ``TPUDIST_TELEMETRY=0``
+    (the active session finished first): the reading that compares with
+    the phase 4 lines of the PRs before telemetry was on by default."""
+    from tpudist_torch import telemetry
+
+    telemetry.finish(write_report=False)
+    with env_set(TPUDIST_TELEMETRY="0"):
+        handles, _, wall, _ = phase4_run(torch, model, gen_seed)
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(
+        tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
+        tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles))
 
 
 def planned_arms() -> dict:
@@ -4343,7 +4421,8 @@ def serve_mesh_path(torch, model, main_path: dict, ad_streams, card: str
                 unsharded={fam: {k: v for k, v in r.items()
                                  if k not in ("streams", "prompts", "names",
                                               "temps")}
-                           for fam, r in base.items()})
+                           for fam, r in base.items()},
+                plain_streams=base["plain"]["streams"])
 
 
 # ---------------------------------------------------------------------------
@@ -5926,7 +6005,10 @@ def run_module(module: str, args, env=None, cwd=None, timeout: int = 600):
     rows = {}
     runs = os.path.join(cwd, "runs")
     for group in (os.listdir(runs) if os.path.isdir(runs) else []):
-        with open(os.path.join(runs, group, "metrics.jsonl")) as f:
+        path = os.path.join(runs, group, "metrics.jsonl")
+        if not os.path.isfile(path):  # runs/telemetry: the span stream
+            continue
+        with open(path) as f:
             rows[group] = [json.loads(line) for line in f]
     return proc.stdout, wall, rows
 
@@ -6242,7 +6324,8 @@ def entry_point_paths(corpus: str) -> dict:
             "lm": lambda: lm_entry_subprocess(corpus),
             "model split mp1": model_split_mp1,
             "pp trainer": pipeline_trainer,
-            "trainer profile": trainer_profile}
+            "trainer profile": trainer_profile,
+            "watchdog": watchdog_path}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(SUBPROCESS_WORKERS) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
@@ -6502,6 +6585,488 @@ def lm_entry_in_process(torch, corpus: str, phase7_peak_gb: float) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: runtime robustness and telemetry
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables for the block (None unsets one), then
+    put every one back as it was."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class EventedBatches:
+    """Phase 7's batches as a Trainer loader that records a CUDA event on
+    the current stream as it hands each batch over: the Trainer logs each
+    step's loss (a host sync) before it asks for the next batch, so the
+    interval between two events is one step on the card's clock, the
+    host's dispatch gaps included."""
+
+    def __init__(self, torch, batches):
+        self.torch, self.batches, self.events = torch, batches, []
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for b in self.batches:
+            ev = self.torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            yield b
+
+    def step_ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(self.events,
+                                                   self.events[1:])]
+
+
+def phase22_trainer_fit(torch, batches, **fields) -> dict:
+    """One fit of the Trainer's LM loop on phase 7's model (its own bf16
+    compute over f32 masters, Adam at 3e-4: ``TRAIN_ARGS``) over
+    ``batches``, in a temporary working directory (the Trainer's metric
+    rows land under it).  Returns the rows' losses by iteration, the
+    CUDA-event step intervals, the launches and whether it was preempted."""
+    import tempfile
+
+    from tpudist_torch import ops
+    from tpudist_torch.examples.demo_long_context import (build_model,
+                                                          get_args)
+    from tpudist_torch.train.optim import build_optimizer_from_args
+    from tpudist_torch.trainer import LMTrainerModule, Trainer
+
+    args = get_args(TRAIN_ARGS + ["--total_iterations",
+                                  str(PHASE22_STEPS)])
+
+    class Phase7LM(LMTrainerModule):
+        def configure_lm(self, generator):
+            return build_model(args, torch.device(args.device))
+
+        def configure_optimizers(self):
+            return lambda params: build_optimizer_from_args(args, params)
+
+    loader = EventedBatches(torch, batches)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            trainer = Trainer(max_steps=PHASE22_STEPS, progress_bar=False,
+                              dry_run=True, seed=0, group="phase22",
+                              device=args.device, **fields)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer.fit(Phase7LM(), loader)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            wgmma = {n: ops.KERNEL_WRAPPERS[n].launches_wgmma
+                     for n in TRAIN_KERNELS}
+            with open(os.path.join("runs", "phase22",
+                                   "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+        finally:
+            os.chdir(cwd)
+    preempted = trainer.preempted
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(losses=[r["loss/lm"] for r in rows], wall_s=wall,
+                step_ms=loader.step_ms(), launches=counts,
+                launches_wgmma=wgmma, preempted=preempted)
+
+
+def phase22_train(torch, card: str) -> dict:
+    """Phase 22 (a): the Trainer's LM loop at phase 7's model, three fits,
+    each recording into a telemetry session it does not own: 12 steps
+    unbroken under an armed watchdog; the same with
+    ``TPUDIST_FAULT=sigterm@step:6`` and ``checkpoint_every=4``, which
+    must stop at step 6 with a forced save stamped ``preempted``; and
+    ``resume=True`` at ``TPUDIST_RESTART_COUNT=1`` to step 12.  The drill
+    and its resume share a telemetry directory (generations 0 and 1)."""
+    import tempfile
+
+    from tpudist_torch import telemetry
+    from tpudist_torch.examples.demo_long_context import get_args, make_batch
+    from tpudist_torch.runtime import faults
+
+    import numpy as np
+
+    args = get_args(TRAIN_ARGS)
+    rng = np.random.default_rng(args.seed)  # phase 7's batches
+    batches = [make_batch(rng, args.batch_size, args.seq_len, args.vocab)
+               for _ in range(PHASE22_STEPS)]
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    try:
+        with env_set(TPUDIST_WATCHDOG_S=PHASE22_WATCHDOG_S,
+                     TPUDIST_RESTART_COUNT="0", TPUDIST_FAULT=None):
+            telemetry.start(os.path.join(root, "unbroken"))
+            try:
+                whole = phase22_trainer_fit(torch, batches)
+            finally:
+                report = telemetry.finish()
+        per_step = LAYERS * PHASE22_STEPS
+        for name in TRAIN_KERNELS:
+            n, wg = whole["launches"][name], whole["launches_wgmma"][name]
+            if n != per_step or wg != per_step:
+                raise AssertionError(
+                    f"phase 22 (a): {name} launched {n} times ({wg} on the "
+                    f"wgmma arm) in {PHASE22_STEPS} steps, not {per_step}")
+        if whole["preempted"] or len(whole["losses"]) != PHASE22_STEPS:
+            raise AssertionError("phase 22 (a): the unbroken fit did not "
+                                 "run its 12 steps")
+        ck = os.path.join(root, "ck")
+        drill_dir = os.path.join(root, "drill")
+        with env_set(TPUDIST_FAULT=f"sigterm@step:{PHASE22_SIGTERM_AT}",
+                     TPUDIST_RESTART_COUNT="0"):
+            telemetry.start(drill_dir)
+            try:
+                drill = phase22_trainer_fit(
+                    torch, batches, checkpoint_dir=ck,
+                    checkpoint_every=PHASE22_CKPT_EVERY)
+            finally:
+                telemetry.finish(write_report=False)
+                faults.disarm()
+        files = sorted(os.listdir(ck))
+        meta = torch.load(os.path.join(ck, f"step_{PHASE22_SIGTERM_AT}.pt"),
+                          map_location="cpu", weights_only=True)["meta"]
+        if not drill["preempted"] or meta.get("preempted") is not True \
+                or meta.get("iteration") != PHASE22_SIGTERM_AT:
+            raise AssertionError(f"phase 22 (a): the drill did not stop at "
+                                 f"{PHASE22_SIGTERM_AT} with a preempted "
+                                 f"save: preempted {drill['preempted']}, "
+                                 f"meta {meta}, files {files}")
+        want = [f"step_{PHASE22_CKPT_EVERY}.pt",
+                f"step_{PHASE22_SIGTERM_AT}.pt"]
+        if files != want or len(drill["losses"]) != PHASE22_SIGTERM_AT:
+            raise AssertionError(f"phase 22 (a): drill files {files} (want "
+                                 f"{want}), {len(drill['losses'])} rows")
+        with env_set(TPUDIST_RESTART_COUNT="1", TPUDIST_FAULT=None):
+            telemetry.start(drill_dir)
+            try:
+                resumed = phase22_trainer_fit(
+                    torch, batches, checkpoint_dir=ck, resume=True)
+            finally:
+                both = telemetry.finish()
+    finally:
+        tmp.cleanup()
+    tail = whole["losses"][PHASE22_SIGTERM_AT:]
+    got = drill["losses"] + resumed["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, whole["losses"]))
+    if len(got) != PHASE22_STEPS or rel > RESUME_RTOL:
+        raise AssertionError(f"phase 22 (a): the drill and its resume "
+                             f"{got} left the unbroken run {tail} by "
+                             f"{rel:.2e} (bound {RESUME_RTOL})")
+    if resumed["preempted"]:
+        raise AssertionError("phase 22 (a): the resumed fit was preempted")
+    gp_sum, wall = both["goodput_sum_s"], both["wall_clock_s"]
+    if both["generations"] != 2 or abs(gp_sum - wall) > 0.01 * wall:
+        raise AssertionError(f"phase 22 (a): the report over both "
+                             f"generations sums its goodput to {gp_sum} s "
+                             f"of {wall} s ({both['generations']} "
+                             f"generations)")
+    ev = statistics.median(whole["step_ms"][1:])
+    span_p50 = report["step"]["p50_s"] * 1e3
+    if abs(span_p50 - ev) > PHASE22_STEP_SPAN_REL * ev:
+        raise AssertionError(f"phase 22 (a): the report's step p50 "
+                             f"{span_p50:.2f} ms is not within "
+                             f"{PHASE22_STEP_SPAN_REL:.0%} of the CUDA-event "
+                             f"step interval p50 {ev:.2f} ms")
+    res = dict(losses=whole["losses"], drill_losses=drill["losses"],
+               resumed_losses=resumed["losses"], max_rel=rel,
+               bit_for_bit=got == whole["losses"], files=files, meta=meta,
+               launches=whole["launches"],
+               launches_wgmma=whole["launches_wgmma"],
+               report_step_p50_ms=span_p50,
+               event_step_ms_p50=ev, event_step_ms=whole["step_ms"],
+               goodput={k: v["s"] for k, v in both["goodput"].items()},
+               goodput_sum_s=gp_sum, wall_clock_s=wall,
+               walls_s=[whole["wall_s"], drill["wall_s"],
+                        resumed["wall_s"]])
+    log(f"phase 22 (a) Trainer LM, phase 7's model, {PHASE22_STEPS} steps "
+        f"under the watchdog ({PHASE22_WATCHDOG_S} s): launches "
+        f"{ {n: whole['launches'][n] for n in TRAIN_KERNELS} } all wgmma; "
+        f"sigterm@step:{PHASE22_SIGTERM_AT} stopped at "
+        f"{meta['iteration']} (files {files}, meta {meta}); resumed steps "
+        f"{PHASE22_SIGTERM_AT + 1}-{PHASE22_STEPS} against the unbroken "
+        f"run: bit for bit {res['bit_for_bit']}, max rel {rel:.2e}; the "
+        f"report over both generations: goodput {res['goodput']} summing "
+        f"to {gp_sum:.3f} of {wall:.3f} s (a check that no spans "
+        f"overlap: idle is the rest); step p50 in the report "
+        f"{span_p50:.2f} ms (the span ends on the logged loss) beside the "
+        f"CUDA-event step interval p50 {ev:.2f} ms (bound "
+        f"{PHASE22_STEP_SPAN_REL:.0%}); fit walls {[round(w, 2) for w in res['walls_s']]} "
+        f"s ({card})")
+    return res
+
+
+def http_get(port: int, path: str) -> tuple:
+    """``(status, body)`` of a GET on the loopback endpoint."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def phase22_serve_run(torch, model, tele_dir=None, drain=False,
+                      endpoints=True) -> dict:
+    """One phase 22 serving run: phase 4's server and 16 requests, every
+    request queued before the server starts (phase 21's schedule), with a
+    telemetry session into ``tele_dir`` and, with ``endpoints``, the
+    endpoints on an ephemeral loopback port (``TPUDIST_METRICS_PORT=0``),
+    read mid-serve (``/healthz``, ``/statusz``) and after (``/metrics``);
+    or with ``TPUDIST_TELEMETRY=0`` when ``tele_dir`` is None.  With
+    ``drain`` it signals SIGTERM to its own process first and holds the
+    drain (new submits refused ``draining``, the admitted requests
+    finishing)."""
+    import signal
+
+    import numpy as np
+
+    from tpudist_torch import ops, telemetry
+    from tpudist_torch.serve import AdmissionError, InferenceServer, \
+        ServeConfig
+    from tpudist_torch.telemetry import statusz
+
+    rng = np.random.default_rng(7)
+    rng.integers(0, V, size=70)  # phase 4's warm-up prompt
+    reqs = [(rng.integers(0, V, size=int(rng.integers(1, 301))),
+             int(rng.integers(16, 65))) for _ in range(16)]
+    on = tele_dir is not None
+    scrape = on and endpoints and not drain
+    mid = {}
+    with env_set(TPUDIST_TELEMETRY=None if on else "0",
+                 TPUDIST_METRICS_PORT="0" if scrape else None):
+        if on:
+            telemetry.start(tele_dir)
+        cfg = ServeConfig(num_slots=SLOTS, queue_limit=64, max_new=64,
+                          prefill_pad=P, decode_block=8, kv_block=BS)
+        server = InferenceServer(model, cfg, device="cuda")
+        try:
+            handles = [server.submit(p, max_new=n) for p, n in reqs]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            server.start()
+            if drain:
+                if not server._installed_preemption:
+                    raise AssertionError("phase 22 (c): the server did not "
+                                         "install its SIGTERM handler")
+                os.kill(os.getpid(), signal.SIGTERM)
+                deadline = time.monotonic() + 60
+                while not server._draining and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                try:
+                    server.submit(reqs[0][0], max_new=4)
+                    mid["refused"] = None
+                except AdmissionError as e:
+                    mid["refused"] = e.reason
+            if scrape:
+                port = statusz.active().port
+                mid["healthz"] = http_get(port, "/healthz")[0]
+                mid["statusz"] = json.loads(http_get(port, "/statusz")[1])
+                mid["in_flight"] = sum(not h.done for h in handles)
+            for h in handles:
+                if not h.wait(900):
+                    raise AssertionError("request timed out")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            if scrape:
+                mid["metrics"] = http_get(port, "/metrics")[1]
+        finally:
+            server.close(60)
+            statusz.stop()
+            report = telemetry.finish() if on else None
+    for h, (_, n) in zip(handles, reqs):
+        if h.finish_reason != "length" or len(h.tokens) != n:
+            raise AssertionError(f"phase 22 request {h.id}: "
+                                 f"{h.finish_reason}, {len(h.tokens)}/{n} "
+                                 "tokens")
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(streams=[h.tokens for h in handles],
+                prompts=[p for p, _ in reqs], launches=counts, wall_s=wall,
+                tokens=tokens, tokens_per_s=tokens / wall,
+                ttft_s=[h.ttft_s for h in handles],
+                tpot_s=[h.tpot_s for h in handles], mid=mid, report=report)
+
+
+def nearest_rank(vals, q: float) -> float:
+    """The nearest-rank percentile the report and the sketch use."""
+    s = sorted(vals)
+    return s[max(0, min(len(s) - 1, int(round(q / 100 * (len(s) - 1)))))]
+
+
+def phase22_serve(torch, model, main_path: dict, mesh: dict,
+                  card: str) -> dict:
+    """Phase 22 (b) and (c) on phase 4's model: the telemetry run, one run
+    with ``TPUDIST_TELEMETRY=0`` and the SIGTERM drain run, in turns (see
+    :func:`phase22_serve_run`).  Gates: mid-serve ``/healthz`` 200 and
+    ``/statusz`` carrying the KV gauges, ``/metrics`` the token counter
+    and the TTFT and TPOT sketches; the streams and the launch counts
+    equal phase 21's unsharded run of phase 4's traffic on the same
+    schedule, and greedy lanes equal phase 4's or leave at a near tie;
+    the off run's launches equal the on run's (telemetry launches
+    nothing); the report's TTFT and TPOT p50 and the sketch's within
+    ``QUANTILE_REL_ERROR`` of the handles' exact values; the trace CLI
+    writes one lifeline a request; the drain emits ``serve_drain``,
+    refuses new submits ``draining`` and finishes every admitted
+    request."""
+    import tempfile
+
+    from tpudist_torch.telemetry import aggregate, metrics
+    from tpudist_torch.telemetry.metrics import QUANTILE_REL_ERROR
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        metrics.registry().clear()
+        tdir = os.path.join(tmp.name, "serve")
+        on = phase22_serve_run(torch, model, tdir)
+        sketch = {k: metrics.registry().histogram(
+            f"tpudist_{k}_seconds", tenant="default").quantile(50)
+            for k in ("ttft", "tpot")}
+        off = phase22_serve_run(torch, model)
+        # telemetry without the endpoints' scrapes and without, in turns:
+        # the spans' own cost beside the run-to-run spread
+        turns = [phase22_serve_run(torch, model,
+                                   os.path.join(tmp.name, "serve2"),
+                                   endpoints=False),
+                 phase22_serve_run(torch, model)]
+        ddir = os.path.join(tmp.name, "drain")
+        drain = phase22_serve_run(torch, model, ddir, drain=True)
+        drain_names = [r["name"] for r in aggregate.load_records(ddir)]
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpudist_torch.telemetry", "trace", tdir],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                os.path.abspath(__file__))))
+        with open(os.path.join(tdir, "trace.json")) as f:
+            traces = json.load(f)["otherData"]["traces"]
+    finally:
+        tmp.cleanup()
+    mid = on["mid"]
+    doc = mid["statusz"]["serve"]
+    if mid["healthz"] != 200 or "kv" not in doc \
+            or doc["kv"]["block_occupancy"] is None or mid["in_flight"] < 1:
+        raise AssertionError(f"phase 22 (b): mid-serve /healthz "
+                             f"{mid['healthz']}, /statusz {doc}, "
+                             f"{mid['in_flight']} requests in flight")
+    for name in ("tpudist_tokens_out_total", "tpudist_ttft_seconds",
+                 "tpudist_tpot_seconds"):
+        if name not in mid["metrics"]:
+            raise AssertionError(f"phase 22 (b): /metrics lacks {name}")
+    base = mesh["unsharded"]["plain"]
+    if on["launches"] != base["launches"] \
+            or on["streams"] != mesh["plain_streams"]:
+        raise AssertionError(f"phase 22 (b): launches {on['launches']} "
+                             f"or streams differ from phase 21's "
+                             f"unsharded run on the same schedule "
+                             f"({base['launches']})")
+    for r in [off] + turns:
+        if r["launches"] != on["launches"]:
+            raise AssertionError(f"phase 22 (b): telemetry moved the "
+                                 f"launches: {on['launches']} on, "
+                                 f"{r['launches']} in a later turn")
+    equal, ties = hold_greedy_streams(torch, model, on["prompts"],
+                                      on["streams"], main_path["streams"],
+                                      range(16))
+    rep = on["report"]["serving"]
+    quant = {}
+    for k, vals in (("ttft", on["ttft_s"]), ("tpot", on["tpot_s"])):
+        exact = nearest_rank(vals, 50)
+        quant[k] = dict(exact_s=exact, report_s=rep[k]["p50_s"],
+                        sketch_s=sketch[k])
+        for got in (rep[k]["p50_s"], sketch[k]):
+            if abs(got - exact) > QUANTILE_REL_ERROR * exact:
+                raise AssertionError(f"phase 22 (b): {k} p50 {got} against "
+                                     f"the handles' {exact}")
+    if proc.returncode != 0 or traces != 16:
+        raise AssertionError(f"phase 22 (b): the trace CLI wrote {traces} "
+                             f"lifelines: {proc.stdout}{proc.stderr}")
+    if drain["mid"]["refused"] != "draining" \
+            or "serve_drain" not in drain_names \
+            or drain_names.count("request_finished") != 16:
+        raise AssertionError(f"phase 22 (c): refused "
+                             f"{drain['mid']['refused']}, records "
+                             f"{sorted(set(drain_names))}")
+    res = dict(launches=on["launches"], tokens_per_s=dict(
+        on=[on["tokens_per_s"], turns[0]["tokens_per_s"]],
+        off=[off["tokens_per_s"], turns[1]["tokens_per_s"]],
+        drain=drain["tokens_per_s"]), p50=quant, lanes_equal_phase4=equal,
+        near_ties=ties, statusz_kv=doc["kv"], traces=traces,
+        report_requests=rep["requests_finished"])
+    log(f"phase 22 (b) phase 4's server, 16 requests queued before start "
+        f"with telemetry and the endpoints: /healthz {mid['healthz']} with "
+        f"{mid['in_flight']} in flight, /statusz kv {doc['kv']}; launches "
+        f"{on['launches']} equal phase 21's unsharded run and the "
+        f"TPUDIST_TELEMETRY=0 run's; greedy lanes equal phase 4's "
+        f"{equal}/16 (near ties {ties}); p50 exact/report/sketch {quant}; "
+        f"trace CLI {traces} lifelines; tokens/s in turns (on and "
+        f"scraped, off, on, off; not gated): "
+        f"{[round(r['tokens_per_s'], 1) for r in (on, off, *turns)]} "
+        f"({card})")
+    log(f"phase 22 (c) SIGTERM after start: serve_drain emitted, a new "
+        f"submit refused '{drain['mid']['refused']}', the 16 admitted "
+        f"requests finished ({drain['tokens_per_s']:.1f} tokens/s)")
+    return res
+
+
+def watchdog_path() -> dict:
+    """Phase 22 (d): the toy demo as a subprocess under the torchrun
+    contract with ``TPUDIST_WATCHDOG_S`` below an injected ``host_delay``
+    (``--backend host``: the loop's metric reduce runs on the stalled
+    host fabric).  It must exit 124 and leave a crash record holding
+    every thread's stack."""
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        err = os.path.join(tmp, "err_%r.json")
+        env = dict(os.environ, PYTHONPATH=repo, TPUDIST_ERROR_FILE=err,
+                   TPUDIST_WATCHDOG_S=str(WATCHDOG_DRILL_S),
+                   TPUDIST_FAULT=f"host_delay@ms:{WATCHDOG_DELAY_MS}",
+                   **torchrun_env())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpudist_torch.examples.demo", "--dry_run",
+             "--seed", "0", "--total_iterations", "64", "--backend", "host"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        path = os.path.join(tmp, "err_0.json")
+        rec = None
+        if os.path.isfile(path):
+            with open(path) as f:
+                rec = json.load(f)
+    if proc.returncode != 124 or rec is None \
+            or rec.get("exc_type") != "WatchdogStall" or not rec.get("stacks"):
+        raise AssertionError(f"phase 22 (d): exit {proc.returncode}, crash "
+                             f"record {rec and rec.get('exc_type')}: "
+                             f"{(proc.stdout + proc.stderr)[-2000:]}")
+    return dict(rc=proc.returncode, wall_s=wall, threads=len(rec["stacks"]),
+                stalled_for_s=rec["stalled_for_s"],
+                stall_timeout_s=rec["stall_timeout_s"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
@@ -6568,11 +7133,16 @@ def main(argv=None) -> int:
     model = model.to(dev).requires_grad_(False)
     t0 = time.perf_counter()
     main_path = serve_main_path(torch, model, gen_seed=7)
-    log(f"main path: {main_path['requests']} requests, "
-        f"{main_path['tokens']} tokens in {main_path['wall_s']:.3f} s = "
+    main_path["telemetry_off"] = off4 = serve_main_path_off(torch, model, 7)
+    log(f"main path (telemetry on, as shipped): {main_path['requests']} "
+        f"requests, {main_path['tokens']} tokens in "
+        f"{main_path['wall_s']:.3f} s = "
         f"{main_path['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{main_path['ttft_p50_ms']:.2f} ms, TPOT p50 "
-        f"{main_path['tpot_p50_ms']:.3f} ms ({card}); launches "
+        f"{main_path['tpot_p50_ms']:.3f} ms; the same with "
+        f"TPUDIST_TELEMETRY=0: {off4['tokens_per_s']:.1f} tokens/s, TTFT "
+        f"p50 {off4['ttft_p50_ms']:.2f} ms, TPOT p50 "
+        f"{off4['tpot_p50_ms']:.3f} ms ({card}); launches "
         f"{main_path['launches']}; prefill launches by arm "
         f"{main_path['prefill_arm_launches']}")
     spec_path = serve_spec_path(torch, model, 7, main_path)
@@ -6693,6 +7263,8 @@ def main(argv=None) -> int:
     mark("phase 3e")
     mesh = serve_mesh_path(torch, model, main_path, ad_streams, card)
     mark("phase 21")
+    robust_serve = phase22_serve(torch, model, main_path, mesh, card)
+    mark("phase 22 (b)-(c)")
     del model, cpu_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6824,6 +7396,14 @@ def main(argv=None) -> int:
     mark("phase 19")
     pipe = pipeline_path(torch, card, train["losses"], entry["pp trainer"])
     mark("phase 20")
+    robust_train = phase22_train(torch, card)
+    wd = entry["watchdog"]
+    log(f"phase 22 (d) watchdog: the toy demo under TPUDIST_WATCHDOG_S="
+        f"{WATCHDOG_DRILL_S} with host_delay@ms:{WATCHDOG_DELAY_MS} exited "
+        f"{wd['rc']} after {wd['wall_s']:.1f} s of process wall, stalled "
+        f"{wd['stalled_for_s']:.1f} s, the crash record holding "
+        f"{wd['threads']} threads' stacks")
+    mark("phase 22")
 
     kernels = []
     launches = dict(main_path["launches"])
@@ -6959,6 +7539,11 @@ def main(argv=None) -> int:
                             library_ms=t["library_ms"],
                             bound_ms=t["bound"][0], bound_by=t["bound"][1])
                     for c, t in mesh["kernels"].get(name, {}).items()})
+        # phase 22: the launches of the Trainer's unbroken fit (the flash
+        # kernels) and of the telemetry serving run (the serving kernels)
+        kernels[-1]["phase22"] = int(
+            robust_train["launches"].get(name, 0)
+            + robust_serve["launches"].get(name, 0))
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -6995,7 +7580,9 @@ def main(argv=None) -> int:
                   lm_entry=dict(subprocess=lm_sub, in_process=lm_in),
                   public_widths=public, seq_parallel=seq,
                   sharded=shard, moe_overlap_3d=moe, pipeline=pipe,
-                  serve_mesh=mesh, timeline=timeline,
+                  serve_mesh=mesh, robustness=dict(
+                      train=robust_train, serve=robust_serve,
+                      watchdog=entry["watchdog"]), timeline=timeline,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

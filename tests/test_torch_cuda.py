@@ -1951,3 +1951,93 @@ def test_folded_mesh_engine_on_the_card(cuda, mesh):
     for k in ("fused_rope_qkv", "paged_attention", "paged_prefill"):
         assert gc[k] == 2 * wc[k] > 0, k
     assert gc["fused_sample"] == wc["fused_sample"] > 0
+
+
+def test_telemetry_adds_no_launch_on_the_card(cuda, tmp_path, monkeypatch):
+    """A small f32 server on the kernel arms, the same requests queued
+    before start twice: with telemetry, the endpoints and a scrape of
+    ``/statusz``, and with ``TPUDIST_TELEMETRY=0``.  The streams and the
+    launch counts are the same; the session recorded a ``decode_block``
+    span and a lifeline a request."""
+    import json
+
+    from tpudist_torch import telemetry
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+    from tpudist_torch.telemetry import statusz
+
+    model = create_transformer(0, device=cuda, vocab=64, d_model=256,
+                               n_layers=2, n_heads=4, d_ff=512, max_len=128,
+                               rope=True)
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(0, 64, size=int(rng.integers(1, 40))), 12)
+            for _ in range(6)]
+    runs = {}
+    for on in (True, False):
+        monkeypatch.setenv("TPUDIST_TELEMETRY", "1" if on else "0")
+        monkeypatch.setenv("TPUDIST_METRICS_PORT", "0")
+        if on:
+            telemetry.start(tmp_path / "t")
+        server = InferenceServer(model, ServeConfig(
+            num_slots=4, prefill_pad=16, kv_block=16), device=cuda,
+            install_signal_handler=False)
+        hs = [server.submit(p, max_new=n) for p, n in reqs]
+        reset_launch_counts()
+        server.start()
+        if on:
+            assert "kv" in statusz.active().statusz()["serve"]
+        for h in hs:
+            assert h.wait(300) and h.finish_reason == "length"
+        torch.cuda.synchronize()
+        runs[on] = ([h.tokens for h in hs], launch_counts())
+        server.close(60)
+        statusz.stop()
+        if on:
+            telemetry.finish(write_report=False)
+    assert runs[True] == runs[False]
+    assert runs[True][1]["paged_attention"] > 0
+    names = [json.loads(x)["name"] for x in
+             (tmp_path / "t" / "rank0_gen0.jsonl").read_text().splitlines()]
+    assert "decode_block" in names and names.count("req_decode") == len(reqs)
+
+
+def test_preemption_save_and_resume_on_the_card(cuda, tmp_path,
+                                                monkeypatch):
+    """The Trainer's LM loop on the card (bf16 compute over f32 masters):
+    ``sigterm@step:3`` with a save every 2 stops at 3 with a forced save
+    stamped ``preempted``, its tensors restored onto the card by the
+    resume, which ends at the unbroken run's loss bit for bit."""
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.runtime import faults
+    from tpudist_torch.trainer import LMTrainerModule, Trainer
+
+    class Tiny(LMTrainerModule):
+        def configure_lm(self, generator):
+            return create_transformer(
+                0, device=cuda, trainable=True, dtype=torch.bfloat16,
+                param_dtype=torch.float32, vocab=64, d_model=256,
+                n_layers=2, n_heads=2, d_ff=512, max_len=128)
+
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 64, size=(4, 128)).astype(np.int32)
+               for _ in range(8)]
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TPUDIST_TELEMETRY", "0")
+    kw = dict(max_steps=8, progress_bar=False, dry_run=True, device="cuda")
+    whole = Trainer(**kw).fit(Tiny(), batches)
+    ck = str(tmp_path / "ck")
+    monkeypatch.setenv("TPUDIST_FAULT", "sigterm@step:3")
+    first = Trainer(checkpoint_dir=ck, checkpoint_every=2, **kw)
+    first.fit(Tiny(), batches)
+    faults.disarm()
+    monkeypatch.delenv("TPUDIST_FAULT")
+    assert first.preempted
+    meta = torch.load(tmp_path / "ck" / "step_3.pt", weights_only=True)[
+        "meta"]
+    assert meta["preempted"] is True and meta["iteration"] == 3
+    monkeypatch.setenv("TPUDIST_RESTART_COUNT", "1")
+    second = Trainer(checkpoint_dir=ck, resume=True, **kw)
+    got = second.fit(Tiny(), batches)
+    assert not second.preempted
+    assert got == whole
+    assert next(second.final_states["lm"].model.parameters()).is_cuda

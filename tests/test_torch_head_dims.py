@@ -294,20 +294,29 @@ LMS = {
                       n_kv_heads=1, d_ff=512, max_len=64, rope=True),
 }
 SEQ, BATCH, STEPS, LR = 32, 2, 5, 1e-3
-#: the port's f32 losses against the same port run in float64: the port's
-#: own rounding (at most 7.8e-7 relative over the 5 steps of dh256_mqa)
-LM_RTOL_F64 = 1e-5
+#: the port's f32 losses against the same port run in float64: the f32
+#: rounding of the host's BLAS, amplified by Adam's first updates.  It is
+#: host-dependent: over the 5 steps of dh256_mqa at most 7.8e-7 relative on
+#: an AMD EPYC host, and 1.3447e-5 at its third step (index 2: 4.929017
+#: against 4.928950) on an Intel Xeon host, where the JAX f32 loss of that
+#: step is 1.3447e-5 from the float64 run as well (the other steps stay
+#: within 4.6e-6); about twice the larger drift
+LM_RTOL_F64 = 3e-5
 #: the JAX f32 losses against the port's: the JAX step (the interpreted
 #: Pallas flash, f32 sums) leaves the float64 run by up to 1.3e-5 relative
 #: at dh256_mqa's third step on an AMD EPYC host, where the port stays
 #: within 6e-7 of it; twice the sum of the two
 LM_RTOL_JAX = 3e-5
 #: each parameter's change after the steps, by relative norm: the port's
-#: against its float64 run (measured at most 1.2e-4), and against JAX's,
-#: which leaves the float64 run by up to 4.1e-3 (dh256_mqa's tok_embed:
-#: Adam's first updates divide each gradient by its own size, so the f32
-#: rounding of the small ones moves their rows by up to the learning rate)
-LM_CHANGE_F64, LM_CHANGE_JAX = 1e-3, 1e-2
+#: against its float64 run, and against JAX's.  Adam's first updates
+#: divide each gradient by its own size, so the f32 rounding of the small
+#: ones moves their rows by up to the learning rate, and dh256_mqa's
+#: tok_embed leaves the float64 run as the host's rounding goes: on an AMD
+#: EPYC host the port by at most 1.2e-4 and JAX by 4.1e-3, on an Intel
+#: Xeon host the port by 4.13e-3 while staying within 4.0e-4 of JAX's
+#: (every other parameter within 4.1e-4 of float64 on both hosts); both
+#: bounds about twice the larger drift
+LM_CHANGE_F64, LM_CHANGE_JAX = 1e-2, 1e-2
 
 
 def _interpreted_flash(q, k, v):

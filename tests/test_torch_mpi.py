@@ -178,4 +178,6 @@ def test_two_mpi_ranks_equal_one_rank(tmp_path, no_launch_env):
         assert set(got) == set(want)
         for k in want:
             assert got[k] == pytest.approx(want[k], rel=1e-6)
-    assert not (tmp_path / "runs").exists()
+    # no metrics file: only the telemetry stream, armed by default
+    runs = tmp_path / "runs"
+    assert not runs.exists() or os.listdir(runs) == ["telemetry"]

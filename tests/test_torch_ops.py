@@ -241,7 +241,8 @@ def test_port_imports_no_jax():
               REPO / "tests" / "torch_ring_parent.py",
               REPO / "tests" / "torch_ring_worker.py",
               REPO / "tests" / "torch_fsdp_worker.py",
-              REPO / "tests" / "torch_pipeline_worker.py"]
+              REPO / "tests" / "torch_pipeline_worker.py",
+              REPO / "tests" / "torch_telemetry_cost.py"]
     assert len(files) > 10
     bad = []
     for path in files:

@@ -510,15 +510,26 @@ UNPORTED_ENV = {
     "HOST_TIER": "8", "PREEMPT": "8", "SHED": "8", "SHED_ATTAINMENT": "8",
     "SHED_PRIORITY": "8", "FAIR_SHARE": "8", "HANDOFF": "8",
     "HANDOFF_QUEUE": "8", "DECODE_WORKERS": "8", "PREFILL_WORKERS": "8",
-    "PREFILL_SLOTS": "8", "RECOVER": "8", "POOL_RESIZE": "8", "AUTO": "8",
-    "HEALTH_STALE_S": "8"}
+    "PREFILL_SLOTS": "8", "RECOVER": "8", "POOL_RESIZE": "8", "AUTO": "8"}
+# knobs that raised until their subsystem was ported: each case now holds
+# the knob read (the server attribute it sets, and the value)
+PORTED_ENV = {"HEALTH_STALE_S": "health_stale_s"}
 
 
-@pytest.mark.parametrize("suffix", sorted(UNPORTED_ENV))
-def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, suffix):
+@pytest.mark.parametrize("suffix", sorted(UNPORTED_ENV) + sorted(PORTED_ENV))
+def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, request,
+                                                      suffix):
     """Each knob the port cannot honour raises, naming itself and its
-    ROADMAP item, instead of building a server that ignores it."""
+    ROADMAP item, instead of building a server that ignores it; a knob
+    ported since is read instead."""
     name = f"TPUDIST_SERVE_{suffix}"
+    if suffix in PORTED_ENV:
+        monkeypatch.setenv(name, "7.5")
+        _, model = request.getfixturevalue("rope_models")
+        server = InferenceServer(model, ServeConfig.from_env(),
+                                 device="cpu")
+        assert getattr(server, PORTED_ENV[suffix]) == 7.5
+        return
     monkeypatch.setenv(name, "1")
     with pytest.raises(NotImplementedError,
                        match=rf"{name} .*queue A item "
@@ -577,8 +588,10 @@ def test_serve_config_from_env_without_unported_knobs(monkeypatch):
     assert ServeConfig.from_env() == ServeConfig()
     names = lambda obj: set(re.findall(  # noqa: E731
         r"TPUDIST_SERVE_(\w+)", inspect.getsource(obj)))
-    assert (names(jax_server) - names(ServeConfig.from_env)
-            == set(UNPORTED_ENV))
+    # HEALTH_STALE_S is read at construction, as in JAX
+    read = (names(ServeConfig.from_env)
+            | names(InferenceServer._init_observability))
+    assert names(jax_server) - read == set(UNPORTED_ENV)
 
 
 @pytest.mark.parametrize("env,want", [
@@ -620,10 +633,18 @@ def test_server_from_env_on_the_jax_default_knobs(rope_models, monkeypatch,
     ("tenant", "acme", "8"), ("session", "s1", "8")])
 def test_submit_refuses_unported_keywords(rope_models, key, value, item):
     """The JAX ``submit`` keywords are taken; a value but the default
-    raises naming its ROADMAP item, and the default admits as before."""
+    raises naming its ROADMAP item, and the default admits as before.
+    ``tenant`` is ported: its label rides on the request and into the
+    ``/statusz`` in-flight count."""
     _, model = rope_models
     server = InferenceServer(model, ServeConfig(max_new=4, **ENGINE_KW),
                              device="cpu")
+    if key == "tenant":
+        h = server.submit(_prompt(5, 0), tenant=value)
+        assert h.request.tenant == value and not h.done
+        assert server._statusz_doc()["tenants_in_flight"] == {value: 1}
+        assert server.close(30)
+        return
     with pytest.raises(NotImplementedError,
                        match=rf"submit\({key}=.*queue A item {item}\b"):
         server.submit(_prompt(5, 0), **{key: value})

@@ -22,6 +22,12 @@ and the toy step draws no random numbers, so no RNG state is saved.
 - :meth:`CheckpointManager.restore` loads into the live modules, each
   tensor onto its parameter's device, and with ``restore_fallback`` falls
   back to the newest earlier step that loads when the latest is corrupt.
+- ``save(..., force=True)`` at a step already saved stamps its new meta
+  (the preemption save's ``preempted``) as an atomic sidecar,
+  ``meta_overlay_<N>.json``, that restore merges in, as JAX's does.
+- Saves, restores and drains are the ``ckpt_save``, ``ckpt_restore`` and
+  ``ckpt_wait`` telemetry spans, and a due ``ckpt_corrupt`` fault
+  (:mod:`tpudist_torch.runtime.faults`) garbles a step after its write.
 
 :class:`CheckpointConfig`, :func:`checkpoint_dir_for`,
 :func:`resolve_checkpoint_location` and :func:`setup_checkpointing` are
@@ -42,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpudist_torch import telemetry
 from tpudist_torch.comm.collectives import barrier, host_allreduce_sum
 from tpudist_torch.runtime.bootstrap import process_index
 
@@ -161,12 +168,28 @@ class CheckpointManager:
             return False
         return self.save(step, states, meta)
 
-    def save(self, step: int, states: Any, meta: dict) -> bool:
+    def save(self, step: int, states: Any, meta: dict,
+             force: bool = False) -> bool:
         """Save ``states`` and ``meta`` (plus the seed) as ``step``; a step
         already saved is left as it is (a cadence save and the final save
-        may collide).  Returns whether a save started."""
+        may collide), unless ``force``: then its new meta is stamped as a
+        sidecar overlay once the step's write finished (non-destructive —
+        the step's tensors are the same, and no window exists in which the
+        step is gone).  Returns whether a save started."""
+        with telemetry.span("ckpt_save", step=step,
+                            blocking=not self.config.async_save):
+            return self._save(step, states, meta, force)
+
+    def _save(self, step: int, states: Any, meta: dict,
+              force: bool) -> bool:
         if step in self._saved:
-            return False
+            if not force:
+                return False
+            if process_index() == 0:
+                self._join_writer()  # stamp only a finished step
+                self._write_meta_overlay(step, dict(meta, seed=self.seed))
+            barrier("checkpoint_save")
+            return True
         self._saved.add(step)
         # every rank: a sharded state's state_dict gathers its shards
         whole = state_dicts(states)
@@ -181,6 +204,12 @@ class CheckpointManager:
                 self._writer.start()
             else:
                 self._write(step, payload)
+            # chaos: a due ckpt_corrupt fault garbles this step once its
+            # (possibly async) write finished; one None check when unarmed
+            from tpudist_torch.runtime import faults
+
+            faults.inject_ckpt_save(step, self._path(step),
+                                    wait=self._join_writer)
         barrier("checkpoint_save")
         return True
 
@@ -214,6 +243,29 @@ class CheckpointManager:
         if keep is not None:
             for old in self.all_steps()[:-keep]:
                 self._path(old).unlink(missing_ok=True)
+                self._overlay_path(old).unlink(missing_ok=True)
+
+    def _overlay_path(self, step: int) -> Path:
+        return self._dir / f"meta_overlay_{step}.json"
+
+    def _write_meta_overlay(self, step: int, meta: dict) -> None:
+        """Atomic (tmp + rename on the same filesystem) sidecar write."""
+        import json
+
+        tmp = self._overlay_path(step).with_suffix(".json.tmp")
+        tmp.write_text(json.dumps(meta))
+        os.replace(tmp, self._overlay_path(step))
+
+    def _read_meta_overlay(self, step: int) -> dict:
+        import json
+
+        p = self._overlay_path(step)
+        if not p.exists():
+            return {}
+        try:
+            return dict(json.loads(p.read_text()))
+        except (ValueError, OSError):
+            return {}  # torn write of the stamp: fall back to base meta
 
     def _join_writer(self) -> None:
         """Wait for the write in flight; raise its error, if any."""
@@ -226,10 +278,13 @@ class CheckpointManager:
 
     def wait_until_finished(self) -> None:
         """Drain the write in flight (rank 0), then meet at a barrier: on
-        return every step saved so far is on disk."""
-        if process_index() == 0:
-            self._join_writer()
-        barrier("checkpoint_written")
+        return every step saved so far is on disk.  Recorded as
+        ``ckpt_wait`` so the goodput report attributes the background
+        write's blocking tail."""
+        with telemetry.span("ckpt_wait"):
+            if process_index() == 0:
+                self._join_writer()
+            barrier("checkpoint_written")
 
     def close(self) -> None:
         self.wait_until_finished()
@@ -237,8 +292,12 @@ class CheckpointManager:
     # -- restore ------------------------------------------------------------
 
     def _load(self, step: int) -> dict:
-        return torch.load(self._path(step), map_location="cpu",
-                          weights_only=True)
+        payload = torch.load(self._path(step), map_location="cpu",
+                             weights_only=True)
+        # force-save stamps win
+        payload["meta"] = {**payload["meta"],
+                           **self._read_meta_overlay(step)}
+        return payload
 
     def restore(self, states: Any, step: Optional[int] = None) -> dict:
         """Load ``step`` (default: the latest) into the live ``states`` and
@@ -257,6 +316,10 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(
                 f"no checkpoint found under {self.config.directory}")
+        with telemetry.span("ckpt_restore", step=step):
+            return self._restore(states, step, steps, explicit)
+
+    def _restore(self, states, step, steps, explicit) -> dict:
         if explicit or not self.config.restore_fallback:
             payload = self._load(step)
             load_state_dicts(states, payload["states"])

@@ -86,7 +86,19 @@ def _with_deadline(fn: Callable[[], Any], timeout_s: Optional[float],
     """Run ``fn`` under an optional deadline (explicit argument >
     ``TPUDIST_HOST_TIMEOUT_S`` > none).  On expiry the caller gets
     :class:`HostFabricTimeout` and the wedged op stays with the abandoned
-    daemon worker; ops queue in order on one worker."""
+    daemon worker; ops queue in order on one worker.
+
+    Every host-fabric op routes through here, so this is also the ONE
+    telemetry seam for the ``host_collective`` span (the goodput report's
+    ``comm`` component)."""
+    from tpudist_torch import telemetry
+
+    with telemetry.span("host_collective", op=what):
+        return _with_deadline_inner(fn, timeout_s, what)
+
+
+def _with_deadline_inner(fn: Callable[[], Any], timeout_s: Optional[float],
+                         what: str) -> Any:
     global _deadline_worker
     if timeout_s is None:
         timeout_s = _default_host_timeout()
@@ -154,7 +166,10 @@ def host_allreduce_sum(x: Any, *, timeout_s: Optional[float] = None) -> Any:
     float64 numpy) in a single process.  ``timeout_s`` (or
     ``TPUDIST_HOST_TIMEOUT_S``) bounds the wait."""
 
+    from tpudist_torch.runtime import faults
+
     def op():
+        faults.inject_host()
         leaves = _leaves(x)
         if process_count() == 1:
             return _rebuild(x, iter(leaves))
@@ -198,8 +213,10 @@ def barrier(name: str = "tpudist_barrier", *,
     """Cross-process barrier on the host group (``dist.barrier()``,
     ``demo.py:177``); ``timeout_s`` (or ``TPUDIST_HOST_TIMEOUT_S``) bounds
     the wait."""
+    from tpudist_torch.runtime import faults
 
     def op():
+        faults.inject_host()
         if process_count() == 1:
             return
         import torch.distributed as dist

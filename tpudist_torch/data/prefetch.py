@@ -12,10 +12,10 @@ event has completed, so a reused buffer is never overwritten before its copy
 landed.  Up to ``depth`` copies are in flight ahead of the consumer.
 
 Order-preserving, exhausts the source once, re-raises the source's
-exception at the matching position (after the batches before it).  The JAX
-package also streams the consumer's waits as ``data_wait`` telemetry spans
-and a ``prefetch_stats`` event; telemetry is not ported (ROADMAP queue A,
-item A8), so here the waits are only counted on :class:`PrefetchStats`.
+exception at the matching position (after the batches before it).  As in
+the JAX package the consumer's waits are counted on :class:`PrefetchStats`,
+recorded as ``data_wait`` telemetry spans, and published as one
+``prefetch_stats`` event when the stream ends or is abandoned.
 
 Usage::
 
@@ -245,10 +245,18 @@ def prefetch_to_device(source: Iterable, device=None, *, depth: int = 2,
         return batch
 
     def copies() -> Iterator:
+        from tpudist_torch import telemetry
+
         while True:
+            tele = telemetry.active()
             t0 = time.monotonic()
             item = q.get()
-            stats.consumer_wait_s += time.monotonic() - t0
+            wait = time.monotonic() - t0
+            stats.consumer_wait_s += wait
+            if tele is not None:
+                # the consumer-side stall IS the data stall (nested under
+                # a caller's own data_wait span when one wraps this)
+                tele.record_span("data_wait", t0, wait)
             if isinstance(item, tuple) and len(item) == 2 \
                     and item[0] is _SENTINEL:
                 if item[1] is not None:
@@ -281,5 +289,16 @@ def prefetch_to_device(source: Iterable, device=None, *, depth: int = 2,
         finally:
             # release the drain thread: its bounded put polls this flag
             stop.set()
+            # from the finally: the common exit is a loop breaking at its
+            # budget with the source still live, and the totals must reach
+            # the report on that path too
+            from tpudist_torch import telemetry
+
+            telemetry.event(
+                "prefetch_stats",
+                producer_wait_s=round(stats.producer_wait_s, 6),
+                consumer_wait_s=round(stats.consumer_wait_s, 6),
+                batches=stats.batches,
+            )
 
     return DevicePrefetcher(gen(), thread, stop, stats, side)

@@ -27,8 +27,11 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import random
 import socket
-from typing import Optional
+import sys
+import time
+from typing import Callable, Optional
 
 class BootstrapError(RuntimeError):
     """A launch contract was detected but is incomplete/inconsistent."""
@@ -218,6 +221,47 @@ def find_free_port() -> int:
         return s.getsockname()[1]
 
 
+def _retry_with_backoff(
+    fn: Callable[[int], "object"],
+    *,
+    retries: int,
+    backoff_s: float,
+    what: str,
+    retry_on: tuple = (Exception,),
+    sleep: Callable[[float], None] = time.sleep,
+    rng: Callable[[], float] = random.random,
+):
+    """Run ``fn(attempt)`` with up to ``retries`` retries on ``retry_on``
+    failures, sleeping a jittered exponential backoff between attempts:
+    ``backoff_s * 2**attempt * (0.5 + rng())`` — the jitter (0.5x–1.5x)
+    decorrelates a whole worker group hammering a recovering coordinator
+    at the same instant.  KeyboardInterrupt/SystemExit (and anything not
+    in ``retry_on``) pass through.  A copy of JAX's helper, with its
+    ``retry`` event and stderr line."""
+    attempt = 0
+    while True:
+        try:
+            return fn(attempt)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except retry_on as e:  # noqa: BLE001 — bounded by `retries`
+            if attempt >= retries:
+                raise
+            delay = backoff_s * (2 ** attempt) * (0.5 + rng())
+            from tpudist_torch import telemetry
+
+            telemetry.event("retry", what=what, attempt=attempt,
+                            error=type(e).__name__, backoff_s=round(delay, 3))
+            print(
+                f"[tpudist.retry] {what} failed "
+                f"(attempt {attempt + 1}/{retries + 1}): "
+                f"{type(e).__name__}: {e}; retrying in {delay:.1f}s",
+                file=sys.stderr, flush=True,
+            )
+            sleep(delay)
+            attempt += 1
+
+
 # the process-wide runtime state, as torch.distributed's own default group:
 # the context of the last initialize() and its host (gloo) group
 _INITIALIZED_CTX: Optional[ProcessContext] = None
@@ -226,7 +270,9 @@ _HOST_GROUP = None
 
 def initialize(ctx: Optional[ProcessContext] = None, *,
                use_node_rank: bool = False, device="cuda",
-               initialization_timeout_s: int = 3600) -> ProcessContext:
+               initialization_timeout_s: int = 3600,
+               init_retries: Optional[int] = None,
+               init_backoff_s: Optional[float] = None) -> ProcessContext:
     """Bring up ``torch.distributed`` for this process.
 
     Replaces ``dist.init_process_group`` (``demo.py:27,49``) with the
@@ -238,7 +284,13 @@ def initialize(ctx: Optional[ProcessContext] = None, *,
     one process, ``MASTER_ADDR:MASTER_PORT`` when set, else a free local
     port).  A second gloo group serves the host fabric (:func:`host_group`).
     A single-process launch initializes nothing.  Idempotent: a second call
-    returns the context of the first."""
+    returns the context of the first.
+
+    As in JAX the fault grammar is armed and the telemetry session started
+    here, and the group's rendezvous is retried with jittered exponential
+    backoff on transient failures: ``init_retries`` retries (default
+    ``TPUDIST_INIT_RETRIES`` or 3) from ``init_backoff_s`` (default
+    ``TPUDIST_INIT_BACKOFF_S`` or 1.0 s), inside one ``init`` span."""
     global _INITIALIZED_CTX, _HOST_GROUP
     if _INITIALIZED_CTX is not None:
         return _INITIALIZED_CTX
@@ -247,7 +299,16 @@ def initialize(ctx: Optional[ProcessContext] = None, *,
 
     if ctx is None:
         ctx = resolve_process_context(use_node_rank=use_node_rank)
+    # the chaos grammar from the earliest runtime seam; the session starts
+    # here so the init span lands where the training loop records
+    from tpudist_torch import telemetry
+    from tpudist_torch.runtime import faults
+
+    faults.arm_from_env()
+    telemetry.ensure_started()
     if ctx.launch_source != "single":
+        from tpudist_torch.utils.envutil import env_float
+
         device = torch.device(device)
         if device.type == "cuda":
             torch.cuda.set_device(ctx.local_rank)
@@ -256,11 +317,26 @@ def initialize(ctx: Optional[ProcessContext] = None, *,
             coord = (_coordinator_from_master_env()
                      if os.environ.get("MASTER_ADDR")
                      else f"localhost:{find_free_port()}")
-        dist.init_process_group(
-            backend="nccl" if device.type == "cuda" else "gloo",
-            init_method=f"tcp://{coord}", world_size=ctx.num_processes,
-            rank=ctx.process_id,
-            timeout=datetime.timedelta(seconds=initialization_timeout_s))
+        if init_retries is None:
+            init_retries = max(0, int(env_float("TPUDIST_INIT_RETRIES", 3)))
+        if init_backoff_s is None:
+            init_backoff_s = env_float("TPUDIST_INIT_BACKOFF_S", 1.0)
+
+        def _attempt(attempt: int) -> None:
+            faults.inject_init(attempt)
+            if dist.is_initialized():  # a half-built group from a failure
+                dist.destroy_process_group()
+            dist.init_process_group(
+                backend="nccl" if device.type == "cuda" else "gloo",
+                init_method=f"tcp://{coord}", world_size=ctx.num_processes,
+                rank=ctx.process_id,
+                timeout=datetime.timedelta(seconds=initialization_timeout_s))
+
+        with telemetry.span("init", world=ctx.num_processes,
+                            source=ctx.launch_source):
+            _retry_with_backoff(
+                _attempt, retries=init_retries, backoff_s=init_backoff_s,
+                what=f"torch.distributed.init_process_group({coord})")
         _HOST_GROUP = dist.new_group(backend="gloo")
     _INITIALIZED_CTX = ctx
     return ctx

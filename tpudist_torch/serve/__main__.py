@@ -44,7 +44,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="replica servers behind a fleet router (only 1 is "
                         "ported)")
     p.add_argument("--telemetry-dir", default=None,
-                   help="serving telemetry output (not ported)")
+                   help="where serving spans land (default: "
+                        "TPUDIST_TELEMETRY_DIR or runs/telemetry)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain kernel versions)")
     args = p.parse_args(argv)
@@ -52,18 +53,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError(
             "--replicas: the fleet router is not ported yet (ROADMAP.md "
             "queue A item 8)")
-    if args.telemetry_dir:
-        raise NotImplementedError(
-            "--telemetry-dir: serving telemetry is not ported yet "
-            "(ROADMAP.md queue A item 8)")
 
     import numpy as np
     import torch
 
+    from tpudist_torch import telemetry
     from tpudist_torch.models import create_transformer
     from tpudist_torch.serve import AdmissionError, InferenceServer, \
         ServeConfig
 
+    if args.telemetry_dir:
+        telemetry.start(args.telemetry_dir)
     dtype = torch.bfloat16 if args.device.startswith("cuda") \
         else torch.float32
     model = create_transformer(
@@ -101,6 +101,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         stats = server.stats()
     finally:
         server.close()
+    report = telemetry.finish()
     rows = [{
         "id": h.id, "prompt_len": int(len(h.request.prompt)),
         "tokens_out": len(h.tokens), "reason": h.finish_reason,
@@ -109,7 +110,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     } for h in handles]
     device = (torch.cuda.get_device_name(0) if args.device.startswith("cuda")
               else "cpu")
-    print(json.dumps({"device": device, "requests": rows, "stats": stats},
+    print(json.dumps({"device": device, "requests": rows, "stats": stats,
+                      "telemetry_report": bool(report)},
                      indent=2, default=str))
     return 0
 

@@ -575,6 +575,15 @@ class SlotEngine:
             "blocks_released_total": al.blocks_released_total,
         }
 
+    def kv_gauges(self) -> Tuple[Optional[float], int]:
+        """The two per-decode-block telemetry gauges ``(block_occupancy,
+        bytes_resident)`` — cheap enough for the decode hot loop (two
+        counter reads; :meth:`kv_stats` builds the full dict)."""
+        if self.alloc is None:
+            return None, self._dense_resident_bytes
+        return (self.alloc.blocks_in_use / self.alloc.num_blocks,
+                self.alloc.blocks_in_use * self.fns.paged.block_bytes)
+
     # -- per-tenant adapters ------------------------------------------------
 
     def has_adapter(self, name: Optional[str]) -> bool:

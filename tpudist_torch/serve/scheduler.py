@@ -13,13 +13,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import os
 import threading
 import time
 import warnings
 from typing import Callable, List, Optional
 
 import numpy as np
+
+from tpudist_torch.telemetry.trace import new_trace_id
 
 #: every reason a handle can finish with in this slice (name → contract)
 FINISH_REASONS = {
@@ -47,11 +48,6 @@ FINISH_REASONS = {
                          "this unreachable unless the pool tables and "
                          "the host shadow diverge)",
 }
-
-
-def new_trace_id() -> str:
-    """A fresh 16-hex-digit request trace id."""
-    return os.urandom(8).hex()
 
 
 class AdmissionError(RuntimeError):
@@ -86,6 +82,11 @@ class Request:
     #: block reuse keys on it)
     prefix_hashes: tuple = ()
     priority: int = 0  # higher first; FIFO within a class
+    #: tenant label: rides into telemetry (``request_finished``), the live
+    #: metrics registry (per-tenant latency sketches + SLO attainment) and
+    #: ``/statusz`` per-tenant in-flight.  None = untagged (pools under
+    #: "default" in per-tenant views).
+    tenant: Optional[str] = None
     #: per-tenant adapter NAME: the request decodes through this adapter's
     #: rank-r factors from the adapter pool; None = the base model
     adapter: Optional[str] = None
@@ -124,7 +125,13 @@ class RequestHandle:
         self.t_first_token: Optional[float] = None
         self.t_done: Optional[float] = None
         self.slot: Optional[int] = None
+        #: per-request trace id (tpudist_torch.telemetry.trace), minted at
+        #: submit and stamped on ``request_finished`` and the lifeline
         self.trace_id: str = new_trace_id()
+        #: the disaggregated path's prefill-done and decode-start stamps,
+        #: which the lifeline reads; None on this single-pool server
+        self.t_prefill_done: Optional[float] = None
+        self.t_decode_start: Optional[float] = None
         #: the host shadow automaton's state over the DELIVERED tokens
         #: (``request.grammar`` only): the server advances it on delivery
         #: and truncates ``grammar_violation`` on divergence
@@ -276,8 +283,8 @@ class Scheduler:
                on_token: Optional[Callable[[int, int], None]] = None,
                priority: int = 0, adapter: Optional[str] = None,
                spec: Optional[bool] = None, grammar: Optional[str] = None,
-               json_schema=None, stop=None,
-               logprobs: int = 0) -> RequestHandle:
+               json_schema=None, stop=None, logprobs: int = 0,
+               tenant: Optional[str] = None) -> RequestHandle:
         """Admit a request or raise :class:`AdmissionError`.  ``deadline_s``
         None inherits the default; ``<= 0`` means no deadline.
         ``adapter`` names the per-tenant LoRA adapter the lane decodes
@@ -287,7 +294,8 @@ class Scheduler:
         compiled here, so an uncompilable ask rejects ``invalid_grammar``
         now, and a grammar requires ``eos_id``; ``stop`` is a list of stop
         sequences (token ids, or lists of token ids); ``logprobs`` asks for
-        the top-n ``(id, logprob)`` pairs of every token."""
+        the top-n ``(id, logprob)`` pairs of every token; ``tenant``
+        labels the request in telemetry."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         tg = self._compile_grammar(grammar, json_schema, eos_id)
         stop_seqs = self._norm_stop(stop)
@@ -319,6 +327,7 @@ class Scheduler:
                       eos_id=None if eos_id is None else int(eos_id),
                       on_token=on_token, prefix_hashes=hashes,
                       priority=int(priority),
+                      tenant=None if tenant is None else str(tenant),
                       adapter=None if adapter is None else str(adapter),
                       spec=None if spec is None else bool(spec),
                       grammar=tg, stop=stop_seqs, logprobs=n_lp)

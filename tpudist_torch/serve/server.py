@@ -2,8 +2,13 @@
 ``tpudist/serve/server.py`` for the serving slices: ingestion, the engine
 loop, graceful drain, per-tenant LoRA adapters, speculative decoding and
 structured output (grammars and JSON schemas, stop sequences, top-n
-logprobs) and the serving mesh (``mesh``, ``tp_overlap``); telemetry, the host KV tier, preemption, load shedding and
-disaggregation are later slices.
+logprobs), the serving mesh (``mesh``, ``tp_overlap``) and the runtime
+plane: telemetry (``prefill``/``decode_block``/``spec_verify`` spans, the
+``request_finished`` events and per-request lifelines, the ``tenant``
+label), the live ``/metrics``, ``/healthz`` and ``/statusz`` endpoints
+(``TPUDIST_METRICS_PORT``), and SIGTERM → drain through the training
+stack's preemption flag.  The host KV tier, priority preemption, load
+shedding, fair share and disaggregation are later slices.
 
 One background thread drives the engine; any number of caller threads
 submit.  Each loop iteration admits queued requests into free slots (one
@@ -48,13 +53,11 @@ _UNPORTED_ENV = {
     "RECOVER": ("disaggregated lane recovery (serve/disagg.py)", "8"),
     "POOL_RESIZE": ("the backpressure pool resize (serve/disagg.py)", "8"),
     "AUTO": ("measurement-driven planning (plan/)", "8"),
-    "HEALTH_STALE_S": ("the /healthz heartbeat (telemetry/)", "8"),
 }
 
 #: ``submit`` keywords of the JAX server the port takes only at their
 #: defaults: keyword → (default, what it asks for, ROADMAP.md item)
 _UNPORTED_SUBMIT = {
-    "tenant": (None, "per-tenant telemetry and fair share", "8"),
     "session": (None, "host-tier session resume (serve/host_tier.py)", "8"),
 }
 
@@ -222,10 +225,12 @@ class InferenceServer:
         server.close()          # graceful drain
 
     ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
-    unless ``device="cpu"`` is passed."""
+    unless ``device="cpu"`` is passed.  ``install_signal_handler``: SIGTERM
+    drains the server as ``close()`` does (a warned no-op when
+    :meth:`start` runs off the main thread)."""
 
     def __init__(self, model, config: Optional[ServeConfig] = None, *,
-                 device="cuda"):
+                 device="cuda", install_signal_handler: bool = True):
         self.config = config or ServeConfig.from_env()
         cfg = self.config
         if cfg.disagg:
@@ -278,22 +283,65 @@ class InferenceServer:
                 lambda regex, schema, eos: _compile_grammar_for(
                     ccfg, regex, schema, eos))),
             max_logprobs=self.engine.n_lp)
+        self._install_signal = install_signal_handler
+        self._installed_preemption = False
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._draining = False
         self._slot_handles: Dict[int, RequestHandle] = {}
-        self.loop_error: Optional[str] = None
         # counters (engine thread writes, stats() reads)
         self.completed = 0
         self.tokens_out = 0
         self._occupancy_sum = 0.0
         self._steps = 0
+        # -- live observability plane (telemetry.statusz) ------------------
+        self._init_observability()
 
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> "InferenceServer":
         if self._thread is not None:
             raise RuntimeError("server already started")
+        from tpudist_torch import telemetry
+        from tpudist_torch.runtime import faults, preemption
+
+        # chaos harness: arm TPUDIST_FAULT at the serving entry as the
+        # training loops do at theirs
+        faults.arm_from_env()
+        telemetry.ensure_started()
+        # one config-stamp event: the static KV geometry the aggregator
+        # pairs with the per-block occupancy gauges
+        kv = self.engine.kv_stats()
+        telemetry.event(
+            "serve_kv_config", paged=kv["paged"], quantized=kv["quantized"],
+            attn_kernel=kv["attn_kernel"],
+            prefill_kernel=kv["prefill_kernel"],
+            sample_kernel=kv["sample_kernel"],
+            fused_rope=kv["fused_rope"], lora_kernel=kv["lora_kernel"],
+            block_size=kv["block_size"], blocks_total=kv["blocks_total"],
+            pool_bytes=kv["pool_bytes"], bytes_per_pos=kv["bytes_per_pos"],
+            num_slots=self.engine.num_slots, max_len=self.engine.max_len)
+        if self.engine.adapters is not None:
+            st = self.engine.adapter_stats()
+            # "rank" is a RESERVED telemetry key (process rank): the LoRA
+            # rank travels as lora_rank
+            telemetry.event("serve_adapters_config",
+                            blocks=st.get("blocks_total"),
+                            lora_rank=st["rank"],
+                            block_bytes=st["block_bytes"],
+                            pool_bytes=st["pool_bytes"])
+        if self.engine.has_constrain() or self.engine.n_lp:
+            cs = self.engine.constrain_stats()
+            telemetry.event(
+                "serve_constrain_config", enabled=cs["enabled"],
+                blocks=cs.get("blocks"), max_states=cs.get("max_states"),
+                pool_bytes=cs.get("pool_bytes"),
+                logprobs=self.engine.n_lp)
+        self._start_observability()
+        if self._install_signal:
+            # SIGTERM → drain: the same preemption flag the training loop
+            # checkpoints on; off the main thread a warned no-op
+            self._installed_preemption = preemption.install()
         self._thread = threading.Thread(
             target=self._loop, name="tpudist-torch-serve", daemon=True)
         self._thread.start()
@@ -325,20 +373,37 @@ class InferenceServer:
         the stop tokens kept.  ``logprobs=n`` attaches the top-n
         ``(token_id, logprob)`` pairs of every token to
         ``handle.logprobs`` (post-mask on constrained lanes; ``n`` at most
-        ``ServeConfig.logprobs``).  ``tenant`` and ``session`` are the JAX
-        server's keywords; any value but their default raises
-        ``NotImplementedError`` naming the ROADMAP item that ports them."""
-        given = dict(tenant=tenant, session=session)
+        ``ServeConfig.logprobs``).  ``tenant`` labels the request in
+        telemetry, the per-tenant metrics and SLO attainment, and the
+        ``/statusz`` in-flight counts.  ``session`` is the JAX server's
+        keyword; any value but its default raises ``NotImplementedError``
+        naming the ROADMAP item that ports it.  A rejection is stamped into
+        telemetry as ``serve_rejected``."""
+        from tpudist_torch import telemetry
+        from tpudist_torch.serve.scheduler import AdmissionError
+
+        given = dict(session=session)
         for key, (default, what, item) in _UNPORTED_SUBMIT.items():
             value = given[key]
             if value is not None if default is None else value != default:
                 raise _not_ported(f"submit({key}=...) ({what})", item)
-        return self.scheduler.submit(
-            prompt, max_new=max_new, temperature=temperature,
-            deadline_s=deadline_s, seed=seed, eos_id=eos_id,
-            on_token=on_token, priority=priority, adapter=adapter,
-            spec=spec, grammar=grammar, json_schema=json_schema, stop=stop,
-            logprobs=logprobs)
+        # count the in-flight BEFORE the handle becomes visible to the
+        # engine thread, so a fast finish cannot decrement first
+        tkey = None if tenant is None else str(tenant)
+        self._track_tenant(tkey, +1)
+        try:
+            return self.scheduler.submit(
+                prompt, max_new=max_new, temperature=temperature,
+                deadline_s=deadline_s, seed=seed, eos_id=eos_id,
+                on_token=on_token, priority=priority, adapter=adapter,
+                spec=spec, grammar=grammar, json_schema=json_schema,
+                stop=stop, logprobs=logprobs, tenant=tenant)
+        except BaseException as e:
+            # never admitted: give the +1 back
+            self._track_tenant(tkey, -1)
+            if isinstance(e, AdmissionError):
+                telemetry.event("serve_rejected", reason=e.reason)
+            raise
 
     # -- per-tenant adapters ------------------------------------------------
 
@@ -350,15 +415,34 @@ class InferenceServer:
 
     def load_adapter(self, name: str, factors) -> dict:
         """Load ``factors`` under ``name`` into the engine's adapter pool
-        (thread-safe; see :meth:`SlotEngine.load_adapter`)."""
+        (thread-safe; see :meth:`SlotEngine.load_adapter`).  Emits one
+        ``adapter_load`` (plus ``adapter_evict`` for an LRU victim)."""
+        from tpudist_torch import telemetry
+
         self._require_adapters()
-        return self.engine.load_adapter(name, factors)
+        info = self.engine.load_adapter(name, factors)
+        if info.get("evicted"):
+            telemetry.event("adapter_evict", adapter=info["evicted"],
+                            evict_kind="lru", resident=info["resident"])
+        telemetry.event("adapter_load", adapter=name,
+                        block=info.get("block"),
+                        resident=info.get("resident"))
+        return info
 
     def unload_adapter(self, name: str) -> dict:
         """Unload ``name``: frees now when no lane holds it, else defers
-        (new requests already reject ``adapter_missing``)."""
+        (new requests already reject ``adapter_missing``).  Emits
+        ``adapter_evict``."""
+        from tpudist_torch import telemetry
+
         self._require_adapters()
-        return self.engine.unload_adapter(name)
+        info = self.engine.unload_adapter(name)
+        if info.get("known"):
+            telemetry.event("adapter_evict", adapter=name,
+                            evict_kind="unload",
+                            freed=bool(info.get("freed")),
+                            resident=info.get("resident"))
+        return info
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop admitting, finish everything admitted, stop the loop.
@@ -376,8 +460,160 @@ class InferenceServer:
         return ok
 
     def close(self, timeout: Optional[float] = None) -> bool:
-        """Graceful shutdown (drain)."""
-        return self.drain(timeout)
+        """Graceful shutdown (drain) + handler restore."""
+        ok = self.drain(timeout)
+        self._stop_observability()
+        if self._installed_preemption:
+            from tpudist_torch.runtime import preemption
+
+            preemption.reset()
+            self._installed_preemption = False
+        return ok
+
+    # -- live observability (the JAX server's _Observability) -------------
+    # /healthz: the engine thread alive, loop-error-free and its heartbeat
+    # fresh, not merely "the HTTP thread answered"; /statusz registered
+    # against the process endpoint; the slo_config stamp that makes
+    # declared targets visible to the post-hoc aggregator.
+
+    def _init_observability(self) -> None:
+        from tpudist_torch.utils.envutil import env_positive_float
+
+        #: the exception that killed the engine loop, if any — /healthz
+        #: goes 503 on it
+        self.loop_error: Optional[str] = None
+        #: engine-loop heartbeat (stamped every iteration, idle included)
+        self._beat: Optional[float] = None
+        #: /healthz staleness threshold for the heartbeat
+        #: (TPUDIST_SERVE_HEALTH_STALE_S).  The default must exceed the
+        #: worst dispatch that legitimately blocks an iteration — the first
+        #: request's kernel builds — or an orchestrator doing liveness
+        #: restarts would kill a starting server in a loop.
+        self.health_stale_s = env_positive_float(
+            "TPUDIST_SERVE_HEALTH_STALE_S", 300.0)
+        self._statusz_names: list = []
+        #: tenant → in-flight count (submitted minus finished) for
+        #: /statusz; mutated under _tenant_lock (ingestion + engine
+        #: threads both write)
+        self._tenant_inflight: Dict[str, int] = {}
+        self._tenant_lock = threading.Lock()
+
+    def _start_observability(self) -> None:
+        from tpudist_torch import telemetry
+        from tpudist_torch.telemetry import metrics, statusz
+
+        targets = metrics.slo_targets()
+        if targets["ttft_s"] or targets["tpot_s"]:
+            telemetry.event(
+                "slo_config",
+                **({"ttft_ms": round(targets["ttft_s"] * 1e3, 3)}
+                   if targets["ttft_s"] else {}),
+                **({"tpot_ms": round(targets["tpot_s"] * 1e3, 3)}
+                   if targets["tpot_s"] else {}))
+        # static-geometry gauges: a scrape between server start and the
+        # first request already answers "what is this process serving"
+        if metrics.enabled_from_env():
+            reg = metrics.registry()
+            for name, value in self._observability_gauges().items():
+                reg.gauge(name).set(value)
+        srv = statusz.ensure_started()
+        if srv is not None:
+            self._statusz_names = [
+                srv.register_health("serve", self._health_check),
+                srv.register_status("serve", self._statusz_doc),
+            ]
+
+    def _stop_observability(self) -> None:
+        from tpudist_torch.telemetry import statusz
+
+        srv = statusz.active()
+        if srv is not None:
+            for name in self._statusz_names:
+                srv.unregister(name)
+        self._statusz_names = []
+
+    def _health_check(self):
+        """(ok, detail) for ``/healthz``.  Unhealthy when the engine loop
+        has aborted (``serve_loop_error``), its thread is gone, or its
+        heartbeat is stale: liveness of the HTTP thread alone must never
+        read as healthy."""
+        t = self._thread
+        alive = t is not None and t.is_alive()
+        beat_age = (None if self._beat is None
+                    else time.monotonic() - self._beat)
+        stale = beat_age is not None and beat_age > self.health_stale_s
+        ok = alive and self.loop_error is None and not stale
+        return ok, {
+            "engine_thread_alive": alive,
+            "loop_error": self.loop_error,
+            "beat_age_s": None if beat_age is None else round(beat_age, 3),
+            "heartbeat_stale": stale,
+            "draining": self._draining,
+        }
+
+    def _track_tenant(self, tenant, delta: int) -> None:
+        """Per-tenant in-flight accounting for /statusz (None pools under
+        ``default``); a count that reaches 0 drops its key."""
+        key = tenant if tenant else "default"
+        with self._tenant_lock:
+            n = self._tenant_inflight.get(key, 0) + delta
+            if n <= 0:
+                self._tenant_inflight.pop(key, None)
+            else:
+                self._tenant_inflight[key] = n
+
+    def _observability_gauges(self) -> Dict[str, float]:
+        kv = self.engine.kv_stats()
+        return {
+            "tpudist_serve_slots": self.engine.num_slots,
+            "tpudist_serve_queue_limit": self.config.queue_limit,
+            "tpudist_serve_kv_pool_bytes": kv["pool_bytes"],
+        }
+
+    def _statusz_doc(self) -> dict:
+        """The ``/statusz`` section: current occupancy, KV residency,
+        queue depth, world/generation identity, per-tenant in-flight."""
+        from tpudist_torch.utils.envutil import env_int
+
+        eng = self.engine
+        kv_occ, kv_resident = eng.kv_gauges()
+        kv = eng.kv_stats()
+        return {
+            "slots": {
+                "total": int(eng.num_slots),
+                "active": int(eng.num_active),
+                "prefilling": len(eng.prefilling_slots()),
+                "occupancy": round(float(eng.occupancy), 4),
+            },
+            "queue": {
+                "pending": self.scheduler.pending(),
+                "limit": self.config.queue_limit,
+                "rejected": self.scheduler.rejected,
+            },
+            "kv": {
+                "paged": bool(kv["paged"]),
+                "pool_bytes": kv["pool_bytes"],
+                "bytes_resident": int(kv_resident),
+                "block_occupancy": (None if kv_occ is None
+                                    else round(float(kv_occ), 4)),
+            },
+            "completed": self.completed,
+            "tokens_out": self.tokens_out,
+            "tenants_in_flight": dict(self._tenant_inflight),
+            # per-tenant adapter pool (absent when off)
+            **({"adapters": eng.adapter_stats()}
+               if eng.adapters is not None else {}),
+            # structured-output grammar pool + logprobs width (absent
+            # when both are off)
+            **({"constrained": {**eng.constrain_stats(),
+                                "logprobs": eng.n_lp}}
+               if eng.has_constrain() or eng.n_lp else {}),
+            **({"spec": eng.spec_stats()} if eng.spec else {}),
+            "world": env_int("TPUDIST_NUM_PROCESSES", None),
+            "generation": env_int("TPUDIST_RESTART_COUNT", 0),
+            "draining": self._draining,
+            "loop_error": self.loop_error,
+        }
 
     def stats(self) -> dict:
         return {
@@ -415,18 +651,30 @@ class InferenceServer:
                 h._finish("shutdown")
             self._note_finished(h)
 
+    def _should_drain(self) -> bool:
+        if self._stop.is_set():
+            return True
+        from tpudist_torch.runtime import preemption
+
+        return preemption.requested()
+
     def _loop(self) -> None:
+        from tpudist_torch import telemetry
+
         try:
             self._run_loop()
         except BaseException as e:
             # the loop must not die silently: every waiter would hang
-            self.loop_error = repr(e)
+            self.loop_error = repr(e)  # /healthz goes 503 on this
+            telemetry.event("serve_loop_error", error=repr(e))
             raise
         finally:
             self.scheduler.refuse_new("draining")
             self._abort_outstanding()
 
     def _admit(self, now: float) -> None:
+        from tpudist_torch import telemetry
+
         eng, sched = self.engine, self.scheduler
         free = eng.free_slots()
         if not free:
@@ -471,7 +719,8 @@ class InferenceServer:
         firsts, deferred = {}, []
         while items:
             try:
-                firsts = eng.start_batch(items)
+                with telemetry.span("prefill", n=len(items)):
+                    firsts = eng.start_batch(items)
                 break
             except GrammarPoolFull:
                 # the batch's grammars need more blocks than running lanes
@@ -503,11 +752,16 @@ class InferenceServer:
                 self._deliver_block(slot, [tok])
 
     def _run_loop(self) -> None:
+        from tpudist_torch import telemetry
+
         eng, sched = self.engine, self.scheduler
         while True:
-            if not self._draining and self._stop.is_set():
+            self._beat = time.monotonic()  # /healthz heartbeat
+            if not self._draining and self._should_drain():
                 self._draining = True
                 sched.refuse_new("draining")
+                telemetry.event("serve_drain", pending=sched.pending(),
+                                active=eng.num_active)
             now = time.monotonic()
             for slot, h in list(self._slot_handles.items()):
                 if h._expired(now):
@@ -520,12 +774,21 @@ class InferenceServer:
             self._admit(now)
             # chunked prefill: one chunk per prefilling slot per iteration
             if eng.prefilling_slots():
-                for slot, tok in eng.advance_prefill().items():
+                with telemetry.span("prefill",
+                                    chunks=len(eng.prefilling_slots())):
+                    done = eng.advance_prefill()
+                for slot, tok in done.items():
                     self._deliver_block(slot, [tok])
             if eng.num_active:
-                self._occupancy_sum += eng.occupancy
-                self._steps += 1
+                occ = eng.occupancy
+                active = eng.num_active
+                tele = telemetry.active()
+                t0 = time.monotonic()
                 info, blocks = eng.decode_auto()
+                if tele is not None and info is not None:
+                    self._record_block(tele, t0, info, occ, active)
+                self._occupancy_sum += occ
+                self._steps += 1
                 block_lp = (info or {}).get("logprobs") or {}
                 for slot, toks in blocks.items():
                     self._deliver_block(slot, toks, block_lp.get(slot))
@@ -535,6 +798,33 @@ class InferenceServer:
                 break
             else:
                 sched.wait_for_work(_IDLE_WAIT_S)
+
+    def _record_block(self, tele, t0: float, info: dict, occ: float,
+                      active: int) -> None:
+        """The ``decode_block`` span of one plain block, or the
+        ``spec_verify`` span of a speculative one, with JAX's tags: the
+        block's occupancy and size, its dispatch/sync split, the KV gauges
+        and the bytes its attention streamed (and the acceptance and the
+        draft/verify split of a speculative block)."""
+        kv_occ, kv_resident = self.engine.kv_gauges()
+        tags = {"occupancy": occ, "active": active,
+                "k": info["k"], "tokens": info["tokens"],
+                "dispatch_s": round(info["dispatch_s"], 9),
+                "sync_s": round(info["sync_s"], 9),
+                "kv_block_occupancy": kv_occ,
+                "kv_bytes_resident": kv_resident,
+                "kv_read_bytes": info["kv_read_bytes"]}
+        if info.get("spec"):
+            tags.update(accepted=info["accepted"], drafted=info["drafted"],
+                        rollbacks=info["rollbacks"],
+                        draft_s=round(info["draft_s"], 9),
+                        verify_s=round(info["verify_s"], 9))
+            if info.get("accept_by_adapter"):
+                tags["accept_by_adapter"] = info["accept_by_adapter"]
+            tele.record_span("spec_verify", t0, time.monotonic() - t0, tags)
+        else:
+            tele.record_span("decode_block", t0, time.monotonic() - t0,
+                             tags)
 
     def _deliver_block(self, slot: int, toks: List[int], lp=None) -> None:
         """Stream a token block to the slot's request, truncating at its
@@ -585,4 +875,23 @@ class InferenceServer:
         self._note_finished(h)
 
     def _note_finished(self, h: RequestHandle) -> None:
+        from tpudist_torch import telemetry
+        from tpudist_torch.telemetry import trace
+
         self.completed += 1
+        self._track_tenant(h.request.tenant, -1)
+        telemetry.event(
+            "request_finished", id=h.id, reason=h.finish_reason,
+            prompt_len=int(len(h.request.prompt)), tokens_out=len(h.tokens),
+            ttft_s=h.ttft_s, tpot_s=h.tpot_s, queue_wait_s=h.queue_wait_s,
+            trace_id=h.trace_id,
+            **({"tenant": h.request.tenant} if h.request.tenant else {}),
+            **({"adapter": h.request.adapter} if h.request.adapter else {}),
+            **({"constrained": h.request.grammar.source["kind"]}
+               if h.request.grammar is not None else {}),
+            **({"stop_seqs": len(h.request.stop)} if h.request.stop
+               else {}),
+            **({"logprobs": h.request.logprobs} if h.request.logprobs
+               else {}))
+        # per-request lifeline spans (req_queue/req_prefill/req_decode)
+        trace.emit_request_lifeline(h)

@@ -16,18 +16,33 @@ loop chooses (:func:`run_training`): a per-step loop over the loader, and
 the device-cached path, where the dataset sits on the device and one call
 of the scanned step runs a window of iterations from an uploaded index
 window.  Both save through a checkpoint manager on its cadence and resume
-from a saved iteration, with the JAX loop's semantics (the SIGTERM
-preemption save of the JAX loop belongs to ROADMAP A8 and is not here).
+from a saved iteration, with the JAX loop's semantics.
+
+The runtime seams are the JAX loop's too: a SIGTERM (the preemption
+handler, :mod:`tpudist_torch.runtime.preemption`) ends the run at the next
+sync boundary with a forced save stamped ``preempted``; the hang watchdog
+(``TPUDIST_WATCHDOG_S``) is petted after every step or window; the
+``TPUDIST_FAULT`` grammar injects at every step; and the telemetry session
+records ``compile``/``step``/``data_wait``/``metric_flush`` spans and the
+train gauges.  CUDA runs ahead of the host, so a ``step`` span here
+measures the dispatch of the step's kernels, plus whatever wait the
+launch queue imposed; the first step (``compile``) blocks on its result,
+and the ``metric_flush`` span absorbs the device time the dispatch ran
+ahead of.  :func:`after_step` and :func:`save_point` are the step
+bracket these loops and the Trainer's LM loop share.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from tpudist_torch import telemetry
 from tpudist_torch.comm.collectives import (MetricBackend, barrier,
                                             host_allreduce_sum)
 from tpudist_torch.data.loader import ShardedLoader, shard_batch
@@ -56,22 +71,158 @@ class TrainLoopConfig:
     # which every process holds whole.
     device_cache: bool = True
     device_cache_max_bytes: int = 256 * 1024 * 1024
+    # Preemption-safe shutdown: when a SIGTERM arrived and a checkpoint
+    # manager is active, save at the next sync boundary (all processes
+    # agree on it over the host group) and return early.
+    preempt_save: bool = True
+    # Hang watchdog (tpudist_torch.runtime.watchdog): exit 124 with every
+    # thread's stack in the crash record when no iteration or window
+    # completes within this deadline.  None = TPUDIST_WATCHDOG_S (unset =
+    # off); the first deadline gets 10x slack for the first step's build.
+    watchdog_timeout_s: Optional[float] = None
 
 
-def finalize_run(states, *, iteration, epoch, ckpt, logger,
-                 flush=None) -> None:
-    """The run-teardown ordering (``demo.py:130-136``): the final
-    checkpoint save (drained), queued metric rows flushed,
-    ``logger.finish()``, then the end-of-training barrier."""
+def _preemption_check() -> bool:
+    from tpudist_torch.runtime import preemption
+
+    return preemption.check_all()
+
+
+@contextlib.contextmanager
+def preemption_scope(enabled: bool):
+    """Per-run preemption bracket, shared by every training loop (the
+    per-step and device-cached paths here, the Trainer's LM loop): clear
+    the sticky per-run record unconditionally — a later run without
+    checkpointing must not inherit an earlier run's preempted status —
+    install the SIGTERM handler when ``enabled``, and ALWAYS restore the
+    process-wide handler on exit (a library must not leave one behind)."""
+    from tpudist_torch.runtime import preemption
+
+    preemption.clear_last_run_preempted()
+    installed = False
+    if enabled:
+        # Off the main thread install() degrades to a warned no-op (False).
+        installed = preemption.install()
+    try:
+        yield
+    finally:
+        if installed:
+            preemption.reset()
+
+
+def finalize_run(states, *, iteration, epoch, ckpt, logger, flush=None,
+                 preempted: bool = False,
+                 own_telemetry: bool = True) -> None:
+    """The run-teardown ordering CONTRACT (shared by every loop; parity
+    with ``demo.py:130-136`` — metrics finish before the end barrier):
+
+    1. final checkpoint save — forced on preemption, because the boundary
+       may coincide with a cadence save whose meta lacks the stamp;
+    2. sticky preempted note (survives the handler reset in
+       :func:`preemption_scope`);
+    3. queued metric rows flushed (``flush``), then ``logger.finish()``;
+    4. the end-of-training barrier;
+    5. the telemetry session finished — rank 0 merges every rank's and
+       generation's JSONL into ``report.json``/``report.md`` — but ONLY
+       when this loop started the session (``own_telemetry``)."""
     if ckpt is not None:
-        ckpt.save(iteration, states, {"iteration": iteration,
-                                      "epoch": epoch})
+        ckpt.save(iteration, states,
+                  {"iteration": iteration, "epoch": epoch,
+                   **({"preempted": True} if preempted else {})},
+                  force=preempted)
         ckpt.wait_until_finished()
+    if preempted:
+        from tpudist_torch.runtime import preemption
+
+        preemption.note_run_preempted()
     if flush is not None:
         flush()
     if logger is not None:
         logger.finish()
     barrier("end_of_training")
+    if own_telemetry:
+        telemetry.finish()
+
+
+def _data_wait_iter(source, tele):
+    """Yield from ``source``, recording each blocking ``next()`` as a
+    ``data_wait`` span — the consumer-side stall the goodput report's
+    ``data`` component measures.  Plain passthrough when disarmed.
+
+    Uses the stack-pushing ``span()`` form on purpose: a source that
+    records its own ``data_wait`` leaves (the prefetcher) then nests under
+    this span instead of double-counting the same stall."""
+    if tele is None:
+        yield from source
+        return
+    it = iter(source)
+    while True:
+        try:
+            with tele.span("data_wait"):
+                item = next(it)
+        except StopIteration:
+            return
+        yield item
+
+
+def block_until_ready(tree) -> None:
+    """Wait for the device work behind every tensor of ``tree`` (a tensor,
+    or dicts/lists/tuples of them): the first step's ``compile`` span
+    measures the work, not its asynchronous dispatch."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for t in tree:
+            block_until_ready(t)
+    elif isinstance(tree, torch.Tensor) and tree.is_cuda:
+        torch.cuda.synchronize(tree.device)
+
+
+def after_step(tele, wd, t0, first: bool, out, *, sync: bool = False,
+               tags=None) -> None:
+    """Close one step (or window) of a loop: its ``compile`` span when it
+    is the first, blocked on ``out`` so that the span measures the build
+    and not the dispatch; else its ``step`` span, blocked on ``out`` only
+    with ``sync`` (where the caller fetches ``out`` next anyway).  Then
+    pet the watchdog: after the step, so that the first pet lands past the
+    first step's build, which the first deadline's slack covers."""
+    if tele is not None:
+        if first or sync:
+            block_until_ready(out)
+        tele.record_span("compile" if first else "step", t0,
+                         time.monotonic() - t0, tags)
+    if wd is not None:
+        wd.pet()
+
+
+def save_point(ckpt, wd, iteration: int, states, meta: dict) -> None:
+    """The checkpoint cadence after a step, then a pet: a save making I/O
+    progress is not a hang."""
+    ckpt.maybe_save(iteration, states, meta)
+    if wd is not None:
+        wd.pet()
+
+
+def start_run(config: TrainLoopConfig, *, name: str = "train_loop"):
+    """The run's start-up, shared by every loop: the fault grammar armed
+    from ``TPUDIST_FAULT``, the telemetry session started (``owns`` says
+    whether this loop started it, and so finishes it), the scrape
+    endpoint started (``TPUDIST_METRICS_PORT``), and the watchdog built
+    (not started; None when off).  Returns ``(owns, watchdog)``."""
+    from tpudist_torch.runtime import faults, watchdog
+    from tpudist_torch.telemetry import statusz
+
+    faults.arm_from_env()
+    # a pre-existing session belongs to the caller: record into it, never
+    # finish it
+    owns = telemetry.active() is None
+    telemetry.ensure_started()
+    statusz.ensure_started()
+    wd = watchdog.from_config(
+        config.watchdog_timeout_s, name=name,
+        first_deadline_s=(config.watchdog_timeout_s or
+                          watchdog.timeout_from_env() or 0.0) * 10)
+    return owns, wd
 
 
 def _make_pbar(config: TrainLoopConfig, initial: int = 0):
@@ -123,12 +274,23 @@ class _DeferredMetrics:
             return
         pending, self._pending = self._pending, []
         keys = sorted(pending[0][2])
-        vals = _fetch(self.config, keys,
-                      [torch.stack([p[2][k] for k in keys]) for p in pending],
-                      [p[1] for p in pending])
+        # one transfer for the whole window; the blocking fetch (which
+        # absorbs the device time the dispatch ran ahead of) is its own
+        # span so it never reads as idle
+        with telemetry.span("metric_flush", rows=len(pending)):
+            vals = _fetch(self.config, keys,
+                          [torch.stack([p[2][k] for k in keys])
+                           for p in pending],
+                          [p[1] for p in pending])
         for row in vals:
             self.logger.log({f"{METRIC_PREFIX}{k}": float(v)
                              for k, v in zip(keys, row)}, commit=True)
+        # live gauges, once per flush window
+        from tpudist_torch.telemetry import metrics
+
+        metrics.set_train_gauges(pending[-1][0], dict(zip(keys,
+                                                          map(float,
+                                                              vals[-1]))))
 
 
 def _placement(device):
@@ -179,14 +341,33 @@ def run_training(states: Dict[str, ModelState], step_fn: Callable,
     config = config or TrainLoopConfig()
     if len(loader) == 0:
         raise ValueError("the loader yields no batch for this process")
-    if (chunk_step_fn is not None
-            and config.device_cache
-            and loader.plan.mode == "distributed"
-            and loader.plan.samples_per_shard % loader.batch_size == 0
-            and loader.dataset.x.nbytes + loader.dataset.y.nbytes
-            <= config.device_cache_max_bytes):
-        return _run_scanned(states, chunk_step_fn, loader, device, logger,
-                            config, ckpt, start_iteration)
+    owns, wd = start_run(config)
+    with preemption_scope(config.preempt_save and ckpt is not None):
+        if wd is not None:
+            wd.start()
+        try:
+            if (chunk_step_fn is not None
+                    and config.device_cache
+                    and loader.plan.mode == "distributed"
+                    and loader.plan.samples_per_shard % loader.batch_size
+                    == 0
+                    and loader.dataset.x.nbytes + loader.dataset.y.nbytes
+                    <= config.device_cache_max_bytes):
+                return _run_scanned(states, chunk_step_fn, loader, device,
+                                    logger, config, ckpt, start_iteration,
+                                    wd, owns)
+            return _run_per_step(states, step_fn, loader, device, logger,
+                                 config, ckpt, start_iteration, wd, owns)
+        finally:
+            if wd is not None:
+                wd.stop()
+
+
+def _run_per_step(states, step_fn, loader, device, logger, config, ckpt,
+                  start_iteration, wd, own_telemetry):
+    """The per-step loop over the loader (see :func:`run_training`)."""
+    from tpudist_torch.runtime import faults
+
     x_dev, y_dev = _placement(device)
     pbar = _make_pbar(config, initial=start_iteration)
     deferred = _DeferredMetrics(logger, config) if logger is not None \
@@ -196,42 +377,59 @@ def run_training(states: Dict[str, ModelState], step_fn: Callable,
     iteration = epoch * batches_per_epoch
     skip = start_iteration - iteration
     last, bs = None, loader.batch_size  # the last step's losses and batch
-    while iteration < config.total_iterations:
+    tele = telemetry.active()
+    first_step = True  # the first step builds the kernels: its own span
+    preempted = False
+    while iteration < config.total_iterations and not preempted:
         loader.set_epoch(epoch)
         iteration += skip
-        for x, y in loader.iter_from(skip):
+        for x, y in _data_wait_iter(loader.iter_from(skip), tele):
             if iteration >= config.total_iterations:
                 break
+            faults.inject_step(iteration)  # chaos: kill/sigterm@step
             bs = x.shape[0]
+            t0 = time.monotonic() if tele is not None else None
             states, losses = step_fn(states, *shard_batch((x,), x_dev),
                                      *shard_batch((y,), y_dev))
+            after_step(tele, wd, t0, first_step, losses)
+            first_step = False
             last = losses
             if deferred is not None and iteration % config.log_every == 0:
                 deferred.add(iteration, bs, losses)
             iteration += 1
             if ckpt is not None:
-                ckpt.maybe_save(iteration, states,
-                                {"iteration": iteration, "epoch": epoch})
+                save_point(ckpt, wd, iteration, states,
+                           {"iteration": iteration, "epoch": epoch})
+            if (config.preempt_save and ckpt is not None
+                    and iteration < config.total_iterations
+                    and iteration % max(1, config.sync_every) == 0
+                    and _preemption_check()):
+                preempted = True
+                break
             if pbar is not None:
                 pbar.update(1)
         skip = 0
-        epoch += 1
+        if not preempted:  # the preempted break leaves the epoch open
+            epoch += 1
     if pbar is not None:
         pbar.close()
     finalize_run(states, iteration=iteration, epoch=epoch, ckpt=ckpt,
                  logger=logger,
-                 flush=deferred.flush if deferred is not None else None)
+                 flush=deferred.flush if deferred is not None else None,
+                 preempted=preempted, own_telemetry=own_telemetry)
     return states, _final_losses(config, last, bs)
 
 
 def _run_scanned(states, chunk_step_fn, loader, device, logger, config,
-                 ckpt, start_iteration):
+                 ckpt, start_iteration, wd=None, own_telemetry=True):
     """The device-cached loop (see :func:`run_training`).
 
     The per-epoch global permutation is derived on the host as the
     per-step path derives it: global batch ``t`` of epoch ``e`` is the
     concatenation of every shard's ``t``-th batch, so the scanned step's
     rank ``r`` takes exactly its shard's batch from each index row."""
+    from tpudist_torch.runtime import faults
+
     plan = loader.plan
     B = loader.batch_size
     x_dev, y_dev = _placement(device)
@@ -254,11 +452,16 @@ def _run_scanned(states, chunk_step_fn, loader, device, logger, config,
     gen = None
     pending = []  # (first iteration, {name: [K] device losses})
     last = None
+    tele = telemetry.active()
+    first_window = True  # the first window builds the kernels
+    preempted = False
     while iteration < total:
+        faults.inject_step(iteration)  # chaos: kill/sigterm at window edges
         # a window ends at the sync cadence, a save boundary or the budget
         k = min(max(1, config.sync_every), total - iteration)
         if save_every > 0:
             k = min(k, save_every - iteration % save_every)
+        t0 = time.monotonic() if tele is not None else None
         idx_rows = []
         while len(idx_rows) < k:
             if gen is None:
@@ -273,8 +476,15 @@ def _run_scanned(states, chunk_step_fn, loader, device, logger, config,
             else:
                 gen = None
                 epoch += 1
+        if tele is not None:
+            # the host's index-window assembly is this path's data stall
+            tele.record_span("data_wait", t0, time.monotonic() - t0)
+            t0 = time.monotonic()
         idx = torch.from_numpy(np.stack(idx_rows).astype(np.int64)).to(x_dev)
         states, losses = chunk_step_fn(states, x_all, y_all, idx)
+        after_step(tele, wd, t0, first_window, losses,
+                   tags={"steps": len(idx_rows)})
+        first_window = False
         last = losses
         if logger is not None:
             pending.append((iteration, losses))
@@ -283,16 +493,23 @@ def _run_scanned(states, chunk_step_fn, loader, device, logger, config,
                 pending = []
         iteration += len(idx_rows)
         if ckpt is not None:
-            ckpt.maybe_save(iteration, states,
-                            {"iteration": iteration, "epoch": epoch})
+            save_point(ckpt, wd, iteration, states,
+                       {"iteration": iteration, "epoch": epoch})
         if pbar is not None:
             pbar.update(len(idx_rows))
+        # window edges are this path's all-process preemption boundaries;
+        # a signal during the FINAL window is not a preemption
+        if (config.preempt_save and ckpt is not None
+                and iteration < total and _preemption_check()):
+            preempted = True
+            break
     if pbar is not None:
         pbar.close()
     finalize_run(states, iteration=iteration, epoch=epoch, ckpt=ckpt,
                  logger=logger,
                  flush=(lambda: _flush_scanned(pending, B, logger, config))
-                 if logger is not None else None)
+                 if logger is not None else None,
+                 preempted=preempted, own_telemetry=own_telemetry)
     return states, _final_losses(
         config, None if last is None else {k: v[-1] for k, v in last.items()},
         B)
@@ -307,8 +524,13 @@ def _flush_scanned(pending, batch_size, logger, config):
     windows = [torch.stack([w[k] for k in keys]) for _, w in pending]
     its = [first + j for (first, _), w in zip(pending, windows)
            for j in range(w.shape[1])]
-    vals = _fetch(config, keys, windows, [batch_size] * len(its))
+    with telemetry.span("metric_flush", rows=len(pending)):
+        vals = _fetch(config, keys, windows, [batch_size] * len(its))
     for it, row in zip(its, vals):
         if it % config.log_every == 0:
             logger.log({f"{METRIC_PREFIX}{k}": float(v)
                         for k, v in zip(keys, row)}, commit=True)
+    # live gauges, once per flush (the twin of _DeferredMetrics.flush)
+    from tpudist_torch.telemetry import metrics
+
+    metrics.set_train_gauges(its[-1], dict(zip(keys, map(float, vals[-1]))))

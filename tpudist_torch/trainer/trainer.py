@@ -36,9 +36,18 @@ gathered state (a run saved under one strategy resumes under another), and
 An :class:`LMTrainerModule` (one transformer, token batches) trains under
 ``'dp'``, ``'fsdp'``, ``'zero1'`` and ``'pp'`` through the LM step
 (:func:`tpudist_torch.train.lm.make_lm_train_step`), with checkpoints and
-resume by skipping batches.  The
-JAX facade's SIGTERM preemption save and telemetry stage events are not
-ported on either path (ROADMAP A8).
+resume by skipping batches.
+
+Both paths carry the JAX facade's SIGTERM preemption save: with a
+checkpoint directory, a SIGTERM ends the fit at the next boundary with a
+forced save stamped ``preempted`` and :attr:`Trainer.preempted` set (rerun
+with ``resume=True`` to continue), and both record into the telemetry
+session (:mod:`tpudist_torch.telemetry`).  The LM loop also takes the toy
+loop's ``TPUDIST_FAULT`` step seam (after each step, so ``sigterm@step:K``
+stops it at step ``K``) and its hang watchdog (``TPUDIST_WATCHDOG_S``).
+Its ``step`` span of a logged step (every step at ``log_every=1``) ends
+when the loss that the row fetches is ready, so it reads the card's time
+of the step, not the dispatch of its kernels.
 """
 
 from __future__ import annotations
@@ -190,6 +199,10 @@ class Trainer:
     checkpoint_every: int = 0
     resume: bool = False
     device: str = "cuda"  # 'cuda' (raises without CUDA) or 'cpu'
+    #: set by :meth:`fit`: True when a SIGTERM ended the fit early with a
+    #: preemption save (the fit is incomplete); a plain attribute, as in
+    #: JAX, not a field
+    preempted = False
 
     def _check_ported(self, module) -> None:
         if self.strategy == "auto":
@@ -270,7 +283,19 @@ class Trainer:
             if ckpt is not None:
                 ckpt.close()
         self.final_states = self._whole(states)
+        self._note_preempted()
         return losses
+
+    def _note_preempted(self) -> None:
+        """A SIGTERM-preempted run checkpointed and exited EARLY — the
+        caller must not mistake it for a completed fit."""
+        from tpudist_torch.runtime import preemption
+        from tpudist_torch.runtime.rank_logging import rank_print
+
+        self.preempted = preemption.last_run_preempted()
+        if self.preempted:
+            rank_print("[trainer] preempted: checkpoint saved, fit "
+                       "incomplete — rerun with resume=True to continue")
 
     def _sharded_state(self, mesh, model, factory, wrap) -> ModelState:
         """A toy model's state under ``fsdp``/``zero1``: the optimizer built
@@ -362,6 +387,7 @@ class Trainer:
             if ckpt is not None:
                 ckpt.close()
         self.final_states = self._whole(states)
+        self._note_preempted()
         return losses
 
     def _pp_step(self, mesh, model, opt, sched):
@@ -390,8 +416,20 @@ class Trainer:
         """The token-batch loop (JAX ``_run_lm_loop``): epochs of the
         loader with ``set_epoch``, a resume skipping the saved epoch's
         consumed batches, one ``loss/lm`` row every ``log_every`` steps,
-        checkpoints, then the shared teardown (:func:`finalize_run`)."""
+        checkpoints, the preemption check after every step, then the
+        shared teardown (:func:`finalize_run`) inside the preemption
+        bracket, so a second signal during the forced save finds the
+        handler still installed."""
+        import time
+
         import numpy as np
+
+        from tpudist_torch import telemetry
+        from tpudist_torch.runtime import faults
+        from tpudist_torch.train.loop import (_data_wait_iter,
+                                              _preemption_check, after_step,
+                                              preemption_scope, save_point,
+                                              start_run)
 
         # each data row trains on its rows (every stage of a pipelined
         # row on the same ones)
@@ -410,47 +448,76 @@ class Trainer:
         skip = start_iteration - epoch * (batches or 0)
         iteration = start_iteration
         loss = None
+        preempted = False
         dev = mesh.devices[0]
-        pbar = _make_pbar(TrainLoopConfig(total_iterations=self.max_steps,
-                                          progress_bar=self.progress_bar),
-                          initial=start_iteration)
-        while iteration < self.max_steps:
-            if hasattr(loader, "set_epoch"):
-                loader.set_epoch(epoch)
-            it = iter(loader)
-            for _ in range(skip):
-                next(it, None)
-            skip = 0
-            advanced = False
-            for tokens in it:
-                advanced = True
-                if iteration >= self.max_steps:
-                    break
-                tokens = np.asarray(tokens, dtype=np.int32)
-                if tokens.shape[0] % world:
-                    raise ValueError(
-                        f"the global batch of {tokens.shape[0]} rows does "
-                        f"not divide over {world} data rows")
-                share = tokens.shape[0] // world
-                loss = step(torch.from_numpy(
-                    tokens[rank * share:(rank + 1) * share]).to(dev))
-                iteration += 1
-                # the step's loss is already the global mean: there is no
-                # per-rank value left for a host-fabric reduction to merge
-                if iteration % max(1, self.log_every) == 0:
-                    logger.log({"loss/lm": float(loss)}, commit=True)
+        cfg = TrainLoopConfig(total_iterations=self.max_steps,
+                              progress_bar=self.progress_bar)
+        owns, wd = start_run(cfg, name="lm_loop")
+        tele = telemetry.active()
+        first_step = True  # the first step builds the kernels: own span
+        pbar = _make_pbar(cfg, initial=start_iteration)
+        with preemption_scope(ckpt is not None):
+            if wd is not None:
+                wd.start()
+            try:
+                while iteration < self.max_steps and not preempted:
+                    if hasattr(loader, "set_epoch"):
+                        loader.set_epoch(epoch)
+                    it = iter(loader)
+                    for _ in range(skip):
+                        next(it, None)
+                    skip = 0
+                    advanced = False
+                    for tokens in _data_wait_iter(it, tele):
+                        advanced = True
+                        if iteration >= self.max_steps:
+                            break
+                        tokens = np.asarray(tokens, dtype=np.int32)
+                        if tokens.shape[0] % world:
+                            raise ValueError(
+                                f"the global batch of {tokens.shape[0]} "
+                                f"rows does not divide over {world} data "
+                                "rows")
+                        share = tokens.shape[0] // world
+                        t0 = time.monotonic() if tele is not None else None
+                        loss = step(torch.from_numpy(
+                            tokens[rank * share:(rank + 1) * share]).to(dev))
+                        iteration += 1
+                        logged = iteration % max(1, self.log_every) == 0
+                        # a logged step's span waits for the loss its row
+                        # fetches anyway, so it reads the card's time
+                        after_step(tele, wd, t0, first_step, loss,
+                                   sync=logged)
+                        first_step = False
+                        faults.inject_step(iteration)  # after step K
+                        # the step's loss is already the global mean:
+                        # there is no per-rank value left for a host
+                        # reduction to merge
+                        if logged:
+                            logger.log({"loss/lm": float(loss)},
+                                       commit=True)
+                        if pbar is not None:
+                            pbar.update(1)
+                        if ckpt is not None:
+                            save_point(ckpt, wd, iteration, states,
+                                       {"iteration": iteration,
+                                        "epoch": epoch})
+                            if (iteration < self.max_steps
+                                    and _preemption_check()):
+                                preempted = True
+                                break
+                    if not advanced:
+                        raise ValueError("LM loader yielded no batches")
+                    if not preempted:
+                        epoch += 1
                 if pbar is not None:
-                    pbar.update(1)
-                if ckpt is not None:
-                    ckpt.maybe_save(iteration, states,
-                                    {"iteration": iteration, "epoch": epoch})
-            if not advanced:
-                raise ValueError("LM loader yielded no batches")
-            epoch += 1
-        if pbar is not None:
-            pbar.close()
-        finalize_run(states, iteration=iteration, epoch=epoch, ckpt=ckpt,
-                     logger=logger)
+                    pbar.close()
+                finalize_run(states, iteration=iteration, epoch=epoch,
+                             ckpt=ckpt, logger=logger, preempted=preempted,
+                             own_telemetry=owns)
+            finally:
+                if wd is not None:
+                    wd.stop()
         return {"lm": float(loss) if loss is not None else None}
 
     @staticmethod

@@ -45,8 +45,9 @@ def trace(profile_dir: Optional[str]) -> Iterator[None]:
 class StageTimer:
     """Wall-clock phase timer (the host-side analog of the reference's
     ``time tar`` staging timing) — records named phase durations and
-    publishes them with :meth:`emit`.  (The JAX timer also sends each phase
-    to its telemetry session; telemetry is ROADMAP A8.)"""
+    publishes them with :meth:`emit`: one committed metrics row
+    (``stage/<name>``) plus one telemetry ``stage`` event per phase, which
+    the goodput report surfaces in its "Host stages" section."""
 
     def __init__(self):
         self.durations: dict = {}
@@ -61,11 +62,19 @@ class StageTimer:
                 time.perf_counter() - t0
             )
 
-    def emit(self, logger=None, *, prefix: str = "stage/") -> dict:
-        """Publish the phase durations: with a
+    def emit(self, logger=None, *, prefix: str = "stage/",
+             session=None) -> dict:
+        """Publish the phase durations: telemetry ``stage`` events (into
+        ``session``, default the active session) and, with a
         :class:`~tpudist_torch.utils.metrics.MetricsLogger`, one committed
         ``stage/<name>`` row.  Returns the durations; call it before the
         logger is finished."""
+        from tpudist_torch import telemetry
+
+        sess = session if session is not None else telemetry.active()
+        if sess is not None:
+            for name, dur in self.durations.items():
+                sess.event("stage", stage=name, dur_s=round(dur, 6))
         if logger is not None and self.durations:
             logger.log(
                 {f"{prefix}{k}": v for k, v in self.durations.items()},
