@@ -333,6 +333,37 @@ order; any failure exits non-zero:
    injected ``host_delay`` exits 124, its crash record holding the stacks.
    Every serving, training and entry-point phase records into a telemetry
    session too (``runs/telemetry`` under its working directory).
+23. graceful degradation and the fleet (:func:`phase23_serve`, after
+   phase 22 (b)-(c) on phase 4's model and server geometry, telemetry on;
+   see the ``P23_*`` constants): (a) phase 4's first 8 requests, then 4
+   priority-1 requests once every lane has its first decode block, with
+   preemption into the host tier and without, twice.  At budgets of 65
+   and 33 tokens every decode block is K 8: preemptions, every preempted
+   lane's stream (greedy and sampled) bit for bit its preempt=False
+   stream, every request ``length``; export + serialize and deserialize
+   + import ms a lane, package bytes, priority-1 TTFT.  At 64 and 32
+   (short last blocks) each greedy lane is its preempt=False stream or
+   parts where that run's top-2 margin is within ``NEAR_TIE_GAP``; the
+   sampled lane's parting is printed.  (b) 8 two-turn sessions with the
+   tier on and off: 8 resumes, turn 2's paged prefill launches exactly
+   the suffixes' chunks, each greedy turn 2 the tier-off stream or
+   parting where the tier-off run's top-2 margin (its ``logprobs=2``
+   rows) is within ``NEAR_TIE_GAP`` (turn 1's decoded KV came from
+   decode's shapes, not prefill's); turn-2 TTFT.  (c) a calibration run
+   measures the gold tenant's TTFT alone and under a burst of bulk work
+   that fills the slots, and the TTFT SLO is set between the two (their
+   geometric mean); under it, the same burst: the gold tenant alone within
+   the SLO, a ``shed_state`` flip, bulk requests served before it, shed
+   ones ``shed_load``, protected ones ``length``, a bulk submit after the
+   flip rejected; fair share rejecting the hog with the queue more than
+   half full.  (d) ``host_tier_corrupt@nth:1`` over (b)'s first 2
+   sessions: one corrupt count, that turn re-prefilled to (b)'s tier-off
+   stream bit for bit.  (e) 2 replicas behind ``FleetRouter``: 4 sessions' turn 2
+   resumed on their home replicas, phase 4's 16 requests twice (fleet
+   tokens/s beside phase 4's), the second time with
+   ``replica_kill@nth:1``: no ``replica_lost``, a request re-homed,
+   greedy streams phase 4's or a near tie.  Each sub-phase's serving runs
+   must launch every serving kernel; the phase's launches are their sum.
 
 The entry points that run as subprocesses (phases 10, 12's
 ``demo_model_split``, 13, 14, 15a and 20's Trainer) run together after
@@ -345,7 +376,7 @@ It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path; the
 flash kernels also their phase 17-20 launches and shape times; every
 kernel its phase 21 launches by run and the per-place shapes' times, and
-its phase 22 launches) and
+its phase 22 and phase 23 launches) and
 the ``nvidia-smi`` line before the last line, which is the contract line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
@@ -776,6 +807,36 @@ PHASE22_STEP_SPAN_REL = 0.20
 # (d): the toy demo's watchdog deadline, below the host delay injected
 # into its metric reduce
 WATCHDOG_DRILL_S, WATCHDOG_DELAY_MS = 3, 60000
+# phase 23: graceful degradation and the fleet on phase 4's server.  (a)
+# phase 4's first 8 requests, then 4 priority-1 requests (prompts 64-256
+# tokens) once every low lane has its first decode block; (b) 8 sessions of
+# 2 turns: turn 1 200-300 tokens, turn 2 turn 1's context plus 32-64 user
+# tokens; (c) a protected tenant (priority 1) beside bulk work, and fair
+# share over a hog and a light tenant; (d) (b)'s first 2 sessions with the
+# first park corrupted; (e) 2 replicas behind the router.  The budgets are
+# 1 + a multiple of the decode block (65, 33): a lane's remaining budget
+# after its prefill-sampled token then stays a multiple of 8, so every
+# decode block of every run is K = 8.  A lane's decode logits depend on
+# its block boundaries (the paged decode kernel's split walk merges a
+# position in the pool or in the window buffer otherwise: on the H100,
+# phase 4's 8 lanes decoded at K 1, 4 or mixed left the K 8 run's
+# logprobs from their second block on, and 1-3 of 8 greedy streams within
+# 48 tokens; tests/torch_decode_schedule.py), and one lane's last short
+# blocks shrink every neighbour's K; at K 8 throughout, a stream's blocks
+# are its own, so a preempted or re-prefilled lane can be held bit for bit
+# against the unbroken run.  (a) runs again at 64 and 32, where the short
+# last blocks move the neighbours' K: there the greedy lanes are held to
+# the near-tie bound
+P23_HIGH, P23_HIGH_NEW, P23_LOW_NEW = 4, 33, 65
+P23_SESSIONS, P23_TURN_NEW = 8, 33
+# (c): the gold tenant's requests alone, then under the burst (8 filling
+# bulk lanes, bulk requests queued behind them); the calibration run's
+# TTFTs must be this far apart for an SLO to sit between them
+P23_GOLD_ALONE, P23_GOLD, P23_GOLD_NEW = 2, 4, 8
+P23_FILL_NEW, P23_BULK, P23_BULK_NEW = 32, 16, 16
+P23_BURST_RATIO = 4.0
+P23_FAIR_SHARE, P23_FAIR_QUEUE, P23_HOG_NEW = 1.5, 16, 64
+P23_FLEET_SESSIONS = 4
 
 
 def log(msg: str) -> None:
@@ -7031,6 +7092,721 @@ def phase22_serve(torch, model, main_path: dict, mesh: dict,
     return res
 
 
+# phase 23: graceful degradation and the fleet
+
+
+def p23_config(**knobs):
+    """Phase 4's server geometry (the kernel arms) with ``knobs``."""
+    from tpudist_torch.serve import ServeConfig
+
+    return ServeConfig(**{**dict(num_slots=SLOTS, queue_limit=64,
+                                 max_new=64, prefill_pad=P, decode_block=8,
+                                 kv_block=BS), **knobs})
+
+
+class Timed:
+    """Wrap ``obj.name`` so each call is timed on the host clock after a
+    ``torch.cuda.synchronize()`` on both sides (the card's work included);
+    ``sink`` gets ``(seconds, result)``.  ``undo()`` restores it."""
+
+    def __init__(self, torch, obj, name: str, sink: list):
+        self.obj, self.name = obj, name
+        self.orig = getattr(obj, name)
+        orig = self.orig
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0, out))
+            return out
+
+        setattr(obj, name, wrapped)
+
+    def undo(self) -> None:
+        setattr(self.obj, self.name, self.orig)
+
+
+def p23_hold(what: str, ok: bool, detail) -> None:
+    if not ok:
+        raise AssertionError(f"phase 23 {what}: {detail}")
+
+
+def launches_since(before: dict) -> dict:
+    """Each kernel's launches since ``before`` (an earlier
+    ``ops.launch_counts()``): a sub-phase's count without zeroing the
+    counts that an enclosing phase reads."""
+    from tpudist_torch import ops
+
+    return {k: n - before.get(k, 0) for k, n in ops.launch_counts().items()}
+
+
+def p23_hold_launches(what: str, launches: dict) -> None:
+    """Gate: every serving kernel launched in ``what``'s serving runs."""
+    p23_hold(what, all(launches.get(k, 0) > 0 for k in SERVE_KERNELS),
+             f"a serving kernel never launched: {launches}")
+
+
+def p23_parting(torch, model, prompt, got, want, lp_want):
+    """Where greedy stream ``got`` parts from ``want``: the position and
+    the top-2 margin of ``want``'s run there — from its ``logprobs=2``
+    rows, or, at a prefill-sampled first token (no row), from the card's
+    bf16 logits over the teacher-forced prefix (:func:`near_tie_gap`)."""
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if j is None:
+        raise AssertionError("phase 23: a stream ends early on the same "
+                             "tokens")
+    row = lp_want[j] if lp_want is not None and j < len(lp_want) else None
+    if row is None:
+        return near_tie_gap(torch, model, prompt, got, want)
+    return j, float(row[1][0] - row[1][1])
+
+
+def p23_preempt_run(torch, model, preempt: bool, low_new: int,
+                    high_new: int, logprobs: int = 0) -> dict:
+    """Phase 23 (a), one run: phase 4's first 8 requests (greedy and phase
+    4's sampled lane, ``low_new`` new tokens) queued before the server
+    starts, so all 8 admit in the first batch; once every one of them has
+    its first decode block the 4 priority-1 requests (``high_new``) are
+    submitted from the engine thread (a token callback), so both runs see
+    the same schedule up to the preemption.  Host tier on; ``preempt`` on
+    or off; ``logprobs=2`` records the low lanes' top-2 rows.  The export,
+    serialize, deserialize and import of each moved lane are timed."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.serve import InferenceServer, disagg
+
+    _, reqs, temps, _ = phase4_traffic(7)
+    rng = np.random.default_rng(23)
+    high = [rng.integers(0, V, size=int(rng.integers(64, 257)))
+            for _ in range(P23_HIGH)]
+    server = InferenceServer(model, p23_config(host_tier=True,
+                                               preempt=preempt,
+                                               logprobs=logprobs),
+                             device="cuda")
+    sinks = {k: [] for k in ("export", "put", "deser", "import",
+                             "preempt")}
+    timers = [Timed(torch, server.engine, "export_slot", sinks["export"]),
+              Timed(torch, server._tier, "put", sinks["put"]),
+              Timed(torch, server.engine, "import_slot", sinks["import"]),
+              Timed(torch, disagg, "deserialize_package", sinks["deser"])]
+    orig_preempt = server._preempt_slot
+
+    def preempt_slot(slot, h, by):
+        sinks["preempt"].append(h.id)
+        return orig_preempt(slot, h, by)
+
+    server._preempt_slot = preempt_slot
+    lows, highs = [], []
+
+    def trigger(_tok, _idx):
+        if not highs and len(lows) == 8 \
+                and all(len(h.tokens) >= 2 for h in lows):
+            highs.extend(server.submit(p, max_new=high_new, priority=1)
+                         for p in high)
+
+    before = ops.launch_counts()
+    try:
+        for i, (p, _) in enumerate(reqs[:8]):
+            lows.append(server.submit(p, max_new=low_new,
+                                      temperature=temps[i], seed=i,
+                                      on_token=trigger, logprobs=logprobs))
+        torch.cuda.synchronize()
+        server.start()
+        for h in lows:
+            if not h.wait(600):
+                raise AssertionError("phase 23 (a): a request timed out")
+        if len(highs) != P23_HIGH or not all(h.wait(600) for h in highs):
+            raise AssertionError("phase 23 (a): the priority-1 requests did "
+                                 "not finish")
+        torch.cuda.synchronize()
+        launches = launches_since(before)
+        stats = server.stats()
+    finally:
+        for t in timers:
+            t.undo()
+        server.close(60)
+    for h in lows + highs:
+        want = low_new if h in lows else high_new
+        p23_hold("(a)", h.finish_reason == "length" and len(h.tokens)
+                 == want, f"request {h.id} {h.finish_reason} "
+                 f"{len(h.tokens)}/{want}")
+    ids = [h.id for h in lows]
+    moved = [ids.index(i) for i in sinks["preempt"]]
+    n = len(moved)
+    bytes_ = [int(out) for _, out in sinks["put"] if out is not None]
+    return dict(
+        streams=[h.tokens for h in lows],
+        logprobs=[h.logprobs for h in lows], preempted=moved,
+        preemptions=server.preemptions, resumes=server.tier_resumes,
+        parked_after=stats["parked"],
+        high_ttft_ms=[1e3 * h.ttft_s for h in highs],
+        export_serialize_ms=[1e3 * (e[0] + p_[0]) for e, p_ in
+                             zip(sinks["export"][:n], sinks["put"][:n])],
+        deserialize_import_ms=[1e3 * (d[0] + i[0]) for d, i in
+                               zip(sinks["deser"], sinks["import"])],
+        package_bytes=bytes_, tier=stats["host_tier"], launches=launches)
+
+
+def p23_session_traffic(n: int):
+    import numpy as np
+
+    rng = np.random.default_rng(2323)
+    turn1 = [rng.integers(0, V, size=int(rng.integers(200, 301)))
+             for _ in range(n)]
+    extra = [rng.integers(0, V, size=int(rng.integers(32, 65)))
+             for _ in range(n)]
+    return turn1, extra
+
+
+def p23_session_run(torch, model, tier: bool, n: int = P23_SESSIONS,
+                    corrupt: bool = False) -> dict:
+    """Phase 23 (b)/(d), one run: ``n`` sessions' turn 1 queued before the
+    server starts, then, once all finished (and parked), their turn 2
+    with ``logprobs=2``.  Returns the run's launches and turn 2's
+    (differences of the counts, which stay running).  Host tier on or
+    off; ``corrupt`` arms ``host_tier_corrupt@nth:1``."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.runtime import faults
+    from tpudist_torch.serve import InferenceServer
+
+    turn1, extra = p23_session_traffic(P23_SESSIONS)
+    turn1, extra = turn1[:n], extra[:n]
+    server = InferenceServer(model, p23_config(host_tier=tier, logprobs=2),
+                             device="cuda")
+    if corrupt:
+        faults.arm("host_tier_corrupt@nth:1")
+    start = ops.launch_counts()
+    try:
+        h1 = [server.submit(p, max_new=P23_TURN_NEW, session=f"s{i}")
+              for i, p in enumerate(turn1)]
+        server.start()
+        for h in h1:
+            if not h.wait(600) or h.finish_reason != "length":
+                raise AssertionError(f"phase 23 (b): turn 1 {h.id} "
+                                     f"{h.finish_reason}")
+        torch.cuda.synchronize()
+        parked = server._tier.parks if tier else 0
+        prompts = [np.concatenate([p, np.asarray(h.tokens, np.int32), x])
+                   for p, h, x in zip(turn1, h1, extra)]
+        before = ops.launch_counts()
+        h2 = [server.submit(p, max_new=P23_TURN_NEW, session=f"s{i}",
+                            logprobs=2) for i, p in enumerate(prompts)]
+        for h in h2:
+            if not h.wait(600):
+                raise AssertionError("phase 23 (b): turn 2 timed out")
+        torch.cuda.synchronize()
+        counts = launches_since(before)
+        launches = launches_since(start)
+    finally:
+        if corrupt:
+            faults.disarm()
+        server.close(60)
+    for h in h2:
+        p23_hold("(b)", h.finish_reason in ("length", "session_resumed")
+                 and len(h.tokens) == P23_TURN_NEW,
+                 f"turn 2 {h.id} {h.finish_reason} {len(h.tokens)}")
+    # a resumed lane prefills prompt[pos:], pos = turn 1's prompt and
+    # stream less the stream's last token (the pending position)
+    suffix = [len(p2) - (len(p1) + P23_TURN_NEW - 1)
+              for p1, p2 in zip(turn1, prompts)]
+    return dict(
+        prompts=prompts, streams=[h.tokens for h in h2],
+        logprobs=[h.logprobs for h in h2],
+        resumed=[bool(h.resumed) for h in h2], parks=parked,
+        resumes=server.tier_resumes, corrupt=server.tier_corrupt,
+        ttft_ms=[1e3 * h.ttft_s for h in h2], prefill_launches=counts.get(
+            "paged_prefill", 0), turn2_launches=counts, launches=launches,
+        suffix=suffix,
+        suffix_chunks=[-(-s // P) for s in suffix])
+
+
+def p23_burst(torch, model, shed: bool) -> dict:
+    """Phase 23 (c), one run of the burst: the gold tenant's
+    ``P23_GOLD_ALONE`` requests one at a time on the idle server, then 8
+    bulk lanes filling the slots and, once every filling lane has its
+    first token, the gold tenant's ``P23_GOLD`` requests (priority 1),
+    which wait for a slot.  With ``shed`` the controller is on (the SLO is
+    the caller's ``TPUDIST_SLO_TTFT_MS``), ``P23_BULK`` bulk requests are
+    queued behind the filling lanes for it to shed, the first flip's time
+    is stamped and a bulk submit right after it is tried.  The calibration
+    run (``shed`` off) leaves the queued bulk requests out: the gold
+    requests outrank them, so they do not move a gold TTFT."""
+    import numpy as np
+
+    from tpudist_torch import ops
+    from tpudist_torch.serve import AdmissionError, InferenceServer
+
+    rng = np.random.default_rng(2324)
+    prompt = lambda: rng.integers(0, V, size=int(  # noqa: E731
+        rng.integers(64, 129)))
+    gold_p = [prompt() for _ in range(P23_GOLD_ALONE + P23_GOLD)]
+    fill_p = [prompt() for _ in range(SLOTS)]
+    bulk_p = [prompt() for _ in range(P23_BULK)] if shed else []
+    server = InferenceServer(model, p23_config(shed=shed), device="cuda")
+    ctrl, flip_at = server._ctrl, []
+    if shed:
+        orig_tick = ctrl.tick
+
+        def tick(now=None):
+            out = orig_tick(now)
+            if ctrl.shed_active and not flip_at:
+                flip_at.append(time.monotonic() if now is None else now)
+            return out
+
+        ctrl.tick = tick
+    gold = lambda p: server.submit(  # noqa: E731
+        p, max_new=P23_GOLD_NEW, priority=1, tenant="gold")
+    before = ops.launch_counts()
+    try:
+        server.start()
+        alone = []
+        for p in gold_p[:P23_GOLD_ALONE]:
+            alone.append(gold(p))
+            if not alone[-1].wait(600):
+                raise AssertionError("phase 23 (c): timed out")
+        shed_before_burst = bool(shed and ctrl.shed_active)
+        fill = [server.submit(p, max_new=P23_FILL_NEW, priority=0,
+                              tenant="bulk") for p in fill_p]
+        bulk = [server.submit(p, max_new=P23_BULK_NEW, priority=0,
+                              tenant="bulk") for p in bulk_p]
+        deadline = time.monotonic() + 120
+        while not all(h.tokens or h.done for h in fill) \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        burst = [gold(p) for p in gold_p[P23_GOLD_ALONE:]]
+        late = None
+        if shed:
+            while not flip_at and time.monotonic() < deadline:
+                time.sleep(0.001)
+            try:
+                bulk.append(server.submit(prompt(), max_new=8, priority=0,
+                                          tenant="bulk"))
+            except AdmissionError as e:
+                late = e.reason
+        for h in alone + fill + bulk + burst:
+            if not h.wait(600):
+                raise AssertionError("phase 23 (c): timed out")
+        torch.cuda.synchronize()
+        launches = launches_since(before)
+        stats = server.stats().get("overload")
+    finally:
+        server.close(60)
+    return dict(alone=alone, fill=fill, bulk=bulk, burst=burst,
+                flip_at=flip_at[0] if flip_at else None, late=late,
+                shed_before_burst=shed_before_burst, stats=stats,
+                launches=launches)
+
+
+def p23_overload(torch, model) -> dict:
+    """Phase 23 (c): the calibration run (no controller) places the TTFT
+    SLO between the gold tenant's TTFT alone and under the burst (their
+    geometric mean); the shed run repeats the burst under that SLO; the
+    fair-share run follows (module doc)."""
+    import tempfile
+
+    import numpy as np
+
+    from tpudist_torch import ops, telemetry
+    from tpudist_torch.serve import AdmissionError, InferenceServer
+    from tpudist_torch.telemetry import metrics
+
+    cal = p23_burst(torch, model, shed=False)
+    alone_ms = max(1e3 * h.ttft_s for h in cal["alone"])
+    burst_ms = min(1e3 * h.ttft_s for h in cal["burst"])
+    p23_hold("(c)", burst_ms >= P23_BURST_RATIO * alone_ms,
+             f"the burst delays the gold tenant to {burst_ms:.2f} ms from "
+             f"{alone_ms:.2f} ms alone, less than {P23_BURST_RATIO}x")
+    slo_ms = math.sqrt(alone_ms * burst_ms)
+    rng = np.random.default_rng(2325)
+    prompt = lambda: rng.integers(0, V, size=int(  # noqa: E731
+        rng.integers(64, 129)))
+    tmp = tempfile.TemporaryDirectory()
+    telemetry.finish(write_report=False)
+    metrics.registry().clear()
+    try:
+        with env_set(TPUDIST_SLO_TTFT_MS=repr(slo_ms)):
+            telemetry.start(os.path.join(tmp.name, "shed"))
+            run = p23_burst(torch, model, shed=True)
+            telemetry.finish(write_report=False)
+        metrics.registry().clear()
+        telemetry.start(os.path.join(tmp.name, "fair"))
+        server = InferenceServer(model, p23_config(
+            fair_share=P23_FAIR_SHARE, queue_limit=P23_FAIR_QUEUE),
+            device="cuda")
+        before = ops.launch_counts()
+        try:
+            mouse = [server.submit(prompt(), max_new=8, tenant="mouse")]
+            hogs = [server.submit(prompt(), max_new=P23_HOG_NEW,
+                                  tenant="hog") for _ in range(SLOTS)]
+            server.start()
+            deadline = time.monotonic() + 120
+            while (server._ctrl._fair_tenants < 2
+                   or sum(len(h.tokens) for h in hogs) < 100) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.002)
+            mouse += [server.submit(prompt(), max_new=8, tenant="mouse")
+                      for _ in range(P23_FAIR_QUEUE // 2 + 1)]
+            pending = server.scheduler.pending()
+            try:
+                hogs.append(server.submit(prompt(), max_new=8,
+                                          tenant="hog"))
+                hog_reason = None
+            except AdmissionError as e:
+                hog_reason = e.reason
+            for h in mouse + hogs:
+                if not h.wait(600):
+                    raise AssertionError("phase 23 (c): timed out")
+            torch.cuda.synchronize()
+            fair_launches = launches_since(before)
+            fair_stats = server.stats()["overload"]
+        finally:
+            server.close(60)
+            telemetry.finish(write_report=False)
+    finally:
+        metrics.registry().clear()
+        tmp.cleanup()
+    st, flip = run["stats"], run["flip_at"]
+    bulk = run["fill"] + run["bulk"]
+    shed = [h for h in bulk if h.finish_reason == "shed_load"]
+    served_first = [h for h in bulk if h.finish_reason == "length"
+                    and flip is not None and h.t_done < flip]
+    p23_hold("(c)", not run["shed_before_burst"]
+             and all(1e3 * h.ttft_s <= slo_ms for h in run["alone"]),
+             f"the gold tenant alone missed the {slo_ms:.2f} ms SLO: "
+             f"{[1e3 * h.ttft_s for h in run['alone']]} ms")
+    p23_hold("(c)", st["flips"] >= 1 and flip is not None
+             and min(st["last_attainment"].values()) < st[
+                 "shed_attainment_target"],
+             f"no shed_state flip under the burst: {st}")
+    p23_hold("(c)", {h.finish_reason for h in run["alone"] + run["burst"]}
+             == {"length"}, "protected requests "
+             f"{[h.finish_reason for h in run['alone'] + run['burst']]}")
+    p23_hold("(c)", {h.finish_reason for h in bulk}
+             <= {"length", "shed_load"} and len(shed) >= 1
+             and len(shed) == st["sheds"] and len(served_first) >= 1,
+             f"bulk reasons {[h.finish_reason for h in bulk]}, served "
+             f"before the flip {len(served_first)}, {st}")
+    p23_hold("(c)", run["late"] == "shed_load",
+             f"a bulk submit after the flip: {run['late']}")
+    p23_hold("(c)", pending * 2 > P23_FAIR_QUEUE
+             and hog_reason is not None
+             and hog_reason.startswith("fair_share")
+             and fair_stats["fair_rejects"] == 1,
+             f"pending {pending}, the hog's submit {hog_reason}, "
+             f"{fair_stats}")
+    p23_hold("(c)", all(h.finish_reason == "length" for h in mouse + hogs),
+             f"fair run reasons {[h.finish_reason for h in mouse + hogs]}")
+    launches = {k: run["launches"][k] + fair_launches[k]
+                for k in fair_launches}
+    return dict(
+        slo_ms=slo_ms, calib_alone_ms=alone_ms, calib_burst_ms=burst_ms,
+        alone_ms=[1e3 * h.ttft_s for h in run["alone"]],
+        burst_ms=[1e3 * h.ttft_s for h in run["burst"]],
+        flips=st["flips"], shed=len(shed), bulk_served=len(bulk) - len(shed),
+        served_before_flip=len(served_first),
+        attainment=st["last_attainment"], late_bulk=run["late"],
+        fair_pending=pending, hog_rejected=hog_reason,
+        rates=fair_stats["tenant_rates_tps"], launches=launches)
+
+
+def p23_fleet(torch, model, main_path: dict) -> dict:
+    """Phase 23 (e): 2 replicas of phase 4's server (host tier on) on the
+    one card behind :class:`~tpudist_torch.serve.router.FleetRouter`, each
+    warmed before the router's probes start.  4 two-turn sessions (turn 2
+    must land on its home replica and resume), then phase 4's 16 requests
+    twice: a wave without faults (fleet tokens/s) and a wave with
+    ``replica_kill@nth:1`` armed once they are queued (mid-serve)."""
+    import numpy as np
+
+    from tpudist_torch.runtime import faults
+    from tpudist_torch.serve import (FleetRouter, InferenceServer,
+                                     RouterConfig)
+
+    _, reqs, _, _ = phase4_traffic(7)
+    rng = np.random.default_rng(2325)
+    turn1 = [rng.integers(0, V, size=int(rng.integers(100, 201)))
+             for _ in range(P23_FLEET_SESSIONS)]
+    from tpudist_torch import ops
+
+    before = ops.launch_counts()
+    reps = [InferenceServer(model, p23_config(host_tier=True),
+                            device="cuda", install_signal_handler=False)
+            .start() for _ in range(2)]
+    router = None
+    try:
+        for r in reps:
+            warm = r.submit(rng.integers(0, V, size=70), max_new=9)
+            if not warm.wait(600) or warm.finish_reason != "length":
+                raise AssertionError("phase 23 (e): warm-up failed")
+        torch.cuda.synchronize()
+        router = FleetRouter(reps, RouterConfig()).start()
+        h1 = [router.submit(p, max_new=16, session=f"f{i}")
+              for i, p in enumerate(turn1)]
+        for h in h1:
+            if not h.wait(600) or h.finish_reason != "length":
+                raise AssertionError(f"phase 23 (e): turn 1 "
+                                     f"{h.finish_reason}")
+        deadline = time.monotonic() + 60
+        while router.stats()["stash_entries"] < P23_FLEET_SESSIONS \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        h2 = [router.submit(np.concatenate([p, np.asarray(h.tokens,
+                                                          np.int32),
+                                            rng.integers(0, V, size=24)]),
+                            max_new=16, session=f"f{i}")
+              for i, (p, h) in enumerate(zip(turn1, h1))]
+        for h in h2:
+            if not h.wait(600):
+                raise AssertionError("phase 23 (e): turn 2 timed out")
+        waves = {}
+        for wave in ("plain", "kill"):
+            t0 = time.perf_counter()
+            hs = [router.submit(p, max_new=n) for p, n in reqs]
+            if wave == "kill":
+                faults.arm("replica_kill@nth:1")
+            try:
+                for h in hs:
+                    if not h.wait(600):
+                        raise AssertionError("phase 23 (e): timed out")
+            finally:
+                faults.disarm()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            waves[wave] = dict(handles=hs, wall_s=wall, tokens_per_s=sum(
+                len(h.tokens) for h in hs) / wall)
+        launches = launches_since(before)
+        stats = router.stats()
+    finally:
+        if router is not None:
+            router.close(60)
+        else:
+            for r in reps:
+                r.close(60)
+    p23_hold("(e)", all(b.replica == a.replica and b.resumed
+                        for a, b in zip(h1, h2)),
+             f"turn 2 replicas {[h.replica for h in h2]} (turn 1 "
+             f"{[h.replica for h in h1]}), resumed "
+             f"{[h.resumed for h in h2]}")
+    out = {}
+    for wave, w in waves.items():
+        hs = w["handles"]
+        p23_hold("(e)", all(h.finish_reason == "length"
+                            and len(h.tokens) == n
+                            for h, (_, n) in zip(hs, reqs)),
+                 f"{wave} wave: {[(h.finish_reason, len(h.tokens)) for h in hs]}")
+        equal, ties = hold_greedy_streams(
+            torch, model, [p for p, _ in reqs], [h.tokens for h in hs],
+            main_path["streams"], range(16))
+        out[wave] = dict(tokens_per_s=w["tokens_per_s"], wall_s=w["wall_s"],
+                         equal=equal, near_ties=ties,
+                         rehomed=[i for i, h in enumerate(hs)
+                                  if h.attempts > 1])
+    p23_hold("(e)", stats["replica_deaths"] == 1 and stats["lost"] == 0
+             and len(out["kill"]["rehomed"]) >= 1,
+             f"router {stats}, re-homed {out['kill']['rehomed']}")
+    return dict(out, router=stats, launches=launches,
+                turn2_replicas=[h.replica for h in h2])
+
+
+def p23_hold_lanes(torch, model, what: str, on: dict, off: dict,
+                   lanes) -> list:
+    """Gate of phase 23 (a) at the 64/32 budgets: each greedy lane of
+    ``lanes`` is its preempt=False stream or parts where that run's top-2
+    margin is within ``NEAR_TIE_GAP`` (:func:`p23_parting`).  Returns the
+    partings ``(lane, token, margin)``."""
+    _, reqs, _, _ = phase4_traffic(7)
+    parted = []
+    for i in lanes:
+        if on["streams"][i] == off["streams"][i]:
+            continue
+        j, gap = p23_parting(torch, model, reqs[i][0], on["streams"][i],
+                             off["streams"][i], off["logprobs"][i])
+        parted.append((i, j, gap))
+        p23_hold(what, gap <= NEAR_TIE_GAP,
+                 f"lane {i} parts at token {j} where the top-2 margin "
+                 f"{gap:.5f} is above {NEAR_TIE_GAP}")
+    return parted
+
+
+def phase23_serve(torch, model, main_path: dict, card: str) -> dict:
+    """Phase 23 on phase 4's model (module doc): (a) preemption at the K-8
+    budgets and at 64/32, (b) sessions, (c) overload, (d) a corrupt park,
+    (e) the fleet.  Each sub-phase's serving runs report their launches
+    as differences of the running counts (the checks' own prefills are
+    left out); the phase's launches are their sum, and every sub-phase
+    must have launched every serving kernel."""
+    med = statistics.median
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(sub: str) -> None:
+        nonlocal t0
+        t1 = time.perf_counter()
+        walls[sub] = round(t1 - t0, 2)
+        t0 = t1
+
+    # (a)
+    off = p23_preempt_run(torch, model, False, P23_LOW_NEW, P23_HIGH_NEW)
+    on = p23_preempt_run(torch, model, True, P23_LOW_NEW, P23_HIGH_NEW)
+    p23_hold("(a)", on["preemptions"] >= 1 and off["preemptions"] == 0
+             and on["parked_after"] == 0,
+             f"preemptions {on['preemptions']}/{off['preemptions']}")
+    for i in on["preempted"]:
+        p23_hold("(a)", on["streams"][i] == off["streams"][i],
+                 f"preempted lane {i} (sampled: {i in SAMPLED_LANES}) "
+                 f"differs from its preempt=False stream")
+    p23_hold_launches("(a)", on["launches"])
+    log(f"phase 23 (a) preemption, budgets {P23_LOW_NEW}/{P23_HIGH_NEW} "
+        f"(every decode block K 8): {on['preemptions']} lanes preempted "
+        f"({on['preempted']}) into the host tier by 4 priority-1 "
+        f"requests and resumed, every stream equal to its preempt=False "
+        f"run's bit for bit (greedy and sampled); export + serialize "
+        f"{[round(x, 3) for x in on['export_serialize_ms']]} ms a lane, "
+        f"deserialize + import "
+        f"{[round(x, 3) for x in on['deserialize_import_ms']]} ms, package "
+        f"bytes {on['package_bytes']}; priority-1 TTFT p50 "
+        f"{med(on['high_ttft_ms']):.2f} ms with preemption, "
+        f"{med(off['high_ttft_ms']):.2f} ms without; launches "
+        f"{on['launches']} ({card})")
+    off2 = p23_preempt_run(torch, model, False, P23_LOW_NEW - 1,
+                           P23_HIGH_NEW - 1, logprobs=2)
+    on2 = p23_preempt_run(torch, model, True, P23_LOW_NEW - 1,
+                          P23_HIGH_NEW - 1, logprobs=2)
+    p23_hold("(a) 64/32", on2["preemptions"] >= 1
+             and off2["preemptions"] == 0 and on2["parked_after"] == 0,
+             f"preemptions {on2['preemptions']}/{off2['preemptions']}")
+    greedy = [i for i in range(8) if i not in SAMPLED_LANES]
+    parted2 = p23_hold_lanes(torch, model, "(a) 64/32", on2, off2, greedy)
+    sampled_parted = [i for i in range(8) if i in SAMPLED_LANES
+                      and on2["streams"][i] != off2["streams"][i]]
+    p23_hold_launches("(a) 64/32", on2["launches"])
+    log(f"phase 23 (a) preemption, budgets {P23_LOW_NEW - 1}/"
+        f"{P23_HIGH_NEW - 1} (short last blocks, K 1-8): "
+        f"{on2['preemptions']} lanes preempted ({on2['preempted']}); "
+        f"greedy lanes equal to the preempt=False run's "
+        f"{len(greedy) - len(parted2)}/{len(greedy)}, partings (lane, "
+        f"token, top-2 margin of the preempt=False run, bound "
+        f"{NEAR_TIE_GAP}): {parted2}; sampled lanes parted (not gated at "
+        f"these budgets): {sampled_parted}; priority-1 TTFT p50 "
+        f"{med(on2['high_ttft_ms']):.2f} ms with preemption, "
+        f"{med(off2['high_ttft_ms']):.2f} ms without ({card})")
+    lap("a")
+    # (b)
+    s_off = p23_session_run(torch, model, tier=False)
+    s_on = p23_session_run(torch, model, tier=True)
+    p23_hold("(b)", s_on["resumes"] == P23_SESSIONS
+             and all(s_on["resumed"]), f"resumes {s_on['resumes']}")
+    want = LAYERS * sum(s_on["suffix_chunks"])
+    p23_hold("(b)", s_on["prefill_launches"] == want
+             and want < s_off["prefill_launches"],
+             f"turn 2 paged prefill launches {s_on['prefill_launches']} "
+             f"(the suffixes' chunks: {want}; tier off "
+             f"{s_off['prefill_launches']})")
+    p23_hold_launches("(b)", s_on["launches"])
+    parted = []
+    for i in range(P23_SESSIONS):
+        if s_on["streams"][i] == s_off["streams"][i]:
+            continue
+        j, gap = p23_parting(torch, model, s_on["prompts"][i],
+                             s_on["streams"][i], s_off["streams"][i],
+                             s_off["logprobs"][i])
+        parted.append((i, j, gap))
+        p23_hold("(b)", gap <= NEAR_TIE_GAP,
+                 f"session {i} parts at token {j} where the top-2 margin "
+                 f"{gap:.5f} is above {NEAR_TIE_GAP}")
+    log(f"phase 23 (b) sessions: {s_on['resumes']}/{P23_SESSIONS} turns "
+        f"resumed from the host tier, turn-2 paged prefill launches "
+        f"{s_on['prefill_launches']} (the suffixes' chunks "
+        f"{s_on['suffix_chunks']} x {LAYERS} layers) against "
+        f"{s_off['prefill_launches']} tier off; turn-2 TTFT p50 "
+        f"{med(s_on['ttft_ms']):.2f} ms tier on, "
+        f"{med(s_off['ttft_ms']):.2f} ms tier off; parted lanes (session, "
+        f"token, top-2 margin of the tier-off run, bound {NEAR_TIE_GAP}): "
+        f"{parted} ({card})")
+    lap("b")
+    # (c)
+    over = p23_overload(torch, model)
+    p23_hold_launches("(c)", over["launches"])
+    log(f"phase 23 (c) overload: the gold tenant's TTFT alone "
+        f"{over['calib_alone_ms']:.2f} ms and under the burst "
+        f"{over['calib_burst_ms']:.2f} ms (calibration run) place the SLO "
+        f"at {over['slo_ms']:.2f} ms; shed run: gold alone "
+        f"{[round(x, 2) for x in over['alone_ms']]} ms, under the burst "
+        f"{[round(x, 2) for x in over['burst_ms']]} ms, "
+        f"{over['flips']} shed_state flip(s) (attainment "
+        f"{over['attainment']}), {over['served_before_flip']} bulk "
+        f"requests served before the flip, {over['bulk_served']} served "
+        f"in all, {over['shed']} shed, every protected request length, a "
+        f"bulk submit after the flip rejected '{over['late_bulk']}'; fair "
+        f"share {P23_FAIR_SHARE}x rejected the hog at {over['fair_pending']}"
+        f"/{P23_FAIR_QUEUE} queued: '{over['hog_rejected']}' ({card})")
+    lap("c")
+    # (d): held against (b)'s tier-off run, whose first 2 sessions are
+    # these (decode and prefill are row-independent at the fixed 8-slot
+    # shapes, and every block is K 8)
+    c_on = p23_session_run(torch, model, tier=True, n=2, corrupt=True)
+    bad = [i for i in range(2) if not c_on["resumed"][i]]
+    p23_hold("(d)", c_on["corrupt"] == 1 and len(bad) == 1,
+             f"tier_corrupt {c_on['corrupt']}, resumed {c_on['resumed']}")
+    p23_hold_launches("(d)", c_on["launches"])
+    i = bad[0]
+    if c_on["streams"][i] != s_off["streams"][i]:
+        raise AssertionError(
+            f"phase 23 (d): the re-prefilled turn of session {i} parts "
+            f"from (b)'s tier-off run's at "
+            f"{p23_parting(torch, model, s_off['prompts'][i], c_on['streams'][i], s_off['streams'][i], s_off['logprobs'][i])}")
+    log(f"phase 23 (d) host_tier_corrupt@nth:1: tier_corrupt "
+        f"{c_on['corrupt']}, session {i}'s turn 2 re-prefilled to (b)'s "
+        f"tier-off stream bit for bit, session {1 - i} resumed")
+    lap("d")
+    # (e)
+    fleet = p23_fleet(torch, model, main_path)
+    p23_hold_launches("(e)", fleet["launches"])
+    log(f"phase 23 (e) fleet: 2 replicas on one card behind the router, "
+        f"4 sessions' turn 2 on their home replicas "
+        f"{fleet['turn2_replicas']}, all resumed; phase 4's 16 requests "
+        f"at {fleet['plain']['tokens_per_s']:.1f} tokens/s through the "
+        f"fleet beside {main_path['tokens_per_s']:.1f} on one server "
+        f"(phase 4; both engine threads share one host and card); "
+        f"replica_kill@nth:1 mid-serve: {fleet['router']['replica_deaths']} "
+        f"death, re-homed {fleet['kill']['rehomed']}, 0 replica_lost, "
+        f"{fleet['kill']['tokens_per_s']:.1f} tokens/s; greedy lanes equal "
+        f"the single server's {fleet['plain']['equal']}/16 and "
+        f"{fleet['kill']['equal']}/16 (near ties "
+        f"{fleet['plain']['near_ties']} {fleet['kill']['near_ties']}) "
+        f"({card})")
+    lap("e")
+    runs = {"a": [off, on, off2, on2], "b": [s_off, s_on],
+            "c": [over], "d": [c_on], "e": [fleet]}
+    by_sub = {sub: {k: sum(r["launches"].get(k, 0) for r in rs)
+                    for k in SERVE_KERNELS} for sub, rs in runs.items()}
+    launches = {k: sum(b[k] for b in by_sub.values()) for k in SERVE_KERNELS}
+    log(f"phase 23 launches of the serving runs by sub-phase {by_sub}, in "
+        f"all {launches}; seconds by sub-phase {walls}")
+    return dict(
+        launches=launches, launches_by_subphase=by_sub, walls_s=walls,
+        preempt=dict(on={k: v for k, v in on.items()
+                         if k not in ("streams", "logprobs")},
+                     off=dict(high_ttft_ms=off["high_ttft_ms"]),
+                     budgets_64_32=dict(
+                         preempted=on2["preempted"], parted=parted2,
+                         sampled_parted=sampled_parted,
+                         high_ttft_ms=dict(on=on2["high_ttft_ms"],
+                                           off=off2["high_ttft_ms"]))),
+        sessions=dict(
+            on={k: v for k, v in s_on.items()
+                if k not in ("prompts", "streams", "logprobs")},
+            off=dict(ttft_ms=s_off["ttft_ms"],
+                     prefill_launches=s_off["prefill_launches"]),
+            parted=parted),
+        overload=over, corrupt=dict(session=i),
+        fleet=fleet)
+
+
 def watchdog_path() -> dict:
     """Phase 22 (d): the toy demo as a subprocess under the torchrun
     contract with ``TPUDIST_WATCHDOG_S`` below an injected ``host_delay``
@@ -7265,6 +8041,8 @@ def main(argv=None) -> int:
     mark("phase 21")
     robust_serve = phase22_serve(torch, model, main_path, mesh, card)
     mark("phase 22 (b)-(c)")
+    degrade = phase23_serve(torch, model, main_path, card)
+    mark("phase 23")
     del model, cpu_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7544,6 +8322,8 @@ def main(argv=None) -> int:
         kernels[-1]["phase22"] = int(
             robust_train["launches"].get(name, 0)
             + robust_serve["launches"].get(name, 0))
+        # phase 23: the launches of the degradation and fleet runs
+        kernels[-1]["phase23"] = int(degrade["launches"].get(name, 0))
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -7582,7 +8362,8 @@ def main(argv=None) -> int:
                   sharded=shard, moe_overlap_3d=moe, pipeline=pipe,
                   serve_mesh=mesh, robustness=dict(
                       train=robust_train, serve=robust_serve,
-                      watchdog=entry["watchdog"]), timeline=timeline,
+                      watchdog=entry["watchdog"]), degradation=degrade,
+                  timeline=timeline,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

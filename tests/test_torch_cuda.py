@@ -2041,3 +2041,95 @@ def test_preemption_save_and_resume_on_the_card(cuda, tmp_path,
     assert not second.preempted
     assert got == whole
     assert next(second.final_states["lm"].model.parameters()).is_cuda
+
+
+#: the lane-transfer arms on the card: the plain kernel engine, the int8
+#: pool, phase 4b's adapter arm (fused RoPE+QKV and the LoRA gather-matmul)
+#: and the spec arm (the residual prep on the sampled lane, the imported
+#: lanes' drafts cold-started by draft_arm)
+LANE_ARMS = {
+    "plain": {}, "int8": dict(kv_int8=True),
+    "adapter": dict(fused_rope=True, adapters=True, lora_kernel=True),
+    "spec": dict(spec_draft=1, spec_k=4),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(LANE_ARMS))
+def test_lane_export_import_on_the_card(cuda, arm):
+    """``export_slot`` → ``import_slot`` on a bf16 engine with head dim
+    128: a greedy and a sampled lane exported after their first decode
+    block, imported into other slots of an engine that evicted them and
+    into a fresh engine, continue bit for bit over 3 decode blocks — the
+    unbroken run's tokens on the arms without a draft; on the spec arm,
+    whose imported drafts start cold, the two imports' tokens.  On the
+    plain arm the bf16 greedy lane rides the wire form
+    (``serialize_package``) into the fresh engine."""
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.models.lora import make_adapter_factors
+    from tpudist_torch.serve import (SlotEngine, deserialize_package,
+                                     serialize_package)
+
+    kw = LANE_ARMS[arm]
+    model = create_transformer(0, device=cuda, dtype=torch.bfloat16,
+                               vocab=256, d_model=256, n_layers=2,
+                               n_heads=2, d_ff=512, max_len=256, rope=True)
+    factors = make_adapter_factors(torch.Generator().manual_seed(7), model,
+                                   8)
+    rng = np.random.default_rng(1)
+    items = [(0, rng.integers(0, 256, size=70), 0.0, 3, 40, (), True,
+              "a0" if kw.get("adapters") else None),
+             (1, rng.integers(0, 256, size=23), 0.9, 4, 40, (), True, None)]
+
+    def engine():
+        eng = SlotEngine(model, num_slots=4, prefill_pad=32, kv_block=16,
+                         decode_block=4, device=cuda, **kw)
+        if kw.get("adapters"):
+            eng.load_adapter("a0", factors)
+        return eng
+
+    def warm():
+        eng = engine()
+        eng.start_batch(items)
+        while eng.prefilling_slots():
+            eng.advance_prefill()
+        eng.decode_auto()
+        return eng
+
+    def blocks(eng, slots):
+        out = {s: [] for s in slots}
+        for _ in range(3):
+            for s, toks in eng.decode_auto()[1].items():
+                out[s] += toks
+        return [out[s] for s in slots]
+
+    unbroken = warm()
+    want = blocks(unbroken, [0, 1])
+    moved = warm()
+    pkgs = [moved.export_slot(s) for s in (0, 1)]
+    # a paged lane travels as its pool stores it: int8 blocks and their
+    # scales on the int8 arm
+    want_dtype = torch.int8 if kw.get("kv_int8") else torch.bfloat16
+    assert all(p["lane"].k.dtype == want_dtype for p in pkgs)
+    fresh = engine()
+    wire = deserialize_package(serialize_package(pkgs[0]))
+    assert torch.equal(wire["lane"][0].view(torch.uint8),
+                       pkgs[0]["lane"][0].cpu().view(torch.uint8))
+    fresh.import_slot(2, wire if arm == "plain" else pkgs[0])
+    fresh.import_slot(3, pkgs[1])
+    for s in (0, 1):
+        moved.evict(s)
+    moved.import_slot(3, pkgs[0])
+    moved.import_slot(2, pkgs[1])
+    reset_launch_counts()
+    got_fresh = blocks(fresh, [2, 3])
+    counts = launch_counts()
+    got_moved = blocks(moved, [3, 2])
+    assert got_fresh == got_moved
+    assert all(len(t) >= 3 for t in got_fresh)
+    assert counts["paged_attention"] > 0 and counts["fused_sample"] > 0
+    if arm == "spec":
+        assert counts["fused_residual_prep"] > 0
+    else:
+        assert got_fresh == want
+    if arm == "adapter":
+        assert counts["fused_rope_qkv"] > 0 and counts["lora_delta"] > 0

@@ -507,21 +507,29 @@ def test_serve_config_from_env(monkeypatch):
 # the JAX ServeConfig.from_env variables with no port yet, and the
 # ROADMAP.md queue A item each raises with
 UNPORTED_ENV = {
-    "HOST_TIER": "8", "PREEMPT": "8", "SHED": "8", "SHED_ATTAINMENT": "8",
-    "SHED_PRIORITY": "8", "FAIR_SHARE": "8", "HANDOFF": "8",
-    "HANDOFF_QUEUE": "8", "DECODE_WORKERS": "8", "PREFILL_WORKERS": "8",
-    "PREFILL_SLOTS": "8", "RECOVER": "8", "POOL_RESIZE": "8", "AUTO": "8"}
+    "HANDOFF": "8", "HANDOFF_QUEUE": "8", "DECODE_WORKERS": "8",
+    "PREFILL_WORKERS": "8", "PREFILL_SLOTS": "8", "RECOVER": "8",
+    "POOL_RESIZE": "8", "AUTO": "8"}
 # knobs that raised until their subsystem was ported: each case now holds
-# the knob read (the server attribute it sets, and the value)
+# the knob read — the server attribute it sets, or the ServeConfig field
+# it sets, compared with the JAX ServeConfig.from_env's reading of the
+# same value
 PORTED_ENV = {"HEALTH_STALE_S": "health_stale_s"}
+PORTED_CONFIG_ENV = {
+    "HOST_TIER": ("host_tier", "1"), "PREEMPT": ("preempt", "0"),
+    "SHED": ("shed", "1"), "SHED_ATTAINMENT": ("shed_attainment", "0.75"),
+    "SHED_PRIORITY": ("shed_priority", "0"),
+    "FAIR_SHARE": ("fair_share", "1.5")}
 
 
-@pytest.mark.parametrize("suffix", sorted(UNPORTED_ENV) + sorted(PORTED_ENV))
+@pytest.mark.parametrize("suffix", sorted(
+    list(UNPORTED_ENV) + list(PORTED_CONFIG_ENV)) + sorted(PORTED_ENV))
 def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, request,
                                                       suffix):
     """Each knob the port cannot honour raises, naming itself and its
     ROADMAP item, instead of building a server that ignores it; a knob
-    ported since is read instead."""
+    ported since is read instead (the graceful-degradation knobs as the
+    JAX ``ServeConfig.from_env`` reads them)."""
     name = f"TPUDIST_SERVE_{suffix}"
     if suffix in PORTED_ENV:
         monkeypatch.setenv(name, "7.5")
@@ -530,11 +538,39 @@ def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, request,
                                  device="cpu")
         assert getattr(server, PORTED_ENV[suffix]) == 7.5
         return
+    if suffix in PORTED_CONFIG_ENV:
+        from tpudist.serve import ServeConfig as JaxServeConfig
+
+        field, value = PORTED_CONFIG_ENV[suffix]
+        default = getattr(ServeConfig(), field)
+        monkeypatch.setenv(name, value)
+        got = getattr(ServeConfig.from_env(), field)
+        assert got == getattr(JaxServeConfig.from_env(), field)
+        assert got != default
+        return
     monkeypatch.setenv(name, "1")
     with pytest.raises(NotImplementedError,
                        match=rf"{name} .*queue A item "
                              rf"{UNPORTED_ENV[suffix]}\b"):
         ServeConfig.from_env()
+
+
+@pytest.mark.parametrize("name,value,field", [
+    ("TPUDIST_HOST_TIER_BYTES", "4096", "host_tier_bytes"),
+    ("TPUDIST_HOST_TIER_TTL_S", "2.5", "host_tier_ttl_s")])
+def test_serve_config_from_env_reads_host_tier_budget(monkeypatch, name,
+                                                      value, field):
+    """The host tier's byte budget and idle TTL are read as the JAX server
+    reads them (unset: 1 GiB and no expiry)."""
+    from tpudist.serve import ServeConfig as JaxServeConfig
+
+    monkeypatch.delenv(name, raising=False)
+    assert getattr(ServeConfig.from_env(), field) == getattr(
+        JaxServeConfig.from_env(), field)
+    monkeypatch.setenv(name, value)
+    got = getattr(ServeConfig.from_env(), field)
+    assert got == getattr(JaxServeConfig.from_env(), field) == type(got)(
+        value)
 
 
 @pytest.mark.parametrize("name,value", [
@@ -632,10 +668,10 @@ def test_server_from_env_on_the_jax_default_knobs(rope_models, monkeypatch,
 @pytest.mark.parametrize("key,value,item", [
     ("tenant", "acme", "8"), ("session", "s1", "8")])
 def test_submit_refuses_unported_keywords(rope_models, key, value, item):
-    """The JAX ``submit`` keywords are taken; a value but the default
-    raises naming its ROADMAP item, and the default admits as before.
-    ``tenant`` is ported: its label rides on the request and into the
-    ``/statusz`` in-flight count."""
+    """The JAX ``submit`` keywords are taken (both raised before their
+    subsystems were ported).  ``tenant``'s label rides on the request and
+    into the ``/statusz`` in-flight count; ``session`` rides on the request
+    as the host tier's key, and the default admits as before."""
     _, model = rope_models
     server = InferenceServer(model, ServeConfig(max_new=4, **ENGINE_KW),
                              device="cpu")
@@ -645,12 +681,11 @@ def test_submit_refuses_unported_keywords(rope_models, key, value, item):
         assert server._statusz_doc()["tenants_in_flight"] == {value: 1}
         assert server.close(30)
         return
-    with pytest.raises(NotImplementedError,
-                       match=rf"submit\({key}=.*queue A item {item}\b"):
-        server.submit(_prompt(5, 0), **{key: value})
-    default = {"logprobs": 0}.get(key)
-    h = server.submit(_prompt(5, 0), **{key: default})
-    assert server.scheduler.pending() == 1 and not h.done
+    h = server.submit(_prompt(5, 0), **{key: value})
+    assert h.request.session == value and not h.done
+    h0 = server.submit(_prompt(5, 0), **{key: None})
+    assert h0.request.session is None
+    assert server.scheduler.pending() == 2 and not h0.done
     assert server.close(30)
 
 

@@ -328,12 +328,19 @@ def test_budget_edges(models):
 
 
 def test_unported_spec_pieces_raise(models):
+    """``swap_draft`` (the distillation hot-swap) still raises naming its
+    queue A item; ``draft_arm`` is ported with the lane transfer: it maps
+    an imported lane's row and cold-starts its draft cursor at ``pos``."""
     _, model = models
     eng = SlotEngine(model, spec_draft=1, **ENGINE_KW, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         eng.swap_draft({})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.fns.draft_arm(eng.dcache, 0, None, 0)
+    M = eng.max_len // eng.paged_cfg.block_size
+    row = torch.full((M,), eng.paged_cfg.num_blocks, dtype=torch.int32)
+    row[:2] = torch.tensor([3, 5])
+    dkv = eng.fns.draft_arm(eng.dcache, 1, row, 7)
+    assert torch.equal(dkv.table[1], row) and int(dkv.cursor[1]) == 7
+    assert int(dkv.cursor[0]) == 0
     with pytest.raises(ValueError, match="vocab"):
         SlotEngine(model, spec_draft=TransformerLM(**dict(CFG, vocab=8)),
                    **ENGINE_KW, device="cpu")

@@ -67,8 +67,8 @@ import torch
 from tpudist_torch.models.lora import (AdapterPool, AdapterPoolConfig,
                                       gather_collection, place_collections,
                                       pool_collection)
-from tpudist_torch.models.paged import (PagedKV, PagedKVConfig, _Paged,
-                                        _PlacedPaged)
+from tpudist_torch.models.paged import (PagedKV, PagedKVConfig, PagedLane,
+                                        _Paged, _PlacedPaged)
 from tpudist_torch.models.transformer import (CacheFullError,
                                               DenseDecode, PagedDecode,
                                               PagedPrefill, Places,
@@ -632,13 +632,17 @@ class _Lanes:
         return self._dense(k, v, kv.cursor, n, state.last_tok[:, None],
                            self.ads(apool, state.adapter_id, False))[:, -1]
 
-    def export(self, kv, slot: int):
+    def export(self, kv, slot: int, blocks: Optional[int] = None):
         if self.pg is not None:
+            if blocks is not None:
+                return self.pg.extract_blocks(kv, slot, blocks)
             return self.pg.extract_lane(kv, slot)
         return (kv.k[:, slot].clone(), kv.v[:, slot].clone(),
                 kv.cursor[slot].clone())
 
     def adopt(self, kv, slot: int, row, lane):
+        if isinstance(lane, PagedLane):
+            return self.pg.adopt_blocks(kv, slot, row, lane)
         k, v, cursor = lane
         if self.pg is not None:
             return self.pg.adopt_lane(kv, slot, row, k, v, cursor)
@@ -828,14 +832,18 @@ class _PlacedLanes(_Lanes):
         return self._dense(k, v, kv.cursor, n, state.last_tok[:, None],
                            self.ads(apool, state.adapter_id, False))[:, -1]
 
-    def export(self, kv, slot: int):
+    def export(self, kv, slot: int, blocks: Optional[int] = None):
         if self.pg is not None:
+            if blocks is not None:
+                return self.pg.extract_blocks(kv, slot, blocks)
             return self.pg.extract_lane(kv, slot)
         return (torch.cat([t[:, slot].to(self.device) for t in kv.k], 1),
                 torch.cat([t[:, slot].to(self.device) for t in kv.v], 1),
                 kv.cursor[slot].clone())
 
     def adopt(self, kv, slot: int, row, lane):
+        if isinstance(lane, PagedLane):
+            return self.pg.adopt_blocks(kv, slot, row, lane)
         k, v, cursor = lane
         if self.pg is not None:
             return self.pg.adopt_lane(kv, slot, row, k, v, cursor)
@@ -898,16 +906,20 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
     - ``peek_logits(state, cache, apool=None)`` → ``[S, V]`` f32: every
       lane's next-token logits, nothing advanced (the int8-accuracy
       oracle);
-    - ``export_lane(state, cache, slot)`` → ``(lane, lane_state)``: the
-      lane ``(k, v, cursor)``, ``k``/``v`` ``[L, n_kv, max_len, dh]`` (on
-      a paged pool the dense view through the slot's table, int8
-      dequantized), and the slot's :class:`SlotState` row;
+    - ``export_lane(state, cache, slot, blocks=None)`` → ``(lane,
+      lane_state)``: the lane ``(k, v, cursor)``, ``k``/``v`` ``[L, n_kv,
+      max_len, dh]`` (on a paged pool the dense view through the slot's
+      table, int8 dequantized), and the slot's :class:`SlotState` row;
+      with ``blocks`` on a paged pool, the lane is the first ``blocks``
+      blocks of the slot's row as stored, a
+      :class:`~tpudist_torch.models.paged.PagedLane`;
     - ``import_lane(state, cache, slot, [row [M],] lane, lane_state)`` →
       ``(state, cache)``: install an exported lane in ``slot`` (a paged
-      pool scatters it into the host-allocated ``row``'s blocks,
-      requantizing).  The row carries ``last_tok``, ``counts`` and
-      ``seeds``, so a continuation in another engine and slot draws what
-      the source would have;
+      pool scatters a dense lane into the host-allocated ``row``'s
+      blocks, requantizing, and writes a ``PagedLane``'s blocks as they
+      are).  The row carries ``last_tok``, ``counts`` and ``seeds``, so a
+      continuation in another engine and slot draws what the source
+      would have;
     - ``prefill_chunk(pkv, rows, poss, clens, prompts, lane_mask,
       ads=None)`` → ``(pkv, logits [S, pad, V] f32)`` — the kernel
       prefill's model-level program (``prefill_kernel`` only).
@@ -951,6 +963,9 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
       ``prefill_extend``'s cache half (``aids [S]``: each lane's adapter
       block);
     - ``draft_evict(dkv, slot[, free_ids])``;
+    - ``draft_arm(dkv, slot, [row [M],] pos)`` — cold-start an imported
+      lane's draft at cursor ``pos`` over a zeroed context (a paged pool
+      maps ``row``'s freshly admitted blocks);
     - ``draft_track(state, dkv, prev_last [S], toks [K, S], apool=None)`` —
       teacher-force a plain block's emitted tokens through the draft;
     - ``draft_propose(state, dkv, k, sampled=None, apool=None)`` → ``(dkv,
@@ -1203,8 +1218,8 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         return tgt.peek(state, kv, apool)
 
     @torch.no_grad()
-    def export_lane(state, kv, slot: int):
-        return tgt.export(kv, slot), SlotState(
+    def export_lane(state, kv, slot: int, blocks: Optional[int] = None):
+        return tgt.export(kv, slot, blocks), SlotState(
             *(leaf[slot].clone() for leaf in state))
 
     def _import(state, kv, slot, row, lane, lane_state):
@@ -1293,11 +1308,23 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
         return dft.extend(dkv, slot, chunk, clen, apool,
                           _ids(aids, aid_empty))[0]
 
-    def draft_arm(*_args, **_kw):
-        raise NotImplementedError(
-            "draft_arm (a cold draft lane after a KV handoff import) belongs "
-            "to the lane handoff, not ported to tpudist_torch yet "
-            "(ROADMAP.md queue A item 8)")
+    # draft_arm: an imported lane's draft cursor cold-started at ``pos``
+    # over a zeroed context (the JAX draft_arm): the draft's missing
+    # context only lowers acceptance, the target's verify stays the oracle
+    if pg is None:
+        @torch.no_grad()
+        def draft_arm(dkv, slot: int, pos: int):
+            dkv = dft.release(dkv, slot)
+            dkv.cursor[slot] = int(pos)
+            return dkv
+    else:
+        @torch.no_grad()
+        def draft_arm(dkv, slot: int, row, pos: int):
+            # the row's blocks were freshly admitted, so the draft pool's
+            # copies are the zeros the last evict left there
+            dkv.table[slot] = row.to(dkv.table)
+            dkv.cursor[slot] = int(pos)
+            return dkv
 
     @torch.no_grad()
     def draft_track(state, dkv, prev_last, toks, apool=None):

@@ -46,6 +46,23 @@ class PagedKV(NamedTuple):
     cursor: torch.Tensor
 
 
+class PagedLane(NamedTuple):
+    """A lane as its pool stores it, for a transfer between engines of one
+    pool geometry (:meth:`_Paged.extract_blocks`): the first ``n`` blocks
+    of the slot's table row, ``k``/``v [L, n, n_kv, block_size, dh]`` in
+    the storage dtype (int8 on a quantized pool), ``scale_k``/``scale_v
+    [L, n, n_kv]`` f32 (ones on a float pool) and the ``cursor``.  Written
+    into other block ids (:meth:`_Paged.adopt_blocks`), it gives back the
+    exported blocks' bytes: an int8 lane is neither dequantized nor
+    requantized on the way."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    scale_k: torch.Tensor
+    scale_v: torch.Tensor
+    cursor: torch.Tensor
+
+
 def block_bytes(n_layers: int, n_kv: int, dh: int, itemsize: int,
                 cfg: PagedKVConfig) -> int:
     """Resident bytes of one logical block across all layers, K and V,
@@ -278,6 +295,27 @@ class _Paged:
             one * int(slot), 0 * one, self.max_len,
             torch.as_tensor(cursor, device=dev).reshape(1))
 
+    def extract_blocks(self, pkv: PagedKV, slot: int, n: int) -> PagedLane:
+        """The first ``n`` blocks of ``slot``'s table row as stored
+        (:class:`PagedLane`): the export half of a lane transfer."""
+        ids = pkv.table[slot, :n].long()
+        return PagedLane(pkv.pool_k[:, ids], pkv.pool_v[:, ids],
+                         pkv.scale_k[:, ids], pkv.scale_v[:, ids],
+                         pkv.cursor[slot].clone())
+
+    def adopt_blocks(self, pkv: PagedKV, slot: int, row: torch.Tensor,
+                     lane: PagedLane) -> PagedKV:
+        """The import half: write the lane's ``n`` blocks at the first
+        ``n`` ids of the (host-allocated) table ``row [M]`` (sentinel
+        entries drop), install the row and the cursor at ``slot``."""
+        dev = pkv.table.device
+        row = row.reshape(-1).to(dev)
+        self.commit_quantized(pkv, row[:lane.k.shape[1]],
+                              *(t.to(dev) for t in lane[:4]))
+        pkv.table[slot] = row.to(pkv.table.dtype)
+        pkv.cursor[slot] = torch.as_tensor(lane.cursor).to(pkv.cursor)
+        return pkv
+
     def write_tables(self, rows: torch.Tensor, pos0: torch.Tensor,
                      clen: torch.Tensor, span: int,
                      lane_mask: torch.Tensor) -> torch.Tensor:
@@ -473,6 +511,29 @@ class _PlacedPaged:
                           v[:, heads].to(dev), cursor)
         pkv.table[slot] = row.reshape(-1).to(pkv.table)
         pkv.cursor[slot] = torch.as_tensor(cursor).to(pkv.cursor)
+        return pkv
+
+    def extract_blocks(self, pkv: PlacedKV, slot: int, n: int) -> PagedLane:
+        """The whole lane's first ``n`` blocks as stored
+        (:meth:`_Paged.extract_blocks`): the places' heads put back
+        together, on the engine's device."""
+        parts = [pg.extract_blocks(p, slot, n) for pg, p, _ in
+                 self._each(pkv)]
+        return PagedLane(*(torch.cat([q[i].to(self.device) for q in parts],
+                                     2) for i in range(4)),
+                         pkv.cursor[slot].clone())
+
+    def adopt_blocks(self, pkv: PlacedKV, slot: int, row: torch.Tensor,
+                     lane: PagedLane) -> PlacedKV:
+        """Write a whole lane's blocks into ``row``'s, each place its kv
+        heads (:meth:`_Paged.adopt_blocks`)."""
+        hk = self.places[0].n_kv
+        for m, (pg, p, dev) in enumerate(self._each(pkv)):
+            heads = slice(m * hk, (m + 1) * hk)
+            pg.adopt_blocks(p, slot, row.to(dev), PagedLane(
+                *(t[:, :, heads] for t in lane[:4]), lane.cursor))
+        pkv.table[slot] = row.reshape(-1).to(pkv.table)
+        pkv.cursor[slot] = torch.as_tensor(lane.cursor).to(pkv.cursor)
         return pkv
 
     def release(self, pkv: PlacedKV, slot: int,

@@ -6,7 +6,9 @@ burst of requests with mixed prompt/output lengths through it, drains, and
 prints a JSON summary (per-request TTFT/TPOT and server stats, with the
 device it ran on).  Same flags as ``python -m tpudist.serve`` plus
 ``--device``; the KV knobs come from ``TPUDIST_SERVE_*`` (e.g.
-``TPUDIST_SERVE_KV_INT8=1``).
+``TPUDIST_SERVE_KV_INT8=1``).  ``--replicas N`` (N > 1) starts N servers of
+the same weights in this process, each with its host KV tier on, behind a
+:class:`~tpudist_torch.serve.router.FleetRouter`.
 """
 
 from __future__ import annotations
@@ -41,26 +43,23 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--max-len", type=int, default=128)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--replicas", type=int, default=1,
-                   help="replica servers behind a fleet router (only 1 is "
-                        "ported)")
+                   help="replica servers behind a fleet router (host tier "
+                        "on in each)")
     p.add_argument("--telemetry-dir", default=None,
                    help="where serving spans land (default: "
                         "TPUDIST_TELEMETRY_DIR or runs/telemetry)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain kernel versions)")
     args = p.parse_args(argv)
-    if args.replicas != 1:
-        raise NotImplementedError(
-            "--replicas: the fleet router is not ported yet (ROADMAP.md "
-            "queue A item 8)")
 
     import numpy as np
     import torch
 
     from tpudist_torch import telemetry
     from tpudist_torch.models import create_transformer
-    from tpudist_torch.serve import AdmissionError, InferenceServer, \
-        ServeConfig
+    from tpudist_torch.serve import (AdmissionError, FleetRouter,
+                                     InferenceServer, RouterConfig,
+                                     ServeConfig)
 
     if args.telemetry_dir:
         telemetry.start(args.telemetry_dir)
@@ -77,7 +76,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         ServeConfig.from_env(), num_slots=args.slots,
         queue_limit=args.queue, max_new=args.max_new,
         prefill_pad=prefill_pad, decode_block=args.decode_block)
-    server = InferenceServer(model, cfg, device=args.device).start()
+    if args.replicas > 1:
+        # N servers of the same weights behind the router; sessions park in
+        # each replica's host tier so a death or a drain can migrate them
+        cfg = dataclasses.replace(cfg, host_tier=True)
+        replicas = []
+        try:
+            for _ in range(args.replicas):
+                replicas.append(InferenceServer(
+                    model, cfg, device=args.device,
+                    install_signal_handler=False).start())
+            front = FleetRouter(replicas, RouterConfig()).start()
+        except BaseException:
+            for r in replicas:
+                r.close()
+            raise
+    else:
+        front = InferenceServer(model, cfg, device=args.device).start()
     rng = np.random.default_rng(args.seed)
     handles = []
     plen_cap = max(1, min(args.prompt_len, args.max_len - args.max_new))
@@ -88,7 +103,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             prompt = rng.integers(0, args.vocab, size=plen).astype(np.int32)
             while True:
                 try:
-                    handles.append(server.submit(
+                    handles.append(front.submit(
                         prompt, max_new=max_new,
                         temperature=args.temperature, seed=i))
                     break
@@ -98,12 +113,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                     time.sleep(0.01)  # the bounded queue doing its job
         for h in handles:
             h.wait()
-        stats = server.stats()
+        stats = front.stats()
     finally:
-        server.close()
+        front.close()
     report = telemetry.finish()
+    fleet = args.replicas > 1
     rows = [{
-        "id": h.id, "prompt_len": int(len(h.request.prompt)),
+        "id": h.id,
+        "prompt_len": int(len(h.prompt if fleet else h.request.prompt)),
+        **({"replica": h.replica} if fleet else {}),
         "tokens_out": len(h.tokens), "reason": h.finish_reason,
         "ttft_ms": round(h.ttft_s * 1e3, 2) if h.ttft_s else None,
         "tpot_ms": round(h.tpot_s * 1e3, 2) if h.tpot_s else None,

@@ -17,7 +17,11 @@ output (``constrain``: a grammar-table pool beside the KV pool, compiled
 grammars bound to lanes by the host registry of :mod:`tpudist_torch.
 constrain.registry`, each lane's row masked by the sampling kernel) and
 top-n logprobs (``logprobs``), and optionally a serving mesh (``mesh``:
-``data × model`` places, :mod:`tpudist_torch.serve.spmd`).
+``data × model`` places, :mod:`tpudist_torch.serve.spmd`).  A decoding
+lane moves between slots and engines — the host tier's parks and
+preemptions, the fleet's migrations — through :meth:`SlotEngine.
+export_slot` and :meth:`SlotEngine.import_slot` / :meth:`SlotEngine.
+resume_slot` (a parked session's next turn prefills only its suffix).
 
 The engine is the device half: ``num_slots`` KV lanes over the slot
 programs of :func:`tpudist_torch.models.make_slot_decode`, plus host shadow
@@ -49,7 +53,7 @@ from tpudist_torch.constrain import (ConstrainConfig, GrammarError,
 from tpudist_torch.models import lora as _lora
 from tpudist_torch.models.generate import (make_slot_decode,
                                            moe_serving_unported)
-from tpudist_torch.models.paged import PagedKVConfig
+from tpudist_torch.models.paged import PagedKVConfig, PagedLane
 from tpudist_torch.models.transformer import (TransformerLM, resolve_device,
                                               tied_draft)
 from tpudist_torch.serve.adapters import (AdapterMissingError,
@@ -752,6 +756,213 @@ class SlotEngine:
             "compile_cache": compile_cache_stats(),
             **self.grammars.stats(),
         }
+
+    # -- lane transfer (the host tier, preemption, the fleet) ---------------
+
+    def export_slot(self, slot: int) -> Dict[str, object]:
+        """Package a DECODING slot for another engine or the host tier: its
+        KV lane ``(k, v, cursor)``, its :class:`~tpudist_torch.models.
+        generate.SlotState` row (``last_tok``/``counts``/``seeds``: the
+        sampling stream continues bit for bit wherever the lane lands) and
+        the host shadows the importer needs.  A paged lane is the blocks
+        the slot's row maps, as the pool stores them (a
+        :class:`~tpudist_torch.models.paged.PagedLane`: an int8 pool's
+        blocks and scales travel as they are), a dense one ``(k, v,
+        cursor)`` over all ``max_len`` positions.  Does not evict."""
+        if not self.decoding[slot]:
+            raise ValueError(
+                f"slot {slot} is not decoding (export happens after the "
+                "prompt completes and the first token is sampled)")
+        blocks = (None if self.alloc is None
+                  else len(self.alloc.slot_row(slot)))
+        lane, lane_state = self.fns.export_lane(self.state, self.cache,
+                                                int(slot), blocks)
+        return {"paged": self.alloc is not None,
+                "lane": lane, "state": lane_state,
+                "pos": int(self.pos[slot]),
+                "counts": int(self.counts[slot]),
+                "budget": int(self.budget[slot]),
+                # the adapter travels by NAME and the grammar by SOURCE:
+                # pool block ids are local, the importer re-binds
+                "adapter": (self.slot_adapter[slot][0]
+                            if self.adapters is not None
+                            and self.slot_adapter[slot] is not None
+                            else None),
+                "grammar": (
+                    {"source": self.slot_grammar[slot][0].source,
+                     "eos_id": int(self.slot_grammar[slot][0].eos_id)}
+                    if self.grammars is not None
+                    and self.slot_grammar[slot] is not None else None)}
+
+    def can_import(self, package: Dict[str, object]) -> bool:
+        """Would the KV pool take the package right now (the caller checks
+        for a free slot)?  A paged engine reserves the lane's whole
+        remaining footprint; a dense one always fits."""
+        if self.alloc is None:
+            return True
+        return self.alloc.can_admit(int(package["pos"]),
+                                    int(package["budget"]), ())
+
+    def import_slot(self, slot: int, package: Dict[str, object], *,
+                    spec: Optional[bool] = None) -> None:
+        """Install an exported lane into free ``slot`` and arm it for
+        decode.  A paged engine reserves the remaining footprint on its
+        pool (fresh blocks, no prefix sharing) and scatters the lane into
+        them.  A speculative engine cold-starts the lane's draft at ``pos``
+        over a zeroed context (``draft_arm``): that lowers acceptance, never
+        correctness.  ``spec=False`` opts the lane out of speculation."""
+        if self.occupied[slot]:
+            raise ValueError(f"slot {slot} is occupied")
+        if bool(package["paged"]) != (self.alloc is not None):
+            raise ValueError("lane package and engine disagree on paged "
+                             "mode — engines must share KV geometry")
+        pos, counts = int(package["pos"]), int(package["counts"])
+        budget = int(package["budget"])
+        row_state = package["state"]
+        self._install_lane(slot, package["lane"], row_state, pos,
+                           admit_span=(pos, budget),
+                           adapter=package.get("adapter"),
+                           grammar=package.get("grammar"))
+        self.occupied[slot] = True
+        self.decoding[slot] = True
+        self.pos[slot] = pos
+        self.counts[slot] = counts
+        self.budget[slot] = budget
+        self.temps[slot] = float(row_state.temps)
+        self.spec_on[slot] = True if spec is None else bool(spec)
+        self.peak_occupied = max(self.peak_occupied, self.num_occupied)
+
+    def _install_lane(self, slot: int, lane, row_state, pos: int, *,
+                      admit_span: Tuple[int, int],
+                      adapter: Optional[str] = None,
+                      grammar: Optional[Dict[str, object]] = None) -> None:
+        """The one import both :meth:`import_slot` and :meth:`resume_slot`
+        ride: re-bind the adapter by name and the grammar by source (ids
+        are pool-local; a name this pool does not hold raises
+        :class:`~tpudist_torch.serve.adapters.AdapterMissingError` before
+        any state changes), reserve ``admit_span`` on a paged pool, install
+        the lane and the row (``import_lane``) and cold-start the draft
+        (``draft_arm``)."""
+        moved = [torch.as_tensor(t).to(self.device) for t in lane]
+        lane = (PagedLane(*moved) if isinstance(lane, PagedLane)
+                else tuple(moved))
+        if adapter is not None or self.adapters is not None:
+            aid = self._acquire_adapter(slot, adapter)
+            row_state = row_state._replace(
+                adapter_id=torch.tensor(aid, dtype=torch.int32))
+        if grammar is not None and self.grammars is None:
+            self._release_adapter(slot)
+            raise GrammarError(
+                "imported lane carries a grammar but this engine was built "
+                "without constrain= — engines must agree on "
+                "structured-output support")
+        if grammar is not None or self.grammars is not None:
+            gid = self._gid_sentinel()
+            if grammar is not None:
+                from tpudist_torch.constrain import compile_grammar
+
+                src = grammar["source"]
+                try:
+                    tg = compile_grammar(
+                        regex=(src["src"] if src["kind"] == "regex"
+                               else None),
+                        json_schema=(src["src"]
+                                     if src["kind"] == "json_schema"
+                                     else None),
+                        vocab=self.constrain_cfg.vocab,
+                        eos_id=int(grammar["eos_id"]),
+                        max_states=self.constrain_cfg.max_states)
+                    gid = self._acquire_grammar(slot, tg)
+                except BaseException:
+                    self._release_adapter(slot)
+                    raise
+                row_state = row_state._replace(
+                    gidx=torch.tensor(gid, dtype=torch.int32))
+            else:
+                # a foreign gstate could exceed this pool's state rows
+                row_state = row_state._replace(
+                    gidx=torch.tensor(gid, dtype=torch.int32),
+                    gstate=torch.tensor(0, dtype=torch.int32))
+        if self.alloc is None:
+            self.state, self.cache = self.fns.import_lane(
+                self.state, self.cache, int(slot), lane, row_state)
+            if self.spec:
+                self.dcache = self.fns.draft_arm(self.dcache, int(slot), pos)
+            return
+        try:
+            row, _ = self.alloc.admit(slot, admit_span[0], admit_span[1], ())
+        except BaseException:
+            self._release_adapter(slot)
+            self._release_grammar(slot)
+            raise
+        M = self.max_len // self.paged_cfg.block_size
+        full = np.full(M, self.paged_cfg.num_blocks, np.int32)
+        full[:len(row)] = row
+        self.state, self.cache = self.fns.import_lane(
+            self.state, self.cache, int(slot), self._t(full), lane,
+            row_state)
+        if self.spec:
+            self.dcache = self.fns.draft_arm(self.dcache, int(slot),
+                                             self._t(full), pos)
+
+    def resume_slot(self, slot: int, package: Dict[str, object], prompt,
+                    *, temperature: float = 0.0, seed: int = 0,
+                    max_new: int = 1, spec: Optional[bool] = None) -> None:
+        """Install a PARKED lane (a host-tier session) into free ``slot``
+        and go on in prefill mode: the package's ``pos`` covered positions
+        are a prefix of ``prompt`` (the tier checked the tokens), so only
+        ``prompt[pos:]`` is teacher-forced, through the ordinary chunked
+        prefill.  The row is re-armed for the new turn as
+        :meth:`start_batch` arms a fresh one — ``seeds`` the request's
+        seed, ``counts`` 0, the new ``temps`` — so the resumed stream is a
+        fresh serve's at the same seed, minus the covered prefix's
+        recompute.  A paged engine reserves the whole ``prompt + max_new``
+        footprint (a resumed lane's context is private)."""
+        if self.occupied[slot]:
+            raise ValueError(f"slot {slot} is occupied")
+        if bool(package["paged"]) != (self.alloc is not None):
+            raise ValueError("parked package and engine disagree on paged "
+                             "mode — tiers must share KV geometry")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        pos = int(package["pos"])
+        max_new = int(max_new)
+        if not 0 < pos < len(prompt):
+            raise ValueError(
+                f"resume cursor {pos} outside prompt of {len(prompt)} — the "
+                "parked context must be a strict prefix of the new turn's "
+                "prompt")
+        reason = self.check_budget(len(prompt), max_new)
+        if reason is not None:
+            raise ValueError(reason)
+        zero = torch.tensor(0, dtype=torch.int32)
+        row_state = package["state"]._replace(
+            last_tok=zero, active=torch.tensor(False), counts=zero,
+            temps=torch.tensor(float(temperature), dtype=torch.float32),
+            seeds=torch.tensor(int(seed) & 0xFFFFFFFF, dtype=torch.int64))
+        self._install_lane(slot, package["lane"], row_state, pos,
+                           admit_span=(len(prompt), max_new),
+                           adapter=package.get("adapter"),
+                           grammar=package.get("grammar"))
+        self.occupied[slot] = True
+        self.decoding[slot] = False
+        self.pos[slot] = pos
+        self.counts[slot] = 0
+        self.budget[slot] = max_new
+        self.temps[slot] = float(temperature)
+        self.spec_on[slot] = True if spec is None else bool(spec)
+        # the uncovered suffix rides the chunked prefill (its first token
+        # is the parked last token: teacher-forcing it writes the one
+        # position the park left pending)
+        self._prefill_rest[slot] = (prompt, pos)
+        self.peak_occupied = max(self.peak_occupied, self.num_occupied)
+
+    def exportable(self, slot: int, delivered: int) -> bool:
+        """Can this decoding lane park without overshoot — do the device
+        counts equal the ``delivered`` tokens?  An eos mid-block leaves
+        tokens in the cache past the delivered stream; such a lane is not
+        parked (its next turn re-prefills)."""
+        return bool(self.decoding[slot]) \
+            and int(self.counts[slot]) == int(delivered)
 
     # -- admission ----------------------------------------------------------
 

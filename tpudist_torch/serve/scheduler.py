@@ -47,6 +47,23 @@ FINISH_REASONS = {
                          "(defense in depth: the device-side mask makes "
                          "this unreachable unless the pool tables and "
                          "the host shadow diverge)",
+    "preempted": "parked in the host KV tier by a higher-priority "
+                 "arrival and cut off (drain, stop) before it could "
+                 "resume — an in-flight resume finishes with its normal "
+                 "reason instead",
+    "shed_load": "shed from the queue by the SLO-aware overload "
+                 "controller: the protected priority class's measured "
+                 "attainment fell below target, so queued lower-priority "
+                 "work was finished with a reason instead of starving it",
+    "session_resumed": "completed its max_new budget on a lane resumed "
+                       "from the host KV tier without recompute (eos and "
+                       "deadline still win when they fire first)",
+    "replica_lost": "its fleet replica died mid-serve and the router "
+                    "could not re-home it within the retry budget",
+    "router_spill": "an inner per-replica attempt the fleet router "
+                    "abandoned when it re-homed the request onto a "
+                    "sibling — the caller's handle finishes with the "
+                    "sibling's reason",
 }
 
 
@@ -60,7 +77,8 @@ class AdmissionError(RuntimeError):
     ``constrain_disabled`` — a grammar on a server without the
     structured-output pool —, ``invalid_stop: ...`` — a malformed stop
     sequence —, ``invalid_logprobs`` / ``logprobs_unavailable: ...`` — a
-    bad or over-wide top-n ask)."""
+    bad or over-wide top-n ask —, and the overload controller's
+    ``shed_load`` and ``fair_share: ...``)."""
 
     def __init__(self, reason: str):
         super().__init__(f"request rejected: {reason}")
@@ -87,6 +105,11 @@ class Request:
     #: ``/statusz`` per-tenant in-flight.  None = untagged (pools under
     #: "default" in per-tenant views).
     tenant: Optional[str] = None
+    #: multi-turn session id: on a host-tier server a finished turn's KV
+    #: lane parks in host RAM under ``(tenant, session)`` and the next
+    #: turn (whose prompt must extend the parked context token for token)
+    #: resumes it without recompute.  None = stateless, never parked
+    session: Optional[str] = None
     #: per-tenant adapter NAME: the request decodes through this adapter's
     #: rank-r factors from the adapter pool; None = the base model
     adapter: Optional[str] = None
@@ -132,6 +155,9 @@ class RequestHandle:
         #: which the lifeline reads; None on this single-pool server
         self.t_prefill_done: Optional[float] = None
         self.t_decode_start: Optional[float] = None
+        #: True once this request was served from a resumed session lane
+        #: (its length finish then reads ``session_resumed``)
+        self.resumed: bool = False
         #: the host shadow automaton's state over the DELIVERED tokens
         #: (``request.grammar`` only): the server advances it on delivery
         #: and truncates ``grammar_violation`` on divergence
@@ -232,6 +258,10 @@ class Scheduler:
         self._refuse_reason: Optional[str] = None
         self._next_id = 0
         self.rejected = 0
+        #: optional extra admission gate (the overload controller):
+        #: ``Request, pending -> Optional[reason]``, consulted under the
+        #: lock after the queue and budget checks — cheap, never blocking
+        self.admission_gate: Optional[Callable] = None
 
     def _reject(self, reason: str) -> None:
         with self._lock:
@@ -284,7 +314,8 @@ class Scheduler:
                priority: int = 0, adapter: Optional[str] = None,
                spec: Optional[bool] = None, grammar: Optional[str] = None,
                json_schema=None, stop=None, logprobs: int = 0,
-               tenant: Optional[str] = None) -> RequestHandle:
+               tenant: Optional[str] = None,
+               session: Optional[str] = None) -> RequestHandle:
         """Admit a request or raise :class:`AdmissionError`.  ``deadline_s``
         None inherits the default; ``<= 0`` means no deadline.
         ``adapter`` names the per-tenant LoRA adapter the lane decodes
@@ -295,7 +326,8 @@ class Scheduler:
         now, and a grammar requires ``eos_id``; ``stop`` is a list of stop
         sequences (token ids, or lists of token ids); ``logprobs`` asks for
         the top-n ``(id, logprob)`` pairs of every token; ``tenant``
-        labels the request in telemetry."""
+        labels the request in telemetry; ``session`` keys the host-tier
+        multi-turn resume."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         tg = self._compile_grammar(grammar, json_schema, eos_id)
         stop_seqs = self._norm_stop(stop)
@@ -328,6 +360,7 @@ class Scheduler:
                       on_token=on_token, prefix_hashes=hashes,
                       priority=int(priority),
                       tenant=None if tenant is None else str(tenant),
+                      session=None if session is None else str(session),
                       adapter=None if adapter is None else str(adapter),
                       spec=None if spec is None else bool(spec),
                       grammar=tg, stop=stop_seqs, logprobs=n_lp)
@@ -340,6 +373,10 @@ class Scheduler:
             if reason is None and req.adapter is not None \
                     and self.check_adapter is not None:
                 reason = self.check_adapter(req.adapter)
+            if reason is None and self.admission_gate is not None:
+                # the overload controller's gate (SLO-aware shedding,
+                # per-tenant fair share): cheap gauge reads by contract
+                reason = self.admission_gate(req, len(self._q))
             if reason is not None:
                 self.rejected += 1
                 raise AdmissionError(reason)
@@ -398,13 +435,35 @@ class Scheduler:
             self._q = keep
         return out
 
-    def requeue_front(self, handles: List[RequestHandle]) -> None:
-        """Put taken handles back at the head of the queue, in order (a
-        constrained request deferred while every grammar block is pinned
-        retries first as lanes finish); the queue bound does not apply."""
+    def head_info(self) -> Optional[dict]:
+        """A peek at the queue head (no pop): what the server's preemption
+        decision needs — its priority and footprint.  None when empty."""
         with self._lock:
-            self._q.extendleft(reversed(handles))
-            self._work.notify_all()
+            if not self._q:
+                return None
+            r = self._q[0].request
+            return {"priority": r.priority, "prompt_len": len(r.prompt),
+                    "max_new": r.max_new,
+                    "prefix_hashes": r.prefix_hashes,
+                    "session": r.session}
+
+    def shed(self, predicate: Callable[[RequestHandle], bool]
+             ) -> List[RequestHandle]:
+        """Finish and remove every queued request ``predicate`` marks,
+        with reason ``"shed_load"`` (the overload controller's shedding
+        half); returns them for the caller's accounting."""
+        out: List[RequestHandle] = []
+        with self._lock:
+            keep: "collections.deque[RequestHandle]" = collections.deque()
+            while self._q:
+                h = self._q.popleft()
+                if predicate(h):
+                    h._finish("shed_load")
+                    out.append(h)
+                else:
+                    keep.append(h)
+            self._q = keep
+        return out
 
     def pending(self) -> int:
         with self._lock:

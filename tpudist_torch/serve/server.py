@@ -7,8 +7,14 @@ plane: telemetry (``prefill``/``decode_block``/``spec_verify`` spans, the
 ``request_finished`` events and per-request lifelines, the ``tenant``
 label), the live ``/metrics``, ``/healthz`` and ``/statusz`` endpoints
 (``TPUDIST_METRICS_PORT``), and SIGTERM → drain through the training
-stack's preemption flag.  The host KV tier, priority preemption, load
-shedding, fair share and disaggregation are later slices.
+stack's preemption flag; and graceful degradation under overload: the
+host-RAM KV tier (``host_tier``: finished session turns and preempted
+lanes park in host memory in the handoff wire form and come back without
+recompute), priority preemption (``preempt``), SLO-aware load shedding
+(``shed``) and per-tenant fair share (``fair_share``), plus the hooks the
+fleet router (:mod:`tpudist_torch.serve.router`) drives — ``kill``,
+``parked_sessions``, ``export_session`` and ``adopt_session``.
+Disaggregation is a later slice.
 
 One background thread drives the engine; any number of caller threads
 submit.  Each loop iteration admits queued requests into free slots (one
@@ -19,15 +25,19 @@ finishes everything admitted, and stops the loop.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
+
 from tpudist_torch.constrain import GrammarPoolFull
 from tpudist_torch.serve.adapters import AdapterMissingError
 from tpudist_torch.serve.engine import SlotEngine
-from tpudist_torch.serve.scheduler import RequestHandle, Scheduler
+from tpudist_torch.serve.scheduler import (AdmissionError, RequestHandle,
+                                           Scheduler)
 
 #: poll interval of an idle engine loop (host-side only)
 _IDLE_WAIT_S = 0.01
@@ -37,12 +47,6 @@ _IDLE_WAIT_S = 0.01
 #: on, its ROADMAP.md queue A item).  Set to a non-empty value, each one
 #: raises instead of being dropped.
 _UNPORTED_ENV = {
-    "HOST_TIER": ("the host KV tier (serve/host_tier.py)", "8"),
-    "PREEMPT": ("preemption (serve/overload.py)", "8"),
-    "SHED": ("load shedding (serve/overload.py)", "8"),
-    "SHED_ATTAINMENT": ("load shedding (serve/overload.py)", "8"),
-    "SHED_PRIORITY": ("load shedding (serve/overload.py)", "8"),
-    "FAIR_SHARE": ("fair-share admission (serve/overload.py)", "8"),
     "HANDOFF": ("the disaggregated handoff (serve/disagg.py)", "8"),
     "HANDOFF_QUEUE": ("the disaggregated handoff (serve/disagg.py)", "8"),
     "DECODE_WORKERS": ("disaggregated decode workers (serve/disagg.py)",
@@ -54,13 +58,6 @@ _UNPORTED_ENV = {
     "POOL_RESIZE": ("the backpressure pool resize (serve/disagg.py)", "8"),
     "AUTO": ("measurement-driven planning (plan/)", "8"),
 }
-
-#: ``submit`` keywords of the JAX server the port takes only at their
-#: defaults: keyword → (default, what it asks for, ROADMAP.md item)
-_UNPORTED_SUBMIT = {
-    "session": (None, "host-tier session resume (serve/host_tier.py)", "8"),
-}
-
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -87,7 +84,9 @@ class ServeConfig:
     ``lora_kernel``, the adapter knobs and the speculative-decoding knobs
     keep the JAX package's defaults (off; 8 blocks of rank 8; K = 4 with a
     draft tied to half the target's layers), and so do the structured-output
-    knobs (off; 4 grammar blocks of 64 states; no logprobs)."""
+    knobs (off; 4 grammar blocks of 64 states; no logprobs) and the
+    graceful-degradation knobs (no host tier, a 1 GiB budget when on,
+    preemption on with the tier, no shedding, no fair share)."""
 
     num_slots: int = 4
     queue_limit: int = 64
@@ -132,6 +131,25 @@ class ServeConfig:
     mesh: Optional[str] = None
     tp_overlap: Optional[str] = None  # off|ring|bidir; None = knob chain
     disagg: bool = False  # prefill/decode disaggregation (not ported)
+    # -- host-RAM KV session tier + overload control
+    # (serve/host_tier.py, serve/overload.py)
+    host_tier: bool = False  # park idle/preempted lanes in host RAM
+    host_tier_bytes: int = 1 << 30  # tier byte budget (LRU spill beyond)
+    host_tier_ttl_s: Optional[float] = None  # idle parked-session expiry
+    # priority preemption: a higher-priority arrival may preempt a
+    # strictly-lower-priority decode lane into the host tier (its resume
+    # continues the same stream); effective only with host_tier on
+    preempt: bool = True
+    # SLO-aware load shedding: when a protected tenant's live attainment
+    # gauge (TPUDIST_SLO_* targets) drops below the target, lower-priority
+    # work rejects or sheds with reason "shed_load"
+    shed: bool = False
+    shed_attainment: float = 0.9  # attainment floor that trips shedding
+    shed_priority: int = 1  # protected priority class (>= is protected)
+    # per-tenant token-rate fairness: reject a tenant drawing more than
+    # this multiple of its equal share once the queue is half full
+    # (0 = off)
+    fair_share: float = 0.0
 
     def resolve_spec_draft(self, model):
         """The engine-facing ``spec_draft`` (None = spec off): the loaded
@@ -200,6 +218,19 @@ class ServeConfig:
             tp_overlap=os.environ.get(
                 "TPUDIST_SERVE_TP_OVERLAP", "").strip() or None,
             disagg=env_flag("TPUDIST_SERVE_DISAGG", False),
+            host_tier=env_flag("TPUDIST_SERVE_HOST_TIER", False),
+            host_tier_bytes=env_int("TPUDIST_HOST_TIER_BYTES",
+                                    1 << 30) or (1 << 30),
+            host_tier_ttl_s=env_positive_float(
+                "TPUDIST_HOST_TIER_TTL_S", None),
+            preempt=env_flag("TPUDIST_SERVE_PREEMPT", True),
+            shed=env_flag("TPUDIST_SERVE_SHED", False),
+            shed_attainment=env_positive_float(
+                "TPUDIST_SERVE_SHED_ATTAINMENT", 0.9) or 0.9,
+            # plain env_int: 0 is a meaningful protected class here
+            shed_priority=env_int("TPUDIST_SERVE_SHED_PRIORITY", 1),
+            fair_share=env_positive_float(
+                "TPUDIST_SERVE_FAIR_SHARE", None) or 0.0,
         )
 
 
@@ -212,6 +243,14 @@ def _compile_grammar_for(ccfg, regex, json_schema, eos_id):
     return compile_grammar(regex=regex, json_schema=json_schema,
                            vocab=ccfg.vocab, eos_id=eos_id,
                            max_states=ccfg.max_states)
+
+
+class ReplicaKilled(RuntimeError):
+    """The engine loop stopped because :meth:`InferenceServer.kill` told it
+    to — an intentional hard stop (an operator's kill, the
+    ``replica_kill`` fault), recorded like any other death (``loop_error``
+    set, ``/healthz`` 503, outstanding work aborted) but not re-raised into
+    the threading excepthook."""
 
 
 class InferenceServer:
@@ -296,6 +335,13 @@ class InferenceServer:
         self._steps = 0
         # -- live observability plane (telemetry.statusz) ------------------
         self._init_observability()
+        # -- graceful degradation (host tier / preemption / shedding) ------
+        self._init_degradation(self.scheduler)
+        #: re-prefill fallback line: lanes whose parked package was spilled
+        #: or corrupt restart from the prompt ahead of fresh admissions;
+        #: the duplicate-drop counter in ``_skip`` keeps their streams whole
+        self._requeue: "collections.deque[RequestHandle]" = \
+            collections.deque()
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -375,18 +421,14 @@ class InferenceServer:
         ``handle.logprobs`` (post-mask on constrained lanes; ``n`` at most
         ``ServeConfig.logprobs``).  ``tenant`` labels the request in
         telemetry, the per-tenant metrics and SLO attainment, and the
-        ``/statusz`` in-flight counts.  ``session`` is the JAX server's
-        keyword; any value but its default raises ``NotImplementedError``
-        naming the ROADMAP item that ports it.  A rejection is stamped into
+        ``/statusz`` in-flight counts.  ``priority`` orders the queue and,
+        with the host tier on, can preempt a lower class's decode lane;
+        ``session`` keys the host-tier multi-turn resume: a prompt that
+        extends a parked session's context token for token imports its KV
+        instead of prefilling it again.  A rejection is stamped into
         telemetry as ``serve_rejected``."""
         from tpudist_torch import telemetry
-        from tpudist_torch.serve.scheduler import AdmissionError
 
-        given = dict(session=session)
-        for key, (default, what, item) in _UNPORTED_SUBMIT.items():
-            value = given[key]
-            if value is not None if default is None else value != default:
-                raise _not_ported(f"submit({key}=...) ({what})", item)
         # count the in-flight BEFORE the handle becomes visible to the
         # engine thread, so a fast finish cannot decrement first
         tkey = None if tenant is None else str(tenant)
@@ -397,7 +439,8 @@ class InferenceServer:
                 deadline_s=deadline_s, seed=seed, eos_id=eos_id,
                 on_token=on_token, priority=priority, adapter=adapter,
                 spec=spec, grammar=grammar, json_schema=json_schema,
-                stop=stop, logprobs=logprobs, tenant=tenant)
+                stop=stop, logprobs=logprobs, tenant=tenant,
+                session=session)
         except BaseException as e:
             # never admitted: give the +1 back
             self._track_tenant(tkey, -1)
@@ -491,6 +534,9 @@ class InferenceServer:
         #: restarts would kill a starting server in a loop.
         self.health_stale_s = env_positive_float(
             "TPUDIST_SERVE_HEALTH_STALE_S", 300.0)
+        #: hard-stop poison (:meth:`kill`): the engine loop raises on its
+        #: next iteration when set — the crash twin of drain
+        self._die: Optional[str] = None
         self._statusz_names: list = []
         #: tenant → in-flight count (submitted minus finished) for
         #: /statusz; mutated under _tenant_lock (ingestion + engine
@@ -551,6 +597,195 @@ class InferenceServer:
             "draining": self._draining,
         }
 
+    def kill(self, reason: str = "killed") -> None:
+        """Hard-stop the engine loop now — the crash twin of :meth:`drain`
+        (an operator's kill, and what the ``replica_kill`` fault drives at
+        fleet scope).  The loop raises :class:`ReplicaKilled` on its next
+        iteration: in-flight and queued work aborts ``"shutdown"``,
+        ``loop_error`` is set, ``/healthz`` goes 503.  Nothing parks and
+        nothing drains; recovery is the caller's (the fleet router re-homes
+        onto survivors)."""
+        self._die = reason
+
+    def _check_die(self) -> None:
+        """The engine loop's poison check (one attribute load alive)."""
+        if self._die:
+            raise ReplicaKilled(f"replica killed: {self._die}")
+
+    # -- fleet session migration (tpudist_torch.serve.router) ---------------
+    # A parked session is also the unit of migration between replicas.  The
+    # three hooks are GIL-atomic tier reads and inserts, so a router thread
+    # may call them while the engine loop runs.
+
+    def parked_sessions(self) -> list:
+        """``(tenant, session)`` of every idle session parked in this
+        replica's host tier (empty without a tier)."""
+        if self._tier is None:
+            return []
+        return [(k[1], k[2]) for k in self._tier.session_keys()]
+
+    def export_session(self, tenant, session) -> Optional[dict]:
+        """A stashable copy of the package parked under ``(tenant,
+        session)`` — the serialized blob plus its covered context — or None
+        when nothing is parked there."""
+        if self._tier is None or session is None:
+            return None
+        key = ("sess", tenant if tenant else "default", str(session))
+        return self._tier.export_entry(key)
+
+    def adopt_session(self, tenant, session, stash: Optional[dict]) -> bool:
+        """Install a session package exported from another replica into
+        this tier, so the session's next turn resumes here.  The digest is
+        verified where it always is, at the resume's deserialize: a corrupt
+        stash degrades to a full re-prefill.  False when this replica has
+        no tier, the stash is empty, or the package alone exceeds the
+        budget."""
+        if self._tier is None or session is None or not stash \
+                or not isinstance(stash.get("ser"), dict):
+            return False
+        key = ("sess", tenant if tenant else "default", str(session))
+        stored = self._tier.adopt(key, stash["ser"],
+                                  context=stash.get("context"),
+                                  kind=stash.get("kind", "turn"))
+        return stored is not None
+
+    # -- graceful degradation under overload (host tier + shedding) ---------
+
+    def _init_degradation(self, scheduler) -> None:
+        """The host-RAM KV tier (``ServeConfig.host_tier``) and the
+        SLO-aware overload controller (``shed`` / ``fair_share``), which
+        becomes the scheduler's admission gate."""
+        cfg = self.config
+        self._tier = None
+        if cfg.host_tier:
+            from tpudist_torch.serve.host_tier import HostKVTier
+
+            self._tier = HostKVTier(cfg.host_tier_bytes,
+                                    ttl_s=cfg.host_tier_ttl_s)
+        self._ctrl = None
+        if cfg.shed or cfg.fair_share > 0:
+            from tpudist_torch.serve.overload import OverloadController
+
+            self._ctrl = OverloadController(
+                shed=cfg.shed, shed_attainment=cfg.shed_attainment,
+                shed_priority=cfg.shed_priority, fair_share=cfg.fair_share,
+                queue_limit=cfg.queue_limit)
+            scheduler.admission_gate = self._ctrl.gate
+        #: preempted handles parked in the host tier, insertion-ordered
+        #: (resume order); their packages live under ``("preempt", id)``
+        self._parked: "collections.OrderedDict[int, RequestHandle]" = \
+            collections.OrderedDict()
+        #: handle id → tokens to drop on re-emission after a re-prefill
+        #: fallback (a lane whose parked package was spilled or corrupt
+        #: decodes again from its prompt)
+        self._skip: Dict[int, int] = {}
+        #: handle ids whose preempt package the tier refused as oversize: a
+        #: lane's footprint only grows, so it is never exported again
+        self._tier_oversize: set = set()
+        self.preemptions = 0
+        self.tier_resumes = 0
+        self.tier_corrupt = 0
+
+    @staticmethod
+    def _session_key(req) -> tuple:
+        # tenant-scoped: one tenant never resumes another's context
+        return ("sess", req.tenant or "default", req.session)
+
+    def _tier_put(self, key: tuple, pkg: dict, **kw):
+        """``HostKVTier.put`` and a ``host_tier_spill`` event for any LRU
+        spill the put forced (the tier has no telemetry seam)."""
+        t = self._tier
+        s0 = t.spills
+        stored = t.put(key, pkg, **kw)
+        if t.spills > s0:
+            self._tier_event("host_tier_spill", entries=t.spills - s0)
+        return stored
+
+    def _tier_event(self, name: str, **fields) -> None:
+        """A host-tier event stamped with the tier's occupancy (the
+        metrics feeder turns those fields into the live gauges)."""
+        from tpudist_torch import telemetry
+
+        if self._tier is not None:
+            fields.setdefault("tier_bytes", self._tier.bytes_resident)
+            fields.setdefault("tier_entries", self._tier.entries)
+        telemetry.event(name, **fields)
+
+    def _shed_tick(self, now: float) -> None:
+        """Refresh the overload controller from the live attainment gauges
+        and shed queued lower-priority work while it is active; every flip
+        is stamped with the readings that drove it."""
+        ctrl = self._ctrl
+        if ctrl is None or self._draining:
+            return
+        if ctrl.tick(now):
+            self._tier_event(
+                "shed_state", active=ctrl.shed_active,
+                target=ctrl.shed_attainment,
+                attainment={k: round(v, 4)
+                            for k, v in ctrl.last_attainment.items()})
+        if ctrl.shed_active:
+            shed = self.scheduler.shed(ctrl.shed_predicate)
+            ctrl.sheds += len(shed)
+            for h in shed:
+                self._note_finished(h)
+
+    def _expire_requeue(self, now: float) -> None:
+        """Deadline sweep over the re-prefill fallback line."""
+        if not self._requeue:
+            return
+        kept: "collections.deque" = collections.deque()
+        while self._requeue:
+            h = self._requeue.popleft()
+            if h._expired(now):
+                h._finish("deadline")
+                self._note_finished(h)
+            else:
+                kept.append(h)
+        self._requeue = kept
+
+    def _sweep_parked(self, now: float) -> None:
+        """The deadline sweep covers parked lanes too: a preempted request
+        expiring while offloaded releases its host bytes and finishes
+        ``deadline`` now.  Idle sessions expire by the tier's TTL."""
+        if self._tier is None:
+            return
+        expired = self._tier.sweep_expired(now)
+        if expired:
+            self._tier_event("session_expired", entries=len(expired))
+        for hid in [hid for hid, h in self._parked.items()
+                    if h._expired(now)]:
+            h = self._parked.pop(hid)
+            self._tier.discard(("preempt", hid))
+            h._finish("deadline")
+            self._note_finished(h)
+
+    def _park_session_lane(self, slot: int, h) -> None:
+        """Export a finished turn's lane and park it under its session key
+        with the covered context (prompt + every delivered token): the next
+        turn resumes only if its prompt extends that exactly."""
+        req = h.request
+        pkg = self.engine.export_slot(slot)
+        pkg["trace_id"] = h.trace_id
+        ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                              np.asarray(h.tokens, np.int32)])
+        stored = self._tier_put(self._session_key(req), pkg, context=ctx,
+                                kind="turn")
+        if stored is not None:
+            self._tier_event("session_parked", park_kind="turn",
+                             pos=int(pkg["pos"]), bytes=stored,
+                             trace_id=h.trace_id)
+
+    def _abort_parked(self) -> None:
+        """Hard stop for parked preempted lanes: they finish ``preempted``
+        (not ``shutdown``) and release their tier bytes."""
+        while self._parked:
+            hid, h = self._parked.popitem(last=False)
+            if self._tier is not None:
+                self._tier.discard(("preempt", hid))
+            h._finish("preempted")
+            self._note_finished(h)
+
     def _track_tenant(self, tenant, delta: int) -> None:
         """Per-tenant in-flight accounting for /statusz (None pools under
         ``default``); a count that reaches 0 drops its key."""
@@ -609,6 +844,15 @@ class InferenceServer:
                                 "logprobs": eng.n_lp}}
                if eng.has_constrain() or eng.n_lp else {}),
             **({"spec": eng.spec_stats()} if eng.spec else {}),
+            # host-tier occupancy and the overload state (absent when off)
+            **({"host_tier": {**self._tier.stats(),
+                              "parked_requests": len(self._parked),
+                              "preemptions": self.preemptions,
+                              "resumes_served": self.tier_resumes,
+                              "corrupt": self.tier_corrupt}}
+               if self._tier is not None else {}),
+            **({"overload": self._ctrl.stats()}
+               if self._ctrl is not None else {}),
             "world": env_int("TPUDIST_NUM_PROCESSES", None),
             "generation": env_int("TPUDIST_RESTART_COUNT", 0),
             "draining": self._draining,
@@ -636,14 +880,27 @@ class InferenceServer:
             **({"constrained": {**self.engine.constrain_stats(),
                                 "logprobs": self.engine.n_lp}}
                if self.engine.has_constrain() or self.engine.n_lp else {}),
+            "preemptions": self.preemptions,
+            "parked": len(self._parked),
+            "host_tier": (None if self._tier is None
+                          else self._tier.stats()),
+            "overload": (None if self._ctrl is None
+                         else self._ctrl.stats()),
             "loop_error": self.loop_error,
         }
 
     # -- the engine loop ----------------------------------------------------
 
     def _abort_outstanding(self) -> None:
+        """Finish every request that can no longer be served: ``shutdown``,
+        parked preempted lanes ``preempted``."""
         for slot in list(self._slot_handles):
             h = self._slot_handles.pop(slot)
+            h._finish("shutdown")
+            self._note_finished(h)
+        self._abort_parked()
+        while self._requeue:
+            h = self._requeue.popleft()
             h._finish("shutdown")
             self._note_finished(h)
         for h in self.scheduler.take(1 << 30):
@@ -667,7 +924,8 @@ class InferenceServer:
             # the loop must not die silently: every waiter would hang
             self.loop_error = repr(e)  # /healthz goes 503 on this
             telemetry.event("serve_loop_error", error=repr(e))
-            raise
+            if not isinstance(e, ReplicaKilled):
+                raise  # the threading excepthook reports the traceback
         finally:
             self.scheduler.refuse_new("draining")
             self._abort_outstanding()
@@ -680,11 +938,26 @@ class InferenceServer:
         if not free:
             return
         reserved, pinned = [0], []
+        resume_pos: Dict[int, int] = {}
 
         def _gate(h):
             # one KV-pool gate per candidate within ONE take: ``reserved``
             # and ``pinned`` carry what earlier candidates were promised
             req = h.request
+            if (self._tier is not None and req.session is not None
+                    and h.id not in self._skip):
+                pos = self._tier.match(self._session_key(req), req.prompt)
+                if pos is not None:
+                    # a session hit reserves its whole footprint (a
+                    # resumed lane's context is private)
+                    got = eng.kv_admission_probe(
+                        len(req.prompt), req.max_new, (),
+                        reserve=reserved[0], protect=pinned)
+                    if got is None:
+                        return False
+                    reserved[0] += got[0]
+                    resume_pos[h.id] = pos
+                    return True
             got = eng.kv_admission_probe(
                 len(req.prompt), req.max_new, req.prefix_hashes,
                 reserve=reserved[0], protect=pinned)
@@ -694,8 +967,19 @@ class InferenceServer:
             pinned.extend(got[1])
             return True
 
+        # re-prefill fallbacks first (admitted long ago), head-of-line on a
+        # blocked gate so steady fresh traffic cannot starve them
+        batch: List[RequestHandle] = []
+        blocked = False
+        while self._requeue and len(batch) < len(free):
+            if not _gate(self._requeue[0]):
+                blocked = True
+                break
+            batch.append(self._requeue.popleft())
+        if not blocked and len(batch) < len(free):
+            batch += sched.take(len(free) - len(batch), now, admit=_gate)
         alive = []
-        for h in sched.take(len(free), now, admit=_gate):
+        for h in batch:
             if h.done:  # finished in-queue (deadline expired)
                 self._note_finished(h)
             elif not eng.has_adapter(h.request.adapter):
@@ -712,6 +996,10 @@ class InferenceServer:
             h.slot = slot
             if h.t_admitted is None:
                 h.t_admitted = t0
+            # a session hit resumes its parked lane instead of prefilling
+            # (a spilled or corrupt package falls back to a fresh prefill)
+            if h.id in resume_pos and self._resume_session(slot, h):
+                continue
             r = h.request
             items.append((slot, r.prompt, r.temperature, r.seed, r.max_new,
                           r.prefix_hashes, r.spec, r.adapter, r.grammar))
@@ -725,9 +1013,9 @@ class InferenceServer:
             except GrammarPoolFull:
                 # the batch's grammars need more blocks than running lanes
                 # leave free (start_batch rolled the whole dispatch back):
-                # the last constrained item waits at the head of the queue
-                # and the rest retry, so every grammar that fits binds now
-                # and the others as lanes free their blocks
+                # the last constrained item waits at the head of the
+                # fallback line and the rest retry, so every grammar that
+                # fits binds now and the others as lanes free their blocks
                 j = max(k for k, it in enumerate(items) if it[8] is not None)
                 h = self._slot_handles.pop(items[j][0])
                 h.slot = None
@@ -746,7 +1034,7 @@ class InferenceServer:
                     else:
                         keep.append(it)
                 items = keep
-        sched.requeue_front(deferred[::-1])
+        self._requeue.extendleft(deferred)
         for slot, tok in firsts.items():
             if tok is not None:
                 self._deliver_block(slot, [tok])
@@ -757,6 +1045,7 @@ class InferenceServer:
         eng, sched = self.engine, self.scheduler
         while True:
             self._beat = time.monotonic()  # /healthz heartbeat
+            self._check_die()  # hard-stop poison (kill / replica_kill)
             if not self._draining and self._should_drain():
                 self._draining = True
                 sched.refuse_new("draining")
@@ -771,6 +1060,15 @@ class InferenceServer:
                     self._finish_slot(slot, "cache_full")
             for h in sched.expire_queued(now):
                 self._note_finished(h)
+            # deadlines cover the fallback line and the parked lanes too
+            self._expire_requeue(now)
+            self._sweep_parked(now)
+            # shedding, then preemption and parked-lane resume: all host
+            # decisions, all before admission so a freed slot is usable in
+            # this same iteration
+            self._shed_tick(now)
+            self._maybe_preempt()
+            self._resume_preempted()
             self._admit(now)
             # chunked prefill: one chunk per prefilling slot per iteration
             if eng.prefilling_slots():
@@ -794,7 +1092,9 @@ class InferenceServer:
                     self._deliver_block(slot, toks, block_lp.get(slot))
             elif eng.prefilling_slots():
                 pass  # prefill work continues next iteration
-            elif self._draining and sched.pending() == 0:
+            elif (self._draining and sched.pending() == 0
+                    and not self._parked and not self._requeue):
+                # the drain completes parked and fallback work too
                 break
             else:
                 sched.wait_for_work(_IDLE_WAIT_S)
@@ -842,7 +1142,21 @@ class InferenceServer:
         h = self._slot_handles[slot]
         eos = h.request.eos_id
         tg = h.request.grammar
+        if self._ctrl is not None:
+            # the fair-share measurement: DELIVERED tokens/s per tenant
+            # (duplicates a fallback lane decodes again are dropped below)
+            delivered = max(0, len(toks) - self._skip.get(h.id, 0))
+            if delivered:
+                self._ctrl.note_tokens(h.request.tenant, delivered)
         for i, tok in enumerate(toks):
+            skip = self._skip.get(h.id, 0)
+            if skip > 0:
+                # a duplicate of a token delivered before the fallback
+                if skip == 1:
+                    del self._skip[h.id]
+                else:
+                    self._skip[h.id] = skip - 1
+                continue
             if tg is not None:
                 if not tg.token_allowed(h.gstate, tok):
                     self._finish_slot(slot, "grammar_violation")
@@ -865,19 +1179,174 @@ class InferenceServer:
                 self._finish_slot(slot, "stop_sequence")
                 return
             if len(h.tokens) >= h.request.max_new:
-                self._finish_slot(slot, "length")
+                # a resumed turn's budget completion is countable from the
+                # finish reasons alone
+                self._finish_slot(slot, "session_resumed" if h.resumed
+                                  else "length")
                 return
 
     def _finish_slot(self, slot: int, reason: str) -> None:
         h = self._slot_handles.pop(slot)
+        if (self._tier is not None and h.request.session is not None
+                and reason in ("length", "eos", "session_resumed")
+                and self.engine.exportable(slot, len(h.tokens))):
+            # park the finished turn's lane before the evict zeroes it; a
+            # lane whose eos fired mid-block holds tokens past the stream
+            # and is not exportable
+            self._park_session_lane(slot, h)
         self.engine.evict(slot)
         h._finish(reason)
         self._note_finished(h)
+
+    def _resume_session(self, slot: int, h: RequestHandle) -> bool:
+        """Serve this turn from its parked session lane (import and a
+        suffix-only prefill).  False on a missing or corrupt package, or a
+        turn the parked lane cannot serve (another adapter, a grammar): the
+        caller then prefills fresh."""
+        from tpudist_torch.serve.disagg import (HandoffError,
+                                                deserialize_package)
+        from tpudist_torch.serve.host_tier import HostTierError
+
+        req = h.request
+        try:
+            ser = self._tier.get(self._session_key(req))
+            raw = deserialize_package(ser)  # the digest is checked here
+        except HostTierError:
+            return False  # raced a TTL sweep or an LRU spill
+        except HandoffError as e:
+            self.tier_corrupt += 1
+            self._tier_event("host_tier_corrupt", kind="session",
+                             error=str(e)[:120], trace_id=h.trace_id)
+            return False
+        if raw.get("adapter") != req.adapter:
+            # the parked KV was written through its turn's adapter
+            return False
+        if raw.get("grammar") is not None or req.grammar is not None:
+            # a parked automaton state belongs to its own turn
+            return False
+        t0 = time.monotonic()
+        try:
+            self.engine.resume_slot(
+                slot, raw, req.prompt, temperature=req.temperature,
+                seed=req.seed, max_new=req.max_new, spec=req.spec)
+        except AdapterMissingError:
+            return False  # unloaded mid-iteration: the fresh prefill
+            # then finishes adapter_missing through the same race
+        h.resumed = True
+        self._slot_handles[slot] = h
+        self.tier_resumes += 1
+        self._tier_event("session_resumed", park_kind="turn", slot=slot,
+                         covered=int(raw["pos"]), trace_id=h.trace_id,
+                         import_s=round(time.monotonic() - t0, 6))
+        return True
+
+    def _maybe_preempt(self) -> None:
+        """Priority preemption: when the queue head outranks a decoding
+        lane and cannot admit (no free slot, or its KV footprint does not
+        fit), the lowest-priority decoding lane (ties: least progress)
+        exports to the host tier and waits — its resume continues the same
+        stream, decode being a pure function of the packaged state and
+        the per-slot Philox counter."""
+        if self._tier is None or not self.config.preempt \
+                or self._draining:
+            return
+        head = self.scheduler.head_info()
+        if head is None:
+            return
+        eng = self.engine
+        if eng.free_slots() and eng.can_admit_kv(
+                head["prompt_len"], head["max_new"],
+                head["prefix_hashes"]):
+            return  # the head can already admit
+        cands = [(slot, h) for slot, h in self._slot_handles.items()
+                 if eng.decoding[slot]
+                 and h.request.priority < head["priority"]
+                 and h.id not in self._skip
+                 and h.id not in self._tier_oversize]
+        if not cands:
+            return
+        slot, victim = min(cands, key=lambda kv: (kv[1].request.priority,
+                                                  len(kv[1].tokens)))
+        self._preempt_slot(slot, victim, head["priority"])
+
+    def _preempt_slot(self, slot: int, h: RequestHandle, by: int) -> None:
+        pkg = self.engine.export_slot(slot)
+        pkg["trace_id"] = h.trace_id
+        stored = self._tier_put(("preempt", h.id), pkg, pinned=True,
+                                kind="preempt")
+        if stored is None:
+            # the tier cannot hold the lane: admission just waits, and
+            # this lane is not exported again
+            self._tier_oversize.add(h.id)
+            return
+        self.engine.evict(slot)
+        del self._slot_handles[slot]
+        self._parked[h.id] = h
+        self.preemptions += 1
+        self._tier_event("preempted", id=h.id, slot=slot,
+                         priority=h.request.priority, by_priority=by,
+                         bytes=stored, trace_id=h.trace_id)
+
+    def _resume_preempted(self) -> None:
+        """Parked preempted lanes import again as capacity frees, oldest
+        first, unless a strictly higher-priority request is queued.  A
+        spilled or corrupt package degrades to a full re-prefill through
+        the fallback line, its delivered tokens dropped as duplicates."""
+        if self._tier is None or not self._parked:
+            return
+        from tpudist_torch.serve.disagg import (HandoffError,
+                                                deserialize_package)
+
+        eng = self.engine
+        while self._parked:
+            free = eng.free_slots()
+            if not free:
+                return
+            hid, h = next(iter(self._parked.items()))
+            head = self.scheduler.head_info()
+            if head is not None and head["priority"] > h.request.priority:
+                return  # the higher class admits first
+            ser = self._tier.peek(("preempt", hid))
+            if ser is None:
+                # spilled under byte pressure: full re-prefill fallback
+                del self._parked[hid]
+                self._skip[h.id] = len(h.tokens)
+                self._requeue.append(h)
+                continue
+            if not eng.can_import(ser):
+                return  # blocks not free yet: parked head-of-line
+            self._tier.get(("preempt", hid))
+            del self._parked[hid]
+            try:
+                raw = deserialize_package(ser)
+            except HandoffError as e:
+                self.tier_corrupt += 1
+                self._tier_event("host_tier_corrupt", kind="preempt",
+                                 error=str(e)[:120], trace_id=h.trace_id)
+                self._skip[h.id] = len(h.tokens)
+                self._requeue.append(h)
+                continue
+            slot = free[0]
+            try:
+                eng.import_slot(slot, raw, spec=h.request.spec)
+            except AdapterMissingError:
+                # its KV is the unloaded fine-tune's: finish loudly
+                h._finish("adapter_missing")
+                self._note_finished(h)
+                continue
+            self._slot_handles[slot] = h
+            self.tier_resumes += 1
+            self._tier_event("session_resumed", park_kind="preempt",
+                             slot=slot, id=h.id, trace_id=h.trace_id)
 
     def _note_finished(self, h: RequestHandle) -> None:
         from tpudist_torch import telemetry
         from tpudist_torch.telemetry import trace
 
+        # one cleanup point for the duplicate-drop counter and the
+        # oversize-preempt memo
+        self._skip.pop(h.id, None)
+        self._tier_oversize.discard(h.id)
         self.completed += 1
         self._track_tenant(h.request.tenant, -1)
         telemetry.event(
