@@ -364,6 +364,27 @@ order; any failure exits non-zero:
    ``replica_kill@nth:1``: no ``replica_lost``, a request re-homed,
    greedy streams phase 4's or a near tie.  Each sub-phase's serving runs
    must launch every serving kernel; the phase's launches are their sum.
+24. prefill/decode disaggregation (:func:`phase24_serve`, after phase 23
+   on phase 4's model, telemetry on; see the ``P24_*`` constants): phase
+   4's traffic (its sampled lanes at 0.8) through ``serve_forever`` with
+   ``disagg=True``: 1 prefill worker of 4 slots, 2 decode workers of 8,
+   decode block 8.  (a) ``handoff="serial"`` and ``"device"``: every
+   request ``length``, 16 handoffs, each greedy lane phase 4's stream or
+   first differing at a near tie (``NEAR_TIE_GAP``), the sampled lanes
+   equal to phase 4's server's at the same seeds counted; TTFT p50/p95,
+   TPOT p50, handoff wait p50, package bytes, export (+ serialize) and
+   (deserialize +) import ms a lane, tokens/s beside phase 4's, and the
+   launches of each pool (differences of the counts around its engines'
+   calls).  (a') 2 greedy and 2 sampled requests through the
+   disaggregated and the single server, both at decode block 1 (and the
+   prefill pool at phase 4's 8 slots): bit for bit.  (b)
+   ``P24_KILL`` kills decode worker 0 inside the burst: one worker lost,
+   lanes recovered, every request ``length``, each greedy lane (a)'s
+   serial stream or a near tie, the sampled recovered lanes' equality
+   printed.  (c) ``handoff_corrupt@nth:2``: one request
+   ``handoff_corrupt``, the rest ``length``, a request after it served.
+   Each sub-phase must launch every serving kernel; the phase's launches
+   are their sum.
 
 The entry points that run as subprocesses (phases 10, 12's
 ``demo_model_split``, 13, 14, 15a and 20's Trainer) run together after
@@ -376,7 +397,7 @@ It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path; the
 flash kernels also their phase 17-20 launches and shape times; every
 kernel its phase 21 launches by run and the per-place shapes' times, and
-its phase 22 and phase 23 launches) and
+its phase 22, 23 and 24 launches) and
 the ``nvidia-smi`` line before the last line, which is the contract line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
@@ -837,6 +858,16 @@ P23_FILL_NEW, P23_BULK, P23_BULK_NEW = 32, 16, 16
 P23_BURST_RATIO = 4.0
 P23_FAIR_SHARE, P23_FAIR_QUEUE, P23_HOG_NEW = 1.5, 16, 64
 P23_FLEET_SESSIONS = 4
+# phase 24: prefill/decode disaggregation on phase 4's model and traffic.
+# Decode worker 0 takes lanes first, so its 12th engine call (the warm-up
+# makes 2: an import and a block) falls inside the burst, with lanes on it
+P24_CONFIG = dict(disagg=True, num_slots=SLOTS, prefill_slots=4,
+                  prefill_workers=1, decode_workers=2, decode_block=8,
+                  kv_block=BS, prefill_pad=P, queue_limit=64, max_new=64)
+P24_KILL = "serve_worker_kill@call:12,pool:1,worker:0"
+P24_CORRUPT = "handoff_corrupt@nth:2"
+# (a'): two greedy lanes and phase 4's two sampled lanes
+P24_EXACT_LANES = (0, 1) + SAMPLED_LANES
 
 
 def log(msg: str) -> None:
@@ -7807,6 +7838,314 @@ def phase23_serve(torch, model, main_path: dict, card: str) -> dict:
         fleet=fleet)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: prefill/decode disaggregation
+
+
+def p24_hold(what: str, ok: bool, detail) -> None:
+    if not ok:
+        raise AssertionError(f"phase 24 {what}: {detail}")
+
+
+class PoolLaunches:
+    """Each pool's kernel launches: the differences of the global counts
+    around its engines' calls (the prefill pool's ``start_batch`` and
+    ``advance_prefill``, the decode pool's ``decode_auto``; the lane
+    transfer itself launches nothing).  ``undo()`` restores the engines."""
+
+    def __init__(self, server):
+        from tpudist_torch import ops
+
+        self.by_pool = {"prefill": {}, "decode": {}}
+        self.wrapped = []
+        for pool, engines, names in (
+                ("prefill", server.prefill_pool,
+                 ("start_batch", "advance_prefill")),
+                ("decode", server.decode_pool, ("decode_auto",))):
+            tally = self.by_pool[pool]
+            for eng in engines:
+                for name in names:
+                    orig = getattr(eng, name)
+
+                    def wrapped(*a, _orig=orig, _tally=tally, **kw):
+                        before = ops.launch_counts()
+                        try:
+                            return _orig(*a, **kw)
+                        finally:
+                            for k, n in ops.launch_counts().items():
+                                _tally[k] = (_tally.get(k, 0) + n
+                                             - before.get(k, 0))
+
+                    setattr(eng, name, wrapped)
+                    self.wrapped.append((eng, name))
+
+    def undo(self) -> None:
+        for eng, name in self.wrapped:
+            delattr(eng, name)
+
+
+def p24_run(torch, model, knobs: dict, reqs, temps, fault=None,
+            timed=False, after=False) -> dict:
+    """One phase 24 run: ``serve_forever`` with ``P24_CONFIG`` and
+    ``knobs``, warmed up, then ``reqs`` with ``temps`` (seed = the lane)
+    with the counts read just before; ``fault`` is armed once the warm-up
+    is done.  ``timed`` times each lane's export (+ serialize) and
+    (deserialize +) import, synchronized on both sides; ``after`` serves
+    one more request once the burst is done."""
+    from tpudist_torch import ops
+    from tpudist_torch.runtime import faults
+    from tpudist_torch.serve import ServeConfig, disagg, serve_forever
+
+    warm_prompt, _, _, _ = phase4_traffic(7)
+    server = serve_forever(model, ServeConfig(**{**P24_CONFIG, **knobs}),
+                           device="cuda")
+    sinks = {k: [] for k in ("export", "serialize", "deserialize",
+                             "import")}
+    seams, pools = [], None
+    try:
+        warm = server.submit(warm_prompt, max_new=9)
+        if not warm.wait(600) or warm.finish_reason != "length":
+            raise AssertionError("phase 24: warm-up request did not finish")
+        torch.cuda.synchronize()
+        if timed:
+            seams = [Timed(torch, server.prefill_pool[0], "export_slot",
+                           sinks["export"])]
+            seams += [Timed(torch, eng, "import_slot", sinks["import"])
+                      for eng in server.decode_pool]
+            if server.handoff_mode == "serial":
+                seams += [Timed(torch, disagg, "serialize_package",
+                                sinks["serialize"]),
+                          Timed(torch, disagg, "deserialize_package",
+                                sinks["deserialize"])]
+        pools = PoolLaunches(server)
+        before, st0 = ops.launch_counts(), server.stats()
+        if fault:
+            faults.arm(fault)
+        t0 = time.perf_counter()
+        handles = [server.submit(p, max_new=n, temperature=t, seed=i)
+                   for i, ((p, n), t) in enumerate(zip(reqs, temps))]
+        for h in handles:
+            if not h.wait(900):
+                raise AssertionError("phase 24: a request timed out")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launches_since(before)
+        stats = server.stats()
+        if after:
+            late = server.submit(warm_prompt, max_new=9)
+            if not late.wait(600) or late.finish_reason != "length":
+                raise AssertionError(f"phase 24: the request after the "
+                                     f"burst {late.finish_reason}")
+    finally:
+        faults.disarm()
+        for seam in seams:
+            seam.undo()
+        if pools is not None:
+            pools.undo()
+        server.close(60)
+    ms = {k: [1e3 * t for t, _ in v] for k, v in sinks.items()}
+    lane_bytes = [ser["bytes"] for _, ser in sinks["serialize"]]
+    tokens = sum(len(h.tokens) for h in handles)
+    ttft = sorted(1e3 * h.ttft_s for h in handles)
+    return dict(
+        handles=handles, streams=[h.tokens for h in handles], wall_s=wall,
+        tokens=tokens, tokens_per_s=tokens / wall,
+        ttft_p50_ms=statistics.median(ttft),
+        ttft_p95_ms=nearest_rank(ttft, 95),
+        tpot_p50_ms=1e3 * statistics.median(
+            h.tpot_s for h in handles if h.tpot_s is not None),
+        handoff_wait_p50_ms=1e3 * statistics.median(
+            h.handoff_wait_s for h in handles
+            if h.handoff_wait_s is not None),
+        handoffs=stats["handoffs"] - st0["handoffs"],
+        workers_lost=stats["workers_lost"],
+        lanes_recovered=stats["lanes_recovered"],
+        recovered=[i for i, h in enumerate(handles)
+                   if len(h.decode_segments) > 1],
+        reasons=[h.finish_reason for h in handles],
+        launches=launches, pool_launches=pools.by_pool,
+        export_ms=[a + b for a, b in zip(ms["export"], ms["serialize"])]
+        if ms["serialize"] else ms["export"],
+        import_ms=[a + b for a, b in zip(ms["deserialize"], ms["import"])]
+        if ms["deserialize"] else ms["import"],
+        package_bytes=lane_bytes)
+
+
+def nonzero(counts: dict) -> dict:
+    """The kernels a run launched, with their counts."""
+    return {k: n for k, n in counts.items() if n}
+
+
+def p24_hold_launches(what: str, launches: dict) -> None:
+    """Gate: every serving kernel launched in ``what``'s run."""
+    p24_hold(what, all(launches.get(k, 0) > 0 for k in SERVE_KERNELS),
+             f"a serving kernel never launched: {launches}")
+
+
+def phase24_serve(torch, model, main_path: dict, card: str) -> dict:
+    """Phase 24 on phase 4's model (module doc): (a) the oracle in both
+    handoff modes, (a') bit for bit at decode block 1, (b) a decode worker
+    killed inside the burst, (c) a corrupt package."""
+    _, reqs, temps, _ = phase4_traffic(7)
+    prompts = [p for p, _ in reqs]
+    greedy = [i for i in range(16) if i not in SAMPLED_LANES]
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(sub: str) -> None:
+        nonlocal t0
+        t1 = time.perf_counter()
+        walls[sub] = round(t1 - t0, 2)
+        t0 = t1
+
+    def hold_length(what: str, r: dict, skip=()) -> None:
+        bad = [(i, h.finish_reason, len(h.tokens))
+               for i, (h, (_, n)) in enumerate(zip(r["handles"], reqs))
+               if i not in skip and (h.finish_reason != "length"
+                                     or len(h.tokens) != n)]
+        p24_hold(what, not bad, f"requests not length: {bad}")
+
+    # (a): phase 4's server on the same traffic, its sampled lanes drawn
+    sampled_ref = serve_arm(torch, model, {}, 7)
+    runs = {}
+    for mode in ("serial", "device"):
+        r = p24_run(torch, model, dict(handoff=mode), reqs, temps,
+                    timed=True)
+        what = f"(a) {mode}"
+        hold_length(what, r)
+        p24_hold(what, r["handoffs"] == 16, f"handoffs {r['handoffs']}")
+        p24_hold_launches(what, r["launches"])
+        r["equal"], r["near_ties"] = hold_greedy_streams(
+            torch, model, prompts, r["streams"], main_path["streams"],
+            greedy)
+        r["sampled_equal"] = sum(r["streams"][i] == sampled_ref["streams"][i]
+                                 for i in SAMPLED_LANES)
+        runs[mode] = r
+        med = statistics.median
+        log(f"phase 24 (a) handoff={mode}: 16 requests, {r['tokens']} "
+            f"tokens in {r['wall_s']:.3f} s = {r['tokens_per_s']:.1f} "
+            f"tokens/s beside phase 4's {main_path['tokens_per_s']:.1f}; "
+            f"TTFT p50 {r['ttft_p50_ms']:.2f} ms, p95 "
+            f"{r['ttft_p95_ms']:.2f} ms (phase 4 p50 "
+            f"{main_path['ttft_p50_ms']:.2f}), TPOT p50 "
+            f"{r['tpot_p50_ms']:.3f} ms (phase 4 "
+            f"{main_path['tpot_p50_ms']:.3f}), handoff wait p50 "
+            f"{r['handoff_wait_p50_ms']:.3f} ms; "
+            + (f"package bytes {min(r['package_bytes'])}-"
+               f"{max(r['package_bytes'])} (sum "
+               f"{sum(r['package_bytes'])}), export + serialize p50 "
+               f"{med(r['export_ms']):.3f} ms (max "
+               f"{max(r['export_ms']):.3f}), deserialize + import p50 "
+               if mode == "serial" else
+               f"export p50 {med(r['export_ms']):.3f} ms (max "
+               f"{max(r['export_ms']):.3f}), import p50 ")
+            + f"{med(r['import_ms']):.3f} ms (max {max(r['import_ms']):.3f})"
+            f" a lane (each synchronized on both sides); greedy lanes equal "
+            f"to phase 4's {r['equal']}/{len(greedy)}, near ties (lane, "
+            f"token, top-2 gap) {r['near_ties']}; sampled lanes equal to "
+            f"phase 4's server at the same seeds {r['sampled_equal']}/"
+            f"{len(SAMPLED_LANES)}; launches {nonzero(r['launches'])}, by "
+            f"pool { {k: nonzero(v) for k, v in r['pool_launches'].items()} }"
+            f" ({card})")
+    lap("a")
+    # (a')
+    lanes = list(P24_EXACT_LANES)
+    sub = [reqs[i] for i in lanes]
+    sub_t = [temps[i] for i in lanes]
+    exact = p24_run(torch, model, dict(decode_block=1, prefill_slots=SLOTS,
+                                       handoff="serial"), sub, sub_t)
+    single = phase4_server_run(torch, model, dict(decode_block=1), sub,
+                               sub_t)
+    differ = [lane for lane, a, b in zip(lanes, exact["streams"],
+                                         single["streams"]) if a != b]
+    p24_hold("(a')", not differ, f"streams differ on lanes {differ}")
+    p24_hold("(a')", all(h.finish_reason == "length" and len(h.tokens) == n
+                         for h, (_, n) in zip(exact["handles"], sub)),
+             exact["reasons"])
+    p24_hold_launches("(a')", exact["launches"])
+    log(f"phase 24 (a') lanes {lanes} (sampled {list(SAMPLED_LANES)}) at "
+        f"decode block 1: the disaggregated streams equal the single "
+        f"server's bit for bit; launches {nonzero(exact['launches'])} "
+        f"({card})")
+    lap("a'")
+    # (b)
+    kill = p24_run(torch, model, dict(handoff="serial"), reqs, temps,
+                   fault=P24_KILL)
+    hold_length("(b)", kill)
+    p24_hold("(b)", kill["workers_lost"] == 1
+             and kill["lanes_recovered"] >= 1 and kill["recovered"],
+             f"workers lost {kill['workers_lost']}, lanes recovered "
+             f"{kill['lanes_recovered']} ({kill['recovered']})")
+    p24_hold_launches("(b)", kill["launches"])
+    kill["equal"], kill["near_ties"] = hold_greedy_streams(
+        torch, model, prompts, kill["streams"], runs["serial"]["streams"],
+        greedy)
+    kill["sampled_recovered_equal"] = {
+        i: kill["streams"][i] == runs["serial"]["streams"][i]
+        for i in kill["recovered"] if i in SAMPLED_LANES}
+    log(f"phase 24 (b) {P24_KILL}: {kill['workers_lost']} worker lost, "
+        f"{kill['lanes_recovered']} lanes recovered (lanes "
+        f"{kill['recovered']} decoded on two workers), every request "
+        f"length; greedy lanes equal to (a)'s serial run "
+        f"{kill['equal']}/{len(greedy)}, near ties {kill['near_ties']}; "
+        f"recovered sampled lanes equal to (a)'s "
+        f"{kill['sampled_recovered_equal']}; {kill['tokens_per_s']:.1f} "
+        f"tokens/s; launches {nonzero(kill['launches'])} ({card})")
+    lap("b")
+    # (c)
+    bad = p24_run(torch, model, dict(handoff="serial"), reqs, temps,
+                  fault=P24_CORRUPT, after=True)
+    corrupt = [i for i, why in enumerate(bad["reasons"])
+               if why == "handoff_corrupt"]
+    p24_hold("(c)", len(corrupt) == 1, f"finish reasons {bad['reasons']}")
+    hold_length("(c)", bad, skip=corrupt)
+    p24_hold_launches("(c)", bad["launches"])
+    log(f"phase 24 (c) {P24_CORRUPT}: lane {corrupt[0]} finished "
+        f"handoff_corrupt, the other 15 length, a request after the burst "
+        f"served length; launches {nonzero(bad['launches'])} ({card})")
+    lap("c")
+    by_sub = {"a serial": runs["serial"]["launches"],
+              "a device": runs["device"]["launches"], "a'": exact["launches"],
+              "b": kill["launches"], "c": bad["launches"]}
+    by_sub = {k: {n: v.get(n, 0) for n in SERVE_KERNELS}
+              for k, v in by_sub.items()}
+    launches = {n: sum(b[n] for b in by_sub.values()) for n in SERVE_KERNELS}
+    log(f"phase 24 launches by sub-phase {by_sub}, in all {launches}; "
+        f"seconds by sub-phase {walls}")
+    keep = ("tokens", "wall_s", "tokens_per_s", "ttft_p50_ms", "ttft_p95_ms",
+            "tpot_p50_ms", "handoff_wait_p50_ms", "handoffs", "export_ms",
+            "import_ms", "package_bytes", "equal", "near_ties",
+            "sampled_equal", "launches", "pool_launches", "workers_lost",
+            "lanes_recovered", "recovered", "sampled_recovered_equal",
+            "reasons")
+    brief = lambda r: {k: r[k] for k in keep if k in r}  # noqa: E731
+    return dict(launches=launches, launches_by_subphase=by_sub,
+                walls_s=walls, serial=brief(runs["serial"]),
+                device=brief(runs["device"]), exact=brief(exact),
+                kill=brief(kill), corrupt=dict(brief(bad), lane=corrupt[0]))
+
+
+def phase4_server_run(torch, model, knobs: dict, reqs, temps) -> dict:
+    """Phase 4's single server with ``knobs``, warmed up, serving ``reqs``
+    at ``temps`` (seed = the lane): the yardstick of phase 24 (a')."""
+    from tpudist_torch.serve import InferenceServer
+
+    warm_prompt, _, _, _ = phase4_traffic(7)
+    server = InferenceServer(model, p23_config(**knobs), device="cuda",
+                             install_signal_handler=False).start()
+    try:
+        warm = server.submit(warm_prompt, max_new=9)
+        if not warm.wait(600) or warm.finish_reason != "length":
+            raise AssertionError("phase 24: warm-up request did not finish")
+        handles = [server.submit(p, max_new=n, temperature=t, seed=i)
+                   for i, ((p, n), t) in enumerate(zip(reqs, temps))]
+        for h in handles:
+            if not h.wait(900):
+                raise AssertionError("phase 24: a request timed out")
+    finally:
+        server.close(60)
+    return dict(streams=[h.tokens for h in handles])
+
+
 def watchdog_path() -> dict:
     """Phase 22 (d): the toy demo as a subprocess under the torchrun
     contract with ``TPUDIST_WATCHDOG_S`` below an injected ``host_delay``
@@ -8043,6 +8382,8 @@ def main(argv=None) -> int:
     mark("phase 22 (b)-(c)")
     degrade = phase23_serve(torch, model, main_path, card)
     mark("phase 23")
+    disagg = phase24_serve(torch, model, main_path, card)
+    mark("phase 24")
     del model, cpu_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -8324,6 +8665,8 @@ def main(argv=None) -> int:
             + robust_serve["launches"].get(name, 0))
         # phase 23: the launches of the degradation and fleet runs
         kernels[-1]["phase23"] = int(degrade["launches"].get(name, 0))
+        # phase 24: the launches of the disaggregated runs
+        kernels[-1]["phase24"] = int(disagg["launches"].get(name, 0))
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -8363,6 +8706,7 @@ def main(argv=None) -> int:
                   serve_mesh=mesh, robustness=dict(
                       train=robust_train, serve=robust_serve,
                       watchdog=entry["watchdog"]), degradation=degrade,
+                  disaggregation=disagg,
                   timeline=timeline,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:

@@ -33,8 +33,9 @@ from tpudist_torch.models import (PagedKVConfig, TransformerLM,
                                   adapter_factors_from_jax, make_slot_decode,
                                   params_from_flax)
 from tpudist_torch.models import lora
-from tpudist_torch.serve import (AdmissionError, InferenceServer,
-                                 ServeConfig, SlotEngine)
+from tpudist_torch.serve import (AdmissionError, DisaggServer,
+                                 InferenceServer, ServeConfig, SlotEngine,
+                                 serve_forever)
 from tpudist_torch.serve.adapters import (AdapterMissingError,
                                           AdapterPoolFull, AdapterRegistry)
 
@@ -396,10 +397,25 @@ def test_serve_config_adapter_knobs_from_env(monkeypatch):
     assert (cfg.fused_rope, cfg.lora_kernel, cfg.adapters,
             cfg.adapter_blocks, cfg.adapter_rank) == (True, True, True, 3,
                                                       16)
+    # the disaggregated server carries the adapter knobs on both pools:
+    # fused RoPE and the LoRA kernel ride the prefill pool with its kernel
     monkeypatch.setenv("TPUDIST_SERVE_DISAGG", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InferenceServer(TransformerLM(**CFG), ServeConfig.from_env(),
-                        device="cpu")
+    monkeypatch.setenv("TPUDIST_SERVE_KV_BLOCK", "4")
+    monkeypatch.setenv("TPUDIST_SERVE_PREFILL_PAD", "8")
+    server = serve_forever(TransformerLM(**CFG), device="cpu")
+    try:
+        assert isinstance(server, DisaggServer)
+        engines = server.prefill_pool + server.decode_pool
+        assert len(engines) == 2
+        for eng in engines:
+            assert eng.fused_rope and eng.lora_kernel
+            assert eng.adapter_cfg == lora.AdapterPoolConfig(3, 16)
+        server.load_adapter("a0", lora.make_adapter_factors(
+            torch.Generator().manual_seed(0), server.decode_pool[0].model,
+            16))
+        assert all(eng.has_adapter("a0") for eng in engines)
+    finally:
+        assert server.close(30)
 
 
 def test_pool_helpers():

@@ -2133,3 +2133,47 @@ def test_lane_export_import_on_the_card(cuda, arm):
         assert got_fresh == want
     if arm == "adapter":
         assert counts["fused_rope_qkv"] > 0 and counts["lora_delta"] > 0
+
+
+@pytest.mark.parametrize("handoff", ["serial", "device"])
+def test_disagg_server_on_the_card(cuda, handoff):
+    """A bf16 ``DisaggServer`` (1 prefill worker, 2 decode workers) at
+    decode block 1 serves greedy and sampled requests bit for bit as the
+    ``InferenceServer`` does, through the paged prefill, the sampling prep
+    and the paged decode kernels; the ``"device"`` handoff hands CUDA
+    tensors over, the ``"serial"`` one host bytes."""
+    from tpudist_torch.models import create_transformer
+    from tpudist_torch.serve import (DisaggServer, InferenceServer,
+                                     ServeConfig)
+
+    model = create_transformer(0, device=cuda, dtype=torch.bfloat16,
+                               vocab=256, d_model=256, n_layers=2,
+                               n_heads=2, d_ff=512, max_len=256, rope=True)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, 256, size=int(n)), 12, t)
+            for n, t in zip((5, 40, 70, 100), (0.0, 0.9, 0.0, 0.9))]
+    geom = dict(num_slots=4, prefill_pad=32, kv_block=16, decode_block=1)
+
+    def run(server):
+        server.start()
+        try:
+            hs = [server.submit(p, max_new=n, temperature=t, seed=i)
+                  for i, (p, n, t) in enumerate(reqs)]
+            assert all(h.wait(300) for h in hs)
+            return [h.tokens for h in hs], server.stats()
+        finally:
+            assert server.close(60)
+
+    want, _ = run(InferenceServer(model, ServeConfig(**geom), device=cuda,
+                                  install_signal_handler=False))
+    reset_launch_counts()
+    got, st = run(DisaggServer(
+        model, ServeConfig(disagg=True, prefill_slots=2, decode_workers=2,
+                           handoff=handoff, **geom),
+        device=cuda, install_signal_handler=False))
+    counts = launch_counts()
+    assert got == want
+    assert st["handoffs"] == len(reqs)
+    assert (st["handoff_bytes"] > 0) == (handoff == "serial")
+    for name in ("paged_attention", "paged_prefill", "fused_sample"):
+        assert counts[name] > 0, counts

@@ -506,10 +506,7 @@ def test_serve_config_from_env(monkeypatch):
 
 # the JAX ServeConfig.from_env variables with no port yet, and the
 # ROADMAP.md queue A item each raises with
-UNPORTED_ENV = {
-    "HANDOFF": "8", "HANDOFF_QUEUE": "8", "DECODE_WORKERS": "8",
-    "PREFILL_WORKERS": "8", "PREFILL_SLOTS": "8", "RECOVER": "8",
-    "POOL_RESIZE": "8", "AUTO": "8"}
+UNPORTED_ENV = {"AUTO": "8"}
 # knobs that raised until their subsystem was ported: each case now holds
 # the knob read — the server attribute it sets, or the ServeConfig field
 # it sets, compared with the JAX ServeConfig.from_env's reading of the
@@ -519,7 +516,12 @@ PORTED_CONFIG_ENV = {
     "HOST_TIER": ("host_tier", "1"), "PREEMPT": ("preempt", "0"),
     "SHED": ("shed", "1"), "SHED_ATTAINMENT": ("shed_attainment", "0.75"),
     "SHED_PRIORITY": ("shed_priority", "0"),
-    "FAIR_SHARE": ("fair_share", "1.5")}
+    "FAIR_SHARE": ("fair_share", "1.5"),
+    "HANDOFF": ("handoff", "serial"), "HANDOFF_QUEUE": ("handoff_queue", "3"),
+    "DECODE_WORKERS": ("decode_workers", "2"),
+    "PREFILL_WORKERS": ("prefill_workers", "3"),
+    "PREFILL_SLOTS": ("prefill_slots", "2"), "RECOVER": ("recover", "0"),
+    "POOL_RESIZE": ("pool_resize", "4")}
 
 
 @pytest.mark.parametrize("suffix", sorted(
@@ -528,8 +530,9 @@ def test_serve_config_from_env_refuses_unported_knobs(monkeypatch, request,
                                                       suffix):
     """Each knob the port cannot honour raises, naming itself and its
     ROADMAP item, instead of building a server that ignores it; a knob
-    ported since is read instead (the graceful-degradation knobs as the
-    JAX ``ServeConfig.from_env`` reads them)."""
+    ported since is read instead (the graceful-degradation and the
+    disaggregation knobs as the JAX ``ServeConfig.from_env`` reads
+    them)."""
     name = f"TPUDIST_SERVE_{suffix}"
     if suffix in PORTED_ENV:
         monkeypatch.setenv(name, "7.5")

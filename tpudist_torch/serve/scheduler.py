@@ -22,7 +22,7 @@ import numpy as np
 
 from tpudist_torch.telemetry.trace import new_trace_id
 
-#: every reason a handle can finish with in this slice (name → contract)
+#: every reason a handle can finish with (name → contract)
 FINISH_REASONS = {
     "length": "completed its max_new output-token budget",
     "eos": "emitted its per-request stop token",
@@ -31,6 +31,12 @@ FINISH_REASONS = {
                 "hard drain, never-started server)",
     "cache_full": "hit a full KV cache with budget unspent — only reachable "
                   "when the admission budget rule is bypassed",
+    "worker_lost": "its pool worker died with NO survivor to recover "
+                   "onto (with survivors the lane replays and finishes "
+                   "normally)",
+    "handoff_corrupt": "rode a KV-handoff package the decode pool "
+                       "rejected (schema mismatch or failed integrity "
+                       "digest)",
     "adapter_missing": "named a per-tenant adapter no longer resident in "
                        "the pool when its lane had to bind — a raced "
                        "unload between admission and placement "
@@ -152,9 +158,15 @@ class RequestHandle:
         #: submit and stamped on ``request_finished`` and the lifeline
         self.trace_id: str = new_trace_id()
         #: the disaggregated path's prefill-done and decode-start stamps,
-        #: which the lifeline reads; None on this single-pool server
+        #: which the lifeline reads; None on the single-pool server
         self.t_prefill_done: Optional[float] = None
         self.t_decode_start: Optional[float] = None
+        #: worker attribution for the exported timeline: the prefill worker
+        #: that ran the prompt, and one ``[worker, t_start, t_end]`` a
+        #: decode residency (a lane replayed onto a survivor after a worker
+        #: loss grows a second segment)
+        self.prefill_worker: Optional[int] = None
+        self.decode_segments: List[list] = []
         #: True once this request was served from a resumed session lane
         #: (its length finish then reads ``session_resumed``)
         self.resumed: bool = False
@@ -195,6 +207,14 @@ class RequestHandle:
         if self.t_admitted is None:
             return None
         return self.t_admitted - self.t_submit
+
+    @property
+    def handoff_wait_s(self) -> Optional[float]:
+        """Prefill-done to decode-slot-installed gap (disaggregated serving
+        only; None on the single-pool path)."""
+        if self.t_prefill_done is None or self.t_decode_start is None:
+            return None
+        return self.t_decode_start - self.t_prefill_done
 
     # -- engine side --------------------------------------------------------
 

@@ -13,8 +13,11 @@ lanes park in host memory in the handoff wire form and come back without
 recompute), priority preemption (``preempt``), SLO-aware load shedding
 (``shed``) and per-tenant fair share (``fair_share``), plus the hooks the
 fleet router (:mod:`tpudist_torch.serve.router`) drives — ``kill``,
-``parked_sessions``, ``export_session`` and ``adopt_session``.
-Disaggregation is a later slice.
+``parked_sessions``, ``export_session`` and ``adopt_session``.  Both
+server flavours share that plane through :class:`_Observability`;
+:func:`serve_forever` starts the one the config asks for — this server, or
+the prefill/decode-disaggregated :class:`~tpudist_torch.serve.disagg.
+DisaggServer` when ``ServeConfig.disagg`` is set.
 
 One background thread drives the engine; any number of caller threads
 submit.  Each loop iteration admits queued requests into free slots (one
@@ -47,17 +50,9 @@ _IDLE_WAIT_S = 0.01
 #: on, its ROADMAP.md queue A item).  Set to a non-empty value, each one
 #: raises instead of being dropped.
 _UNPORTED_ENV = {
-    "HANDOFF": ("the disaggregated handoff (serve/disagg.py)", "8"),
-    "HANDOFF_QUEUE": ("the disaggregated handoff (serve/disagg.py)", "8"),
-    "DECODE_WORKERS": ("disaggregated decode workers (serve/disagg.py)",
-                       "8"),
-    "PREFILL_WORKERS": ("disaggregated prefill workers (serve/disagg.py)",
-                        "8"),
-    "PREFILL_SLOTS": ("disaggregated prefill slots (serve/disagg.py)", "8"),
-    "RECOVER": ("disaggregated lane recovery (serve/disagg.py)", "8"),
-    "POOL_RESIZE": ("the backpressure pool resize (serve/disagg.py)", "8"),
     "AUTO": ("measurement-driven planning (plan/)", "8"),
 }
+
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
@@ -86,7 +81,10 @@ class ServeConfig:
     draft tied to half the target's layers), and so do the structured-output
     knobs (off; 4 grammar blocks of 64 states; no logprobs) and the
     graceful-degradation knobs (no host tier, a 1 GiB budget when on,
-    preemption on with the tier, no shedding, no fair share)."""
+    preemption on with the tier, no shedding, no fair share) and the
+    disaggregation knobs (off; one prefill and one decode worker, the
+    prefill pool's slots ``num_slots``, the ``"device"`` handoff, a queue
+    of 8, recovery on, no pool resize)."""
 
     num_slots: int = 4
     queue_limit: int = 64
@@ -130,7 +128,22 @@ class ServeConfig:
     # searches this field, not the code.
     mesh: Optional[str] = None
     tp_overlap: Optional[str] = None  # off|ring|bidir; None = knob chain
-    disagg: bool = False  # prefill/decode disaggregation (not ported)
+    # -- prefill/decode disaggregation (serve/disagg.py): separate prefill
+    # and decode worker pools with a KV handoff between them
+    disagg: bool = False
+    prefill_workers: int = 1
+    decode_workers: int = 1
+    prefill_slots: Optional[int] = None  # per prefill worker; None: num_slots
+    handoff: str = "device"  # "device" (tensors) | "serial" (wire bytes)
+    handoff_queue: int = 8  # bounded pending-handoff packages
+    # a dead pool worker's lanes replay onto survivors (stashed handoff
+    # packages: one extra copy of each in-flight decode lane's KV); off =
+    # any worker death aborts all outstanding work as "shutdown"
+    recover: bool = True
+    # backpressure pool resize: consecutive loop iterations the handoff
+    # queue must stay full before the prefill slot budget shrinks by one
+    # (and at most half full before it grows back); 0 = off
+    pool_resize: int = 0
     # -- host-RAM KV session tier + overload control
     # (serve/host_tier.py, serve/overload.py)
     host_tier: bool = False  # park idle/preempted lanes in host RAM
@@ -218,6 +231,14 @@ class ServeConfig:
             tp_overlap=os.environ.get(
                 "TPUDIST_SERVE_TP_OVERLAP", "").strip() or None,
             disagg=env_flag("TPUDIST_SERVE_DISAGG", False),
+            prefill_workers=env_int("TPUDIST_SERVE_PREFILL_WORKERS", 1) or 1,
+            decode_workers=env_int("TPUDIST_SERVE_DECODE_WORKERS", 1) or 1,
+            prefill_slots=env_int("TPUDIST_SERVE_PREFILL_SLOTS", None),
+            handoff=os.environ.get(
+                "TPUDIST_SERVE_HANDOFF", "").strip() or "device",
+            handoff_queue=env_int("TPUDIST_SERVE_HANDOFF_QUEUE", 8) or 8,
+            recover=env_flag("TPUDIST_SERVE_RECOVER", True),
+            pool_resize=env_int("TPUDIST_SERVE_POOL_RESIZE", 0) or 0,
             host_tier=env_flag("TPUDIST_SERVE_HOST_TIER", False),
             host_tier_bytes=env_int("TPUDIST_HOST_TIER_BYTES",
                                     1 << 30) or (1 << 30),
@@ -253,273 +274,23 @@ class ReplicaKilled(RuntimeError):
     the threading excepthook."""
 
 
-class InferenceServer:
-    """Continuous-batching server over a :class:`TransformerLM`.
+class _Observability:
+    """What both server flavours share (:class:`InferenceServer` here,
+    :class:`~tpudist_torch.serve.disagg.DisaggServer` over its two pools):
+    the live plane — ``/healthz`` (the engine thread alive, loop-error-free
+    and its heartbeat fresh, not merely "the HTTP thread answered"),
+    ``/statusz`` registered against the process endpoint, the
+    ``slo_config`` stamp — the hard stop (``kill``), the fleet's session
+    hooks, graceful degradation (the host tier, shedding, the parked
+    lanes), per-tenant in-flight accounting, and the adapter surface,
+    broadcast over every engine of the flavour."""
 
-    Usage::
+    _statusz_name = "serve"
 
-        server = InferenceServer(model, ServeConfig(num_slots=8)).start()
-        h = server.submit(prompt_ids, max_new=32, on_token=stream_cb)
-        h.wait(); print(h.tokens, h.finish_reason)
-        server.close()          # graceful drain
-
-    ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
-    unless ``device="cpu"`` is passed.  ``install_signal_handler``: SIGTERM
-    drains the server as ``close()`` does (a warned no-op when
-    :meth:`start` runs off the main thread)."""
-
-    def __init__(self, model, config: Optional[ServeConfig] = None, *,
-                 device="cuda", install_signal_handler: bool = True):
-        self.config = config or ServeConfig.from_env()
-        cfg = self.config
-        if cfg.disagg:
-            raise NotImplementedError(
-                "disagg (prefill/decode disaggregation) is not ported to "
-                "tpudist_torch yet (ROADMAP.md queue A item 8)")
-        # structured output: the token vocabulary the grammar compiler
-        # lowers against (token id → decoded text) is an engine constant;
-        # EOS stays per request (compile_grammar wires its column)
-        ccfg = None
-        if cfg.constrain:
-            from tpudist_torch.constrain import (ConstrainConfig,
-                                                 default_vocab)
-
-            ccfg = ConstrainConfig(vocab=default_vocab(int(model.vocab)),
-                                   num_blocks=cfg.constrain_blocks,
-                                   max_states=cfg.constrain_states)
-        self.constrain_cfg = ccfg
-        self.engine = SlotEngine(
-            model, num_slots=cfg.num_slots, prefill_pad=cfg.prefill_pad,
-            decode_block=cfg.decode_block, paged=cfg.paged,
-            kv_block=cfg.kv_block, kv_blocks=cfg.kv_blocks,
-            kv_int8=cfg.kv_int8, prefix_cache_blocks=cfg.prefix_cache_blocks,
-            attn_kernel=cfg.attn_kernel, prefill_kernel=cfg.prefill_kernel,
-            sample_kernel=cfg.sample_kernel, fused_rope=cfg.fused_rope,
-            lora_kernel=cfg.lora_kernel, adapters=cfg.adapters,
-            adapter_blocks=cfg.adapter_blocks,
-            adapter_rank=cfg.adapter_rank,
-            spec_draft=cfg.resolve_spec_draft(model), spec_k=cfg.spec_k,
-            constrain=ccfg, logprobs=cfg.logprobs,
-            mesh=cfg.mesh_config(), device=device)
-        hasher = None
-        if cfg.paged and cfg.prefix_cache_blocks > 0:
-            from tpudist_torch.serve.paged_alloc import hash_chain
-
-            bs = self.engine.paged_cfg.block_size
-            hasher = lambda prompt: hash_chain(prompt, bs)  # noqa: E731
-        self.scheduler = Scheduler(
-            queue_limit=cfg.queue_limit,
-            check_budget=self.engine.check_budget,
-            default_max_new=cfg.max_new,
-            default_deadline_s=cfg.deadline_s,
-            prefix_hasher=hasher,
-            check_adapter=lambda name: (
-                None if self.engine.has_adapter(name)
-                else "adapter_missing"),
-            # compiled outside the scheduler lock; GrammarError subclasses
-            # ValueError, so an uncompilable ask rejects synchronously
-            compile_grammar_fn=(None if ccfg is None else (
-                lambda regex, schema, eos: _compile_grammar_for(
-                    ccfg, regex, schema, eos))),
-            max_logprobs=self.engine.n_lp)
-        self._install_signal = install_signal_handler
-        self._installed_preemption = False
-        self._thread: Optional[threading.Thread] = None
-        self._stop = threading.Event()
-        self._draining = False
-        self._slot_handles: Dict[int, RequestHandle] = {}
-        # counters (engine thread writes, stats() reads)
-        self.completed = 0
-        self.tokens_out = 0
-        self._occupancy_sum = 0.0
-        self._steps = 0
-        # -- live observability plane (telemetry.statusz) ------------------
-        self._init_observability()
-        # -- graceful degradation (host tier / preemption / shedding) ------
-        self._init_degradation(self.scheduler)
-        #: re-prefill fallback line: lanes whose parked package was spilled
-        #: or corrupt restart from the prompt ahead of fresh admissions;
-        #: the duplicate-drop counter in ``_skip`` keeps their streams whole
-        self._requeue: "collections.deque[RequestHandle]" = \
-            collections.deque()
-
-    # -- lifecycle ----------------------------------------------------------
-
-    def start(self) -> "InferenceServer":
-        if self._thread is not None:
-            raise RuntimeError("server already started")
-        from tpudist_torch import telemetry
-        from tpudist_torch.runtime import faults, preemption
-
-        # chaos harness: arm TPUDIST_FAULT at the serving entry as the
-        # training loops do at theirs
-        faults.arm_from_env()
-        telemetry.ensure_started()
-        # one config-stamp event: the static KV geometry the aggregator
-        # pairs with the per-block occupancy gauges
-        kv = self.engine.kv_stats()
-        telemetry.event(
-            "serve_kv_config", paged=kv["paged"], quantized=kv["quantized"],
-            attn_kernel=kv["attn_kernel"],
-            prefill_kernel=kv["prefill_kernel"],
-            sample_kernel=kv["sample_kernel"],
-            fused_rope=kv["fused_rope"], lora_kernel=kv["lora_kernel"],
-            block_size=kv["block_size"], blocks_total=kv["blocks_total"],
-            pool_bytes=kv["pool_bytes"], bytes_per_pos=kv["bytes_per_pos"],
-            num_slots=self.engine.num_slots, max_len=self.engine.max_len)
-        if self.engine.adapters is not None:
-            st = self.engine.adapter_stats()
-            # "rank" is a RESERVED telemetry key (process rank): the LoRA
-            # rank travels as lora_rank
-            telemetry.event("serve_adapters_config",
-                            blocks=st.get("blocks_total"),
-                            lora_rank=st["rank"],
-                            block_bytes=st["block_bytes"],
-                            pool_bytes=st["pool_bytes"])
-        if self.engine.has_constrain() or self.engine.n_lp:
-            cs = self.engine.constrain_stats()
-            telemetry.event(
-                "serve_constrain_config", enabled=cs["enabled"],
-                blocks=cs.get("blocks"), max_states=cs.get("max_states"),
-                pool_bytes=cs.get("pool_bytes"),
-                logprobs=self.engine.n_lp)
-        self._start_observability()
-        if self._install_signal:
-            # SIGTERM → drain: the same preemption flag the training loop
-            # checkpoints on; off the main thread a warned no-op
-            self._installed_preemption = preemption.install()
-        self._thread = threading.Thread(
-            target=self._loop, name="tpudist-torch-serve", daemon=True)
-        self._thread.start()
-        return self
-
-    def submit(self, prompt, *, max_new: Optional[int] = None,
-               temperature: float = 0.0, deadline_s: Optional[float] = None,
-               seed: Optional[int] = None, eos_id: Optional[int] = None,
-               on_token: Optional[Callable[[int, int], None]] = None,
-               priority: int = 0, adapter: Optional[str] = None,
-               spec: Optional[bool] = None, tenant: Optional[str] = None,
-               session: Optional[str] = None,
-               grammar: Optional[str] = None, json_schema=None, stop=None,
-               logprobs: int = 0) -> RequestHandle:
-        """Thread-safe ingestion; raises
-        :class:`~tpudist_torch.serve.scheduler.AdmissionError` on
-        backpressure or budget rejection.  ``adapter`` names a per-tenant
-        LoRA adapter loaded with :meth:`load_adapter` (else the request
-        rejects ``adapter_missing``).  ``spec=False`` opts the request out
-        of speculative decoding on a spec server (its stream is the plain
-        engine's).
-
-        Structured output: ``grammar`` (a regex over the decoded text) or
-        ``json_schema`` constrains the stream to the grammar's language
-        (needs ``ServeConfig.constrain`` and an ``eos_id``; an
-        uncompilable ask rejects ``invalid_grammar``).  ``stop`` is a list
-        of token-id sequences (a bare int is a one-token sequence) matched
-        on the delivered stream; a match finishes ``stop_sequence`` with
-        the stop tokens kept.  ``logprobs=n`` attaches the top-n
-        ``(token_id, logprob)`` pairs of every token to
-        ``handle.logprobs`` (post-mask on constrained lanes; ``n`` at most
-        ``ServeConfig.logprobs``).  ``tenant`` labels the request in
-        telemetry, the per-tenant metrics and SLO attainment, and the
-        ``/statusz`` in-flight counts.  ``priority`` orders the queue and,
-        with the host tier on, can preempt a lower class's decode lane;
-        ``session`` keys the host-tier multi-turn resume: a prompt that
-        extends a parked session's context token for token imports its KV
-        instead of prefilling it again.  A rejection is stamped into
-        telemetry as ``serve_rejected``."""
-        from tpudist_torch import telemetry
-
-        # count the in-flight BEFORE the handle becomes visible to the
-        # engine thread, so a fast finish cannot decrement first
-        tkey = None if tenant is None else str(tenant)
-        self._track_tenant(tkey, +1)
-        try:
-            return self.scheduler.submit(
-                prompt, max_new=max_new, temperature=temperature,
-                deadline_s=deadline_s, seed=seed, eos_id=eos_id,
-                on_token=on_token, priority=priority, adapter=adapter,
-                spec=spec, grammar=grammar, json_schema=json_schema,
-                stop=stop, logprobs=logprobs, tenant=tenant,
-                session=session)
-        except BaseException as e:
-            # never admitted: give the +1 back
-            self._track_tenant(tkey, -1)
-            if isinstance(e, AdmissionError):
-                telemetry.event("serve_rejected", reason=e.reason)
-            raise
-
-    # -- per-tenant adapters ------------------------------------------------
-
-    def _require_adapters(self) -> None:
-        if self.engine.adapters is None:
-            raise RuntimeError(
-                "server built without adapters (ServeConfig.adapters / "
-                "TPUDIST_SERVE_ADAPTERS)")
-
-    def load_adapter(self, name: str, factors) -> dict:
-        """Load ``factors`` under ``name`` into the engine's adapter pool
-        (thread-safe; see :meth:`SlotEngine.load_adapter`).  Emits one
-        ``adapter_load`` (plus ``adapter_evict`` for an LRU victim)."""
-        from tpudist_torch import telemetry
-
-        self._require_adapters()
-        info = self.engine.load_adapter(name, factors)
-        if info.get("evicted"):
-            telemetry.event("adapter_evict", adapter=info["evicted"],
-                            evict_kind="lru", resident=info["resident"])
-        telemetry.event("adapter_load", adapter=name,
-                        block=info.get("block"),
-                        resident=info.get("resident"))
-        return info
-
-    def unload_adapter(self, name: str) -> dict:
-        """Unload ``name``: frees now when no lane holds it, else defers
-        (new requests already reject ``adapter_missing``).  Emits
-        ``adapter_evict``."""
-        from tpudist_torch import telemetry
-
-        self._require_adapters()
-        info = self.engine.unload_adapter(name)
-        if info.get("known"):
-            telemetry.event("adapter_evict", adapter=name,
-                            evict_kind="unload",
-                            freed=bool(info.get("freed")),
-                            resident=info.get("resident"))
-        return info
-
-    def drain(self, timeout: Optional[float] = None) -> bool:
-        """Stop admitting, finish everything admitted, stop the loop.
-        True once the engine thread exited (or never ran); with no live
-        loop, queued requests finish ``"shutdown"``."""
-        self._stop.set()
-        t = self._thread
-        ok = True
-        if t is not None:
-            t.join(timeout)
-            ok = not t.is_alive()
-        if ok:
-            self.scheduler.refuse_new("draining")
-            self._abort_outstanding()
-        return ok
-
-    def close(self, timeout: Optional[float] = None) -> bool:
-        """Graceful shutdown (drain) + handler restore."""
-        ok = self.drain(timeout)
-        self._stop_observability()
-        if self._installed_preemption:
-            from tpudist_torch.runtime import preemption
-
-            preemption.reset()
-            self._installed_preemption = False
-        return ok
-
-    # -- live observability (the JAX server's _Observability) -------------
-    # /healthz: the engine thread alive, loop-error-free and its heartbeat
-    # fresh, not merely "the HTTP thread answered"; /statusz registered
-    # against the process endpoint; the slo_config stamp that makes
-    # declared targets visible to the post-hoc aggregator.
 
     def _init_observability(self) -> None:
+        """State both server constructors share: every attribute the health
+        and status methods read lives here."""
         from tpudist_torch.utils.envutil import env_positive_float
 
         #: the exception that killed the engine loop, if any — /healthz
@@ -565,8 +336,8 @@ class InferenceServer:
         srv = statusz.ensure_started()
         if srv is not None:
             self._statusz_names = [
-                srv.register_health("serve", self._health_check),
-                srv.register_status("serve", self._statusz_doc),
+                srv.register_health(self._statusz_name, self._health_check),
+                srv.register_status(self._statusz_name, self._statusz_doc),
             ]
 
     def _stop_observability(self) -> None:
@@ -760,12 +531,13 @@ class InferenceServer:
             h._finish("deadline")
             self._note_finished(h)
 
-    def _park_session_lane(self, slot: int, h) -> None:
-        """Export a finished turn's lane and park it under its session key
-        with the covered context (prompt + every delivered token): the next
-        turn resumes only if its prompt extends that exactly."""
+    def _park_session_lane(self, eng, slot: int, h) -> None:
+        """Export a finished turn's lane from ``eng`` and park it under its
+        session key with the covered context (prompt + every delivered
+        token): the next turn resumes only if its prompt extends that
+        exactly."""
         req = h.request
-        pkg = self.engine.export_slot(slot)
+        pkg = eng.export_slot(slot)
         pkg["trace_id"] = h.trace_id
         ctx = np.concatenate([np.asarray(req.prompt, np.int32),
                               np.asarray(h.tokens, np.int32)])
@@ -796,6 +568,399 @@ class InferenceServer:
                 self._tenant_inflight.pop(key, None)
             else:
                 self._tenant_inflight[key] = n
+
+    def _statusz_doc(self) -> dict:  # per flavour
+        raise NotImplementedError
+
+    def _observability_gauges(self) -> Dict[str, float]:  # per flavour
+        raise NotImplementedError
+
+    def _note_finished(self, h) -> None:  # per flavour
+        raise NotImplementedError
+
+    # -- the decode stream (both flavours) ------------------------------------
+
+    @staticmethod
+    def _record_block(tele, eng, t0: float, info: dict, occ: float,
+                      active: int, **extra) -> None:
+        """The ``decode_block`` span of one plain block of ``eng``, or the
+        ``spec_verify`` span of a speculative one, with JAX's tags: the
+        block's occupancy and size, its dispatch/sync split, the KV gauges
+        and the bytes its attention streamed (and the acceptance and the
+        draft/verify split of a speculative block), plus ``extra`` (a
+        disaggregated block's pool and worker)."""
+        kv_occ, kv_resident = eng.kv_gauges()
+        tags = {"occupancy": occ, "active": active,
+                "k": info["k"], "tokens": info["tokens"],
+                "dispatch_s": round(info["dispatch_s"], 9),
+                "sync_s": round(info["sync_s"], 9),
+                "kv_block_occupancy": kv_occ,
+                "kv_bytes_resident": kv_resident,
+                "kv_read_bytes": info["kv_read_bytes"], **extra}
+        if info.get("spec"):
+            tags.update(accepted=info["accepted"], drafted=info["drafted"],
+                        rollbacks=info["rollbacks"],
+                        draft_s=round(info["draft_s"], 9),
+                        verify_s=round(info["verify_s"], 9))
+            if info.get("accept_by_adapter"):
+                tags["accept_by_adapter"] = info["accept_by_adapter"]
+            tele.record_span("spec_verify", t0, time.monotonic() - t0, tags)
+        else:
+            tele.record_span("decode_block", t0, time.monotonic() - t0,
+                             tags)
+
+    @staticmethod
+    def _stop_reason(h, tok: int) -> Optional[str]:
+        """The finish reason the token just delivered to ``h`` triggers:
+        its stop token, a stop sequence (suffix-matched on the delivered
+        stream, so a match straddling two blocks is found too) or its
+        length budget (a resumed turn's reads ``session_resumed``, so the
+        resume path is countable from the finish reasons alone)."""
+        req = h.request
+        if req.eos_id is not None and tok == req.eos_id:
+            return "eos"
+        if req.stop and any(len(h.tokens) >= len(s)
+                            and tuple(h.tokens[-len(s):]) == s
+                            for s in req.stop):
+            return "stop_sequence"
+        if len(h.tokens) >= req.max_new:
+            return "session_resumed" if h.resumed else "length"
+        return None
+
+    def _deliver_tokens(self, h, toks, lp, finish) -> None:
+        """Stream a token block to ``h``, calling ``finish(reason)`` where
+        it ends (the device block runs past a finish by at most the block
+        size).  Tokens the lane already delivered before a replay or a
+        re-prefill drop by its ``_skip`` count.  ``lp`` is the block's
+        top-n logprobs rows aligned with ``toks`` (absent on a
+        prefill-sampled first token, which surfaces None).  A constrained
+        lane walks its grammar's host shadow automaton per delivered
+        token; a token the shadow forbids truncates the stream before
+        delivery and finishes ``grammar_violation`` (the device mask makes
+        that unreachable unless the pool tables and the shadow
+        diverge)."""
+        tg = h.request.grammar
+        if self._ctrl is not None:
+            # the fair-share measurement: delivered tokens/s per tenant
+            delivered = max(0, len(toks) - self._skip.get(h.id, 0))
+            if delivered:
+                self._ctrl.note_tokens(h.request.tenant, delivered)
+        for i, tok in enumerate(toks):
+            skip = self._skip.get(h.id, 0)
+            if skip > 0:
+                # a token delivered before: its finish checks and its
+                # shadow-automaton step ran then
+                if skip == 1:
+                    del self._skip[h.id]
+                else:
+                    self._skip[h.id] = skip - 1
+                continue
+            if tg is not None:
+                if not tg.token_allowed(h.gstate, tok):
+                    finish("grammar_violation")
+                    return
+                h.gstate = tg.advance(h.gstate, tok)
+            h._deliver(tok)
+            if h.request.logprobs > 0:
+                n = h.request.logprobs
+                row = lp[i] if lp is not None and i < len(lp) else None
+                h.logprobs.append(None if row is None
+                                  else (row[0][:n], row[1][:n]))
+            self.tokens_out += 1
+            reason = self._stop_reason(h, tok)
+            if reason is not None:
+                finish(reason)
+                return
+
+    # -- per-tenant adapters (tpudist_torch.serve.adapters) -----------------
+    # One load/unload surface and one event vocabulary for both flavours
+    # (adapter_load / adapter_evict feed the live gauges and the report).
+
+    def _adapter_engines(self) -> list:  # per flavour
+        raise NotImplementedError
+
+    def _engines_with_adapters(self) -> list:
+        engines = self._adapter_engines()
+        if not engines or engines[0].adapters is None:
+            raise RuntimeError(
+                "server built without adapters (ServeConfig.adapters / "
+                "TPUDIST_SERVE_ADAPTERS)")
+        return engines
+
+    def load_adapter(self, name: str, factors) -> dict:
+        """Load ``factors`` under ``name`` into every engine of the server
+        (thread-safe; see :meth:`SlotEngine.load_adapter`): a disaggregated
+        server's prefill writes the adapted KV the decode pool continues
+        from, and a handoff re-binds the name on the importer.  All or
+        nothing: a failure on any engine unloads the name from those
+        already loaded, so residency never diverges.  Emits one
+        ``adapter_load`` (plus ``adapter_evict`` for the first engine's LRU
+        victim: the broadcast keeps every engine's LRU line the same)."""
+        from tpudist_torch import telemetry
+
+        info, loaded = {}, []
+        try:
+            for i, eng in enumerate(self._engines_with_adapters()):
+                ei = eng.load_adapter(name, factors)
+                loaded.append(eng)
+                if i == 0:
+                    info = ei
+        except BaseException:
+            for eng in loaded:
+                eng.unload_adapter(name)
+            raise
+        if info.get("evicted"):
+            telemetry.event("adapter_evict", adapter=info["evicted"],
+                            evict_kind="lru", resident=info["resident"])
+        telemetry.event("adapter_load", adapter=name,
+                        block=info.get("block"),
+                        resident=info.get("resident"))
+        return info
+
+    def unload_adapter(self, name: str) -> dict:
+        """Unload ``name`` from every engine: frees now when no lane holds
+        it, else defers (new requests already reject ``adapter_missing``).
+        Emits ``adapter_evict``."""
+        from tpudist_torch import telemetry
+
+        info = {}
+        for eng in self._engines_with_adapters():
+            info = eng.unload_adapter(name)
+        if info.get("known"):
+            telemetry.event("adapter_evict", adapter=name,
+                            evict_kind="unload",
+                            freed=bool(info.get("freed")),
+                            resident=info.get("resident"))
+        return info
+
+    def _stamp_adapter_config(self) -> None:
+        """One ``serve_adapters_config`` event at start: the static pool
+        geometry the aggregator pairs with the load/evict stream."""
+        engines = self._adapter_engines()
+        if not engines or engines[0].adapters is None:
+            return
+        from tpudist_torch import telemetry
+
+        st = engines[0].adapter_stats()
+        # "rank" is a RESERVED telemetry key (process rank): the LoRA
+        # rank travels as lora_rank
+        telemetry.event("serve_adapters_config",
+                        blocks=st.get("blocks_total"), lora_rank=st["rank"],
+                        block_bytes=st["block_bytes"],
+                        pool_bytes=st["pool_bytes"])
+
+
+class InferenceServer(_Observability):
+    """Continuous-batching server over a :class:`TransformerLM`.
+
+    Usage::
+
+        server = InferenceServer(model, ServeConfig(num_slots=8)).start()
+        h = server.submit(prompt_ids, max_new=32, on_token=stream_cb)
+        h.wait(); print(h.tokens, h.finish_reason)
+        server.close()          # graceful drain
+
+    ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
+    unless ``device="cpu"`` is passed.  ``install_signal_handler``: SIGTERM
+    drains the server as ``close()`` does (a warned no-op when
+    :meth:`start` runs off the main thread)."""
+
+    def __init__(self, model, config: Optional[ServeConfig] = None, *,
+                 device="cuda", install_signal_handler: bool = True):
+        self.config = config or ServeConfig.from_env()
+        cfg = self.config
+        # structured output: the token vocabulary the grammar compiler
+        # lowers against (token id → decoded text) is an engine constant;
+        # EOS stays per request (compile_grammar wires its column)
+        ccfg = None
+        if cfg.constrain:
+            from tpudist_torch.constrain import (ConstrainConfig,
+                                                 default_vocab)
+
+            ccfg = ConstrainConfig(vocab=default_vocab(int(model.vocab)),
+                                   num_blocks=cfg.constrain_blocks,
+                                   max_states=cfg.constrain_states)
+        self.constrain_cfg = ccfg
+        self.engine = SlotEngine(
+            model, num_slots=cfg.num_slots, prefill_pad=cfg.prefill_pad,
+            decode_block=cfg.decode_block, paged=cfg.paged,
+            kv_block=cfg.kv_block, kv_blocks=cfg.kv_blocks,
+            kv_int8=cfg.kv_int8, prefix_cache_blocks=cfg.prefix_cache_blocks,
+            attn_kernel=cfg.attn_kernel, prefill_kernel=cfg.prefill_kernel,
+            sample_kernel=cfg.sample_kernel, fused_rope=cfg.fused_rope,
+            lora_kernel=cfg.lora_kernel, adapters=cfg.adapters,
+            adapter_blocks=cfg.adapter_blocks,
+            adapter_rank=cfg.adapter_rank,
+            spec_draft=cfg.resolve_spec_draft(model), spec_k=cfg.spec_k,
+            constrain=ccfg, logprobs=cfg.logprobs,
+            mesh=cfg.mesh_config(), device=device)
+        hasher = None
+        if cfg.paged and cfg.prefix_cache_blocks > 0:
+            from tpudist_torch.serve.paged_alloc import hash_chain
+
+            bs = self.engine.paged_cfg.block_size
+            hasher = lambda prompt: hash_chain(prompt, bs)  # noqa: E731
+        self.scheduler = Scheduler(
+            queue_limit=cfg.queue_limit,
+            check_budget=self.engine.check_budget,
+            default_max_new=cfg.max_new,
+            default_deadline_s=cfg.deadline_s,
+            prefix_hasher=hasher,
+            check_adapter=lambda name: (
+                None if self.engine.has_adapter(name)
+                else "adapter_missing"),
+            # compiled outside the scheduler lock; GrammarError subclasses
+            # ValueError, so an uncompilable ask rejects synchronously
+            compile_grammar_fn=(None if ccfg is None else (
+                lambda regex, schema, eos: _compile_grammar_for(
+                    ccfg, regex, schema, eos))),
+            max_logprobs=self.engine.n_lp)
+        self._install_signal = install_signal_handler
+        self._installed_preemption = False
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._draining = False
+        self._slot_handles: Dict[int, RequestHandle] = {}
+        # counters (engine thread writes, stats() reads)
+        self.completed = 0
+        self.tokens_out = 0
+        self._occupancy_sum = 0.0
+        self._steps = 0
+        # -- live observability plane (telemetry.statusz) ------------------
+        self._init_observability()
+        # -- graceful degradation (host tier / preemption / shedding) ------
+        self._init_degradation(self.scheduler)
+        #: re-prefill fallback line: lanes whose parked package was spilled
+        #: or corrupt restart from the prompt ahead of fresh admissions;
+        #: the duplicate-drop counter in ``_skip`` keeps their streams whole
+        self._requeue: "collections.deque[RequestHandle]" = \
+            collections.deque()
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "InferenceServer":
+        if self._thread is not None:
+            raise RuntimeError("server already started")
+        from tpudist_torch import telemetry
+        from tpudist_torch.runtime import faults, preemption
+
+        # chaos harness: arm TPUDIST_FAULT at the serving entry as the
+        # training loops do at theirs
+        faults.arm_from_env()
+        telemetry.ensure_started()
+        # one config-stamp event: the static KV geometry the aggregator
+        # pairs with the per-block occupancy gauges
+        kv = self.engine.kv_stats()
+        telemetry.event(
+            "serve_kv_config", paged=kv["paged"], quantized=kv["quantized"],
+            attn_kernel=kv["attn_kernel"],
+            prefill_kernel=kv["prefill_kernel"],
+            sample_kernel=kv["sample_kernel"],
+            fused_rope=kv["fused_rope"], lora_kernel=kv["lora_kernel"],
+            block_size=kv["block_size"], blocks_total=kv["blocks_total"],
+            pool_bytes=kv["pool_bytes"], bytes_per_pos=kv["bytes_per_pos"],
+            num_slots=self.engine.num_slots, max_len=self.engine.max_len)
+        self._stamp_adapter_config()
+        if self.engine.has_constrain() or self.engine.n_lp:
+            cs = self.engine.constrain_stats()
+            telemetry.event(
+                "serve_constrain_config", enabled=cs["enabled"],
+                blocks=cs.get("blocks"), max_states=cs.get("max_states"),
+                pool_bytes=cs.get("pool_bytes"),
+                logprobs=self.engine.n_lp)
+        self._start_observability()
+        if self._install_signal:
+            # SIGTERM → drain: the same preemption flag the training loop
+            # checkpoints on; off the main thread a warned no-op
+            self._installed_preemption = preemption.install()
+        self._thread = threading.Thread(
+            target=self._loop, name="tpudist-torch-serve", daemon=True)
+        self._thread.start()
+        return self
+
+    def submit(self, prompt, *, max_new: Optional[int] = None,
+               temperature: float = 0.0, deadline_s: Optional[float] = None,
+               seed: Optional[int] = None, eos_id: Optional[int] = None,
+               on_token: Optional[Callable[[int, int], None]] = None,
+               priority: int = 0, adapter: Optional[str] = None,
+               spec: Optional[bool] = None, tenant: Optional[str] = None,
+               session: Optional[str] = None,
+               grammar: Optional[str] = None, json_schema=None, stop=None,
+               logprobs: int = 0) -> RequestHandle:
+        """Thread-safe ingestion; raises
+        :class:`~tpudist_torch.serve.scheduler.AdmissionError` on
+        backpressure or budget rejection.  ``adapter`` names a per-tenant
+        LoRA adapter loaded with :meth:`load_adapter` (else the request
+        rejects ``adapter_missing``).  ``spec=False`` opts the request out
+        of speculative decoding on a spec server (its stream is the plain
+        engine's).
+
+        Structured output: ``grammar`` (a regex over the decoded text) or
+        ``json_schema`` constrains the stream to the grammar's language
+        (needs ``ServeConfig.constrain`` and an ``eos_id``; an
+        uncompilable ask rejects ``invalid_grammar``).  ``stop`` is a list
+        of token-id sequences (a bare int is a one-token sequence) matched
+        on the delivered stream; a match finishes ``stop_sequence`` with
+        the stop tokens kept.  ``logprobs=n`` attaches the top-n
+        ``(token_id, logprob)`` pairs of every token to
+        ``handle.logprobs`` (post-mask on constrained lanes; ``n`` at most
+        ``ServeConfig.logprobs``).  ``tenant`` labels the request in
+        telemetry, the per-tenant metrics and SLO attainment, and the
+        ``/statusz`` in-flight counts.  ``priority`` orders the queue and,
+        with the host tier on, can preempt a lower class's decode lane;
+        ``session`` keys the host-tier multi-turn resume: a prompt that
+        extends a parked session's context token for token imports its KV
+        instead of prefilling it again.  A rejection is stamped into
+        telemetry as ``serve_rejected``."""
+        from tpudist_torch import telemetry
+
+        # count the in-flight BEFORE the handle becomes visible to the
+        # engine thread, so a fast finish cannot decrement first
+        tkey = None if tenant is None else str(tenant)
+        self._track_tenant(tkey, +1)
+        try:
+            return self.scheduler.submit(
+                prompt, max_new=max_new, temperature=temperature,
+                deadline_s=deadline_s, seed=seed, eos_id=eos_id,
+                on_token=on_token, priority=priority, adapter=adapter,
+                spec=spec, grammar=grammar, json_schema=json_schema,
+                stop=stop, logprobs=logprobs, tenant=tenant,
+                session=session)
+        except BaseException as e:
+            # never admitted: give the +1 back
+            self._track_tenant(tkey, -1)
+            if isinstance(e, AdmissionError):
+                telemetry.event("serve_rejected", reason=e.reason)
+            raise
+
+    def drain(self, timeout: Optional[float] = None) -> bool:
+        """Stop admitting, finish everything admitted, stop the loop.
+        True once the engine thread exited (or never ran); with no live
+        loop, queued requests finish ``"shutdown"``."""
+        self._stop.set()
+        t = self._thread
+        ok = True
+        if t is not None:
+            t.join(timeout)
+            ok = not t.is_alive()
+        if ok:
+            self.scheduler.refuse_new("draining")
+            self._abort_outstanding()
+        return ok
+
+    def close(self, timeout: Optional[float] = None) -> bool:
+        """Graceful shutdown (drain) + handler restore."""
+        ok = self.drain(timeout)
+        self._stop_observability()
+        if self._installed_preemption:
+            from tpudist_torch.runtime import preemption
+
+            preemption.reset()
+            self._installed_preemption = False
+        return ok
+
+    def _adapter_engines(self) -> list:
+        return [self.engine]
 
     def _observability_gauges(self) -> Dict[str, float]:
         kv = self.engine.kv_stats()
@@ -1084,7 +1249,7 @@ class InferenceServer:
                 t0 = time.monotonic()
                 info, blocks = eng.decode_auto()
                 if tele is not None and info is not None:
-                    self._record_block(tele, t0, info, occ, active)
+                    self._record_block(tele, eng, t0, info, occ, active)
                 self._occupancy_sum += occ
                 self._steps += 1
                 block_lp = (info or {}).get("logprobs") or {}
@@ -1099,91 +1264,11 @@ class InferenceServer:
             else:
                 sched.wait_for_work(_IDLE_WAIT_S)
 
-    def _record_block(self, tele, t0: float, info: dict, occ: float,
-                      active: int) -> None:
-        """The ``decode_block`` span of one plain block, or the
-        ``spec_verify`` span of a speculative one, with JAX's tags: the
-        block's occupancy and size, its dispatch/sync split, the KV gauges
-        and the bytes its attention streamed (and the acceptance and the
-        draft/verify split of a speculative block)."""
-        kv_occ, kv_resident = self.engine.kv_gauges()
-        tags = {"occupancy": occ, "active": active,
-                "k": info["k"], "tokens": info["tokens"],
-                "dispatch_s": round(info["dispatch_s"], 9),
-                "sync_s": round(info["sync_s"], 9),
-                "kv_block_occupancy": kv_occ,
-                "kv_bytes_resident": kv_resident,
-                "kv_read_bytes": info["kv_read_bytes"]}
-        if info.get("spec"):
-            tags.update(accepted=info["accepted"], drafted=info["drafted"],
-                        rollbacks=info["rollbacks"],
-                        draft_s=round(info["draft_s"], 9),
-                        verify_s=round(info["verify_s"], 9))
-            if info.get("accept_by_adapter"):
-                tags["accept_by_adapter"] = info["accept_by_adapter"]
-            tele.record_span("spec_verify", t0, time.monotonic() - t0, tags)
-        else:
-            tele.record_span("decode_block", t0, time.monotonic() - t0,
-                             tags)
-
     def _deliver_block(self, slot: int, toks: List[int], lp=None) -> None:
-        """Stream a token block to the slot's request, truncating at its
-        stop token, a stop sequence or its length budget (the device block
-        runs past any of them by at most the block size).
-
-        ``lp`` is the block's top-n logprobs rows aligned with ``toks``
-        (absent on prefill-sampled first tokens, which surface None).  A
-        constrained lane walks its grammar's host shadow automaton per
-        delivered token; a token the shadow forbids truncates the stream
-        before delivery and finishes ``grammar_violation`` (the device
-        mask makes that unreachable unless the pool tables and the shadow
-        diverge).  Stop sequences are suffix-matched on the delivered
-        stream, so a match straddling two blocks is found too."""
-        h = self._slot_handles[slot]
-        eos = h.request.eos_id
-        tg = h.request.grammar
-        if self._ctrl is not None:
-            # the fair-share measurement: DELIVERED tokens/s per tenant
-            # (duplicates a fallback lane decodes again are dropped below)
-            delivered = max(0, len(toks) - self._skip.get(h.id, 0))
-            if delivered:
-                self._ctrl.note_tokens(h.request.tenant, delivered)
-        for i, tok in enumerate(toks):
-            skip = self._skip.get(h.id, 0)
-            if skip > 0:
-                # a duplicate of a token delivered before the fallback
-                if skip == 1:
-                    del self._skip[h.id]
-                else:
-                    self._skip[h.id] = skip - 1
-                continue
-            if tg is not None:
-                if not tg.token_allowed(h.gstate, tok):
-                    self._finish_slot(slot, "grammar_violation")
-                    return
-                h.gstate = tg.advance(h.gstate, tok)
-            h._deliver(tok)
-            if h.request.logprobs > 0:
-                n = h.request.logprobs
-                row = lp[i] if lp is not None and i < len(lp) else None
-                h.logprobs.append(None if row is None
-                                  else (row[0][:n], row[1][:n]))
-            self.tokens_out += 1
-            if eos is not None and tok == eos:
-                self._finish_slot(slot, "eos")
-                return
-            if h.request.stop and any(
-                    len(h.tokens) >= len(s)
-                    and tuple(h.tokens[-len(s):]) == s
-                    for s in h.request.stop):
-                self._finish_slot(slot, "stop_sequence")
-                return
-            if len(h.tokens) >= h.request.max_new:
-                # a resumed turn's budget completion is countable from the
-                # finish reasons alone
-                self._finish_slot(slot, "session_resumed" if h.resumed
-                                  else "length")
-                return
+        """Stream a token block to the slot's request
+        (:meth:`_deliver_tokens`)."""
+        self._deliver_tokens(self._slot_handles[slot], toks, lp,
+                             lambda why: self._finish_slot(slot, why))
 
     def _finish_slot(self, slot: int, reason: str) -> None:
         h = self._slot_handles.pop(slot)
@@ -1193,7 +1278,7 @@ class InferenceServer:
             # park the finished turn's lane before the evict zeroes it; a
             # lane whose eos fired mid-block holds tokens past the stream
             # and is not exportable
-            self._park_session_lane(slot, h)
+            self._park_session_lane(self.engine, slot, h)
         self.engine.evict(slot)
         h._finish(reason)
         self._note_finished(h)
@@ -1364,3 +1449,20 @@ class InferenceServer:
                else {}))
         # per-request lifeline spans (req_queue/req_prefill/req_decode)
         trace.emit_request_lifeline(h)
+
+
+def serve_forever(model, config: Optional[ServeConfig] = None, *,
+                  device="cuda"):
+    """Start a server and return it (the embedding entry; the CLI demo in
+    ``__main__`` owns its own loop).  ``config.disagg`` selects the
+    prefill/decode-disaggregated coordinator
+    (:class:`tpudist_torch.serve.disagg.DisaggServer`): the same
+    submit/close surface, two engine pools with a KV handoff behind it.
+    ``device`` as :class:`InferenceServer`'s: without CUDA it raises unless
+    ``device="cpu"``."""
+    cfg = config or ServeConfig.from_env()
+    if cfg.disagg:
+        from tpudist_torch.serve.disagg import DisaggServer
+
+        return DisaggServer(model, cfg, device=device).start()
+    return InferenceServer(model, cfg, device=device).start()
