@@ -385,6 +385,37 @@ order; any failure exits non-zero:
    ``handoff_corrupt``, the rest ``length``, a request after it served.
    Each sub-phase must launch every serving kernel; the phase's launches
    are their sum.
+25. MoE serving and the draft-distillation flywheel
+   (:func:`phase25_moe`, :func:`phase25_flywheel`, after phase 24).  (a)
+   phase 4's widths with ``P25_EXPERTS`` experts a block (random bf16
+   weights drawn on the card; every serving forward runs the dense top-1
+   reference) serve phase 4's 16 requests on the kernel arms: every
+   request ``length``, each greedy lane the model's stream on 4g (a)'s
+   JAX-default arms (no kernel launched there) or a near tie, the paged
+   decode and prefill launched once a layer of each decode step and
+   prefill forward of the burst (phase 4's counts hold the same formula);
+   tokens/s, TTFT, TPOT and peak memory beside phase 4's, one decode
+   block's device time by kernel, and one block's MoE FFN timed at the
+   decode and prefill shapes beside its bound.  (b) the same model on
+   phase 4c's spec server (tied 4-layer draft, K 4), 4c's gates held
+   against (a)'s streams.  (c) the same model over 1x2 places folded onto
+   the card: (a)'s streams or near ties, phase 21's launch formula, the
+   overlap off and the FFN replicated.  (d) phase 4c's spec server on
+   phase 4's model with the capture armed by ``TPUDIST_DISTILL_CAPTURE=1``
+   serves 4c's traffic, then one ``DistillLoop.run_once()``: the flash
+   forward, dq and dk/dv launched as the draft's layers x
+   ``P25_STEPS`` steps (+ 2 holdout forwards) predict and no serving
+   kernel, the target's weights bit-equal; a ``draft_swap_corrupt`` round
+   rejected with the serving draft bit-equal; ``DistillLoop.start()``
+   beside a burst (TPOT with and without the thread); two noised
+   candidates swapped with requests in flight on the kernel arms (greedy
+   lanes held to phase 4's streams or near ties, and compared with the
+   same burst without swaps: ROADMAP C3) and on 4g (d kernel)'s dense
+   arms, whose decode the schedule cannot move (bit for bit against 4g's
+   streams); the slot programs the same object, ``draft_swaps`` 2, the
+   target bit-equal.  (e) phase 24's pools with the spec draft: one swap
+   broadcast to both decode workers in lockstep.  No ``distill_round``
+   event may carry ``reason="error"``.
 
 The entry points that run as subprocesses (phases 10, 12's
 ``demo_model_split``, 13, 14, 15a and 20's Trainer) run together after
@@ -397,7 +428,7 @@ It prints the kernels' JSON record (a kernel with several arms also lists
 each arm's time on the same inputs and its launches on the main path; the
 flash kernels also their phase 17-20 launches and shape times; every
 kernel its phase 21 launches by run and the per-place shapes' times, and
-its phase 22, 23 and 24 launches) and
+its phase 22, 23, 24 and 25 launches) and
 the ``nvidia-smi`` line before the last line, which is the contract line
 ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
@@ -868,6 +899,14 @@ P24_KILL = "serve_worker_kill@call:12,pool:1,worker:0"
 P24_CORRUPT = "handoff_corrupt@nth:2"
 # (a'): two greedy lanes and phase 4's two sampled lanes
 P24_EXACT_LANES = (0, 1) + SAMPLED_LANES
+# phase 25: (a)-(c) phase 4's widths with phase 19's experts a block; (d) a
+# round's Trainer steps, the background loop's cadence, a churn candidate's
+# relative noise and the burst tokens emitted before each swap lands
+P25_EXPERTS = 8
+P25_STEPS, P25_INTERVAL_S, P25_NOISE, P25_SWAP_AT = 10, 2.0, 0.05, 96
+# (e): phase 4's first requests through the disaggregated pools
+P25_DISAGG_REQUESTS = 8
+P25_CORRUPT = "draft_swap_corrupt@nth:1"
 
 
 def log(msg: str) -> None:
@@ -2819,7 +2858,8 @@ def phase4_run(torch, model, gen_seed: int, probe=None):
     requests timed from their submits (launch counts zeroed just before);
     ``probe(server)`` reads what the caller needs before the server
     closes.  Every request must finish ``"length"``.  Returns the handles,
-    the requests, the wall and the probe's result."""
+    the requests, the wall, the probe's result and the engine's decode
+    counters after the warm-up."""
     import numpy as np
 
     from tpudist_torch import ops
@@ -2834,6 +2874,7 @@ def phase4_run(torch, model, gen_seed: int, probe=None):
         if not warm.wait(600) or warm.finish_reason != "length":
             raise AssertionError("warm-up request did not finish")
         torch.cuda.synchronize()
+        warm_decode = dict(server.engine.decode_stats())
         reqs = [(rng.integers(0, V, size=int(rng.integers(1, 301))),
                  int(rng.integers(16, 65))) for _ in range(16)]
         ops.reset_launch_counts()
@@ -2851,7 +2892,7 @@ def phase4_run(torch, model, gen_seed: int, probe=None):
         if h.finish_reason != "length" or len(h.tokens) != n:
             raise AssertionError(f"request {h.id}: {h.finish_reason}, "
                                  f"{len(h.tokens)}/{n} tokens")
-    return handles, reqs, wall, probed
+    return handles, reqs, wall, probed, warm_decode
 
 
 def serve_main_path(torch, model, gen_seed: int):
@@ -2866,7 +2907,11 @@ def serve_main_path(torch, model, gen_seed: int):
             sample_arm_launches=prep_arm_launches(ops.fused_sample_prep),
             stats=server.stats())
 
-    handles, reqs, wall, got = phase4_run(torch, model, gen_seed, probe)
+    held = memory_held(torch)
+    torch.cuda.reset_peak_memory_stats()
+    handles, reqs, wall, got, warm = phase4_run(torch, model, gen_seed,
+                                                probe)
+    peak = torch.cuda.max_memory_allocated()
     counts, prefill_arms, decode_tc, sample_arm_launches, stats = (
         got[k] for k in ("counts", "prefill_arms", "decode_tc",
                          "sample_arm_launches", "stats"))
@@ -2891,7 +2936,8 @@ def serve_main_path(torch, model, gen_seed: int):
         ttft_p50_ms=1e3 * statistics.median(h.ttft_s for h in handles),
         tpot_p50_ms=1e3 * statistics.median(h.tpot_s for h in handles),
         prompt_lens=[len(p) for p, _ in reqs],
-        decode=stats["decode"], launches=counts,
+        peak_mem_gb=peak / 1e9, peak_above_held_gb=(peak - held) / 1e9,
+        decode=stats["decode"], decode_warm=warm, launches=counts,
         prefill_arm_launches=prefill_arms, decode_tc_launches=decode_tc,
         sample_arm_launches=sample_arm_launches,
         streams=[h.tokens for h in handles])
@@ -2905,7 +2951,7 @@ def serve_main_path_off(torch, model, gen_seed: int) -> dict:
 
     telemetry.finish(write_report=False)
     with env_set(TPUDIST_TELEMETRY="0"):
-        handles, _, wall, _ = phase4_run(torch, model, gen_seed)
+        handles, _, wall, _, _ = phase4_run(torch, model, gen_seed)
     tokens = sum(len(h.tokens) for h in handles)
     return dict(
         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
@@ -8124,6 +8170,565 @@ def phase24_serve(torch, model, main_path: dict, card: str) -> dict:
                 kill=brief(kill), corrupt=dict(brief(bad), lane=corrupt[0]))
 
 
+# ---------------------------------------------------------------------------
+# phase 25: MoE serving and the draft-distillation flywheel
+
+
+def p25_hold(what: str, ok: bool, detail) -> None:
+    if not ok:
+        raise AssertionError(f"phase 25 {what}: {detail}")
+
+
+def state_copy(torch, model) -> dict:
+    """A copy of ``model``'s state dict on its device (the bit-equality
+    yardstick of the swaps)."""
+    return {k: t.detach().clone() for k, t in model.state_dict().items()}
+
+
+def weights_equal(torch, model, saved: dict) -> bool:
+    sd = model.state_dict()
+    return set(sd) == set(saved) and all(torch.equal(sd[k], saved[k])
+                                         for k in saved)
+
+
+def checksum(torch, sd: dict) -> float:
+    """The sum of every weight in f64: a short print of a state dict."""
+    return float(sum(t.double().sum() for t in sd.values()))
+
+
+def noised(torch, sd: dict, seed: int) -> dict:
+    """A same-geometry candidate: each float tensor times ``1 +
+    P25_NOISE * N(0, 1)`` from a seeded generator, in its own dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for k, t in sd.items():
+        n = torch.randn(t.shape, generator=gen, device=t.device,
+                        dtype=torch.float32)
+        out[k] = (t.float() * (1 + P25_NOISE * n)).to(t.dtype)
+    return out
+
+
+class EventTap:
+    """Every telemetry event named in ``names`` recorded (``.got``) on its
+    way to the session (``telemetry.event`` wrapped; ``undo()``
+    restores it)."""
+
+    def __init__(self, names):
+        from tpudist_torch import telemetry
+
+        self.mod, self.orig, self.got = telemetry, telemetry.event, []
+
+        def event(name, **fields):
+            if name in names:
+                self.got.append(dict(fields, name=name))
+            return self.orig(name, **fields)
+
+        telemetry.event = event
+
+    def undo(self) -> None:
+        self.mod.event = self.orig
+
+
+def p25_burst(torch, server, reqs, temps=None, spec_on=None, swaps=()):
+    """``reqs`` submitted at once (seed = the lane); each candidate of
+    ``swaps`` handed to ``server.swap_draft`` once the burst has emitted
+    ``P25_SWAP_AT * (i + 1)`` tokens — with requests in flight — and
+    landed by the engine loop between decode blocks.  Returns the
+    handles, the wall, the swaps' records and the launches."""
+    from tpudist_torch import ops
+
+    temps = temps or [0.0] * len(reqs)
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    handles = [server.submit(p, max_new=n, temperature=t, seed=i,
+                             spec=None if spec_on is None else spec_on[i])
+               for i, ((p, n), t) in enumerate(zip(reqs, temps))]
+    infos = []
+    for i, cand in enumerate(swaps):
+        deadline = time.monotonic() + 600
+        while (sum(len(h.tokens) for h in handles) < P25_SWAP_AT * (i + 1)
+               and not all(h.done for h in handles)):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 25: the burst stalled")
+            time.sleep(0.001)
+        infos.append(dict(server.swap_draft(cand), at_tokens=sum(
+            len(h.tokens) for h in handles)))
+    for h in handles:
+        if not h.wait(900):
+            raise AssertionError("phase 25: a request timed out")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(i, h.finish_reason, len(h.tokens))
+           for i, (h, (_, n)) in enumerate(zip(handles, reqs))
+           if h.finish_reason != "length" or len(h.tokens) != n]
+    p25_hold("burst", not bad, f"requests not length: {bad}")
+    tokens = sum(len(h.tokens) for h in handles)
+    return dict(handles=handles, streams=[h.tokens for h in handles],
+                wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+                ttft_p50_ms=1e3 * statistics.median(h.ttft_s
+                                                    for h in handles),
+                tpot_p50_ms=1e3 * statistics.median(
+                    h.tpot_s for h in handles if h.tpot_s is not None),
+                swaps=infos, launches=launches_since(before))
+
+
+def p25_server(torch, model, knobs: dict, disagg: bool = False):
+    """A started server of phase 4's geometry (``P24_CONFIG``'s pools
+    with ``disagg``) with ``knobs``, warmed up with phase 4's warm-up
+    request."""
+    from tpudist_torch.serve import InferenceServer, ServeConfig, \
+        serve_forever
+
+    warm_prompt, _, _, _ = phase4_traffic(7)
+    if disagg:
+        server = serve_forever(model, ServeConfig(**{**P24_CONFIG,
+                                                     **knobs}),
+                               device="cuda")
+    else:
+        server = InferenceServer(model, p23_config(**knobs), device="cuda",
+                                 install_signal_handler=False).start()
+    warm = server.submit(warm_prompt, max_new=9)
+    if not warm.wait(600) or warm.finish_reason != "length":
+        server.close(60)
+        raise AssertionError("phase 25: warm-up request did not finish")
+    return server
+
+
+def spec_delta(after: dict, before: dict) -> dict:
+    """A burst's speculative counters and acceptance from two
+    ``spec_stats()`` readings."""
+    acc = after["accepted"] - before["accepted"]
+    dr = after["drafted"] - before["drafted"]
+    return dict(accepted=acc, drafted=dr,
+                acceptance_rate=acc / dr if dr else None,
+                blocks=after["blocks"] - before["blocks"])
+
+
+def moe_model_of(torch):
+    """Phase 4's widths with ``P25_EXPERTS`` experts a block, random bf16
+    weights drawn on the card from seed 25: lecun-normal as
+    ``create_transformer`` draws them (truncated at 2 sigma, the expert
+    axis in the fan-in), LayerNorm scales 1."""
+    from tpudist_torch.models import TransformerLM
+
+    with torch.device("cuda"):
+        model = TransformerLM(dtype=torch.bfloat16, n_experts=P25_EXPERTS,
+                              **MODEL)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    d, f, e = MODEL["d_model"], MODEL["d_ff"], P25_EXPERTS
+    fan_in = {"moe.w": d * e, "moe.wo": f * e, "proj": d}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("ln"):
+                p.fill_(1.0)
+                continue
+            key = ".".join(name.split(".")[-2:])
+            fan = fan_in.get(key, fan_in.get(name.rsplit(".", 1)[-1], d))
+            std = math.sqrt(1.0 / fan) / 0.87962566103423978
+            t = torch.empty(p.shape, device="cuda")
+            torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                        generator=gen)
+            p.copy_(t)
+    return model.requires_grad_(False)
+
+
+def moe_ffn_ms(torch, moe) -> dict:
+    """One block's MoE FFN (the dense top-1 reference's einsums) at the
+    decode step's 8 tokens and at a 64-token prefill chunk of 8 lanes,
+    timed with CUDA events (L2 flushed), beside its bound: every expert's
+    ``w`` and ``wo`` read once."""
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    blk = moe.blocks[0]
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    for label, tokens in (("decode 8", SLOTS), ("prefill 8x64", SLOTS * P)):
+        h = torch.randn((tokens, 1, MODEL["d_model"]), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        ms = time_ms(torch, lambda: blk.moe(h, dense=True), flush)
+        e, d, f = P25_EXPERTS, MODEL["d_model"], MODEL["d_ff"]
+        nbytes = 2 * e * d * f * 2 + d * e * 2 + 2 * tokens * d * 2
+        flops = 2 * 2 * tokens * e * d * f
+        out[label] = dict(ms=ms, bound=bound(nbytes, flops,
+                                             H100_BF16_FLOPS))
+    return out
+
+
+def phase25_moe(torch, main_path: dict, card: str) -> dict:
+    """Phase 25 (a)-(c): an MoE model of phase 4's widths served."""
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(sub: str) -> None:
+        nonlocal t0
+        t1 = time.perf_counter()
+        walls[sub] = round(t1 - t0, 2)
+        t0 = t1
+
+    moe = moe_model_of(torch)
+    lap("model")
+    out = {"walls_s": walls}
+    # (a) the kernel arms, and 4g (a)'s JAX-default arms as the yardstick
+    a = serve_main_path(torch, moe, 7)
+    dense = serve_arm(torch, moe, DEFAULT_ARMS["a"], 7)
+    p25_hold("(a) dense arms", not any(dense["launches"].values()),
+             f"kernels launched on the dense arms: {dense['launches']}")
+    greedy = [i for i in range(16) if dense["temps"][i] == 0.0]
+    a["equal"], a["near_ties"] = hold_greedy_streams(
+        torch, moe, dense["prompts"], a["streams"], dense["streams"],
+        greedy)
+    def predicted(r: dict) -> dict:
+        """The paged kernels' launches the engine's counters predict for
+        the burst (the warm-up's taken off): one a layer of each decode
+        step, one a layer of each prefill forward."""
+        tf = r["decode"]["forwards"] - r["decode_warm"]["forwards"]
+        td = r["decode"]["steps"] - r["decode_warm"]["steps"]
+        return {"paged_attention": LAYERS * td,
+                "paged_prefill": LAYERS * (tf - td)}
+
+    want = predicted(a)
+    got = {k: a["launches"][k] for k in want}
+    p25_hold("(a) launches", got == want, f"{got}, want {want}")
+    p4_want = predicted(main_path)
+    p25_hold("(a) phase 4's counts", all(
+        main_path["launches"][k] == n for k, n in p4_want.items()),
+        f"phase 4 launched {main_path['launches']}, its formula {p4_want}")
+    steps = a["decode"]["steps"] - a["decode_warm"]["steps"]
+    p25_hold("(a) sampling", a["launches"]["fused_sample"] >= steps,
+             f"fused_sample {a['launches']['fused_sample']} in {steps} "
+             "decode steps")
+    prof = profile_engine(torch, moe)
+    ffn = moe_ffn_ms(torch, moe)
+    block_ms = prof["decode_block"]["device_busy_ms"]
+    # a K = 8 decode block runs every layer's FFN 8 times
+    share = (8 * LAYERS * ffn["decode 8"]["ms"] / block_ms
+             if block_ms else None)
+    log(f"phase 25 (a) MoE ({P25_EXPERTS} experts a block, "
+        f"{sum(p.numel() for p in moe.parameters()) / 1e6:.1f} M "
+        f"parameters bf16) on phase 4's traffic: {a['tokens']} tokens in "
+        f"{a['wall_s']:.3f} s = {a['tokens_per_s']:.1f} tokens/s (phase 4 "
+        f"dense {main_path['tokens_per_s']:.1f}), TTFT p50 "
+        f"{a['ttft_p50_ms']:.2f} ms ({main_path['ttft_p50_ms']:.2f}), TPOT "
+        f"p50 {a['tpot_p50_ms']:.3f} ms ({main_path['tpot_p50_ms']:.3f}), "
+        f"peak memory {a['peak_mem_gb']:.2f} GB, {a['peak_above_held_gb']:.2f}"
+        f" above what was held ({main_path['peak_mem_gb']:.2f} / "
+        f"{main_path['peak_above_held_gb']:.2f}); greedy lanes equal to the "
+        f"JAX-default arms {a['equal']}/{len(greedy)}, near ties "
+        f"{a['near_ties']}; launches {nonzero(a['launches'])} (held: "
+        f"{want}; phase 4 {nonzero(main_path['launches'])}); the dense arms "
+        f"at {dense['tokens_per_s']:.1f} tokens/s ({card})")
+    log(f"phase 25 (a) one MoE FFN (dense top-1 reference) "
+        + ", ".join(f"{k}: {v['ms']:.4f} ms (bound {v['bound'][0]:.4f} ms, "
+                    f"{v['bound'][1]})" for k, v in ffn.items())
+        + f"; a K 8 decode block's device time {block_ms} ms, of it the "
+        f"MoE FFNs ~{share if share is None else round(share, 3)}")
+    log_profile({"phase 25 MoE decode_block": prof["decode_block"],
+                 "phase 25 MoE prefill": prof["prefill"]})
+    out["a"] = dict({k: v for k, v in a.items() if k != "streams"},
+                    dense_arms={k: dense[k] for k in (
+                        "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms")},
+                    ffn=ffn, ffn_share_of_decode_block=share,
+                    profile=prof)
+    lap("a")
+    # (b) spec decoding on the MoE model, held against (a)'s streams
+    b = serve_spec_path(torch, moe, 7, a)
+    log_spec("phase 25 (b) MoE spec path (tied 4-layer draft, K 4)", b,
+             "phase 25 (a)", card)
+    out["b"] = b
+    lap("b")
+    # (c) the serving mesh 1x2, held against (a)'s streams
+    c = mesh_serve_run(torch, moe, "plain", "1x2")
+    c["equal"], c["near_ties"] = hold_greedy_streams(
+        torch, moe, c["prompts"], c["streams"], a["streams"],
+        list(range(16)))
+    want = mesh_launches_want(c)
+    got = {k: c["launches"][k] for k in want}
+    p25_hold("(c) launches", got == want, f"{got}, want {want}")
+    sp = c["spmd"]
+    p25_hold("(c) spmd", sp["tp_overlap"] == "off"
+             and "moe" in sp["replicated"], sp)
+    log(f"phase 25 (c) MoE over 1x2 places folded onto the card: "
+        f"{c['tokens']} tokens in {c['wall_s']:.3f} s = "
+        f"{c['tokens_per_s']:.1f} tokens/s, TTFT p50 {c['ttft_p50_ms']:.2f} "
+        f"ms, TPOT p50 {c['tpot_p50_ms']:.3f} ms; greedy lanes equal to "
+        f"(a)'s {c['equal']}/16, near ties {c['near_ties']}; launches "
+        f"{want}; spmd {sp} ({card})")
+    out["c"] = {k: v for k, v in c.items()
+                if k not in ("streams", "prompts", "names", "temps")}
+    lap("c")
+    log(f"phase 25 (a)-(c) seconds by sub-phase {walls}")
+    launches = {}
+    for r in (a, b, c):
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase25_flywheel(torch, model, main_path: dict, default_runs: dict,
+                     card: str) -> dict:
+    """Phase 25 (d)-(e) on phase 4's model: the capture, a round, swaps
+    under traffic, the corrupt round, the background loop, the
+    disaggregated broadcast."""
+    from tpudist_torch import ops
+    from tpudist_torch.distill import DistillLoop
+    from tpudist_torch.runtime import faults
+
+    _, reqs, temps, spec_on = phase4_traffic(7)
+    prompts = [p for p, _ in reqs]
+    target = state_copy(torch, model)
+    target_sum = checksum(torch, target)
+    tap = EventTap(("distill_round", "draft_swap"))
+    launches = {}
+
+    def add(counts: dict) -> None:
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(sub: str) -> None:
+        nonlocal t0
+        t1 = time.perf_counter()
+        walls[sub] = round(t1 - t0, 2)
+        t0 = t1
+
+    out = {"flywheel_walls_s": walls}
+    try:
+        # (d) setup: phase 4c's spec server, the tap armed from the env
+        with env_set(TPUDIST_DISTILL_CAPTURE="1"):
+            server = p25_server(torch, model, dict(spec=True,
+                                                   spec_k=SPEC_K))
+        try:
+            eng = server.engine
+            p25_hold("(d) capture", server.capture is not None,
+                     "TPUDIST_DISTILL_CAPTURE=1 armed no capture")
+            fns = eng.fns
+            st0 = eng.spec_stats()
+            d1 = p25_burst(torch, server, reqs, temps, spec_on)
+            add(d1["launches"])
+            no_swap_streams = d1["streams"]
+            before = spec_delta(eng.spec_stats(), st0)
+            greedy = [i for i in range(16) if temps[i] == 0.0]
+            d1["equal"], d1["near_ties"] = hold_greedy_streams(
+                torch, model, prompts, d1["streams"], main_path["streams"],
+                greedy)
+            loop = DistillLoop(server, server.capture, steps=P25_STEPS,
+                               interval_s=P25_INTERVAL_S)
+            dl = eng.draft_model.n_layers
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            rnd = loop.run_once()
+            torch.cuda.synchronize()
+            got = ops.launch_counts()
+            add(got)
+            p25_hold("(d) round", rnd["reason"] not in ("min_tokens",
+                                                        "no_draft"), rnd)
+            want = {"flash_forward": dl * (P25_STEPS + 2),
+                    "flash_backward_dq": dl * P25_STEPS,
+                    "flash_backward_dkv": dl * P25_STEPS}
+            p25_hold("(d) round launches", all(
+                got[k] == n for k, n in want.items()) and not any(
+                got[k] for k in SERVE_KERNELS),
+                f"{nonzero(got)}, want {want} ({dl} draft layers x "
+                f"{P25_STEPS} steps, 2 holdout forwards)")
+            p25_hold("(d) target", weights_equal(torch, model, target),
+                     "the target's weights moved in the round")
+            log(f"phase 25 (d) flywheel: phase 4c's traffic on the spec "
+                f"server (capture from TPUDIST_DISTILL_CAPTURE=1: "
+                f"{server.capture.stats()['streams']} streams, "
+                f"{server.capture.stats()['tokens']} tokens), greedy lanes "
+                f"equal phase 4's {d1['equal']}/{len(greedy)}, near ties "
+                f"{d1['near_ties']}; one round ({P25_STEPS} Trainer steps "
+                f"on {rnd.get('train_streams')} streams): {rnd}; launches "
+                f"{nonzero(got)} = held {want}; target checksum "
+                f"{target_sum!r} before and after, bit-equal ({card})")
+            # the corrupt round: rejected, the serving draft untouched
+            draft_before = state_copy(torch, eng.draft_model)
+            faults.arm(P25_CORRUPT)
+            try:
+                bad = loop.run_once()
+            finally:
+                faults.disarm()
+            p25_hold("(d) corrupt", bad.get("fault") == "draft_swap_corrupt"
+                     and not bad["swapped"], bad)
+            p25_hold("(d) corrupt draft", weights_equal(
+                torch, eng.draft_model, draft_before),
+                "the serving draft moved under a rejected round")
+            log(f"phase 25 (d) {P25_CORRUPT}: rejected ({bad['reason']}, "
+                f"candidate acceptance {bad['candidate_acceptance']} vs "
+                f"baseline {bad['baseline']}); serving draft checksum "
+                f"{checksum(torch, draft_before)!r} unchanged, bit-equal")
+            # the thread: a round beside a burst
+            st0 = eng.spec_stats()
+            rounds0 = loop.rounds
+            loop.start()
+            try:
+                d4 = p25_burst(torch, server, reqs, temps, spec_on)
+                deadline = time.monotonic() + 300
+                while loop.rounds == rounds0 or loop.last_round is None \
+                        or loop.last_round.get("round") == rounds0:
+                    p25_hold("(d) thread", time.monotonic() < deadline,
+                             "no round completed in 300 s")
+                    time.sleep(0.01)
+            finally:
+                p25_hold("(d) thread stop", loop.stop(120), "the loop "
+                         "thread did not stop")
+            add(d4["launches"])
+            after = spec_delta(eng.spec_stats(), st0)
+            thread_round = loop.last_round
+            p25_hold("(d) fns", eng.fns is fns, "a swap rebuilt the slot "
+                     "programs")
+            p25_hold("(d) thread target", weights_equal(torch, model,
+                                                        target),
+                     "the target's weights moved")
+            d4["equal"], d4["near_ties"] = hold_greedy_streams(
+                torch, model, prompts, d4["streams"], main_path["streams"],
+                greedy)
+            log(f"phase 25 (d) DistillLoop.start() during phase 4c's burst: "
+                f"{loop.rounds - rounds0} round(s) in the thread, the last "
+                f"{thread_round}; burst TPOT p50 {d4['tpot_p50_ms']:.3f} ms "
+                f"beside {d1['tpot_p50_ms']:.3f} ms without the thread, "
+                f"{d4['tokens_per_s']:.1f} / {d1['tokens_per_s']:.1f} "
+                f"tokens/s; acceptance {before['acceptance_rate']} before the "
+                f"rounds, {after['acceptance_rate']} in this burst; greedy "
+                f"lanes equal phase 4's {d4['equal']}/{len(greedy)}, near "
+                f"ties {d4['near_ties']}; loop {loop.stats()} ({card})")
+            out["d"] = dict(
+                capture=server.capture.stats(), round=rnd,
+                round_launches=got, corrupt=bad, thread_round=thread_round,
+                loop=loop.stats(), acceptance_before=before,
+                acceptance_after=after,
+                serve={k: d1[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                          "tpot_p50_ms", "equal",
+                                          "near_ties")},
+                serve_with_thread={k: d4[k] for k in (
+                    "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms", "equal",
+                    "near_ties")},
+                target_checksum=target_sum)
+        finally:
+            server.close(60)
+        lap("d round, corrupt, thread")
+        # (d) two swaps under traffic: the kernel arms held to phase 4's
+        # streams (a near tie may part a lane: the acceptance moves the
+        # verify windows, ROADMAP C3), the dense arms bit for bit against
+        # phase 4g (d kernel)'s run, whose decode the schedule cannot move
+        churn = {}
+        for arm, knobs, ref in (
+                ("kernel", dict(spec=True, spec_k=SPEC_K), None),
+                ("dense", DEFAULT_ARMS["d kernel"],
+                 default_runs["d kernel"]["streams"])):
+            server = p25_server(torch, model, knobs)
+            try:
+                eng = server.engine
+                fns = eng.fns
+                _, sd = server.draft_ref()
+                cands = [noised(torch, sd, 250 + i) for i in range(2)]
+                st0 = eng.spec_stats()
+                r = p25_burst(torch, server, reqs, temps, spec_on,
+                              swaps=cands)
+                add(r["launches"])
+                r["acceptance"] = spec_delta(eng.spec_stats(), st0)
+                p25_hold(f"(d) churn {arm}", eng.draft_swaps == 2
+                         and eng.fns is fns
+                         and all(i["swapped"] for i in r["swaps"]),
+                         f"draft_swaps {eng.draft_swaps}, {r['swaps']}")
+                p25_hold(f"(d) churn {arm} target", weights_equal(
+                    torch, model, target), "the target's weights moved")
+                p25_hold(f"(d) churn {arm} draft", weights_equal(
+                    torch, eng.draft_model, cands[1]),
+                    "the serving draft is not the last candidate")
+                if ref is None:
+                    r["equal"], r["near_ties"] = hold_greedy_streams(
+                        torch, model, prompts, r["streams"],
+                        main_path["streams"], greedy)
+                    # ROADMAP C3: did a swap move a stream?  The same
+                    # server and traffic without swaps, (d)'s first burst
+                    r["moved_by_swaps"] = [
+                        i for i in greedy
+                        if r["streams"][i] != no_swap_streams[i]]
+                else:
+                    differ = [i for i in greedy
+                              if r["streams"][i] != ref[i]]
+                    p25_hold(f"(d) churn {arm}", not differ,
+                             f"greedy lanes {differ} moved across the "
+                             "swaps")
+                    r["equal"], r["near_ties"] = len(greedy), []
+            finally:
+                server.close(60)
+            moved = ("" if ref is not None else
+                     f"; greedy lanes moved against (d)'s burst without "
+                     f"swaps: {r['moved_by_swaps']}")
+            log(f"phase 25 (d) two swaps under traffic, {arm} arms: "
+                + str([{k: i[k] for k in ("lanes_rearmed", "swap_s",
+                                          "at_tokens")}
+                       for i in r["swaps"]])
+                + f"; greedy lanes equal {r['equal']}/{len(greedy)} to "
+                + ("phase 4's" if ref is None else "phase 4g (d kernel)'s")
+                + f" (near ties {r['near_ties']}){moved}, acceptance "
+                f"{r['acceptance']}, slot programs the same object, "
+                f"draft_swaps 2, target bit-equal ({card})")
+            churn[arm] = {k: r[k] for k in ("swaps", "equal", "near_ties",
+                                            "acceptance", "tokens_per_s",
+                                            "tpot_p50_ms", "moved_by_swaps")
+                          if k in r}
+        out["churn"] = churn
+        lap("d churn")
+        # (e) the disaggregated flavour: the broadcast over 2 decode workers
+        server = p25_server(torch, model, dict(spec=True, spec_k=SPEC_K),
+                            disagg=True)
+        try:
+            _, sd = server.draft_ref()
+            n = P25_DISAGG_REQUESTS
+            r = p25_burst(torch, server, reqs[:n], temps[:n], spec_on[:n],
+                          swaps=[noised(torch, sd, 260)])
+            add(r["launches"])
+            info = r["swaps"][0]
+            counts = [e.draft_swaps for e in server.decode_pool]
+            logical = server.stats()["decode_pool"]["spec"]["draft_swaps"]
+            p25_hold("(e)", info["engines"] == 2 and counts == [1, 1]
+                     and logical == 1, f"{info}, workers {counts}, pool "
+                     f"{logical}")
+            p25_hold("(e) target", weights_equal(torch, model, target),
+                     "the target's weights moved")
+            lanes = [i for i in greedy if i < n]
+            r["equal"], r["near_ties"] = hold_greedy_streams(
+                torch, model, prompts, r["streams"], main_path["streams"],
+                lanes)
+        finally:
+            server.close(60)
+        log(f"phase 25 (e) DisaggServer (1 prefill + 2 decode workers, spec "
+            f"K 4): the swap broadcast {info}, workers' draft_swaps "
+            f"{counts}, the pool's {logical}; phase 4's first {n} "
+            f"requests, greedy lanes equal phase 4's {r['equal']}/"
+            f"{len(lanes)}, near ties {r['near_ties']}; "
+            f"{r['tokens_per_s']:.1f} tokens/s ({card})")
+        out["e"] = dict(swap=info, workers=counts, equal=r["equal"],
+                        near_ties=r["near_ties"],
+                        tokens_per_s=r["tokens_per_s"])
+        lap("e")
+        log(f"phase 25 (d)-(e) seconds by sub-phase {walls}")
+    finally:
+        tap.undo()
+        # the rounds' Trainer fits initialized this one-process job's
+        # runtime (a single-process context, cached); the fits' teardown
+        # lets the later phases start their own launch contracts
+        from tpudist_torch.trainer import Trainer
+
+        Trainer.teardown()
+    errors = [e for e in tap.got if e["name"] == "distill_round"
+              and e.get("reason") == "error"]
+    p25_hold("events", not errors, f"distill_round errors {errors}")
+    out["events"] = dict(
+        distill_round=sum(e["name"] == "distill_round" for e in tap.got),
+        draft_swap=sum(e["name"] == "draft_swap" for e in tap.got))
+    out["flywheel_launches"] = launches
+    return out
+
+
 def phase4_server_run(torch, model, knobs: dict, reqs, temps) -> dict:
     """Phase 4's single server with ``knobs``, warmed up, serving ``reqs``
     at ``temps`` (seed = the lane): the yardstick of phase 24 (a')."""
@@ -8384,6 +8989,11 @@ def main(argv=None) -> int:
     mark("phase 23")
     disagg = phase24_serve(torch, model, main_path, card)
     mark("phase 24")
+    p25 = phase25_moe(torch, main_path, card)
+    p25.update(phase25_flywheel(torch, model, main_path, default_runs, card))
+    p25["launches"] = {k: p25["launches"].get(k, 0) + n for k, n in
+                       p25.pop("flywheel_launches").items()}
+    mark("phase 25")
     del model, cpu_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -8667,6 +9277,9 @@ def main(argv=None) -> int:
         kernels[-1]["phase23"] = int(degrade["launches"].get(name, 0))
         # phase 24: the launches of the disaggregated runs
         kernels[-1]["phase24"] = int(disagg["launches"].get(name, 0))
+        # phase 25: the launches of the MoE serving runs and the flywheel
+        # (its serving runs, the rounds' draft training and scoring)
+        kernels[-1]["phase25"] = int(p25["launches"].get(name, 0))
         if name == "fused_sample":
             # the grammar arm on the constrained server (phase 4e's launches)
             # and at phase 3's grammar cases (the planned arm)
@@ -8706,7 +9319,7 @@ def main(argv=None) -> int:
                   serve_mesh=mesh, robustness=dict(
                       train=robust_train, serve=robust_serve,
                       watchdog=entry["watchdog"]), degradation=degrade,
-                  disaggregation=disagg,
+                  disaggregation=disagg, moe_and_distill=p25,
                   timeline=timeline,
                   smoke_wall_s=time.perf_counter() - t_start)
     if args.out:

@@ -2177,3 +2177,111 @@ def test_disagg_server_on_the_card(cuda, handoff):
     assert (st["handoff_bytes"] > 0) == (handoff == "serial")
     for name in ("paged_attention", "paged_prefill", "fused_sample"):
         assert counts[name] > 0, counts
+
+
+def _small_lm(cuda, dtype, **extra):
+    from tpudist_torch.models import create_transformer
+
+    return create_transformer(0, device=cuda, dtype=dtype, vocab=256,
+                              d_model=256, n_layers=2, n_heads=2, d_ff=512,
+                              max_len=256, rope=True, **extra)
+
+
+def _serve_on(server, reqs, swaps=()):
+    """``reqs`` (prompt, max_new, temperature) on a started server, each
+    candidate of ``swaps`` landed once the burst has emitted 8 more
+    tokens; the streams, the swaps' records and the server's stats."""
+    import time
+
+    try:
+        hs = [server.submit(p, max_new=n, temperature=t, seed=i)
+              for i, (p, n, t) in enumerate(reqs)]
+        infos = []
+        for i, cand in enumerate(swaps):
+            deadline = time.monotonic() + 300
+            while (sum(len(h.tokens) for h in hs) < 8 * (i + 1)
+                   and not all(h.done for h in hs)):
+                assert time.monotonic() < deadline
+                time.sleep(0.001)
+            infos.append(server.swap_draft(cand))
+        assert all(h.wait(300) for h in hs)
+        return [h.tokens for h in hs], infos, server.stats()
+    finally:
+        assert server.close(60)
+
+
+def test_moe_engine_on_the_card(cuda):
+    """An f32 MoE model (4 experts a block, a ``moe_fn``-free top-1 FFN)
+    served on the kernel arms — the paged decode, the paged prefill and
+    the sampling prep — emits the greedy streams of its JAX-default arms
+    on the card (the dense cache, the teacher-forced prefill, the unfused
+    tail; no kernel launched there)."""
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    model = _small_lm(cuda, torch.float32, n_experts=4)
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, 256, size=int(n)), 16, 0.0)
+            for n in (5, 40, 70, 100)]
+    geom = dict(num_slots=4, prefill_pad=32, kv_block=16, decode_block=4)
+    reset_launch_counts()
+    want, _, _ = _serve_on(InferenceServer(model, ServeConfig(
+        paged=False, attn_kernel="gather", prefill_kernel=False,
+        sample_kernel=False, **geom), device=cuda,
+        install_signal_handler=False).start(), reqs)
+    assert not any(launch_counts().values())
+    reset_launch_counts()
+    got, _, st = _serve_on(InferenceServer(
+        model, ServeConfig(**geom), device=cuda,
+        install_signal_handler=False).start(), reqs)
+    counts = launch_counts()
+    assert got == want
+    for name in ("paged_attention", "paged_prefill", "fused_sample"):
+        assert counts[name] > 0, counts
+    assert st["kv"]["blocks_in_use"] == 0
+
+
+@pytest.mark.parametrize("arms", ["kernel f32", "dense bf16"])
+def test_draft_swap_on_the_card(cuda, arms):
+    """Two noised same-geometry drafts swapped into a spec server with
+    requests in flight: the target's weights bit-equal, the slot programs
+    the same object, the draft the last candidate, and the greedy streams
+    those of the run before the swaps — bit for bit on the dense arms,
+    whose decode the block schedule cannot move, and on the kernel arms in
+    f32, where a moved verify window rounds below any gap between two
+    logits."""
+    from tpudist_torch.serve import InferenceServer, ServeConfig
+
+    dtype = torch.float32 if arms == "kernel f32" else torch.bfloat16
+    model = _small_lm(cuda, dtype)
+    knobs = (dict(paged=False, attn_kernel="gather", prefill_kernel=False,
+                  sample_kernel=True) if arms == "dense bf16" else {})
+    cfg = ServeConfig(num_slots=4, prefill_pad=32, kv_block=16,
+                      decode_block=4, spec=True, spec_draft_layers=1,
+                      spec_k=4, **knobs)
+    rng = np.random.default_rng(6)
+    reqs = [(rng.integers(0, 256, size=int(n)), 24, 0.0)
+            for n in (5, 40, 70, 100)]
+    target = {k: v.clone() for k, v in model.state_dict().items()}
+    want, _, _ = _serve_on(InferenceServer(model, cfg, device=cuda,
+                                           install_signal_handler=False)
+                           .start(), reqs)
+    server = InferenceServer(model, cfg, device=cuda,
+                             install_signal_handler=False).start()
+    eng, fns = server.engine, server.engine.fns
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    _, sd = server.draft_ref()
+    cands = [{k: (v.float() * (1 + 0.05 * torch.randn(
+        v.shape, generator=gen, device=cuda))).to(v.dtype)
+        for k, v in sd.items()} for _ in range(2)]
+    reset_launch_counts()
+    got, infos, st = _serve_on(server, reqs, cands)
+    assert got == want
+    assert [i["draft_swaps"] for i in infos] == [1, 2]
+    assert st["spec"]["draft_swaps"] == 2 and eng.fns is fns
+    assert all(torch.equal(v, target[k])
+               for k, v in model.state_dict().items())
+    assert all(torch.equal(v, cands[1][k])
+               for k, v in eng.draft_model.state_dict().items())
+    counts = launch_counts()
+    assert counts["fused_residual_prep"] > 0
+    assert (counts["paged_attention"] > 0) == (arms == "kernel f32")

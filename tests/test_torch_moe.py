@@ -21,8 +21,9 @@ step's ``aux`` and ``moe_balance_weight``, ``demo_long_context
 - ``demo_long_context --moe_experts 8 --moe_topk 2 --moe_balance 0.01``
   against the JAX demo in process (data 1 x model 8): the ``loss/lm`` and
   ``moe/*`` rows.
-- The refusals: the flags' guards, the compressed reduce, serving and
-  adapters, tensor parallelism of an MoE model.
+- The refusals: the flags' guards, the compressed reduce, adapters;
+  tensor parallelism of an MoE model; and ``make_slot_decode`` of an MoE
+  model, which now decodes as JAX's ``generate()`` does.
 """
 
 import jax
@@ -39,6 +40,7 @@ from torch_cases import settled_torch_cpu
 from torch_launch import metric_rows
 from tpudist.models.transformer import TransformerLM as JaxLM
 from tpudist.models.transformer import create_transformer as jax_create
+from tpudist.models import generate as jax_generate
 from tpudist.models.transformer import dense_moe_reference as \
     jax_dense_reference
 from tpudist.models.transformer import moe_expert_fn as jax_expert_fn
@@ -245,10 +247,27 @@ def test_dense_model_aux_is_empty_and_refusals():
     with pytest.raises(ValueError, match="grad_reduce_dtype"):
         make_lm_train_step(model, opt, grad_reduce_dtype=torch.bfloat16,
                            moe_balance_weight=0.01)
+    # serving an MoE model is ported: make_slot_decode's dense programs
+    # decode as JAX's (the dense top-1 reference), greedy tokens equal
+    jmod, jparams = jax_create(jax.random.PRNGKey(3), seq_len=16, **LM)
     moe = TransformerLM(param_dtype=torch.float32, **LM)
-    with pytest.raises(NotImplementedError, match="A6c"):
-        make_slot_decode(moe, 2, 8, None, attn_kernel="gather",
-                         prefill_kernel=False)
+    moe.load_state_dict(params_from_flax(jax.tree.map(np.asarray, jparams)))
+    moe.requires_grad_(False)
+    fns = make_slot_decode(moe, 2, 8, None, attn_kernel="gather",
+                           prefill_kernel=False)
+    prompts = np.random.default_rng(1).integers(
+        0, LM["vocab"], (2, 5)).astype(np.int32)
+    want = np.asarray(jax_generate(jmod, jparams, jnp.asarray(prompts),
+                                   6))[:, 5:]
+    eng = SlotEngine(moe, num_slots=2, prefill_pad=8, paged=False,
+                     device="cpu")
+    assert type(eng.fns) is type(fns)
+    out = {s: [t] for s, t in eng.start_batch(
+        [(s, prompts[s], 0.0, s, 6) for s in range(2)]).items()}
+    while any(len(v) < 6 for v in out.values()):
+        for s, toks in eng.decode_auto()[1].items():
+            out[s].extend(toks)
+    np.testing.assert_array_equal([out[0][:6], out[1][:6]], want)
     with pytest.raises(ValueError, match="MoE"):
         SlotEngine(moe, adapters=True, paged=False, device="cpu")
     opt, _ = build_optimizer(moe.parameters(), LR)

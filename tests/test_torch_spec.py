@@ -328,13 +328,24 @@ def test_budget_edges(models):
 
 
 def test_unported_spec_pieces_raise(models):
-    """``swap_draft`` (the distillation hot-swap) still raises naming its
-    queue A item; ``draft_arm`` is ported with the lane transfer: it maps
-    an imported lane's row and cold-starts its draft cursor at ``pos``."""
+    """Both pieces once unported are ported: ``swap_draft`` (the
+    distillation hot-swap) checks the candidate's geometry and swaps a
+    same-geometry one, leaving the target's weights as they were;
+    ``draft_arm`` (with the lane transfer) maps an imported lane's row and
+    cold-starts its draft cursor at ``pos``."""
     _, model = models
     eng = SlotEngine(model, spec_draft=1, **ENGINE_KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="geometry"):
         eng.swap_draft({})
+    target = {k: v.clone() for k, v in model.state_dict().items()}
+    cand = {k: v * 0.5 for k, v in eng.draft_model.state_dict().items()}
+    info = eng.swap_draft(cand)
+    assert info["swapped"] and info["draft_swaps"] == 1
+    assert info["lanes_rearmed"] == 0  # no lane was occupied
+    assert all(torch.equal(v, target[k])
+               for k, v in model.state_dict().items())
+    assert all(torch.equal(v, cand[k])
+               for k, v in eng.draft_model.state_dict().items())
     M = eng.max_len // eng.paged_cfg.block_size
     row = torch.full((M,), eng.paged_cfg.num_blocks, dtype=torch.int32)
     row[:2] = torch.tensor([3, 5])

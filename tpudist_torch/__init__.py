@@ -9,3 +9,5 @@ tpudist_torch.train``), the toy data-parallel demo (``python -m
 tpudist_torch.examples.demo``) and its bench (``python -m
 tpudist_torch.bench``).
 """
+
+from tpudist_torch.version import __version__  # noqa: F401

@@ -34,6 +34,12 @@ runs fixed-shape over all slots: idle lanes compute too, and the
   a per-request stream keyed by ``(seed, count)`` — independent of the
   slot, the neighbours and the block size.
 
+A model with an MoE FFN serves on every arm through the dense top-1
+reference (:func:`~tpudist_torch.models.transformer.dense_moe_reference`,
+routing in f32, ties to the lower expert), whatever ``moe_fn`` it carries
+from training: the serving contexts never call it, as the JAX programs
+clone ``moe_fn=None``.
+
 With ``fused_rope`` the kernel arms' QKV projection and rotation run as one
 kernel; with ``adapters`` every forward reads each lane's LoRA factors
 from the adapter pool through its ``SlotState.adapter_id`` (the kernel
@@ -76,13 +82,6 @@ from tpudist_torch.models.transformer import (CacheFullError,
 from tpudist_torch.ops import fused_residual_prep, fused_sample_prep
 from tpudist_torch.ops.fused_sample import (fused_residual_reference,
                                             fused_sample_reference)
-
-def moe_serving_unported() -> NotImplementedError:
-    """The refusal of a model with an MoE FFN on every serving path."""
-    return NotImplementedError(
-        "serving a model with an MoE FFN (A6c's expert layer) is not "
-        "ported yet: ROADMAP queue A, item A8")
-
 
 def filter_logits(logits: torch.Tensor, *, temperature: float = 1.0,
                   top_k: Optional[int] = None,
@@ -1016,8 +1015,6 @@ def make_slot_decode(model, num_slots: int, prefill_pad: int,
             "lora_kernel=True rides the slot-batched kernel programs only "
             "— enable attn_kernel='paged' and/or prefill_kernel=True (the "
             "dense and gather programs take pre-gathered factors)")
-    if getattr(model, "n_experts", 0) > 0:
-        raise moe_serving_unported()
     if num_slots < 1:
         raise ValueError(f"num_slots must be >= 1, got {num_slots}")
     n_lp = int(logprobs)

@@ -35,9 +35,11 @@ The two serving arms carry two more seams:
 
 The FFN is the dense ``wi``/``wo`` pair, or, with ``n_experts > 0``, a
 routed MoE (:class:`MoEFFN`: the expert-parallel layer ``moe_fn`` of
-:func:`tpudist_torch.parallel.make_moe`, else :func:`dense_moe_reference`),
-or an injected ``mlp_fn(params, x)`` over the pair's kernels (the
-overlapped FSDP MLP, :func:`tpudist_torch.parallel.overlap_fsdp_mlp`).  The
+:func:`tpudist_torch.parallel.make_moe`, else :func:`dense_moe_reference`;
+every serving context runs the dense reference, as the JAX decode modules
+clone ``moe_fn`` away), or an injected ``mlp_fn(params, x)`` over the
+pair's kernels (the overlapped FSDP MLP,
+:func:`tpudist_torch.parallel.overlap_fsdp_mlp`).  The
 MoE layers' statistics of a forward are collected by :func:`sown_stats`
 (the JAX model's sown ``intermediates``).
 
@@ -147,13 +149,15 @@ class MoEFFN(nn.Module):
         self.wo = nn.Parameter(torch.empty(n_experts, d_ff, d_model,
                                            dtype=param_dtype))
 
-    def forward(self, h: torch.Tensor):
+    def forward(self, h: torch.Tensor, dense: bool = False):
+        """``(y, stats)`` of ``h [b, s, d]``; ``dense`` runs the dense
+        reference whatever ``moe_fn`` is (the serving forwards)."""
         b, s, d = h.shape
         dt = self.dtype
         params = {"router": self.router.to(dt),
                   "experts": {"w": self.w.to(dt), "wo": self.wo.to(dt)}}
         tokens = h.reshape(b * s, d).to(dt)
-        if self.moe_fn is None:
+        if self.moe_fn is None or dense:
             return dense_moe_reference(params, tokens).reshape(b, s, d), None
         y, stats = self.moe_fn(params, tokens)
         return y.reshape(b, s, d), stats
@@ -213,6 +217,10 @@ class _Causal:
 
     fused_rope = False
     adapters = None
+    #: an MoE block runs its ``moe_fn`` here; every other context (the
+    #: serving arms) runs the dense reference.  Off on an instance, the
+    #: training forward is the JAX ``moe_fn=None`` clone's
+    moe_routed = True
 
     def __init__(self, rope: bool, window: Optional[int]):
         self.rope = rope
@@ -615,7 +623,8 @@ class Block(nn.Module):
         x = x + F.linear(attn.to(dtype), self.proj.to(dtype))
         h = layer_norm(x, self.ln2)
         if self.n_experts > 0:
-            y, stats = self.moe(h)
+            y, stats = self.moe(h, dense=not getattr(ctx, "moe_routed",
+                                                     False))
             if stats is not None and self.sow is not None:
                 self.sow.append(stats)
             return x + y
@@ -687,6 +696,8 @@ class PlacedLM:
     ``wi_places`` places and gathered after GELU, ``wo`` runs once — or,
     with ``mlp_fn`` (:func:`~tpudist_torch.serve.spmd.
     serve_overlap_mlp_fn`), ``wi`` and ``wo`` both split over the ring.
+    An MoE block's FFN (router and expert stacks) stays whole and runs
+    the dense reference once.
     ``head`` is split over ``head_places`` places and the logits gathered.
     A count of 1 keeps that piece whole: it runs once on the first place.
     Adapters split ``b_qkv`` and ``b_wi`` with their weights
@@ -802,6 +813,10 @@ class PlacedLM:
         x = x + F.linear(attn.to(dtype), blk.proj.to(dtype))
         h = layer_norm(x, blk.ln2).to(dtype)
         a0 = None if ads is None else ads[0]
+        if blk.n_experts > 0:
+            # the MoE FFN stays whole (JAX splits only the 2-D qkv, wi and
+            # head kernels): the dense reference, once
+            return x + blk.moe(h, dense=True)[0]
         if self.mlp_fn is not None:
             return x + self.mlp_fn([w.t() for w in pw["wi"]],
                                    [w.t() for w in pw["wo"]], h)

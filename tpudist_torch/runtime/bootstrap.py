@@ -284,7 +284,8 @@ def initialize(ctx: Optional[ProcessContext] = None, *,
     one process, ``MASTER_ADDR:MASTER_PORT`` when set, else a free local
     port).  A second gloo group serves the host fabric (:func:`host_group`).
     A single-process launch initializes nothing.  Idempotent: a second call
-    returns the context of the first.
+    returns the context of the first, and a process group the process
+    already holds is joined as it is (never destroyed and rebuilt).
 
     As in JAX the fault grammar is armed and the telemetry session started
     here, and the group's rendezvous is retried with jittered exponential
@@ -306,6 +307,12 @@ def initialize(ctx: Optional[ProcessContext] = None, *,
 
     faults.arm_from_env()
     telemetry.ensure_started()
+    if dist.is_initialized():
+        # a group this process already holds (a caller's own
+        # init_process_group; a Trainer inside a serving process): join
+        # it, never tear it down and build another
+        _INITIALIZED_CTX = ctx
+        return ctx
     if ctx.launch_source != "single":
         from tpudist_torch.utils.envutil import env_float
 

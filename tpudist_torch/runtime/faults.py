@@ -82,7 +82,7 @@ _SCHEMA: Dict[str, tuple] = {
     # the router's Nth probe tick (default 1 = the first tick after
     # arming).
     "replica_kill": ({"nth"}, {"nth", "tick", "rank"}),
-    # online draft distillation (tpudist.distill): garble the Nth
+    # online draft distillation (tpudist_torch.distill): garble the Nth
     # distillation round's CANDIDATE params pre-gate — the held-out
     # eval must reject it and the serving draft stays untouched (a
     # wrong draft can only cost speed, never bytes, but the gate
@@ -432,11 +432,11 @@ def inject_replica_kill(tick: int) -> Optional[int]:
 
 
 def inject_draft_swap(round_idx: int) -> bool:
-    """Distillation-round injection point (:func:`tpudist.distill.swap.
-    maybe_corrupt_candidate`), consulted once per round with the
+    """Distillation-round injection point (:func:`tpudist_torch.distill.
+    swap.maybe_corrupt_candidate`), consulted once per round with the
     candidate in hand: a due ``draft_swap_corrupt`` fires on its
     ``nth`` offered candidate and returns True — the CALLER garbles
-    the candidate's params (this module stays jax-free), and the
+    the candidate's weights (this module stays torch-free), and the
     held-out gate must then reject it (the chaos test's assertion).
     ``round_idx`` is informational (logged)."""
     if _PLAN is None:

@@ -389,6 +389,7 @@ class DisaggServer(_Observability):
                 "serve_constrain_config", enabled=cs["enabled"],
                 blocks=cs.get("blocks"), max_states=cs.get("max_states"),
                 pool_bytes=cs.get("pool_bytes"), logprobs=de0.n_lp)
+        self._arm_capture_from_env()
         self._start_observability()
         if self._install_signal:
             self._installed_preemption = preemption.install()
@@ -458,28 +459,55 @@ class DisaggServer(_Observability):
     # -- the draft hot-swap (the decode pool owns the drafts) ---------------
 
     def draft_ref(self):
-        raise NotImplementedError(
-            "the draft hot-swap of tpudist.distill is not ported to "
-            "tpudist_torch yet (ROADMAP.md queue A item A8.5)")
+        alive = self._alive("decode")
+        if not alive:
+            return None
+        eng = self.decode_pool[alive[0]]
+        if eng.draft_model is None:
+            return None
+        return (eng.draft_model, eng.draft_model.state_dict())
 
     def _swap_now(self, new_params) -> dict:
-        raise NotImplementedError(
-            "the draft hot-swap of tpudist.distill is not ported to "
-            "tpudist_torch yet (ROADMAP.md queue A item A8.5)")
+        """Broadcast the gated swap across every ALIVE decode worker —
+        all-or-error like the adapter broadcast: the first engine checks
+        the geometry (the same draft on every worker, so a pass there is a
+        pass everywhere), and a divergent pool can never decode two
+        different drafts (the handoff re-bind would make acceptance
+        unattributable)."""
+        alive = self._alive("decode")
+        if not alive:
+            raise RuntimeError("no alive decode worker to swap into")
+        t0 = time.monotonic()
+        rearmed = 0
+        swaps = 0
+        for w in alive:
+            info = self.decode_pool[w].swap_draft(new_params)
+            rearmed += int(info.get("lanes_rearmed", 0))
+            swaps = info.get("draft_swaps", swaps)
+        out = {"swapped": True, "lanes_rearmed": rearmed,
+               "swap_s": round(time.monotonic() - t0, 6),
+               "draft_swaps": swaps, "engines": len(alive)}
+        self._note_swap(out)
+        return out
 
     # -- stats and the live plane -------------------------------------------
 
     def _agg_spec_stats(self) -> dict:
         """The decode pool's ``spec_stats()`` summed: counters, rates
-        recomputed from the sums, per-adapter acceptance merged."""
+        recomputed from the sums, per-adapter acceptance merged, the swap
+        count (the broadcast keeps the workers' counters in lockstep: the
+        pool's logical count is their maximum, not their sum)."""
         keys = ("blocks", "lane_passes", "tokens", "accepted", "drafted",
                 "rollbacks", "draft_s", "verify_s", "sync_s")
-        spec = {"enabled": self.decode_pool[0].spec, **{k: 0 for k in keys}}
+        spec = {"enabled": self.decode_pool[0].spec, **{k: 0 for k in keys},
+                "draft_swaps": 0}
         by_adapter: dict = {}
         for eng in self.decode_pool:
             st = eng.spec_stats()
             for k in keys:
                 spec[k] += st.get(k, 0) or 0
+            spec["draft_swaps"] = max(spec["draft_swaps"],
+                                      int(st.get("draft_swaps", 0) or 0))
             for name, row in (st.get("by_adapter") or {}).items():
                 tot = by_adapter.setdefault(
                     name, {"accepted": 0, "drafted": 0})
@@ -569,6 +597,9 @@ class DisaggServer(_Observability):
                                 "logprobs": de0.n_lp}}
                if de0.has_constrain() or de0.n_lp else {}),
             **({"spec": self._agg_spec_stats()} if de0.spec else {}),
+            # the distillation flywheel's capture ledger (absent when off)
+            **({"distill": self._distill_status()}
+               if self._capture is not None else {}),
             "world": env_int("TPUDIST_NUM_PROCESSES", None),
             "generation": env_int("TPUDIST_RESTART_COUNT", 0),
             "draining": self._draining,
@@ -779,6 +810,10 @@ class DisaggServer(_Observability):
         while True:
             self._beat = time.monotonic()  # /healthz heartbeat
             self._check_die()  # hard-stop poison (kill / replica_kill)
+            # gated draft hot-swap lands HERE — the coordinator loop is the
+            # only dispatcher into the decode pool, so a broadcast between
+            # iterations lands between decode blocks on every worker at once
+            self._apply_pending_swap()
             if not self._draining and self._should_drain():
                 self._draining = True
                 sched.refuse_new("draining")
@@ -1438,6 +1473,10 @@ class DisaggServer(_Observability):
         self._tier_oversize.discard(h.id)
         self.completed += 1
         self._track_tenant(h.request.tenant, -1)
+        if self._capture is not None:
+            # the distillation flywheel's tap: the finished stream is the
+            # training example (bounded ring, drops counted)
+            self._capture.offer_handle(h)
         if h.decode_segments and h.decode_segments[-1][2] is None:
             h.decode_segments[-1][2] = h.t_done
         telemetry.event(

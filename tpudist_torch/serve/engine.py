@@ -41,20 +41,22 @@ never desyncs from the target.
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from tpudist_torch import ops
 from tpudist_torch.constrain import (ConstrainConfig, GrammarError,
                                      GrammarRegistry, compile_cache_stats)
 from tpudist_torch.models import lora as _lora
-from tpudist_torch.models.generate import (make_slot_decode,
-                                           moe_serving_unported)
+from tpudist_torch.models.generate import make_slot_decode
 from tpudist_torch.models.paged import PagedKVConfig, PagedLane
-from tpudist_torch.models.transformer import (TransformerLM, resolve_device,
+from tpudist_torch.models.transformer import (PlacedLM, TransformerLM,
+                                              resolve_device,
                                               tied_draft)
 from tpudist_torch.serve.adapters import (AdapterMissingError,
                                           AdapterRegistry)
@@ -76,6 +78,19 @@ InsertItem = Tuple[int, np.ndarray, float, int, int]
 def _tensors(t) -> list:
     """A tensor, or a placed cache's tuple of them, as a list."""
     return list(t) if isinstance(t, tuple) else [t]
+
+
+def _own_modules(module: nn.Module) -> nn.Module:
+    """A shallow copy of ``module`` whose parameter, buffer and submodule
+    tables are its own (the submodules copied alike): assigning to it
+    leaves ``module`` as it is, while the tensors stay shared until
+    replaced."""
+    out = copy.copy(module)
+    out._parameters = dict(module._parameters)
+    out._buffers = dict(module._buffers)
+    out._modules = {k: None if m is None else _own_modules(m)
+                    for k, m in module._modules.items()}
+    return out
 
 
 def _pow2_floor(k: int) -> int:
@@ -191,11 +206,12 @@ class SlotEngine:
             self._mesh_cfg = cfg
             self.mesh = spmd.build_serve_mesh(cfg, self.device)
         if self.mesh is not None:
-            if getattr(model, "n_experts", 0) > 0:
-                raise moe_serving_unported()
             self.tp_overlap = spmd.resolve_serve_overlap(self._mesh_cfg)
             mlp_fn = None
-            if self.tp_overlap != "off" and not adapters:
+            # the MoE FFN owns the mlp seam: its router and expert stacks
+            # stay whole on every place (JAX forces the overlap off too)
+            if (self.tp_overlap != "off" and not adapters
+                    and getattr(model, "n_experts", 0) == 0):
                 # the ring needs both FFN weights split; the fused
                 # overlapped MLP hides the wi/wo seam adapters wrap
                 mlp_fn = spmd.serve_overlap_mlp_fn(self.mesh,
@@ -315,6 +331,14 @@ class SlotEngine:
                                     constrain=constrain, logprobs=self.n_lp,
                                     places=self.places,
                                     draft_places=draft_places)
+        #: the draft's places under a mesh (the programs hold them): a
+        #: swap re-cuts their weights in place
+        self._draft_places = draft_places
+        #: whether the draft's modules are its own (a swap's first step:
+        #: a tied draft's blocks are the target's)
+        self._draft_owned = False
+        #: applied draft hot-swaps (:meth:`swap_draft`)
+        self.draft_swaps = 0
         #: the block allocator (None on the dense engine: a free slot is
         #: the whole admission budget)
         self.alloc: Optional[BlockAllocator] = None
@@ -439,6 +463,7 @@ class SlotEngine:
             "verify_s": self.t_spec_verify_s,
             "sync_s": self.t_spec_sync_s,
             "spec_k": self.spec_k if self.spec else None,
+            "draft_swaps": self.draft_swaps,
         }
         if self.spec and self.spec_adapter_counts:
             out["by_adapter"] = {
@@ -457,15 +482,18 @@ class SlotEngine:
         TP-overlap routing mode, and where the parameter bytes live; plus
         ``replicated``, the pieces a ``model`` axis above 1 leaves whole
         because it does not divide them (``attention``: ``n_kv``, so
-        ``qkv`` and the KV; ``wi``; ``head``) and ``slots`` where ``data``
+        ``qkv`` and the KV; ``wi``; ``head``; ``moe``, an MoE model's
+        router and expert stacks, always) and ``slots`` where ``data``
         does not divide the dense arena's slots.  Trivial on a
         single-device engine."""
         if self.mesh is None:
             return {"mesh": None, "tp_overlap": "off"}
         d, m = self._mesh_cfg.dims
         pl = self.places
+        moe = getattr(self.model, "n_experts", 0) > 0
         whole = [name for name, n in (("attention", pl.attn_places),
-                                      ("wi", pl.wi_places),
+                                      ("moe", 1) if moe
+                                      else ("wi", pl.wi_places),
                                       ("head", pl.head_places))
                  if m > 1 and n == 1]
         if self.alloc is None and d > 1 and self.num_slots % d:
@@ -475,10 +503,87 @@ class SlotEngine:
                 "tp_overlap": self.tp_overlap,
                 **self._spmd_param_stats, "replicated": whole}
 
-    def swap_draft(self, new_params):
-        raise NotImplementedError(
-            "swap_draft (the draft hot-swap of tpudist.distill) is not "
-            "ported to tpudist_torch yet (ROADMAP.md queue A item 8)")
+    # -- speculative draft hot-swap (tpudist_torch.distill) ----------------
+
+    def swap_draft(self, new_params) -> Dict[str, object]:
+        """Replace the serving draft's weights with a same-geometry
+        candidate ``new_params`` (a state dict of the draft's names) — a
+        weight update: the slot programs call the draft module, so no
+        program is rebuilt (``fns`` stays the same object) and no kernel
+        is built.
+
+        The geometry is ASSERTED, not assumed: the names, shapes and dtypes
+        must equal the serving draft's state dict (``ValueError`` naming
+        the first mismatch).  The first swap gives the draft modules and
+        parameters of its own — a tied draft's blocks, embeddings and head
+        are the target's, which stay as they are; each later swap replaces
+        the draft's parameters again.  Each tensor lands on the serving
+        copy's device and dtype; under a mesh the draft's places are cut
+        anew from it (never the target's views).  Then every OCCUPIED
+        lane's draft context is re-armed through ``draft_arm`` (cursor at
+        the lane's target position over a cold context: the import_slot
+        precedent — a cold draft context can only lower acceptance, never
+        correctness).  Greedy output does not depend on the draft: the
+        target verify is the oracle (on the kernel arms the acceptance
+        moves the verify windows, whose rounding may part a stream at a
+        near tie, ROADMAP C3).
+
+        Single-threaded by the engine contract — callers on another thread
+        go through ``InferenceServer.swap_draft``, which lands the swap
+        between decode blocks."""
+        if not self.spec:
+            raise RuntimeError("engine built without spec_draft")
+        t0 = time.perf_counter()
+        draft = self.draft_model
+        ref = draft.state_dict()
+        if not isinstance(new_params, Mapping) \
+                or set(new_params) != set(ref):
+            got = sorted(new_params) if isinstance(new_params, Mapping) \
+                else type(new_params).__name__
+            raise ValueError(
+                "draft swap geometry mismatch: candidate names != serving "
+                f"draft's ({got} vs {sorted(ref)})")
+        new = {name: torch.as_tensor(new_params[name]) for name in ref}
+        for name, r in ref.items():
+            n = new[name]
+            if tuple(n.shape) != tuple(r.shape) or n.dtype != r.dtype:
+                raise ValueError(
+                    f"draft swap geometry mismatch: {name} "
+                    f"{tuple(n.shape)}/{n.dtype} != serving "
+                    f"{tuple(r.shape)}/{r.dtype}")
+        if not self._draft_owned:
+            draft.blocks = nn.ModuleList(_own_modules(b)
+                                         for b in draft.blocks)
+            self._draft_owned = True
+        with torch.no_grad():
+            for name, r in ref.items():
+                path, _, leaf = name.rpartition(".")
+                owner = draft.get_submodule(path) if path else draft
+                setattr(owner, leaf, nn.Parameter(
+                    torch.empty_like(r).copy_(new[name]),
+                    requires_grad=False))
+        dp = self._draft_places
+        if dp is not None:
+            fresh = PlacedLM(draft, dp.devices, attn_places=dp.attn_places,
+                             wi_places=dp.wi_places,
+                             head_places=dp.head_places,
+                             wo_places=dp.wo_places, mlp_fn=dp.mlp_fn)
+            dp.blocks, dp.head = fresh.blocks, fresh.head
+        rearmed = 0
+        for slot in range(self.num_slots):
+            if not self.occupied[slot]:
+                continue
+            pos = int(self.pos[slot])
+            if self.alloc is not None:
+                self.dcache = self.fns.draft_arm(
+                    self.dcache, slot, self.dcache.table[slot].clone(), pos)
+            else:
+                self.dcache = self.fns.draft_arm(self.dcache, slot, pos)
+            rearmed += 1
+        self.draft_swaps += 1
+        return {"swapped": True, "lanes_rearmed": rearmed,
+                "swap_s": time.perf_counter() - t0,
+                "draft_swaps": self.draft_swaps}
 
     def _bytes_per_pos(self) -> float:
         """Resident KV bytes per cached position: the pool's (int8 and

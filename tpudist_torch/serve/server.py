@@ -282,8 +282,9 @@ class _Observability:
     ``/statusz`` registered against the process endpoint, the
     ``slo_config`` stamp — the hard stop (``kill``), the fleet's session
     hooks, graceful degradation (the host tier, shedding, the parked
-    lanes), per-tenant in-flight accounting, and the adapter surface,
-    broadcast over every engine of the flavour."""
+    lanes), per-tenant in-flight accounting, the adapter surface,
+    broadcast over every engine of the flavour, and the distillation
+    capture tap and draft hot-swap."""
 
     _statusz_name = "serve"
 
@@ -314,6 +315,17 @@ class _Observability:
         #: threads both write)
         self._tenant_inflight: Dict[str, int] = {}
         self._tenant_lock = threading.Lock()
+        #: live-traffic capture ring (tpudist_torch.distill) — both
+        #: flavours' ``_note_finished`` offer through it when attached;
+        #: None = disarmed (one attribute load + None check on the finish
+        #: seam)
+        self._capture = None
+        #: pending draft hot-swap (tpudist_torch.distill): a cross-thread
+        #: ``swap_draft`` posts here and the ENGINE loop applies it
+        #: between decode blocks — the slot programs only ever run a
+        #: consistent draft
+        self._swap_req: Optional[dict] = None
+        self._swap_lock = threading.Lock()
 
     def _start_observability(self) -> None:
         from tpudist_torch import telemetry
@@ -568,6 +580,105 @@ class _Observability:
                 self._tenant_inflight.pop(key, None)
             else:
                 self._tenant_inflight[key] = n
+
+    # -- online draft distillation (tpudist_torch.distill) ------------------
+    # Shared by both server flavours: one capture tap, one hot-swap surface.
+    # The swap itself is per flavour (_swap_now): one engine here, a
+    # decode-pool broadcast on the disaggregated coordinator.
+
+    def attach_capture(self, capture) -> None:
+        """Attach a :class:`tpudist_torch.distill.CaptureBuffer`: every
+        finished request's (prompt, emitted) stream is offered to it from
+        ``_note_finished`` (greedy and sampled lanes, tenant/adapter tags
+        riding along).  ``start()`` attaches one when
+        ``TPUDIST_DISTILL_CAPTURE`` is on."""
+        self._capture = capture
+
+    @property
+    def capture(self):
+        return self._capture
+
+    def draft_ref(self) -> Optional[tuple]:  # per flavour
+        """``(draft_model, its current state dict)`` of the serving draft,
+        or ``None`` on a non-spec server — what the distillation lane
+        warm-starts from and scores against."""
+        raise NotImplementedError
+
+    def _swap_now(self, new_params) -> dict:  # per flavour
+        raise NotImplementedError
+
+    def swap_draft(self, new_params,
+                   timeout: Optional[float] = 60.0) -> dict:
+        """Hot-swap the speculative draft's weights — the gated landing.
+
+        Same geometry required (the engine raises on any name/shape/dtype
+        mismatch).  Thread-safe: with the engine loop running, the request
+        parks in ``_swap_req`` and the LOOP applies it at its next
+        iteration top — between decode blocks by construction, so no slot
+        program ever runs half-swapped — and this caller blocks until it
+        lands (``TimeoutError`` past ``timeout``).  Without a live loop
+        (before ``start()``, or tests driving ``step()`` by hand) the swap
+        applies directly."""
+        t = self._thread
+        if t is None or not t.is_alive():
+            return self._swap_now(new_params)
+        req = {"params": new_params, "done": threading.Event(),
+               "result": None, "error": None}
+        with self._swap_lock:
+            if self._swap_req is not None:
+                raise RuntimeError("a draft swap is already pending")
+            self._swap_req = req
+        if not req["done"].wait(timeout):
+            with self._swap_lock:
+                if self._swap_req is req:
+                    self._swap_req = None
+            raise TimeoutError(
+                f"draft swap not applied within {timeout}s (engine loop "
+                "stalled?)")
+        if req["error"] is not None:
+            raise req["error"]
+        return req["result"]
+
+    def _apply_pending_swap(self) -> None:
+        """Engine-loop seam (iteration top — between decode blocks): apply
+        a parked swap and wake its poster.  One attribute load + None check
+        when idle, like every other loop tax."""
+        req = self._swap_req
+        if req is None:
+            return
+        try:
+            req["result"] = self._swap_now(req["params"])
+        except BaseException as e:  # the poster gets the error, the
+            req["error"] = e        # serving loop survives it
+        finally:
+            with self._swap_lock:
+                self._swap_req = None
+            req["done"].set()
+
+    def _note_swap(self, info: dict) -> None:
+        """The ``draft_swap`` event + counter feed, emitted by the flavour
+        ``_swap_now`` implementations on an APPLIED swap."""
+        from tpudist_torch import telemetry
+
+        telemetry.event("draft_swap",
+                        lanes_rearmed=info.get("lanes_rearmed"),
+                        swap_s=info.get("swap_s"),
+                        draft_swaps=info.get("draft_swaps"),
+                        **({"engines": info["engines"]}
+                           if "engines" in info else {}))
+
+    def _distill_status(self) -> dict:
+        """The ``/statusz`` ``distill`` block (capture attached only): the
+        capture ledger — drops counted, never silent."""
+        return {"capture": self._capture.stats()}
+
+    def _arm_capture_from_env(self) -> None:
+        """``TPUDIST_DISTILL_CAPTURE`` arms the live-traffic tap at the
+        same entry the faults grammar arms at (an attached ring stays)."""
+        if self._capture is None:
+            from tpudist_torch.distill.capture import CaptureBuffer
+
+            self._capture = CaptureBuffer.from_env()
 
     def _statusz_doc(self) -> dict:  # per flavour
         raise NotImplementedError
@@ -868,6 +979,7 @@ class InferenceServer(_Observability):
                 blocks=cs.get("blocks"), max_states=cs.get("max_states"),
                 pool_bytes=cs.get("pool_bytes"),
                 logprobs=self.engine.n_lp)
+        self._arm_capture_from_env()
         self._start_observability()
         if self._install_signal:
             # SIGTERM → drain: the same preemption flag the training loop
@@ -962,6 +1074,17 @@ class InferenceServer(_Observability):
     def _adapter_engines(self) -> list:
         return [self.engine]
 
+    def draft_ref(self) -> Optional[tuple]:
+        if self.engine.draft_model is None:
+            return None
+        return (self.engine.draft_model,
+                self.engine.draft_model.state_dict())
+
+    def _swap_now(self, new_params) -> dict:
+        info = self.engine.swap_draft(new_params)
+        self._note_swap(info)
+        return info
+
     def _observability_gauges(self) -> Dict[str, float]:
         kv = self.engine.kv_stats()
         return {
@@ -1009,6 +1132,9 @@ class InferenceServer(_Observability):
                                 "logprobs": eng.n_lp}}
                if eng.has_constrain() or eng.n_lp else {}),
             **({"spec": eng.spec_stats()} if eng.spec else {}),
+            # the distillation flywheel's capture ledger (absent when off)
+            **({"distill": self._distill_status()}
+               if self._capture is not None else {}),
             # host-tier occupancy and the overload state (absent when off)
             **({"host_tier": {**self._tier.stats(),
                               "parked_requests": len(self._parked),
@@ -1211,6 +1337,9 @@ class InferenceServer(_Observability):
         while True:
             self._beat = time.monotonic()  # /healthz heartbeat
             self._check_die()  # hard-stop poison (kill / replica_kill)
+            # gated draft hot-swap lands HERE — between decode blocks by
+            # construction (the loop is the only decode dispatcher)
+            self._apply_pending_swap()
             if not self._draining and self._should_drain():
                 self._draining = True
                 sched.refuse_new("draining")
@@ -1434,6 +1563,10 @@ class InferenceServer(_Observability):
         self._tier_oversize.discard(h.id)
         self.completed += 1
         self._track_tenant(h.request.tenant, -1)
+        if self._capture is not None:
+            # the distillation flywheel's tap: the finished stream is the
+            # training example (bounded ring, drops counted)
+            self._capture.offer_handle(h)
         telemetry.event(
             "request_finished", id=h.id, reason=h.finish_reason,
             prompt_len=int(len(h.request.prompt)), tokens_out=len(h.tokens),
